@@ -1,0 +1,119 @@
+"""Model configuration for the PyTorch port.
+
+Mirrors `megatron_clip_tpu/config.py` (Precision, TransformerCfg, VisionCfg,
+TextCfg, CLIPCfg) with torch dtypes in place of jnp ones. Only the fields the
+ViT CLIP serving path reads are kept (no layer scale, no pooling choice,
+no ln_pre or causal-mask switch, no text-projection bias: `create_model`
+rejects those keys until the slice that needs them); the mesh configs
+(ParallelCfg, BranchParallelCfg) come with the parallelism slice.
+"""
+from dataclasses import dataclass, field
+
+import torch
+
+
+_DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16}
+
+
+@dataclass(frozen=True)
+class Precision:
+    """Mixed-precision policy. Params live in `param_dtype`; matmuls and
+    activations run in `compute_dtype`; layernorm, softmax and the final
+    feature normalisation are computed in fp32."""
+
+    param_dtype: str = "float32"
+    compute_dtype: str = "bfloat16"
+
+    @property
+    def compute_torch(self) -> torch.dtype:
+        return _DTYPES[self.compute_dtype]
+
+
+FP32 = Precision(param_dtype="float32", compute_dtype="float32")
+BF16 = Precision(param_dtype="float32", compute_dtype="bfloat16")
+
+
+@dataclass(frozen=True)
+class TransformerCfg:
+    """Hyperparameters of one pre-LN transformer stack."""
+
+    layers: int
+    width: int
+    heads: int
+    mlp_ratio: float = 4.0
+    act: str = "gelu"  # gelu | gelu_tanh | quick_gelu
+
+    @property
+    def head_dim(self) -> int:
+        if self.width % self.heads:
+            raise ValueError(f"width {self.width} not divisible by heads "
+                             f"{self.heads}")
+        return self.width // self.heads
+
+    @property
+    def mlp_hidden(self) -> int:
+        return int(round(self.width * self.mlp_ratio))
+
+
+@dataclass(frozen=True)
+class VisionCfg:
+    """Vision tower; field names match open_CLIP's CLIPVisionCfg."""
+
+    layers: int = 12
+    width: int = 768
+    head_width: int = 64
+    mlp_ratio: float = 4.0
+    patch_size: int = 16
+    image_size: int = 224
+
+    @property
+    def heads(self) -> int:
+        return self.width // self.head_width
+
+    @property
+    def grid(self) -> int:
+        if self.image_size % self.patch_size:
+            raise ValueError(f"image_size {self.image_size} not divisible by "
+                             f"patch_size {self.patch_size}")
+        return self.image_size // self.patch_size
+
+    @property
+    def seq_len(self) -> int:
+        return self.grid * self.grid + 1  # +1 class token
+
+    def transformer(self, act: str) -> TransformerCfg:
+        return TransformerCfg(layers=self.layers, width=self.width,
+                              heads=self.heads, mlp_ratio=self.mlp_ratio,
+                              act=act)
+
+
+@dataclass(frozen=True)
+class TextCfg:
+    """Text tower; field names match open_CLIP's CLIPTextCfg."""
+
+    context_length: int = 77
+    vocab_size: int = 49408
+    width: int = 512
+    heads: int = 8
+    layers: int = 12
+    mlp_ratio: float = 4.0
+
+    def transformer(self, act: str) -> TransformerCfg:
+        return TransformerCfg(layers=self.layers, width=self.width,
+                              heads=self.heads, mlp_ratio=self.mlp_ratio,
+                              act=act)
+
+
+@dataclass(frozen=True)
+class CLIPCfg:
+    """Two-tower model config (open_CLIP model_configs/*.json schema)."""
+
+    embed_dim: int = 512
+    vision: VisionCfg = field(default_factory=VisionCfg)
+    text: TextCfg = field(default_factory=TextCfg)
+    quick_gelu: bool = False  # OpenAI checkpoints use x*sigmoid(1.702x)
+    init_logit_scale: float = 2.659260036932778  # ln(1/0.07)
+
+    @property
+    def act(self) -> str:
+        return "quick_gelu" if self.quick_gelu else "gelu"

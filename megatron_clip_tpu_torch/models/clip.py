@@ -1,0 +1,90 @@
+"""The two-tower CLIP model.
+
+Counterpart of `megatron_clip_tpu/models/clip.py` (`init_clip`,
+`encode_image`, `encode_text`, `apply_clip`) for ViT towers: the ViT vision
+tower, the text transformer and a learned temperature `logit_scale`,
+initialised to ln(1/0.07) and clamped to ln(100) at use. Features are
+L2-normalised in fp32. The ResNet, ConvNeXt, Swin, HF-text and CoCa branches
+come with later slices.
+"""
+import math
+from typing import Optional
+
+import numpy as np
+import torch
+from torch import nn
+
+from megatron_clip_tpu_torch.config import BF16, CLIPCfg, Precision
+from megatron_clip_tpu_torch.models.text import TextTransformer
+from megatron_clip_tpu_torch.models.vit import VisionTransformer
+
+LOGIT_SCALE_MAX = math.log(100.0)
+
+
+def _l2_normalize(x: torch.Tensor, eps: float = 1e-12) -> torch.Tensor:
+    """F.normalize semantics, computed in fp32."""
+    xf = x.float()
+    return xf / torch.linalg.vector_norm(xf, dim=-1, keepdim=True).clamp_min(eps)
+
+
+def _as_tensor(x, device, dtype=None) -> torch.Tensor:
+    if isinstance(x, np.ndarray):
+        x = torch.from_numpy(np.ascontiguousarray(x))
+    return torch.as_tensor(x, device=device, dtype=dtype)
+
+
+class CLIPModel(nn.Module):
+    """Both towers, the temperature and the precision policy. Parameter
+    names mirror the JAX pytree (`visual.*`, `text.*`, `logit_scale`).
+
+    The encode methods take numpy arrays or tensors (images NHWC float, text
+    ids [B, S] int), move them to the model's device, run the towers in the
+    policy's compute dtype and return fp32 features there. They run without
+    autograd: the kernels' backward halves come with the train-step slice."""
+
+    def __init__(self, cfg: CLIPCfg, precision: Precision = BF16,
+                 generator: Optional[torch.Generator] = None):
+        super().__init__()
+        self.cfg = cfg
+        self.precision = precision
+        self.visual = VisionTransformer(cfg.vision, cfg.embed_dim, cfg.act,
+                                        generator)
+        self.text = TextTransformer(cfg.text, cfg.embed_dim, cfg.act,
+                                    generator)
+        self.logit_scale = nn.Parameter(
+            torch.tensor(cfg.init_logit_scale, dtype=torch.float32))
+
+    @property
+    def device(self) -> torch.device:
+        return self.logit_scale.device
+
+    @property
+    def context_length(self) -> int:
+        return self.cfg.text.context_length
+
+    @torch.no_grad()
+    def encode_image(self, images, normalize: bool = True) -> torch.Tensor:
+        """images [B, H, W, C] -> fp32 features [B, embed_dim]."""
+        f = self.visual(_as_tensor(images, self.device),
+                        self.precision.compute_torch)
+        return _l2_normalize(f) if normalize else f.float()
+
+    @torch.no_grad()
+    def encode_text(self, text_ids, normalize: bool = True) -> torch.Tensor:
+        """text_ids [B, S] -> fp32 features [B, embed_dim]."""
+        f = self.text(_as_tensor(text_ids, self.device, torch.long),
+                      self.precision.compute_torch)
+        return _l2_normalize(f) if normalize else f.float()
+
+    @torch.no_grad()
+    def forward(self, images, text_ids) -> dict:
+        """Either tower may be None. The dict open_CLIP's CLIP.forward
+        returns: normalised features and exp(min(logit_scale, ln 100))."""
+        out = {}
+        if images is not None:
+            out["image_features"] = self.encode_image(images)
+        if text_ids is not None:
+            out["text_features"] = self.encode_text(text_ids)
+        out["logit_scale"] = torch.exp(
+            self.logit_scale.clamp(max=LOGIT_SCALE_MAX))
+        return out

@@ -1,0 +1,85 @@
+"""Pre-LN transformer stack as nn.Modules.
+
+Counterpart of `megatron_clip_tpu/nn/transformer.py`. The JAX package stacks
+each block's leaves on a leading layer axis and runs them with `lax.scan`;
+here each layer is its own `ResidualBlock` in a `Transformer` (a ModuleList),
+run by a Python loop. Parameter names mirror the JAX pytree
+(`blocks.{i}.attn.wqkv`, `blocks.{i}.ln_1.scale`, ...) and weights keep its
+[in, out] layout, applied as `x @ w` (see `bridge.py`).
+
+Initialisation follows open_CLIP's scheme: attn_std = width**-0.5,
+proj_std = width**-0.5 * (2*layers)**-0.5, fc_std = (2*width)**-0.5, zero
+biases. Each block's forward is ln_1 -> attn -> (+) -> ln_2 -> mlp -> (+).
+"""
+from typing import Optional
+
+import torch
+from torch import nn
+
+from megatron_clip_tpu_torch.config import TransformerCfg
+from megatron_clip_tpu_torch.ops import get_act, layer_norm, multi_head_attention
+from megatron_clip_tpu_torch.ops.dense import dense
+
+
+def normal_param(shape, std: float, gen: Optional[torch.Generator]) -> nn.Parameter:
+    return nn.Parameter(torch.randn(*shape, generator=gen) * std)
+
+
+def layer_norm_params(width: int) -> nn.ParameterDict:
+    return nn.ParameterDict({"scale": nn.Parameter(torch.ones(width)),
+                             "bias": nn.Parameter(torch.zeros(width))})
+
+
+def apply_norm(p, x: torch.Tensor) -> torch.Tensor:
+    return layer_norm(x, p["scale"], p["bias"])
+
+
+class ResidualBlock(nn.Module):
+    """One pre-LN residual block."""
+
+    def __init__(self, cfg: TransformerCfg,
+                 generator: Optional[torch.Generator] = None):
+        super().__init__()
+        self.cfg = cfg
+        w, hidden = cfg.width, cfg.mlp_hidden
+        proj_std = (w ** -0.5) * ((2 * cfg.layers) ** -0.5)
+        attn_std = w ** -0.5
+        fc_std = (2 * w) ** -0.5
+        qkv_out = 3 * cfg.heads * cfg.head_dim
+        self.ln_1 = layer_norm_params(w)
+        self.attn = nn.ParameterDict({
+            "wqkv": normal_param((w, qkv_out), attn_std, generator),
+            "bqkv": nn.Parameter(torch.zeros(qkv_out)),
+            "wo": normal_param((cfg.heads * cfg.head_dim, w), proj_std, generator),
+            "bo": nn.Parameter(torch.zeros(w)),
+        })
+        self.ln_2 = layer_norm_params(w)
+        self.mlp = nn.ParameterDict({
+            "w1": normal_param((w, hidden), fc_std, generator),
+            "b1": nn.Parameter(torch.zeros(hidden)),
+            "w2": normal_param((hidden, w), proj_std, generator),
+            "b2": nn.Parameter(torch.zeros(w)),
+        })
+
+    def forward(self, x: torch.Tensor, causal: bool = False) -> torch.Tensor:
+        """x: [B, S, W] in the compute dtype."""
+        h = apply_norm(self.ln_1, x)
+        x = x + multi_head_attention(h, self.attn, self.cfg.heads,
+                                     causal=causal)
+        h = apply_norm(self.ln_2, x)
+        h = get_act(self.cfg.act)(dense(h, self.mlp["w1"], self.mlp["b1"]))
+        return x + dense(h, self.mlp["w2"], self.mlp["b2"])
+
+
+class Transformer(nn.ModuleList):
+    """`cfg.layers` residual blocks, run in order."""
+
+    def __init__(self, cfg: TransformerCfg,
+                 generator: Optional[torch.Generator] = None):
+        super().__init__([ResidualBlock(cfg, generator)
+                          for _ in range(cfg.layers)])
+
+    def forward(self, x: torch.Tensor, causal: bool = False) -> torch.Tensor:
+        for block in self:
+            x = block(x, causal=causal)
+        return x
