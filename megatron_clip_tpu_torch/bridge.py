@@ -16,6 +16,9 @@ unstacked into `blocks.{i}`:
   text/tok_embed, pos_embed               text.tok_embed, text.pos_embed
   text/ln_final/{scale,bias}, proj/w      text.ln_final.scale, text.proj.w
   logit_scale  []                         logit_scale
+
+The same flattening carries an optax state's moments (`opt_state_from_jax`)
+and maps a JAX gradient tree onto the port's names.
 """
 from typing import Any, Dict, Union
 
@@ -23,6 +26,7 @@ import numpy as np
 import torch
 
 from megatron_clip_tpu_torch.config import CLIPCfg
+from megatron_clip_tpu_torch.training.optim import OptState
 
 
 def _flatten(tree, prefix: str, out: dict) -> None:
@@ -63,6 +67,39 @@ def params_from_jax(tree: Dict[str, Any], cfg: CLIPCfg,
                              f"config says {layers}")
     return {k: torch.from_numpy(np.array(v)).to(device, dtype)
             for k, v in out.items()}
+
+
+def _nodes(tree):
+    yield tree
+    if isinstance(tree, (tuple, list)):
+        for child in tree:
+            yield from _nodes(child)
+
+
+def opt_state_from_jax(opt_state, cfg: CLIPCfg, like: OptState) -> OptState:
+    """The optax state of the JAX package's `make_optimizer` (AdamW, with or
+    without clipping) -> the port's `OptState`: ScaleByAdamState's count,
+    mu and nu (flattened onto the port's names as `params_from_jax` does
+    the parameters) and the learning-rate schedule's count. Tensors take
+    the dtype and device of `like`'s (the port optimizer's `init()`)."""
+    nodes = list(_nodes(opt_state))
+    adam = [n for n in nodes if getattr(n, "_fields", None) == ("count", "mu",
+                                                                 "nu")]
+    sched = [n for n in nodes if getattr(n, "_fields", None) == ("count",)]
+    if len(adam) != 1 or len(sched) != 1:
+        raise ValueError("expected one ScaleByAdamState and one "
+                         f"ScaleByScheduleState, found {len(adam)} and "
+                         f"{len(sched)}")
+    moments = []
+    for tree, into in ((adam[0].mu, like.mu), (adam[0].nu, like.nu)):
+        flat = params_from_jax(tree, cfg)
+        if flat.keys() != into.keys():
+            raise ValueError("optimizer state names differ from the port's: "
+                             f"{sorted(set(flat) ^ set(into))[:5]}")
+        moments.append({n: t.to(into[n]) for n, t in flat.items()})
+    return OptState(count=int(np.asarray(adam[0].count)), mu=moments[0],
+                    nu=moments[1],
+                    schedule_count=int(np.asarray(sched[0].count)))
 
 
 def _blocks_from_openclip(sd: Dict[str, np.ndarray], prefix: str,

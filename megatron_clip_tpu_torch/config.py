@@ -25,12 +25,18 @@ class Precision:
     compute_dtype: str = "bfloat16"
 
     @property
+    def param_torch(self) -> torch.dtype:
+        return _DTYPES[self.param_dtype]
+
+    @property
     def compute_torch(self) -> torch.dtype:
         return _DTYPES[self.compute_dtype]
 
 
 FP32 = Precision(param_dtype="float32", compute_dtype="float32")
 BF16 = Precision(param_dtype="float32", compute_dtype="bfloat16")
+# open_CLIP --precision pure_bf16: the weights themselves in bf16
+PURE_BF16 = Precision(param_dtype="bfloat16", compute_dtype="bfloat16")
 
 
 @dataclass(frozen=True)

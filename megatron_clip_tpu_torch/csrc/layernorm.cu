@@ -1,26 +1,43 @@
-// LayerNorm forward: y = (x - mean) * rsqrt(var + eps) * scale + bias.
+// LayerNorm forward, y = (x - mean) * rsqrt(var + eps) * scale + bias, and
+// its backward.
 //
 // Replaces the TPU kernel megatron_clip_tpu/ops/pallas/layernorm.py::
-// fused_layer_norm (body _ln_kernel with rms=False, pallas_call in _ln_fwd).
-// On the CLIP path it carries ln_pre, ln_1, ln_2, ln_post and ln_final.
+// fused_layer_norm (forward body _ln_kernel with rms=False, pallas_call in
+// _ln_fwd) and its VJP rule _fln_bwd, which is jnp in the JAX package and a
+// kernel here. On the CLIP path they carry ln_pre, ln_1, ln_2, ln_post and
+// ln_final.
 //
-// Contract. x [rows, W] contiguous, fp32 or bf16; scale and bias [W] fp32;
-// y [rows, W] in x's dtype. Mean and variance in fp32 (variance of the
-// centred row, as the TPU kernel computes it), normalise, times scale plus
-// bias in fp32, one rounding to x's dtype. Any row count: no padding of the
-// rows to a block multiple as the TPU kernel does.
+// Forward contract. x [rows, W] contiguous, fp32 or bf16; scale and bias [W]
+// fp32; y [rows, W] in x's dtype. Mean and variance in fp32 (variance of
+// the centred row, as the TPU kernel computes it), normalise, times scale
+// plus bias in fp32, one rounding to x's dtype. Any row count: no padding of
+// the rows to a block multiple as the TPU kernel does.
 //
-// What bounds it. About 8 FLOP per element against 4 bytes moved per element
-// in bf16 (read once, write once): device-memory bytes bound it on an H100
-// by two orders of magnitude. Design for that: one warp per row; the row is
-// read once with 16-byte loads into registers (up to 2048 bf16 or 1024 fp32
-// columns per row), the two reductions are warp shuffles, and the output is
-// written once with 16-byte stores. Rows too wide for registers, or not a
-// multiple of 16 bytes, take a plain per-element kernel that reads the row
-// three times (the re-reads hit L1/L2).
+// Backward contract (_fln_bwd line by line). x and dy [rows, W] in x's
+// dtype, scale [W] fp32. Per row, in fp32: mean and rstd recomputed from x,
+// xhat = (x - mean) rstd, g = dy scale, dx = rstd (g - mean(g) - xhat
+// mean(g xhat)), rounded to x's dtype. dscale = sum_rows dy xhat and dbias =
+// sum_rows dy, in fp32: each block writes its partial column sums to a
+// [blocks, 2, W] fp32 scratch and a second small kernel adds the partials
+// of each column in a fixed order. No atomics, so the sums are the same
+// from run to run.
+//
+// What bounds them. The forward does about 8 FLOP per element against 4
+// bytes moved per element in bf16 (read once, write once), the backward
+// about 12 against 6 (x and dy read, dx written): device-memory bytes bound
+// both on an H100 by two orders of magnitude. Design for that: one warp per
+// row; the row is read once with 16-byte loads into registers (up to 2048
+// bf16 or 1024 fp32 columns per row), the reductions are warp shuffles, and
+// the output is written once with 16-byte stores. Rows too wide for
+// registers, or not a multiple of 16 bytes, take plain per-element kernels
+// that read the row several times (the re-reads hit L1/L2). The backward's
+// column partials stay in shared memory, one [2][W] slice per warp (each
+// lane owns its columns, so no two threads add to one sum), which caps W at
+// kMaxBwdW; its blocks loop over rows, so the scratch holds at most
+// kMaxBwdBlocks partial rows however many rows there are.
 //
 // Why CUDA C++ and not Triton: a row reduction and an elementwise pass are
-// short in either; keeping both kernels of the port in CUDA C++ keeps one
+// short in either; keeping every kernel of the port in CUDA C++ keeps one
 // build route (nvcc + ctypes) and no dependency on the triton package.
 #include <stdint.h>
 
@@ -135,6 +152,215 @@ void launch(const void* x, const void* scale, const void* bias, void* y,
     ln_fwd_any<T><<<grid, kThreads, 0, st>>>(xt, s, b, yt, rows, W, eps);
 }
 
+// ---- backward --------------------------------------------------------------
+
+constexpr int kMaxBwdW = 6144;       // 4 warps x [2][W] fp32 in shared memory
+constexpr int kMaxBwdBlocks = 1024;  // partial rows of the scratch
+
+__host__ __device__ inline int bwd_smem_bytes(int W) {
+  return kWarps * 2 * W * 4;
+}
+
+// Row kept in registers: C chunks of 16 bytes per lane, of x and of dy.
+template <typename T, int C>
+__global__ void __launch_bounds__(kThreads)
+ln_bwd_reg(const T* __restrict__ x, const float* __restrict__ scale,
+           const T* __restrict__ dy, T* __restrict__ dx,
+           float* __restrict__ part, long rows, int W, float eps) {
+  constexpr int V = 16 / sizeof(T);
+  extern __shared__ float acc[];  // [kWarps][2][W]
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  const int nchunk = W / V;
+  float* dsc = acc + warp * 2 * W;
+  float* dbi = dsc + W;
+  for (int i = lane; i < 2 * W; i += 32) dsc[i] = 0.f;
+  __syncwarp();  // lanes own other columns than they zeroed
+  for (long row = (long)blockIdx.x * kWarps + warp; row < rows;
+       row += (long)gridDim.x * kWarps) {
+    const uint4* xr = reinterpret_cast<const uint4*>(x + row * W);
+    const uint4* gr = reinterpret_cast<const uint4*>(dy + row * W);
+    float xv[C][V], gv[C][V];
+    float sum = 0.f;
+#pragma unroll
+    for (int c = 0; c < C; ++c) {
+      const int ci = lane + 32 * c;
+      if (ci < nchunk) {
+        const uint4 rx = xr[ci], rg = gr[ci];
+        const T* ex = reinterpret_cast<const T*>(&rx);
+        const T* eg = reinterpret_cast<const T*>(&rg);
+#pragma unroll
+        for (int k = 0; k < V; ++k) {
+          xv[c][k] = mct::to_float(ex[k]);
+          gv[c][k] = mct::to_float(eg[k]);
+          sum += xv[c][k];
+        }
+      }
+    }
+    const float mean = mct::warp_sum(sum) / W;
+    float sq = 0.f;
+#pragma unroll
+    for (int c = 0; c < C; ++c) {
+      if (lane + 32 * c < nchunk) {
+#pragma unroll
+        for (int k = 0; k < V; ++k) {
+          xv[c][k] -= mean;
+          sq += xv[c][k] * xv[c][k];
+        }
+      }
+    }
+    const float rstd = rsqrtf(mct::warp_sum(sq) / W + eps);
+    // xv becomes xhat; column sums; sums of g and g * xhat over the row
+    float sg = 0.f, sgx = 0.f;
+#pragma unroll
+    for (int c = 0; c < C; ++c) {
+      const int ci = lane + 32 * c;
+      if (ci < nchunk) {
+#pragma unroll
+        for (int k = 0; k < V; ++k) {
+          const int i = ci * V + k;
+          xv[c][k] *= rstd;
+          dsc[i] += gv[c][k] * xv[c][k];
+          dbi[i] += gv[c][k];
+          gv[c][k] *= scale[i];
+          sg += gv[c][k];
+          sgx += gv[c][k] * xv[c][k];
+        }
+      }
+    }
+    const float mg = mct::warp_sum(sg) / W, mgx = mct::warp_sum(sgx) / W;
+    uint4* dr = reinterpret_cast<uint4*>(dx + row * W);
+#pragma unroll
+    for (int c = 0; c < C; ++c) {
+      const int ci = lane + 32 * c;
+      if (ci < nchunk) {
+        alignas(16) T o[V];
+#pragma unroll
+        for (int k = 0; k < V; ++k)
+          o[k] = mct::from_float<T>(rstd *
+                                    (gv[c][k] - mg - xv[c][k] * mgx));
+        dr[ci] = *reinterpret_cast<const uint4*>(o);
+      }
+    }
+  }
+  __syncthreads();
+  // the block's partial: the warps' slices added in warp order
+  for (int i = threadIdx.x; i < 2 * W; i += kThreads) {
+    float t = 0.f;
+#pragma unroll
+    for (int w = 0; w < kWarps; ++w) t += acc[w * 2 * W + i];
+    part[(long)blockIdx.x * 2 * W + i] = t;
+  }
+}
+
+// Any width and alignment: several passes over the row.
+template <typename T>
+__global__ void __launch_bounds__(kThreads)
+ln_bwd_any(const T* __restrict__ x, const float* __restrict__ scale,
+           const T* __restrict__ dy, T* __restrict__ dx,
+           float* __restrict__ part, long rows, int W, float eps) {
+  extern __shared__ float acc[];  // [kWarps][2][W]
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  float* dsc = acc + warp * 2 * W;
+  float* dbi = dsc + W;
+  for (int i = lane; i < 2 * W; i += 32) dsc[i] = 0.f;
+  __syncwarp();  // lanes own other columns than they zeroed
+  for (long row = (long)blockIdx.x * kWarps + warp; row < rows;
+       row += (long)gridDim.x * kWarps) {
+    const T* xr = x + row * W;
+    const T* gr = dy + row * W;
+    float sum = 0.f;
+    for (int i = lane; i < W; i += 32) sum += mct::to_float(xr[i]);
+    const float mean = mct::warp_sum(sum) / W;
+    float sq = 0.f;
+    for (int i = lane; i < W; i += 32) {
+      const float d = mct::to_float(xr[i]) - mean;
+      sq += d * d;
+    }
+    const float rstd = rsqrtf(mct::warp_sum(sq) / W + eps);
+    float sg = 0.f, sgx = 0.f;
+    for (int i = lane; i < W; i += 32) {
+      const float xh = (mct::to_float(xr[i]) - mean) * rstd;
+      const float g = mct::to_float(gr[i]);
+      dsc[i] += g * xh;
+      dbi[i] += g;
+      sg += g * scale[i];
+      sgx += g * scale[i] * xh;
+    }
+    const float mg = mct::warp_sum(sg) / W, mgx = mct::warp_sum(sgx) / W;
+    for (int i = lane; i < W; i += 32) {
+      const float xh = (mct::to_float(xr[i]) - mean) * rstd;
+      const float g = mct::to_float(gr[i]) * scale[i];
+      dx[row * W + i] = mct::from_float<T>(rstd * (g - mg - xh * mgx));
+    }
+  }
+  __syncthreads();
+  for (int i = threadIdx.x; i < 2 * W; i += kThreads) {
+    float t = 0.f;
+#pragma unroll
+    for (int w = 0; w < kWarps; ++w) t += acc[w * 2 * W + i];
+    part[(long)blockIdx.x * 2 * W + i] = t;
+  }
+}
+
+// out[c] = sum over p of part[p][c], c < 2W, in the order p = ty, ty + 8,
+// ... per thread row ty, then the 8 thread rows in order.
+__global__ void __launch_bounds__(256)
+ln_bwd_reduce(const float* __restrict__ part, int nparts, int n,
+              float* __restrict__ out) {
+  __shared__ float red[8][33];
+  const int c = blockIdx.x * 32 + threadIdx.x;
+  float t = 0.f;
+  if (c < n)
+    for (int p = threadIdx.y; p < nparts; p += 8) t += part[(long)p * n + c];
+  red[threadIdx.y][threadIdx.x] = t;
+  __syncthreads();
+  if (threadIdx.y == 0 && c < n) {
+#pragma unroll
+    for (int y = 1; y < 8; ++y) t += red[y][threadIdx.x];
+    out[c] = t;
+  }
+}
+
+template <typename T>
+cudaError_t launch_bwd(const void* x, const void* scale, const void* dy,
+                       void* dx, float* part, int nparts, float* out,
+                       long rows, int W, float eps, cudaStream_t st) {
+  constexpr int V = 16 / sizeof(T);
+  const bool aligned = W % V == 0 && (uintptr_t)x % 16 == 0 &&
+                       (uintptr_t)dy % 16 == 0 && (uintptr_t)dx % 16 == 0;
+  const int per_lane = (W / V + 31) / 32;
+  const int smem = bwd_smem_bytes(W);
+  const T* xt = static_cast<const T*>(x);
+  const float* s = static_cast<const float*>(scale);
+  const T* gt = static_cast<const T*>(dy);
+  T* dxt = static_cast<T*>(dx);
+  auto run = [&](auto kernel) {
+    if (smem > 48 * 1024) {
+      const cudaError_t e = cudaFuncSetAttribute(
+          kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+      if (e != cudaSuccess) return e;
+    }
+    kernel<<<nparts, kThreads, smem, st>>>(xt, s, gt, dxt, part, rows, W,
+                                           eps);
+    return cudaGetLastError();
+  };
+  cudaError_t e;
+  if (aligned && per_lane <= 1)
+    e = run(ln_bwd_reg<T, 1>);
+  else if (aligned && per_lane <= 2)
+    e = run(ln_bwd_reg<T, 2>);
+  else if (aligned && per_lane <= 4)
+    e = run(ln_bwd_reg<T, 4>);
+  else if (aligned && per_lane <= 8)
+    e = run(ln_bwd_reg<T, 8>);
+  else
+    e = run(ln_bwd_any<T>);
+  if (e != cudaSuccess) return e;
+  ln_bwd_reduce<<<(2 * W + 31) / 32, dim3(32, 8), 0, st>>>(part, nparts,
+                                                            2 * W, out);
+  return cudaGetLastError();
+}
+
 }  // namespace
 
 // Returns cudaGetLastError() after the launch (0 on success).
@@ -151,4 +377,26 @@ extern "C" int mct_layer_norm_fwd(const void* x, const void* scale,
   else
     return (int)cudaErrorInvalidValue;
   return (int)cudaGetLastError();
+}
+
+// Backward: dx [rows, W] in x's dtype; out [2, W] fp32 = (dscale, dbias);
+// part is [nparts, 2, W] fp32 scratch, nparts = min(ceil(rows / 4), 1024)
+// blocks. Returns cudaGetLastError() after the launches (0 on success).
+extern "C" int mct_layer_norm_bwd(const void* x, const void* scale,
+                                  const void* dy, void* dx, void* part,
+                                  int nparts, void* out, long long rows,
+                                  int W, float eps, int dtype, void* stream) {
+  if (rows < 1 || W < 1 || W > kMaxBwdW || nparts < 1 ||
+      nparts > kMaxBwdBlocks || nparts > (rows + kWarps - 1) / kWarps)
+    return (int)cudaErrorInvalidValue;
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  float* p = static_cast<float*>(part);
+  float* o = static_cast<float*>(out);
+  if (dtype == mct::kFloat32)
+    return (int)launch_bwd<float>(x, scale, dy, dx, p, nparts, o, (long)rows,
+                                  W, eps, st);
+  if (dtype == mct::kBFloat16)
+    return (int)launch_bwd<__nv_bfloat16>(x, scale, dy, dx, p, nparts, o,
+                                          (long)rows, W, eps, st);
+  return (int)cudaErrorInvalidValue;
 }

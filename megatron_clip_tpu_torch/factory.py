@@ -13,8 +13,8 @@ from typing import Dict, Optional, Union
 
 import torch
 
-from megatron_clip_tpu_torch.config import (BF16, FP32, CLIPCfg, Precision,
-                                            TextCfg, VisionCfg)
+from megatron_clip_tpu_torch.config import (BF16, FP32, PURE_BF16, CLIPCfg,
+                                            Precision, TextCfg, VisionCfg)
 from megatron_clip_tpu_torch.models.clip import CLIPModel
 
 
@@ -102,21 +102,24 @@ def parse_model_cfg(cfg_dict: dict) -> CLIPCfg:
 
 
 def _precision_from_str(precision: str) -> Precision:
-    # open_CLIP --precision values with fp32 params; pure_bf16 and fp16
-    # come with the train-step slice
+    # open_CLIP --precision values; fp16 is not ported (ROADMAP Queue A)
+    if precision == "pure_bf16":
+        return PURE_BF16
     if precision in ("amp_bf16", "bf16", "amp_bfloat16", "amp"):
         return BF16
     if precision in ("fp32", "float32"):
         return FP32
     raise ValueError(f"unknown or unsupported precision {precision!r} "
-                     "(fp32, bf16, amp, amp_bf16)")
+                     "(fp32, bf16, amp, amp_bf16, pure_bf16)")
 
 
 def create_model(model_name: str, precision: str = "bf16",
                  device: Union[str, torch.device, None] = None, seed: int = 0,
                  **overrides) -> CLIPModel:
-    """Build a CLIP model with fp32 random weights drawn from `seed` (on the
-    CPU generator, so every device gets the same weights) on `device`.
+    """Build a CLIP model with random weights drawn in fp32 from `seed` (on
+    the CPU generator, so every device gets the same weights) on `device`.
+    Under `pure_bf16` every weight but `logit_scale` is then stored in bf16,
+    as the JAX factory's Precision("bfloat16", "bfloat16") does.
     `device=None` means the CUDA device; without one this raises, it does
     not fall back to the CPU: pass device="cpu" to run there."""
     device = torch.device("cuda" if device is None else device)
@@ -132,4 +135,7 @@ def create_model(model_name: str, precision: str = "bf16",
     prec = _precision_from_str(precision)
     gen = torch.Generator().manual_seed(seed)
     model = CLIPModel(parse_model_cfg(cfg_dict), prec, gen)
+    for name, p in model.named_parameters():
+        if name != "logit_scale":
+            p.data = p.data.to(prec.param_torch)
     return model.to(device).eval()

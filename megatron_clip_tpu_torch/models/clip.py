@@ -1,11 +1,11 @@
 """The two-tower CLIP model.
 
 Counterpart of `megatron_clip_tpu/models/clip.py` (`init_clip`,
-`encode_image`, `encode_text`, `apply_clip`) for ViT towers: the ViT vision
-tower, the text transformer and a learned temperature `logit_scale`,
-initialised to ln(1/0.07) and clamped to ln(100) at use. Features are
-L2-normalised in fp32. The ResNet, ConvNeXt, Swin, HF-text and CoCa branches
-come with later slices.
+`encode_image`, `encode_text`, `apply_clip`, `clamp_logit_scale`) for ViT
+towers: the ViT vision tower, the text transformer and a learned temperature
+`logit_scale`, initialised to ln(1/0.07), kept in fp32 under every precision
+and clamped to ln(100) at use. Features are L2-normalised in fp32. The
+ResNet, ConvNeXt, Swin, HF-text and CoCa branches come with later slices.
 """
 import math
 from typing import Optional
@@ -37,10 +37,12 @@ class CLIPModel(nn.Module):
     """Both towers, the temperature and the precision policy. Parameter
     names mirror the JAX pytree (`visual.*`, `text.*`, `logit_scale`).
 
-    The encode methods take numpy arrays or tensors (images NHWC float, text
-    ids [B, S] int), move them to the model's device, run the towers in the
-    policy's compute dtype and return fp32 features there. They run without
-    autograd: the kernels' backward halves come with the train-step slice."""
+    The encode methods and `forward` take numpy arrays or tensors (images
+    NHWC float, text ids [B, S] int), move them to the model's device, run
+    the towers in the policy's compute dtype and return fp32 features there.
+    `encode_image` and `encode_text` serve: they run without autograd, so
+    the attention kernel writes no probabilities. `forward` is the training
+    forward and records the graph when grad is enabled."""
 
     def __init__(self, cfg: CLIPCfg, precision: Precision = BF16,
                  generator: Optional[torch.Generator] = None):
@@ -76,15 +78,25 @@ class CLIPModel(nn.Module):
                       self.precision.compute_torch)
         return _l2_normalize(f) if normalize else f.float()
 
-    @torch.no_grad()
     def forward(self, images, text_ids) -> dict:
-        """Either tower may be None. The dict open_CLIP's CLIP.forward
-        returns: normalised features and exp(min(logit_scale, ln 100))."""
+        """Either tower may be None. What `apply_clip` returns (and open_CLIP's
+        CLIP.forward): fp32 normalised features and exp(min(logit_scale,
+        ln 100)), differentiable in every parameter."""
+        dt = self.precision.compute_torch
         out = {}
         if images is not None:
-            out["image_features"] = self.encode_image(images)
+            out["image_features"] = _l2_normalize(
+                self.visual(_as_tensor(images, self.device), dt))
         if text_ids is not None:
-            out["text_features"] = self.encode_text(text_ids)
+            out["text_features"] = _l2_normalize(
+                self.text(_as_tensor(text_ids, self.device, torch.long), dt))
         out["logit_scale"] = torch.exp(
             self.logit_scale.clamp(max=LOGIT_SCALE_MAX))
         return out
+
+
+@torch.no_grad()
+def clamp_logit_scale(model: CLIPModel) -> None:
+    """Post-step clamp of logit_scale to [0, ln 100], in place: open_CLIP's
+    `logit_scale.clamp_(0, ln(100))` after each optimizer step."""
+    model.logit_scale.clamp_(0.0, LOGIT_SCALE_MAX)

@@ -2,9 +2,10 @@
 
 Counterpart of `megatron_clip_tpu/ops/attention.py`. `sdpa` is the plain
 oracle; `multi_head_attention` runs the fused short-sequence path (the packed
-QKV GEMM, the fused attention kernel, the output GEMM) under the same gate as
-the JAX package. Everything outside that gate belongs to later slices of the
-port and raises NotImplementedError naming its ROADMAP item.
+QKV GEMM, the fused attention kernels, forward and, under autograd,
+backward, the output GEMM) under the same gate as the JAX package.
+Everything outside that gate belongs to later slices of the port and raises
+NotImplementedError naming its ROADMAP item.
 """
 from typing import Optional
 
@@ -12,7 +13,7 @@ import torch
 
 from megatron_clip_tpu_torch.ops.dense import dense
 from megatron_clip_tpu_torch.ops.kernels.fused_mha import (
-    MAX_FUSED_SEQ, MAX_HEAD_DIM, fused_mha_fwd)
+    MAX_FUSED_SEQ, MAX_HEAD_DIM, fused_mha)
 
 
 def sdpa(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
@@ -68,5 +69,5 @@ def multi_head_attention(x: torch.Tensor, params, heads: int, *,
         _not_in_slice(f"the flash/unfused path (S={s}, head_dim={head_dim}, "
                       f"use_flash={use_flash})", "Queue B: flash_attention")
     qkv = dense(x, params["wqkv"], params.get("bqkv"))
-    out = fused_mha_fwd(qkv, heads, causal=causal)
+    out = fused_mha(qkv, heads, causal=causal)
     return dense(out, params["wo"], params.get("bo"))

@@ -36,7 +36,9 @@ def _category(name: str) -> str:
     return "other"
 
 
-def _window(prof, wall_ms: float) -> dict:
+def _window(prof, wall_ms: float, category=_category) -> dict:
+    """Device spans of a profiler window: busy time (their union), idle
+    share of `wall_ms`, time by `category(kernel name)`, top kernels."""
     spans, by_cat, by_name = [], {}, {}
     for e in prof.events():
         if e.device_type != torch.autograd.DeviceType.CUDA:
@@ -44,7 +46,7 @@ def _window(prof, wall_ms: float) -> dict:
         start, end = e.time_range.start, e.time_range.end  # microseconds
         spans.append((start, end))
         ms = (end - start) / 1e3
-        cat = _category(e.name)
+        cat = category(e.name)
         by_cat[cat] = by_cat.get(cat, 0.0) + ms
         by_name[e.name] = by_name.get(e.name, 0.0) + ms
     if not spans:

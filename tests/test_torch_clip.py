@@ -62,9 +62,9 @@ def test_encoders_and_logit_scale_match(pair):
     want = apply_clip(jparams, jnp.asarray(images), jnp.asarray(ids),
                       jmodel.cfg, compute_dtype=jnp.float32)
     got = tmodel(images, ids)
-    np.testing.assert_allclose(got["image_features"].numpy(),
+    np.testing.assert_allclose(got["image_features"].detach().numpy(),
                                np.asarray(want["image_features"]), **TOL)
-    np.testing.assert_allclose(got["text_features"].numpy(),
+    np.testing.assert_allclose(got["text_features"].detach().numpy(),
                                np.asarray(want["text_features"]), **TOL)
     np.testing.assert_allclose(float(got["logit_scale"]),
                                float(want["logit_scale"]), rtol=1e-6)
@@ -120,7 +120,7 @@ def test_bf16_features_match_jax_bf16(pair):
     bf.load_state_dict(tmodel.state_dict())
     got = bf(images, ids)
     for key in ("image_features", "text_features"):
-        g, w = got[key].numpy(), np.asarray(want[key], np.float32)
+        g, w = got[key].detach().numpy(), np.asarray(want[key], np.float32)
         np.testing.assert_allclose(g, w, rtol=0, atol=5e-3)
         assert float((g * w).sum(-1).min()) >= 0.9999
 

@@ -10,7 +10,17 @@ Pallas kernel does, so the two agree within one bf16 ulp (atol 4e-3, rtol
 8e-3). A whole attention block in bf16 is held within two ulps: the port's
 `dense` adds the bias before its one rounding, the JAX package rounds the
 product and then adds the bias in bf16.
+
+The backward: the port's autograd Function (plain versions on the CPU)
+against `jax.vjp` through the Pallas kernel in interpret mode with saved
+probabilities (MCT_MHA_SAVE_PROBS=1, the JAX default). fp32 2e-4, as
+tests/test_fused_mha.py holds the TPU kernel's gradients. bf16: both sides
+round P, dS and the outputs at the same points, but a dS that lies near a
+rounding boundary can round the other way when dP is summed in another
+order, which moves one term of dQ or dK by 2^-8 |dS K|; held to two bf16
+ulps (rtol 1.6e-2) plus 2^-7 of the largest |gradient|.
 """
+import jax
 import jax.numpy as jnp
 import numpy as np
 import pytest
@@ -20,8 +30,8 @@ from megatron_clip_tpu.ops.attention import \
     multi_head_attention as jax_multi_head_attention
 from megatron_clip_tpu.ops.pallas.fused_mha import fused_attention_from_qkv
 from megatron_clip_tpu_torch.ops.attention import multi_head_attention, sdpa
-from megatron_clip_tpu_torch.ops.kernels.fused_mha import (fused_mha_fwd,
-                                                           fused_mha_plain)
+from megatron_clip_tpu_torch.ops.kernels.fused_mha import (
+    fused_mha, fused_mha_fwd, fused_mha_plain)
 
 SHAPES = [(4, 50, 4, 64), (2, 77, 8, 64), (2, 33, 2, 32)]
 
@@ -62,6 +72,31 @@ def test_plain_matches_sdpa_oracle(causal):
     got = fused_mha_plain(qkv, h, d ** -0.5, causal)
     np.testing.assert_allclose(got.numpy(), want.numpy(), rtol=2e-5,
                                atol=2e-5)
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("causal", [False, True])
+@pytest.mark.parametrize("b,s,h,d", SHAPES)
+def test_backward_matches_jax_saved_probs(monkeypatch, dtype, causal, b, s,
+                                          h, d):
+    monkeypatch.setenv("MCT_MHA_SAVE_PROBS", "1")
+    rng = np.random.default_rng(3)
+    qkv = rng.standard_normal((b, s, 3 * h * d)).astype(np.float32)
+    do = rng.standard_normal((b, s, h * d)).astype(np.float32)
+    _, vjp = jax.vjp(lambda x: fused_attention_from_qkv(
+        x, h, causal=causal, interpret=True), jnp.asarray(qkv, dtype))
+    (want,) = vjp(jnp.asarray(do, dtype))
+    want = np.asarray(want.astype(jnp.float32))
+    tdt = getattr(torch, dtype)
+    x = torch.from_numpy(qkv).to(tdt).requires_grad_(True)
+    (got,) = torch.autograd.grad(fused_mha(x, h, causal=causal), x,
+                                 torch.from_numpy(do).to(tdt))
+    assert got.dtype == tdt and got.shape == x.shape
+    if dtype == "float32":
+        np.testing.assert_allclose(got.numpy(), want, rtol=2e-4, atol=2e-4)
+    else:
+        np.testing.assert_allclose(got.float().numpy(), want, rtol=1.6e-2,
+                                   atol=2 ** -7 * np.abs(want).max())
 
 
 def _block_inputs():

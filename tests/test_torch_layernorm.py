@@ -5,7 +5,13 @@ the Pallas kernel, which interprets itself off the TPU. The CUDA kernel
 needs the card: tests/test_torch_kernels_cuda.py and chip_smoke.py hold it
 against the plain version there. Tolerance 1e-5, as
 tests/test_pallas_layernorm.py holds the TPU kernel.
+
+The backward: the port's autograd Function against `jax.vjp` of
+`fused_layer_norm` (its rule `_fln_bwd`). dx 1e-5; dscale and dbias are
+fp32 sums over every row taken in another order, 1e-5 relative plus 1e-4
+absolute (their values reach a few hundred at 1000 rows).
 """
+import jax
 import jax.numpy as jnp
 import numpy as np
 import pytest
@@ -33,6 +39,20 @@ def test_layer_norm_matches_jax_fused_kernel(shape):
                      torch.from_numpy(bias))
     np.testing.assert_allclose(got.numpy(), np.asarray(want), rtol=1e-5,
                                atol=1e-5)
+
+
+@pytest.mark.parametrize("shape", [(4, 77, 512), (1000, 768)])
+def test_layer_norm_backward_matches_jax_vjp(shape):
+    x, scale, bias = _inputs(shape, seed=3)
+    dy = np.random.default_rng(4).standard_normal(shape).astype(np.float32)
+    _, vjp = jax.vjp(fused_layer_norm, jnp.asarray(x), jnp.asarray(scale),
+                     jnp.asarray(bias))
+    want = vjp(jnp.asarray(dy))
+    args = [torch.from_numpy(a).requires_grad_(True) for a in (x, scale, bias)]
+    got = torch.autograd.grad(layer_norm(*args), args, torch.from_numpy(dy))
+    for g, w, atol in zip(got, want, (1e-5, 1e-4, 1e-4)):
+        np.testing.assert_allclose(g.numpy(), np.asarray(w), rtol=1e-5,
+                                   atol=atol)
 
 
 def test_bf16_input_keeps_dtype_with_fp32_stats():
