@@ -1,15 +1,22 @@
 // Fused multi-head attention straight off the packed QKV GEMM output:
-// forward (optionally writing the probabilities P) and backward from P.
+// forward (optionally writing the probabilities P, or each row's softmax
+// statistics), backward from P, and backward recomputing P.
 //
 // Replaces the TPU kernels of megatron_clip_tpu/ops/pallas/fused_mha.py::
-// fused_mha_packed: the forward _fwd_kernel (pallas_call in _fwd) and the
+// fused_mha_packed: the forward _fwd_kernel (pallas_call in _fwd), the
 // saved-P backward _bwd_kernel with its math in _bwd_head (pallas_call in
-// _bwd), which ops/attention.multi_head_attention runs for every attention
-// with S <= 1024, head_dim <= 128, no bias/rope/GQA: both CLIP towers (ViT
-// S=50 full mask, text S=77 causal).
+// _bwd) and the recompute backward _bwd_kernel_recompute (the same call
+// under MCT_MHA_SAVE_PROBS=0), which ops/attention.multi_head_attention runs
+// for every attention with S <= 1024, head_dim <= 128, no bias/rope/GQA:
+// both CLIP towers (ViT S=50 or 257 full mask, text S=77 causal). Taking
+// strides, the same kernels also stand for fused_mha_packed_sm's
+// _fwd_kernel_sm and _bwd_kernel_sm (the S-major layout, whose backward
+// recomputes P too): an [S, B, 3*H*D] tensor is a [B, S, 3*H*D] view with a
+// batch stride of 3*H*D and a sequence stride of B*3*H*D.
 //
-// Contract. qkv [B, S, 3*H*D] contiguous, fp32 or bf16; out [B, S, H*D] in
-// the same dtype. For head h the kernels read q at columns h*D, k at
+// Contract. qkv [B, S, 3*H*D] fp32 or bf16 with contiguous rows, any batch
+// and sequence strides (Pitch); out [B, S, H*D] in the same dtype, strided
+// the same way. For head h the kernels read q at columns h*D, k at
 // (H+h)*D and v at (2H+h)*D of each packed row, so no q/k/v split or head
 // transpose is ever written to memory. Forward arithmetic follows the TPU
 // kernel: fp32 scores, times D^-0.5 (the scale argument), causal mask
@@ -30,15 +37,25 @@
 // input dtype. Since P is 0 on every masked pair, the mask only bounds
 // which tiles are visited.
 //
+// The recompute backward takes (qkv, dO, the forward's row statistics) and
+// writes the same dqkv with the arithmetic of _bwd_kernel_recompute: P is
+// formed again in fp32 from the scores, as exp(s * scale - m) / l with the
+// max m and denominator l that the forward's pass 1 found and wrote
+// ([2, B*H*S] fp32: m, then l), so P is the forward's own; delta and dS
+// use that fp32 P, and only dV = bf16(P)^T dO takes P rounded to the input
+// dtype. No [S, S] tensor is written or read. (The TPU kernel's residual is
+// qkv alone: it recomputes the row max and sum inside its whole-row tile.)
+//
 // What bounds them. At CLIP shapes one (batch, head) of the forward moves
 // S*4*D elements (q, k, v in, o out) plus S*S of P for 4*S*S*D FLOP, and the
 // backward S*(3+1+3)*D elements plus S*S of P for 8*S*S*D FLOP: under
 // 20 FLOP per byte in bf16, far below the ~295 FLOP/byte where an H100's
 // bf16 tensor cores become the limit. So the floor is device-memory bytes
 // (forward with P 141 MB, backward 230 MB for the ViT-B/32 vision tower at
-// batch 384). Design for that: every qkv element is read from device memory
-// by the blocks of its own (batch, head) only, and no [S, S] intermediate
-// but P itself is written.
+// batch 384; the recompute backward, 10*S*S*D FLOP, 238 MB for ViT-L/14's
+// vision tower at batch 64). Design for that: every qkv element is read from
+// device memory by the blocks of its own (batch, head) only, and no [S, S]
+// intermediate but P itself is written.
 //
 // Design. The TPU kernels hold whole S x S tiles of all heads in many MB of
 // VMEM. A block here has at most 227 KB of shared memory, so the kernels
@@ -59,7 +76,11 @@
 //   (rows padded by 16 bytes so ldmatrix is conflict-free), and every
 //   product runs on the tensor cores as mma.sync m16n8k16 bf16 with fp32
 //   accumulation. In the forward the score accumulators become P's
-//   A-operand fragments in registers (rounded to bf16 there); in the
+//   A-operand fragments in registers (rounded to bf16 there); pass 2 walks
+//   each key tile in halves of 32 keys and takes Q's fragments from shared
+//   memory, which keeps it at 128 registers at D = 64 (faster at S = 257
+//   than holding Q's fragments and whole tiles, PERF.md, and the same
+//   P, statistics and output bit for bit). In the saved-P
 //   backward dS is formed in the dP accumulators the same way, and P^T
 //   comes from a staged P tile. When one tile holds all the keys a block
 //   sees (S <= 64, and the first query tile of a causal S <= 128) K and V
@@ -72,10 +93,25 @@
 //   rows on the fp32 CUDA cores, which keeps fp32 inputs at full fp32
 //   precision (no TF32). At most 46 KB of shared memory (D = 128).
 //
+// The recompute backward keeps this shape. On the tensor cores its part 1
+// stages q, dO, k and v tiles, takes every operand from shared memory (one
+// ldmatrix per k-chunk) and runs S = Q K^T and dP = dO V^T in both passes
+// over 32-key halves, which keeps it at 128 registers at D = 64, four
+// blocks per SM (holding dO's fragments and whole key tiles gave two,
+// and a slower kernel with the same bits: PERF.md); part 2
+// keeps the block's 64 keys and values in shared memory as A operands of
+// S^T = K Q^T and dP^T = V dO^T, whose accumulators become P^T's and dS^T's
+// A fragments for dV and dK directly, and walks each 64-query tile in two
+// halves of 32 so that dK, dV, P^T and dP^T fit the registers at D = 128.
+// Shared memory 70 KB at D = 128 for both parts. On the CUDA cores the
+// saved-P kernels take the recompute as a template switch.
+//
 // wgmma/TMA tiles, keeping several heads per block and one backward kernel
 // for S <= 64 are later work.
 #include <math_constants.h>
 #include <stdint.h>
+
+#include <initializer_list>
 
 #include "common.cuh"
 
@@ -83,6 +119,21 @@ namespace {
 
 constexpr int kThreads = 128;  // 4 warps
 constexpr int kMaxD = 128;
+
+// Element strides of a [B, S, cols] operand between batches and between
+// sequence positions; its columns are contiguous.
+struct Pitch {
+  long b, s;
+};
+
+// Let `kernel` take `bytes` of dynamic shared memory (above 48 KB it must
+// opt in).
+template <typename K>
+cudaError_t allow_smem(K* kernel, int bytes) {
+  if (bytes <= 48 * 1024) return cudaSuccess;
+  return cudaFuncSetAttribute(
+      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, bytes);
+}
 
 // ----------------------------------------------------------------------------
 // fp32 CUDA-core kernel
@@ -142,8 +193,10 @@ __device__ __forceinline__ void score_rows(const float* q_w, const float* k_s,
 
 template <typename T>
 __global__ void __launch_bounds__(kThreads)
-fwd(const T* __restrict__ qkv, T* __restrict__ out, T* __restrict__ probs,
-    int S, int H, int D, float scale, int causal) {
+fwd(const T* __restrict__ qkv, Pitch pq, T* __restrict__ out, Pitch po,
+    T* __restrict__ probs, float* __restrict__ row_max,
+    float* __restrict__ row_sum, int S, int H, int D, float scale,
+    int causal) {
   extern __shared__ __align__(16) float smem[];
   const int dp = padded_d(D), ld = dp + 4;
   float* k_s = smem;                    // [kKTile][ld]
@@ -156,8 +209,8 @@ fwd(const T* __restrict__ qkv, T* __restrict__ out, T* __restrict__ probs,
   const int nq = min(kQTile, S - q0);
   const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
   const int r0 = warp * kRows;          // the warp's first row in the tile
-  const long row_pitch = 3L * H * D;
-  const T* __restrict__ src = qkv + (long)b * S * row_pitch;
+  const long row_pitch = pq.s;
+  const T* __restrict__ src = qkv + (long)b * pq.b;
   const int kcol = (H + h) * D, vcol = (2 * H + h) * D;
 
   for (int i = threadIdx.x; i < kQTile * dp; i += kThreads) {
@@ -199,6 +252,15 @@ fwd(const T* __restrict__ qkv, T* __restrict__ out, T* __restrict__ probs,
       const float e = ok ? expf(sv - mn) : 0.f;
       l[r] = l[r] * expf(m[r] - mn) + mct::warp_sum(e);
       m[r] = mn;
+    }
+  }
+  if (row_max != nullptr && lane == 0) {
+#pragma unroll
+    for (int r = 0; r < kRows; ++r) {
+      if (r0 + r >= nq) continue;
+      const long i = ((long)b * H + h) * S + q0 + r0 + r;
+      row_max[i] = m[r];
+      row_sum[i] = l[r];
     }
   }
 
@@ -254,7 +316,7 @@ fwd(const T* __restrict__ qkv, T* __restrict__ out, T* __restrict__ probs,
 #pragma unroll
   for (int r = 0; r < kRows; ++r) {
     if (r0 + r >= nq) continue;
-    T* dst = out + ((long)b * S + q0 + r0 + r) * H * D + h * D;
+    T* dst = out + (long)b * po.b + (long)(q0 + r0 + r) * po.s + h * D;
 #pragma unroll
     for (int c = 0; c < kDPerLane; ++c) {
       const int d = lane + 32 * c;
@@ -264,12 +326,13 @@ fwd(const T* __restrict__ qkv, T* __restrict__ out, T* __restrict__ probs,
 }
 
 template <typename T>
-cudaError_t launch(const void* qkv, void* out, void* probs, int B, int S,
+cudaError_t launch(const void* qkv, Pitch pq, void* out, Pitch po,
+                   void* probs, float* row_max, float* row_sum, int B, int S,
                    int H, int D, float scale, int causal, cudaStream_t st) {
   const dim3 grid((S + kQTile - 1) / kQTile, H, B);
   fwd<T><<<grid, kThreads, smem_bytes(D), st>>>(
-      static_cast<const T*>(qkv), static_cast<T*>(out),
-      static_cast<T*>(probs), S, H, D, scale, causal);
+      static_cast<const T*>(qkv), pq, static_cast<T*>(out), po,
+      static_cast<T*>(probs), row_max, row_sum, S, H, D, scale, causal);
   return cudaGetLastError();
 }
 
@@ -286,46 +349,71 @@ __device__ void load_rows(float* dst, const T* __restrict__ src, long pitch,
   }
 }
 
-__host__ __device__ inline int bwd_dq_smem_bytes(int d) {
+__host__ __device__ inline int bwd_dq_smem_bytes(int d, bool recompute) {
   const int dp = padded_d(d), ld = dp + 4;
-  return 4 * (2 * kKTile * ld + kQTile * dp + kWarps * kRows * kKTile);
+  return 4 * (2 * kKTile * ld + (recompute ? 2 : 1) * kQTile * dp +
+              kWarps * kRows * kKTile);
 }
 
 // Backward, part 1: dQ and the row term delta_i = sum_j dP_ij P_ij, one
 // block per (16 query rows, head, batch), 4 warps of 4 rows; each lane
 // takes one key of a 32-key tile. Pass 1 sums delta over every key tile,
 // pass 2 forms dS = P (dP - delta) scale rounded to T and accumulates dS.K.
-template <typename T>
+// P is read from the forward's probs, or with kRecompute formed in fp32 from
+// q.k and the forward's row statistics, exactly as the forward formed it.
+template <typename T, bool kRecompute>
 __global__ void __launch_bounds__(kThreads)
-bwd_dq(const T* __restrict__ qkv, const T* __restrict__ dout,
-       const T* __restrict__ probs, T* __restrict__ dqkv,
-       float* __restrict__ delta, int S, int H, int D, float scale,
-       int causal) {
+bwd_dq(const T* __restrict__ qkv, Pitch pq, const T* __restrict__ dout,
+       Pitch pdo, const T* __restrict__ probs,
+       const float* __restrict__ row_max, const float* __restrict__ row_sum,
+       T* __restrict__ dqkv, Pitch pdq, float* __restrict__ delta, int S,
+       int H, int D, float scale, int causal) {
   extern __shared__ __align__(16) float smem[];
   const int dp = padded_d(D), ld = dp + 4;
   float* v_s = smem;                    // [kKTile][ld]
   float* k_s = v_s + kKTile * ld;       // [kKTile][ld]
   float* do_s = k_s + kKTile * ld;      // [kQTile][dp]
   float* ds_s = do_s + kQTile * dp;     // [kWarps][kRows][kKTile]
+  float* q_s = ds_s + kWarps * kRows * kKTile;  // [kQTile][dp] (recompute)
 
   const int b = blockIdx.z, h = blockIdx.y;
   const int q0 = blockIdx.x * kQTile;
   const int nq = min(kQTile, S - q0);
   const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
   const int r0 = warp * kRows;
-  const long row_pitch = 3L * H * D, o_pitch = (long)H * D;
-  const T* __restrict__ src = qkv + (long)b * S * row_pitch;
-  const T* __restrict__ p_bh = probs + ((long)b * H + h) * S * S;
+  const long bh = (long)b * H + h;
+  const T* __restrict__ src = qkv + (long)b * pq.b;
+  const T* __restrict__ p_bh = kRecompute ? nullptr : probs + bh * S * S;
   const int kcol = (H + h) * D, vcol = (2 * H + h) * D;
 
   // rows that score_rows takes as its queries have pitch dp
-  load_rows<T, kQTile>(do_s, dout + (long)b * S * o_pitch, o_pitch, h * D,
-                       q0, nq, D, dp, dp);
+  load_rows<T, kQTile>(do_s, dout + (long)b * pdo.b, pdo.s, h * D, q0, nq,
+                       D, dp, dp);
+  if (kRecompute)
+    load_rows<T, kQTile>(q_s, src, pq.s, h * D, q0, nq, D, dp, dp);
   // P is 0 on every masked pair, so the mask only bounds the key tiles
   const int nk = causal ? q0 + nq : S;
   const int warp_nk = causal ? min(nk, q0 + r0 + kRows) : nk;
   const float* do_w = do_s + r0 * dp;
+  const float* q_w = q_s + r0 * dp;
   float* ds_w = ds_s + warp * kRows * kKTile;
+  float m[kRows], l[kRows];  // the rows' softmax statistics (recompute)
+#pragma unroll
+  for (int r = 0; r < kRows; ++r) {
+    const bool ok = kRecompute && r0 + r < nq;
+    m[r] = ok ? row_max[bh * S + q0 + r0 + r] : 0.f;
+    l[r] = ok ? row_sum[bh * S + q0 + r0 + r] : 1.f;
+  }
+  // P of row r and key t0 + lane; sc holds the raw scores when recomputing
+  auto prob = [&](int r, int t0, int nt, const float (&sc)[kRows]) {
+    const int qi = q0 + r0 + r, kj = t0 + lane;
+    if (kRecompute) {
+      const bool ok = r0 + r < nq && lane < nt && (!causal || kj <= qi);
+      return ok ? expf(sc[r] * scale - m[r]) / l[r] : 0.f;
+    }
+    const bool ok = r0 + r < nq && lane < nt;
+    return ok ? mct::to_float(p_bh[(long)qi * S + kj]) : 0.f;
+  };
 
   float dl[kRows];
 #pragma unroll
@@ -333,18 +421,17 @@ bwd_dq(const T* __restrict__ qkv, const T* __restrict__ dout,
   for (int t0 = 0; t0 < nk; t0 += kKTile) {
     const int nt = min(kKTile, nk - t0);
     __syncthreads();
-    load_rows<T, kKTile>(v_s, src, row_pitch, vcol, t0, nt, D, dp, ld);
+    load_rows<T, kKTile>(v_s, src, pq.s, vcol, t0, nt, D, dp, ld);
+    if (kRecompute)
+      load_rows<T, kKTile>(k_s, src, pq.s, kcol, t0, nt, D, dp, ld);
     __syncthreads();
     if (t0 >= warp_nk) continue;  // warp-uniform
-    float s[kRows];
+    float s[kRows], sc[kRows] = {};
     score_rows(do_w, v_s, lane, dp, ld, s);  // dP = dO . V
+    if (kRecompute) score_rows(q_w, k_s, lane, dp, ld, sc);
 #pragma unroll
-    for (int r = 0; r < kRows; ++r) {
-      const bool ok = r0 + r < nq && lane < nt;
-      const float p =
-          ok ? mct::to_float(p_bh[(long)(q0 + r0 + r) * S + t0 + lane]) : 0.f;
-      dl[r] = fmaf(p, s[r], dl[r]);
-    }
+    for (int r = 0; r < kRows; ++r)
+      dl[r] = fmaf(prob(r, t0, nt, sc), s[r], dl[r]);
   }
 #pragma unroll
   for (int r = 0; r < kRows; ++r) dl[r] = mct::warp_sum(dl[r]);
@@ -357,21 +444,18 @@ bwd_dq(const T* __restrict__ qkv, const T* __restrict__ dout,
   for (int t0 = 0; t0 < nk; t0 += kKTile) {
     const int nt = min(kKTile, nk - t0);
     __syncthreads();
-    load_rows<T, kKTile>(v_s, src, row_pitch, vcol, t0, nt, D, dp, ld);
-    load_rows<T, kKTile>(k_s, src, row_pitch, kcol, t0, nt, D, dp, ld);
+    load_rows<T, kKTile>(v_s, src, pq.s, vcol, t0, nt, D, dp, ld);
+    load_rows<T, kKTile>(k_s, src, pq.s, kcol, t0, nt, D, dp, ld);
     __syncthreads();
     const int jn = min(nt, warp_nk - t0);
     if (jn <= 0) continue;  // warp-uniform
-    float s[kRows];
+    float s[kRows], sc[kRows] = {};
     score_rows(do_w, v_s, lane, dp, ld, s);
+    if (kRecompute) score_rows(q_w, k_s, lane, dp, ld, sc);
 #pragma unroll
-    for (int r = 0; r < kRows; ++r) {
-      const bool ok = r0 + r < nq && lane < nt;
-      const float p =
-          ok ? mct::to_float(p_bh[(long)(q0 + r0 + r) * S + t0 + lane]) : 0.f;
+    for (int r = 0; r < kRows; ++r)
       ds_w[r * kKTile + lane] =
-          ok ? mct::round_to<T>(p * (s[r] - dl[r]) * scale) : 0.f;
-    }
+          mct::round_to<T>(prob(r, t0, nt, sc) * (s[r] - dl[r]) * scale);
     __syncwarp();
     for (int j = 0; j < jn; ++j) {
 #pragma unroll
@@ -390,8 +474,8 @@ bwd_dq(const T* __restrict__ qkv, const T* __restrict__ dout,
   for (int r = 0; r < kRows; ++r) {
     if (r0 + r >= nq) continue;
     const int qi = q0 + r0 + r;
-    if (lane == 0) delta[((long)b * H + h) * S + qi] = dl[r];
-    T* dst = dqkv + ((long)b * S + qi) * row_pitch + h * D;
+    if (lane == 0) delta[bh * S + qi] = dl[r];
+    T* dst = dqkv + (long)b * pdq.b + (long)qi * pdq.s + h * D;
 #pragma unroll
     for (int c = 0; c < kDPerLane; ++c) {
       const int d = lane + 32 * c;
@@ -402,19 +486,25 @@ bwd_dq(const T* __restrict__ qkv, const T* __restrict__ dout,
 
 constexpr int kKeys = kWarps * kRows;  // keys per dK/dV block
 
-__host__ __device__ inline int bwd_dkdv_smem_bytes(int d) {
+__host__ __device__ inline int bwd_dkdv_smem_bytes(int d, bool recompute) {
   const int dp = padded_d(d), ld = dp + 4;
-  return 4 * (2 * kKTile * ld + kKeys * dp + 2 * kWarps * kRows * kKTile);
+  return 4 * (2 * kKTile * ld + (recompute ? 2 : 1) * kKeys * dp +
+              2 * kWarps * kRows * kKTile);
 }
 
 // Backward, part 2: dK and dV, one block per (16 keys, head, batch), 4 warps
 // of 4 keys; each lane takes one query of a 32-query tile, reads delta from
-// part 1, and the warp accumulates dV += P^T dO and dK += dS^T Q.
-template <typename T>
+// part 1, and the warp accumulates dV += P^T dO and dK += dS^T Q. With
+// kRecompute, P^T comes from k.q and the query's row statistics, and dV
+// takes it rounded to T.
+template <typename T, bool kRecompute>
 __global__ void __launch_bounds__(kThreads)
-bwd_dkdv(const T* __restrict__ qkv, const T* __restrict__ dout,
-         const T* __restrict__ probs, const float* __restrict__ delta,
-         T* __restrict__ dqkv, int S, int H, int D, float scale, int causal) {
+bwd_dkdv(const T* __restrict__ qkv, Pitch pq, const T* __restrict__ dout,
+         Pitch pdo, const T* __restrict__ probs,
+         const float* __restrict__ row_max,
+         const float* __restrict__ row_sum, const float* __restrict__ delta,
+         T* __restrict__ dqkv, Pitch pdq, int S, int H, int D, float scale,
+         int causal) {
   extern __shared__ __align__(16) float smem[];
   const int dp = padded_d(D), ld = dp + 4;
   float* q_s = smem;                      // [kKTile][ld] queries
@@ -422,21 +512,24 @@ bwd_dkdv(const T* __restrict__ qkv, const T* __restrict__ dout,
   float* v_s = do_s + kKTile * ld;        // [kKeys][dp] the block's keys
   float* p_s = v_s + kKeys * dp;          // [kWarps][kRows][kKTile]
   float* ds_s = p_s + kWarps * kRows * kKTile;
+  float* k_s = ds_s + kWarps * kRows * kKTile;  // [kKeys][dp] (recompute)
 
   const int b = blockIdx.z, h = blockIdx.y;
   const int k0 = blockIdx.x * kKeys;
   const int nkeys = min(kKeys, S - k0);
   const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
   const int r0 = warp * kRows;
-  const long row_pitch = 3L * H * D, o_pitch = (long)H * D;
-  const T* __restrict__ src = qkv + (long)b * S * row_pitch;
-  const T* __restrict__ dsrc = dout + (long)b * S * o_pitch;
-  const T* __restrict__ p_bh = probs + ((long)b * H + h) * S * S;
-  const float* __restrict__ d_bh = delta + ((long)b * H + h) * S;
+  const long bh = (long)b * H + h;
+  const T* __restrict__ src = qkv + (long)b * pq.b;
+  const T* __restrict__ dsrc = dout + (long)b * pdo.b;
+  const T* __restrict__ p_bh = kRecompute ? nullptr : probs + bh * S * S;
+  const float* __restrict__ d_bh = delta + bh * S;
 
-  load_rows<T, kKeys>(v_s, src, row_pitch, (2 * H + h) * D, k0, nkeys, D,
-                      dp, dp);
+  load_rows<T, kKeys>(v_s, src, pq.s, (2 * H + h) * D, k0, nkeys, D, dp, dp);
+  if (kRecompute)
+    load_rows<T, kKeys>(k_s, src, pq.s, (H + h) * D, k0, nkeys, D, dp, dp);
   const float* v_w = v_s + r0 * dp;
+  const float* k_w = k_s + r0 * dp;
   float* p_w = p_s + warp * kRows * kKTile;
   float* ds_w = ds_s + warp * kRows * kKTile;
   const bool warp_idle = r0 >= nkeys;
@@ -450,21 +543,30 @@ bwd_dkdv(const T* __restrict__ qkv, const T* __restrict__ dout,
   for (int t0 = causal ? k0 : 0; t0 < S; t0 += kKTile) {
     const int nt = min(kKTile, S - t0);
     __syncthreads();
-    load_rows<T, kKTile>(q_s, src, row_pitch, h * D, t0, nt, D, dp, ld);
-    load_rows<T, kKTile>(do_s, dsrc, o_pitch, h * D, t0, nt, D, dp, ld);
+    load_rows<T, kKTile>(q_s, src, pq.s, h * D, t0, nt, D, dp, ld);
+    load_rows<T, kKTile>(do_s, dsrc, pdo.s, h * D, t0, nt, D, dp, ld);
     __syncthreads();
     if (warp_idle) continue;  // warp-uniform
-    float s[kRows];
+    float s[kRows], sc[kRows] = {};
     score_rows(v_w, do_s, lane, dp, ld, s);  // s[r] = dP[query lane][key r]
-    const float dq_lane = lane < nt ? d_bh[t0 + lane] : 0.f;
+    if (kRecompute) score_rows(k_w, q_s, lane, dp, ld, sc);  // S^T
+    const int qi = t0 + lane;
+    const float dq_lane = lane < nt ? d_bh[qi] : 0.f;
+    const float m_lane = kRecompute && lane < nt ? row_max[bh * S + qi] : 0.f;
+    const float l_lane = kRecompute && lane < nt ? row_sum[bh * S + qi] : 1.f;
 #pragma unroll
     for (int r = 0; r < kRows; ++r) {
-      const bool ok = r0 + r < nkeys && lane < nt;
-      const float p =
-          ok ? mct::to_float(p_bh[(long)(t0 + lane) * S + k0 + r0 + r]) : 0.f;
-      p_w[r * kKTile + lane] = p;
-      ds_w[r * kKTile + lane] =
-          ok ? mct::round_to<T>(p * (s[r] - dq_lane) * scale) : 0.f;
+      const int kj = k0 + r0 + r;
+      float p;
+      if (kRecompute) {
+        const bool ok = r0 + r < nkeys && lane < nt && (!causal || kj <= qi);
+        p = ok ? expf(sc[r] * scale - m_lane) / l_lane : 0.f;
+      } else {
+        const bool ok = r0 + r < nkeys && lane < nt;
+        p = ok ? mct::to_float(p_bh[(long)qi * S + kj]) : 0.f;
+      }
+      p_w[r * kKTile + lane] = mct::round_to<T>(p);
+      ds_w[r * kKTile + lane] = mct::round_to<T>(p * (s[r] - dq_lane) * scale);
     }
     __syncwarp();
     for (int j = 0; j < nt; ++j) {
@@ -486,7 +588,7 @@ bwd_dkdv(const T* __restrict__ qkv, const T* __restrict__ dout,
 #pragma unroll
   for (int r = 0; r < kRows; ++r) {
     if (r0 + r >= nkeys) continue;
-    T* dst = dqkv + ((long)b * S + k0 + r0 + r) * row_pitch;
+    T* dst = dqkv + (long)b * pdq.b + (long)(k0 + r0 + r) * pdq.s;
 #pragma unroll
     for (int c = 0; c < kDPerLane; ++c) {
       const int d = lane + 32 * c;
@@ -498,22 +600,33 @@ bwd_dkdv(const T* __restrict__ qkv, const T* __restrict__ dout,
   }
 }
 
-template <typename T>
-cudaError_t launch_bwd(const void* qkv, const void* dout, const void* probs,
-                       void* dqkv, float* delta, int B, int S, int H, int D,
-                       float scale, int causal, cudaStream_t st) {
-  const dim3 grid_q((S + kQTile - 1) / kQTile, H, B);
-  bwd_dq<T><<<grid_q, kThreads, bwd_dq_smem_bytes(D), st>>>(
-      static_cast<const T*>(qkv), static_cast<const T*>(dout),
-      static_cast<const T*>(probs), static_cast<T*>(dqkv), delta, S, H, D,
-      scale, causal);
-  cudaError_t e = cudaGetLastError();
+// Both parts of the backward: from P (probs) or, with kRecompute, from the
+// forward's row statistics.
+template <typename T, bool kRecompute>
+cudaError_t launch_bwd(const void* qkv, Pitch pq, const void* dout, Pitch pdo,
+                       const void* probs, const float* row_max,
+                       const float* row_sum, void* dqkv, Pitch pdq,
+                       float* delta, int B, int S, int H, int D, float scale,
+                       int causal, cudaStream_t st) {
+  const int smem_q = bwd_dq_smem_bytes(D, kRecompute);
+  const int smem_k = bwd_dkdv_smem_bytes(D, kRecompute);
+  cudaError_t e = allow_smem(bwd_dq<T, kRecompute>, smem_q);
+  if (e == cudaSuccess) e = allow_smem(bwd_dkdv<T, kRecompute>, smem_k);
   if (e != cudaSuccess) return e;
-  const dim3 grid_k((S + kKeys - 1) / kKeys, H, B);
-  bwd_dkdv<T><<<grid_k, kThreads, bwd_dkdv_smem_bytes(D), st>>>(
-      static_cast<const T*>(qkv), static_cast<const T*>(dout),
-      static_cast<const T*>(probs), delta, static_cast<T*>(dqkv), S, H, D,
-      scale, causal);
+  const T* q = static_cast<const T*>(qkv);
+  const T* g = static_cast<const T*>(dout);
+  const T* p = static_cast<const T*>(probs);
+  T* dq = static_cast<T*>(dqkv);
+  bwd_dq<T, kRecompute>
+      <<<dim3((S + kQTile - 1) / kQTile, H, B), kThreads, smem_q, st>>>(
+          q, pq, g, pdo, p, row_max, row_sum, dq, pdq, delta, S, H, D, scale,
+          causal);
+  e = cudaGetLastError();
+  if (e != cudaSuccess) return e;
+  bwd_dkdv<T, kRecompute>
+      <<<dim3((S + kKeys - 1) / kKeys, H, B), kThreads, smem_k, st>>>(
+          q, pq, g, pdo, p, row_max, row_sum, delta, dq, pdq, S, H, D, scale,
+          causal);
   return cudaGetLastError();
 }
 
@@ -615,6 +728,35 @@ __device__ __forceinline__ void score_tile(float (&s)[NT][4],
   }
 }
 
+// score_tile with the warp's 16 A rows staged in shared memory at a_s
+// (pitch DP+8) instead of held as fragments: one ldmatrix per k-chunk. Each
+// accumulator sums the k-chunks in the same order as score_tile's, so the
+// two give the same scores.
+template <int DP, int NT>
+__device__ __forceinline__ void score_tile_s(float (&s)[NT][4],
+                                             const bf16* a_s,
+                                             const bf16* b_s, int lane) {
+  constexpr int kPitch = DP + 8;
+#pragma unroll
+  for (int n = 0; n < NT; ++n)
+#pragma unroll
+    for (int j = 0; j < 4; ++j) s[n][j] = 0.f;
+#pragma unroll
+  for (int kc = 0; kc < DP / 16; ++kc) {
+    uint32_t a[4];
+    ldmatrix_x4(a, a_s + (lane & 15) * kPitch + kc * 16 + (lane >> 4) * 8);
+#pragma unroll
+    for (int np = 0; np < NT / 2; ++np) {
+      uint32_t r[4];
+      const int key = np * 16 + (lane & 7) + (lane >> 4) * 8;
+      const int col = kc * 16 + ((lane >> 3) & 1) * 8;
+      ldmatrix_x4(r, b_s + key * kPitch + col);
+      mma(s[2 * np], a, r[0], r[1]);
+      mma(s[2 * np + 1], a, r[2], r[3]);
+    }
+  }
+}
+
 // Scale the scores and mask keys >= S and (causal) keys after the row with
 // -inf. Element j of s[n] is (row_j, key t0 + 8n + 2*(lane%4) + j%2), with
 // row_j = row_lo for j < 2 and row_lo + 8 otherwise.
@@ -645,9 +787,11 @@ __device__ __forceinline__ float quad_sum(float v) {
 
 template <int DP>
 __global__ void __launch_bounds__(kThreads)
-fwd(const bf16* __restrict__ qkv, bf16* __restrict__ out,
-    bf16* __restrict__ probs, int S, int H, int D, float scale, int causal) {
-  constexpr int kPitch = DP + 8, NT = kK / 8;
+fwd(const bf16* __restrict__ qkv, Pitch pq, bf16* __restrict__ out,
+    Pitch po, bf16* __restrict__ probs, float* __restrict__ row_max,
+    float* __restrict__ row_sum, int S, int H, int D, float scale,
+    int causal) {
+  constexpr int kPitch = DP + 8, NT = kK / 8, kSub = 32, NS = kSub / 8;
   extern __shared__ __align__(16) unsigned char smem_raw[];
   bf16* q_s = reinterpret_cast<bf16*>(smem_raw);   // [kQ][kPitch]
   bf16* k_s = q_s + kQ * kPitch;                    // [kK][kPitch]
@@ -655,8 +799,8 @@ fwd(const bf16* __restrict__ qkv, bf16* __restrict__ out,
 
   const int b = blockIdx.z, h = blockIdx.y, q0 = blockIdx.x * kQ;
   const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
-  const long row_pitch = 3L * H * D;
-  const bf16* src = qkv + (long)b * S * row_pitch;
+  const long row_pitch = pq.s;
+  const bf16* src = qkv + (long)b * pq.b;
   const int nk = causal ? min(S, q0 + kQ) : S;
   const int row_lo = q0 + warp * 16 + (lane >> 2);  // and row_lo + 8
   const int warp_last = q0 + warp * 16 + 15;
@@ -672,11 +816,7 @@ fwd(const bf16* __restrict__ qkv, bf16* __restrict__ out,
     load_tile<DP, kK>(v_s, src, row_pitch, (2 * H + h) * D, 0, nk, D);
   }
   __syncthreads();
-  uint32_t qa[DP / 16][4];
-#pragma unroll
-  for (int kc = 0; kc < DP / 16; ++kc)
-    ldmatrix_x4(qa[kc], q_s + (warp * 16 + (lane & 15)) * kPitch + kc * 16 +
-                            (lane >> 4) * 8);
+  const bf16* qw_s = q_s + warp * 16 * kPitch;
 
   // pass 1: row max m and denominator l (rows row_lo, row_lo + 8)
   float m[2] = {-CUDART_INF_F, -CUDART_INF_F}, l[2] = {0.f, 0.f};
@@ -689,7 +829,7 @@ fwd(const bf16* __restrict__ qkv, bf16* __restrict__ out,
     }
     if (skip(t0)) continue;
     float s[NT][4];
-    score_tile<DP, NT>(s, qa, k_s, lane);
+    score_tile_s<DP, NT>(s, qw_s, k_s, lane);
     scale_mask(s, t0, row_lo, lane, S, causal, scale);
 #pragma unroll
     for (int half = 0; half < 2; ++half) {
@@ -709,9 +849,19 @@ fwd(const bf16* __restrict__ qkv, bf16* __restrict__ out,
       m[half] = mn;
     }
   }
+  if (row_max != nullptr && (lane & 3) == 0)
+#pragma unroll
+    for (int half = 0; half < 2; ++half) {
+      const int row = row_lo + 8 * half;
+      if (row >= S) continue;
+      const long i = ((long)b * H + h) * S + row;
+      row_max[i] = m[half];
+      row_sum[i] = l[half];
+    }
 
-  // pass 2: P = exp(s - m) / l rounded to bf16 (as A fragments), O += P V;
-  // with probs, P is also written there (masked keys as 0)
+  // pass 2: P = exp(s - m) / l rounded to bf16 (as A fragments), O += P V,
+  // each key tile in halves of 32 keys (fewer live registers); with probs,
+  // P is also written there (masked keys as 0)
   bf16* p_bh = probs == nullptr ? nullptr
                                 : probs + ((long)b * H + h) * S * S;
   float o[DP / 8][4];
@@ -727,35 +877,49 @@ fwd(const bf16* __restrict__ qkv, bf16* __restrict__ out,
       load_tile<DP, kK>(v_s, src, row_pitch, (2 * H + h) * D, t0, nt, D);
       __syncthreads();
     }
-    if (skip(t0)) continue;
-    float s[NT][4];
-    score_tile<DP, NT>(s, qa, k_s, lane);
-    scale_mask(s, t0, row_lo, lane, S, causal, scale);
-#pragma unroll
-    for (int kc = 0; kc < NT / 2; ++kc) {
-      uint32_t pa[4];
-#pragma unroll
-      for (int i = 0; i < 4; ++i) {
-        // i: 0 (row lo, keys 0-7), 1 (row hi, 0-7), 2 (lo, 8-15), 3 (hi, 8-15)
-        const float* sv = s[2 * kc + (i >> 1)];
-        const int half = i & 1;
-        pa[i] = pack_bf16(expf(sv[2 * half] - m[half]) / l[half],
-                          expf(sv[2 * half + 1] - m[half]) / l[half]);
-        const int row = row_lo + 8 * half;
-        const int key = t0 + 16 * kc + 8 * (i >> 1) + 2 * (lane & 3);
-        if (p_bh != nullptr && row < S) {
-          const bf16* pv = reinterpret_cast<const bf16*>(&pa[i]);
-          if (key < S) p_bh[(long)row * S + key] = pv[0];
-          if (key + 1 < S) p_bh[(long)row * S + key + 1] = pv[1];
-        }
+#pragma unroll 1
+    for (int hk = 0; hk < kK; hk += kSub) {
+      const int t = t0 + hk;
+      if (warp_idle || t >= nk) continue;  // warp-uniform
+      if (causal && t > warp_last) {
+        // keys after every row of the warp: their P is 0
+        if (p_bh != nullptr)
+          for (int r = 0; r < 16 && q0 + warp * 16 + r < S; ++r)
+            for (int key = t + lane; key < min(t + kSub, nk); key += 32)
+              p_bh[(long)(q0 + warp * 16 + r) * S + key] =
+                  __float2bfloat16(0.f);
+        continue;
       }
+      float s[NS][4];
+      score_tile_s<DP, NS>(s, qw_s, k_s + hk * kPitch, lane);
+      scale_mask(s, t, row_lo, lane, S, causal, scale);
 #pragma unroll
-      for (int dp = 0; dp < DP / 16; ++dp) {
-        uint32_t r[4];
-        const int key = kc * 16 + (lane & 7) + ((lane >> 3) & 1) * 8;
-        ldmatrix_x4_trans(r, v_s + key * kPitch + dp * 16 + (lane >> 4) * 8);
-        mma(o[2 * dp], pa, r[0], r[1]);
-        mma(o[2 * dp + 1], pa, r[2], r[3]);
+      for (int kc = 0; kc < NS / 2; ++kc) {
+        uint32_t pa[4];
+#pragma unroll
+        for (int i = 0; i < 4; ++i) {
+          // i: 0 (row lo, keys 0-7), 1 (row hi, 0-7), 2 (lo, 8-15), 3 (hi,
+          // 8-15)
+          const float* sv = s[2 * kc + (i >> 1)];
+          const int half = i & 1;
+          pa[i] = pack_bf16(expf(sv[2 * half] - m[half]) / l[half],
+                            expf(sv[2 * half + 1] - m[half]) / l[half]);
+          const int row = row_lo + 8 * half;
+          const int key = t + 16 * kc + 8 * (i >> 1) + 2 * (lane & 3);
+          if (p_bh != nullptr && row < S) {
+            const bf16* pv = reinterpret_cast<const bf16*>(&pa[i]);
+            if (key < S) p_bh[(long)row * S + key] = pv[0];
+            if (key + 1 < S) p_bh[(long)row * S + key + 1] = pv[1];
+          }
+        }
+#pragma unroll
+        for (int dc = 0; dc < DP / 16; ++dc) {
+          uint32_t r[4];
+          const int key = hk + kc * 16 + (lane & 7) + ((lane >> 3) & 1) * 8;
+          ldmatrix_x4_trans(r, v_s + key * kPitch + dc * 16 + (lane >> 4) * 8);
+          mma(o[2 * dc], pa, r[0], r[1]);
+          mma(o[2 * dc + 1], pa, r[2], r[3]);
+        }
       }
     }
   }
@@ -770,7 +934,7 @@ fwd(const bf16* __restrict__ qkv, bf16* __restrict__ out,
   for (int half = 0; half < 2; ++half) {
     const int row = row_lo + 8 * half;
     if (row >= S) continue;
-    bf16* dst = out + ((long)b * S + row) * H * D + h * D;
+    bf16* dst = out + (long)b * po.b + (long)row * po.s + h * D;
 #pragma unroll
     for (int n = 0; n < DP / 8; ++n) {
       const int d = 8 * n + 2 * (lane & 3);
@@ -782,19 +946,16 @@ fwd(const bf16* __restrict__ qkv, bf16* __restrict__ out,
 }
 
 template <int DP>
-cudaError_t launch(const void* qkv, void* out, void* probs, int B, int S,
+cudaError_t launch(const void* qkv, Pitch pq, void* out, Pitch po,
+                   void* probs, float* row_max, float* row_sum, int B, int S,
                    int H, int D, float scale, int causal, cudaStream_t st) {
   constexpr int kSmem = smem_bytes(DP);
-  if (kSmem > 48 * 1024) {
-    const cudaError_t e = cudaFuncSetAttribute(
-        fwd<DP>, cudaFuncAttributeMaxDynamicSharedMemorySize, kSmem);
-    if (e != cudaSuccess) return e;
-  }
+  const cudaError_t e = allow_smem(fwd<DP>, kSmem);
+  if (e != cudaSuccess) return e;
   const dim3 grid((S + kQ - 1) / kQ, H, B);
-  fwd<DP><<<grid, kThreads, kSmem, st>>>(static_cast<const bf16*>(qkv),
-                                         static_cast<bf16*>(out),
-                                         static_cast<bf16*>(probs), S, H, D,
-                                         scale, causal);
+  fwd<DP><<<grid, kThreads, kSmem, st>>>(
+      static_cast<const bf16*>(qkv), pq, static_cast<bf16*>(out), po,
+      static_cast<bf16*>(probs), row_max, row_sum, S, H, D, scale, causal);
   return cudaGetLastError();
 }
 
@@ -804,6 +965,21 @@ constexpr int kPP = kK + 8;  // pitch of a staged P tile
 
 __host__ __device__ constexpr int bwd_smem_bytes(int dp) {
   return 3 * 64 * (dp + 8) * 2 + kQ * kPP * 2 + kQ * 4;
+}
+
+// The pitches of contiguous qkv / dqkv [B, S, 3*H*D] and dO [B, S, H*D]. The
+// saved-P kernels take them from here in the packed layout, not as
+// arguments: with pitches the compiler cannot relate to S, H and D, ptxas
+// gives part 2 220 registers instead of 171 at D = 64 and it runs about 1.3x
+// slower at the ViT-B/32 shapes on the H100 (PERF.md).
+__host__ __device__ __forceinline__ void packed_pitches(Pitch& pq, Pitch& pdo,
+                                                        Pitch& pdq, int S,
+                                                        int H, int D) {
+  pq.s = 3L * H * D;
+  pq.b = (long)S * pq.s;
+  pdo.s = (long)H * D;
+  pdo.b = (long)S * pdo.s;
+  pdq = pq;
 }
 
 // Stage the saved probabilities P[q0 + r][t0 + c] of one (batch, head) in a
@@ -830,14 +1006,16 @@ __device__ __forceinline__ uint32_t pack_raw(bf16 lo, bf16 hi) {
 // runs like the forward's Q K^T (dO rows as A fragments in registers), and
 // dQ += dS K like its P V, with dS = P (dP - delta) scale rounded to bf16
 // into A fragments. Pass 1 sums delta over every key tile, pass 2 forms dS;
-// at S <= 64 the K, V and P tiles are loaded once.
-template <int DP>
+// at S <= 64 the K, V and P tiles are loaded once. kPacked: see
+// packed_pitches.
+template <int DP, bool kPacked>
 __global__ void __launch_bounds__(kThreads)
-bwd_dq(const bf16* __restrict__ qkv, const bf16* __restrict__ dout,
-       const bf16* __restrict__ probs, bf16* __restrict__ dqkv,
-       float* __restrict__ delta, int S, int H, int D, float scale,
-       int causal) {
+bwd_dq(const bf16* __restrict__ qkv, Pitch pq, const bf16* __restrict__ dout,
+       Pitch pdo, const bf16* __restrict__ probs, bf16* __restrict__ dqkv,
+       Pitch pdq, float* __restrict__ delta, int S, int H, int D,
+       float scale, int causal) {
   constexpr int kPitch = DP + 8, NT = kK / 8;
+  if (kPacked) packed_pitches(pq, pdo, pdq, S, H, D);
   extern __shared__ __align__(16) unsigned char smem_raw[];
   bf16* do_s = reinterpret_cast<bf16*>(smem_raw);  // [kQ][kPitch]
   bf16* k_s = do_s + kQ * kPitch;                   // [kK][kPitch]
@@ -846,8 +1024,8 @@ bwd_dq(const bf16* __restrict__ qkv, const bf16* __restrict__ dout,
 
   const int b = blockIdx.z, h = blockIdx.y, q0 = blockIdx.x * kQ;
   const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
-  const long row_pitch = 3L * H * D, o_pitch = (long)H * D;
-  const bf16* src = qkv + (long)b * S * row_pitch;
+  const long row_pitch = pq.s;
+  const bf16* src = qkv + (long)b * pq.b;
   const bf16* P = probs + ((long)b * H + h) * S * S;
   const int nq = min(kQ, S - q0);
   // P is 0 on every masked pair, so the mask only bounds the key tiles
@@ -858,8 +1036,7 @@ bwd_dq(const bf16* __restrict__ qkv, const bf16* __restrict__ dout,
   auto skip = [&](int t0) { return warp_idle || (causal && t0 > warp_last); };
   const bool one_tile = nk <= kK;
 
-  load_tile<DP, kQ>(do_s, dout + (long)b * S * o_pitch, o_pitch, h * D, q0,
-                    nq, D);
+  load_tile<DP, kQ>(do_s, dout + (long)b * pdo.b, pdo.s, h * D, q0, nq, D);
   if (one_tile) {
     load_tile<DP, kK>(k_s, src, row_pitch, (H + h) * D, 0, nk, D);
     load_tile<DP, kK>(v_s, src, row_pitch, (2 * H + h) * D, 0, nk, D);
@@ -945,7 +1122,7 @@ bwd_dq(const bf16* __restrict__ qkv, const bf16* __restrict__ dout,
     const int row = q0 + row_lo + 8 * half;
     if (row >= S) continue;
     if ((lane & 3) == 0) delta[((long)b * H + h) * S + row] = dl[half];
-    bf16* dst = dqkv + ((long)b * S + row) * row_pitch + h * D;
+    bf16* dst = dqkv + (long)b * pdq.b + (long)row * pdq.s + h * D;
 #pragma unroll
     for (int n = 0; n < DP / 8; ++n) {
       const int d = 8 * n + 2 * (lane & 3);
@@ -960,13 +1137,15 @@ bwd_dq(const bf16* __restrict__ qkv, const bf16* __restrict__ dout,
 // warps of 16 keys, looping over 64-query tiles (from the block's first key
 // on, when causal). With keys as rows: dV += P^T dO, dP^T = V dO^T (V rows
 // as A fragments in registers), dK += dS^T Q with dS from part 1's delta.
-template <int DP>
+template <int DP, bool kPacked>
 __global__ void __launch_bounds__(kThreads)
-bwd_dkdv(const bf16* __restrict__ qkv, const bf16* __restrict__ dout,
+bwd_dkdv(const bf16* __restrict__ qkv, Pitch pq,
+         const bf16* __restrict__ dout, Pitch pdo,
          const bf16* __restrict__ probs, const float* __restrict__ delta,
-         bf16* __restrict__ dqkv, int S, int H, int D, float scale,
-         int causal) {
+         bf16* __restrict__ dqkv, Pitch pdq, int S, int H, int D,
+         float scale, int causal) {
   constexpr int kPitch = DP + 8, NT = kQ / 8;
+  if (kPacked) packed_pitches(pq, pdo, pdq, S, H, D);
   extern __shared__ __align__(16) unsigned char smem_raw[];
   bf16* q_s = reinterpret_cast<bf16*>(smem_raw);  // [kQ][kPitch]
   bf16* do_s = q_s + kQ * kPitch;                  // [kQ][kPitch]
@@ -976,9 +1155,9 @@ bwd_dkdv(const bf16* __restrict__ qkv, const bf16* __restrict__ dout,
 
   const int b = blockIdx.z, h = blockIdx.y, k0 = blockIdx.x * kK;
   const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
-  const long row_pitch = 3L * H * D, o_pitch = (long)H * D;
-  const bf16* src = qkv + (long)b * S * row_pitch;
-  const bf16* dsrc = dout + (long)b * S * o_pitch;
+  const long row_pitch = pq.s, o_pitch = pdo.s;
+  const bf16* src = qkv + (long)b * pq.b;
+  const bf16* dsrc = dout + (long)b * pdo.b;
   const bf16* P = probs + ((long)b * H + h) * S * S;
   const float* d_bh = delta + ((long)b * H + h) * S;
   const int nkeys = min(kK, S - k0);
@@ -1061,7 +1240,351 @@ bwd_dkdv(const bf16* __restrict__ qkv, const bf16* __restrict__ dout,
   for (int half = 0; half < 2; ++half) {
     const int key = k0 + key_lo + 8 * half;
     if (key >= S) continue;
-    bf16* dst = dqkv + ((long)b * S + key) * row_pitch;
+    bf16* dst = dqkv + (long)b * pdq.b + (long)key * pdq.s;
+#pragma unroll
+    for (int n = 0; n < DP / 8; ++n) {
+      const int d = 8 * n + 2 * (lane & 3);
+      if (d < D) {
+        *reinterpret_cast<uint32_t*>(dst + (H + h) * D + d) =
+            pack_bf16(dk[n][2 * half], dk[n][2 * half + 1]);
+        *reinterpret_cast<uint32_t*>(dst + (2 * H + h) * D + d) =
+            pack_bf16(dv[n][2 * half], dv[n][2 * half + 1]);
+      }
+    }
+  }
+}
+
+template <int DP, bool kPacked>
+cudaError_t launch_bwd_as(const void* qkv, Pitch pq, const void* dout,
+                          Pitch pdo, const void* probs, void* dqkv, Pitch pdq,
+                          float* delta, int B, int S, int H, int D,
+                          float scale, int causal, cudaStream_t st) {
+  constexpr int kSmem = bwd_smem_bytes(DP);
+  cudaError_t e = allow_smem(bwd_dq<DP, kPacked>, kSmem);
+  if (e == cudaSuccess) e = allow_smem(bwd_dkdv<DP, kPacked>, kSmem);
+  if (e != cudaSuccess) return e;
+  const bf16* q = static_cast<const bf16*>(qkv);
+  const bf16* g = static_cast<const bf16*>(dout);
+  const bf16* p = static_cast<const bf16*>(probs);
+  bf16* dq = static_cast<bf16*>(dqkv);
+  bwd_dq<DP, kPacked>
+      <<<dim3((S + kQ - 1) / kQ, H, B), kThreads, kSmem, st>>>(
+          q, pq, g, pdo, p, dq, pdq, delta, S, H, D, scale, causal);
+  e = cudaGetLastError();
+  if (e != cudaSuccess) return e;
+  bwd_dkdv<DP, kPacked>
+      <<<dim3((S + kK - 1) / kK, H, B), kThreads, kSmem, st>>>(
+          q, pq, g, pdo, p, delta, dq, pdq, S, H, D, scale, causal);
+  return cudaGetLastError();
+}
+
+// The packed layout (every operand a contiguous [B, S, *] tensor) runs its
+// own instantiation, whose pitches packed_pitches derives from S, H and D.
+template <int DP>
+cudaError_t launch_bwd(const void* qkv, Pitch pq, const void* dout, Pitch pdo,
+                       const void* probs, void* dqkv, Pitch pdq, float* delta,
+                       int B, int S, int H, int D, float scale, int causal,
+                       cudaStream_t st) {
+  Pitch q = pq, o = pdo, g = pdq;
+  packed_pitches(q, o, g, S, H, D);
+  const bool packed = pq.b == q.b && pq.s == q.s && pdo.b == o.b &&
+                      pdo.s == o.s && pdq.b == g.b && pdq.s == g.s;
+  return packed ? launch_bwd_as<DP, true>(qkv, pq, dout, pdo, probs, dqkv,
+                                          pdq, delta, B, S, H, D, scale,
+                                          causal, st)
+                : launch_bwd_as<DP, false>(qkv, pq, dout, pdo, probs, dqkv,
+                                           pdq, delta, B, S, H, D, scale,
+                                           causal, st);
+}
+
+// ---- recompute backward --------------------------------------------------
+
+// Four [64][DP+8] bf16 tiles, and part 2's m, l and delta of a query tile.
+__host__ __device__ constexpr int bwd_rc_smem_bytes(int dp) {
+  return 4 * 64 * (dp + 8) * 2 + 3 * kQ * 4;
+}
+
+// Recompute backward, part 1: dQ and delta_i = sum_j dP_ij P_ij with P
+// formed in fp32 from the scores and the forward's row statistics. One
+// block per (64 query rows, head, batch), 4 warps of 16 rows; q and dO are
+// staged once, k and v per 64-key tile (once when one tile holds every key
+// the block sees), and every operand is read from shared memory, so that
+// the registers hold little more than dQ and the warps of several blocks
+// per SM hide each other's latency. Both passes walk each key tile
+// in halves of 32 keys (halves past the last key, or after the warp's last
+// row when causal, are skipped) and form S = Q K^T, P = exp(S scale - m) /
+// l (the forward's pass-2 arithmetic; masked pairs exactly 0) and dP =
+// dO V^T; pass 1 sums delta, pass 2 forms dS = P (dP - delta) scale with
+// fp32 P, rounded to bf16 as A fragments, and accumulates dQ += dS K.
+template <int DP>
+__global__ void __launch_bounds__(kThreads)
+bwd_dq_rc(const bf16* __restrict__ qkv, Pitch pq,
+          const bf16* __restrict__ dout, Pitch pdo,
+          const float* __restrict__ row_max,
+          const float* __restrict__ row_sum, bf16* __restrict__ dqkv,
+          Pitch pdq, float* __restrict__ delta, int S, int H, int D,
+          float scale, int causal) {
+  constexpr int kPitch = DP + 8, kSub = 32, NT = kSub / 8;
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  bf16* q_s = reinterpret_cast<bf16*>(smem_raw);  // [kQ][kPitch]
+  bf16* do_s = q_s + kQ * kPitch;                  // [kQ][kPitch]
+  bf16* k_s = do_s + kQ * kPitch;                  // [kK][kPitch]
+  bf16* v_s = k_s + kK * kPitch;                   // [kK][kPitch]
+
+  const int b = blockIdx.z, h = blockIdx.y, q0 = blockIdx.x * kQ;
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  const long bh = (long)b * H + h;
+  const bf16* src = qkv + (long)b * pq.b;
+  const int nq = min(kQ, S - q0);
+  const int nk = causal ? min(S, q0 + kQ) : S;
+  const int row_lo = q0 + warp * 16 + (lane >> 2);  // rows row_lo, row_lo + 8
+  const int warp_last = q0 + warp * 16 + 15;
+  const bool warp_idle = q0 + warp * 16 >= S;
+  // warp-uniform: keys [t, t + kSub) hold nothing this warp's rows need
+  auto skip = [&](int t) {
+    return warp_idle || t >= nk || (causal && t > warp_last);
+  };
+  const bool one_tile = nk <= kK;
+  auto load_kv = [&](int t0) {
+    const int nt = min(kK, nk - t0);
+    load_tile<DP, kK>(k_s, src, pq.s, (H + h) * D, t0, nt, D);
+    load_tile<DP, kK>(v_s, src, pq.s, (2 * H + h) * D, t0, nt, D);
+  };
+
+  load_tile<DP, kQ>(q_s, src, pq.s, h * D, q0, nq, D);
+  load_tile<DP, kQ>(do_s, dout + (long)b * pdo.b, pdo.s, h * D, q0, nq, D);
+  if (one_tile) load_kv(0);
+  __syncthreads();
+  const bf16* qw_s = q_s + warp * 16 * kPitch;
+  const bf16* dow_s = do_s + warp * 16 * kPitch;
+  float m[2], l[2];
+#pragma unroll
+  for (int half = 0; half < 2; ++half) {
+    const int row = row_lo + 8 * half;
+    m[half] = row < S ? row_max[bh * S + row] : 0.f;
+    l[half] = row < S ? row_sum[bh * S + row] : 1.f;
+  }
+  // P of the warp's rows against keys [t, t + kSub) (at hk in the staged
+  // tile) into s, dP into dp
+  auto probs_and_dp = [&](float (&s)[NT][4], float (&dp)[NT][4], int t,
+                          int hk) {
+    score_tile_s<DP, NT>(s, qw_s, k_s + hk * kPitch, lane);
+    scale_mask(s, t, row_lo, lane, S, causal, scale);
+#pragma unroll
+    for (int n = 0; n < NT; ++n)
+#pragma unroll
+      for (int j = 0; j < 4; ++j)
+        s[n][j] = expf(s[n][j] - m[j >> 1]) / l[j >> 1];
+    score_tile_s<DP, NT>(dp, dow_s, v_s + hk * kPitch, lane);
+  };
+
+  // pass 1: delta of rows row_lo and row_lo + 8
+  float dl[2] = {0.f, 0.f};
+  for (int t0 = 0; t0 < nk; t0 += kK) {
+    if (!one_tile) {
+      __syncthreads();
+      load_kv(t0);
+      __syncthreads();
+    }
+#pragma unroll
+    for (int hk = 0; hk < kK; hk += kSub) {
+      if (skip(t0 + hk)) continue;
+      float s[NT][4], dp[NT][4];
+      probs_and_dp(s, dp, t0 + hk, hk);
+#pragma unroll
+      for (int n = 0; n < NT; ++n)
+#pragma unroll
+        for (int j = 0; j < 4; ++j)
+          dl[j >> 1] = fmaf(s[n][j], dp[n][j], dl[j >> 1]);
+    }
+  }
+  dl[0] = quad_sum(dl[0]);
+  dl[1] = quad_sum(dl[1]);
+
+  // pass 2: dQ += dS K
+  float dq[DP / 8][4];
+#pragma unroll
+  for (int n = 0; n < DP / 8; ++n)
+#pragma unroll
+    for (int j = 0; j < 4; ++j) dq[n][j] = 0.f;
+  for (int t0 = 0; t0 < nk; t0 += kK) {
+    if (!one_tile) {
+      __syncthreads();
+      load_kv(t0);
+      __syncthreads();
+    }
+#pragma unroll
+    for (int hk = 0; hk < kK; hk += kSub) {
+      if (skip(t0 + hk)) continue;
+      float s[NT][4], dp[NT][4];
+      probs_and_dp(s, dp, t0 + hk, hk);
+#pragma unroll
+      for (int kc = 0; kc < NT / 2; ++kc) {
+        uint32_t dsa[4];
+#pragma unroll
+        for (int i = 0; i < 4; ++i) {
+          const int c = 2 * kc + (i >> 1), half = i & 1;
+          dsa[i] = pack_bf16(
+              s[c][2 * half] * (dp[c][2 * half] - dl[half]) * scale,
+              s[c][2 * half + 1] * (dp[c][2 * half + 1] - dl[half]) * scale);
+        }
+#pragma unroll
+        for (int dc = 0; dc < DP / 16; ++dc) {
+          uint32_t r[4];
+          const int key = hk + kc * 16 + (lane & 7) + ((lane >> 3) & 1) * 8;
+          ldmatrix_x4_trans(r, k_s + key * kPitch + dc * 16 + (lane >> 4) * 8);
+          mma(dq[2 * dc], dsa, r[0], r[1]);
+          mma(dq[2 * dc + 1], dsa, r[2], r[3]);
+        }
+      }
+    }
+  }
+
+#pragma unroll
+  for (int half = 0; half < 2; ++half) {
+    const int row = row_lo + 8 * half;
+    if (row >= S) continue;
+    if ((lane & 3) == 0) delta[bh * S + row] = dl[half];
+    bf16* dst = dqkv + (long)b * pdq.b + (long)row * pdq.s + h * D;
+#pragma unroll
+    for (int n = 0; n < DP / 8; ++n) {
+      const int d = 8 * n + 2 * (lane & 3);
+      if (d < D)
+        *reinterpret_cast<uint32_t*>(dst + d) =
+            pack_bf16(dq[n][2 * half], dq[n][2 * half + 1]);
+    }
+  }
+}
+
+// Recompute backward, part 2: dK and dV. One block per (64 keys, head,
+// batch), 4 warps of 16 keys, whose k and v rows stay in shared memory as A
+// operands; it loops over 64-query tiles (from the block's first key on,
+// when causal), each in two halves of 32 queries. With keys as rows: S^T =
+// K Q^T, P^T = exp(S^T scale - m_q) / l_q in the accumulators, dV +=
+// bf16(P^T) dO with P^T's A fragments taken straight from them, dP^T = V
+// dO^T, and dK += dS^T Q with dS^T = P^T (dP^T - delta_q) scale in fp32,
+// rounded to bf16.
+template <int DP>
+__global__ void __launch_bounds__(kThreads)
+bwd_dkdv_rc(const bf16* __restrict__ qkv, Pitch pq,
+            const bf16* __restrict__ dout, Pitch pdo,
+            const float* __restrict__ row_max,
+            const float* __restrict__ row_sum,
+            const float* __restrict__ delta, bf16* __restrict__ dqkv,
+            Pitch pdq, int S, int H, int D, float scale, int causal) {
+  constexpr int kPitch = DP + 8, kSub = 32, NT = kSub / 8;
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  bf16* k_s = reinterpret_cast<bf16*>(smem_raw);  // [kK][kPitch] block keys
+  bf16* v_s = k_s + kK * kPitch;                   // [kK][kPitch]
+  bf16* q_s = v_s + kK * kPitch;                   // [kQ][kPitch]
+  bf16* do_s = q_s + kQ * kPitch;                  // [kQ][kPitch]
+  float* m_s = reinterpret_cast<float*>(do_s + kQ * kPitch);  // [kQ]
+  float* l_s = m_s + kQ;                                      // [kQ]
+  float* d_s = l_s + kQ;                                      // [kQ]
+
+  const int b = blockIdx.z, h = blockIdx.y, k0 = blockIdx.x * kK;
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  const long bh = (long)b * H + h;
+  const bf16* src = qkv + (long)b * pq.b;
+  const bf16* dsrc = dout + (long)b * pdo.b;
+  const int nkeys = min(kK, S - k0);
+  const int warp_k0 = k0 + warp * 16;
+  const int key_lo = warp_k0 + (lane >> 2);  // keys key_lo, key_lo + 8
+  const bool warp_idle = warp_k0 >= S;
+
+  load_tile<DP, kK>(k_s, src, pq.s, (H + h) * D, k0, nkeys, D);
+  load_tile<DP, kK>(v_s, src, pq.s, (2 * H + h) * D, k0, nkeys, D);
+  const bf16* kw_s = k_s + warp * 16 * kPitch;
+  const bf16* vw_s = v_s + warp * 16 * kPitch;
+
+  float dk[DP / 8][4], dv[DP / 8][4];
+#pragma unroll
+  for (int n = 0; n < DP / 8; ++n)
+#pragma unroll
+    for (int j = 0; j < 4; ++j) dk[n][j] = dv[n][j] = 0.f;
+  // causal: no query before the block's first key attends to its keys
+  for (int q0 = causal ? k0 : 0; q0 < S; q0 += kQ) {
+    const int nq = min(kQ, S - q0);
+    __syncthreads();
+    load_tile<DP, kQ>(q_s, src, pq.s, h * D, q0, nq, D);
+    load_tile<DP, kQ>(do_s, dsrc, pdo.s, h * D, q0, nq, D);
+    for (int i = threadIdx.x; i < kQ; i += kThreads) {
+      const bool ok = i < nq;
+      m_s[i] = ok ? row_max[bh * S + q0 + i] : 0.f;
+      l_s[i] = ok ? row_sum[bh * S + q0 + i] : 1.f;
+      d_s[i] = ok ? delta[bh * S + q0 + i] : 0.f;
+    }
+    __syncthreads();
+    if (warp_idle) continue;
+#pragma unroll 1
+    for (int qs = 0; qs < kQ; qs += kSub) {
+      // warp-uniform: every query of the half is past S, or (causal)
+      // before the warp's first key
+      if (q0 + qs >= S || (causal && q0 + qs + kSub - 1 < warp_k0)) continue;
+      // P^T: element j of s[n] is (key key_lo + 8*(j/2), query qs + 8n +
+      // 2*(lane%4) + j%2 of the tile)
+      float s[NT][4];
+      score_tile_s<DP, NT>(s, kw_s, q_s + qs * kPitch, lane);
+#pragma unroll
+      for (int n = 0; n < NT; ++n)
+#pragma unroll
+        for (int j = 0; j < 4; ++j) {
+          const int key = key_lo + 8 * (j >> 1);
+          const int q = qs + 8 * n + 2 * (lane & 3) + (j & 1);
+          const bool ok =
+              key < S && q0 + q < S && (!causal || key <= q0 + q);
+          s[n][j] = ok ? expf(s[n][j] * scale - m_s[q]) / l_s[q] : 0.f;
+        }
+      // dV += bf16(P^T) dO
+#pragma unroll
+      for (int kc = 0; kc < NT / 2; ++kc) {
+        uint32_t pa[4];
+#pragma unroll
+        for (int i = 0; i < 4; ++i) {
+          const int c = 2 * kc + (i >> 1), half = i & 1;
+          pa[i] = pack_bf16(s[c][2 * half], s[c][2 * half + 1]);
+        }
+#pragma unroll
+        for (int dc = 0; dc < DP / 16; ++dc) {
+          uint32_t r[4];
+          const int q = qs + kc * 16 + (lane & 7) + ((lane >> 3) & 1) * 8;
+          ldmatrix_x4_trans(r, do_s + q * kPitch + dc * 16 + (lane >> 4) * 8);
+          mma(dv[2 * dc], pa, r[0], r[1]);
+          mma(dv[2 * dc + 1], pa, r[2], r[3]);
+        }
+      }
+      // dP^T = V dO^T, then dK += dS^T Q
+      float dp[NT][4];
+      score_tile_s<DP, NT>(dp, vw_s, do_s + qs * kPitch, lane);
+#pragma unroll
+      for (int kc = 0; kc < NT / 2; ++kc) {
+        uint32_t dsa[4];
+#pragma unroll
+        for (int i = 0; i < 4; ++i) {
+          const int c = 2 * kc + (i >> 1), half = i & 1;
+          const int q = qs + 8 * c + 2 * (lane & 3);
+          dsa[i] = pack_bf16(
+              s[c][2 * half] * (dp[c][2 * half] - d_s[q]) * scale,
+              s[c][2 * half + 1] * (dp[c][2 * half + 1] - d_s[q + 1]) *
+                  scale);
+        }
+#pragma unroll
+        for (int dc = 0; dc < DP / 16; ++dc) {
+          uint32_t r[4];
+          const int q = qs + kc * 16 + (lane & 7) + ((lane >> 3) & 1) * 8;
+          ldmatrix_x4_trans(r, q_s + q * kPitch + dc * 16 + (lane >> 4) * 8);
+          mma(dk[2 * dc], dsa, r[0], r[1]);
+          mma(dk[2 * dc + 1], dsa, r[2], r[3]);
+        }
+      }
+    }
+  }
+
+#pragma unroll
+  for (int half = 0; half < 2; ++half) {
+    const int key = key_lo + 8 * half;
+    if (key >= S) continue;
+    bf16* dst = dqkv + (long)b * pdq.b + (long)key * pdq.s;
 #pragma unroll
     for (int n = 0; n < DP / 8; ++n) {
       const int d = 8 * n + 2 * (lane & 3);
@@ -1076,41 +1599,42 @@ bwd_dkdv(const bf16* __restrict__ qkv, const bf16* __restrict__ dout,
 }
 
 template <int DP>
-cudaError_t launch_bwd(const void* qkv, const void* dout, const void* probs,
-                       void* dqkv, float* delta, int B, int S, int H, int D,
-                       float scale, int causal, cudaStream_t st) {
-  constexpr int kSmem = bwd_smem_bytes(DP);
-  if (kSmem > 48 * 1024) {
-    cudaError_t e = cudaFuncSetAttribute(
-        bwd_dq<DP>, cudaFuncAttributeMaxDynamicSharedMemorySize, kSmem);
-    if (e == cudaSuccess)
-      e = cudaFuncSetAttribute(bwd_dkdv<DP>,
-                               cudaFuncAttributeMaxDynamicSharedMemorySize,
-                               kSmem);
-    if (e != cudaSuccess) return e;
-  }
+cudaError_t launch_bwd_rc(const void* qkv, Pitch pq, const void* dout,
+                          Pitch pdo, const float* row_max,
+                          const float* row_sum, void* dqkv, Pitch pdq,
+                          float* delta, int B, int S, int H, int D,
+                          float scale, int causal, cudaStream_t st) {
+  constexpr int kSmem = bwd_rc_smem_bytes(DP);
+  cudaError_t e = allow_smem(bwd_dq_rc<DP>, kSmem);
+  if (e == cudaSuccess) e = allow_smem(bwd_dkdv_rc<DP>, kSmem);
+  if (e != cudaSuccess) return e;
   const bf16* q = static_cast<const bf16*>(qkv);
   const bf16* g = static_cast<const bf16*>(dout);
-  const bf16* p = static_cast<const bf16*>(probs);
   bf16* dq = static_cast<bf16*>(dqkv);
-  bwd_dq<DP><<<dim3((S + kQ - 1) / kQ, H, B), kThreads, kSmem, st>>>(
-      q, g, p, dq, delta, S, H, D, scale, causal);
-  const cudaError_t e = cudaGetLastError();
+  bwd_dq_rc<DP><<<dim3((S + kQ - 1) / kQ, H, B), kThreads, kSmem, st>>>(
+      q, pq, g, pdo, row_max, row_sum, dq, pdq, delta, S, H, D, scale,
+      causal);
+  e = cudaGetLastError();
   if (e != cudaSuccess) return e;
-  bwd_dkdv<DP><<<dim3((S + kK - 1) / kK, H, B), kThreads, kSmem, st>>>(
-      q, g, p, delta, dq, S, H, D, scale, causal);
+  bwd_dkdv_rc<DP><<<dim3((S + kK - 1) / kK, H, B), kThreads, kSmem, st>>>(
+      q, pq, g, pdo, row_max, row_sum, delta, dq, pdq, S, H, D, scale,
+      causal);
   return cudaGetLastError();
 }
 
-// Takes bf16 rows whose q/k/v slices start on 16-byte boundaries.
-bool eligible(const void* a, const void* b, const void* c, int D) {
-  return D % 8 == 0 && reinterpret_cast<uintptr_t>(a) % 16 == 0 &&
-         reinterpret_cast<uintptr_t>(b) % 16 == 0 &&
-         reinterpret_cast<uintptr_t>(c) % 16 == 0;
+// Takes bf16 rows whose q/k/v slices start on 16-byte boundaries: D a
+// multiple of 8, every base pointer and every pitch a multiple of 16 bytes.
+bool eligible(int D, std::initializer_list<const void*> ptrs,
+              std::initializer_list<long> pitches) {
+  if (D % 8 != 0) return false;
+  for (const void* p : ptrs)
+    if (reinterpret_cast<uintptr_t>(p) % 16 != 0) return false;
+  for (long pitch : pitches)
+    if (pitch % 8 != 0) return false;
+  return true;
 }
 
-// Calls launch<DP>(args...) (forward) or launch_bwd<DP>(args...) for the
-// smallest multiple of 16 that holds D.
+// Calls FN<DP>(args...) for the smallest multiple of 16 that holds D.
 #define MCT_TC_DISPATCH(FN, D, ...)                          \
   switch (((D) + 15) / 16) {                                 \
     case 1: return FN<16>(__VA_ARGS__);                      \
@@ -1124,16 +1648,29 @@ bool eligible(const void* a, const void* b, const void* c, int D) {
     default: return cudaErrorInvalidValue;                   \
   }
 
-cudaError_t dispatch(const void* qkv, void* out, void* probs, int B, int S,
-                     int H, int D, float scale, int causal, cudaStream_t st) {
-  MCT_TC_DISPATCH(launch, D, qkv, out, probs, B, S, H, D, scale, causal, st)
+cudaError_t dispatch(const void* qkv, Pitch pq, void* out, Pitch po,
+                     void* probs, float* row_max, float* row_sum, int B,
+                     int S, int H, int D, float scale, int causal,
+                     cudaStream_t st) {
+  MCT_TC_DISPATCH(launch, D, qkv, pq, out, po, probs, row_max, row_sum, B, S,
+                  H, D, scale, causal, st)
 }
 
-cudaError_t dispatch_bwd(const void* qkv, const void* dout, const void* probs,
-                         void* dqkv, float* delta, int B, int S, int H, int D,
+cudaError_t dispatch_bwd(const void* qkv, Pitch pq, const void* dout,
+                         Pitch pdo, const void* probs, void* dqkv, Pitch pdq,
+                         float* delta, int B, int S, int H, int D,
                          float scale, int causal, cudaStream_t st) {
-  MCT_TC_DISPATCH(launch_bwd, D, qkv, dout, probs, dqkv, delta, B, S, H, D,
-                  scale, causal, st)
+  MCT_TC_DISPATCH(launch_bwd, D, qkv, pq, dout, pdo, probs, dqkv, pdq, delta,
+                  B, S, H, D, scale, causal, st)
+}
+
+cudaError_t dispatch_bwd_rc(const void* qkv, Pitch pq, const void* dout,
+                            Pitch pdo, const float* row_max,
+                            const float* row_sum, void* dqkv, Pitch pdq,
+                            float* delta, int B, int S, int H, int D,
+                            float scale, int causal, cudaStream_t st) {
+  MCT_TC_DISPATCH(launch_bwd_rc, D, qkv, pq, dout, pdo, row_max, row_sum,
+                  dqkv, pdq, delta, B, S, H, D, scale, causal, st)
 }
 
 }  // namespace tc
@@ -1145,40 +1682,87 @@ bool valid_shape(int B, int S, int H, int D) {
 
 }  // namespace
 
-// Forward. probs may be null; otherwise it receives P [B, H, S, S] in the
-// input dtype, the probabilities exactly as P.V used them (masked pairs 0).
-// Returns the launch's cudaError_t (0 on success).
-extern "C" int mct_fused_mha_fwd(const void* qkv, void* out, void* probs,
+// Pointers and (batch, sequence) element strides of the [B, S, *] operands;
+// their rows are contiguous. Each function returns the launch's
+// cudaError_t (0 on success) and launches on `stream`.
+
+// Forward. probs and stats may be null. probs receives P [B, H, S, S] in the
+// input dtype, the probabilities exactly as P.V used them (masked pairs 0);
+// stats [2, B*H*S] fp32 each row's max of the scaled scores, then its
+// softmax denominator, for the recompute backward.
+extern "C" int mct_fused_mha_fwd(const void* qkv, long long qkv_b,
+                                 long long qkv_s, void* out, long long out_b,
+                                 long long out_s, void* probs, void* stats,
                                  int B, int S, int H, int D, float scale,
                                  int causal, int dtype, void* stream) {
   if (!valid_shape(B, S, H, D)) return (int)cudaErrorInvalidValue;
   cudaStream_t st = static_cast<cudaStream_t>(stream);
+  const Pitch pq{qkv_b, qkv_s}, po{out_b, out_s};
+  float* m = static_cast<float*>(stats);
+  float* l = m == nullptr ? nullptr : m + (long)B * H * S;
   if (dtype == mct::kFloat32)
-    return (int)simt::launch<float>(qkv, out, probs, B, S, H, D, scale,
-                                    causal, st);
+    return (int)simt::launch<float>(qkv, pq, out, po, probs, m, l, B, S, H, D,
+                                    scale, causal, st);
   if (dtype != mct::kBFloat16) return (int)cudaErrorInvalidValue;
-  if (tc::eligible(qkv, out, out, D))
-    return (int)tc::dispatch(qkv, out, probs, B, S, H, D, scale, causal, st);
-  return (int)simt::launch<__nv_bfloat16>(qkv, out, probs, B, S, H, D, scale,
-                                          causal, st);
+  if (tc::eligible(D, {qkv, out}, {qkv_b, qkv_s, out_b, out_s}))
+    return (int)tc::dispatch(qkv, pq, out, po, probs, m, l, B, S, H, D, scale,
+                             causal, st);
+  return (int)simt::launch<__nv_bfloat16>(qkv, pq, out, po, probs, m, l, B, S,
+                                          H, D, scale, causal, st);
 }
 
 // Backward from the forward's P: dqkv [B, S, 3*H*D] (every element
-// written), delta [B*H*S] fp32 scratch. Two launches on `stream`.
-extern "C" int mct_fused_mha_bwd(const void* qkv, const void* dout,
-                                 const void* probs, void* dqkv, void* delta,
+// written), delta [B*H*S] fp32 scratch. Two launches.
+extern "C" int mct_fused_mha_bwd(const void* qkv, long long qkv_b,
+                                 long long qkv_s, const void* dout,
+                                 long long do_b, long long do_s,
+                                 const void* probs, void* dqkv,
+                                 long long dq_b, long long dq_s, void* delta,
                                  int B, int S, int H, int D, float scale,
                                  int causal, int dtype, void* stream) {
   if (!valid_shape(B, S, H, D)) return (int)cudaErrorInvalidValue;
   cudaStream_t st = static_cast<cudaStream_t>(stream);
+  const Pitch pq{qkv_b, qkv_s}, pdo{do_b, do_s}, pdq{dq_b, dq_s};
   float* dl = static_cast<float*>(delta);
   if (dtype == mct::kFloat32)
-    return (int)simt::launch_bwd<float>(qkv, dout, probs, dqkv, dl, B, S, H,
-                                        D, scale, causal, st);
+    return (int)simt::launch_bwd<float, false>(qkv, pq, dout, pdo, probs,
+                                               nullptr, nullptr, dqkv, pdq,
+                                               dl, B, S, H, D, scale, causal,
+                                               st);
   if (dtype != mct::kBFloat16) return (int)cudaErrorInvalidValue;
-  if (tc::eligible(qkv, dout, dqkv, D))
-    return (int)tc::dispatch_bwd(qkv, dout, probs, dqkv, dl, B, S, H, D,
-                                 scale, causal, st);
-  return (int)simt::launch_bwd<__nv_bfloat16>(qkv, dout, probs, dqkv, dl, B,
-                                              S, H, D, scale, causal, st);
+  if (tc::eligible(D, {qkv, dout, dqkv},
+                   {qkv_b, qkv_s, do_b, do_s, dq_b, dq_s}))
+    return (int)tc::dispatch_bwd(qkv, pq, dout, pdo, probs, dqkv, pdq, dl, B,
+                                 S, H, D, scale, causal, st);
+  return (int)simt::launch_bwd<__nv_bfloat16, false>(
+      qkv, pq, dout, pdo, probs, nullptr, nullptr, dqkv, pdq, dl, B, S, H, D,
+      scale, causal, st);
+}
+
+// Backward recomputing P from qkv and the forward's stats [2, B*H*S]:
+// dqkv and delta as above. Two launches.
+extern "C" int mct_fused_mha_bwd_recompute(
+    const void* qkv, long long qkv_b, long long qkv_s, const void* dout,
+    long long do_b, long long do_s, const void* stats, void* dqkv,
+    long long dq_b, long long dq_s, void* delta, int B, int S, int H, int D,
+    float scale, int causal, int dtype, void* stream) {
+  if (!valid_shape(B, S, H, D) || stats == nullptr)
+    return (int)cudaErrorInvalidValue;
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  const Pitch pq{qkv_b, qkv_s}, pdo{do_b, do_s}, pdq{dq_b, dq_s};
+  const float* m = static_cast<const float*>(stats);
+  const float* l = m + (long)B * H * S;
+  float* dl = static_cast<float*>(delta);
+  if (dtype == mct::kFloat32)
+    return (int)simt::launch_bwd<float, true>(qkv, pq, dout, pdo, nullptr, m,
+                                              l, dqkv, pdq, dl, B, S, H, D,
+                                              scale, causal, st);
+  if (dtype != mct::kBFloat16) return (int)cudaErrorInvalidValue;
+  if (tc::eligible(D, {qkv, dout, dqkv},
+                   {qkv_b, qkv_s, do_b, do_s, dq_b, dq_s}))
+    return (int)tc::dispatch_bwd_rc(qkv, pq, dout, pdo, m, l, dqkv, pdq, dl, B,
+                                    S, H, D, scale, causal, st);
+  return (int)simt::launch_bwd<__nv_bfloat16, true>(
+      qkv, pq, dout, pdo, nullptr, m, l, dqkv, pdq, dl, B, S, H, D, scale,
+      causal, st);
 }

@@ -115,13 +115,15 @@ def _precision_from_str(precision: str) -> Precision:
 
 def create_model(model_name: str, precision: str = "bf16",
                  device: Union[str, torch.device, None] = None, seed: int = 0,
-                 **overrides) -> CLIPModel:
+                 attn_save_probs: bool = True, **overrides) -> CLIPModel:
     """Build a CLIP model with random weights drawn in fp32 from `seed` (on
     the CPU generator, so every device gets the same weights) on `device`.
     Under `pure_bf16` every weight but `logit_scale` is then stored in bf16,
     as the JAX factory's Precision("bfloat16", "bfloat16") does.
     `device=None` means the CUDA device; without one this raises, it does
-    not fall back to the CPU: pass device="cpu" to run there."""
+    not fall back to the CPU: pass device="cpu" to run there.
+    `attn_save_probs=False` trains with the recompute attention backward
+    (see `CLIPModel`)."""
     device = torch.device("cuda" if device is None else device)
     if device.type == "cuda" and not torch.cuda.is_available():
         raise RuntimeError("create_model: no CUDA device is available; pass "
@@ -134,7 +136,7 @@ def create_model(model_name: str, precision: str = "bf16",
     cfg_dict.update(overrides)
     prec = _precision_from_str(precision)
     gen = torch.Generator().manual_seed(seed)
-    model = CLIPModel(parse_model_cfg(cfg_dict), prec, gen)
+    model = CLIPModel(parse_model_cfg(cfg_dict), prec, gen, attn_save_probs)
     for name, p in model.named_parameters():
         if name != "logit_scale":
             p.data = p.data.to(prec.param_torch)

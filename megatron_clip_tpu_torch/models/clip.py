@@ -42,13 +42,21 @@ class CLIPModel(nn.Module):
     the towers in the policy's compute dtype and return fp32 features there.
     `encode_image` and `encode_text` serve: they run without autograd, so
     the attention kernel writes no probabilities. `forward` is the training
-    forward and records the graph when grad is enabled."""
+    forward and records the graph when grad is enabled.
+
+    `attn_save_probs` picks the attention backward of `forward`: True (the
+    JAX package's default, `MCT_MHA_SAVE_PROBS=1`) saves each attention's
+    probabilities for it, [B, H, S, S] per layer; False
+    (`MCT_MHA_SAVE_PROBS=0`, bench.py's ViT-L/14 and ViT-H/14 legs) saves
+    8 bytes of softmax statistics per row and recomputes them."""
 
     def __init__(self, cfg: CLIPCfg, precision: Precision = BF16,
-                 generator: Optional[torch.Generator] = None):
+                 generator: Optional[torch.Generator] = None,
+                 attn_save_probs: bool = True):
         super().__init__()
         self.cfg = cfg
         self.precision = precision
+        self.attn_save_probs = attn_save_probs
         self.visual = VisionTransformer(cfg.vision, cfg.embed_dim, cfg.act,
                                         generator)
         self.text = TextTransformer(cfg.text, cfg.embed_dim, cfg.act,
@@ -82,14 +90,14 @@ class CLIPModel(nn.Module):
         """Either tower may be None. What `apply_clip` returns (and open_CLIP's
         CLIP.forward): fp32 normalised features and exp(min(logit_scale,
         ln 100)), differentiable in every parameter."""
-        dt = self.precision.compute_torch
+        dt, keep = self.precision.compute_torch, self.attn_save_probs
         out = {}
         if images is not None:
             out["image_features"] = _l2_normalize(
-                self.visual(_as_tensor(images, self.device), dt))
+                self.visual(_as_tensor(images, self.device), dt, keep))
         if text_ids is not None:
-            out["text_features"] = _l2_normalize(
-                self.text(_as_tensor(text_ids, self.device, torch.long), dt))
+            out["text_features"] = _l2_normalize(self.text(
+                _as_tensor(text_ids, self.device, torch.long), dt, keep))
         out["logit_scale"] = torch.exp(
             self.logit_scale.clamp(max=LOGIT_SCALE_MAX))
         return out

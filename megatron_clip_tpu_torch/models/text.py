@@ -42,13 +42,15 @@ class TextTransformer(nn.Module):
             {"w": normal_param((w, embed_dim), w ** -0.5, generator)})
 
     def forward(self, text_ids: torch.Tensor,
-                compute_dtype: torch.dtype = torch.bfloat16) -> torch.Tensor:
+                compute_dtype: torch.dtype = torch.bfloat16,
+                save_probs: bool = True) -> torch.Tensor:
         """text_ids: [B, S] integer ids. Returns pooled features
-        [B, embed_dim] in the compute dtype."""
+        [B, embed_dim] in the compute dtype. `save_probs`: the attention's
+        backward mode."""
         dt = compute_dtype
         s = text_ids.shape[1]
         x = F.embedding(text_ids, self.tok_embed).to(dt)
         x = x + self.pos_embed[:s].to(dt)
-        x = self.blocks(x, causal=True)
+        x = self.blocks(x, causal=True, save_probs=save_probs)
         pooled = apply_norm(self.ln_final, text_pool(x, text_ids))
         return dense(pooled, self.proj["w"])

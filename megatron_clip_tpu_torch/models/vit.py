@@ -50,15 +50,17 @@ class VisionTransformer(nn.Module):
         self.proj = normal_param((w, embed_dim), scale, generator)
 
     def forward(self, images: torch.Tensor,
-                compute_dtype: torch.dtype = torch.bfloat16) -> torch.Tensor:
+                compute_dtype: torch.dtype = torch.bfloat16,
+                save_probs: bool = True) -> torch.Tensor:
         """images: [B, H, W, C] float. Returns pooled features
-        [B, embed_dim] in the compute dtype."""
+        [B, embed_dim] in the compute dtype. `save_probs`: the attention's
+        backward mode."""
         dt = compute_dtype
         x = patchify(images.to(dt), self.cfg.patch_size)
         x = torch.matmul(x, self.patch_embed["w"].to(dt))
         cls = self.cls.to(dt).expand(x.shape[0], 1, -1)
         x = torch.cat([cls, x], dim=1) + self.pos_embed.to(dt)
         x = apply_norm(self.ln_pre, x)
-        x = self.blocks(x, causal=False)
+        x = self.blocks(x, causal=False, save_probs=save_probs)
         pooled = apply_norm(self.ln_post, x[:, 0])
         return torch.matmul(pooled, self.proj.to(dt))

@@ -61,11 +61,13 @@ class ResidualBlock(nn.Module):
             "b2": nn.Parameter(torch.zeros(w)),
         })
 
-    def forward(self, x: torch.Tensor, causal: bool = False) -> torch.Tensor:
-        """x: [B, S, W] in the compute dtype."""
+    def forward(self, x: torch.Tensor, causal: bool = False,
+                save_probs: bool = True) -> torch.Tensor:
+        """x: [B, S, W] in the compute dtype. `save_probs`: the attention's
+        backward mode (see `ops.attention.multi_head_attention`)."""
         h = apply_norm(self.ln_1, x)
         x = x + multi_head_attention(h, self.attn, self.cfg.heads,
-                                     causal=causal)
+                                     causal=causal, save_probs=save_probs)
         h = apply_norm(self.ln_2, x)
         h = get_act(self.cfg.act)(dense(h, self.mlp["w1"], self.mlp["b1"]))
         return x + dense(h, self.mlp["w2"], self.mlp["b2"])
@@ -79,7 +81,8 @@ class Transformer(nn.ModuleList):
         super().__init__([ResidualBlock(cfg, generator)
                           for _ in range(cfg.layers)])
 
-    def forward(self, x: torch.Tensor, causal: bool = False) -> torch.Tensor:
+    def forward(self, x: torch.Tensor, causal: bool = False,
+                save_probs: bool = True) -> torch.Tensor:
         for block in self:
-            x = block(x, causal=causal)
+            x = block(x, causal=causal, save_probs=save_probs)
         return x

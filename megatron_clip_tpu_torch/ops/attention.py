@@ -45,12 +45,16 @@ def multi_head_attention(x: torch.Tensor, params, heads: int, *,
                          kv: Optional[torch.Tensor] = None, rope=None,
                          kv_heads: Optional[int] = None,
                          dropout_rate: float = 0.0,
-                         context_parallel: bool = False) -> torch.Tensor:
+                         context_parallel: bool = False,
+                         save_probs: bool = True) -> torch.Tensor:
     """Fused qkv projection -> attention -> output projection.
 
     x: [B, S, W]. params: mapping with 'wqkv' [W, 3*H*D], 'wo' [H*D, W] (the
     JAX [in, out] layout, applied as x @ w) and optional 'bqkv', 'bo'.
-    Weights are cast to x's dtype at use (see `ops/dense.py`)."""
+    Weights are cast to x's dtype at use (see `ops/dense.py`).
+    `save_probs` picks the attention's backward under autograd: from the
+    saved probabilities (the JAX default, `MCT_MHA_SAVE_PROBS=1`) or
+    recomputing them (`MCT_MHA_SAVE_PROBS=0`); see `fused_mha`."""
     if kv is not None:
         _not_in_slice("kv= cross-attention", "Queue A: other models (CoCa)")
     if bias is not None:
@@ -69,5 +73,5 @@ def multi_head_attention(x: torch.Tensor, params, heads: int, *,
         _not_in_slice(f"the flash/unfused path (S={s}, head_dim={head_dim}, "
                       f"use_flash={use_flash})", "Queue B: flash_attention")
     qkv = dense(x, params["wqkv"], params.get("bqkv"))
-    out = fused_mha(qkv, heads, causal=causal)
+    out = fused_mha(qkv, heads, causal=causal, save_probs=save_probs)
     return dense(out, params["wo"], params.get("bo"))

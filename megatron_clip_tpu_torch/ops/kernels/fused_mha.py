@@ -2,16 +2,30 @@
 versions and the autograd Function that joins them.
 
 Counterpart of `megatron_clip_tpu/ops/pallas/fused_mha.py::fused_mha_packed`
-as reached through `fused_attention_from_qkv`, in its default saved-P mode
-(`MCT_MHA_SAVE_PROBS=1`): the forward also writes the softmax probabilities P
-rounded to qkv's dtype, and the backward reads them. The kernels are in
-`csrc/fused_mha.cu`. `fused_mha_fwd` and `fused_mha_bwd` take the plain
-version for a CPU tensor; for a CUDA tensor they launch the kernel or raise.
-`fused_mha` is what the model calls: under autograd it runs the forward with
-P and saves (qkv, P) for the backward kernel, otherwise the forward alone.
+as reached through `fused_attention_from_qkv`, in both of its backward
+modes. With saved probabilities (`MCT_MHA_SAVE_PROBS=1`, the JAX default,
+`save_probs=True` here) the forward also writes the softmax probabilities P
+rounded to qkv's dtype and the backward (`_bwd_kernel`) reads them. Without
+(`MCT_MHA_SAVE_PROBS=0`, `save_probs=False`) the backward
+(`_bwd_kernel_recompute`) forms P again from qkv; the forward writes each
+row's softmax max and denominator for it, 8 bytes a row. The kernels are in
+`csrc/fused_mha.cu`. `fused_mha_fwd`, `fused_mha_bwd` and
+`fused_mha_bwd_recompute` take the plain version for a CPU tensor; for a
+CUDA tensor they launch the kernel or raise. `fused_mha` is what the model
+calls: under autograd it runs the forward with P or with the row statistics
+and saves them with qkv for the matching backward kernel, otherwise the
+forward alone.
 
-P's layout is [B, H, S, S] (the JAX kernel's is [B, S, H*S]): a residual
-between the two halves, never compared with the JAX package's.
+Every function takes a [B, S, *] view with contiguous rows and any batch and
+sequence strides, and returns its outputs strided as qkv is. An S-major
+tensor [S, B, 3*H*D] goes in as `qkv_sbw.transpose(0, 1)`: with
+`save_probs=False` that is the counterpart of `fused_mha_packed_sm`
+(`_fwd_kernel_sm`, `_bwd_kernel_sm`, which recomputes P too).
+
+The residuals are this port's own and never compared with the JAX package's:
+P's layout is [B, H, S, S] (the JAX kernel's [B, S, H*S]), and the recompute
+mode keeps (qkv, row statistics) where the JAX kernel keeps qkv alone and
+recomputes the statistics inside its whole-row tile.
 """
 import ctypes
 
@@ -24,18 +38,15 @@ from megatron_clip_tpu_torch.ops.kernels import _build
 MAX_FUSED_SEQ = 1024
 MAX_HEAD_DIM = 128
 
+_P, _I, _L = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
+# B, S, H, D, scale, causal, dtype, stream
+_TAIL = [_I, _I, _I, _I, ctypes.c_float, _I, _I, _P]
 _SIGNATURES = {
-    "mct_fused_mha_fwd": (
-        [ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p, ctypes.c_int,
-         ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_float,
-         ctypes.c_int, ctypes.c_int, ctypes.c_void_p],
-        ctypes.c_int),
-    "mct_fused_mha_bwd": (
-        [ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,
-         ctypes.c_void_p, ctypes.c_int, ctypes.c_int, ctypes.c_int,
-         ctypes.c_int, ctypes.c_float, ctypes.c_int, ctypes.c_int,
-         ctypes.c_void_p],
-        ctypes.c_int),
+    "mct_fused_mha_fwd": ([_P, _L, _L, _P, _L, _L, _P, _P] + _TAIL, _I),
+    "mct_fused_mha_bwd": ([_P, _L, _L, _P, _L, _L, _P, _P, _L, _L, _P]
+                          + _TAIL, _I),
+    "mct_fused_mha_bwd_recompute": ([_P, _L, _L, _P, _L, _L, _P, _P, _L, _L,
+                                     _P] + _TAIL, _I),
 }
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 
@@ -48,42 +59,97 @@ def _split_heads(t: torch.Tensor, heads: int, parts: int):
             .unbind(0))
 
 
-def fused_mha_plain(qkv: torch.Tensor, heads: int, scale: float,
-                    causal: bool = False, with_probs: bool = False):
-    """qkv [B, S, 3*H*D] -> [B, S, H*D], and with `with_probs` also
-    P [B, H, S, S]. fp32 scores and softmax; the probabilities are rounded
-    to qkv's dtype (that is P) before P.V, which accumulates in fp32; the
-    result is rounded to qkv's dtype."""
-    b, s, _ = qkv.shape
-    q, k, v = _split_heads(qkv, heads, 3)                        # [B,H,S,D]
+def _merge_heads(t: torch.Tensor, like: torch.Tensor) -> torch.Tensor:
+    """[B, H, S, D] or [parts, B, H, S, D] fp32 -> [B, S, parts*H*D] in
+    `like`'s dtype and layout (S-major in memory when `like` is)."""
+    if t.dim() == 4:
+        t = t.unsqueeze(0)
+    b, s = like.shape[:2]
+    t = t.permute(1, 3, 0, 2, 4).reshape(b, s, -1).to(like.dtype)
+    if like.stride(0) < like.stride(1):
+        return t.transpose(0, 1).contiguous().transpose(0, 1)
+    return t.contiguous()
+
+
+def _empty_like_layout(like: torch.Tensor, width: int) -> torch.Tensor:
+    """An empty [B, S, width] tensor, S-major in memory when `like` is."""
+    b, s = like.shape[:2]
+    if like.stride(0) < like.stride(1):
+        return torch.empty((s, b, width), dtype=like.dtype,
+                           device=like.device).transpose(0, 1)
+    return torch.empty((b, s, width), dtype=like.dtype, device=like.device)
+
+
+def _scores(q: torch.Tensor, k: torch.Tensor, scale: float,
+            causal: bool) -> torch.Tensor:
+    """fp32 scaled scores [B, H, S, S], masked keys filled with -1e30."""
     scores = torch.matmul(q, k.transpose(-1, -2)) * scale
     if causal:
-        keep = torch.ones(s, s, dtype=torch.bool, device=qkv.device).tril()
+        s = scores.shape[-1]
+        keep = torch.ones(s, s, dtype=torch.bool, device=q.device).tril()
         scores = scores.masked_fill(~keep, -1e30)
+    return scores
+
+
+def fused_mha_plain(qkv: torch.Tensor, heads: int, scale: float,
+                    causal: bool = False, with_probs: bool = False,
+                    with_stats: bool = False):
+    """qkv [B, S, 3*H*D] -> [B, S, H*D]; with `with_probs` also P
+    [B, H, S, S], with `with_stats` also the row statistics [2, B, H, S]
+    fp32 (each row's max of the scaled scores, then sum exp(s - max)).
+    fp32 scores and softmax; the probabilities are rounded to qkv's dtype
+    (that is P) before P.V, which accumulates in fp32; the result is rounded
+    to qkv's dtype."""
+    q, k, v = _split_heads(qkv, heads, 3)                        # [B,H,S,D]
+    scores = _scores(q, k, scale, causal)
     p = torch.softmax(scores, dim=-1).to(qkv.dtype)
-    out = torch.matmul(p.float(), v)                             # [B,H,S,D]
-    out = out.transpose(1, 2).reshape(b, s, -1).to(qkv.dtype)
-    return (out, p) if with_probs else out
+    out = _merge_heads(torch.matmul(p.float(), v), qkv)
+    extra = []
+    if with_probs:
+        extra.append(p)
+    if with_stats:
+        m = scores.amax(-1)
+        extra.append(torch.stack([m, (scores - m[..., None]).exp().sum(-1)]))
+    return (out, *extra) if extra else out
+
+
+def _bwd_head(q, k, v, g, p, scale, dtype):
+    """The JAX package's `_bwd_head` on [B, H, S, D] fp32 tensors: dV =
+    P^T dO with P rounded to `dtype`, dP = dO V^T, dS = p (dP - rowsum(dP
+    p)) scale rounded to `dtype` with p as given, dQ = dS K, dK = dS^T Q,
+    each product in fp32. Returns [3, B, H, S, D]."""
+    pc = p.to(dtype).float()
+    dv = torch.matmul(pc.transpose(-1, -2), g)
+    dp = torch.matmul(g, v.transpose(-1, -2))
+    ds = (p * (dp - (dp * p).sum(-1, keepdim=True)) * scale).to(dtype).float()
+    return torch.stack([torch.matmul(ds, k),
+                        torch.matmul(ds.transpose(-1, -2), q), dv])
 
 
 def fused_mha_bwd_plain(qkv: torch.Tensor, do: torch.Tensor, p: torch.Tensor,
                         heads: int, scale: float) -> torch.Tensor:
     """The backward from saved P, line by line as the JAX package's
-    `_bwd_head`: dV = P^T dO, dP = dO V^T, dS = P (dP - rowsum(dP P)) scale
-    rounded to qkv's dtype, dQ = dS K, dK = dS^T Q, each product in fp32;
-    returns packed dqkv [B, S, 3*H*D] in qkv's dtype. P is 0 on masked
-    pairs, so the causal mask needs no second statement here."""
-    b, s, _ = qkv.shape
+    `_bwd_kernel`: `_bwd_head` with P as saved (in qkv's dtype) in every
+    product; returns packed dqkv [B, S, 3*H*D] in qkv's dtype. P is 0 on
+    masked pairs, so the causal mask needs no second statement here."""
     q, k, v = _split_heads(qkv, heads, 3)
     (g,) = _split_heads(do, heads, 1)
-    pf = p.float()
-    dv = torch.matmul(pf.transpose(-1, -2), g)
-    dp = torch.matmul(g, v.transpose(-1, -2))
-    ds = (pf * (dp - (dp * pf).sum(-1, keepdim=True)) * scale).to(qkv.dtype)
-    dq = torch.matmul(ds.float(), k)
-    dk = torch.matmul(ds.float().transpose(-1, -2), q)
-    dqkv = torch.stack([dq, dk, dv])                           # [3,B,H,S,D]
-    return dqkv.permute(1, 3, 0, 2, 4).reshape(b, s, -1).to(qkv.dtype)
+    return _merge_heads(_bwd_head(q, k, v, g, p.float(), scale, qkv.dtype),
+                        qkv)
+
+
+def fused_mha_bwd_recompute_plain(qkv: torch.Tensor, do: torch.Tensor,
+                                  heads: int, scale: float,
+                                  causal: bool = False) -> torch.Tensor:
+    """The backward recomputing P, line by line as the JAX package's
+    `_bwd_kernel_recompute`: fp32 scores times scale, causal fill of -1e30,
+    fp32 softmax p, then `_bwd_head` with that fp32 p in delta and dS and p
+    rounded to qkv's dtype only in dV = bf16(p)^T dO. Returns packed dqkv
+    [B, S, 3*H*D] in qkv's dtype."""
+    q, k, v = _split_heads(qkv, heads, 3)
+    (g,) = _split_heads(do, heads, 1)
+    p = torch.softmax(_scores(q, k, scale, causal), dim=-1)
+    return _merge_heads(_bwd_head(q, k, v, g, p, scale, qkv.dtype), qkv)
 
 
 def _check_cuda(name: str, t: torch.Tensor) -> None:
@@ -92,8 +158,14 @@ def _check_cuda(name: str, t: torch.Tensor) -> None:
     if t.dtype not in _DTYPES:
         raise TypeError(f"{name}: dtype {t.dtype} not supported "
                         "(float32 or bfloat16)")
-    if not t.is_contiguous():
-        raise ValueError(f"{name}: tensors must be contiguous")
+    if t.stride(-1) != 1:
+        raise ValueError(f"{name}: the last dimension must be contiguous "
+                         f"(strides {tuple(t.stride())})")
+
+
+def _pitch(t: torch.Tensor):
+    """The (batch, sequence) element strides of a [B, S, *] operand."""
+    return t.stride(0), t.stride(1)
 
 
 def _head_dim(name: str, qkv: torch.Tensor, heads: int) -> int:
@@ -120,74 +192,101 @@ def _no_graph(name: str, *tensors: torch.Tensor) -> None:
                            "backward kernel")
 
 
+def _launch(name: str, device: torch.device, args, shape) -> None:
+    """Call the library's `mct_<name>` with `args` (pointers and strides),
+    then B, S, H, D, scale, causal, dtype and the current stream; raise if
+    the launch failed."""
+    lib = _build.load("fused_mha", _SIGNATURES)
+    with torch.cuda.device(device):
+        stream = torch.cuda.current_stream(device).cuda_stream
+        rc = getattr(lib, f"mct_{name}")(*args, *shape, stream)
+    if rc != 0:
+        b, s, h, d = shape[:4]
+        raise RuntimeError(f"{name}: kernel launch failed (cudaError {rc}) "
+                           f"for B={b} S={s} H={h} D={d}")
+
+
 def fused_mha_fwd(qkv: torch.Tensor, heads: int, *, causal: bool = False,
-                  with_probs: bool = False):
+                  with_probs: bool = False, with_stats: bool = False):
     """Attention straight off the packed QKV projection output, scores
     scaled by D**-0.5.
 
-    qkv: [B, S, 3*H*D] (q|k|v each H*D wide), contiguous fp32/bf16.
-    Returns [B, S, H*D] in qkv's dtype and, with `with_probs`, also the
-    probabilities P [B, H, S, S] in qkv's dtype for `fused_mha_bwd`."""
+    qkv: [B, S, 3*H*D] (q|k|v each H*D wide), fp32/bf16, rows contiguous.
+    Returns [B, S, H*D] in qkv's dtype and layout and, with `with_probs`,
+    also the probabilities P [B, H, S, S] in qkv's dtype for
+    `fused_mha_bwd`, or with `with_stats` the row statistics [2, B, H, S]
+    fp32 for `fused_mha_bwd_recompute`."""
     _no_graph("fused_mha_fwd", qkv)
+    if with_probs and with_stats:
+        raise ValueError("fused_mha_fwd: with_probs and with_stats are the "
+                         "two backward modes; ask for one")
     d = _head_dim("fused_mha_fwd", qkv, heads)
     scale = d ** -0.5
     if qkv.device.type == "cpu":
-        return fused_mha_plain(qkv, heads, scale, causal, with_probs)
+        return fused_mha_plain(qkv, heads, scale, causal, with_probs,
+                               with_stats)
     _check_cuda("fused_mha_fwd", qkv)
     b, s, _ = qkv.shape
-    out = torch.empty((b, s, heads * d), dtype=qkv.dtype, device=qkv.device)
+    out = _empty_like_layout(qkv, heads * d)
     p = (torch.empty((b, heads, s, s), dtype=qkv.dtype, device=qkv.device)
          if with_probs else None)
-    lib = _build.load("fused_mha", _SIGNATURES)
-    with torch.cuda.device(qkv.device):
-        stream = torch.cuda.current_stream(qkv.device).cuda_stream
-        rc = lib.mct_fused_mha_fwd(qkv.data_ptr(), out.data_ptr(),
-                                   None if p is None else p.data_ptr(), b, s,
-                                   heads, d, float(scale), int(causal),
-                                   _DTYPES[qkv.dtype], stream)
-    if rc != 0:
-        raise RuntimeError(f"fused_mha_fwd: kernel launch failed "
-                           f"(cudaError {rc}) for B={b} S={s} H={heads} D={d}")
+    stats = (torch.empty((2, b, heads, s), dtype=torch.float32,
+                         device=qkv.device) if with_stats else None)
+    _launch("fused_mha_fwd", qkv.device,
+            [qkv.data_ptr(), *_pitch(qkv), out.data_ptr(), *_pitch(out),
+             None if p is None else p.data_ptr(),
+             None if stats is None else stats.data_ptr()],
+            (b, s, heads, d, float(scale), int(causal), _DTYPES[qkv.dtype]))
     fused_mha_fwd.launches += 1
-    return (out, p) if with_probs else out
+    if with_probs:
+        return out, p
+    return (out, stats) if with_stats else out
 
 
 fused_mha_fwd.launches = 0
+
+
+def _check_bwd(name: str, qkv: torch.Tensor, do: torch.Tensor, heads: int,
+               residual: torch.Tensor, residual_shape, residual_dtype):
+    d = _head_dim(name, qkv, heads)
+    b, s, _ = qkv.shape
+    if do.shape != (b, s, heads * d) or residual.shape != residual_shape:
+        raise ValueError(f"{name}: do {tuple(do.shape)} / residual "
+                         f"{tuple(residual.shape)} do not match qkv "
+                         f"{tuple(qkv.shape)} with heads={heads}")
+    if qkv.device.type == "cpu":
+        return d
+    for t in (qkv, do):
+        _check_cuda(name, t)
+        if t.dtype != qkv.dtype or t.device != qkv.device:
+            raise TypeError(f"{name}: qkv and do must share dtype and device")
+    if residual.device != qkv.device or residual.dtype != residual_dtype \
+            or not residual.is_contiguous():
+        raise TypeError(f"{name}: the residual must be contiguous "
+                        f"{residual_dtype} on {qkv.device}")
+    return d
 
 
 def fused_mha_bwd(qkv: torch.Tensor, do: torch.Tensor, p: torch.Tensor,
                   heads: int, *, causal: bool = False) -> torch.Tensor:
     """Gradient of `fused_mha_fwd` with respect to qkv, from its saved P.
 
-    qkv [B, S, 3*H*D], do [B, S, H*D], p [B, H, S, S], all contiguous in one
-    dtype (fp32/bf16). Returns packed dqkv [B, S, 3*H*D] in that dtype."""
+    qkv [B, S, 3*H*D] and do [B, S, H*D] with contiguous rows, p
+    [B, H, S, S] contiguous, all in one dtype (fp32/bf16). Returns packed
+    dqkv [B, S, 3*H*D] in that dtype, strided as qkv."""
     _no_graph("fused_mha_bwd", qkv, do, p)
-    d = _head_dim("fused_mha_bwd", qkv, heads)
     b, s, _ = qkv.shape
-    if do.shape != (b, s, heads * d) or p.shape != (b, heads, s, s):
-        raise ValueError(f"fused_mha_bwd: do {tuple(do.shape)} / p "
-                         f"{tuple(p.shape)} do not match qkv "
-                         f"{tuple(qkv.shape)} with heads={heads}")
+    d = _check_bwd("fused_mha_bwd", qkv, do, heads, p,
+                   (b, heads, s, s), qkv.dtype)
     if qkv.device.type == "cpu":
         return fused_mha_bwd_plain(qkv, do, p, heads, d ** -0.5)
-    for t in (qkv, do, p):
-        _check_cuda("fused_mha_bwd", t)
-        if t.dtype != qkv.dtype or t.device != qkv.device:
-            raise TypeError("fused_mha_bwd: qkv, do and p must share dtype "
-                            "and device")
-    dqkv = torch.empty_like(qkv)
+    dqkv = _empty_like_layout(qkv, qkv.shape[-1])
     delta = torch.empty(b * heads * s, dtype=torch.float32, device=qkv.device)
-    lib = _build.load("fused_mha", _SIGNATURES)
-    with torch.cuda.device(qkv.device):
-        stream = torch.cuda.current_stream(qkv.device).cuda_stream
-        rc = lib.mct_fused_mha_bwd(qkv.data_ptr(), do.data_ptr(),
-                                   p.data_ptr(), dqkv.data_ptr(),
-                                   delta.data_ptr(), b, s, heads, d,
-                                   float(d ** -0.5), int(causal),
-                                   _DTYPES[qkv.dtype], stream)
-    if rc != 0:
-        raise RuntimeError(f"fused_mha_bwd: kernel launch failed "
-                           f"(cudaError {rc}) for B={b} S={s} H={heads} D={d}")
+    _launch("fused_mha_bwd", qkv.device,
+            [qkv.data_ptr(), *_pitch(qkv), do.data_ptr(), *_pitch(do),
+             p.data_ptr(), dqkv.data_ptr(), *_pitch(dqkv), delta.data_ptr()],
+            (b, s, heads, d, float(d ** -0.5), int(causal),
+             _DTYPES[qkv.dtype]))
     fused_mha_bwd.launches += 1
     return dqkv
 
@@ -195,29 +294,69 @@ def fused_mha_bwd(qkv: torch.Tensor, do: torch.Tensor, p: torch.Tensor,
 fused_mha_bwd.launches = 0
 
 
+def fused_mha_bwd_recompute(qkv: torch.Tensor, do: torch.Tensor,
+                            stats: torch.Tensor, heads: int, *,
+                            causal: bool = False) -> torch.Tensor:
+    """Gradient of `fused_mha_fwd` with respect to qkv, recomputing P from
+    qkv and the forward's row statistics (`with_stats=True`).
+
+    qkv [B, S, 3*H*D] and do [B, S, H*D] in one dtype (fp32/bf16) with
+    contiguous rows, stats [2, B, H, S] fp32. Returns packed dqkv
+    [B, S, 3*H*D] in qkv's dtype, strided as qkv. The plain version (CPU)
+    recomputes the statistics too."""
+    _no_graph("fused_mha_bwd_recompute", qkv, do, stats)
+    b, s, _ = qkv.shape
+    d = _check_bwd("fused_mha_bwd_recompute", qkv, do, heads, stats,
+                   (2, b, heads, s), torch.float32)
+    if qkv.device.type == "cpu":
+        return fused_mha_bwd_recompute_plain(qkv, do, heads, d ** -0.5,
+                                             causal)
+    dqkv = _empty_like_layout(qkv, qkv.shape[-1])
+    delta = torch.empty(b * heads * s, dtype=torch.float32, device=qkv.device)
+    _launch("fused_mha_bwd_recompute", qkv.device,
+            [qkv.data_ptr(), *_pitch(qkv), do.data_ptr(), *_pitch(do),
+             stats.data_ptr(), dqkv.data_ptr(), *_pitch(dqkv),
+             delta.data_ptr()],
+            (b, s, heads, d, float(d ** -0.5), int(causal),
+             _DTYPES[qkv.dtype]))
+    fused_mha_bwd_recompute.launches += 1
+    return dqkv
+
+
+fused_mha_bwd_recompute.launches = 0
+
+
 class FusedMHA(torch.autograd.Function):
-    """The forward writes P; the backward reads it (the JAX custom_vjp's
-    `_fused_fwd` / `_fused_bwd` with saved probabilities)."""
+    """The JAX custom_vjp's `_fused_fwd` / `_fused_bwd`. With `save_probs`
+    the forward writes P and the backward reads it; without, the forward
+    writes the row statistics and the backward recomputes P."""
 
     @staticmethod
-    def forward(ctx, qkv: torch.Tensor, heads: int, causal: bool):
-        out, p = fused_mha_fwd(qkv, heads, causal=causal, with_probs=True)
-        ctx.save_for_backward(qkv, p)
-        ctx.heads, ctx.causal = heads, causal
+    def forward(ctx, qkv: torch.Tensor, heads: int, causal: bool,
+                save_probs: bool):
+        out, residual = fused_mha_fwd(qkv, heads, causal=causal,
+                                      with_probs=save_probs,
+                                      with_stats=not save_probs)
+        ctx.save_for_backward(qkv, residual)
+        ctx.heads, ctx.causal, ctx.save_probs = heads, causal, save_probs
         return out
 
     @staticmethod
     def backward(ctx, do: torch.Tensor):
-        qkv, p = ctx.saved_tensors
-        return fused_mha_bwd(qkv, do.contiguous(), p, ctx.heads,
-                             causal=ctx.causal), None, None
+        qkv, residual = ctx.saved_tensors
+        if do.stride(-1) != 1:
+            do = do.contiguous()
+        bwd = fused_mha_bwd if ctx.save_probs else fused_mha_bwd_recompute
+        return bwd(qkv, do, residual, ctx.heads,
+                   causal=ctx.causal), None, None, None
 
 
-def fused_mha(qkv: torch.Tensor, heads: int, *,
-              causal: bool = False) -> torch.Tensor:
-    """[B, S, 3*H*D] -> [B, S, H*D]. Under autograd (grad enabled and qkv
-    requiring it) the forward also writes P for the backward kernel; else
-    the forward runs alone and writes no P."""
+def fused_mha(qkv: torch.Tensor, heads: int, *, causal: bool = False,
+              save_probs: bool = True) -> torch.Tensor:
+    """[B, S, 3*H*D] -> [B, S, H*D], any batch and sequence strides. Under
+    autograd (grad enabled and qkv requiring it) the forward also writes P
+    (`save_probs`, the JAX default) or the row statistics for the recompute
+    backward; else the forward runs alone and writes neither."""
     if torch.is_grad_enabled() and qkv.requires_grad:
-        return FusedMHA.apply(qkv, heads, causal)
+        return FusedMHA.apply(qkv, heads, causal, save_probs)
     return fused_mha_fwd(qkv, heads, causal=causal)

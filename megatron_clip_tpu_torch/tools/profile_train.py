@@ -1,18 +1,22 @@
 """Where the time of one CLIP train step goes on the GPU.
 
-    python -m megatron_clip_tpu_torch.tools.profile_train
+    python -m megatron_clip_tpu_torch.tools.profile_train \
+        [--model ViT-B-32] [--batch 384] [--recompute]
 
-Builds ViT-B-32 (pure_bf16, random weights from seed 0) with the recipe of
-bench.py's primary leg (batch 384, AdamW b=(0.9, 0.98), eps 1e-6, weight
-decay 0.2, bf16 first moments, cosine_lr(1e-3, 100, 10000), clip 1.0),
-takes 3 warm-up steps on one seeded batch already on the card, then traces
-3 steps with torch.profiler. Prints one JSON line: wall time, device-busy
-time (the union of kernel and copy intervals), the idle share, and device
-time by category (GEMMs, elementwise, the port's attention and LayerNorm
-kernels forward and backward, the optimizer's multi-tensor kernels, copies,
-other) with the top kernels. Needs a CUDA device; exits non-zero without
-one.
+Builds the model (pure_bf16, random weights from seed 0) with the recipe of
+bench.py's CLIP legs (AdamW b=(0.9, 0.98), eps 1e-6, weight decay 0.2, bf16
+first moments, cosine_lr(1e-3, 100, 10000), clip 1.0; the defaults are its
+primary leg, `--model ViT-L-14 --batch 64 --recompute` and `--model
+ViT-H-14 --batch 24 --recompute` its two larger legs, whose attention
+backward recomputes the probabilities), takes 3 warm-up steps on one seeded
+batch already on the card, then traces 3 steps with torch.profiler. Prints
+one JSON line: wall time, device-busy time (the union of kernel and copy
+intervals), the idle share, and device time by category (GEMMs,
+elementwise, the port's attention and LayerNorm kernels forward and
+backward, the optimizer's multi-tensor kernels, copies, other) with the top
+kernels. Needs a CUDA device; exits non-zero without one.
 """
+import argparse
 import json
 import subprocess
 import sys
@@ -23,7 +27,6 @@ import torch
 
 from megatron_clip_tpu_torch.tools.profile_serving import _window
 
-BATCH = 384
 SEED = 0
 WARMUP = 3  # kernel builds, cuBLAS heuristics
 REPS = 3
@@ -31,7 +34,7 @@ REPS = 3
 
 def _category(name: str) -> str:
     n = name.lower()
-    if "bwd_dq" in n or "bwd_dkdv" in n:
+    if "bwd_dq" in n or "bwd_dkdv" in n:  # saved-P and recompute (_rc)
         return "attention bwd (fused_mha.cu)"
     if "tc::fwd" in n or "simt::fwd" in n:
         return "attention fwd (fused_mha.cu)"
@@ -51,6 +54,14 @@ def _category(name: str) -> str:
 
 
 def main() -> int:
+    ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
+    ap.add_argument("--model", default="ViT-B-32")
+    ap.add_argument("--batch", type=int, default=384)
+    ap.add_argument("--recompute", action="store_true",
+                    help="recompute the attention probabilities in the "
+                         "backward (MCT_MHA_SAVE_PROBS=0) instead of saving "
+                         "them")
+    args = ap.parse_args()
     if not torch.cuda.is_available():
         print("profile_train: no CUDA device", file=sys.stderr)
         return 1
@@ -64,8 +75,8 @@ def main() -> int:
         ["nvidia-smi", "--query-gpu=name,power.limit",
          "--format=csv,noheader"], capture_output=True, text=True,
         check=True, timeout=60).stdout.strip().splitlines()[0]
-    model = port.create_model("ViT-B-32", precision="pure_bf16",
-                              seed=SEED).train()
+    model = port.create_model(args.model, precision="pure_bf16", seed=SEED,
+                              attn_save_probs=not args.recompute).train()
     opt = make_optimizer(model, cosine_lr(1e-3, 100, 10000),
                          grad_clip_norm=1.0, moment_dtype=torch.bfloat16)
     state = TrainState.create(model, opt)
@@ -73,10 +84,11 @@ def main() -> int:
     cfg = model.cfg
     rng = np.random.default_rng(SEED)
     images = torch.from_numpy(rng.standard_normal(
-        (BATCH, cfg.vision.image_size, cfg.vision.image_size, 3),
+        (args.batch, cfg.vision.image_size, cfg.vision.image_size, 3),
         dtype=np.float32)).cuda()
     texts = torch.from_numpy(rng.integers(
-        1, cfg.text.vocab_size - 2, (BATCH, cfg.text.context_length))).cuda()
+        1, cfg.text.vocab_size - 2,
+        (args.batch, cfg.text.context_length))).cuda()
     for _ in range(WARMUP):
         state, _ = step(state, images, texts)
     torch.cuda.synchronize()
@@ -89,8 +101,10 @@ def main() -> int:
         torch.cuda.synchronize()
         wall = (time.perf_counter() - t0) * 1e3
     window = _window(prof, wall, _category)
-    print(json.dumps({"card": card, "batch": BATCH,
-                      "precision": "pure_bf16",
+    print(json.dumps({"card": card, "model": args.model,
+                      "batch": args.batch, "precision": "pure_bf16",
+                      "attention_backward":
+                          "recompute" if args.recompute else "saved P",
                       "window": f"{REPS} train steps, batch on the card",
                       "loss": float(metrics["loss"]), **window}))
     return 0

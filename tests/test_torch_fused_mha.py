@@ -19,6 +19,18 @@ round P, dS and the outputs at the same points, but a dS that lies near a
 rounding boundary can round the other way when dP is summed in another
 order, which moves one term of dQ or dK by 2^-8 |dS K|; held to two bf16
 ulps (rtol 1.6e-2) plus 2^-7 of the largest |gradient|.
+
+The recompute backward (`save_probs=False`) against `jax.vjp` through the
+Pallas kernel under MCT_MHA_SAVE_PROBS=0, which runs
+`_bwd_kernel_recompute`: fp32 2e-4, bf16 the saved-P test's bounds and, as
+those bounds cannot see whether delta and dS used the fp32 or the bf16 P
+(half an ulp of P moves dS by less than one of its own ulps), the whole
+gradient within RECOMPUTE_BF16_REL_L2 of its norm. Where both sides round at
+the same points they differ only by rare rounding flips, far inside that;
+the saved-P arithmetic on a recomputed P (bf16 P in delta and dS) flips
+about a third of the dS roundings, and
+test_recompute_bf16_bound_tells_the_modes_apart holds it beyond twice the
+bound.
 """
 import jax
 import jax.numpy as jnp
@@ -28,12 +40,17 @@ import torch
 
 from megatron_clip_tpu.ops.attention import \
     multi_head_attention as jax_multi_head_attention
-from megatron_clip_tpu.ops.pallas.fused_mha import fused_attention_from_qkv
+from megatron_clip_tpu.ops.pallas.fused_mha import (fused_attention_from_qkv,
+                                                   fused_mha_packed_sm)
 from megatron_clip_tpu_torch.ops.attention import multi_head_attention, sdpa
 from megatron_clip_tpu_torch.ops.kernels.fused_mha import (
-    fused_mha, fused_mha_fwd, fused_mha_plain)
+    fused_mha, fused_mha_bwd_plain, fused_mha_fwd, fused_mha_plain)
 
 SHAPES = [(4, 50, 4, 64), (2, 77, 8, 64), (2, 33, 2, 32)]
+# ViT-H/14's vision head: D = 80, S = 257 (five 64-row tiles, the last of
+# one row on the card)
+RECOMPUTE_SHAPES = SHAPES + [(2, 257, 2, 80)]
+RECOMPUTE_BF16_REL_L2 = 5e-4
 
 
 @pytest.mark.parametrize("causal", [False, True])
@@ -97,6 +114,113 @@ def test_backward_matches_jax_saved_probs(monkeypatch, dtype, causal, b, s,
     else:
         np.testing.assert_allclose(got.float().numpy(), want, rtol=1.6e-2,
                                    atol=2 ** -7 * np.abs(want).max())
+
+
+def _inputs(b, s, h, d, seed=3):
+    rng = np.random.default_rng(seed)
+    return (rng.standard_normal((b, s, 3 * h * d)).astype(np.float32),
+            rng.standard_normal((b, s, h * d)).astype(np.float32))
+
+
+def _jax_recompute_grad(monkeypatch, qkv, do, h, causal, dtype):
+    monkeypatch.setenv("MCT_MHA_SAVE_PROBS", "0")
+    _, vjp = jax.vjp(lambda x: fused_attention_from_qkv(
+        x, h, causal=causal, interpret=True), jnp.asarray(qkv, dtype))
+    (want,) = vjp(jnp.asarray(do, dtype))
+    return np.asarray(want.astype(jnp.float32))
+
+
+def _rel_l2(got, want):
+    return float(np.linalg.norm(got - want) / np.linalg.norm(want))
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("causal", [False, True])
+@pytest.mark.parametrize("b,s,h,d", RECOMPUTE_SHAPES)
+def test_recompute_backward_matches_jax(monkeypatch, dtype, causal, b, s, h,
+                                        d):
+    qkv, do = _inputs(b, s, h, d)
+    want = _jax_recompute_grad(monkeypatch, qkv, do, h, causal, dtype)
+    tdt = getattr(torch, dtype)
+    x = torch.from_numpy(qkv).to(tdt).requires_grad_(True)
+    (got,) = torch.autograd.grad(
+        fused_mha(x, h, causal=causal, save_probs=False), x,
+        torch.from_numpy(do).to(tdt))
+    assert got.dtype == tdt and got.shape == x.shape
+    got = got.float().numpy()
+    if dtype == "float32":
+        np.testing.assert_allclose(got, want, rtol=2e-4, atol=2e-4)
+    else:
+        np.testing.assert_allclose(got, want, rtol=1.6e-2,
+                                   atol=2 ** -7 * np.abs(want).max())
+        assert _rel_l2(got, want) <= RECOMPUTE_BF16_REL_L2
+
+
+def test_recompute_bf16_bound_tells_the_modes_apart(monkeypatch):
+    """The saved-P backward fed the recomputed probabilities rounded to
+    bf16 (bf16 P in delta and dS) is the version the bf16 bound must
+    refuse."""
+    b, s, h, d = 2, 257, 2, 80
+    qkv, do = _inputs(b, s, h, d)
+    want = _jax_recompute_grad(monkeypatch, qkv, do, h, False, "bfloat16")
+    x, g = (torch.from_numpy(a).bfloat16() for a in (qkv, do))
+    _, p = fused_mha_plain(x, h, d ** -0.5, with_probs=True)
+    wrong = fused_mha_bwd_plain(x, g, p, h, d ** -0.5).float().numpy()
+    assert _rel_l2(wrong, want) > 2 * RECOMPUTE_BF16_REL_L2
+
+
+@pytest.mark.parametrize("causal", [False, True])
+def test_recompute_and_saved_probs_agree_in_fp32(causal):
+    """In fp32 rounding P to the input dtype changes nothing, so the two
+    backward modes do the same arithmetic: equal gradients."""
+    qkv, do = _inputs(2, 40, 3, 16, seed=4)
+    grads = []
+    for save_probs in (True, False):
+        x = torch.from_numpy(qkv).requires_grad_(True)
+        grads.append(torch.autograd.grad(
+            fused_mha(x, 3, causal=causal, save_probs=save_probs), x,
+            torch.from_numpy(do))[0])
+    torch.testing.assert_close(grads[0], grads[1], rtol=0, atol=0)
+
+
+@pytest.mark.parametrize("causal", [False, True])
+def test_row_stats_give_the_softmax(causal):
+    """The forward's row statistics: exp(s scale - m) / l is the softmax
+    that P rounds."""
+    b, s, h, d = 2, 45, 3, 16
+    qkv, _ = _inputs(b, s, h, d, seed=5)
+    x = torch.from_numpy(qkv)
+    out, stats = fused_mha_fwd(x, h, causal=causal, with_stats=True)
+    assert stats.shape == (2, b, h, s) and stats.dtype == torch.float32
+    torch.testing.assert_close(out, fused_mha_fwd(x, h, causal=causal))
+    q, k, _ = x.reshape(b, s, 3, h, d).permute(2, 0, 3, 1, 4)
+    scores = q @ k.transpose(-1, -2) * d ** -0.5
+    p = torch.exp(scores - stats[0][..., None]) / stats[1][..., None]
+    if causal:
+        p = p.tril()
+    _, want = fused_mha_plain(x, h, d ** -0.5, causal, with_probs=True)
+    torch.testing.assert_close(p, want, rtol=1e-6, atol=1e-7)
+
+
+@pytest.mark.parametrize("causal", [False, True])
+def test_smajor_view_matches_jax_fused_mha_packed_sm(causal):
+    """`fused_mha` on the [B, S, 3W] view of S-major storage, recompute
+    backward, against the JAX package's S-major kernel in interpret mode
+    (forward 2e-5, gradient 2e-4, as tests/test_fused_mha.py holds it).
+    The output and the gradient come back S-major."""
+    b, s, h, d = 8, 50, 4, 64
+    qkv, do = _inputs(b, s, h, d, seed=6)
+    want, vjp = jax.vjp(lambda x: fused_mha_packed_sm(
+        x, h, d ** -0.5, causal, True), jnp.asarray(qkv))
+    (want_g,) = vjp(jnp.asarray(do))
+    sbw = torch.from_numpy(qkv.transpose(1, 0, 2).copy()).requires_grad_(True)
+    out = fused_mha(sbw.transpose(0, 1), h, causal=causal, save_probs=False)
+    assert out.shape == (b, s, h * d) and out.stride(0) < out.stride(1)
+    np.testing.assert_allclose(out.detach().numpy(), np.asarray(want),
+                               rtol=2e-5, atol=2e-5)
+    (g,) = torch.autograd.grad(out, sbw, torch.from_numpy(do))
+    np.testing.assert_allclose(g.transpose(0, 1).numpy(), np.asarray(want_g),
+                               rtol=2e-4, atol=2e-4)
 
 
 def _block_inputs():

@@ -55,9 +55,9 @@ BATCH = 8
 LR = dict(base_lr=5e-3, warmup=1, total_steps=10)
 
 
-def _jax_model(precision="fp32", seed=0):
+def _jax_model(precision="fp32", seed=0, overrides=OVERRIDES):
     jmodel, params = mct.create_model("ViT-B-32", precision=precision,
-                                      seed=seed, **OVERRIDES)
+                                      seed=seed, **overrides)
     leaves, treedef = jax.tree.flatten(params)
     rng = np.random.default_rng(seed)
     leaves = [jnp.asarray(np.asarray(v, np.float32) + 0.05 * rng.standard_normal(
@@ -65,9 +65,10 @@ def _jax_model(precision="fp32", seed=0):
     return jmodel, jax.tree.unflatten(treedef, leaves)
 
 
-def _port_model(jmodel, jparams, precision="fp32"):
+def _port_model(jmodel, jparams, precision="fp32", overrides=OVERRIDES,
+                attn_save_probs=True):
     model = port.create_model("ViT-B-32", precision=precision, device="cpu",
-                              **OVERRIDES)
+                              attn_save_probs=attn_save_probs, **overrides)
     model.load_state_dict(params_from_jax(jparams, jmodel.cfg))
     return model.train()
 
@@ -289,6 +290,65 @@ def test_train_step_matches_jax_three_fp32_steps():
     assert state.step == 3
     _assert_params(model, jstate.params, jmodel.cfg, atol=1e-6,
                    loose=3 * 2 * LR["base_lr"], frac=0.99)
+
+
+# ViT-H/14's vision head width: 80 (two heads of a 160-wide tower)
+OVERRIDES_D80 = dict(OVERRIDES, vision_cfg=dict(OVERRIDES["vision_cfg"],
+                                                width=160, head_width=80))
+
+
+def test_recompute_train_step_matches_jax_head_width_80(monkeypatch):
+    """bench.py's ViT-L/14 and ViT-H/14 legs train with MCT_MHA_SAVE_PROBS=0;
+    the port's counterpart is attn_save_probs=False. Three fp32 steps with
+    a vision head of width 80 against a step jitted after the variable is
+    set (the JAX side reads it at trace time; on the CPU its attention is
+    XLA's, differentiated by JAX), at the tolerances of the saved-P run."""
+    monkeypatch.setenv("MCT_MHA_SAVE_PROBS", "0")
+    jmodel, jparams = _jax_model(overrides=OVERRIDES_D80)
+    assert jmodel.cfg.vision.head_width == 80
+    model = _port_model(jmodel, jparams, overrides=OVERRIDES_D80,
+                        attn_save_probs=False)
+    assert not model.attn_save_probs
+    images, texts = _batch()
+    _, jstate, jstep = _jax_step(jmodel, jparams)
+    opt = make_optimizer(model, cosine_lr(*LR.values()), grad_clip_norm=1.0)
+    state = TrainState.create(model, opt)
+    step = make_train_step(model, opt)
+    for i in range(3):
+        jstate, jm = jstep(jstate, jnp.asarray(images), jnp.asarray(texts))
+        state, m = step(state, images, texts)
+        tol = 1e-6 if i == 0 else 1e-5
+        _close(float(m["loss"]), float(jm["loss"]), tol, what=f"loss {i}")
+        _close(float(m["grad_norm"]), float(jm["grad_norm"]), 1e-5,
+               what=f"grad_norm {i}")
+    _assert_params(model, jstate.params, jmodel.cfg, atol=1e-6,
+                   loose=3 * 2 * LR["base_lr"], frac=0.99)
+
+
+def test_recompute_mode_saves_row_stats_not_probs(monkeypatch):
+    """attn_save_probs=False: every training attention forward writes the
+    row statistics and no P, and the backward recomputes."""
+    jmodel, jparams = _jax_model()
+    model = _port_model(jmodel, jparams, attn_save_probs=False)
+    asked, backward = [], []
+    fwd, bwd = port_mha.fused_mha_fwd, port_mha.fused_mha_bwd_recompute
+
+    def spy(*args, **kw):
+        asked.append((kw.get("with_probs", False), kw.get("with_stats")))
+        return fwd(*args, **kw)
+
+    def spy_bwd(*args, **kw):
+        backward.append(args[2].shape)
+        return bwd(*args, **kw)
+    monkeypatch.setattr(port_mha, "fused_mha_fwd", spy)
+    monkeypatch.setattr(port_mha, "fused_mha_bwd_recompute", spy_bwd)
+    monkeypatch.setattr(port_mha, "fused_mha_bwd", None)
+    images, texts = _batch()
+    out = model(images, texts)
+    losses.ClipLoss()(out["image_features"], out["text_features"],
+                      out["logit_scale"]).backward()
+    assert asked == [(False, True)] * 4
+    assert backward == [(2, BATCH, 2, 16)] * 2 + [(2, BATCH, 2, 17)] * 2
 
 
 def test_bridge_carries_a_jax_state_into_the_port():
