@@ -63,7 +63,25 @@ imports nothing of JAX or of the JAX package. Phases, each of which raises
      lie above it by the bytes of every layer's P less the row statistics
      (within 2%); one more ViT-L/14 step in each mode takes the peak memory
      per stage (forward, backward, update); then one fp32 recompute step at
-     full ViT-H/14 width (2 layers per tower, batch 4), card against CPU.
+     full ViT-H/14 width (2 layers per tower, batch 4), card against CPU;
+  9. GPT: bench.py's GPT-345m train step (24 x 1024, 16 heads of 64,
+     vocab 50304, pure_bf16, clip 1.0 then AdamW(1e-4, b=(0.9, 0.95)) with
+     bf16 first moments, loss chunks of 1024; bench.py:134-181) at batch 6
+     and S = 2048, 2 warm-up and 15 timed steps on one seeded batch, every
+     step launching the flash forward and the fused flash backward 24 times
+     and LayerNorm forward and backward 49 times; the same model at S = 8192
+     (batch 1, pretrain_gpt.py --seq-length 8192), 2 + 5 steps through the
+     split dQ and dKV backward; every loss finite and the last below the
+     first; then one fp32 step at full width (2 layers, batch 1, S = 1280),
+     card against CPU.
+
+Phases 3 and 6 also hold and time the four flash-attention kernels at the
+GPT shapes (B=6 H=16 S=2048 D=64 and B=1 S=8192, both masks), at ragged
+lengths (1100, 4200), with Sq != Sk, and on the packed projection's head
+views, against their plain versions and F.scaled_dot_product_attention
+(bf16 gradients row by row, and each backward kernel made to leave out a
+row per tile must fail that bound), and the LayerNorm kernels at GPT's
+rows.
 
 The last three lines of standard output are the card's name and power
 limit, the {"kernels": [...]} line and {"ok": true, "device": {...}}.
@@ -108,6 +126,17 @@ LEGS = (("ViT-L-14", 64), ("ViT-H-14", 24))
 LEG_WARMUP, LEG_STEPS = 2, 10
 SAVED_P_WARMUP, SAVED_P_STEPS = 2, 5
 H_PARITY_LAYERS, H_PARITY_BATCH = 2, 4
+# phase 9: bench.py's GPT-345m (bench.py:134-181) and its recipe
+GPT_345M = {"num_layers": 24, "hidden_size": 1024, "num_heads": 16,
+            "vocab_size": 50304}
+GPT_LOSS_CHUNK = 1024
+# (batch, S, warm-up steps, timed steps): bench.py's leg, then
+# pretrain_gpt.py --seq-length 8192 at batch 1 (the split flash backward)
+GPT_RUNS = ((6, 2048, 2, 15), (1, 8192, 2, 5))
+GPT_SHAPES = tuple((b, s) for b, s, _, _ in GPT_RUNS)
+# the fp32 parity step: full width, 2 layers, one sequence above the fused
+# gate; lr 1e-6 (see gpt_parity)
+GPT_PARITY_LAYERS, GPT_PARITY_SEQ, GPT_PARITY_LR = 2, 1280, 1e-6
 
 
 def log(msg: str) -> None:
@@ -144,6 +173,39 @@ def compare(label: str, got: torch.Tensor, want: torch.Tensor, atol: float,
     if excess > 0:
         raise AssertionError(f"{label}: max_abs_err {worst:.3e} exceeds the "
                              "tolerance")
+    return worst
+
+
+def rows_used(got: torch.Tensor, want: torch.Tensor, rel: float,
+              floor: float) -> float:
+    """The share of the row bound that the worst row uses: the largest,
+    over rows r (the last axis: one query's dQ, one key's dK or dV), of
+    ||got_r - want_r|| / (rel ||want_r|| + floor rms), where rms is the
+    root mean square of the rows' norms."""
+    got, want = got.float().flatten(0, -2), want.float().flatten(0, -2)
+    norms = want.norm(dim=-1)
+    rms = float(norms.square().mean().sqrt())
+    return float(((got - want).norm(dim=-1)
+                  / (rel * norms + floor * rms)).max())
+
+
+def compare_rows(label: str, got: torch.Tensor, want: torch.Tensor,
+                 rel: float, floor: float) -> float:
+    """Raise unless every row of `got` is within `rel` of its own norm plus
+    `floor` of the rms row norm of `want` (rows_used <= 1); returns the
+    largest absolute difference."""
+    torch.cuda.synchronize()
+    if got.shape != want.shape:
+        raise AssertionError(f"{label}: shape {tuple(got.shape)} != "
+                             f"{tuple(want.shape)}")
+    if not torch.isfinite(got).all():
+        raise AssertionError(f"{label}: non-finite values")
+    used = rows_used(got, want, rel, floor)
+    worst = float((got.float() - want.float()).abs().max())
+    log(f"  {label}: max_abs_err={worst:.3e} (rows: rel {rel:g}, floor "
+        f"{floor:g} of the rms row; {used:.3f} of the tolerance)")
+    if used > 1:
+        raise AssertionError(f"{label}: a row exceeds the tolerance")
     return worst
 
 
@@ -196,6 +258,32 @@ def mha_bwd_cost(b: int, s: int, h: int, d: int, causal: bool,
     return nbytes, (10 if recompute else 8) * b * h * d * pairs
 
 
+def flash_cost(b: int, h: int, sq: int, sk: int, d: int, causal: bool,
+               itemsize: int, products: int = 2, q_side: int = 2,
+               k_side: int = 2, rows: int = 1):
+    """Bytes: each [B, H, S, D] operand read or written once, `q_side` of
+    them with Sq rows (q, out, dO, dq) and `k_side` with Sk (k, v, dk, dv),
+    plus `rows` fp32 [B, H, Sq] vectors (lse, delta). Operations: the JAX
+    kernel's `products` matrix products, each 2 Sq Sk D per head, halved
+    under the causal mask (forward 2, fused backward 5, dQ 3, dKV 4)."""
+    nbytes = b * h * ((q_side * sq + k_side * sk) * d * itemsize
+                      + rows * sq * 4)
+    ops = products * 2 * b * h * sq * sk * d
+    return nbytes, ops // 2 if causal else ops
+
+
+def flash_bwd_cost(kind: str, b: int, h: int, sq: int, sk: int, d: int,
+                   causal: bool, itemsize: int):
+    """flash_cost of a backward wrapper: fused reads q, k, v, out, dO and
+    lse and writes dq, dk, dv (5 products); dq reads q, k, v, dO, lse and
+    delta and writes dq (3); dkv reads the same and writes dk, dv (4)."""
+    products, q_side, k_side, rows = {"fused": (5, 4, 4, 1),
+                                      "dq": (3, 3, 2, 2),
+                                      "dkv": (4, 2, 4, 2)}[kind]
+    return flash_cost(b, h, sq, sk, d, causal, itemsize, products, q_side,
+                      k_side, rows)
+
+
 def ln_cost(rows: int, w: int, itemsize: int):
     """Bytes: x read and y written once, fp32 scale and bias read once.
     Operations: ~8 fp32 operations per element (mean, centring, variance,
@@ -211,11 +299,17 @@ def ln_bwd_cost(rows: int, w: int, itemsize: int):
 
 
 def kernel_fns(mha, ln) -> dict:
+    """Every kernel wrapper, by kernel name; each counts its launches."""
+    from megatron_clip_tpu_torch.ops.kernels import flash_attention as fa
     return {"fused_mha_fwd": mha.fused_mha_fwd,
             "fused_mha_bwd": mha.fused_mha_bwd,
             "fused_mha_bwd_recompute": mha.fused_mha_bwd_recompute,
             "layer_norm_fwd": ln.layer_norm_fwd,
-            "layer_norm_bwd": ln.layer_norm_bwd}
+            "layer_norm_bwd": ln.layer_norm_bwd,
+            "flash_fwd": fa.flash_fwd,
+            "flash_bwd_fused": fa.flash_bwd_fused,
+            "flash_bwd_dq": fa.flash_bwd_dq,
+            "flash_bwd_dkv": fa.flash_bwd_dkv}
 
 
 def zero_counts(mha, ln) -> None:
@@ -286,6 +380,27 @@ def phase_build(kernels_build):
 #   column whose sum is near 0 can be off by ulps of its neighbours'
 #   hundreds: 1e-4 absolute plus 2e-6 of the largest |sum| (~16 fp32 ulps
 #   of it) plus 1e-5 relative.
+# - flash_fwd fp32: 2e-5, as tests/test_flash_attention.py holds the TPU
+#   kernel. bf16: the kernel rounds P per 64-key tile against the running
+#   max, the plain version once against the row's max, so each term of P.V
+#   can differ by one bf16 ulp of its P, with signs that do not line up:
+#   2^-8 of the largest |out| plus one ulp of the output (rtol 8e-3).
+# - flash_fwd lse: fp32 sums of up to 8,192 exponentials in another order:
+#   1e-5 absolute plus 1e-5 relative.
+# - flash_bwd_*: fp32 5e-5, as tests/test_flash_attention.py holds the TPU
+#   kernels' gradients. bf16: dQ, dK and dV each row by row (one query's
+#   dQ, one key's dK or dV), since under the causal mask the first keys'
+#   gradients are 100x the typical one's, so a bound scaled by the largest
+#   |value| would hide a fault in most rows: each row's error norm within
+#   1e-2 of the row's norm plus 1e-4 of the rms row norm (compare_rows). A
+#   dS or P rounded the other way moves one term of a row by an ulp of it,
+#   an output rounded the other way one element by an ulp: at most 2^-7 of
+#   the term or element, under 1e-2 of the row (at most 0.61 of the bound
+#   measured, in dV; NVIDIA H100 80GB HBM3, 700.00 W). The floor takes rows
+#   whose value is fp32 noise (the first query's dQ, dS = P (dP - delta)
+#   with dP = delta). Against fp32, the roundings of P and dS themselves
+#   (2^-9 each, random): 2e-2. The fused kernel's fp32 atomics move dQ by
+#   fp32 ulps only. flash_bwd_teeth shows what a wrong kernel reads.
 TOLERANCES = {
     "fused_mha_fwd": {"fp32": (2e-5, 0.0), "bf16": (4e-3, 8e-3),
                       "bf16_vs_fp32_plain": (2e-2, 2e-2)},
@@ -303,6 +418,14 @@ TOLERANCES = {
     "layer_norm_bwd": {"fp32": (1e-5, 1e-5), "bf16": (4e-3, 8e-3),
                        "bf16_vs_fp32_plain": (2e-2, 2e-2),
                        "sums": (1e-4, 1e-5, 2e-6)},
+    "flash_fwd": {"fp32": (2e-5, 2e-5), "bf16": (0.0, 8e-3, 2 ** -8),
+                  "bf16_vs_fp32_plain": (2e-2, 2e-2)},
+    "flash_fwd lse": {"fp32": (1e-5, 1e-5), "bf16": (1e-5, 1e-5),
+                      "bf16_vs_fp32_plain": (1e-5, 1e-5)},
+    # bf16 flash gradients: (rel, floor) of compare_rows
+    **{name: {"fp32": (5e-5, 5e-5), "bf16": (1e-2, 1e-4),
+              "bf16_vs_fp32_plain": (2e-2, 1e-4)}
+       for name in ("flash_bwd_fused", "flash_bwd_dq", "flash_bwd_dkv")},
 }
 KERNELS = tuple(TOLERANCES)
 
@@ -320,6 +443,24 @@ def check_kernel(errs: dict, name: str, label: str, got: torch.Tensor,
         e = compare(f"{name} {label} {kind}", got, want,
                     *TOLERANCES[name][kind])
         errs[name][kind] = max(errs[name].get(kind, 0.0), e)
+
+
+def check_grads(errs: dict, name: str, label: str, got: tuple,
+                plain) -> None:
+    """The gradients `got` (dq; dk, dv; or dq, dk, dv) against plain(dtype):
+    in fp32 as check_kernel, in bf16 each tensor row by row
+    (compare_rows)."""
+    if got[0].dtype == torch.float32:
+        check_kernel(errs, name, label, torch.cat([g.flatten() for g in got]),
+                     lambda dt: torch.cat([w.flatten() for w in plain(dt)]))
+        return
+    parts = {1: ("dq",), 2: ("dk", "dv"), 3: ("dq", "dk", "dv")}[len(got)]
+    for kind, dt in (("bf16", torch.bfloat16),
+                     ("bf16_vs_fp32_plain", torch.float32)):
+        for part, g, w in zip(parts, got, plain(dt)):
+            e = compare_rows(f"{name} {label} {kind} {part}", g, w,
+                             *TOLERANCES[name][kind])
+            errs[name][kind] = max(errs[name].get(kind, 0.0), e)
 
 
 # the attention shapes of phase 8's legs: (leg, tower, B, S, H, D, causal)
@@ -372,6 +513,163 @@ def smajor_views(mha, gen) -> None:
                                          "not S-major")
             log(f"  S-major view B={b} S={s} H={h} D={d} causal={causal} "
                 f"{dtype}: every kernel equal to its contiguous run")
+
+
+# the flash kernels' checks (B, H, Sq, Sk, D, causal): GPT-345m's two
+# shapes, both masks at S = 2048, ragged lengths (1100, 4200: not multiples
+# of the 64-row tiles; 4200 is also past the fused backward's reach), cross
+# lengths, D = 40 (tensor cores, padded to 48) and D = 36 (CUDA cores in
+# bf16 too)
+FLASH_SHAPES = ((6, 16, 2048, 2048, 64, True), (6, 16, 2048, 2048, 64, False),
+                (1, 16, 8192, 8192, 64, True), (2, 4, 1100, 1100, 64, True),
+                (1, 4, 4200, 4200, 64, True), (2, 4, 1100, 700, 64, True),
+                (2, 4, 700, 1100, 64, False), (1, 3, 333, 333, 40, True),
+                (1, 2, 300, 300, 36, False))
+
+
+def flash_checks(errs, gen) -> None:
+    """Each flash kernel against its plain version at FLASH_SHAPES, fp32
+    and bf16; the backward kernels on the plain forward's out and lse, so
+    that each is compared alone."""
+    from megatron_clip_tpu_torch.ops.kernels import flash_attention as fa
+    for b, h, sq, sk, d, causal in FLASH_SHAPES:
+        base = [torch.randn(b, h, n, d, device="cuda", generator=gen)
+                for n in (sq, sk, sk, sq)]
+        label = f"B={b} H={h} Sq={sq} Sk={sk} D={d} causal={causal}"
+        scale = d ** -0.5
+        for dtype in (torch.float32, torch.bfloat16):
+            q, k, v, do = (t.to(dtype) for t in base)
+
+            def cast(dt, *ts):
+                return [t.to(dt) for t in ts]
+            out, lse = fa.flash_fwd(q, k, v, causal=causal)
+            check_kernel(errs, "flash_fwd", label, out, lambda dt: (
+                fa.flash_fwd_plain(*cast(dt, q, k, v), scale, causal)[0]))
+            check_kernel(errs, "flash_fwd lse", label, lse, lambda dt: (
+                fa.flash_fwd_plain(*cast(dt, q, k, v), scale, causal)[1]),
+                dtype)
+            p_out, p_lse = fa.flash_fwd_plain(q, k, v, scale, causal)
+            delta = fa.flash_delta(do, p_out)
+            check_grads(
+                errs, "flash_bwd_dq", label,
+                (fa.flash_bwd_dq(q, k, v, do, p_lse, delta, causal=causal),),
+                lambda dt: (fa.flash_bwd_dq_plain(*cast(dt, q, k, v, do),
+                                                  p_lse, delta, scale,
+                                                  causal),))
+            check_grads(
+                errs, "flash_bwd_dkv", label,
+                fa.flash_bwd_dkv(q, k, v, do, p_lse, delta, causal=causal),
+                lambda dt: fa.flash_bwd_dkv_plain(
+                    *cast(dt, q, k, v, do), p_lse, delta, scale, causal))
+            check_grads(
+                errs, "flash_bwd_fused", label,
+                fa.flash_bwd_fused(q, k, v, p_out, p_lse, do, causal=causal),
+                lambda dt: fa.flash_bwd_fused_plain(
+                    *cast(dt, q, k, v, p_out), p_lse, do.to(dt), scale,
+                    causal))
+            if dtype == torch.bfloat16 and causal and (b, sq) in GPT_SHAPES:
+                flash_bwd_teeth(fa, label, q, k, v, do, p_out, p_lse, scale)
+        del base, q, k, v, do, out, lse, p_out, p_lse, delta
+        torch.cuda.empty_cache()
+
+
+def flash_bwd_teeth(fa, label, q, k, v, do, out, lse, scale) -> None:
+    """Each bf16 backward kernel made wrong on purpose, as an off-by-one in
+    a tile's bound would: the last row of every 64-row tile left out, in
+    the whole sequence or only in its late half. For the dQ kernel that is
+    a key of each key tile (its K row zeroed: its dS K term vanishes and no
+    other key's P moves, as lse is given), for the dKV and fused kernels a
+    query of each query tile (its dO and delta rows zeroed: its P dO and
+    dS Q terms vanish). Held against the plain version on the true inputs,
+    each must fail the row bound. Beside it is logged what a bound scaled
+    by the tensor's largest |value| (2^-7 of it plus rtol 1.6e-2) reads
+    for the same fault."""
+    want = dict(zip(("dq", "dk", "dv"), fa.flash_bwd_fused_plain(
+        q, k, v, out, lse, do, scale, True)))
+    delta = fa.flash_delta(do, out)
+    s = q.shape[2]
+    for where, rows in (("every tile", slice(63, None, 64)),
+                        ("the late half", slice(s // 2 + 63, None, 64))):
+        k_bad, do_bad = k.clone(), do.clone()
+        k_bad[:, :, rows] = 0
+        do_bad[:, :, rows] = 0
+        delta_bad = fa.flash_delta(do_bad, out)
+        wrong = {
+            "flash_bwd_dq": dict(dq=fa.flash_bwd_dq(
+                q, k_bad, v, do, lse, delta, causal=True)),
+            "flash_bwd_dkv": dict(zip(("dk", "dv"), fa.flash_bwd_dkv(
+                q, k, v, do_bad, lse, delta_bad, causal=True))),
+            "flash_bwd_fused": dict(zip(("dq", "dk", "dv"), fa.flash_bwd_fused(
+                q, k, v, out, lse, do_bad, causal=True)))}
+        for name, got in wrong.items():
+            for part, g in got.items():
+                w = want[part].float()
+                row = rows_used(g, w, *TOLERANCES[name]["bf16"])
+                old = float(((g.float() - w).abs() / (
+                    2 ** -7 * w.abs().max() + 1.6e-2 * w.abs())).max())
+                log(f"  {name} {label} a row per tile left out in {where}, "
+                    f"{part}: {row:.3f} of the row bound, {old:.3f} of the "
+                    "largest-|value| bound")
+                if row <= 1:
+                    raise AssertionError(
+                        f"{name} {label}: the row bound passes a kernel that "
+                        f"leaves out a row per tile in {where}")
+
+
+def flash_views(gen) -> None:
+    """Each flash kernel on the head views of a packed [B, S, 3*H*D]
+    projection, the GPT path's layout, against the same kernel on
+    contiguous copies: the same arithmetic, so equal results, except the
+    fused backward's dQ, summed by fp32 atomics in an order that changes
+    from run to run (within 1e-6 relative in fp32; in bf16 its rounding can
+    fall either way: two bf16 ulps, rtol 1.6e-2, as the other bf16
+    gradient bounds); the backward's gradients land in one packed
+    [B, S, 3, H, D] buffer."""
+    from megatron_clip_tpu_torch.ops.kernels import flash_attention as fa
+    for b, h, s, d, dtype in ((6, 16, 2048, 64, torch.bfloat16),
+                              (6, 16, 2048, 64, torch.float32),
+                              (1, 16, 8192, 64, torch.bfloat16),
+                              (2, 4, 1100, 64, torch.bfloat16)):
+        qkv = torch.randn(b, s, 3 * h * d, device="cuda", generator=gen,
+                          dtype=dtype)
+        do = torch.randn(b, s, h, d, device="cuda", generator=gen,
+                         dtype=dtype).transpose(1, 2)
+        views = qkv.unflatten(-1, (3, h, d)).permute(2, 0, 3, 1, 4).unbind(0)
+        copies = [t.contiguous() for t in views]
+        out, lse = fa.flash_fwd(*copies, causal=True)
+        out_v, lse_v = fa.flash_fwd(*views, causal=True)
+        delta = fa.flash_delta(do, out)
+        dq, dk, dv, packed = fa.flash_bwd(*views, out, lse, do, causal=True,
+                                          scale=d ** -0.5)
+        pairs = {
+            "fwd out": (out_v, out), "fwd lse": (lse_v, lse),
+            "bwd_dq": (fa.flash_bwd_dq(*views, do, lse, delta, causal=True),
+                       fa.flash_bwd_dq(*copies, do, lse, delta, causal=True)),
+            **{f"bwd_dkv {n}": pair for n, pair in zip("kv", zip(
+                fa.flash_bwd_dkv(*views, do, lse, delta, causal=True),
+                fa.flash_bwd_dkv(*copies, do, lse, delta, causal=True)))},
+        }
+        want = (fa.flash_bwd_fused(*copies, out, lse, do, causal=True)
+                if fa.uses_fused_bwd(s) else
+                (pairs["bwd_dq"][1], *(pairs[f"bwd_dkv {n}"][1]
+                                        for n in "kv")))
+        pairs.update({"bwd dk": (dk, want[1]), "bwd dv": (dv, want[2])})
+        torch.cuda.synchronize()
+        label = f"packed views B={b} S={s} H={h} D={d} {dtype}"
+        for what, (got, ref) in pairs.items():
+            if not torch.equal(got, ref):
+                raise AssertionError(f"{label} {what}: differs from the "
+                                     "contiguous run")
+        compare(f"{label} bwd dq", dq, want[0], 1e-6,
+                1e-6 if dtype == torch.float32 else 1.6e-2)
+        if packed is None or not packed.is_contiguous() or \
+                packed.shape != (b, s, 3, h, d) or \
+                packed.data_ptr() != dq.data_ptr():
+            raise AssertionError(f"{label}: the gradients are not one packed "
+                                 "[B, S, 3, H, D] buffer")
+        log(f"  {label}: every kernel equal to its contiguous run")
+        del qkv, do, views, copies, packed, pairs, want
+        torch.cuda.empty_cache()
 
 
 def phase_kernels(mha, ln):
@@ -431,11 +729,15 @@ def phase_kernels(mha, ln):
                          lambda dt: mha.fused_mha_bwd_recompute_plain(
                              x.to(dt), g.to(dt), h, scale, causal))
     smajor_views(mha, gen)
-    # the legs' LayerNorms: rows B*S at the tower's width H*D
+    flash_checks(errs, gen)
+    flash_views(gen)
+    # the legs' LayerNorms: rows B*S at the tower's width H*D; GPT-345m's:
+    # rows B*S at its width
     legs_ln = [(b * s, h * d) for _, _, b, s, h, d, _ in LEG_ATTENTION]
+    gpt_ln = [(b * s, GPT_345M["hidden_size"]) for b, s in GPT_SHAPES]
     for rows, w in [(TRAIN_BATCH * 50, 768), (TRAIN_BATCH * 77, 512),
                     (SERVE_BATCH * 50, 768), (SERVE_BATCH * 77, 512),
-                    *legs_ln, (1000, 768), (5, 100), (3, 4100)]:
+                    *legs_ln, *gpt_ln, (1000, 768), (5, 100), (3, 4100)]:
         x = torch.randn(rows, w, device="cuda", generator=gen) * 3 + 1
         dy = torch.randn(rows, w, device="cuda", generator=gen)
         scale = torch.randn(w, device="cuda", generator=gen)
@@ -531,9 +833,8 @@ def phase_serving(port, mha, ln, card: str):
     log(f"  backward launches: fused_mha_bwd {counts['fused_mha_bwd']}, "
         f"fused_mha_bwd_recompute {counts['fused_mha_bwd_recompute']}, "
         f"layer_norm_bwd {counts['layer_norm_bwd']} (expected 0)")
-    if counts != {"fused_mha_fwd": want_mha, "fused_mha_bwd": 0,
-                  "fused_mha_bwd_recompute": 0,
-                  "layer_norm_fwd": want_ln, "layer_norm_bwd": 0}:
+    if counts != dict(dict.fromkeys(counts, 0), fused_mha_fwd=want_mha,
+                      layer_norm_fwd=want_ln):
         raise AssertionError("serving path launch counts differ from the "
                              "expected kernel launches")
     if classifier.shape != (model.cfg.embed_dim, len(classnames)):
@@ -587,11 +888,13 @@ def timing_row(kernel: str, shape: str, fn, plain, library, cost,
     nbytes, ops = cost
     bms, by = bound_ms(nbytes, ops, ops_dtype)
     row = {"kernel": kernel, "shape": shape, "ms": cuda_ms(fn),
-           "plain_ms": cuda_ms(plain), "library_ms": cuda_ms(library),
+           "plain_ms": cuda_ms(plain),
+           "library_ms": None if library is None else cuda_ms(library),
            "bound_ms": bms, "bound_by": by, "bytes": nbytes, "ops": ops}
+    lib = "none" if library is None else f"{row['library_ms']:.4f} ms"
     log(f"  {kernel} {shape}: kernel {row['ms']:.4f} ms, plain "
-        f"{row['plain_ms']:.4f} ms, library {row['library_ms']:.4f} ms, "
-        f"bound {bms:.4f} ms ({by})")
+        f"{row['plain_ms']:.4f} ms, library {lib}, bound {bms:.4f} ms "
+        f"({by})")
     return row
 
 
@@ -644,6 +947,64 @@ def leg_attention_rows(mha, gen, leg, tower, b, s, h, d, causal) -> list:
                 lambda: mha.fused_mha_bwd_plain(x, g, p, h, d ** -0.5),
                 sdpa_bwd, mha_bwd_cost(b, s, h, d, causal, 2), dt))
             del p
+    return rows
+
+
+def flash_rows(gen, b: int, s: int, h: int = 16, d: int = 64) -> list:
+    """bf16 rows of GPT-345m's attention at batch b and length s, causal:
+    each flash kernel on the packed projection's head views and dO in
+    [B, S, H, D] storage (the train step's layouts), the backward kernels
+    from the forward's out and lse. Library: SDPA's forward and, by
+    autograd.grad, its backward (dq, dk and dv together) on contiguous
+    q, k, v, beside the forward and the fused backward; no single PyTorch
+    call computes dQ or dK, dV alone."""
+    from megatron_clip_tpu_torch.ops.kernels import flash_attention as fa
+    dt = torch.bfloat16
+    qkv = torch.randn(b, s, 3 * h * d, device="cuda", generator=gen, dtype=dt)
+    do = torch.randn(b, s, h, d, device="cuda", generator=gen,
+                     dtype=dt).transpose(1, 2)
+    q, k, v = qkv.unflatten(-1, (3, h, d)).permute(2, 0, 3, 1, 4).unbind(0)
+    out, lse = fa.flash_fwd(q, k, v, causal=True)
+    delta = fa.flash_delta(do, out)
+    lq, lk, lv = (t.contiguous().requires_grad_(True) for t in (q, k, v))
+    lo = F.scaled_dot_product_attention(lq, lk, lv, is_causal=True)
+    ldo = do.contiguous()
+
+    def sdpa_fwd():
+        return F.scaled_dot_product_attention(lq.detach(), lk.detach(),
+                                              lv.detach(), is_causal=True)
+
+    def sdpa_bwd():
+        return torch.autograd.grad(lo, (lq, lk, lv), ldo, retain_graph=True)
+    shape = f"GPT-345m B={b} S={s} H={h} D={d} causal bf16"
+    scale = d ** -0.5
+    rows = [
+        timing_row("flash_fwd", shape,
+                   lambda: fa.flash_fwd(q, k, v, causal=True),
+                   lambda: fa.flash_fwd_plain(q, k, v, scale, True),
+                   sdpa_fwd, flash_cost(b, h, s, s, d, True, 2), dt),
+        timing_row("flash_bwd_fused", shape,
+                   lambda: fa.flash_bwd_fused(q, k, v, out, lse, do,
+                                              causal=True),
+                   lambda: fa.flash_bwd_fused_plain(q, k, v, out, lse, do,
+                                                    scale, True),
+                   sdpa_bwd, flash_bwd_cost("fused", b, h, s, s, d, True, 2),
+                   dt),
+        timing_row("flash_bwd_dq", shape,
+                   lambda: fa.flash_bwd_dq(q, k, v, do, lse, delta,
+                                           causal=True),
+                   lambda: fa.flash_bwd_dq_plain(q, k, v, do, lse, delta,
+                                                 scale, True),
+                   None, flash_bwd_cost("dq", b, h, s, s, d, True, 2), dt),
+        timing_row("flash_bwd_dkv", shape,
+                   lambda: fa.flash_bwd_dkv(q, k, v, do, lse, delta,
+                                            causal=True),
+                   lambda: fa.flash_bwd_dkv_plain(q, k, v, do, lse, delta,
+                                                  scale, True),
+                   None, flash_bwd_cost("dkv", b, h, s, s, d, True, 2), dt),
+    ]
+    del lo, lq, lk, lv
+    torch.cuda.empty_cache()
     return rows
 
 
@@ -707,6 +1068,8 @@ def phase_timings(mha, ln):
     for leg, tower, b, s, h, d, causal in LEG_ATTENTION:
         rows.extend(leg_attention_rows(mha, gen, leg, tower, b, s, h, d,
                                        causal))
+    for b, s in GPT_SHAPES:
+        rows.extend(flash_rows(gen, b, s))
     for tower, s, w in (("vision", 50, 768), ("text", 77, 512)):
         for b in (SERVE_BATCH, TRAIN_BATCH):
             n = b * s
@@ -743,6 +1106,8 @@ MHA_CU = "megatron_clip_tpu_torch/csrc/fused_mha.cu"
 LN_CU = "megatron_clip_tpu_torch/csrc/layernorm.cu"
 TPU_MHA = "megatron_clip_tpu/ops/pallas/fused_mha.py"
 TPU_LN = "megatron_clip_tpu/ops/pallas/layernorm.py"
+FLASH_CU = "megatron_clip_tpu_torch/csrc/flash_attention.cu"
+TPU_FLASH = "megatron_clip_tpu/ops/pallas/flash_attention.py"
 KERNEL_META = {
     "fused_mha_fwd": (MHA_CU, f"{TPU_MHA}:80", [f"{TPU_MHA}:149"],
                       f"B={TRAIN_BATCH} "),
@@ -752,15 +1117,20 @@ KERNEL_META = {
                                 "ViT-L/14 vision B=64 "),
     "layer_norm_fwd": (LN_CU, f"{TPU_LN}:25", [], f"rows={TRAIN_BATCH * 50} "),
     "layer_norm_bwd": (LN_CU, f"{TPU_LN}:82", [], f"rows={TRAIN_BATCH * 50} "),
+    "flash_fwd": (FLASH_CU, f"{TPU_FLASH}:64", [], "B=6 S=2048 "),
+    "flash_bwd_fused": (FLASH_CU, f"{TPU_FLASH}:283", [], "B=6 S=2048 "),
+    "flash_bwd_dq": (FLASH_CU, f"{TPU_FLASH}:166", [], "B=1 S=8192 "),
+    "flash_bwd_dkv": (FLASH_CU, f"{TPU_FLASH}:219", [], "B=1 S=8192 "),
 }
 
 
 def kernels_line(rows, launches_by_path, errs) -> list:
     """One entry per kernel: its launches on the main paths (the serving
-    run, the ViT-B/32 train run and the ViT-L/14 and ViT-H/14 recompute
-    runs, each zeroed before and read after; `launches_by_path` splits
-    them), the worst error of phase 3, and the timings of its headline row,
-    every timed shape listed under `shapes`."""
+    run, the ViT-B/32 train run, the ViT-L/14 and ViT-H/14 recompute runs
+    and the two GPT-345m runs, each zeroed before and read after;
+    `launches_by_path` splits them), the worst error of phase 3, and the
+    timings of its headline row, every timed shape listed under
+    `shapes`."""
     kernels = []
     for name, (source, replaces, also, headline) in KERNEL_META.items():
         mine = [r for r in rows if r["kernel"] == name]
@@ -780,7 +1150,8 @@ def kernels_line(rows, launches_by_path, errs) -> list:
             **({"max_abs_err_column_sums": errs[name]["sums"]}
                if "sums" in errs[name] else {}),
             **{f"max_abs_err_{part}": errs[f"{name} {part}"]
-               for part in ("P", "stats") if f"{name} {part}" in errs},
+               for part in ("P", "stats", "lse")
+               if f"{name} {part}" in errs},
             "ms": main["ms"], "plain_ms": main["plain_ms"],
             "bound_ms": main["bound_ms"], "bound_by": main["bound_by"],
             "library_ms": main["library_ms"], "shape": main["shape"],
@@ -825,11 +1196,11 @@ def per_step_launches(cfg, save_probs: bool) -> dict:
     backward (from P or recomputing) per layer, LayerNorm forward and
     backward 2 per block plus ln_pre, ln_post and ln_final."""
     layers = cfg.vision.layers + cfg.text.layers
-    return {"fused_mha_fwd": layers,
-            "fused_mha_bwd": layers if save_probs else 0,
-            "fused_mha_bwd_recompute": 0 if save_probs else layers,
-            "layer_norm_fwd": 2 * layers + 3,
-            "layer_norm_bwd": 2 * layers + 3}
+    return dict(dict.fromkeys(KERNEL_META, 0), fused_mha_fwd=layers,
+                fused_mha_bwd=layers if save_probs else 0,
+                fused_mha_bwd_recompute=0 if save_probs else layers,
+                layer_norm_fwd=2 * layers + 3,
+                layer_norm_bwd=2 * layers + 3)
 
 
 def stage_memory(model, opt, step, state, images, texts) -> dict:
@@ -1007,71 +1378,90 @@ def phase_legs(port, mha, ln, card: str) -> dict:
     return result
 
 
-def train_parity(port, name: str, batch: int, save_probs: bool = True,
-                 **overrides) -> dict:
-    """One fp32 step of `name` (full width; `overrides` may cut its depth)
-    at `batch`, on the card (the kernels) and on the CPU (their plain
-    versions), from the same weights and batch. Loss and grad_norm within
-    1e-5 relative. Each parameter's gradient, before the update, within
+def card_vs_cpu(label: str, run, param_tol: float) -> dict:
+    """`run(device)` takes one fp32 step on `device` from the same weights
+    and batch and returns (loss, grad_norm, the gradients before the update
+    and the parameters after it, on the CPU, the step's seconds). Loss and
+    grad_norm within 1e-5 relative. Each parameter's gradient within
     GRAD_REL_TOL of its norm: sums in another order move a gradient by
     ~1e-6 of its norm, a leaf whose sum cancels by more, and a fault in one
     layer's backward by far more (Adam's first update, lr sign(g), cannot
-    show it). Every parameter within 1e-6 absolute after the step, a tenth
-    of the step's lr (1e-5): Adam moves an element by lr g/(|g| + eps), and
-    gradients that differ by ~1e-6 relative move it by at most lr 1e-6 / 4,
-    except where a gradient is rounding noise, whose update, g/eps lr, stays
-    far below the bound."""
-    from megatron_clip_tpu_torch.training import (TrainState, cosine_lr,
-                                                  make_optimizer,
-                                                  make_train_step)
-    out, data = {}, None
-    for device in ("cuda", "cpu"):
-        model = port.create_model(name, precision="fp32", seed=0,
-                                  device=device, attn_save_probs=save_probs,
-                                  **overrides).train()
-        if data is None:
-            data = train_batch(model.cfg, batch, seed=1)
-        images, texts = data
-        opt = make_optimizer(model, cosine_lr(1e-3, 100, 10000),
-                             grad_clip_norm=1.0)
-        grads, update = {}, opt.update
-
-        def keep_grads(state, g, update=update, grads=grads):
-            grads.update({n: t.detach().cpu() for n, t in g.items()})
-            return update(state, g)
-        opt.update = keep_grads
-        t0 = time.perf_counter()
-        _, m = make_train_step(model, opt)(TrainState.create(model, opt),
-                                           images.to(device),
-                                           texts.to(device))
-        out[device] = (float(m["loss"]), float(m["grad_norm"]), grads,
-                       {n: p.detach().cpu()
-                        for n, p in model.named_parameters()},
-                       time.perf_counter() - t0)
-        # opt.update -> keep_grads -> update (bound to opt) is a reference
-        # cycle: left to the garbage collector, the card's model stays
-        # allocated into the next phase and lifts its peak memory
-        del opt.update
-        del model, opt
+    show it). Every parameter within `param_tol` absolute after the step,
+    a share of the step's lr (1e-6, a tenth, for the CLIP steps at lr 1e-5):
+    Adam moves an element by lr g/(|g| + eps), less than lr, so a leaf the
+    card left as it was would sit just under lr away; gradients that differ
+    by ~1e-6 relative move it by at most lr 1e-6 / 4, except where a
+    gradient is rounding noise, whose update, g/eps lr, stays below the
+    bound while the noise stays well below eps (see gpt_parity for a model
+    where it does not)."""
+    out = {device: run(device) for device in ("cuda", "cpu")}
     (lc, gc, dc, pc, tc), (lp, gp, dp, pp, tp) = out["cuda"], out["cpu"]
     grad_errs = {n: float((dc[n] - dp[n]).norm() / dp[n].norm())
                  for n in dp}
     worst_leaf = max(grad_errs, key=grad_errs.get)
-    worst = max(float((pc[n] - pp[n]).abs().max()) for n in pp)
+    param_errs = {n: float((pc[n] - pp[n]).abs().max()) for n in pp}
+    worst_param = max(param_errs, key=param_errs.get)
+    worst = param_errs[worst_param]
     res = {"loss_cuda": lc, "loss_cpu": lp, "grad_norm_cuda": gc,
            "grad_norm_cpu": gp, "loss_rel_err": abs(lc - lp) / abs(lp),
            "grad_norm_rel_err": abs(gc - gp) / abs(gp),
            "grad_worst_leaf": worst_leaf,
            "grad_worst_leaf_rel_err": grad_errs[worst_leaf],
-           "param_max_abs_err": worst, "step_s_cuda": tc, "step_s_cpu": tp}
-    log(f"  fp32 step of {name} ({'saved P' if save_probs else 'recompute'}"
-        f"), card vs CPU: {json.dumps(res)}")
+           "param_worst_leaf": worst_param, "param_max_abs_err": worst,
+           "step_s_cuda": tc, "step_s_cpu": tp}
+    log(f"  fp32 step of {label}, card vs CPU: {json.dumps(res)}")
     if res["loss_rel_err"] > 1e-5 or res["grad_norm_rel_err"] > 1e-5 \
-            or grad_errs[worst_leaf] > GRAD_REL_TOL or worst > 1e-6:
+            or grad_errs[worst_leaf] > GRAD_REL_TOL or worst > param_tol:
         raise AssertionError("the fp32 step on the card disagrees with the "
                              "CPU")
     torch.cuda.empty_cache()
     return res
+
+
+def keep_grads(opt) -> dict:
+    """Make `opt.update` keep a CPU copy of the gradients it is given;
+    returns the dict they land in. The caller deletes `opt.update` after
+    the step: opt.update -> keep -> update (bound to opt) is a reference
+    cycle, and left to the garbage collector the card's model stays
+    allocated into the next phase and lifts its peak memory."""
+    grads, update = {}, opt.update
+
+    def keep(state, g):
+        grads.update({n: t.detach().cpu() for n, t in g.items()})
+        return update(state, g)
+    opt.update = keep
+    return grads
+
+
+def train_parity(port, name: str, batch: int, save_probs: bool = True,
+                 **overrides) -> dict:
+    """One fp32 step of `name` (full width; `overrides` may cut its depth)
+    at `batch`, on the card (the kernels) and on the CPU (their plain
+    versions), from the same weights and batch (`card_vs_cpu`)."""
+    from megatron_clip_tpu_torch.training import (TrainState, cosine_lr,
+                                                  make_optimizer,
+                                                  make_train_step)
+    data = []
+
+    def run(device):
+        model = port.create_model(name, precision="fp32", seed=0,
+                                  device=device, attn_save_probs=save_probs,
+                                  **overrides).train()
+        if not data:
+            data.extend(train_batch(model.cfg, batch, seed=1))
+        opt = make_optimizer(model, cosine_lr(1e-3, 100, 10000),
+                             grad_clip_norm=1.0)
+        grads = keep_grads(opt)
+        t0 = time.perf_counter()
+        _, m = make_train_step(model, opt)(TrainState.create(model, opt),
+                                           *(t.to(device) for t in data))
+        took = time.perf_counter() - t0
+        del opt.update
+        return (float(m["loss"]), float(m["grad_norm"]), grads,
+                {n: p.detach().cpu() for n, p in model.named_parameters()},
+                took)
+    return card_vs_cpu(f"{name} ({'saved P' if save_probs else 'recompute'})",
+                       run, param_tol=1e-6)
 
 
 def train_learns(port) -> dict:
@@ -1104,6 +1494,160 @@ def train_learns(port) -> dict:
     return res
 
 
+def gpt_per_step(layers: int, seq: int) -> dict:
+    """Kernel launches of one GPT train step: the flash forward once per
+    layer and its backward as the JAX package picks it at this length
+    (fused through S = 4096, split dQ and dKV above), LayerNorm forward and
+    backward twice per block plus ln_f."""
+    from megatron_clip_tpu_torch.ops.kernels.flash_attention import (
+        uses_fused_bwd)
+    bwd = (("flash_bwd_fused",) if uses_fused_bwd(seq)
+           else ("flash_bwd_dq", "flash_bwd_dkv"))
+    return dict(dict.fromkeys(KERNEL_META, 0), flash_fwd=layers,
+                **dict.fromkeys(bwd, layers),
+                layer_norm_fwd=2 * layers + 1, layer_norm_bwd=2 * layers + 1)
+
+
+def gpt_run(mha, ln, card: str, batch: int, seq: int, warmup: int,
+            steps: int) -> dict:
+    """`warmup` + `steps` steps of bench.py's GPT-345m train step at
+    `batch` x `seq`: pure_bf16 weights from seed 0, clip 1.0 then
+    AdamW(1e-4, b=(0.9, 0.95)) with bf16 first moments, loss chunks of
+    1024, one batch of token ids in [1, vocab - 1) from numpy seed 0. The
+    counters are zeroed before the first step and read after every step,
+    which must launch each kernel as gpt_per_step says; every loss must be
+    finite and the last below the first. Step times are CUDA-event
+    intervals between step starts; tokens/s the timed steps' tokens over
+    the window's wall time; MFU and HFU bench.py's (6 N and 6 N plus the
+    attention and lm-head terms, per token, over 989 TFLOP/s)."""
+    from megatron_clip_tpu_torch.models.gpt import GPTCfg, create_gpt
+    from megatron_clip_tpu_torch.training import (TrainState,
+                                                  make_gpt_optimizer,
+                                                  make_gpt_train_step)
+    cfg = GPTCfg(**GPT_345M, seq_length=seq)
+    model = create_gpt(cfg, precision="pure_bf16", seed=0).train()
+    opt = make_gpt_optimizer(model)
+    state = TrainState.create(model, opt)
+    step = make_gpt_train_step(model, opt, loss_seq_chunk=GPT_LOSS_CHUNK)
+    tokens = torch.from_numpy(np.random.default_rng(0).integers(
+        1, cfg.vocab_size - 1, (batch, seq + 1))).cuda()
+    per_step = gpt_per_step(cfg.num_layers, seq)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    losses, events, step_peaks = [], [], []
+    zero_counts(mha, ln)
+    for i in range(warmup + steps):
+        if i == warmup:
+            torch.cuda.synchronize()
+            window0 = time.perf_counter()
+        before = read_counts(mha, ln)
+        ev = torch.cuda.Event(enable_timing=True)
+        ev.record()
+        events.append(ev)
+        state, metrics = step(state, tokens)
+        losses.append(metrics["loss"])
+        step_peaks.append(torch.cuda.max_memory_allocated() / 2 ** 30)
+        torch.cuda.reset_peak_memory_stats()
+        got = {k: v - before[k] for k, v in read_counts(mha, ln).items()}
+        if got != per_step:
+            raise AssertionError(f"GPT-345m S={seq} step {i}: launches "
+                                 f"{got}, expected {per_step}")
+    end = torch.cuda.Event(enable_timing=True)
+    end.record()
+    end.synchronize()
+    window_s = time.perf_counter() - window0
+    launches = read_counts(mha, ln)
+    events.append(end)
+    step_ms = [a.elapsed_time(b) for a, b in zip(events[warmup:-1],
+                                                 events[warmup + 1:])]
+    losses = torch.stack(losses).float().tolist()
+    log(f"  GPT-345m S={seq} launches per step {per_step}; total {launches}")
+    log(f"  GPT-345m S={seq} losses {losses}")
+    if not all(math.isfinite(v) for v in losses):
+        raise AssertionError(f"GPT-345m S={seq}: non-finite training loss")
+    if not losses[-1] < losses[0]:
+        raise AssertionError(f"GPT-345m S={seq}: the loss did not fall")
+    n_params = sum(p.numel() for p in model.parameters())
+    toks = batch * seq * steps / window_s
+    w, L, v = cfg.hidden_size, cfg.num_layers, cfg.vocab_size
+    extra = 6 * w * v + 6 * seq * w * L + 2 * seq * w * L
+    peak = PEAK_OPS_PER_S[torch.bfloat16]
+    result = {
+        "card": card, "model": "GPT-345m", "batch": batch, "seq": seq,
+        "precision": "pure_bf16", "params": n_params,
+        "attention_backward": ("fused" if per_step["flash_bwd_fused"]
+                               else "split dQ / dKV"),
+        "step_ms_median": float(np.median(step_ms)),
+        "step_ms_mean": float(np.mean(step_ms)),
+        "step_ms_min": float(np.min(step_ms)), "step_ms": step_ms,
+        "window_s": window_s, "tokens_per_s": toks,
+        "mfu": 6 * n_params * toks / peak,
+        "hfu": (6 * n_params + extra) * toks / peak,
+        "peak_memory_gib": max(step_peaks),
+        "step_peak_memory_gib": step_peaks,
+        "losses": losses, "launches": launches,
+        "launches_per_step": per_step,
+    }
+    log(f"  GPT-345m S={seq}: step median {result['step_ms_median']:.2f} ms, "
+        f"mean {result['step_ms_mean']:.2f}, fastest "
+        f"{result['step_ms_min']:.2f}; {toks:.0f} tokens/s, MFU "
+        f"{result['mfu']:.4f}, HFU {result['hfu']:.4f}, peak "
+        f"{result['peak_memory_gib']:.2f} GiB")
+    del model, opt, state, step, metrics, tokens
+    torch.cuda.empty_cache()
+    return result
+
+
+def gpt_parity() -> dict:
+    """One fp32 GPT step at GPT-345m's width, GPT_PARITY_LAYERS layers,
+    batch 1 at S = GPT_PARITY_SEQ (the flash path, fused backward), on the
+    card and on the CPU from the same weights and tokens (`card_vs_cpu`),
+    at lr 1e-6. Adam's first step moves an element by lr g / (|g| + eps),
+    and this model has gradients as small as eps (1e-8) that are fp32
+    rounding noise: a wo element of 6.8e-9 on one side and 5.5e-9 on the
+    other, which at phase 7's lr of 1e-5 moved the parameters 1.45e-6
+    apart (NVIDIA H100 80GB HBM3, 700.00 W). At 1e-6 such an element moves
+    them ~1.5e-7 apart (1.45e-7 measured), while a leaf left as it was sits
+    just under lr away and a gradient of the wrong sign moves one ~2e-6
+    apart: the parameter bound is half the lr, 5e-7."""
+    from megatron_clip_tpu_torch.models.gpt import GPTCfg, create_gpt
+    from megatron_clip_tpu_torch.training import (TrainState,
+                                                  make_gpt_optimizer,
+                                                  make_gpt_train_step)
+    cfg = GPTCfg(**dict(GPT_345M, num_layers=GPT_PARITY_LAYERS),
+                 seq_length=GPT_PARITY_SEQ)
+    tokens = torch.from_numpy(np.random.default_rng(1).integers(
+        1, cfg.vocab_size - 1, (1, GPT_PARITY_SEQ + 1)))
+
+    def run(device):
+        model = create_gpt(cfg, precision="fp32", device=device,
+                           seed=0).train()
+        opt = make_gpt_optimizer(model, lr=GPT_PARITY_LR)
+        grads = keep_grads(opt)
+        t0 = time.perf_counter()
+        _, m = make_gpt_train_step(model, opt, loss_seq_chunk=GPT_LOSS_CHUNK)(
+            TrainState.create(model, opt), tokens.to(device))
+        took = time.perf_counter() - t0
+        del opt.update
+        return (float(m["loss"]), float(m["grad_norm"]), grads,
+                {n: p.detach().cpu() for n, p in model.named_parameters()},
+                took)
+    return card_vs_cpu(f"GPT-345m width, {GPT_PARITY_LAYERS} layers, "
+                       f"S={GPT_PARITY_SEQ}", run,
+                       param_tol=0.5 * GPT_PARITY_LR)
+
+
+def phase_gpt(mha, ln, card: str) -> dict:
+    log("[9] GPT-345m: " + ", ".join(
+        f"batch {b} x S={s}, {w} warm-up + {n} timed steps"
+        for b, s, w, n in GPT_RUNS) + "; pure_bf16, flash attention")
+    result = {f"S={s}": gpt_run(mha, ln, card, b, s, w, n)
+              for b, s, w, n in GPT_RUNS}
+    result["parity"] = gpt_parity()
+    log(f"  gpt: {json.dumps(result)}")
+    return result
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; this script runs only on the GPU",
@@ -1127,10 +1671,13 @@ def main() -> int:
     rows = phase_timings(mha, ln)
     train = phase_train(port, mha, ln, card)
     legs = phase_legs(port, mha, ln, card)
+    gpt = phase_gpt(mha, ln, card)
     paths = {"serving ViT-B-32": serving["launches"],
              "train ViT-B-32": train["launches"],
              **{f"train {name} recompute": run["launches"]
-                for name, run in legs["runs"].items()}}
+                for name, run in legs["runs"].items()},
+             **{f"train GPT-345m {key}": run["launches"]
+                for key, run in gpt.items() if key != "parity"}}
     kernels = kernels_line(rows, paths, errs)
     idle = [k["name"] for k in kernels if k["launches"] == 0]
     if idle:

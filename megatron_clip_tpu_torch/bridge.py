@@ -18,7 +18,9 @@ unstacked into `blocks.{i}`:
   logit_scale  []                         logit_scale
 
 The same flattening carries an optax state's moments (`opt_state_from_jax`)
-and maps a JAX gradient tree onto the port's names.
+and maps a JAX gradient tree onto the port's names. A GPT tree
+(`gpt_params_from_jax`) flattens the same way: tok_embed, pos_embed,
+ln_f/{scale,bias}, lm_head (untied) and blocks/* -> blocks.{i}.*.
 """
 from typing import Any, Dict, Union
 
@@ -26,6 +28,7 @@ import numpy as np
 import torch
 
 from megatron_clip_tpu_torch.config import CLIPCfg
+from megatron_clip_tpu_torch.models.gpt import GPTCfg
 from megatron_clip_tpu_torch.training.optim import OptState
 
 
@@ -49,6 +52,24 @@ def _flatten(tree, prefix: str, out: dict) -> None:
             out[key] = np.asarray(v, dtype=np.float32)
 
 
+def _unstacked(tree: Dict[str, Any], towers, device, dtype
+               ) -> Dict[str, torch.Tensor]:
+    """`tree` flattened onto the port's names as tensors; `towers` maps
+    each prefix of a `blocks` stack ('' for the root) to its layer count,
+    which the tree must hold."""
+    out: Dict[str, np.ndarray] = {}
+    _flatten(tree, "", out)
+    for tower, layers in towers.items():
+        prefix = f"{tower}.blocks." if tower else "blocks."
+        found = {int(k[len(prefix):].split(".")[0]) for k in out
+                 if k.startswith(prefix)}
+        if found != set(range(layers)):
+            raise ValueError(f"{tower or 'GPT'}: {len(found)} layers in the "
+                             f"tree, config says {layers}")
+    return {k: torch.from_numpy(np.array(v)).to(device, dtype)
+            for k, v in out.items()}
+
+
 def params_from_jax(tree: Dict[str, Any], cfg: CLIPCfg,
                     device: Union[str, torch.device, None] = "cpu",
                     dtype: torch.dtype = torch.float32
@@ -56,17 +77,18 @@ def params_from_jax(tree: Dict[str, Any], cfg: CLIPCfg,
     """JAX CLIP param pytree (nested dicts of numpy or jax arrays) -> the
     port's state dict, ready for `model.load_state_dict`. `cfg` checks the
     layer counts."""
-    out: Dict[str, np.ndarray] = {}
-    _flatten(tree, "", out)
-    for tower, layers in (("visual", cfg.vision.layers),
-                          ("text", cfg.text.layers)):
-        found = {int(k.split(".")[2]) for k in out
-                 if k.startswith(f"{tower}.blocks.")}
-        if found != set(range(layers)):
-            raise ValueError(f"{tower}: {len(found)} layers in the tree, "
-                             f"config says {layers}")
-    return {k: torch.from_numpy(np.array(v)).to(device, dtype)
-            for k, v in out.items()}
+    return _unstacked(tree, {"visual": cfg.vision.layers,
+                             "text": cfg.text.layers}, device, dtype)
+
+
+def gpt_params_from_jax(tree: Dict[str, Any], cfg: GPTCfg,
+                        device: Union[str, torch.device, None] = "cpu",
+                        dtype: torch.dtype = torch.float32
+                        ) -> Dict[str, torch.Tensor]:
+    """JAX GPT param pytree (`init_gpt`'s, nested dicts of numpy or jax
+    arrays) -> a `GPTModel`'s state dict, the `blocks` layer axis
+    unstacked. `cfg` checks the layer count."""
+    return _unstacked(tree, {"": cfg.num_layers}, device, dtype)
 
 
 def _nodes(tree):

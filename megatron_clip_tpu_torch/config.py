@@ -2,12 +2,15 @@
 
 Mirrors `megatron_clip_tpu/config.py` (Precision, TransformerCfg, VisionCfg,
 TextCfg, CLIPCfg) with torch dtypes in place of jnp ones. Only the fields the
-ViT CLIP serving path reads are kept (no layer scale, no pooling choice,
-no ln_pre or causal-mask switch, no text-projection bias: `create_model`
-rejects those keys until the slice that needs them); the mesh configs
-(ParallelCfg, BranchParallelCfg) come with the parallelism slice.
+ported paths read are kept: the ViT CLIP towers (no layer scale, no pooling
+choice, no ln_pre or causal-mask switch, no text-projection bias:
+`create_model` rejects those keys until the slice that needs them) and what
+`GPTCfg.transformer()` sets on the GPT path (megatron's init, the bias
+switch, gelu_tanh); the mesh configs (ParallelCfg, BranchParallelCfg) come
+with the parallelism slice.
 """
 from dataclasses import dataclass, field
+from typing import Optional
 
 import torch
 
@@ -48,6 +51,20 @@ class TransformerCfg:
     heads: int
     mlp_ratio: float = 4.0
     act: str = "gelu"  # gelu | gelu_tanh | quick_gelu
+    norm: str = "layernorm"  # rmsnorm: ROADMAP Queue B (fused_rms_norm)
+    use_bias: bool = True    # linear biases (megatron --disable-bias-linear)
+    # weight init: None = the open_CLIP width-derived scheme; a float =
+    # megatron --init-method-std (inputs at std, residual outputs at
+    # std/sqrt(2L))
+    init_std: Optional[float] = None
+
+    def __post_init__(self):
+        if self.act not in ("gelu", "gelu_tanh", "quick_gelu"):
+            raise NotImplementedError(f"act={self.act!r} is not ported yet "
+                                      "(ROADMAP Queue A item 4)")
+        if self.norm != "layernorm":
+            raise NotImplementedError(f"norm={self.norm!r} is not ported yet "
+                                      "(ROADMAP Queue B: fused_rms_norm)")
 
     @property
     def head_dim(self) -> int:

@@ -1,0 +1,1147 @@
+// Flash attention: the forward with its log-sum-exp, the fused backward (dK,
+// dV and dQ in one pass over the key tiles) and the split dQ and dKV
+// backward kernels.
+//
+// Replaces the TPU kernels of megatron_clip_tpu/ops/pallas/flash_attention.py:
+// _fwd_kernel (pallas_call in _flash_fwd), _bwd_fused_kernel (in
+// _flash_bwd_fused), _bwd_dq_kernel and _bwd_dkv_kernel (in _flash_bwd),
+// which ops/attention.multi_head_attention runs for every attention above the
+// fused-MHA gate (S > 1024, S >= 256, head_dim <= 128, no bias): GPT-345m's
+// causal S = 2048 (fused backward) and S = 8192 (split backward). Which
+// backward runs is decided by the caller (ops/kernels/flash_attention.py), as
+// the JAX package decides it: fused while the keys span at most 4 of its
+// 1024-key blocks.
+//
+// Contract. q [B, H, Sq, D], k and v [B, H, Sk, D], fp32 or bf16, each given
+// as a pointer and the element strides of its batch, head and sequence axes
+// (D contiguous), so a [B, S, 3*H*D] packed projection is read in place.
+// out, dO, dq, dk and dv are strided the same way; lse and delta are
+// [B, H, Sq] fp32. Arithmetic of the TPU kernels: scores in fp32 times scale;
+// the causal mask keeps row >= col (absolute indices, no offset for
+// Sq != Sk), and masked scores, like keys past Sk, are -1e30. The forward
+// keeps a running max m and sum l per row over the key tiles (m starts at
+// -1e30), rounds the unnormalised exp(s - m) to the input dtype before P.V,
+// rescales its fp32 accumulator by exp(m_old - m_new) at each tile, and
+// writes out = acc / l and lse = m + log(l), with l = 0 taken as 1 (out 0,
+// lse -1e30 for a row that saw no key). The TPU kernel rounds P per 1024-key
+// block, this kernel per 64-key tile (32 on the CUDA cores): P's bf16
+// rounding is taken against another running max, which moves out by at most
+// a bf16 rounding. The backward forms P = exp(s - lse) in fp32,
+// dP = dO V^T in fp32, dS = P (dP - delta) scale in fp32 with
+// delta = rowsum(dO * O) (computed by the caller, as the JAX package does
+// outside its kernels), dV = bf16(P)^T dO, dK = bf16(dS)^T Q,
+// dQ = bf16(dS) K, each product accumulated in fp32, outputs rounded to the
+// input dtype.
+//
+// dQ of the fused backward. The TPU kernel writes one fp32 dQ partial per
+// key block and sums them outside; with 64-key tiles that buffer would be
+// 32x dQ at S = 2048 (~0.8 GB per layer at B = 6), more traffic than the
+// whole kernel's. So each block adds its dS K into one fp32 [B, Sq, H, D]
+// buffer with atomicAdd (the caller zeroes it and rounds it to the input
+// dtype after): the sum's order, and so its last fp32 bits, change from run
+// to run. The split kernels use no atomics and are deterministic.
+//
+// What bounds them. At GPT-345m's shapes (D = 64, causal, S = 2048) a head
+// does 2 S^2 D / 2 multiply-adds per product for 4 S D elements of traffic:
+// ~1000 FLOP per byte in bf16, above the ~295 where an H100's bf16 tensor
+// cores become the limit. So the floor is the tensor-core rate (forward
+// 2 products, fused backward 5, dQ 3, dKV 4 per kept pair): every product
+// runs as mma.sync m16n8k16 bf16 with fp32 accumulation, scores and
+// probabilities stay in registers, and causal blocks stop at the diagonal.
+//
+// Design (tc::, bf16 with D a multiple of 8 and 16-byte aligned rows): 4
+// warps per block, 16 rows each.
+// - fwd: one block per (64 queries, head, batch). Q is staged once; each
+//   64-key tile of K and V is staged, S = Q K^T runs from shared memory,
+//   the online softmax updates in the accumulators, whose values become
+//   P's A fragments (rounded to bf16) for O += P V.
+// - bwd_kv: one block per (64 keys, head, batch); K and V stay in shared
+//   memory as A operands. It sweeps the 64-query tiles (from its first key
+//   on, when causal) in halves of 32: S^T = K Q^T, P^T in the accumulators,
+//   dV += bf16(P^T) dO, dP^T = V dO^T, dK += bf16(dS^T) Q. The fused
+//   variant also stages bf16(dS^T) for the whole query tile and adds
+//   dQ += dS K (ldmatrix.trans of the staged tile) into the fp32 buffer.
+// - bwd_dq: one block per (64 queries, head, batch), q and dO staged once,
+//   64-key tiles walked in halves of 32: S = Q K^T, P, dP = dO V^T,
+//   dQ += bf16(dS) K.
+// simt:: (fp32, and any other bf16 case): the same loops on the fp32 CUDA
+// cores, 16 rows (or keys) per block, 32-key (or query) tiles, one key (or
+// query) per lane, which keeps fp32 inputs at full fp32 precision (no TF32).
+//
+// cp.async/TMA double-buffering, wgmma and 128-row tiles are later work.
+#include <math_constants.h>
+#include <stdint.h>
+
+#include "common.cuh"
+#include "mma_tiles.cuh"
+
+namespace {
+
+using mct::allow_smem;
+constexpr int kThreads = 128;  // 4 warps
+constexpr int kMaxD = 128;
+constexpr float kMasked = -1e30f;  // the TPU kernel's NEG_INF
+
+// One [B, H, S, D] operand: its pointer and the element strides of its
+// batch, head and sequence axes; D is contiguous.
+template <typename T>
+struct View {
+  T* p;
+  long b, h, s;
+  __device__ T* head(int bi, int hi) const {
+    return p + (long)bi * b + (long)hi * h;
+  }
+};
+
+// The fp32 [B, Sq, H, D] row of dQ's accumulation buffer.
+__device__ __forceinline__ float* dq_row(float* dq_acc, int b, int q, int h,
+                                         int H, int Sq, int D) {
+  return dq_acc + (((long)b * Sq + q) * H + h) * D;
+}
+
+// ----------------------------------------------------------------------------
+// fp32 CUDA-core kernels
+namespace simt {
+
+constexpr int kWarps = kThreads / 32;
+constexpr int kRows = 4;                // rows (or keys) per warp
+constexpr int kQTile = kWarps * kRows;  // rows (or keys) per block
+constexpr int kKTile = 32;              // keys (or queries) per tile, one a lane
+constexpr int kDPerLane = kMaxD / 32;
+
+__host__ __device__ inline int padded_d(int d) { return (d + 3) & ~3; }
+
+// Rows [r0, r0+n) of one head's [S, D] operand (row pitch `pitch`) as fp32
+// into dst[ROWS][ld], zero-filled past n and past D.
+template <typename T>
+__device__ void load_rows(float* dst, const T* __restrict__ src, long pitch,
+                          int r0, int n, int rows, int D, int dp, int ld) {
+  for (int i = threadIdx.x; i < rows * dp; i += kThreads) {
+    const int r = i / dp, d = i - r * dp;
+    dst[r * ld + d] =
+        (r < n && d < D) ? mct::to_float(src[(long)(r0 + r) * pitch + d]) : 0.f;
+  }
+}
+
+// s[r] = a_r . b_lane for the warp's kRows rows of a (pitch dp) against row
+// `lane` of b (pitch ld), an fp32 dot product.
+__device__ __forceinline__ void dot_rows(const float* a_w, const float* b_s,
+                                         int lane, int dp, int ld,
+                                         float (&s)[kRows]) {
+#pragma unroll
+  for (int r = 0; r < kRows; ++r) s[r] = 0.f;
+  const float4* br = reinterpret_cast<const float4*>(b_s + lane * ld);
+  for (int c = 0; c < dp / 4; ++c) {
+    const float4 bv = br[c];
+#pragma unroll
+    for (int r = 0; r < kRows; ++r) {
+      const float4 av = reinterpret_cast<const float4*>(a_w + r * dp)[c];
+      s[r] = fmaf(av.x, bv.x, s[r]);
+      s[r] = fmaf(av.y, bv.y, s[r]);
+      s[r] = fmaf(av.z, bv.z, s[r]);
+      s[r] = fmaf(av.w, bv.w, s[r]);
+    }
+  }
+}
+
+__host__ __device__ inline int fwd_smem_bytes(int d) {
+  const int dp = padded_d(d), ld = dp + 4;
+  return 4 * (2 * kKTile * ld + kQTile * dp + kQTile * kKTile);
+}
+
+template <typename T>
+__global__ void __launch_bounds__(kThreads)
+fwd(View<const T> q, View<const T> k, View<const T> v, View<T> o,
+    float* __restrict__ lse, int H, int Sq, int Sk, int D, float scale,
+    int causal) {
+  extern __shared__ __align__(16) float smem[];
+  const int dp = padded_d(D), ld = dp + 4;
+  float* k_s = smem;               // [kKTile][ld]
+  float* v_s = k_s + kKTile * ld;  // [kKTile][ld]
+  float* q_s = v_s + kKTile * ld;  // [kQTile][dp]
+  float* p_s = q_s + kQTile * dp;  // [kWarps][kRows][kKTile]
+
+  const int b = blockIdx.z, h = blockIdx.y, q0 = blockIdx.x * kQTile;
+  const int nq = min(kQTile, Sq - q0);
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  const int r0 = warp * kRows;
+  const T* kb = k.head(b, h);
+  const T* vb = v.head(b, h);
+  load_rows(q_s, q.head(b, h), q.s, q0, nq, kQTile, D, dp, dp);
+  // keys any row of the block (of the warp) attends to
+  const int nk = causal ? min(Sk, q0 + nq) : Sk;
+  const int warp_nk = causal ? min(nk, q0 + r0 + kRows) : nk;
+  const float* q_w = q_s + r0 * dp;
+  float* p_w = p_s + r0 * kKTile;
+
+  float m[kRows], l[kRows], acc[kRows][kDPerLane];
+#pragma unroll
+  for (int r = 0; r < kRows; ++r) {
+    m[r] = kMasked;
+    l[r] = 0.f;
+#pragma unroll
+    for (int c = 0; c < kDPerLane; ++c) acc[r][c] = 0.f;
+  }
+  for (int t0 = 0; t0 < nk; t0 += kKTile) {
+    const int nt = min(kKTile, nk - t0);
+    __syncthreads();
+    load_rows(k_s, kb, k.s, t0, nt, kKTile, D, dp, ld);
+    load_rows(v_s, vb, v.s, t0, nt, kKTile, D, dp, ld);
+    __syncthreads();
+    if (t0 >= warp_nk) continue;  // warp-uniform
+    float s[kRows];
+    dot_rows(q_w, k_s, lane, dp, ld, s);
+#pragma unroll
+    for (int r = 0; r < kRows; ++r) {
+      const int kj = t0 + lane;
+      const bool ok = lane < nt && (!causal || kj <= q0 + r0 + r);
+      const float sv = ok ? s[r] * scale : kMasked;
+      const float mn = fmaxf(m[r], mct::warp_max(sv));
+      const float corr = expf(m[r] - mn);
+      const float p = expf(sv - mn);
+      l[r] = corr * l[r] + mct::warp_sum(p);
+      m[r] = mn;
+      p_w[r * kKTile + lane] = mct::round_to<T>(p);
+#pragma unroll
+      for (int c = 0; c < kDPerLane; ++c) acc[r][c] *= corr;
+    }
+    __syncwarp();
+    const int jn = min(nt, warp_nk - t0);  // keys after them have p = 0
+    for (int j = 0; j < jn; ++j) {
+#pragma unroll
+      for (int c = 0; c < kDPerLane; ++c) {
+        const int d = lane + 32 * c;
+        const float vv = d < D ? v_s[j * ld + d] : 0.f;
+#pragma unroll
+        for (int r = 0; r < kRows; ++r)
+          acc[r][c] = fmaf(p_w[r * kKTile + j], vv, acc[r][c]);
+      }
+    }
+    __syncwarp();
+  }
+
+#pragma unroll
+  for (int r = 0; r < kRows; ++r) {
+    if (r0 + r >= nq) continue;
+    const int row = q0 + r0 + r;
+    const float ls = l[r] == 0.f ? 1.f : l[r];
+    if (lane == 0) lse[((long)b * H + h) * Sq + row] = m[r] + logf(ls);
+    T* dst = o.head(b, h) + (long)row * o.s;
+#pragma unroll
+    for (int c = 0; c < kDPerLane; ++c) {
+      const int d = lane + 32 * c;
+      if (d < D) dst[d] = mct::from_float<T>(acc[r][c] / ls);
+    }
+  }
+}
+
+__host__ __device__ inline int dq_smem_bytes(int d) {
+  const int dp = padded_d(d), ld = dp + 4;
+  return 4 * (2 * kKTile * ld + 2 * kQTile * dp + kQTile * kKTile);
+}
+
+// dQ of 16 query rows, each lane one key of a 32-key tile.
+template <typename T>
+__global__ void __launch_bounds__(kThreads)
+bwd_dq(View<const T> q, View<const T> k, View<const T> v, View<const T> g,
+       const float* __restrict__ lse, const float* __restrict__ delta,
+       View<T> dq, int H, int Sq, int Sk, int D, float scale, int causal) {
+  extern __shared__ __align__(16) float smem[];
+  const int dp = padded_d(D), ld = dp + 4;
+  float* k_s = smem;                 // [kKTile][ld]
+  float* v_s = k_s + kKTile * ld;    // [kKTile][ld]
+  float* q_s = v_s + kKTile * ld;    // [kQTile][dp]
+  float* do_s = q_s + kQTile * dp;   // [kQTile][dp]
+  float* ds_s = do_s + kQTile * dp;  // [kWarps][kRows][kKTile]
+
+  const int b = blockIdx.z, h = blockIdx.y, q0 = blockIdx.x * kQTile;
+  const int nq = min(kQTile, Sq - q0);
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  const int r0 = warp * kRows;
+  const long bh = (long)b * H + h;
+  const T* kb = k.head(b, h);
+  const T* vb = v.head(b, h);
+  load_rows(q_s, q.head(b, h), q.s, q0, nq, kQTile, D, dp, dp);
+  load_rows(do_s, g.head(b, h), g.s, q0, nq, kQTile, D, dp, dp);
+  const int nk = causal ? min(Sk, q0 + nq) : Sk;
+  const int warp_nk = causal ? min(nk, q0 + r0 + kRows) : nk;
+  const float* q_w = q_s + r0 * dp;
+  const float* do_w = do_s + r0 * dp;
+  float* ds_w = ds_s + r0 * kKTile;
+  float lse_r[kRows], dl[kRows], acc[kRows][kDPerLane];
+#pragma unroll
+  for (int r = 0; r < kRows; ++r) {
+    const bool ok = r0 + r < nq;
+    lse_r[r] = ok ? lse[bh * Sq + q0 + r0 + r] : 0.f;
+    dl[r] = ok ? delta[bh * Sq + q0 + r0 + r] : 0.f;
+#pragma unroll
+    for (int c = 0; c < kDPerLane; ++c) acc[r][c] = 0.f;
+  }
+  for (int t0 = 0; t0 < nk; t0 += kKTile) {
+    const int nt = min(kKTile, nk - t0);
+    __syncthreads();
+    load_rows(k_s, kb, k.s, t0, nt, kKTile, D, dp, ld);
+    load_rows(v_s, vb, v.s, t0, nt, kKTile, D, dp, ld);
+    __syncthreads();
+    const int jn = min(nt, warp_nk - t0);
+    if (jn <= 0) continue;  // warp-uniform
+    float s[kRows], dpv[kRows];
+    dot_rows(q_w, k_s, lane, dp, ld, s);
+    dot_rows(do_w, v_s, lane, dp, ld, dpv);
+#pragma unroll
+    for (int r = 0; r < kRows; ++r) {
+      const int kj = t0 + lane;
+      const bool ok = lane < nt && (!causal || kj <= q0 + r0 + r);
+      const float p = ok ? expf(s[r] * scale - lse_r[r]) : 0.f;
+      ds_w[r * kKTile + lane] = mct::round_to<T>(p * (dpv[r] - dl[r]) * scale);
+    }
+    __syncwarp();
+    for (int j = 0; j < jn; ++j) {
+#pragma unroll
+      for (int c = 0; c < kDPerLane; ++c) {
+        const int d = lane + 32 * c;
+        const float kv = d < D ? k_s[j * ld + d] : 0.f;
+#pragma unroll
+        for (int r = 0; r < kRows; ++r)
+          acc[r][c] = fmaf(ds_w[r * kKTile + j], kv, acc[r][c]);
+      }
+    }
+    __syncwarp();
+  }
+#pragma unroll
+  for (int r = 0; r < kRows; ++r) {
+    if (r0 + r >= nq) continue;
+    T* dst = dq.head(b, h) + (long)(q0 + r0 + r) * dq.s;
+#pragma unroll
+    for (int c = 0; c < kDPerLane; ++c) {
+      const int d = lane + 32 * c;
+      if (d < D) dst[d] = mct::from_float<T>(acc[r][c]);
+    }
+  }
+}
+
+__host__ __device__ inline int kv_smem_bytes(int d) {
+  const int dp = padded_d(d), ld = dp + 4;
+  return 4 * (2 * kKTile * ld + 2 * kQTile * dp + 2 * kQTile * kKTile);
+}
+
+// dK and dV of 16 keys, each lane one query of a 32-query tile. kDQ (the
+// fused backward) also adds dS K of those keys into dq_acc.
+template <typename T, bool kDQ>
+__global__ void __launch_bounds__(kThreads)
+bwd_kv(View<const T> q, View<const T> k, View<const T> v, View<const T> g,
+       const float* __restrict__ lse, const float* __restrict__ delta,
+       View<T> dk, View<T> dv, float* __restrict__ dq_acc, int H, int Sq,
+       int Sk, int D, float scale, int causal) {
+  extern __shared__ __align__(16) float smem[];
+  const int dp = padded_d(D), ld = dp + 4;
+  float* q_s = smem;                     // [kKTile][ld] queries
+  float* do_s = q_s + kKTile * ld;       // [kKTile][ld]
+  float* k_s = do_s + kKTile * ld;       // [kQTile][dp] the block's keys
+  float* v_s = k_s + kQTile * dp;        // [kQTile][dp]
+  float* p_s = v_s + kQTile * dp;        // [kQTile][kKTile]
+  float* ds_s = p_s + kQTile * kKTile;   // [kQTile][kKTile]
+
+  const int b = blockIdx.z, h = blockIdx.y, k0 = blockIdx.x * kQTile;
+  const int nkeys = min(kQTile, Sk - k0);
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  const int r0 = warp * kRows;
+  const long bh = (long)b * H + h;
+  const T* qb = q.head(b, h);
+  const T* gb = g.head(b, h);
+  load_rows(k_s, k.head(b, h), k.s, k0, nkeys, kQTile, D, dp, dp);
+  load_rows(v_s, v.head(b, h), v.s, k0, nkeys, kQTile, D, dp, dp);
+  const float* k_w = k_s + r0 * dp;
+  const float* v_w = v_s + r0 * dp;
+  float* p_w = p_s + r0 * kKTile;
+  float* ds_w = ds_s + r0 * kKTile;
+  const bool warp_idle = r0 >= nkeys;
+
+  float dka[kRows][kDPerLane], dva[kRows][kDPerLane];
+#pragma unroll
+  for (int r = 0; r < kRows; ++r)
+#pragma unroll
+    for (int c = 0; c < kDPerLane; ++c) dka[r][c] = dva[r][c] = 0.f;
+  // causal: no query before the block's first key attends to its keys
+  for (int t0 = causal ? k0 : 0; t0 < Sq; t0 += kKTile) {
+    const int nt = min(kKTile, Sq - t0);
+    __syncthreads();
+    load_rows(q_s, qb, q.s, t0, nt, kKTile, D, dp, ld);
+    load_rows(do_s, gb, g.s, t0, nt, kKTile, D, dp, ld);
+    __syncthreads();
+    if (!warp_idle) {  // warp-uniform
+      float s[kRows], dpv[kRows];
+      dot_rows(k_w, q_s, lane, dp, ld, s);     // S^T[key r][query lane]
+      dot_rows(v_w, do_s, lane, dp, ld, dpv);  // dP^T[key r][query lane]
+      const int qi = t0 + lane;
+      const float lse_q = lane < nt ? lse[bh * Sq + qi] : 0.f;
+      const float dl_q = lane < nt ? delta[bh * Sq + qi] : 0.f;
+#pragma unroll
+      for (int r = 0; r < kRows; ++r) {
+        const int kj = k0 + r0 + r;
+        const bool ok = r0 + r < nkeys && lane < nt && (!causal || kj <= qi);
+        const float p = ok ? expf(s[r] * scale - lse_q) : 0.f;
+        p_w[r * kKTile + lane] = mct::round_to<T>(p);
+        ds_w[r * kKTile + lane] = mct::round_to<T>(p * (dpv[r] - dl_q) * scale);
+      }
+      __syncwarp();
+      for (int j = 0; j < nt; ++j) {
+#pragma unroll
+        for (int c = 0; c < kDPerLane; ++c) {
+          const int d = lane + 32 * c;
+          const float qv = d < D ? q_s[j * ld + d] : 0.f;
+          const float gv = d < D ? do_s[j * ld + d] : 0.f;
+#pragma unroll
+          for (int r = 0; r < kRows; ++r) {
+            dva[r][c] = fmaf(p_w[r * kKTile + j], gv, dva[r][c]);
+            dka[r][c] = fmaf(ds_w[r * kKTile + j], qv, dka[r][c]);
+          }
+        }
+      }
+    } else if (kDQ) {
+#pragma unroll
+      for (int r = 0; r < kRows; ++r) ds_w[r * kKTile + lane] = 0.f;
+    }
+    if (kDQ) {
+      // dQ[query j] += sum over the block's keys of dS[j][key] K[key]
+      __syncthreads();
+      for (int j = warp; j < nt; j += kWarps) {
+        float* dst = dq_row(dq_acc, b, t0 + j, h, H, Sq, D);
+#pragma unroll
+        for (int c = 0; c < kDPerLane; ++c) {
+          const int d = lane + 32 * c;
+          if (d >= D) continue;
+          float sum = 0.f;
+          for (int key = 0; key < nkeys; ++key)
+            sum = fmaf(ds_s[key * kKTile + j], k_s[key * dp + d], sum);
+          atomicAdd(dst + d, sum);
+        }
+      }
+    }
+  }
+
+#pragma unroll
+  for (int r = 0; r < kRows; ++r) {
+    if (r0 + r >= nkeys) continue;
+    const long key = k0 + r0 + r;
+    T* dk_row = dk.head(b, h) + key * dk.s;
+    T* dv_row = dv.head(b, h) + key * dv.s;
+#pragma unroll
+    for (int c = 0; c < kDPerLane; ++c) {
+      const int d = lane + 32 * c;
+      if (d < D) {
+        dk_row[d] = mct::from_float<T>(dka[r][c]);
+        dv_row[d] = mct::from_float<T>(dva[r][c]);
+      }
+    }
+  }
+}
+
+template <typename T>
+cudaError_t launch_fwd(View<const T> q, View<const T> k, View<const T> v,
+                       View<T> o, float* lse, int B, int H, int Sq, int Sk,
+                       int D, float scale, int causal, cudaStream_t st) {
+  const int smem = fwd_smem_bytes(D);
+  const cudaError_t e = allow_smem(fwd<T>, smem);
+  if (e != cudaSuccess) return e;
+  fwd<T><<<dim3((Sq + kQTile - 1) / kQTile, H, B), kThreads, smem, st>>>(
+      q, k, v, o, lse, H, Sq, Sk, D, scale, causal);
+  return cudaGetLastError();
+}
+
+template <typename T>
+cudaError_t launch_dq(View<const T> q, View<const T> k, View<const T> v,
+                      View<const T> g, const float* lse, const float* delta,
+                      View<T> dq, int B, int H, int Sq, int Sk, int D,
+                      float scale, int causal, cudaStream_t st) {
+  const int smem = dq_smem_bytes(D);
+  const cudaError_t e = allow_smem(bwd_dq<T>, smem);
+  if (e != cudaSuccess) return e;
+  bwd_dq<T><<<dim3((Sq + kQTile - 1) / kQTile, H, B), kThreads, smem, st>>>(
+      q, k, v, g, lse, delta, dq, H, Sq, Sk, D, scale, causal);
+  return cudaGetLastError();
+}
+
+template <typename T, bool kDQ>
+cudaError_t launch_kv(View<const T> q, View<const T> k, View<const T> v,
+                      View<const T> g, const float* lse, const float* delta,
+                      View<T> dk, View<T> dv, float* dq_acc, int B, int H,
+                      int Sq, int Sk, int D, float scale, int causal,
+                      cudaStream_t st) {
+  const int smem = kv_smem_bytes(D);
+  const cudaError_t e = allow_smem(bwd_kv<T, kDQ>, smem);
+  if (e != cudaSuccess) return e;
+  bwd_kv<T, kDQ>
+      <<<dim3((Sk + kQTile - 1) / kQTile, H, B), kThreads, smem, st>>>(
+          q, k, v, g, lse, delta, dk, dv, dq_acc, H, Sq, Sk, D, scale,
+          causal);
+  return cudaGetLastError();
+}
+
+}  // namespace simt
+
+// ----------------------------------------------------------------------------
+// bf16 tensor-core kernels
+namespace tc {
+
+using namespace mct::tc;
+constexpr int kQ = 64;    // query rows per block (or per tile), 16 per warp
+constexpr int kK = 64;    // keys per tile (or per block), 16 per warp
+constexpr int kSub = 32;  // the backward's half tiles
+constexpr int kDsPitch = kQ + 8;  // staged dS^T tile [kK][kDsPitch]
+
+__host__ __device__ constexpr int fwd_smem_bytes(int dp) {
+  return (kQ + 2 * kK) * (dp + 8) * 2;
+}
+
+// four [64][DP+8] bf16 tiles, the staged dS^T (fused backward), and a query
+// tile's lse and delta
+__host__ __device__ constexpr int kv_smem_bytes(int dp, bool dq) {
+  return 4 * 64 * (dp + 8) * 2 + (dq ? kK * kDsPitch * 2 : 0) + 2 * kQ * 4;
+}
+
+__host__ __device__ constexpr int dq_smem_bytes(int dp) {
+  return 4 * 64 * (dp + 8) * 2;
+}
+
+// O = A B for the warp's 16 rows: a[kc] is the A fragment of columns
+// 16kc..16kc+15 (keys), B's rows (keys) are staged at b_s (pitch DP+8).
+template <int DP, int KC>
+__device__ __forceinline__ void mma_rows(float (&o)[DP / 8][4],
+                                         const uint32_t (&a)[KC][4],
+                                         const bf16* b_s, int lane) {
+  constexpr int kPitch = DP + 8;
+#pragma unroll
+  for (int kc = 0; kc < KC; ++kc)
+#pragma unroll
+    for (int dc = 0; dc < DP / 16; ++dc) {
+      uint32_t r[4];
+      const int key = kc * 16 + (lane & 7) + ((lane >> 3) & 1) * 8;
+      ldmatrix_x4_trans(r, b_s + key * kPitch + dc * 16 + (lane >> 4) * 8);
+      mma(o[2 * dc], a[kc], r[0], r[1]);
+      mma(o[2 * dc + 1], a[kc], r[2], r[3]);
+    }
+}
+
+// The m16n8 accumulators x[NT] (columns 8n..8n+7) as bf16 A fragments of
+// NT/2 16-column chunks.
+template <int NT>
+__device__ __forceinline__ void to_a_frags(uint32_t (&a)[NT / 2][4],
+                                           const float (&x)[NT][4]) {
+#pragma unroll
+  for (int kc = 0; kc < NT / 2; ++kc)
+#pragma unroll
+    for (int i = 0; i < 4; ++i) {
+      // i: 0 (row lo, columns 0-7), 1 (row hi, 0-7), 2 (lo, 8-15), 3 (hi,
+      // 8-15)
+      const float* xv = x[2 * kc + (i >> 1)];
+      a[kc][i] = pack_bf16(xv[2 * (i & 1)], xv[2 * (i & 1) + 1]);
+    }
+}
+
+template <int DP>
+__global__ void __launch_bounds__(kThreads)
+fwd(View<const bf16> q, View<const bf16> k, View<const bf16> v, View<bf16> o,
+    float* __restrict__ lse, int H, int Sq, int Sk, int D, float scale,
+    int causal) {
+  constexpr int kPitch = DP + 8, NT = kK / 8;
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  bf16* q_s = reinterpret_cast<bf16*>(smem_raw);  // [kQ][kPitch]
+  bf16* k_s = q_s + kQ * kPitch;                   // [kK][kPitch]
+  bf16* v_s = k_s + kK * kPitch;                   // [kK][kPitch]
+
+  const int b = blockIdx.z, h = blockIdx.y, q0 = blockIdx.x * kQ;
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  const bf16* kb = k.head(b, h);
+  const bf16* vb = v.head(b, h);
+  const int nk = causal ? min(Sk, q0 + kQ) : Sk;
+  const int row_lo = q0 + warp * 16 + (lane >> 2);  // and row_lo + 8
+  const int warp_last = q0 + warp * 16 + 15;
+  const bool warp_idle = q0 + warp * 16 >= Sq;
+  load_tile<DP, kQ>(q_s, q.head(b, h), q.s, 0, q0, min(kQ, Sq - q0), D);
+  const bf16* qw_s = q_s + warp * 16 * kPitch;
+
+  float m[2] = {kMasked, kMasked}, l[2] = {0.f, 0.f};
+  float acc[DP / 8][4];
+#pragma unroll
+  for (int n = 0; n < DP / 8; ++n)
+#pragma unroll
+    for (int j = 0; j < 4; ++j) acc[n][j] = 0.f;
+  for (int t0 = 0; t0 < nk; t0 += kK) {
+    const int nt = min(kK, nk - t0);
+    __syncthreads();
+    load_tile<DP, kK>(k_s, kb, k.s, 0, t0, nt, D);
+    load_tile<DP, kK>(v_s, vb, v.s, 0, t0, nt, D);
+    __syncthreads();
+    // warp-uniform: every key of the tile is after every row of the warp
+    if (warp_idle || (causal && t0 > warp_last)) continue;
+    float s[NT][4];
+    score_tile_s<DP, NT>(s, qw_s, k_s, lane);
+    // element j of s[n]: (row row_lo + 8 (j / 2), key t0 + 8n + 2 (lane % 4)
+    // + j % 2)
+#pragma unroll
+    for (int n = 0; n < NT; ++n)
+#pragma unroll
+      for (int j = 0; j < 4; ++j) {
+        const int key = t0 + 8 * n + 2 * (lane & 3) + (j & 1);
+        const int row = row_lo + (j >> 1) * 8;
+        const bool ok = key < Sk && (!causal || key <= row);
+        s[n][j] = ok ? s[n][j] * scale : kMasked;
+      }
+#pragma unroll
+    for (int half = 0; half < 2; ++half) {
+      float mx = kMasked;
+#pragma unroll
+      for (int n = 0; n < NT; ++n)
+        mx = fmaxf(mx, fmaxf(s[n][2 * half], s[n][2 * half + 1]));
+      const float mn = fmaxf(m[half], quad_max(mx));
+      const float corr = expf(m[half] - mn);
+      float sum = 0.f;
+#pragma unroll
+      for (int n = 0; n < NT; ++n)
+#pragma unroll
+        for (int j = 2 * half; j < 2 * half + 2; ++j) {
+          s[n][j] = expf(s[n][j] - mn);
+          sum += s[n][j];
+        }
+      l[half] = corr * l[half] + quad_sum(sum);
+      m[half] = mn;
+#pragma unroll
+      for (int n = 0; n < DP / 8; ++n) {
+        acc[n][2 * half] *= corr;
+        acc[n][2 * half + 1] *= corr;
+      }
+    }
+    // O += bf16(P) V
+    uint32_t pa[NT / 2][4];
+    to_a_frags<NT>(pa, s);
+    mma_rows<DP, NT / 2>(acc, pa, v_s, lane);
+  }
+
+#pragma unroll
+  for (int half = 0; half < 2; ++half) {
+    const int row = row_lo + 8 * half;
+    if (row >= Sq) continue;
+    const float ls = l[half] == 0.f ? 1.f : l[half];
+    if ((lane & 3) == 0) lse[((long)b * H + h) * Sq + row] = m[half] + logf(ls);
+    bf16* dst = o.head(b, h) + (long)row * o.s;
+#pragma unroll
+    for (int n = 0; n < DP / 8; ++n) {
+      const int d = 8 * n + 2 * (lane & 3);
+      if (d < D)
+        *reinterpret_cast<uint32_t*>(dst + d) =
+            pack_bf16(acc[n][2 * half] / ls, acc[n][2 * half + 1] / ls);
+    }
+  }
+}
+
+// dK and dV of 64 keys (see the file's note); kDQ: the fused backward, which
+// also adds dQ += dS K into dq_acc.
+template <int DP, bool kDQ>
+__global__ void __launch_bounds__(kThreads)
+bwd_kv(View<const bf16> q, View<const bf16> k, View<const bf16> v,
+       View<const bf16> g, const float* __restrict__ lse,
+       const float* __restrict__ delta, View<bf16> dk, View<bf16> dv,
+       float* __restrict__ dq_acc, int H, int Sq, int Sk, int D, float scale,
+       int causal) {
+  constexpr int kPitch = DP + 8, NT = kSub / 8;
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  bf16* k_s = reinterpret_cast<bf16*>(smem_raw);  // [kK][kPitch] block keys
+  bf16* v_s = k_s + kK * kPitch;                   // [kK][kPitch]
+  bf16* q_s = v_s + kK * kPitch;                   // [kQ][kPitch]
+  bf16* do_s = q_s + kQ * kPitch;                  // [kQ][kPitch]
+  bf16* ds_s = do_s + kQ * kPitch;                 // [kK][kDsPitch] (kDQ)
+  float* lse_s = reinterpret_cast<float*>(ds_s + (kDQ ? kK * kDsPitch : 0));
+  float* d_s = lse_s + kQ;                         // [kQ]
+
+  const int b = blockIdx.z, h = blockIdx.y, k0 = blockIdx.x * kK;
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  const long bh = (long)b * H + h;
+  const bf16* qb = q.head(b, h);
+  const bf16* gb = g.head(b, h);
+  const int nkeys = min(kK, Sk - k0);
+  const int warp_k0 = k0 + warp * 16;
+  const int key_lo = warp_k0 + (lane >> 2);  // keys key_lo, key_lo + 8
+  const bool warp_idle = warp_k0 >= Sk;
+
+  load_tile<DP, kK>(k_s, k.head(b, h), k.s, 0, k0, nkeys, D);
+  load_tile<DP, kK>(v_s, v.head(b, h), v.s, 0, k0, nkeys, D);
+  const bf16* kw_s = k_s + warp * 16 * kPitch;
+  const bf16* vw_s = v_s + warp * 16 * kPitch;
+
+  float dka[DP / 8][4], dva[DP / 8][4];
+#pragma unroll
+  for (int n = 0; n < DP / 8; ++n)
+#pragma unroll
+    for (int j = 0; j < 4; ++j) dka[n][j] = dva[n][j] = 0.f;
+  // causal: no query before the block's first key attends to its keys
+  for (int q0 = causal ? k0 : 0; q0 < Sq; q0 += kQ) {
+    const int nq = min(kQ, Sq - q0);
+    __syncthreads();
+    load_tile<DP, kQ>(q_s, qb, q.s, 0, q0, nq, D);
+    load_tile<DP, kQ>(do_s, gb, g.s, 0, q0, nq, D);
+    for (int i = threadIdx.x; i < kQ; i += kThreads) {
+      lse_s[i] = i < nq ? lse[bh * Sq + q0 + i] : 0.f;
+      d_s[i] = i < nq ? delta[bh * Sq + q0 + i] : 0.f;
+    }
+    __syncthreads();
+#pragma unroll 1
+    for (int qs = 0; qs < kQ; qs += kSub) {
+      // warp-uniform: every query of the half is past Sq, or (causal)
+      // before the warp's first key
+      const bool skip = warp_idle || q0 + qs >= Sq ||
+                        (causal && q0 + qs + kSub - 1 < warp_k0);
+      if (skip) {
+        if (kDQ)  // its dS^T is 0
+          for (int i = lane; i < 16 * kSub / 2; i += 32)
+            *reinterpret_cast<uint32_t*>(
+                ds_s + (warp * 16 + i / (kSub / 2)) * kDsPitch + qs +
+                2 * (i % (kSub / 2))) = 0u;
+        continue;
+      }
+      // P^T: element j of s[n] is (key key_lo + 8 (j / 2), query qs + 8n +
+      // 2 (lane % 4) + j % 2 of the tile)
+      float s[NT][4];
+      score_tile_s<DP, NT>(s, kw_s, q_s + qs * kPitch, lane);
+#pragma unroll
+      for (int n = 0; n < NT; ++n)
+#pragma unroll
+        for (int j = 0; j < 4; ++j) {
+          const int key = key_lo + 8 * (j >> 1);
+          const int qq = qs + 8 * n + 2 * (lane & 3) + (j & 1);
+          const bool ok = key < Sk && q0 + qq < Sq &&
+                          (!causal || key <= q0 + qq);
+          s[n][j] = ok ? expf(s[n][j] * scale - lse_s[qq]) : 0.f;
+        }
+      // dV += bf16(P^T) dO
+      uint32_t a[NT / 2][4];
+      to_a_frags<NT>(a, s);
+      mma_rows<DP, NT / 2>(dva, a, do_s + qs * kPitch, lane);
+      // dP^T = V dO^T, dS^T = P^T (dP^T - delta) scale, dK += bf16(dS^T) Q
+      float dp[NT][4];
+      score_tile_s<DP, NT>(dp, vw_s, do_s + qs * kPitch, lane);
+#pragma unroll
+      for (int n = 0; n < NT; ++n)
+#pragma unroll
+        for (int j = 0; j < 4; ++j) {
+          const int qq = qs + 8 * n + 2 * (lane & 3) + (j & 1);
+          dp[n][j] = s[n][j] * (dp[n][j] - d_s[qq]) * scale;
+        }
+      to_a_frags<NT>(a, dp);
+      mma_rows<DP, NT / 2>(dka, a, q_s + qs * kPitch, lane);
+      if (kDQ)
+#pragma unroll
+        for (int kc = 0; kc < NT / 2; ++kc)
+#pragma unroll
+          for (int i = 0; i < 4; ++i) {
+            const int key = warp * 16 + (lane >> 2) + 8 * (i & 1);
+            const int qq = qs + 16 * kc + 8 * (i >> 1) + 2 * (lane & 3);
+            *reinterpret_cast<uint32_t*>(ds_s + key * kDsPitch + qq) =
+                a[kc][i];
+          }
+    }
+    if (kDQ) {
+      // dQ of the tile's 64 queries, 16 a warp: dS (from the staged dS^T,
+      // transposed by ldmatrix) times the block's keys
+      __syncthreads();
+      const int qw = warp * 16;
+      if (q0 + qw < Sq) {  // warp-uniform
+        uint32_t a[kK / 16][4];
+#pragma unroll
+        for (int kc = 0; kc < kK / 16; ++kc) {
+          const int mat = lane >> 3;
+          ldmatrix_x4_trans(a[kc], ds_s + (kc * 16 + (lane & 7) +
+                                           (mat >> 1) * 8) * kDsPitch +
+                                       qw + (mat & 1) * 8);
+        }
+        float dq[DP / 8][4];
+#pragma unroll
+        for (int n = 0; n < DP / 8; ++n)
+#pragma unroll
+          for (int j = 0; j < 4; ++j) dq[n][j] = 0.f;
+        mma_rows<DP, kK / 16>(dq, a, k_s, lane);
+#pragma unroll
+        for (int half = 0; half < 2; ++half) {
+          const int row = q0 + qw + (lane >> 2) + 8 * half;
+          if (row >= Sq) continue;
+          float* dst = dq_row(dq_acc, b, row, h, H, Sq, D);
+#pragma unroll
+          for (int n = 0; n < DP / 8; ++n) {
+            const int d = 8 * n + 2 * (lane & 3);
+            if (d < D) {
+              atomicAdd(dst + d, dq[n][2 * half]);
+              atomicAdd(dst + d + 1, dq[n][2 * half + 1]);
+            }
+          }
+        }
+      }
+    }
+  }
+
+#pragma unroll
+  for (int half = 0; half < 2; ++half) {
+    const int key = key_lo + 8 * half;
+    if (key >= Sk) continue;
+    bf16* dk_row = dk.head(b, h) + (long)key * dk.s;
+    bf16* dv_row = dv.head(b, h) + (long)key * dv.s;
+#pragma unroll
+    for (int n = 0; n < DP / 8; ++n) {
+      const int d = 8 * n + 2 * (lane & 3);
+      if (d < D) {
+        *reinterpret_cast<uint32_t*>(dk_row + d) =
+            pack_bf16(dka[n][2 * half], dka[n][2 * half + 1]);
+        *reinterpret_cast<uint32_t*>(dv_row + d) =
+            pack_bf16(dva[n][2 * half], dva[n][2 * half + 1]);
+      }
+    }
+  }
+}
+
+// dQ of 64 queries (see the file's note).
+template <int DP>
+__global__ void __launch_bounds__(kThreads)
+bwd_dq(View<const bf16> q, View<const bf16> k, View<const bf16> v,
+       View<const bf16> g, const float* __restrict__ lse,
+       const float* __restrict__ delta, View<bf16> dq, int H, int Sq, int Sk,
+       int D, float scale, int causal) {
+  constexpr int kPitch = DP + 8, NT = kSub / 8;
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  bf16* q_s = reinterpret_cast<bf16*>(smem_raw);  // [kQ][kPitch]
+  bf16* do_s = q_s + kQ * kPitch;                  // [kQ][kPitch]
+  bf16* k_s = do_s + kQ * kPitch;                  // [kK][kPitch]
+  bf16* v_s = k_s + kK * kPitch;                   // [kK][kPitch]
+
+  const int b = blockIdx.z, h = blockIdx.y, q0 = blockIdx.x * kQ;
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  const long bh = (long)b * H + h;
+  const bf16* kb = k.head(b, h);
+  const bf16* vb = v.head(b, h);
+  const int nq = min(kQ, Sq - q0);
+  const int nk = causal ? min(Sk, q0 + kQ) : Sk;
+  const int row_lo = q0 + warp * 16 + (lane >> 2);  // rows row_lo, row_lo + 8
+  const int warp_last = q0 + warp * 16 + 15;
+  const bool warp_idle = q0 + warp * 16 >= Sq;
+
+  load_tile<DP, kQ>(q_s, q.head(b, h), q.s, 0, q0, nq, D);
+  load_tile<DP, kQ>(do_s, g.head(b, h), g.s, 0, q0, nq, D);
+  const bf16* qw_s = q_s + warp * 16 * kPitch;
+  const bf16* dow_s = do_s + warp * 16 * kPitch;
+  float lse_r[2], dl[2];
+#pragma unroll
+  for (int half = 0; half < 2; ++half) {
+    const int row = row_lo + 8 * half;
+    lse_r[half] = row < Sq ? lse[bh * Sq + row] : 0.f;
+    dl[half] = row < Sq ? delta[bh * Sq + row] : 0.f;
+  }
+  float acc[DP / 8][4];
+#pragma unroll
+  for (int n = 0; n < DP / 8; ++n)
+#pragma unroll
+    for (int j = 0; j < 4; ++j) acc[n][j] = 0.f;
+  for (int t0 = 0; t0 < nk; t0 += kK) {
+    const int nt = min(kK, nk - t0);
+    __syncthreads();
+    load_tile<DP, kK>(k_s, kb, k.s, 0, t0, nt, D);
+    load_tile<DP, kK>(v_s, vb, v.s, 0, t0, nt, D);
+    __syncthreads();
+#pragma unroll
+    for (int hk = 0; hk < kK; hk += kSub) {
+      const int t = t0 + hk;
+      // warp-uniform: keys [t, t + kSub) hold nothing the warp's rows see
+      if (warp_idle || t >= nk || (causal && t > warp_last)) continue;
+      float s[NT][4], dp[NT][4];
+      score_tile_s<DP, NT>(s, qw_s, k_s + hk * kPitch, lane);
+      score_tile_s<DP, NT>(dp, dow_s, v_s + hk * kPitch, lane);
+#pragma unroll
+      for (int n = 0; n < NT; ++n)
+#pragma unroll
+        for (int j = 0; j < 4; ++j) {
+          const int key = t + 8 * n + 2 * (lane & 3) + (j & 1);
+          const int half = j >> 1;
+          const bool ok = key < Sk && (!causal || key <= row_lo + 8 * half);
+          const float p = ok ? expf(s[n][j] * scale - lse_r[half]) : 0.f;
+          dp[n][j] = p * (dp[n][j] - dl[half]) * scale;
+        }
+      uint32_t a[NT / 2][4];
+      to_a_frags<NT>(a, dp);
+      mma_rows<DP, NT / 2>(acc, a, k_s + hk * kPitch, lane);
+    }
+  }
+
+#pragma unroll
+  for (int half = 0; half < 2; ++half) {
+    const int row = row_lo + 8 * half;
+    if (row >= Sq) continue;
+    bf16* dst = dq.head(b, h) + (long)row * dq.s;
+#pragma unroll
+    for (int n = 0; n < DP / 8; ++n) {
+      const int d = 8 * n + 2 * (lane & 3);
+      if (d < D)
+        *reinterpret_cast<uint32_t*>(dst + d) =
+            pack_bf16(acc[n][2 * half], acc[n][2 * half + 1]);
+    }
+  }
+}
+
+template <int DP>
+cudaError_t launch_fwd(View<const bf16> q, View<const bf16> k,
+                       View<const bf16> v, View<bf16> o, float* lse, int B,
+                       int H, int Sq, int Sk, int D, float scale, int causal,
+                       cudaStream_t st) {
+  constexpr int kSmem = fwd_smem_bytes(DP);
+  const cudaError_t e = allow_smem(fwd<DP>, kSmem);
+  if (e != cudaSuccess) return e;
+  fwd<DP><<<dim3((Sq + kQ - 1) / kQ, H, B), kThreads, kSmem, st>>>(
+      q, k, v, o, lse, H, Sq, Sk, D, scale, causal);
+  return cudaGetLastError();
+}
+
+template <int DP, bool kDQ>
+cudaError_t launch_kv(View<const bf16> q, View<const bf16> k,
+                      View<const bf16> v, View<const bf16> g,
+                      const float* lse, const float* delta, View<bf16> dk,
+                      View<bf16> dv, float* dq_acc, int B, int H, int Sq,
+                      int Sk, int D, float scale, int causal,
+                      cudaStream_t st) {
+  constexpr int kSmem = kv_smem_bytes(DP, kDQ);
+  const cudaError_t e = allow_smem(bwd_kv<DP, kDQ>, kSmem);
+  if (e != cudaSuccess) return e;
+  bwd_kv<DP, kDQ><<<dim3((Sk + kK - 1) / kK, H, B), kThreads, kSmem, st>>>(
+      q, k, v, g, lse, delta, dk, dv, dq_acc, H, Sq, Sk, D, scale, causal);
+  return cudaGetLastError();
+}
+
+template <int DP>
+cudaError_t launch_fused(View<const bf16> q, View<const bf16> k,
+                         View<const bf16> v, View<const bf16> g,
+                         const float* lse, const float* delta, View<bf16> dk,
+                         View<bf16> dv, float* dq_acc, int B, int H, int Sq,
+                         int Sk, int D, float scale, int causal,
+                         cudaStream_t st) {
+  return launch_kv<DP, true>(q, k, v, g, lse, delta, dk, dv, dq_acc, B, H, Sq,
+                             Sk, D, scale, causal, st);
+}
+
+template <int DP>
+cudaError_t launch_dkv(View<const bf16> q, View<const bf16> k,
+                       View<const bf16> v, View<const bf16> g,
+                       const float* lse, const float* delta, View<bf16> dk,
+                       View<bf16> dv, float* dq_acc, int B, int H, int Sq,
+                       int Sk, int D, float scale, int causal,
+                       cudaStream_t st) {
+  return launch_kv<DP, false>(q, k, v, g, lse, delta, dk, dv, dq_acc, B, H,
+                              Sq, Sk, D, scale, causal, st);
+}
+
+template <int DP>
+cudaError_t launch_dq(View<const bf16> q, View<const bf16> k,
+                      View<const bf16> v, View<const bf16> g,
+                      const float* lse, const float* delta, View<bf16> dq,
+                      int B, int H, int Sq, int Sk, int D, float scale,
+                      int causal, cudaStream_t st) {
+  constexpr int kSmem = dq_smem_bytes(DP);
+  const cudaError_t e = allow_smem(bwd_dq<DP>, kSmem);
+  if (e != cudaSuccess) return e;
+  bwd_dq<DP><<<dim3((Sq + kQ - 1) / kQ, H, B), kThreads, kSmem, st>>>(
+      q, k, v, g, lse, delta, dq, H, Sq, Sk, D, scale, causal);
+  return cudaGetLastError();
+}
+
+cudaError_t dispatch_fwd(View<const bf16> q, View<const bf16> k,
+                         View<const bf16> v, View<bf16> o, float* lse, int B,
+                         int H, int Sq, int Sk, int D, float scale, int causal,
+                         cudaStream_t st) {
+  MCT_TC_DISPATCH(launch_fwd, D, q, k, v, o, lse, B, H, Sq, Sk, D, scale,
+                  causal, st)
+}
+
+cudaError_t dispatch_fused(View<const bf16> q, View<const bf16> k,
+                           View<const bf16> v, View<const bf16> g,
+                           const float* lse, const float* delta,
+                           View<bf16> dk, View<bf16> dv, float* dq_acc, int B,
+                           int H, int Sq, int Sk, int D, float scale,
+                           int causal, cudaStream_t st) {
+  MCT_TC_DISPATCH(launch_fused, D, q, k, v, g, lse, delta, dk, dv, dq_acc, B,
+                  H, Sq, Sk, D, scale, causal, st)
+}
+
+cudaError_t dispatch_dkv(View<const bf16> q, View<const bf16> k,
+                         View<const bf16> v, View<const bf16> g,
+                         const float* lse, const float* delta, View<bf16> dk,
+                         View<bf16> dv, int B, int H, int Sq, int Sk, int D,
+                         float scale, int causal, cudaStream_t st) {
+  MCT_TC_DISPATCH(launch_dkv, D, q, k, v, g, lse, delta, dk, dv, nullptr, B,
+                  H, Sq, Sk, D, scale, causal, st)
+}
+
+cudaError_t dispatch_dq(View<const bf16> q, View<const bf16> k,
+                        View<const bf16> v, View<const bf16> g,
+                        const float* lse, const float* delta, View<bf16> dq,
+                        int B, int H, int Sq, int Sk, int D, float scale,
+                        int causal, cudaStream_t st) {
+  MCT_TC_DISPATCH(launch_dq, D, q, k, v, g, lse, delta, dq, B, H, Sq, Sk, D,
+                  scale, causal, st)
+}
+
+}  // namespace tc
+
+bool valid_shape(int B, int H, int Sq, int Sk, int D) {
+  return B >= 1 && B <= 65535 && H >= 1 && H <= 65535 && Sq >= 1 &&
+         Sk >= 1 && D >= 1 && D <= kMaxD;
+}
+
+template <typename T>
+View<T> view(const void* p, long long b, long long h, long long s) {
+  return View<T>{static_cast<T*>(const_cast<void*>(p)), (long)b, (long)h,
+                 (long)s};
+}
+
+// Whether the bf16 operands take the tensor-core kernels.
+bool use_tc(int D, std::initializer_list<const void*> ptrs,
+            std::initializer_list<long long> strides) {
+  if (!mct::tc::eligible(D, ptrs, {})) return false;
+  for (long long s : strides)
+    if (s % 8 != 0) return false;
+  return true;
+}
+
+using bf16 = __nv_bfloat16;
+
+}  // namespace
+
+// Each operand is a pointer and the element strides of its batch, head and
+// sequence axes (D contiguous); lse, delta [B, H, Sq] fp32 contiguous. Each
+// function launches on `stream` and returns the launch's cudaError_t (0 on
+// success).
+#define MCT_VIEW_ARGS(x) \
+  const void *x, long long x##_b, long long x##_h, long long x##_s
+#define MCT_VIEW(T, x) view<T>(x, x##_b, x##_h, x##_s)
+#define MCT_STRIDES(x) x##_b, x##_h, x##_s
+
+// Forward: out and lse.
+extern "C" int mct_flash_fwd(MCT_VIEW_ARGS(q), MCT_VIEW_ARGS(k),
+                             MCT_VIEW_ARGS(v), MCT_VIEW_ARGS(o), void* lse,
+                             int B, int H, int Sq, int Sk, int D, float scale,
+                             int causal, int dtype, void* stream) {
+  if (!valid_shape(B, H, Sq, Sk, D)) return (int)cudaErrorInvalidValue;
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  float* l = static_cast<float*>(lse);
+  if (dtype == mct::kFloat32)
+    return (int)simt::launch_fwd<float>(
+        MCT_VIEW(const float, q), MCT_VIEW(const float, k),
+        MCT_VIEW(const float, v), MCT_VIEW(float, o), l, B, H, Sq, Sk, D,
+        scale, causal, st);
+  if (dtype != mct::kBFloat16) return (int)cudaErrorInvalidValue;
+  if (use_tc(D, {q, k, v, o},
+             {MCT_STRIDES(q), MCT_STRIDES(k), MCT_STRIDES(v), MCT_STRIDES(o)}))
+    return (int)tc::dispatch_fwd(MCT_VIEW(const bf16, q),
+                                 MCT_VIEW(const bf16, k),
+                                 MCT_VIEW(const bf16, v), MCT_VIEW(bf16, o), l,
+                                 B, H, Sq, Sk, D, scale, causal, st);
+  return (int)simt::launch_fwd<bf16>(
+      MCT_VIEW(const bf16, q), MCT_VIEW(const bf16, k),
+      MCT_VIEW(const bf16, v), MCT_VIEW(bf16, o), l, B, H, Sq, Sk, D, scale,
+      causal, st);
+}
+
+// Fused backward: dk and dv, and dQ added into dq_acc, an fp32 [B, Sq, H, D]
+// buffer the caller has zeroed. One launch.
+extern "C" int mct_flash_bwd_fused(MCT_VIEW_ARGS(q), MCT_VIEW_ARGS(k),
+                                   MCT_VIEW_ARGS(v), MCT_VIEW_ARGS(g),
+                                   const void* lse, const void* delta,
+                                   MCT_VIEW_ARGS(dk), MCT_VIEW_ARGS(dv),
+                                   void* dq_acc, int B, int H, int Sq, int Sk,
+                                   int D, float scale, int causal, int dtype,
+                                   void* stream) {
+  if (!valid_shape(B, H, Sq, Sk, D) || dq_acc == nullptr)
+    return (int)cudaErrorInvalidValue;
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  const float* l = static_cast<const float*>(lse);
+  const float* dl = static_cast<const float*>(delta);
+  float* acc = static_cast<float*>(dq_acc);
+  if (dtype == mct::kFloat32)
+    return (int)simt::launch_kv<float, true>(
+        MCT_VIEW(const float, q), MCT_VIEW(const float, k),
+        MCT_VIEW(const float, v), MCT_VIEW(const float, g), l, dl,
+        MCT_VIEW(float, dk), MCT_VIEW(float, dv), acc, B, H, Sq, Sk, D, scale,
+        causal, st);
+  if (dtype != mct::kBFloat16) return (int)cudaErrorInvalidValue;
+  if (use_tc(D, {q, k, v, g, dk, dv},
+             {MCT_STRIDES(q), MCT_STRIDES(k), MCT_STRIDES(v), MCT_STRIDES(g),
+              MCT_STRIDES(dk), MCT_STRIDES(dv)}))
+    return (int)tc::dispatch_fused(
+        MCT_VIEW(const bf16, q), MCT_VIEW(const bf16, k),
+        MCT_VIEW(const bf16, v), MCT_VIEW(const bf16, g), l, dl,
+        MCT_VIEW(bf16, dk), MCT_VIEW(bf16, dv), acc, B, H, Sq, Sk, D, scale,
+        causal, st);
+  return (int)simt::launch_kv<bf16, true>(
+      MCT_VIEW(const bf16, q), MCT_VIEW(const bf16, k),
+      MCT_VIEW(const bf16, v), MCT_VIEW(const bf16, g), l, dl,
+      MCT_VIEW(bf16, dk), MCT_VIEW(bf16, dv), acc, B, H, Sq, Sk, D, scale,
+      causal, st);
+}
+
+// Split backward, dQ: one launch, no atomics.
+extern "C" int mct_flash_bwd_dq(MCT_VIEW_ARGS(q), MCT_VIEW_ARGS(k),
+                                MCT_VIEW_ARGS(v), MCT_VIEW_ARGS(g),
+                                const void* lse, const void* delta,
+                                MCT_VIEW_ARGS(dq), int B, int H, int Sq,
+                                int Sk, int D, float scale, int causal,
+                                int dtype, void* stream) {
+  if (!valid_shape(B, H, Sq, Sk, D)) return (int)cudaErrorInvalidValue;
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  const float* l = static_cast<const float*>(lse);
+  const float* dl = static_cast<const float*>(delta);
+  if (dtype == mct::kFloat32)
+    return (int)simt::launch_dq<float>(
+        MCT_VIEW(const float, q), MCT_VIEW(const float, k),
+        MCT_VIEW(const float, v), MCT_VIEW(const float, g), l, dl,
+        MCT_VIEW(float, dq), B, H, Sq, Sk, D, scale, causal, st);
+  if (dtype != mct::kBFloat16) return (int)cudaErrorInvalidValue;
+  if (use_tc(D, {q, k, v, g, dq},
+             {MCT_STRIDES(q), MCT_STRIDES(k), MCT_STRIDES(v), MCT_STRIDES(g),
+              MCT_STRIDES(dq)}))
+    return (int)tc::dispatch_dq(MCT_VIEW(const bf16, q),
+                                MCT_VIEW(const bf16, k),
+                                MCT_VIEW(const bf16, v),
+                                MCT_VIEW(const bf16, g), l, dl,
+                                MCT_VIEW(bf16, dq), B, H, Sq, Sk, D, scale,
+                                causal, st);
+  return (int)simt::launch_dq<bf16>(
+      MCT_VIEW(const bf16, q), MCT_VIEW(const bf16, k),
+      MCT_VIEW(const bf16, v), MCT_VIEW(const bf16, g), l, dl,
+      MCT_VIEW(bf16, dq), B, H, Sq, Sk, D, scale, causal, st);
+}
+
+// Split backward, dK and dV: one launch, no atomics.
+extern "C" int mct_flash_bwd_dkv(MCT_VIEW_ARGS(q), MCT_VIEW_ARGS(k),
+                                 MCT_VIEW_ARGS(v), MCT_VIEW_ARGS(g),
+                                 const void* lse, const void* delta,
+                                 MCT_VIEW_ARGS(dk), MCT_VIEW_ARGS(dv), int B,
+                                 int H, int Sq, int Sk, int D, float scale,
+                                 int causal, int dtype, void* stream) {
+  if (!valid_shape(B, H, Sq, Sk, D)) return (int)cudaErrorInvalidValue;
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  const float* l = static_cast<const float*>(lse);
+  const float* dl = static_cast<const float*>(delta);
+  if (dtype == mct::kFloat32)
+    return (int)simt::launch_kv<float, false>(
+        MCT_VIEW(const float, q), MCT_VIEW(const float, k),
+        MCT_VIEW(const float, v), MCT_VIEW(const float, g), l, dl,
+        MCT_VIEW(float, dk), MCT_VIEW(float, dv), nullptr, B, H, Sq, Sk, D,
+        scale, causal, st);
+  if (dtype != mct::kBFloat16) return (int)cudaErrorInvalidValue;
+  if (use_tc(D, {q, k, v, g, dk, dv},
+             {MCT_STRIDES(q), MCT_STRIDES(k), MCT_STRIDES(v), MCT_STRIDES(g),
+              MCT_STRIDES(dk), MCT_STRIDES(dv)}))
+    return (int)tc::dispatch_dkv(
+        MCT_VIEW(const bf16, q), MCT_VIEW(const bf16, k),
+        MCT_VIEW(const bf16, v), MCT_VIEW(const bf16, g), l, dl,
+        MCT_VIEW(bf16, dk), MCT_VIEW(bf16, dv), B, H, Sq, Sk, D, scale,
+        causal, st);
+  return (int)simt::launch_kv<bf16, false>(
+      MCT_VIEW(const bf16, q), MCT_VIEW(const bf16, k),
+      MCT_VIEW(const bf16, v), MCT_VIEW(const bf16, g), l, dl,
+      MCT_VIEW(bf16, dk), MCT_VIEW(bf16, dv), nullptr, B, H, Sq, Sk, D, scale,
+      causal, st);
+}

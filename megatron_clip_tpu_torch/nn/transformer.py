@@ -9,7 +9,10 @@ run by a Python loop. Parameter names mirror the JAX pytree
 
 Initialisation follows open_CLIP's scheme: attn_std = width**-0.5,
 proj_std = width**-0.5 * (2*layers)**-0.5, fc_std = (2*width)**-0.5, zero
-biases. Each block's forward is ln_1 -> attn -> (+) -> ln_2 -> mlp -> (+).
+biases; with `cfg.init_std` set, megatron's: attn_std = fc_std = init_std,
+proj_std = init_std / sqrt(2*layers). Without `cfg.use_bias` the linears
+have no biases. Each block's forward is ln_1 -> attn -> (+) -> ln_2 -> mlp
+-> (+).
 """
 from typing import Optional
 
@@ -42,24 +45,28 @@ class ResidualBlock(nn.Module):
         super().__init__()
         self.cfg = cfg
         w, hidden = cfg.width, cfg.mlp_hidden
-        proj_std = (w ** -0.5) * ((2 * cfg.layers) ** -0.5)
-        attn_std = w ** -0.5
-        fc_std = (2 * w) ** -0.5
+        if cfg.init_std is not None:
+            attn_std = fc_std = cfg.init_std
+            proj_std = cfg.init_std * ((2 * cfg.layers) ** -0.5)
+        else:
+            proj_std = (w ** -0.5) * ((2 * cfg.layers) ** -0.5)
+            attn_std = w ** -0.5
+            fc_std = (2 * w) ** -0.5
         qkv_out = 3 * cfg.heads * cfg.head_dim
+        attn = {"wqkv": normal_param((w, qkv_out), attn_std, generator),
+                "wo": normal_param((cfg.heads * cfg.head_dim, w), proj_std,
+                                   generator)}
+        mlp = {"w1": normal_param((w, hidden), fc_std, generator),
+               "w2": normal_param((hidden, w), proj_std, generator)}
+        if cfg.use_bias:
+            attn.update(bqkv=nn.Parameter(torch.zeros(qkv_out)),
+                        bo=nn.Parameter(torch.zeros(w)))
+            mlp.update(b1=nn.Parameter(torch.zeros(hidden)),
+                       b2=nn.Parameter(torch.zeros(w)))
         self.ln_1 = layer_norm_params(w)
-        self.attn = nn.ParameterDict({
-            "wqkv": normal_param((w, qkv_out), attn_std, generator),
-            "bqkv": nn.Parameter(torch.zeros(qkv_out)),
-            "wo": normal_param((cfg.heads * cfg.head_dim, w), proj_std, generator),
-            "bo": nn.Parameter(torch.zeros(w)),
-        })
+        self.attn = nn.ParameterDict(attn)
         self.ln_2 = layer_norm_params(w)
-        self.mlp = nn.ParameterDict({
-            "w1": normal_param((w, hidden), fc_std, generator),
-            "b1": nn.Parameter(torch.zeros(hidden)),
-            "w2": normal_param((hidden, w), proj_std, generator),
-            "b2": nn.Parameter(torch.zeros(w)),
-        })
+        self.mlp = nn.ParameterDict(mlp)
 
     def forward(self, x: torch.Tensor, causal: bool = False,
                 save_probs: bool = True) -> torch.Tensor:
@@ -69,8 +76,9 @@ class ResidualBlock(nn.Module):
         x = x + multi_head_attention(h, self.attn, self.cfg.heads,
                                      causal=causal, save_probs=save_probs)
         h = apply_norm(self.ln_2, x)
-        h = get_act(self.cfg.act)(dense(h, self.mlp["w1"], self.mlp["b1"]))
-        return x + dense(h, self.mlp["w2"], self.mlp["b2"])
+        h = get_act(self.cfg.act)(dense(h, self.mlp["w1"],
+                                        self.mlp.get("b1")))
+        return x + dense(h, self.mlp["w2"], self.mlp.get("b2"))
 
 
 class Transformer(nn.ModuleList):

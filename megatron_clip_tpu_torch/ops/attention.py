@@ -1,17 +1,27 @@
 """Attention ops.
 
 Counterpart of `megatron_clip_tpu/ops/attention.py`. `sdpa` is the plain
-oracle; `multi_head_attention` runs the fused short-sequence path (the packed
-QKV GEMM, the fused attention kernels, forward and, under autograd,
-backward, the output GEMM) under the same gate as the JAX package.
-Everything outside that gate belongs to later slices of the port and raises
-NotImplementedError naming its ROADMAP item.
+oracle; `multi_head_attention` runs the packed QKV GEMM, then the fused
+short-sequence attention kernels (S <= 1024) or the flash-attention kernels
+(above that), forward and, under autograd, backward, then
+the output GEMM, under the same gates and in the same order as the JAX
+package. Everything outside those gates belongs to later slices of the port
+and raises NotImplementedError naming its ROADMAP item.
+
+The JAX package's flash path projects straight into [B, H, S, D] so that
+the head split costs no copy; here the flash kernels read the heads of the
+packed [B, S, 3*H*D] projection in place and write the packed gradient, the
+same saving. In bf16 the packed projection rounds once where the JAX BHSD
+projection rounds the product and then adds the bias (ROADMAP Queue C,
+`ops/dense.py`).
 """
 from typing import Optional
 
 import torch
 
 from megatron_clip_tpu_torch.ops.dense import dense
+from megatron_clip_tpu_torch.ops.kernels.flash_attention import (
+    flash_attention_qkv)
 from megatron_clip_tpu_torch.ops.kernels.fused_mha import (
     MAX_FUSED_SEQ, MAX_HEAD_DIM, fused_mha)
 
@@ -52,9 +62,10 @@ def multi_head_attention(x: torch.Tensor, params, heads: int, *,
     x: [B, S, W]. params: mapping with 'wqkv' [W, 3*H*D], 'wo' [H*D, W] (the
     JAX [in, out] layout, applied as x @ w) and optional 'bqkv', 'bo'.
     Weights are cast to x's dtype at use (see `ops/dense.py`).
-    `save_probs` picks the attention's backward under autograd: from the
-    saved probabilities (the JAX default, `MCT_MHA_SAVE_PROBS=1`) or
-    recomputing them (`MCT_MHA_SAVE_PROBS=0`); see `fused_mha`."""
+    `save_probs` picks the fused attention's backward under autograd: from
+    the saved probabilities (the JAX default, `MCT_MHA_SAVE_PROBS=1`) or
+    recomputing them (`MCT_MHA_SAVE_PROBS=0`); see `fused_mha`. The flash
+    path (S > 1024) saves (q, k, v, out, lse) and recomputes P."""
     if kv is not None:
         _not_in_slice("kv= cross-attention", "Queue A: other models (CoCa)")
     if bias is not None:
@@ -69,9 +80,15 @@ def multi_head_attention(x: torch.Tensor, params, heads: int, *,
         _not_in_slice("context parallelism", "Queue A: parallelism")
     s = x.shape[1]
     head_dim = params["wqkv"].shape[1] // (3 * heads)
-    if not use_flash or s > MAX_FUSED_SEQ or head_dim > MAX_HEAD_DIM:
-        _not_in_slice(f"the flash/unfused path (S={s}, head_dim={head_dim}, "
-                      f"use_flash={use_flash})", "Queue B: flash_attention")
+    # the JAX package's gates: fused MHA up to MAX_FUSED_SEQ, flash from
+    # its MIN_FLASH_SEQ = 256 on, which every longer sequence passes; both
+    # need head_dim <= 128, and the rest goes to sdpa_bshd
+    if not use_flash or head_dim > MAX_HEAD_DIM:
+        _not_in_slice(f"the unfused sdpa path (S={s}, head_dim={head_dim}, "
+                      f"use_flash={use_flash})", "Queue A: sdpa_bshd")
     qkv = dense(x, params["wqkv"], params.get("bqkv"))
-    out = fused_mha(qkv, heads, causal=causal, save_probs=save_probs)
+    if s <= MAX_FUSED_SEQ:
+        out = fused_mha(qkv, heads, causal=causal, save_probs=save_probs)
+    else:
+        out = flash_attention_qkv(qkv, heads, causal=causal)
     return dense(out, params["wo"], params.get("bo"))

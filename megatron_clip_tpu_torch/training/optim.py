@@ -8,6 +8,10 @@ the same parameters:
   clip_by_global_norm -> scale_by_adam -> add_decayed_weights (masked)
   -> scale_by_learning_rate (-lr(count), count from 0) -> apply_updates.
 
+With `decay_mask=False` every parameter decays: `optax.adamw` with its
+defaults and no mask, bench.py's GPT recipe (`constant_lr`, weight decay
+1e-4, eps 1e-8).
+
 Each step of that chain rounds where optax does. A Python constant (b1,
 1 - b1, eps, the decay, lr) meets a tensor in the tensor's dtype, as JAX's
 weakly typed scalars do: with bf16 moments b1 acts as 0.8984375. The
@@ -44,6 +48,11 @@ def cosine_lr(base_lr: float, warmup: int, total_steps: int,
     return schedule
 
 
+def constant_lr(lr: float) -> Callable[[int], float]:
+    """A fixed learning rate, as optax takes a float."""
+    return lambda step: lr
+
+
 def _no_decay_mask(params: Mapping[str, torch.Tensor]) -> Dict[str, bool]:
     """True = apply weight decay, as the JAX package's `_no_decay_mask`
     decides on its own pytree: a leaf decays unless it has fewer than two
@@ -72,8 +81,6 @@ def _jax_leaf(name: str) -> str:
 
 
 def _c(x: float, dtype: torch.dtype) -> float:
-
-
     """The Python constant x as a JAX weak scalar meets a `dtype` tensor:
     rounded to that dtype."""
     return float(torch.tensor(x, dtype=torch.float64).to(dtype))
@@ -95,29 +102,33 @@ class AdamW:
     def __init__(self, model: nn.Module, lr: Callable[[int], float], *,
                  beta1: float, beta2: float, eps: float, weight_decay: float,
                  grad_clip_norm: Optional[float],
-                 moment_dtype: Optional[torch.dtype]):
+                 moment_dtype: Optional[torch.dtype],
+                 decay_mask: bool = True):
         self.params = dict(model.named_parameters())
         self.lr = lr
         self.b1, self.b2, self.eps = beta1, beta2, eps
         self.weight_decay = weight_decay
         self.grad_clip_norm = grad_clip_norm
         self.moment_dtype = moment_dtype
-        decay = _no_decay_mask(self.params)
+        decay = (_no_decay_mask(self.params) if decay_mask
+                 else dict.fromkeys(self.params, True))
         groups: Dict[tuple, list] = {}
         for name, p in self.params.items():
             groups.setdefault((p.dtype, decay[name]), []).append(name)
         self.groups = list(groups.items())
-        # global_norm: each parameter's JAX leaf, and which leaves round
-        # their sum of squares to bf16; made here, so that the step does not
-        # copy them to the card
+        # global_norm: each parameter's JAX leaf in the JAX tree's order
+        # (dict keys sorted at every level), which leaves round their sum
+        # of squares to bf16, and whether all do; made here, so that the
+        # step does not copy them to the card
         leaves = {n: _jax_leaf(n) for n in self.params}
-        order = list(dict.fromkeys(leaves.values()))
+        order = sorted(set(leaves.values()), key=lambda k: k.split("."))
         dtypes = {leaves[n]: p.dtype for n, p in self.params.items()}
         device = next(iter(self.params.values())).device
         self._leaf_index = torch.tensor([order.index(leaves[n])
                                          for n in self.params], device=device)
-        self._leaf_bf16 = torch.tensor([dtypes[k] == torch.bfloat16
-                                        for k in order], device=device)
+        bf16 = [dtypes[k] == torch.bfloat16 for k in order]
+        self._leaf_bf16 = torch.tensor(bf16, device=device)
+        self._all_bf16 = all(bf16)
 
     def init(self) -> OptState:
         return OptState(
@@ -129,23 +140,34 @@ class AdamW:
 
     def global_norm(self, grads: Mapping[str, torch.Tensor]) -> torch.Tensor:
         """optax.global_norm of the JAX package's gradient tree, as a 0-d
-        fp32 tensor: the sum over leaves of jnp.sum(g * g), square-rooted.
-        jnp.sum accumulates in fp32 and returns the leaf's dtype, so a bf16
-        leaf's sum is rounded to bf16; the leaves' sums are added in fp32
-        (logit_scale, fp32, is the tree's first leaf). A JAX leaf under
-        `blocks` holds every layer, so the port's per-layer sums of one leaf
-        are added before that rounding. Each leaf's sum is accumulated in
-        fp64 and rounded once to fp32, the correctly rounded fp32 sum, which
-        XLA's fp32 order approaches within its summation error: PyTorch's
-        fp32 norm of a leaf of millions of elements loses digits on the
-        CPU, which would make the CPU and the card disagree on the clip."""
+        fp32 tensor: Python's sum over the leaves, in tree order, of
+        jnp.sum(g * g), square-rooted. jnp.sum accumulates in fp32 and
+        returns the leaf's dtype, so a bf16 leaf's sum is rounded to bf16
+        (its squares are rounded to bf16 there too, which moves the sum by
+        far less than that rounding). Python's sum adds the leaves in the
+        dtype they promote to: in bf16, rounding after every addition, when
+        every leaf is bf16 (a pure-bf16 GPT tree, and its square root too),
+        else in fp32 (the port's other trees are CLIP's, whose first leaf,
+        logit_scale, is fp32). A JAX leaf under `blocks` holds every layer, so the
+        port's per-layer sums of one leaf are added before that rounding.
+        Each leaf's sum is accumulated in fp64 and rounded once to fp32, the
+        correctly rounded fp32 sum, which XLA's fp32 order approaches within
+        its summation error: PyTorch's fp32 norm of a leaf of millions of
+        elements loses digits on the CPU, which would make the CPU and the
+        card disagree on the clip."""
         norms = torch._foreach_norm([grads[n] for n in self.params], 2,
                                     dtype=torch.float64)
         leaf = torch.zeros(len(self._leaf_bf16), dtype=torch.float64,
                            device=self._leaf_bf16.device).index_add_(
             0, self._leaf_index, torch.stack(norms).square()).float()
-        leaf = torch.where(self._leaf_bf16, leaf.bfloat16().float(), leaf)
-        return leaf.sum().sqrt()
+        if not self._all_bf16:
+            leaf = torch.where(self._leaf_bf16, leaf.bfloat16().float(), leaf)
+            return leaf.sum().sqrt()
+        leaf = leaf.bfloat16()
+        total = leaf[0]
+        for x in leaf[1:]:
+            total = total + x
+        return total.sqrt().float()
 
     def _clip(self, grads: Dict[str, torch.Tensor], norm: torch.Tensor):
         """optax.clip_by_global_norm: t -> (t / norm) * max_norm when
@@ -215,11 +237,26 @@ def make_optimizer(model: nn.Module, lr: Callable[[int], float], *,
                    beta1: float = 0.9, beta2: float = 0.98, eps: float = 1e-6,
                    weight_decay: float = 0.2,
                    grad_clip_norm: Optional[float] = None,
-                   moment_dtype: Optional[torch.dtype] = None) -> AdamW:
+                   moment_dtype: Optional[torch.dtype] = None,
+                   decay_mask: bool = True) -> AdamW:
     """AdamW with the CLIP recipe's defaults (open_CLIP: beta2 0.98, eps
-    1e-6, weight decay 0.2), weight decay masked by `_no_decay_mask`,
-    optional global-norm clipping first. `moment_dtype` stores the first
-    moment (optax's mu_dtype); None keeps each parameter's dtype."""
+    1e-6, weight decay 0.2), weight decay masked by `_no_decay_mask` (with
+    `decay_mask=False` every parameter decays), optional
+    global-norm clipping first. `moment_dtype` stores the first moment
+    (optax's mu_dtype); None keeps each parameter's dtype."""
     return AdamW(model, lr, beta1=beta1, beta2=beta2, eps=eps,
                  weight_decay=weight_decay, grad_clip_norm=grad_clip_norm,
-                 moment_dtype=moment_dtype)
+                 moment_dtype=moment_dtype, decay_mask=decay_mask)
+
+
+def make_gpt_optimizer(model: nn.Module, lr: float = 1e-4, *,
+                       grad_clip_norm: Optional[float] = 1.0,
+                       moment_dtype: Optional[torch.dtype] = torch.bfloat16
+                       ) -> AdamW:
+    """bench.py's GPT chain: optax.clip_by_global_norm(1.0), then
+    optax.adamw(lr, b1=0.9, b2=0.95, mu_dtype=bf16) with adamw's defaults
+    (eps 1e-8, weight decay 1e-4, no mask) and a constant learning rate."""
+    return make_optimizer(model, constant_lr(lr), beta1=0.9, beta2=0.95,
+                          eps=1e-8, weight_decay=1e-4,
+                          grad_clip_norm=grad_clip_norm,
+                          moment_dtype=moment_dtype, decay_mask=False)

@@ -1,19 +1,24 @@
-"""The CLIP train step for one process and one microbatch.
+"""The CLIP and GPT train steps for one process and one microbatch.
 
 Counterpart of `megatron_clip_tpu/training/train_step.py` (`TrainState`,
 `make_train_step`) without the mesh, accum-freq, teacher, CoCa and patch
-dropout, which come with their slices. One step: the training forward of
-both towers, the contrastive loss, backward through the attention and
+dropout, which come with their slices. One CLIP step: the training forward
+of both towers, the contrastive loss, backward through the attention and
 LayerNorm kernels, the optimizer update in place, and the post-step clamp of
-logit_scale to [0, ln 100].
+logit_scale to [0, ln 100]. One GPT step (`make_gpt_train_step`) is
+bench.py's `bench_gpt_345m` step: `gpt_loss`, its backward, the clipped
+AdamW update in place.
 
 The metrics stay device tensors: the step itself never waits for the card.
 """
 import dataclasses
 from typing import Callable, Optional
 
+from torch import nn
+
 from megatron_clip_tpu_torch.losses import ClipLoss
 from megatron_clip_tpu_torch.models.clip import CLIPModel, clamp_logit_scale
+from megatron_clip_tpu_torch.models.gpt import GPTModel, gpt_loss
 from megatron_clip_tpu_torch.training.optim import AdamW, OptState
 
 
@@ -21,12 +26,12 @@ from megatron_clip_tpu_torch.training.optim import AdamW, OptState
 class TrainState:
     """The model (its parameters are updated in place), the optimizer state
     and the number of steps taken."""
-    model: CLIPModel
+    model: nn.Module
     opt_state: OptState
     step: int
 
     @classmethod
-    def create(cls, model: CLIPModel, optimizer: AdamW) -> "TrainState":
+    def create(cls, model: nn.Module, optimizer: AdamW) -> "TrainState":
         return cls(model=model, opt_state=optimizer.init(), step=0)
 
 
@@ -57,5 +62,30 @@ def make_train_step(model: CLIPModel, optimizer: AdamW, *,
                    "grad_norm": grad_norm}
         return TrainState(model=state.model, opt_state=opt_state,
                           step=state.step + 1), metrics
+
+    return step
+
+
+def make_gpt_train_step(model: GPTModel, optimizer: AdamW, *,
+                        loss_seq_chunk: int = 0) -> Callable:
+    """Build `step(state, tokens) -> (state, metrics)` for `model`, whose
+    parameters `optimizer` was made for: tokens [B, S+1] integer ids on the
+    model's device, inputs tokens[:, :-1] predicting tokens[:, 1:].
+    metrics: `loss` and `grad_norm` (the global norm before clipping), as
+    0-d device tensors."""
+    params = dict(model.named_parameters())
+
+    def step(state: TrainState, tokens):
+        for p in params.values():
+            p.grad = None
+        loss = gpt_loss(model, tokens, loss_seq_chunk=loss_seq_chunk)
+        loss.backward()
+        grads = {n: p.grad for n, p in params.items()}
+        opt_state, grad_norm = optimizer.update(state.opt_state, grads)
+        for p in params.values():
+            p.grad = None
+        return TrainState(model=state.model, opt_state=opt_state,
+                          step=state.step + 1), {"loss": loss.detach(),
+                                                 "grad_norm": grad_norm}
 
     return step

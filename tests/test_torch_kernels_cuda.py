@@ -29,11 +29,30 @@ version (which recomputes the row statistics itself); the forward's row
 statistics to 1e-4 relative (fp32 sums of up to 1,024 exponentials in
 another order, rescaled per key tile). An S-major view gives every kernel
 the same arithmetic as the contiguous tensor: equal results.
+
+The flash-attention kernels: fp32 against the fp32 plain version 2e-5
+(forward) and 5e-5 (gradients), as tests/test_flash_attention.py holds the
+TPU kernels, with 1e-5 relative for the log-sum-exp (fp32 sums of up to
+8,192 exponentials in another order). bf16 forward against the plain
+version on the same inputs: the kernel rounds P per 64-key tile against
+the running max, the plain version once against the row's max, so each
+term of P.V may differ by one bf16 ulp of P: 2^-8 of the largest |v| plus
+one ulp of the output (rtol 8e-3). bf16 gradients each row by row (one
+query's dQ, one key's dK or dV): the row's error norm within 1e-2 of its
+norm plus 1e-4 of the rms row norm. Under the causal mask the first keys'
+gradients are 100x the typical one's, so a bound scaled by the largest
+|value| would let a fault in most rows through; a dS, P or output rounded
+the other way moves a row by one ulp, at most 2^-7, of one of its terms. The
+fused backward adds dQ with fp32 atomics, whose order changes from run to
+run: on a view its dQ is held to the contiguous run's within 1e-6 relative,
+or in bf16 within two bf16 ulps, since its rounding can fall either way;
+every other output of every kernel must be equal.
 """
 import numpy as np
 import pytest
 import torch
 
+from megatron_clip_tpu_torch.ops.kernels import flash_attention as fa
 from megatron_clip_tpu_torch.ops.kernels.fused_mha import (
     fused_mha, fused_mha_bwd, fused_mha_bwd_plain, fused_mha_bwd_recompute,
     fused_mha_bwd_recompute_plain, fused_mha_fwd, fused_mha_plain)
@@ -312,3 +331,132 @@ def test_layer_norm_autograd_runs_both_kernels(cuda):
         x, (768,), scale, bias, 1e-5), (x, scale, bias), dy)
     for g, w in zip(got, want):
         torch.testing.assert_close(g, w, rtol=1e-4, atol=1e-4)
+
+
+# (B, H, Sq, Sk, D, causal): GPT-345m's heads at a cut batch, ragged and
+# cross lengths (not multiples of the kernels' 64-row tiles), D = 40 (tensor
+# cores, padded to 48), D = 36 (CUDA cores in bf16 too) and D = 128
+FLASH_SHAPES = [(2, 16, 2048, 2048, 64, True), (1, 2, 1100, 1100, 64, True),
+                (1, 2, 4200, 4200, 64, True), (2, 3, 300, 200, 64, True),
+                (2, 3, 200, 300, 64, False), (1, 2, 130, 260, 40, True),
+                (1, 2, 77, 77, 36, True), (1, 1, 64, 64, 128, False)]
+
+
+def _close_rows(got, want, rel=1e-2, floor=1e-4):
+    """Each row (the last axis) within rel of its norm plus floor of the
+    rms row norm."""
+    got, want = got.float().flatten(0, -2), want.float().flatten(0, -2)
+    norms = want.norm(dim=-1)
+    bound = rel * norms + floor * norms.square().mean().sqrt()
+    err = (got - want).norm(dim=-1)
+    assert bool((err <= bound).all()), float((err / bound).max())
+
+
+def _flash_inputs(cuda, dtype, b, h, sq, sk, d, seed=9):
+    gen = torch.Generator().manual_seed(seed)
+    return [torch.randn(b, h, s, d, generator=gen).to(cuda, dtype)
+            for s in (sq, sk, sk, sq)]
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("b,h,sq,sk,d,causal", FLASH_SHAPES)
+def test_flash_kernels_match_plain(cuda, dtype, b, h, sq, sk, d, causal):
+    q, k, v, do = _flash_inputs(cuda, dtype, b, h, sq, sk, d)
+    scale = d ** -0.5
+    before = fa.flash_fwd.launches
+    out, lse = fa.flash_fwd(q, k, v, causal=causal)
+    assert fa.flash_fwd.launches == before + 1
+    assert out.shape == q.shape and out.dtype == dtype
+    assert out.transpose(1, 2).is_contiguous()
+    want_out, want_lse = fa.flash_fwd_plain(q, k, v, scale, causal)
+    torch.testing.assert_close(lse, want_lse, rtol=1e-5, atol=1e-5)
+    if dtype == torch.float32:
+        torch.testing.assert_close(out, want_out, rtol=2e-5, atol=2e-5)
+    else:
+        torch.testing.assert_close(
+            out.float(), want_out.float(), rtol=8e-3,
+            atol=2 ** -8 * float(v.float().abs().max()))
+    # the backward kernels on the plain forward's out and lse
+    delta = fa.flash_delta(do, want_out)
+    dq = fa.flash_bwd_dq(q, k, v, do, want_lse, delta, causal=causal)
+    dk, dv = fa.flash_bwd_dkv(q, k, v, do, want_lse, delta, causal=causal)
+    fused = fa.flash_bwd_fused(q, k, v, want_out, want_lse, do,
+                               causal=causal)
+    wq = fa.flash_bwd_dq_plain(q, k, v, do, want_lse, delta, scale, causal)
+    wk, wv = fa.flash_bwd_dkv_plain(q, k, v, do, want_lse, delta, scale,
+                                    causal)
+    for got, want in zip((dq, dk, dv, *fused), (wq, wk, wv) * 2):
+        assert got.shape == want.shape and got.dtype == dtype
+        if dtype == torch.float32:
+            torch.testing.assert_close(got, want, rtol=5e-5, atol=5e-5)
+        else:
+            _close_rows(got, want)
+    assert torch.equal(fused[1], dk) and torch.equal(fused[2], dv)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("causal", [False, True])
+def test_flash_kernels_on_packed_views(cuda, dtype, causal):
+    """q, k, v as head views of one [B, S, 3*H*D] projection give what the
+    contiguous tensors give; the gradients land in one packed buffer."""
+    b, s, h, d = 2, 1100, 4, 64
+    gen = torch.Generator().manual_seed(10)
+    qkv = torch.randn(b, s, 3 * h * d, generator=gen).to(cuda, dtype)
+    do = torch.randn(b, h, s, d, generator=gen).to(cuda, dtype)
+    views = qkv.unflatten(-1, (3, h, d)).permute(2, 0, 3, 1, 4).unbind(0)
+    copies = [t.contiguous() for t in views]
+    out_v, lse_v = fa.flash_fwd(*views, causal=causal)
+    out_c, lse_c = fa.flash_fwd(*copies, causal=causal)
+    assert torch.equal(out_v, out_c) and torch.equal(lse_v, lse_c)
+    delta = fa.flash_delta(do, out_c)
+    for kernel in (fa.flash_bwd_dq, fa.flash_bwd_dkv):
+        got = kernel(*views, do, lse_c, delta, causal=causal)
+        want = kernel(*copies, do, lse_c, delta, causal=causal)
+        for g, w in zip(got if isinstance(got, tuple) else (got,),
+                        want if isinstance(want, tuple) else (want,)):
+            assert torch.equal(g, w)
+    dq, dk, dv, packed = fa.flash_bwd(*views, out_c, lse_c, do,
+                                      causal=causal, scale=d ** -0.5)
+    wq, wk, wv = fa.flash_bwd_fused(*copies, out_c, lse_c, do, causal=causal)
+    assert packed.shape == (b, s, 3, h, d) and packed.is_contiguous()
+    assert torch.equal(packed[:, :, 1].transpose(1, 2), wk)
+    assert torch.equal(packed[:, :, 2].transpose(1, 2), wv)
+    # the atomics' fp32 order moves dQ by fp32 ulps, so a bf16 dQ can round
+    # the other way: two bf16 ulps (rtol 1.6e-2)
+    torch.testing.assert_close(
+        packed[:, :, 0].transpose(1, 2).float(), wq.float(), atol=1e-6,
+        rtol=1e-6 if dtype == torch.float32 else 1.6e-2)
+
+
+@pytest.mark.parametrize("s,fused", [(2048, True), (4200, False)])
+def test_flash_autograd_runs_the_jax_packages_backward(cuda, s, fused):
+    b, h, d = 1, 2, 64
+    gen = torch.Generator().manual_seed(11)
+    qkv = torch.randn(b, s, 3 * h * d, generator=gen).to(cuda)
+    qkv.requires_grad_(True)
+    do = torch.randn(b, s, h * d, generator=gen).to(cuda)
+    counters = (fa.flash_fwd, fa.flash_bwd_fused, fa.flash_bwd_dq,
+                fa.flash_bwd_dkv)
+    before = [f.launches for f in counters]
+    (got,) = torch.autograd.grad(fa.flash_attention_qkv(qkv, h, causal=True),
+                                 qkv, do)
+    assert [f.launches - n for f, n in zip(counters, before)] == \
+        ([1, 1, 0, 0] if fused else [1, 0, 1, 1])
+    x = qkv.detach().requires_grad_(True)
+    q, k, v = x.reshape(b, s, 3, h, d).permute(2, 0, 3, 1, 4).unbind(0)
+    ref = torch.softmax((q @ k.transpose(-1, -2)) * d ** -0.5 + torch.full(
+        (s, s), float("-inf"), device=cuda).triu(1), -1) @ v
+    (want,) = torch.autograd.grad(ref.transpose(1, 2).reshape(b, s, -1), x,
+                                  do)
+    torch.testing.assert_close(got, want, rtol=5e-5, atol=5e-5)
+
+
+def test_flash_kernels_refuse_what_they_do_not_take(cuda):
+    q = torch.zeros(1, 2, 300, 64, device=cuda)
+    with pytest.raises(TypeError, match="dtype"):
+        fa.flash_fwd(q.half(), q.half(), q.half())
+    with pytest.raises(ValueError, match="contiguous"):
+        fa.flash_fwd(torch.zeros(1, 2, 300, 128, device=cuda)[..., ::2], q, q)
+    big = torch.zeros(1, 1, 300, 256, device=cuda)
+    with pytest.raises(ValueError, match="range"):
+        fa.flash_fwd(big, big, big)
