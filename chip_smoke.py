@@ -73,9 +73,27 @@ imports nothing of JAX or of the JAX package. Phases, each of which raises
      (batch 1, pretrain_gpt.py --seq-length 8192), 2 + 5 steps through the
      split dQ and dKV backward; every loss finite and the last below the
      first; then one fp32 step at full width (2 layers, batch 1, S = 1280),
-     card against CPU.
+     card against CPU;
+ 10. example GPT: the training path of examples/pretrain_gpt_dist.sh on one
+     card (24 x 1024, 16 heads, S = 2048, vocab 50304, rope, swiglu,
+     rmsnorm, biases and the tied embedding, --fused-ce, bf16 compute on
+     fp32 weights) at batch 8, 2 warm-up and 15 timed steps with bench.py's
+     optimizer chain, every step launching the fused CE forward and
+     backward once, the RMSNorm forward and backward 49 times and the flash
+     forward and fused backward 24 times, the loss falling; one fp32 step
+     of its config with grouped-query attention (4 k/v heads, 2 layers,
+     S = 512), card against CPU; and GPT-345m (phase 9's model and batch)
+     through the fused CE, beside phase 9's chunked run: step times and
+     peak memory of both.
 
-Phases 3 and 6 also hold and time the four flash-attention kernels at the
+Phases 3 and 6 also hold and time the fused lm-head cross entropy (forward;
+the one backward kernel for dX and dW) at full width and vocabulary (T of
+2048 in bf16, 512 in fp32), on the tied and untied head, at a ragged T with
+V = 1000 and at W = 1000 (bf16 rows the tensor cores do not take), with a
+kernel made to leave out the last vocabulary tile failing its bounds, and
+time it at the example's T = 16384 beside F.cross_entropy(x @ w); and the
+RMSNorm kernels at the example's rows. They also hold and time the four
+flash-attention kernels at the
 GPT shapes (B=6 H=16 S=2048 D=64 and B=1 S=8192, both masks), at ragged
 lengths (1100, 4200), with Sq != Sk, and on the packed projection's head
 views, against their plain versions and F.scaled_dot_product_attention
@@ -137,6 +155,17 @@ GPT_SHAPES = tuple((b, s) for b, s, _, _ in GPT_RUNS)
 # the fp32 parity step: full width, 2 layers, one sequence above the fused
 # gate; lr 1e-6 (see gpt_parity)
 GPT_PARITY_LAYERS, GPT_PARITY_SEQ, GPT_PARITY_LR = 2, 1280, 1e-6
+# phase 10: examples/pretrain_gpt_dist.sh's GPT (rope, swiglu, rmsnorm;
+# biases and the tied embedding, pretrain_gpt.py's defaults) at batch 8, the
+# 345m rung's batch of examples/pretrain_gpt_ladder.sh; (batch, S, warm-up
+# steps, timed steps)
+EXAMPLE_GPT = {"position_embedding": "rope", "swiglu": True,
+               "normalization": "rmsnorm"}
+EXAMPLE_RUN = (8, 2048, 2, 15)
+# its fp32 parity step with grouped-query attention (2 layers, 4 k/v heads
+# for 16 query heads), and GPT-345m's timed steps through the fused CE
+GQA_KV_HEADS, GQA_PARITY_SEQ = 4, 512
+FUSED_345M_STEPS = 15
 
 
 def log(msg: str) -> None:
@@ -298,8 +327,35 @@ def ln_bwd_cost(rows: int, w: int, itemsize: int):
     return 3 * rows * w * itemsize + 3 * w * 4, 16 * rows * w
 
 
+def rms_cost(rows: int, w: int, itemsize: int):
+    """Bytes: x read and y written once, the fp32 scale read once.
+    Operations: ~4 fp32 operations per element (square, sum, normalise,
+    scale)."""
+    return 2 * rows * w * itemsize + w * 4, 4 * rows * w
+
+
+def rms_bwd_cost(rows: int, w: int, itemsize: int):
+    """Bytes: x and dy read and dx written once, the fp32 scale read and
+    dscale written once. Operations: ~10 fp32 operations per element (the
+    statistic, xhat, the row sum, the column sum, dx)."""
+    return 3 * rows * w * itemsize + 2 * w * 4, 10 * rows * w
+
+
+def ce_cost(t: int, w: int, v: int, itemsize: int, backward: bool = False):
+    """Bytes: x [T, W] and the head [W, V] read once, int64 labels read
+    once; the forward writes loss and lse (fp32), the backward reads lse and
+    dloss and writes dX and dW in the inputs' dtype. Operations: 2 T W V per
+    contraction: the forward's logits; the backward's logits again, dX and
+    dW, which the function needs since only lse is given."""
+    nbytes = (t + v) * w * itemsize + 8 * t + 8 * t
+    if backward:
+        nbytes += (t + v) * w * itemsize
+    return nbytes, (3 if backward else 1) * 2 * t * w * v
+
+
 def kernel_fns(mha, ln) -> dict:
     """Every kernel wrapper, by kernel name; each counts its launches."""
+    from megatron_clip_tpu_torch.ops.kernels import fused_ce as ce
     from megatron_clip_tpu_torch.ops.kernels import flash_attention as fa
     return {"fused_mha_fwd": mha.fused_mha_fwd,
             "fused_mha_bwd": mha.fused_mha_bwd,
@@ -309,7 +365,11 @@ def kernel_fns(mha, ln) -> dict:
             "flash_fwd": fa.flash_fwd,
             "flash_bwd_fused": fa.flash_bwd_fused,
             "flash_bwd_dq": fa.flash_bwd_dq,
-            "flash_bwd_dkv": fa.flash_bwd_dkv}
+            "flash_bwd_dkv": fa.flash_bwd_dkv,
+            "rms_norm_fwd": ln.rms_norm_fwd,
+            "rms_norm_bwd": ln.rms_norm_bwd,
+            "fused_ce_fwd": ce.fused_ce_fwd,
+            "fused_ce_bwd": ce.fused_ce_bwd}
 
 
 def zero_counts(mha, ln) -> None:
@@ -401,6 +461,24 @@ def phase_build(kernels_build):
 #   with dP = delta). Against fp32, the roundings of P and dS themselves
 #   (2^-9 each, random): 2e-2. The fused kernel's fp32 atomics move dQ by
 #   fp32 ulps only. flash_bwd_teeth shows what a wrong kernel reads.
+# - rms_norm_*: as layer_norm_*, whose kernels they are without the mean and
+#   the bias (dscale the only column sum).
+# - fused_ce_fwd loss and lse: the logits are fp32 sums of W exact products
+#   (a bf16 product is exact in fp32) in another order than the plain
+#   version's cuBLAS product, and the softmax sum of up to 50,304
+#   exponentials is folded per 64-column partial: 1e-5 absolute plus 2e-5
+#   relative. The same for bf16 inputs and against the plain version run in
+#   fp32 on them, whose logits are the same fp32 sums.
+# - fused_ce_bwd fp32: dX sums V terms and dW T terms, added with atomics
+#   per 64-row tile in an order that changes from run to run: 1e-5 relative
+#   plus 5e-5 of the largest |value|. bf16: dX and dW^T row by row (one
+#   token's dX, one vocabulary row's dW) as the flash gradients, 1e-2 of
+#   the row's norm plus 1e-4 of the rms row: dlogits are rounded to bf16 on
+#   both sides from fp32 logits summed in another order, so one can round
+#   the other way (an ulp of one term), and each output is rounded once.
+#   Against the plain version in fp32, which does not round dlogits, those
+#   roundings themselves (2^-9 relative each, random): 2e-2.
+#   fused_ce_teeth shows what a wrong kernel reads.
 TOLERANCES = {
     "fused_mha_fwd": {"fp32": (2e-5, 0.0), "bf16": (4e-3, 8e-3),
                       "bf16_vs_fp32_plain": (2e-2, 2e-2)},
@@ -426,6 +504,19 @@ TOLERANCES = {
     **{name: {"fp32": (5e-5, 5e-5), "bf16": (1e-2, 1e-4),
               "bf16_vs_fp32_plain": (2e-2, 1e-4)}
        for name in ("flash_bwd_fused", "flash_bwd_dq", "flash_bwd_dkv")},
+    "rms_norm_fwd": {"fp32": (1e-5, 1e-5), "bf16": (4e-3, 8e-3),
+                     "bf16_vs_fp32_plain": (2e-2, 2e-2)},
+    "rms_norm_bwd": {"fp32": (1e-5, 1e-5), "bf16": (4e-3, 8e-3),
+                     "bf16_vs_fp32_plain": (2e-2, 2e-2),
+                     "sums": (1e-4, 1e-5, 2e-6)},
+    "fused_ce_fwd": {kind: (1e-5, 2e-5) for kind in (
+        "fp32", "bf16", "bf16_vs_fp32_plain")},
+    "fused_ce_fwd lse": {kind: (1e-5, 2e-5) for kind in (
+        "fp32", "bf16", "bf16_vs_fp32_plain")},
+    # fp32 (atol, rtol, atol as a share of max); bf16 (rel, floor) of
+    # compare_rows
+    "fused_ce_bwd": {"fp32": (0.0, 1e-5, 5e-5), "bf16": (1e-2, 1e-4),
+                     "bf16_vs_fp32_plain": (2e-2, 1e-4)},
 }
 KERNELS = tuple(TOLERANCES)
 
@@ -516,12 +607,13 @@ def smajor_views(mha, gen) -> None:
 
 
 # the flash kernels' checks (B, H, Sq, Sk, D, causal): GPT-345m's two
-# shapes, both masks at S = 2048, ragged lengths (1100, 4200: not multiples
+# shapes, both masks at S = 2048, the example GPT's batch 8 (phase 10),
+# ragged lengths (1100, 4200: not multiples
 # of the 64-row tiles; 4200 is also past the fused backward's reach), cross
 # lengths, D = 40 (tensor cores, padded to 48) and D = 36 (CUDA cores in
 # bf16 too)
 FLASH_SHAPES = ((6, 16, 2048, 2048, 64, True), (6, 16, 2048, 2048, 64, False),
-                (1, 16, 8192, 8192, 64, True), (2, 4, 1100, 1100, 64, True),
+                (8, 16, 2048, 2048, 64, True), (1, 16, 8192, 8192, 64, True), (2, 4, 1100, 1100, 64, True),
                 (1, 4, 4200, 4200, 64, True), (2, 4, 1100, 700, 64, True),
                 (2, 4, 700, 1100, 64, False), (1, 3, 333, 333, 40, True),
                 (1, 2, 300, 300, 36, False))
@@ -628,6 +720,7 @@ def flash_views(gen) -> None:
     from megatron_clip_tpu_torch.ops.kernels import flash_attention as fa
     for b, h, s, d, dtype in ((6, 16, 2048, 64, torch.bfloat16),
                               (6, 16, 2048, 64, torch.float32),
+                              (8, 16, 2048, 64, torch.bfloat16),
                               (1, 16, 8192, 64, torch.bfloat16),
                               (2, 4, 1100, 64, torch.bfloat16)):
         qkv = torch.randn(b, s, 3 * h * d, device="cuda", generator=gen,
@@ -670,6 +763,139 @@ def flash_views(gen) -> None:
         log(f"  {label}: every kernel equal to its contiguous run")
         del qkv, do, views, copies, packed, pairs, want
         torch.cuda.empty_cache()
+
+
+# the fused-CE checks (T, W, V, tied head): full width and vocabulary at a
+# few thousand tokens, tied (the GPT's [W, V] view of the [V, W]
+# embedding) and untied ([W, V] storage); a ragged T over three groups of
+# token tiles (16, 16 and 6 tiles of 128, the last of 77 tokens) with a
+# vocabulary that is no tile multiple; W = 1000 (no 16-byte rows: the
+# CUDA-core path in bf16 too)
+CE_SHAPES = ((2048, 1024, 50304, True), (2048, 1024, 50304, False),
+             (4813, 1024, 1000, True), (333, 1000, 1000, True))
+# the example GPT's own shape (phase 10: eight groups of token tiles), bf16
+# only: fp32 runs on the CUDA cores at CE_FP32_TOKENS tokens whatever T
+CE_PATH_SHAPE = (EXAMPLE_RUN[0] * EXAMPLE_RUN[1], GPT_345M["hidden_size"],
+                 GPT_345M["vocab_size"], True)
+CE_FP32_TOKENS = 512
+
+
+def ce_inputs(gen, t: int, w: int, v: int, tied: bool, dtype):
+    """x [T, W], the head [W, V] (tied: the transposed view of a [V, W]
+    embedding), labels [T] over the whole vocabulary, dloss [T] > 0."""
+    x = torch.randn(t, w, device="cuda", generator=gen).to(dtype)
+    emb = (torch.randn(v, w, device="cuda", generator=gen) * 0.05).to(dtype)
+    head = emb.t() if tied else emb.t().contiguous()
+    labels = torch.randint(0, v, (t,), device="cuda", generator=gen)
+    dloss = torch.rand(t, device="cuda", generator=gen) / t
+    return x, head, labels, dloss
+
+
+def fused_ce_checks(errs, gen) -> None:
+    """The fused-CE forward (loss, lse) and backward (dX, dW) against their
+    plain versions at CE_SHAPES, fp32 and bf16, and at CE_PATH_SHAPE in
+    bf16; the backward on the plain
+    forward's lse, so that each is compared alone; then fused_ce_teeth."""
+    from megatron_clip_tpu_torch.ops.kernels import fused_ce as ce
+    for t, w, v, tied in CE_SHAPES + (CE_PATH_SHAPE,):
+        dtypes = (torch.float32, torch.bfloat16)
+        for dtype in dtypes[(t, w, v, tied) == CE_PATH_SHAPE:]:
+            tt = min(t, CE_FP32_TOKENS) if dtype == torch.float32 else t
+            x, head, labels, dloss = ce_inputs(gen, tt, w, v, tied, dtype)
+            label = (f"T={tt} W={w} V={v} {'tied' if tied else 'untied'} "
+                     "head")
+
+            def plain(dt, part):
+                return ce.fused_ce_fwd_plain(x.to(dt), head.to(dt),
+                                             labels)[part]
+            loss, lse = ce.fused_ce_fwd(x, head, labels)
+            check_kernel(errs, "fused_ce_fwd", label, loss,
+                         lambda dt: plain(dt, 0), dtype)
+            check_kernel(errs, "fused_ce_fwd lse", label, lse,
+                         lambda dt: plain(dt, 1), dtype)
+            p_lse = plain(dtype, 1)
+            dx, dw = ce.fused_ce_bwd(x, head, labels, p_lse, dloss)
+            if dw.shape != head.shape or dx.shape != x.shape:
+                raise AssertionError(f"fused_ce_bwd {label}: shapes "
+                                     f"{tuple(dx.shape)}, {tuple(dw.shape)}")
+            check_ce_grads(errs, label, dx, dw, lambda dt: ce.fused_ce_bwd_plain(
+                x.to(dt), head.to(dt), labels, p_lse, dloss))
+            if dtype == torch.bfloat16 and (t, w, v, tied) == CE_SHAPES[0]:
+                fused_ce_teeth(ce, label, x, head, labels, dloss)
+            del x, head, labels, dloss, dx, dw
+        torch.cuda.empty_cache()
+
+
+def check_ce_grads(errs, label, dx, dw, plain) -> None:
+    """dX and dW^T against plain(dtype): fp32 as check_kernel, bf16 row by
+    row (one token's dX, one vocabulary row's dW)."""
+    if dx.dtype == torch.float32:
+        for i, (part, g) in enumerate((("dx", dx), ("dw", dw))):
+            check_kernel(errs, "fused_ce_bwd", f"{label} {part}", g,
+                         lambda dt: plain(dt)[i])
+        return
+    for kind, dt in (("bf16", torch.bfloat16),
+                     ("bf16_vs_fp32_plain", torch.float32)):
+        want_dx, want_dw = plain(dt)
+        for part, g, want in (("dx", dx, want_dx), ("dw", dw.t(), want_dw.t())):
+            e = compare_rows(f"fused_ce_bwd {label} {kind} {part}", g, want,
+                             *TOLERANCES["fused_ce_bwd"][kind])
+            errs["fused_ce_bwd"][kind] = max(
+                errs["fused_ce_bwd"].get(kind, 0.0), e)
+
+
+def fused_ce_teeth(ce, label, x, head, labels, dloss) -> None:
+    """The kernels made wrong on purpose, as an off-by-one in the vocabulary
+    loop would: run on the head without its last 128-column tile (dW's rows
+    of that tile left at 0), a tenth of the labels moved into that tile.
+    Held against the plain version on the true inputs, the loss and each
+    gradient must fail their bounds."""
+    v = head.shape[1]
+    labels = labels.clone()
+    labels[::10] = v - 1 - (labels[::10] % 128)
+    loss, lse = ce.fused_ce_fwd_plain(x, head, labels)
+    want_dx, want_dw = ce.fused_ce_bwd_plain(x, head, labels, lse, dloss)
+    cut = head[:, :v - 128]
+    bad_loss, _ = ce.fused_ce_fwd(x, cut, labels)
+    bad_dx, bad_dw = ce.fused_ce_bwd(x, cut, labels, lse, dloss)
+    bad_dw = torch.cat([bad_dw, torch.zeros_like(head[:, v - 128:])], 1)
+    atol, rtol = TOLERANCES["fused_ce_fwd"]["bf16"]
+    used = {"loss": float(((bad_loss - loss).abs() / (
+        atol + rtol * loss.abs())).max())}
+    rel, floor = TOLERANCES["fused_ce_bwd"]["bf16"]
+    used["dx"] = rows_used(bad_dx, want_dx, rel, floor)
+    used["dw"] = rows_used(bad_dw.t(), want_dw.t(), rel, floor)
+    for part, u in used.items():
+        log(f"  fused_ce {label} last vocabulary tile left out, {part}: "
+            f"{u:.3f} of the bound")
+        if u <= 1:
+            raise AssertionError(f"fused_ce {label}: the {part} bound passes "
+                                 "a kernel that leaves out the last tile")
+
+
+def rms_checks(errs, gen, ln) -> None:
+    """The RMSNorm kernels against their plain versions at the example
+    GPT's rows (batch 8 x 2048 at width 1024), GPT-345m's and odd shapes."""
+    for rows, w in [(8 * 2048, 1024), (6 * 2048, 1024), (1000, 768),
+                    (5, 100), (3, 4100)]:
+        x = torch.randn(rows, w, device="cuda", generator=gen) * 3 + 1
+        dy = torch.randn(rows, w, device="cuda", generator=gen)
+        scale = torch.randn(w, device="cuda", generator=gen)
+        label = f"rows={rows} W={w}"
+        for dtype in (torch.float32, torch.bfloat16):
+            xd, gd = x.to(dtype), dy.to(dtype)
+            check_kernel(errs, "rms_norm_fwd", label,
+                         ln.rms_norm_fwd(xd, scale),
+                         lambda dt: ln.rms_norm_plain(xd.to(dt), scale))
+            dx, dscale = ln.rms_norm_bwd(xd, scale, gd)
+            check_kernel(errs, "rms_norm_bwd", label + " dx", dx,
+                         lambda dt: ln.rms_norm_bwd_plain(
+                             xd.to(dt), scale, gd.to(dt))[0])
+            e = compare(f"rms_norm_bwd {label} {dtype} dscale", dscale,
+                        ln.rms_norm_bwd_plain(xd, scale, gd)[1],
+                        *TOLERANCES["rms_norm_bwd"]["sums"])
+            errs["rms_norm_bwd"]["sums"] = max(
+                errs["rms_norm_bwd"].get("sums", 0.0), e)
 
 
 def phase_kernels(mha, ln):
@@ -731,6 +957,7 @@ def phase_kernels(mha, ln):
     smajor_views(mha, gen)
     flash_checks(errs, gen)
     flash_views(gen)
+    fused_ce_checks(errs, gen)
     # the legs' LayerNorms: rows B*S at the tower's width H*D; GPT-345m's:
     # rows B*S at its width
     legs_ln = [(b * s, h * d) for _, _, b, s, h, d, _ in LEG_ATTENTION]
@@ -761,6 +988,7 @@ def phase_kernels(mha, ln):
                             want, *TOLERANCES["layer_norm_bwd"]["sums"])
                 errs["layer_norm_bwd"]["sums"] = max(
                     errs["layer_norm_bwd"].get("sums", 0.0), e)
+    rms_checks(errs, gen, ln)
     return errs
 
 
@@ -884,12 +1112,14 @@ def phase_serving(port, mha, ln, card: str):
 
 
 def timing_row(kernel: str, shape: str, fn, plain, library, cost,
-               ops_dtype: torch.dtype) -> dict:
+               ops_dtype: torch.dtype, reps: int = 20) -> dict:
     nbytes, ops = cost
     bms, by = bound_ms(nbytes, ops, ops_dtype)
-    row = {"kernel": kernel, "shape": shape, "ms": cuda_ms(fn),
-           "plain_ms": cuda_ms(plain),
-           "library_ms": None if library is None else cuda_ms(library),
+    warm = min(3, reps)
+    row = {"kernel": kernel, "shape": shape, "ms": cuda_ms(fn, reps, warm),
+           "plain_ms": cuda_ms(plain, reps, warm),
+           "library_ms": (None if library is None
+                          else cuda_ms(library, reps, warm)),
            "bound_ms": bms, "bound_by": by, "bytes": nbytes, "ops": ops}
     lib = "none" if library is None else f"{row['library_ms']:.4f} ms"
     log(f"  {kernel} {shape}: kernel {row['ms']:.4f} ms, plain "
@@ -1008,6 +1238,77 @@ def flash_rows(gen, b: int, s: int, h: int = 16, d: int = 64) -> list:
     return rows
 
 
+CE_PATH = (8 * 2048, 1024, 50304)  # the example GPT's T, W, V
+
+
+def fused_ce_rows(gen) -> list:
+    """bf16 rows of the fused CE at the example GPT's shapes, tied head:
+    the forward and the backward (from the forward's lse). Library: two
+    calls, F.cross_entropy(x @ w, labels, reduction="none"), and for the
+    backward their autograd.grad to x and w on a kept graph; no one PyTorch
+    call computes this function. 5 timed launches each (the plain versions
+    take tens of ms)."""
+    from megatron_clip_tpu_torch.ops.kernels import fused_ce as ce
+    t, w, v = CE_PATH
+    dt = torch.bfloat16
+    x, head, labels, dloss = ce_inputs(gen, t, w, v, True, dt)
+    _, lse = ce.fused_ce_fwd(x, head, labels)
+    lx, lw = (a.detach().requires_grad_(True) for a in (x, head))
+    ly = F.cross_entropy(lx @ lw, labels, reduction="none")
+    dly = dloss.to(dt)
+
+    def lib_fwd():
+        return F.cross_entropy(x @ head, labels, reduction="none")
+
+    def lib_bwd():
+        return torch.autograd.grad(ly, (lx, lw), dly, retain_graph=True)
+    shape = f"example GPT T={t} W={w} V={v} tied bf16"
+    rows = [
+        timing_row("fused_ce_fwd", shape,
+                   lambda: ce.fused_ce_fwd(x, head, labels),
+                   lambda: ce.fused_ce_fwd_plain(x, head, labels),
+                   lib_fwd, ce_cost(t, w, v, 2), dt, reps=5),
+        timing_row("fused_ce_bwd", shape,
+                   lambda: ce.fused_ce_bwd(x, head, labels, lse, dloss),
+                   lambda: ce.fused_ce_bwd_plain(x, head, labels, lse, dloss),
+                   lib_bwd, ce_cost(t, w, v, 2, backward=True), dt, reps=5),
+    ]
+    del ly, lx, lw, x, head
+    torch.cuda.empty_cache()
+    return rows
+
+
+def rms_rows(gen, ln) -> list:
+    """bf16 rows of the RMSNorm kernels at the example GPT's rows (8 x 2048
+    at width 1024). Library: F.rms_norm and its autograd.grad, where this
+    PyTorch has it."""
+    dt = torch.bfloat16
+    n, w = 8 * 2048, 1024
+    x = torch.randn(n, w, device="cuda", generator=gen, dtype=dt)
+    dy = torch.randn(n, w, device="cuda", generator=gen, dtype=dt)
+    scale = torch.randn(w, device="cuda", generator=gen)
+    lib_fwd = lib_bwd = None
+    if hasattr(F, "rms_norm"):
+        scale_bf = scale.to(dt)
+        lx, ls = (a.detach().requires_grad_(True) for a in (x, scale_bf))
+        ly = F.rms_norm(lx, (w,), ls, 1e-6)
+
+        def lib_fwd():
+            return F.rms_norm(x, (w,), scale_bf, 1e-6)
+
+        def lib_bwd():
+            return torch.autograd.grad(ly, (lx, ls), dy, retain_graph=True)
+    shape = f"example GPT rows={n} W={w} bf16"
+    return [timing_row("rms_norm_fwd", shape,
+                       lambda: ln.rms_norm_fwd(x, scale),
+                       lambda: ln.rms_norm_plain(x, scale), lib_fwd,
+                       rms_cost(n, w, 2), torch.float32),
+            timing_row("rms_norm_bwd", shape,
+                       lambda: ln.rms_norm_bwd(x, scale, dy),
+                       lambda: ln.rms_norm_bwd_plain(x, scale, dy), lib_bwd,
+                       rms_bwd_cost(n, w, 2), torch.float32)]
+
+
 def phase_timings(mha, ln):
     """bf16 timings at the serving (batch 256) and training (batch 384)
     shapes. The library calls are yardsticks the port never calls:
@@ -1097,6 +1398,8 @@ def phase_timings(mha, ln):
                 lambda: torch.autograd.grad(ly, (lx, ls, lb), dy,
                                             retain_graph=True),
                 ln_bwd_cost(n, w, 2), torch.float32))
+    rows.extend(rms_rows(gen, ln))
+    rows.extend(fused_ce_rows(gen))
     return rows
 
 
@@ -1108,6 +1411,8 @@ TPU_MHA = "megatron_clip_tpu/ops/pallas/fused_mha.py"
 TPU_LN = "megatron_clip_tpu/ops/pallas/layernorm.py"
 FLASH_CU = "megatron_clip_tpu_torch/csrc/flash_attention.cu"
 TPU_FLASH = "megatron_clip_tpu/ops/pallas/flash_attention.py"
+CE_CU = "megatron_clip_tpu_torch/csrc/fused_ce.cu"
+TPU_CE = "megatron_clip_tpu/ops/pallas/fused_ce.py"
 KERNEL_META = {
     "fused_mha_fwd": (MHA_CU, f"{TPU_MHA}:80", [f"{TPU_MHA}:149"],
                       f"B={TRAIN_BATCH} "),
@@ -1121,6 +1426,12 @@ KERNEL_META = {
     "flash_bwd_fused": (FLASH_CU, f"{TPU_FLASH}:283", [], "B=6 S=2048 "),
     "flash_bwd_dq": (FLASH_CU, f"{TPU_FLASH}:166", [], "B=1 S=8192 "),
     "flash_bwd_dkv": (FLASH_CU, f"{TPU_FLASH}:219", [], "B=1 S=8192 "),
+    # fused_rms_norm (_ln_kernel with rms=True) and its rule _frms_bwd
+    "rms_norm_fwd": (LN_CU, f"{TPU_LN}:104", [], "rows=16384 "),
+    "rms_norm_bwd": (LN_CU, f"{TPU_LN}:112", [], "rows=16384 "),
+    # one backward kernel forms both _dx_kernel's and _dw_kernel's outputs
+    "fused_ce_fwd": (CE_CU, f"{TPU_CE}:50", [], "T=16384 "),
+    "fused_ce_bwd": (CE_CU, f"{TPU_CE}:97", [f"{TPU_CE}:118"], "T=16384 "),
 }
 
 
@@ -1494,44 +1805,55 @@ def train_learns(port) -> dict:
     return res
 
 
-def gpt_per_step(layers: int, seq: int) -> dict:
+def gpt_per_step(layers: int, seq: int, norm: str = "layernorm",
+                 fused_ce: bool = False) -> dict:
     """Kernel launches of one GPT train step: the flash forward once per
     layer and its backward as the JAX package picks it at this length
-    (fused through S = 4096, split dQ and dKV above), LayerNorm forward and
-    backward twice per block plus ln_f."""
+    (fused through S = 4096, split dQ and dKV above), the norm's (LayerNorm
+    or RMSNorm) forward and backward twice per block plus ln_f, and with
+    `fused_ce` the fused CE forward and backward once."""
     from megatron_clip_tpu_torch.ops.kernels.flash_attention import (
         uses_fused_bwd)
     bwd = (("flash_bwd_fused",) if uses_fused_bwd(seq)
            else ("flash_bwd_dq", "flash_bwd_dkv"))
+    kind = "rms_norm" if norm == "rmsnorm" else "layer_norm"
     return dict(dict.fromkeys(KERNEL_META, 0), flash_fwd=layers,
                 **dict.fromkeys(bwd, layers),
-                layer_norm_fwd=2 * layers + 1, layer_norm_bwd=2 * layers + 1)
+                **dict.fromkeys((f"{kind}_fwd", f"{kind}_bwd"), 2 * layers + 1),
+                **dict.fromkeys(("fused_ce_fwd", "fused_ce_bwd"),
+                                int(fused_ce)))
 
 
 def gpt_run(mha, ln, card: str, batch: int, seq: int, warmup: int,
-            steps: int) -> dict:
+            steps: int, name: str = "GPT-345m", over=None,
+            precision: str = "pure_bf16", fused_ce: bool = False) -> dict:
     """`warmup` + `steps` steps of bench.py's GPT-345m train step at
-    `batch` x `seq`: pure_bf16 weights from seed 0, clip 1.0 then
+    `batch` x `seq`, or of its config with `over` (the example GPT's rope,
+    swiglu and rmsnorm): `precision` weights from seed 0, clip 1.0 then
     AdamW(1e-4, b=(0.9, 0.95)) with bf16 first moments, loss chunks of
-    1024, one batch of token ids in [1, vocab - 1) from numpy seed 0. The
-    counters are zeroed before the first step and read after every step,
-    which must launch each kernel as gpt_per_step says; every loss must be
-    finite and the last below the first. Step times are CUDA-event
-    intervals between step starts; tokens/s the timed steps' tokens over
-    the window's wall time; MFU and HFU bench.py's (6 N and 6 N plus the
-    attention and lm-head terms, per token, over 989 TFLOP/s)."""
+    1024 or (`fused_ce`) the fused lm-head cross entropy, one batch of token
+    ids in [1, vocab - 1) from numpy seed 0. The counters are zeroed before
+    the first step and read after every step, which must launch each kernel
+    as gpt_per_step says; every loss must be finite and the last below the
+    first. Step times are CUDA-event intervals between step starts;
+    tokens/s the timed steps' tokens over the window's wall time; MFU and
+    HFU bench.py's (6 N and 6 N plus the attention and lm-head terms, per
+    token, over 989 TFLOP/s), N the model's parameters counted here."""
     from megatron_clip_tpu_torch.models.gpt import GPTCfg, create_gpt
     from megatron_clip_tpu_torch.training import (TrainState,
                                                   make_gpt_optimizer,
                                                   make_gpt_train_step)
-    cfg = GPTCfg(**GPT_345M, seq_length=seq)
-    model = create_gpt(cfg, precision="pure_bf16", seed=0).train()
+    cfg = GPTCfg(**dict(GPT_345M, **(over or {})), seq_length=seq)
+    model = create_gpt(cfg, precision=precision, seed=0).train()
     opt = make_gpt_optimizer(model)
     state = TrainState.create(model, opt)
-    step = make_gpt_train_step(model, opt, loss_seq_chunk=GPT_LOSS_CHUNK)
+    step = make_gpt_train_step(
+        model, opt, loss_seq_chunk=0 if fused_ce else GPT_LOSS_CHUNK,
+        fused_ce=fused_ce)
     tokens = torch.from_numpy(np.random.default_rng(0).integers(
         1, cfg.vocab_size - 1, (batch, seq + 1))).cuda()
-    per_step = gpt_per_step(cfg.num_layers, seq)
+    per_step = gpt_per_step(cfg.num_layers, seq, cfg.normalization, fused_ce)
+    name = f"{name} S={seq}{' fused_ce' if fused_ce else ''}"
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
     losses, events, step_peaks = [], [], []
@@ -1550,8 +1872,8 @@ def gpt_run(mha, ln, card: str, batch: int, seq: int, warmup: int,
         torch.cuda.reset_peak_memory_stats()
         got = {k: v - before[k] for k, v in read_counts(mha, ln).items()}
         if got != per_step:
-            raise AssertionError(f"GPT-345m S={seq} step {i}: launches "
-                                 f"{got}, expected {per_step}")
+            raise AssertionError(f"{name} step {i}: launches {got}, "
+                                 f"expected {per_step}")
     end = torch.cuda.Event(enable_timing=True)
     end.record()
     end.synchronize()
@@ -1561,20 +1883,21 @@ def gpt_run(mha, ln, card: str, batch: int, seq: int, warmup: int,
     step_ms = [a.elapsed_time(b) for a, b in zip(events[warmup:-1],
                                                  events[warmup + 1:])]
     losses = torch.stack(losses).float().tolist()
-    log(f"  GPT-345m S={seq} launches per step {per_step}; total {launches}")
-    log(f"  GPT-345m S={seq} losses {losses}")
+    log(f"  {name} launches per step {per_step}; total {launches}")
+    log(f"  {name} losses {losses}")
     if not all(math.isfinite(v) for v in losses):
-        raise AssertionError(f"GPT-345m S={seq}: non-finite training loss")
+        raise AssertionError(f"{name}: non-finite training loss")
     if not losses[-1] < losses[0]:
-        raise AssertionError(f"GPT-345m S={seq}: the loss did not fall")
+        raise AssertionError(f"{name}: the loss did not fall")
     n_params = sum(p.numel() for p in model.parameters())
     toks = batch * seq * steps / window_s
     w, L, v = cfg.hidden_size, cfg.num_layers, cfg.vocab_size
     extra = 6 * w * v + 6 * seq * w * L + 2 * seq * w * L
     peak = PEAK_OPS_PER_S[torch.bfloat16]
     result = {
-        "card": card, "model": "GPT-345m", "batch": batch, "seq": seq,
-        "precision": "pure_bf16", "params": n_params,
+        "card": card, "model": name, "batch": batch, "seq": seq,
+        "precision": precision, "params": n_params,
+        "loss": "fused_ce" if fused_ce else f"chunks of {GPT_LOSS_CHUNK}",
         "attention_backward": ("fused" if per_step["flash_bwd_fused"]
                                else "split dQ / dKV"),
         "step_ms_median": float(np.median(step_ms)),
@@ -1588,7 +1911,8 @@ def gpt_run(mha, ln, card: str, batch: int, seq: int, warmup: int,
         "losses": losses, "launches": launches,
         "launches_per_step": per_step,
     }
-    log(f"  GPT-345m S={seq}: step median {result['step_ms_median']:.2f} ms, "
+    log(f"  {name}: {n_params} parameters; step median "
+        f"{result['step_ms_median']:.2f} ms, "
         f"mean {result['step_ms_mean']:.2f}, fastest "
         f"{result['step_ms_min']:.2f}; {toks:.0f} tokens/s, MFU "
         f"{result['mfu']:.4f}, HFU {result['hfu']:.4f}, peak "
@@ -1598,11 +1922,13 @@ def gpt_run(mha, ln, card: str, batch: int, seq: int, warmup: int,
     return result
 
 
-def gpt_parity() -> dict:
-    """One fp32 GPT step at GPT-345m's width, GPT_PARITY_LAYERS layers,
-    batch 1 at S = GPT_PARITY_SEQ (the flash path, fused backward), on the
-    card and on the CPU from the same weights and tokens (`card_vs_cpu`),
-    at lr 1e-6. Adam's first step moves an element by lr g / (|g| + eps),
+def gpt_parity(over=None, seq: int = GPT_PARITY_SEQ,
+               fused_ce: bool = False, label: str = "GPT-345m") -> dict:
+    """One fp32 GPT step at GPT-345m's width (with `over`: the example
+    GPT's options and grouped-query attention), GPT_PARITY_LAYERS layers,
+    batch 1 at S = `seq` (the flash path, fused backward), its loss in
+    chunks or through the fused CE, on the card and on the CPU from the
+    same weights and tokens (`card_vs_cpu`), at lr 1e-6. Adam's first step moves an element by lr g / (|g| + eps),
     and this model has gradients as small as eps (1e-8) that are fp32
     rounding noise: a wo element of 6.8e-9 on one side and 5.5e-9 on the
     other, which at phase 7's lr of 1e-5 moved the parameters 1.45e-6
@@ -1614,10 +1940,10 @@ def gpt_parity() -> dict:
     from megatron_clip_tpu_torch.training import (TrainState,
                                                   make_gpt_optimizer,
                                                   make_gpt_train_step)
-    cfg = GPTCfg(**dict(GPT_345M, num_layers=GPT_PARITY_LAYERS),
-                 seq_length=GPT_PARITY_SEQ)
+    cfg = GPTCfg(**dict(GPT_345M, num_layers=GPT_PARITY_LAYERS,
+                        **(over or {})), seq_length=seq)
     tokens = torch.from_numpy(np.random.default_rng(1).integers(
-        1, cfg.vocab_size - 1, (1, GPT_PARITY_SEQ + 1)))
+        1, cfg.vocab_size - 1, (1, seq + 1)))
 
     def run(device):
         model = create_gpt(cfg, precision="fp32", device=device,
@@ -1625,15 +1951,16 @@ def gpt_parity() -> dict:
         opt = make_gpt_optimizer(model, lr=GPT_PARITY_LR)
         grads = keep_grads(opt)
         t0 = time.perf_counter()
-        _, m = make_gpt_train_step(model, opt, loss_seq_chunk=GPT_LOSS_CHUNK)(
-            TrainState.create(model, opt), tokens.to(device))
+        _, m = make_gpt_train_step(
+            model, opt, loss_seq_chunk=GPT_LOSS_CHUNK, fused_ce=fused_ce)(
+                TrainState.create(model, opt), tokens.to(device))
         took = time.perf_counter() - t0
         del opt.update
         return (float(m["loss"]), float(m["grad_norm"]), grads,
                 {n: p.detach().cpu() for n, p in model.named_parameters()},
                 took)
-    return card_vs_cpu(f"GPT-345m width, {GPT_PARITY_LAYERS} layers, "
-                       f"S={GPT_PARITY_SEQ}", run,
+    return card_vs_cpu(f"{label} width, {GPT_PARITY_LAYERS} layers, "
+                       f"S={seq}{', fused_ce' if fused_ce else ''}", run,
                        param_tol=0.5 * GPT_PARITY_LR)
 
 
@@ -1645,6 +1972,37 @@ def phase_gpt(mha, ln, card: str) -> dict:
               for b, s, w, n in GPT_RUNS}
     result["parity"] = gpt_parity()
     log(f"  gpt: {json.dumps(result)}")
+    return result
+
+
+def phase_example(mha, ln, card: str, gpt: dict) -> dict:
+    """The training path of examples/pretrain_gpt_dist.sh on one card:
+    EXAMPLE_RUN steps of the rope/swiglu/rmsnorm GPT at full width and
+    depth, bf16 compute on fp32 weights, the fused CE; the fp32 step with
+    grouped-query attention, card against CPU; GPT-345m through the fused
+    CE beside phase 9's chunked run of the same model and batch."""
+    b, s, w, n = EXAMPLE_RUN
+    log(f"[10] example GPT (examples/pretrain_gpt_dist.sh): 24 x 1024, rope, "
+        f"swiglu, rmsnorm, --fused-ce, bf16, batch {b} x S={s}, {w} warm-up "
+        f"+ {n} timed steps; GQA parity; GPT-345m fused CE vs chunked")
+    run = gpt_run(mha, ln, card, b, s, w, n, name="example GPT",
+                  over=EXAMPLE_GPT, precision="bf16", fused_ce=True)
+    parity = gpt_parity(over=dict(EXAMPLE_GPT, kv_heads=GQA_KV_HEADS),
+                        seq=GQA_PARITY_SEQ, fused_ce=True,
+                        label=f"example GPT, kv_heads={GQA_KV_HEADS}")
+    fb, fs, fw, fn = GPT_RUNS[0]
+    fused = gpt_run(mha, ln, card, fb, fs, fw, FUSED_345M_STEPS,
+                    fused_ce=True)
+    chunked = gpt[f"S={fs}"]
+    versus = {what: {k: r[k] for k in ("step_ms_median", "step_ms_mean",
+                                        "step_ms_min", "tokens_per_s",
+                                        "peak_memory_gib")}
+              for what, r in (("chunked", chunked), ("fused_ce", fused))}
+    log(f"  GPT-345m batch {fb} x S={fs}, chunked loss vs fused CE: "
+        f"{json.dumps(versus)}")
+    result = {"run": run, "parity": parity, "gpt345m_fused_ce": fused,
+              "gpt345m_chunked_vs_fused_ce": versus}
+    log(f"  example: {json.dumps(result)}")
     return result
 
 
@@ -1672,12 +2030,16 @@ def main() -> int:
     train = phase_train(port, mha, ln, card)
     legs = phase_legs(port, mha, ln, card)
     gpt = phase_gpt(mha, ln, card)
+    example = phase_example(mha, ln, card, gpt)
     paths = {"serving ViT-B-32": serving["launches"],
              "train ViT-B-32": train["launches"],
              **{f"train {name} recompute": run["launches"]
                 for name, run in legs["runs"].items()},
              **{f"train GPT-345m {key}": run["launches"]
-                for key, run in gpt.items() if key != "parity"}}
+                for key, run in gpt.items() if key != "parity"},
+             "train example GPT": example["run"]["launches"],
+             "train GPT-345m S=2048 fused_ce":
+                 example["gpt345m_fused_ce"]["launches"]}
     kernels = kernels_line(rows, paths, errs)
     idle = [k["name"] for k in kernels if k["launches"] == 0]
     if idle:

@@ -19,8 +19,11 @@ unstacked into `blocks.{i}`:
 
 The same flattening carries an optax state's moments (`opt_state_from_jax`)
 and maps a JAX gradient tree onto the port's names. A GPT tree
-(`gpt_params_from_jax`) flattens the same way: tok_embed, pos_embed,
-ln_f/{scale,bias}, lm_head (untied) and blocks/* -> blocks.{i}.*.
+(`gpt_params_from_jax`) flattens the same way: tok_embed, pos_embed
+(learned positions only; a rope GPT has none), ln_f/{scale,bias} (rmsnorm:
+scale only), lm_head (untied) and blocks/* -> blocks.{i}.*, whatever the
+leaves' widths: the swiglu w1 [W, 2 * ffn] and b1, the grouped-query wqkv
+[W, (H + 2 Hkv) D].
 """
 from typing import Any, Dict, Union
 

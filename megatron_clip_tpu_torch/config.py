@@ -5,8 +5,10 @@ TextCfg, CLIPCfg) with torch dtypes in place of jnp ones. Only the fields the
 ported paths read are kept: the ViT CLIP towers (no layer scale, no pooling
 choice, no ln_pre or causal-mask switch, no text-projection bias:
 `create_model` rejects those keys until the slice that needs them) and what
-`GPTCfg.transformer()` sets on the GPT path (megatron's init, the bias
-switch, gelu_tanh); the mesh configs (ParallelCfg, BranchParallelCfg) come
+`GPTCfg.transformer()` sets on the GPT paths (megatron's init, the bias
+switch, gelu_tanh or swiglu, LayerNorm or RMSNorm, rotary embeddings and
+grouped-query attention; not `kv_channels`, squared_relu or MoE); the mesh
+configs (ParallelCfg, BranchParallelCfg) come
 with the parallelism slice.
 """
 from dataclasses import dataclass, field
@@ -50,21 +52,32 @@ class TransformerCfg:
     width: int
     heads: int
     mlp_ratio: float = 4.0
-    act: str = "gelu"  # gelu | gelu_tanh | quick_gelu
-    norm: str = "layernorm"  # rmsnorm: ROADMAP Queue B (fused_rms_norm)
+    act: str = "gelu"  # gelu | gelu_tanh | quick_gelu | swiglu
+    norm: str = "layernorm"  # layernorm | rmsnorm (megatron --normalization)
     use_bias: bool = True    # linear biases (megatron --disable-bias-linear)
+    rope: bool = False       # rotary embeddings (megatron
+                             # --use-rotary-position-embeddings)
+    rope_theta: float = 10000.0
+    rotary_percent: float = 1.0  # rotate only the first D*percent channels
+                                 # (megatron --rotary-percent)
+    rope_interpolation: Optional[float] = None  # divide positions (megatron
+                                 # --rotary-seq-len-interpolation-factor)
+    kv_heads: Optional[int] = None  # grouped-query attention (megatron
+                                    # --group-query-attention)
     # weight init: None = the open_CLIP width-derived scheme; a float =
     # megatron --init-method-std (inputs at std, residual outputs at
     # std/sqrt(2L))
     init_std: Optional[float] = None
 
     def __post_init__(self):
-        if self.act not in ("gelu", "gelu_tanh", "quick_gelu"):
+        if self.act not in ("gelu", "gelu_tanh", "quick_gelu", "swiglu"):
             raise NotImplementedError(f"act={self.act!r} is not ported yet "
                                       "(ROADMAP Queue A item 4)")
-        if self.norm != "layernorm":
-            raise NotImplementedError(f"norm={self.norm!r} is not ported yet "
-                                      "(ROADMAP Queue B: fused_rms_norm)")
+        if self.norm not in ("layernorm", "rmsnorm"):
+            raise ValueError(f"norm={self.norm!r}: layernorm or rmsnorm")
+        if self.kv_heads is not None and self.heads % self.kv_heads:
+            raise ValueError(f"heads {self.heads} not a multiple of kv_heads "
+                             f"{self.kv_heads}")
 
     @property
     def head_dim(self) -> int:

@@ -1,19 +1,23 @@
 """GPT decoder-only language model.
 
 Counterpart of `megatron_clip_tpu/models/gpt.py` (`GPTCfg`, `init_gpt`,
-`apply_gpt`, `gpt_loss`) for megatron's default GPT: token embedding plus
-learned positions, causal pre-LN blocks (LayerNorm, gelu_tanh MLP, biases
-optional), a final LayerNorm and logits through the tied embedding or an
-untied lm head. Weights follow megatron's init (`init_std`); parameter names
-mirror the JAX pytree (`tok_embed`, `pos_embed`, `blocks.{i}.attn.wqkv`,
-`ln_f.scale`, `lm_head`) with the stacked layer axis unstacked (see
-`bridge.gpt_params_from_jax`).
+`apply_gpt`, `gpt_loss`): token embedding plus learned positions or rotary
+embeddings (`position_embedding="rope"`, no `pos_embed`), causal pre-norm
+blocks (LayerNorm or RMSNorm, gelu_tanh or swiglu MLP, biases optional,
+grouped-query attention with `kv_heads`), a final norm and logits through
+the tied embedding or an untied lm head. Weights follow megatron's init
+(`init_std`); parameter names mirror the JAX pytree (`tok_embed`,
+`pos_embed`, `blocks.{i}.attn.wqkv`, `ln_f.scale`, `lm_head`) with the
+stacked layer axis unstacked (see `bridge.gpt_params_from_jax`).
+
+`gpt_loss` takes the loss over full logits, over sequence chunks
+(`loss_seq_chunk`) or through the fused lm-head cross entropy
+(`fused_ce=True`, `ops/kernels/fused_ce.py`), which never forms the logits.
 
 Not ported yet, refused with NotImplementedError (ROADMAP Queue A item 4):
-rotary positions, swiglu and squared_relu MLPs, rmsnorm, grouped-query
-attention, `kv_channels`, MoE, the fused lm-head cross entropy (`fused_ce`,
-ROADMAP Queue B), per-row `position_ids`, `attn_bias` document masks and
-pre-shifted `targets`. Dropout is 0, as GPT trains in bench.py.
+squared_relu MLPs, `kv_channels`, MoE, per-row `position_ids`, `attn_bias`
+document masks and pre-shifted `targets`. Dropout is 0, as GPT trains in
+bench.py.
 """
 from dataclasses import dataclass
 from typing import Optional, Union
@@ -27,6 +31,8 @@ from megatron_clip_tpu_torch.config import BF16, Precision, TransformerCfg
 from megatron_clip_tpu_torch.nn.transformer import (
     Transformer, apply_norm, layer_norm_params, normal_param)
 from megatron_clip_tpu_torch.ops.cross_entropy import cross_entropy
+from megatron_clip_tpu_torch.ops.kernels.fused_ce import (
+    fused_linear_cross_entropy)
 
 _ITEM = "ROADMAP Queue A item 4"
 
@@ -44,6 +50,10 @@ class GPTCfg:
     seq_length: int = 1024
     mlp_ratio: float = 4.0
     position_embedding: str = "learned"  # learned | rope
+    rope_theta: float = 10000.0
+    rotary_percent: float = 1.0          # megatron --rotary-percent
+    rope_interpolation: Optional[float] = None  # megatron --rotary-seq-len-
+                                                # interpolation-factor
     swiglu: bool = False
     squared_relu: bool = False
     normalization: str = "layernorm"     # layernorm | rmsnorm
@@ -59,21 +69,25 @@ class GPTCfg:
         """The blocks' config, as the JAX `GPTCfg.transformer()` sets it on
         this path; options of the unported paths raise."""
         refused = {
-            "rotary position embeddings": self.position_embedding != "learned",
-            "swiglu": self.swiglu, "squared_relu": self.squared_relu,
-            "rmsnorm": self.normalization != "layernorm",
-            "grouped-query attention": self.kv_heads not in (
-                None, self.num_heads),
+            "squared_relu": self.squared_relu,
             "kv_channels": self.kv_channels is not None,
             "MoE (num_experts)": self.num_experts > 0,
         }
         bad = [what for what, on in refused.items() if on]
         if bad:
             _refuse(", ".join(bad))
-        return TransformerCfg(layers=self.num_layers, width=self.hidden_size,
-                              heads=self.num_heads, mlp_ratio=self.mlp_ratio,
-                              act="gelu_tanh", norm="layernorm",
-                              use_bias=self.use_bias, init_std=self.init_std)
+        if self.position_embedding not in ("learned", "rope"):
+            raise ValueError(f"position_embedding="
+                             f"{self.position_embedding!r}: learned or rope")
+        return TransformerCfg(
+            layers=self.num_layers, width=self.hidden_size,
+            heads=self.num_heads, mlp_ratio=self.mlp_ratio,
+            act="swiglu" if self.swiglu else "gelu_tanh",
+            norm=self.normalization, use_bias=self.use_bias,
+            rope=self.position_embedding == "rope",
+            rope_theta=self.rope_theta, rotary_percent=self.rotary_percent,
+            rope_interpolation=self.rope_interpolation,
+            kv_heads=self.kv_heads, init_std=self.init_std)
 
 
 class GPTModel(nn.Module):
@@ -84,34 +98,41 @@ class GPTModel(nn.Module):
         super().__init__()
         self.cfg, self.precision = cfg, precision
         tcfg = cfg.transformer()
-        n_pos = cfg.max_position_embeddings or cfg.seq_length
-        if n_pos < cfg.seq_length:
-            raise ValueError(f"max_position_embeddings {n_pos} < "
-                             f"seq_length {cfg.seq_length}")
         std, w = cfg.init_std, cfg.hidden_size
         self.tok_embed = normal_param((cfg.vocab_size, w), std, generator)
-        self.pos_embed = normal_param((n_pos, w), std, generator)
+        if not tcfg.rope:
+            n_pos = cfg.max_position_embeddings or cfg.seq_length
+            if n_pos < cfg.seq_length:
+                raise ValueError(f"max_position_embeddings {n_pos} < "
+                                 f"seq_length {cfg.seq_length}")
+            self.pos_embed = normal_param((n_pos, w), std, generator)
         self.blocks = Transformer(tcfg, generator)
-        self.ln_f = layer_norm_params(w)
+        self.ln_f = layer_norm_params(w, cfg.normalization)
         if not cfg.tie_embeddings:
             self.lm_head = normal_param((w, cfg.vocab_size), std, generator)
 
     def hidden(self, tokens: torch.Tensor) -> torch.Tensor:
-        """tokens [B, S] -> the final LayerNorm's output [B, S, W] in the
-        compute dtype (`apply_gpt(..., return_hidden=True)`)."""
+        """tokens [B, S] -> the final norm's output [B, S, W] in the compute
+        dtype (`apply_gpt(..., return_hidden=True)`)."""
         dt = self.precision.compute_torch
         s = tokens.shape[1]
         x = F.embedding(tokens, self.tok_embed).to(dt)
-        x = x + self.pos_embed[:s].to(dt)
+        if hasattr(self, "pos_embed"):
+            x = x + self.pos_embed[:s].to(dt)
         x = self.blocks(x, causal=True)
-        return apply_norm(self.ln_f, x)
+        return apply_norm(self.ln_f, x, self.cfg.normalization)
+
+    def head(self, dtype: torch.dtype) -> torch.Tensor:
+        """The lm head as [W, V] in `dtype`: the tied embedding's transposed
+        view (its storage stays [V, W]) or the untied `lm_head`."""
+        if self.cfg.tie_embeddings:
+            return self.tok_embed.t().to(dtype)
+        return self.lm_head.to(dtype)
 
     def logits(self, h: torch.Tensor) -> torch.Tensor:
         """The lm head: h [..., W] -> fp32 logits [..., V], the product
         rounded to h's dtype first, as the JAX einsum does."""
-        if self.cfg.tie_embeddings:
-            return torch.matmul(h, self.tok_embed.to(h.dtype).t()).float()
-        return torch.matmul(h, self.lm_head.to(h.dtype)).float()
+        return torch.matmul(h, self.head(h.dtype)).float()
 
     def forward(self, tokens: torch.Tensor) -> torch.Tensor:
         """tokens [B, S] -> logits [B, S, V] fp32."""
@@ -152,19 +173,32 @@ def gpt_loss(model: GPTModel, tokens: torch.Tensor, *,
     loss-mask averaging (`loss_mask` [B, S+1] aligned to the inputs, 0
     where the input token is EOD). A 0-d fp32 tensor.
 
+    `fused_ce` runs the lm head and cross entropy as one fused kernel on
+    the hidden states [B*S, W] and the head cast to their dtype (bf16 under
+    bf16 compute), `fused_linear_cross_entropy`: no logits are formed; the
+    loss is the masked mean of its per-token loss. It wins over
+    `loss_seq_chunk`, as in the JAX package.
+
     `loss_seq_chunk` > 0 runs the lm head and cross entropy on sequence
     chunks of that size, each under `torch.utils.checkpoint`: one chunk's
     [B, C, V] fp32 logits are live at a time, recomputed in the backward, as
     the JAX package's `jax.checkpoint` scan. The chunk sums add in order, in
     fp32; a short last chunk stands for the JAX package's zero padding,
     whose terms are 0."""
-    if fused_ce:
-        _refuse("fused_ce", "ROADMAP Queue B: fused_ce")
     if position_ids is not None or attn_bias is not None \
             or targets is not None:
         _refuse("position_ids, attn_bias and pre-shifted targets")
     inputs, targets = tokens[:, :-1], tokens[:, 1:]
     mask = None if loss_mask is None else loss_mask[:, :-1].float()
+    if fused_ce:
+        h = model.hidden(inputs)
+        b, s, w = h.shape
+        per = fused_linear_cross_entropy(h.reshape(b * s, w),
+                                         model.head(h.dtype),
+                                         targets.reshape(-1))
+        m = (torch.ones(b * s, device=h.device) if mask is None
+             else mask.reshape(-1))
+        return (per * m).sum() / torch.clamp(m.sum(), min=1.0)
     if loss_seq_chunk:
         h = model.hidden(inputs)
         b, s, _ = h.shape

@@ -7,6 +7,12 @@ run by a Python loop. Parameter names mirror the JAX pytree
 (`blocks.{i}.attn.wqkv`, `blocks.{i}.ln_1.scale`, ...) and weights keep its
 [in, out] layout, applied as `x @ w` (see `bridge.py`).
 
+Options of megatron's GPT (`cfg.norm`, `cfg.act`, `cfg.rope`,
+`cfg.kv_heads`): RMSNorm blocks carry `scale` only; the swiglu `w1` is
+[W, 2 * mlp_hidden] (value, then gate) and `b1` [2 * mlp_hidden]; the
+packed `wqkv` is [W, (heads + 2 kv_heads) D]; the rotary tables are built
+once per forward of the stack and passed to every block.
+
 Initialisation follows open_CLIP's scheme: attn_std = width**-0.5,
 proj_std = width**-0.5 * (2*layers)**-0.5, fc_std = (2*width)**-0.5, zero
 biases; with `cfg.init_std` set, megatron's: attn_std = fc_std = init_std,
@@ -20,20 +26,28 @@ import torch
 from torch import nn
 
 from megatron_clip_tpu_torch.config import TransformerCfg
-from megatron_clip_tpu_torch.ops import get_act, layer_norm, multi_head_attention
+from megatron_clip_tpu_torch.ops import (get_act, layer_norm,
+                                         multi_head_attention, rms_norm,
+                                         swiglu)
 from megatron_clip_tpu_torch.ops.dense import dense
+from megatron_clip_tpu_torch.ops.rope import rope_cos_sin
 
 
 def normal_param(shape, std: float, gen: Optional[torch.Generator]) -> nn.Parameter:
     return nn.Parameter(torch.randn(*shape, generator=gen) * std)
 
 
-def layer_norm_params(width: int) -> nn.ParameterDict:
-    return nn.ParameterDict({"scale": nn.Parameter(torch.ones(width)),
-                             "bias": nn.Parameter(torch.zeros(width))})
+def layer_norm_params(width: int, norm: str = "layernorm") -> nn.ParameterDict:
+    """A norm's parameters: scale and bias, or scale alone for rmsnorm."""
+    p = {"scale": nn.Parameter(torch.ones(width))}
+    if norm == "layernorm":
+        p["bias"] = nn.Parameter(torch.zeros(width))
+    return nn.ParameterDict(p)
 
 
-def apply_norm(p, x: torch.Tensor) -> torch.Tensor:
+def apply_norm(p, x: torch.Tensor, norm: str = "layernorm") -> torch.Tensor:
+    if norm == "rmsnorm":
+        return rms_norm(x, p["scale"])
     return layer_norm(x, p["scale"], p["bias"])
 
 
@@ -52,32 +66,36 @@ class ResidualBlock(nn.Module):
             proj_std = (w ** -0.5) * ((2 * cfg.layers) ** -0.5)
             attn_std = w ** -0.5
             fc_std = (2 * w) ** -0.5
-        qkv_out = 3 * cfg.heads * cfg.head_dim
+        qkv_out = (cfg.heads + 2 * (cfg.kv_heads or cfg.heads)) * cfg.head_dim
+        mlp_in = hidden * (2 if cfg.act == "swiglu" else 1)
         attn = {"wqkv": normal_param((w, qkv_out), attn_std, generator),
                 "wo": normal_param((cfg.heads * cfg.head_dim, w), proj_std,
                                    generator)}
-        mlp = {"w1": normal_param((w, hidden), fc_std, generator),
+        mlp = {"w1": normal_param((w, mlp_in), fc_std, generator),
                "w2": normal_param((hidden, w), proj_std, generator)}
         if cfg.use_bias:
             attn.update(bqkv=nn.Parameter(torch.zeros(qkv_out)),
                         bo=nn.Parameter(torch.zeros(w)))
-            mlp.update(b1=nn.Parameter(torch.zeros(hidden)),
+            mlp.update(b1=nn.Parameter(torch.zeros(mlp_in)),
                        b2=nn.Parameter(torch.zeros(w)))
-        self.ln_1 = layer_norm_params(w)
+        self.ln_1 = layer_norm_params(w, cfg.norm)
         self.attn = nn.ParameterDict(attn)
-        self.ln_2 = layer_norm_params(w)
+        self.ln_2 = layer_norm_params(w, cfg.norm)
         self.mlp = nn.ParameterDict(mlp)
 
     def forward(self, x: torch.Tensor, causal: bool = False,
-                save_probs: bool = True) -> torch.Tensor:
+                save_probs: bool = True, rope=None) -> torch.Tensor:
         """x: [B, S, W] in the compute dtype. `save_probs`: the attention's
-        backward mode (see `ops.attention.multi_head_attention`)."""
-        h = apply_norm(self.ln_1, x)
-        x = x + multi_head_attention(h, self.attn, self.cfg.heads,
-                                     causal=causal, save_probs=save_probs)
-        h = apply_norm(self.ln_2, x)
-        h = get_act(self.cfg.act)(dense(h, self.mlp["w1"],
-                                        self.mlp.get("b1")))
+        backward mode (see `ops.attention.multi_head_attention`); `rope`:
+        the (cos, sin) tables when `cfg.rope`."""
+        cfg = self.cfg
+        h = apply_norm(self.ln_1, x, cfg.norm)
+        x = x + multi_head_attention(h, self.attn, cfg.heads, causal=causal,
+                                     save_probs=save_probs, rope=rope,
+                                     kv_heads=cfg.kv_heads)
+        h = apply_norm(self.ln_2, x, cfg.norm)
+        h = dense(h, self.mlp["w1"], self.mlp.get("b1"))
+        h = swiglu(h) if cfg.act == "swiglu" else get_act(cfg.act)(h)
         return x + dense(h, self.mlp["w2"], self.mlp.get("b2"))
 
 
@@ -91,6 +109,14 @@ class Transformer(nn.ModuleList):
 
     def forward(self, x: torch.Tensor, causal: bool = False,
                 save_probs: bool = True) -> torch.Tensor:
+        cfg = self[0].cfg
+        rope = None
+        if cfg.rope:
+            rope = rope_cos_sin(x.shape[1], cfg.head_dim, cfg.rope_theta,
+                                rotary_percent=cfg.rotary_percent,
+                                seq_len_interpolation_factor=(
+                                    cfg.rope_interpolation),
+                                device=x.device)
         for block in self:
-            x = block(x, causal=causal, save_probs=save_probs)
+            x = block(x, causal=causal, save_probs=save_probs, rope=rope)
         return x

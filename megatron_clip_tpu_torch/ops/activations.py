@@ -31,6 +31,16 @@ def get_act(name: str):
     return _ACTS[name]
 
 
+def swiglu(x_and_gate: torch.Tensor, bias=None) -> torch.Tensor:
+    """SwiGLU of megatron --swiglu: the first linear's 2*ffn_hidden outputs
+    split into value (first half) and gate (second half), silu(gate) *
+    value, as the JAX package's `swiglu`."""
+    if bias is not None:
+        x_and_gate = x_and_gate + bias
+    x, gate = x_and_gate.chunk(2, dim=-1)
+    return F.silu(gate) * x
+
+
 def bias_act(x: torch.Tensor, bias, act: str) -> torch.Tensor:
     """bias-add, then activation."""
     if bias is not None:

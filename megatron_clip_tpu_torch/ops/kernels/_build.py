@@ -21,7 +21,7 @@ CSRC = _PKG / "csrc"
 BUILD_DIR = _PKG / "_build"
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC", "--ptxas-options=-v")
-SOURCES = ("fused_mha", "layernorm", "flash_attention")
+SOURCES = ("fused_mha", "layernorm", "flash_attention", "fused_ce")
 
 _libs: Dict[str, ctypes.CDLL] = {}
 

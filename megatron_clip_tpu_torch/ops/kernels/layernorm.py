@@ -1,11 +1,14 @@
-"""LayerNorm: the CUDA kernels' wrappers, their plain versions and the
-autograd Function that joins them.
+"""LayerNorm and RMSNorm: the CUDA kernels' wrappers, their plain versions
+and the autograd Functions that join them.
 
-Counterpart of `megatron_clip_tpu/ops/pallas/layernorm.py::fused_layer_norm`:
-its forward kernel and its VJP rule `_fln_bwd` (jnp in the JAX package, a
-kernel here). The kernels are in `csrc/layernorm.cu`. `layer_norm_fwd` and
-`layer_norm_bwd` take the plain version for a CPU tensor; for a CUDA tensor
-they launch the kernel or raise. `layer_norm` is what the model calls.
+Counterpart of `megatron_clip_tpu/ops/pallas/layernorm.py::fused_layer_norm`
+(its forward kernel and its VJP rule `_fln_bwd`) and of `fused_rms_norm`
+(the same kernel with rms=True, and `_frms_bwd`); the rules are jnp in the
+JAX package and kernels here. The kernels are in `csrc/layernorm.cu`, the
+RMS ones as variants of the LayerNorm ones. `layer_norm_fwd`,
+`layer_norm_bwd`, `rms_norm_fwd` and `rms_norm_bwd` take the plain version
+for a CPU tensor; for a CUDA tensor they launch the kernel or raise.
+`layer_norm` and `rms_norm` are what the model calls.
 """
 import ctypes
 
@@ -24,11 +27,20 @@ _SIGNATURES = {
          ctypes.c_void_p, ctypes.c_int, ctypes.c_void_p, ctypes.c_longlong,
          ctypes.c_int, ctypes.c_float, ctypes.c_int, ctypes.c_void_p],
         ctypes.c_int),
+    "mct_rms_norm_fwd": (
+        [ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p, ctypes.c_longlong,
+         ctypes.c_int, ctypes.c_float, ctypes.c_int, ctypes.c_void_p],
+        ctypes.c_int),
+    "mct_rms_norm_bwd": (
+        [ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,
+         ctypes.c_void_p, ctypes.c_int, ctypes.c_void_p, ctypes.c_longlong,
+         ctypes.c_int, ctypes.c_float, ctypes.c_int, ctypes.c_void_p],
+        ctypes.c_int),
 }
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 # csrc/layernorm.cu: the backward keeps 4 warps x [2][W] fp32 column sums in
-# shared memory, and its blocks (4 rows each, looping) write at most
-# MAX_BWD_BLOCKS partial rows
+# shared memory (RMS: [1][W]), and its blocks (4 rows each, looping) write at
+# most MAX_BWD_BLOCKS partial rows
 MAX_BWD_WIDTH = 6144
 MAX_BWD_BLOCKS = 1024
 
@@ -87,13 +99,51 @@ def _fp32_vector(name: str, what: str, t: torch.Tensor,
     return t
 
 
+def rms_norm_plain(x: torch.Tensor, scale: torch.Tensor,
+                   eps: float = 1e-6) -> torch.Tensor:
+    """y = x * rsqrt(mean(x^2) + eps) * scale over the last axis, in fp32,
+    result in x's dtype (`_ln_kernel` with rms=True)."""
+    xf = x.float()
+    ms = (xf * xf).mean(-1, keepdim=True)
+    return (xf * torch.rsqrt(ms + eps) * scale.float()).to(x.dtype)
+
+
+def rms_norm_bwd_plain(x: torch.Tensor, scale: torch.Tensor,
+                       dy: torch.Tensor, eps: float = 1e-6):
+    """The JAX package's `_frms_bwd` line by line: rstd recomputed from x in
+    fp32; dx = rstd (g - xhat mean(g xhat)) with xhat = x rstd and
+    g = dy scale, in x's dtype; dscale = sum dy xhat over every row, in
+    scale's dtype."""
+    xf = x.float()
+    dyf = dy.float()
+    rstd = torch.rsqrt((xf * xf).mean(-1, keepdim=True) + eps)
+    xhat = xf * rstd
+    g = dyf * scale.float()
+    dx = rstd * (g - xhat * (g * xhat).mean(-1, keepdim=True))
+    dscale = (dyf * xhat).sum(tuple(range(x.dim() - 1)))
+    return dx.to(x.dtype), dscale.to(scale.dtype)
+
+
 def _no_graph(name: str, *tensors: torch.Tensor) -> None:
     # the kernels write into fresh tensors: a graph through them would be
-    # cut without a word, so autograd callers go through layer_norm
+    # cut without a word, so autograd callers go through layer_norm or
+    # rms_norm
     if torch.is_grad_enabled() and any(t.requires_grad for t in tensors):
         raise RuntimeError(f"{name} is not differentiable itself; call "
-                           "layer_norm, whose autograd Function runs the "
-                           "backward kernel")
+                           "layer_norm or rms_norm, whose autograd Function "
+                           "runs the backward kernel")
+
+
+def _launch(fn: str, x: torch.Tensor, args: list) -> None:
+    """Call the library's `fn` with `args` and the current stream; raise if
+    the launch failed."""
+    lib = _build.load("layernorm", _SIGNATURES)
+    with torch.cuda.device(x.device):
+        stream = torch.cuda.current_stream(x.device).cuda_stream
+        rc = getattr(lib, fn)(*args, stream)
+    if rc != 0:
+        raise RuntimeError(f"{fn}: kernel launch failed (cudaError {rc}) for "
+                           f"shape {tuple(x.shape)}")
 
 
 def layer_norm_fwd(x: torch.Tensor, scale: torch.Tensor, bias: torch.Tensor,
@@ -104,24 +154,43 @@ def layer_norm_fwd(x: torch.Tensor, scale: torch.Tensor, bias: torch.Tensor,
     if x.device.type == "cpu":
         return layer_norm_plain(x, scale, bias, eps)
     _check_rows("layer_norm_fwd", x)
-    rows, w = x.shape
     scale = _fp32_vector("layer_norm_fwd", "scale", scale, x)
     bias = _fp32_vector("layer_norm_fwd", "bias", bias, x)
     y = torch.empty_like(x)
-    lib = _build.load("layernorm", _SIGNATURES)
-    with torch.cuda.device(x.device):
-        stream = torch.cuda.current_stream(x.device).cuda_stream
-        rc = lib.mct_layer_norm_fwd(x.data_ptr(), scale.data_ptr(),
-                                    bias.data_ptr(), y.data_ptr(), rows, w,
-                                    eps, _DTYPES[x.dtype], stream)
-    if rc != 0:
-        raise RuntimeError(f"layer_norm_fwd: kernel launch failed "
-                           f"(cudaError {rc}) for shape {tuple(x.shape)}")
+    _launch("mct_layer_norm_fwd", x,
+            [x.data_ptr(), scale.data_ptr(), bias.data_ptr(), y.data_ptr(),
+             *x.shape, eps, _DTYPES[x.dtype]])
     layer_norm_fwd.launches += 1
     return y
 
 
 layer_norm_fwd.launches = 0
+
+
+def _bwd(name: str, fn: str, nsums: int, x: torch.Tensor,
+         scale: torch.Tensor, dy: torch.Tensor, eps: float):
+    """Launch the backward kernel `fn` with `nsums` column sums per column;
+    returns (dx, sums [nsums, W] fp32)."""
+    _check_rows(name, x)
+    if dy.shape != x.shape or dy.dtype != x.dtype or dy.device != x.device \
+            or not dy.is_contiguous():
+        raise ValueError(f"{name}: dy must be contiguous with x's shape, "
+                         f"dtype and device, got {tuple(dy.shape)} "
+                         f"{dy.dtype} on {dy.device}")
+    rows, w = x.shape
+    if w > MAX_BWD_WIDTH:
+        raise ValueError(f"{name}: width {w} above the kernel's "
+                         f"{MAX_BWD_WIDTH}")
+    scale32 = _fp32_vector(name, "scale", scale, x)
+    nparts = min(-(-rows // 4), MAX_BWD_BLOCKS)
+    dx = torch.empty_like(x)
+    part = torch.empty((nparts, nsums, w), dtype=torch.float32,
+                       device=x.device)
+    sums = torch.empty((nsums, w), dtype=torch.float32, device=x.device)
+    _launch(fn, x, [x.data_ptr(), scale32.data_ptr(), dy.data_ptr(),
+                    dx.data_ptr(), part.data_ptr(), nparts, sums.data_ptr(),
+                    rows, w, eps, _DTYPES[x.dtype]])
+    return dx, sums
 
 
 def layer_norm_bwd(x: torch.Tensor, scale: torch.Tensor, dy: torch.Tensor,
@@ -132,31 +201,8 @@ def layer_norm_bwd(x: torch.Tensor, scale: torch.Tensor, dy: torch.Tensor,
     _no_graph("layer_norm_bwd", x, scale, dy)
     if x.device.type == "cpu":
         return layer_norm_bwd_plain(x, scale, dy, eps)
-    _check_rows("layer_norm_bwd", x)
-    if dy.shape != x.shape or dy.dtype != x.dtype or dy.device != x.device \
-            or not dy.is_contiguous():
-        raise ValueError("layer_norm_bwd: dy must be contiguous with x's "
-                         f"shape, dtype and device, got {tuple(dy.shape)} "
-                         f"{dy.dtype} on {dy.device}")
-    rows, w = x.shape
-    if w > MAX_BWD_WIDTH:
-        raise ValueError(f"layer_norm_bwd: width {w} above the kernel's "
-                         f"{MAX_BWD_WIDTH}")
-    scale32 = _fp32_vector("layer_norm_bwd", "scale", scale, x)
-    nparts = min(-(-rows // 4), MAX_BWD_BLOCKS)
-    dx = torch.empty_like(x)
-    part = torch.empty((nparts, 2, w), dtype=torch.float32, device=x.device)
-    sums = torch.empty((2, w), dtype=torch.float32, device=x.device)
-    lib = _build.load("layernorm", _SIGNATURES)
-    with torch.cuda.device(x.device):
-        stream = torch.cuda.current_stream(x.device).cuda_stream
-        rc = lib.mct_layer_norm_bwd(x.data_ptr(), scale32.data_ptr(),
-                                    dy.data_ptr(), dx.data_ptr(),
-                                    part.data_ptr(), nparts, sums.data_ptr(),
-                                    rows, w, eps, _DTYPES[x.dtype], stream)
-    if rc != 0:
-        raise RuntimeError(f"layer_norm_bwd: kernel launch failed "
-                           f"(cudaError {rc}) for shape {tuple(x.shape)}")
+    dx, sums = _bwd("layer_norm_bwd", "mct_layer_norm_bwd", 2, x, scale, dy,
+                    eps)
     layer_norm_bwd.launches += 1
     return dx, sums[0].to(scale.dtype), sums[1].to(scale.dtype)
 
@@ -189,3 +235,63 @@ def layer_norm(x: torch.Tensor, scale: torch.Tensor, bias: torch.Tensor,
     """x [rows, W] -> LayerNorm(x) in x's dtype, differentiable in x, scale
     and bias through the backward kernel."""
     return LayerNorm.apply(x, scale, bias, eps)
+
+
+def rms_norm_fwd(x: torch.Tensor, scale: torch.Tensor,
+                 eps: float = 1e-6) -> torch.Tensor:
+    """x [rows, W] contiguous fp32/bf16; scale [W]. Returns [rows, W] in x's
+    dtype."""
+    _no_graph("rms_norm_fwd", x, scale)
+    if x.device.type == "cpu":
+        return rms_norm_plain(x, scale, eps)
+    _check_rows("rms_norm_fwd", x)
+    scale = _fp32_vector("rms_norm_fwd", "scale", scale, x)
+    y = torch.empty_like(x)
+    _launch("mct_rms_norm_fwd", x, [x.data_ptr(), scale.data_ptr(),
+                                    y.data_ptr(), *x.shape, eps,
+                                    _DTYPES[x.dtype]])
+    rms_norm_fwd.launches += 1
+    return y
+
+
+rms_norm_fwd.launches = 0
+
+
+def rms_norm_bwd(x: torch.Tensor, scale: torch.Tensor, dy: torch.Tensor,
+                 eps: float = 1e-6):
+    """Gradient of `rms_norm_fwd`: x and dy [rows, W] contiguous in one dtype
+    (fp32/bf16), scale [W]. Returns (dx in x's dtype, dscale in scale's
+    dtype, the sum over every row)."""
+    _no_graph("rms_norm_bwd", x, scale, dy)
+    if x.device.type == "cpu":
+        return rms_norm_bwd_plain(x, scale, dy, eps)
+    dx, sums = _bwd("rms_norm_bwd", "mct_rms_norm_bwd", 1, x, scale, dy, eps)
+    rms_norm_bwd.launches += 1
+    return dx, sums[0].to(scale.dtype)
+
+
+rms_norm_bwd.launches = 0
+
+
+class RMSNorm(torch.autograd.Function):
+    """Saves (x, scale) as the JAX rule `_frms_fwd` does; the backward runs
+    `rms_norm_bwd`."""
+
+    @staticmethod
+    def forward(ctx, x: torch.Tensor, scale: torch.Tensor, eps: float):
+        ctx.save_for_backward(x, scale)
+        ctx.eps = eps
+        return rms_norm_fwd(x, scale, eps)
+
+    @staticmethod
+    def backward(ctx, dy: torch.Tensor):
+        x, scale = ctx.saved_tensors
+        dx, dscale = rms_norm_bwd(x, scale, dy.contiguous(), ctx.eps)
+        return dx, dscale, None
+
+
+def rms_norm(x: torch.Tensor, scale: torch.Tensor,
+             eps: float = 1e-6) -> torch.Tensor:
+    """x [rows, W] -> RMSNorm(x) in x's dtype, differentiable in x and scale
+    through the backward kernel."""
+    return RMSNorm.apply(x, scale, eps)

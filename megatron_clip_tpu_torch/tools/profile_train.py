@@ -3,23 +3,29 @@
     python -m megatron_clip_tpu_torch.tools.profile_train \
         [--model ViT-B-32] [--batch 384] [--recompute]
     python -m megatron_clip_tpu_torch.tools.profile_train \
-        --model gpt-345m [--batch 6] [--seq 2048]
+        --model gpt-345m [--batch 6] [--seq 2048] [--fused-ce]
+    python -m megatron_clip_tpu_torch.tools.profile_train \
+        --model gpt-rope-swiglu --fused-ce [--batch 8]
 
 Builds the model (pure_bf16, random weights from seed 0) with the recipe of
 bench.py's CLIP legs (AdamW b=(0.9, 0.98), eps 1e-6, weight decay 0.2, bf16
 first moments, cosine_lr(1e-3, 100, 10000), clip 1.0; the defaults are its
 primary leg, `--model ViT-L-14 --batch 64 --recompute` and `--model
 ViT-H-14 --batch 24 --recompute` its two larger legs, whose attention
-backward recomputes the probabilities) or of its GPT-345m leg (clip 1.0,
-AdamW(1e-4, b=(0.9, 0.95)) with bf16 first moments, loss chunks of 1024;
-batch 6 at S = 2048 by default, `--seq 8192 --batch 1` for the split flash
-backward), takes 3 warm-up steps on one seeded batch already on the card,
-then traces 3 steps with torch.profiler. Prints one JSON line: wall time,
-device-busy time (the union of kernel and copy intervals), the idle share,
-and device time by category (GEMMs, elementwise, the port's attention and
-LayerNorm kernels forward and backward, the optimizer's multi-tensor
-kernels, copies, other) with the top kernels. Needs a CUDA device; exits
-non-zero without one.
+backward recomputes the probabilities) or of its GPT-345m leg (pure_bf16,
+clip 1.0, AdamW(1e-4, b=(0.9, 0.95)) with bf16 first moments, loss chunks
+of 1024 or with `--fused-ce` the fused lm-head cross entropy; batch 6 at
+S = 2048 by default, `--seq 8192 --batch 1` for the split flash backward),
+or the GPT of examples/pretrain_gpt_dist.sh (`gpt-rope-swiglu`: GPT-345m's
+widths with rope, swiglu and rmsnorm, bf16 compute on fp32 weights, batch 8
+by default, the same optimizer chain), takes 3 warm-up steps on one seeded
+batch already on the card, then traces 3 steps with torch.profiler. Prints
+one JSON line: wall time, device-busy time (the union of kernel and copy
+intervals), the idle share, and device time by category (GEMMs,
+elementwise, the port's attention, LayerNorm, RMSNorm and fused-CE kernels
+forward and backward, the optimizer's multi-tensor kernels, copies, other)
+with the top kernels, and the PyTorch ops whose own kernels took the most
+device time. Needs a CUDA device; exits non-zero without one.
 """
 import argparse
 import json
@@ -39,10 +45,16 @@ REPS = 3
 
 GPT_345M = {"num_layers": 24, "hidden_size": 1024, "num_heads": 16,
             "vocab_size": 50304}
+# examples/pretrain_gpt_dist.sh's options on GPT-345m's widths
+ROPE_SWIGLU = {"position_embedding": "rope", "swiglu": True,
+               "normalization": "rmsnorm"}
 
 
 def _category(name: str) -> str:
     n = name.lower()
+    if "fused_ce_" in n:
+        return ("fused CE bwd (fused_ce.cu)" if "fused_ce_bwd" in n
+                else "fused CE fwd (fused_ce.cu)")
     if "view<" in n:  # flash_attention.cu's kernels take View operands
         return ("attention bwd (flash_attention.cu)" if "bwd_" in n
                 else "attention fwd (flash_attention.cu)")
@@ -50,6 +62,9 @@ def _category(name: str) -> str:
         return "attention bwd (fused_mha.cu)"
     if "tc::fwd" in n or "simt::fwd" in n:
         return "attention fwd (fused_mha.cu)"
+    if "ln_" in n and ", true>" in n:  # the RMS variants
+        return ("rmsnorm bwd (layernorm.cu)" if "ln_bwd" in n
+                else "rmsnorm fwd (layernorm.cu)")
     if "ln_bwd" in n:
         return "layernorm bwd (layernorm.cu)"
     if "ln_fwd" in n:
@@ -65,8 +80,14 @@ def _category(name: str) -> str:
     return "other"
 
 
-def main() -> int:
-    ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
+def _top_ops(prof, n: int = 16) -> list:
+    """The `n` PyTorch ops whose own kernels took the most device time in
+    the window ([op name, ms]): where the elementwise time comes from."""
+    ops = [(e.key, e.self_device_time_total / 1e3)
+           for e in prof.key_averages() if e.self_device_time_total > 0]
+    return sorted(ops, key=lambda kv: -kv[1])[:n]
+
+
 def _clip_step(args):
     """(step on the seeded batch, what the JSON line says of the run)."""
     import megatron_clip_tpu_torch as port
@@ -92,8 +113,9 @@ def _clip_step(args):
         nonlocal state
         state, metrics = step(state, images, texts)
         return metrics
-    return run, {"batch": batch, "attention_backward":
-                 "recompute" if args.recompute else "saved P"}
+    return run, {"batch": batch, "precision": "pure_bf16",
+                 "attention_backward": "recompute" if args.recompute
+                 else "saved P"}
 
 
 def _gpt_step(args):
@@ -103,12 +125,16 @@ def _gpt_step(args):
     from megatron_clip_tpu_torch.training import (TrainState,
                                                   make_gpt_optimizer,
                                                   make_gpt_train_step)
-    batch, seq = args.batch or 6, args.seq
-    cfg = GPTCfg(**GPT_345M, seq_length=seq)
-    model = create_gpt(cfg, precision="pure_bf16", seed=SEED).train()
+    example = args.model == "gpt-rope-swiglu"
+    batch, seq = args.batch or (8 if example else 6), args.seq
+    precision = "bf16" if example else "pure_bf16"
+    cfg = GPTCfg(**GPT_345M, **(ROPE_SWIGLU if example else {}),
+                 seq_length=seq)
+    model = create_gpt(cfg, precision=precision, seed=SEED).train()
     opt = make_gpt_optimizer(model)
     state = TrainState.create(model, opt)
-    step = make_gpt_train_step(model, opt, loss_seq_chunk=1024)
+    step = make_gpt_train_step(model, opt, loss_seq_chunk=1024,
+                               fused_ce=args.fused_ce)
     tokens = torch.from_numpy(np.random.default_rng(SEED).integers(
         1, cfg.vocab_size - 1, (batch, seq + 1))).cuda()
 
@@ -116,18 +142,24 @@ def _gpt_step(args):
         nonlocal state
         state, metrics = step(state, tokens)
         return metrics
-    return run, {"batch": batch, "seq": seq, "attention_backward":
-                 "fused" if uses_fused_bwd(seq) else "split dQ / dKV"}
+    return run, {"batch": batch, "seq": seq, "precision": precision,
+                 "loss": "fused_ce" if args.fused_ce else "chunks of 1024",
+                 "attention_backward": "fused" if uses_fused_bwd(seq)
+                 else "split dQ / dKV"}
 
 
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--model", default="ViT-B-32",
-                    help="a CLIP model name or gpt-345m")
+                    help="a CLIP model name, gpt-345m or gpt-rope-swiglu")
     ap.add_argument("--batch", type=int, default=None,
-                    help="default 384 (CLIP) or 6 (gpt-345m)")
+                    help="default 384 (CLIP), 6 (gpt-345m) or 8 "
+                         "(gpt-rope-swiglu)")
     ap.add_argument("--seq", type=int, default=2048,
-                    help="gpt-345m's sequence length")
+                    help="the GPT's sequence length")
+    ap.add_argument("--fused-ce", action="store_true",
+                    help="the GPT loss through the fused lm-head cross "
+                         "entropy instead of loss chunks of 1024")
     ap.add_argument("--recompute", action="store_true",
                     help="recompute the attention probabilities in the "
                          "backward (MCT_MHA_SAVE_PROBS=0) instead of saving "
@@ -142,7 +174,7 @@ def main() -> int:
         ["nvidia-smi", "--query-gpu=name,power.limit",
          "--format=csv,noheader"], capture_output=True, text=True,
         check=True, timeout=60).stdout.strip().splitlines()[0]
-    run, about = (_gpt_step if args.model == "gpt-345m"
+    run, about = (_gpt_step if args.model.startswith("gpt-")
                   else _clip_step)(args)
     for _ in range(WARMUP):
         run()
@@ -157,9 +189,9 @@ def main() -> int:
         wall = (time.perf_counter() - t0) * 1e3
     window = _window(prof, wall, _category)
     print(json.dumps({"card": card, "model": args.model, **about,
-                      "precision": "pure_bf16",
                       "window": f"{REPS} train steps, batch on the card",
-                      "loss": float(metrics["loss"]), **window}))
+                      "loss": float(metrics["loss"]), **window,
+                      "top_ops_device_ms": _top_ops(prof)}))
     return 0
 
 

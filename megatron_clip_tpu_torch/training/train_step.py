@@ -6,8 +6,12 @@ dropout, which come with their slices. One CLIP step: the training forward
 of both towers, the contrastive loss, backward through the attention and
 LayerNorm kernels, the optimizer update in place, and the post-step clamp of
 logit_scale to [0, ln 100]. One GPT step (`make_gpt_train_step`) is
-bench.py's `bench_gpt_345m` step: `gpt_loss`, its backward, the clipped
-AdamW update in place.
+bench.py's `bench_gpt_345m` step: `gpt_loss` (chunked, or through the fused
+lm-head cross entropy of `pretrain_gpt.py --fused-ce`), its backward, the
+clipped AdamW update in place. The optimizer of `pretrain_gpt.py`'s own
+runtime (`training/workload.py`: its schedules and decay masks) is not
+ported yet (ROADMAP Queue A item 4); the GPT step takes bench.py's chain
+(`make_gpt_optimizer`).
 
 The metrics stay device tensors: the step itself never waits for the card.
 """
@@ -67,18 +71,21 @@ def make_train_step(model: CLIPModel, optimizer: AdamW, *,
 
 
 def make_gpt_train_step(model: GPTModel, optimizer: AdamW, *,
-                        loss_seq_chunk: int = 0) -> Callable:
+                        loss_seq_chunk: int = 0,
+                        fused_ce: bool = False) -> Callable:
     """Build `step(state, tokens) -> (state, metrics)` for `model`, whose
     parameters `optimizer` was made for: tokens [B, S+1] integer ids on the
-    model's device, inputs tokens[:, :-1] predicting tokens[:, 1:].
-    metrics: `loss` and `grad_norm` (the global norm before clipping), as
-    0-d device tensors."""
+    model's device, inputs tokens[:, :-1] predicting tokens[:, 1:]. The
+    loss is `gpt_loss` with `loss_seq_chunk` or `fused_ce` (which wins when
+    both are given, as in the JAX package). metrics: `loss` and `grad_norm`
+    (the global norm before clipping), as 0-d device tensors."""
     params = dict(model.named_parameters())
 
     def step(state: TrainState, tokens):
         for p in params.values():
             p.grad = None
-        loss = gpt_loss(model, tokens, loss_seq_chunk=loss_seq_chunk)
+        loss = gpt_loss(model, tokens, loss_seq_chunk=loss_seq_chunk,
+                        fused_ce=fused_ce)
         loss.backward()
         grads = {n: p.grad for n, p in params.items()}
         opt_state, grad_norm = optimizer.update(state.opt_state, grads)

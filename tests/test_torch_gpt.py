@@ -4,6 +4,11 @@ against the JAX package's `gpt_loss` and bench.py's optax chain on the CPU.
 A small GPT (2 layers, width 64, 2 heads, vocab 512) at S = 1100, above the
 fused-MHA gate, so the port's blocks run the flash path (its plain versions
 here); the JAX package's run sdpa_bshd on the CPU, the same function.
+The GPT of examples/pretrain_gpt_dist.sh (rope, swiglu, rmsnorm, biases,
+tied embedding) cut to 2 layers of width 64, 4 heads, vocab 512, S = 256
+(the flash path from MIN_FLASH_SEQ on), with and without grouped-query
+attention, its loss through the fused CE (the JAX side's Pallas kernels
+in interpret mode) and through full logits, under the same tolerances.
 Weights come from JAX `init_gpt` through `bridge.gpt_params_from_jax`;
 tokens from numpy with a seed.
 
@@ -49,11 +54,14 @@ from megatron_clip_tpu_torch.training import (TrainState, make_gpt_optimizer,
 
 SMALL = dict(num_layers=2, hidden_size=64, num_heads=2, vocab_size=512,
              seq_length=1100)
+EXAMPLE = dict(num_layers=2, hidden_size=64, num_heads=4, vocab_size=512,
+               seq_length=256, position_embedding="rope", swiglu=True,
+               normalization="rmsnorm")
 BATCH = 2
 
 
-def _setup(dtype="float32", seed=0, **over):
-    kw = dict(SMALL, **over)
+def _setup(dtype="float32", seed=0, base=SMALL, **over):
+    kw = dict(base, **over)
     jcfg, pcfg = jax_gpt.GPTCfg(**kw), GPTCfg(**kw)
     jd = jnp.float32 if dtype == "float32" else jnp.bfloat16
     params = jax_gpt.init_gpt(jax.random.PRNGKey(seed), jcfg, dtype=jd)
@@ -108,7 +116,46 @@ def test_chunked_loss_equals_the_whole_one_with_a_loss_mask():
             rtol=1e-6, atol=0)
 
 
-def _jax_steps(jcfg, params, tokens, dtype, n):
+@pytest.mark.parametrize("fused_ce", [False, True])
+@pytest.mark.parametrize("over", [{}, dict(kv_heads=2, tie_embeddings=False)],
+                         ids=["tied", "gqa_untied"])
+def test_example_gpt_loss_and_gradients_match_jax(over, fused_ce):
+    jcfg, params, model, tokens = _setup(base=EXAMPLE, **over)
+    assert not hasattr(model, "pos_embed")
+    jt = jnp.asarray(tokens, jnp.int32)
+    want, want_g = jax.value_and_grad(lambda p: jax_gpt.gpt_loss(
+        p, jt, jcfg, compute_dtype=jnp.float32, fused_ce=fused_ce))(params)
+    got = gpt_loss(model, torch.from_numpy(tokens), fused_ce=fused_ce)
+    got.backward()
+    np.testing.assert_allclose(float(got.detach()), float(want), rtol=1e-5)
+    got_g, want_g = _port_grads(model), _jax_grads(want_g, jcfg)
+    assert got_g.keys() == want_g.keys()
+    for name, w in want_g.items():
+        np.testing.assert_allclose(got_g[name], w, rtol=0,
+                                   atol=1e-4 * np.abs(w).max(),
+                                   err_msg=name)
+
+
+def test_fused_ce_loss_equals_the_chunked_one_with_a_loss_mask():
+    _, _, model, tokens = _setup(base=EXAMPLE, seed=4)
+    mask = torch.from_numpy(np.random.default_rng(5).random(tokens.shape)
+                            > 0.3).float()
+    t = torch.from_numpy(tokens)
+    torch.testing.assert_close(
+        gpt_loss(model, t, loss_mask=mask, fused_ce=True),
+        gpt_loss(model, t, loss_mask=mask, loss_seq_chunk=128),
+        rtol=1e-6, atol=0)
+
+
+def test_rope_attention_below_the_flash_gate_raises():
+    """With rope the fused-MHA kernels are never taken, and below
+    MIN_FLASH_SEQ = 256 the JAX package runs sdpa_bshd, not ported yet."""
+    model = GPTModel(GPTCfg(**dict(EXAMPLE, seq_length=128)))
+    with pytest.raises(NotImplementedError, match="sdpa_bshd"):
+        gpt_loss(model, torch.zeros(1, 129, dtype=torch.long))
+
+
+def _jax_steps(jcfg, params, tokens, dtype, n, fused_ce=False):
     tx = optax.chain(optax.clip_by_global_norm(1.0),
                      optax.adamw(1e-4, b1=0.9, b2=0.95,
                                  mu_dtype=jnp.bfloat16))
@@ -119,7 +166,7 @@ def _jax_steps(jcfg, params, tokens, dtype, n):
     def step(params, opt, tokens):
         loss, g = jax.value_and_grad(lambda p: jax_gpt.gpt_loss(
             p, tokens, jcfg, tcfg=tcfg, loss_seq_chunk=1024,
-            compute_dtype=dtype))(params)
+            compute_dtype=dtype, fused_ce=fused_ce))(params)
         upd, opt = tx.update(g, opt, params)
         return optax.apply_updates(params, upd), opt, loss, \
             optax.global_norm(g)
@@ -163,6 +210,43 @@ def test_three_bench_steps_match_optax(dtype):
             assert float((got_p - w).norm()) <= param_tol * moved, name
 
 
+def test_example_gpt_three_steps_match_optax():
+    """Three fp32 steps of the example GPT (GQA, fused CE) in bench.py's
+    chain, under the fp32 bounds of test_three_bench_steps_match_optax."""
+    jcfg, params, model, tokens = _setup(base=EXAMPLE, seed=3, kv_heads=2)
+    init = {n: p.detach().clone() for n, p in model.named_parameters()}
+    want_params, want = _jax_steps(jcfg, params, tokens, jnp.float32, 3,
+                                   fused_ce=True)
+    opt = make_gpt_optimizer(model)
+    state = TrainState.create(model, opt)
+    step = make_gpt_train_step(model, opt, fused_ce=True)
+    for wl, wn in want:
+        state, m = step(state, torch.from_numpy(tokens))
+        assert abs(float(m["loss"]) - wl) <= 1e-5 * abs(wl)
+        assert abs(float(m["grad_norm"]) - wn) <= 1e-5 * abs(wn)
+    flat = gpt_params_from_jax(jax.tree.map(np.asarray, want_params),
+                               GPTCfg(**EXAMPLE))
+    for name, p in model.named_parameters():
+        moved = float((flat[name] - init[name]).norm())
+        assert float((p.detach() - flat[name]).norm()) <= 1e-3 * moved, name
+
+
+def test_bridge_carries_the_example_tree():
+    """RMSNorm scale-only norms, the swiglu w1 [W, 2 * 4W] and b1, the GQA
+    wqkv width (heads + 2 kv_heads) * D, and no pos_embed."""
+    cfg = dict(EXAMPLE, kv_heads=2)
+    jcfg, params, model, _ = _setup(base=EXAMPLE, kv_heads=2)
+    sd = gpt_params_from_jax(params, GPTCfg(**cfg))
+    assert sd.keys() == dict(model.named_parameters()).keys()
+    assert "pos_embed" not in sd and "ln_f.bias" not in sd
+    assert "blocks.0.ln_1.bias" not in sd
+    assert sd["blocks.1.mlp.w1"].shape == (64, 2 * 256)
+    assert sd["blocks.1.mlp.b1"].shape == (2 * 256,)
+    assert sd["blocks.0.attn.wqkv"].shape == (64, (4 + 2 * 2) * 16)
+    np.testing.assert_array_equal(sd["blocks.1.mlp.w1"].numpy(),
+                                  np.asarray(params["blocks"]["mlp"]["w1"][1]))
+
+
 def test_bridge_carries_the_jax_tree():
     jcfg, params, model, _ = _setup(tie_embeddings=False)
     sd = gpt_params_from_jax(params, GPTCfg(**SMALL, tie_embeddings=False))
@@ -204,18 +288,15 @@ def test_create_gpt_without_device_needs_cuda():
         create_gpt(GPTCfg(**SMALL))
 
 
-@pytest.mark.parametrize("over", [dict(position_embedding="rope"),
-                                  dict(swiglu=True), dict(squared_relu=True),
-                                  dict(normalization="rmsnorm"),
-                                  dict(kv_heads=1), dict(kv_channels=16),
+@pytest.mark.parametrize("over", [dict(squared_relu=True),
+                                  dict(kv_channels=16),
                                   dict(num_experts=4)])
 def test_unported_options_raise(over):
     with pytest.raises(NotImplementedError, match="ROADMAP"):
         GPTModel(GPTCfg(**SMALL, **over))
 
 
-@pytest.mark.parametrize("kw", [dict(fused_ce=True),
-                                dict(position_ids=np.arange(8)),
+@pytest.mark.parametrize("kw", [dict(position_ids=np.arange(8)),
                                 dict(attn_bias=np.zeros(1))])
 def test_unported_loss_options_raise(kw):
     model = GPTModel(GPTCfg(**dict(SMALL, seq_length=8)))

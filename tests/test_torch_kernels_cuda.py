@@ -47,12 +47,23 @@ fused backward adds dQ with fp32 atomics, whose order changes from run to
 run: on a view its dQ is held to the contiguous run's within 1e-6 relative,
 or in bf16 within two bf16 ulps, since its rounding can fall either way;
 every other output of every kernel must be equal.
+
+The RMSNorm kernels (LayerNorm's without the mean and the bias) under the
+LayerNorm bounds. The fused lm-head cross entropy: loss and lse within
+1e-5 absolute plus 2e-5 relative (fp32 logits summed in another order, the
+softmax sum folded per 64-column partial), fp32 gradients within 1e-5
+relative plus 5e-5 of the largest |value| (sums of T or V terms added with
+atomics in an order that changes from run to run), bf16 gradients row by
+row as the flash ones (dlogits rounded to bf16 on both sides from fp32
+logits summed in another order).
 """
 import numpy as np
 import pytest
 import torch
 
+from megatron_clip_tpu_torch.ops.kernels import fused_ce as ce
 from megatron_clip_tpu_torch.ops.kernels import flash_attention as fa
+from megatron_clip_tpu_torch.ops.kernels import layernorm as ln
 from megatron_clip_tpu_torch.ops.kernels.fused_mha import (
     fused_mha, fused_mha_bwd, fused_mha_bwd_plain, fused_mha_bwd_recompute,
     fused_mha_bwd_recompute_plain, fused_mha_fwd, fused_mha_plain)
@@ -460,3 +471,106 @@ def test_flash_kernels_refuse_what_they_do_not_take(cuda):
     big = torch.zeros(1, 1, 300, 256, device=cuda)
     with pytest.raises(ValueError, match="range"):
         fa.flash_fwd(big, big, big)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("rows,w", [(8 * 2048, 1024), (77, 512), (5, 100),
+                                    (3, 4100)])
+def test_rms_norm_kernels_match_plain(cuda, dtype, rows, w):
+    rng = np.random.default_rng(11)
+    x, dy = (torch.from_numpy(a.astype(np.float32)).to(cuda, dtype) for a in
+             (rng.standard_normal((rows, w)) * 3 + 1,
+              rng.standard_normal((rows, w))))
+    scale = torch.from_numpy(rng.standard_normal(w).astype(np.float32)).to(
+        cuda)
+    before = (ln.rms_norm_fwd.launches, ln.rms_norm_bwd.launches)
+    y = ln.rms_norm_fwd(x, scale)
+    dx, dscale = ln.rms_norm_bwd(x, scale, dy)
+    assert (ln.rms_norm_fwd.launches, ln.rms_norm_bwd.launches) == \
+        (before[0] + 1, before[1] + 1)
+    assert y.dtype == dx.dtype == dtype and dscale.dtype == torch.float32
+    want_dx, want_dscale = ln.rms_norm_bwd_plain(x, scale, dy)
+    tol = (1e-5, 1e-5) if dtype == torch.float32 else (8e-3, 4e-3)
+    torch.testing.assert_close(y, ln.rms_norm_plain(x, scale), rtol=tol[0],
+                               atol=tol[1])
+    torch.testing.assert_close(dx, want_dx, rtol=tol[0], atol=tol[1])
+    torch.testing.assert_close(dscale, want_dscale, rtol=1e-5, atol=1e-4)
+
+
+def test_rms_norm_autograd_runs_both_kernels(cuda):
+    x = torch.randn(50, 768, device=cuda, requires_grad=True)
+    scale = torch.randn(768, device=cuda, requires_grad=True)
+    dy = torch.randn(50, 768, device=cuda)
+    before = (ln.rms_norm_fwd.launches, ln.rms_norm_bwd.launches)
+    got = torch.autograd.grad(ln.rms_norm(x, scale), (x, scale), dy)
+    assert (ln.rms_norm_fwd.launches, ln.rms_norm_bwd.launches) == \
+        (before[0] + 1, before[1] + 1)
+    want = torch.autograd.grad(ln.rms_norm_plain(x, scale), (x, scale), dy)
+    for g, w in zip(got, want):
+        torch.testing.assert_close(g, w, rtol=1e-4, atol=1e-4)
+
+
+def _ce_inputs(cuda, dtype, t, w, v, tied, seed=12):
+    gen = torch.Generator().manual_seed(seed)
+    x = torch.randn(t, w, generator=gen).to(cuda, dtype)
+    emb = (torch.randn(v, w, generator=gen) * 0.05).to(cuda, dtype)
+    labels = torch.randint(0, v, (t,), generator=gen).to(cuda)
+    dloss = (torch.rand(t, generator=gen) / t).to(cuda)
+    return x, emb.t() if tied else emb.t().contiguous(), labels, dloss
+
+
+# (T, W, V, tied): 4813 tokens span three groups of the tensor-core
+# kernels' tile order (16, 16 and 6 token tiles of 128, the last of 77)
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("t,w,v,tied", [(1024, 1024, 50304, True),
+                                        (1000, 1024, 1000, False),
+                                        (4813, 1024, 1000, True),
+                                        (300, 128, 1000, True),
+                                        (77, 1000, 333, True)])
+def test_fused_ce_kernels_match_plain(cuda, dtype, t, w, v, tied):
+    x, head, labels, dloss = _ce_inputs(cuda, dtype, t, w, v, tied)
+    before = (ce.fused_ce_fwd.launches, ce.fused_ce_bwd.launches)
+    loss, lse = ce.fused_ce_fwd(x, head, labels)
+    want_loss, want_lse = ce.fused_ce_fwd_plain(x, head, labels)
+    torch.testing.assert_close(loss, want_loss, rtol=2e-5, atol=1e-5)
+    torch.testing.assert_close(lse, want_lse, rtol=2e-5, atol=1e-5)
+    dx, dw = ce.fused_ce_bwd(x, head, labels, want_lse, dloss)
+    assert (ce.fused_ce_fwd.launches, ce.fused_ce_bwd.launches) == \
+        (before[0] + 1, before[1] + 1)
+    assert dx.dtype == dw.dtype == dtype and dw.shape == head.shape
+    want_dx, want_dw = ce.fused_ce_bwd_plain(x, head, labels, want_lse, dloss)
+    for g, want in ((dx, want_dx), (dw.t(), want_dw.t())):
+        if dtype == torch.float32:
+            torch.testing.assert_close(
+                g, want, rtol=1e-5, atol=5e-5 * float(want.abs().max()))
+        else:
+            _close_rows(g, want)
+
+
+def test_fused_ce_autograd_runs_both_kernels_into_the_tied_embedding(cuda):
+    x, head, labels, _ = _ce_inputs(cuda, torch.bfloat16, 500, 256, 3000,
+                                    True)
+    emb = head.t().float().requires_grad_(True)  # [V, W] fp32 master
+    xr = x.detach().requires_grad_(True)
+    before = (ce.fused_ce_fwd.launches, ce.fused_ce_bwd.launches)
+    loss = ce.fused_linear_cross_entropy(xr, emb.t().to(torch.bfloat16),
+                                         labels).mean()
+    loss.backward()
+    assert (ce.fused_ce_fwd.launches, ce.fused_ce_bwd.launches) == \
+        (before[0] + 1, before[1] + 1)
+    assert emb.grad.shape == (3000, 256) and emb.grad.dtype == torch.float32
+    want_dx, want_dw = ce.fused_ce_bwd_plain(
+        x, head, labels, ce.fused_ce_fwd_plain(x, head, labels)[1],
+        torch.full((500,), 1 / 500, device=cuda))
+    _close_rows(xr.grad, want_dx)
+    _close_rows(emb.grad, want_dw.t())
+
+
+def test_fused_ce_kernels_refuse_what_they_do_not_take(cuda):
+    x, head, labels, _ = _ce_inputs(cuda, torch.bfloat16, 64, 128, 256, True)
+    with pytest.raises(TypeError, match="dtype"):
+        ce.fused_ce_fwd(x, head.float(), labels)
+    with pytest.raises(ValueError, match="contiguous"):
+        ce.fused_ce_fwd(x.t().contiguous().t(), head, labels)
+    with pytest.raises(ValueError, match="expected"):
+        ce.fused_ce_fwd(x, head[:64], labels)

@@ -1,4 +1,5 @@
-"""Port's LayerNorm vs the JAX package's fused LayerNorm kernel.
+"""Port's LayerNorm and RMSNorm vs the JAX package's fused LayerNorm and
+RMSNorm kernels.
 
 On the CPU the port runs the plain version of its kernel; the JAX side runs
 the Pallas kernel, which interprets itself off the TPU. The CUDA kernel
@@ -10,6 +11,11 @@ The backward: the port's autograd Function against `jax.vjp` of
 `fused_layer_norm` (its rule `_fln_bwd`). dx 1e-5; dscale and dbias are
 fp32 sums over every row taken in another order, 1e-5 relative plus 1e-4
 absolute (their values reach a few hundred at 1000 rows).
+
+RMSNorm: the port's `rms_norm` against `fused_rms_norm` (the Pallas kernel
+with rms=True) and the jnp `rms_norm` the JAX package's models call, forward
+1e-5; its backward against `jax.vjp` of `fused_rms_norm` (rule `_frms_bwd`),
+dx 1e-5 and dscale as dscale above.
 """
 import jax
 import jax.numpy as jnp
@@ -17,9 +23,12 @@ import numpy as np
 import pytest
 import torch
 
-from megatron_clip_tpu.ops.pallas.layernorm import fused_layer_norm
+from megatron_clip_tpu.ops.normalization import rms_norm as jax_rms_norm
+from megatron_clip_tpu.ops.pallas.layernorm import (fused_layer_norm,
+                                                    fused_rms_norm)
+from megatron_clip_tpu_torch.ops.kernels import layernorm as ln
 from megatron_clip_tpu_torch.ops.kernels.layernorm import layer_norm_plain
-from megatron_clip_tpu_torch.ops.normalization import layer_norm
+from megatron_clip_tpu_torch.ops.normalization import layer_norm, rms_norm
 
 
 def _inputs(shape, seed=0):
@@ -65,3 +74,45 @@ def test_bf16_input_keeps_dtype_with_fp32_stats():
     np.testing.assert_allclose(got.float().numpy(), want.numpy(),
                                rtol=1e-2, atol=1e-2)
 
+
+
+@pytest.mark.parametrize("shape", [(4, 77, 512), (1000, 768), (3, 5, 100)])
+def test_rms_norm_matches_jax_fused_kernel_and_jnp(shape):
+    x, scale, _ = _inputs(shape, seed=5)
+    before = ln.rms_norm_fwd.launches
+    got = rms_norm(torch.from_numpy(x), torch.from_numpy(scale)).numpy()
+    assert ln.rms_norm_fwd.launches == before  # the CPU takes the plain version
+    for want in (fused_rms_norm(jnp.asarray(x), jnp.asarray(scale)),
+                 jax_rms_norm(jnp.asarray(x), jnp.asarray(scale))):
+        np.testing.assert_allclose(got, np.asarray(want), rtol=1e-5,
+                                   atol=1e-5)
+
+
+@pytest.mark.parametrize("shape", [(4, 77, 512), (1000, 768)])
+def test_rms_norm_backward_matches_jax_vjp(shape):
+    x, scale, _ = _inputs(shape, seed=6)
+    dy = np.random.default_rng(7).standard_normal(shape).astype(np.float32)
+    _, vjp = jax.vjp(fused_rms_norm, jnp.asarray(x), jnp.asarray(scale))
+    want = vjp(jnp.asarray(dy))
+    args = [torch.from_numpy(a).requires_grad_(True) for a in (x, scale)]
+    got = torch.autograd.grad(rms_norm(*args), args, torch.from_numpy(dy))
+    for g, w, atol in zip(got, want, (1e-5, 1e-4)):
+        np.testing.assert_allclose(g.numpy(), np.asarray(w), rtol=1e-5,
+                                   atol=atol)
+
+
+def test_rms_norm_bf16_keeps_dtype_and_eps():
+    """bf16 in, bf16 out with fp32 statistics; eps is 1e-6 (megatron
+    RMSNorm), not LayerNorm's 1e-5: a row of zeros normalises to 0 and a
+    tiny row is scaled by 1/sqrt(ms + 1e-6)."""
+    x, scale, _ = _inputs((6, 96), seed=8)
+    xb = torch.from_numpy(x).to(torch.bfloat16)
+    got = rms_norm(xb, torch.from_numpy(scale))
+    assert got.dtype == torch.bfloat16
+    np.testing.assert_allclose(
+        got.float().numpy(),
+        ln.rms_norm_plain(xb.float(), torch.from_numpy(scale)).numpy(),
+        rtol=1e-2, atol=1e-2)
+    tiny = torch.full((1, 4), 1e-3)
+    np.testing.assert_allclose(rms_norm(tiny, torch.ones(4)).numpy(),
+                               1e-3 / np.sqrt(1e-6 + 1e-6), rtol=1e-5)
