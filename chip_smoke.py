@@ -84,22 +84,53 @@ imports nothing of JAX or of the JAX package. Phases, each of which raises
      of its config with grouped-query attention (4 k/v heads, 2 layers,
      S = 512), card against CPU; and GPT-345m (phase 9's model and batch)
      through the fused CE, beside phase 9's chunked run: step times and
-     peak memory of both.
+     peak memory of both;
+ 11. pipeline GPT: the training path of examples/pretrain_gpt_pipeline.sh
+     on one card (32 x 2048, 16 heads of 128, vocab 50304, learned
+     positions, gelu_tanh, LayerNorm, biases, the tied embedding, attention
+     and hidden dropout 0.1, --fused-ce, bf16 compute on fp32 weights,
+     selective recompute; 1,718,685,696 parameters), the step's dropout
+     seeded from 1234: batch 8 x S = 2048, 2 warm-up and 10 timed steps on
+     the flash dropout kernels, then one full-recompute step from the same
+     weights and batch (time, peak memory); the same model at S = 512,
+     batch 32, 2 + 5 steps on the fused-MHA dropout kernels; S = 8192 at
+     batch 1 and 8 layers, 2 + 3 steps through the split dQ / dKV backward
+     with dropout; every step holding exact launch counts (no rate-0
+     attention kernel; LayerNorm's forward once more per block norm that
+     the recompute replays) and a falling loss; then fp32 steps at full
+     width (2 layers, batch 1, attention dropout 0.1, hidden dropout 0) at
+     S = 512 (fused route) and S = 1280 (flash route), card against CPU on
+     the same Philox masks.
 
 Phases 3 and 6 also hold and time the fused lm-head cross entropy (forward;
 the one backward kernel for dX and dW) at full width and vocabulary (T of
 2048 in bf16, 512 in fp32), on the tied and untied head, at a ragged T with
 V = 1000 and at W = 1000 (bf16 rows the tensor cores do not take), with a
 kernel made to leave out the last vocabulary tile failing its bounds, and
-time it at the example's T = 16384 beside F.cross_entropy(x @ w); and the
-RMSNorm kernels at the example's rows. They also hold and time the four
+time it at the example's T = 16384 beside F.cross_entropy(x @ w), and
+hold it in bf16 at the example's T = 16384, W = 1024 and the pipeline
+GPT's T = 16384, W = 2048; and the RMSNorm kernels at the example's rows. They also hold and time the four
 flash-attention kernels at the
 GPT shapes (B=6 H=16 S=2048 D=64 and B=1 S=8192, both masks), at ragged
 lengths (1100, 4200), with Sq != Sk, and on the packed projection's head
 views, against their plain versions and F.scaled_dot_product_attention
 (bf16 gradients row by row, and each backward kernel made to leave out a
 row per tile must fail that bound), and the LayerNorm kernels at GPT's
-rows.
+and the pipeline GPT's rows.
+
+Phases 3 and 6 also hold and time the dropout kernels (flash's four and
+the fused-MHA forward and recompute backward, each drawing its mask from
+Philox4x32-10 in the kernel): the mask each library exports against the
+plain Philox of ops/dropout.py bit for bit and its keep share within 5
+sigma, each kernel against its plain version fed the same multipliers in
+fp32 and bf16 (the fused route at the pipeline GPT's S = 512 heads, at
+its batch 32 there, at H = 12, D = 64 and at S = 333; flash at B = 2,
+S = 2048, at S = 1100, and at the path's B = 8, S = 2048 and B = 1,
+S = 8192 on the packed projection's head views, the backward also into
+the packed gradient buffer), kernels built to draw per tile or a column off
+failing the mask check and the output bounds, and each kernel's time at
+the pipeline GPT's shapes beside its rate-0 kernel, its plain version and
+SDPA with dropout_p = 0.1.
 
 The last three lines of standard output are the card's name and power
 limit, the {"kernels": [...]} line and {"ok": true, "device": {...}}.
@@ -166,9 +197,41 @@ EXAMPLE_RUN = (8, 2048, 2, 15)
 # for 16 query heads), and GPT-345m's timed steps through the fused CE
 GQA_KV_HEADS, GQA_PARITY_SEQ = 4, 512
 FUSED_345M_STEPS = 15
+# phase 11: examples/pretrain_gpt_pipeline.sh's GPT without its PP/VPP/TP
+# flags (32 x 2048, 16 heads of 128, vocab 50304, learned positions,
+# gelu_tanh, LayerNorm, biases, the tied embedding, megatron's dropout
+# defaults, --fused-ce, bf16 compute on fp32 weights, its default
+# REMAT=selective), the step's dropout seeded from PIPELINE_SEED
+PIPELINE_GPT = {"num_layers": 32, "hidden_size": 2048, "num_heads": 16,
+                "vocab_size": 50304, "attention_dropout": 0.1,
+                "hidden_dropout": 0.1}
+PIPELINE_PARAMS = 1_718_685_696
+PIPELINE_SEED = 1234
+PIPELINE_HEADS, PIPELINE_HEAD_DIM = 16, 128
+# (batch, S, warm-up steps, timed steps): the example's microbatch of
+# 128 / 16 = 8 at S = 2048 (flash with dropout), then the same model at
+# --seq-length 512 on the same 16,384 tokens (the fused-MHA dropout kernels)
+PIPELINE_RUNS = ((8, 2048, 2, 10), (32, 512, 2, 5))
+# (batch, S, layers, warm-up, timed): S = 8192 at full width and 8 layers,
+# through the split dQ / dKV backward with dropout
+PIPELINE_LONG = (1, 8192, 8, 2, 3)
+# the fp32 card-against-CPU steps: 2 layers, batch 1, attention dropout
+# 0.1 and hidden dropout 0 (the CPU's generator draws another hidden mask),
+# at S = 512 (fused route) and S = 1280 (flash route)
+PIPELINE_PARITY_SEQS = (512, 1280)
+# the kernels made wrong on purpose (csrc/philox.cuh): a mask drawn per
+# 64 x 64 tile, and one shifted by a column
+DROPOUT_FAULTS = ("MCT_DROPOUT_FAULT=1", "MCT_DROPOUT_FAULT=2")
+
+
+_T0 = time.perf_counter()
 
 
 def log(msg: str) -> None:
+    """Print `msg`; a phase's header ("[n] ...") with the seconds since
+    the script started."""
+    if msg.startswith("["):
+        msg = f"{msg} (at {time.perf_counter() - _T0:.1f} s)"
     print(msg, flush=True)
 
 
@@ -369,7 +432,13 @@ def kernel_fns(mha, ln) -> dict:
             "rms_norm_fwd": ln.rms_norm_fwd,
             "rms_norm_bwd": ln.rms_norm_bwd,
             "fused_ce_fwd": ce.fused_ce_fwd,
-            "fused_ce_bwd": ce.fused_ce_bwd}
+            "fused_ce_bwd": ce.fused_ce_bwd,
+            "flash_fwd_dropout": fa.flash_fwd_dropout,
+            "flash_bwd_fused_dropout": fa.flash_bwd_fused_dropout,
+            "flash_bwd_dq_dropout": fa.flash_bwd_dq_dropout,
+            "flash_bwd_dkv_dropout": fa.flash_bwd_dkv_dropout,
+            "fused_mha_dropout_fwd": mha.fused_mha_dropout_fwd,
+            "fused_mha_dropout_bwd": mha.fused_mha_dropout_bwd}
 
 
 def zero_counts(mha, ln) -> None:
@@ -386,11 +455,13 @@ def phase_build(kernels_build):
     ptxas's report, its name demangled by the CUDA toolkit's cu++filt."""
     log("[2] build")
     t0 = time.perf_counter()
-    took = kernels_build.build()
+    faults = [(name, (fault,)) for name in ("flash_attention", "fused_mha")
+              for fault in DROPOUT_FAULTS]
+    took = kernels_build.build(list(kernels_build.SOURCES) + faults)
     log(f"  built {sorted(took)} in {time.perf_counter() - t0:.1f} s "
         f"(per source: {json.dumps({k: round(v, 1) for k, v in took.items()})})")
     demangle = Path(kernels_build._nvcc()).with_name("cu++filt")
-    for name in took:
+    for name in kernels_build.SOURCES:
         report, kernel, spill = [], None, ""
         for line in kernels_build.build_log(name).splitlines():
             m = re.search(r"Compiling entry function '(\w+)'", line)
@@ -518,6 +589,20 @@ TOLERANCES = {
     "fused_ce_bwd": {"fp32": (0.0, 1e-5, 5e-5), "bf16": (1e-2, 1e-4),
                      "bf16_vs_fp32_plain": (2e-2, 1e-4)},
 }
+# The dropout kernels, against their plain versions fed the same Philox
+# multipliers: the bounds of their rate-0 kernels, for the same reasons (a
+# kept probability is scaled by a multiplier both sides hold exactly:
+# fp32 1/(1 - rate) for flash, bf16(1/(1 - rate)) = 1.109375 for the fused
+# route in bf16; a dropped one is 0 on both).
+TOLERANCES.update({
+    "flash_fwd_dropout": TOLERANCES["flash_fwd"],
+    "flash_fwd_dropout lse": TOLERANCES["flash_fwd lse"],
+    **{f"{name}_dropout": TOLERANCES[name]
+       for name in ("flash_bwd_fused", "flash_bwd_dq", "flash_bwd_dkv")},
+    "fused_mha_dropout_fwd": TOLERANCES["fused_mha_fwd"],
+    "fused_mha_dropout_fwd stats": TOLERANCES["fused_mha_fwd stats"],
+    "fused_mha_dropout_bwd": TOLERANCES["fused_mha_bwd_recompute"],
+})
 KERNELS = tuple(TOLERANCES)
 
 
@@ -773,10 +858,15 @@ def flash_views(gen) -> None:
 # CUDA-core path in bf16 too)
 CE_SHAPES = ((2048, 1024, 50304, True), (2048, 1024, 50304, False),
              (4813, 1024, 1000, True), (333, 1000, 1000, True))
-# the example GPT's own shape (phase 10: eight groups of token tiles), bf16
-# only: fp32 runs on the CUDA cores at CE_FP32_TOKENS tokens whatever T
-CE_PATH_SHAPE = (EXAMPLE_RUN[0] * EXAMPLE_RUN[1], GPT_345M["hidden_size"],
-                 GPT_345M["vocab_size"], True)
+# the paths' own shapes, bf16 only (fp32 runs on the CUDA cores at
+# CE_FP32_TOKENS tokens whatever T): the example GPT's (phase 10: eight
+# groups of token tiles) and the pipeline GPT's (phase 11: W = 2048, twice
+# the W-chunks per recompute)
+CE_PATH_SHAPES = ((EXAMPLE_RUN[0] * EXAMPLE_RUN[1], GPT_345M["hidden_size"],
+                   GPT_345M["vocab_size"], True),
+                  (PIPELINE_RUNS[0][0] * PIPELINE_RUNS[0][1],
+                   PIPELINE_GPT["hidden_size"], PIPELINE_GPT["vocab_size"],
+                   True))
 CE_FP32_TOKENS = 512
 
 
@@ -793,13 +883,13 @@ def ce_inputs(gen, t: int, w: int, v: int, tied: bool, dtype):
 
 def fused_ce_checks(errs, gen) -> None:
     """The fused-CE forward (loss, lse) and backward (dX, dW) against their
-    plain versions at CE_SHAPES, fp32 and bf16, and at CE_PATH_SHAPE in
+    plain versions at CE_SHAPES, fp32 and bf16, and at CE_PATH_SHAPES in
     bf16; the backward on the plain
     forward's lse, so that each is compared alone; then fused_ce_teeth."""
     from megatron_clip_tpu_torch.ops.kernels import fused_ce as ce
-    for t, w, v, tied in CE_SHAPES + (CE_PATH_SHAPE,):
+    for t, w, v, tied in CE_SHAPES + CE_PATH_SHAPES:
         dtypes = (torch.float32, torch.bfloat16)
-        for dtype in dtypes[(t, w, v, tied) == CE_PATH_SHAPE:]:
+        for dtype in dtypes[(t, w, v, tied) in CE_PATH_SHAPES:]:
             tt = min(t, CE_FP32_TOKENS) if dtype == torch.float32 else t
             x, head, labels, dloss = ce_inputs(gen, tt, w, v, tied, dtype)
             label = (f"T={tt} W={w} V={v} {'tied' if tied else 'untied'} "
@@ -898,6 +988,270 @@ def rms_checks(errs, gen, ln) -> None:
                 errs["rms_norm_bwd"].get("sums", 0.0), e)
 
 
+# the dropout kernels' checks: the fused route at the pipeline GPT's S =
+# 512 heads (H = 16, D = 128: one head per cell), at its batch 32 there,
+# at H = 12, D = 64 (two heads per cell in the JAX kernel) and at a ragged
+# S = 333; flash at the pipeline GPT's heads at S = 2048, at a ragged S =
+# 1100, and at the path's batch 8 x 2048 and 1 x 8192 (the split pair) on
+# the head views of the packed projection, the gradients written into one
+# packed buffer, as the train step runs them; each (B, S, H, D, masks,
+# packed)
+FUSED_DROPOUT_SHAPES = ((2, 512, 16, 128, (True, False)),
+                        (32, 512, 16, 128, (True,)),
+                        (2, 512, 12, 64, (True, False)),
+                        (2, 333, 16, 128, (True, False)))
+FLASH_DROPOUT_SHAPES = ((2, 2048, 16, 128, (True, False), False),
+                        (2, 1100, 4, 128, (True, False), False),
+                        (8, 2048, 16, 128, (True,), True),
+                        (1, 8192, 16, 128, (True,), True))
+DROPOUT_RATE, DROPOUT_CHECK_SEED = 0.1, 0x5EED0F1A55C0FFEE
+
+
+def mask_check(lib, label: str, bh: int, s: int, drop) -> float:
+    """The bits `lib.dropout_mask` exports against `philox_keep`, a head
+    at a time, bit for bit; returns the keep share, which must lie within
+    5 sigma of 1 - rate."""
+    from megatron_clip_tpu_torch.ops.dropout import philox_keep
+    kept = 0
+    exported = lib.dropout_mask(bh, s, s, drop.rate, drop.seed, drop.offset,
+                                "cuda")
+    for i in range(bh):
+        want = philox_keep(drop.seed, drop.offset, i, range(s), range(s),
+                           drop.rate, "cuda")
+        if not torch.equal(exported[i], want):
+            raise AssertionError(f"{label}: head {i} of the exported mask "
+                                 "differs from the plain Philox")
+        kept += int(want.sum())
+    n = bh * s * s
+    share = kept / n
+    sigma = (drop.rate * (1 - drop.rate) / n) ** 0.5
+    log(f"  {label}: mask of {bh} x {s} x {s} bit for bit; keep share "
+        f"{share:.6f} ({(share - 1 + drop.rate) / sigma:+.2f} sigma)")
+    if abs(share - 1 + drop.rate) > 5 * sigma:
+        raise AssertionError(f"{label}: keep share {share} outside 5 sigma")
+    return share
+
+
+def fused_dropout_checks(errs, gen, mha) -> None:
+    """The fused-MHA dropout forward (out, row statistics) and backward
+    against their plain versions fed the Philox multipliers, fp32 and
+    bf16, both masks; the exported mask bit for bit."""
+    from megatron_clip_tpu_torch.ops.dropout import AttentionDropout
+    for b, s, h, d, masks in FUSED_DROPOUT_SHAPES:
+        drop = AttentionDropout(DROPOUT_RATE, DROPOUT_CHECK_SEED, s + h)
+        mask_check(mha, f"fused_mha dropout mask B={b} H={h} S={s}", b * h,
+                   s, drop)
+        qkv = torch.randn(b, s, 3 * h * d, device="cuda", generator=gen)
+        do = torch.randn(b, s, h * d, device="cuda", generator=gen)
+        scale = d ** -0.5
+        for causal in masks:
+            label = f"B={b} S={s} H={h} D={d} causal={causal} rate=0.1"
+            for dtype in (torch.float32, torch.bfloat16):
+                x, g = qkv.to(dtype), do.to(dtype)
+
+                def keep(dt):
+                    return drop.multipliers(b, h, s, s,
+                                            mha.dropout_mult(drop.rate, dt),
+                                            "cuda")
+
+                def plain(dt, stats=False):
+                    return mha.fused_mha_plain(x.to(dt), h, scale, causal,
+                                               with_stats=stats,
+                                               keep=keep(dt))
+                out, stats = mha.fused_mha_dropout_fwd(x, h, drop,
+                                                       causal=causal)
+                check_kernel(errs, "fused_mha_dropout_fwd", label, out,
+                             plain)
+                check_kernel(errs, "fused_mha_dropout_fwd stats", label,
+                             stats, lambda dt: plain(dt, True)[1], dtype)
+                check_kernel(errs, "fused_mha_dropout_bwd", label,
+                             mha.fused_mha_dropout_bwd(x, g, stats, h, drop,
+                                                       causal=causal),
+                             lambda dt: mha.fused_mha_bwd_recompute_plain(
+                                 x.to(dt), g.to(dt), h, scale, causal,
+                                 keep(dt)))
+        del qkv, do
+        torch.cuda.empty_cache()
+
+
+def flash_dropout_checks(errs, gen) -> None:
+    """The four flash dropout kernels against their plain versions fed the
+    Philox multipliers, fp32 and bf16: the forward (out, lse), and the
+    fused, dQ and dKV backward on the plain forward's out and lse, bf16
+    gradients row by row; the exported mask bit for bit. A packed shape
+    runs on the head views of a [B, S, 3*H*D] projection with dO a view
+    of [B, S, H, D], and also through `flash_bwd`, which writes the
+    gradients into one packed buffer (the train step's calls)."""
+    from megatron_clip_tpu_torch.ops.dropout import AttentionDropout
+    from megatron_clip_tpu_torch.ops.kernels import flash_attention as fa
+    for b, s, h, d, masks, packed in FLASH_DROPOUT_SHAPES:
+        drop = AttentionDropout(DROPOUT_RATE, DROPOUT_CHECK_SEED, s + h)
+        mask_check(fa, f"flash dropout mask B={b} H={h} S={s}", b * h, s,
+                   drop)
+        keep = drop.multipliers(b, h, s, s, fa.dropout_mult(drop.rate),
+                                "cuda")
+        if packed:
+            base = (torch.randn(b, s, 3 * h * d, device="cuda",
+                                generator=gen),
+                    torch.randn(b, s, h, d, device="cuda", generator=gen))
+        else:
+            base = [torch.randn(b, h, s, d, device="cuda", generator=gen)
+                    for _ in range(4)]
+        scale = d ** -0.5
+        for causal in masks:
+            label = (f"B={b} H={h} S={s} D={d} causal={causal} rate=0.1"
+                     + (" packed views" if packed else ""))
+            for dtype in (torch.float32, torch.bfloat16):
+                if packed:
+                    q, k, v = base[0].to(dtype).unflatten(-1, (3, h, d)) \
+                        .permute(2, 0, 3, 1, 4).unbind(0)
+                    do = base[1].to(dtype).transpose(1, 2)
+                else:
+                    q, k, v, do = (t.to(dtype) for t in base)
+
+                def cast(dt, *ts):
+                    return [t.to(dt) for t in ts]
+                out, lse = fa.flash_fwd_dropout(q, k, v, drop, causal=causal)
+                check_kernel(errs, "flash_fwd_dropout", label, out,
+                             lambda dt: fa.flash_fwd_plain(
+                                 *cast(dt, q, k, v), scale, causal, keep)[0])
+                check_kernel(errs, "flash_fwd_dropout lse", label, lse,
+                             lambda dt: fa.flash_fwd_plain(
+                                 *cast(dt, q, k, v), scale, causal, keep)[1],
+                             dtype)
+                p_out, p_lse = fa.flash_fwd_plain(q, k, v, scale, causal,
+                                                  keep)
+                delta = fa.flash_delta(do, p_out)
+                check_grads(errs, "flash_bwd_dq_dropout", label,
+                            (fa.flash_bwd_dq_dropout(q, k, v, do, p_lse,
+                                                     delta, drop,
+                                                     causal=causal),),
+                            lambda dt: (fa.flash_bwd_dq_plain(
+                                *cast(dt, q, k, v, do), p_lse, delta, scale,
+                                causal, keep),))
+                check_grads(errs, "flash_bwd_dkv_dropout", label,
+                            fa.flash_bwd_dkv_dropout(q, k, v, do, p_lse,
+                                                     delta, drop,
+                                                     causal=causal),
+                            lambda dt: fa.flash_bwd_dkv_plain(
+                                *cast(dt, q, k, v, do), p_lse, delta, scale,
+                                causal, keep))
+                check_grads(errs, "flash_bwd_fused_dropout", label,
+                            fa.flash_bwd_fused_dropout(q, k, v, p_out, p_lse,
+                                                       do, drop,
+                                                       causal=causal),
+                            lambda dt: fa.flash_bwd_fused_plain(
+                                *cast(dt, q, k, v, p_out), p_lse, do.to(dt),
+                                scale, causal, keep))
+                if packed:
+                    packed_grads(errs, fa, label, q, k, v, p_out, p_lse, do,
+                                 scale, causal, drop, keep)
+                del out, lse, p_out, p_lse, delta
+        del base, keep, q, k, v, do
+        torch.cuda.empty_cache()
+
+
+def packed_grads(errs, fa, label, q, k, v, out, lse, do, scale, causal,
+                 drop, keep) -> None:
+    """`flash_bwd` with dropout on the head views: the fused kernel, or
+    the split pair past its reach, writing dQ, dK and dV into one packed
+    [B, S, 3, H, D] buffer, against the plain backward."""
+    dq, dk, dv, buf = fa.flash_bwd(q, k, v, out, lse, do, causal=causal,
+                                   scale=scale, drop=drop)
+    b, h, s, d = q.shape
+    if buf is None or not buf.is_contiguous() or \
+            buf.shape != (b, s, 3, h, d) or buf.data_ptr() != dq.data_ptr():
+        raise AssertionError(f"flash_bwd {label}: the gradients are not one "
+                             "packed [B, S, 3, H, D] buffer")
+
+    def want(dt):
+        return fa.flash_bwd_fused_plain(
+            *(t.to(dt) for t in (q, k, v, out)), lse, do.to(dt), scale,
+            causal, keep)
+    label = f"{label} into the packed buffer"
+    if fa.uses_fused_bwd(s):
+        check_grads(errs, "flash_bwd_fused_dropout", label, (dq, dk, dv),
+                    want)
+    else:
+        check_grads(errs, "flash_bwd_dq_dropout", label, (dq,),
+                    lambda dt: want(dt)[:1])
+        check_grads(errs, "flash_bwd_dkv_dropout", label, (dk, dv),
+                    lambda dt: want(dt)[1:])
+
+
+def dropout_teeth(kernels_build, gen, mha) -> None:
+    """The kernels built to draw a wrong mask (DROPOUT_FAULTS: per 64 x 64
+    tile, or shifted a column), run through the same wrappers on the
+    pipeline GPT's heads (bf16, causal) and held against the plain versions
+    on the true mask: the exported mask must differ from the plain Philox,
+    and the forward and the backward must each fail their bound."""
+    from megatron_clip_tpu_torch.ops.dropout import (AttentionDropout,
+                                                     philox_keep)
+    from megatron_clip_tpu_torch.ops.kernels import flash_attention as fa
+    dt, h, d = torch.bfloat16, PIPELINE_HEADS, PIPELINE_HEAD_DIM
+    scale = d ** -0.5
+    b, s = 2, 2048
+    drop = AttentionDropout(DROPOUT_RATE, DROPOUT_CHECK_SEED, 1)
+    q, k, v, do = (torch.randn(b, h, s, d, device="cuda", generator=gen,
+                               dtype=dt) for _ in range(4))
+    keep = drop.multipliers(b, h, s, s, fa.dropout_mult(drop.rate), "cuda")
+    out, lse = fa.flash_fwd_plain(q, k, v, scale, True, keep)
+    dq, dk, dv = fa.flash_bwd_fused_plain(q, k, v, out, lse, do, scale, True,
+                                          keep)
+    fs = 512
+    qkv = torch.randn(b, fs, 3 * h * d, device="cuda", generator=gen,
+                      dtype=dt)
+    g = torch.randn(b, fs, h * d, device="cuda", generator=gen, dtype=dt)
+    fkeep = drop.multipliers(b, h, fs, fs, mha.dropout_mult(drop.rate, dt),
+                             "cuda")
+    f_out, f_stats = mha.fused_mha_plain(qkv, h, scale, True,
+                                         with_stats=True, keep=fkeep)
+    f_grad = mha.fused_mha_bwd_recompute_plain(qkv, g, h, scale, True, fkeep)
+    truth = philox_keep(drop.seed, drop.offset, 0, range(256), range(256),
+                        drop.rate, "cuda")
+    for fault in DROPOUT_FAULTS:
+        with kernels_build.variant(fault):
+            used = {}
+            for lib in (fa, mha):
+                bad = lib.dropout_mask(1, 256, 256, drop.rate, drop.seed,
+                                       drop.offset, "cuda")[0]
+                used[f"{lib.__name__.split('.')[-1]} mask: differing bits"] \
+                    = int((bad != truth).sum())
+            got, _ = fa.flash_fwd_dropout(q, k, v, drop, causal=True)
+            atol, rtol, of_max = TOLERANCES["flash_fwd_dropout"]["bf16"]
+            used["flash_fwd_dropout"] = float(((got.float() - out.float())
+                                               .abs() / (
+                atol + of_max * out.float().abs().max()
+                + rtol * out.float().abs())).max())
+            grads = fa.flash_bwd_fused_dropout(q, k, v, out, lse, do, drop,
+                                               causal=True)
+            rel, floor = TOLERANCES["flash_bwd_fused_dropout"]["bf16"]
+            used["flash_bwd_fused_dropout"] = max(
+                rows_used(gr, w, rel, floor)
+                for gr, w in zip(grads, (dq, dk, dv)))
+            f_got, f_st = mha.fused_mha_dropout_fwd(qkv, h, drop, causal=True)
+            atol, rtol = TOLERANCES["fused_mha_dropout_fwd"]["bf16"]
+            used["fused_mha_dropout_fwd"] = float(
+                ((f_got.float() - f_out.float()).abs()
+                 / (atol + rtol * f_out.float().abs())).max())
+            bg = mha.fused_mha_dropout_bwd(qkv, g, f_stats, h, drop,
+                                           causal=True)
+            atol, rtol, of_max = TOLERANCES["fused_mha_dropout_bwd"]["bf16"]
+            used["fused_mha_dropout_bwd"] = float(
+                ((bg.float() - f_grad.float()).abs()
+                 / (atol + of_max * f_grad.float().abs().max()
+                    + rtol * f_grad.float().abs())).max())
+        log(f"  dropout kernels built with {fault}: {json.dumps(used)} "
+            "(mask: bits that differ from the plain Philox; kernels: share "
+            "of the bound used)")
+        for what, u in used.items():
+            if u <= (0 if "mask" in what else 1):
+                raise AssertionError(f"{fault}: {what} passes the check of a "
+                                     "right kernel")
+    del q, k, v, do, keep, out, lse, dq, dk, dv, qkv, g, fkeep
+    torch.cuda.empty_cache()
+
+
 def phase_kernels(mha, ln):
     """Kernel vs plain version; returns the worst errors per kernel and
     kind of comparison."""
@@ -958,10 +1312,17 @@ def phase_kernels(mha, ln):
     flash_checks(errs, gen)
     flash_views(gen)
     fused_ce_checks(errs, gen)
-    # the legs' LayerNorms: rows B*S at the tower's width H*D; GPT-345m's:
-    # rows B*S at its width
+    fused_dropout_checks(errs, gen, mha)
+    flash_dropout_checks(errs, gen)
+    from megatron_clip_tpu_torch.ops.kernels import _build
+    dropout_teeth(_build, gen, mha)
+    # the legs' LayerNorms: rows B*S at the tower's width H*D; GPT-345m's
+    # and the pipeline GPT's: rows B*S at their widths
     legs_ln = [(b * s, h * d) for _, _, b, s, h, d, _ in LEG_ATTENTION]
-    gpt_ln = [(b * s, GPT_345M["hidden_size"]) for b, s in GPT_SHAPES]
+    pipeline_rows = sorted({b * s for b, s, *_ in PIPELINE_RUNS
+                            + (PIPELINE_LONG,)})
+    gpt_ln = [(b * s, GPT_345M["hidden_size"]) for b, s in GPT_SHAPES] + [
+        (rows, PIPELINE_GPT["hidden_size"]) for rows in pipeline_rows]
     for rows, w in [(TRAIN_BATCH * 50, 768), (TRAIN_BATCH * 77, 512),
                     (SERVE_BATCH * 50, 768), (SERVE_BATCH * 77, 512),
                     *legs_ln, *gpt_ln, (1000, 768), (5, 100), (3, 4100)]:
@@ -1309,6 +1670,161 @@ def rms_rows(gen, ln) -> list:
                        rms_bwd_cost(n, w, 2), torch.float32)]
 
 
+def dropout_rows(gen, mha) -> list:
+    """bf16 rows of the dropout kernels at the pipeline GPT's attention
+    (H = 16, D = 128, causal, rate 0.1), each beside its rate-0 kernel on
+    the same inputs: flash at batch 8 x S = 2048 (forward, fused backward;
+    the packed projection's head views, as the train step) and batch 1 x
+    S = 8192 (the split dQ and dKV backward), the fused route at batch 32 x
+    S = 512 (forward with row statistics, recompute backward). The plain
+    versions are timed on the Philox multipliers drawn once. The bound is
+    the rate-0 function's (Philox is not counted), so a dropout row's ratio
+    to it shows what dropout costs. Library: SDPA with dropout_p = 0.1
+    (its forward, and its backward by autograd.grad on a kept graph) and
+    without dropout beside the rate-0 rows; none for dQ or dKV alone."""
+    from megatron_clip_tpu_torch.ops.dropout import AttentionDropout
+    from megatron_clip_tpu_torch.ops.kernels import flash_attention as fa
+    dt, h, d = torch.bfloat16, PIPELINE_HEADS, PIPELINE_HEAD_DIM
+    scale = d ** -0.5
+    rows = []
+
+    def sdpa_pair(q, k, v, do, p):
+        lq, lk, lv = (t.detach().contiguous().requires_grad_(True)
+                      for t in (q, k, v))
+        lo = F.scaled_dot_product_attention(lq, lk, lv, is_causal=True,
+                                            dropout_p=p)
+        ldo = do.contiguous()
+
+        def fwd():
+            return F.scaled_dot_product_attention(
+                lq.detach(), lk.detach(), lv.detach(), is_causal=True,
+                dropout_p=p)
+
+        def bwd():
+            return torch.autograd.grad(lo, (lq, lk, lv), ldo,
+                                       retain_graph=True)
+        return fwd, bwd
+    for b, s in ((8, 2048), (1, 8192)):
+        drop = AttentionDropout(DROPOUT_RATE, PIPELINE_SEED, 1)
+        qkv = torch.randn(b, s, 3 * h * d, device="cuda", generator=gen,
+                          dtype=dt)
+        do = torch.randn(b, s, h, d, device="cuda", generator=gen,
+                         dtype=dt).transpose(1, 2)
+        q, k, v = qkv.unflatten(-1, (3, h, d)).permute(2, 0, 3, 1, 4).unbind(0)
+        keep = drop.multipliers(b, h, s, s, fa.dropout_mult(drop.rate),
+                                "cuda")
+        out, lse = fa.flash_fwd_dropout(q, k, v, drop, causal=True)
+        delta = fa.flash_delta(do, out)
+        shape = (f"pipeline GPT B={b} S={s} H={h} D={d} causal rate=0.1 "
+                 "bf16")
+        zero = f"pipeline GPT B={b} S={s} H={h} D={d} causal rate=0 bf16"
+        fwd_cost = flash_cost(b, h, s, s, d, True, 2)
+        if s == 2048:
+            drop_fwd, drop_bwd = sdpa_pair(q, k, v, do, DROPOUT_RATE)
+            zero_fwd, zero_bwd = sdpa_pair(q, k, v, do, 0.0)
+            rows += [
+                timing_row("flash_fwd_dropout", shape,
+                           lambda: fa.flash_fwd_dropout(q, k, v, drop,
+                                                        causal=True),
+                           lambda: fa.flash_fwd_plain(q, k, v, scale, True,
+                                                      keep),
+                           drop_fwd, fwd_cost, dt, reps=10),
+                timing_row("flash_fwd", zero,
+                           lambda: fa.flash_fwd(q, k, v, causal=True),
+                           lambda: fa.flash_fwd_plain(q, k, v, scale, True),
+                           zero_fwd, fwd_cost, dt, reps=10),
+                timing_row("flash_bwd_fused_dropout", shape,
+                           lambda: fa.flash_bwd_fused_dropout(
+                               q, k, v, out, lse, do, drop, causal=True),
+                           lambda: fa.flash_bwd_fused_plain(
+                               q, k, v, out, lse, do, scale, True, keep),
+                           drop_bwd, flash_bwd_cost("fused", b, h, s, s, d,
+                                                    True, 2), dt, reps=10),
+                timing_row("flash_bwd_fused", zero,
+                           lambda: fa.flash_bwd_fused(q, k, v, out, lse, do,
+                                                      causal=True),
+                           lambda: fa.flash_bwd_fused_plain(
+                               q, k, v, out, lse, do, scale, True),
+                           zero_bwd, flash_bwd_cost("fused", b, h, s, s, d,
+                                                    True, 2), dt, reps=10)]
+        else:
+            rows += [
+                timing_row("flash_bwd_dq_dropout", shape,
+                           lambda: fa.flash_bwd_dq_dropout(
+                               q, k, v, do, lse, delta, drop, causal=True),
+                           lambda: fa.flash_bwd_dq_plain(
+                               q, k, v, do, lse, delta, scale, True, keep),
+                           None, flash_bwd_cost("dq", b, h, s, s, d, True, 2),
+                           dt, reps=5),
+                timing_row("flash_bwd_dq", zero,
+                           lambda: fa.flash_bwd_dq(q, k, v, do, lse, delta,
+                                                   causal=True),
+                           lambda: fa.flash_bwd_dq_plain(
+                               q, k, v, do, lse, delta, scale, True),
+                           None, flash_bwd_cost("dq", b, h, s, s, d, True, 2),
+                           dt, reps=5),
+                timing_row("flash_bwd_dkv_dropout", shape,
+                           lambda: fa.flash_bwd_dkv_dropout(
+                               q, k, v, do, lse, delta, drop, causal=True),
+                           lambda: fa.flash_bwd_dkv_plain(
+                               q, k, v, do, lse, delta, scale, True, keep),
+                           None, flash_bwd_cost("dkv", b, h, s, s, d, True,
+                                                2), dt, reps=5),
+                timing_row("flash_bwd_dkv", zero,
+                           lambda: fa.flash_bwd_dkv(q, k, v, do, lse, delta,
+                                                    causal=True),
+                           lambda: fa.flash_bwd_dkv_plain(
+                               q, k, v, do, lse, delta, scale, True),
+                           None, flash_bwd_cost("dkv", b, h, s, s, d, True,
+                                                2), dt, reps=5)]
+        del qkv, do, q, k, v, keep, out, lse, delta
+        torch.cuda.empty_cache()
+    b, s = 32, 512
+    drop = AttentionDropout(DROPOUT_RATE, PIPELINE_SEED, 1)
+    qkv = torch.randn(b, s, 3 * h * d, device="cuda", generator=gen, dtype=dt)
+    g = torch.randn(b, s, h * d, device="cuda", generator=gen, dtype=dt)
+    keep = drop.multipliers(b, h, s, s, mha.dropout_mult(drop.rate, dt),
+                            "cuda")
+    _, stats = mha.fused_mha_dropout_fwd(qkv, h, drop, causal=True)
+    q, k, v = (t.contiguous() for t in qkv.reshape(
+        b, s, 3, h, d).permute(2, 0, 3, 1, 4).unbind(0))
+    ldo = g.reshape(b, s, h, d).transpose(1, 2)
+    drop_fwd, drop_bwd = sdpa_pair(q, k, v, ldo, DROPOUT_RATE)
+    zero_fwd, zero_bwd = sdpa_pair(q, k, v, ldo, 0.0)
+    shape = f"pipeline GPT B={b} S={s} H={h} D={d} causal rate=0.1 bf16"
+    zero = f"pipeline GPT B={b} S={s} H={h} D={d} causal rate=0 bf16"
+    fwd_cost = mha_cost(b, s, h, d, True, 2, with_stats=True)
+    bwd_cost = mha_bwd_cost(b, s, h, d, True, 2, recompute=True)
+    rows += [
+        timing_row("fused_mha_dropout_fwd", shape,
+                   lambda: mha.fused_mha_dropout_fwd(qkv, h, drop,
+                                                     causal=True),
+                   lambda: mha.fused_mha_plain(qkv, h, scale, True,
+                                               with_stats=True, keep=keep),
+                   drop_fwd, fwd_cost, dt, reps=10),
+        timing_row("fused_mha_fwd", zero + " with stats",
+                   lambda: mha.fused_mha_fwd(qkv, h, causal=True,
+                                             with_stats=True),
+                   lambda: mha.fused_mha_plain(qkv, h, scale, True,
+                                               with_stats=True),
+                   zero_fwd, fwd_cost, dt, reps=10),
+        timing_row("fused_mha_dropout_bwd", shape,
+                   lambda: mha.fused_mha_dropout_bwd(qkv, g, stats, h, drop,
+                                                     causal=True),
+                   lambda: mha.fused_mha_bwd_recompute_plain(
+                       qkv, g, h, scale, True, keep),
+                   drop_bwd, bwd_cost, dt, reps=10),
+        timing_row("fused_mha_bwd_recompute", zero,
+                   lambda: mha.fused_mha_bwd_recompute(qkv, g, stats, h,
+                                                       causal=True),
+                   lambda: mha.fused_mha_bwd_recompute_plain(
+                       qkv, g, h, scale, True),
+                   zero_bwd, bwd_cost, dt, reps=10)]
+    del qkv, g, keep, stats, q, k, v, ldo
+    torch.cuda.empty_cache()
+    return rows
+
+
 def phase_timings(mha, ln):
     """bf16 timings at the serving (batch 256) and training (batch 384)
     shapes. The library calls are yardsticks the port never calls:
@@ -1400,6 +1916,7 @@ def phase_timings(mha, ln):
                 ln_bwd_cost(n, w, 2), torch.float32))
     rows.extend(rms_rows(gen, ln))
     rows.extend(fused_ce_rows(gen))
+    rows.extend(dropout_rows(gen, mha))
     return rows
 
 
@@ -1432,6 +1949,18 @@ KERNEL_META = {
     # one backward kernel forms both _dx_kernel's and _dw_kernel's outputs
     "fused_ce_fwd": (CE_CU, f"{TPU_CE}:50", [], "T=16384 "),
     "fused_ce_bwd": (CE_CU, f"{TPU_CE}:97", [f"{TPU_CE}:118"], "T=16384 "),
+    # the dropout twins: each TPU kernel at rate > 0, with _drop_keep (:31)
+    # inside it
+    "flash_fwd_dropout": (FLASH_CU, f"{TPU_FLASH}:64", [f"{TPU_FLASH}:31"],
+                          "B=8 S=2048 "),
+    "flash_bwd_fused_dropout": (FLASH_CU, f"{TPU_FLASH}:283",
+                                [f"{TPU_FLASH}:31"], "B=8 S=2048 "),
+    "flash_bwd_dq_dropout": (FLASH_CU, f"{TPU_FLASH}:166",
+                             [f"{TPU_FLASH}:31"], "B=1 S=8192 "),
+    "flash_bwd_dkv_dropout": (FLASH_CU, f"{TPU_FLASH}:219",
+                              [f"{TPU_FLASH}:31"], "B=1 S=8192 "),
+    "fused_mha_dropout_fwd": (MHA_CU, f"{TPU_MHA}:361", [], "B=32 S=512 "),
+    "fused_mha_dropout_bwd": (MHA_CU, f"{TPU_MHA}:385", [], "B=32 S=512 "),
 }
 
 
@@ -1824,36 +2353,14 @@ def gpt_per_step(layers: int, seq: int, norm: str = "layernorm",
                                 int(fused_ce)))
 
 
-def gpt_run(mha, ln, card: str, batch: int, seq: int, warmup: int,
-            steps: int, name: str = "GPT-345m", over=None,
-            precision: str = "pure_bf16", fused_ce: bool = False) -> dict:
-    """`warmup` + `steps` steps of bench.py's GPT-345m train step at
-    `batch` x `seq`, or of its config with `over` (the example GPT's rope,
-    swiglu and rmsnorm): `precision` weights from seed 0, clip 1.0 then
-    AdamW(1e-4, b=(0.9, 0.95)) with bf16 first moments, loss chunks of
-    1024 or (`fused_ce`) the fused lm-head cross entropy, one batch of token
-    ids in [1, vocab - 1) from numpy seed 0. The counters are zeroed before
-    the first step and read after every step, which must launch each kernel
-    as gpt_per_step says; every loss must be finite and the last below the
-    first. Step times are CUDA-event intervals between step starts;
-    tokens/s the timed steps' tokens over the window's wall time; MFU and
-    HFU bench.py's (6 N and 6 N plus the attention and lm-head terms, per
-    token, over 989 TFLOP/s), N the model's parameters counted here."""
-    from megatron_clip_tpu_torch.models.gpt import GPTCfg, create_gpt
-    from megatron_clip_tpu_torch.training import (TrainState,
-                                                  make_gpt_optimizer,
-                                                  make_gpt_train_step)
-    cfg = GPTCfg(**dict(GPT_345M, **(over or {})), seq_length=seq)
-    model = create_gpt(cfg, precision=precision, seed=0).train()
-    opt = make_gpt_optimizer(model)
-    state = TrainState.create(model, opt)
-    step = make_gpt_train_step(
-        model, opt, loss_seq_chunk=0 if fused_ce else GPT_LOSS_CHUNK,
-        fused_ce=fused_ce)
-    tokens = torch.from_numpy(np.random.default_rng(0).integers(
-        1, cfg.vocab_size - 1, (batch, seq + 1))).cuda()
-    per_step = gpt_per_step(cfg.num_layers, seq, cfg.normalization, fused_ce)
-    name = f"{name} S={seq}{' fused_ce' if fused_ce else ''}"
+def timed_steps(mha, ln, name: str, step, state, tokens, warmup: int,
+                steps: int, per_step: dict):
+    """`warmup` + `steps` calls of `step` on one batch: the counters are
+    zeroed before the first step and read after every step, which must
+    launch each kernel as `per_step` says; every loss must be finite and
+    the last below the first. Returns (state, the run's numbers: step times
+    as CUDA-event intervals between step starts, the timed window's wall
+    time, losses, each step's peak memory, the launches)."""
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
     losses, events, step_peaks = [], [], []
@@ -1889,27 +2396,33 @@ def gpt_run(mha, ln, card: str, batch: int, seq: int, warmup: int,
         raise AssertionError(f"{name}: non-finite training loss")
     if not losses[-1] < losses[0]:
         raise AssertionError(f"{name}: the loss did not fall")
-    n_params = sum(p.numel() for p in model.parameters())
-    toks = batch * seq * steps / window_s
+    return state, {"step_ms": step_ms, "window_s": window_s,
+                   "losses": losses, "step_peaks": step_peaks,
+                   "launches": launches}
+
+
+def step_numbers(card, name, cfg, n_params, batch, seq, steps, run) -> dict:
+    """The JSON of a timed GPT run: step ms (median, mean, fastest),
+    tokens/s over the window's wall time, MFU and HFU bench.py's (6 N and
+    6 N plus the attention and lm-head terms, per token, over 989 TFLOP/s),
+    and the peak memory."""
+    step_ms = run["step_ms"]
+    toks = batch * seq * steps / run["window_s"]
     w, L, v = cfg.hidden_size, cfg.num_layers, cfg.vocab_size
     extra = 6 * w * v + 6 * seq * w * L + 2 * seq * w * L
     peak = PEAK_OPS_PER_S[torch.bfloat16]
     result = {
         "card": card, "model": name, "batch": batch, "seq": seq,
-        "precision": precision, "params": n_params,
-        "loss": "fused_ce" if fused_ce else f"chunks of {GPT_LOSS_CHUNK}",
-        "attention_backward": ("fused" if per_step["flash_bwd_fused"]
-                               else "split dQ / dKV"),
+        "params": n_params,
         "step_ms_median": float(np.median(step_ms)),
         "step_ms_mean": float(np.mean(step_ms)),
         "step_ms_min": float(np.min(step_ms)), "step_ms": step_ms,
-        "window_s": window_s, "tokens_per_s": toks,
+        "window_s": run["window_s"], "tokens_per_s": toks,
         "mfu": 6 * n_params * toks / peak,
         "hfu": (6 * n_params + extra) * toks / peak,
-        "peak_memory_gib": max(step_peaks),
-        "step_peak_memory_gib": step_peaks,
-        "losses": losses, "launches": launches,
-        "launches_per_step": per_step,
+        "peak_memory_gib": max(run["step_peaks"]),
+        "step_peak_memory_gib": run["step_peaks"],
+        "losses": run["losses"], "launches": run["launches"],
     }
     log(f"  {name}: {n_params} parameters; step median "
         f"{result['step_ms_median']:.2f} ms, "
@@ -1917,15 +2430,56 @@ def gpt_run(mha, ln, card: str, batch: int, seq: int, warmup: int,
         f"{result['step_ms_min']:.2f}; {toks:.0f} tokens/s, MFU "
         f"{result['mfu']:.4f}, HFU {result['hfu']:.4f}, peak "
         f"{result['peak_memory_gib']:.2f} GiB")
-    del model, opt, state, step, metrics, tokens
+    return result
+
+
+def gpt_run(mha, ln, card: str, batch: int, seq: int, warmup: int,
+            steps: int, name: str = "GPT-345m", over=None,
+            precision: str = "pure_bf16", fused_ce: bool = False) -> dict:
+    """`warmup` + `steps` steps of bench.py's GPT-345m train step at
+    `batch` x `seq`, or of its config with `over` (the example GPT's rope,
+    swiglu and rmsnorm): `precision` weights from seed 0, clip 1.0 then
+    AdamW(1e-4, b=(0.9, 0.95)) with bf16 first moments, loss chunks of
+    1024 or (`fused_ce`) the fused lm-head cross entropy, one batch of token
+    ids in [1, vocab - 1) from numpy seed 0 (`timed_steps`, each step
+    launching each kernel as gpt_per_step says; `step_numbers`), N the
+    model's parameters counted here."""
+    from megatron_clip_tpu_torch.models.gpt import GPTCfg, create_gpt
+    from megatron_clip_tpu_torch.training import (TrainState,
+                                                  make_gpt_optimizer,
+                                                  make_gpt_train_step)
+    cfg = GPTCfg(**dict(GPT_345M, **(over or {})), seq_length=seq)
+    model = create_gpt(cfg, precision=precision, seed=0).train()
+    opt = make_gpt_optimizer(model)
+    state = TrainState.create(model, opt)
+    step = make_gpt_train_step(
+        model, opt, loss_seq_chunk=0 if fused_ce else GPT_LOSS_CHUNK,
+        fused_ce=fused_ce)
+    tokens = torch.from_numpy(np.random.default_rng(0).integers(
+        1, cfg.vocab_size - 1, (batch, seq + 1))).cuda()
+    per_step = gpt_per_step(cfg.num_layers, seq, cfg.normalization, fused_ce)
+    name = f"{name} S={seq}{' fused_ce' if fused_ce else ''}"
+    state, run = timed_steps(mha, ln, name, step, state, tokens, warmup,
+                             steps, per_step)
+    n_params = sum(p.numel() for p in model.parameters())
+    result = dict(
+        step_numbers(card, name, cfg, n_params, batch, seq, steps, run),
+        precision=precision,
+        loss="fused_ce" if fused_ce else f"chunks of {GPT_LOSS_CHUNK}",
+        attention_backward=("fused" if per_step["flash_bwd_fused"]
+                            else "split dQ / dKV"),
+        launches_per_step=per_step)
+    del model, opt, state, step, tokens
     torch.cuda.empty_cache()
     return result
 
 
 def gpt_parity(over=None, seq: int = GPT_PARITY_SEQ,
-               fused_ce: bool = False, label: str = "GPT-345m") -> dict:
+               fused_ce: bool = False, label: str = "GPT-345m",
+               seed=None) -> dict:
     """One fp32 GPT step at GPT-345m's width (with `over`: the example
-    GPT's options and grouped-query attention), GPT_PARITY_LAYERS layers,
+    GPT's options and grouped-query attention, or the pipeline GPT's width
+    and dropout rates, the step seeded from `seed`), GPT_PARITY_LAYERS layers,
     batch 1 at S = `seq` (the flash path, fused backward), its loss in
     chunks or through the fused CE, on the card and on the CPU from the
     same weights and tokens (`card_vs_cpu`), at lr 1e-6. Adam's first step moves an element by lr g / (|g| + eps),
@@ -1952,8 +2506,8 @@ def gpt_parity(over=None, seq: int = GPT_PARITY_SEQ,
         grads = keep_grads(opt)
         t0 = time.perf_counter()
         _, m = make_gpt_train_step(
-            model, opt, loss_seq_chunk=GPT_LOSS_CHUNK, fused_ce=fused_ce)(
-                TrainState.create(model, opt), tokens.to(device))
+            model, opt, loss_seq_chunk=GPT_LOSS_CHUNK, fused_ce=fused_ce,
+            seed=seed)(TrainState.create(model, opt), tokens.to(device))
         took = time.perf_counter() - t0
         del opt.update
         return (float(m["loss"]), float(m["grad_norm"]), grads,
@@ -2006,6 +2560,149 @@ def phase_example(mha, ln, card: str, gpt: dict) -> dict:
     return result
 
 
+def pipeline_per_step(layers: int, seq: int, remat: str) -> dict:
+    """Kernel launches of one pipeline GPT step: the attention's dropout
+    forward once per layer (twice under full recompute, which replays the
+    block) and its backward, on the route the JAX gates pick at this length
+    (the fused-MHA dropout kernels while `dropout_kernel_eligible` holds,
+    else flash, fused backward through S = 4096 and split above), never a
+    rate-0 attention kernel; LayerNorm's forward twice per block plus ln_f,
+    and once more per block norm when the block is recomputed (selective
+    recomputes ln_1 and ln_2, full the whole block), its backward twice per
+    block plus ln_f; the fused CE forward and backward once."""
+    from megatron_clip_tpu_torch.ops.kernels.flash_attention import (
+        uses_fused_bwd)
+    from megatron_clip_tpu_torch.ops.kernels.fused_mha import (
+        MAX_FUSED_SEQ, dropout_kernel_eligible)
+    if seq <= MAX_FUSED_SEQ and dropout_kernel_eligible(
+            seq, PIPELINE_HEADS, PIPELINE_HEAD_DIM):
+        fwd, bwd = "fused_mha_dropout_fwd", ("fused_mha_dropout_bwd",)
+    else:
+        fwd = "flash_fwd_dropout"
+        bwd = (("flash_bwd_fused_dropout",) if uses_fused_bwd(seq)
+               else ("flash_bwd_dq_dropout", "flash_bwd_dkv_dropout"))
+    replays = 0 if remat == "none" else 2 * layers
+    return dict(dict.fromkeys(KERNEL_META, 0),
+                **{fwd: layers * (2 if remat == "full" else 1)},
+                **dict.fromkeys(bwd, layers),
+                layer_norm_fwd=2 * layers + 1 + replays,
+                layer_norm_bwd=2 * layers + 1, fused_ce_fwd=1,
+                fused_ce_bwd=1)
+
+
+def pipeline_tokens(vocab: int, batch: int, seq: int) -> torch.Tensor:
+    return torch.from_numpy(np.random.default_rng(0).integers(
+        1, vocab - 1, (batch, seq + 1))).cuda()
+
+
+def pipeline_run(mha, ln, card, model, opt, state, batch, seq, warmup,
+                 steps, remat="selective"):
+    """`timed_steps` of the pipeline GPT's step (fused CE, `remat`, dropout
+    from PIPELINE_SEED) on one seeded batch; returns (state, numbers)."""
+    from megatron_clip_tpu_torch.training import make_gpt_train_step
+    cfg = model.cfg
+    step = make_gpt_train_step(model, opt, fused_ce=True, remat=remat,
+                               seed=PIPELINE_SEED)
+    per_step = pipeline_per_step(cfg.num_layers, seq, remat)
+    name = (f"pipeline GPT {cfg.num_layers} layers B={batch} S={seq} "
+            f"{remat}")
+    state, run = timed_steps(mha, ln, name, step, state,
+                             pipeline_tokens(cfg.vocab_size, batch, seq),
+                             warmup, steps, per_step)
+    n_params = sum(p.numel() for p in model.parameters())
+    return state, dict(step_numbers(card, name, cfg, n_params, batch, seq,
+                                    steps, run),
+                       precision="bf16", loss="fused_ce", remat=remat,
+                       dropout=[cfg.attention_dropout, cfg.hidden_dropout],
+                       launches_per_step=per_step)
+
+
+def full_remat_step(mha, ln, card, model, opt, state, batch, seq) -> dict:
+    """One step of the pipeline GPT under remat="full" from the weights and
+    batch of the selective run: its time on the host clock (synchronised),
+    its peak memory and its launches (the attention forward replayed)."""
+    from megatron_clip_tpu_torch.training import make_gpt_train_step
+    step = make_gpt_train_step(model, opt, fused_ce=True, remat="full",
+                               seed=PIPELINE_SEED)
+    per_step = pipeline_per_step(model.cfg.num_layers, seq, "full")
+    tokens = pipeline_tokens(model.cfg.vocab_size, batch, seq)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    zero_counts(mha, ln)
+    t0 = time.perf_counter()
+    state, m = step(state, tokens)
+    torch.cuda.synchronize()
+    took = (time.perf_counter() - t0) * 1e3
+    got = read_counts(mha, ln)
+    if got != per_step:
+        raise AssertionError(f"pipeline GPT full remat: launches {got}, "
+                             f"expected {per_step}")
+    loss = float(m["loss"])
+    if not math.isfinite(loss):
+        raise AssertionError("pipeline GPT full remat: non-finite loss")
+    res = {"card": card, "batch": batch, "seq": seq, "remat": "full",
+           "step_ms": took, "loss": loss,
+           "peak_memory_gib": torch.cuda.max_memory_allocated() / 2 ** 30,
+           "launches": got}
+    log(f"  pipeline GPT one full-remat step: {json.dumps(res)}")
+    return state, res
+
+
+def phase_pipeline(mha, ln, card: str) -> dict:
+    """The training path of examples/pretrain_gpt_pipeline.sh on one card
+    (PIPELINE_GPT; its PP/VPP/TP flags belong to a later slice): the
+    selective-recompute runs of PIPELINE_RUNS on one model (S = 2048 on
+    the flash dropout kernels, then S = 512 on the fused-MHA dropout
+    kernels), with one full-recompute step from the S = 2048 run's weights
+    and batch; PIPELINE_LONG (split flash backward with dropout); and the
+    fp32 card-against-CPU steps of PIPELINE_PARITY_SEQS on the same Philox
+    masks (`gpt_parity`'s bounds)."""
+    from megatron_clip_tpu_torch.models.gpt import GPTCfg, create_gpt
+    from megatron_clip_tpu_torch.training import (TrainState,
+                                                  make_gpt_optimizer)
+    log("[11] pipeline GPT (examples/pretrain_gpt_pipeline.sh): 32 x 2048, "
+        "16 heads, learned positions, attention and hidden dropout 0.1, "
+        "--fused-ce, bf16, selective recompute: " + ", ".join(
+            f"batch {b} x S={s}, {w} + {n} steps"
+            for b, s, w, n in PIPELINE_RUNS) + "; one full-recompute step; "
+        f"S={PIPELINE_LONG[1]} at {PIPELINE_LONG[2]} layers; fp32 parity")
+    result = {}
+    cfg = GPTCfg(**PIPELINE_GPT, seq_length=PIPELINE_RUNS[0][1])
+    model = create_gpt(cfg, precision="bf16", seed=0).train()
+    n_params = sum(p.numel() for p in model.parameters())
+    if n_params != PIPELINE_PARAMS:
+        raise AssertionError(f"pipeline GPT has {n_params} parameters, "
+                             f"not {PIPELINE_PARAMS}")
+    opt = make_gpt_optimizer(model)
+    state = TrainState.create(model, opt)
+    for b, s, w, n in PIPELINE_RUNS:
+        state, result[f"S={s}"] = pipeline_run(mha, ln, card, model, opt,
+                                               state, b, s, w, n)
+        if s == PIPELINE_RUNS[0][1]:
+            state, result[f"S={s} full"] = full_remat_step(
+                mha, ln, card, model, opt, state, b, s)
+    del model, opt, state
+    torch.cuda.empty_cache()
+    b, s, layers, w, n = PIPELINE_LONG
+    cfg = GPTCfg(**dict(PIPELINE_GPT, num_layers=layers), seq_length=s)
+    model = create_gpt(cfg, precision="bf16", seed=0).train()
+    opt = make_gpt_optimizer(model)
+    _, result[f"S={s}"] = pipeline_run(mha, ln, card, model, opt,
+                                       TrainState.create(model, opt), b, s,
+                                       w, n)
+    del model, opt
+    torch.cuda.empty_cache()
+    over = {k: PIPELINE_GPT[k] for k in ("hidden_size", "num_heads",
+                                         "attention_dropout")}
+    result["parity"] = {
+        f"S={s}": gpt_parity(over=dict(over, hidden_dropout=0.0), seq=s,
+                             fused_ce=True, seed=PIPELINE_SEED,
+                             label="pipeline GPT, attention dropout 0.1")
+        for s in PIPELINE_PARITY_SEQS}
+    log(f"  pipeline: {json.dumps(result)}")
+    return result
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; this script runs only on the GPU",
@@ -2031,6 +2728,7 @@ def main() -> int:
     legs = phase_legs(port, mha, ln, card)
     gpt = phase_gpt(mha, ln, card)
     example = phase_example(mha, ln, card, gpt)
+    pipeline = phase_pipeline(mha, ln, card)
     paths = {"serving ViT-B-32": serving["launches"],
              "train ViT-B-32": train["launches"],
              **{f"train {name} recompute": run["launches"]
@@ -2039,7 +2737,9 @@ def main() -> int:
                 for key, run in gpt.items() if key != "parity"},
              "train example GPT": example["run"]["launches"],
              "train GPT-345m S=2048 fused_ce":
-                 example["gpt345m_fused_ce"]["launches"]}
+                 example["gpt345m_fused_ce"]["launches"],
+             **{f"train pipeline GPT {key}": run["launches"]
+                for key, run in pipeline.items() if key != "parity"}}
     kernels = kernels_line(rows, paths, errs)
     idle = [k["name"] for k in kernels if k["launches"] == 0]
     if idle:

@@ -6,8 +6,9 @@ ported paths read are kept: the ViT CLIP towers (no layer scale, no pooling
 choice, no ln_pre or causal-mask switch, no text-projection bias:
 `create_model` rejects those keys until the slice that needs them) and what
 `GPTCfg.transformer()` sets on the GPT paths (megatron's init, the bias
-switch, gelu_tanh or swiglu, LayerNorm or RMSNorm, rotary embeddings and
-grouped-query attention; not `kv_channels`, squared_relu or MoE); the mesh
+switch, gelu_tanh or swiglu, LayerNorm or RMSNorm, rotary embeddings,
+grouped-query attention, the dropout rates and activation recompute; not
+`kv_channels`, squared_relu or MoE); the mesh
 configs (ParallelCfg, BranchParallelCfg) come
 with the parallelism slice.
 """
@@ -44,6 +45,20 @@ BF16 = Precision(param_dtype="float32", compute_dtype="bfloat16")
 PURE_BF16 = Precision(param_dtype="bfloat16", compute_dtype="bfloat16")
 
 
+REMAT_MODES = ("none", "selective", "full")
+
+
+def check_remat(remat: str) -> str:
+    """`remat` if the port has it: none, selective or full; the JAX
+    package's "mlp" is not ported yet."""
+    if remat == "mlp":
+        raise NotImplementedError("remat='mlp' is not ported yet (ROADMAP "
+                                  "Queue A item 1)")
+    if remat not in REMAT_MODES:
+        raise ValueError(f"remat={remat!r}: one of {REMAT_MODES}")
+    return remat
+
+
 @dataclass(frozen=True)
 class TransformerCfg:
     """Hyperparameters of one pre-LN transformer stack."""
@@ -68,8 +83,15 @@ class TransformerCfg:
     # megatron --init-method-std (inputs at std, residual outputs at
     # std/sqrt(2L))
     init_std: Optional[float] = None
+    # dropout (megatron --attention-dropout / --hidden-dropout), active only
+    # when a seed reaches the stack (training), as the JAX package's rng
+    attention_dropout: float = 0.0
+    hidden_dropout: float = 0.0
+    # activation recompute (megatron --recompute-granularity)
+    remat: str = "none"  # none | selective | full
 
     def __post_init__(self):
+        check_remat(self.remat)
         if self.act not in ("gelu", "gelu_tanh", "quick_gelu", "swiglu"):
             raise NotImplementedError(f"act={self.act!r} is not ported yet "
                                       "(ROADMAP Queue A item 4)")

@@ -33,6 +33,16 @@
 // dQ = bf16(dS) K, each product accumulated in fp32, outputs rounded to the
 // input dtype.
 //
+// Dropout (the TPU kernels' _drop_keep, rate > 0). Each kernel has a twin
+// that drops attention probabilities, drawing the keep mask M of every
+// score from philox.cuh, so the forward and every backward draw the same
+// bits and no mask is stored. As the TPU kernels: the forward multiplies
+// the unnormalised fp32 p by M (keep / (1 - rate) in fp32) before the
+// rounding for P.V, and l keeps the undropped sum; the backward takes
+// dP M in dS and bf16(P M) in dV, and delta = rowsum(dO * O) unchanged, O
+// being dropped already. The TPU kernel draws per 1024-key block from its
+// on-core PRNG; the draw here is per element, from global indices.
+//
 // dQ of the fused backward. The TPU kernel writes one fp32 dQ partial per
 // key block and sums them outside; with 64-key tiles that buffer would be
 // 32x dQ at S = 2048 (~0.8 GB per layer at B = 6), more traffic than the
@@ -74,10 +84,12 @@
 
 #include "common.cuh"
 #include "mma_tiles.cuh"
+#include "philox.cuh"
 
 namespace {
 
 using mct::allow_smem;
+using mct::Dropout;
 constexpr int kThreads = 128;  // 4 warps
 constexpr int kMaxD = 128;
 constexpr float kMasked = -1e30f;  // the TPU kernel's NEG_INF
@@ -149,11 +161,11 @@ __host__ __device__ inline int fwd_smem_bytes(int d) {
   return 4 * (2 * kKTile * ld + kQTile * dp + kQTile * kKTile);
 }
 
-template <typename T>
+template <typename T, bool kDrop>
 __global__ void __launch_bounds__(kThreads)
 fwd(View<const T> q, View<const T> k, View<const T> v, View<T> o,
     float* __restrict__ lse, int H, int Sq, int Sk, int D, float scale,
-    int causal) {
+    int causal, Dropout drop) {
   extern __shared__ __align__(16) float smem[];
   const int dp = padded_d(D), ld = dp + 4;
   float* k_s = smem;               // [kKTile][ld]
@@ -201,7 +213,10 @@ fwd(View<const T> q, View<const T> k, View<const T> v, View<T> o,
       const float p = expf(sv - mn);
       l[r] = corr * l[r] + mct::warp_sum(p);
       m[r] = mn;
-      p_w[r * kKTile + lane] = mct::round_to<T>(p);
+      // dropout scales the unnormalised p of P.V; l keeps the undropped sum
+      const float keep =
+          kDrop && ok ? drop.at(b * H + h, q0 + r0 + r, kj) : 1.f;
+      p_w[r * kKTile + lane] = mct::round_to<T>(p * keep);
 #pragma unroll
       for (int c = 0; c < kDPerLane; ++c) acc[r][c] *= corr;
     }
@@ -241,11 +256,12 @@ __host__ __device__ inline int dq_smem_bytes(int d) {
 }
 
 // dQ of 16 query rows, each lane one key of a 32-key tile.
-template <typename T>
+template <typename T, bool kDrop>
 __global__ void __launch_bounds__(kThreads)
 bwd_dq(View<const T> q, View<const T> k, View<const T> v, View<const T> g,
        const float* __restrict__ lse, const float* __restrict__ delta,
-       View<T> dq, int H, int Sq, int Sk, int D, float scale, int causal) {
+       View<T> dq, int H, int Sq, int Sk, int D, float scale, int causal,
+       Dropout drop) {
   extern __shared__ __align__(16) float smem[];
   const int dp = padded_d(D), ld = dp + 4;
   float* k_s = smem;                 // [kKTile][ld]
@@ -293,7 +309,10 @@ bwd_dq(View<const T> q, View<const T> k, View<const T> v, View<const T> g,
       const int kj = t0 + lane;
       const bool ok = lane < nt && (!causal || kj <= q0 + r0 + r);
       const float p = ok ? expf(s[r] * scale - lse_r[r]) : 0.f;
-      ds_w[r * kKTile + lane] = mct::round_to<T>(p * (dpv[r] - dl[r]) * scale);
+      // dP of the dropped P is dP M
+      const float keep = kDrop && ok ? drop.at(bh, q0 + r0 + r, kj) : 1.f;
+      ds_w[r * kKTile + lane] =
+          mct::round_to<T>(p * (dpv[r] * keep - dl[r]) * scale);
     }
     __syncwarp();
     for (int j = 0; j < jn; ++j) {
@@ -327,12 +346,12 @@ __host__ __device__ inline int kv_smem_bytes(int d) {
 
 // dK and dV of 16 keys, each lane one query of a 32-query tile. kDQ (the
 // fused backward) also adds dS K of those keys into dq_acc.
-template <typename T, bool kDQ>
+template <typename T, bool kDQ, bool kDrop>
 __global__ void __launch_bounds__(kThreads)
 bwd_kv(View<const T> q, View<const T> k, View<const T> v, View<const T> g,
        const float* __restrict__ lse, const float* __restrict__ delta,
        View<T> dk, View<T> dv, float* __restrict__ dq_acc, int H, int Sq,
-       int Sk, int D, float scale, int causal) {
+       int Sk, int D, float scale, int causal, Dropout drop) {
   extern __shared__ __align__(16) float smem[];
   const int dp = padded_d(D), ld = dp + 4;
   float* q_s = smem;                     // [kKTile][ld] queries
@@ -381,8 +400,11 @@ bwd_kv(View<const T> q, View<const T> k, View<const T> v, View<const T> g,
         const int kj = k0 + r0 + r;
         const bool ok = r0 + r < nkeys && lane < nt && (!causal || kj <= qi);
         const float p = ok ? expf(s[r] * scale - lse_q) : 0.f;
-        p_w[r * kKTile + lane] = mct::round_to<T>(p);
-        ds_w[r * kKTile + lane] = mct::round_to<T>(p * (dpv[r] - dl_q) * scale);
+        // dV from P M, dS from dP M
+        const float keep = kDrop && ok ? drop.at(bh, qi, kj) : 1.f;
+        p_w[r * kKTile + lane] = mct::round_to<T>(p * keep);
+        ds_w[r * kKTile + lane] =
+            mct::round_to<T>(p * (dpv[r] * keep - dl_q) * scale);
       }
       __syncwarp();
       for (int j = 0; j < nt; ++j) {
@@ -437,15 +459,42 @@ bwd_kv(View<const T> q, View<const T> k, View<const T> v, View<const T> g,
   }
 }
 
+template <typename T, bool kDrop>
+cudaError_t launch_fwd_as(View<const T> q, View<const T> k, View<const T> v,
+                          View<T> o, float* lse, int B, int H, int Sq, int Sk,
+                          int D, float scale, int causal, Dropout drop,
+                          cudaStream_t st) {
+  const int smem = fwd_smem_bytes(D);
+  const cudaError_t e = allow_smem(fwd<T, kDrop>, smem);
+  if (e != cudaSuccess) return e;
+  fwd<T, kDrop><<<dim3((Sq + kQTile - 1) / kQTile, H, B), kThreads, smem,
+                  st>>>(q, k, v, o, lse, H, Sq, Sk, D, scale, causal, drop);
+  return cudaGetLastError();
+}
+
 template <typename T>
 cudaError_t launch_fwd(View<const T> q, View<const T> k, View<const T> v,
                        View<T> o, float* lse, int B, int H, int Sq, int Sk,
-                       int D, float scale, int causal, cudaStream_t st) {
-  const int smem = fwd_smem_bytes(D);
-  const cudaError_t e = allow_smem(fwd<T>, smem);
+                       int D, float scale, int causal, const Dropout* drop,
+                       cudaStream_t st) {
+  return drop ? launch_fwd_as<T, true>(q, k, v, o, lse, B, H, Sq, Sk, D,
+                                       scale, causal, *drop, st)
+              : launch_fwd_as<T, false>(q, k, v, o, lse, B, H, Sq, Sk, D,
+                                        scale, causal, Dropout{}, st);
+}
+
+template <typename T, bool kDrop>
+cudaError_t launch_dq_as(View<const T> q, View<const T> k, View<const T> v,
+                         View<const T> g, const float* lse,
+                         const float* delta, View<T> dq, int B, int H, int Sq,
+                         int Sk, int D, float scale, int causal, Dropout drop,
+                         cudaStream_t st) {
+  const int smem = dq_smem_bytes(D);
+  const cudaError_t e = allow_smem(bwd_dq<T, kDrop>, smem);
   if (e != cudaSuccess) return e;
-  fwd<T><<<dim3((Sq + kQTile - 1) / kQTile, H, B), kThreads, smem, st>>>(
-      q, k, v, o, lse, H, Sq, Sk, D, scale, causal);
+  bwd_dq<T, kDrop><<<dim3((Sq + kQTile - 1) / kQTile, H, B), kThreads, smem,
+                     st>>>(q, k, v, g, lse, delta, dq, H, Sq, Sk, D, scale,
+                           causal, drop);
   return cudaGetLastError();
 }
 
@@ -453,12 +502,28 @@ template <typename T>
 cudaError_t launch_dq(View<const T> q, View<const T> k, View<const T> v,
                       View<const T> g, const float* lse, const float* delta,
                       View<T> dq, int B, int H, int Sq, int Sk, int D,
-                      float scale, int causal, cudaStream_t st) {
-  const int smem = dq_smem_bytes(D);
-  const cudaError_t e = allow_smem(bwd_dq<T>, smem);
+                      float scale, int causal, const Dropout* drop,
+                      cudaStream_t st) {
+  return drop ? launch_dq_as<T, true>(q, k, v, g, lse, delta, dq, B, H, Sq,
+                                      Sk, D, scale, causal, *drop, st)
+              : launch_dq_as<T, false>(q, k, v, g, lse, delta, dq, B, H, Sq,
+                                       Sk, D, scale, causal, Dropout{}, st);
+}
+
+template <typename T, bool kDQ, bool kDrop>
+cudaError_t launch_kv_as(View<const T> q, View<const T> k, View<const T> v,
+                         View<const T> g, const float* lse,
+                         const float* delta, View<T> dk, View<T> dv,
+                         float* dq_acc, int B, int H, int Sq, int Sk, int D,
+                         float scale, int causal, Dropout drop,
+                         cudaStream_t st) {
+  const int smem = kv_smem_bytes(D);
+  const cudaError_t e = allow_smem(bwd_kv<T, kDQ, kDrop>, smem);
   if (e != cudaSuccess) return e;
-  bwd_dq<T><<<dim3((Sq + kQTile - 1) / kQTile, H, B), kThreads, smem, st>>>(
-      q, k, v, g, lse, delta, dq, H, Sq, Sk, D, scale, causal);
+  bwd_kv<T, kDQ, kDrop>
+      <<<dim3((Sk + kQTile - 1) / kQTile, H, B), kThreads, smem, st>>>(
+          q, k, v, g, lse, delta, dk, dv, dq_acc, H, Sq, Sk, D, scale,
+          causal, drop);
   return cudaGetLastError();
 }
 
@@ -467,15 +532,13 @@ cudaError_t launch_kv(View<const T> q, View<const T> k, View<const T> v,
                       View<const T> g, const float* lse, const float* delta,
                       View<T> dk, View<T> dv, float* dq_acc, int B, int H,
                       int Sq, int Sk, int D, float scale, int causal,
-                      cudaStream_t st) {
-  const int smem = kv_smem_bytes(D);
-  const cudaError_t e = allow_smem(bwd_kv<T, kDQ>, smem);
-  if (e != cudaSuccess) return e;
-  bwd_kv<T, kDQ>
-      <<<dim3((Sk + kQTile - 1) / kQTile, H, B), kThreads, smem, st>>>(
-          q, k, v, g, lse, delta, dk, dv, dq_acc, H, Sq, Sk, D, scale,
-          causal);
-  return cudaGetLastError();
+                      const Dropout* drop, cudaStream_t st) {
+  return drop ? launch_kv_as<T, kDQ, true>(q, k, v, g, lse, delta, dk, dv,
+                                           dq_acc, B, H, Sq, Sk, D, scale,
+                                           causal, *drop, st)
+              : launch_kv_as<T, kDQ, false>(q, k, v, g, lse, delta, dk, dv,
+                                            dq_acc, B, H, Sq, Sk, D, scale,
+                                            causal, Dropout{}, st);
 }
 
 }  // namespace simt
@@ -539,11 +602,11 @@ __device__ __forceinline__ void to_a_frags(uint32_t (&a)[NT / 2][4],
     }
 }
 
-template <int DP>
+template <int DP, bool kDrop>
 __global__ void __launch_bounds__(kThreads)
 fwd(View<const bf16> q, View<const bf16> k, View<const bf16> v, View<bf16> o,
     float* __restrict__ lse, int H, int Sq, int Sk, int D, float scale,
-    int causal) {
+    int causal, Dropout drop) {
   constexpr int kPitch = DP + 8, NT = kK / 8;
   extern __shared__ __align__(16) unsigned char smem_raw[];
   bf16* q_s = reinterpret_cast<bf16*>(smem_raw);  // [kQ][kPitch]
@@ -612,6 +675,14 @@ fwd(View<const bf16> q, View<const bf16> k, View<const bf16> v, View<bf16> o,
         acc[n][2 * half + 1] *= corr;
       }
     }
+    if (kDrop)  // P.V takes the dropped p; l keeps the undropped sum
+#pragma unroll
+      for (int n = 0; n < NT; ++n) {
+        float keep[4];
+        drop.quad(keep, (long)b * H + h, row_lo, t0 + 8 * n + 2 * (lane & 3));
+#pragma unroll
+        for (int j = 0; j < 4; ++j) s[n][j] *= keep[j];
+      }
     // O += bf16(P) V
     uint32_t pa[NT / 2][4];
     to_a_frags<NT>(pa, s);
@@ -637,13 +708,13 @@ fwd(View<const bf16> q, View<const bf16> k, View<const bf16> v, View<bf16> o,
 
 // dK and dV of 64 keys (see the file's note); kDQ: the fused backward, which
 // also adds dQ += dS K into dq_acc.
-template <int DP, bool kDQ>
+template <int DP, bool kDQ, bool kDrop>
 __global__ void __launch_bounds__(kThreads)
 bwd_kv(View<const bf16> q, View<const bf16> k, View<const bf16> v,
        View<const bf16> g, const float* __restrict__ lse,
        const float* __restrict__ delta, View<bf16> dk, View<bf16> dv,
        float* __restrict__ dq_acc, int H, int Sq, int Sk, int D, float scale,
-       int causal) {
+       int causal, Dropout drop) {
   constexpr int kPitch = DP + 8, NT = kSub / 8;
   extern __shared__ __align__(16) unsigned char smem_raw[];
   bf16* k_s = reinterpret_cast<bf16*>(smem_raw);  // [kK][kPitch] block keys
@@ -713,9 +784,26 @@ bwd_kv(View<const bf16> q, View<const bf16> k, View<const bf16> v,
                           (!causal || key <= q0 + qq);
           s[n][j] = ok ? expf(s[n][j] * scale - lse_s[qq]) : 0.f;
         }
-      // dV += bf16(P^T) dO
+      // the keep multipliers M^T of the half: dV from P^T M^T, dS^T from
+      // dP^T M^T
+      float keep[NT][4];
+      if (kDrop)
+#pragma unroll
+        for (int n = 0; n < NT; n += 2)
+          drop.quad_t2(keep[n], keep[n + 1], bh,
+                       q0 + qs + 8 * n + 2 * (lane & 3), key_lo);
+      // dV += bf16(P^T M^T) dO
       uint32_t a[NT / 2][4];
-      to_a_frags<NT>(a, s);
+      if (kDrop) {
+        float pd[NT][4];
+#pragma unroll
+        for (int n = 0; n < NT; ++n)
+#pragma unroll
+          for (int j = 0; j < 4; ++j) pd[n][j] = s[n][j] * keep[n][j];
+        to_a_frags<NT>(a, pd);
+      } else {
+        to_a_frags<NT>(a, s);
+      }
       mma_rows<DP, NT / 2>(dva, a, do_s + qs * kPitch, lane);
       // dP^T = V dO^T, dS^T = P^T (dP^T - delta) scale, dK += bf16(dS^T) Q
       float dp[NT][4];
@@ -725,7 +813,8 @@ bwd_kv(View<const bf16> q, View<const bf16> k, View<const bf16> v,
 #pragma unroll
         for (int j = 0; j < 4; ++j) {
           const int qq = qs + 8 * n + 2 * (lane & 3) + (j & 1);
-          dp[n][j] = s[n][j] * (dp[n][j] - d_s[qq]) * scale;
+          const float dpm = kDrop ? dp[n][j] * keep[n][j] : dp[n][j];
+          dp[n][j] = s[n][j] * (dpm - d_s[qq]) * scale;
         }
       to_a_frags<NT>(a, dp);
       mma_rows<DP, NT / 2>(dka, a, q_s + qs * kPitch, lane);
@@ -798,12 +887,12 @@ bwd_kv(View<const bf16> q, View<const bf16> k, View<const bf16> v,
 }
 
 // dQ of 64 queries (see the file's note).
-template <int DP>
+template <int DP, bool kDrop>
 __global__ void __launch_bounds__(kThreads)
 bwd_dq(View<const bf16> q, View<const bf16> k, View<const bf16> v,
        View<const bf16> g, const float* __restrict__ lse,
        const float* __restrict__ delta, View<bf16> dq, int H, int Sq, int Sk,
-       int D, float scale, int causal) {
+       int D, float scale, int causal, Dropout drop) {
   constexpr int kPitch = DP + 8, NT = kSub / 8;
   extern __shared__ __align__(16) unsigned char smem_raw[];
   bf16* q_s = reinterpret_cast<bf16*>(smem_raw);  // [kQ][kPitch]
@@ -853,15 +942,19 @@ bwd_dq(View<const bf16> q, View<const bf16> k, View<const bf16> v,
       score_tile_s<DP, NT>(s, qw_s, k_s + hk * kPitch, lane);
       score_tile_s<DP, NT>(dp, dow_s, v_s + hk * kPitch, lane);
 #pragma unroll
-      for (int n = 0; n < NT; ++n)
+      for (int n = 0; n < NT; ++n) {
+        float keep[4] = {1.f, 1.f, 1.f, 1.f};
+        if (kDrop)  // dS from dP M
+          drop.quad(keep, bh, row_lo, t + 8 * n + 2 * (lane & 3));
 #pragma unroll
         for (int j = 0; j < 4; ++j) {
           const int key = t + 8 * n + 2 * (lane & 3) + (j & 1);
           const int half = j >> 1;
           const bool ok = key < Sk && (!causal || key <= row_lo + 8 * half);
           const float p = ok ? expf(s[n][j] * scale - lse_r[half]) : 0.f;
-          dp[n][j] = p * (dp[n][j] - dl[half]) * scale;
+          dp[n][j] = p * (dp[n][j] * keep[j] - dl[half]) * scale;
         }
+      }
       uint32_t a[NT / 2][4];
       to_a_frags<NT>(a, dp);
       mma_rows<DP, NT / 2>(acc, a, k_s + hk * kPitch, lane);
@@ -883,16 +976,44 @@ bwd_dq(View<const bf16> q, View<const bf16> k, View<const bf16> v,
   }
 }
 
+template <int DP, bool kDrop>
+cudaError_t launch_fwd_as(View<const bf16> q, View<const bf16> k,
+                          View<const bf16> v, View<bf16> o, float* lse, int B,
+                          int H, int Sq, int Sk, int D, float scale,
+                          int causal, Dropout drop, cudaStream_t st) {
+  constexpr int kSmem = fwd_smem_bytes(DP);
+  const cudaError_t e = allow_smem(fwd<DP, kDrop>, kSmem);
+  if (e != cudaSuccess) return e;
+  fwd<DP, kDrop><<<dim3((Sq + kQ - 1) / kQ, H, B), kThreads, kSmem, st>>>(
+      q, k, v, o, lse, H, Sq, Sk, D, scale, causal, drop);
+  return cudaGetLastError();
+}
+
 template <int DP>
 cudaError_t launch_fwd(View<const bf16> q, View<const bf16> k,
                        View<const bf16> v, View<bf16> o, float* lse, int B,
                        int H, int Sq, int Sk, int D, float scale, int causal,
-                       cudaStream_t st) {
-  constexpr int kSmem = fwd_smem_bytes(DP);
-  const cudaError_t e = allow_smem(fwd<DP>, kSmem);
+                       const Dropout* drop, cudaStream_t st) {
+  return drop ? launch_fwd_as<DP, true>(q, k, v, o, lse, B, H, Sq, Sk, D,
+                                        scale, causal, *drop, st)
+              : launch_fwd_as<DP, false>(q, k, v, o, lse, B, H, Sq, Sk, D,
+                                         scale, causal, Dropout{}, st);
+}
+
+template <int DP, bool kDQ, bool kDrop>
+cudaError_t launch_kv_as(View<const bf16> q, View<const bf16> k,
+                         View<const bf16> v, View<const bf16> g,
+                         const float* lse, const float* delta, View<bf16> dk,
+                         View<bf16> dv, float* dq_acc, int B, int H, int Sq,
+                         int Sk, int D, float scale, int causal, Dropout drop,
+                         cudaStream_t st) {
+  constexpr int kSmem = kv_smem_bytes(DP, kDQ);
+  const cudaError_t e = allow_smem(bwd_kv<DP, kDQ, kDrop>, kSmem);
   if (e != cudaSuccess) return e;
-  fwd<DP><<<dim3((Sq + kQ - 1) / kQ, H, B), kThreads, kSmem, st>>>(
-      q, k, v, o, lse, H, Sq, Sk, D, scale, causal);
+  bwd_kv<DP, kDQ, kDrop>
+      <<<dim3((Sk + kK - 1) / kK, H, B), kThreads, kSmem, st>>>(
+          q, k, v, g, lse, delta, dk, dv, dq_acc, H, Sq, Sk, D, scale, causal,
+          drop);
   return cudaGetLastError();
 }
 
@@ -902,13 +1023,13 @@ cudaError_t launch_kv(View<const bf16> q, View<const bf16> k,
                       const float* lse, const float* delta, View<bf16> dk,
                       View<bf16> dv, float* dq_acc, int B, int H, int Sq,
                       int Sk, int D, float scale, int causal,
-                      cudaStream_t st) {
-  constexpr int kSmem = kv_smem_bytes(DP, kDQ);
-  const cudaError_t e = allow_smem(bwd_kv<DP, kDQ>, kSmem);
-  if (e != cudaSuccess) return e;
-  bwd_kv<DP, kDQ><<<dim3((Sk + kK - 1) / kK, H, B), kThreads, kSmem, st>>>(
-      q, k, v, g, lse, delta, dk, dv, dq_acc, H, Sq, Sk, D, scale, causal);
-  return cudaGetLastError();
+                      const Dropout* drop, cudaStream_t st) {
+  return drop ? launch_kv_as<DP, kDQ, true>(q, k, v, g, lse, delta, dk, dv,
+                                            dq_acc, B, H, Sq, Sk, D, scale,
+                                            causal, *drop, st)
+              : launch_kv_as<DP, kDQ, false>(q, k, v, g, lse, delta, dk, dv,
+                                             dq_acc, B, H, Sq, Sk, D, scale,
+                                             causal, Dropout{}, st);
 }
 
 template <int DP>
@@ -917,9 +1038,9 @@ cudaError_t launch_fused(View<const bf16> q, View<const bf16> k,
                          const float* lse, const float* delta, View<bf16> dk,
                          View<bf16> dv, float* dq_acc, int B, int H, int Sq,
                          int Sk, int D, float scale, int causal,
-                         cudaStream_t st) {
+                         const Dropout* drop, cudaStream_t st) {
   return launch_kv<DP, true>(q, k, v, g, lse, delta, dk, dv, dq_acc, B, H, Sq,
-                             Sk, D, scale, causal, st);
+                             Sk, D, scale, causal, drop, st);
 }
 
 template <int DP>
@@ -928,9 +1049,23 @@ cudaError_t launch_dkv(View<const bf16> q, View<const bf16> k,
                        const float* lse, const float* delta, View<bf16> dk,
                        View<bf16> dv, float* dq_acc, int B, int H, int Sq,
                        int Sk, int D, float scale, int causal,
-                       cudaStream_t st) {
+                       const Dropout* drop, cudaStream_t st) {
   return launch_kv<DP, false>(q, k, v, g, lse, delta, dk, dv, dq_acc, B, H,
-                              Sq, Sk, D, scale, causal, st);
+                              Sq, Sk, D, scale, causal, drop, st);
+}
+
+template <int DP, bool kDrop>
+cudaError_t launch_dq_as(View<const bf16> q, View<const bf16> k,
+                         View<const bf16> v, View<const bf16> g,
+                         const float* lse, const float* delta, View<bf16> dq,
+                         int B, int H, int Sq, int Sk, int D, float scale,
+                         int causal, Dropout drop, cudaStream_t st) {
+  constexpr int kSmem = dq_smem_bytes(DP);
+  const cudaError_t e = allow_smem(bwd_dq<DP, kDrop>, kSmem);
+  if (e != cudaSuccess) return e;
+  bwd_dq<DP, kDrop><<<dim3((Sq + kQ - 1) / kQ, H, B), kThreads, kSmem, st>>>(
+      q, k, v, g, lse, delta, dq, H, Sq, Sk, D, scale, causal, drop);
+  return cudaGetLastError();
 }
 
 template <int DP>
@@ -938,21 +1073,19 @@ cudaError_t launch_dq(View<const bf16> q, View<const bf16> k,
                       View<const bf16> v, View<const bf16> g,
                       const float* lse, const float* delta, View<bf16> dq,
                       int B, int H, int Sq, int Sk, int D, float scale,
-                      int causal, cudaStream_t st) {
-  constexpr int kSmem = dq_smem_bytes(DP);
-  const cudaError_t e = allow_smem(bwd_dq<DP>, kSmem);
-  if (e != cudaSuccess) return e;
-  bwd_dq<DP><<<dim3((Sq + kQ - 1) / kQ, H, B), kThreads, kSmem, st>>>(
-      q, k, v, g, lse, delta, dq, H, Sq, Sk, D, scale, causal);
-  return cudaGetLastError();
+                      int causal, const Dropout* drop, cudaStream_t st) {
+  return drop ? launch_dq_as<DP, true>(q, k, v, g, lse, delta, dq, B, H, Sq,
+                                       Sk, D, scale, causal, *drop, st)
+              : launch_dq_as<DP, false>(q, k, v, g, lse, delta, dq, B, H, Sq,
+                                        Sk, D, scale, causal, Dropout{}, st);
 }
 
 cudaError_t dispatch_fwd(View<const bf16> q, View<const bf16> k,
                          View<const bf16> v, View<bf16> o, float* lse, int B,
                          int H, int Sq, int Sk, int D, float scale, int causal,
-                         cudaStream_t st) {
+                         const Dropout* drop, cudaStream_t st) {
   MCT_TC_DISPATCH(launch_fwd, D, q, k, v, o, lse, B, H, Sq, Sk, D, scale,
-                  causal, st)
+                  causal, drop, st)
 }
 
 cudaError_t dispatch_fused(View<const bf16> q, View<const bf16> k,
@@ -960,27 +1093,28 @@ cudaError_t dispatch_fused(View<const bf16> q, View<const bf16> k,
                            const float* lse, const float* delta,
                            View<bf16> dk, View<bf16> dv, float* dq_acc, int B,
                            int H, int Sq, int Sk, int D, float scale,
-                           int causal, cudaStream_t st) {
+                           int causal, const Dropout* drop, cudaStream_t st) {
   MCT_TC_DISPATCH(launch_fused, D, q, k, v, g, lse, delta, dk, dv, dq_acc, B,
-                  H, Sq, Sk, D, scale, causal, st)
+                  H, Sq, Sk, D, scale, causal, drop, st)
 }
 
 cudaError_t dispatch_dkv(View<const bf16> q, View<const bf16> k,
                          View<const bf16> v, View<const bf16> g,
                          const float* lse, const float* delta, View<bf16> dk,
                          View<bf16> dv, int B, int H, int Sq, int Sk, int D,
-                         float scale, int causal, cudaStream_t st) {
+                         float scale, int causal, const Dropout* drop,
+                         cudaStream_t st) {
   MCT_TC_DISPATCH(launch_dkv, D, q, k, v, g, lse, delta, dk, dv, nullptr, B,
-                  H, Sq, Sk, D, scale, causal, st)
+                  H, Sq, Sk, D, scale, causal, drop, st)
 }
 
 cudaError_t dispatch_dq(View<const bf16> q, View<const bf16> k,
                         View<const bf16> v, View<const bf16> g,
                         const float* lse, const float* delta, View<bf16> dq,
                         int B, int H, int Sq, int Sk, int D, float scale,
-                        int causal, cudaStream_t st) {
+                        int causal, const Dropout* drop, cudaStream_t st) {
   MCT_TC_DISPATCH(launch_dq, D, q, k, v, g, lse, delta, dq, B, H, Sq, Sk, D,
-                  scale, causal, st)
+                  scale, causal, drop, st)
 }
 
 }  // namespace tc
@@ -1010,38 +1144,49 @@ using bf16 = __nv_bfloat16;
 }  // namespace
 
 // Each operand is a pointer and the element strides of its batch, head and
-// sequence axes (D contiguous); lse, delta [B, H, Sq] fp32 contiguous. Each
-// function launches on `stream` and returns the launch's cudaError_t (0 on
-// success).
+// sequence axes (D contiguous); lse, delta [B, H, Sq] fp32 contiguous. With
+// `drop` the kernels drop attention probabilities as philox.cuh draws them
+// (seed, offset, threshold; a kept probability times `mult`); without it
+// they are the rate-0 kernels. Each function launches on `stream` and
+// returns the launch's cudaError_t (0 on success).
 #define MCT_VIEW_ARGS(x) \
   const void *x, long long x##_b, long long x##_h, long long x##_s
 #define MCT_VIEW(T, x) view<T>(x, x##_b, x##_h, x##_s)
 #define MCT_STRIDES(x) x##_b, x##_h, x##_s
+#define MCT_DROP_ARGS                                                  \
+  int drop, unsigned long long seed, unsigned int offset,              \
+      unsigned int threshold, float mult
+#define MCT_DROP                                                        \
+  const Dropout drop_args{(uint32_t)seed, (uint32_t)(seed >> 32), offset, \
+                          threshold, mult};                              \
+  const Dropout* dr = drop ? &drop_args : nullptr
 
 // Forward: out and lse.
 extern "C" int mct_flash_fwd(MCT_VIEW_ARGS(q), MCT_VIEW_ARGS(k),
                              MCT_VIEW_ARGS(v), MCT_VIEW_ARGS(o), void* lse,
                              int B, int H, int Sq, int Sk, int D, float scale,
-                             int causal, int dtype, void* stream) {
+                             int causal, int dtype, MCT_DROP_ARGS,
+                             void* stream) {
   if (!valid_shape(B, H, Sq, Sk, D)) return (int)cudaErrorInvalidValue;
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   float* l = static_cast<float*>(lse);
+  MCT_DROP;
   if (dtype == mct::kFloat32)
     return (int)simt::launch_fwd<float>(
         MCT_VIEW(const float, q), MCT_VIEW(const float, k),
         MCT_VIEW(const float, v), MCT_VIEW(float, o), l, B, H, Sq, Sk, D,
-        scale, causal, st);
+        scale, causal, dr, st);
   if (dtype != mct::kBFloat16) return (int)cudaErrorInvalidValue;
   if (use_tc(D, {q, k, v, o},
              {MCT_STRIDES(q), MCT_STRIDES(k), MCT_STRIDES(v), MCT_STRIDES(o)}))
     return (int)tc::dispatch_fwd(MCT_VIEW(const bf16, q),
                                  MCT_VIEW(const bf16, k),
                                  MCT_VIEW(const bf16, v), MCT_VIEW(bf16, o), l,
-                                 B, H, Sq, Sk, D, scale, causal, st);
+                                 B, H, Sq, Sk, D, scale, causal, dr, st);
   return (int)simt::launch_fwd<bf16>(
       MCT_VIEW(const bf16, q), MCT_VIEW(const bf16, k),
       MCT_VIEW(const bf16, v), MCT_VIEW(bf16, o), l, B, H, Sq, Sk, D, scale,
-      causal, st);
+      causal, dr, st);
 }
 
 // Fused backward: dk and dv, and dQ added into dq_acc, an fp32 [B, Sq, H, D]
@@ -1052,19 +1197,20 @@ extern "C" int mct_flash_bwd_fused(MCT_VIEW_ARGS(q), MCT_VIEW_ARGS(k),
                                    MCT_VIEW_ARGS(dk), MCT_VIEW_ARGS(dv),
                                    void* dq_acc, int B, int H, int Sq, int Sk,
                                    int D, float scale, int causal, int dtype,
-                                   void* stream) {
+                                   MCT_DROP_ARGS, void* stream) {
   if (!valid_shape(B, H, Sq, Sk, D) || dq_acc == nullptr)
     return (int)cudaErrorInvalidValue;
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   const float* l = static_cast<const float*>(lse);
   const float* dl = static_cast<const float*>(delta);
   float* acc = static_cast<float*>(dq_acc);
+  MCT_DROP;
   if (dtype == mct::kFloat32)
     return (int)simt::launch_kv<float, true>(
         MCT_VIEW(const float, q), MCT_VIEW(const float, k),
         MCT_VIEW(const float, v), MCT_VIEW(const float, g), l, dl,
         MCT_VIEW(float, dk), MCT_VIEW(float, dv), acc, B, H, Sq, Sk, D, scale,
-        causal, st);
+        causal, dr, st);
   if (dtype != mct::kBFloat16) return (int)cudaErrorInvalidValue;
   if (use_tc(D, {q, k, v, g, dk, dv},
              {MCT_STRIDES(q), MCT_STRIDES(k), MCT_STRIDES(v), MCT_STRIDES(g),
@@ -1073,12 +1219,12 @@ extern "C" int mct_flash_bwd_fused(MCT_VIEW_ARGS(q), MCT_VIEW_ARGS(k),
         MCT_VIEW(const bf16, q), MCT_VIEW(const bf16, k),
         MCT_VIEW(const bf16, v), MCT_VIEW(const bf16, g), l, dl,
         MCT_VIEW(bf16, dk), MCT_VIEW(bf16, dv), acc, B, H, Sq, Sk, D, scale,
-        causal, st);
+        causal, dr, st);
   return (int)simt::launch_kv<bf16, true>(
       MCT_VIEW(const bf16, q), MCT_VIEW(const bf16, k),
       MCT_VIEW(const bf16, v), MCT_VIEW(const bf16, g), l, dl,
       MCT_VIEW(bf16, dk), MCT_VIEW(bf16, dv), acc, B, H, Sq, Sk, D, scale,
-      causal, st);
+      causal, dr, st);
 }
 
 // Split backward, dQ: one launch, no atomics.
@@ -1087,16 +1233,17 @@ extern "C" int mct_flash_bwd_dq(MCT_VIEW_ARGS(q), MCT_VIEW_ARGS(k),
                                 const void* lse, const void* delta,
                                 MCT_VIEW_ARGS(dq), int B, int H, int Sq,
                                 int Sk, int D, float scale, int causal,
-                                int dtype, void* stream) {
+                                int dtype, MCT_DROP_ARGS, void* stream) {
   if (!valid_shape(B, H, Sq, Sk, D)) return (int)cudaErrorInvalidValue;
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   const float* l = static_cast<const float*>(lse);
   const float* dl = static_cast<const float*>(delta);
+  MCT_DROP;
   if (dtype == mct::kFloat32)
     return (int)simt::launch_dq<float>(
         MCT_VIEW(const float, q), MCT_VIEW(const float, k),
         MCT_VIEW(const float, v), MCT_VIEW(const float, g), l, dl,
-        MCT_VIEW(float, dq), B, H, Sq, Sk, D, scale, causal, st);
+        MCT_VIEW(float, dq), B, H, Sq, Sk, D, scale, causal, dr, st);
   if (dtype != mct::kBFloat16) return (int)cudaErrorInvalidValue;
   if (use_tc(D, {q, k, v, g, dq},
              {MCT_STRIDES(q), MCT_STRIDES(k), MCT_STRIDES(v), MCT_STRIDES(g),
@@ -1106,11 +1253,11 @@ extern "C" int mct_flash_bwd_dq(MCT_VIEW_ARGS(q), MCT_VIEW_ARGS(k),
                                 MCT_VIEW(const bf16, v),
                                 MCT_VIEW(const bf16, g), l, dl,
                                 MCT_VIEW(bf16, dq), B, H, Sq, Sk, D, scale,
-                                causal, st);
+                                causal, dr, st);
   return (int)simt::launch_dq<bf16>(
       MCT_VIEW(const bf16, q), MCT_VIEW(const bf16, k),
       MCT_VIEW(const bf16, v), MCT_VIEW(const bf16, g), l, dl,
-      MCT_VIEW(bf16, dq), B, H, Sq, Sk, D, scale, causal, st);
+      MCT_VIEW(bf16, dq), B, H, Sq, Sk, D, scale, causal, dr, st);
 }
 
 // Split backward, dK and dV: one launch, no atomics.
@@ -1119,17 +1266,19 @@ extern "C" int mct_flash_bwd_dkv(MCT_VIEW_ARGS(q), MCT_VIEW_ARGS(k),
                                  const void* lse, const void* delta,
                                  MCT_VIEW_ARGS(dk), MCT_VIEW_ARGS(dv), int B,
                                  int H, int Sq, int Sk, int D, float scale,
-                                 int causal, int dtype, void* stream) {
+                                 int causal, int dtype, MCT_DROP_ARGS,
+                                 void* stream) {
   if (!valid_shape(B, H, Sq, Sk, D)) return (int)cudaErrorInvalidValue;
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   const float* l = static_cast<const float*>(lse);
   const float* dl = static_cast<const float*>(delta);
+  MCT_DROP;
   if (dtype == mct::kFloat32)
     return (int)simt::launch_kv<float, false>(
         MCT_VIEW(const float, q), MCT_VIEW(const float, k),
         MCT_VIEW(const float, v), MCT_VIEW(const float, g), l, dl,
         MCT_VIEW(float, dk), MCT_VIEW(float, dv), nullptr, B, H, Sq, Sk, D,
-        scale, causal, st);
+        scale, causal, dr, st);
   if (dtype != mct::kBFloat16) return (int)cudaErrorInvalidValue;
   if (use_tc(D, {q, k, v, g, dk, dv},
              {MCT_STRIDES(q), MCT_STRIDES(k), MCT_STRIDES(v), MCT_STRIDES(g),
@@ -1138,10 +1287,13 @@ extern "C" int mct_flash_bwd_dkv(MCT_VIEW_ARGS(q), MCT_VIEW_ARGS(k),
         MCT_VIEW(const bf16, q), MCT_VIEW(const bf16, k),
         MCT_VIEW(const bf16, v), MCT_VIEW(const bf16, g), l, dl,
         MCT_VIEW(bf16, dk), MCT_VIEW(bf16, dv), B, H, Sq, Sk, D, scale,
-        causal, st);
+        causal, dr, st);
   return (int)simt::launch_kv<bf16, false>(
       MCT_VIEW(const bf16, q), MCT_VIEW(const bf16, k),
       MCT_VIEW(const bf16, v), MCT_VIEW(const bf16, g), l, dl,
       MCT_VIEW(bf16, dk), MCT_VIEW(bf16, dv), nullptr, B, H, Sq, Sk, D, scale,
-      causal, st);
+      causal, dr, st);
 }
+
+// The keep bits the kernels above draw (philox.cuh).
+MCT_DROPOUT_MASK_EXPORT

@@ -46,6 +46,19 @@
 // dtype. No [S, S] tensor is written or read. (The TPU kernel's residual is
 // qkv alone: it recomputes the row max and sum inside its whole-row tile.)
 //
+// Dropout. With a Dropout argument the forward with row statistics and the
+// recompute backward also stand for fused_mha_packed_dropout's
+// _fwd_kernel_dropout and _bwd_kernel_dropout (pallas_calls in
+// _fwd_dropout and _vjp_bwd_dropout), which multi_head_attention runs for
+// attention dropout while dropout_kernel_eligible holds (GPT at S = 512,
+// head_dim 128). The TPU kernels read a [B, H, S, S] mask of keep
+// multipliers M from device memory, keep * (1 / (1 - rate)) rounded to the
+// input dtype (1.109375 in bf16 at rate 0.1); here each kernel draws M from
+// philox.cuh and no mask exists in memory. Arithmetic of the TPU kernels:
+// the forward rounds P M (P the normalised fp32 probabilities) to the input
+// dtype before P.V; the backward forms dP M, delta_i = sum_j (dP M)_ij P_ij,
+// dS = P (dP M - delta) scale and dV = bf16(P M)^T dO.
+//
 // What bounds them. At CLIP shapes one (batch, head) of the forward moves
 // S*4*D elements (q, k, v in, o out) plus S*S of P for 4*S*S*D FLOP, and the
 // backward S*(3+1+3)*D elements plus S*S of P for 8*S*S*D FLOP: under
@@ -113,10 +126,12 @@
 
 #include "common.cuh"
 #include "mma_tiles.cuh"
+#include "philox.cuh"
 
 namespace {
 
 using mct::allow_smem;
+using mct::Dropout;
 constexpr int kThreads = 128;  // 4 warps
 constexpr int kMaxD = 128;
 
@@ -182,12 +197,12 @@ __device__ __forceinline__ void score_rows(const float* q_w, const float* k_s,
   }
 }
 
-template <typename T>
+template <typename T, bool kDrop>
 __global__ void __launch_bounds__(kThreads)
 fwd(const T* __restrict__ qkv, Pitch pq, T* __restrict__ out, Pitch po,
     T* __restrict__ probs, float* __restrict__ row_max,
     float* __restrict__ row_sum, int S, int H, int D, float scale,
-    int causal) {
+    int causal, Dropout drop) {
   extern __shared__ __align__(16) float smem[];
   const int dp = padded_d(D), ld = dp + 4;
   float* k_s = smem;                    // [kKTile][ld]
@@ -278,8 +293,12 @@ fwd(const T* __restrict__ qkv, Pitch pq, T* __restrict__ out, Pitch po,
     for (int r = 0; r < kRows; ++r) {
       const int qi = q0 + r0 + r, kj = t0 + lane;
       const bool ok = r0 + r < nq && lane < nt && (!causal || kj <= qi);
+      // dropout: P M, M the keep multiplier in T's precision
+      const float keep =
+          kDrop && ok ? drop.at((long)b * H + h, qi, kj) : 1.f;
       p_w[r * kKTile + lane] =
-          ok ? mct::round_to<T>(expf(s[r] * scale - m[r]) / l[r]) : 0.f;
+          ok ? mct::round_to<T>(expf(s[r] * scale - m[r]) / l[r] * keep)
+             : 0.f;
       if (p_rows != nullptr && r0 + r < nq && lane < nt)
         p_rows[(long)r * S + kj] = mct::from_float<T>(p_w[r * kKTile + lane]);
     }
@@ -319,11 +338,19 @@ fwd(const T* __restrict__ qkv, Pitch pq, T* __restrict__ out, Pitch po,
 template <typename T>
 cudaError_t launch(const void* qkv, Pitch pq, void* out, Pitch po,
                    void* probs, float* row_max, float* row_sum, int B, int S,
-                   int H, int D, float scale, int causal, cudaStream_t st) {
+                   int H, int D, float scale, int causal, const Dropout* drop,
+                   cudaStream_t st) {
   const dim3 grid((S + kQTile - 1) / kQTile, H, B);
-  fwd<T><<<grid, kThreads, smem_bytes(D), st>>>(
-      static_cast<const T*>(qkv), pq, static_cast<T*>(out), po,
-      static_cast<T*>(probs), row_max, row_sum, S, H, D, scale, causal);
+  if (drop)
+    fwd<T, true><<<grid, kThreads, smem_bytes(D), st>>>(
+        static_cast<const T*>(qkv), pq, static_cast<T*>(out), po,
+        static_cast<T*>(probs), row_max, row_sum, S, H, D, scale, causal,
+        *drop);
+  else
+    fwd<T, false><<<grid, kThreads, smem_bytes(D), st>>>(
+        static_cast<const T*>(qkv), pq, static_cast<T*>(out), po,
+        static_cast<T*>(probs), row_max, row_sum, S, H, D, scale, causal,
+        Dropout{});
   return cudaGetLastError();
 }
 
@@ -352,13 +379,13 @@ __host__ __device__ inline int bwd_dq_smem_bytes(int d, bool recompute) {
 // pass 2 forms dS = P (dP - delta) scale rounded to T and accumulates dS.K.
 // P is read from the forward's probs, or with kRecompute formed in fp32 from
 // q.k and the forward's row statistics, exactly as the forward formed it.
-template <typename T, bool kRecompute>
+template <typename T, bool kRecompute, bool kDrop>
 __global__ void __launch_bounds__(kThreads)
 bwd_dq(const T* __restrict__ qkv, Pitch pq, const T* __restrict__ dout,
        Pitch pdo, const T* __restrict__ probs,
        const float* __restrict__ row_max, const float* __restrict__ row_sum,
        T* __restrict__ dqkv, Pitch pdq, float* __restrict__ delta, int S,
-       int H, int D, float scale, int causal) {
+       int H, int D, float scale, int causal, Dropout drop) {
   extern __shared__ __align__(16) float smem[];
   const int dp = padded_d(D), ld = dp + 4;
   float* v_s = smem;                    // [kKTile][ld]
@@ -405,6 +432,12 @@ bwd_dq(const T* __restrict__ qkv, Pitch pq, const T* __restrict__ dout,
     const bool ok = r0 + r < nq && lane < nt;
     return ok ? mct::to_float(p_bh[(long)qi * S + kj]) : 0.f;
   };
+  // dropout: dP M in delta and dS
+  auto drop_dp = [&](float (&s)[kRows], int t0) {
+    if (kDrop)
+#pragma unroll
+      for (int r = 0; r < kRows; ++r) s[r] *= drop.at(bh, q0 + r0 + r, t0 + lane);
+  };
 
   float dl[kRows];
 #pragma unroll
@@ -419,6 +452,7 @@ bwd_dq(const T* __restrict__ qkv, Pitch pq, const T* __restrict__ dout,
     if (t0 >= warp_nk) continue;  // warp-uniform
     float s[kRows], sc[kRows] = {};
     score_rows(do_w, v_s, lane, dp, ld, s);  // dP = dO . V
+    drop_dp(s, t0);
     if (kRecompute) score_rows(q_w, k_s, lane, dp, ld, sc);
 #pragma unroll
     for (int r = 0; r < kRows; ++r)
@@ -442,6 +476,7 @@ bwd_dq(const T* __restrict__ qkv, Pitch pq, const T* __restrict__ dout,
     if (jn <= 0) continue;  // warp-uniform
     float s[kRows], sc[kRows] = {};
     score_rows(do_w, v_s, lane, dp, ld, s);
+    drop_dp(s, t0);
     if (kRecompute) score_rows(q_w, k_s, lane, dp, ld, sc);
 #pragma unroll
     for (int r = 0; r < kRows; ++r)
@@ -488,14 +523,14 @@ __host__ __device__ inline int bwd_dkdv_smem_bytes(int d, bool recompute) {
 // part 1, and the warp accumulates dV += P^T dO and dK += dS^T Q. With
 // kRecompute, P^T comes from k.q and the query's row statistics, and dV
 // takes it rounded to T.
-template <typename T, bool kRecompute>
+template <typename T, bool kRecompute, bool kDrop>
 __global__ void __launch_bounds__(kThreads)
 bwd_dkdv(const T* __restrict__ qkv, Pitch pq, const T* __restrict__ dout,
          Pitch pdo, const T* __restrict__ probs,
          const float* __restrict__ row_max,
          const float* __restrict__ row_sum, const float* __restrict__ delta,
          T* __restrict__ dqkv, Pitch pdq, int S, int H, int D, float scale,
-         int causal) {
+         int causal, Dropout drop) {
   extern __shared__ __align__(16) float smem[];
   const int dp = padded_d(D), ld = dp + 4;
   float* q_s = smem;                      // [kKTile][ld] queries
@@ -556,8 +591,11 @@ bwd_dkdv(const T* __restrict__ qkv, Pitch pq, const T* __restrict__ dout,
         const bool ok = r0 + r < nkeys && lane < nt;
         p = ok ? mct::to_float(p_bh[(long)qi * S + kj]) : 0.f;
       }
-      p_w[r * kKTile + lane] = mct::round_to<T>(p);
-      ds_w[r * kKTile + lane] = mct::round_to<T>(p * (s[r] - dq_lane) * scale);
+      // dropout: dV from P M, dS from dP M
+      const float keep = kDrop ? drop.at(bh, qi, kj) : 1.f;
+      p_w[r * kKTile + lane] = mct::round_to<T>(p * keep);
+      ds_w[r * kKTile + lane] =
+          mct::round_to<T>(p * (s[r] * keep - dq_lane) * scale);
     }
     __syncwarp();
     for (int j = 0; j < nt; ++j) {
@@ -593,32 +631,55 @@ bwd_dkdv(const T* __restrict__ qkv, Pitch pq, const T* __restrict__ dout,
 
 // Both parts of the backward: from P (probs) or, with kRecompute, from the
 // forward's row statistics.
-template <typename T, bool kRecompute>
-cudaError_t launch_bwd(const void* qkv, Pitch pq, const void* dout, Pitch pdo,
-                       const void* probs, const float* row_max,
-                       const float* row_sum, void* dqkv, Pitch pdq,
-                       float* delta, int B, int S, int H, int D, float scale,
-                       int causal, cudaStream_t st) {
+template <typename T, bool kRecompute, bool kDrop>
+cudaError_t launch_bwd_as(const void* qkv, Pitch pq, const void* dout,
+                          Pitch pdo, const void* probs, const float* row_max,
+                          const float* row_sum, void* dqkv, Pitch pdq,
+                          float* delta, int B, int S, int H, int D,
+                          float scale, int causal, Dropout drop,
+                          cudaStream_t st) {
   const int smem_q = bwd_dq_smem_bytes(D, kRecompute);
   const int smem_k = bwd_dkdv_smem_bytes(D, kRecompute);
-  cudaError_t e = allow_smem(bwd_dq<T, kRecompute>, smem_q);
-  if (e == cudaSuccess) e = allow_smem(bwd_dkdv<T, kRecompute>, smem_k);
+  cudaError_t e = allow_smem(bwd_dq<T, kRecompute, kDrop>, smem_q);
+  if (e == cudaSuccess)
+    e = allow_smem(bwd_dkdv<T, kRecompute, kDrop>, smem_k);
   if (e != cudaSuccess) return e;
   const T* q = static_cast<const T*>(qkv);
   const T* g = static_cast<const T*>(dout);
   const T* p = static_cast<const T*>(probs);
   T* dq = static_cast<T*>(dqkv);
-  bwd_dq<T, kRecompute>
+  bwd_dq<T, kRecompute, kDrop>
       <<<dim3((S + kQTile - 1) / kQTile, H, B), kThreads, smem_q, st>>>(
           q, pq, g, pdo, p, row_max, row_sum, dq, pdq, delta, S, H, D, scale,
-          causal);
+          causal, drop);
   e = cudaGetLastError();
   if (e != cudaSuccess) return e;
-  bwd_dkdv<T, kRecompute>
+  bwd_dkdv<T, kRecompute, kDrop>
       <<<dim3((S + kKeys - 1) / kKeys, H, B), kThreads, smem_k, st>>>(
           q, pq, g, pdo, p, row_max, row_sum, delta, dq, pdq, S, H, D, scale,
-          causal);
+          causal, drop);
   return cudaGetLastError();
+}
+
+// Dropout takes the recompute backward only (the saved-P backward reads a
+// P that would hold the mask already).
+template <typename T, bool kRecompute>
+cudaError_t launch_bwd(const void* qkv, Pitch pq, const void* dout, Pitch pdo,
+                       const void* probs, const float* row_max,
+                       const float* row_sum, void* dqkv, Pitch pdq,
+                       float* delta, int B, int S, int H, int D, float scale,
+                       int causal, const Dropout* drop, cudaStream_t st) {
+  if constexpr (kRecompute) {
+    if (drop)
+      return launch_bwd_as<T, true, true>(qkv, pq, dout, pdo, probs, row_max,
+                                          row_sum, dqkv, pdq, delta, B, S, H,
+                                          D, scale, causal, *drop, st);
+  } else if (drop) {
+    return cudaErrorInvalidValue;
+  }
+  return launch_bwd_as<T, kRecompute, false>(
+      qkv, pq, dout, pdo, probs, row_max, row_sum, dqkv, pdq, delta, B, S, H,
+      D, scale, causal, Dropout{}, st);
 }
 
 }  // namespace simt
@@ -683,12 +744,12 @@ __device__ __forceinline__ void scale_mask(float (&s)[NT][4], int t0,
     }
 }
 
-template <int DP>
+template <int DP, bool kDrop>
 __global__ void __launch_bounds__(kThreads)
 fwd(const bf16* __restrict__ qkv, Pitch pq, bf16* __restrict__ out,
     Pitch po, bf16* __restrict__ probs, float* __restrict__ row_max,
     float* __restrict__ row_sum, int S, int H, int D, float scale,
-    int causal) {
+    int causal, Dropout drop) {
   constexpr int kPitch = DP + 8, NT = kK / 8, kSub = 32, NS = kSub / 8;
   extern __shared__ __align__(16) unsigned char smem_raw[];
   bf16* q_s = reinterpret_cast<bf16*>(smem_raw);   // [kQ][kPitch]
@@ -791,6 +852,16 @@ fwd(const bf16* __restrict__ qkv, Pitch pq, bf16* __restrict__ out,
       float s[NS][4];
       score_tile_s<DP, NS>(s, qw_s, k_s + hk * kPitch, lane);
       scale_mask(s, t, row_lo, lane, S, causal, scale);
+      // dropout: P M before the rounding, M the multiplier in bf16
+      float keep[NS][4];
+#pragma unroll
+      for (int n = 0; n < NS; ++n) {
+        if (kDrop)
+          drop.quad(keep[n], (long)b * H + h, row_lo,
+                    t + 8 * n + 2 * (lane & 3));
+        else
+          keep[n][0] = keep[n][1] = keep[n][2] = keep[n][3] = 1.f;
+      }
 #pragma unroll
       for (int kc = 0; kc < NS / 2; ++kc) {
         uint32_t pa[4];
@@ -798,10 +869,13 @@ fwd(const bf16* __restrict__ qkv, Pitch pq, bf16* __restrict__ out,
         for (int i = 0; i < 4; ++i) {
           // i: 0 (row lo, keys 0-7), 1 (row hi, 0-7), 2 (lo, 8-15), 3 (hi,
           // 8-15)
-          const float* sv = s[2 * kc + (i >> 1)];
+          const int c = 2 * kc + (i >> 1);
+          const float* sv = s[c];
           const int half = i & 1;
-          pa[i] = pack_bf16(expf(sv[2 * half] - m[half]) / l[half],
-                            expf(sv[2 * half + 1] - m[half]) / l[half]);
+          pa[i] = pack_bf16(
+              expf(sv[2 * half] - m[half]) / l[half] * keep[c][2 * half],
+              expf(sv[2 * half + 1] - m[half]) / l[half] *
+                  keep[c][2 * half + 1]);
           const int row = row_lo + 8 * half;
           const int key = t + 16 * kc + 8 * (i >> 1) + 2 * (lane & 3);
           if (p_bh != nullptr && row < S) {
@@ -843,18 +917,32 @@ fwd(const bf16* __restrict__ qkv, Pitch pq, bf16* __restrict__ out,
   }
 }
 
+template <int DP, bool kDrop>
+cudaError_t launch_as(const void* qkv, Pitch pq, void* out, Pitch po,
+                      void* probs, float* row_max, float* row_sum, int B,
+                      int S, int H, int D, float scale, int causal,
+                      Dropout drop, cudaStream_t st) {
+  constexpr int kSmem = smem_bytes(DP);
+  const cudaError_t e = allow_smem(fwd<DP, kDrop>, kSmem);
+  if (e != cudaSuccess) return e;
+  const dim3 grid((S + kQ - 1) / kQ, H, B);
+  fwd<DP, kDrop><<<grid, kThreads, kSmem, st>>>(
+      static_cast<const bf16*>(qkv), pq, static_cast<bf16*>(out), po,
+      static_cast<bf16*>(probs), row_max, row_sum, S, H, D, scale, causal,
+      drop);
+  return cudaGetLastError();
+}
+
 template <int DP>
 cudaError_t launch(const void* qkv, Pitch pq, void* out, Pitch po,
                    void* probs, float* row_max, float* row_sum, int B, int S,
-                   int H, int D, float scale, int causal, cudaStream_t st) {
-  constexpr int kSmem = smem_bytes(DP);
-  const cudaError_t e = allow_smem(fwd<DP>, kSmem);
-  if (e != cudaSuccess) return e;
-  const dim3 grid((S + kQ - 1) / kQ, H, B);
-  fwd<DP><<<grid, kThreads, kSmem, st>>>(
-      static_cast<const bf16*>(qkv), pq, static_cast<bf16*>(out), po,
-      static_cast<bf16*>(probs), row_max, row_sum, S, H, D, scale, causal);
-  return cudaGetLastError();
+                   int H, int D, float scale, int causal, const Dropout* drop,
+                   cudaStream_t st) {
+  return drop ? launch_as<DP, true>(qkv, pq, out, po, probs, row_max, row_sum,
+                                    B, S, H, D, scale, causal, *drop, st)
+              : launch_as<DP, false>(qkv, pq, out, po, probs, row_max,
+                                     row_sum, B, S, H, D, scale, causal,
+                                     Dropout{}, st);
 }
 
 // ---- backward ------------------------------------------------------------
@@ -1214,14 +1302,14 @@ __host__ __device__ constexpr int bwd_rc_smem_bytes(int dp) {
 // l (the forward's pass-2 arithmetic; masked pairs exactly 0) and dP =
 // dO V^T; pass 1 sums delta, pass 2 forms dS = P (dP - delta) scale with
 // fp32 P, rounded to bf16 as A fragments, and accumulates dQ += dS K.
-template <int DP>
+template <int DP, bool kDrop>
 __global__ void __launch_bounds__(kThreads)
 bwd_dq_rc(const bf16* __restrict__ qkv, Pitch pq,
           const bf16* __restrict__ dout, Pitch pdo,
           const float* __restrict__ row_max,
           const float* __restrict__ row_sum, bf16* __restrict__ dqkv,
           Pitch pdq, float* __restrict__ delta, int S, int H, int D,
-          float scale, int causal) {
+          float scale, int causal, Dropout drop) {
   constexpr int kPitch = DP + 8, kSub = 32, NT = kSub / 8;
   extern __shared__ __align__(16) unsigned char smem_raw[];
   bf16* q_s = reinterpret_cast<bf16*>(smem_raw);  // [kQ][kPitch]
@@ -1274,6 +1362,14 @@ bwd_dq_rc(const bf16* __restrict__ qkv, Pitch pq,
       for (int j = 0; j < 4; ++j)
         s[n][j] = expf(s[n][j] - m[j >> 1]) / l[j >> 1];
     score_tile_s<DP, NT>(dp, dow_s, v_s + hk * kPitch, lane);
+    if (kDrop)  // dP M, in delta and in dS
+#pragma unroll
+      for (int n = 0; n < NT; ++n) {
+        float keep[4];
+        drop.quad(keep, bh, row_lo, t + 8 * n + 2 * (lane & 3));
+#pragma unroll
+        for (int j = 0; j < 4; ++j) dp[n][j] *= keep[j];
+      }
   };
 
   // pass 1: delta of rows row_lo and row_lo + 8
@@ -1362,14 +1458,15 @@ bwd_dq_rc(const bf16* __restrict__ qkv, Pitch pq,
 // bf16(P^T) dO with P^T's A fragments taken straight from them, dP^T = V
 // dO^T, and dK += dS^T Q with dS^T = P^T (dP^T - delta_q) scale in fp32,
 // rounded to bf16.
-template <int DP>
+template <int DP, bool kDrop>
 __global__ void __launch_bounds__(kThreads)
 bwd_dkdv_rc(const bf16* __restrict__ qkv, Pitch pq,
             const bf16* __restrict__ dout, Pitch pdo,
             const float* __restrict__ row_max,
             const float* __restrict__ row_sum,
             const float* __restrict__ delta, bf16* __restrict__ dqkv,
-            Pitch pdq, int S, int H, int D, float scale, int causal) {
+            Pitch pdq, int S, int H, int D, float scale, int causal,
+            Dropout drop) {
   constexpr int kPitch = DP + 8, kSub = 32, NT = kSub / 8;
   extern __shared__ __align__(16) unsigned char smem_raw[];
   bf16* k_s = reinterpret_cast<bf16*>(smem_raw);  // [kK][kPitch] block keys
@@ -1433,14 +1530,27 @@ bwd_dkdv_rc(const bf16* __restrict__ qkv, Pitch pq,
               key < S && q0 + q < S && (!causal || key <= q0 + q);
           s[n][j] = ok ? expf(s[n][j] * scale - m_s[q]) / l_s[q] : 0.f;
         }
-      // dV += bf16(P^T) dO
+      // dropout: the keep multipliers M^T of the half, for dV from
+      // P^T M^T and dS^T from dP^T M^T
+      float keep[NT][4];
+#pragma unroll
+      for (int n = 0; n < NT; n += 2) {
+        if (kDrop)
+          drop.quad_t2(keep[n], keep[n + 1], bh,
+                       q0 + qs + 8 * n + 2 * (lane & 3), key_lo);
+        else
+#pragma unroll
+          for (int j = 0; j < 4; ++j) keep[n][j] = keep[n + 1][j] = 1.f;
+      }
+      // dV += bf16(P^T M^T) dO
 #pragma unroll
       for (int kc = 0; kc < NT / 2; ++kc) {
         uint32_t pa[4];
 #pragma unroll
         for (int i = 0; i < 4; ++i) {
           const int c = 2 * kc + (i >> 1), half = i & 1;
-          pa[i] = pack_bf16(s[c][2 * half], s[c][2 * half + 1]);
+          pa[i] = pack_bf16(s[c][2 * half] * keep[c][2 * half],
+                            s[c][2 * half + 1] * keep[c][2 * half + 1]);
         }
 #pragma unroll
         for (int dc = 0; dc < DP / 16; ++dc) {
@@ -1462,8 +1572,10 @@ bwd_dkdv_rc(const bf16* __restrict__ qkv, Pitch pq,
           const int c = 2 * kc + (i >> 1), half = i & 1;
           const int q = qs + 8 * c + 2 * (lane & 3);
           dsa[i] = pack_bf16(
-              s[c][2 * half] * (dp[c][2 * half] - d_s[q]) * scale,
-              s[c][2 * half + 1] * (dp[c][2 * half + 1] - d_s[q + 1]) *
+              s[c][2 * half] *
+                  (dp[c][2 * half] * keep[c][2 * half] - d_s[q]) * scale,
+              s[c][2 * half + 1] *
+                  (dp[c][2 * half + 1] * keep[c][2 * half + 1] - d_s[q + 1]) *
                   scale);
         }
 #pragma unroll
@@ -1496,36 +1608,55 @@ bwd_dkdv_rc(const bf16* __restrict__ qkv, Pitch pq,
   }
 }
 
+template <int DP, bool kDrop>
+cudaError_t launch_bwd_rc_as(const void* qkv, Pitch pq, const void* dout,
+                             Pitch pdo, const float* row_max,
+                             const float* row_sum, void* dqkv, Pitch pdq,
+                             float* delta, int B, int S, int H, int D,
+                             float scale, int causal, Dropout drop,
+                             cudaStream_t st) {
+  constexpr int kSmem = bwd_rc_smem_bytes(DP);
+  cudaError_t e = allow_smem(bwd_dq_rc<DP, kDrop>, kSmem);
+  if (e == cudaSuccess) e = allow_smem(bwd_dkdv_rc<DP, kDrop>, kSmem);
+  if (e != cudaSuccess) return e;
+  const bf16* q = static_cast<const bf16*>(qkv);
+  const bf16* g = static_cast<const bf16*>(dout);
+  bf16* dq = static_cast<bf16*>(dqkv);
+  bwd_dq_rc<DP, kDrop>
+      <<<dim3((S + kQ - 1) / kQ, H, B), kThreads, kSmem, st>>>(
+          q, pq, g, pdo, row_max, row_sum, dq, pdq, delta, S, H, D, scale,
+          causal, drop);
+  e = cudaGetLastError();
+  if (e != cudaSuccess) return e;
+  bwd_dkdv_rc<DP, kDrop>
+      <<<dim3((S + kK - 1) / kK, H, B), kThreads, kSmem, st>>>(
+          q, pq, g, pdo, row_max, row_sum, delta, dq, pdq, S, H, D, scale,
+          causal, drop);
+  return cudaGetLastError();
+}
+
 template <int DP>
 cudaError_t launch_bwd_rc(const void* qkv, Pitch pq, const void* dout,
                           Pitch pdo, const float* row_max,
                           const float* row_sum, void* dqkv, Pitch pdq,
                           float* delta, int B, int S, int H, int D,
-                          float scale, int causal, cudaStream_t st) {
-  constexpr int kSmem = bwd_rc_smem_bytes(DP);
-  cudaError_t e = allow_smem(bwd_dq_rc<DP>, kSmem);
-  if (e == cudaSuccess) e = allow_smem(bwd_dkdv_rc<DP>, kSmem);
-  if (e != cudaSuccess) return e;
-  const bf16* q = static_cast<const bf16*>(qkv);
-  const bf16* g = static_cast<const bf16*>(dout);
-  bf16* dq = static_cast<bf16*>(dqkv);
-  bwd_dq_rc<DP><<<dim3((S + kQ - 1) / kQ, H, B), kThreads, kSmem, st>>>(
-      q, pq, g, pdo, row_max, row_sum, dq, pdq, delta, S, H, D, scale,
-      causal);
-  e = cudaGetLastError();
-  if (e != cudaSuccess) return e;
-  bwd_dkdv_rc<DP><<<dim3((S + kK - 1) / kK, H, B), kThreads, kSmem, st>>>(
-      q, pq, g, pdo, row_max, row_sum, delta, dq, pdq, S, H, D, scale,
-      causal);
-  return cudaGetLastError();
+                          float scale, int causal, const Dropout* drop,
+                          cudaStream_t st) {
+  return drop ? launch_bwd_rc_as<DP, true>(qkv, pq, dout, pdo, row_max,
+                                           row_sum, dqkv, pdq, delta, B, S, H,
+                                           D, scale, causal, *drop, st)
+              : launch_bwd_rc_as<DP, false>(qkv, pq, dout, pdo, row_max,
+                                            row_sum, dqkv, pdq, delta, B, S,
+                                            H, D, scale, causal, Dropout{},
+                                            st);
 }
 
 cudaError_t dispatch(const void* qkv, Pitch pq, void* out, Pitch po,
                      void* probs, float* row_max, float* row_sum, int B,
                      int S, int H, int D, float scale, int causal,
-                     cudaStream_t st) {
+                     const Dropout* drop, cudaStream_t st) {
   MCT_TC_DISPATCH(launch, D, qkv, pq, out, po, probs, row_max, row_sum, B, S,
-                  H, D, scale, causal, st)
+                  H, D, scale, causal, drop, st)
 }
 
 cudaError_t dispatch_bwd(const void* qkv, Pitch pq, const void* dout,
@@ -1540,9 +1671,10 @@ cudaError_t dispatch_bwd_rc(const void* qkv, Pitch pq, const void* dout,
                             Pitch pdo, const float* row_max,
                             const float* row_sum, void* dqkv, Pitch pdq,
                             float* delta, int B, int S, int H, int D,
-                            float scale, int causal, cudaStream_t st) {
+                            float scale, int causal, const Dropout* drop,
+                            cudaStream_t st) {
   MCT_TC_DISPATCH(launch_bwd_rc, D, qkv, pq, dout, pdo, row_max, row_sum,
-                  dqkv, pdq, delta, B, S, H, D, scale, causal, st)
+                  dqkv, pdq, delta, B, S, H, D, scale, causal, drop, st)
 }
 
 }  // namespace tc
@@ -1556,31 +1688,45 @@ bool valid_shape(int B, int S, int H, int D) {
 
 // Pointers and (batch, sequence) element strides of the [B, S, *] operands;
 // their rows are contiguous. Each function returns the launch's
-// cudaError_t (0 on success) and launches on `stream`.
+// cudaError_t (0 on success) and launches on `stream`. With `drop` the
+// forward and the recompute backward drop attention probabilities as
+// philox.cuh draws them (seed, offset, threshold; a kept probability times
+// `mult`, the multiplier rounded to the input dtype); without it they are
+// the rate-0 kernels.
+#define MCT_DROP_ARGS                                                  \
+  int drop, unsigned long long seed, unsigned int offset,              \
+      unsigned int threshold, float mult
+#define MCT_DROP                                                        \
+  const Dropout drop_args{(uint32_t)seed, (uint32_t)(seed >> 32), offset, \
+                          threshold, mult};                              \
+  const Dropout* dr = drop ? &drop_args : nullptr
 
 // Forward. probs and stats may be null. probs receives P [B, H, S, S] in the
 // input dtype, the probabilities exactly as P.V used them (masked pairs 0);
 // stats [2, B*H*S] fp32 each row's max of the scaled scores, then its
-// softmax denominator, for the recompute backward.
+// softmax denominator, for the recompute backward. Dropout takes no probs.
 extern "C" int mct_fused_mha_fwd(const void* qkv, long long qkv_b,
                                  long long qkv_s, void* out, long long out_b,
                                  long long out_s, void* probs, void* stats,
                                  int B, int S, int H, int D, float scale,
-                                 int causal, int dtype, void* stream) {
-  if (!valid_shape(B, S, H, D)) return (int)cudaErrorInvalidValue;
+                                 int causal, int dtype, MCT_DROP_ARGS,
+                                 void* stream) {
+  if (!valid_shape(B, S, H, D) || (drop && probs != nullptr))
+    return (int)cudaErrorInvalidValue;
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   const Pitch pq{qkv_b, qkv_s}, po{out_b, out_s};
   float* m = static_cast<float*>(stats);
   float* l = m == nullptr ? nullptr : m + (long)B * H * S;
+  MCT_DROP;
   if (dtype == mct::kFloat32)
     return (int)simt::launch<float>(qkv, pq, out, po, probs, m, l, B, S, H, D,
-                                    scale, causal, st);
+                                    scale, causal, dr, st);
   if (dtype != mct::kBFloat16) return (int)cudaErrorInvalidValue;
   if (tc::eligible(D, {qkv, out}, {qkv_b, qkv_s, out_b, out_s}))
     return (int)tc::dispatch(qkv, pq, out, po, probs, m, l, B, S, H, D, scale,
-                             causal, st);
+                             causal, dr, st);
   return (int)simt::launch<__nv_bfloat16>(qkv, pq, out, po, probs, m, l, B, S,
-                                          H, D, scale, causal, st);
+                                          H, D, scale, causal, dr, st);
 }
 
 // Backward from the forward's P: dqkv [B, S, 3*H*D] (every element
@@ -1600,7 +1746,7 @@ extern "C" int mct_fused_mha_bwd(const void* qkv, long long qkv_b,
     return (int)simt::launch_bwd<float, false>(qkv, pq, dout, pdo, probs,
                                                nullptr, nullptr, dqkv, pdq,
                                                dl, B, S, H, D, scale, causal,
-                                               st);
+                                               nullptr, st);
   if (dtype != mct::kBFloat16) return (int)cudaErrorInvalidValue;
   if (tc::eligible(D, {qkv, dout, dqkv},
                    {qkv_b, qkv_s, do_b, do_s, dq_b, dq_s}))
@@ -1608,7 +1754,7 @@ extern "C" int mct_fused_mha_bwd(const void* qkv, long long qkv_b,
                                  S, H, D, scale, causal, st);
   return (int)simt::launch_bwd<__nv_bfloat16, false>(
       qkv, pq, dout, pdo, probs, nullptr, nullptr, dqkv, pdq, dl, B, S, H, D,
-      scale, causal, st);
+      scale, causal, nullptr, st);
 }
 
 // Backward recomputing P from qkv and the forward's stats [2, B*H*S]:
@@ -1617,7 +1763,7 @@ extern "C" int mct_fused_mha_bwd_recompute(
     const void* qkv, long long qkv_b, long long qkv_s, const void* dout,
     long long do_b, long long do_s, const void* stats, void* dqkv,
     long long dq_b, long long dq_s, void* delta, int B, int S, int H, int D,
-    float scale, int causal, int dtype, void* stream) {
+    float scale, int causal, int dtype, MCT_DROP_ARGS, void* stream) {
   if (!valid_shape(B, S, H, D) || stats == nullptr)
     return (int)cudaErrorInvalidValue;
   cudaStream_t st = static_cast<cudaStream_t>(stream);
@@ -1625,16 +1771,20 @@ extern "C" int mct_fused_mha_bwd_recompute(
   const float* m = static_cast<const float*>(stats);
   const float* l = m + (long)B * H * S;
   float* dl = static_cast<float*>(delta);
+  MCT_DROP;
   if (dtype == mct::kFloat32)
     return (int)simt::launch_bwd<float, true>(qkv, pq, dout, pdo, nullptr, m,
                                               l, dqkv, pdq, dl, B, S, H, D,
-                                              scale, causal, st);
+                                              scale, causal, dr, st);
   if (dtype != mct::kBFloat16) return (int)cudaErrorInvalidValue;
   if (tc::eligible(D, {qkv, dout, dqkv},
                    {qkv_b, qkv_s, do_b, do_s, dq_b, dq_s}))
     return (int)tc::dispatch_bwd_rc(qkv, pq, dout, pdo, m, l, dqkv, pdq, dl, B,
-                                    S, H, D, scale, causal, st);
+                                    S, H, D, scale, causal, dr, st);
   return (int)simt::launch_bwd<__nv_bfloat16, true>(
       qkv, pq, dout, pdo, nullptr, m, l, dqkv, pdq, dl, B, S, H, D, scale,
-      causal, st);
+      causal, dr, st);
 }
+
+// The keep bits the kernels above draw (philox.cuh).
+MCT_DROPOUT_MASK_EXPORT

@@ -14,10 +14,17 @@ stacked layer axis unstacked (see `bridge.gpt_params_from_jax`).
 (`loss_seq_chunk`) or through the fused lm-head cross entropy
 (`fused_ce=True`, `ops/kernels/fused_ce.py`), which never forms the logits.
 
+Dropout (megatron --attention-dropout / --hidden-dropout, on `GPTCfg` here
+where the JAX package sets them on its TransformerCfg): with a `seed`
+(the step's; the JAX package's `rng`) the embedding output, the attention
+probabilities and the blocks' hidden states are dropped; `seed=None` is
+eval. Activation recompute: `remat` (none, selective, full; megatron
+--recompute-granularity), which `make_gpt_train_step` takes, by default
+`GPTCfg.remat`, and passes to the loss.
+
 Not ported yet, refused with NotImplementedError (ROADMAP Queue A item 4):
 squared_relu MLPs, `kv_channels`, MoE, per-row `position_ids`, `attn_bias`
-document masks and pre-shifted `targets`. Dropout is 0, as GPT trains in
-bench.py.
+document masks and pre-shifted `targets`.
 """
 from dataclasses import dataclass
 from typing import Optional, Union
@@ -31,6 +38,7 @@ from megatron_clip_tpu_torch.config import BF16, Precision, TransformerCfg
 from megatron_clip_tpu_torch.nn.transformer import (
     Transformer, apply_norm, layer_norm_params, normal_param)
 from megatron_clip_tpu_torch.ops.cross_entropy import cross_entropy
+from megatron_clip_tpu_torch.ops.dropout import EMBED_OFFSET, dropout
 from megatron_clip_tpu_torch.ops.kernels.fused_ce import (
     fused_linear_cross_entropy)
 
@@ -64,6 +72,9 @@ class GPTCfg:
     num_experts: int = 0
     tie_embeddings: bool = True
     init_std: float = 0.02
+    attention_dropout: float = 0.0       # megatron --attention-dropout
+    hidden_dropout: float = 0.0          # megatron --hidden-dropout
+    remat: str = "none"                  # --recompute-granularity
 
     def transformer(self) -> TransformerCfg:
         """The blocks' config, as the JAX `GPTCfg.transformer()` sets it on
@@ -87,7 +98,9 @@ class GPTCfg:
             rope=self.position_embedding == "rope",
             rope_theta=self.rope_theta, rotary_percent=self.rotary_percent,
             rope_interpolation=self.rope_interpolation,
-            kv_heads=self.kv_heads, init_std=self.init_std)
+            kv_heads=self.kv_heads, init_std=self.init_std,
+            attention_dropout=self.attention_dropout,
+            hidden_dropout=self.hidden_dropout, remat=self.remat)
 
 
 class GPTModel(nn.Module):
@@ -111,15 +124,18 @@ class GPTModel(nn.Module):
         if not cfg.tie_embeddings:
             self.lm_head = normal_param((w, cfg.vocab_size), std, generator)
 
-    def hidden(self, tokens: torch.Tensor) -> torch.Tensor:
+    def hidden(self, tokens: torch.Tensor, seed: Optional[int] = None,
+               remat: str = "none") -> torch.Tensor:
         """tokens [B, S] -> the final norm's output [B, S, W] in the compute
-        dtype (`apply_gpt(..., return_hidden=True)`)."""
+        dtype (`apply_gpt(..., return_hidden=True)`). `seed`: the step's
+        dropout seed (None: no dropout); `remat`: the blocks' recompute."""
         dt = self.precision.compute_torch
         s = tokens.shape[1]
         x = F.embedding(tokens, self.tok_embed).to(dt)
         if hasattr(self, "pos_embed"):
             x = x + self.pos_embed[:s].to(dt)
-        x = self.blocks(x, causal=True)
+        x = dropout(x, self.cfg.hidden_dropout, seed, EMBED_OFFSET)
+        x = self.blocks(x, causal=True, seed=seed, remat=remat)
         return apply_norm(self.ln_f, x, self.cfg.normalization)
 
     def head(self, dtype: torch.dtype) -> torch.Tensor:
@@ -134,9 +150,10 @@ class GPTModel(nn.Module):
         rounded to h's dtype first, as the JAX einsum does."""
         return torch.matmul(h, self.head(h.dtype)).float()
 
-    def forward(self, tokens: torch.Tensor) -> torch.Tensor:
+    def forward(self, tokens: torch.Tensor,
+                seed: Optional[int] = None) -> torch.Tensor:
         """tokens [B, S] -> logits [B, S, V] fp32."""
-        return self.logits(self.hidden(tokens))
+        return self.logits(self.hidden(tokens, seed))
 
 
 def create_gpt(cfg: GPTCfg, precision: Union[str, Precision] = "bf16",
@@ -167,11 +184,15 @@ def _chunk_loss(model: GPTModel, h, targets, mask):
 def gpt_loss(model: GPTModel, tokens: torch.Tensor, *,
              loss_mask: Optional[torch.Tensor] = None,
              loss_seq_chunk: int = 0, fused_ce: bool = False,
+             seed: Optional[int] = None, remat: str = "none",
              position_ids=None, attn_bias=None,
              targets=None) -> torch.Tensor:
     """Next-token LM loss: predict tokens[:, 1:] from tokens[:, :-1], with
     loss-mask averaging (`loss_mask` [B, S+1] aligned to the inputs, 0
-    where the input token is EOD). A 0-d fp32 tensor.
+    where the input token is EOD). A 0-d fp32 tensor. `seed` turns on
+    dropout at the config's rates (the JAX package's `rng`); `remat` is
+    the activation recompute, none, selective or full (`make_gpt_train_step`
+    resolves it from its argument or `GPTCfg.remat`).
 
     `fused_ce` runs the lm head and cross entropy as one fused kernel on
     the hidden states [B*S, W] and the head cast to their dtype (bf16 under
@@ -191,7 +212,7 @@ def gpt_loss(model: GPTModel, tokens: torch.Tensor, *,
     inputs, targets = tokens[:, :-1], tokens[:, 1:]
     mask = None if loss_mask is None else loss_mask[:, :-1].float()
     if fused_ce:
-        h = model.hidden(inputs)
+        h = model.hidden(inputs, seed, remat)
         b, s, w = h.shape
         per = fused_linear_cross_entropy(h.reshape(b * s, w),
                                          model.head(h.dtype),
@@ -200,7 +221,7 @@ def gpt_loss(model: GPTModel, tokens: torch.Tensor, *,
              else mask.reshape(-1))
         return (per * m).sum() / torch.clamp(m.sum(), min=1.0)
     if loss_seq_chunk:
-        h = model.hidden(inputs)
+        h = model.hidden(inputs, seed, remat)
         b, s, _ = h.shape
         c = min(loss_seq_chunk, s)
         m = torch.ones(b, s, device=h.device) if mask is None else mask
@@ -211,7 +232,8 @@ def gpt_loss(model: GPTModel, tokens: torch.Tensor, *,
                               use_reentrant=False)
             tot, cnt = tot + t, cnt + n
         return tot / torch.clamp(cnt, min=1.0)
-    per = cross_entropy(model(inputs), targets)
+    per = cross_entropy(model.logits(model.hidden(inputs, seed, remat)),
+                        targets)
     if mask is None:
         return per.mean()
     return (per * mask).sum() / torch.clamp(mask.sum(), min=1.0)

@@ -19,18 +19,56 @@ biases; with `cfg.init_std` set, megatron's: attn_std = fc_std = init_std,
 proj_std = init_std / sqrt(2*layers). Without `cfg.use_bias` the linears
 have no biases. Each block's forward is ln_1 -> attn -> (+) -> ln_2 -> mlp
 -> (+).
+
+Dropout (`apply_block`'s three sites, megatron's): attention probabilities
+in the attention kernels, and hidden dropout of the attention's and the
+MLP's output before each residual add (`ops/dropout.py`), active when a
+seed reaches the stack (training). Every site draws from the step's seed
+and its own offset (`site_offset(layer, site)`), where the JAX package
+splits its key per layer and site.
+
+Activation recompute (the `remat` the stack is called with, which the
+train step resolves from its argument or `cfg.remat`; megatron
+--recompute-granularity), with `torch.utils.checkpoint` (non-reentrant) in
+the place of the JAX package's `jax.checkpoint` policies:
+- "full": the whole block is recomputed in the backward from its input,
+  the attention kernels included (`jax.checkpoint(block_fn)`).
+- "selective": the outputs of the matrix products with no batch dims
+  (every projection) are saved, and so are the attention kernels'
+  residuals (flash's out and lse, the fused route's row statistics); the
+  norms, activations and dropout are recomputed (the JAX package's
+  `_selective_policy`).
+  The attention runs outside the recomputed segments, as its ctypes
+  launches cannot be seen by a per-op policy: the segments are ln_1 ->
+  qkv projection, and output projection -> ... -> residual add, each
+  under `create_selective_checkpoint_contexts` saving aten.mm /
+  aten.addmm (`multi_head_attention`'s `segment`).
+- "none": autograd keeps what it keeps.
+Dropout replays the same bits in a recompute, as its seeds are inputs.
 """
+import functools
 from typing import Optional
 
 import torch
 from torch import nn
+from torch.utils.checkpoint import (checkpoint,
+                                    create_selective_checkpoint_contexts)
 
 from megatron_clip_tpu_torch.config import TransformerCfg
 from megatron_clip_tpu_torch.ops import (get_act, layer_norm,
                                          multi_head_attention, rms_norm,
                                          swiglu)
 from megatron_clip_tpu_torch.ops.dense import dense
+from megatron_clip_tpu_torch.ops.dropout import dropout, site_offset
 from megatron_clip_tpu_torch.ops.rope import rope_cos_sin
+
+# selective recompute: a segment that keeps the outputs of the
+# projections' products
+_selective = functools.partial(
+    checkpoint, use_reentrant=False,
+    context_fn=functools.partial(
+        create_selective_checkpoint_contexts,
+        [torch.ops.aten.mm.default, torch.ops.aten.addmm.default]))
 
 
 def normal_param(shape, std: float, gen: Optional[torch.Generator]) -> nn.Parameter:
@@ -84,19 +122,44 @@ class ResidualBlock(nn.Module):
         self.mlp = nn.ParameterDict(mlp)
 
     def forward(self, x: torch.Tensor, causal: bool = False,
-                save_probs: bool = True, rope=None) -> torch.Tensor:
+                save_probs: bool = True, rope=None,
+                seed: Optional[int] = None, layer: int = 0,
+                remat: str = "none") -> torch.Tensor:
         """x: [B, S, W] in the compute dtype. `save_probs`: the attention's
         backward mode (see `ops.attention.multi_head_attention`); `rope`:
-        the (cos, sin) tables when `cfg.rope`."""
+        the (cos, sin) tables when `cfg.rope`; `seed`: the step's dropout
+        seed (None: no dropout) and `layer` this block's index, which picks
+        its sites' offsets; `remat`: none, selective or full (see the
+        module's note)."""
         cfg = self.cfg
-        h = apply_norm(self.ln_1, x, cfg.norm)
-        x = x + multi_head_attention(h, self.attn, cfg.heads, causal=causal,
-                                     save_probs=save_probs, rope=rope,
-                                     kv_heads=cfg.kv_heads)
+
+        def block(x, segment=None):
+            return multi_head_attention(
+                x, self.attn, cfg.heads, causal=causal, rope=rope,
+                kv_heads=cfg.kv_heads, dropout_rate=cfg.attention_dropout,
+                seed=seed, offset=site_offset(layer, 0),
+                save_probs=save_probs,
+                norm=lambda x: apply_norm(self.ln_1, x, cfg.norm),
+                after=lambda h: self._rest(x, h, seed, layer),
+                segment=segment)
+        if remat == "full":
+            return checkpoint(block, x, use_reentrant=False)
+        if remat == "selective":
+            return block(x, _selective)
+        return block(x)
+
+    def _rest(self, x: torch.Tensor, h: torch.Tensor, seed: Optional[int],
+              layer: int) -> torch.Tensor:
+        """From the attention's projected output h [B, S, W] to the block's:
+        hidden dropout, the residual add, ln_2, the MLP, hidden dropout, the
+        residual add."""
+        cfg = self.cfg
+        x = x + dropout(h, cfg.hidden_dropout, seed, site_offset(layer, 1))
         h = apply_norm(self.ln_2, x, cfg.norm)
         h = dense(h, self.mlp["w1"], self.mlp.get("b1"))
         h = swiglu(h) if cfg.act == "swiglu" else get_act(cfg.act)(h)
-        return x + dense(h, self.mlp["w2"], self.mlp.get("b2"))
+        h = dense(h, self.mlp["w2"], self.mlp.get("b2"))
+        return x + dropout(h, cfg.hidden_dropout, seed, site_offset(layer, 2))
 
 
 class Transformer(nn.ModuleList):
@@ -108,7 +171,10 @@ class Transformer(nn.ModuleList):
                           for _ in range(cfg.layers)])
 
     def forward(self, x: torch.Tensor, causal: bool = False,
-                save_probs: bool = True) -> torch.Tensor:
+                save_probs: bool = True, seed: Optional[int] = None,
+                remat: str = "none") -> torch.Tensor:
+        """`seed`: the step's dropout seed (None: no dropout); `remat`: none,
+        selective or full (see the module's note)."""
         cfg = self[0].cfg
         rope = None
         if cfg.rope:
@@ -117,6 +183,7 @@ class Transformer(nn.ModuleList):
                                 seq_len_interpolation_factor=(
                                     cfg.rope_interpolation),
                                 device=x.device)
-        for block in self:
-            x = block(x, causal=causal, save_probs=save_probs, rope=rope)
+        for i, block in enumerate(self):
+            x = block(x, causal=causal, save_probs=save_probs, rope=rope,
+                      seed=seed, layer=i, remat=remat)
         return x

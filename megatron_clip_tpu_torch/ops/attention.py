@@ -13,6 +13,17 @@ package's `jnp.repeat`), whose gradient sums over the group. Everything
 outside those gates belongs to later slices of the port and raises
 NotImplementedError naming its ROADMAP item.
 
+Attention dropout (megatron --attention-dropout, a rate above 0 with a
+`seed`) takes the JAX package's TPU route on every device: the fused
+dropout kernels (`fused_mha_dropout`) while the fused gate and the JAX
+package's `dropout_kernel_eligible` hold, else the flash kernels with
+in-kernel dropout from S = 256 on; on the CPU their plain versions, fed the
+kernels' own Philox mask (`ops/dropout.py`). The JAX package on the CPU
+takes `sdpa_bshd` for flash dropout instead, as `flash_dropout_supported()`
+is False in interpret mode; the port has no such route (`sdpa_bshd` is not
+ported), so what neither kernel takes raises. A rate of 0, or no seed,
+runs the rate-0 kernels.
+
 The JAX package's flash path projects straight into [B, H, S, D] so that
 the head split costs no copy; here the flash kernels read the heads of the
 packed [B, S, 3*H*D] projection in place and write the packed gradient, the
@@ -28,7 +39,8 @@ from megatron_clip_tpu_torch.ops.dense import dense
 from megatron_clip_tpu_torch.ops.kernels.flash_attention import (
     flash_attention, flash_attention_qkv)
 from megatron_clip_tpu_torch.ops.kernels.fused_mha import (
-    MAX_FUSED_SEQ, MAX_HEAD_DIM, fused_mha)
+    MAX_FUSED_SEQ, MAX_HEAD_DIM, dropout_kernel_eligible, fused_mha,
+    fused_mha_dropout)
 from megatron_clip_tpu_torch.ops.rope import apply_rope_qkv
 
 # the JAX package's gate: flash attention from this length on
@@ -57,6 +69,63 @@ def _not_in_slice(what: str, item: str):
         f"multi_head_attention: {what} is not ported yet (ROADMAP {item})")
 
 
+def attention_route(s: int, heads: int, kv_heads: Optional[int],
+                    head_dim: int, *, rope=None, use_flash: bool = True,
+                    dropout_rate: float = 0.0,
+                    seed: Optional[int] = None) -> bool:
+    """The JAX package's gates, in its order: True for the fused MHA kernels
+    (S <= MAX_FUSED_SEQ without rope or GQA, and with dropout only where
+    `dropout_kernel_eligible` holds), False for flash (from MIN_FLASH_SEQ
+    on); both need head_dim <= 128. The rest goes to sdpa_bshd, which is not
+    ported: it raises."""
+    hkv = kv_heads or heads
+    if heads % hkv:
+        raise ValueError(f"heads {heads} not a multiple of kv_heads {hkv}")
+    wants_dropout = dropout_rate > 0.0 and seed is not None
+    fused = (rope is None and hkv == heads and s <= MAX_FUSED_SEQ
+             and (not wants_dropout
+                  or dropout_kernel_eligible(s, heads, head_dim)))
+    if not use_flash or head_dim > MAX_HEAD_DIM or not (
+            fused or s >= MIN_FLASH_SEQ):
+        _not_in_slice(f"the unfused sdpa path (S={s}, head_dim={head_dim}, "
+                      f"use_flash={use_flash}, rope={rope is not None}, "
+                      f"kv_heads={hkv}, dropout={wants_dropout})",
+                      "Queue A: sdpa_bshd")
+    return fused
+
+
+def attention_heads(qkv: torch.Tensor, heads: int, fused: bool, *,
+                    causal: bool = False, rope=None,
+                    kv_heads: Optional[int] = None,
+                    dropout_rate: float = 0.0, seed: Optional[int] = None,
+                    offset: int = 0, save_probs: bool = True) -> torch.Tensor:
+    """The attention of `multi_head_attention` between its two projections:
+    the packed projection qkv [B, S, (H + 2 Hkv) D] -> [B, S, H*D], on the
+    route `attention_route` picked (`fused`)."""
+    b, s, _ = qkv.shape
+    hkv = kv_heads or heads
+    head_dim = qkv.shape[-1] // (heads + 2 * hkv)
+    drop = dict(dropout_rate=dropout_rate, seed=seed, offset=offset)
+    if fused:
+        if dropout_rate > 0.0 and seed is not None:
+            return fused_mha_dropout(qkv, heads, causal=causal,
+                                     rate=dropout_rate, seed=seed,
+                                     offset=offset)
+        return fused_mha(qkv, heads, causal=causal, save_probs=save_probs)
+    if rope is not None:
+        qkv = apply_rope_qkv(qkv, *rope, heads, hkv)
+    if hkv == heads:
+        return flash_attention_qkv(qkv, heads, causal=causal, **drop)
+    q, k, v = (t.unflatten(-1, (-1, head_dim)).transpose(1, 2)
+               for t in qkv.split([heads * head_dim, hkv * head_dim,
+                                   hkv * head_dim], dim=-1))
+    rep = heads // hkv
+    out = flash_attention(q, k.repeat_interleave(rep, dim=1),
+                          v.repeat_interleave(rep, dim=1), causal=causal,
+                          **drop)
+    return out.transpose(1, 2).reshape(b, s, heads * head_dim)
+
+
 def multi_head_attention(x: torch.Tensor, params, heads: int, *,
                          causal: bool = False,
                          bias: Optional[torch.Tensor] = None,
@@ -64,8 +133,10 @@ def multi_head_attention(x: torch.Tensor, params, heads: int, *,
                          kv: Optional[torch.Tensor] = None, rope=None,
                          kv_heads: Optional[int] = None,
                          dropout_rate: float = 0.0,
+                         seed: Optional[int] = None, offset: int = 0,
                          context_parallel: bool = False,
-                         save_probs: bool = True) -> torch.Tensor:
+                         save_probs: bool = True, norm=None, after=None,
+                         segment=None) -> torch.Tensor:
     """Fused qkv projection -> attention -> output projection.
 
     x: [B, S, W]. params: mapping with 'wqkv' [W, (H + 2 Hkv) D] (q, k, v
@@ -77,44 +148,39 @@ def multi_head_attention(x: torch.Tensor, params, heads: int, *,
     the saved probabilities (the JAX default, `MCT_MHA_SAVE_PROBS=1`) or
     recomputing them (`MCT_MHA_SAVE_PROBS=0`); see `fused_mha`. The flash
     path (S > 1024, or from S = 256 with rope or GQA) saves (q, k, v, out,
-    lse) and recomputes P."""
+    lse) and recomputes P. `dropout_rate` with `seed` (the step's seed) and
+    `offset` (the layer's site) drops attention probabilities in the
+    kernels; the fused dropout route always recomputes P.
+
+    For the residual block: `norm` (its ln_1) is applied to x before the
+    qkv projection and `after` to the output projection's result, and
+    `segment(fn, *args)` runs the two pieces around the attention (norm ->
+    qkv projection; output projection -> after; None: calls them), so that
+    a checkpoint can wrap each while the attention kernels run between
+    them, outside it (selective recompute, `nn/transformer.py`)."""
     if kv is not None:
         _not_in_slice("kv= cross-attention", "Queue A: other models (CoCa)")
     if bias is not None:
         _not_in_slice("an additive attention bias", "Queue A: other models")
-    if dropout_rate > 0.0:
-        _not_in_slice("attention dropout", "Queue B: fused_mha_packed_dropout")
     if context_parallel:
         _not_in_slice("context parallelism", "Queue A: parallelism")
-    b, s, _ = x.shape
     hkv = kv_heads or heads
-    if heads % hkv:
-        raise ValueError(f"heads {heads} not a multiple of kv_heads {hkv}")
     head_dim = params["wqkv"].shape[1] // (heads + 2 * hkv)
-    # the JAX package's gates: fused MHA up to MAX_FUSED_SEQ without rope
-    # or GQA, else flash from MIN_FLASH_SEQ on; both need head_dim <= 128,
-    # and the rest goes to sdpa_bshd
-    fused = rope is None and hkv == heads and s <= MAX_FUSED_SEQ
-    if not use_flash or head_dim > MAX_HEAD_DIM or not (
-            fused or s >= MIN_FLASH_SEQ):
-        _not_in_slice(f"the unfused sdpa path (S={s}, head_dim={head_dim}, "
-                      f"use_flash={use_flash}, rope={rope is not None}, "
-                      f"kv_heads={hkv})", "Queue A: sdpa_bshd")
-    qkv = dense(x, params["wqkv"], params.get("bqkv"))
-    if fused:
-        out = fused_mha(qkv, heads, causal=causal, save_probs=save_probs)
-    else:
-        if rope is not None:
-            qkv = apply_rope_qkv(qkv, *rope, heads, hkv)
-        if hkv == heads:
-            out = flash_attention_qkv(qkv, heads, causal=causal)
-        else:
-            q, k, v = (t.unflatten(-1, (-1, head_dim)).transpose(1, 2)
-                       for t in qkv.split([heads * head_dim, hkv * head_dim,
-                                           hkv * head_dim], dim=-1))
-            rep = heads // hkv
-            out = flash_attention(q, k.repeat_interleave(rep, dim=1),
-                                  v.repeat_interleave(rep, dim=1),
-                                  causal=causal)
-            out = out.transpose(1, 2).reshape(b, s, heads * head_dim)
-    return dense(out, params["wo"], params.get("bo"))
+    fused = attention_route(x.shape[1], heads, kv_heads, head_dim, rope=rope,
+                            use_flash=use_flash, dropout_rate=dropout_rate,
+                            seed=seed)
+    run = segment or (lambda fn, *args: fn(*args))
+
+    def project_qkv(x):
+        if norm is not None:
+            x = norm(x)
+        return dense(x, params["wqkv"], params.get("bqkv"))
+
+    def project_out(a):
+        h = dense(a, params["wo"], params.get("bo"))
+        return h if after is None else after(h)
+    out = attention_heads(run(project_qkv, x), heads, fused,
+                          causal=causal, rope=rope, kv_heads=kv_heads,
+                          dropout_rate=dropout_rate, seed=seed, offset=offset,
+                          save_probs=save_probs)
+    return run(project_out, out)

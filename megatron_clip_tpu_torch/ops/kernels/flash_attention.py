@@ -2,12 +2,27 @@
 autograd Functions that join them.
 
 Counterpart of `megatron_clip_tpu/ops/pallas/flash_attention.py::
-flash_attention` without its in-kernel dropout (ROADMAP Queue B). The
+flash_attention`, its in-kernel dropout (`_drop_keep`) included. The
 kernels are in `csrc/flash_attention.cu`: the forward (`_fwd_kernel`), the
 fused backward (`_bwd_fused_kernel`) and the split dQ and dKV backward
-(`_bwd_dq_kernel`, `_bwd_dkv_kernel`). `flash_fwd`, `flash_bwd_fused`,
-`flash_bwd_dq` and `flash_bwd_dkv` take the plain version for a CPU tensor;
-for a CUDA tensor they launch the kernel or raise.
+(`_bwd_dq_kernel`, `_bwd_dkv_kernel`), each with and without dropout.
+`flash_fwd`, `flash_bwd_fused`, `flash_bwd_dq` and `flash_bwd_dkv`, and
+their dropout twins `flash_fwd_dropout`, ..., take the plain version for a
+CPU tensor; for a CUDA tensor they launch the kernel or raise. Each counts
+its own launches.
+
+Dropout (megatron --attention-dropout). The kernels draw the keep mask of
+each score from Philox4x32-10 (`csrc/philox.cuh`, `ops/dropout.py`), from
+the global indices of the score, so the forward and every backward draw
+the same mask and none is stored. As the TPU kernels: the forward
+multiplies the unnormalised fp32 p by keep / (1 - rate) in fp32 before it
+is rounded for P.V, and l keeps the undropped sum; the backward takes
+dP M and dV from bf16(P M), and delta = rowsum(dO * O) as it is, O being
+dropped already. The plain versions take the multipliers M as an explicit
+[B, H, Sq, Sk] fp32 tensor (`keep`); on the CPU the wrappers draw it with
+`AttentionDropout.multipliers`. The JAX package's tile mask (per 1024-key
+block from the TPU's PRNG) cannot be reproduced; its mask is per element
+here (ROADMAP Queue C).
 
 Which backward runs is the JAX package's choice, made from the key length
 alone (`uses_fused_bwd`): the fused kernel while the keys, padded to 128,
@@ -35,6 +50,9 @@ from typing import Optional, Tuple
 
 import torch
 
+from megatron_clip_tpu_torch.ops.dropout import (
+    C_ARGTYPES, MASK_SIGNATURE, NO_DROPOUT_C_ARGS, AttentionDropout,
+    attention_dropout, exported_mask)
 from megatron_clip_tpu_torch.ops.kernels import _build
 
 MAX_HEAD_DIM = 128
@@ -45,13 +63,14 @@ _JAX_PAD, _JAX_BLOCK, _FUSED_MAX_KEY_BLOCKS = 128, 1024, 4
 
 _P, _I, _L = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
 _V = [_P, _L, _L, _L]  # pointer, batch, head and sequence strides
-# B, H, Sq, Sk, D, scale, causal, dtype, stream
-_TAIL = [_I, _I, _I, _I, _I, ctypes.c_float, _I, _I, _P]
+# B, H, Sq, Sk, D, scale, causal, dtype, the dropout arguments, stream
+_TAIL = [_I, _I, _I, _I, _I, ctypes.c_float, _I, _I, *C_ARGTYPES, _P]
 _SIGNATURES = {
     "mct_flash_fwd": (4 * _V + [_P] + _TAIL, _I),
     "mct_flash_bwd_fused": (4 * _V + [_P, _P] + 2 * _V + [_P] + _TAIL, _I),
     "mct_flash_bwd_dq": (4 * _V + [_P, _P] + _V + _TAIL, _I),
     "mct_flash_bwd_dkv": (4 * _V + [_P, _P] + 2 * _V + _TAIL, _I),
+    "mct_dropout_mask": MASK_SIGNATURE,
 }
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 
@@ -83,14 +102,18 @@ def _scores(q: torch.Tensor, k: torch.Tensor, scale: float,
 
 
 def flash_fwd_plain(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
-                    scale: float, causal: bool = False):
+                    scale: float, causal: bool = False,
+                    keep: Optional[torch.Tensor] = None):
     """(out [B, H, Sq, D] in q's dtype, lse [B, H, Sq] fp32), the TPU
-    forward's arithmetic over one block of every key."""
+    forward's arithmetic over one block of every key; with `keep` (the
+    dropout multipliers [B, H, Sq, Sk] fp32) P.V takes p * keep."""
     s = _scores(q, k, scale, causal)
     m = s.amax(-1, keepdim=True)
     p = torch.exp(s - m)
     l = p.sum(-1, keepdim=True)
     l = torch.where(l == 0, torch.ones_like(l), l)
+    if keep is not None:
+        p = p * keep
     out = torch.matmul(p.to(v.dtype).float(), v.float()) / l
     return out.to(q.dtype), (m + torch.log(l))[..., 0]
 
@@ -101,36 +124,61 @@ def flash_delta(do: torch.Tensor, out: torch.Tensor) -> torch.Tensor:
     return (do.float() * out.float()).sum(-1).contiguous()
 
 
-def _probs_and_ds(q, k, v, do, lse, delta, scale, causal):
+def _probs_and_ds(q, k, v, do, lse, delta, scale, causal, keep):
+    """(P, with dropout P * keep, and dS) in fp32."""
     p = torch.exp(_scores(q, k, scale, causal) - lse[..., None])
     dp = torch.matmul(do.float(), v.float().transpose(-1, -2))
-    return p, p * (dp - delta[..., None]) * scale
+    pd = p
+    if keep is not None:
+        dp, pd = dp * keep, p * keep
+    return pd, p * (dp - delta[..., None]) * scale
 
 
 def flash_bwd_dq_plain(q, k, v, do, lse, delta, scale: float,
-                       causal: bool = False) -> torch.Tensor:
-    """dQ = bf16(dS) K, as `_bwd_dq_kernel`; [B, H, Sq, D] in q's dtype."""
-    _, ds = _probs_and_ds(q, k, v, do, lse, delta, scale, causal)
+                       causal: bool = False,
+                       keep: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """dQ = bf16(dS) K, as `_bwd_dq_kernel`, dS from dP * keep with
+    dropout; [B, H, Sq, D] in q's dtype."""
+    _, ds = _probs_and_ds(q, k, v, do, lse, delta, scale, causal, keep)
     return torch.matmul(ds.to(k.dtype).float(), k.float()).to(q.dtype)
 
 
 def flash_bwd_dkv_plain(q, k, v, do, lse, delta, scale: float,
-                        causal: bool = False):
-    """(dK = bf16(dS)^T Q, dV = bf16(P)^T dO), as `_bwd_dkv_kernel`."""
-    p, ds = _probs_and_ds(q, k, v, do, lse, delta, scale, causal)
+                        causal: bool = False,
+                        keep: Optional[torch.Tensor] = None):
+    """(dK = bf16(dS)^T Q, dV = bf16(P)^T dO), as `_bwd_dkv_kernel`; with
+    dropout dV from bf16(P * keep) and dS from dP * keep."""
+    p, ds = _probs_and_ds(q, k, v, do, lse, delta, scale, causal, keep)
     dv = torch.matmul(p.to(do.dtype).float().transpose(-1, -2), do.float())
     dk = torch.matmul(ds.to(q.dtype).float().transpose(-1, -2), q.float())
     return dk.to(k.dtype), dv.to(v.dtype)
 
 
 def flash_bwd_fused_plain(q, k, v, out, lse, do, scale: float,
-                          causal: bool = False):
+                          causal: bool = False,
+                          keep: Optional[torch.Tensor] = None):
     """(dQ, dK, dV), as `_bwd_fused_kernel` with delta formed outside: the
     fp32 sum of its dQ partials is the fp32 dS K that the split kernel
     accumulates, rounded once."""
     delta = flash_delta(do, out)
-    return (flash_bwd_dq_plain(q, k, v, do, lse, delta, scale, causal),
-            *flash_bwd_dkv_plain(q, k, v, do, lse, delta, scale, causal))
+    return (flash_bwd_dq_plain(q, k, v, do, lse, delta, scale, causal, keep),
+            *flash_bwd_dkv_plain(q, k, v, do, lse, delta, scale, causal,
+                                 keep))
+
+
+def dropout_mult(rate: float) -> float:
+    """The flash kernels' multiplier of a kept probability: 1 / (1 - rate)
+    in fp32, as `_drop_keep`."""
+    return float(torch.tensor(1.0 / (1.0 - rate), dtype=torch.float32))
+
+
+def _keep(drop: Optional[AttentionDropout], q, k) -> Optional[torch.Tensor]:
+    """The plain versions' multipliers for `drop`, or None."""
+    if drop is None:
+        return None
+    b, h, sq, _ = q.shape
+    return drop.multipliers(b, h, sq, k.shape[2], dropout_mult(drop.rate),
+                            q.device)
 
 
 # ---------------------------- kernel wrappers -------------------------------
@@ -181,20 +229,31 @@ def _rows(t: torch.Tensor, name: str) -> torch.Tensor:
     return t
 
 
-def _launch(fn: str, q, k, args, causal: bool, scale: float) -> None:
+def _launch(fn: str, q, k, args, causal: bool, scale: float,
+            drop: Optional[AttentionDropout]) -> None:
     """Call the library's `fn` with `args` (views and pointers), then B, H,
-    Sq, Sk, D, scale, causal, dtype and the current stream; raise if the
-    launch failed."""
+    Sq, Sk, D, scale, causal, dtype, the dropout arguments and the current
+    stream; raise if the launch failed."""
     lib = _build.load("flash_attention", _SIGNATURES)
     b, h, sq, d = q.shape
     sk = k.shape[2]
+    dargs = (NO_DROPOUT_C_ARGS if drop is None
+             else drop.c_args(dropout_mult(drop.rate)))
     with torch.cuda.device(q.device):
         stream = torch.cuda.current_stream(q.device).cuda_stream
         rc = getattr(lib, fn)(*args, b, h, sq, sk, d, float(scale),
-                              int(causal), _DTYPES[q.dtype], stream)
+                              int(causal), _DTYPES[q.dtype], *dargs, stream)
     if rc != 0:
         raise RuntimeError(f"{fn}: kernel launch failed (cudaError {rc}) for "
                            f"B={b} H={h} Sq={sq} Sk={sk} D={d}")
+
+
+def dropout_mask(bh: int, rows: int, cols: int, rate: float, seed: int,
+                 offset: int, device) -> torch.Tensor:
+    """The keep bits the flash kernels draw, bool [bh, rows, cols] on
+    `device` (a CUDA device): `ops.dropout.exported_mask` of this library."""
+    return exported_mask(_build.load("flash_attention", _SIGNATURES), bh,
+                         rows, cols, rate, seed, offset, device)
 
 
 def _bshd_empty(b: int, s: int, h: int, d: int, like: torch.Tensor,
@@ -204,27 +263,48 @@ def _bshd_empty(b: int, s: int, h: int, d: int, like: torch.Tensor,
     return t.permute(2, 0, 3, 1, 4)
 
 
-def flash_fwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
-              causal: bool = False, scale: Optional[float] = None
-              ) -> Tuple[torch.Tensor, torch.Tensor]:
-    """(out [B, H, Sq, D] in q's dtype, a view of [B, Sq, H, D] storage;
-    lse [B, H, Sq] fp32). `scale` defaults to D**-0.5."""
-    _no_graph("flash_fwd", q, k, v)
-    d = _check("flash_fwd", q, k, v)
+def _fwd(name: str, q, k, v, causal: bool, scale: Optional[float],
+         drop: Optional[AttentionDropout]):
+    _no_graph(name, q, k, v)
+    d = _check(name, q, k, v)
     scale = d ** -0.5 if scale is None else scale
     if q.device.type == "cpu":
-        return flash_fwd_plain(q, k, v, scale, causal)
+        return flash_fwd_plain(q, k, v, scale, causal, _keep(drop, q, k))
     b, h, sq, _ = q.shape
     out = _bshd_empty(b, sq, h, d, q)[0]
     lse = torch.empty((b, h, sq), dtype=torch.float32, device=q.device)
     _launch("mct_flash_fwd", q, k,
             [*_view(q), *_view(k), *_view(v), *_view(out), lse.data_ptr()],
-            causal, scale)
-    flash_fwd.launches += 1
+            causal, scale, drop)
     return out, lse
 
 
+def flash_fwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
+              causal: bool = False, scale: Optional[float] = None
+              ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """(out [B, H, Sq, D] in q's dtype, a view of [B, Sq, H, D] storage;
+    lse [B, H, Sq] fp32). `scale` defaults to D**-0.5."""
+    out = _fwd("flash_fwd", q, k, v, causal, scale, None)
+    if q.device.type == "cuda":
+        flash_fwd.launches += 1
+    return out
+
+
 flash_fwd.launches = 0
+
+
+def flash_fwd_dropout(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                      drop: AttentionDropout, *, causal: bool = False,
+                      scale: Optional[float] = None
+                      ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """`flash_fwd` with attention-probability dropout `drop`."""
+    out = _fwd("flash_fwd_dropout", q, k, v, causal, scale, drop)
+    if q.device.type == "cuda":
+        flash_fwd_dropout.launches += 1
+    return out
+
+
+flash_fwd_dropout.launches = 0
 
 
 def _grad_buffers(q, k):
@@ -241,17 +321,13 @@ def _grad_buffers(q, k):
     return _bshd_empty(b, sq, h, d, q)[0], dkv[0], dkv[1], None
 
 
-def flash_bwd_fused(q, k, v, out, lse, do, *, causal: bool = False,
-                    scale: Optional[float] = None, grads=None):
-    """(dQ, dK, dV) in q's dtype from the forward's out and lse, in one
-    launch (`_bwd_fused_kernel`). `grads`: (dq, dk, dv) views to write
-    into, else `_grad_buffers`. The kernel adds dQ into a zeroed fp32
-    buffer with atomics, rounded into dq after it."""
-    _no_graph("flash_bwd_fused", q, k, v, out, lse, do)
-    d = _check("flash_bwd_fused", q, k, v, out, do)
+def _bwd_fused(name, q, k, v, out, lse, do, causal, scale, grads, drop):
+    _no_graph(name, q, k, v, out, lse, do)
+    d = _check(name, q, k, v, out, do)
     scale = d ** -0.5 if scale is None else scale
     if q.device.type == "cpu":
-        return flash_bwd_fused_plain(q, k, v, out, lse, do, scale, causal)
+        return flash_bwd_fused_plain(q, k, v, out, lse, do, scale, causal,
+                                     _keep(drop, q, k))
     b, h, sq, _ = q.shape
     dq, dk, dv = grads or _grad_buffers(q, k)[:3]
     delta = flash_delta(do, out)
@@ -259,46 +335,92 @@ def flash_bwd_fused(q, k, v, out, lse, do, *, causal: bool = False,
     _launch("mct_flash_bwd_fused", q, k,
             [*_view(q), *_view(k), *_view(v), *_view(do),
              _rows(lse, "lse").data_ptr(), delta.data_ptr(), *_view(dk),
-             *_view(dv), dq_acc.data_ptr()], causal, scale)
-    flash_bwd_fused.launches += 1
+             *_view(dv), dq_acc.data_ptr()], causal, scale, drop)
     dq.copy_(dq_acc.transpose(1, 2))
     return dq, dk, dv
+
+
+def flash_bwd_fused(q, k, v, out, lse, do, *, causal: bool = False,
+                    scale: Optional[float] = None, grads=None):
+    """(dQ, dK, dV) in q's dtype from the forward's out and lse, in one
+    launch (`_bwd_fused_kernel`). `grads`: (dq, dk, dv) views to write
+    into, else `_grad_buffers`. The kernel adds dQ into a zeroed fp32
+    buffer with atomics, rounded into dq after it."""
+    res = _bwd_fused("flash_bwd_fused", q, k, v, out, lse, do, causal, scale,
+                     grads, None)
+    if q.device.type == "cuda":
+        flash_bwd_fused.launches += 1
+    return res
 
 
 flash_bwd_fused.launches = 0
 
 
-def flash_bwd_dq(q, k, v, do, lse, delta, *, causal: bool = False,
-                 scale: Optional[float] = None, dq=None) -> torch.Tensor:
-    """dQ in q's dtype (`_bwd_dq_kernel`), written into `dq` when given."""
-    _no_graph("flash_bwd_dq", q, k, v, do, lse, delta)
-    d = _check("flash_bwd_dq", q, k, v, do)
+def flash_bwd_fused_dropout(q, k, v, out, lse, do, drop: AttentionDropout, *,
+                            causal: bool = False,
+                            scale: Optional[float] = None, grads=None):
+    """`flash_bwd_fused` of the forward that dropped with `drop`."""
+    res = _bwd_fused("flash_bwd_fused_dropout", q, k, v, out, lse, do, causal,
+                     scale, grads, drop)
+    if q.device.type == "cuda":
+        flash_bwd_fused_dropout.launches += 1
+    return res
+
+
+flash_bwd_fused_dropout.launches = 0
+
+
+def _bwd_dq(name, q, k, v, do, lse, delta, causal, scale, dq, drop):
+    _no_graph(name, q, k, v, do, lse, delta)
+    d = _check(name, q, k, v, do)
     scale = d ** -0.5 if scale is None else scale
     if q.device.type == "cpu":
-        return flash_bwd_dq_plain(q, k, v, do, lse, delta, scale, causal)
+        return flash_bwd_dq_plain(q, k, v, do, lse, delta, scale, causal,
+                                  _keep(drop, q, k))
     if dq is None:
         b, h, sq, _ = q.shape
         dq = _bshd_empty(b, sq, h, d, q)[0]
     _launch("mct_flash_bwd_dq", q, k,
             [*_view(q), *_view(k), *_view(v), *_view(do),
              _rows(lse, "lse").data_ptr(), _rows(delta, "delta").data_ptr(),
-             *_view(dq)], causal, scale)
-    flash_bwd_dq.launches += 1
+             *_view(dq)], causal, scale, drop)
+    return dq
+
+
+def flash_bwd_dq(q, k, v, do, lse, delta, *, causal: bool = False,
+                 scale: Optional[float] = None, dq=None) -> torch.Tensor:
+    """dQ in q's dtype (`_bwd_dq_kernel`), written into `dq` when given."""
+    dq = _bwd_dq("flash_bwd_dq", q, k, v, do, lse, delta, causal, scale, dq,
+                 None)
+    if q.device.type == "cuda":
+        flash_bwd_dq.launches += 1
     return dq
 
 
 flash_bwd_dq.launches = 0
 
 
-def flash_bwd_dkv(q, k, v, do, lse, delta, *, causal: bool = False,
-                  scale: Optional[float] = None, dk=None, dv=None):
-    """(dK, dV) in q's dtype (`_bwd_dkv_kernel`), written into `dk`, `dv`
-    when given."""
-    _no_graph("flash_bwd_dkv", q, k, v, do, lse, delta)
-    d = _check("flash_bwd_dkv", q, k, v, do)
+def flash_bwd_dq_dropout(q, k, v, do, lse, delta, drop: AttentionDropout, *,
+                         causal: bool = False, scale: Optional[float] = None,
+                         dq=None) -> torch.Tensor:
+    """`flash_bwd_dq` of the forward that dropped with `drop`."""
+    dq = _bwd_dq("flash_bwd_dq_dropout", q, k, v, do, lse, delta, causal,
+                 scale, dq, drop)
+    if q.device.type == "cuda":
+        flash_bwd_dq_dropout.launches += 1
+    return dq
+
+
+flash_bwd_dq_dropout.launches = 0
+
+
+def _bwd_dkv(name, q, k, v, do, lse, delta, causal, scale, dk, dv, drop):
+    _no_graph(name, q, k, v, do, lse, delta)
+    d = _check(name, q, k, v, do)
     scale = d ** -0.5 if scale is None else scale
     if q.device.type == "cpu":
-        return flash_bwd_dkv_plain(q, k, v, do, lse, delta, scale, causal)
+        return flash_bwd_dkv_plain(q, k, v, do, lse, delta, scale, causal,
+                                   _keep(drop, q, k))
     if dk is None:
         b, h, sk, _ = k.shape
         dkv = _bshd_empty(b, sk, h, d, q, parts=2)
@@ -306,51 +428,85 @@ def flash_bwd_dkv(q, k, v, do, lse, delta, *, causal: bool = False,
     _launch("mct_flash_bwd_dkv", q, k,
             [*_view(q), *_view(k), *_view(v), *_view(do),
              _rows(lse, "lse").data_ptr(), _rows(delta, "delta").data_ptr(),
-             *_view(dk), *_view(dv)], causal, scale)
-    flash_bwd_dkv.launches += 1
+             *_view(dk), *_view(dv)], causal, scale, drop)
     return dk, dv
+
+
+def flash_bwd_dkv(q, k, v, do, lse, delta, *, causal: bool = False,
+                  scale: Optional[float] = None, dk=None, dv=None):
+    """(dK, dV) in q's dtype (`_bwd_dkv_kernel`), written into `dk`, `dv`
+    when given."""
+    res = _bwd_dkv("flash_bwd_dkv", q, k, v, do, lse, delta, causal, scale,
+                   dk, dv, None)
+    if q.device.type == "cuda":
+        flash_bwd_dkv.launches += 1
+    return res
 
 
 flash_bwd_dkv.launches = 0
 
 
-def flash_bwd(q, k, v, out, lse, do, *, causal: bool, scale: float):
+def flash_bwd_dkv_dropout(q, k, v, do, lse, delta, drop: AttentionDropout, *,
+                          causal: bool = False, scale: Optional[float] = None,
+                          dk=None, dv=None):
+    """`flash_bwd_dkv` of the forward that dropped with `drop`."""
+    res = _bwd_dkv("flash_bwd_dkv_dropout", q, k, v, do, lse, delta, causal,
+                   scale, dk, dv, drop)
+    if q.device.type == "cuda":
+        flash_bwd_dkv_dropout.launches += 1
+    return res
+
+
+flash_bwd_dkv_dropout.launches = 0
+
+
+def flash_bwd(q, k, v, out, lse, do, *, causal: bool, scale: float,
+              drop: Optional[AttentionDropout] = None):
     """The backward the JAX package runs at this key length: fused, or the
-    split dQ and dKV kernels. Returns (dq, dk, dv, packed [B, S, 3, H, D]
-    or None), see `_grad_buffers`."""
+    split dQ and dKV kernels; with `drop` their dropout twins. Returns (dq,
+    dk, dv, packed [B, S, 3, H, D] or None), see `_grad_buffers`."""
     if do.stride(-1) != 1:
         do = do.contiguous()
     cpu = q.device.type == "cpu"
     dq, dk, dv, packed = (None,) * 4 if cpu else _grad_buffers(q, k)
+    kw = dict(causal=causal, scale=scale)
+    dargs = () if drop is None else (drop,)
     if uses_fused_bwd(k.shape[2]):
-        dq, dk, dv = flash_bwd_fused(q, k, v, out, lse, do, causal=causal,
-                                     scale=scale,
-                                     grads=None if cpu else (dq, dk, dv))
+        fused = flash_bwd_fused if drop is None else flash_bwd_fused_dropout
+        dq, dk, dv = fused(q, k, v, out, lse, do, *dargs,
+                           grads=None if cpu else (dq, dk, dv), **kw)
     else:
         delta = flash_delta(do, out)
-        dq = flash_bwd_dq(q, k, v, do, lse, delta, causal=causal,
-                          scale=scale, dq=dq)
-        dk, dv = flash_bwd_dkv(q, k, v, do, lse, delta, causal=causal,
-                               scale=scale, dk=dk, dv=dv)
+        bwd_dq, bwd_dkv = ((flash_bwd_dq, flash_bwd_dkv) if drop is None else
+                           (flash_bwd_dq_dropout, flash_bwd_dkv_dropout))
+        dq = bwd_dq(q, k, v, do, lse, delta, *dargs, dq=dq, **kw)
+        dk, dv = bwd_dkv(q, k, v, do, lse, delta, *dargs, dk=dk, dv=dv, **kw)
     return dq, dk, dv, packed
+
+
+def _fwd_any(q, k, v, causal, scale, drop):
+    if drop is None:
+        return flash_fwd(q, k, v, causal=causal, scale=scale)
+    return flash_fwd_dropout(q, k, v, drop, causal=causal, scale=scale)
 
 
 class FlashAttention(torch.autograd.Function):
     """The JAX custom_vjp's `_flash_fwd_rule` / `_flash_bwd_rule`: saves
-    (q, k, v, out, lse)."""
+    (q, k, v, out, lse); the dropout's (rate, seed, offset) ride along as
+    plain values, as the JAX rule keeps its seed."""
 
     @staticmethod
-    def forward(ctx, q, k, v, causal: bool, scale: float):
-        out, lse = flash_fwd(q, k, v, causal=causal, scale=scale)
+    def forward(ctx, q, k, v, causal: bool, scale: float, drop):
+        out, lse = _fwd_any(q, k, v, causal, scale, drop)
         ctx.save_for_backward(q, k, v, out, lse)
-        ctx.causal, ctx.scale = causal, scale
+        ctx.causal, ctx.scale, ctx.drop = causal, scale, drop
         return out
 
     @staticmethod
     def backward(ctx, do):
         dq, dk, dv, _ = flash_bwd(*ctx.saved_tensors, do, causal=ctx.causal,
-                                  scale=ctx.scale)
-        return dq, dk, dv, None, None
+                                  scale=ctx.scale, drop=ctx.drop)
+        return dq, dk, dv, None, None, None
 
 
 def _qkv_heads(qkv: torch.Tensor, heads: int):
@@ -368,11 +524,11 @@ class FlashAttentionQKV(torch.autograd.Function):
     concatenation."""
 
     @staticmethod
-    def forward(ctx, qkv, heads: int, causal: bool):
+    def forward(ctx, qkv, heads: int, causal: bool, drop):
         q, k, v = _qkv_heads(qkv, heads)
-        out, lse = flash_fwd(q, k, v, causal=causal)
+        out, lse = _fwd_any(q, k, v, causal, None, drop)
         ctx.save_for_backward(qkv, out, lse)
-        ctx.heads, ctx.causal = heads, causal
+        ctx.heads, ctx.causal, ctx.drop = heads, causal, drop
         return out.transpose(1, 2).reshape(qkv.shape[0], qkv.shape[1], -1)
 
     @staticmethod
@@ -383,33 +539,39 @@ class FlashAttentionQKV(torch.autograd.Function):
                        out.shape[3]).transpose(1, 2)
         dq, dk, dv, packed = flash_bwd(q, k, v, out, lse, do,
                                        causal=ctx.causal,
-                                       scale=q.shape[-1] ** -0.5)
+                                       scale=q.shape[-1] ** -0.5,
+                                       drop=ctx.drop)
         if packed is None:  # the plain versions (CPU)
             packed = torch.stack([dq, dk, dv]).permute(1, 3, 0, 2, 4)
-        return packed.reshape(qkv.shape), None, None
+        return packed.reshape(qkv.shape), None, None, None
 
 
 def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
                     causal: bool = False, scale: Optional[float] = None,
-                    dropout_rate: float = 0.0) -> torch.Tensor:
+                    dropout_rate: float = 0.0, seed: Optional[int] = None,
+                    offset: int = 0) -> torch.Tensor:
     """q [B, H, Sq, D], k, v [B, H, Sk, D] -> [B, H, Sq, D] (a view of
-    [B, Sq, H, D] storage); differentiable. `scale` defaults to D**-0.5."""
-    if dropout_rate > 0.0:
-        raise NotImplementedError("flash_attention: in-kernel dropout is not "
-                                  "ported yet (ROADMAP Queue B: "
-                                  "fused_mha_packed_dropout)")
+    [B, Sq, H, D] storage); differentiable. `scale` defaults to D**-0.5.
+    `dropout_rate` > 0 with a `seed` drops attention probabilities in the
+    kernels (mask of (seed, offset), see `ops/dropout.py`); rate 0 or no
+    seed runs the kernels without dropout."""
     scale = q.shape[-1] ** -0.5 if scale is None else float(scale)
+    drop = attention_dropout(dropout_rate, seed, offset)
     if torch.is_grad_enabled() and any(t.requires_grad for t in (q, k, v)):
-        return FlashAttention.apply(q, k, v, causal, scale)
-    return flash_fwd(q, k, v, causal=causal, scale=scale)[0]
+        return FlashAttention.apply(q, k, v, causal, scale, drop)
+    return _fwd_any(q, k, v, causal, scale, drop)[0]
 
 
 def flash_attention_qkv(qkv: torch.Tensor, heads: int, *,
-                        causal: bool = False) -> torch.Tensor:
+                        causal: bool = False, dropout_rate: float = 0.0,
+                        seed: Optional[int] = None,
+                        offset: int = 0) -> torch.Tensor:
     """[B, S, 3*H*D] packed projection -> [B, S, H*D], scores scaled by
-    D**-0.5; differentiable, its gradient the packed dqkv."""
+    D**-0.5; differentiable, its gradient the packed dqkv. Dropout as
+    `flash_attention`."""
+    drop = attention_dropout(dropout_rate, seed, offset)
     if torch.is_grad_enabled() and qkv.requires_grad:
-        return FlashAttentionQKV.apply(qkv, heads, causal)
+        return FlashAttentionQKV.apply(qkv, heads, causal, drop)
     q, k, v = _qkv_heads(qkv, heads)
-    out = flash_fwd(q, k, v, causal=causal)[0]
+    out = _fwd_any(q, k, v, causal, None, drop)[0]
     return out.transpose(1, 2).reshape(qkv.shape[0], qkv.shape[1], -1)

@@ -22,15 +22,32 @@ tensor [S, B, 3*H*D] goes in as `qkv_sbw.transpose(0, 1)`: with
 `save_probs=False` that is the counterpart of `fused_mha_packed_sm`
 (`_fwd_kernel_sm`, `_bwd_kernel_sm`, which recomputes P too).
 
+Dropout. `fused_mha_dropout` is the counterpart of `fused_mha_packed_dropout`
+(`_fwd_kernel_dropout`, `_bwd_kernel_dropout`), taken while the JAX
+package's gate `dropout_kernel_eligible` (copied here) holds: the forward
+with row statistics and the recompute backward, each drawing the keep mask
+M in the kernel (`csrc/philox.cuh`, `ops/dropout.py`) where the TPU kernels
+read a [B, H, S, S] mask from device memory. M is keep / (1 - rate) rounded
+to qkv's dtype, as `_dropout_mask` builds it (1.109375 in bf16 at rate 0.1,
+1.1111112 in fp32). The forward rounds P M to qkv's dtype before P.V; the
+backward forms dV from that, dP M, delta_i = sum_j (dP M)_ij P_ij and dS.
+The plain versions take M as an explicit [B, H, S, S] fp32 tensor (`keep`).
+`fused_mha_dropout_fwd` and `fused_mha_dropout_bwd` count their own
+launches.
+
 The residuals are this port's own and never compared with the JAX package's:
 P's layout is [B, H, S, S] (the JAX kernel's [B, S, H*S]), and the recompute
 mode keeps (qkv, row statistics) where the JAX kernel keeps qkv alone and
 recomputes the statistics inside its whole-row tile.
 """
 import ctypes
+from typing import Optional
 
 import torch
 
+from megatron_clip_tpu_torch.ops.dropout import (
+    C_ARGTYPES, MASK_SIGNATURE, NO_DROPOUT_C_ARGS, AttentionDropout,
+    attention_dropout, exported_mask)
 from megatron_clip_tpu_torch.ops.kernels import _build
 
 # the fused path's gate (ops/attention.py); above it the TPU package falls
@@ -39,14 +56,16 @@ MAX_FUSED_SEQ = 1024
 MAX_HEAD_DIM = 128
 
 _P, _I, _L = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
-# B, S, H, D, scale, causal, dtype, stream
-_TAIL = [_I, _I, _I, _I, ctypes.c_float, _I, _I, _P]
+# B, S, H, D, scale, causal, dtype[, the dropout arguments], stream
+_SHAPE = [_I, _I, _I, _I, ctypes.c_float, _I, _I]
 _SIGNATURES = {
-    "mct_fused_mha_fwd": ([_P, _L, _L, _P, _L, _L, _P, _P] + _TAIL, _I),
+    "mct_fused_mha_fwd": ([_P, _L, _L, _P, _L, _L, _P, _P] + _SHAPE
+                          + C_ARGTYPES + [_P], _I),
     "mct_fused_mha_bwd": ([_P, _L, _L, _P, _L, _L, _P, _P, _L, _L, _P]
-                          + _TAIL, _I),
+                          + _SHAPE + [_P], _I),
     "mct_fused_mha_bwd_recompute": ([_P, _L, _L, _P, _L, _L, _P, _P, _L, _L,
-                                     _P] + _TAIL, _I),
+                                     _P] + _SHAPE + C_ARGTYPES + [_P], _I),
+    "mct_dropout_mask": MASK_SIGNATURE,
 }
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 
@@ -93,16 +112,23 @@ def _scores(q: torch.Tensor, k: torch.Tensor, scale: float,
 
 def fused_mha_plain(qkv: torch.Tensor, heads: int, scale: float,
                     causal: bool = False, with_probs: bool = False,
-                    with_stats: bool = False):
+                    with_stats: bool = False,
+                    keep: Optional[torch.Tensor] = None):
     """qkv [B, S, 3*H*D] -> [B, S, H*D]; with `with_probs` also P
     [B, H, S, S], with `with_stats` also the row statistics [2, B, H, S]
     fp32 (each row's max of the scaled scores, then sum exp(s - max)).
     fp32 scores and softmax; the probabilities are rounded to qkv's dtype
     (that is P) before P.V, which accumulates in fp32; the result is rounded
-    to qkv's dtype."""
+    to qkv's dtype. With `keep`, the dropout multipliers M [B, H, S, S]
+    fp32, P.V takes P M rounded to qkv's dtype (`_fwd_kernel_dropout`)."""
+    if with_probs and keep is not None:
+        raise ValueError("fused_mha_plain: dropout keeps no P")
     q, k, v = _split_heads(qkv, heads, 3)                        # [B,H,S,D]
     scores = _scores(q, k, scale, causal)
-    p = torch.softmax(scores, dim=-1).to(qkv.dtype)
+    p = torch.softmax(scores, dim=-1)
+    if keep is not None:
+        p = p * keep
+    p = p.to(qkv.dtype)
     out = _merge_heads(torch.matmul(p.float(), v), qkv)
     extra = []
     if with_probs:
@@ -113,14 +139,18 @@ def fused_mha_plain(qkv: torch.Tensor, heads: int, scale: float,
     return (out, *extra) if extra else out
 
 
-def _bwd_head(q, k, v, g, p, scale, dtype):
+def _bwd_head(q, k, v, g, p, scale, dtype, keep=None):
     """The JAX package's `_bwd_head` on [B, H, S, D] fp32 tensors: dV =
     P^T dO with P rounded to `dtype`, dP = dO V^T, dS = p (dP - rowsum(dP
     p)) scale rounded to `dtype` with p as given, dQ = dS K, dK = dS^T Q,
-    each product in fp32. Returns [3, B, H, S, D]."""
-    pc = p.to(dtype).float()
+    each product in fp32. With `keep` (M), `_bwd_kernel_dropout`'s: dV from
+    P M rounded to `dtype` and dP M in place of dP. Returns
+    [3, B, H, S, D]."""
+    pc = (p if keep is None else p * keep).to(dtype).float()
     dv = torch.matmul(pc.transpose(-1, -2), g)
     dp = torch.matmul(g, v.transpose(-1, -2))
+    if keep is not None:
+        dp = dp * keep
     ds = (p * (dp - (dp * p).sum(-1, keepdim=True)) * scale).to(dtype).float()
     return torch.stack([torch.matmul(ds, k),
                         torch.matmul(ds.transpose(-1, -2), q), dv])
@@ -140,16 +170,55 @@ def fused_mha_bwd_plain(qkv: torch.Tensor, do: torch.Tensor, p: torch.Tensor,
 
 def fused_mha_bwd_recompute_plain(qkv: torch.Tensor, do: torch.Tensor,
                                   heads: int, scale: float,
-                                  causal: bool = False) -> torch.Tensor:
+                                  causal: bool = False,
+                                  keep: Optional[torch.Tensor] = None
+                                  ) -> torch.Tensor:
     """The backward recomputing P, line by line as the JAX package's
     `_bwd_kernel_recompute`: fp32 scores times scale, causal fill of -1e30,
     fp32 softmax p, then `_bwd_head` with that fp32 p in delta and dS and p
-    rounded to qkv's dtype only in dV = bf16(p)^T dO. Returns packed dqkv
-    [B, S, 3*H*D] in qkv's dtype."""
+    rounded to qkv's dtype only in dV = bf16(p)^T dO. With `keep` (M) it is
+    `_bwd_kernel_dropout`, line by line. Returns packed dqkv [B, S, 3*H*D]
+    in qkv's dtype."""
     q, k, v = _split_heads(qkv, heads, 3)
     (g,) = _split_heads(do, heads, 1)
     p = torch.softmax(_scores(q, k, scale, causal), dim=-1)
-    return _merge_heads(_bwd_head(q, k, v, g, p, scale, qkv.dtype), qkv)
+    return _merge_heads(_bwd_head(q, k, v, g, p, scale, qkv.dtype, keep), qkv)
+
+
+def _heads_per_cell(heads: int, hd: int) -> Optional[int]:
+    """The JAX package's head-group size (`fused_mha.py::_heads_per_cell`):
+    128 / head_dim heads per cell, so that the cell's lanes are a multiple
+    of 128; None if the geometry cannot give that."""
+    if 128 % hd != 0:
+        return None
+    hp = max(1, 128 // hd)
+    return hp if heads % hp == 0 else None
+
+
+def dropout_kernel_eligible(s: int, heads: int, hd: int,
+                            budget: int = 10 * 1024 * 1024) -> bool:
+    """The JAX package's gate of the fused dropout kernels
+    (`fused_mha.py::dropout_kernel_eligible`), copied: the head group must
+    exist and one cell's hp bf16 mask planes plus three fp32 [S, S] scratch
+    tiles must fit 10 MiB. The port's kernels need neither, but the route
+    must be the JAX package's."""
+    hp = _heads_per_cell(heads, hd)
+    if hp is None:
+        return False
+    return hp * s * s * 2 + 3 * s * s * 4 <= budget
+
+
+def dropout_mult(rate: float, dtype: torch.dtype) -> float:
+    """The fused kernels' multiplier of a kept probability: 1 / (1 - rate)
+    rounded to qkv's dtype, as `_dropout_mask` scales its keep mask."""
+    return float(torch.tensor(1.0 / (1.0 - rate), dtype=dtype))
+
+
+def _keep(drop: AttentionDropout, qkv: torch.Tensor,
+          heads: int) -> torch.Tensor:
+    b, s, _ = qkv.shape
+    return drop.multipliers(b, heads, s, s, dropout_mult(drop.rate, qkv.dtype),
+                            qkv.device)
 
 
 def _check_cuda(name: str, t: torch.Tensor) -> None:
@@ -192,14 +261,16 @@ def _no_graph(name: str, *tensors: torch.Tensor) -> None:
                            "backward kernel")
 
 
-def _launch(name: str, device: torch.device, args, shape) -> None:
+def _launch(name: str, device: torch.device, args, shape,
+            dargs=()) -> None:
     """Call the library's `mct_<name>` with `args` (pointers and strides),
-    then B, S, H, D, scale, causal, dtype and the current stream; raise if
-    the launch failed."""
+    then B, S, H, D, scale, causal, dtype, `dargs` (the dropout arguments of
+    the functions that take them) and the current stream; raise if the
+    launch failed."""
     lib = _build.load("fused_mha", _SIGNATURES)
     with torch.cuda.device(device):
         stream = torch.cuda.current_stream(device).cuda_stream
-        rc = getattr(lib, f"mct_{name}")(*args, *shape, stream)
+        rc = getattr(lib, f"mct_{name}")(*args, *shape, *dargs, stream)
     if rc != 0:
         b, s, h, d = shape[:4]
         raise RuntimeError(f"{name}: kernel launch failed (cudaError {rc}) "
@@ -220,12 +291,26 @@ def fused_mha_fwd(qkv: torch.Tensor, heads: int, *, causal: bool = False,
     if with_probs and with_stats:
         raise ValueError("fused_mha_fwd: with_probs and with_stats are the "
                          "two backward modes; ask for one")
-    d = _head_dim("fused_mha_fwd", qkv, heads)
+    res = _fwd("fused_mha_fwd", qkv, heads, causal, with_probs, with_stats,
+               None)
+    if qkv.device.type == "cuda":
+        fused_mha_fwd.launches += 1
+    return res
+
+
+fused_mha_fwd.launches = 0
+
+
+def _fwd(name, qkv, heads, causal, with_probs, with_stats,
+         drop: Optional[AttentionDropout]):
+    d = _head_dim(name, qkv, heads)
     scale = d ** -0.5
     if qkv.device.type == "cpu":
         return fused_mha_plain(qkv, heads, scale, causal, with_probs,
-                               with_stats)
-    _check_cuda("fused_mha_fwd", qkv)
+                               with_stats,
+                               None if drop is None else _keep(drop, qkv,
+                                                               heads))
+    _check_cuda(name, qkv)
     b, s, _ = qkv.shape
     out = _empty_like_layout(qkv, heads * d)
     p = (torch.empty((b, heads, s, s), dtype=qkv.dtype, device=qkv.device)
@@ -236,14 +321,27 @@ def fused_mha_fwd(qkv: torch.Tensor, heads: int, *, causal: bool = False,
             [qkv.data_ptr(), *_pitch(qkv), out.data_ptr(), *_pitch(out),
              None if p is None else p.data_ptr(),
              None if stats is None else stats.data_ptr()],
-            (b, s, heads, d, float(scale), int(causal), _DTYPES[qkv.dtype]))
-    fused_mha_fwd.launches += 1
+            (b, s, heads, d, float(scale), int(causal), _DTYPES[qkv.dtype]),
+            NO_DROPOUT_C_ARGS if drop is None else drop.c_args(
+                dropout_mult(drop.rate, qkv.dtype)))
     if with_probs:
         return out, p
     return (out, stats) if with_stats else out
 
 
-fused_mha_fwd.launches = 0
+def fused_mha_dropout_fwd(qkv: torch.Tensor, heads: int,
+                          drop: AttentionDropout, *, causal: bool = False):
+    """The forward with attention-probability dropout `drop` and row
+    statistics: (out [B, S, H*D] in qkv's dtype and layout, stats
+    [2, B, H, S] fp32) for `fused_mha_dropout_bwd`."""
+    _no_graph("fused_mha_dropout_fwd", qkv)
+    res = _fwd("fused_mha_dropout_fwd", qkv, heads, causal, False, True, drop)
+    if qkv.device.type == "cuda":
+        fused_mha_dropout_fwd.launches += 1
+    return res
+
+
+fused_mha_dropout_fwd.launches = 0
 
 
 def _check_bwd(name: str, qkv: torch.Tensor, do: torch.Tensor, heads: int,
@@ -305,12 +403,25 @@ def fused_mha_bwd_recompute(qkv: torch.Tensor, do: torch.Tensor,
     [B, S, 3*H*D] in qkv's dtype, strided as qkv. The plain version (CPU)
     recomputes the statistics too."""
     _no_graph("fused_mha_bwd_recompute", qkv, do, stats)
+    dqkv = _bwd_recompute("fused_mha_bwd_recompute", qkv, do, stats, heads,
+                          causal, None)
+    if qkv.device.type == "cuda":
+        fused_mha_bwd_recompute.launches += 1
+    return dqkv
+
+
+fused_mha_bwd_recompute.launches = 0
+
+
+def _bwd_recompute(name, qkv, do, stats, heads, causal,
+                   drop: Optional[AttentionDropout]):
     b, s, _ = qkv.shape
-    d = _check_bwd("fused_mha_bwd_recompute", qkv, do, heads, stats,
-                   (2, b, heads, s), torch.float32)
+    d = _check_bwd(name, qkv, do, heads, stats, (2, b, heads, s),
+                   torch.float32)
     if qkv.device.type == "cpu":
-        return fused_mha_bwd_recompute_plain(qkv, do, heads, d ** -0.5,
-                                             causal)
+        return fused_mha_bwd_recompute_plain(
+            qkv, do, heads, d ** -0.5, causal,
+            None if drop is None else _keep(drop, qkv, heads))
     dqkv = _empty_like_layout(qkv, qkv.shape[-1])
     delta = torch.empty(b * heads * s, dtype=torch.float32, device=qkv.device)
     _launch("fused_mha_bwd_recompute", qkv.device,
@@ -318,12 +429,37 @@ def fused_mha_bwd_recompute(qkv: torch.Tensor, do: torch.Tensor,
              stats.data_ptr(), dqkv.data_ptr(), *_pitch(dqkv),
              delta.data_ptr()],
             (b, s, heads, d, float(d ** -0.5), int(causal),
-             _DTYPES[qkv.dtype]))
-    fused_mha_bwd_recompute.launches += 1
+             _DTYPES[qkv.dtype]),
+            NO_DROPOUT_C_ARGS if drop is None else drop.c_args(
+                dropout_mult(drop.rate, qkv.dtype)))
     return dqkv
 
 
-fused_mha_bwd_recompute.launches = 0
+def fused_mha_dropout_bwd(qkv: torch.Tensor, do: torch.Tensor,
+                          stats: torch.Tensor, heads: int,
+                          drop: AttentionDropout, *,
+                          causal: bool = False) -> torch.Tensor:
+    """Gradient of `fused_mha_dropout_fwd` with respect to qkv: P
+    recomputed from qkv and the row statistics, the mask drawn again from
+    `drop`. Returns packed dqkv [B, S, 3*H*D] in qkv's dtype, strided as
+    qkv."""
+    _no_graph("fused_mha_dropout_bwd", qkv, do, stats)
+    dqkv = _bwd_recompute("fused_mha_dropout_bwd", qkv, do, stats, heads,
+                          causal, drop)
+    if qkv.device.type == "cuda":
+        fused_mha_dropout_bwd.launches += 1
+    return dqkv
+
+
+fused_mha_dropout_bwd.launches = 0
+
+
+def dropout_mask(bh: int, rows: int, cols: int, rate: float, seed: int,
+                 offset: int, device) -> torch.Tensor:
+    """The keep bits the fused kernels draw, bool [bh, rows, cols] on
+    `device` (a CUDA device): `ops.dropout.exported_mask` of this library."""
+    return exported_mask(_build.load("fused_mha", _SIGNATURES), bh, rows,
+                         cols, rate, seed, offset, device)
 
 
 class FusedMHA(torch.autograd.Function):
@@ -349,6 +485,41 @@ class FusedMHA(torch.autograd.Function):
         bwd = fused_mha_bwd if ctx.save_probs else fused_mha_bwd_recompute
         return bwd(qkv, do, residual, ctx.heads,
                    causal=ctx.causal), None, None, None
+
+
+class FusedMHADropout(torch.autograd.Function):
+    """The JAX custom_vjp of `fused_mha_packed_dropout`: the forward keeps
+    (qkv, row statistics) and the dropout's (rate, seed, offset); the
+    backward recomputes P and draws the mask again."""
+
+    @staticmethod
+    def forward(ctx, qkv: torch.Tensor, heads: int, causal: bool, drop):
+        out, stats = fused_mha_dropout_fwd(qkv, heads, drop, causal=causal)
+        ctx.save_for_backward(qkv, stats)
+        ctx.heads, ctx.causal, ctx.drop = heads, causal, drop
+        return out
+
+    @staticmethod
+    def backward(ctx, do: torch.Tensor):
+        qkv, stats = ctx.saved_tensors
+        if do.stride(-1) != 1:
+            do = do.contiguous()
+        return fused_mha_dropout_bwd(qkv, do, stats, ctx.heads, ctx.drop,
+                                     causal=ctx.causal), None, None, None
+
+
+def fused_mha_dropout(qkv: torch.Tensor, heads: int, *, causal: bool = False,
+                      rate: float, seed: Optional[int],
+                      offset: int = 0) -> torch.Tensor:
+    """[B, S, 3*H*D] -> [B, S, H*D] with attention-probability dropout at
+    `rate` (mask of (seed, offset), see `ops/dropout.py`); differentiable.
+    Rate 0 or no seed runs `fused_mha` (the rate-0 kernels, P saved)."""
+    drop = attention_dropout(rate, seed, offset)
+    if drop is None:
+        return fused_mha(qkv, heads, causal=causal)
+    if torch.is_grad_enabled() and qkv.requires_grad:
+        return FusedMHADropout.apply(qkv, heads, causal, drop)
+    return fused_mha_dropout_fwd(qkv, heads, drop, causal=causal)[0]
 
 
 def fused_mha(qkv: torch.Tensor, heads: int, *, causal: bool = False,

@@ -6,6 +6,8 @@
         --model gpt-345m [--batch 6] [--seq 2048] [--fused-ce]
     python -m megatron_clip_tpu_torch.tools.profile_train \
         --model gpt-rope-swiglu --fused-ce [--batch 8]
+    python -m megatron_clip_tpu_torch.tools.profile_train \
+        --model gpt-pipeline [--seq 512]
 
 Builds the model (pure_bf16, random weights from seed 0) with the recipe of
 bench.py's CLIP legs (AdamW b=(0.9, 0.98), eps 1e-6, weight decay 0.2, bf16
@@ -18,7 +20,13 @@ of 1024 or with `--fused-ce` the fused lm-head cross entropy; batch 6 at
 S = 2048 by default, `--seq 8192 --batch 1` for the split flash backward),
 or the GPT of examples/pretrain_gpt_dist.sh (`gpt-rope-swiglu`: GPT-345m's
 widths with rope, swiglu and rmsnorm, bf16 compute on fp32 weights, batch 8
-by default, the same optimizer chain), takes 3 warm-up steps on one seeded
+by default, the same optimizer chain), or the GPT of
+examples/pretrain_gpt_pipeline.sh (`gpt-pipeline`: 32 x 2048, 16 heads,
+learned positions, attention and hidden dropout 0.1 from seed 1234, the
+fused CE, bf16 compute on fp32 weights, the example's selective
+recompute; batch 8 at S = 2048, the flash dropout kernels,
+or batch 32 at `--seq 512`, the fused-MHA dropout kernels; the same
+optimizer chain), takes 3 warm-up steps on one seeded
 batch already on the card, then traces 3 steps with torch.profiler. Prints
 one JSON line: wall time, device-busy time (the union of kernel and copy
 intervals), the idle share, and device time by category (GEMMs,
@@ -48,6 +56,11 @@ GPT_345M = {"num_layers": 24, "hidden_size": 1024, "num_heads": 16,
 # examples/pretrain_gpt_dist.sh's options on GPT-345m's widths
 ROPE_SWIGLU = {"position_embedding": "rope", "swiglu": True,
                "normalization": "rmsnorm"}
+# examples/pretrain_gpt_pipeline.sh's GPT: megatron's dropout defaults
+PIPELINE = {"num_layers": 32, "hidden_size": 2048, "num_heads": 16,
+            "vocab_size": 50304, "attention_dropout": 0.1,
+            "hidden_dropout": 0.1}
+PIPELINE_SEED = 1234
 
 
 def _category(name: str) -> str:
@@ -126,15 +139,24 @@ def _gpt_step(args):
                                                   make_gpt_optimizer,
                                                   make_gpt_train_step)
     example = args.model == "gpt-rope-swiglu"
-    batch, seq = args.batch or (8 if example else 6), args.seq
-    precision = "bf16" if example else "pure_bf16"
-    cfg = GPTCfg(**GPT_345M, **(ROPE_SWIGLU if example else {}),
-                 seq_length=seq)
+    pipeline = args.model == "gpt-pipeline"
+    seq = args.seq
+    batch = args.batch or (8 if example else 6)
+    if pipeline:
+        batch = args.batch or 8 * 2048 // seq
+        cfg = GPTCfg(**PIPELINE, seq_length=seq)
+    else:
+        cfg = GPTCfg(**GPT_345M, **(ROPE_SWIGLU if example else {}),
+                     seq_length=seq)
+    precision = "bf16" if example or pipeline else "pure_bf16"
+    fused_ce = args.fused_ce or pipeline
     model = create_gpt(cfg, precision=precision, seed=SEED).train()
     opt = make_gpt_optimizer(model)
     state = TrainState.create(model, opt)
-    step = make_gpt_train_step(model, opt, loss_seq_chunk=1024,
-                               fused_ce=args.fused_ce)
+    step = make_gpt_train_step(
+        model, opt, loss_seq_chunk=1024, fused_ce=fused_ce,
+        remat="selective" if pipeline else "none",
+        seed=PIPELINE_SEED if pipeline else None)
     tokens = torch.from_numpy(np.random.default_rng(SEED).integers(
         1, cfg.vocab_size - 1, (batch, seq + 1))).cuda()
 
@@ -143,18 +165,21 @@ def _gpt_step(args):
         state, metrics = step(state, tokens)
         return metrics
     return run, {"batch": batch, "seq": seq, "precision": precision,
-                 "loss": "fused_ce" if args.fused_ce else "chunks of 1024",
+                 "loss": "fused_ce" if fused_ce else "chunks of 1024",
                  "attention_backward": "fused" if uses_fused_bwd(seq)
-                 else "split dQ / dKV"}
+                 else "split dQ / dKV",
+                 "remat": "selective" if pipeline else "none",
+                 "dropout": pipeline}
 
 
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--model", default="ViT-B-32",
-                    help="a CLIP model name, gpt-345m or gpt-rope-swiglu")
+                    help="a CLIP model name, gpt-345m, gpt-rope-swiglu or "
+                         "gpt-pipeline")
     ap.add_argument("--batch", type=int, default=None,
-                    help="default 384 (CLIP), 6 (gpt-345m) or 8 "
-                         "(gpt-rope-swiglu)")
+                    help="default 384 (CLIP), 6 (gpt-345m), 8 "
+                         "(gpt-rope-swiglu) or 16384 tokens (gpt-pipeline)")
     ap.add_argument("--seq", type=int, default=2048,
                     help="the GPT's sequence length")
     ap.add_argument("--fused-ce", action="store_true",

@@ -20,6 +20,11 @@ as the JAX package's jitted step computes it (XLA keeps that intermediate in
 fp32; optax run eagerly would round it). mu is rounded to `moment_dtype`
 after each update; nu stays in the parameter's dtype. Parameters are
 updated in place, and the moments are replaced, one tensor per parameter.
+The update runs over chunks of at most `CHUNK_ELEMENTS` elements, each
+through the whole chain: every step is elementwise, so the result is the
+same, and the chain's temporaries (a dozen per element) stay at a chunk's
+size rather than the model's (1.7 billion parameters would need some 70 GB
+of them at once).
 
 Not ported yet (ROADMAP Queue A): SGD, bf16 nu (`adamw_lowbits`), lock
 masks, scheduled weight decay and the megatron schedules.
@@ -30,6 +35,9 @@ from typing import Callable, Dict, Mapping, Optional
 import numpy as np
 import torch
 from torch import nn
+
+# the update's chunk: 2^27 elements, 512 MB of fp32
+CHUNK_ELEMENTS = 1 << 27
 
 
 def cosine_lr(base_lr: float, warmup: int, total_steps: int,
@@ -169,68 +177,88 @@ class AdamW:
             total = total + x
         return total.sqrt().float()
 
-    def _clip(self, grads: Dict[str, torch.Tensor], norm: torch.Tensor):
-        """optax.clip_by_global_norm: t -> (t / norm) * max_norm when
-        norm >= max_norm, else t; chosen on the device, no sync."""
+    def _clip(self, g: list, dtype: torch.dtype, norm: torch.Tensor):
+        """optax.clip_by_global_norm on the tensors `g` of one dtype: t ->
+        (t / norm) * max_norm when norm >= max_norm, else t; chosen on the
+        device, no sync."""
         keep = norm < self.grad_clip_norm
         safe = torch.where(keep, torch.ones_like(norm), norm)
-        out = {}
-        for (dtype, _), names in self.groups:
-            g = [grads[n] for n in names]
-            c = torch._foreach_div(g, safe.to(dtype))
-            torch._foreach_mul_(c, _c(self.grad_clip_norm, dtype))
-            k = keep.to(dtype)
-            kept = torch._foreach_mul(g, k)
-            torch._foreach_mul_(c, 1 - k)
-            out.update(zip(names, torch._foreach_add(kept, c)))
-        return out
+        c = torch._foreach_div(g, safe.to(dtype))
+        torch._foreach_mul_(c, _c(self.grad_clip_norm, dtype))
+        k = keep.to(dtype)
+        kept = torch._foreach_mul(g, k)
+        torch._foreach_mul_(c, 1 - k)
+        return torch._foreach_add(kept, c)
+
+    def _chunks(self, names: list):
+        """`names` in consecutive runs of at most CHUNK_ELEMENTS elements
+        (a larger tensor alone)."""
+        run, size = [], 0
+        for n in names:
+            numel = self.params[n].numel()
+            if run and size + numel > CHUNK_ELEMENTS:
+                yield run
+                run, size = [], 0
+            run.append(n)
+            size += numel
+        if run:
+            yield run
 
     def update(self, state: OptState, grads: Dict[str, torch.Tensor]):
         """One optax step: updates the parameters in place and returns
         (the new state, the gradients' global norm before clipping)."""
         norm = self.global_norm(grads)
-        if self.grad_clip_norm:
-            grads = self._clip(grads, norm)
         count = state.count + 1
         f32 = np.float32
         bc1 = float(f32(1) - f32(self.b1) ** f32(count))
         bc2 = float(f32(1) - f32(self.b2) ** f32(count))
         lr = self.lr(state.schedule_count)
         mu_out, nu_out = {}, {}
-        for (dtype, decays), names in self.groups:
-            g = [grads[n] for n in names]
-            mdt = self.moment_dtype or dtype
-            udt = torch.promote_types(dtype, mdt)
-            # scale_by_adam: mu = (1 - b1) g + b1 mu, nu = (1 - b2) g^2 + b2 nu
-            a = torch._foreach_mul(g, _c(1 - self.b1, dtype))
-            b = torch._foreach_mul([state.mu[n].to(udt) for n in names],
-                                   _c(self.b1, mdt))
-            mu = torch._foreach_add([t.to(udt) for t in a],
-                                    [t.to(udt) for t in b])
-            g2 = torch._foreach_mul(g, g)
-            torch._foreach_mul_(g2, _c(1 - self.b2, dtype))
-            nu = torch._foreach_add(
-                g2, torch._foreach_mul([state.nu[n] for n in names],
-                                       _c(self.b2, dtype)))
-            # bias correction, then mu_hat / (sqrt(nu_hat) + eps)
-            u = torch._foreach_div(mu, _c(bc1, udt))
-            den = torch._foreach_div(nu, _c(bc2, dtype))
-            torch._foreach_sqrt_(den)
-            torch._foreach_add_(den, _c(self.eps, dtype))
-            u = torch._foreach_div(u, [t.to(udt) for t in den])
-            if decays:  # add_decayed_weights: u + wd p
-                wp = torch._foreach_mul([self.params[n].detach()
-                                         for n in names],
-                                        _c(self.weight_decay, dtype))
-                u = torch._foreach_add(u, [t.to(udt) for t in wp])
-            # scale_by_learning_rate, then apply_updates: p <- p + u
-            torch._foreach_mul_(u, _c(-lr, udt))
-            with torch.no_grad():
-                torch._foreach_add_([self.params[n] for n in names], u)
-            mu_out.update(zip(names, (t.to(mdt) for t in mu)))
-            nu_out.update(zip(names, nu))
+        for (dtype, decays), group in self.groups:
+            for names in self._chunks(group):
+                self._update_chunk(names, dtype, decays, grads, norm, state,
+                                   bc1, bc2, lr, mu_out, nu_out)
         return OptState(count=count, mu=mu_out, nu=nu_out,
                         schedule_count=state.schedule_count + 1), norm
+
+    def _update_chunk(self, names, dtype, decays, grads, norm, state, bc1,
+                      bc2, lr, mu_out, nu_out) -> None:
+        """The chain on the parameters `names` (one dtype and decay): the
+        clip, scale_by_adam, the decay, the learning rate, the update in
+        place; the new moments into mu_out and nu_out."""
+        g = [grads[n] for n in names]
+        if self.grad_clip_norm:
+            g = self._clip(g, dtype, norm)
+        mdt = self.moment_dtype or dtype
+        udt = torch.promote_types(dtype, mdt)
+        # scale_by_adam: mu = (1 - b1) g + b1 mu, nu = (1 - b2) g^2 + b2 nu
+        a = torch._foreach_mul(g, _c(1 - self.b1, dtype))
+        b = torch._foreach_mul([state.mu[n].to(udt) for n in names],
+                               _c(self.b1, mdt))
+        mu = torch._foreach_add([t.to(udt) for t in a],
+                                [t.to(udt) for t in b])
+        g2 = torch._foreach_mul(g, g)
+        torch._foreach_mul_(g2, _c(1 - self.b2, dtype))
+        nu = torch._foreach_add(
+            g2, torch._foreach_mul([state.nu[n] for n in names],
+                                   _c(self.b2, dtype)))
+        # bias correction, then mu_hat / (sqrt(nu_hat) + eps)
+        u = torch._foreach_div(mu, _c(bc1, udt))
+        den = torch._foreach_div(nu, _c(bc2, dtype))
+        torch._foreach_sqrt_(den)
+        torch._foreach_add_(den, _c(self.eps, dtype))
+        u = torch._foreach_div(u, [t.to(udt) for t in den])
+        if decays:  # add_decayed_weights: u + wd p
+            wp = torch._foreach_mul([self.params[n].detach()
+                                     for n in names],
+                                    _c(self.weight_decay, dtype))
+            u = torch._foreach_add(u, [t.to(udt) for t in wp])
+        # scale_by_learning_rate, then apply_updates: p <- p + u
+        torch._foreach_mul_(u, _c(-lr, udt))
+        with torch.no_grad():
+            torch._foreach_add_([self.params[n] for n in names], u)
+        mu_out.update(zip(names, (t.to(mdt) for t in mu)))
+        nu_out.update(zip(names, nu))
 
 
 def make_optimizer(model: nn.Module, lr: Callable[[int], float], *,

@@ -8,7 +8,9 @@ LayerNorm kernels, the optimizer update in place, and the post-step clamp of
 logit_scale to [0, ln 100]. One GPT step (`make_gpt_train_step`) is
 bench.py's `bench_gpt_345m` step: `gpt_loss` (chunked, or through the fused
 lm-head cross entropy of `pretrain_gpt.py --fused-ce`), its backward, the
-clipped AdamW update in place. The optimizer of `pretrain_gpt.py`'s own
+clipped AdamW update in place; with a seed, dropout at the config's rates,
+and activation recompute as `remat` says (the step of
+examples/pretrain_gpt_pipeline.sh). The optimizer of `pretrain_gpt.py`'s own
 runtime (`training/workload.py`: its schedules and decay masks) is not
 ported yet (ROADMAP Queue A item 4); the GPT step takes bench.py's chain
 (`make_gpt_optimizer`).
@@ -20,9 +22,11 @@ from typing import Callable, Optional
 
 from torch import nn
 
+from megatron_clip_tpu_torch.config import check_remat
 from megatron_clip_tpu_torch.losses import ClipLoss
 from megatron_clip_tpu_torch.models.clip import CLIPModel, clamp_logit_scale
 from megatron_clip_tpu_torch.models.gpt import GPTModel, gpt_loss
+from megatron_clip_tpu_torch.ops.dropout import fold_in
 from megatron_clip_tpu_torch.training.optim import AdamW, OptState
 
 
@@ -71,21 +75,31 @@ def make_train_step(model: CLIPModel, optimizer: AdamW, *,
 
 
 def make_gpt_train_step(model: GPTModel, optimizer: AdamW, *,
-                        loss_seq_chunk: int = 0,
-                        fused_ce: bool = False) -> Callable:
+                        loss_seq_chunk: int = 0, fused_ce: bool = False,
+                        remat: Optional[str] = None,
+                        seed: Optional[int] = None) -> Callable:
     """Build `step(state, tokens) -> (state, metrics)` for `model`, whose
     parameters `optimizer` was made for: tokens [B, S+1] integer ids on the
     model's device, inputs tokens[:, :-1] predicting tokens[:, 1:]. The
     loss is `gpt_loss` with `loss_seq_chunk` or `fused_ce` (which wins when
-    both are given, as in the JAX package). metrics: `loss` and `grad_norm`
-    (the global norm before clipping), as 0-d device tensors."""
+    both are given, as in the JAX package), under activation recompute
+    `remat` (none, selective, full; default the model's `cfg.remat`),
+    resolved here once.
+    `seed` turns dropout on at the config's rates: step i draws from
+    `fold_in(seed, i)`, formed on the host from plain ints, as the JAX
+    workload folds the step into its key; None trains without dropout.
+    metrics: `loss` and `grad_norm` (the global norm before clipping), as
+    0-d device tensors."""
     params = dict(model.named_parameters())
+    remat = check_remat(model.cfg.remat if remat is None else remat)
 
     def step(state: TrainState, tokens):
         for p in params.values():
             p.grad = None
         loss = gpt_loss(model, tokens, loss_seq_chunk=loss_seq_chunk,
-                        fused_ce=fused_ce)
+                        fused_ce=fused_ce, remat=remat,
+                        seed=None if seed is None else fold_in(seed,
+                                                               state.step))
         loss.backward()
         grads = {n: p.grad for n, p in params.items()}
         opt_state, grad_norm = optimizer.update(state.opt_state, grads)

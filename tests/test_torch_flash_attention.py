@@ -162,8 +162,10 @@ def test_packed_entry_matches_the_public_function():
     (want_g,) = torch.autograd.grad(want, x, g)
     torch.testing.assert_close(out, want, rtol=0, atol=0)
     torch.testing.assert_close(dqkv, want_g, rtol=0, atol=0)
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        fa.flash_attention(q, k, v, dropout_rate=0.1)
+    # a dropout rate without a seed is eval: the rate-0 function
+    torch.testing.assert_close(
+        fa.flash_attention(q, k, v, causal=True, dropout_rate=0.1).transpose(
+            1, 2).reshape(b, s, h * d), want, rtol=0, atol=0)
 
 
 @pytest.mark.parametrize("causal", [False, True])
@@ -193,3 +195,71 @@ def test_multi_head_attention_takes_the_flash_path_above_1024(causal):
         causal=causal)))(jnp.asarray(x))
     np.testing.assert_allclose(gx.numpy(), np.asarray(want_gx), rtol=5e-5,
                                atol=5e-5)
+
+
+# The dropout route. The JAX package's flash dropout needs the TPU's PRNG
+# (no interpret lowering), so on the CPU its reference is `sdpa` with
+# `_drop_probs`, the route the JAX package itself takes there. Its
+# jax.random.bernoulli mask is fed to the port's plain versions as keep /
+# (1 - rate) multipliers: forward 2e-5 and q, k, v gradients 5e-5, the
+# bounds of tests/test_flash_attention.py. sdpa divides the normalised fp32
+# probabilities by 1 - rate, the flash arithmetic multiplies the
+# unnormalised p by fp32 1/(1 - rate) and divides by l after P.V: the same
+# function, fp32 roundings apart.
+@pytest.mark.parametrize("causal", [True, False])
+def test_dropout_route_matches_jax_sdpa_with_its_mask(causal):
+    from megatron_clip_tpu.ops.attention import sdpa as jax_sdpa
+    rate, b, h, s, d = 0.1, 2, 2, 300, 32
+    q, k, v, do = _inputs(7, b=b, h=h, sq=s, sk=s, d=d)
+    key = jax.random.PRNGKey(5)
+    jq, jk, jv, jdo = (jnp.asarray(a) for a in (q, k, v, do))
+
+    def f(a, b_, c):
+        return jax_sdpa(a, b_, c, causal=causal, dropout_rate=rate,
+                        dropout_rng=key)
+    want, vjp = jax.vjp(f, jq, jk, jv)
+    want_g = vjp(jdo)
+    keep = np.asarray(jax.random.bernoulli(key, 1.0 - rate, (b, h, s, s)))
+    mult = torch.from_numpy(keep).float() * fa.dropout_mult(rate)
+    tq, tk, tv, tdo = (torch.from_numpy(a) for a in (q, k, v, do))
+    scale = d ** -0.5
+    out, lse = fa.flash_fwd_plain(tq, tk, tv, scale, causal, mult)
+    grads = fa.flash_bwd_fused_plain(tq, tk, tv, out, lse, tdo, scale, causal,
+                                     mult)
+    np.testing.assert_allclose(out.numpy(), np.asarray(want), rtol=2e-5,
+                               atol=2e-5)
+    for got, w in zip(grads, want_g):
+        np.testing.assert_allclose(got.numpy(), np.asarray(w), rtol=5e-5,
+                                   atol=5e-5)
+    # the split backward is the same function
+    delta = fa.flash_delta(tdo, out)
+    np.testing.assert_allclose(
+        fa.flash_bwd_dq_plain(tq, tk, tv, tdo, lse, delta, scale, causal,
+                              mult).numpy(), grads[0].numpy(), rtol=2e-5,
+        atol=2e-5)
+
+
+def test_dropout_autograd_uses_the_philox_mask():
+    """flash_attention with dropout on the CPU: the plain versions fed the
+    kernels' Philox mask of (seed, offset), forward and backward alike;
+    the packed entry gives the same function."""
+    from megatron_clip_tpu_torch.ops.dropout import AttentionDropout
+    b, h, s, d = 1, 2, 300, 32
+    q, k, v, do = (torch.from_numpy(a) for a in _inputs(8, b=b, h=h, sq=s,
+                                                          sk=s, d=d))
+    leaves = [t.clone().requires_grad_(True) for t in (q, k, v)]
+    out = fa.flash_attention(*leaves, causal=True, dropout_rate=0.1, seed=3,
+                             offset=11)
+    grads = torch.autograd.grad(out, leaves, do)
+    keep = AttentionDropout(0.1, 3, 11).multipliers(b, h, s, s,
+                                                    fa.dropout_mult(0.1))
+    want, lse = fa.flash_fwd_plain(q, k, v, d ** -0.5, True, keep)
+    assert torch.equal(out, want)
+    for got, w in zip(grads, fa.flash_bwd_fused_plain(
+            q, k, v, want, lse, do, d ** -0.5, True, keep)):
+        assert torch.equal(got, w)
+    qkv = torch.stack([q, k, v], 2).permute(0, 3, 2, 1, 4).reshape(
+        b, s, 3 * h * d)
+    packed = fa.flash_attention_qkv(qkv, h, causal=True, dropout_rate=0.1,
+                                    seed=3, offset=11)
+    assert torch.equal(packed, want.transpose(1, 2).reshape(b, s, h * d))

@@ -44,7 +44,9 @@ from megatron_clip_tpu.ops.pallas.fused_mha import (fused_attention_from_qkv,
                                                    fused_mha_packed_sm)
 from megatron_clip_tpu_torch.ops.attention import multi_head_attention, sdpa
 from megatron_clip_tpu_torch.ops.kernels.fused_mha import (
-    fused_mha, fused_mha_bwd_plain, fused_mha_fwd, fused_mha_plain)
+    dropout_mult, fused_mha, fused_mha_bwd_plain,
+    fused_mha_bwd_recompute_plain, fused_mha_dropout, fused_mha_fwd,
+    fused_mha_plain)
 
 SHAPES = [(4, 50, 4, 64), (2, 77, 8, 64), (2, 33, 2, 32)]
 # ViT-H/14's vision head: D = 80, S = 257 (five 64-row tiles, the last of
@@ -267,8 +269,11 @@ def test_multi_head_attention_matches_jax_bf16(causal):
                                rtol=1.6e-2, atol=8e-3)
 
 
+# dropout at S = 8 with 4 heads of 8: no head group for the fused dropout
+# kernels (16 heads a cell) and S below flash's gate
 @pytest.mark.parametrize("kw", [{"bias": torch.zeros(1)}, {"rope": object()},
-                                {"kv_heads": 2}, {"dropout_rate": 0.1},
+                                {"kv_heads": 2},
+                                {"dropout_rate": 0.1, "seed": 1},
                                 {"context_parallel": True},
                                 {"use_flash": False}])
 def test_outside_the_gate_raises(kw):
@@ -277,3 +282,78 @@ def test_outside_the_gate_raises(kw):
     with pytest.raises(NotImplementedError, match="ROADMAP"):
         multi_head_attention(x, params, 4, **kw)
 
+
+
+# The dropout route (fused_mha_packed_dropout, _fwd_kernel_dropout and
+# _bwd_kernel_dropout) against the port's plain versions fed the JAX
+# kernel's own mask, `_dropout_mask(key, ...)` (the keep multipliers in
+# qkv's dtype): the forward 2e-5 and the qkv gradient 2e-4 in fp32, the
+# bounds of tests/test_fused_mha.py. The port's backward forms delta from
+# P and dP M as the JAX kernel does, so both sides are the same sums.
+DROPOUT_SHAPES = [(2, 50, 4, 64), (2, 26, 4, 32)]
+
+
+def _jax_dropout(qkv, do, h, causal, rate, dtype, key):
+    from megatron_clip_tpu.ops.pallas.fused_mha import (
+        _dropout_mask, fused_mha_packed_dropout)
+    x = jnp.asarray(qkv, dtype)
+    d = qkv.shape[-1] // (3 * h)
+    out, vjp = jax.vjp(lambda t: fused_mha_packed_dropout(
+        t, key, h, d ** -0.5, causal, rate, True), x)
+    (grad,) = vjp(jnp.asarray(do, dtype))
+    mask = _dropout_mask(key, qkv.shape[0], qkv.shape[1], h, rate, dtype)
+    f32 = (lambda a: np.asarray(a.astype(jnp.float32)))
+    return f32(out), f32(grad), f32(mask)
+
+
+@pytest.mark.parametrize("causal", [False, True])
+@pytest.mark.parametrize("b,s,h,d", DROPOUT_SHAPES)
+def test_dropout_route_matches_jax_fused_mha_packed_dropout(causal, b, s, h,
+                                                            d):
+    qkv, do = _inputs(b, s, h, d, seed=11)
+    key = jax.random.PRNGKey(s + h)
+    want, want_g, mask = _jax_dropout(qkv, do, h, causal, 0.1, jnp.float32,
+                                      key)
+    keep = torch.from_numpy(mask)
+    x, g = torch.from_numpy(qkv), torch.from_numpy(do)
+    got = fused_mha_plain(x, h, d ** -0.5, causal, keep=keep)
+    got_g = fused_mha_bwd_recompute_plain(x, g, h, d ** -0.5, causal, keep)
+    np.testing.assert_allclose(got.numpy(), want, rtol=2e-5, atol=2e-5)
+    np.testing.assert_allclose(got_g.numpy(), want_g, rtol=2e-4, atol=2e-4)
+
+
+def test_dropout_route_bf16_keeps_the_rounded_multiplier():
+    """In bf16 the JAX mask holds keep * 1/(1 - rate) rounded to bf16,
+    1.109375 at rate 0.1, and so does the port's (`dropout_mult`); with it
+    the bf16 forward agrees within one ulp, as the rate-0 route."""
+    b, s, h, d = 2, 50, 4, 64
+    qkv, do = _inputs(b, s, h, d, seed=12)
+    want, _, mask = _jax_dropout(qkv, do, h, True, 0.1, jnp.bfloat16,
+                                 jax.random.PRNGKey(0))
+    assert set(np.unique(mask)) == {0.0, 1.109375}
+    assert dropout_mult(0.1, torch.bfloat16) == 1.109375
+    assert dropout_mult(0.1, torch.float32) == np.float32(1 / 0.9)
+    got = fused_mha_plain(torch.from_numpy(qkv).bfloat16(), h, d ** -0.5,
+                          True, keep=torch.from_numpy(mask))
+    np.testing.assert_allclose(got.float().numpy(), want, rtol=8e-3,
+                               atol=4e-3)
+
+
+@pytest.mark.parametrize("causal", [False, True])
+def test_dropout_autograd_uses_the_philox_mask(causal):
+    """fused_mha_dropout on the CPU: the plain versions fed the kernels'
+    Philox mask of (seed, offset), forward and backward alike."""
+    from megatron_clip_tpu_torch.ops.dropout import AttentionDropout
+    b, s, h, d = 2, 50, 4, 64
+    qkv, do = _inputs(b, s, h, d, seed=13)
+    x = torch.from_numpy(qkv).requires_grad_(True)
+    out = fused_mha_dropout(x, h, causal=causal, rate=0.1, seed=77,
+                            offset=4)
+    (grad,) = torch.autograd.grad(out, x, torch.from_numpy(do))
+    keep = AttentionDropout(0.1, 77, 4).multipliers(
+        b, h, s, s, dropout_mult(0.1, torch.float32))
+    assert torch.equal(out, fused_mha_plain(x.detach(), h, d ** -0.5, causal,
+                                            keep=keep))
+    assert torch.equal(grad, fused_mha_bwd_recompute_plain(
+        x.detach(), torch.from_numpy(do), h, d ** -0.5, causal, keep))
+    assert not torch.equal(out, fused_mha(x.detach(), h, causal=causal))

@@ -334,3 +334,189 @@ def test_global_norm_of_a_bf16_tree_adds_in_bf16():
     assert float(got) == float(want)
     fp32_sum = sum(float((t.float() ** 2).sum()) for t in flat.values())
     assert float(got) != np.float32(np.sqrt(fp32_sum))
+
+
+# examples/pretrain_gpt_pipeline.sh's GPT (learned positions, gelu_tanh,
+# LayerNorm, biases, tied embedding; attention and hidden dropout 0.1) cut
+# to 2 layers of width 128, 2 heads: S = 256 takes the flash route, S = 64
+# the fused-MHA dropout kernels (the JAX gate's `dropout_kernel_eligible`).
+PIPELINE = dict(num_layers=2, hidden_size=128, num_heads=2, vocab_size=512,
+                seq_length=256)
+DROPOUT = dict(attention_dropout=0.1, hidden_dropout=0.1)
+
+
+def _pipeline(seq=256, seed=0, precision=FP32):
+    base = dict(PIPELINE, seq_length=seq)
+    jcfg, pcfg = jax_gpt.GPTCfg(**base), GPTCfg(**base, **DROPOUT)
+    params = jax_gpt.init_gpt(jax.random.PRNGKey(seed), jcfg)
+    model = GPTModel(pcfg, precision)
+    model.load_state_dict(gpt_params_from_jax(params, pcfg))
+    tokens = np.random.default_rng(seed + 1).integers(1, 511, (BATCH,
+                                                               seq + 1))
+    return jcfg, pcfg, params, model, tokens
+
+
+@pytest.mark.parametrize("seq", [256, 64])
+def test_pipeline_gpt_without_a_seed_matches_jax_without_rng(seq):
+    """Rates of 0.1 with no seed drop nothing, as the JAX package's
+    rng=None: loss and gradients at the fp32 bounds above."""
+    jcfg, pcfg, params, model, tokens = _pipeline(seq)
+    tcfg = jcfg.transformer(train=True, **DROPOUT)
+    jt = jnp.asarray(tokens, jnp.int32)
+    want, want_g = jax.value_and_grad(lambda p: jax_gpt.gpt_loss(
+        p, jt, jcfg, tcfg=tcfg, compute_dtype=jnp.float32, fused_ce=True,
+        rng=None))(params)
+    got = gpt_loss(model, torch.from_numpy(tokens), fused_ce=True, seed=None)
+    got.backward()
+    np.testing.assert_allclose(float(got.detach()), float(want), rtol=1e-5)
+    want_g = gpt_params_from_jax(jax.tree.map(np.asarray, want_g), pcfg)
+    for name, p in model.named_parameters():
+        w = want_g[name].numpy()
+        np.testing.assert_allclose(p.grad.numpy(), w, rtol=0,
+                                   atol=1e-4 * np.abs(w).max(), err_msg=name)
+
+
+@pytest.mark.parametrize("seq", [256, 64])
+def test_remat_modes_give_bit_identical_gradients_with_dropout(seq):
+    """The JAX package's test_dropout.py:79 for the port: none, selective
+    and full recompute replay the same masks, so loss and gradients are
+    equal bit for bit."""
+    *_, model, tokens = _pipeline(seq, seed=2)
+    t = torch.from_numpy(tokens)
+    runs = {}
+    for remat in ("none", "selective", "full"):
+        model.zero_grad(set_to_none=True)
+        loss = gpt_loss(model, t, fused_ce=True, seed=99, remat=remat)
+        loss.backward()
+        runs[remat] = (loss.detach(), {n: p.grad.clone() for n, p in
+                                       model.named_parameters()})
+    loss, grads = runs["none"]
+    for remat in ("selective", "full"):
+        assert torch.equal(runs[remat][0], loss), remat
+        for name, g in grads.items():
+            assert torch.equal(runs[remat][1][name], g), (remat, name)
+
+
+def test_the_seed_picks_the_masks():
+    *_, model, tokens = _pipeline(seed=3)
+    t = torch.from_numpy(tokens)
+    with torch.no_grad():
+        a, b = (gpt_loss(model, t, fused_ce=True, seed=5) for _ in range(2))
+        other = gpt_loss(model, t, fused_ce=True, seed=6)
+        clean = gpt_loss(model, t, fused_ce=True)
+    assert torch.equal(a, b)
+    assert float(other) != float(a) and float(clean) != float(a)
+
+
+def test_three_dropout_steps_lower_the_loss():
+    """make_gpt_train_step with a seed: each step draws from its own folded
+    seed, and three steps at rate 0.1 lower the loss on a fixed batch."""
+    *_, model, tokens = _pipeline(seed=4)
+    opt = make_gpt_optimizer(model, lr=3e-3)
+    state = TrainState.create(model, opt)
+    step = make_gpt_train_step(model, opt, fused_ce=True, remat="selective",
+                               seed=1234)
+    losses = []
+    for _ in range(3):
+        state, m = step(state, torch.from_numpy(tokens))
+        losses.append(float(m["loss"]))
+    assert state.step == 3 and all(np.isfinite(losses))
+    assert losses[-1] < losses[0], losses
+
+
+def test_remat_mlp_is_refused_and_others_checked():
+    with pytest.raises(NotImplementedError, match="Queue A item 1"):
+        GPTCfg(**PIPELINE, remat="mlp").transformer()
+    with pytest.raises(ValueError, match="remat"):
+        GPTCfg(**PIPELINE, remat="dots").transformer()
+    *_, model, _ = _pipeline(seq=64)
+    opt = make_gpt_optimizer(model)
+    with pytest.raises(NotImplementedError, match="Queue A item 1"):
+        make_gpt_train_step(model, opt, remat="mlp")
+    with pytest.raises(ValueError, match="remat"):
+        make_gpt_train_step(model, opt, remat="dots")
+
+
+def test_bridge_carries_the_pipeline_tree_at_full_width():
+    """examples/pretrain_gpt_pipeline.sh's widths (2048 wide, 16 heads,
+    learned positions), 2 layers and a small vocabulary: dropout adds no
+    parameter, so the JAX tree maps onto the port's model as it is."""
+    kw = dict(num_layers=2, hidden_size=2048, num_heads=16, vocab_size=512,
+              seq_length=64)
+    jcfg, pcfg = jax_gpt.GPTCfg(**kw), GPTCfg(**kw, **DROPOUT)
+    shapes = jax.eval_shape(lambda k: jax_gpt.init_gpt(k, jcfg),
+                            jax.random.PRNGKey(0))
+    params = jax.tree.map(lambda a: np.zeros(a.shape, a.dtype), shapes)
+    params["blocks"]["mlp"]["w1"][1, 3, 5] = 7.0
+    sd = gpt_params_from_jax(params, pcfg)
+    with torch.device("meta"):
+        model = GPTModel(pcfg)
+    want = {n: tuple(p.shape) for n, p in model.named_parameters()}
+    assert {n: tuple(t.shape) for n, t in sd.items()} == want
+    assert want["blocks.1.attn.wqkv"] == (2048, 3 * 2048)
+    assert want["pos_embed"] == (64, 2048)
+    assert float(sd["blocks.1.mlp.w1"][3, 5]) == 7.0
+
+
+# The "bf16" precision (fp32 weights, bf16 compute), the one that
+# examples/pretrain_gpt_dist.sh's and pretrain_gpt_pipeline.sh's GPTs train
+# in, against JAX gpt_loss(compute_dtype=bfloat16) on the same fp32
+# weights. Bounds derived as the pure-bf16 ones above: the loss within
+# 2e-3 relative; each gradient leaf within 5e-2 of its largest |value| and
+# within 2e-2 of its norm. bf16 rounds each activation to 2^-9 relative and
+# the two packages round at other points (the biased projections, XLA's fp32
+# intermediates), so each gradient element can move by a few bf16 ulps of
+# the leaf's largest element (2^-8 each); measured (3 seeds, with and
+# without the fused CE) losses within 3.6e-5 relative and leaves within
+# 2.5% of their largest |value|.
+@pytest.mark.parametrize("fused_ce", [False, True])
+@pytest.mark.parametrize("which", ["example", "pipeline", "pipeline_fused"])
+def test_bf16_compute_on_fp32_weights_matches_jax(which, fused_ce):
+    from megatron_clip_tpu_torch.config import BF16
+    kw = {"example": EXAMPLE, "pipeline": PIPELINE,
+          "pipeline_fused": dict(PIPELINE, seq_length=64)}[which]
+    jcfg, pcfg = jax_gpt.GPTCfg(**kw), GPTCfg(**kw)
+    params = jax_gpt.init_gpt(jax.random.PRNGKey(0), jcfg)
+    model = GPTModel(pcfg, BF16)
+    model.load_state_dict(gpt_params_from_jax(params, pcfg))
+    tokens = np.random.default_rng(1).integers(1, 511,
+                                               (BATCH, kw["seq_length"] + 1))
+    want, want_g = jax.value_and_grad(lambda p: jax_gpt.gpt_loss(
+        p, jnp.asarray(tokens, jnp.int32), jcfg, compute_dtype=jnp.bfloat16,
+        fused_ce=fused_ce))(params)
+    got = gpt_loss(model, torch.from_numpy(tokens), fused_ce=fused_ce)
+    got.backward()
+    assert abs(float(got.detach()) - float(want)) <= 2e-3 * abs(float(want))
+    want_g = gpt_params_from_jax(jax.tree.map(np.asarray, want_g), pcfg)
+    for name, p in model.named_parameters():
+        assert p.dtype == torch.float32 and p.grad.dtype == torch.float32
+        w, g = want_g[name], p.grad
+        assert float((g - w).abs().max()) <= 5e-2 * float(w.abs().max()), \
+            name
+        assert float((g - w).norm()) <= 2e-2 * float(w.norm()), name
+
+
+def test_the_optimizer_update_in_chunks_equals_one_pass(monkeypatch):
+    """The AdamW chain runs over chunks of CHUNK_ELEMENTS elements (its
+    temporaries for the 1.7B-parameter GPT would not fit the card in one
+    pass): every step is elementwise, so the chunks change no bit."""
+    from megatron_clip_tpu_torch.training import optim
+    runs = []
+    for chunk in (1 << 40, 5000):
+        monkeypatch.setattr(optim, "CHUNK_ELEMENTS", chunk)
+        *_, model, tokens = _pipeline(seq=64, seed=6)
+        opt = make_gpt_optimizer(model, lr=1e-3)
+        chunks = list(opt._chunks(opt.groups[0][1]))
+        assert (len(chunks) == 1) == (chunk > 1 << 30)
+        state = TrainState.create(model, opt)
+        step = make_gpt_train_step(model, opt, fused_ce=True)
+        for _ in range(2):
+            state, _ = step(state, torch.from_numpy(tokens))
+        runs.append(({n: p.detach().clone()
+                      for n, p in model.named_parameters()},
+                     state.opt_state))
+    (p1, s1), (p2, s2) = runs
+    for name in p1:
+        assert torch.equal(p1[name], p2[name]), name
+        assert torch.equal(s1.mu[name], s2.mu[name]), name
+        assert torch.equal(s1.nu[name], s2.nu[name]), name

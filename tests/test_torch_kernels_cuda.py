@@ -61,8 +61,10 @@ import numpy as np
 import pytest
 import torch
 
+from megatron_clip_tpu_torch.ops.dropout import AttentionDropout, philox_keep
 from megatron_clip_tpu_torch.ops.kernels import fused_ce as ce
 from megatron_clip_tpu_torch.ops.kernels import flash_attention as fa
+from megatron_clip_tpu_torch.ops.kernels import fused_mha as mha_mod
 from megatron_clip_tpu_torch.ops.kernels import layernorm as ln
 from megatron_clip_tpu_torch.ops.kernels.fused_mha import (
     fused_mha, fused_mha_bwd, fused_mha_bwd_plain, fused_mha_bwd_recompute,
@@ -574,3 +576,123 @@ def test_fused_ce_kernels_refuse_what_they_do_not_take(cuda):
         ce.fused_ce_fwd(x.t().contiguous().t(), head, labels)
     with pytest.raises(ValueError, match="expected"):
         ce.fused_ce_fwd(x, head[:64], labels)
+
+
+# Attention dropout. Each library's exported mask (`dropout_mask`, the bits
+# its kernels draw) equals ops/dropout.philox_keep bit for bit; each
+# dropout kernel matches its plain version fed the same Philox multipliers
+# under its rate-0 twin's bounds (a kept probability is scaled by a
+# multiplier both sides hold exactly, a dropped one is 0); and kernels built
+# to draw a wrong mask (MCT_DROPOUT_FAULT: per 64 x 64 tile, or a column
+# off) export other bits and fail the forward's bound.
+DROP = AttentionDropout(0.1, 0x0123456789ABCDEF, 5)
+
+
+@pytest.mark.parametrize("lib", [fa, mha_mod], ids=["flash", "fused_mha"])
+@pytest.mark.parametrize("bh,rows,cols", [(32, 512, 512), (3, 333, 333),
+                                          (2, 2048, 2048)])
+def test_exported_mask_equals_the_plain_philox(cuda, lib, bh, rows, cols):
+    got = lib.dropout_mask(bh, rows, cols, DROP.rate, DROP.seed, DROP.offset,
+                           cuda)
+    want = philox_keep(DROP.seed, DROP.offset, range(bh), range(rows),
+                       range(cols), DROP.rate, cuda)
+    assert torch.equal(got, want)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("b,s,h,d,causal", [(2, 512, 16, 128, True),
+                                            (2, 512, 12, 64, False),
+                                            (2, 333, 16, 128, True)])
+def test_fused_mha_dropout_kernels_match_plain(cuda, dtype, b, s, h, d,
+                                               causal):
+    gen = torch.Generator().manual_seed(4)
+    qkv = torch.randn(b, s, 3 * h * d, generator=gen).to(cuda, dtype)
+    do = torch.randn(b, s, h * d, generator=gen).to(cuda, dtype)
+    keep = DROP.multipliers(b, h, s, s, mha_mod.dropout_mult(DROP.rate, dtype),
+                            cuda)
+    before = (mha_mod.fused_mha_dropout_fwd.launches,
+              mha_mod.fused_mha_dropout_bwd.launches)
+    out, stats = mha_mod.fused_mha_dropout_fwd(qkv, h, DROP, causal=causal)
+    dqkv = mha_mod.fused_mha_dropout_bwd(qkv, do, stats, h, DROP,
+                                         causal=causal)
+    assert (mha_mod.fused_mha_dropout_fwd.launches,
+            mha_mod.fused_mha_dropout_bwd.launches) == \
+        (before[0] + 1, before[1] + 1)
+    want, want_stats = fused_mha_plain(qkv, h, d ** -0.5, causal,
+                                       with_stats=True, keep=keep)
+    tol = (2e-5, 2e-5) if dtype == torch.float32 else (8e-3, 4e-3)
+    torch.testing.assert_close(out, want, rtol=tol[0], atol=tol[1])
+    torch.testing.assert_close(stats, want_stats, rtol=1e-4, atol=1e-5)
+    _close_grads(dqkv, fused_mha_bwd_recompute_plain(qkv, do, h, d ** -0.5,
+                                                     causal, keep), dtype)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("b,h,s,d,causal", [(2, 16, 2048, 128, True),
+                                            (2, 4, 1100, 128, False)])
+def test_flash_dropout_kernels_match_plain(cuda, dtype, b, h, s, d, causal):
+    q, k, v, do = _flash_inputs(cuda, dtype, b, h, s, s, d)
+    keep = DROP.multipliers(b, h, s, s, fa.dropout_mult(DROP.rate), cuda)
+    scale = d ** -0.5
+    out, lse = fa.flash_fwd_dropout(q, k, v, DROP, causal=causal)
+    want, want_lse = fa.flash_fwd_plain(q, k, v, scale, causal, keep)
+    if dtype == torch.float32:
+        torch.testing.assert_close(out, want, rtol=2e-5, atol=2e-5)
+    else:
+        torch.testing.assert_close(out.float(), want.float(), rtol=8e-3,
+                                   atol=2 ** -8 * float(want.abs().max()))
+    torch.testing.assert_close(lse, want_lse, rtol=1e-5, atol=1e-5)
+    delta = fa.flash_delta(do, want)
+    wants = fa.flash_bwd_fused_plain(q, k, v, want, want_lse, do, scale,
+                                     causal, keep)
+    gots = (fa.flash_bwd_fused_dropout(q, k, v, want, want_lse, do, DROP,
+                                       causal=causal),
+            (fa.flash_bwd_dq_dropout(q, k, v, do, want_lse, delta, DROP,
+                                     causal=causal),
+             *fa.flash_bwd_dkv_dropout(q, k, v, do, want_lse, delta, DROP,
+                                       causal=causal)))
+    for got in gots:
+        for g, w in zip(got, wants):
+            if dtype == torch.float32:
+                torch.testing.assert_close(g, w, rtol=5e-5, atol=5e-5)
+            else:
+                _close_rows(g, w)
+
+
+@pytest.mark.parametrize("fault", ["MCT_DROPOUT_FAULT=1",
+                                   "MCT_DROPOUT_FAULT=2"])
+def test_a_wrong_draw_fails_the_checks(cuda, fault):
+    from megatron_clip_tpu_torch.ops.kernels import _build
+    b, h, s, d = 1, 4, 512, 128
+    q, k, v, _ = _flash_inputs(cuda, torch.bfloat16, b, h, s, s, d)
+    want, _ = fa.flash_fwd_plain(q, k, v, d ** -0.5, True, DROP.multipliers(
+        b, h, s, s, fa.dropout_mult(DROP.rate), cuda))
+    truth = philox_keep(DROP.seed, DROP.offset, range(h), range(s), range(s),
+                        DROP.rate, cuda)
+    with _build.variant(fault):
+        for lib in (fa, mha_mod):
+            assert not torch.equal(lib.dropout_mask(
+                h, s, s, DROP.rate, DROP.seed, DROP.offset, cuda), truth)
+        out, _ = fa.flash_fwd_dropout(q, k, v, DROP, causal=True)
+    err = (out.float() - want.float()).abs()
+    bound = 2 ** -8 * float(want.abs().max()) + 8e-3 * want.float().abs()
+    assert bool((err > bound).any())
+
+
+def test_dropout_autograd_runs_the_dropout_kernels(cuda):
+    from megatron_clip_tpu_torch.ops.attention import multi_head_attention
+    counts = (fa.flash_fwd_dropout, fa.flash_bwd_fused_dropout,
+              mha_mod.fused_mha_dropout_fwd, mha_mod.fused_mha_dropout_bwd,
+              fa.flash_fwd, mha_mod.fused_mha_fwd)
+    gen = torch.Generator().manual_seed(6)
+    w = 256
+    params = {"wqkv": (torch.randn(w, 3 * w, generator=gen) * 0.05).to(cuda),
+              "wo": (torch.randn(w, w, generator=gen) * 0.05).to(cuda)}
+    for s, ran in ((512, (0, 0, 1, 1, 0, 0)), (2048, (1, 1, 0, 0, 0, 0))):
+        x = torch.randn(2, s, w, generator=gen).to(cuda, torch.bfloat16)
+        x.requires_grad_(True)
+        before = [fn.launches for fn in counts]
+        y = multi_head_attention(x, params, 2, causal=True, dropout_rate=0.1,
+                                 seed=3, offset=1)
+        y.float().sum().backward()
+        assert tuple(fn.launches - n for fn, n in zip(counts, before)) == ran
