@@ -10,7 +10,10 @@ imports nothing of JAX or of the JAX package. Phases, each of which raises
   1. device: the card's name and power limit, as nvidia-smi reports them;
   2. build: every CUDA kernel of the port from csrc/, one nvcc per source,
      all at once, and each kernel's registers and spills;
-  3. kernels: each kernel against its plain PyTorch version on the card at
+  3. kernels: first the wgmma tile product of each Hopper library
+     (csrc/sm90.cuh) in every operand layout its kernels use, through TMA
+     and through swizzled stores, against the fp32 product; then each
+     kernel against its plain PyTorch version on the card at
      the serving and training paths' shapes (ViT-B/32; ViT-L/14 and
      ViT-H/14's S=257 vision towers at D=64 and D=80 and S=77 text towers,
      at batch 4 and at the legs' own batches, 64 and 24, with their
@@ -103,16 +106,17 @@ imports nothing of JAX or of the JAX package. Phases, each of which raises
      the same Philox masks.
 
 Phases 3 and 6 also hold and time the fused lm-head cross entropy (forward;
-the one backward kernel for dX and dW) at full width and vocabulary (T of
-2048 in bf16, 512 in fp32), on the tied and untied head, at a ragged T with
-V = 1000 and at W = 1000 (bf16 rows the tensor cores do not take), with a
-kernel made to leave out the last vocabulary tile failing its bounds, and
-time it at the example's T = 16384 beside F.cross_entropy(x @ w), and
-hold it in bf16 at the example's T = 16384, W = 1024 and the pipeline
-GPT's T = 16384, W = 2048; and the RMSNorm kernels at the example's rows. They also hold and time the four
-flash-attention kernels at the
-GPT shapes (B=6 H=16 S=2048 D=64 and B=1 S=8192, both masks), at ragged
-lengths (1100, 4200), with Sq != Sk, and on the packed projection's head
+the backward's dX and dW, on wgmma in bf16, in chunks of 4096 tokens) at
+full width and vocabulary (T of 2048 in bf16, 512 in fp32), on the tied and
+untied head, at a ragged T over two chunks with V = 1000 and at W = 1000
+(bf16 rows the tensor cores do not take), with a kernel made to leave out
+the last vocabulary tile failing its bounds; hold it in bf16 at the
+example's T = 16384, W = 1024 and the pipeline GPT's T = 16384, W = 2048,
+and time it at both beside F.cross_entropy(x @ w); and the RMSNorm
+kernels at the example's rows. They also hold and time the four
+flash-attention kernels at the GPT shapes (B=6 H=16 S=2048 D=64 and B=1
+S=8192, both masks), at D = 128, at ragged lengths (1100, 4200), with
+Sq != Sk, and on the packed projection's head
 views, against their plain versions and F.scaled_dot_product_attention
 (bf16 gradients row by row, and each backward kernel made to leave out a
 row per tile must fail that bound), and the LayerNorm kernels at GPT's
@@ -463,22 +467,29 @@ def phase_build(kernels_build):
     demangle = Path(kernels_build._nvcc()).with_name("cu++filt")
     for name in kernels_build.SOURCES:
         report, kernel, spill = [], None, ""
+        notes = {}  # ptxas's wgmma notes (C75xx) by kernel: code -> count
         for line in kernels_build.build_log(name).splitlines():
             m = re.search(r"Compiling entry function '(\w+)'", line)
+            note = re.search(r"\((C75\d\d)\).*function '(\w+)'", line)
+            used = re.search(r"Used (\d+) registers", line)
             if m:
                 kernel = m.group(1)
+            elif note:
+                codes = notes.setdefault(note.group(2), {})
+                codes[note.group(1)] = codes.get(note.group(1), 0) + 1
             elif "spill stores" in line:
                 spill = line.strip()
-            elif "registers" in line:
-                regs = re.search(r"Used (\d+) registers", line).group(1)
-                report.append((kernel, f"{regs} registers, {spill}"))
+            elif used:
+                report.append((kernel, f"{used.group(1)} registers, {spill}"))
         names = subprocess.run(
             [str(demangle), "-p", *(k for k, _ in report)],
             capture_output=True, text=True, check=True,
             timeout=60).stdout.splitlines()
-        for label, (_, regs) in zip(names, report):
+        for label, (kernel, regs) in zip(names, report):
             label = label.replace("<unnamed>::", "")
-            log(f"  {name} {label}: {regs}")
+            extra = (f"; ptxas notes {json.dumps(notes[kernel])}"
+                     if kernel in notes else "")
+            log(f"  {name} {label}: {regs}{extra}")
 
 
 # (atol, rtol[, atol as a share of max|want|]) of each comparison, by
@@ -530,7 +541,8 @@ def phase_build(kernels_build):
 #   measured, in dV; NVIDIA H100 80GB HBM3, 700.00 W). The floor takes rows
 #   whose value is fp32 noise (the first query's dQ, dS = P (dP - delta)
 #   with dP = delta). Against fp32, the roundings of P and dS themselves
-#   (2^-9 each, random): 2e-2. The fused kernel's fp32 atomics move dQ by
+#   (2^-9 each, random): 2e-2. The fused kernel's unordered fp32 adds into
+#   dQ (TMA reduce-adds at D = 64 and 128, atomics at other D) move it by
 #   fp32 ulps only. flash_bwd_teeth shows what a wrong kernel reads.
 # - rms_norm_*: as layer_norm_*, whose kernels they are without the mean and
 #   the bias (dscale the only column sum).
@@ -540,9 +552,10 @@ def phase_build(kernels_build):
 #   exponentials is folded per 64-column partial: 1e-5 absolute plus 2e-5
 #   relative. The same for bf16 inputs and against the plain version run in
 #   fp32 on them, whose logits are the same fp32 sums.
-# - fused_ce_bwd fp32: dX sums V terms and dW T terms, added with atomics
-#   per 64-row tile in an order that changes from run to run: 1e-5 relative
-#   plus 5e-5 of the largest |value|. bf16: dX and dW^T row by row (one
+# - fused_ce_bwd fp32 (the CUDA-core kernel): dX sums V terms and dW T
+#   terms, added with atomics per 64-row tile in an order that changes from
+#   run to run: 1e-5 relative plus 5e-5 of the largest |value|. bf16 (the
+#   wgmma products, deterministic): dX and dW^T row by row (one
 #   token's dX, one vocabulary row's dW) as the flash gradients, 1e-2 of
 #   the row's norm plus 1e-4 of the rms row: dlogits are rounded to bf16 on
 #   both sides from fp32 logits summed in another order, so one can round
@@ -693,15 +706,17 @@ def smajor_views(mha, gen) -> None:
 
 # the flash kernels' checks (B, H, Sq, Sk, D, causal): GPT-345m's two
 # shapes, both masks at S = 2048, the example GPT's batch 8 (phase 10),
-# ragged lengths (1100, 4200: not multiples
-# of the 64-row tiles; 4200 is also past the fused backward's reach), cross
-# lengths, D = 40 (tensor cores, padded to 48) and D = 36 (CUDA cores in
-# bf16 too)
+# ragged lengths (1100, 4200: not multiples of the 64- or 128-row tiles;
+# 4200 is also past the fused backward's reach), cross lengths, D = 128 at
+# rate 0 (the pipeline GPT's heads; the fused backward's wgmma kernel as at
+# D = 64), D = 40 (mma.sync, padded to 48) and D = 36 (CUDA cores in bf16
+# too)
 FLASH_SHAPES = ((6, 16, 2048, 2048, 64, True), (6, 16, 2048, 2048, 64, False),
-                (8, 16, 2048, 2048, 64, True), (1, 16, 8192, 8192, 64, True), (2, 4, 1100, 1100, 64, True),
-                (1, 4, 4200, 4200, 64, True), (2, 4, 1100, 700, 64, True),
-                (2, 4, 700, 1100, 64, False), (1, 3, 333, 333, 40, True),
-                (1, 2, 300, 300, 36, False))
+                (8, 16, 2048, 2048, 64, True), (1, 16, 8192, 8192, 64, True),
+                (2, 4, 1100, 1100, 64, True), (1, 4, 4200, 4200, 64, True),
+                (2, 4, 1100, 700, 64, True), (2, 4, 700, 1100, 64, False),
+                (2, 16, 2048, 2048, 128, True), (2, 4, 1100, 700, 128, False),
+                (1, 3, 333, 333, 40, True), (1, 2, 300, 300, 36, False))
 
 
 def flash_checks(errs, gen) -> None:
@@ -797,11 +812,11 @@ def flash_views(gen) -> None:
     """Each flash kernel on the head views of a packed [B, S, 3*H*D]
     projection, the GPT path's layout, against the same kernel on
     contiguous copies: the same arithmetic, so equal results, except the
-    fused backward's dQ, summed by fp32 atomics in an order that changes
-    from run to run (within 1e-6 relative in fp32; in bf16 its rounding can
-    fall either way: two bf16 ulps, rtol 1.6e-2, as the other bf16
-    gradient bounds); the backward's gradients land in one packed
-    [B, S, 3, H, D] buffer."""
+    fused backward's dQ, summed by fp32 TMA reduce-adds or atomics in an
+    order that changes from run to run (within 1e-6 relative in fp32; in
+    bf16 its rounding can fall either way: two bf16 ulps, rtol 1.6e-2, as
+    the other bf16 gradient bounds); the backward's gradients land in one
+    packed [B, S, 3, H, D] buffer."""
     from megatron_clip_tpu_torch.ops.kernels import flash_attention as fa
     for b, h, s, d, dtype in ((6, 16, 2048, 64, torch.bfloat16),
                               (6, 16, 2048, 64, torch.float32),
@@ -1252,12 +1267,36 @@ def dropout_teeth(kernels_build, gen, mha) -> None:
     torch.cuda.empty_cache()
 
 
+def sm90_tile_checks(gen) -> None:
+    """Each Hopper library's wgmma tile product (csrc/sm90.cuh) in every
+    operand layout its kernels use, the tiles staged by TMA and by the
+    threads' swizzled stores, against the fp32 product of the same bf16
+    values: fp32 sums of 64 exact products in another order, within 1e-5
+    relative plus 1e-4; a wrong descriptor or swizzle moves whole rows or
+    columns, O(1) errors."""
+    from megatron_clip_tpu_torch.ops.kernels import sm90
+    a = torch.randn(64, 64, device="cuda", generator=gen).to(torch.bfloat16)
+    b = torch.randn(64, 128, device="cuda", generator=gen).to(torch.bfloat16)
+    want = sm90.tile_product_plain(a, b)
+    major = ("K-major", "MN-major")
+    for lib in sm90.LIBRARIES:
+        for ta, tb, regs in sm90.LAYOUTS:
+            for tma in (0, 1):
+                a_from = "registers" if regs else major[ta]
+                label = (f"wgmma tile {lib}: A {a_from}, B {major[tb]}, "
+                         f"{'TMA' if tma else 'stores'}")
+                compare(label, sm90.tile_product(lib, a, b, ta=ta, tb=tb,
+                                                 a_regs=regs, via_tma=tma),
+                        want, 1e-4, 1e-5)
+
+
 def phase_kernels(mha, ln):
     """Kernel vs plain version; returns the worst errors per kernel and
     kind of comparison."""
     log("[3] kernels vs plain versions")
     gen = torch.Generator(device="cuda").manual_seed(0)
     errs = {name: {} for name in KERNELS}
+    sm90_tile_checks(gen)
     for b, s, h, d, causal in [(TRAIN_BATCH, 50, 12, 64, False),
                                (TRAIN_BATCH, 77, 8, 64, True),
                                (SERVE_BATCH, 50, 12, 64, False),
@@ -1599,43 +1638,48 @@ def flash_rows(gen, b: int, s: int, h: int = 16, d: int = 64) -> list:
     return rows
 
 
-CE_PATH = (8 * 2048, 1024, 50304)  # the example GPT's T, W, V
+# the fused CE's timed shapes (T, W, V): the example GPT's, then the
+# pipeline GPT's W = 2048
+CE_PATHS = ((8 * 2048, 1024, 50304), (8 * 2048, 2048, 50304))
 
 
 def fused_ce_rows(gen) -> list:
-    """bf16 rows of the fused CE at the example GPT's shapes, tied head:
-    the forward and the backward (from the forward's lse). Library: two
-    calls, F.cross_entropy(x @ w, labels, reduction="none"), and for the
-    backward their autograd.grad to x and w on a kept graph; no one PyTorch
-    call computes this function. 5 timed launches each (the plain versions
-    take tens of ms)."""
+    """bf16 rows of the fused CE at the example GPT's and the pipeline GPT's
+    shapes, tied head: the forward and the backward (from the forward's
+    lse). Library: two calls, F.cross_entropy(x @ w, labels,
+    reduction="none"), and for the backward their autograd.grad to x and w
+    on a kept graph; no one PyTorch call computes this function. 5 timed
+    launches each (the plain versions take tens of ms)."""
     from megatron_clip_tpu_torch.ops.kernels import fused_ce as ce
-    t, w, v = CE_PATH
     dt = torch.bfloat16
-    x, head, labels, dloss = ce_inputs(gen, t, w, v, True, dt)
-    _, lse = ce.fused_ce_fwd(x, head, labels)
-    lx, lw = (a.detach().requires_grad_(True) for a in (x, head))
-    ly = F.cross_entropy(lx @ lw, labels, reduction="none")
-    dly = dloss.to(dt)
+    rows = []
+    for (t, w, v), name in zip(CE_PATHS, ("example GPT", "pipeline GPT")):
+        x, head, labels, dloss = ce_inputs(gen, t, w, v, True, dt)
+        _, lse = ce.fused_ce_fwd(x, head, labels)
+        lx, lw = (a.detach().requires_grad_(True) for a in (x, head))
+        ly = F.cross_entropy(lx @ lw, labels, reduction="none")
+        dly = dloss.to(dt)
 
-    def lib_fwd():
-        return F.cross_entropy(x @ head, labels, reduction="none")
+        def lib_fwd():
+            return F.cross_entropy(x @ head, labels, reduction="none")
 
-    def lib_bwd():
-        return torch.autograd.grad(ly, (lx, lw), dly, retain_graph=True)
-    shape = f"example GPT T={t} W={w} V={v} tied bf16"
-    rows = [
-        timing_row("fused_ce_fwd", shape,
-                   lambda: ce.fused_ce_fwd(x, head, labels),
-                   lambda: ce.fused_ce_fwd_plain(x, head, labels),
-                   lib_fwd, ce_cost(t, w, v, 2), dt, reps=5),
-        timing_row("fused_ce_bwd", shape,
-                   lambda: ce.fused_ce_bwd(x, head, labels, lse, dloss),
-                   lambda: ce.fused_ce_bwd_plain(x, head, labels, lse, dloss),
-                   lib_bwd, ce_cost(t, w, v, 2, backward=True), dt, reps=5),
-    ]
-    del ly, lx, lw, x, head
-    torch.cuda.empty_cache()
+        def lib_bwd():
+            return torch.autograd.grad(ly, (lx, lw), dly, retain_graph=True)
+        shape = f"{name} T={t} W={w} V={v} tied bf16"
+        rows += [
+            timing_row("fused_ce_fwd", shape,
+                       lambda: ce.fused_ce_fwd(x, head, labels),
+                       lambda: ce.fused_ce_fwd_plain(x, head, labels),
+                       lib_fwd, ce_cost(t, w, v, 2), dt, reps=5),
+            timing_row("fused_ce_bwd", shape,
+                       lambda: ce.fused_ce_bwd(x, head, labels, lse, dloss),
+                       lambda: ce.fused_ce_bwd_plain(x, head, labels, lse,
+                                                     dloss),
+                       lib_bwd, ce_cost(t, w, v, 2, backward=True), dt,
+                       reps=5),
+        ]
+        del ly, lx, lw, x, head, labels, dloss, lse
+        torch.cuda.empty_cache()
     return rows
 
 

@@ -44,47 +44,75 @@
 // on-core PRNG; the draw here is per element, from global indices.
 //
 // dQ of the fused backward. The TPU kernel writes one fp32 dQ partial per
-// key block and sums them outside; with 64-key tiles that buffer would be
-// 32x dQ at S = 2048 (~0.8 GB per layer at B = 6), more traffic than the
-// whole kernel's. So each block adds its dS K into one fp32 [B, Sq, H, D]
-// buffer with atomicAdd (the caller zeroes it and rounds it to the input
-// dtype after): the sum's order, and so its last fp32 bits, change from run
-// to run. The split kernels use no atomics and are deterministic.
+// key block and sums them outside; with 64- or 128-key blocks that buffer
+// would be 16-32x dQ at S = 2048, more traffic than the whole kernel's. So
+// each block adds its dS K into one fp32 [B, Sq, H, D] buffer (the caller
+// zeroes it and rounds it to the input dtype after): the wgmma kernel a
+// [64 queries][32 columns] box at a time with the TMA's reduce-add from
+// shared memory, the mma.sync kernel with atomicAdd. The sum's order, and
+// so its last fp32 bits, change from run to run. The split kernels use no
+// atomics and are deterministic.
 //
 // What bounds them. At GPT-345m's shapes (D = 64, causal, S = 2048) a head
 // does 2 S^2 D / 2 multiply-adds per product for 4 S D elements of traffic:
 // ~1000 FLOP per byte in bf16, above the ~295 where an H100's bf16 tensor
 // cores become the limit. So the floor is the tensor-core rate (forward
-// 2 products, fused backward 5, dQ 3, dKV 4 per kept pair): every product
-// runs as mma.sync m16n8k16 bf16 with fp32 accumulation, scores and
+// 2 products, fused backward 5, dQ 3, dKV 4 per kept pair); scores and
 // probabilities stay in registers, and causal blocks stop at the diagonal.
 //
-// Design (tc::, bf16 with D a multiple of 8 and 16-byte aligned rows): 4
-// warps per block, 16 rows each.
-// - fwd: one block per (64 queries, head, batch). Q is staged once; each
-//   64-key tile of K and V is staged, S = Q K^T runs from shared memory,
-//   the online softmax updates in the accumulators, whose values become
-//   P's A fragments (rounded to bf16) for O += P V.
-// - bwd_kv: one block per (64 keys, head, batch); K and V stay in shared
-//   memory as A operands. It sweeps the 64-query tiles (from its first key
-//   on, when causal) in halves of 32: S^T = K Q^T, P^T in the accumulators,
-//   dV += bf16(P^T) dO, dP^T = V dO^T, dK += bf16(dS^T) Q. The fused
-//   variant also stages bf16(dS^T) for the whole query tile and adds
-//   dQ += dS K (ldmatrix.trans of the staged tile) into the fp32 buffer.
-// - bwd_dq: one block per (64 queries, head, batch), q and dO staged once,
-//   64-key tiles walked in halves of 32: S = Q K^T, P, dP = dO V^T,
-//   dQ += bf16(dS) K.
+// Design.
+// - hop::bwd_fused, the fused backward in bf16 at D = 64 and D = 128 (the
+//   GPTs' heads) on wgmma (sm90.cuh): one block per (128 keys, head,
+//   batch), two consumer warpgroups of 64 keys each. K and V stay in shared
+//   memory; the query tiles (128 queries at D = 64, 64 at D = 128: the
+//   registers of S^T and dK, dV) stream through a two-stage TMA ring under
+//   mbarriers, Q and dO as 128-byte swizzled panels, lse and delta beside
+//   them, the next tile's loads issued by one thread as the current one
+//   starts. Per tile: S^T = K Q^T and dP^T = V dO^T (both operands
+//   K-major); P = exp2(s scale log2(e) - lse log2(e)), the masks tested
+//   only in tiles that cross the diagonal or the sequences' ends; dV +=
+//   bf16(P^T M^T) dO with P^T the register A operand (at D = 128; at D =
+//   64, whose tiles give a thread 128 scores, P^T is staged in shared
+//   memory like dS^T, or its registers spill); bf16(dS^T) staged once in
+//   shared memory, from which dK += dS^T Q and dQ = dS K read it (K-major,
+//   and MN-major as A); the warpgroups split dQ by queries (D = 64) or by
+//   columns (D = 128) so that each owns a 64 x 64 fp32 tile, reduced into
+//   dq_acc as above. With dropout at D = 128, lanes l and l ^ 4 share
+//   their Philox calls (philox.cuh bits_t2_pair). On the H100 the exp and
+//   the masks were the largest share of the first version's time, the
+//   products' own share small (timing-only builds without each part); what
+//   is left is mostly the serial order within a tile (products, then the
+//   CUDA cores' work, then products), which the two warpgroups do not
+//   overlap.
+// - tc:: (bf16 with D a multiple of 8 and 16-byte aligned rows), 4 warps
+//   per block, 16 rows each, on mma.sync m16n8k16:
+//   - fwd: one block per (64 queries, head, batch). Q is staged once; each
+//     64-key tile of K and V is staged, S = Q K^T runs from shared memory,
+//     the online softmax updates in the accumulators, whose values become
+//     P's A fragments (rounded to bf16) for O += P V.
+//   - bwd_kv: one block per (64 keys, head, batch); K and V stay in shared
+//     memory as A operands. It sweeps the 64-query tiles (from its first
+//     key on, when causal) in halves of 32: S^T = K Q^T, P^T in the
+//     accumulators, dV += bf16(P^T) dO, dP^T = V dO^T, dK += bf16(dS^T) Q.
+//     With kDQ (the fused backward at every D but 64 and 128) it also
+//     stages bf16(dS^T) for the whole query tile and adds dQ += dS K
+//     (ldmatrix.trans of the staged tile) into the fp32 buffer.
+//   - bwd_dq: one block per (64 queries, head, batch), q and dO staged
+//     once, 64-key tiles walked in halves of 32: S = Q K^T, P, dP = dO V^T,
+//     dQ += bf16(dS) K.
 // simt:: (fp32, and any other bf16 case): the same loops on the fp32 CUDA
 // cores, 16 rows (or keys) per block, 32-key (or query) tiles, one key (or
 // query) per lane, which keeps fp32 inputs at full fp32 precision (no TF32).
 //
-// cp.async/TMA double-buffering, wgmma and 128-row tiles are later work.
+// Later work: the forward and the split backward on wgmma; overlapping one
+// warpgroup's softmax with the other's products.
 #include <math_constants.h>
 #include <stdint.h>
 
 #include "common.cuh"
 #include "mma_tiles.cuh"
 #include "philox.cuh"
+#include "sm90.cuh"
 
 namespace {
 
@@ -976,6 +1004,406 @@ bwd_dq(View<const bf16> q, View<const bf16> k, View<const bf16> v,
   }
 }
 
+}  // namespace tc
+
+// ----------------------------------------------------------------------------
+// The bf16 fused backward at D = 64 and D = 128 on wgmma (sm90.cuh)
+namespace hop {
+
+using namespace mct::sm90;
+constexpr int kKeys = 128;  // keys of a block: two consumer warpgroups of 64
+constexpr int kThreads = 256;
+constexpr int kPanel = kKeys * kRowBytes;  // a [128][64] bf16 panel
+constexpr int kDqBox = 64 * kRowBytes;     // a [64][32] fp32 dQ box: 8 KB
+
+// Shared memory of the block (byte offsets, panels 1024-aligned): K and V
+// [128 keys][D]; two ring stages of Q and dO [kQ][D]; dS^T [128][kQ]; the
+// fp32 dQ tiles of the two warpgroups, [64 queries][64 columns] as two
+// swizzled [64][32] boxes each; two stages of lse and delta [kQ]; the
+// mbarriers (K and V, each stage).
+template <int D>
+struct Tile {
+  static constexpr int kQ = D == 64 ? 128 : 64;  // queries of a tile
+  // P^T staged in shared memory for dV (at D = 64, where a thread holds
+  // 128 scores and the register A operand's 32 registers spill), else
+  // dV's A operand from registers
+  static constexpr bool kPSmem = D == 64;
+  static constexpr int kP = D / 64;              // 64-column panels of a row
+  static constexpr int kQPanel = kQ * kRowBytes;
+  static constexpr int kQStage = kP * kQPanel;
+  static constexpr int kK = 0;
+  static constexpr int kV = kK + kP * kPanel;
+  static constexpr int kQs = kV + kP * kPanel;
+  static constexpr int kDO = kQs + 2 * kQStage;
+  static constexpr int kDS = kDO + 2 * kQStage;
+  static constexpr int kPT = kDS + (kQ / 64) * kPanel;
+  static constexpr int kDQ = kPT + (kPSmem ? (kQ / 64) * kPanel : 0);
+  // lse and delta: kQ + 4 floats a stage (the box starts 16-byte aligned,
+  // up to 3 floats before the tile), stages 128-byte aligned
+  static constexpr int kRowBox = kQ + 4;
+  static constexpr int kRowStage = kQ * 4 + 128;
+  static constexpr int kLse = kDQ + 2 * 2 * kDqBox;
+  static constexpr int kDelta = kLse + 2 * kRowStage;
+  static constexpr int kBars = kDelta + 2 * kRowStage;
+  static constexpr int kSmem = 1024 + kBars + 3 * 8;
+};
+
+struct Maps {
+  CUtensorMap q, k, v, g, lse, delta, dq;
+};
+
+struct Args {
+  View<bf16> dk, dv;
+  float* dq_acc;
+  int H, Sq, Sk, causal;
+  // the map dimensions (1..3) of the sequence, head and batch axes of q, k,
+  // v and dO: bits 0-1, 2-3 and 4-5 (view_map)
+  int perm_q, perm_k, perm_v, perm_g;
+  float scale;
+};
+
+// Columns [col, col + 64) of rows [s, s + box rows) of head (b, h) of a
+// view's map into a panel.
+__device__ __forceinline__ void load_rows(void* dst, const CUtensorMap* m,
+                                          uint64_t* bar, int perm, int col,
+                                          int s, int h, int b) {
+  const int ps = perm & 3, ph = (perm >> 2) & 3;
+  const int c1 = ps == 1 ? s : ph == 1 ? h : b;
+  const int c2 = ps == 2 ? s : ph == 2 ? h : b;
+  const int c3 = ps == 3 ? s : ph == 3 ? h : b;
+  tma_load_4d(dst, m, bar, col, c1, c2, c3);
+}
+
+// Barrier `id` (1, 2) of the 128 threads of one warpgroup.
+__device__ __forceinline__ void named_sync(int id) {
+  asm volatile("bar.sync %0, 128;\n" ::"r"(id) : "memory");
+}
+
+// dK and dV of 128 keys and their share of dQ (see the file's note).
+template <int D, bool kDrop>
+__global__ void __launch_bounds__(kThreads, 1)
+bwd_fused(const __grid_constant__ Maps maps, const Args g, Dropout drop) {
+  using L = Tile<D>;
+  constexpr int kQ = L::kQ, kP = L::kP;
+  extern __shared__ __align__(1024) unsigned char fa_smem[];
+  unsigned char* base = align_1024(fa_smem);
+  uint64_t* bars = reinterpret_cast<uint64_t*>(base + L::kBars);
+  const float* lse_s = reinterpret_cast<const float*>(base + L::kLse);
+  const float* dl_s = reinterpret_cast<const float*>(base + L::kDelta);
+  const int tid = threadIdx.x, wg = tid >> 7, warp = (tid >> 5) & 3,
+            lane = tid & 31;
+  const int b = blockIdx.z, h = blockIdx.y, k0 = blockIdx.x * kKeys;
+  const long bh = (long)b * g.H + h;
+  // causal: no query before the block's first key attends to its keys
+  const int jt0 = g.causal ? k0 / kQ : 0;
+  const int ntiles = (g.Sq + kQ - 1) / kQ - jt0;
+
+  // thread 0: query tile jt0 + i (Q, dO, lse, delta) into stage i & 1
+  auto issue = [&](int i) {
+    const int st = i & 1, q0 = (jt0 + i) * kQ;
+    uint64_t* bar = bars + 1 + st;
+    mbar_expect_tx(bar, 2 * L::kQStage + 2 * L::kRowBox * 4);
+#pragma unroll
+    for (int p = 0; p < kP; ++p) {
+      load_rows(base + L::kQs + st * L::kQStage + p * L::kQPanel, &maps.q,
+                bar, g.perm_q, 64 * p, q0, h, b);
+      load_rows(base + L::kDO + st * L::kQStage + p * L::kQPanel, &maps.g,
+                bar, g.perm_g, 64 * p, q0, h, b);
+    }
+    const int row0 = (int)(bh * g.Sq + q0) & ~3;
+    tma_load_1d(base + L::kLse + st * L::kRowStage, &maps.lse, bar, row0);
+    tma_load_1d(base + L::kDelta + st * L::kRowStage, &maps.delta, bar,
+                row0);
+  };
+  if (tid == 0) {
+    for (int i = 0; i < 3; ++i) mbar_init(bars + i, 1);
+    mbar_init_fence();
+  }
+  __syncthreads();
+  if (tid == 0) {
+    mbar_expect_tx(bars, 2 * kP * kPanel);
+#pragma unroll
+    for (int p = 0; p < kP; ++p) {
+      load_rows(base + L::kK + p * kPanel, &maps.k, bars, g.perm_k, 64 * p,
+                k0, h, b);
+      load_rows(base + L::kV + p * kPanel, &maps.v, bars, g.perm_v, 64 * p,
+                k0, h, b);
+    }
+    if (ntiles > 0) issue(0);
+  }
+  __syncwarp();
+
+  // element 4 j + e of an S^T-shaped accumulator: key key_lo + 8 (e >> 1),
+  // query q0 + 8 j + 2 (lane % 4) + (e & 1)
+  const int key_lo = k0 + 64 * wg + 16 * warp + (lane >> 2);
+  const unsigned char* k_w = base + L::kK + wg * 8192;  // the WG's 64 keys
+  const unsigned char* v_w = base + L::kV + wg * 8192;
+  float dk[D / 2], dv[D / 2], s[kQ / 2], dp[kQ / 2];
+#pragma unroll
+  for (int i = 0; i < D / 2; ++i) dk[i] = dv[i] = 0.f;
+#pragma unroll
+  for (int i = 0; i < kQ / 2; ++i) s[i] = dp[i] = 0.f;
+  unsigned char* dq_stage = base + L::kDQ + wg * 2 * kDqBox;
+  const bool dq_issuer = (tid & 127) == 0;
+  constexpr float kLog2e = 1.4426950408889634f;
+  const float scale_log2 = g.scale * kLog2e;
+  mbar_wait(bars, 0);
+  for (int i = 0; i < ntiles; ++i) {
+    const int st = i & 1, q0 = (jt0 + i) * kQ;
+    if (i > 0) __syncthreads();  // tile i - 1 is done: its stage, dS^T
+    if (tid == 0 && i + 1 < ntiles) issue(i + 1);
+    __syncwarp();
+    mbar_wait(bars + 1 + st, (i >> 1) & 1);
+    __syncwarp();
+    const unsigned char* q_s = base + L::kQs + st * L::kQStage;
+    const unsigned char* g_s = base + L::kDO + st * L::kQStage;
+    // the tile's lse and delta, from the box's 16-byte aligned start
+    const int off = (int)(bh * g.Sq + q0) & 3;
+    const float* ls = lse_s + st * L::kRowStage / 4 + off;
+    const float* dl = dl_s + st * L::kRowStage / 4 + off;
+
+    // S^T = K Q^T and dP^T = V dO^T
+    fence_regs(s);
+    fence_regs(dp);
+    wgmma_fence();
+#pragma unroll
+    for (int kk = 0; kk < D / 16; ++kk)
+      wgmma_ss<0, 0>(s, desc_k(k_w + (kk >> 2) * kPanel, kk & 3),
+                     desc_k(q_s + (kk >> 2) * L::kQPanel, kk & 3), kk > 0);
+#pragma unroll
+    for (int kk = 0; kk < D / 16; ++kk)
+      wgmma_ss<0, 0>(dp, desc_k(v_w + (kk >> 2) * kPanel, kk & 3),
+                     desc_k(g_s + (kk >> 2) * L::kQPanel, kk & 3), kk > 0);
+    wgmma_commit();
+    wgmma_wait<0>();
+    fence_regs(s);
+    fence_regs(dp);
+
+    // P^T (times the keep multipliers M^T) rounded into the A fragments of
+    // k-step m (queries 16 m ..: accumulator chunks 2 m and 2 m + 1), and
+    // dS^T = P^T (dP^T M^T - delta) scale rounded into shared memory, key
+    // row 64 wg + 16 warp + lane / 4 + 8 (e >> 1), query 16 m + 8 c +
+    // 2 (lane % 4) + (e & 1) of chunk 2 m + c. P = exp(s scale - lse) as
+    // exp2(s scale log2(e) - lse log2(e)), one FMA and the MUFU's exp2; the
+    // masks are tested only in the tiles that cross the warp's causal
+    // diagonal or the sequences' ends (warp-uniform).
+    const bool interior = key_lo - (lane >> 2) + 15 < g.Sk &&
+                          q0 + kQ <= g.Sq &&
+                          (!g.causal || key_lo - (lane >> 2) + 15 <= q0);
+    uint32_t pa[kQ / 16][4];
+    unsigned char* ds_s = base + L::kDS;
+    unsigned char* pt_s = base + L::kPT;
+#pragma unroll
+    for (int m = 0; m < kQ / 16; ++m) {
+      // lanes l and l ^ 4 hold keys key_lo and key_lo ^ 1 and share their
+      // Philox calls at D = 128; at D = 64, whose tiles hold twice the
+      // scores a thread, the trade's live registers spill, so each lane
+      // draws its own
+      const int qm = q0 + 16 * m + 2 * (lane & 3);
+      const uint32_t kept =
+          !kDrop      ? 0xffu
+          : D == 128  ? drop.bits_t2_pair(bh, qm, key_lo, 4)
+                      : drop.bits_t2(bh, qm, key_lo);
+      float pv[8], dsv[8];
+#pragma unroll
+      for (int c = 0; c < 2; ++c)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) {
+          const int idx = 4 * (2 * m + c) + e;
+          const int key = key_lo + 8 * (e >> 1);
+          const int ql = 16 * m + 8 * c + 2 * (lane & 3) + (e & 1);
+          float p = exp2f(fmaf(s[idx], scale_log2, -ls[ql] * kLog2e));
+          if (!interior) {
+            const int q = q0 + ql;
+            if (!(key < g.Sk && q < g.Sq && (!g.causal || key <= q))) p = 0.f;
+          }
+          const float keep =
+              !kDrop ? 1.f : (kept >> (4 * c + e)) & 1 ? drop.mult : 0.f;
+          pv[4 * c + e] = p * keep;
+          dsv[4 * c + e] = p * (dp[idx] * keep - dl[ql]) * g.scale;
+        }
+#pragma unroll
+      for (int i = 0; i < 4; ++i) {
+        // i: chunk 2 m + (i >> 1), rows + 8 (i & 1)
+        const int e = 2 * (i & 1);
+        const int c = i >> 1;
+        const int row = 64 * wg + 16 * warp + (lane >> 2) + 8 * (i & 1);
+        const int col = 16 * m + 8 * c + 2 * (lane & 3);
+        const int at = (col >> 6) * kPanel + swz(row, col & 63);
+        const uint32_t pp = pack_bf16(pv[4 * c + e], pv[4 * c + e + 1]);
+        if (L::kPSmem)
+          *reinterpret_cast<uint32_t*>(pt_s + at) = pp;
+        else
+          pa[m][i] = pp;
+        *reinterpret_cast<uint32_t*>(ds_s + at) =
+            pack_bf16(dsv[4 * c + e], dsv[4 * c + e + 1]);
+      }
+    }
+
+    // dV += bf16(P^T M^T) dO: A from registers, B the stage's MN-major dO
+    if constexpr (!L::kPSmem) {
+      fence_regs(dv);
+      wgmma_fence();
+#pragma unroll
+      for (int m = 0; m < kQ / 16; ++m)
+        wgmma_rs<1>(dv, pa[m], desc_mn(g_s, m, L::kQPanel), 1);
+      wgmma_commit();
+    }
+    fence_async_smem();
+    __syncthreads();  // dS^T (and P^T) of both warpgroups
+
+    // dQ: at D = 64 warpgroup wg takes queries 64 wg .. (its dS panel),
+    // every column; at D = 128 every query, columns 64 wg .. (its K panel)
+    // and dK += bf16(dS^T) Q: A the WG's 64 key rows of dS^T (K-major), B
+    // the stage's MN-major Q
+    float dq[32];
+    fence_regs(dq);
+    fence_regs(dk);
+    fence_regs(dv);
+    wgmma_fence();
+    if constexpr (L::kPSmem)  // dV += bf16(P^T M^T) dO from shared memory
+#pragma unroll
+      for (int kk = 0; kk < kQ / 16; ++kk)
+        wgmma_ss<0, 1>(dv,
+                       desc_k(pt_s + (kk >> 2) * kPanel + wg * 8192, kk & 3),
+                       desc_mn(g_s, kk, L::kQPanel), 1);
+#pragma unroll
+    for (int kk = 0; kk < kQ / 16; ++kk)
+      wgmma_ss<0, 1>(dk,
+                     desc_k(ds_s + (kk >> 2) * kPanel + wg * 8192, kk & 3),
+                     desc_mn(q_s, kk, L::kQPanel), 1);
+    const unsigned char* a_p = ds_s + (D == 64 ? wg * kPanel : 0);
+    const unsigned char* b_p = base + L::kK + (D == 64 ? 0 : wg * kPanel);
+#pragma unroll
+    for (int kk = 0; kk < kKeys / 16; ++kk)
+      wgmma_ss<1, 1>(dq, desc_mn(a_p, kk, kPanel), desc_mn(b_p, kk, kPanel),
+                     kk > 0);
+    wgmma_commit();
+    wgmma_wait<0>();
+    fence_regs(dq);
+    fence_regs(dv);
+    fence_regs(dk);
+    if constexpr (!L::kPSmem) fence_regs(pa);
+
+    // the fp32 partial of dQ staged in the warpgroup's two boxes, then
+    // added into dq_acc by two TMA reduce-adds (rows past Sq left out)
+    if (dq_issuer) bulk_wait_read<0>();  // the last tile's boxes are read
+    named_sync(1 + wg);
+#pragma unroll
+    for (int j = 0; j < 8; ++j)
+#pragma unroll
+      for (int half = 0; half < 2; ++half) {
+        const int row = 16 * warp + (lane >> 2) + 8 * half;
+        const int c = 8 * (j & 3) + 2 * (lane & 3);  // column in the box
+        *reinterpret_cast<float2*>(dq_stage + (j >> 2) * kDqBox +
+                                   row * kRowBytes +
+                                   ((((c >> 2) ^ (row & 7))) << 4) +
+                                   (c & 3) * 4) =
+            make_float2(dq[4 * j + 2 * half], dq[4 * j + 2 * half + 1]);
+      }
+    fence_async_smem();
+    named_sync(1 + wg);
+    if (dq_issuer) {
+      const int q = q0 + (D == 64 ? 64 * wg : 0);
+      const int col = D == 64 ? 0 : 64 * wg;
+      tma_reduce_add_4d(&maps.dq, dq_stage, col, h, q, b);
+      tma_reduce_add_4d(&maps.dq, dq_stage + kDqBox, col + 32, h, q, b);
+      bulk_commit();
+    }
+  }
+  if (dq_issuer) bulk_wait<0>();
+
+#pragma unroll
+  for (int half = 0; half < 2; ++half) {
+    const int key = key_lo + 8 * half;
+    if (key >= g.Sk) continue;
+    bf16* dk_row = g.dk.head(b, h) + (long)key * g.dk.s;
+    bf16* dv_row = g.dv.head(b, h) + (long)key * g.dv.s;
+#pragma unroll
+    for (int j = 0; j < D / 8; ++j) {
+      const int d = 8 * j + 2 * (lane & 3);
+      *reinterpret_cast<uint32_t*>(dk_row + d) =
+          pack_bf16(dk[4 * j + 2 * half], dk[4 * j + 2 * half + 1]);
+      *reinterpret_cast<uint32_t*>(dv_row + d) =
+          pack_bf16(dv[4 * j + 2 * half], dv[4 * j + 2 * half + 1]);
+    }
+  }
+}
+
+// A 4-D map of a [B, H, S, D] view (D contiguous, strides in elements),
+// its other axes in the order of their strides, boxes of 64 columns x
+// `rows` of one head; perm receives the map dimensions of (s, h, b).
+inline bool view_map(CUtensorMap* m, int& perm, const void* p, long sb,
+                     long sh, long ss, int B, int H, int S, int D, int rows) {
+  struct Axis {
+    long stride;
+    int n, box, id;
+  } ax[3] = {{ss, S, rows, 0}, {sh, H, 1, 1}, {sb, B, 1, 2}};
+  for (int i = 1; i < 3; ++i)
+    for (int j = i; j > 0 && ax[j].stride < ax[j - 1].stride; --j) {
+      const Axis t = ax[j];
+      ax[j] = ax[j - 1];
+      ax[j - 1] = t;
+    }
+  const uint64_t dims[4] = {(uint64_t)D, (uint64_t)ax[0].n, (uint64_t)ax[1].n,
+                            (uint64_t)ax[2].n};
+  const uint64_t strides[3] = {(uint64_t)ax[0].stride * 2,
+                               (uint64_t)ax[1].stride * 2,
+                               (uint64_t)ax[2].stride * 2};
+  const uint32_t box[4] = {64, (uint32_t)ax[0].box, (uint32_t)ax[1].box,
+                           (uint32_t)ax[2].box};
+  perm = 0;
+  for (int i = 0; i < 3; ++i) perm |= (i + 1) << (2 * ax[i].id);
+  return make_map(m, true, true, 4, p, dims, strides, box);
+}
+
+template <int D, bool kDrop>
+cudaError_t launch_as(const Maps& maps, const Args& a, int B, Dropout drop,
+                      cudaStream_t st) {
+  constexpr int kSmem = Tile<D>::kSmem;
+  const cudaError_t e = allow_smem(bwd_fused<D, kDrop>, kSmem);
+  if (e != cudaSuccess) return e;
+  bwd_fused<D, kDrop>
+      <<<dim3((a.Sk + kKeys - 1) / kKeys, a.H, B), kThreads, kSmem, st>>>(
+          maps, a, drop);
+  return cudaGetLastError();
+}
+
+template <int D>
+cudaError_t launch(View<const bf16> q, View<const bf16> k, View<const bf16> v,
+                   View<const bf16> g, const float* lse, const float* delta,
+                   View<bf16> dk, View<bf16> dv, float* dq_acc, int B, int H,
+                   int Sq, int Sk, float scale, int causal,
+                   const Dropout* drop, cudaStream_t st) {
+  constexpr int kQ = Tile<D>::kQ;
+  Maps maps;
+  Args a{dk, dv, dq_acc, H, Sq, Sk, causal, 0, 0, 0, 0, scale};
+  const uint64_t rows[1] = {(uint64_t)B * H * Sq};
+  // dq_acc [B, Sq, H, D] fp32 as {D, H, Sq, B}, boxes of 32 columns (128
+  // bytes, swizzled) x 64 queries of one head
+  const uint64_t dq_dims[4] = {(uint64_t)D, (uint64_t)H, (uint64_t)Sq,
+                               (uint64_t)B};
+  const uint64_t dq_strides[3] = {(uint64_t)D * 4, (uint64_t)H * D * 4,
+                                  (uint64_t)Sq * H * D * 4};
+  const uint32_t dq_box[4] = {32, 1, 64, 1};
+  const uint32_t box[1] = {Tile<D>::kRowBox};
+  if (!view_map(&maps.q, a.perm_q, q.p, q.b, q.h, q.s, B, H, Sq, D, kQ) ||
+      !view_map(&maps.k, a.perm_k, k.p, k.b, k.h, k.s, B, H, Sk, D, kKeys) ||
+      !view_map(&maps.v, a.perm_v, v.p, v.b, v.h, v.s, B, H, Sk, D, kKeys) ||
+      !view_map(&maps.g, a.perm_g, g.p, g.b, g.h, g.s, B, H, Sq, D, kQ) ||
+      !make_map(&maps.lse, false, false, 1, lse, rows, nullptr, box) ||
+      !make_map(&maps.delta, false, false, 1, delta, rows, nullptr, box) ||
+      !make_map(&maps.dq, false, true, 4, dq_acc, dq_dims, dq_strides,
+                dq_box))
+    return cudaErrorInvalidValue;
+  return drop ? launch_as<D, true>(maps, a, B, *drop, st)
+              : launch_as<D, false>(maps, a, B, Dropout{}, st);
+}
+
+}  // namespace hop
+
+namespace tc {
+
 template <int DP, bool kDrop>
 cudaError_t launch_fwd_as(View<const bf16> q, View<const bf16> k,
                           View<const bf16> v, View<bf16> o, float* lse, int B,
@@ -1032,6 +1460,8 @@ cudaError_t launch_kv(View<const bf16> q, View<const bf16> k,
                                              causal, Dropout{}, st);
 }
 
+// The fused backward: hop:: on wgmma at D = 64 and D = 128, bwd_kv with
+// kDQ at every other D.
 template <int DP>
 cudaError_t launch_fused(View<const bf16> q, View<const bf16> k,
                          View<const bf16> v, View<const bf16> g,
@@ -1039,6 +1469,10 @@ cudaError_t launch_fused(View<const bf16> q, View<const bf16> k,
                          View<bf16> dv, float* dq_acc, int B, int H, int Sq,
                          int Sk, int D, float scale, int causal,
                          const Dropout* drop, cudaStream_t st) {
+  if constexpr (DP == 64 || DP == 128)
+    if (D == DP)
+      return hop::launch<DP>(q, k, v, g, lse, delta, dk, dv, dq_acc, B, H, Sq,
+                             Sk, scale, causal, drop, st);
   return launch_kv<DP, true>(q, k, v, g, lse, delta, dk, dv, dq_acc, B, H, Sq,
                              Sk, D, scale, causal, drop, st);
 }
@@ -1297,3 +1731,6 @@ extern "C" int mct_flash_bwd_dkv(MCT_VIEW_ARGS(q), MCT_VIEW_ARGS(k),
 
 // The keep bits the kernels above draw (philox.cuh).
 MCT_DROPOUT_MASK_EXPORT
+
+// One wgmma tile product per operand layout (sm90.cuh).
+MCT_SM90_TILE_CHECK_EXPORT

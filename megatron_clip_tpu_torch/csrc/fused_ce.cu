@@ -1,13 +1,15 @@
 // Fused lm-head + softmax cross entropy: the forward (per-token loss and
-// log-sum-exp) and one backward kernel that forms dX and dW.
+// log-sum-exp) and the backward that forms dX and dW.
 //
 // Replaces the TPU kernels of megatron_clip_tpu/ops/pallas/fused_ce.py:
 // _fwd_kernel (pallas_call in _fwd) with fused_ce_fwd and fused_ce_combine,
 // and _dx_kernel and _dw_kernel (both pallas_calls in _vjp_bwd) with the
-// one backward kernel fused_ce_bwd. gpt_loss(fused_ce=True) runs them once
-// a step on the GPT's hidden states: T = B*S tokens, width W, vocabulary V
-// (the GPT of examples/pretrain_gpt_dist.sh at batch 8: T = 16384,
-// W = 1024, V = 50304).
+// backward: in bf16 the three products of hop::fused_ce_bwd_gemm per chunk
+// of tokens, else the one CUDA-core kernel simt::fused_ce_bwd.
+// gpt_loss(fused_ce=True) runs them once a step on the GPT's hidden states:
+// T = B*S tokens, width W, vocabulary V (the GPT of
+// examples/pretrain_gpt_dist.sh at batch 8: T = 16384, W = 1024, V = 50304;
+// that of examples/pretrain_gpt_pipeline.sh: W = 2048).
 //
 // Contract. x [T, W] and wt [V, W] row-major in one dtype (fp32 or bf16):
 // wt is the head as vocabulary rows, the tied embedding itself (the [W, V]
@@ -20,56 +22,61 @@
 // loss = lse - g. Backward, from lse and dloss [T] fp32: dlogits =
 // (exp(logit - lse) - onehot(label)) * dloss, rounded to x's dtype before
 // both contractions, dX = dlogits . wt and dW^T = dlogits^T . x, each summed
-// in fp32 (the caller rounds them once to the inputs' dtype). Tokens past T
-// and vocabulary rows past V are masked by count; no operand is padded.
+// in fp32 and rounded once to the inputs' dtype. Tokens past T and
+// vocabulary rows past V are masked by count; no operand is padded.
 //
 // What bounds them. 2 T W V multiply-adds per contraction (the forward one;
 // the backward three: the logits again, dX and dW) over (T + V) W inputs:
 // at the GPT's shapes ~1.7 TFLOP against ~0.14 GB, so the tensor cores bound
-// all of it (1.71 ms a contraction at 989 TFLOP/s bf16). The logits never
-// reach device memory.
+// all of it (1.71 ms a contraction at 989 TFLOP/s bf16). The forward's
+// logits never reach device memory; the backward's dlogits do, as bf16, a
+// chunk of tokens at a time.
 //
-// Design. Both kernels cover the (128-token, 128-row) tiles of [T, V], one
-// tile a block, in groups of kGroup token tiles with the vocabulary tiles
-// outer (tile_of), so that the blocks in flight share a few tiles of each
-// operand in L2. A block forms its logits tile with mma.sync m16n8k16
-// (bf16, fp32 accumulation), 8 warps of 32 x 64, over W in chunks of 64
-// through a 3-stage cp.async ring.
-// - fused_ce_fwd. No block owns a whole row, so each warp reduces its 64
-//   columns per row to (max, sum of exponentials, label logit), one partial
-//   of [V/64, T]; fused_ce_combine folds a token's partials in vocabulary
-//   order (the TPU kernel's online max and sum across its vocabulary tiles,
-//   grouped otherwise). No atomics: deterministic.
-// - fused_ce_bwd. The TPU kernels keep a [block_t, W] (dX) or [W, block_v]
-//   (dW) fp32 accumulator in VMEM across the whole other axis; at W = 1024
-//   that is 512 KB to 2 MB, which no block holds on Hopper (227 KB of
-//   shared memory, 256 KB of registers per SM). Of the two designs open,
-//   deterministic split kernels owning [bw, bv] output tiles would
-//   recompute the logits once per W-chunk (W / bw times the forward's
-//   products: 4x at the largest tile the registers hold, up to 10
-//   contractions in all); this kernel recomputes each logits tile once and
-//   adds its share of dX and dW into fp32 buffers with float2 atomics (3
-//   contractions). It stages bf16(dlogits) [128 x 128] in shared memory,
-//   then for each 128-column chunk of W adds dlogits . wt_chunk into dX and
-//   dlogits^T . x_chunk into dW^T (ldmatrix.trans reads the transposed
-//   operands) while the next chunk's operands load. The atomics are
-//   (1/128 + 1/128) of the multiply-adds, and the group order keeps the
-//   rows they add into in L2: with token tiles fastest over all of them,
-//   every wave of blocks would sweep the whole [T, W] fp32 dX (64 MB at the
-//   GPT's shapes, more than L2) once per vocabulary tile. The sums' order
-//   changes from run to run, so dX's and dW's last fp32 bits do too,
-//   before their rounding to bf16.
-// simt:: (fp32, and bf16 rows that are not 16-byte aligned): the same
-// tiles and algorithm on the CUDA cores in fp32, 64 x 64 tiles, a 4 x 4
-// micro-tile per thread, scalar atomics; fp32 inputs stay at full fp32
-// precision (no TF32).
+// Design.
+// - fused_ce_fwd (tc::, bf16): the (128-token, 128-row) tiles of [T, V],
+//   one a block, in groups of kGroup token tiles with the vocabulary tiles
+//   outer (tile_of), so that the blocks in flight share a few tiles of
+//   each operand in L2; the logits tile on mma.sync m16n8k16 (8 warps of
+//   32 x 64) over W in chunks of 64 through a 3-stage cp.async ring. No
+//   block owns a whole row, so each warp reduces its 64 columns per row to
+//   (max, sum of exponentials, label logit), one partial of [V/64, T];
+//   fused_ce_combine folds a token's partials in vocabulary order (the TPU
+//   kernel's online max and sum, grouped otherwise). Deterministic.
+// - The bf16 backward (hop::, wgmma). The TPU kernels keep a [block_t, W]
+//   (dX) or [W, block_v] (dW) fp32 accumulator in VMEM across the whole
+//   other axis; at W = 1024 that is 512 KB to 2 MB, which no block holds on
+//   Hopper. The earlier design, one mma.sync kernel that recomputed each
+//   logits tile and added its share of dX and dW with float2 atomics, spent
+//   5% of its 31 ms on the atomics (29.36 ms with plain stores, a
+//   timing-only build, NVIDIA H100 80GB HBM3 at T = 16384, W = 1024,
+//   tools/ab_backward.py), the rest on its own products. This backward splits
+//   as the TPU package does, into products each of whose output tiles one
+//   block owns, so it needs no atomics and gives the same bits every run.
+//   For each chunk of dl_rows tokens (4096 from the wrapper): dlogits
+//   (x wt^T on wgmma, the softmax residual in the epilogue) into a bf16
+//   [dl_rows, V] scratch; dX = dlogits wt, rounded once; dW^T +=
+//   dlogits^T x in fp32 across the chunks in token order, rounded once
+//   after the last. One kernel template serves all three (fused_ce_bwd_gemm
+//   <P>): a 128 x 256 output tile per block, two consumer warpgroups of
+//   m64n256k16 over a 4-stage ring of 64-deep TMA tiles (128-byte
+//   swizzle) fed by one producer warp under full and empty mbarriers; the
+//   operand majors differ per product (x and wt K-major for the logits;
+//   wt, dlogits^T and x MN-major for dX and dW), which wgmma takes from the
+//   same swizzled panels. The cost over one kernel: the dlogits' round trip
+//   through device memory (written once, read once per W-tile of dX and
+//   dW) and a scratch of dl_rows V bf16.
+// simt:: (fp32, and bf16 rows that are not 16-byte aligned): the forward's
+// tiles and one backward kernel on the CUDA cores in fp32, 64 x 64 tiles, a
+// 4 x 4 micro-tile per thread, scalar atomics into fp32 dX and dW; fp32
+// inputs stay at full fp32 precision (no TF32).
 //
-// Later work: wgmma with TMA rings, a persistent schedule, fewer atomics
-// (larger tiles of dlogits, a cluster's shared-memory reduction).
+// Later work: a persistent schedule for the backward's products (the
+// dlogits product runs 16-deep K loops), the forward on wgmma.
 #include <stdint.h>
 
 #include "common.cuh"
 #include "mma_tiles.cuh"
+#include "sm90.cuh"
 
 namespace {
 
@@ -88,20 +95,13 @@ constexpr int BV = 128;         // vocabulary rows per block
 constexpr int KC = 64;          // W chunk of the logits loop
 constexpr int kStages = 3;      // cp.async ring depth
 constexpr int kPitch = KC + 8;  // ring rows (144 bytes: ldmatrix conflict-free)
-constexpr int WC = 128;         // W chunk of the backward's contractions
-constexpr int kCPitch = WC + 8;
-constexpr int kDPitch = BV + 8;  // the staged dlogits tile [BT][kDPitch]
-// Both kernels walk the tiles of [T, V] in groups of kGroup token tiles,
+// The forward walks the tiles of [T, V] in groups of kGroup token tiles,
 // the vocabulary tiles outer within a group (tile_of): the blocks in flight
 // then share a few token tiles and a few vocabulary tiles, whose operands
-// and, in the backward, whose rows of the fp32 dX and dW buffers stay in L2
+// stay in L2
 constexpr int kGroup = 16;
 
-constexpr int kRingBytes = kStages * (BT + BV) * kPitch * 2;
-constexpr int kChunkBytes = 2 * (BT + BV) * kCPitch * 2;  // double-buffered
-constexpr int kFwdSmem = kRingBytes;
-constexpr int kBwdSmem =
-    BT * kDPitch * 2 + (kRingBytes > kChunkBytes ? kRingBytes : kChunkBytes);
+constexpr int kFwdSmem = kStages * (BT + BV) * kPitch * 2;
 
 __device__ __forceinline__ void cp_async16(void* dst, const void* src,
                                            bool valid) {
@@ -145,23 +145,6 @@ __device__ __forceinline__ void tile_of(int b, int nt_tiles, int nv_tiles,
   const int size = min(kGroup, nt_tiles - first);
   tt = first + r % size;
   vt = r / size;
-}
-
-// Adds the m16n8 accumulator c (rows r0 + lane / 4 and r0 + 8 + lane / 4,
-// columns c0 + 2 (lane % 4) + {0, 1}) into the row-major fp32 [rows, W]
-// buffer out with float2 atomics; rows past `rows` and columns past W are
-// left out (W % 8 == 0).
-__device__ __forceinline__ void add_tile(float* out, const float (&c)[4],
-                                         int r0, int rows, int c0, int W,
-                                         int lane) {
-  const int r = r0 + (lane >> 2), w = c0 + 2 * (lane & 3);
-  if (w >= W) return;
-  if (r < rows)
-    atomicAdd(reinterpret_cast<float2*>(out + (long)r * W + w),
-              make_float2(c[0], c[1]));
-  if (r + 8 < rows)
-    atomicAdd(reinterpret_cast<float2*>(out + (long)(r + 8) * W + w),
-              make_float2(c[2], c[3]));
 }
 
 // The warp's 32 x 64 logits tile of the block's (t0, v0) tile: acc[mt][nt]
@@ -275,146 +258,6 @@ fused_ce_fwd(const bf16* __restrict__ x, const bf16* __restrict__ wt,
     }
 }
 
-__global__ void __launch_bounds__(kThreads, 1)
-fused_ce_bwd(const bf16* __restrict__ x, const bf16* __restrict__ wt,
-             const int* __restrict__ labels, const float* __restrict__ lse,
-             const float* __restrict__ dloss, float* __restrict__ dx,
-             float* __restrict__ dw, int T, int V, int W) {
-  extern __shared__ __align__(16) unsigned char smem_raw[];
-  bf16* dl_s = reinterpret_cast<bf16*>(smem_raw);  // [BT][kDPitch]
-  bf16* region = dl_s + BT * kDPitch;  // the ring, then the chunk buffers
-  int tt, vt;
-  tile_of(blockIdx.x, (T + BT - 1) / BT, (V + BV - 1) / BV, tt, vt);
-  const int t0 = tt * BT, v0 = vt * BV;
-  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
-  const int wm = warp & 3, wn = warp >> 2;
-  float acc[2][8][4];
-  logits_tile(acc, region, x, wt, T, V, W, t0, v0);
-
-  // chunk s of the contractions: wt rows [v0, v0 + BV) and x rows
-  // [t0, t0 + BT), W columns [c WC, (c + 1) WC)
-  auto cbuf = [&](int s) { return region + s * (BV + BT) * kCPitch; };
-  auto load_chunk = [&](int s, int c) {
-    load_rows<BV, WC / 8>(cbuf(s), kCPitch, wt, V, W, v0, c * WC);
-    load_rows<BT, WC / 8>(cbuf(s) + BV * kCPitch, kCPitch, x, T, W, t0,
-                          c * WC);
-  };
-  load_chunk(0, 0);
-  cp_commit();
-
-  // dlogits, rounded to bf16, into dl_s
-#pragma unroll
-  for (int mt = 0; mt < 2; ++mt)
-#pragma unroll
-    for (int half = 0; half < 2; ++half) {
-      const int r = 32 * wm + 16 * mt + (lane >> 2) + 8 * half;
-      const int t = t0 + r;
-      const bool ok = t < T;
-      const float ls = ok ? lse[t] : 0.f, dl = ok ? dloss[t] : 0.f;
-      const int lbl = ok ? labels[t] : -1;
-#pragma unroll
-      for (int nt = 0; nt < 8; ++nt) {
-        const int c = 64 * wn + 8 * nt + 2 * (lane & 3);
-        float d[2];
-#pragma unroll
-        for (int j = 0; j < 2; ++j) {
-          const int col = v0 + c + j;
-          d[j] = ok && col < V
-                     ? (expf(acc[mt][nt][2 * half + j] - ls) -
-                        (col == lbl ? 1.f : 0.f)) *
-                           dl
-                     : 0.f;
-        }
-        *reinterpret_cast<uint32_t*>(dl_s + r * kDPitch + c) =
-            pack_bf16(d[0], d[1]);
-      }
-    }
-
-  const int nwc = (W + WC - 1) / WC;
-  for (int c = 0; c < nwc; ++c) {
-    cp_wait<0>();     // chunk c has landed
-    __syncthreads();  // ... for all; dl_s is written; chunk c - 1 is done
-    if (c + 1 < nwc) load_chunk((c + 1) & 1, c + 1);
-    cp_commit();
-    const bf16* wt_s = cbuf(c & 1);           // [BV][kCPitch]
-    const bf16* x_s = wt_s + BV * kCPitch;     // [BT][kCPitch]
-    const int wcol = c * WC + 64 * wn;
-    float o[2][8][4];
-
-    // dX[t0 + 32 wm .., chunk columns 64 wn ..] = dlogits . wt_chunk
-#pragma unroll
-    for (int mt = 0; mt < 2; ++mt)
-#pragma unroll
-      for (int nt = 0; nt < 8; ++nt)
-#pragma unroll
-        for (int j = 0; j < 4; ++j) o[mt][nt][j] = 0.f;
-#pragma unroll
-    for (int ks = 0; ks < BV / 16; ++ks) {
-      uint32_t a[2][4];
-#pragma unroll
-      for (int mt = 0; mt < 2; ++mt)
-        ldmatrix_x4(a[mt], dl_s + (32 * wm + 16 * mt + (lane & 15)) * kDPitch +
-                               ks * 16 + (lane >> 4) * 8);
-#pragma unroll
-      for (int dc = 0; dc < 4; ++dc) {
-        uint32_t r[4];
-        const int key = ks * 16 + (lane & 7) + ((lane >> 3) & 1) * 8;
-        ldmatrix_x4_trans(r, wt_s + key * kCPitch + 64 * wn + dc * 16 +
-                                 (lane >> 4) * 8);
-#pragma unroll
-        for (int mt = 0; mt < 2; ++mt) {
-          mma(o[mt][2 * dc], a[mt], r[0], r[1]);
-          mma(o[mt][2 * dc + 1], a[mt], r[2], r[3]);
-        }
-      }
-    }
-#pragma unroll
-    for (int mt = 0; mt < 2; ++mt)
-#pragma unroll
-      for (int nt = 0; nt < 8; ++nt)
-        add_tile(dx, o[mt][nt], t0 + 32 * wm + 16 * mt, T, wcol + 8 * nt, W,
-                 lane);
-
-    // dW^T[v0 + 32 wm .., chunk columns 64 wn ..] = dlogits^T . x_chunk
-#pragma unroll
-    for (int mt = 0; mt < 2; ++mt)
-#pragma unroll
-      for (int nt = 0; nt < 8; ++nt)
-#pragma unroll
-        for (int j = 0; j < 4; ++j) o[mt][nt][j] = 0.f;
-#pragma unroll
-    for (int ks = 0; ks < BT / 16; ++ks) {
-      uint32_t a[2][4];
-      // A = dlogits^T: the [token][vocab] tile read transposed; 8x8 matrix
-      // i = lane / 8 covers vocabulary + 8 (i & 1), tokens + 8 (i >> 1)
-      const int mat = lane >> 3;
-      const int tok = ks * 16 + (lane & 7) + (mat >> 1) * 8;
-#pragma unroll
-      for (int mt = 0; mt < 2; ++mt)
-        ldmatrix_x4_trans(a[mt], dl_s + tok * kDPitch + 32 * wm + 16 * mt +
-                                     (mat & 1) * 8);
-#pragma unroll
-      for (int dc = 0; dc < 4; ++dc) {
-        uint32_t r[4];
-        const int key = ks * 16 + (lane & 7) + ((lane >> 3) & 1) * 8;
-        ldmatrix_x4_trans(r, x_s + key * kCPitch + 64 * wn + dc * 16 +
-                                 (lane >> 4) * 8);
-#pragma unroll
-        for (int mt = 0; mt < 2; ++mt) {
-          mma(o[mt][2 * dc], a[mt], r[0], r[1]);
-          mma(o[mt][2 * dc + 1], a[mt], r[2], r[3]);
-        }
-      }
-    }
-#pragma unroll
-    for (int mt = 0; mt < 2; ++mt)
-#pragma unroll
-      for (int nt = 0; nt < 8; ++nt)
-        add_tile(dw, o[mt][nt], v0 + 32 * wm + 16 * mt, V, wcol + 8 * nt, W,
-                 lane);
-  }
-}
-
 inline bool eligible(const void* x, const void* wt, int W) {
   return W % 8 == 0 && reinterpret_cast<uintptr_t>(x) % 16 == 0 &&
          reinterpret_cast<uintptr_t>(wt) % 16 == 0;
@@ -427,6 +270,211 @@ inline unsigned blocks(int T, int V) {
 }
 
 }  // namespace tc
+
+// ----------------------------------------------------------------------------
+// The bf16 backward on wgmma (sm90.cuh), in chunks of tokens: for each
+// chunk, three products of one kernel template, each output tile owned by
+// one block
+namespace hop {
+
+using namespace mct::sm90;
+constexpr int BM = 128;  // output rows of a block: two consumer warpgroups
+constexpr int BN = 256;  // output columns: one m64n256k16 per k-step
+constexpr int BK = 64;   // the K depth of a ring stage: one swizzled panel
+constexpr int kStages = 4;
+constexpr int kConsumers = 256;
+constexpr int kThreads = kConsumers + 32;  // and one producer warp
+constexpr int kABytes = BM * BK * 2;
+constexpr int kBBytes = BN * BK * 2;
+constexpr int kStageBytes = kABytes + kBBytes;
+constexpr int kSmem = 1024 + kStages * kStageBytes + 2 * kStages * 8;
+
+// The three products of a chunk of tokens [t0, t0 + rows):
+// - kDlogits: dl[t, v] = bf16((exp(x_t . wt_v - lse_t) - onehot) dloss_t)
+//   into the chunk's scratch; A = x (K-major, K = W), B = wt (K-major);
+// - kDx: dX[t] = dl[t] . wt, rounded once; A = dl (K-major, K = V), B = wt
+//   read as [V, W] (MN-major);
+// - kDw: dW^T[v] (+)= dl[:, v]^T . x, fp32 across chunks in their order,
+//   rounded once after the last; A = dl read as [rows, V] (MN-major, K =
+//   tokens), B = x (MN-major).
+enum Product { kDlogits = 0, kDx = 1, kDw = 2 };
+
+struct Maps {
+  CUtensorMap a, b;
+};
+
+struct Args {
+  const int* labels;
+  const float* lse;
+  const float* dloss;
+  bf16* dl;  // the chunk's dlogits, [dl_rows, dl_pitch]
+  bf16* dx;  // [T, W]
+  bf16* dw;  // [V, W]
+  float* dw_acc;  // [V, W] fp32, between chunks
+  int T, V, W, dl_pitch;
+  int t0, rows;    // the chunk
+  int mt, nt, nk;  // output tiles along M and N; ring stages along K
+  int first, last;
+};
+
+template <int P>
+__global__ void __launch_bounds__(kThreads, 1)
+fused_ce_bwd_gemm(const __grid_constant__ Maps maps, const Args g) {
+  constexpr int TA = P == kDw ? 1 : 0;
+  constexpr int TB = P == kDlogits ? 0 : 1;
+  extern __shared__ __align__(1024) unsigned char ce_smem[];
+  unsigned char* base = align_1024(ce_smem);
+  uint64_t* full = reinterpret_cast<uint64_t*>(base + kStages * kStageBytes);
+  uint64_t* empty = full + kStages;
+  const int tid = threadIdx.x;
+  // dlogits: the token tiles fastest, so that the blocks in flight share a
+  // vocabulary tile of wt; dX and dW: the W tiles fastest (they share an
+  // A tile)
+  const int m = P == kDlogits ? blockIdx.x % g.mt : blockIdx.x / g.nt;
+  const int n = P == kDlogits ? blockIdx.x / g.mt : blockIdx.x % g.nt;
+  const int m0 = m * BM, n0 = n * BN;
+  if (tid == 0) {
+    for (int s = 0; s < kStages; ++s) {
+      mbar_init(full + s, 1);
+      mbar_init(empty + s, 2);  // one arrival per consumer warpgroup
+    }
+    mbar_init_fence();
+  }
+  __syncthreads();
+
+  if (tid >= kConsumers) {  // the producer warp: one thread issues the TMA
+    if (tid == kConsumers)
+      for (int k = 0; k < g.nk; ++k) {
+        const int s = k % kStages, kc = k * BK;
+        mbar_wait(empty + s, ((k / kStages) & 1) ^ 1);
+        unsigned char* a_s = base + s * kStageBytes;
+        unsigned char* b_s = a_s + kABytes;
+        mbar_expect_tx(full + s, kStageBytes);
+        if (P == kDlogits) {
+          tma_load_2d(a_s, &maps.a, full + s, kc, g.t0 + m0);
+          tma_load_2d(b_s, &maps.b, full + s, kc, n0);
+        } else if (P == kDx) {
+          tma_load_2d(a_s, &maps.a, full + s, kc, m0);
+#pragma unroll
+          for (int p = 0; p < BN / 64; ++p)
+            tma_load_2d(b_s + p * 8192, &maps.b, full + s, n0 + 64 * p, kc);
+        } else {
+#pragma unroll
+          for (int h = 0; h < BM / 64; ++h)
+            tma_load_2d(a_s + h * 8192, &maps.a, full + s, m0 + 64 * h, kc);
+#pragma unroll
+          for (int p = 0; p < BN / 64; ++p)
+            tma_load_2d(b_s + p * 8192, &maps.b, full + s, n0 + 64 * p,
+                        g.t0 + kc);
+        }
+      }
+    return;
+  }
+
+  // consumers: warpgroup wg owns output rows m0 + 64 wg ..
+  const int wg = tid >> 7, warp = (tid >> 5) & 3, lane = tid & 31;
+  float acc[BN / 2];
+#pragma unroll
+  for (int i = 0; i < BN / 2; ++i) acc[i] = 0.f;
+  for (int k = 0; k < g.nk; ++k) {
+    const int s = k % kStages;
+    mbar_wait(full + s, (k / kStages) & 1);
+    __syncwarp();
+    const unsigned char* a_s = base + s * kStageBytes + wg * 8192;
+    const unsigned char* b_s = base + s * kStageBytes + kABytes;
+    fence_regs(acc);
+    wgmma_fence();
+#pragma unroll
+    for (int kk = 0; kk < BK / 16; ++kk)
+      wgmma_ss<TA, TB>(acc, TA ? desc_mn(a_s, kk, 8192) : desc_k(a_s, kk),
+                       TB ? desc_mn(b_s, kk, 8192) : desc_k(b_s, kk), 1);
+    wgmma_commit();
+    wgmma_wait<1>();  // the previous stage's products are done: release it
+    fence_regs(acc);
+    if (k > 0 && (tid & 127) == 0) mbar_arrive(empty + (k - 1) % kStages);
+  }
+  wgmma_wait<0>();
+  fence_regs(acc);
+
+  // acc[4 j + e]: row r_lo + 8 (e >> 1), column c_lo + 8 j + (e & 1)
+  const int r_lo = m0 + 64 * wg + 16 * warp + (lane >> 2);
+  const int c_lo = n0 + 2 * (lane & 3);
+#pragma unroll
+  for (int half = 0; half < 2; ++half) {
+    const int r = r_lo + 8 * half;
+    if (P == kDlogits) {
+      // every row of the chunk's tiles, zero past T; columns to dl_pitch,
+      // zero past V
+      const int t = g.t0 + r;
+      const bool ok = r < g.rows;
+      const float ls = ok ? g.lse[t] : 0.f, dl = ok ? g.dloss[t] : 0.f;
+      const int lbl = ok ? g.labels[t] : -1;
+      bf16* dst = g.dl + (long)r * g.dl_pitch;
+#pragma unroll
+      for (int j = 0; j < BN / 8; ++j) {
+        const int v = c_lo + 8 * j;
+        if (v >= g.dl_pitch) continue;
+        float d[2];
+#pragma unroll
+        for (int e = 0; e < 2; ++e)
+          d[e] = ok && v + e < g.V
+                     ? (expf(acc[4 * j + 2 * half + e] - ls) -
+                        (v + e == lbl ? 1.f : 0.f)) *
+                           dl
+                     : 0.f;
+        *reinterpret_cast<uint32_t*>(dst + v) = pack_bf16(d[0], d[1]);
+      }
+    } else if (P == kDx) {
+      if (r >= g.rows) continue;
+      bf16* dst = g.dx + (long)(g.t0 + r) * g.W;
+#pragma unroll
+      for (int j = 0; j < BN / 8; ++j) {
+        const int w = c_lo + 8 * j;
+        if (w < g.W)
+          *reinterpret_cast<uint32_t*>(dst + w) =
+              pack_bf16(acc[4 * j + 2 * half], acc[4 * j + 2 * half + 1]);
+      }
+    } else {
+      if (r >= g.V) continue;
+      const long row = (long)r * g.W;
+#pragma unroll
+      for (int j = 0; j < BN / 8; ++j) {
+        const int w = c_lo + 8 * j;
+        if (w >= g.W) continue;
+        float2 v = make_float2(acc[4 * j + 2 * half],
+                               acc[4 * j + 2 * half + 1]);
+        if (!g.first) {
+          const float2 o = *reinterpret_cast<const float2*>(g.dw_acc + row + w);
+          v.x = o.x + v.x;
+          v.y = o.y + v.y;
+        }
+        if (g.last)
+          *reinterpret_cast<uint32_t*>(g.dw + row + w) = pack_bf16(v.x, v.y);
+        else
+          *reinterpret_cast<float2*>(g.dw_acc + row + w) = v;
+      }
+    }
+  }
+}
+
+template <int P>
+cudaError_t launch(const CUtensorMap& a, const CUtensorMap& b, Args g,
+                   int mt, int nt, int nk, cudaStream_t st) {
+  const long blocks = (long)mt * nt;
+  if (blocks > 0x7fffffffL) return cudaErrorInvalidValue;
+  const cudaError_t e = allow_smem(fused_ce_bwd_gemm<P>, kSmem);
+  if (e != cudaSuccess) return e;
+  g.mt = mt;
+  g.nt = nt;
+  g.nk = nk;
+  fused_ce_bwd_gemm<P><<<(unsigned)blocks, kThreads, kSmem, st>>>(
+      Maps{a, b}, g);
+  return cudaGetLastError();
+}
+
+inline int cdiv(long a, int b) { return (int)((a + b - 1) / b); }
+
+}  // namespace hop
 
 // ----------------------------------------------------------------------------
 // fp32 CUDA-core kernels (any dtype, width and alignment)
@@ -678,7 +726,8 @@ extern "C" int mct_fused_ce_fwd(const void* x, const void* wt,
   return (int)cudaGetLastError();
 }
 
-// Backward: dx [T, W] and dw [V, W] fp32, zeroed by the caller, receive
+// Backward on the CUDA cores (fp32, and bf16 rows that are not 16-byte
+// aligned): dx [T, W] and dw [V, W] fp32, zeroed by the caller, receive
 // dlogits . wt and dlogits^T . x. Returns cudaGetLastError() after the
 // launch (0 on success).
 extern "C" int mct_fused_ce_bwd(const void* x, const void* wt,
@@ -688,16 +737,6 @@ extern "C" int mct_fused_ce_bwd(const void* x, const void* wt,
                                 void* stream) {
   if (!args_ok(T, V, W, dtype)) return (int)cudaErrorInvalidValue;
   cudaStream_t st = static_cast<cudaStream_t>(stream);
-  if (dtype == mct::kBFloat16 && tc::eligible(x, wt, W)) {
-    const cudaError_t e = allow_smem(tc::fused_ce_bwd, tc::kBwdSmem);
-    if (e != cudaSuccess) return (int)e;
-    if (!tc::blocks(T, V)) return (int)cudaErrorInvalidValue;
-    tc::fused_ce_bwd<<<tc::blocks(T, V), tc::kThreads, tc::kBwdSmem, st>>>(
-        static_cast<const __nv_bfloat16*>(x),
-        static_cast<const __nv_bfloat16*>(wt), labels, lse, dloss, dx, dw, T,
-        V, W);
-    return (int)cudaGetLastError();
-  }
   const dim3 grid((T + simt::BT - 1) / simt::BT,
                   (V + simt::BV - 1) / simt::BV);
   cudaError_t e;
@@ -719,3 +758,65 @@ extern "C" int mct_fused_ce_bwd(const void* x, const void* wt,
   }
   return (int)cudaGetLastError();
 }
+
+// Backward on wgmma, bf16 with 16-byte rows: dx [T, W] and dw [V, W] bf16,
+// each rounded once from its fp32 sum. dl is the [dl_rows, dl_pitch] bf16
+// scratch of one chunk's dlogits (dl_rows a multiple of 128, dl_pitch >= V
+// a multiple of 8); dw_acc the [V, W] fp32 sum between chunks (unused, may
+// be null, when T <= dl_rows). Three launches per chunk of dl_rows tokens,
+// in token order. Returns the first failure (a refused tensor map is
+// cudaErrorInvalidValue), else cudaGetLastError() (0 on success).
+extern "C" int mct_fused_ce_bwd_sm90(const void* x, const void* wt,
+                                     const int* labels, const float* lse,
+                                     const float* dloss, void* dx, void* dw,
+                                     float* dw_acc, void* dl, int dl_rows,
+                                     int dl_pitch, int T, int V, int W,
+                                     void* stream) {
+  if (!args_ok(T, V, W, mct::kBFloat16) || !tc::eligible(x, wt, W) ||
+      dl_rows < 1 || dl_rows % hop::BM || dl_pitch < V || dl_pitch % 8 ||
+      (T > dl_rows && dw_acc == nullptr))
+    return (int)cudaErrorInvalidValue;
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  using mct::sm90::matrix_map;
+  CUtensorMap x_k, wt_k, dl_k, wt_mn, dl_mn, x_mn;
+  if (!matrix_map(&x_k, x, T, W, hop::BM) ||
+      !matrix_map(&wt_k, wt, V, W, hop::BN) ||
+      !matrix_map(&dl_k, dl, dl_rows, dl_pitch, hop::BM) ||
+      !matrix_map(&wt_mn, wt, V, W, 64) ||
+      !matrix_map(&dl_mn, dl, dl_rows, dl_pitch, 64) ||
+      !matrix_map(&x_mn, x, T, W, 64))
+    return (int)cudaErrorInvalidValue;
+  hop::Args g{};
+  g.labels = labels;
+  g.lse = lse;
+  g.dloss = dloss;
+  g.dl = static_cast<__nv_bfloat16*>(dl);
+  g.dx = static_cast<__nv_bfloat16*>(dx);
+  g.dw = static_cast<__nv_bfloat16*>(dw);
+  g.dw_acc = dw_acc;
+  g.T = T;
+  g.V = V;
+  g.W = W;
+  g.dl_pitch = dl_pitch;
+  using hop::cdiv;
+  for (int t0 = 0; t0 < T; t0 += dl_rows) {
+    g.t0 = t0;
+    g.rows = T - t0 < dl_rows ? T - t0 : dl_rows;
+    g.first = t0 == 0;
+    g.last = t0 + g.rows >= T;
+    cudaError_t e = hop::launch<hop::kDlogits>(
+        x_k, wt_k, g, cdiv(g.rows, hop::BM), cdiv(dl_pitch, hop::BN),
+        cdiv(W, hop::BK), st);
+    if (e == cudaSuccess)
+      e = hop::launch<hop::kDx>(dl_k, wt_mn, g, cdiv(g.rows, hop::BM),
+                                cdiv(W, hop::BN), cdiv(dl_pitch, hop::BK), st);
+    if (e == cudaSuccess)
+      e = hop::launch<hop::kDw>(dl_mn, x_mn, g, cdiv(V, hop::BM),
+                                cdiv(W, hop::BN), cdiv(g.rows, hop::BK), st);
+    if (e != cudaSuccess) return (int)e;
+  }
+  return (int)cudaSuccess;
+}
+
+// One wgmma tile product per operand layout (sm90.cuh).
+MCT_SM90_TILE_CHECK_EXPORT

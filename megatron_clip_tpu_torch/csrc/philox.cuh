@@ -20,7 +20,8 @@
 //
 // What it costs: a call is 10 rounds of two 32x32->64 multiplies and a few
 // xors, some 100 integer instructions, for four scores (two in the kernels
-// that hold scores transposed, keys as rows). It adds integer work beside
+// that hold scores transposed, keys as rows, unless two lanes share their
+// calls: bits_t2_pair). It adds integer work beside
 // the tensor-core products; PERF.md has each kernel's time with and
 // without it.
 //
@@ -132,6 +133,54 @@ struct Dropout {
       m1[j] = at(bh, qj + 8, kj);
 #endif
     }
+  }
+
+  // quad_t2's eight multipliers as keep bits: bit j (m0[j]) and bit 4 + j
+  // (m1[j]), 1 where the probability is kept (times mult).
+  __device__ __forceinline__ uint32_t bits_t2(long bh, int q, int key) const {
+    float m0[4], m1[4];
+    quad_t2(m0, m1, bh, q, key);
+    uint32_t r = 0;
+#pragma unroll
+    for (int j = 0; j < 4; ++j)
+      r |= (uint32_t)(m0[j] != 0.f) << j | (uint32_t)(m1[j] != 0.f) << (4 + j);
+    return r;
+  }
+
+  // bits_t2 for two lanes, `partner` = lane ^ mask, that hold the same
+  // queries and the keys {key, key + 8} and {key ^ 1, (key ^ 1) + 8}: the
+  // four Philox calls of each lane are the other's too (a call covers a
+  // pair of adjacent keys), so each lane draws two of them, the lane with
+  // the even key the pair at key, the other the pair at key + 8, and they
+  // trade the bits of each other's keys. Every lane of the warp calls it.
+  __device__ __forceinline__ uint32_t bits_t2_pair(long bh, int q, int key,
+                                                   int mask) const {
+#if MCT_DROPOUT_FAULT == 0
+    const bool even = (key & 1) == 0;
+    const int col = (key & ~1) + (even ? 0 : 8);
+    uint32_t mine = 0, theirs = 0;
+#pragma unroll
+    for (int t = 0; t < 2; ++t) {  // queries q + t and q + t + 8
+      const uint4 w = words(bh, q + t, col);
+      // the even key's bits (words x, z) are the even lane's j = t (its
+      // key) or j = 2 + t (its key + 8), the odd key's (y, w) the odd
+      // lane's; bit j: query q + t, bit 4 + j: query q + t + 8
+      const uint32_t ev = (uint32_t)(w.x < threshold) << t |
+                          (uint32_t)(w.z < threshold) << (4 + t);
+      const uint32_t od = (uint32_t)(w.y < threshold) << t |
+                          (uint32_t)(w.w < threshold) << (4 + t);
+      if (even) {
+        mine |= ev;
+        theirs |= od;
+      } else {
+        mine |= od << 2;
+        theirs |= ev << 2;
+      }
+    }
+    return mine | __shfl_xor_sync(0xffffffffu, theirs, mask);
+#else
+    return bits_t2(bh, q, key);
+#endif
   }
 };
 

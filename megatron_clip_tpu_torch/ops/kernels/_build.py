@@ -123,10 +123,11 @@ def load(name: str, signatures: Optional[dict] = None) -> ctypes.CDLL:
     if lib is None:
         build([key])
         lib = ctypes.CDLL(str(_target(*key)))
-        for fn, (argtypes, restype) in (signatures or {}).items():
-            getattr(lib, fn).argtypes = argtypes
-            getattr(lib, fn).restype = restype
         _libs[key] = lib
+    # each caller's signatures, also on a library another caller loaded
+    for fn, (argtypes, restype) in (signatures or {}).items():
+        getattr(lib, fn).argtypes = argtypes
+        getattr(lib, fn).restype = restype
     return lib
 
 

@@ -56,6 +56,10 @@ from megatron_clip_tpu_torch.ops.dropout import (
 from megatron_clip_tpu_torch.ops.kernels import _build
 
 MAX_HEAD_DIM = 128
+# head dims whose bf16 fused backward runs on wgmma (csrc/flash_attention.cu
+# hop::); every other one on the mma.sync kernel it shares with the split
+# dKV backward
+WGMMA_FUSED_HEAD_DIMS = (64, 128)
 NEG_INF = -1e30
 # the JAX package's blocks: S padded to 128, then blocks of up to 1024; the
 # fused backward while the keys span at most 4 of them

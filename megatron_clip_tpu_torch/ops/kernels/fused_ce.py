@@ -3,10 +3,13 @@ plain versions and the autograd Function that joins them.
 
 Counterpart of `megatron_clip_tpu/ops/pallas/fused_ce.py::
 fused_linear_cross_entropy`: its forward kernel (`_fwd_kernel`) and its
-backward kernels (`_dx_kernel`, `_dw_kernel`), which the CUDA port forms in
-one backward kernel (`csrc/fused_ce.cu`). `fused_ce_fwd` and `fused_ce_bwd`
-take the plain version for a CPU tensor; for a CUDA tensor they launch the
-kernel or raise. `fused_linear_cross_entropy` is what `gpt_loss` calls.
+backward kernels (`_dx_kernel`, `_dw_kernel`), in `csrc/fused_ce.cu`. In
+bf16 with 16-byte rows the backward runs on wgmma as three products per
+chunk of `CHUNK_TOKENS` tokens (dlogits into a bf16 scratch, dX, dW summed
+across the chunks in fp32; `bwd_plan`), else as one CUDA-core kernel.
+`fused_ce_fwd` and `fused_ce_bwd` take the plain version for a CPU tensor;
+for a CUDA tensor they launch the kernels or raise, each counting one
+launch per call. `fused_linear_cross_entropy` is what `gpt_loss` calls.
 
 Arithmetic (plain versions and kernels alike, as the TPU kernels): logits
 x . w in fp32 from operands in x's dtype; lse = m + log(max(l, 1e-30));
@@ -23,9 +26,11 @@ transposed view, read in place); an untied `lm_head` [W, V] is copied
 transposed once per call (V W elements). dW is written in that [V, W]
 layout and returned as its [W, V] view.
 
-The backward kernel adds its partial products into fp32 buffers with
-atomics, so dX's and dW's last fp32 bits change from run to run before
-their rounding (ROADMAP Queue C).
+The wgmma backward gives the same bits every run (each output tile has one
+owner, the chunks are summed in token order); the CUDA-core kernel adds
+its partial products into fp32 buffers with atomics, so there dX's and
+dW's last fp32 bits change from run to run before their rounding (ROADMAP
+Queue C).
 """
 import ctypes
 from typing import Tuple
@@ -36,6 +41,10 @@ from megatron_clip_tpu_torch.ops.kernels import _build
 
 PLAIN_CHUNK = 1024
 PART_COLS = 64  # vocabulary columns of one forward partial (csrc/fused_ce.cu)
+# the wgmma backward's chunk of tokens: its dlogits scratch is [chunk, V]
+# bf16 (412 MB at V = 50304), and its dW sums cross chunks in fp32
+CHUNK_TOKENS = 4096
+_TILE_ROWS = 128  # the kernel's output rows per block
 
 _P, _I = ctypes.c_void_p, ctypes.c_int
 _SIGNATURES = {
@@ -45,6 +54,9 @@ _SIGNATURES = {
     # x, wt, labels, lse, dloss, dx, dw, T, V, W, dtype, stream
     "mct_fused_ce_bwd": ([_P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _P],
                          _I),
+    # x, wt, labels, lse, dloss, dx, dw, dw_acc, dl, dl_rows, dl_pitch, T, V,
+    # W, stream
+    "mct_fused_ce_bwd_sm90": ([_P] * 9 + [_I] * 5 + [_P], _I),
 }
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 
@@ -95,17 +107,29 @@ def fused_ce_dlogits_plain(x: torch.Tensor, wf: torch.Tensor,
     return (p * dloss.float()[:, None]).to(x.dtype)
 
 
+def bwd_plan(t: int, v: int, chunk: int = CHUNK_TOKENS) -> Tuple[int, int]:
+    """The wgmma backward's scratch for T = t tokens and V = v: (rows, the
+    tokens of one chunk, a multiple of the kernel's 128-row tiles and at
+    most `chunk`; pitch, V rounded up to 8 for 16-byte rows). The kernel
+    walks the chunks in token order."""
+    rows = min(chunk, -(-t // _TILE_ROWS) * _TILE_ROWS)
+    return rows, -(-v // 8) * 8
+
+
 def fused_ce_bwd_plain(x: torch.Tensor, w: torch.Tensor,
                        labels: torch.Tensor, lse: torch.Tensor,
-                       dloss: torch.Tensor
+                       dloss: torch.Tensor, chunk: int = PLAIN_CHUNK
                        ) -> Tuple[torch.Tensor, torch.Tensor]:
     """(dX [T, W] in x's dtype, dW [W, V] in w's dtype), as `_dx_kernel`
-    and `_dw_kernel` from the forward's lse."""
+    and `_dw_kernel` from the forward's lse, in chunks of `chunk` tokens:
+    each chunk's dlogits rounded to x's dtype, its dX rounded once, dW
+    summed across the chunks in fp32 in token order and rounded once (the
+    wgmma kernel's order at chunk = `bwd_plan`'s rows)."""
     wf = w.to(x.dtype).float()
     dx = torch.empty_like(x)
     dw = torch.zeros(wf.shape, dtype=torch.float32, device=x.device)
-    for i in _chunks(x.shape[0]):
-        j = slice(i, i + PLAIN_CHUNK)
+    for i in range(0, x.shape[0], chunk):
+        j = slice(i, i + chunk)
         dlog = fused_ce_dlogits_plain(x[j], wf, labels[j], lse[j],
                                       dloss[j]).float()
         dx[j] = (dlog @ wf.t()).to(x.dtype)
@@ -151,6 +175,13 @@ def _operands(name: str, x: torch.Tensor, w: torch.Tensor,
     if not wt.is_contiguous():  # an untied [W, V] head: one transposed copy
         wt = wt.contiguous()
     return wt, labels.to(torch.int32).contiguous()
+
+
+def _sm90_route(x: torch.Tensor, wt: torch.Tensor) -> bool:
+    """The backward runs on wgmma for bf16 with 16-byte rows (the TMA's
+    strides and addresses), else on the CUDA cores."""
+    return x.dtype == torch.bfloat16 and x.shape[1] % 8 == 0 and \
+        x.data_ptr() % 16 == 0 and wt.data_ptr() % 16 == 0
 
 
 def _launch(fn: str, x: torch.Tensor, args: list) -> None:
@@ -200,6 +231,20 @@ def fused_ce_bwd(x: torch.Tensor, w: torch.Tensor, labels: torch.Tensor,
     wt, lbl = _operands("fused_ce_bwd", x, w, labels, lse, dloss)
     t, wd = x.shape
     v = wt.shape[0]
+    if _sm90_route(x, wt):
+        rows, pitch = bwd_plan(t, v)
+        dl = torch.empty((rows, pitch), dtype=x.dtype, device=x.device)
+        dx = torch.empty_like(x)
+        dwt = torch.empty((v, wd), dtype=x.dtype, device=x.device)
+        acc = (torch.empty((v, wd), dtype=torch.float32, device=x.device)
+               if t > rows else None)
+        _launch("mct_fused_ce_bwd_sm90", x,
+                [x.data_ptr(), wt.data_ptr(), lbl.data_ptr(), lse.data_ptr(),
+                 dloss.data_ptr(), dx.data_ptr(), dwt.data_ptr(),
+                 None if acc is None else acc.data_ptr(), dl.data_ptr(),
+                 rows, pitch, t, v, wd])
+        fused_ce_bwd.launches += 1
+        return dx, dwt.t()
     dx = torch.zeros((t, wd), dtype=torch.float32, device=x.device)
     dwt = torch.zeros((v, wd), dtype=torch.float32, device=x.device)
     _launch("mct_fused_ce_bwd", x,

@@ -65,10 +65,12 @@ PIPELINE_SEED = 1234
 
 def _category(name: str) -> str:
     n = name.lower()
-    if "fused_ce_" in n:
+    if "fused_ce_" in n:  # fused_ce_bwd_gemm<P>: the backward's products
         return ("fused CE bwd (fused_ce.cu)" if "fused_ce_bwd" in n
                 else "fused CE fwd (fused_ce.cu)")
-    if "view<" in n:  # flash_attention.cu's kernels take View operands
+    if "hop::bwd_fused" in n:  # the fused flash backward on wgmma
+        return "attention bwd (flash_attention.cu)"
+    if "view<" in n:  # flash_attention.cu's other kernels take View operands
         return ("attention bwd (flash_attention.cu)" if "bwd_" in n
                 else "attention fwd (flash_attention.cu)")
     if "bwd_dq" in n or "bwd_dkdv" in n:  # saved-P and recompute (_rc)

@@ -150,3 +150,55 @@ def test_wrappers_refuse_a_graph_and_keep_forward_only_calls_cheap():
         per = ce.fused_linear_cross_entropy(xt, torch.from_numpy(wm),
                                             torch.from_numpy(lbl))
     assert per.shape == (8,) and per.grad_fn is None
+
+
+@pytest.mark.parametrize("t,v,rows,pitch", [(300, 1000, 384, 1000),
+                                            (16384, 50304, 4096, 50304),
+                                            (4096, 333, 4096, 336),
+                                            (4097, 50304, 4096, 50304),
+                                            (1, 7, 128, 8)])
+def test_backward_chunk_plan(t, v, rows, pitch):
+    """The wgmma backward's dlogits scratch: chunks of whole 128-row tiles,
+    at most CHUNK_TOKENS tokens; rows padded to 16 bytes."""
+    assert ce.bwd_plan(t, v) == (rows, pitch)
+    assert rows % 128 == 0 and rows <= ce.CHUNK_TOKENS and pitch % 8 == 0
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_chunked_backward_order_matches_jax(dtype):
+    """The backward in the wgmma kernel's order (dlogits per chunk of 128
+    tokens, dX rounded once per chunk, dW summed across three chunks in
+    fp32 and rounded once) against the JAX VJP, at the file's tolerances."""
+    t, w, v = 300, 128, 1000
+    x, wm, lbl, m = _inputs(t, w, v, seed=7)
+    rows, _ = ce.bwd_plan(t, v, chunk=128)
+    assert -(-t // rows) == 3
+    dloss = torch.from_numpy(m / m.sum())
+    if dtype == "float32":
+        _, (want_gx, want_gw) = _jax_loss_and_grads(x, wm, lbl, m)
+        xt, wt = torch.from_numpy(x), torch.from_numpy(wm)
+        _, lse = ce.fused_ce_fwd(xt, wt, torch.from_numpy(lbl))
+        gx, gw = ce.fused_ce_bwd_plain(xt, wt, torch.from_numpy(lbl), lse,
+                                       dloss, chunk=rows)
+        np.testing.assert_allclose(gx.numpy(), want_gx, atol=2e-5, rtol=0)
+        np.testing.assert_allclose(gw.numpy(), want_gw, atol=2e-5, rtol=0)
+        return
+    xb = jnp.asarray(x, jnp.bfloat16)
+    wb = jnp.asarray(wm, jnp.bfloat16)
+
+    def loss(x, w):
+        per = jax_ce.fused_linear_cross_entropy(x, w, jnp.asarray(lbl))
+        return jnp.sum(per * m) / m.sum()
+    want = jax.grad(loss, argnums=(0, 1))(xb, wb)
+    xt = torch.from_numpy(np.asarray(xb.astype(jnp.float32))).to(
+        torch.bfloat16)
+    wt = torch.from_numpy(np.asarray(wb.astype(jnp.float32))).to(
+        torch.bfloat16)
+    _, lse = ce.fused_ce_fwd(xt, wt, torch.from_numpy(lbl))
+    got = ce.fused_ce_bwd_plain(xt, wt, torch.from_numpy(lbl), lse, dloss,
+                                chunk=rows)
+    for g, w in zip(got, want):
+        assert g.dtype == torch.bfloat16
+        w = np.asarray(w.astype(jnp.float32))
+        np.testing.assert_allclose(g.float().numpy(), w, rtol=1.6e-2,
+                                   atol=2 ** -7 * np.abs(w).max())

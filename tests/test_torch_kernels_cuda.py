@@ -43,10 +43,13 @@ norm plus 1e-4 of the rms row norm. Under the causal mask the first keys'
 gradients are 100x the typical one's, so a bound scaled by the largest
 |value| would let a fault in most rows through; a dS, P or output rounded
 the other way moves a row by one ulp, at most 2^-7, of one of its terms. The
-fused backward adds dQ with fp32 atomics, whose order changes from run to
+fused backward adds dQ into fp32 with unordered adds (TMA reduce-adds at
+D = 64 and 128, atomics at other D), whose order changes from run to
 run: on a view its dQ is held to the contiguous run's within 1e-6 relative,
 or in bf16 within two bf16 ulps, since its rounding can fall either way;
-every other output of every kernel must be equal.
+every other output of every kernel must be equal. The wgmma tile check of
+each Hopper library (csrc/sm90.cuh) against the fp32 product of the same
+bf16 tiles: 1e-5 relative plus 1e-4 (fp32 sums of 64 exact products).
 
 The RMSNorm kernels (LayerNorm's without the mean and the bias) under the
 LayerNorm bounds. The fused lm-head cross entropy: loss and lse within
@@ -55,7 +58,8 @@ softmax sum folded per 64-column partial), fp32 gradients within 1e-5
 relative plus 5e-5 of the largest |value| (sums of T or V terms added with
 atomics in an order that changes from run to run), bf16 gradients row by
 row as the flash ones (dlogits rounded to bf16 on both sides from fp32
-logits summed in another order).
+logits summed in another order; the bf16 backward on wgmma is held at its
+tiles' edges against the plain version in its own chunked order).
 """
 import numpy as np
 import pytest
@@ -404,7 +408,46 @@ def test_flash_kernels_match_plain(cuda, dtype, b, h, sq, sk, d, causal):
             torch.testing.assert_close(got, want, rtol=5e-5, atol=5e-5)
         else:
             _close_rows(got, want)
-    assert torch.equal(fused[1], dk) and torch.equal(fused[2], dv)
+    if dtype == torch.float32 or d not in fa.WGMMA_FUSED_HEAD_DIMS:
+        # the same kernel forms the fused and the split dK, dV
+        assert torch.equal(fused[1], dk) and torch.equal(fused[2], dv)
+
+
+# The wgmma fused backward at its tiles' edges (128-key blocks, 64- or
+# 128-query tiles): lengths that are no multiple of them, Sq != Sk, both
+# head dims it takes, both masks, rate 0 and 0.1, on the packed
+# projection's views when Sq == Sk (bf16 gradients row by row)
+@pytest.mark.parametrize("rate", [0.0, 0.1])
+@pytest.mark.parametrize("causal", [False, True])
+@pytest.mark.parametrize("d", [64, 128])
+@pytest.mark.parametrize("sq,sk", [(333, 333), (300, 200), (200, 300)])
+def test_flash_wgmma_fused_backward_at_tile_edges(cuda, sq, sk, d, causal,
+                                                  rate):
+    b, h = 2, 3
+    gen = torch.Generator().manual_seed(sq + sk + d)
+    if sq == sk:
+        qkv = torch.randn(b, sq, 3 * h * d, generator=gen).to(
+            cuda, torch.bfloat16)
+        q, k, v = qkv.unflatten(-1, (3, h, d)).permute(2, 0, 3, 1,
+                                                       4).unbind(0)
+        do = torch.randn(b, sq, h, d, generator=gen).to(
+            cuda, torch.bfloat16).transpose(1, 2)
+    else:
+        q, k, v, do = _flash_inputs(cuda, torch.bfloat16, b, h, sq, sk, d)
+    drop = AttentionDropout(rate, 0x0123456789ABCDEF, 3) if rate else None
+    keep = None if drop is None else drop.multipliers(
+        b, h, sq, sk, fa.dropout_mult(rate), cuda)
+    scale = d ** -0.5
+    out, lse = fa.flash_fwd_plain(q, k, v, scale, causal, keep)
+    got = (fa.flash_bwd_fused(q, k, v, out, lse, do, causal=causal)
+           if drop is None else
+           fa.flash_bwd_fused_dropout(q, k, v, out, lse, do, drop,
+                                      causal=causal))
+    want = fa.flash_bwd_fused_plain(q, k, v, out, lse, do, scale, causal,
+                                    keep)
+    for g, w in zip(got, want):
+        assert g.shape == w.shape and g.dtype == torch.bfloat16
+        _close_rows(g, w)
 
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
@@ -547,6 +590,41 @@ def test_fused_ce_kernels_match_plain(cuda, dtype, t, w, v, tied):
                 g, want, rtol=1e-5, atol=5e-5 * float(want.abs().max()))
         else:
             _close_rows(g, want)
+
+
+# The wgmma backward at its tiles' edges (128 x 256 output tiles, chunks
+# of CHUNK_TOKENS tokens): T and V no multiples of them, T below one chunk
+# and above it (a ragged last chunk), tied and untied heads
+@pytest.mark.parametrize("t,w,v,tied", [(300, 256, 1000, True),
+                                        (129, 128, 257, False),
+                                        (4173, 512, 3000, False),
+                                        (8192, 256, 50304, True),
+                                        (4096 + 130, 384, 50304, True)])
+def test_fused_ce_wgmma_backward_at_tile_edges(cuda, t, w, v, tied):
+    x, head, labels, dloss = _ce_inputs(cuda, torch.bfloat16, t, w, v, tied)
+    _, lse = ce.fused_ce_fwd_plain(x, head, labels)
+    dx, dw = ce.fused_ce_bwd(x, head, labels, lse, dloss)
+    assert dx.dtype == dw.dtype == torch.bfloat16 and dw.shape == head.shape
+    want_dx, want_dw = ce.fused_ce_bwd_plain(x, head, labels, lse, dloss,
+                                             chunk=ce.bwd_plan(t, v)[0])
+    _close_rows(dx, want_dx)
+    _close_rows(dw.t(), want_dw.t())
+
+
+def test_wgmma_tile_products_match_fp32(cuda):
+    """Each Hopper library's wgmma tile check, every operand layout its
+    kernels use, through TMA and through swizzled stores."""
+    from megatron_clip_tpu_torch.ops.kernels import sm90
+    gen = torch.Generator().manual_seed(13)
+    a = torch.randn(64, 64, generator=gen).to(cuda, torch.bfloat16)
+    b = torch.randn(64, 128, generator=gen).to(cuda, torch.bfloat16)
+    want = sm90.tile_product_plain(a, b)
+    for lib in sm90.LIBRARIES:
+        for ta, tb, regs in sm90.LAYOUTS:
+            for tma in (0, 1):
+                got = sm90.tile_product(lib, a, b, ta=ta, tb=tb, a_regs=regs,
+                                        via_tma=tma)
+                torch.testing.assert_close(got, want, rtol=1e-5, atol=1e-4)
 
 
 def test_fused_ce_autograd_runs_both_kernels_into_the_tied_embedding(cuda):
