@@ -25,7 +25,11 @@ imports nothing of JAX or of the JAX package. Phases, each of which raises
      bf16, and the bf16 kernel against the plain version run in fp32 on the
      same bf16 inputs (tolerances in TOLERANCES, with their reasons); then
      every attention kernel on the [B, S, *] view of S-major storage, which
-     must give exactly what the contiguous tensor gives;
+     must give exactly what the contiguous tensor gives; and the wgmma
+     forwards (csrc/attn_fwd_sm90.cuh: the fused forward past S = 128, the
+     bf16 flash forward at D = 64 and 128) built to leave out the last key
+     of every 128-key tile, in the whole sequence or its late half, each
+     failing its bound;
   4. goldens: full-width ViT-B-32-quickgelu in fp32, weights rebuilt from
      tests/goldens/full/vitb32.npz's manifest, against open_CLIP's features
      (atol 1e-4);
@@ -226,6 +230,10 @@ PIPELINE_PARITY_SEQS = (512, 1280)
 # the kernels made wrong on purpose (csrc/philox.cuh): a mask drawn per
 # 64 x 64 tile, and one shifted by a column
 DROPOUT_FAULTS = ("MCT_DROPOUT_FAULT=1", "MCT_DROPOUT_FAULT=2")
+# the wgmma forwards made wrong on purpose (csrc/attn_fwd_sm90.cuh): the
+# last key of every 128-key tile left out, in the whole sequence and in the
+# tiles of its late half
+FWD_TILE_FAULTS = ("MCT_FWD_TILE_FAULT=1", "MCT_FWD_TILE_FAULT=2")
 
 
 _T0 = time.perf_counter()
@@ -460,7 +468,7 @@ def phase_build(kernels_build):
     log("[2] build")
     t0 = time.perf_counter()
     faults = [(name, (fault,)) for name in ("flash_attention", "fused_mha")
-              for fault in DROPOUT_FAULTS]
+              for fault in DROPOUT_FAULTS + FWD_TILE_FAULTS]
     took = kernels_build.build(list(kernels_build.SOURCES) + faults)
     log(f"  built {sorted(took)} in {time.perf_counter() - t0:.1f} s "
         f"(per source: {json.dumps({k: round(v, 1) for k, v in took.items()})})")
@@ -509,7 +517,8 @@ def phase_build(kernels_build):
 #   both sides, rounded only for dV, where a flip moves one term by an ulp.
 # - fused_mha_fwd stats, each row's max scaled score and softmax sum: fp32
 #   sums of up to 1,024 exponentials in another order than the plain
-#   version's, rescaled once per 64-key tile: 1e-4 relative plus 1e-5.
+#   version's, rescaled once per key tile (128 keys on wgmma, 64 on
+#   mma.sync), the wgmma kernel's on exp2: 1e-4 relative plus 1e-5.
 # - fused_mha_fwd P, the saved probabilities: relative, as P's typical
 #   value is 1/S. fp32: 1e-5 (the scores' fp32 rounding, carried by exp)
 #   plus 1e-7. bf16: both sides round the same fp32 softmax to bf16, so
@@ -523,8 +532,9 @@ def phase_build(kernels_build):
 #   hundreds: 1e-4 absolute plus 2e-6 of the largest |sum| (~16 fp32 ulps
 #   of it) plus 1e-5 relative.
 # - flash_fwd fp32: 2e-5, as tests/test_flash_attention.py holds the TPU
-#   kernel. bf16: the kernel rounds P per 64-key tile against the running
-#   max, the plain version once against the row's max, so each term of P.V
+#   kernel. bf16: the kernel rounds P per key tile (128 keys on wgmma at
+#   D = 64 and 128, 64 on mma.sync) against the running max, the plain
+#   version once against the row's max, so each term of P.V
 #   can differ by one bf16 ulp of its P, with signs that do not line up:
 #   2^-8 of the largest |out| plus one ulp of the output (rtol 8e-3).
 # - flash_fwd lse: fp32 sums of up to 8,192 exponentials in another order:
@@ -663,9 +673,12 @@ def smajor_views(mha, gen) -> None:
     """Every attention kernel on the [B, S, *] view of [S, B, *] storage,
     the layout of fused_mha_packed_sm, against the same kernel on the
     contiguous tensor: the arithmetic is the same, so the results must be
-    equal, and the outputs come back S-major."""
+    equal, and the outputs come back S-major. The forwards at S = 257,
+    D = 64 and S = 512, D = 128 run on wgmma (csrc/attn_fwd_sm90.cuh), the
+    others on mma.sync."""
     for b, s, h, d, causal in [(8, 257, 16, 80, False), (8, 77, 16, 64, True),
-                               (3, 33, 2, 40, True)]:
+                               (3, 33, 2, 40, True), (8, 257, 16, 64, False),
+                               (4, 512, 16, 128, True)]:
         for dtype in (torch.float32, torch.bfloat16):
             qkv = torch.randn(b, s, 3 * h * d, device="cuda", generator=gen,
                               dtype=dtype)
@@ -1194,6 +1207,16 @@ def packed_grads(errs, fa, label, q, k, v, out, lse, do, scale, causal,
                     lambda dt: want(dt)[1:])
 
 
+def bf16_share(got: torch.Tensor, want: torch.Tensor, name: str) -> float:
+    """The share of `name`'s bf16 bound (TOLERANCES: atol, rtol[, atol as a
+    share of max|want|]) that the worst element of `got` uses."""
+    atol, rtol, *of_max = TOLERANCES[name]["bf16"]
+    got, want = got.float(), want.float()
+    tol = atol + (of_max[0] if of_max else 0.0) * want.abs().max() \
+        + rtol * want.abs()
+    return float(((got - want).abs() / tol).max())
+
+
 def dropout_teeth(kernels_build, gen, mha) -> None:
     """The kernels built to draw a wrong mask (DROPOUT_FAULTS: per 64 x 64
     tile, or shifted a column), run through the same wrappers on the
@@ -1233,29 +1256,21 @@ def dropout_teeth(kernels_build, gen, mha) -> None:
                 used[f"{lib.__name__.split('.')[-1]} mask: differing bits"] \
                     = int((bad != truth).sum())
             got, _ = fa.flash_fwd_dropout(q, k, v, drop, causal=True)
-            atol, rtol, of_max = TOLERANCES["flash_fwd_dropout"]["bf16"]
-            used["flash_fwd_dropout"] = float(((got.float() - out.float())
-                                               .abs() / (
-                atol + of_max * out.float().abs().max()
-                + rtol * out.float().abs())).max())
+            used["flash_fwd_dropout"] = bf16_share(got, out,
+                                                   "flash_fwd_dropout")
             grads = fa.flash_bwd_fused_dropout(q, k, v, out, lse, do, drop,
                                                causal=True)
             rel, floor = TOLERANCES["flash_bwd_fused_dropout"]["bf16"]
             used["flash_bwd_fused_dropout"] = max(
                 rows_used(gr, w, rel, floor)
                 for gr, w in zip(grads, (dq, dk, dv)))
-            f_got, f_st = mha.fused_mha_dropout_fwd(qkv, h, drop, causal=True)
-            atol, rtol = TOLERANCES["fused_mha_dropout_fwd"]["bf16"]
-            used["fused_mha_dropout_fwd"] = float(
-                ((f_got.float() - f_out.float()).abs()
-                 / (atol + rtol * f_out.float().abs())).max())
+            f_got, _ = mha.fused_mha_dropout_fwd(qkv, h, drop, causal=True)
+            used["fused_mha_dropout_fwd"] = bf16_share(
+                f_got, f_out, "fused_mha_dropout_fwd")
             bg = mha.fused_mha_dropout_bwd(qkv, g, f_stats, h, drop,
                                            causal=True)
-            atol, rtol, of_max = TOLERANCES["fused_mha_dropout_bwd"]["bf16"]
-            used["fused_mha_dropout_bwd"] = float(
-                ((bg.float() - f_grad.float()).abs()
-                 / (atol + of_max * f_grad.float().abs().max()
-                    + rtol * f_grad.float().abs())).max())
+            used["fused_mha_dropout_bwd"] = bf16_share(
+                bg, f_grad, "fused_mha_dropout_bwd")
         log(f"  dropout kernels built with {fault}: {json.dumps(used)} "
             "(mask: bits that differ from the plain Philox; kernels: share "
             "of the bound used)")
@@ -1264,6 +1279,60 @@ def dropout_teeth(kernels_build, gen, mha) -> None:
                 raise AssertionError(f"{fault}: {what} passes the check of a "
                                      "right kernel")
     del q, k, v, do, keep, out, lse, dq, dk, dv, qkv, g, fkeep
+    torch.cuda.empty_cache()
+
+
+# the forward teeth: the fused MHA with row statistics at the pipeline
+# GPT's heads (S = 512, D = 128, causal: K resident) and ViT-L/14's vision
+# tower (S = 257, D = 64); flash at GPT-345m's and the pipeline GPT's heads
+# (S = 2048, D = 64 and 128, causal); each (B, S, H, D, causal)
+FWD_TEETH_FUSED = ((2, 512, 16, 128, True), (4, 257, 16, 64, False))
+FWD_TEETH_FLASH = ((2, 2048, 16, 64, True), (2, 2048, 16, 128, True))
+
+
+def fwd_teeth(kernels_build, gen, mha) -> None:
+    """The wgmma forwards built wrong on purpose (FWD_TILE_FAULTS), as an
+    off-by-one at a key tile's bound would: the last key of every 128-key
+    tile left out (masked, so its p is 0: its V row adds nothing and its
+    exponential leaves the sum), in the whole sequence or in the tiles of
+    its late half. Run through the same wrappers and held against the plain
+    version on the true inputs, each forward's output must fail the bf16
+    bound that phase 3 holds the right kernels to (TOLERANCES["fused_mha_fwd"]
+    and ["flash_fwd"]); the share of the statistics' or lse's bound is
+    logged beside it."""
+    from megatron_clip_tpu_torch.ops.kernels import flash_attention as fa
+    dt = torch.bfloat16
+    cases = []
+    for b, s, h, d, causal in FWD_TEETH_FUSED:
+        qkv = torch.randn(b, s, 3 * h * d, device="cuda", generator=gen,
+                          dtype=dt)
+        want = mha.fused_mha_plain(qkv, h, d ** -0.5, causal, with_stats=True)
+        cases.append((f"B={b} S={s} H={h} D={d} causal={causal}",
+                      "fused_mha_fwd", "fused_mha_fwd stats",
+                      lambda qkv=qkv, h=h, causal=causal: mha.fused_mha_fwd(
+                          qkv, h, causal=causal, with_stats=True), want))
+    for b, s, h, d, causal in FWD_TEETH_FLASH:
+        q, k, v = (torch.randn(b, h, s, d, device="cuda", generator=gen,
+                               dtype=dt) for _ in range(3))
+        want = fa.flash_fwd_plain(q, k, v, d ** -0.5, causal)
+        cases.append((f"B={b} S={s} H={h} D={d} causal={causal}",
+                      "flash_fwd", "flash_fwd lse",
+                      lambda q=q, k=k, v=v, causal=causal: fa.flash_fwd(
+                          q, k, v, causal=causal), want))
+    for fault in FWD_TILE_FAULTS:
+        with kernels_build.variant(fault):
+            for label, name, residual, run, (want, want_res) in cases:
+                got, got_res = run()
+                out_used = bf16_share(got, want, name)
+                res_used = bf16_share(got_res, want_res, residual)
+                log(f"  {name} {label} built with {fault}: {out_used:.3f} of "
+                    f"the output's bound, {res_used:.3f} of the "
+                    f"{residual.split()[-1]} bound")
+                if out_used <= 1:
+                    raise AssertionError(
+                        f"{name} {label}: the bound passes a forward built "
+                        f"with {fault}")
+    del cases
     torch.cuda.empty_cache()
 
 
@@ -1277,15 +1346,16 @@ def sm90_tile_checks(gen) -> None:
     from megatron_clip_tpu_torch.ops.kernels import sm90
     a = torch.randn(64, 64, device="cuda", generator=gen).to(torch.bfloat16)
     b = torch.randn(64, 128, device="cuda", generator=gen).to(torch.bfloat16)
-    want = sm90.tile_product_plain(a, b)
     major = ("K-major", "MN-major")
     for lib in sm90.LIBRARIES:
-        for ta, tb, regs in sm90.LAYOUTS:
+        for ta, tb, regs, n in sm90.LAYOUTS:
+            bn = b[:, :n]
+            want = sm90.tile_product_plain(a, bn)
             for tma in (0, 1):
                 a_from = "registers" if regs else major[ta]
-                label = (f"wgmma tile {lib}: A {a_from}, B {major[tb]}, "
-                         f"{'TMA' if tma else 'stores'}")
-                compare(label, sm90.tile_product(lib, a, b, ta=ta, tb=tb,
+                label = (f"wgmma tile {lib}: N={n}, A {a_from}, B "
+                         f"{major[tb]}, {'TMA' if tma else 'stores'}")
+                compare(label, sm90.tile_product(lib, a, bn, ta=ta, tb=tb,
                                                  a_regs=regs, via_tma=tma),
                         want, 1e-4, 1e-5)
 
@@ -1355,6 +1425,7 @@ def phase_kernels(mha, ln):
     flash_dropout_checks(errs, gen)
     from megatron_clip_tpu_torch.ops.kernels import _build
     dropout_teeth(_build, gen, mha)
+    fwd_teeth(_build, gen, mha)
     # the legs' LayerNorms: rows B*S at the tower's width H*D; GPT-345m's
     # and the pipeline GPT's: rows B*S at their widths
     legs_ln = [(b * s, h * d) for _, _, b, s, h, d, _ in LEG_ATTENTION]

@@ -24,7 +24,8 @@
 // rescales its fp32 accumulator by exp(m_old - m_new) at each tile, and
 // writes out = acc / l and lse = m + log(l), with l = 0 taken as 1 (out 0,
 // lse -1e30 for a row that saw no key). The TPU kernel rounds P per 1024-key
-// block, this kernel per 64-key tile (32 on the CUDA cores): P's bf16
+// block, this kernel per 128-key tile on wgmma (bf16 at D = 64 and 128), per
+// 64-key tile on mma.sync and per 32-key tile on the CUDA cores: P's bf16
 // rounding is taken against another running max, which moves out by at most
 // a bf16 rounding. The backward forms P = exp(s - lse) in fp32,
 // dP = dO V^T in fp32, dS = P (dP - delta) scale in fp32 with
@@ -61,6 +62,18 @@
 // probabilities stay in registers, and causal blocks stop at the diagonal.
 //
 // Design.
+// - The forward in bf16 at D = 64 and D = 128 (the GPTs' heads):
+//   attn_fwd_sm90.cuh's warp-specialised wgmma kernel with the online
+//   softmax, one block per (128 queries, head, batch), a producer warp
+//   streaming 128-key K and V tiles through TMA rings, two consumer
+//   warpgroups of 64 rows (that header's note has the design). Every other
+//   D, and operands TMA cannot read (a base not 16-byte aligned, a stride
+//   not a multiple of 8), stay on tc::fwd or simt::fwd below. Phase 6 of
+//   chip_smoke.py on the H100 (NVIDIA H100 80GB HBM3, 700 W), causal on
+//   the packed projection's head views: 0.1834 ms at GPT-345m's B = 6,
+//   S = 2048, D = 64 (tc::fwd 0.4107 before; SDPA 0.1414), 0.2961 and
+//   0.5532 ms at the pipeline GPT's B = 8, S = 2048, D = 128, rate 0 and
+//   0.1 (tc::fwd 1.0608 and 1.1803; SDPA 0.2618 and 0.5440).
 // - hop::bwd_fused, the fused backward in bf16 at D = 64 and D = 128 (the
 //   GPTs' heads) on wgmma (sm90.cuh): one block per (128 keys, head,
 //   batch), two consumer warpgroups of 64 keys each. K and V stay in shared
@@ -86,7 +99,8 @@
 //   overlap.
 // - tc:: (bf16 with D a multiple of 8 and 16-byte aligned rows), 4 warps
 //   per block, 16 rows each, on mma.sync m16n8k16:
-//   - fwd: one block per (64 queries, head, batch). Q is staged once; each
+//   - fwd (D other than 64 and 128): one block per (64 queries, head,
+//     batch). Q is staged once; each
 //     64-key tile of K and V is staged, S = Q K^T runs from shared memory,
 //     the online softmax updates in the accumulators, whose values become
 //     P's A fragments (rounded to bf16) for O += P V.
@@ -104,13 +118,14 @@
 // cores, 16 rows (or keys) per block, 32-key (or query) tiles, one key (or
 // query) per lane, which keeps fp32 inputs at full fp32 precision (no TF32).
 //
-// Later work: the forward and the split backward on wgmma; overlapping one
-// warpgroup's softmax with the other's products.
+// Later work: the split backward on wgmma; overlapping one warpgroup's
+// softmax with the other's products, in the forward and the backward.
 #include <math_constants.h>
 #include <stdint.h>
 
 #include "common.cuh"
 #include "mma_tiles.cuh"
+#include "attn_fwd_sm90.cuh"
 #include "philox.cuh"
 #include "sm90.cuh"
 
@@ -1062,23 +1077,6 @@ struct Args {
   float scale;
 };
 
-// Columns [col, col + 64) of rows [s, s + box rows) of head (b, h) of a
-// view's map into a panel.
-__device__ __forceinline__ void load_rows(void* dst, const CUtensorMap* m,
-                                          uint64_t* bar, int perm, int col,
-                                          int s, int h, int b) {
-  const int ps = perm & 3, ph = (perm >> 2) & 3;
-  const int c1 = ps == 1 ? s : ph == 1 ? h : b;
-  const int c2 = ps == 2 ? s : ph == 2 ? h : b;
-  const int c3 = ps == 3 ? s : ph == 3 ? h : b;
-  tma_load_4d(dst, m, bar, col, c1, c2, c3);
-}
-
-// Barrier `id` (1, 2) of the 128 threads of one warpgroup.
-__device__ __forceinline__ void named_sync(int id) {
-  asm volatile("bar.sync %0, 128;\n" ::"r"(id) : "memory");
-}
-
 // dK and dV of 128 keys and their share of dQ (see the file's note).
 template <int D, bool kDrop>
 __global__ void __launch_bounds__(kThreads, 1)
@@ -1105,10 +1103,10 @@ bwd_fused(const __grid_constant__ Maps maps, const Args g, Dropout drop) {
     mbar_expect_tx(bar, 2 * L::kQStage + 2 * L::kRowBox * 4);
 #pragma unroll
     for (int p = 0; p < kP; ++p) {
-      load_rows(base + L::kQs + st * L::kQStage + p * L::kQPanel, &maps.q,
-                bar, g.perm_q, 64 * p, q0, h, b);
-      load_rows(base + L::kDO + st * L::kQStage + p * L::kQPanel, &maps.g,
-                bar, g.perm_g, 64 * p, q0, h, b);
+      load_view_rows(base + L::kQs + st * L::kQStage + p * L::kQPanel,
+                     &maps.q, bar, g.perm_q, 64 * p, q0, h, b);
+      load_view_rows(base + L::kDO + st * L::kQStage + p * L::kQPanel,
+                     &maps.g, bar, g.perm_g, 64 * p, q0, h, b);
     }
     const int row0 = (int)(bh * g.Sq + q0) & ~3;
     tma_load_1d(base + L::kLse + st * L::kRowStage, &maps.lse, bar, row0);
@@ -1124,10 +1122,10 @@ bwd_fused(const __grid_constant__ Maps maps, const Args g, Dropout drop) {
     mbar_expect_tx(bars, 2 * kP * kPanel);
 #pragma unroll
     for (int p = 0; p < kP; ++p) {
-      load_rows(base + L::kK + p * kPanel, &maps.k, bars, g.perm_k, 64 * p,
-                k0, h, b);
-      load_rows(base + L::kV + p * kPanel, &maps.v, bars, g.perm_v, 64 * p,
-                k0, h, b);
+      load_view_rows(base + L::kK + p * kPanel, &maps.k, bars, g.perm_k,
+                     64 * p, k0, h, b);
+      load_view_rows(base + L::kV + p * kPanel, &maps.v, bars, g.perm_v,
+                     64 * p, k0, h, b);
     }
     if (ntiles > 0) issue(0);
   }
@@ -1288,7 +1286,7 @@ bwd_fused(const __grid_constant__ Maps maps, const Args g, Dropout drop) {
     // the fp32 partial of dQ staged in the warpgroup's two boxes, then
     // added into dq_acc by two TMA reduce-adds (rows past Sq left out)
     if (dq_issuer) bulk_wait_read<0>();  // the last tile's boxes are read
-    named_sync(1 + wg);
+    named_sync(1 + wg, 128);
 #pragma unroll
     for (int j = 0; j < 8; ++j)
 #pragma unroll
@@ -1302,7 +1300,7 @@ bwd_fused(const __grid_constant__ Maps maps, const Args g, Dropout drop) {
             make_float2(dq[4 * j + 2 * half], dq[4 * j + 2 * half + 1]);
       }
     fence_async_smem();
-    named_sync(1 + wg);
+    named_sync(1 + wg, 128);
     if (dq_issuer) {
       const int q = q0 + (D == 64 ? 64 * wg : 0);
       const int col = D == 64 ? 0 : 64 * wg;
@@ -1328,33 +1326,6 @@ bwd_fused(const __grid_constant__ Maps maps, const Args g, Dropout drop) {
           pack_bf16(dv[4 * j + 2 * half], dv[4 * j + 2 * half + 1]);
     }
   }
-}
-
-// A 4-D map of a [B, H, S, D] view (D contiguous, strides in elements),
-// its other axes in the order of their strides, boxes of 64 columns x
-// `rows` of one head; perm receives the map dimensions of (s, h, b).
-inline bool view_map(CUtensorMap* m, int& perm, const void* p, long sb,
-                     long sh, long ss, int B, int H, int S, int D, int rows) {
-  struct Axis {
-    long stride;
-    int n, box, id;
-  } ax[3] = {{ss, S, rows, 0}, {sh, H, 1, 1}, {sb, B, 1, 2}};
-  for (int i = 1; i < 3; ++i)
-    for (int j = i; j > 0 && ax[j].stride < ax[j - 1].stride; --j) {
-      const Axis t = ax[j];
-      ax[j] = ax[j - 1];
-      ax[j - 1] = t;
-    }
-  const uint64_t dims[4] = {(uint64_t)D, (uint64_t)ax[0].n, (uint64_t)ax[1].n,
-                            (uint64_t)ax[2].n};
-  const uint64_t strides[3] = {(uint64_t)ax[0].stride * 2,
-                               (uint64_t)ax[1].stride * 2,
-                               (uint64_t)ax[2].stride * 2};
-  const uint32_t box[4] = {64, (uint32_t)ax[0].box, (uint32_t)ax[1].box,
-                           (uint32_t)ax[2].box};
-  perm = 0;
-  for (int i = 0; i < 3; ++i) perm |= (i + 1) << (2 * ax[i].id);
-  return make_map(m, true, true, 4, p, dims, strides, box);
 }
 
 template <int D, bool kDrop>
@@ -1417,15 +1388,20 @@ cudaError_t launch_fwd_as(View<const bf16> q, View<const bf16> k,
   return cudaGetLastError();
 }
 
+// D = 64 and 128 never come here: mct_flash_fwd gives every operand
+// use_tc takes at those D to attn_fwd_sm90.cuh's kernel.
 template <int DP>
 cudaError_t launch_fwd(View<const bf16> q, View<const bf16> k,
                        View<const bf16> v, View<bf16> o, float* lse, int B,
                        int H, int Sq, int Sk, int D, float scale, int causal,
                        const Dropout* drop, cudaStream_t st) {
-  return drop ? launch_fwd_as<DP, true>(q, k, v, o, lse, B, H, Sq, Sk, D,
-                                        scale, causal, *drop, st)
-              : launch_fwd_as<DP, false>(q, k, v, o, lse, B, H, Sq, Sk, D,
-                                         scale, causal, Dropout{}, st);
+  if constexpr (DP == 64 || DP == 128)
+    return cudaErrorInvalidValue;
+  else
+    return drop ? launch_fwd_as<DP, true>(q, k, v, o, lse, B, H, Sq, Sk, D,
+                                          scale, causal, *drop, st)
+                : launch_fwd_as<DP, false>(q, k, v, o, lse, B, H, Sq, Sk,
+                                           D, scale, causal, Dropout{}, st);
 }
 
 template <int DP, bool kDQ, bool kDrop>
@@ -1611,6 +1587,24 @@ extern "C" int mct_flash_fwd(MCT_VIEW_ARGS(q), MCT_VIEW_ARGS(k),
         MCT_VIEW(const float, v), MCT_VIEW(float, o), l, B, H, Sq, Sk, D,
         scale, causal, dr, st);
   if (dtype != mct::kBFloat16) return (int)cudaErrorInvalidValue;
+  if (mct::attn_fwd::eligible(D, {q, k, v, o},
+                              {MCT_STRIDES(q), MCT_STRIDES(k), MCT_STRIDES(v),
+                               MCT_STRIDES(o)})) {
+    mct::attn_fwd::Args a{};
+    a.o = static_cast<bf16*>(const_cast<void*>(o));
+    a.ob = o_b;
+    a.oh = o_h;
+    a.os = o_s;
+    a.lse = l;
+    a.H = H;
+    a.Sq = Sq;
+    a.Sk = Sk;
+    a.causal = causal;
+    a.scale = scale;
+    return (int)mct::attn_fwd::launch<false>(
+        D, {q, MCT_STRIDES(q)}, {k, MCT_STRIDES(k)}, {v, MCT_STRIDES(v)}, a,
+        B, dr, st);
+  }
   if (use_tc(D, {q, k, v, o},
              {MCT_STRIDES(q), MCT_STRIDES(k), MCT_STRIDES(v), MCT_STRIDES(o)}))
     return (int)tc::dispatch_fwd(MCT_VIEW(const bf16, q),

@@ -83,6 +83,28 @@
 // to a [B*H*S] fp32 scratch; part 2 owns keys and accumulates dK and dV over
 // the query tiles (from its first key on, when causal), reading delta.
 //
+// - The forward in bf16 at D = 64 and 128 past S = 128 (ViT-L/14's
+//   vision tower, the pipeline GPT's S = 512 with dropout; with row
+//   statistics on the recompute paths, with P or with neither elsewhere):
+//   attn_fwd_sm90.cuh's warp-specialised wgmma kernel with the two-pass
+//   softmax, one block per (128 rows, head, batch), K and V tiles of 128
+//   keys from TMA rings (K resident across both passes up to S = 1024 at
+//   D = 64 and S = 512 at D = 128), the normalised P rounded to bf16 in
+//   registers before P.V (that header's note has the design). One kernel
+//   takes every mode there, so the saved-P and recompute modes give the
+//   same output (phase 8 holds ViT-L/14's first loss equal in both). At
+//   S <= 128 one key tile holds every key and tc::fwd's 64-row blocks of
+//   128 threads, many to an SM, finish first: ViT-L/14's text tower with
+//   stats (B = 64, S = 77, H = 12, causal) took 0.0803 ms on the wgmma
+//   kernel's first version, 0.0460 to 0.0564 on tc::fwd (separate runs).
+//   Phase 6 of chip_smoke.py on the H100 (NVIDIA H100 80GB HBM3, 700 W),
+//   with stats: 0.2162 ms at ViT-L/14's
+//   B = 64, S = 257, D = 64 (tc::fwd 0.3462 before; SDPA 0.1175), 0.1963
+//   and 0.2699 ms at the pipeline GPT's B = 32, S = 512, D = 128, causal,
+//   rate 0 and 0.1 (tc::fwd 0.5637 and 0.6163; SDPA 0.1040 and 0.1859).
+//   D = 80 (ViT-H/14's vision tower: 0.1646 ms on tc::fwd), S <= 128 (the
+//   serving forward, ViT-B/32's saved-P training, the text towers) and
+//   operands TMA cannot read stay on tc:: below.
 // - tc:: (bf16, D a multiple of 8, 16-byte aligned rows; the serving and
 //   training paths): one block per (64 rows, head, batch), 4 warps of 16
 //   rows. Tiles of 64 rows are staged in shared memory with 16-byte loads
@@ -119,14 +141,16 @@
 // Shared memory 70 KB at D = 128 for both parts. On the CUDA cores the
 // saved-P kernels take the recompute as a template switch.
 //
-// wgmma/TMA tiles, keeping several heads per block and one backward kernel
-// for S <= 64 are later work.
+// The backward on wgmma/TMA tiles, keeping several heads per block and one
+// backward kernel for S <= 64 are later work.
 #include <math_constants.h>
 #include <stdint.h>
 
+#include "attn_fwd_sm90.cuh"
 #include "common.cuh"
 #include "mma_tiles.cuh"
 #include "philox.cuh"
+#include "sm90.cuh"
 
 namespace {
 
@@ -1722,6 +1746,29 @@ extern "C" int mct_fused_mha_fwd(const void* qkv, long long qkv_b,
     return (int)simt::launch<float>(qkv, pq, out, po, probs, m, l, B, S, H, D,
                                     scale, causal, dr, st);
   if (dtype != mct::kBFloat16) return (int)cudaErrorInvalidValue;
+  if (S > mct::attn_fwd::kN &&
+      mct::attn_fwd::eligible(D, {qkv, out, probs},
+                              {qkv_b, qkv_s, out_b, out_s})) {
+    // past one key tile (the file's note): q, k and v as the [B, H, S, D]
+    // views of qkv's columns
+    const __nv_bfloat16* x = static_cast<const __nv_bfloat16*>(qkv);
+    const long long hd = (long long)H * D;
+    mct::attn_fwd::Args a{};
+    a.o = static_cast<__nv_bfloat16*>(out);
+    a.ob = out_b;
+    a.oh = D;
+    a.os = out_s;
+    a.row_max = m;
+    a.row_sum = l;
+    a.probs = static_cast<__nv_bfloat16*>(probs);
+    a.H = H;
+    a.Sq = a.Sk = S;
+    a.causal = causal;
+    a.scale = scale;
+    return (int)mct::attn_fwd::launch<true>(
+        D, {x, qkv_b, D, qkv_s}, {x + hd, qkv_b, D, qkv_s},
+        {x + 2 * hd, qkv_b, D, qkv_s}, a, B, dr, st);
+  }
   if (tc::eligible(D, {qkv, out}, {qkv_b, qkv_s, out_b, out_s}))
     return (int)tc::dispatch(qkv, pq, out, po, probs, m, l, B, S, H, D, scale,
                              causal, dr, st);
@@ -1788,3 +1835,6 @@ extern "C" int mct_fused_mha_bwd_recompute(
 
 // The keep bits the kernels above draw (philox.cuh).
 MCT_DROPOUT_MASK_EXPORT
+
+// One wgmma tile product per operand layout (sm90.cuh).
+MCT_SM90_TILE_CHECK_EXPORT

@@ -1,13 +1,16 @@
 // Hopper (sm_90a) building blocks shared by the kernels that run on wgmma:
-// the fused CE backward (fused_ce.cu) and the fused flash backward
-// (flash_attention.cu).
+// the fused CE backward (fused_ce.cu), the fused flash backward
+// (flash_attention.cu) and the attention forwards (attn_fwd_sm90.cuh, in
+// flash_attention.cu and fused_mha.cu).
 //
 // - wgmma: the warpgroup's 64-row product D[64 x N] += A[64 x 16] B[16 x N]
 //   in bf16 with fp32 accumulation (N = 64, 128, 256), A and B read from
 //   shared memory through matrix descriptors (wgmma_ss) or A from registers
-//   (wgmma_rs, N = 128), with the fence, commit and wait that order them;
-//   fence_regs keeps the compiler from touching an accumulator while a
+//   (wgmma_rs, N = 64 and 128), with the fence, commit and wait that order
+//   them; fence_regs keeps the compiler from touching an accumulator while a
 //   product is in flight.
+// - setmaxnreg: a warp-specialised block hands registers from its producer
+//   warpgroup to its consumers.
 // - Operand tiles in shared memory use the 128-byte swizzle: a panel of
 //   rows of 64 bf16 (128 bytes), 16-byte chunk c of row r stored at chunk
 //   c ^ (r % 8), panels 1024-byte aligned. The same panel is a K-major
@@ -19,10 +22,13 @@
 // - The TMA reduce-add: an fp32 box of shared memory added into device
 //   memory by the copy engine (cp.reduce.async.bulk.tensor), with the bulk
 //   group's commit and waits.
+// - view_map / load_view_rows: a 4-D map of a strided [B, H, S, D] view
+//   (a packed projection's head, an S-major tensor) and the load of a box
+//   of its rows.
 // - tile_check: one wgmma tile product for each operand layout the kernels
-//   use, exported by each library that includes this header, so that a
-//   descriptor or swizzle fault shows on its own line (chip_smoke.py phase
-//   3) before any kernel is checked.
+//   use (N = 64 or 128), exported by each library that includes this
+//   header, so that a descriptor or swizzle fault shows on its own line
+//   (chip_smoke.py phase 3) before any kernel is checked.
 #pragma once
 
 #include <cuda.h>
@@ -184,6 +190,23 @@ __device__ __forceinline__ void wgmma_ss(float (&d)[128], uint64_t da,
 }
 
 template <int TB>
+__device__ __forceinline__ void wgmma_rs(float (&d)[32],
+                                         const uint32_t (&a)[4],
+                                         uint64_t db, int acc) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %37, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7, "
+      "%8, %9, %10, %11, %12, %13, %14, %15, "
+      "%16, %17, %18, %19, %20, %21, %22, %23, "
+      "%24, %25, %26, %27, %28, %29, %30, %31"
+      "}, {%32, %33, %34, %35}, %36, p, 1, 1, %38;\n}\n"
+      : MCT_D32(0)
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(acc),
+        "n"(TB));
+}
+
+template <int TB>
 __device__ __forceinline__ void wgmma_rs(float (&d)[64],
                                          const uint32_t (&a)[4],
                                          uint64_t db, int acc) {
@@ -204,6 +227,22 @@ __device__ __forceinline__ void wgmma_rs(float (&d)[64],
         "n"(TB));
 }
 
+// The registers a thread of this warpgroup may hold from here on (every
+// warp of the warpgroup executes it): dec hands them back to the SM, inc
+// takes them, up to the block's budget.
+template <int N>
+__device__ __forceinline__ void setmaxnreg_dec() {
+  asm volatile("setmaxnreg.dec.sync.aligned.u32 %0;\n" ::"n"(N));
+}
+template <int N>
+__device__ __forceinline__ void setmaxnreg_inc() {
+  asm volatile("setmaxnreg.inc.sync.aligned.u32 %0;\n" ::"n"(N));
+}
+
+// Barrier `id` (1..15) of `threads` threads (a multiple of 32).
+__device__ __forceinline__ void named_sync(int id, int threads) {
+  asm volatile("bar.sync %0, %1;\n" ::"r"(id), "r"(threads) : "memory");
+}
 
 // ---------------------------------------------------------------------------
 // mbarrier, fences, TMA loads and the TMA reduce-add
@@ -359,6 +398,46 @@ inline bool make_map(CUtensorMap* m, bool bf16, bool swizzled, int rank,
                 CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS;
 }
 
+// A 4-D map of a bf16 [B, H, S, D] view (D contiguous, strides in
+// elements), its other axes in the order of their strides, boxes of 64
+// columns x `rows` of one head; perm receives the map dimensions of
+// (s, h, b): bits 0-1, 2-3 and 4-5.
+inline bool view_map(CUtensorMap* m, int& perm, const void* p, long sb,
+                     long sh, long ss, int B, int H, int S, int D, int rows) {
+  struct Axis {
+    long stride;
+    int n, box, id;
+  } ax[3] = {{ss, S, rows, 0}, {sh, H, 1, 1}, {sb, B, 1, 2}};
+  for (int i = 1; i < 3; ++i)
+    for (int j = i; j > 0 && ax[j].stride < ax[j - 1].stride; --j) {
+      const Axis t = ax[j];
+      ax[j] = ax[j - 1];
+      ax[j - 1] = t;
+    }
+  const uint64_t dims[4] = {(uint64_t)D, (uint64_t)ax[0].n, (uint64_t)ax[1].n,
+                            (uint64_t)ax[2].n};
+  const uint64_t strides[3] = {(uint64_t)ax[0].stride * 2,
+                               (uint64_t)ax[1].stride * 2,
+                               (uint64_t)ax[2].stride * 2};
+  const uint32_t box[4] = {64, (uint32_t)ax[0].box, (uint32_t)ax[1].box,
+                           (uint32_t)ax[2].box};
+  perm = 0;
+  for (int i = 0; i < 3; ++i) perm |= (i + 1) << (2 * ax[i].id);
+  return make_map(m, true, true, 4, p, dims, strides, box);
+}
+
+// Columns [col, col + 64) of rows [s, s + box rows) of head (b, h) of a
+// view_map into a panel, counted on `bar`.
+__device__ __forceinline__ void load_view_rows(void* dst, const CUtensorMap* m,
+                                               uint64_t* bar, int perm,
+                                               int col, int s, int h, int b) {
+  const int ps = perm & 3, ph = (perm >> 2) & 3;
+  const int c1 = ps == 1 ? s : ph == 1 ? h : b;
+  const int c2 = ps == 2 ? s : ph == 2 ? h : b;
+  const int c3 = ps == 3 ? s : ph == 3 ? h : b;
+  tma_load_4d(dst, m, bar, col, c1, c2, c3);
+}
+
 // A row-major bf16 [rows, cols] matrix as a 2-D map of (64 x box_rows)
 // boxes (cols % 8 == 0).
 inline bool matrix_map(CUtensorMap* m, const void* p, long rows, long cols,
@@ -370,66 +449,24 @@ inline bool matrix_map(CUtensorMap* m, const void* p, long rows, long cols,
 }
 
 // ---------------------------------------------------------------------------
-// The tile check: C[64 x 128] = A[64 x 64] B[64 x 128] in one warpgroup,
-// four k-steps of m64n128k16. a: [M][K] row-major, or [K][M] if ta (A
-// MN-major); b: [N][K] (K-major) or, if tb, [K][N]; a_regs: A from
+// The tile check: C[64 x N] = A[64 x 64] B[64 x N] (N = 64 or 128) in one
+// warpgroup, four k-steps of m64nNk16. a: [M][K] row-major, or [K][M] if
+// ta (A MN-major); b: [N][K] (K-major) or, if tb, [K][N]; a_regs: A from
 // registers (K-major only). The operands reach shared memory by TMA
 // (via_tma) or by the threads' own swizzled stores.
 struct TileCheck {
   CUtensorMap a, b;
 };
 
-__global__ void __launch_bounds__(128)
-tile_check_kernel(const __grid_constant__ TileCheck maps, const bf16* a,
-                  const bf16* b, float* c, int ta, int tb, int a_regs,
-                  int via_tma) {
-  extern __shared__ __align__(1024) unsigned char check_smem[];
-  unsigned char* base = align_1024(check_smem);
-  bf16* as = reinterpret_cast<bf16*>(base);          // 8 KB: one panel
-  bf16* bs = reinterpret_cast<bf16*>(base + 8192);   // 16 KB
-  uint64_t* bar = reinterpret_cast<uint64_t*>(base + 8192 + 16384);
+// The four k-steps in the layout (ta, tb, a_regs) into d (N / 2 floats).
+template <int N>
+__device__ __forceinline__ void tile_check_product(float (&d)[N / 2],
+                                                   const bf16* a,
+                                                   const unsigned char* as,
+                                                   const unsigned char* bs,
+                                                   int ta, int tb,
+                                                   int a_regs) {
   const int t = threadIdx.x, w = t >> 5, l = t & 31;
-  if (via_tma) {
-    if (t == 0) {
-      mbar_init(bar, 1);
-      mbar_init_fence();
-    }
-    __syncthreads();
-    if (t == 0) {
-      mbar_expect_tx(bar, 8192 + 16384);
-      tma_load_2d(as, &maps.a, bar, 0, 0);
-      if (tb) {  // two [64 K][64 N] panels
-        tma_load_2d(bs, &maps.b, bar, 0, 0);
-        tma_load_2d(bs + 4096, &maps.b, bar, 64, 0);
-      } else {  // one [128 N][64 K] panel
-        tma_load_2d(bs, &maps.b, bar, 0, 0);
-      }
-    }
-    mbar_wait(bar, 0);
-  } else {
-    unsigned char* ab = reinterpret_cast<unsigned char*>(as);
-    unsigned char* bb = reinterpret_cast<unsigned char*>(bs);
-    for (int i = t; i < 64 * 64; i += 128) {
-      const int r = i / 64, col = i % 64;  // a's storage row and column
-      *reinterpret_cast<bf16*>(ab + swz(r, col)) = a[i];
-    }
-    for (int i = t; i < 64 * 128; i += 128) {
-      if (tb) {  // b [64 K][128 N]: panel col / 64
-        const int r = i / 128, col = i % 128;
-        *reinterpret_cast<bf16*>(bb + (col / 64) * 8192 + swz(r, col % 64)) =
-            b[i];
-      } else {  // b [128 N][64 K]
-        const int r = i / 64, col = i % 64;
-        *reinterpret_cast<bf16*>(bb + swz(r, col)) = b[i];
-      }
-    }
-    fence_async_smem();
-    __syncthreads();
-  }
-  __syncwarp();
-  float d[64];
-#pragma unroll
-  for (int i = 0; i < 64; ++i) d[i] = 0.f;
   uint32_t af[4][4];
   if (a_regs) {  // the fragment layout, read from a [M][K]
 #pragma unroll
@@ -470,11 +507,81 @@ tile_check_kernel(const __grid_constant__ TileCheck maps, const bf16* a,
   wgmma_commit();
   wgmma_wait<0>();
   fence_regs(d);
+  if (a_regs) fence_regs(af);
+}
+
+__global__ void __launch_bounds__(128)
+tile_check_kernel(const __grid_constant__ TileCheck maps, const bf16* a,
+                  const bf16* b, float* c, int n, int ta, int tb, int a_regs,
+                  int via_tma) {
+  extern __shared__ __align__(1024) unsigned char check_smem[];
+  unsigned char* base = align_1024(check_smem);
+  bf16* as = reinterpret_cast<bf16*>(base);          // 8 KB: one panel
+  bf16* bs = reinterpret_cast<bf16*>(base + 8192);   // up to 16 KB
+  uint64_t* bar = reinterpret_cast<uint64_t*>(base + 8192 + 16384);
+  const int t = threadIdx.x, w = t >> 5, l = t & 31;
+  if (via_tma) {
+    if (t == 0) {
+      mbar_init(bar, 1);
+      mbar_init_fence();
+    }
+    __syncthreads();
+    if (t == 0) {
+      mbar_expect_tx(bar, 8192 + n * kRowBytes);
+      tma_load_2d(as, &maps.a, bar, 0, 0);
+      if (tb) {  // n / 64 [64 K][64 N] panels
+        for (int p = 0; p < n / 64; ++p)
+          tma_load_2d(bs + 4096 * p, &maps.b, bar, 64 * p, 0);
+      } else {  // one [n N][64 K] panel
+        tma_load_2d(bs, &maps.b, bar, 0, 0);
+      }
+    }
+    mbar_wait(bar, 0);
+  } else {
+    unsigned char* ab = reinterpret_cast<unsigned char*>(as);
+    unsigned char* bb = reinterpret_cast<unsigned char*>(bs);
+    for (int i = t; i < 64 * 64; i += 128) {
+      const int r = i / 64, col = i % 64;  // a's storage row and column
+      *reinterpret_cast<bf16*>(ab + swz(r, col)) = a[i];
+    }
+    for (int i = t; i < 64 * n; i += 128) {
+      if (tb) {  // b [64 K][n N]: panel col / 64
+        const int r = i / n, col = i % n;
+        *reinterpret_cast<bf16*>(bb + (col / 64) * 8192 + swz(r, col % 64)) =
+            b[i];
+      } else {  // b [n N][64 K]
+        const int r = i / 64, col = i % 64;
+        *reinterpret_cast<bf16*>(bb + swz(r, col)) = b[i];
+      }
+    }
+    fence_async_smem();
+    __syncthreads();
+  }
+  __syncwarp();
+  const unsigned char* ab = reinterpret_cast<const unsigned char*>(as);
+  const unsigned char* bb = reinterpret_cast<const unsigned char*>(bs);
+  if (n == 64) {
+    float d[32];
 #pragma unroll
-  for (int i = 0; i < 64; ++i) {
-    const int r = 16 * w + (l >> 2) + 8 * ((i & 3) >> 1);
-    const int col = 8 * (i >> 2) + 2 * (l & 3) + (i & 1);
-    c[r * 128 + col] = d[i];
+    for (int i = 0; i < 32; ++i) d[i] = 0.f;
+    tile_check_product<64>(d, a, ab, bb, ta, tb, a_regs);
+#pragma unroll
+    for (int i = 0; i < 32; ++i) {
+      const int r = 16 * w + (l >> 2) + 8 * ((i & 3) >> 1);
+      const int col = 8 * (i >> 2) + 2 * (l & 3) + (i & 1);
+      c[r * 64 + col] = d[i];
+    }
+  } else {
+    float d[64];
+#pragma unroll
+    for (int i = 0; i < 64; ++i) d[i] = 0.f;
+    tile_check_product<128>(d, a, ab, bb, ta, tb, a_regs);
+#pragma unroll
+    for (int i = 0; i < 64; ++i) {
+      const int r = 16 * w + (l >> 2) + 8 * ((i & 3) >> 1);
+      const int col = 8 * (i >> 2) + 2 * (l & 3) + (i & 1);
+      c[r * 128 + col] = d[i];
+    }
   }
 }
 
@@ -482,21 +589,24 @@ tile_check_kernel(const __grid_constant__ TileCheck maps, const bf16* a,
 }  // namespace mct
 
 // The C entry point each library that includes this header exports: the
-// tile check above (0 on success, else the launch's or the map's error).
+// tile check above at N = n (64 or 128; 0 on success, else the launch's or
+// the map's error).
 #define MCT_SM90_TILE_CHECK_EXPORT                                            \
   extern "C" int mct_sm90_tile_check(const void* a, const void* b, float* c,  \
-                                     int ta, int tb, int a_regs, int via_tma, \
-                                     void* stream) {                          \
+                                     int n, int ta, int tb, int a_regs,       \
+                                     int via_tma, void* stream) {             \
     using namespace mct::sm90;                                                \
+    if (n != 64 && n != 128) return (int)cudaErrorInvalidValue;               \
     TileCheck maps{};                                                         \
     if (via_tma) {                                                            \
       const uint64_t sq[2] = {64, 64}, s64[1] = {128};                        \
       const uint32_t box_a[2] = {64, 64};                                     \
       if (!make_map(&maps.a, true, true, 2, a, sq, s64, box_a))               \
         return (int)cudaErrorInvalidValue;                                    \
-      const uint64_t dims_b[2] = {tb ? 128u : 64u, tb ? 64u : 128u};          \
-      const uint64_t str_b[1] = {tb ? 256u : 128u};                           \
-      const uint32_t box_b[2] = {64, tb ? 64u : 128u};                        \
+      const uint64_t dims_b[2] = {tb ? (uint64_t)n : 64u,                     \
+                                  tb ? 64u : (uint64_t)n};                    \
+      const uint64_t str_b[1] = {tb ? (uint64_t)n * 2 : 128u};                \
+      const uint32_t box_b[2] = {64, tb ? 64u : (uint32_t)n};                 \
       if (!make_map(&maps.b, true, true, 2, b, dims_b, str_b, box_b))         \
         return (int)cudaErrorInvalidValue;                                    \
     }                                                                         \
@@ -506,7 +616,6 @@ tile_check_kernel(const __grid_constant__ TileCheck maps, const bf16* a,
     if (e != cudaSuccess) return (int)e;                                      \
     tile_check_kernel<<<1, 128, smem, static_cast<cudaStream_t>(stream)>>>(   \
         maps, static_cast<const __nv_bfloat16*>(a),                           \
-        static_cast<const __nv_bfloat16*>(b), c,                              \
-        ta, tb, a_regs, via_tma);                                             \
+        static_cast<const __nv_bfloat16*>(b), c, n, ta, tb, a_regs, via_tma); \
     return (int)cudaGetLastError();                                           \
   }

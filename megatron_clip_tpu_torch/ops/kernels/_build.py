@@ -93,15 +93,18 @@ def build(names: Iterable[Spec] = SOURCES) -> Dict[str, float]:
                                                  stderr=subprocess.STDOUT),
                                 log, tmp, out, time.perf_counter())
     failed = []
-    for name, (proc, log, tmp, out, t0) in pending.items():
-        rc = proc.wait()
-        took[name] = time.perf_counter() - t0
-        log.close()
-        if rc == 0:
-            os.replace(tmp, out)  # atomic: a concurrent loader sees all or nothing
-        else:
-            failed.append(f"{name}: nvcc exit {rc}\n"
-                          + out.with_suffix(".log").read_text())
+    while pending:  # each build's own seconds, whatever order they end in
+        for name in [n for n, job in pending.items()
+                     if job[0].poll() is not None]:
+            proc, log, tmp, out, t0 = pending.pop(name)
+            took[name] = time.perf_counter() - t0
+            log.close()
+            if proc.returncode == 0:
+                os.replace(tmp, out)  # atomic: a loader sees all or nothing
+            else:
+                failed.append(f"{name}: nvcc exit {proc.returncode}\n"
+                              + out.with_suffix(".log").read_text())
+        time.sleep(0.05)
     if failed:
         raise RuntimeError("kernel build failed\n" + "\n".join(failed))
     return took

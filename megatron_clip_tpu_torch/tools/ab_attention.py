@@ -7,15 +7,24 @@ with `git archive` into a gitignored directory. One process per run, in the
 order other, this, this, other, so that a drift of the card over the call
 shows as a difference between the two runs of one checkout. Each process
 imports the port from its checkout, builds that checkout's `fused_mha.cu`
-and, with the API both checkouts share (`fused_mha_fwd(..., with_probs=True)`
-and `fused_mha_bwd`), times the forward with P and the saved-P backward:
-mean of 20 launches after 3 by CUDA events, warm L2, at the ViT-B/32 train
-shapes (batch 384) and the ViT-L/14 and ViT-H/14 vision shapes (batch 64
-and 24). Inputs come from a seeded generator, so the two checkouts get the
-same ones; a hash of each output's bytes says whether they give the same
-bits. Prints each run's register report (ptxas) for the saved-P kernels,
-then one JSON line per shape and, last, one JSON object with every run.
-Needs a CUDA device and nvcc.
+and `flash_attention.cu` and, with the API both checkouts share, times
+(mean of 20 launches after 3 by CUDA events, warm L2):
+- the forward with P and the saved-P backward (`fused_mha_fwd(...,
+  with_probs=True)`, `fused_mha_bwd`) at the ViT-B/32 train shapes (batch
+  384) and the ViT-L/14 and ViT-H/14 vision shapes (batch 64 and 24);
+- the forwards of the recompute and GPT paths, beside SDPA's forward on
+  contiguous q, k, v (`dropout_p` alike): the fused forward with row
+  statistics (`fused_mha_fwd(..., with_stats=True)`,
+  `fused_mha_dropout_fwd`) at the pipeline GPT's B = 32, S = 512, H = 16,
+  D = 128, causal, rate 0 and 0.1, and at ViT-L/14's vision and text
+  towers; the flash forward (`flash_fwd`, `flash_fwd_dropout`) on the
+  packed projection's head views at the pipeline GPT's B = 8, S = 2048,
+  D = 128, rate 0 and 0.1, and GPT-345m's B = 6, D = 64.
+Inputs come from a seeded generator, so the two checkouts get the same
+ones; a hash of each output's bytes says whether they give the same bits.
+Prints the card, each run's register report (ptxas) for the saved-P
+kernels, then one JSON line per shape and, last, one JSON object with every
+run. Needs a CUDA device and nvcc.
 """
 import argparse
 import hashlib
@@ -31,6 +40,18 @@ SHAPES = (("ViT-B/32 vision", 384, 50, 12, 64, False),
           ("ViT-B/32 text", 384, 77, 8, 64, True),
           ("ViT-L/14 vision", 64, 257, 16, 64, False),
           ("ViT-H/14 vision", 24, 257, 16, 80, False))
+# the forwards' rows: (kernel, label, B, S, H, D, causal, rate)
+FORWARDS = (("fused_mha_fwd with stats", "pipeline GPT", 32, 512, 16, 128,
+             True, 0.0),
+            ("fused_mha_fwd with stats", "pipeline GPT", 32, 512, 16, 128,
+             True, 0.1),
+            ("fused_mha_fwd with stats", "ViT-L/14 vision", 64, 257, 16, 64,
+             False, 0.0),
+            ("fused_mha_fwd with stats", "ViT-L/14 text", 64, 77, 12, 64,
+             True, 0.0),
+            ("flash_fwd", "pipeline GPT", 8, 2048, 16, 128, True, 0.0),
+            ("flash_fwd", "pipeline GPT", 8, 2048, 16, 128, True, 0.1),
+            ("flash_fwd", "GPT-345m", 6, 2048, 16, 64, True, 0.0))
 REPS, WARMUP = 20, 3
 
 
@@ -42,7 +63,7 @@ def time_checkout(repo: str) -> dict:
     from megatron_clip_tpu_torch.ops.kernels import fused_mha as mha
     if not Path(mha.__file__).resolve().is_relative_to(Path(repo).resolve()):
         raise RuntimeError(f"imported {mha.__file__}, not from {repo}")
-    _build.build(["fused_mha"])
+    _build.build(["fused_mha", "flash_attention"])
     regs = [line.strip() for line in
             _build.build_log("fused_mha").splitlines()
             if "registers" in line or "Compiling entry" in line]
@@ -80,7 +101,50 @@ def time_checkout(repo: str) -> dict:
                                                    causal=causal)),
             "bits": {"out": digest(out), "p": digest(p),
                      "dqkv": digest(dqkv)}})
-    return {"repo": repo, "registers": regs, "rows": rows}
+        del qkv, do, out, p, dqkv
+    return {"repo": repo, "registers": regs, "rows": rows,
+            "forwards": time_forwards(ms, digest)}
+
+
+def time_forwards(ms, digest) -> list:
+    """The FORWARDS rows of the checkout imported: kernel and SDPA ms."""
+    import torch
+    import torch.nn.functional as F
+    from megatron_clip_tpu_torch.ops.dropout import AttentionDropout
+    from megatron_clip_tpu_torch.ops.kernels import flash_attention as fa
+    from megatron_clip_tpu_torch.ops.kernels import fused_mha as mha
+    rows = []
+    for kernel, label, b, s, h, d, causal, rate in FORWARDS:
+        gen = torch.Generator(device="cuda").manual_seed(b * s * h * d)
+        qkv = torch.randn(b, s, 3 * h * d, device="cuda", generator=gen,
+                          dtype=torch.bfloat16)
+        q, k, v = qkv.unflatten(-1, (3, h, d)).permute(2, 0, 3, 1,
+                                                       4).unbind(0)
+        drop = AttentionDropout(rate, 1234, 1) if rate else None
+        if kernel == "flash_fwd":
+            fn = ((lambda: fa.flash_fwd(q, k, v, causal=causal))
+                  if drop is None else
+                  (lambda: fa.flash_fwd_dropout(q, k, v, drop,
+                                                causal=causal)))
+        else:
+            fn = ((lambda: mha.fused_mha_fwd(qkv, h, causal=causal,
+                                             with_stats=True))
+                  if drop is None else
+                  (lambda: mha.fused_mha_dropout_fwd(qkv, h, drop,
+                                                     causal=causal)))
+        out, res = fn()
+        lq, lk, lv = (t.contiguous() for t in (q, k, v))
+        rows.append({
+            "row": f"{kernel} {label} B={b} S={s} H={h} D={d} "
+                   f"causal={causal} rate={rate} bf16",
+            "ms": ms(fn),
+            "library_ms": ms(lambda: F.scaled_dot_product_attention(
+                lq, lk, lv, is_causal=causal, dropout_p=rate)),
+            "bits": {"out": digest(out),
+                     "residual": digest(res.view(torch.bfloat16))}})
+        del qkv, q, k, v, lq, lk, lv, out, res
+        torch.cuda.empty_cache()
+    return rows
 
 
 def saved_p_registers(report: list) -> list:
@@ -106,6 +170,9 @@ def main() -> int:
         return 0
     if not args.other:
         ap.error("--other is required")
+    print(subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
+                          "--format=csv,noheader"], capture_output=True,
+                         text=True, timeout=60).stdout.strip())
     runs = []
     for repo in (args.other, str(HERE), str(HERE), args.other):
         res = subprocess.run([sys.executable, __file__, "--time", repo],
@@ -128,6 +195,15 @@ def main() -> int:
             "bwd_ms other/this/this/other": [r["bwd_ms"] for r in rows],
             "same_bits": {k: len({r["bits"][k] for r in rows}) == 1
                           for k in ("out", "p", "dqkv")}}))
+    for i, first in enumerate(runs[0]["forwards"]):
+        rows = [run["forwards"][i] for run in runs]
+        print(json.dumps({
+            "row": first["row"],
+            "ms other/this/this/other": [r["ms"] for r in rows],
+            "library_ms other/this/this/other":
+                [r["library_ms"] for r in rows],
+            "same_bits": {k: len({r["bits"][k] for r in rows}) == 1
+                          for k in ("out", "residual")}}))
     print(json.dumps({"runs": runs}))
     return 0
 

@@ -37,6 +37,7 @@ device time. Needs a CUDA device; exits non-zero without one.
 """
 import argparse
 import json
+import re
 import subprocess
 import sys
 import time
@@ -70,6 +71,10 @@ def _category(name: str) -> str:
                 else "fused CE fwd (fused_ce.cu)")
     if "hop::bwd_fused" in n:  # the fused flash backward on wgmma
         return "attention bwd (flash_attention.cu)"
+    if "attn_fwd::fwd<" in n:  # the wgmma forward: fwd<D, two-pass, drop>
+        return ("attention fwd (fused_mha.cu)"
+                if re.search(r"attn_fwd::fwd<\d+, true", n)
+                else "attention fwd (flash_attention.cu)")
     if "view<" in n:  # flash_attention.cu's other kernels take View operands
         return ("attention bwd (flash_attention.cu)" if "bwd_" in n
                 else "attention fwd (flash_attention.cu)")

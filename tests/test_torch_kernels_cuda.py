@@ -34,8 +34,9 @@ The flash-attention kernels: fp32 against the fp32 plain version 2e-5
 (forward) and 5e-5 (gradients), as tests/test_flash_attention.py holds the
 TPU kernels, with 1e-5 relative for the log-sum-exp (fp32 sums of up to
 8,192 exponentials in another order). bf16 forward against the plain
-version on the same inputs: the kernel rounds P per 64-key tile against
-the running max, the plain version once against the row's max, so each
+version on the same inputs: the kernel rounds P per key tile (128 keys on
+wgmma at D = 64 and 128, 64 on mma.sync) against the running max, the
+plain version once against the row's max, so each
 term of P.V may differ by one bf16 ulp of P: 2^-8 of the largest |v| plus
 one ulp of the output (rtol 8e-3). bf16 gradients each row by row (one
 query's dQ, one key's dK or dV): the row's error norm within 1e-2 of its
@@ -251,6 +252,47 @@ def test_fused_mha_stats_and_recompute_backward_match_plain(
             atol=2 ** -5 * float(want32.abs().max()))
 
 
+# The forward with row statistics at the wgmma kernel's tiles' edges
+# (csrc/attn_fwd_sm90.cuh, two-pass: 128-row blocks, 128-key tiles, K
+# resident up to S = 1024 at D = 64 and S = 512 at D = 128, through the
+# ring above; S <= 128 runs the mma.sync kernel), both masks, rate 0 and
+# 0.1, on the packed projection and on the [B, S, *] view of S-major
+# storage, which must give the same bits. The output's bound is the flash
+# forward's, 2^-8 of the largest |out| plus rtol 8e-3: both sides round P
+# to bf16 from fp32 values that differ in their last bits (S summed in
+# another order), so one P may round the other way, and at p ~ 1/2 (a
+# causal row's first keys) that moves the output by 2^-9 |v|, past 4e-3
+# where |v| > 2 (the mma.sync kernel did so at S = 64, D = 128, causal).
+@pytest.mark.parametrize("rate", [0.0, 0.1])
+@pytest.mark.parametrize("causal", [False, True])
+@pytest.mark.parametrize("d", [64, 128])
+@pytest.mark.parametrize("s", [1, 63, 64, 65, 257, 512, 1024])
+def test_fused_mha_wgmma_forward_at_tile_edges(cuda, s, d, causal, rate):
+    b, h = 2, 3
+    gen = torch.Generator().manual_seed(s + d + int(causal))
+    qkv = torch.randn(b, s, 3 * h * d, generator=gen).to(cuda,
+                                                         torch.bfloat16)
+    drop = AttentionDropout(rate, 0x0123456789ABCDEF, 2) if rate else None
+    keep = None if drop is None else drop.multipliers(
+        b, h, s, s, mha_mod.dropout_mult(rate, torch.bfloat16), cuda)
+
+    def run(x):
+        if drop is None:
+            return fused_mha_fwd(x, h, causal=causal, with_stats=True)
+        return mha_mod.fused_mha_dropout_fwd(x, h, drop, causal=causal)
+    out, stats = run(qkv)
+    want, want_stats = fused_mha_plain(qkv, h, d ** -0.5, causal,
+                                       with_stats=True, keep=keep)
+    assert out.shape == (b, s, h * d) and out.dtype == torch.bfloat16
+    torch.testing.assert_close(out.float(), want.float(), rtol=8e-3,
+                               atol=2 ** -8 * float(want.float().abs().max()))
+    torch.testing.assert_close(stats, want_stats, rtol=1e-4, atol=1e-5)
+    out_v, stats_v = run(qkv.transpose(0, 1).contiguous().transpose(0, 1))
+    if s > 1:  # at S = 1 both layouts are one order
+        assert out_v.stride(0) < out_v.stride(1)
+    assert torch.equal(out_v, out) and torch.equal(stats_v, stats)
+
+
 def test_fused_mha_autograd_recompute_runs_its_kernels(cuda):
     gen = torch.Generator().manual_seed(7)
     qkv = torch.randn(2, 257, 3 * 4 * 80, generator=gen).to(cuda)
@@ -450,6 +492,44 @@ def test_flash_wgmma_fused_backward_at_tile_edges(cuda, sq, sk, d, causal,
         _close_rows(g, w)
 
 
+# The wgmma flash forward (csrc/attn_fwd_sm90.cuh, online softmax) at its
+# tiles' edges (128-row blocks, 128-key tiles), Sq != Sk, both head dims,
+# both masks, rate 0 and 0.1; the packed projection's head views where
+# Sq == Sk, which must give the bits of contiguous copies
+@pytest.mark.parametrize("rate", [0.0, 0.1])
+@pytest.mark.parametrize("causal", [False, True])
+@pytest.mark.parametrize("d", [64, 128])
+@pytest.mark.parametrize("sq,sk", [(256, 256), (2048, 2048), (2049, 2049),
+                                   (700, 1100), (1100, 700)])
+def test_flash_wgmma_forward_at_tile_edges(cuda, sq, sk, d, causal, rate):
+    b, h = 1, 2
+    gen = torch.Generator().manual_seed(sq + sk + d)
+    if sq == sk:
+        qkv = torch.randn(b, sq, 3 * h * d, generator=gen).to(
+            cuda, torch.bfloat16)
+        q, k, v = qkv.unflatten(-1, (3, h, d)).permute(2, 0, 3, 1,
+                                                       4).unbind(0)
+    else:
+        q, k, v, _ = _flash_inputs(cuda, torch.bfloat16, b, h, sq, sk, d)
+    drop = AttentionDropout(rate, 0x0123456789ABCDEF, 4) if rate else None
+    keep = None if drop is None else drop.multipliers(
+        b, h, sq, sk, fa.dropout_mult(rate), cuda)
+
+    def run(*qkv_):
+        if drop is None:
+            return fa.flash_fwd(*qkv_, causal=causal)
+        return fa.flash_fwd_dropout(*qkv_, drop, causal=causal)
+    out, lse = run(q, k, v)
+    want, want_lse = fa.flash_fwd_plain(q, k, v, d ** -0.5, causal, keep)
+    assert out.shape == q.shape and out.dtype == torch.bfloat16
+    torch.testing.assert_close(out.float(), want.float(), rtol=8e-3,
+                               atol=2 ** -8 * float(want.float().abs().max()))
+    torch.testing.assert_close(lse, want_lse, rtol=1e-5, atol=1e-5)
+    if sq == sk:
+        out_c, lse_c = run(*(t.contiguous() for t in (q, k, v)))
+        assert torch.equal(out_c, out) and torch.equal(lse_c, lse)
+
+
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 @pytest.mark.parametrize("causal", [False, True])
 def test_flash_kernels_on_packed_views(cuda, dtype, causal):
@@ -618,12 +698,12 @@ def test_wgmma_tile_products_match_fp32(cuda):
     gen = torch.Generator().manual_seed(13)
     a = torch.randn(64, 64, generator=gen).to(cuda, torch.bfloat16)
     b = torch.randn(64, 128, generator=gen).to(cuda, torch.bfloat16)
-    want = sm90.tile_product_plain(a, b)
     for lib in sm90.LIBRARIES:
-        for ta, tb, regs in sm90.LAYOUTS:
+        for ta, tb, regs, n in sm90.LAYOUTS:
+            want = sm90.tile_product_plain(a, b[:, :n])
             for tma in (0, 1):
-                got = sm90.tile_product(lib, a, b, ta=ta, tb=tb, a_regs=regs,
-                                        via_tma=tma)
+                got = sm90.tile_product(lib, a, b[:, :n], ta=ta, tb=tb,
+                                        a_regs=regs, via_tma=tma)
                 torch.testing.assert_close(got, want, rtol=1e-5, atol=1e-4)
 
 

@@ -1,0 +1,53 @@
+"""The profile tool's kernel categories, on the CPU.
+
+`tools/profile_train.py` sums device time by category from the kernels'
+demangled names; PERF.md's per-step table reads those sums. Each port
+kernel's name, as the CUDA toolkit's cu++filt prints it, must land in its
+source's forward or backward column, so that a redesigned kernel's time is
+compared with its predecessor's.
+"""
+import pytest
+
+from megatron_clip_tpu_torch.tools.profile_train import _category
+
+_D = "mct::Dropout"
+_FLASH_VIEW = "(anonymous namespace)::View<__nv_bfloat16 const>"
+
+
+@pytest.mark.parametrize("name,category", [
+    # the wgmma forward: fwd<D, two-pass, dropout>
+    (f"void mct::attn_fwd::fwd<64, true, false>(mct::attn_fwd::Maps, "
+     f"mct::attn_fwd::Args, {_D})", "attention fwd (fused_mha.cu)"),
+    (f"void mct::attn_fwd::fwd<128, true, true>(mct::attn_fwd::Maps, "
+     f"mct::attn_fwd::Args, {_D})", "attention fwd (fused_mha.cu)"),
+    (f"void mct::attn_fwd::fwd<64, false, false>(mct::attn_fwd::Maps, "
+     f"mct::attn_fwd::Args, {_D})", "attention fwd (flash_attention.cu)"),
+    (f"void mct::attn_fwd::fwd<128, false, true>(mct::attn_fwd::Maps, "
+     f"mct::attn_fwd::Args, {_D})", "attention fwd (flash_attention.cu)"),
+    # the mma.sync and CUDA-core kernels they stand beside
+    ("void (anonymous namespace)::tc::fwd<80, false>(__nv_bfloat16 const*, "
+     "(anonymous namespace)::Pitch, __nv_bfloat16*, (anonymous "
+     f"namespace)::Pitch, __nv_bfloat16*, float*, float*, int, int, int, "
+     f"float, int, {_D})", "attention fwd (fused_mha.cu)"),
+    (f"void (anonymous namespace)::tc::fwd<48, false>({_FLASH_VIEW}, "
+     f"{_FLASH_VIEW}, {_FLASH_VIEW}, (anonymous namespace)::View<"
+     f"__nv_bfloat16>, float*, int, int, int, int, float, int, {_D})",
+     "attention fwd (flash_attention.cu)"),
+    (f"void (anonymous namespace)::tc::bwd_kv<64, true, false>("
+     f"{_FLASH_VIEW}, {_FLASH_VIEW})", "attention bwd (flash_attention.cu)"),
+    (f"void (anonymous namespace)::hop::bwd_fused<128, true>((anonymous "
+     f"namespace)::hop::Maps, (anonymous namespace)::hop::Args, {_D})",
+     "attention bwd (flash_attention.cu)"),
+    ("void (anonymous namespace)::tc::bwd_dq_rc<64, true>(__nv_bfloat16 "
+     "const*)", "attention bwd (fused_mha.cu)"),
+    ("void (anonymous namespace)::tc::bwd_dkdv<64, true>(__nv_bfloat16 "
+     "const*)", "attention bwd (fused_mha.cu)"),
+    ("void (anonymous namespace)::hop::fused_ce_bwd_gemm<0>((anonymous "
+     "namespace)::hop::GemmMaps)", "fused CE bwd (fused_ce.cu)"),
+    ("void (anonymous namespace)::ln_fwd<__nv_bfloat16, true>(float)",
+     "rmsnorm fwd (layernorm.cu)"),
+    ("void (anonymous namespace)::ln_bwd<__nv_bfloat16, false>(float)",
+     "layernorm bwd (layernorm.cu)"),
+])
+def test_every_port_kernel_lands_in_its_column(name, category):
+    assert _category(name) == category
