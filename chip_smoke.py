@@ -29,7 +29,9 @@ imports nothing of JAX or of the JAX package. Phases, each of which raises
      forwards (csrc/attn_fwd_sm90.cuh: the fused forward past S = 128, the
      bf16 flash forward at D = 64 and 128) built to leave out the last key
      of every 128-key tile, in the whole sequence or its late half, each
-     failing its bound;
+     failing its bound; the bf16 recompute backward's gradients also row by
+     row, and its wgmma kernels (csrc/attn_bwd_sm90.cuh) built to leave out
+     the last key or query of every tile, failing the row bound;
   4. goldens: full-width ViT-B-32-quickgelu in fp32, weights rebuilt from
      tests/goldens/full/vitb32.npz's manifest, against open_CLIP's features
      (atol 1e-4);
@@ -143,6 +145,7 @@ SDPA with dropout_p = 0.1.
 The last three lines of standard output are the card's name and power
 limit, the {"kernels": [...]} line and {"ok": true, "device": {...}}.
 """
+import functools
 import json
 import math
 import re
@@ -230,10 +233,15 @@ PIPELINE_PARITY_SEQS = (512, 1280)
 # the kernels made wrong on purpose (csrc/philox.cuh): a mask drawn per
 # 64 x 64 tile, and one shifted by a column
 DROPOUT_FAULTS = ("MCT_DROPOUT_FAULT=1", "MCT_DROPOUT_FAULT=2")
-# the wgmma forwards made wrong on purpose (csrc/attn_fwd_sm90.cuh): the
-# last key of every 128-key tile left out, in the whole sequence and in the
-# tiles of its late half
-FWD_TILE_FAULTS = ("MCT_FWD_TILE_FAULT=1", "MCT_FWD_TILE_FAULT=2")
+# the wgmma attention kernels made wrong on purpose, one build for each
+# pair of defines: the forwards (csrc/attn_fwd_sm90.cuh) leave out the last
+# key of every 128-key tile, the recompute backward (csrc/attn_bwd_sm90.cuh)
+# the last key of every key tile from dQ and delta and the last query of
+# every query tile from dK and dV; in the whole sequence (1) and in the
+# tiles of its late half (2). fwd_teeth runs only the forwards of such a
+# build, bwd_teeth only the backward, each on the plain version's inputs.
+TILE_FAULTS = (("MCT_FWD_TILE_FAULT=1", "MCT_BWD_TILE_FAULT=1"),
+               ("MCT_FWD_TILE_FAULT=2", "MCT_BWD_TILE_FAULT=2"))
 
 
 _T0 = time.perf_counter()
@@ -467,8 +475,8 @@ def phase_build(kernels_build):
     ptxas's report, its name demangled by the CUDA toolkit's cu++filt."""
     log("[2] build")
     t0 = time.perf_counter()
-    faults = [(name, (fault,)) for name in ("flash_attention", "fused_mha")
-              for fault in DROPOUT_FAULTS + FWD_TILE_FAULTS]
+    faults = [(name, fault) for name in ("flash_attention", "fused_mha")
+              for fault in tuple((f,) for f in DROPOUT_FAULTS) + TILE_FAULTS]
     took = kernels_build.build(list(kernels_build.SOURCES) + faults)
     log(f"  built {sorted(took)} in {time.perf_counter() - t0:.1f} s "
         f"(per source: {json.dumps({k: round(v, 1) for k, v in took.items()})})")
@@ -515,6 +523,10 @@ def phase_build(kernels_build):
 #   of P, dS and the outputs, 2e-2 relative plus 2^-5 of the largest.
 # - fused_mha_bwd_recompute: the same bounds and reasons; its P is fp32 on
 #   both sides, rounded only for dV, where a flip moves one term by an ulp.
+#   In bf16 also row by row ("rows": one query's dQ, one key's dK or dV of
+#   one head; compare_rows), as the flash gradients and for their reasons:
+#   1e-2 of the row's norm plus 1e-4 of the rms row norm, 2e-2 against the
+#   fp32 plain version. bwd_teeth shows what a wrong kernel reads.
 # - fused_mha_fwd stats, each row's max scaled score and softmax sum: fp32
 #   sums of up to 1,024 exponentials in another order than the plain
 #   version's, rescaled once per key tile (128 keys on wgmma, 64 on
@@ -560,8 +572,12 @@ def phase_build(kernels_build):
 #   (a bf16 product is exact in fp32) in another order than the plain
 #   version's cuBLAS product, and the softmax sum of up to 50,304
 #   exponentials is folded per 64-column partial: 1e-5 absolute plus 2e-5
-#   relative. The same for bf16 inputs and against the plain version run in
-#   fp32 on them, whose logits are the same fp32 sums.
+#   relative. The bf16 kernel forms each exponential with the MUFU's
+#   ex2.approx (2 ulps) of one FMA, logit log2(e) - m log2(e), whose
+#   rounded argument moves a term by ln 2 ulps of the argument: under 3e-6
+#   of the term for any term above 2^-64 of the row's largest, so inside
+#   the same bound. The same for bf16 inputs and against the plain version
+#   run in fp32 on them, whose logits are the same fp32 sums.
 # - fused_ce_bwd fp32 (the CUDA-core kernel): dX sums V terms and dW T
 #   terms, added with atomics per 64-row tile in an order that changes from
 #   run to run: 1e-5 relative plus 5e-5 of the largest |value|. bf16 (the
@@ -585,6 +601,9 @@ TOLERANCES = {
     "fused_mha_bwd_recompute": {
         "fp32": (2e-4, 2e-4), "bf16": (0.0, 1.6e-2, 2 ** -7),
         "bf16_vs_fp32_plain": (0.0, 2e-2, 2 ** -5)},
+    # bf16 recompute gradients: (rel, floor) of compare_rows
+    "fused_mha_bwd_recompute rows": {"bf16": (1e-2, 1e-4),
+                                     "bf16_vs_fp32_plain": (2e-2, 1e-4)},
     "layer_norm_fwd": {"fp32": (1e-5, 1e-5), "bf16": (4e-3, 8e-3),
                        "bf16_vs_fp32_plain": (2e-2, 2e-2)},
     "layer_norm_bwd": {"fp32": (1e-5, 1e-5), "bf16": (4e-3, 8e-3),
@@ -625,6 +644,7 @@ TOLERANCES.update({
     "fused_mha_dropout_fwd": TOLERANCES["fused_mha_fwd"],
     "fused_mha_dropout_fwd stats": TOLERANCES["fused_mha_fwd stats"],
     "fused_mha_dropout_bwd": TOLERANCES["fused_mha_bwd_recompute"],
+    "fused_mha_dropout_bwd rows": TOLERANCES["fused_mha_bwd_recompute rows"],
 })
 KERNELS = tuple(TOLERANCES)
 
@@ -660,6 +680,27 @@ def check_grads(errs: dict, name: str, label: str, got: tuple,
             e = compare_rows(f"{name} {label} {kind} {part}", g, w,
                              *TOLERANCES[name][kind])
             errs[name][kind] = max(errs[name].get(kind, 0.0), e)
+
+
+def mha_parts(dqkv: torch.Tensor, heads: int):
+    """A packed gradient [B, S, 3*H*D] as (dq, dk, dv), each [B, S, H, D]:
+    rows of one query's dQ, one key's dK or dV of one head."""
+    b, s, w = dqkv.shape
+    return dqkv.reshape(b, s, 3, heads, w // (3 * heads)).unbind(2)
+
+
+def check_mha_rows(errs: dict, name: str, label: str, got: torch.Tensor,
+                   plain, heads: int) -> None:
+    """A bf16 packed recompute gradient against plain(dtype) row by row
+    (compare_rows, TOLERANCES[name + " rows"]), dq, dk and dv each."""
+    key = f"{name} rows"
+    for kind, dt in (("bf16", torch.bfloat16),
+                     ("bf16_vs_fp32_plain", torch.float32)):
+        for part, g, w in zip(("dq", "dk", "dv"), mha_parts(got, heads),
+                              mha_parts(plain(dt), heads)):
+            e = compare_rows(f"{name} {label} {kind} {part}", g, w,
+                             *TOLERANCES[key][kind])
+            errs[key][kind] = max(errs[key].get(kind, 0.0), e)
 
 
 # the attention shapes of phase 8's legs: (leg, tower, B, S, H, D, causal)
@@ -882,8 +923,8 @@ def flash_views(gen) -> None:
 # few thousand tokens, tied (the GPT's [W, V] view of the [V, W]
 # embedding) and untied ([W, V] storage); a ragged T over three groups of
 # token tiles (16, 16 and 6 tiles of 128, the last of 77 tokens) with a
-# vocabulary that is no tile multiple; W = 1000 (no 16-byte rows: the
-# CUDA-core path in bf16 too)
+# vocabulary that is no tile multiple; W = 1000 (rows of 2000 bytes, whose
+# last 64-deep K step is ragged)
 CE_SHAPES = ((2048, 1024, 50304, True), (2048, 1024, 50304, False),
              (4813, 1024, 1000, True), (333, 1000, 1000, True))
 # the paths' own shapes, bf16 only (fp32 runs on the CUDA cores at
@@ -1092,12 +1133,17 @@ def fused_dropout_checks(errs, gen, mha) -> None:
                              plain)
                 check_kernel(errs, "fused_mha_dropout_fwd stats", label,
                              stats, lambda dt: plain(dt, True)[1], dtype)
-                check_kernel(errs, "fused_mha_dropout_bwd", label,
-                             mha.fused_mha_dropout_bwd(x, g, stats, h, drop,
-                                                       causal=causal),
-                             lambda dt: mha.fused_mha_bwd_recompute_plain(
-                                 x.to(dt), g.to(dt), h, scale, causal,
-                                 keep(dt)))
+                d_plain = functools.lru_cache(None)(
+                    lambda dt: mha.fused_mha_bwd_recompute_plain(
+                        x.to(dt), g.to(dt), h, scale, causal, keep(dt)))
+                got = mha.fused_mha_dropout_bwd(x, g, stats, h, drop,
+                                                causal=causal)
+                check_kernel(errs, "fused_mha_dropout_bwd", label, got,
+                             d_plain)
+                if dtype == torch.bfloat16:
+                    check_mha_rows(errs, "fused_mha_dropout_bwd", label, got,
+                                   d_plain, h)
+                del got, d_plain
         del qkv, do
         torch.cuda.empty_cache()
 
@@ -1291,7 +1337,7 @@ FWD_TEETH_FLASH = ((2, 2048, 16, 64, True), (2, 2048, 16, 128, True))
 
 
 def fwd_teeth(kernels_build, gen, mha) -> None:
-    """The wgmma forwards built wrong on purpose (FWD_TILE_FAULTS), as an
+    """The wgmma forwards built wrong on purpose (TILE_FAULTS), as an
     off-by-one at a key tile's bound would: the last key of every 128-key
     tile left out (masked, so its p is 0: its V row adds nothing and its
     exponential leaves the sum), in the whole sequence or in the tiles of
@@ -1319,8 +1365,9 @@ def fwd_teeth(kernels_build, gen, mha) -> None:
                       "flash_fwd", "flash_fwd lse",
                       lambda q=q, k=k, v=v, causal=causal: fa.flash_fwd(
                           q, k, v, causal=causal), want))
-    for fault in FWD_TILE_FAULTS:
-        with kernels_build.variant(fault):
+    for faults in TILE_FAULTS:
+        fault = faults[0]
+        with kernels_build.variant(*faults):
             for label, name, residual, run, (want, want_res) in cases:
                 got, got_res = run()
                 out_used = bf16_share(got, want, name)
@@ -1336,26 +1383,92 @@ def fwd_teeth(kernels_build, gen, mha) -> None:
     torch.cuda.empty_cache()
 
 
+# the backward teeth: the pipeline GPT's heads (S = 512, D = 128, causal,
+# rate 0.1) and ViT-L/14's vision tower (S = 257, D = 64); each (B, S, H, D,
+# causal, rate)
+BWD_TEETH = ((2, 512, 16, 128, True, DROPOUT_RATE),
+             (4, 257, 16, 64, False, 0.0))
+
+
+def bwd_teeth(kernels_build, gen, mha) -> None:
+    """The wgmma recompute backward built wrong on purpose
+    (TILE_FAULTS), as an off-by-one at a tile's bound would: part 1
+    leaves the last key of every key tile out of dQ and delta, part 2 the
+    last query of every 64-query tile out of dK and dV, in the whole
+    sequence or in the tiles of its late half. Run through the same
+    wrappers on the plain forward's statistics and held against the plain
+    backward, each of dQ, dK and dV must fail the row bound that phase 3
+    holds the right kernels to; beside it is logged what the bound scaled
+    by the largest |value| (TOLERANCES' bf16 bound) reads."""
+    from megatron_clip_tpu_torch.ops.dropout import AttentionDropout
+    dt = torch.bfloat16
+    cases = []
+    for b, s, h, d, causal, rate in BWD_TEETH:
+        qkv = torch.randn(b, s, 3 * h * d, device="cuda", generator=gen,
+                          dtype=dt)
+        g = torch.randn(b, s, h * d, device="cuda", generator=gen, dtype=dt)
+        drop = (AttentionDropout(rate, DROPOUT_CHECK_SEED, 2) if rate
+                else None)
+        keep = None if drop is None else drop.multipliers(
+            b, h, s, s, mha.dropout_mult(rate, dt), "cuda")
+        _, stats = mha.fused_mha_plain(qkv, h, d ** -0.5, causal,
+                                       with_stats=True, keep=keep)
+        want = mha.fused_mha_bwd_recompute_plain(qkv, g, h, d ** -0.5,
+                                                 causal, keep)
+        if drop is None:
+            name = "fused_mha_bwd_recompute"
+            run = (lambda qkv=qkv, g=g, stats=stats, h=h, causal=causal:
+                   mha.fused_mha_bwd_recompute(qkv, g, stats, h,
+                                               causal=causal))
+        else:
+            name = "fused_mha_dropout_bwd"
+            run = (lambda qkv=qkv, g=g, stats=stats, h=h, causal=causal,
+                   drop=drop: mha.fused_mha_dropout_bwd(
+                       qkv, g, stats, h, drop, causal=causal))
+        cases.append((f"B={b} S={s} H={h} D={d} causal={causal} "
+                      f"rate={rate}", name, run, want, h))
+    for faults in TILE_FAULTS:
+        fault = faults[1]
+        with kernels_build.variant(*faults):
+            for label, name, run, want, h in cases:
+                got = run()
+                for part, gp, wp in zip(("dq", "dk", "dv"),
+                                        mha_parts(got, h),
+                                        mha_parts(want, h)):
+                    row = rows_used(gp, wp,
+                                    *TOLERANCES[f"{name} rows"]["bf16"])
+                    old = bf16_share(gp, wp, name)
+                    log(f"  {name} {label} built with {fault}, {part}: "
+                        f"{row:.3f} of the row bound, {old:.3f} of the "
+                        "largest-|value| bound")
+                    if row <= 1:
+                        raise AssertionError(
+                            f"{name} {label}: the row bound passes a "
+                            f"backward built with {fault} ({part})")
+    del cases
+    torch.cuda.empty_cache()
+
+
 def sm90_tile_checks(gen) -> None:
     """Each Hopper library's wgmma tile product (csrc/sm90.cuh) in every
-    operand layout its kernels use, the tiles staged by TMA and by the
-    threads' swizzled stores, against the fp32 product of the same bf16
-    values: fp32 sums of 64 exact products in another order, within 1e-5
-    relative plus 1e-4; a wrong descriptor or swizzle moves whole rows or
-    columns, O(1) errors."""
+    operand layout and (N, K) its kernels use, the tiles staged by TMA and by
+    the threads' swizzled stores, against the fp32 product of the same bf16
+    values: fp32 sums of 64 or 128 exact products in another order, within
+    1e-5 relative plus 1e-4; a wrong descriptor or swizzle moves whole rows
+    or columns, O(1) errors."""
     from megatron_clip_tpu_torch.ops.kernels import sm90
-    a = torch.randn(64, 64, device="cuda", generator=gen).to(torch.bfloat16)
-    b = torch.randn(64, 128, device="cuda", generator=gen).to(torch.bfloat16)
+    a = torch.randn(64, 128, device="cuda", generator=gen).to(torch.bfloat16)
+    b = torch.randn(128, 256, device="cuda", generator=gen).to(torch.bfloat16)
     major = ("K-major", "MN-major")
     for lib in sm90.LIBRARIES:
-        for ta, tb, regs, n in sm90.LAYOUTS:
-            bn = b[:, :n]
-            want = sm90.tile_product_plain(a, bn)
+        for ta, tb, regs, n, k in sm90.LAYOUTS:
+            ak, bn = a[:, :k], b[:k, :n]
+            want = sm90.tile_product_plain(ak, bn)
             for tma in (0, 1):
                 a_from = "registers" if regs else major[ta]
-                label = (f"wgmma tile {lib}: N={n}, A {a_from}, B "
+                label = (f"wgmma tile {lib}: N={n} K={k}, A {a_from}, B "
                          f"{major[tb]}, {'TMA' if tma else 'stores'}")
-                compare(label, sm90.tile_product(lib, a, bn, ta=ta, tb=tb,
+                compare(label, sm90.tile_product(lib, ak, bn, ta=ta, tb=tb,
                                                  a_regs=regs, via_tma=tma),
                         want, 1e-4, 1e-5)
 
@@ -1412,11 +1525,16 @@ def phase_kernels(mha, ln):
                          mha.fused_mha_bwd(x, g, p, h, causal=causal),
                          lambda dt: mha.fused_mha_bwd_plain(
                              x.to(dt), g.to(dt), p.to(dt), h, scale))
-            check_kernel(errs, "fused_mha_bwd_recompute", label,
-                         mha.fused_mha_bwd_recompute(x, g, stats, h,
-                                                     causal=causal),
-                         lambda dt: mha.fused_mha_bwd_recompute_plain(
-                             x.to(dt), g.to(dt), h, scale, causal))
+            rc_plain = functools.lru_cache(None)(
+                lambda dt: mha.fused_mha_bwd_recompute_plain(
+                    x.to(dt), g.to(dt), h, scale, causal))
+            got = mha.fused_mha_bwd_recompute(x, g, stats, h, causal=causal)
+            check_kernel(errs, "fused_mha_bwd_recompute", label, got,
+                         rc_plain)
+            if dtype == torch.bfloat16:
+                check_mha_rows(errs, "fused_mha_bwd_recompute", label, got,
+                               rc_plain, h)
+            del got, rc_plain
     smajor_views(mha, gen)
     flash_checks(errs, gen)
     flash_views(gen)
@@ -1426,6 +1544,7 @@ def phase_kernels(mha, ln):
     from megatron_clip_tpu_torch.ops.kernels import _build
     dropout_teeth(_build, gen, mha)
     fwd_teeth(_build, gen, mha)
+    bwd_teeth(_build, gen, mha)
     # the legs' LayerNorms: rows B*S at the tower's width H*D; GPT-345m's
     # and the pipeline GPT's: rows B*S at their widths
     legs_ln = [(b * s, h * d) for _, _, b, s, h, d, _ in LEG_ATTENTION]
@@ -2105,7 +2224,7 @@ def kernels_line(rows, launches_by_path, errs) -> list:
             **({"max_abs_err_column_sums": errs[name]["sums"]}
                if "sums" in errs[name] else {}),
             **{f"max_abs_err_{part}": errs[f"{name} {part}"]
-               for part in ("P", "stats", "lse")
+               for part in ("P", "stats", "lse", "rows")
                if f"{name} {part}" in errs},
             "ms": main["ms"], "plain_ms": main["plain_ms"],
             "bound_ms": main["bound_ms"], "bound_by": main["bound_by"],

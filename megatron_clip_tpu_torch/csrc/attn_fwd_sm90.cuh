@@ -101,7 +101,6 @@ constexpr int kConsumers = 256;  // arrivals that free a ring slot
 constexpr int kMaxKSlots = 8;
 constexpr int kBarBytes = 512;
 constexpr int kMaxSmem = 232448;  // a block's shared memory on the H100
-constexpr float kLog2e = 1.4426950408889634f;
 
 template <int D>
 struct Layout {
@@ -147,14 +146,6 @@ struct Ring {
     }
   }
 };
-
-// 2^x on the MUFU, without exp2f's scaling of results below 2^-126 (they
-// flush to 0, as masked scores do); at most 2 ulps off (the PTX ISA).
-__device__ __forceinline__ float exp2_approx(float x) {
-  float y;
-  asm("ex2.approx.ftz.f32 %0, %1;\n" : "=f"(y) : "f"(x));
-  return y;
-}
 
 // The tile fault of MCT_FWD_TILE_FAULT: whether the tile at k0 leaves out
 // its last key.

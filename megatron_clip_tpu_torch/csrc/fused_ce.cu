@@ -2,10 +2,11 @@
 // log-sum-exp) and the backward that forms dX and dW.
 //
 // Replaces the TPU kernels of megatron_clip_tpu/ops/pallas/fused_ce.py:
-// _fwd_kernel (pallas_call in _fwd) with fused_ce_fwd and fused_ce_combine,
-// and _dx_kernel and _dw_kernel (both pallas_calls in _vjp_bwd) with the
-// backward: in bf16 the three products of hop::fused_ce_bwd_gemm per chunk
-// of tokens, else the one CUDA-core kernel simt::fused_ce_bwd.
+// _fwd_kernel (pallas_call in _fwd) with the forward and fused_ce_combine,
+// in bf16 hop::fused_ce_fwd_gemm, else simt::fused_ce_fwd; and _dx_kernel
+// and _dw_kernel (both pallas_calls in _vjp_bwd) with the backward: in bf16
+// the three products of hop::fused_ce_bwd_gemm per chunk of tokens, else
+// the one CUDA-core kernel simt::fused_ce_bwd.
 // gpt_loss(fused_ce=True) runs them once a step on the GPT's hidden states:
 // T = B*S tokens, width W, vocabulary V (the GPT of
 // examples/pretrain_gpt_dist.sh at batch 8: T = 16384, W = 1024, V = 50304;
@@ -33,15 +34,21 @@
 // chunk of tokens at a time.
 //
 // Design.
-// - fused_ce_fwd (tc::, bf16): the (128-token, 128-row) tiles of [T, V],
-//   one a block, in groups of kGroup token tiles with the vocabulary tiles
-//   outer (tile_of), so that the blocks in flight share a few tiles of
-//   each operand in L2; the logits tile on mma.sync m16n8k16 (8 warps of
-//   32 x 64) over W in chunks of 64 through a 3-stage cp.async ring. No
-//   block owns a whole row, so each warp reduces its 64 columns per row to
-//   (max, sum of exponentials, label logit), one partial of [V/64, T];
-//   fused_ce_combine folds a token's partials in vocabulary order (the TPU
-//   kernel's online max and sum, grouped otherwise). Deterministic.
+// - The bf16 forward (hop::fused_ce_fwd_gemm, wgmma): the backward's
+//   mainloop below (128 x 256 tiles of [T, V], two consumer warpgroups of
+//   m64n256k16, a 4-stage ring of 64-deep TMA boxes of x and wt, both
+//   K-major) with a forward epilogue. The tiles go in groups of 32 token
+//   tiles, the token tiles fastest (tile_of), so that the blocks in flight
+//   share x and a few vocabulary tiles in L2. No block owns a whole row, so
+//   each thread reduces its fp32 logits per row and per 64-column group to
+//   (max, sum of exponentials, label logit), one partial of
+//   [ceil(V / 64), T]; fused_ce_combine folds a token's partials in
+//   vocabulary order (the TPU kernel's online max and sum, grouped
+//   otherwise). Deterministic. The exponentials are exp2 of one FMA on the
+//   MUFU. It takes every case the mma.sync forward before it took (bf16,
+//   16-byte bases and rows), whose time it replaced: 6.0004 ms at T =
+//   16384, W = 1024 and 11.8786 ms at W = 2048 (PERF.md, NVIDIA H100 80GB
+//   HBM3 at 700 W).
 // - The bf16 backward (hop::, wgmma). The TPU kernels keep a [block_t, W]
 //   (dX) or [W, block_v] (dW) fp32 accumulator in VMEM across the whole
 //   other axis; at W = 1024 that is 512 KB to 2 MB, which no block holds on
@@ -59,19 +66,20 @@
 //   after the last. One kernel template serves all three (fused_ce_bwd_gemm
 //   <P>): a 128 x 256 output tile per block, two consumer warpgroups of
 //   m64n256k16 over a 4-stage ring of 64-deep TMA tiles (128-byte
-//   swizzle) fed by one producer warp under full and empty mbarriers; the
-//   operand majors differ per product (x and wt K-major for the logits;
-//   wt, dlogits^T and x MN-major for dX and dW), which wgmma takes from the
-//   same swizzled panels. The cost over one kernel: the dlogits' round trip
-//   through device memory (written once, read once per W-tile of dX and
-//   dW) and a scratch of dl_rows V bf16.
+//   swizzle) fed by one producer warp under full and empty mbarriers (the
+//   forward's mainloop too); the operand majors differ per product (x and
+//   wt K-major for the logits; wt, dlogits^T and x MN-major for dX and dW),
+//   which wgmma takes from the same swizzled panels. The cost over one
+//   kernel: the dlogits' round trip through device memory (written once,
+//   read once per W-tile of dX and dW) and a scratch of dl_rows V bf16.
 // simt:: (fp32, and bf16 rows that are not 16-byte aligned): the forward's
 // tiles and one backward kernel on the CUDA cores in fp32, 64 x 64 tiles, a
 // 4 x 4 micro-tile per thread, scalar atomics into fp32 dX and dW; fp32
 // inputs stay at full fp32 precision (no TF32).
 //
-// Later work: a persistent schedule for the backward's products (the
-// dlogits product runs 16-deep K loops), the forward on wgmma.
+// Later work: a persistent schedule for the four products (the dlogits
+// product runs 16-deep K loops), so that a tile's epilogue overlaps the
+// next one's loads.
 #include <stdint.h>
 
 #include "common.cuh"
@@ -85,199 +93,14 @@ constexpr float kMasked = -1e30f;  // the TPU kernel's NEG_INF
 constexpr int kPartCols = 64;      // vocabulary columns of a forward partial
 
 // ----------------------------------------------------------------------------
-// bf16 tensor-core kernels
-namespace tc {
-
-using namespace mct::tc;
-constexpr int kThreads = 256;   // 8 warps: 4 along tokens x 2 along vocabulary
-constexpr int BT = 128;         // tokens per block
-constexpr int BV = 128;         // vocabulary rows per block
-constexpr int KC = 64;          // W chunk of the logits loop
-constexpr int kStages = 3;      // cp.async ring depth
-constexpr int kPitch = KC + 8;  // ring rows (144 bytes: ldmatrix conflict-free)
-// The forward walks the tiles of [T, V] in groups of kGroup token tiles,
-// the vocabulary tiles outer within a group (tile_of): the blocks in flight
-// then share a few token tiles and a few vocabulary tiles, whose operands
-// stay in L2
-constexpr int kGroup = 16;
-
-constexpr int kFwdSmem = kStages * (BT + BV) * kPitch * 2;
-
-__device__ __forceinline__ void cp_async16(void* dst, const void* src,
-                                           bool valid) {
-  // src-size 0 zero-fills the 16 bytes without reading src
-  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(
-                   smem_addr(dst)),
-               "l"(src), "r"(valid ? 16 : 0));
-}
-__device__ __forceinline__ void cp_commit() {
-  asm volatile("cp.async.commit_group;\n" ::);
-}
-template <int N>
-__device__ __forceinline__ void cp_wait() {
-  asm volatile("cp.async.wait_group %0;\n" ::"n"(N));
-}
-
-// Rows [r0, r0 + ROWS) x columns [c0, c0 + 8 CHUNKS) of the row-major
-// [R, W] matrix src into dst (pitch `pitch`), zero past R and past W.
-template <int ROWS, int CHUNKS>
-__device__ __forceinline__ void load_rows(bf16* dst, int pitch,
-                                          const bf16* src, int R, int W,
-                                          int r0, int c0) {
-  static_assert(ROWS * CHUNKS % kThreads == 0, "whole rounds of chunks");
-#pragma unroll
-  for (int it = 0; it < ROWS * CHUNKS / kThreads; ++it) {
-    const int i = it * kThreads + threadIdx.x;
-    const int r = i / CHUNKS, c = i % CHUNKS;
-    const int gr = r0 + r, gc = c0 + c * 8;
-    const bool ok = gr < R && gc < W;
-    cp_async16(dst + r * pitch + c * 8, ok ? src + (long)gr * W + gc : src,
-               ok);
-  }
-}
-
-// The (token tile, vocabulary tile) of block b: groups of kGroup token
-// tiles, the token tile fastest within a group (a bijection onto the tiles)
-__device__ __forceinline__ void tile_of(int b, int nt_tiles, int nv_tiles,
-                                        int& tt, int& vt) {
-  const int per_group = kGroup * nv_tiles;
-  const int first = b / per_group * kGroup, r = b % per_group;
-  const int size = min(kGroup, nt_tiles - first);
-  tt = first + r % size;
-  vt = r / size;
-}
-
-// The warp's 32 x 64 logits tile of the block's (t0, v0) tile: acc[mt][nt]
-// is the m16n8 accumulator of tokens t0 + 32 wm + 16 mt + .., vocabulary
-// rows v0 + 64 wn + 8 nt + ..  Ends with the ring free for reuse.
-__device__ __forceinline__ void logits_tile(float (&acc)[2][8][4], bf16* ring,
-                                            const bf16* x, const bf16* wt,
-                                            int T, int V, int W, int t0,
-                                            int v0) {
-  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
-  const int wm = warp & 3, wn = warp >> 2;
-#pragma unroll
-  for (int mt = 0; mt < 2; ++mt)
-#pragma unroll
-    for (int nt = 0; nt < 8; ++nt)
-#pragma unroll
-      for (int j = 0; j < 4; ++j) acc[mt][nt][j] = 0.f;
-  const int nk = (W + KC - 1) / KC;
-  auto stage = [&](int s) { return ring + s * (BT + BV) * kPitch; };
-  auto load = [&](int s, int kc) {
-    load_rows<BT, KC / 8>(stage(s), kPitch, x, T, W, t0, kc * KC);
-    load_rows<BV, KC / 8>(stage(s) + BT * kPitch, kPitch, wt, V, W, v0,
-                          kc * KC);
-  };
-#pragma unroll
-  for (int s = 0; s < kStages - 1; ++s) {
-    if (s < nk) load(s, s);
-    cp_commit();
-  }
-  for (int kc = 0; kc < nk; ++kc) {
-    cp_wait<kStages - 2>();  // chunk kc has landed
-    __syncthreads();         // ... for every thread; chunk kc - 1 is done
-    if (kc + kStages - 1 < nk)
-      load((kc + kStages - 1) % kStages, kc + kStages - 1);
-    cp_commit();
-    const bf16* a_s = stage(kc % kStages) + 32 * wm * kPitch;
-    const bf16* b_s = stage(kc % kStages) + (BT + 64 * wn) * kPitch;
-#pragma unroll
-    for (int ks = 0; ks < KC / 16; ++ks) {
-      uint32_t a[2][4];
-#pragma unroll
-      for (int mt = 0; mt < 2; ++mt)
-        ldmatrix_x4(a[mt], a_s + (16 * mt + (lane & 15)) * kPitch + ks * 16 +
-                               (lane >> 4) * 8);
-#pragma unroll
-      for (int np = 0; np < 4; ++np) {
-        uint32_t r[4];
-        ldmatrix_x4(r, b_s + (np * 16 + (lane & 7) + (lane >> 4) * 8) * kPitch +
-                           ks * 16 + ((lane >> 3) & 1) * 8);
-#pragma unroll
-        for (int mt = 0; mt < 2; ++mt) {
-          mma(acc[mt][2 * np], a[mt], r[0], r[1]);
-          mma(acc[mt][2 * np + 1], a[mt], r[2], r[3]);
-        }
-      }
-    }
-  }
-  cp_wait<0>();
-  __syncthreads();
-}
-
-__global__ void __launch_bounds__(kThreads)
-fused_ce_fwd(const bf16* __restrict__ x, const bf16* __restrict__ wt,
-             const int* __restrict__ labels, float* __restrict__ pm,
-             float* __restrict__ pl, float* __restrict__ pg, int T, int V,
-             int W) {
-  extern __shared__ __align__(16) unsigned char smem_raw[];
-  int tt, vt;
-  tile_of(blockIdx.x, (T + BT - 1) / BT, (V + BV - 1) / BV, tt, vt);
-  const int t0 = tt * BT, v0 = vt * BV;
-  float acc[2][8][4];
-  logits_tile(acc, reinterpret_cast<bf16*>(smem_raw), x, wt, T, V, W, t0, v0);
-  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
-  const int wm = warp & 3, wn = warp >> 2;
-  const int part = vt * 2 + wn;  // the warp's 64 columns
-  if (part * kPartCols >= V) return;     // warp-uniform: all past V
-  const int col0 = v0 + 64 * wn + 2 * (lane & 3);
-#pragma unroll
-  for (int mt = 0; mt < 2; ++mt)
-#pragma unroll
-    for (int half = 0; half < 2; ++half) {
-      const int t = t0 + 32 * wm + 16 * mt + (lane >> 2) + 8 * half;
-      const int lbl = t < T ? labels[t] : -1;
-      float mx = kMasked, g = 0.f;
-#pragma unroll
-      for (int nt = 0; nt < 8; ++nt)
-#pragma unroll
-        for (int j = 0; j < 2; ++j) {
-          const int col = col0 + 8 * nt + j;
-          const float v = acc[mt][nt][2 * half + j];
-          if (col < V) {
-            mx = fmaxf(mx, v);
-            if (col == lbl) g = v;
-          }
-        }
-      mx = quad_max(mx);
-      float l = 0.f;
-#pragma unroll
-      for (int nt = 0; nt < 8; ++nt)
-#pragma unroll
-        for (int j = 0; j < 2; ++j)
-          if (col0 + 8 * nt + j < V) l += expf(acc[mt][nt][2 * half + j] - mx);
-      l = quad_sum(l);
-      g = quad_sum(g);
-      if ((lane & 3) == 0 && t < T) {
-        const long o = (long)part * T + t;
-        pm[o] = mx;
-        pl[o] = l;
-        pg[o] = g;
-      }
-    }
-}
-
-inline bool eligible(const void* x, const void* wt, int W) {
-  return W % 8 == 0 && reinterpret_cast<uintptr_t>(x) % 16 == 0 &&
-         reinterpret_cast<uintptr_t>(wt) % 16 == 0;
-}
-
-// One block per tile, a 1-D grid (tile_of); 0 if there are too many
-inline unsigned blocks(int T, int V) {
-  const long n = (long)((T + BT - 1) / BT) * ((V + BV - 1) / BV);
-  return n > 0x7fffffffL ? 0u : (unsigned)n;
-}
-
-}  // namespace tc
-
-// ----------------------------------------------------------------------------
-// The bf16 backward on wgmma (sm90.cuh), in chunks of tokens: for each
-// chunk, three products of one kernel template, each output tile owned by
-// one block
+// The bf16 kernels on wgmma (sm90.cuh): the forward's logits with their
+// softmax partials, and the backward's three products per chunk of tokens;
+// one mainloop, each output tile owned by one block
 namespace hop {
 
 using namespace mct::sm90;
+using mct::tc::quad_max;
+using mct::tc::quad_sum;
 constexpr int BM = 128;  // output rows of a block: two consumer warpgroups
 constexpr int BN = 256;  // output columns: one m64n256k16 per k-step
 constexpr int BK = 64;   // the K depth of a ring stage: one swizzled panel
@@ -288,16 +111,25 @@ constexpr int kABytes = BM * BK * 2;
 constexpr int kBBytes = BN * BK * 2;
 constexpr int kStageBytes = kABytes + kBBytes;
 constexpr int kSmem = 1024 + kStages * kStageBytes + 2 * kStages * 8;
+// The forward walks its tiles in groups of kGroup token tiles, the token
+// tiles fastest within a group (tile_of): the blocks in flight share a few
+// vocabulary tiles of wt and one group's x (8 or 16 MB at W = 1024 or
+// 2048) in L2, so wt is read from device memory about once a group
+constexpr int kGroup = 32;
 
-// The three products of a chunk of tokens [t0, t0 + rows):
-// - kDlogits: dl[t, v] = bf16((exp(x_t . wt_v - lse_t) - onehot) dloss_t)
-//   into the chunk's scratch; A = x (K-major, K = W), B = wt (K-major);
+// The products, each C[M, N] over K from TMA boxes 64 deep:
+// - kFwd: logits[t, v] = x_t . wt_v (A = x, B = wt, both K-major, K = W),
+//   reduced in the epilogue to each row's (max, sum of exponentials, label
+//   logit) per 64 columns;
+// - kDlogits (the backward, per chunk of tokens [t0, t0 + rows)):
+//   dl[t, v] = bf16((exp(x_t . wt_v - lse_t) - onehot) dloss_t) into the
+//   chunk's scratch; A = x, B = wt (K-major);
 // - kDx: dX[t] = dl[t] . wt, rounded once; A = dl (K-major, K = V), B = wt
 //   read as [V, W] (MN-major);
 // - kDw: dW^T[v] (+)= dl[:, v]^T . x, fp32 across chunks in their order,
 //   rounded once after the last; A = dl read as [rows, V] (MN-major, K =
 //   tokens), B = x (MN-major).
-enum Product { kDlogits = 0, kDx = 1, kDw = 2 };
+enum Product { kDlogits = 0, kDx = 1, kDw = 2, kFwd = 3 };
 
 struct Maps {
   CUtensorMap a, b;
@@ -310,29 +142,43 @@ struct Args {
   bf16* dl;  // the chunk's dlogits, [dl_rows, dl_pitch]
   bf16* dx;  // [T, W]
   bf16* dw;  // [V, W]
-  float* dw_acc;  // [V, W] fp32, between chunks
+  float* dw_acc;        // [V, W] fp32, between chunks
+  float *pm, *pl, *pg;  // the forward's partials, [ceil(V / 64), T] each
   int T, V, W, dl_pitch;
   int t0, rows;    // the chunk
   int mt, nt, nk;  // output tiles along M and N; ring stages along K
   int first, last;
 };
 
+// The (token tile, vocabulary tile) of the forward's block b: groups of
+// kGroup token tiles, the token tile fastest within a group (a bijection
+// onto the tiles)
+__device__ __forceinline__ void tile_of(int b, int mt, int nt, int& m,
+                                        int& n) {
+  const int per_group = kGroup * nt;
+  const int first = b / per_group * kGroup, r = b % per_group;
+  const int size = min(kGroup, mt - first);
+  m = first + r % size;
+  n = r / size;
+}
+
+// The output tile (m0, n0) of product P into acc, in consumer warpgroup wg
+// (rows m0 + 64 wg ..; acc[4 j + e]: row 16 warp + lane / 4 + 8 (e >> 1),
+// column 8 j + 2 (lane % 4) + (e & 1)). One producer warp streams the A
+// and B boxes of each 64-deep K step through a ring of kStages under full
+// and empty mbarriers; the consumers run m64n256k16. False in the producer
+// warp, which has nothing more to do.
 template <int P>
-__global__ void __launch_bounds__(kThreads, 1)
-fused_ce_bwd_gemm(const __grid_constant__ Maps maps, const Args g) {
+__device__ __forceinline__ bool mainloop(const Maps& maps, const Args& g,
+                                         int m0, int n0,
+                                         float (&acc)[BN / 2]) {
   constexpr int TA = P == kDw ? 1 : 0;
-  constexpr int TB = P == kDlogits ? 0 : 1;
+  constexpr int TB = P == kDlogits || P == kFwd ? 0 : 1;
   extern __shared__ __align__(1024) unsigned char ce_smem[];
   unsigned char* base = align_1024(ce_smem);
   uint64_t* full = reinterpret_cast<uint64_t*>(base + kStages * kStageBytes);
   uint64_t* empty = full + kStages;
   const int tid = threadIdx.x;
-  // dlogits: the token tiles fastest, so that the blocks in flight share a
-  // vocabulary tile of wt; dX and dW: the W tiles fastest (they share an
-  // A tile)
-  const int m = P == kDlogits ? blockIdx.x % g.mt : blockIdx.x / g.nt;
-  const int n = P == kDlogits ? blockIdx.x / g.mt : blockIdx.x % g.nt;
-  const int m0 = m * BM, n0 = n * BN;
   if (tid == 0) {
     for (int s = 0; s < kStages; ++s) {
       mbar_init(full + s, 1);
@@ -350,7 +196,7 @@ fused_ce_bwd_gemm(const __grid_constant__ Maps maps, const Args g) {
         unsigned char* a_s = base + s * kStageBytes;
         unsigned char* b_s = a_s + kABytes;
         mbar_expect_tx(full + s, kStageBytes);
-        if (P == kDlogits) {
+        if (P == kDlogits || P == kFwd) {
           tma_load_2d(a_s, &maps.a, full + s, kc, g.t0 + m0);
           tma_load_2d(b_s, &maps.b, full + s, kc, n0);
         } else if (P == kDx) {
@@ -368,12 +214,10 @@ fused_ce_bwd_gemm(const __grid_constant__ Maps maps, const Args g) {
                         g.t0 + kc);
         }
       }
-    return;
+    return false;
   }
 
-  // consumers: warpgroup wg owns output rows m0 + 64 wg ..
-  const int wg = tid >> 7, warp = (tid >> 5) & 3, lane = tid & 31;
-  float acc[BN / 2];
+  const int wg = tid >> 7;
 #pragma unroll
   for (int i = 0; i < BN / 2; ++i) acc[i] = 0.f;
   for (int k = 0; k < g.nk; ++k) {
@@ -395,8 +239,23 @@ fused_ce_bwd_gemm(const __grid_constant__ Maps maps, const Args g) {
   }
   wgmma_wait<0>();
   fence_regs(acc);
+  return true;
+}
 
-  // acc[4 j + e]: row r_lo + 8 (e >> 1), column c_lo + 8 j + (e & 1)
+template <int P>
+__global__ void __launch_bounds__(kThreads, 1)
+fused_ce_bwd_gemm(const __grid_constant__ Maps maps, const Args g) {
+  // dlogits: the token tiles fastest, so that the blocks in flight share a
+  // vocabulary tile of wt; dX and dW: the W tiles fastest (they share an
+  // A tile)
+  const int m = P == kDlogits ? blockIdx.x % g.mt : blockIdx.x / g.nt;
+  const int n = P == kDlogits ? blockIdx.x / g.mt : blockIdx.x % g.nt;
+  const int m0 = m * BM, n0 = n * BN;
+  float acc[BN / 2];
+  if (!mainloop<P>(maps, g, m0, n0, acc)) return;
+
+  const int tid = threadIdx.x, wg = tid >> 7, warp = (tid >> 5) & 3,
+            lane = tid & 31;
   const int r_lo = m0 + 64 * wg + 16 * warp + (lane >> 2);
   const int c_lo = n0 + 2 * (lane & 3);
 #pragma unroll
@@ -457,22 +316,97 @@ fused_ce_bwd_gemm(const __grid_constant__ Maps maps, const Args g) {
   }
 }
 
+// The forward: the (128-token, 256-column) logits tile of block
+// blockIdx.x (tile_of), then for each token row and each of the tile's
+// four 64-column groups that start below V: the max m, the sum of
+// exp(logit - m) (exp2 of one FMA on the MUFU) and the label's logit where
+// the label falls in the group, into partial n0 / 64 + group of
+// [ceil(V / 64), T]. Tokens past T and columns past V count for nothing.
+__global__ void __launch_bounds__(kThreads, 1)
+fused_ce_fwd_gemm(const __grid_constant__ Maps maps, const Args g) {
+  int m, n;
+  tile_of(blockIdx.x, g.mt, g.nt, m, n);
+  const int m0 = m * BM, n0 = n * BN;
+  float acc[BN / 2];
+  if (!mainloop<kFwd>(maps, g, m0, n0, acc)) return;
+
+  const int tid = threadIdx.x, wg = tid >> 7, warp = (tid >> 5) & 3,
+            lane = tid & 31;
+  const int r_lo = m0 + 64 * wg + 16 * warp + (lane >> 2);
+  const int c_lo = n0 + 2 * (lane & 3);
+#pragma unroll
+  for (int half = 0; half < 2; ++half) {
+    const int t = r_lo + 8 * half;
+    const int lbl = t < g.T ? g.labels[t] : -1;
+#pragma unroll
+    for (int grp = 0; grp < BN / kPartCols; ++grp) {
+      const int part = n0 / kPartCols + grp;
+      if (part * kPartCols >= g.V) break;  // block-uniform
+      float mx = kMasked, lab = 0.f;
+#pragma unroll
+      for (int jj = 0; jj < 8; ++jj)
+#pragma unroll
+        for (int e = 0; e < 2; ++e) {
+          const int j = 8 * grp + jj;
+          const float v = acc[4 * j + 2 * half + e];
+          if (c_lo + 8 * j + e < g.V) {
+            mx = fmaxf(mx, v);
+            if (c_lo + 8 * j + e == lbl) lab = v;
+          }
+        }
+      mx = quad_max(mx);
+      const float mb = mx * kLog2e;
+      float l = 0.f;
+#pragma unroll
+      for (int jj = 0; jj < 8; ++jj)
+#pragma unroll
+        for (int e = 0; e < 2; ++e) {
+          const int j = 8 * grp + jj;
+          if (c_lo + 8 * j + e < g.V)
+            l += exp2_approx(fmaf(acc[4 * j + 2 * half + e], kLog2e, -mb));
+        }
+      l = quad_sum(l);
+      lab = quad_sum(lab);
+      if ((lane & 3) == 0 && t < g.T) {
+        const long o = (long)part * g.T + t;
+        g.pm[o] = mx;
+        g.pl[o] = l;
+        g.pg[o] = lab;
+      }
+    }
+  }
+}
+
 template <int P>
 cudaError_t launch(const CUtensorMap& a, const CUtensorMap& b, Args g,
                    int mt, int nt, int nk, cudaStream_t st) {
   const long blocks = (long)mt * nt;
   if (blocks > 0x7fffffffL) return cudaErrorInvalidValue;
-  const cudaError_t e = allow_smem(fused_ce_bwd_gemm<P>, kSmem);
-  if (e != cudaSuccess) return e;
   g.mt = mt;
   g.nt = nt;
   g.nk = nk;
-  fused_ce_bwd_gemm<P><<<(unsigned)blocks, kThreads, kSmem, st>>>(
-      Maps{a, b}, g);
+  cudaError_t e;
+  if constexpr (P == kFwd) {
+    e = allow_smem(fused_ce_fwd_gemm, kSmem);
+    if (e != cudaSuccess) return e;
+    fused_ce_fwd_gemm<<<(unsigned)blocks, kThreads, kSmem, st>>>(Maps{a, b},
+                                                                 g);
+  } else {
+    e = allow_smem(fused_ce_bwd_gemm<P>, kSmem);
+    if (e != cudaSuccess) return e;
+    fused_ce_bwd_gemm<P><<<(unsigned)blocks, kThreads, kSmem, st>>>(
+        Maps{a, b}, g);
+  }
   return cudaGetLastError();
 }
 
 inline int cdiv(long a, int b) { return (int)((a + b - 1) / b); }
+
+// bf16 operands the TMA reads: 16-byte bases and rows
+inline bool eligible(const void* x, const void* wt, int W) {
+  return W % 8 == 0 && reinterpret_cast<uintptr_t>(x) % 16 == 0 &&
+         reinterpret_cast<uintptr_t>(wt) % 16 == 0;
+}
 
 }  // namespace hop
 
@@ -698,13 +632,24 @@ extern "C" int mct_fused_ce_fwd(const void* x, const void* wt,
   float* pm = part;
   float* pl = pm + (long)nparts * T;
   float* pg = pl + (long)nparts * T;
-  if (dtype == mct::kBFloat16 && tc::eligible(x, wt, W)) {
-    const cudaError_t e = allow_smem(tc::fused_ce_fwd, tc::kFwdSmem);
+  if (dtype == mct::kBFloat16 && hop::eligible(x, wt, W)) {
+    using mct::sm90::matrix_map;
+    CUtensorMap x_k, wt_k;
+    if (!matrix_map(&x_k, x, T, W, hop::BM) ||
+        !matrix_map(&wt_k, wt, V, W, hop::BN))
+      return (int)cudaErrorInvalidValue;
+    hop::Args g{};
+    g.labels = labels;
+    g.pm = pm;
+    g.pl = pl;
+    g.pg = pg;
+    g.T = T;
+    g.V = V;
+    g.W = W;
+    const cudaError_t e = hop::launch<hop::kFwd>(
+        x_k, wt_k, g, hop::cdiv(T, hop::BM), hop::cdiv(V, hop::BN),
+        hop::cdiv(W, hop::BK), st);
     if (e != cudaSuccess) return (int)e;
-    if (!tc::blocks(T, V)) return (int)cudaErrorInvalidValue;
-    tc::fused_ce_fwd<<<tc::blocks(T, V), tc::kThreads, tc::kFwdSmem, st>>>(
-        static_cast<const __nv_bfloat16*>(x),
-        static_cast<const __nv_bfloat16*>(wt), labels, pm, pl, pg, T, V, W);
   } else {
     const dim3 grid((T + simt::BT - 1) / simt::BT,
                     (V + simt::BV - 1) / simt::BV);
@@ -772,7 +717,7 @@ extern "C" int mct_fused_ce_bwd_sm90(const void* x, const void* wt,
                                      float* dw_acc, void* dl, int dl_rows,
                                      int dl_pitch, int T, int V, int W,
                                      void* stream) {
-  if (!args_ok(T, V, W, mct::kBFloat16) || !tc::eligible(x, wt, W) ||
+  if (!args_ok(T, V, W, mct::kBFloat16) || !hop::eligible(x, wt, W) ||
       dl_rows < 1 || dl_rows % hop::BM || dl_pitch < V || dl_pitch % 8 ||
       (T > dl_rows && dw_acc == nullptr))
     return (int)cudaErrorInvalidValue;

@@ -128,24 +128,39 @@
 //   rows on the fp32 CUDA cores, which keeps fp32 inputs at full fp32
 //   precision (no TF32). At most 46 KB of shared memory (D = 128).
 //
-// The recompute backward keeps this shape. On the tensor cores its part 1
-// stages q, dO, k and v tiles, takes every operand from shared memory (one
-// ldmatrix per k-chunk) and runs S = Q K^T and dP = dO V^T in both passes
-// over 32-key halves, which keeps it at 128 registers at D = 64, four
-// blocks per SM (holding dO's fragments and whole key tiles gave two,
-// and a slower kernel with the same bits: PERF.md); part 2
-// keeps the block's 64 keys and values in shared memory as A operands of
-// S^T = K Q^T and dP^T = V dO^T, whose accumulators become P^T's and dS^T's
-// A fragments for dV and dK directly, and walks each 64-query tile in two
-// halves of 32 so that dK, dV, P^T and dP^T fit the registers at D = 128.
-// Shared memory 70 KB at D = 128 for both parts. On the CUDA cores the
-// saved-P kernels take the recompute as a template switch.
+// - The recompute backward in bf16 at D = 64 and 128 past S = 128
+//   (ViT-L/14's vision tower, the pipeline GPT's S = 512 with dropout,
+//   the S-major views of those): attn_bwd_sm90.cuh's two warp-specialised
+//   wgmma kernels (part 1 dQ and delta over 128-query blocks, K and V
+//   streamed twice through a TMA ring; part 2 dK and dV over 128-key
+//   blocks, Q, dO and the row statistics streamed; that header's note has
+//   the design). Phase 6 of chip_smoke.py on the H100 (NVIDIA H100 80GB
+//   HBM3, 700 W): 0.4962 ms at ViT-L/14's B = 64, S = 257, D = 64
+//   (tc:: 0.8717 before; SDPA 0.4108), 0.5571 and 0.7300 ms at the
+//   pipeline GPT's B = 32, S = 512, D = 128, causal, rate 0 and 0.1
+//   (tc:: 1.4166 and 1.7338; SDPA 0.5225 and 0.5234). S <= 128 (the text
+//   towers: ViT-L/14's B = 64, S = 77 in 0.1048 ms on tc::, SDPA 0.3895),
+//   D = 80 (ViT-H/14's vision tower, 0.4706 ms on tc::, SDPA 0.3424) and
+//   operands TMA cannot read stay on tc:: below; fp32 and any other bf16
+//   case on simt::.
+// - tc::'s recompute backward keeps the saved-P backward's shape: part 1
+//   stages q, dO, k and v tiles, takes every operand from shared memory
+//   (one ldmatrix per k-chunk) and runs S = Q K^T and dP = dO V^T in both
+//   passes over 32-key halves, which keeps it at 128 registers at D = 64,
+//   four blocks per SM; part 2 keeps the block's 64 keys and values in
+//   shared memory as A operands of S^T = K Q^T and dP^T = V dO^T, whose
+//   accumulators become P^T's and dS^T's A fragments for dV and dK
+//   directly, and walks each 64-query tile in two halves of 32 so that dK,
+//   dV, P^T and dP^T fit the registers at D = 128. Shared memory 70 KB at
+//   D = 128 for both parts. On the CUDA cores the saved-P kernels take the
+//   recompute as a template switch.
 //
-// The backward on wgmma/TMA tiles, keeping several heads per block and one
-// backward kernel for S <= 64 are later work.
+// Keeping several heads per block and one backward kernel for S <= 64 are
+// later work.
 #include <math_constants.h>
 #include <stdint.h>
 
+#include "attn_bwd_sm90.cuh"
 #include "attn_fwd_sm90.cuh"
 #include "common.cuh"
 #include "mma_tiles.cuh"
@@ -1824,6 +1839,31 @@ extern "C" int mct_fused_mha_bwd_recompute(
                                               l, dqkv, pdq, dl, B, S, H, D,
                                               scale, causal, dr, st);
   if (dtype != mct::kBFloat16) return (int)cudaErrorInvalidValue;
+  if (S > mct::attn_fwd::kN &&
+      mct::attn_fwd::eligible(D, {qkv, dout, dqkv, stats, delta},
+                              {qkv_b, qkv_s, do_b, do_s, dq_b, dq_s})) {
+    // past one key tile (the file's note): q, k, v and dO as [B, H, S, D]
+    // views
+    const __nv_bfloat16* x = static_cast<const __nv_bfloat16*>(qkv);
+    const __nv_bfloat16* g = static_cast<const __nv_bfloat16*>(dout);
+    const long long hd = (long long)H * D;
+    mct::attn_bwd::Args a{};
+    a.dqkv = static_cast<__nv_bfloat16*>(dqkv);
+    a.db = dq_b;
+    a.ds = dq_s;
+    a.row_max = m;
+    a.row_sum = l;
+    a.delta = dl;
+    a.bhs = (long)B * H * S;
+    a.H = H;
+    a.S = S;
+    a.causal = causal;
+    a.scale = scale;
+    return (int)mct::attn_bwd::launch(
+        D, {x, qkv_b, D, qkv_s},
+        {x + hd, qkv_b, D, qkv_s}, {x + 2 * hd, qkv_b, D, qkv_s},
+        {g, do_b, D, do_s}, m, a, B, dr, st);
+  }
   if (tc::eligible(D, {qkv, dout, dqkv},
                    {qkv_b, qkv_s, do_b, do_s, dq_b, dq_s}))
     return (int)tc::dispatch_bwd_rc(qkv, pq, dout, pdo, m, l, dqkv, pdq, dl, B,

@@ -1,7 +1,8 @@
 // Hopper (sm_90a) building blocks shared by the kernels that run on wgmma:
-// the fused CE backward (fused_ce.cu), the fused flash backward
-// (flash_attention.cu) and the attention forwards (attn_fwd_sm90.cuh, in
-// flash_attention.cu and fused_mha.cu).
+// the fused CE forward and backward (fused_ce.cu), the fused flash backward
+// (flash_attention.cu), the attention forwards (attn_fwd_sm90.cuh, in
+// flash_attention.cu and fused_mha.cu) and the fused-MHA recompute backward
+// (attn_bwd_sm90.cuh, in fused_mha.cu).
 //
 // - wgmma: the warpgroup's 64-row product D[64 x N] += A[64 x 16] B[16 x N]
 //   in bf16 with fp32 accumulation (N = 64, 128, 256), A and B read from
@@ -25,10 +26,11 @@
 // - view_map / load_view_rows: a 4-D map of a strided [B, H, S, D] view
 //   (a packed projection's head, an S-major tensor) and the load of a box
 //   of its rows.
-// - tile_check: one wgmma tile product for each operand layout the kernels
-//   use (N = 64 or 128), exported by each library that includes this
-//   header, so that a descriptor or swizzle fault shows on its own line
-//   (chip_smoke.py phase 3) before any kernel is checked.
+// - tile_check: one wgmma tile product for each operand layout and shape
+//   the kernels use (N = 64, 128 or 256, K = 64 or 128), exported by each
+//   library that includes this header, so that a descriptor or swizzle
+//   fault shows on its own line (chip_smoke.py phase 3) before any kernel
+//   is checked.
 #pragma once
 
 #include <cuda.h>
@@ -57,6 +59,16 @@ constexpr int kRowBytes = 128;
 constexpr int kAtomBytes = 1024;   // 8 rows: the swizzle's period
 constexpr int kKStepBytes = 32;    // 16 bf16: one k-step along a K-major row
 constexpr int kMnStepBytes = 2048; // 16 rows: one k-step down an MN-major panel
+
+constexpr float kLog2e = 1.4426950408889634f;
+
+// 2^x on the MUFU, without exp2f's scaling of results below 2^-126 (they
+// flush to 0, as masked scores do); at most 2 ulps off (the PTX ISA).
+__device__ __forceinline__ float exp2_approx(float x) {
+  float y;
+  asm("ex2.approx.ftz.f32 %0, %1;\n" : "=f"(y) : "f"(x));
+  return y;
+}
 
 __device__ __forceinline__ uint32_t smem_u32(const void* p) {
   return static_cast<uint32_t>(__cvta_generic_to_shared(p));
@@ -449,17 +461,22 @@ inline bool matrix_map(CUtensorMap* m, const void* p, long rows, long cols,
 }
 
 // ---------------------------------------------------------------------------
-// The tile check: C[64 x N] = A[64 x 64] B[64 x N] (N = 64 or 128) in one
-// warpgroup, four k-steps of m64nNk16. a: [M][K] row-major, or [K][M] if
-// ta (A MN-major); b: [N][K] (K-major) or, if tb, [K][N]; a_regs: A from
-// registers (K-major only). The operands reach shared memory by TMA
-// (via_tma) or by the threads' own swizzled stores.
+// The tile check: C[64 x N] = A[64 x K] B[K x N] in one warpgroup, K / 16
+// k-steps of m64nNk16, (N, K) = (64, 64), (128, 64), (256, 64), (64, 128)
+// or (128, 128). a: [M][K] row-major, or [K][M] if ta (A MN-major); b:
+// [N][K] (K-major) or, if tb, [K][N]; a_regs: A from registers (K-major,
+// N <= 128). The operands reach shared memory by TMA (via_tma) or by the
+// threads' own swizzled stores, in the kernels' panels: A K-major as K / 64
+// panels of [64][64], MN-major as one panel of [K][64]; B K-major as K / 64
+// panels of [N][64], MN-major as N / 64 panels of [K][64].
 struct TileCheck {
   CUtensorMap a, b;
 };
+constexpr int kCheckA = 16384;  // A: up to 64 x 128 bf16
+constexpr int kCheckB = 32768;  // B: up to 256 x 64 or 128 x 128
 
-// The four k-steps in the layout (ta, tb, a_regs) into d (N / 2 floats).
-template <int N>
+// The K / 16 k-steps in the layout (ta, tb, a_regs) into d (N / 2 floats).
+template <int N, int K>
 __device__ __forceinline__ void tile_check_product(float (&d)[N / 2],
                                                    const bf16* a,
                                                    const unsigned char* as,
@@ -467,59 +484,82 @@ __device__ __forceinline__ void tile_check_product(float (&d)[N / 2],
                                                    int ta, int tb,
                                                    int a_regs) {
   const int t = threadIdx.x, w = t >> 5, l = t & 31;
-  uint32_t af[4][4];
-  if (a_regs) {  // the fragment layout, read from a [M][K]
+  uint32_t af[K / 16][4];
+  if (N <= 128 && a_regs) {  // the fragment layout, read from a [M][K]
 #pragma unroll
-    for (int kk = 0; kk < 4; ++kk)
+    for (int kk = 0; kk < K / 16; ++kk)
 #pragma unroll
       for (int i = 0; i < 4; ++i) {
         const int r = 16 * w + (l >> 2) + 8 * (i & 1);
         const int k = 16 * kk + 2 * (l & 3) + 8 * (i >> 1);
         __nv_bfloat162 v;
-        v.x = a[r * 64 + k];
-        v.y = a[r * 64 + k + 1];
+        v.x = a[r * K + k];
+        v.y = a[r * K + k + 1];
         af[kk][i] = *reinterpret_cast<uint32_t*>(&v);
       }
   }
   fence_regs(d);
   wgmma_fence();
 #pragma unroll
-  for (int kk = 0; kk < 4; ++kk) {
-    const uint64_t db = tb ? desc_mn(bs, kk, 8192) : desc_k(bs, kk);
-    if (a_regs) {
-      if (tb)
-        wgmma_rs<1>(d, af[kk], db, 1);
-      else
-        wgmma_rs<0>(d, af[kk], db, 1);
-    } else {
-      // A's 64 rows from row 0 (K-major) or its one M panel (MN-major)
-      const uint64_t da = ta ? desc_mn(as, kk, 8192) : desc_k(as, kk);
-      if (ta && tb)
-        wgmma_ss<1, 1>(d, da, db, 1);
-      else if (ta)
-        wgmma_ss<1, 0>(d, da, db, 1);
-      else if (tb)
-        wgmma_ss<0, 1>(d, da, db, 1);
-      else
-        wgmma_ss<0, 0>(d, da, db, 1);
+  for (int kk = 0; kk < K / 16; ++kk) {
+    const uint64_t db = tb ? desc_mn(bs, kk, K * kRowBytes)
+                           : desc_k(bs + (kk >> 2) * N * kRowBytes, kk & 3);
+    if constexpr (N <= 128) {
+      if (a_regs) {
+        if (tb)
+          wgmma_rs<1>(d, af[kk], db, 1);
+        else
+          wgmma_rs<0>(d, af[kk], db, 1);
+        continue;
+      }
     }
+    // A's 64 rows: K-major from its panel kk / 4, MN-major k-step kk of
+    // its one panel
+    const uint64_t da = ta ? desc_mn(as, kk, 8192)
+                           : desc_k(as + (kk >> 2) * 8192, kk & 3);
+    if (ta && tb)
+      wgmma_ss<1, 1>(d, da, db, 1);
+    else if (ta)
+      wgmma_ss<1, 0>(d, da, db, 1);
+    else if (tb)
+      wgmma_ss<0, 1>(d, da, db, 1);
+    else
+      wgmma_ss<0, 0>(d, da, db, 1);
   }
   wgmma_commit();
   wgmma_wait<0>();
   fence_regs(d);
-  if (a_regs) fence_regs(af);
+  if (N <= 128 && a_regs) fence_regs(af);
+}
+
+template <int N, int K>
+__device__ __forceinline__ void tile_check_run(const bf16* a,
+                                               const unsigned char* as,
+                                               const unsigned char* bs,
+                                               float* c, int ta, int tb,
+                                               int a_regs) {
+  const int t = threadIdx.x, w = t >> 5, l = t & 31;
+  float d[N / 2];
+#pragma unroll
+  for (int i = 0; i < N / 2; ++i) d[i] = 0.f;
+  tile_check_product<N, K>(d, a, as, bs, ta, tb, a_regs);
+#pragma unroll
+  for (int i = 0; i < N / 2; ++i) {
+    const int r = 16 * w + (l >> 2) + 8 * ((i & 3) >> 1);
+    const int col = 8 * (i >> 2) + 2 * (l & 3) + (i & 1);
+    c[r * N + col] = d[i];
+  }
 }
 
 __global__ void __launch_bounds__(128)
 tile_check_kernel(const __grid_constant__ TileCheck maps, const bf16* a,
-                  const bf16* b, float* c, int n, int ta, int tb, int a_regs,
-                  int via_tma) {
+                  const bf16* b, float* c, int n, int k, int ta, int tb,
+                  int a_regs, int via_tma) {
   extern __shared__ __align__(1024) unsigned char check_smem[];
-  unsigned char* base = align_1024(check_smem);
-  bf16* as = reinterpret_cast<bf16*>(base);          // 8 KB: one panel
-  bf16* bs = reinterpret_cast<bf16*>(base + 8192);   // up to 16 KB
-  uint64_t* bar = reinterpret_cast<uint64_t*>(base + 8192 + 16384);
-  const int t = threadIdx.x, w = t >> 5, l = t & 31;
+  unsigned char* as = align_1024(check_smem);
+  unsigned char* bs = as + kCheckA;
+  uint64_t* bar = reinterpret_cast<uint64_t*>(bs + kCheckB);
+  const int t = threadIdx.x;
   if (via_tma) {
     if (t == 0) {
       mbar_init(bar, 1);
@@ -527,61 +567,59 @@ tile_check_kernel(const __grid_constant__ TileCheck maps, const bf16* a,
     }
     __syncthreads();
     if (t == 0) {
-      mbar_expect_tx(bar, 8192 + n * kRowBytes);
-      tma_load_2d(as, &maps.a, bar, 0, 0);
-      if (tb) {  // n / 64 [64 K][64 N] panels
+      mbar_expect_tx(bar, (64 + n) * k * 2);
+      if (ta) {  // one [k K][64 M] panel
+        tma_load_2d(as, &maps.a, bar, 0, 0);
+      } else {  // k / 64 [64 M][64 K] panels
+        for (int p = 0; p < k / 64; ++p)
+          tma_load_2d(as + 8192 * p, &maps.a, bar, 64 * p, 0);
+      }
+      if (tb) {  // n / 64 [k K][64 N] panels
         for (int p = 0; p < n / 64; ++p)
-          tma_load_2d(bs + 4096 * p, &maps.b, bar, 64 * p, 0);
-      } else {  // one [n N][64 K] panel
-        tma_load_2d(bs, &maps.b, bar, 0, 0);
+          tma_load_2d(bs + p * k * kRowBytes, &maps.b, bar, 64 * p, 0);
+      } else {  // k / 64 [n N][64 K] panels
+        for (int p = 0; p < k / 64; ++p)
+          tma_load_2d(bs + p * n * kRowBytes, &maps.b, bar, 64 * p, 0);
       }
     }
     mbar_wait(bar, 0);
   } else {
-    unsigned char* ab = reinterpret_cast<unsigned char*>(as);
-    unsigned char* bb = reinterpret_cast<unsigned char*>(bs);
-    for (int i = t; i < 64 * 64; i += 128) {
-      const int r = i / 64, col = i % 64;  // a's storage row and column
-      *reinterpret_cast<bf16*>(ab + swz(r, col)) = a[i];
-    }
-    for (int i = t; i < 64 * n; i += 128) {
-      if (tb) {  // b [64 K][n N]: panel col / 64
-        const int r = i / n, col = i % n;
-        *reinterpret_cast<bf16*>(bb + (col / 64) * 8192 + swz(r, col % 64)) =
-            b[i];
-      } else {  // b [n N][64 K]
+    for (int i = t; i < 64 * k; i += 128) {
+      if (ta) {  // a [k K][64 M]
         const int r = i / 64, col = i % 64;
-        *reinterpret_cast<bf16*>(bb + swz(r, col)) = b[i];
+        *reinterpret_cast<bf16*>(as + swz(r, col)) = a[i];
+      } else {  // a [64 M][k K]
+        const int r = i / k, col = i % k;
+        *reinterpret_cast<bf16*>(as + (col / 64) * 8192 + swz(r, col % 64)) =
+            a[i];
+      }
+    }
+    for (int i = t; i < n * k; i += 128) {
+      if (tb) {  // b [k K][n N]
+        const int r = i / n, col = i % n;
+        *reinterpret_cast<bf16*>(bs + (col / 64) * k * kRowBytes +
+                                 swz(r, col % 64)) = b[i];
+      } else {  // b [n N][k K]
+        const int r = i / k, col = i % k;
+        *reinterpret_cast<bf16*>(bs + (col / 64) * n * kRowBytes +
+                                 swz(r, col % 64)) = b[i];
       }
     }
     fence_async_smem();
     __syncthreads();
   }
   __syncwarp();
-  const unsigned char* ab = reinterpret_cast<const unsigned char*>(as);
-  const unsigned char* bb = reinterpret_cast<const unsigned char*>(bs);
-  if (n == 64) {
-    float d[32];
-#pragma unroll
-    for (int i = 0; i < 32; ++i) d[i] = 0.f;
-    tile_check_product<64>(d, a, ab, bb, ta, tb, a_regs);
-#pragma unroll
-    for (int i = 0; i < 32; ++i) {
-      const int r = 16 * w + (l >> 2) + 8 * ((i & 3) >> 1);
-      const int col = 8 * (i >> 2) + 2 * (l & 3) + (i & 1);
-      c[r * 64 + col] = d[i];
-    }
+  if (k == 64) {
+    if (n == 64)
+      tile_check_run<64, 64>(a, as, bs, c, ta, tb, a_regs);
+    else if (n == 128)
+      tile_check_run<128, 64>(a, as, bs, c, ta, tb, a_regs);
+    else
+      tile_check_run<256, 64>(a, as, bs, c, ta, tb, a_regs);
+  } else if (n == 64) {
+    tile_check_run<64, 128>(a, as, bs, c, ta, tb, a_regs);
   } else {
-    float d[64];
-#pragma unroll
-    for (int i = 0; i < 64; ++i) d[i] = 0.f;
-    tile_check_product<128>(d, a, ab, bb, ta, tb, a_regs);
-#pragma unroll
-    for (int i = 0; i < 64; ++i) {
-      const int r = 16 * w + (l >> 2) + 8 * ((i & 3) >> 1);
-      const int col = 8 * (i >> 2) + 2 * (l & 3) + (i & 1);
-      c[r * 128 + col] = d[i];
-    }
+    tile_check_run<128, 128>(a, as, bs, c, ta, tb, a_regs);
   }
 }
 
@@ -589,33 +627,40 @@ tile_check_kernel(const __grid_constant__ TileCheck maps, const bf16* a,
 }  // namespace mct
 
 // The C entry point each library that includes this header exports: the
-// tile check above at N = n (64 or 128; 0 on success, else the launch's or
+// tile check above at (N, K) = (n, k) (0 on success, else the launch's or
 // the map's error).
 #define MCT_SM90_TILE_CHECK_EXPORT                                            \
   extern "C" int mct_sm90_tile_check(const void* a, const void* b, float* c,  \
-                                     int n, int ta, int tb, int a_regs,       \
-                                     int via_tma, void* stream) {             \
+                                     int n, int k, int ta, int tb,            \
+                                     int a_regs, int via_tma, void* stream) { \
     using namespace mct::sm90;                                                \
-    if (n != 64 && n != 128) return (int)cudaErrorInvalidValue;               \
+    const bool shape_ok = k == 64 ? (n == 64 || n == 128 || n == 256)         \
+                                  : k == 128 && (n == 64 || n == 128);        \
+    if (!shape_ok || (a_regs && (ta || n > 128)))                             \
+      return (int)cudaErrorInvalidValue;                                      \
     TileCheck maps{};                                                         \
     if (via_tma) {                                                            \
-      const uint64_t sq[2] = {64, 64}, s64[1] = {128};                        \
-      const uint32_t box_a[2] = {64, 64};                                     \
-      if (!make_map(&maps.a, true, true, 2, a, sq, s64, box_a))               \
+      /* a [64][k] or, if ta, [k][64]; b [n][k] or, if tb, [k][n] */          \
+      const uint64_t dims_a[2] = {ta ? 64u : (uint64_t)k,                     \
+                                  ta ? (uint64_t)k : 64u};                    \
+      const uint64_t str_a[1] = {ta ? 128u : (uint64_t)k * 2};                \
+      const uint32_t box_a[2] = {64, ta ? (uint32_t)k : 64u};                 \
+      if (!make_map(&maps.a, true, true, 2, a, dims_a, str_a, box_a))         \
         return (int)cudaErrorInvalidValue;                                    \
-      const uint64_t dims_b[2] = {tb ? (uint64_t)n : 64u,                     \
-                                  tb ? 64u : (uint64_t)n};                    \
-      const uint64_t str_b[1] = {tb ? (uint64_t)n * 2 : 128u};                \
-      const uint32_t box_b[2] = {64, tb ? 64u : (uint32_t)n};                 \
+      const uint64_t dims_b[2] = {tb ? (uint64_t)n : (uint64_t)k,             \
+                                  tb ? (uint64_t)k : (uint64_t)n};            \
+      const uint64_t str_b[1] = {tb ? (uint64_t)n * 2 : (uint64_t)k * 2};     \
+      const uint32_t box_b[2] = {64, tb ? (uint32_t)k : (uint32_t)n};         \
       if (!make_map(&maps.b, true, true, 2, b, dims_b, str_b, box_b))         \
         return (int)cudaErrorInvalidValue;                                    \
     }                                                                         \
-    const int smem = 1024 + 8192 + 16384 + 64;                                \
+    const int smem = 1024 + kCheckA + kCheckB + 64;                           \
     cudaError_t e = cudaFuncSetAttribute(                                     \
         tile_check_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem); \
     if (e != cudaSuccess) return (int)e;                                      \
     tile_check_kernel<<<1, 128, smem, static_cast<cudaStream_t>(stream)>>>(   \
         maps, static_cast<const __nv_bfloat16*>(a),                           \
-        static_cast<const __nv_bfloat16*>(b), c, n, ta, tb, a_regs, via_tma); \
+        static_cast<const __nv_bfloat16*>(b), c, n, k, ta, tb, a_regs,        \
+        via_tma);                                                             \
     return (int)cudaGetLastError();                                           \
   }

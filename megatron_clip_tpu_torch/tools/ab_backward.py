@@ -1,26 +1,32 @@
-"""Time the fused CE backward and the fused flash backward of two checkouts
-of this repo on one card.
+"""Time the fused CE forward and backward, the fused flash backward and the
+fused-MHA recompute backward of two checkouts of this repo on one card.
 
     python megatron_clip_tpu_torch/tools/ab_backward.py --other DIR
 
 DIR is another checkout of the repo, for example the parent commit unpacked
-with `git archive` into a gitignored directory. One process per run, in the
-order other, this, this, other. Each process imports the port from its
-checkout, builds that checkout's `fused_ce.cu` and `flash_attention.cu`,
-and times through the wrappers both checkouts share (`fused_ce_bwd`,
-`flash_bwd_fused`, `flash_bwd_fused_dropout`), mean of CUDA events after
-warm-up, warm L2:
-- the fused CE backward, bf16, tied head, T = 16384, V = 50304, at the
-  example GPT's W = 1024 and the pipeline GPT's W = 2048, beside the
-  library's `autograd.grad` of `F.cross_entropy(x @ w)`; and, where the
-  checkout's backward adds its products with float2 atomics (the kernel
-  before the Hopper redesign), the same kernel built with those atomics
-  replaced by plain stores: a timing-only build, wrong by design, that
-  shows what the atomics cost;
+with `git archive` into a gitignored directory. Both checkouts' kernels are
+built first, at once; then one process per run, in the order other, this,
+this, other. Each process imports the port from its checkout and times
+through the wrappers both checkouts share (`fused_ce_fwd`, `fused_ce_bwd`,
+`flash_bwd_fused`, `flash_bwd_fused_dropout`, `fused_mha_bwd_recompute`,
+`fused_mha_dropout_bwd`), mean of CUDA events after warm-up, warm L2,
+and each port call's host time (`host_ms`: the wall time of issuing the
+calls, the device left to lag; map encoding, launch set-up and launches):
+- the fused CE forward and backward, bf16, tied head, T = 16384, V =
+  50304, at the example GPT's W = 1024 and the pipeline GPT's W = 2048,
+  beside the library's `F.cross_entropy(x @ w)` and its `autograd.grad`;
+  and, where the checkout's backward adds its products with float2 atomics
+  (the kernel before the Hopper redesign), the same kernel built with those
+  atomics replaced by plain stores: a timing-only build, wrong by design,
+  that shows what the atomics cost;
 - the fused flash backward, bf16, causal, on the packed projection's head
   views: GPT-345m's B = 6, S = 2048, H = 16, D = 64 (rate 0) and the
   pipeline GPT's B = 8, S = 2048, H = 16, D = 128 at rate 0 and 0.1,
-  beside SDPA's backward (`dropout_p` alike).
+  beside SDPA's backward (`dropout_p` alike);
+- the fused-MHA recompute backward, bf16, on the packed projection and the
+  forward's row statistics: the pipeline GPT's B = 32, S = 512, H = 16,
+  D = 128, causal, at rate 0 and 0.1, and ViT-L/14's vision tower, B = 64,
+  S = 257, H = 16, D = 64, beside SDPA's backward.
 Inputs come from a seeded generator, so both checkouts get the same ones.
 Prints the card, one JSON line per row with the four runs' times, and
 last one JSON object with every run. Needs a CUDA device and nvcc.
@@ -30,6 +36,7 @@ import json
 import re
 import subprocess
 import sys
+import time
 from pathlib import Path
 
 HERE = Path(__file__).resolve().parents[2]
@@ -38,6 +45,11 @@ CE_ROWS = ((16384, 1024, 50304), (16384, 2048, 50304))
 FLASH_ROWS = (("GPT-345m", 6, 2048, 16, 64, 0.0),
               ("pipeline GPT", 8, 2048, 16, 128, 0.0),
               ("pipeline GPT", 8, 2048, 16, 128, 0.1))
+# (label, B, S, H, D, causal, rate)
+RECOMPUTE_ROWS = (("pipeline GPT", 32, 512, 16, 128, True, 0.0),
+                  ("pipeline GPT", 32, 512, 16, 128, True, 0.1),
+                  ("ViT-L/14 vision", 64, 257, 16, 64, False, 0.0))
+LIBRARIES = ["fused_ce", "flash_attention", "fused_mha"]
 REPS, WARMUP = 10, 2
 # the float2 atomics of the pre-Hopper backward's add_tile
 _ATOMIC = re.compile(r"atomicAdd\(reinterpret_cast<float2\*>\(([^;]*?)\),"
@@ -79,9 +91,10 @@ def time_checkout(repo: str) -> dict:
     from megatron_clip_tpu_torch.ops.kernels import _build
     from megatron_clip_tpu_torch.ops.kernels import fused_ce as ce
     from megatron_clip_tpu_torch.ops.kernels import flash_attention as fa
+    from megatron_clip_tpu_torch.ops.kernels import fused_mha as mha
     if not Path(ce.__file__).resolve().is_relative_to(Path(repo).resolve()):
         raise RuntimeError(f"imported {ce.__file__}, not from {repo}")
-    _build.build(["fused_ce", "flash_attention"])
+    _build.build(LIBRARIES)
 
     def ms(fn) -> float:
         for _ in range(WARMUP):
@@ -95,6 +108,15 @@ def time_checkout(repo: str) -> dict:
         end.synchronize()
         return start.elapsed_time(end) / REPS
 
+    def host_ms(fn) -> float:
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for _ in range(REPS):
+            fn()
+        took = time.perf_counter() - t0
+        torch.cuda.synchronize()
+        return took * 1e3 / REPS
+
     dt = torch.bfloat16
     rows = []
     no_atomics = no_atomics_library(_build, ce)
@@ -106,6 +128,12 @@ def time_checkout(repo: str) -> dict:
         labels = torch.randint(0, v, (t,), device="cuda", generator=gen)
         dloss = torch.rand(t, device="cuda", generator=gen) / t
         _, lse = ce.fused_ce_fwd(x, head, labels)
+        fwd = (lambda: ce.fused_ce_fwd(x, head, labels))
+        rows.append({
+            "row": f"fused_ce_fwd T={t} W={w} V={v} tied bf16",
+            "ms": ms(fwd), "host_ms": host_ms(fwd),
+            "library_ms": ms(lambda: F.cross_entropy(
+                x @ head, labels, reduction="none"))})
         lx, lw = (a.detach().requires_grad_(True) for a in (x, head))
         ly = F.cross_entropy(lx @ lw, labels, reduction="none")
         row = {"row": f"fused_ce_bwd T={t} W={w} V={v} tied bf16",
@@ -153,19 +181,69 @@ def time_checkout(repo: str) -> dict:
                 lo, (lq, lk, lv), ldo, retain_graph=True))})
         del qkv, do, q, k, vv, out, lse, lq, lk, lv, lo, ldo
         torch.cuda.empty_cache()
+    for label, b, s, h, d, causal, rate in RECOMPUTE_ROWS:
+        gen = torch.Generator(device="cuda").manual_seed(b * s * h * d)
+        qkv = torch.randn(b, s, 3 * h * d, device="cuda", generator=gen,
+                          dtype=dt)
+        g = torch.randn(b, s, h * d, device="cuda", generator=gen, dtype=dt)
+        drop = AttentionDropout(rate, 1234, 1) if rate else None
+        if drop is None:
+            _, stats = mha.fused_mha_fwd(qkv, h, causal=causal,
+                                         with_stats=True)
+            fn = (lambda: mha.fused_mha_bwd_recompute(qkv, g, stats, h,
+                                                      causal=causal))
+        else:
+            _, stats = mha.fused_mha_dropout_fwd(qkv, h, drop, causal=causal)
+            fn = (lambda: mha.fused_mha_dropout_bwd(qkv, g, stats, h, drop,
+                                                    causal=causal))
+        lq, lk, lv = (t.contiguous().requires_grad_(True) for t in qkv.reshape(
+            b, s, 3, h, d).permute(2, 0, 3, 1, 4).unbind(0))
+        lo = F.scaled_dot_product_attention(lq, lk, lv, is_causal=causal,
+                                            dropout_p=rate)
+        ldo = g.reshape(b, s, h, d).transpose(1, 2).contiguous()
+        shape = (f"{label} B={b} S={s} H={h} D={d} causal={causal} "
+                 f"rate={rate} bf16")
+        rows.append({
+            "row": f"fused_mha recompute bwd {shape}", "ms": ms(fn),
+            "host_ms": host_ms(fn),
+            "library_ms": ms(lambda: torch.autograd.grad(
+                lo, (lq, lk, lv), ldo, retain_graph=True))})
+        del qkv, g, stats, lq, lk, lv, lo, ldo
+        torch.cuda.empty_cache()
     return {"repo": repo, "rows": rows}
+
+
+def build_checkout(repo: str) -> None:
+    """This process's build: the checkout's libraries, all nvcc processes
+    at once."""
+    sys.path.insert(0, repo)
+    from megatron_clip_tpu_torch.ops.kernels import _build
+    _build.build(LIBRARIES)
 
 
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--other", help="the other checkout's root")
     ap.add_argument("--time", help=argparse.SUPPRESS)
+    ap.add_argument("--build", help=argparse.SUPPRESS)
     args = ap.parse_args()
     if args.time:
         print(json.dumps(time_checkout(args.time)))
         return 0
+    if args.build:
+        build_checkout(args.build)
+        return 0
     if not args.other:
         ap.error("--other is required")
+    builds = [subprocess.Popen([sys.executable, __file__, "--build", repo],
+                               stdout=subprocess.PIPE,
+                               stderr=subprocess.STDOUT, text=True)
+              for repo in (args.other, str(HERE))]
+    for proc in builds:
+        out, _ = proc.communicate(timeout=1200)
+        if proc.returncode != 0:
+            print(out, file=sys.stderr)
+            return 1
     card = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
                            "--format=csv,noheader"], capture_output=True,
                           text=True, timeout=60).stdout.strip()
@@ -181,7 +259,7 @@ def main() -> int:
     for i, first in enumerate(runs[0]["rows"]):
         rows = [run["rows"][i] for run in runs]
         line = {"row": first["row"]}
-        for key in ("ms", "library_ms", "no_atomics_ms"):
+        for key in ("ms", "host_ms", "library_ms", "no_atomics_ms"):
             got = [r.get(key) for r in rows]
             if any(g is not None for g in got):
                 line[f"{key} other/this/this/other"] = got

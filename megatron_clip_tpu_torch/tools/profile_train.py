@@ -66,11 +66,14 @@ PIPELINE_SEED = 1234
 
 def _category(name: str) -> str:
     n = name.lower()
-    if "fused_ce_" in n:  # fused_ce_bwd_gemm<P>: the backward's products
+    if "fused_ce_" in n:  # fused_ce_bwd_gemm<P>: the backward's products;
+        # fused_ce_fwd_gemm, simt::fused_ce_fwd, fused_ce_combine: the forward
         return ("fused CE bwd (fused_ce.cu)" if "fused_ce_bwd" in n
                 else "fused CE fwd (fused_ce.cu)")
     if "hop::bwd_fused" in n:  # the fused flash backward on wgmma
         return "attention bwd (flash_attention.cu)"
+    if "attn_bwd::" in n:  # the fused-MHA recompute backward on wgmma
+        return "attention bwd (fused_mha.cu)"
     if "attn_fwd::fwd<" in n:  # the wgmma forward: fwd<D, two-pass, drop>
         return ("attention fwd (fused_mha.cu)"
                 if re.search(r"attn_fwd::fwd<\d+, true", n)

@@ -50,7 +50,7 @@ run: on a view its dQ is held to the contiguous run's within 1e-6 relative,
 or in bf16 within two bf16 ulps, since its rounding can fall either way;
 every other output of every kernel must be equal. The wgmma tile check of
 each Hopper library (csrc/sm90.cuh) against the fp32 product of the same
-bf16 tiles: 1e-5 relative plus 1e-4 (fp32 sums of 64 exact products).
+bf16 tiles: 1e-5 relative plus 1e-4 (fp32 sums of 64 or 128 exact products).
 
 The RMSNorm kernels (LayerNorm's without the mean and the bias) under the
 LayerNorm bounds. The fused lm-head cross entropy: loss and lse within
@@ -169,6 +169,16 @@ def _close_grads(got, want, dtype):
                                    atol=2 ** -7 * floor)
 
 
+def _close_mha_rows(got, want, heads, rel=1e-2, floor=1e-4):
+    """A packed gradient dqkv [B, S, 3*H*D] row by row, as the flash
+    gradients: one query's dQ, one key's dK or dV of one head each within
+    rel of its norm plus floor of the rms row norm."""
+    b, s, w = got.shape
+    for g, wt in zip(got.reshape(b, s, 3, heads, -1).unbind(2),
+                     want.reshape(b, s, 3, heads, -1).unbind(2)):
+        _close_rows(g, wt, rel, floor)
+
+
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 @pytest.mark.parametrize("b,s,h,d,causal", MHA_BWD_SHAPES)
 def test_fused_mha_probs_and_backward_match_plain(cuda, dtype, b, s, h, d,
@@ -242,14 +252,16 @@ def test_fused_mha_stats_and_recompute_backward_match_plain(
     got = fused_mha_bwd_recompute(qkv, do, stats, h, causal=causal)
     assert fused_mha_bwd_recompute.launches == before + 1
     assert got.shape == qkv.shape and got.dtype == dtype
-    _close_grads(got, fused_mha_bwd_recompute_plain(qkv, do, h, scale,
-                                                    causal), dtype)
+    want = fused_mha_bwd_recompute_plain(qkv, do, h, scale, causal)
+    _close_grads(got, want, dtype)
     if dtype == torch.bfloat16:
         want32 = fused_mha_bwd_recompute_plain(qkv.float(), do.float(), h,
                                                scale, causal)
         torch.testing.assert_close(
             got.float(), want32, rtol=2e-2,
             atol=2 ** -5 * float(want32.abs().max()))
+        _close_mha_rows(got, want, h)
+        _close_mha_rows(got, want32, h, rel=2e-2)
 
 
 # The forward with row statistics at the wgmma kernel's tiles' edges
@@ -291,6 +303,43 @@ def test_fused_mha_wgmma_forward_at_tile_edges(cuda, s, d, causal, rate):
     if s > 1:  # at S = 1 both layouts are one order
         assert out_v.stride(0) < out_v.stride(1)
     assert torch.equal(out_v, out) and torch.equal(stats_v, stats)
+
+
+# The recompute backward at the wgmma kernels' tiles' edges
+# (csrc/attn_bwd_sm90.cuh: 128-row blocks; 128-key tiles at D = 64 and 64 at D = 128 in part 1, 64-query tiles in
+# part 2), both masks, rate 0 and 0.1, on the plain forward's statistics,
+# bf16 gradients row by row; the [B, S, *] view of S-major storage must
+# give the contiguous run's bits
+@pytest.mark.parametrize("rate", [0.0, 0.1])
+@pytest.mark.parametrize("causal", [False, True])
+@pytest.mark.parametrize("d", [64, 128])
+@pytest.mark.parametrize("s", [129, 192, 257, 320, 512, 1024])
+def test_fused_mha_wgmma_recompute_backward_at_tile_edges(cuda, s, d, causal,
+                                                          rate):
+    b, h = 2, 3
+    gen = torch.Generator().manual_seed(s + d + int(causal) + 7)
+    qkv = torch.randn(b, s, 3 * h * d, generator=gen).to(cuda,
+                                                         torch.bfloat16)
+    do = torch.randn(b, s, h * d, generator=gen).to(cuda, torch.bfloat16)
+    drop = AttentionDropout(rate, 0x0123456789ABCDEF, 6) if rate else None
+    keep = None if drop is None else drop.multipliers(
+        b, h, s, s, mha_mod.dropout_mult(rate, torch.bfloat16), cuda)
+    _, stats = fused_mha_plain(qkv, h, d ** -0.5, causal, with_stats=True,
+                               keep=keep)
+
+    def run(x, g):
+        if drop is None:
+            return fused_mha_bwd_recompute(x, g, stats, h, causal=causal)
+        return mha_mod.fused_mha_dropout_bwd(x, g, stats, h, drop,
+                                             causal=causal)
+    got = run(qkv, do)
+    assert got.shape == qkv.shape and got.dtype == torch.bfloat16
+    want = fused_mha_bwd_recompute_plain(qkv, do, h, d ** -0.5, causal, keep)
+    _close_mha_rows(got, want, h)
+    got_v = run(*(t.transpose(0, 1).contiguous().transpose(0, 1)
+                  for t in (qkv, do)))
+    assert got_v.stride(0) < got_v.stride(1)
+    assert torch.equal(got_v, got)
 
 
 def test_fused_mha_autograd_recompute_runs_its_kernels(cuda):
@@ -691,19 +740,36 @@ def test_fused_ce_wgmma_backward_at_tile_edges(cuda, t, w, v, tied):
     _close_rows(dw.t(), want_dw.t())
 
 
+# The wgmma forward at its tiles' edges (128 x 256 logits tiles in groups
+# of 32 token tiles, 64-column partials): T and V no multiples of them,
+# tied and untied heads
+@pytest.mark.parametrize("t,w,v,tied", [(300, 256, 1000, True),
+                                        (129, 128, 257, False),
+                                        (4173, 512, 3000, False),
+                                        (8192, 256, 50304, True),
+                                        (4096 + 130, 384, 50304, True),
+                                        (77, 1000, 333, False)])
+def test_fused_ce_wgmma_forward_at_tile_edges(cuda, t, w, v, tied):
+    x, head, labels, _ = _ce_inputs(cuda, torch.bfloat16, t, w, v, tied)
+    loss, lse = ce.fused_ce_fwd(x, head, labels)
+    want_loss, want_lse = ce.fused_ce_fwd_plain(x, head, labels)
+    torch.testing.assert_close(loss, want_loss, rtol=2e-5, atol=1e-5)
+    torch.testing.assert_close(lse, want_lse, rtol=2e-5, atol=1e-5)
+
+
 def test_wgmma_tile_products_match_fp32(cuda):
-    """Each Hopper library's wgmma tile check, every operand layout its
-    kernels use, through TMA and through swizzled stores."""
+    """Each Hopper library's wgmma tile check, every operand layout and
+    (N, K) its kernels use, through TMA and through swizzled stores."""
     from megatron_clip_tpu_torch.ops.kernels import sm90
     gen = torch.Generator().manual_seed(13)
-    a = torch.randn(64, 64, generator=gen).to(cuda, torch.bfloat16)
-    b = torch.randn(64, 128, generator=gen).to(cuda, torch.bfloat16)
+    a = torch.randn(64, 128, generator=gen).to(cuda, torch.bfloat16)
+    b = torch.randn(128, 256, generator=gen).to(cuda, torch.bfloat16)
     for lib in sm90.LIBRARIES:
-        for ta, tb, regs, n in sm90.LAYOUTS:
-            want = sm90.tile_product_plain(a, b[:, :n])
+        for ta, tb, regs, n, k in sm90.LAYOUTS:
+            want = sm90.tile_product_plain(a[:, :k], b[:k, :n])
             for tma in (0, 1):
-                got = sm90.tile_product(lib, a, b[:, :n], ta=ta, tb=tb,
-                                        a_regs=regs, via_tma=tma)
+                got = sm90.tile_product(lib, a[:, :k], b[:k, :n], ta=ta,
+                                        tb=tb, a_regs=regs, via_tma=tma)
                 torch.testing.assert_close(got, want, rtol=1e-5, atol=1e-4)
 
 
@@ -781,8 +847,11 @@ def test_fused_mha_dropout_kernels_match_plain(cuda, dtype, b, s, h, d,
     tol = (2e-5, 2e-5) if dtype == torch.float32 else (8e-3, 4e-3)
     torch.testing.assert_close(out, want, rtol=tol[0], atol=tol[1])
     torch.testing.assert_close(stats, want_stats, rtol=1e-4, atol=1e-5)
-    _close_grads(dqkv, fused_mha_bwd_recompute_plain(qkv, do, h, d ** -0.5,
-                                                     causal, keep), dtype)
+    want_g = fused_mha_bwd_recompute_plain(qkv, do, h, d ** -0.5, causal,
+                                           keep)
+    _close_grads(dqkv, want_g, dtype)
+    if dtype == torch.bfloat16:
+        _close_mha_rows(dqkv, want_g, h)
 
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])

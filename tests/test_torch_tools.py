@@ -4,10 +4,12 @@
 demangled names; PERF.md's per-step table reads those sums. Each port
 kernel's name, as the CUDA toolkit's cu++filt prints it, must land in its
 source's forward or backward column, so that a redesigned kernel's time is
-compared with its predecessor's.
+compared with its predecessor's. And the step A/B tool's legs, which it
+hands to profile_train's step builders.
 """
 import pytest
 
+from megatron_clip_tpu_torch.tools.ab_step import LEGS, leg_args
 from megatron_clip_tpu_torch.tools.profile_train import _category
 
 _D = "mct::Dropout"
@@ -44,6 +46,19 @@ _FLASH_VIEW = "(anonymous namespace)::View<__nv_bfloat16 const>"
      "const*)", "attention bwd (fused_mha.cu)"),
     ("void (anonymous namespace)::hop::fused_ce_bwd_gemm<0>((anonymous "
      "namespace)::hop::GemmMaps)", "fused CE bwd (fused_ce.cu)"),
+    # the wgmma recompute backward: bwd_dq / bwd_dkdv<D, drop>
+    (f"void mct::attn_bwd::bwd_dq<128, true>(mct::attn_bwd::Maps, "
+     f"mct::attn_bwd::Args, {_D})", "attention bwd (fused_mha.cu)"),
+    (f"void mct::attn_bwd::bwd_dkdv<64, false>(mct::attn_bwd::Maps, "
+     f"mct::attn_bwd::Args, {_D})", "attention bwd (fused_mha.cu)"),
+    # the fused CE forward on wgmma, its CUDA-core twin and the combine
+    ("void (anonymous namespace)::hop::fused_ce_fwd_gemm((anonymous "
+     "namespace)::hop::Maps, (anonymous namespace)::hop::Args)",
+     "fused CE fwd (fused_ce.cu)"),
+    ("void (anonymous namespace)::simt::fused_ce_fwd<float>(float const*)",
+     "fused CE fwd (fused_ce.cu)"),
+    ("(anonymous namespace)::fused_ce_combine(float const*, float const*, "
+     "float const*, int, int, float*, float*)", "fused CE fwd (fused_ce.cu)"),
     ("void (anonymous namespace)::ln_fwd<__nv_bfloat16, true>(float)",
      "rmsnorm fwd (layernorm.cu)"),
     ("void (anonymous namespace)::ln_bwd<__nv_bfloat16, false>(float)",
@@ -51,3 +66,16 @@ _FLASH_VIEW = "(anonymous namespace)::View<__nv_bfloat16 const>"
 ])
 def test_every_port_kernel_lands_in_its_column(name, category):
     assert _category(name) == category
+
+
+@pytest.mark.parametrize("leg,want", [
+    (LEGS[0], {"model": "gpt-pipeline", "seq": 512, "batch": None,
+               "fused_ce": False, "recompute": False}),
+    (LEGS[1], {"model": "ViT-L-14", "seq": 2048, "batch": 64,
+               "fused_ce": False, "recompute": True}),
+    ("--model gpt-345m --seq 8192 --batch 1 --fused-ce",
+     {"model": "gpt-345m", "seq": 8192, "batch": 1, "fused_ce": True,
+      "recompute": False}),
+])
+def test_ab_step_legs_give_profile_train_options(leg, want):
+    assert vars(leg_args(leg)) == want
