@@ -714,9 +714,10 @@ def smajor_views(mha, gen) -> None:
     """Every attention kernel on the [B, S, *] view of [S, B, *] storage,
     the layout of fused_mha_packed_sm, against the same kernel on the
     contiguous tensor: the arithmetic is the same, so the results must be
-    equal, and the outputs come back S-major. The forwards at S = 257,
-    D = 64 and S = 512, D = 128 run on wgmma (csrc/attn_fwd_sm90.cuh), the
-    others on mma.sync."""
+    equal, and the outputs come back S-major. The bf16 forwards and
+    recompute backwards at S = 257, D = 64 and 80 and S = 512, D = 128 run
+    on wgmma (csrc/attn_fwd_sm90.cuh, csrc/attn_bwd_sm90.cuh), the others on
+    mma.sync."""
     for b, s, h, d, causal in [(8, 257, 16, 80, False), (8, 77, 16, 64, True),
                                (3, 33, 2, 40, True), (8, 257, 16, 64, False),
                                (4, 512, 16, 128, True)]:
@@ -1329,10 +1330,12 @@ def dropout_teeth(kernels_build, gen, mha) -> None:
 
 
 # the forward teeth: the fused MHA with row statistics at the pipeline
-# GPT's heads (S = 512, D = 128, causal: K resident) and ViT-L/14's vision
-# tower (S = 257, D = 64); flash at GPT-345m's and the pipeline GPT's heads
+# GPT's heads (S = 512, D = 128, causal: K resident), ViT-L/14's vision
+# tower (S = 257, D = 64) and ViT-H/14's at its own batch (B = 24, S = 257,
+# D = 80); flash at GPT-345m's and the pipeline GPT's heads
 # (S = 2048, D = 64 and 128, causal); each (B, S, H, D, causal)
-FWD_TEETH_FUSED = ((2, 512, 16, 128, True), (4, 257, 16, 64, False))
+FWD_TEETH_FUSED = ((2, 512, 16, 128, True), (4, 257, 16, 64, False),
+                   (24, 257, 16, 80, False))
 FWD_TEETH_FLASH = ((2, 2048, 16, 64, True), (2, 2048, 16, 128, True))
 
 
@@ -1384,10 +1387,11 @@ def fwd_teeth(kernels_build, gen, mha) -> None:
 
 
 # the backward teeth: the pipeline GPT's heads (S = 512, D = 128, causal,
-# rate 0.1) and ViT-L/14's vision tower (S = 257, D = 64); each (B, S, H, D,
-# causal, rate)
+# rate 0.1), ViT-L/14's vision tower (S = 257, D = 64) and ViT-H/14's at its
+# own batch (B = 24, S = 257, D = 80); each (B, S, H, D, causal, rate)
 BWD_TEETH = ((2, 512, 16, 128, True, DROPOUT_RATE),
-             (4, 257, 16, 64, False, 0.0))
+             (4, 257, 16, 64, False, 0.0),
+             (24, 257, 16, 80, False, 0.0))
 
 
 def bwd_teeth(kernels_build, gen, mha) -> None:

@@ -2,7 +2,7 @@
 // dropout twin: part 1 (dQ and delta) and part 2 (dK and dV), each a
 // warp-specialised wgmma kernel fed by TMA under mbarriers.
 //
-// Replaces, at D = 64 and 128 past S = 128, what fused_mha.cu's mma.sync
+// Replaces, at D = 64, 80 and 128 past S = 128, what fused_mha.cu's mma.sync
 // kernels tc::bwd_dq_rc and tc::bwd_dkdv_rc ran for the TPU kernels
 // megatron_clip_tpu/ops/pallas/fused_mha.py::_bwd_kernel_recompute (call
 // :323), _bwd_kernel_sm (call :238, an S-major view here) and
@@ -33,15 +33,19 @@
 // tiles, which see the most keys under the causal mask, launch first. A
 // producer warpgroup (its first thread issues every TMA load; setmaxnreg
 // hands its registers to the consumers, 24 / 240 a thread)
-// loads Q and dO once as 128-byte swizzled panels and streams the K and V
-// tiles (128 keys at D = 64, 64 at D = 128, which keeps dQ, S and dP in
-// the registers) through a 3-stage ring twice, once a pass (pass 1 keeps
-// its dropout keep bits in shared memory for pass 2); `view_map` reads
-// the packed projection's heads and S-major views in place. Each
+// loads Q and dO once as 128-byte swizzled panels (at D = 80, ViT-H/14's
+// head, a 64-column panel and a 16-column one under the 32-byte swizzle:
+// sm90.cuh's Tile) and streams the K and V tiles (128 keys at D = 64 and
+// 80, 64 at D = 128, which keeps dQ, S and dP in the registers) through a
+// 3-stage ring twice, once a pass (pass 1 keeps its dropout keep bits in
+// shared memory for pass 2); `view_map` reads the packed projection's
+// heads and S-major views in place. Each
 // consumer warpgroup owns 64 rows: S = Q K^T and dP = dO V^T (wgmma
-// m64nN, both operands K-major), P and dP M in registers; pass 1 sums
-// delta, pass 2 forms dS in registers, as the scores are read, as the A
-// operand of dQ += dS K (wgmma m64nD, K MN-major). Masks (keys past S,
+// m64nN, both operands K-major; at D = 80 five k-steps, the last on the
+// 16-column panels), P and dP M in registers; pass 1 sums delta, pass 2
+// forms dS in registers, as the scores are read, as the A operand of
+// dQ += dS K (wgmma m64nD, K MN-major; at D = 80 an n64 product on K's
+// wide panel and an n16 on its tail). Masks (keys past S,
 // causal keys past the row) are tested only in the tiles that cross
 // them; tiles wholly past a warpgroup's diagonal are not computed.
 //
@@ -53,12 +57,13 @@
 // delta) per query in shared memory, then: S^T = K Q^T and dP^T = V dO^T
 // (m64n64, K-major), P^T and dS^T in registers rounded into A fragments,
 // dV += bf16(P^T M^T) dO and dK += bf16(dS^T) Q (m64nD, A from registers,
-// Q and dO MN-major; at D = 128 P^T and dS^T go through swizzled panels
-// of the warpgroup's, K-major, as their fragments beside dK and dV
-// spilled). The Philox counter comes from the global (query, key) in both
-// parts, drawn while S and dP (S^T and dP^T) run; part 2's accumulators
-// hold scores transposed, so lanes l and l ^ 4 share their calls
-// (philox.cuh bits_t2_pair).
+// Q and dO MN-major; at D = 80 n64 + n16 products, dK and dV 80 fp32 a
+// thread between them, at 0 spills; at D = 128 P^T and dS^T go through
+// swizzled panels of the warpgroup's, K-major, as their fragments beside
+// dK and dV spilled). The Philox counter comes from the global (query,
+// key) in both parts, drawn while S and dP (S^T and dP^T) run; part 2's
+// accumulators hold scores transposed, so lanes l and l ^ 4 share their
+// calls (philox.cuh bits_t2_pair).
 //
 // Blocks are 128 rows (two consumer warpgroups), at S = 257 too. At
 // ViT-L/14's ragged S = 257 (B = 64, H = 16), where a third of the 128-row
@@ -109,7 +114,8 @@ __device__ __forceinline__ bool fault_tile(int t0, int S) {
 }
 
 struct Maps {
-  CUtensorMap q, k, v, g, stats, delta;
+  View q, k, v, g;
+  CUtensorMap stats, delta;
 };
 
 struct Args {
@@ -132,13 +138,10 @@ struct Args {
 
 template <int D>
 struct DqTile {
-  static constexpr int kRows = 64 * kGroups;     // queries of a block
-  static constexpr int kN = D == 64 ? 128 : 64;  // keys of a K or V tile
-  static constexpr int kP = D / 64;              // 64-column panels of a row
-  static constexpr int kQPanel = kRows * kRowBytes;
-  static constexpr int kQTile = kP * kQPanel;
-  static constexpr int kKPanel = kN * kRowBytes;
-  static constexpr int kKTile = kP * kKPanel;
+  static constexpr int kRows = 64 * kGroups;      // queries of a block
+  static constexpr int kN = D == 128 ? 64 : 128;  // keys of a K or V tile
+  static constexpr int kQTile = Tile<D, kRows>::kBytes;
+  static constexpr int kKTile = Tile<D, kN>::kBytes;
   static constexpr int kQ = 0;
   static constexpr int kDO = kQTile;
   static constexpr int kK = 2 * kQTile;
@@ -158,7 +161,7 @@ template <int D, bool kDrop>
 __global__ void __launch_bounds__(DqTile<D>::kThreads, 1)
 bwd_dq(const __grid_constant__ Maps maps, const Args g, Dropout drop) {
   using L = DqTile<D>;
-  constexpr int kN = L::kN, kP = L::kP;
+  constexpr int kN = L::kN, kRows = L::kRows;
   extern __shared__ __align__(1024) unsigned char dq_smem[];
   unsigned char* base = align_1024(dq_smem);
   uint64_t* q_full = reinterpret_cast<uint64_t*>(base + L::kBars);
@@ -185,26 +188,18 @@ bwd_dq(const __grid_constant__ Maps maps, const Args g, Dropout drop) {
     setmaxnreg_dec<24>();
     if (tid == 0) {
       mbar_expect_tx(q_full, 2 * L::kQTile);
-#pragma unroll
-      for (int p = 0; p < kP; ++p) {
-        load_view_rows(base + L::kQ + p * L::kQPanel, &maps.q, q_full,
-                       g.perm_q, 64 * p, q0, h, b);
-        load_view_rows(base + L::kDO + p * L::kQPanel, &maps.g, q_full,
-                       g.perm_g, 64 * p, q0, h, b);
-      }
+      load_tile<D, kRows>(base + L::kQ, maps.q, q_full, g.perm_q, q0, h, b);
+      load_tile<D, kRows>(base + L::kDO, maps.g, q_full, g.perm_g, q0, h, b);
       // every key tile twice: pass 1, then pass 2
       Ring r;
       for (int it = 0; it < 2 * nt; ++it) {
         const int k0 = (it < nt ? it : it - nt) * kN;
         if (it >= kStages) mbar_wait(empty + r.slot, r.phase ^ 1);
         mbar_expect_tx(full + r.slot, 2 * L::kKTile);
-#pragma unroll
-        for (int p = 0; p < kP; ++p) {
-          load_view_rows(base + L::kK + r.slot * L::kKTile + p * L::kKPanel,
-                         &maps.k, full + r.slot, g.perm_k, 64 * p, k0, h, b);
-          load_view_rows(base + L::kV + r.slot * L::kKTile + p * L::kKPanel,
-                         &maps.v, full + r.slot, g.perm_v, 64 * p, k0, h, b);
-        }
+        load_tile<D, kN>(base + L::kK + r.slot * L::kKTile, maps.k,
+                         full + r.slot, g.perm_k, k0, h, b);
+        load_tile<D, kN>(base + L::kV + r.slot * L::kKTile, maps.v,
+                         full + r.slot, g.perm_v, k0, h, b);
         r.next(kStages);
       }
     }
@@ -219,8 +214,6 @@ bwd_dq(const __grid_constant__ Maps maps, const Args g, Dropout drop) {
   const int row_lo = row0 + 16 * (ct >> 5) + (lane >> 2);
   const long bh = (long)b * g.H + h;
   const float sl2 = g.scale * kLog2e;
-  const unsigned char* q_w = base + L::kQ + c * 64 * kRowBytes;
-  const unsigned char* g_w = base + L::kDO + c * 64 * kRowBytes;
   // m log2(e) and 1 / l of the thread's rows; rows past S take P = 0
   float mb[2], il[2];
 #pragma unroll
@@ -244,14 +237,8 @@ bwd_dq(const __grid_constant__ Maps maps, const Args g, Dropout drop) {
     fence_regs(s);
     fence_regs(dp);
     wgmma_fence();
-#pragma unroll
-    for (int kk = 0; kk < D / 16; ++kk)
-      wgmma_ss<0, 0>(s, desc_k(q_w + (kk >> 2) * L::kQPanel, kk & 3),
-                     desc_k(k_t + (kk >> 2) * L::kKPanel, kk & 3), kk > 0);
-#pragma unroll
-    for (int kk = 0; kk < D / 16; ++kk)
-      wgmma_ss<0, 0>(dp, desc_k(g_w + (kk >> 2) * L::kQPanel, kk & 3),
-                     desc_k(v_t + (kk >> 2) * L::kKPanel, kk & 3), kk > 0);
+    wgmma_kd<D, kRows, kN>(s, base + L::kQ, 64 * c, k_t);
+    wgmma_kd<D, kRows, kN>(dp, base + L::kDO, 64 * c, v_t);
     wgmma_commit();
   };
   auto finish = [&] {
@@ -365,7 +352,7 @@ bwd_dq(const __grid_constant__ Maps maps, const Args g, Dropout drop) {
       wgmma_fence();
 #pragma unroll
       for (int kk = 0; kk < kN / 16; ++kk)
-        wgmma_rs<1>(dq, dsa[kk], desc_mn(k_t, kk, L::kKPanel), 1);
+        wgmma_rs_nd<D, kN>(dq, dsa[kk], k_t, kk);
       wgmma_commit();
       wgmma_wait<0>();
       fence_regs(dq);
@@ -396,11 +383,8 @@ template <int D>
 struct DkvTile {
   static constexpr int kKeys = 64 * kGroups;  // keys of a block
   static constexpr int kQ = 64;           // queries of a tile
-  static constexpr int kP = D / 64;
-  static constexpr int kKPanel = kKeys * kRowBytes;
-  static constexpr int kKTile = kP * kKPanel;
-  static constexpr int kQPanel = kQ * kRowBytes;
-  static constexpr int kQTile = kP * kQPanel;
+  static constexpr int kKTile = Tile<D, kKeys>::kBytes;
+  static constexpr int kQTile = Tile<D, kQ>::kBytes;
   // m, l and delta of a tile: kQ + 4 floats each (the box starts 16-byte
   // aligned, up to 3 floats before the tile), 384 bytes apart
   static constexpr int kRowBox = kQ + 4;
@@ -408,7 +392,8 @@ struct DkvTile {
   // At D = 128 the A operands of dK and dV, dS^T and P^T of each
   // warpgroup's [64 keys][64 queries], go through two swizzled panels of
   // shared memory: as register fragments beside dK, dV, S^T and dP^T they
-  // spilled (with dropout's keep bits). At D = 64 they stay in registers.
+  // spilled (with dropout's keep bits). At D = 64 and 80 they stay in
+  // registers.
   static constexpr bool kSmemA = D == 128;
   static constexpr int kK = 0;
   static constexpr int kV = kKTile;
@@ -428,7 +413,7 @@ template <int D, bool kDrop>
 __global__ void __launch_bounds__(DkvTile<D>::kThreads, 1)
 bwd_dkdv(const __grid_constant__ Maps maps, const Args g, Dropout drop) {
   using L = DkvTile<D>;
-  constexpr int kQ = L::kQ, kP = L::kP;
+  constexpr int kQ = L::kQ, kKeys = L::kKeys;
   extern __shared__ __align__(1024) unsigned char dkv_smem[];
   unsigned char* base = align_1024(dkv_smem);
   uint64_t* kv_full = reinterpret_cast<uint64_t*>(base + L::kBars);
@@ -456,13 +441,8 @@ bwd_dkdv(const __grid_constant__ Maps maps, const Args g, Dropout drop) {
     setmaxnreg_dec<24>();
     if (tid == 0) {
       mbar_expect_tx(kv_full, 2 * L::kKTile);
-#pragma unroll
-      for (int p = 0; p < kP; ++p) {
-        load_view_rows(base + L::kK + p * L::kKPanel, &maps.k, kv_full,
-                       g.perm_k, 64 * p, k0, h, b);
-        load_view_rows(base + L::kV + p * L::kKPanel, &maps.v, kv_full,
-                       g.perm_v, 64 * p, k0, h, b);
-      }
+      load_tile<D, kKeys>(base + L::kK, maps.k, kv_full, g.perm_k, k0, h, b);
+      load_tile<D, kKeys>(base + L::kV, maps.v, kv_full, g.perm_v, k0, h, b);
       Ring r;
       for (int i = 0; i < ntiles; ++i) {
         const int q0 = (jt0 + i) * kQ;
@@ -470,13 +450,8 @@ bwd_dkdv(const __grid_constant__ Maps maps, const Args g, Dropout drop) {
         if (i >= kStages) mbar_wait(empty + r.slot, r.phase ^ 1);
         mbar_expect_tx(bar, L::kTx);
         unsigned char* q_t = base + L::kRing + r.slot * 2 * L::kQTile;
-#pragma unroll
-        for (int p = 0; p < kP; ++p) {
-          load_view_rows(q_t + p * L::kQPanel, &maps.q, bar, g.perm_q, 64 * p,
-                         q0, h, b);
-          load_view_rows(q_t + L::kQTile + p * L::kQPanel, &maps.g, bar,
-                         g.perm_g, 64 * p, q0, h, b);
-        }
+        load_tile<D, kQ>(q_t, maps.q, bar, g.perm_q, q0, h, b);
+        load_tile<D, kQ>(q_t + L::kQTile, maps.g, bar, g.perm_g, q0, h, b);
         unsigned char* rows = base + L::kRowsAt + r.slot * 3 * L::kRowArea;
         const long at = row_first + q0;
         tma_load_1d(rows, &maps.stats, bar, (int)(at & ~3L));
@@ -498,8 +473,6 @@ bwd_dkdv(const __grid_constant__ Maps maps, const Args g, Dropout drop) {
   const int key_lo = kb + 16 * (ct >> 5) + (lane >> 2);
   const bool idle = kb >= g.S;  // warpgroup-uniform
   const float sl2 = g.scale * kLog2e;
-  const unsigned char* k_w = base + L::kK + c * 64 * kRowBytes;
-  const unsigned char* v_w = base + L::kV + c * 64 * kRowBytes;
   float4* tr = reinterpret_cast<float4*>(base + L::kTr) + c * 2 * kQ;
   unsigned char* ds_w = base + L::kA + c * 2 * 64 * kRowBytes;
   unsigned char* pt_w = ds_w + 64 * kRowBytes;
@@ -540,14 +513,8 @@ bwd_dkdv(const __grid_constant__ Maps maps, const Args g, Dropout drop) {
     fence_regs(s);
     fence_regs(dp);
     wgmma_fence();
-#pragma unroll
-    for (int kk = 0; kk < D / 16; ++kk)
-      wgmma_ss<0, 0>(s, desc_k(k_w + (kk >> 2) * L::kKPanel, kk & 3),
-                     desc_k(q_t + (kk >> 2) * L::kQPanel, kk & 3), kk > 0);
-#pragma unroll
-    for (int kk = 0; kk < D / 16; ++kk)
-      wgmma_ss<0, 0>(dp, desc_k(v_w + (kk >> 2) * L::kKPanel, kk & 3),
-                     desc_k(g_t + (kk >> 2) * L::kQPanel, kk & 3), kk > 0);
+    wgmma_kd<D, kKeys, kQ>(s, base + L::kK, 64 * c, q_t);
+    wgmma_kd<D, kKeys, kQ>(dp, base + L::kV, 64 * c, g_t);
     wgmma_commit();
     // the keep bits of k-step m (queries 16 m ..), drawn while the products
     // run
@@ -623,11 +590,11 @@ bwd_dkdv(const __grid_constant__ Maps maps, const Args g, Dropout drop) {
 #pragma unroll
     for (int m = 0; m < kQ / 16; ++m) {
       if constexpr (L::kSmemA) {
-        wgmma_ss<0, 1>(dv, desc_k(pt_w, m), desc_mn(g_t, m, L::kQPanel), 1);
-        wgmma_ss<0, 1>(dk, desc_k(ds_w, m), desc_mn(q_t, m, L::kQPanel), 1);
+        wgmma_ss_nd<D, kQ>(dv, desc_k(pt_w, m), g_t, m);
+        wgmma_ss_nd<D, kQ>(dk, desc_k(ds_w, m), q_t, m);
       } else {
-        wgmma_rs<1>(dv, pa[m], desc_mn(g_t, m, L::kQPanel), 1);
-        wgmma_rs<1>(dk, dsa[m], desc_mn(q_t, m, L::kQPanel), 1);
+        wgmma_rs_nd<D, kQ>(dv, pa[m], g_t, m);
+        wgmma_rs_nd<D, kQ>(dk, dsa[m], q_t, m);
       }
     }
     wgmma_commit();
@@ -704,16 +671,20 @@ cudaError_t launch_d(Operand q, Operand k, Operand v, Operand g,
   const uint64_t n_delta[1] = {(uint64_t)a.bhs};
   const uint32_t box[1] = {L2::kRowBox};
   const int S = a.S, H = a.H;
-  if (!view_map(&m1.q, a.perm_q, q.p, q.b, q.h, q.s, B, H, S, D, L1::kRows) ||
-      !view_map(&m1.g, a.perm_g, g.p, g.b, g.h, g.s, B, H, S, D, L1::kRows) ||
-      !view_map(&m1.k, a.perm_k, k.p, k.b, k.h, k.s, B, H, S, D, L1::kN) ||
-      !view_map(&m1.v, a.perm_v, v.p, v.b, v.h, v.s, B, H, S, D, L1::kN) ||
-      !view_map(&m2.q, a.perm_q, q.p, q.b, q.h, q.s, B, H, S, D, L2::kQ) ||
-      !view_map(&m2.g, a.perm_g, g.p, g.b, g.h, g.s, B, H, S, D, L2::kQ) ||
-      !view_map(&m2.k, a.perm_k, k.p, k.b, k.h, k.s, B, H, S, D, L2::kKeys) ||
-      !view_map(&m2.v, a.perm_v, v.p, v.b, v.h, v.s, B, H, S, D, L2::kKeys) ||
-      !make_map(&m2.stats, false, false, 1, stats, n_stats, nullptr, box) ||
-      !make_map(&m2.delta, false, false, 1, a.delta, n_delta, nullptr, box))
+  if (!view_maps(&m1.q, a.perm_q, q.p, q.b, q.h, q.s, B, H, S, D,
+                 L1::kRows) ||
+      !view_maps(&m1.g, a.perm_g, g.p, g.b, g.h, g.s, B, H, S, D,
+                 L1::kRows) ||
+      !view_maps(&m1.k, a.perm_k, k.p, k.b, k.h, k.s, B, H, S, D, L1::kN) ||
+      !view_maps(&m1.v, a.perm_v, v.p, v.b, v.h, v.s, B, H, S, D, L1::kN) ||
+      !view_maps(&m2.q, a.perm_q, q.p, q.b, q.h, q.s, B, H, S, D, L2::kQ) ||
+      !view_maps(&m2.g, a.perm_g, g.p, g.b, g.h, g.s, B, H, S, D, L2::kQ) ||
+      !view_maps(&m2.k, a.perm_k, k.p, k.b, k.h, k.s, B, H, S, D,
+                 L2::kKeys) ||
+      !view_maps(&m2.v, a.perm_v, v.p, v.b, v.h, v.s, B, H, S, D,
+                 L2::kKeys) ||
+      !make_map(&m2.stats, false, 0, 1, stats, n_stats, nullptr, box) ||
+      !make_map(&m2.delta, false, 0, 1, a.delta, n_delta, nullptr, box))
     return cudaErrorInvalidValue;
   m1.stats = m2.stats;
   m1.delta = m2.delta;
@@ -721,14 +692,15 @@ cudaError_t launch_d(Operand q, Operand k, Operand v, Operand g,
               : launch_as<D, false>(m1, m2, a, B, Dropout{}, st);
 }
 
-// The recompute backward of operands attn_fwd::eligible takes, D = 64 or
-// 128: dqkv's rows at a.dqkv, statistics [2, B H S] at `stats`, delta
-// scratch at a.delta. Two launches.
+// The recompute backward of attn_fwd::aligned operands, D = 64, 80 or 128
+// (attn_fwd::fused_d): dqkv's rows at a.dqkv, statistics [2, B H S] at
+// `stats`, delta scratch at a.delta. Two launches.
 inline cudaError_t launch(int D, Operand q, Operand k, Operand v, Operand g,
                           const float* stats, const Args& a, int B,
                           const Dropout* drop, cudaStream_t st) {
   if (a.S > kMaxS) return cudaErrorInvalidValue;
   if (D == 64) return launch_d<64>(q, k, v, g, stats, a, B, drop, st);
+  if (D == 80) return launch_d<80>(q, k, v, g, stats, a, B, drop, st);
   if (D == 128) return launch_d<128>(q, k, v, g, stats, a, B, drop, st);
   return cudaErrorInvalidValue;
 }

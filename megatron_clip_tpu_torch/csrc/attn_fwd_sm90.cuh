@@ -3,8 +3,9 @@
 // the fused-MHA forward with row statistics (fused_mha.cu; two passes, the
 // normalised P), each with its dropout twin.
 //
-// Replaces, at D = 64 and 128, what the mma.sync forwards of those files
-// ran for the TPU kernels megatron_clip_tpu/ops/pallas/flash_attention.py::
+// Replaces, at D = 64 and 128 (both kernels) and D = 80 (the fused forward:
+// ViT-H/14's vision tower), what the mma.sync forwards of those files ran
+// for the TPU kernels megatron_clip_tpu/ops/pallas/flash_attention.py::
 // _fwd_kernel (call :135, with _drop_keep :31) and ops/pallas/fused_mha.py::
 // _fwd_kernel (call :289) and _fwd_kernel_dropout (call :491).
 //
@@ -16,25 +17,31 @@
 // run first and the tail is short ones.
 //
 // Loads. Q is loaded once by TMA into 128-byte swizzled panels ([128 rows]
-// [64 columns] each, D / 64 of them). K and V tiles of 128 keys stream
-// through rings under mbarriers (full: the producer's expect_tx; empty: one
-// arrival from each of the 256 consumer threads once its products have read
-// the slot), K and V on separate barriers so that S = Q K^T starts before V
-// lands: 3 stages at D = 64 (112 KB of shared memory), 2 at D = 128 (160
-// KB). The maps read strided [B, H, S, D] views in place: the packed
+// [64 columns] each, D / 64 of them); at D = 80 a row is 160 bytes, no
+// whole number of 128-byte rows, so a tile is one such panel and a [128]
+// [16] panel under the 32-byte swizzle, each from a map of its own box
+// (sm90.cuh's Tile, View). K and V tiles of 128 keys stream through rings
+// under mbarriers (full: the producer's expect_tx; empty: one arrival from
+// each of the 256 consumer threads once its products have read the slot),
+// K and V on separate barriers so that S = Q K^T starts before V lands: 3
+// stages at D = 64 and 80 (113 and 141 KB of shared memory), 2 at D = 128
+// (160 KB). The maps read strided [B, H, S, D] views in place: the packed
 // [B, S, 3 H D] projection's heads, the flash wrappers' head views, S-major
 // storage; rows past S load as zeros. The fused forward keeps a head's
 // whole K resident across its two passes where it fits beside the V ring
-// (S <= 1024 at D = 64, S <= 512 at D = 128: up to 224 KB), so pass 2
-// streams V alone; past that, K goes through its ring twice, the second
-// time from L2.
+// (S <= 1024 at D = 64, S <= 896 at D = 80, S <= 512 at D = 128: up to 224
+// KB), so pass 2 streams V alone; past that, K goes through its ring twice,
+// the second time from L2.
 //
 // Per key tile, in each consumer warpgroup: S = Q K^T on wgmma m64n128k16,
 // both operands K-major from shared memory; the softmax in registers, masks
 // (key past Sk, causal key past the row: -inf) tested only in tiles that
 // cross the warpgroup's diagonal or the keys' end; P rounded to bf16 in
 // registers is the register A operand of O += P V (wgmma m64nDk16, V
-// MN-major). The residuals keep their meaning: m the max of the scaled
+// MN-major). At D = 80 S takes five k-steps, the last on the 16-column
+// panels, and each k-step of P V is an n64 product on V's wide panel and an
+// n16 on its tail, which hold O in the m64n80 layout between them (40 fp32
+// a thread). The residuals keep their meaning: m the max of the scaled
 // scores, l its softmax sum, lse = m + log l.
 //
 // - Online (flash): a running max and sum per row on exp2 with scale
@@ -104,12 +111,11 @@ constexpr int kMaxSmem = 232448;  // a block's shared memory on the H100
 
 template <int D>
 struct Layout {
-  static constexpr int kP = D / 64;               // 64-column panels of a row
-  static constexpr int kPanel = 128 * kRowBytes;  // [128 rows][64] bf16
-  static constexpr int kTile = kP * kPanel;       // Q, or a K or V tile
-  static constexpr int kStages = D == 64 ? 3 : 2;  // V's ring, and K's
+  using T = Tile<D, 128>;  // Q, or a K or V tile
+  static constexpr int kTile = T::kBytes;
+  static constexpr int kStages = D == 128 ? 2 : 3;  // V's ring, and K's
   // the most key tiles the fused forward keeps resident beside the V ring
-  static constexpr int kMaxResident = D == 64 ? 8 : 4;
+  static constexpr int kMaxResident = D == 64 ? 8 : D == 80 ? 7 : 4;
   static constexpr int smem(int k_slots) {
     return 1024 + kTile + (k_slots + kStages) * kTile + kBarBytes;
   }
@@ -118,7 +124,7 @@ struct Layout {
 };
 
 struct Maps {
-  CUtensorMap q, k, v;
+  View q, k, v;
 };
 
 struct Args {
@@ -159,18 +165,14 @@ __device__ __forceinline__ bool fault_tile(int k0, int Sk) {
 #endif
 }
 
-// S = Q K^T for the warpgroup's 64 rows and the tile's 128 keys.
+// S = Q K^T for the 64 rows of Q from row q0 and the tile's 128 keys.
 template <int D>
 __device__ __forceinline__ void scores(float (&s)[kN / 2],
-                                       const unsigned char* q_w,
+                                       const unsigned char* q_s, int q0,
                                        const unsigned char* k_t) {
-  constexpr int kPanel = Layout<D>::kPanel;
   fence_regs(s);
   wgmma_fence();
-#pragma unroll
-  for (int kk = 0; kk < D / 16; ++kk)
-    wgmma_ss<0, 0>(s, desc_k(q_w + (kk >> 2) * kPanel, kk & 3),
-                   desc_k(k_t + (kk >> 2) * kPanel, kk & 3), kk > 0);
+  wgmma_kd<D, kM, kN>(s, q_s, q0, k_t);
   wgmma_commit();
   wgmma_wait<0>();
   fence_regs(s);
@@ -236,7 +238,6 @@ template <int D, bool kTwoPass, bool kDrop>
 __global__ void __launch_bounds__(kThreads, 1)
 fwd(const __grid_constant__ Maps maps, const Args g, Dropout drop) {
   using L = Layout<D>;
-  constexpr int kP = L::kP;
   extern __shared__ __align__(1024) unsigned char fwd_smem[];
   unsigned char* base = align_1024(fwd_smem);
   unsigned char* q_s = base;
@@ -275,10 +276,7 @@ fwd(const __grid_constant__ Maps maps, const Args g, Dropout drop) {
     setmaxnreg_dec<24>();
     if (tid == 0) {
       mbar_expect_tx(q_full, L::kTile);
-#pragma unroll
-      for (int p = 0; p < kP; ++p)
-        load_view_rows(q_s + p * L::kPanel, &maps.q, q_full, g.perm_q,
-                       64 * p, q0, h, b);
+      load_tile<D, kM>(q_s, maps.q, q_full, g.perm_q, q0, h, b);
       // the consumers' order: pass 1's K tiles (two-pass), then each
       // tile's K and V
       int ks = 0, kr = 0, vs = 0, vr = 0;
@@ -289,10 +287,8 @@ fwd(const __grid_constant__ Maps maps, const Args g, Dropout drop) {
         if (!(second && resident)) {
           if (kr > 0) mbar_wait(k_empty + ks, (kr - 1) & 1);
           mbar_expect_tx(k_full + ks, L::kTile);
-#pragma unroll
-          for (int p = 0; p < kP; ++p)
-            load_view_rows(k_s + ks * L::kTile + p * L::kPanel, &maps.k,
-                           k_full + ks, g.perm_k, 64 * p, k0, h, b);
+          load_tile<D, kN>(k_s + ks * L::kTile, maps.k, k_full + ks,
+                           g.perm_k, k0, h, b);
           if (++ks == g.k_slots) {
             ks = 0;
             ++kr;
@@ -301,10 +297,8 @@ fwd(const __grid_constant__ Maps maps, const Args g, Dropout drop) {
         if (!kTwoPass || second) {
           if (vr > 0) mbar_wait(v_empty + vs, (vr - 1) & 1);
           mbar_expect_tx(v_full + vs, L::kTile);
-#pragma unroll
-          for (int p = 0; p < kP; ++p)
-            load_view_rows(v_s + vs * L::kTile + p * L::kPanel, &maps.v,
-                           v_full + vs, g.perm_v, 64 * p, k0, h, b);
+          load_tile<D, kN>(v_s + vs * L::kTile, maps.v, v_full + vs,
+                           g.perm_v, k0, h, b);
           if (++vs == L::kStages) {
             vs = 0;
             ++vr;
@@ -324,7 +318,6 @@ fwd(const __grid_constant__ Maps maps, const Args g, Dropout drop) {
   const int row_lo = row0 + 16 * (ct >> 5) + (lane >> 2);
   const long bh = (long)b * g.H + h;
   const float sl2 = g.scale * kLog2e;
-  const unsigned char* q_w = q_s + c * 64 * kRowBytes;
   // warpgroup-uniform: the tile at k0 crosses the keys' end or the
   // warpgroup's diagonal
   auto masked = [&](int k0) {
@@ -372,7 +365,7 @@ fwd(const __grid_constant__ Maps maps, const Args g, Dropout drop) {
       const unsigned char* k_t = k_tile(t, kw);
       k_wait();
       float s[kN / 2];
-      scores<D>(s, q_w, k_t);
+      scores<D>(s, q_s, 64 * c, k_t);
       if (!resident) k_free();
       if (masked(k0)) mask(s, k0, row_lo, lane, g.Sk, g.causal);
 #pragma unroll
@@ -470,7 +463,7 @@ fwd(const __grid_constant__ Maps maps, const Args g, Dropout drop) {
   {
     const unsigned char* k_t = k_tile(0, kw);
     if (!resident) k_wait();
-    scores<D>(s, q_w, k_t);
+    scores<D>(s, q_s, 64 * c, k_t);
     if (!resident) k_free();
     softmax(s, 0, corr);
     frags(0);
@@ -481,7 +474,7 @@ fwd(const __grid_constant__ Maps maps, const Args g, Dropout drop) {
     const unsigned char* v_t = v_s + vr.slot * L::kTile;
 #pragma unroll
     for (int kk = 0; kk < kN / 16; ++kk)
-      wgmma_rs<1>(o, pa[kk], desc_mn(v_t, kk, L::kPanel), 1);
+      wgmma_rs_nd<D, kN>(o, pa[kk], v_t, kk);
     wgmma_commit();
   };
   auto pv_done = [&] {
@@ -498,10 +491,7 @@ fwd(const __grid_constant__ Maps maps, const Args g, Dropout drop) {
     fence_regs(o);
     fence_regs(s);
     wgmma_fence();
-#pragma unroll
-    for (int kk = 0; kk < D / 16; ++kk)
-      wgmma_ss<0, 0>(s, desc_k(q_w + (kk >> 2) * L::kPanel, kk & 3),
-                     desc_k(k_t + (kk >> 2) * L::kPanel, kk & 3), kk > 0);
+    wgmma_kd<D, kM, kN>(s, q_s, 64 * c, k_t);
     wgmma_commit();
     issue_pv();
     wgmma_wait<1>();  // S(t), the older group
@@ -548,15 +538,14 @@ fwd(const __grid_constant__ Maps maps, const Args g, Dropout drop) {
         p_bh[(long)row * g.Sk + nk + i % (g.Sk - nk)] = __float2bfloat16(0.f);
     }
   named_sync(1 + c, 128);  // every product of the warpgroup has read Q
-  unsigned char* o_s = q_s + c * 64 * kRowBytes;
+  using T = typename L::T;
 #pragma unroll
   for (int j = 0; j < D / 8; ++j)
 #pragma unroll
     for (int r = 0; r < 2; ++r) {
-      const int row = 16 * (ct >> 5) + (lane >> 2) + 8 * r;
+      const int row = 64 * c + 16 * (ct >> 5) + (lane >> 2) + 8 * r;
       const int col = 8 * j + 2 * (lane & 3);
-      *reinterpret_cast<uint32_t*>(o_s + (col >> 6) * L::kPanel +
-                                   swz(row, col & 63)) =
+      *reinterpret_cast<uint32_t*>(q_s + T::at(row, col)) =
           pack_bf16(o[4 * j + 2 * r] * scale_o[r],
                     o[4 * j + 2 * r + 1] * scale_o[r]);
     }
@@ -567,19 +556,22 @@ fwd(const __grid_constant__ Maps maps, const Args g, Dropout drop) {
   for (int i = ct; i < 64 * kChunks; i += 128) {
     const int r = i / kChunks, ch = i % kChunks;
     if (row0 + r >= g.Sq) continue;
-    const uint4 v = *reinterpret_cast<const uint4*>(
-        o_s + (ch >> 3) * L::kPanel + r * kRowBytes +
-        (((ch & 7) ^ (r & 7)) << 4));
+    const uint4 v =
+        *reinterpret_cast<const uint4*>(q_s + T::chunk(64 * c + r, ch));
     *reinterpret_cast<uint4*>(o_head + (long)(row0 + r) * g.os + 8 * ch) = v;
   }
 }
 
-// Whether the forward takes these bf16 operands: D = 64 or 128, every base
+// The head dims each route's kernels are built for: the flash forward's
+// (online), and the fused-MHA forward's (two-pass; 80: ViT-H/14).
+inline bool flash_d(int D) { return D == 64 || D == 128; }
+inline bool fused_d(int D) { return D == 64 || D == 80 || D == 128; }
+
+// Whether the kernels can read and write these bf16 operands: every base
 // 16-byte aligned and every stride a multiple of 8 elements (TMA's 16-byte
 // rule; the output's 16-byte stores).
-inline bool eligible(int D, std::initializer_list<const void*> ptrs,
-                     std::initializer_list<long long> strides) {
-  if (D != 64 && D != 128) return false;
+inline bool aligned(std::initializer_list<const void*> ptrs,
+                    std::initializer_list<long long> strides) {
   for (const void* p : ptrs)
     if (reinterpret_cast<uintptr_t>(p) % 16 != 0) return false;
   for (long long s : strides)
@@ -615,21 +607,24 @@ cudaError_t launch_d(Operand q, Operand k, Operand v, Args a, int B,
   a.k_resident = kTwoPass && tiles <= Layout<D>::kMaxResident;
   a.k_slots = a.k_resident ? tiles : Layout<D>::kStages;
   Maps maps;
-  if (!view_map(&maps.q, a.perm_q, q.p, q.b, q.h, q.s, B, a.H, a.Sq, D, kM) ||
-      !view_map(&maps.k, a.perm_k, k.p, k.b, k.h, k.s, B, a.H, a.Sk, D, kN) ||
-      !view_map(&maps.v, a.perm_v, v.p, v.b, v.h, v.s, B, a.H, a.Sk, D, kN))
+  if (!view_maps(&maps.q, a.perm_q, q.p, q.b, q.h, q.s, B, a.H, a.Sq, D, kM) ||
+      !view_maps(&maps.k, a.perm_k, k.p, k.b, k.h, k.s, B, a.H, a.Sk, D, kN) ||
+      !view_maps(&maps.v, a.perm_v, v.p, v.b, v.h, v.s, B, a.H, a.Sk, D, kN))
     return cudaErrorInvalidValue;
   return drop ? launch_as<D, kTwoPass, true>(maps, a, B, *drop, st)
               : launch_as<D, kTwoPass, false>(maps, a, B, Dropout{}, st);
 }
 
-// The forward of `eligible` operands: the online softmax (flash: a.lse) or
-// the two-pass one (fused MHA: a.row_max, a.row_sum).
+// The forward of `aligned` operands: the online softmax (flash: a.lse, D
+// in flash_d) or the two-pass one (fused MHA: a.row_max, a.row_sum, D in
+// fused_d).
 template <bool kTwoPass>
 cudaError_t launch(int D, Operand q, Operand k, Operand v, const Args& a,
                    int B, const Dropout* drop, cudaStream_t st) {
   if (D == 64) return launch_d<kTwoPass, 64>(q, k, v, a, B, drop, st);
   if (D == 128) return launch_d<kTwoPass, 128>(q, k, v, a, B, drop, st);
+  if constexpr (kTwoPass)
+    if (D == 80) return launch_d<kTwoPass, 80>(q, k, v, a, B, drop, st);
   return cudaErrorInvalidValue;
 }
 

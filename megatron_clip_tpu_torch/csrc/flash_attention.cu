@@ -1362,9 +1362,9 @@ cudaError_t launch(View<const bf16> q, View<const bf16> k, View<const bf16> v,
       !view_map(&maps.k, a.perm_k, k.p, k.b, k.h, k.s, B, H, Sk, D, kKeys) ||
       !view_map(&maps.v, a.perm_v, v.p, v.b, v.h, v.s, B, H, Sk, D, kKeys) ||
       !view_map(&maps.g, a.perm_g, g.p, g.b, g.h, g.s, B, H, Sq, D, kQ) ||
-      !make_map(&maps.lse, false, false, 1, lse, rows, nullptr, box) ||
-      !make_map(&maps.delta, false, false, 1, delta, rows, nullptr, box) ||
-      !make_map(&maps.dq, false, true, 4, dq_acc, dq_dims, dq_strides,
+      !make_map(&maps.lse, false, 0, 1, lse, rows, nullptr, box) ||
+      !make_map(&maps.delta, false, 0, 1, delta, rows, nullptr, box) ||
+      !make_map(&maps.dq, false, 128, 4, dq_acc, dq_dims, dq_strides,
                 dq_box))
     return cudaErrorInvalidValue;
   return drop ? launch_as<D, true>(maps, a, B, *drop, st)
@@ -1587,9 +1587,10 @@ extern "C" int mct_flash_fwd(MCT_VIEW_ARGS(q), MCT_VIEW_ARGS(k),
         MCT_VIEW(const float, v), MCT_VIEW(float, o), l, B, H, Sq, Sk, D,
         scale, causal, dr, st);
   if (dtype != mct::kBFloat16) return (int)cudaErrorInvalidValue;
-  if (mct::attn_fwd::eligible(D, {q, k, v, o},
-                              {MCT_STRIDES(q), MCT_STRIDES(k), MCT_STRIDES(v),
-                               MCT_STRIDES(o)})) {
+  if (mct::attn_fwd::flash_d(D) &&
+      mct::attn_fwd::aligned({q, k, v, o},
+                             {MCT_STRIDES(q), MCT_STRIDES(k), MCT_STRIDES(v),
+                              MCT_STRIDES(o)})) {
     mct::attn_fwd::Args a{};
     a.o = static_cast<bf16*>(const_cast<void*>(o));
     a.ob = o_b;

@@ -83,13 +83,14 @@
 // to a [B*H*S] fp32 scratch; part 2 owns keys and accumulates dK and dV over
 // the query tiles (from its first key on, when causal), reading delta.
 //
-// - The forward in bf16 at D = 64 and 128 past S = 128 (ViT-L/14's
-//   vision tower, the pipeline GPT's S = 512 with dropout; with row
-//   statistics on the recompute paths, with P or with neither elsewhere):
-//   attn_fwd_sm90.cuh's warp-specialised wgmma kernel with the two-pass
-//   softmax, one block per (128 rows, head, batch), K and V tiles of 128
-//   keys from TMA rings (K resident across both passes up to S = 1024 at
-//   D = 64 and S = 512 at D = 128), the normalised P rounded to bf16 in
+// - The forward in bf16 at D = 64, 80 and 128 past S = 128 (ViT-L/14's
+//   and ViT-H/14's vision towers, the pipeline GPT's S = 512 with dropout;
+//   with row statistics on the recompute paths, with P or with neither
+//   elsewhere): attn_fwd_sm90.cuh's warp-specialised wgmma kernel with the
+//   two-pass softmax, one block per (128 rows, head, batch), K and V tiles
+//   of 128 keys from TMA rings (K resident across both passes up to
+//   S = 1024 at D = 64, 896 at D = 80 and 512 at D = 128; a row of 80 as a
+//   64-column and a 16-column panel), the normalised P rounded to bf16 in
 //   registers before P.V (that header's note has the design). One kernel
 //   takes every mode there, so the saved-P and recompute modes give the
 //   same output (phase 8 holds ViT-L/14's first loss equal in both). At
@@ -101,10 +102,11 @@
 //   with stats: 0.2162 ms at ViT-L/14's
 //   B = 64, S = 257, D = 64 (tc::fwd 0.3462 before; SDPA 0.1175), 0.1963
 //   and 0.2699 ms at the pipeline GPT's B = 32, S = 512, D = 128, causal,
-//   rate 0 and 0.1 (tc::fwd 0.5637 and 0.6163; SDPA 0.1040 and 0.1859).
-//   D = 80 (ViT-H/14's vision tower: 0.1646 ms on tc::fwd), S <= 128 (the
-//   serving forward, ViT-B/32's saved-P training, the text towers) and
-//   operands TMA cannot read stay on tc:: below.
+//   rate 0 and 0.1 (tc::fwd 0.5637 and 0.6163; SDPA 0.1040 and 0.1859),
+//   0.0992 ms at ViT-H/14's B = 24, S = 257, H = 16, D = 80 (tc::fwd
+//   0.1646 before; SDPA 0.0646). S <= 128 (the serving forward, ViT-B/32's
+//   saved-P training, the text towers), other D and operands TMA cannot
+//   read stay on tc:: below.
 // - tc:: (bf16, D a multiple of 8, 16-byte aligned rows; the serving and
 //   training paths): one block per (64 rows, head, batch), 4 warps of 16
 //   rows. Tiles of 64 rows are staged in shared memory with 16-byte loads
@@ -128,9 +130,10 @@
 //   rows on the fp32 CUDA cores, which keeps fp32 inputs at full fp32
 //   precision (no TF32). At most 46 KB of shared memory (D = 128).
 //
-// - The recompute backward in bf16 at D = 64 and 128 past S = 128
-//   (ViT-L/14's vision tower, the pipeline GPT's S = 512 with dropout,
-//   the S-major views of those): attn_bwd_sm90.cuh's two warp-specialised
+// - The recompute backward in bf16 at D = 64, 80 and 128 past S = 128
+//   (ViT-L/14's and ViT-H/14's vision towers, the pipeline GPT's S = 512
+//   with dropout, the S-major views of those): attn_bwd_sm90.cuh's two
+//   warp-specialised
 //   wgmma kernels (part 1 dQ and delta over 128-query blocks, K and V
 //   streamed twice through a TMA ring; part 2 dK and dV over 128-key
 //   blocks, Q, dO and the row statistics streamed; that header's note has
@@ -138,9 +141,10 @@
 //   HBM3, 700 W): 0.4962 ms at ViT-L/14's B = 64, S = 257, D = 64
 //   (tc:: 0.8717 before; SDPA 0.4108), 0.5571 and 0.7300 ms at the
 //   pipeline GPT's B = 32, S = 512, D = 128, causal, rate 0 and 0.1
-//   (tc:: 1.4166 and 1.7338; SDPA 0.5225 and 0.5234). S <= 128 (the text
-//   towers: ViT-L/14's B = 64, S = 77 in 0.1048 ms on tc::, SDPA 0.3895),
-//   D = 80 (ViT-H/14's vision tower, 0.4706 ms on tc::, SDPA 0.3424) and
+//   (tc:: 1.4166 and 1.7338; SDPA 0.5225 and 0.5234), 0.2332 ms at
+//   ViT-H/14's B = 24, S = 257, D = 80 (tc:: 0.4674 before; SDPA's
+//   backward 0.19 to 0.31 between runs). S <= 128 (the text towers: ViT-L/14's
+//   B = 64, S = 77 in 0.1048 ms on tc::, SDPA 0.3895), other D and
 //   operands TMA cannot read stay on tc:: below; fp32 and any other bf16
 //   case on simt::.
 // - tc::'s recompute backward keeps the saved-P backward's shape: part 1
@@ -1761,9 +1765,9 @@ extern "C" int mct_fused_mha_fwd(const void* qkv, long long qkv_b,
     return (int)simt::launch<float>(qkv, pq, out, po, probs, m, l, B, S, H, D,
                                     scale, causal, dr, st);
   if (dtype != mct::kBFloat16) return (int)cudaErrorInvalidValue;
-  if (S > mct::attn_fwd::kN &&
-      mct::attn_fwd::eligible(D, {qkv, out, probs},
-                              {qkv_b, qkv_s, out_b, out_s})) {
+  if (S > mct::attn_fwd::kN && mct::attn_fwd::fused_d(D) &&
+      mct::attn_fwd::aligned({qkv, out, probs},
+                             {qkv_b, qkv_s, out_b, out_s})) {
     // past one key tile (the file's note): q, k and v as the [B, H, S, D]
     // views of qkv's columns
     const __nv_bfloat16* x = static_cast<const __nv_bfloat16*>(qkv);
@@ -1839,9 +1843,9 @@ extern "C" int mct_fused_mha_bwd_recompute(
                                               l, dqkv, pdq, dl, B, S, H, D,
                                               scale, causal, dr, st);
   if (dtype != mct::kBFloat16) return (int)cudaErrorInvalidValue;
-  if (S > mct::attn_fwd::kN &&
-      mct::attn_fwd::eligible(D, {qkv, dout, dqkv, stats, delta},
-                              {qkv_b, qkv_s, do_b, do_s, dq_b, dq_s})) {
+  if (S > mct::attn_fwd::kN && mct::attn_fwd::fused_d(D) &&
+      mct::attn_fwd::aligned({qkv, dout, dqkv, stats, delta},
+                             {qkv_b, qkv_s, do_b, do_s, dq_b, dq_s})) {
     // past one key tile (the file's note): q, k, v and dO as [B, H, S, D]
     // views
     const __nv_bfloat16* x = static_cast<const __nv_bfloat16*>(qkv);

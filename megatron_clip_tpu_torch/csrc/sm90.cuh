@@ -9,7 +9,10 @@
 //   shared memory through matrix descriptors (wgmma_ss) or A from registers
 //   (wgmma_rs, N = 64 and 128), with the fence, commit and wait that order
 //   them; fence_regs keeps the compiler from touching an accumulator while a
-//   product is in flight.
+//   product is in flight. wgmma_ss_at / wgmma_rs_at (N = 64 or 16) write
+//   columns of a wider accumulator: at D = 80 an m64n80 sum is an n64
+//   product into its first 32 floats and an n16 product into its last 8,
+//   which is the m64n80 layout.
 // - setmaxnreg: a warp-specialised block hands registers from its producer
 //   warpgroup to its consumers.
 // - Operand tiles in shared memory use the 128-byte swizzle: a panel of
@@ -17,6 +20,11 @@
 //   c ^ (r % 8), panels 1024-byte aligned. The same panel is a K-major
 //   operand (rows are M or N, columns K: desc_k) or an MN-major one (rows
 //   are K, columns M or N: desc_mn); a wider operand is several panels.
+//   A row of 80 (ViT-H/14's head) is 160 bytes, no whole number of
+//   128-byte rows: its last 16 columns form a panel of their own under the
+//   32-byte swizzle (rows of 32 bytes, chunk c of row r at c ^ (r / 4 % 2):
+//   swz32, desc_k32, desc_mn32). Tile<D, R> is the layout of R rows of D
+//   (64, 80 or 128) columns: D / 64 wide panels, then at D = 80 the tail.
 // - TMA: tensor maps encoded on the host (make_map), tiles loaded by one
 //   thread into a panel, completion counted on an mbarrier; TMA fills rows
 //   and columns past the tensor's extent with zeros.
@@ -25,9 +33,11 @@
 //   group's commit and waits.
 // - view_map / load_view_rows: a 4-D map of a strided [B, H, S, D] view
 //   (a packed projection's head, an S-major tensor) and the load of a box
-//   of its rows.
+//   of its rows; View / view_maps / load_tile: the map of its wide panels
+//   and (D = 80) the 16-column map of its tail, and a Tile's load.
 // - tile_check: one wgmma tile product for each operand layout and shape
-//   the kernels use (N = 64, 128 or 256, K = 64 or 128), exported by each
+//   the kernels use (N = 64, 80, 128 or 256, K = 64, 80 or 128: at 80 the
+//   wide panel and the tail), exported by each
 //   library that includes this header, so that a descriptor or swizzle
 //   fault shows on its own line (chip_smoke.py phase 3) before any kernel
 //   is checked.
@@ -59,6 +69,11 @@ constexpr int kRowBytes = 128;
 constexpr int kAtomBytes = 1024;   // 8 rows: the swizzle's period
 constexpr int kKStepBytes = 32;    // 16 bf16: one k-step along a K-major row
 constexpr int kMnStepBytes = 2048; // 16 rows: one k-step down an MN-major panel
+// the 32-byte swizzle of a 16-column tail panel
+constexpr int kTailCols = 16;
+constexpr int kTailRowBytes = 32;
+constexpr int kTailAtomBytes = 256;    // 8 rows
+constexpr int kTailMnStepBytes = 512;  // 16 rows
 
 constexpr float kLog2e = 1.4426950408889634f;
 
@@ -83,17 +98,28 @@ __device__ __forceinline__ unsigned char* align_1024(unsigned char* p) {
 __host__ __device__ constexpr int swz(int r, int c) {
   return r * kRowBytes + (((c >> 3) ^ (r & 7)) << 4) + ((c & 7) << 1);
 }
+// ... (c < 16) in a tail panel (32-byte swizzle).
+__host__ __device__ constexpr int swz32(int r, int c) {
+  return r * kTailRowBytes + (((c >> 3) ^ ((r >> 2) & 1)) << 4) +
+         ((c & 7) << 1);
+}
+// Byte offset of element (r, c) in a tile of `rows` rows of d columns (d
+// a multiple of 64, or 64 k + 16): the d / 64 wide panels, then the tail.
+__host__ __device__ constexpr int tile_at(int d, int rows, int r, int c) {
+  return c < (d & ~63) ? (c >> 6) * rows * kRowBytes + swz(r, c & 63)
+                       : (d >> 6) * rows * kRowBytes + swz32(r, c & 15);
+}
 
 // ---------------------------------------------------------------------------
 // wgmma
 
-// A matrix descriptor for the 128-byte swizzle: start address, leading and
-// stride byte offsets.
+// A matrix descriptor: start address, leading and stride byte offsets, and
+// the layout (1: the 128-byte swizzle, 3: the 32-byte one).
 __device__ __forceinline__ uint64_t desc(const void* p, uint32_t lbo,
-                                         uint32_t sbo) {
+                                         uint32_t sbo, uint64_t layout = 1) {
   return (uint64_t)((smem_u32(p) & 0x3FFFF) >> 4) |
          ((uint64_t)((lbo >> 4) & 0x3FFF) << 16) |
-         ((uint64_t)((sbo >> 4) & 0x3FFF) << 32) | (1ull << 62);
+         ((uint64_t)((sbo >> 4) & 0x3FFF) << 32) | (layout << 62);
 }
 // K-major: rows of the panel are M (or N), 8-row groups 1024 bytes apart;
 // k-step kk of a row starts kk * 32 bytes in (kk < 4 within a panel).
@@ -107,6 +133,17 @@ __device__ __forceinline__ uint64_t desc_mn(const void* panel, int kk,
                                             uint32_t panel_bytes) {
   return desc(static_cast<const char*>(panel) + kk * kMnStepBytes,
               panel_bytes, kAtomBytes);
+}
+
+// A tail panel (32-byte swizzle, 8-row groups 256 bytes apart). K-major:
+// its 16 columns are one k-step. MN-major: its 16 columns are one N (or M)
+// atom; k-step kk starts 16 rows down.
+__device__ __forceinline__ uint64_t desc_k32(const void* panel) {
+  return desc(panel, 16, kTailAtomBytes, 3);
+}
+__device__ __forceinline__ uint64_t desc_mn32(const void* panel, int kk) {
+  return desc(static_cast<const char*>(panel) + kk * kTailMnStepBytes, 16,
+              kTailAtomBytes, 3);
 }
 
 __device__ __forceinline__ void wgmma_fence() {
@@ -140,19 +177,67 @@ __device__ __forceinline__ void fence_regs(uint32_t (&x)[N][4]) {
 // a[i]: an accumulator's columns 16 kk.. rounded to bf16 pairs are that
 // fragment.
 // TA / TB: 0 K-major, 1 MN-major.
+//
+// m64nNk16 (N = 64 or 16) into columns of a wider accumulator, d[O, O +
+// N / 2), in the layout of d's own width (8-column group j of the product
+// is group O / 4 + j of d); the m64n64 overloads below are its O = 0.
+template <int TA, int TB, int N, int O, int M>
+__device__ __forceinline__ void wgmma_ss_at(float (&d)[M], uint64_t da,
+                                            uint64_t db, int acc) {
+  static_assert((N == 64 || N == 16) && O + N / 2 <= M, "n64 or n16 in d");
+  if constexpr (N == 64)
+    asm volatile(
+        "{\n.reg .pred p;\nsetp.ne.b32 p, %34, 0;\n"
+        "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 {"
+        "%0, %1, %2, %3, %4, %5, %6, %7, "
+        "%8, %9, %10, %11, %12, %13, %14, %15, "
+        "%16, %17, %18, %19, %20, %21, %22, %23, "
+        "%24, %25, %26, %27, %28, %29, %30, %31"
+        "}, %32, %33, p, 1, 1, %35, %36;\n}\n"
+        : MCT_D32(O)
+        : "l"(da), "l"(db), "r"(acc), "n"(TA), "n"(TB));
+  else
+    asm volatile(
+        "{\n.reg .pred p;\nsetp.ne.b32 p, %10, 0;\n"
+        "wgmma.mma_async.sync.aligned.m64n16k16.f32.bf16.bf16 {"
+        "%0, %1, %2, %3, %4, %5, %6, %7"
+        "}, %8, %9, p, 1, 1, %11, %12;\n}\n"
+        : MCT_D8(O)
+        : "l"(da), "l"(db), "r"(acc), "n"(TA), "n"(TB));
+}
+
+template <int TB, int N, int O, int M>
+__device__ __forceinline__ void wgmma_rs_at(float (&d)[M],
+                                            const uint32_t (&a)[4],
+                                            uint64_t db, int acc) {
+  static_assert((N == 64 || N == 16) && O + N / 2 <= M, "n64 or n16 in d");
+  if constexpr (N == 64)
+    asm volatile(
+        "{\n.reg .pred p;\nsetp.ne.b32 p, %37, 0;\n"
+        "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 {"
+        "%0, %1, %2, %3, %4, %5, %6, %7, "
+        "%8, %9, %10, %11, %12, %13, %14, %15, "
+        "%16, %17, %18, %19, %20, %21, %22, %23, "
+        "%24, %25, %26, %27, %28, %29, %30, %31"
+        "}, {%32, %33, %34, %35}, %36, p, 1, 1, %38;\n}\n"
+        : MCT_D32(O)
+        : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(acc),
+          "n"(TB));
+  else
+    asm volatile(
+        "{\n.reg .pred p;\nsetp.ne.b32 p, %13, 0;\n"
+        "wgmma.mma_async.sync.aligned.m64n16k16.f32.bf16.bf16 {"
+        "%0, %1, %2, %3, %4, %5, %6, %7"
+        "}, {%8, %9, %10, %11}, %12, p, 1, 1, %14;\n}\n"
+        : MCT_D8(O)
+        : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(acc),
+          "n"(TB));
+}
+
 template <int TA, int TB>
 __device__ __forceinline__ void wgmma_ss(float (&d)[32], uint64_t da,
                                          uint64_t db, int acc) {
-  asm volatile(
-      "{\n.reg .pred p;\nsetp.ne.b32 p, %34, 0;\n"
-      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 {"
-      "%0, %1, %2, %3, %4, %5, %6, %7, "
-      "%8, %9, %10, %11, %12, %13, %14, %15, "
-      "%16, %17, %18, %19, %20, %21, %22, %23, "
-      "%24, %25, %26, %27, %28, %29, %30, %31"
-      "}, %32, %33, p, 1, 1, %35, %36;\n}\n"
-      : MCT_D32(0)
-      : "l"(da), "l"(db), "r"(acc), "n"(TA), "n"(TB));
+  wgmma_ss_at<TA, TB, 64, 0>(d, da, db, acc);
 }
 
 template <int TA, int TB>
@@ -205,17 +290,7 @@ template <int TB>
 __device__ __forceinline__ void wgmma_rs(float (&d)[32],
                                          const uint32_t (&a)[4],
                                          uint64_t db, int acc) {
-  asm volatile(
-      "{\n.reg .pred p;\nsetp.ne.b32 p, %37, 0;\n"
-      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 {"
-      "%0, %1, %2, %3, %4, %5, %6, %7, "
-      "%8, %9, %10, %11, %12, %13, %14, %15, "
-      "%16, %17, %18, %19, %20, %21, %22, %23, "
-      "%24, %25, %26, %27, %28, %29, %30, %31"
-      "}, {%32, %33, %34, %35}, %36, p, 1, 1, %38;\n}\n"
-      : MCT_D32(0)
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(acc),
-        "n"(TB));
+  wgmma_rs_at<TB, 64, 0>(d, a, db, acc);
 }
 
 template <int TB>
@@ -237,6 +312,78 @@ __device__ __forceinline__ void wgmma_rs(float (&d)[64],
       : MCT_D64(0)
       : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(acc),
         "n"(TB));
+}
+
+// ---------------------------------------------------------------------------
+// Tiles of rows of D columns
+
+// R rows of D bf16 columns (D = 64, 80 or 128): D / 64 wide panels of
+// [R][64] (128-byte swizzle), then at D = 80 a tail panel of [R][16]
+// (32-byte swizzle); R * 2 D bytes, every panel 1024-byte aligned when R is
+// a multiple of 32.
+template <int D, int R>
+struct Tile {
+  static_assert(D == 64 || D == 80 || D == 128, "D = 64, 80 or 128");
+  static constexpr int kWide = D / 64;
+  static constexpr bool kTail = D % 64 != 0;
+  static constexpr int kPanel = R * kRowBytes;  // one wide panel
+  static constexpr int kTailAt = kWide * kPanel;
+  static constexpr int kBytes = R * 2 * D;
+  // byte offset of element (r, c), and of 16-byte chunk ch of row r
+  __host__ __device__ static constexpr int at(int r, int c) {
+    return tile_at(D, R, r, c);
+  }
+  __host__ __device__ static constexpr int chunk(int r, int ch) {
+    return at(r, 8 * ch);
+  }
+  // K-major (rows M or N, columns K = D): k-step kk of the 64 (or N) rows
+  // from row r0 (a multiple of 8)
+  __device__ static uint64_t desc_k(const unsigned char* t, int r0, int kk) {
+    if (kTail && kk == D / 16 - 1) return desc_k32(t + kTailAt + r0 * 32);
+    return sm90::desc_k(t + (kk >> 2) * kPanel + r0 * kRowBytes, kk & 3);
+  }
+};
+
+// d (m64nN) = A B over K = D, both K-major: A the 64 rows from row a0 of a
+// Tile<D, RA> at a, B every row of a Tile<D, N> at b; issued, not
+// committed. At D = 80 four k-steps on the wide panels and one on the
+// tails.
+template <int D, int RA, int N>
+__device__ __forceinline__ void wgmma_kd(float (&d)[N / 2],
+                                         const unsigned char* a, int a0,
+                                         const unsigned char* b) {
+#pragma unroll
+  for (int kk = 0; kk < D / 16; ++kk)
+    wgmma_ss<0, 0>(d, Tile<D, RA>::desc_k(a, a0, kk),
+                   Tile<D, N>::desc_k(b, 0, kk), kk > 0);
+}
+
+// d (m64nD) += A B for k-step kk, B MN-major: a Tile<D, K> at b (rows K,
+// columns N = D); A from registers (a) or, K-major, from shared memory
+// (da). One m64nD product at D = 64 and 128; at D = 80 an n64 on the wide
+// panel and an n16 on the tail.
+template <int D, int K>
+__device__ __forceinline__ void wgmma_rs_nd(float (&d)[D / 2],
+                                            const uint32_t (&a)[4],
+                                            const unsigned char* b, int kk) {
+  using T = Tile<D, K>;
+  if constexpr (T::kTail) {
+    wgmma_rs_at<1, 64, 0>(d, a, desc_mn(b, kk, T::kPanel), 1);
+    wgmma_rs_at<1, 16, 32>(d, a, desc_mn32(b + T::kTailAt, kk), 1);
+  } else {
+    wgmma_rs<1>(d, a, desc_mn(b, kk, T::kPanel), 1);
+  }
+}
+template <int D, int K>
+__device__ __forceinline__ void wgmma_ss_nd(float (&d)[D / 2], uint64_t da,
+                                            const unsigned char* b, int kk) {
+  using T = Tile<D, K>;
+  if constexpr (T::kTail) {
+    wgmma_ss_at<0, 1, 64, 0>(d, da, desc_mn(b, kk, T::kPanel), 1);
+    wgmma_ss_at<0, 1, 16, 32>(d, da, desc_mn32(b + T::kTailAt, kk), 1);
+  } else {
+    wgmma_ss<0, 1>(d, da, desc_mn(b, kk, T::kPanel), 1);
+  }
 }
 
 // The registers a thread of this warpgroup may hold from here on (every
@@ -383,10 +530,11 @@ inline EncodeTiled encode_tiled() {
 
 // A tiled map of a `rank`-dimensional bf16 or fp32 tensor at p: dims
 // innermost first (elements), strides of dims 1.. in bytes (multiples of
-// 16), box in elements, boxes of 128-byte rows swizzled or not.
+// 16), box in elements, boxes of rows swizzled in `swizzle`-byte spans
+// (128: 128-byte rows; 32: the 32-byte rows of a tail panel; 0: none).
 // Out-of-range elements load as zeros and are left out of stores and
 // reductions. False if the encoding is refused.
-inline bool make_map(CUtensorMap* m, bool bf16, bool swizzled, int rank,
+inline bool make_map(CUtensorMap* m, bool bf16, int swizzle, int rank,
                      const void* p, const uint64_t* dims,
                      const uint64_t* strides, const uint32_t* box) {
   const EncodeTiled encode = encode_tiled();
@@ -404,18 +552,21 @@ inline bool make_map(CUtensorMap* m, bool bf16, bool swizzled, int rank,
                      : CU_TENSOR_MAP_DATA_TYPE_FLOAT32,
                 rank, const_cast<void*>(p), d, s, b, e,
                 CU_TENSOR_MAP_INTERLEAVE_NONE,
-                swizzled ? CU_TENSOR_MAP_SWIZZLE_128B
-                         : CU_TENSOR_MAP_SWIZZLE_NONE,
+                swizzle == 128  ? CU_TENSOR_MAP_SWIZZLE_128B
+                : swizzle == 32 ? CU_TENSOR_MAP_SWIZZLE_32B
+                                : CU_TENSOR_MAP_SWIZZLE_NONE,
                 CU_TENSOR_MAP_L2_PROMOTION_L2_256B,
                 CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS;
 }
 
 // A 4-D map of a bf16 [B, H, S, D] view (D contiguous, strides in
-// elements), its other axes in the order of their strides, boxes of 64
-// columns x `rows` of one head; perm receives the map dimensions of
-// (s, h, b): bits 0-1, 2-3 and 4-5.
+// elements), its other axes in the order of their strides, boxes of
+// `cols` columns (64: a wide panel, 128-byte swizzle; 16: a tail panel,
+// 32-byte swizzle) x `rows` of one head; perm receives the map dimensions
+// of (s, h, b): bits 0-1, 2-3 and 4-5.
 inline bool view_map(CUtensorMap* m, int& perm, const void* p, long sb,
-                     long sh, long ss, int B, int H, int S, int D, int rows) {
+                     long sh, long ss, int B, int H, int S, int D, int rows,
+                     int cols = kPanelCols) {
   struct Axis {
     long stride;
     int n, box, id;
@@ -431,15 +582,16 @@ inline bool view_map(CUtensorMap* m, int& perm, const void* p, long sb,
   const uint64_t strides[3] = {(uint64_t)ax[0].stride * 2,
                                (uint64_t)ax[1].stride * 2,
                                (uint64_t)ax[2].stride * 2};
-  const uint32_t box[4] = {64, (uint32_t)ax[0].box, (uint32_t)ax[1].box,
-                           (uint32_t)ax[2].box};
+  const uint32_t box[4] = {(uint32_t)cols, (uint32_t)ax[0].box,
+                           (uint32_t)ax[1].box, (uint32_t)ax[2].box};
   perm = 0;
   for (int i = 0; i < 3; ++i) perm |= (i + 1) << (2 * ax[i].id);
-  return make_map(m, true, true, 4, p, dims, strides, box);
+  return make_map(m, true, cols == kTailCols ? 32 : 128, 4, p, dims, strides,
+                  box);
 }
 
-// Columns [col, col + 64) of rows [s, s + box rows) of head (b, h) of a
-// view_map into a panel, counted on `bar`.
+// Columns [col, col + box columns) of rows [s, s + box rows) of head
+// (b, h) of a view_map into a panel, counted on `bar`.
 __device__ __forceinline__ void load_view_rows(void* dst, const CUtensorMap* m,
                                                uint64_t* bar, int perm,
                                                int col, int s, int h, int b) {
@@ -450,6 +602,33 @@ __device__ __forceinline__ void load_view_rows(void* dst, const CUtensorMap* m,
   tma_load_4d(dst, m, bar, col, c1, c2, c3);
 }
 
+// A [B, H, S, D] view's maps: its wide panels' and, at D = 80, its tail's.
+struct View {
+  CUtensorMap wide, tail;
+};
+
+inline bool view_maps(View* v, int& perm, const void* p, long sb, long sh,
+                      long ss, int B, int H, int S, int D, int rows) {
+  return view_map(&v->wide, perm, p, sb, sh, ss, B, H, S, D, rows) &&
+         (D % 64 == 0 || view_map(&v->tail, perm, p, sb, sh, ss, B, H, S, D,
+                                  rows, kTailCols));
+}
+
+// Rows [s, s + R) of head (b, h) of a view into a Tile<D, R> at dst, counted
+// on `bar` (R * 2 D bytes).
+template <int D, int R>
+__device__ __forceinline__ void load_tile(unsigned char* dst, const View& v,
+                                          uint64_t* bar, int perm, int s,
+                                          int h, int b) {
+  using T = Tile<D, R>;
+#pragma unroll
+  for (int p = 0; p < T::kWide; ++p)
+    load_view_rows(dst + p * T::kPanel, &v.wide, bar, perm, 64 * p, s, h, b);
+  if constexpr (T::kTail)
+    load_view_rows(dst + T::kTailAt, &v.tail, bar, perm, 64 * T::kWide, s, h,
+                   b);
+}
+
 // A row-major bf16 [rows, cols] matrix as a 2-D map of (64 x box_rows)
 // boxes (cols % 8 == 0).
 inline bool matrix_map(CUtensorMap* m, const void* p, long rows, long cols,
@@ -457,20 +636,23 @@ inline bool matrix_map(CUtensorMap* m, const void* p, long rows, long cols,
   const uint64_t dims[2] = {(uint64_t)cols, (uint64_t)rows};
   const uint64_t strides[1] = {(uint64_t)cols * 2};
   const uint32_t box[2] = {kPanelCols, (uint32_t)box_rows};
-  return make_map(m, true, true, 2, p, dims, strides, box);
+  return make_map(m, true, 128, 2, p, dims, strides, box);
 }
 
 // ---------------------------------------------------------------------------
 // The tile check: C[64 x N] = A[64 x K] B[K x N] in one warpgroup, K / 16
-// k-steps of m64nNk16, (N, K) = (64, 64), (128, 64), (256, 64), (64, 128)
-// or (128, 128). a: [M][K] row-major, or [K][M] if ta (A MN-major); b:
-// [N][K] (K-major) or, if tb, [K][N]; a_regs: A from registers (K-major,
-// N <= 128). The operands reach shared memory by TMA (via_tma) or by the
-// threads' own swizzled stores, in the kernels' panels: A K-major as K / 64
-// panels of [64][64], MN-major as one panel of [K][64]; B K-major as K / 64
-// panels of [N][64], MN-major as N / 64 panels of [K][64].
+// k-steps, (N, K) in {64, 128, 256} x {64} or {64, 128} x {128}, and the
+// shapes of ViT-H/14's head of 80: (128, 80), (64, 80) (both operands
+// K-major), (80, 128), (80, 64) (B MN-major). a: [M][K] row-major, or [K][M]
+// if ta (A MN-major); b: [N][K] (K-major) or, if tb, [K][N]; a_regs: A from
+// registers (K-major, N <= 128). The operands reach shared memory by TMA
+// (via_tma) or by the threads' own swizzled stores, in the kernels' tiles:
+// A K-major as Tile<K, 64>, MN-major as one panel of [K][64]; B K-major as
+// Tile<K, N>, MN-major as Tile<N, K> (rows K). At K = 80 the fifth k-step
+// reads the tails (desc_k32); at N = 80 each k-step is an n64 product on
+// the wide panel and an n16 on the tail (wgmma_rs_nd, wgmma_ss_nd).
 struct TileCheck {
-  CUtensorMap a, b;
+  CUtensorMap a, b, a_tail, b_tail;
 };
 constexpr int kCheckA = 16384;  // A: up to 64 x 128 bf16
 constexpr int kCheckB = 32768;  // B: up to 256 x 64 or 128 x 128
@@ -502,29 +684,41 @@ __device__ __forceinline__ void tile_check_product(float (&d)[N / 2],
   wgmma_fence();
 #pragma unroll
   for (int kk = 0; kk < K / 16; ++kk) {
-    const uint64_t db = tb ? desc_mn(bs, kk, K * kRowBytes)
-                           : desc_k(bs + (kk >> 2) * N * kRowBytes, kk & 3);
-    if constexpr (N <= 128) {
-      if (a_regs) {
-        if (tb)
-          wgmma_rs<1>(d, af[kk], db, 1);
-        else
-          wgmma_rs<0>(d, af[kk], db, 1);
-        continue;
-      }
-    }
-    // A's 64 rows: K-major from its panel kk / 4, MN-major k-step kk of
-    // its one panel
+    // A's 64 rows: K-major from its tile, MN-major k-step kk of its one
+    // panel
     const uint64_t da = ta ? desc_mn(as, kk, 8192)
-                           : desc_k(as + (kk >> 2) * 8192, kk & 3);
-    if (ta && tb)
-      wgmma_ss<1, 1>(d, da, db, 1);
-    else if (ta)
-      wgmma_ss<1, 0>(d, da, db, 1);
-    else if (tb)
-      wgmma_ss<0, 1>(d, da, db, 1);
-    else
-      wgmma_ss<0, 0>(d, da, db, 1);
+                           : Tile<K, 64>::desc_k(as, 0, kk);
+    if constexpr (N == 80) {  // B MN-major only
+      if (a_regs) {
+        wgmma_rs_nd<N, K>(d, af[kk], bs, kk);
+      } else if (ta) {
+        wgmma_ss_at<1, 1, 64, 0>(d, da, desc_mn(bs, kk, K * kRowBytes), 1);
+        wgmma_ss_at<1, 1, 16, 32>(
+            d, da, desc_mn32(bs + Tile<N, K>::kTailAt, kk), 1);
+      } else {
+        wgmma_ss_nd<N, K>(d, da, bs, kk);
+      }
+    } else {
+      const uint64_t db = tb ? desc_mn(bs, kk, K * kRowBytes)
+                             : Tile<K, N>::desc_k(bs, 0, kk);
+      if constexpr (N <= 128) {
+        if (a_regs) {
+          if (tb)
+            wgmma_rs<1>(d, af[kk], db, 1);
+          else
+            wgmma_rs<0>(d, af[kk], db, 1);
+          continue;
+        }
+      }
+      if (ta && tb)
+        wgmma_ss<1, 1>(d, da, db, 1);
+      else if (ta)
+        wgmma_ss<1, 0>(d, da, db, 1);
+      else if (tb)
+        wgmma_ss<0, 1>(d, da, db, 1);
+      else
+        wgmma_ss<0, 0>(d, da, db, 1);
+    }
   }
   wgmma_commit();
   wgmma_wait<0>();
@@ -551,6 +745,16 @@ __device__ __forceinline__ void tile_check_run(const bf16* a,
   }
 }
 
+// Whether the tile check takes (n, k) in the layout (ta, tb, a_regs).
+__host__ __device__ inline bool tile_check_shape(int n, int k, int ta, int tb,
+                                                 int a_regs) {
+  const bool shape =
+      k == 64 ? (n == 64 || n == 80 || n == 128 || n == 256)
+      : k == 128 ? (n == 64 || n == 80 || n == 128)
+                 : k == 80 && (n == 64 || n == 128);
+  return shape && (n != 80 || tb) && !(a_regs && (ta || n > 128));
+}
+
 __global__ void __launch_bounds__(128)
 tile_check_kernel(const __grid_constant__ TileCheck maps, const bf16* a,
                   const bf16* b, float* c, int n, int k, int ta, int tb,
@@ -560,6 +764,10 @@ tile_check_kernel(const __grid_constant__ TileCheck maps, const bf16* a,
   unsigned char* bs = as + kCheckA;
   uint64_t* bar = reinterpret_cast<uint64_t*>(bs + kCheckB);
   const int t = threadIdx.x;
+  // the panels along A's and B's contiguous axes: A K-major Tile<k, 64>, B
+  // K-major Tile<k, n> (wide panels along K) or MN-major Tile<n, k> (along
+  // N); `rows` each, a tail past the last 64-column panel
+  const int a_rows = 64, b_rows = tb ? k : n, b_cols = tb ? n : k;
   if (via_tma) {
     if (t == 0) {
       mbar_init(bar, 1);
@@ -570,17 +778,18 @@ tile_check_kernel(const __grid_constant__ TileCheck maps, const bf16* a,
       mbar_expect_tx(bar, (64 + n) * k * 2);
       if (ta) {  // one [k K][64 M] panel
         tma_load_2d(as, &maps.a, bar, 0, 0);
-      } else {  // k / 64 [64 M][64 K] panels
+      } else {
         for (int p = 0; p < k / 64; ++p)
-          tma_load_2d(as + 8192 * p, &maps.a, bar, 64 * p, 0);
+          tma_load_2d(as + p * a_rows * kRowBytes, &maps.a, bar, 64 * p, 0);
+        if (k % 64)
+          tma_load_2d(as + (k / 64) * a_rows * kRowBytes, &maps.a_tail, bar,
+                      64 * (k / 64), 0);
       }
-      if (tb) {  // n / 64 [k K][64 N] panels
-        for (int p = 0; p < n / 64; ++p)
-          tma_load_2d(bs + p * k * kRowBytes, &maps.b, bar, 64 * p, 0);
-      } else {  // k / 64 [n N][64 K] panels
-        for (int p = 0; p < k / 64; ++p)
-          tma_load_2d(bs + p * n * kRowBytes, &maps.b, bar, 64 * p, 0);
-      }
+      for (int p = 0; p < b_cols / 64; ++p)
+        tma_load_2d(bs + p * b_rows * kRowBytes, &maps.b, bar, 64 * p, 0);
+      if (b_cols % 64)
+        tma_load_2d(bs + (b_cols / 64) * b_rows * kRowBytes, &maps.b_tail,
+                    bar, 64 * (b_cols / 64), 0);
     }
     mbar_wait(bar, 0);
   } else {
@@ -590,20 +799,12 @@ tile_check_kernel(const __grid_constant__ TileCheck maps, const bf16* a,
         *reinterpret_cast<bf16*>(as + swz(r, col)) = a[i];
       } else {  // a [64 M][k K]
         const int r = i / k, col = i % k;
-        *reinterpret_cast<bf16*>(as + (col / 64) * 8192 + swz(r, col % 64)) =
-            a[i];
+        *reinterpret_cast<bf16*>(as + tile_at(k, a_rows, r, col)) = a[i];
       }
     }
-    for (int i = t; i < n * k; i += 128) {
-      if (tb) {  // b [k K][n N]
-        const int r = i / n, col = i % n;
-        *reinterpret_cast<bf16*>(bs + (col / 64) * k * kRowBytes +
-                                 swz(r, col % 64)) = b[i];
-      } else {  // b [n N][k K]
-        const int r = i / k, col = i % k;
-        *reinterpret_cast<bf16*>(bs + (col / 64) * n * kRowBytes +
-                                 swz(r, col % 64)) = b[i];
-      }
+    for (int i = t; i < n * k; i += 128) {  // b [b_rows][b_cols]
+      const int r = i / b_cols, col = i % b_cols;
+      *reinterpret_cast<bf16*>(bs + tile_at(b_cols, b_rows, r, col)) = b[i];
     }
     fence_async_smem();
     __syncthreads();
@@ -612,15 +813,38 @@ tile_check_kernel(const __grid_constant__ TileCheck maps, const bf16* a,
   if (k == 64) {
     if (n == 64)
       tile_check_run<64, 64>(a, as, bs, c, ta, tb, a_regs);
+    else if (n == 80)
+      tile_check_run<80, 64>(a, as, bs, c, ta, tb, a_regs);
     else if (n == 128)
       tile_check_run<128, 64>(a, as, bs, c, ta, tb, a_regs);
     else
       tile_check_run<256, 64>(a, as, bs, c, ta, tb, a_regs);
+  } else if (k == 80) {
+    if (n == 64)
+      tile_check_run<64, 80>(a, as, bs, c, ta, tb, a_regs);
+    else
+      tile_check_run<128, 80>(a, as, bs, c, ta, tb, a_regs);
   } else if (n == 64) {
     tile_check_run<64, 128>(a, as, bs, c, ta, tb, a_regs);
+  } else if (n == 80) {
+    tile_check_run<80, 128>(a, as, bs, c, ta, tb, a_regs);
   } else {
     tile_check_run<128, 128>(a, as, bs, c, ta, tb, a_regs);
   }
+}
+
+// The 2-D maps of a row-major bf16 [rows][cols] operand at p: boxes of 64
+// columns x box_rows (128-byte swizzle) and, where cols % 64 = 16, of its
+// last 16 columns (32-byte swizzle).
+inline bool tile_check_maps(CUtensorMap* wide, CUtensorMap* tail,
+                            const void* p, int rows, int cols, int box_rows) {
+  const uint64_t dims[2] = {(uint64_t)cols, (uint64_t)rows};
+  const uint64_t strides[1] = {(uint64_t)cols * 2};
+  const uint32_t box[2] = {64, (uint32_t)box_rows};
+  const uint32_t box_tail[2] = {kTailCols, (uint32_t)box_rows};
+  return make_map(wide, true, 128, 2, p, dims, strides, box) &&
+         (cols % 64 == 0 ||
+          make_map(tail, true, 32, 2, p, dims, strides, box_tail));
 }
 
 }  // namespace sm90
@@ -634,26 +858,17 @@ tile_check_kernel(const __grid_constant__ TileCheck maps, const bf16* a,
                                      int n, int k, int ta, int tb,            \
                                      int a_regs, int via_tma, void* stream) { \
     using namespace mct::sm90;                                                \
-    const bool shape_ok = k == 64 ? (n == 64 || n == 128 || n == 256)         \
-                                  : k == 128 && (n == 64 || n == 128);        \
-    if (!shape_ok || (a_regs && (ta || n > 128)))                             \
+    if (!tile_check_shape(n, k, ta, tb, a_regs))                              \
       return (int)cudaErrorInvalidValue;                                      \
     TileCheck maps{};                                                         \
-    if (via_tma) {                                                            \
-      /* a [64][k] or, if ta, [k][64]; b [n][k] or, if tb, [k][n] */          \
-      const uint64_t dims_a[2] = {ta ? 64u : (uint64_t)k,                     \
-                                  ta ? (uint64_t)k : 64u};                    \
-      const uint64_t str_a[1] = {ta ? 128u : (uint64_t)k * 2};                \
-      const uint32_t box_a[2] = {64, ta ? (uint32_t)k : 64u};                 \
-      if (!make_map(&maps.a, true, true, 2, a, dims_a, str_a, box_a))         \
-        return (int)cudaErrorInvalidValue;                                    \
-      const uint64_t dims_b[2] = {tb ? (uint64_t)n : (uint64_t)k,             \
-                                  tb ? (uint64_t)k : (uint64_t)n};            \
-      const uint64_t str_b[1] = {tb ? (uint64_t)n * 2 : (uint64_t)k * 2};     \
-      const uint32_t box_b[2] = {64, tb ? (uint32_t)k : (uint32_t)n};         \
-      if (!make_map(&maps.b, true, true, 2, b, dims_b, str_b, box_b))         \
-        return (int)cudaErrorInvalidValue;                                    \
-    }                                                                         \
+    /* a [64][k] or, if ta, [k][64]; b [n][k] or, if tb, [k][n] */            \
+    if (via_tma &&                                                            \
+        !(ta ? tile_check_maps(&maps.a, &maps.a_tail, a, k, 64, k)            \
+             : tile_check_maps(&maps.a, &maps.a_tail, a, 64, k, 64)) ||       \
+        via_tma &&                                                            \
+        !(tb ? tile_check_maps(&maps.b, &maps.b_tail, b, k, n, k)             \
+             : tile_check_maps(&maps.b, &maps.b_tail, b, n, k, n)))           \
+      return (int)cudaErrorInvalidValue;                                      \
     const int smem = 1024 + kCheckA + kCheckB + 64;                           \
     cudaError_t e = cudaFuncSetAttribute(                                     \
         tile_check_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem); \

@@ -7,11 +7,14 @@ the fused-MHA recompute backward (`csrc/attn_bwd_sm90.cuh`, in
 
 Each library that includes the header exports `mct_sm90_tile_check`: one
 warpgroup's C[64, N] = A[64, K] B[K, N] in bf16 with fp32 accumulation,
-(N, K) = (64, 64), (128, 64), (256, 64), (64, 128) or (128, 128), K / 16
-k-steps of wgmma m64nNk16, for one operand layout: A K-major ([M, K]
-storage) or MN-major ([K, M]), or A from registers (N <= 128); B K-major
-([N, K]) or MN-major ([K, N], N / 64 panels of 64 columns); the tiles
-loaded into shared memory by TMA or by the threads' own swizzled stores.
+(N, K) in SHAPES, K / 16 k-steps of wgmma m64nNk16, for one operand layout:
+A K-major ([M, K] storage) or MN-major ([K, M]), or A from registers
+(N <= 128); B K-major ([N, K]) or MN-major ([K, N], N / 64 panels of 64
+columns); the tiles loaded into shared memory by TMA or by the threads' own
+swizzled stores. A width of 80 (ViT-H/14's head) is a 64-column panel under
+the 128-byte swizzle and a 16-column one under the 32-byte swizzle: at
+K = 80 the fifth k-step reads the 16-column panels (K-major), at N = 80
+each k-step is an n64 and an n16 product (B MN-major only).
 `tile_product` runs it; `LAYOUTS` are the layouts and shapes the kernels
 use. `tile_product_plain` is the product it must give, in fp32 from the
 same bf16 values. A wrong descriptor or swizzle moves whole rows or
@@ -38,12 +41,20 @@ LIBRARIES = ("fused_ce", "flash_attention", "fused_mha")
 # its S, dP (part 1 at D = 128) and S^T, dP^T (part 2), 64 wide (K, K). At
 # N = 64, K = 128: the recompute backward's dQ += dS K at D = 64 over
 # 128-key tiles (registers, MN). At N = 256, K = 64: the fused CE forward's
-# logits (K, K) and the backward's three products at their own width.
+# logits (K, K) and the backward's three products at their own width. At
+# D = 80: the fused forward's S = Q K^T and the recompute backward's S, dP
+# over 128-key tiles (N = 128, K = 80; K, K), part 2's S^T, dP^T (N = 64,
+# K = 80; K, K), the forward's O += P V and part 1's dQ += dS K (N = 80,
+# K = 128; registers, MN), part 2's dV, dK (N = 80, K = 64; registers, MN)
+# and the same with A from shared memory (K, MN).
 LAYOUTS = tuple((ta, tb, regs, 128, 64) for regs in (0, 1) for ta in (0, 1)
                 for tb in (0, 1) if not (regs and ta)) + (
     (0, 1, 1, 64, 64), (0, 0, 0, 64, 64), (0, 1, 1, 64, 128),
-    (0, 0, 0, 256, 64), (0, 1, 0, 256, 64), (1, 1, 0, 256, 64))
-SHAPES = ((64, 64), (128, 64), (256, 64), (64, 128), (128, 128))
+    (0, 0, 0, 256, 64), (0, 1, 0, 256, 64), (1, 1, 0, 256, 64),
+    (0, 0, 0, 128, 80), (0, 0, 0, 64, 80), (0, 1, 1, 80, 128),
+    (0, 1, 1, 80, 64), (0, 1, 0, 80, 64))
+SHAPES = ((64, 64), (128, 64), (256, 64), (64, 128), (128, 128), (128, 80),
+          (64, 80), (80, 128), (80, 64))
 
 
 def tile_product_plain(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
@@ -67,6 +78,8 @@ def tile_product(library: str, a: torch.Tensor, b: torch.Tensor, *,
     if a_regs and (ta or n > 128):
         raise ValueError("tile_product: A from registers is K-major, N <= "
                          "128")
+    if n == 80 and not tb:
+        raise ValueError("tile_product: B at N = 80 is MN-major")
     a_st = (a.t() if ta else a).contiguous()
     b_st = (b if tb else b.t()).contiguous()
     c = torch.empty(64, n, dtype=torch.float32, device=a.device)

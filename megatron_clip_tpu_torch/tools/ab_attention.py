@@ -13,13 +13,15 @@ and `flash_attention.cu` and, with the API both checkouts share, times
   with_probs=True)`, `fused_mha_bwd`) at the ViT-B/32 train shapes (batch
   384) and the ViT-L/14 and ViT-H/14 vision shapes (batch 64 and 24);
 - the forwards of the recompute and GPT paths, beside SDPA's forward on
-  contiguous q, k, v (`dropout_p` alike): the fused forward with row
-  statistics (`fused_mha_fwd(..., with_stats=True)`,
+  contiguous q, k, v (`dropout_p` alike), with each port call's host ms
+  (the wall time of issuing the calls, the device left to lag): the fused
+  forward with row statistics (`fused_mha_fwd(..., with_stats=True)`,
   `fused_mha_dropout_fwd`) at the pipeline GPT's B = 32, S = 512, H = 16,
-  D = 128, causal, rate 0 and 0.1, and at ViT-L/14's vision and text
-  towers; the flash forward (`flash_fwd`, `flash_fwd_dropout`) on the
-  packed projection's head views at the pipeline GPT's B = 8, S = 2048,
-  D = 128, rate 0 and 0.1, and GPT-345m's B = 6, D = 64.
+  D = 128, causal, rate 0 and 0.1, at ViT-L/14's vision and text towers
+  and at ViT-H/14's vision tower (B = 24, S = 257, H = 16, D = 80); the
+  flash forward (`flash_fwd`, `flash_fwd_dropout`) on the packed
+  projection's head views at the pipeline GPT's B = 8, S = 2048, D = 128,
+  rate 0 and 0.1, and GPT-345m's B = 6, D = 64.
 Inputs come from a seeded generator, so the two checkouts get the same
 ones; a hash of each output's bytes says whether they give the same bits.
 Prints the card, each run's register report (ptxas) for the saved-P
@@ -32,6 +34,7 @@ import json
 import re
 import subprocess
 import sys
+import time
 from pathlib import Path
 
 HERE = Path(__file__).resolve().parents[2]
@@ -49,6 +52,8 @@ FORWARDS = (("fused_mha_fwd with stats", "pipeline GPT", 32, 512, 16, 128,
              False, 0.0),
             ("fused_mha_fwd with stats", "ViT-L/14 text", 64, 77, 12, 64,
              True, 0.0),
+            ("fused_mha_fwd with stats", "ViT-H/14 vision", 24, 257, 16, 80,
+             False, 0.0),
             ("flash_fwd", "pipeline GPT", 8, 2048, 16, 128, True, 0.0),
             ("flash_fwd", "pipeline GPT", 8, 2048, 16, 128, True, 0.1),
             ("flash_fwd", "GPT-345m", 6, 2048, 16, 64, True, 0.0))
@@ -107,12 +112,22 @@ def time_checkout(repo: str) -> dict:
 
 
 def time_forwards(ms, digest) -> list:
-    """The FORWARDS rows of the checkout imported: kernel and SDPA ms."""
+    """The FORWARDS rows of the checkout imported: kernel, host and SDPA
+    ms."""
     import torch
     import torch.nn.functional as F
     from megatron_clip_tpu_torch.ops.dropout import AttentionDropout
     from megatron_clip_tpu_torch.ops.kernels import flash_attention as fa
     from megatron_clip_tpu_torch.ops.kernels import fused_mha as mha
+    def host_ms(fn) -> float:
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for _ in range(REPS):
+            fn()
+        took = time.perf_counter() - t0
+        torch.cuda.synchronize()
+        return took * 1e3 / REPS
+
     rows = []
     for kernel, label, b, s, h, d, causal, rate in FORWARDS:
         gen = torch.Generator(device="cuda").manual_seed(b * s * h * d)
@@ -137,7 +152,7 @@ def time_forwards(ms, digest) -> list:
         rows.append({
             "row": f"{kernel} {label} B={b} S={s} H={h} D={d} "
                    f"causal={causal} rate={rate} bf16",
-            "ms": ms(fn),
+            "ms": ms(fn), "host_ms": host_ms(fn),
             "library_ms": ms(lambda: F.scaled_dot_product_attention(
                 lq, lk, lv, is_causal=causal, dropout_p=rate)),
             "bits": {"out": digest(out),
@@ -200,6 +215,8 @@ def main() -> int:
         print(json.dumps({
             "row": first["row"],
             "ms other/this/this/other": [r["ms"] for r in rows],
+            "host_ms other/this/this/other": [r.get("host_ms")
+                                              for r in rows],
             "library_ms other/this/this/other":
                 [r["library_ms"] for r in rows],
             "same_bits": {k: len({r["bits"][k] for r in rows}) == 1

@@ -25,8 +25,9 @@ calls, the device left to lag; map encoding, launch set-up and launches):
   beside SDPA's backward (`dropout_p` alike);
 - the fused-MHA recompute backward, bf16, on the packed projection and the
   forward's row statistics: the pipeline GPT's B = 32, S = 512, H = 16,
-  D = 128, causal, at rate 0 and 0.1, and ViT-L/14's vision tower, B = 64,
-  S = 257, H = 16, D = 64, beside SDPA's backward.
+  D = 128, causal, at rate 0 and 0.1, ViT-L/14's vision tower, B = 64,
+  S = 257, H = 16, D = 64, and ViT-H/14's, B = 24, S = 257, H = 16,
+  D = 80, beside SDPA's backward.
 Inputs come from a seeded generator, so both checkouts get the same ones.
 Prints the card, one JSON line per row with the four runs' times, and
 last one JSON object with every run. Needs a CUDA device and nvcc.
@@ -48,7 +49,8 @@ FLASH_ROWS = (("GPT-345m", 6, 2048, 16, 64, 0.0),
 # (label, B, S, H, D, causal, rate)
 RECOMPUTE_ROWS = (("pipeline GPT", 32, 512, 16, 128, True, 0.0),
                   ("pipeline GPT", 32, 512, 16, 128, True, 0.1),
-                  ("ViT-L/14 vision", 64, 257, 16, 64, False, 0.0))
+                  ("ViT-L/14 vision", 64, 257, 16, 64, False, 0.0),
+                  ("ViT-H/14 vision", 24, 257, 16, 80, False, 0.0))
 LIBRARIES = ["fused_ce", "flash_attention", "fused_mha"]
 REPS, WARMUP = 10, 2
 # the float2 atomics of the pre-Hopper backward's add_tile

@@ -2,12 +2,13 @@
 
     python megatron_clip_tpu_torch/tools/ab_step.py --other DIR \
         [--leg "--model gpt-pipeline --seq 512"] \
-        [--leg "--model ViT-L-14 --batch 64 --recompute"]
+        [--leg "--model ViT-L-14 --batch 64 --recompute"] \
+        [--leg "--model ViT-H-14 --batch 24 --recompute"]
 
 DIR is another checkout of the repo, for example the parent commit unpacked
 with `git archive` into a gitignored directory. Each `--leg` takes the
 options of `tools/profile_train.py` (model, batch, seq, fused CE,
-recompute); the two above are the default. Both checkouts' kernels are
+recompute); the three above are the default. Both checkouts' kernels are
 built first, at once; then, for each leg, one process per run in the order
 other, this, this, other. Each process imports the port from its checkout
 and builds the step with that checkout's `tools/profile_train.py` (the
@@ -32,7 +33,8 @@ from pathlib import Path
 
 HERE = Path(__file__).resolve().parents[2]
 LEGS = ("--model gpt-pipeline --seq 512",
-        "--model ViT-L-14 --batch 64 --recompute")
+        "--model ViT-L-14 --batch 64 --recompute",
+        "--model ViT-H-14 --batch 24 --recompute")
 WARMUP, STEPS = 3, 12
 
 

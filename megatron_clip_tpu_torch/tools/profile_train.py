@@ -32,7 +32,9 @@ one JSON line: wall time, device-busy time (the union of kernel and copy
 intervals), the idle share, and device time by category (GEMMs,
 elementwise, the port's attention, LayerNorm, RMSNorm and fused-CE kernels
 forward and backward, the optimizer's multi-tensor kernels, copies, other)
-with the top kernels, and the PyTorch ops whose own kernels took the most
+with the top kernels, each of the port's kernels by name and template
+arguments (`port_kernels_ms`: which instantiation ran, e.g. the attention
+kernels' head dim), and the PyTorch ops whose own kernels took the most
 device time. Needs a CUDA device; exits non-zero without one.
 """
 import argparse
@@ -101,6 +103,25 @@ def _category(name: str) -> str:
     if "elementwise" in n or "vectorized" in n or "reduce" in n:
         return "elementwise"
     return "other"
+
+
+def _kernel_label(name: str) -> str:
+    """A kernel's demangled name without its parameter list: the function
+    and its template arguments."""
+    return re.sub(r"\((?!anonymous namespace\)).*$", "", name)
+
+
+def _port_kernels(prof) -> dict:
+    """Device ms of each of the port's kernels in the window (the columns
+    of csrc/*.cu), by `_kernel_label`, largest first."""
+    by = {}
+    for e in prof.events():
+        if (e.device_type == torch.autograd.DeviceType.CUDA
+                and _category(e.name).endswith(".cu)")):
+            key = _kernel_label(e.name)
+            by[key] = by.get(key, 0.0) + (e.time_range.end
+                                          - e.time_range.start) / 1e3
+    return dict(sorted(by.items(), key=lambda kv: -kv[1]))
 
 
 def _top_ops(prof, n: int = 16) -> list:
@@ -226,6 +247,7 @@ def main() -> int:
     print(json.dumps({"card": card, "model": args.model, **about,
                       "window": f"{REPS} train steps, batch on the card",
                       "loss": float(metrics["loss"]), **window,
+                      "port_kernels_ms": _port_kernels(prof),
                       "top_ops_device_ms": _top_ops(prof)}))
     return 0
 

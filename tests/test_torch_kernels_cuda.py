@@ -266,7 +266,8 @@ def test_fused_mha_stats_and_recompute_backward_match_plain(
 
 # The forward with row statistics at the wgmma kernel's tiles' edges
 # (csrc/attn_fwd_sm90.cuh, two-pass: 128-row blocks, 128-key tiles, K
-# resident up to S = 1024 at D = 64 and S = 512 at D = 128, through the
+# resident up to S = 1024 at D = 64, S = 896 at D = 80 (ViT-H/14's head:
+# a 64-column and a 16-column panel) and S = 512 at D = 128, through the
 # ring above; S <= 128 runs the mma.sync kernel), both masks, rate 0 and
 # 0.1, on the packed projection and on the [B, S, *] view of S-major
 # storage, which must give the same bits. The output's bound is the flash
@@ -277,7 +278,7 @@ def test_fused_mha_stats_and_recompute_backward_match_plain(
 # where |v| > 2 (the mma.sync kernel did so at S = 64, D = 128, causal).
 @pytest.mark.parametrize("rate", [0.0, 0.1])
 @pytest.mark.parametrize("causal", [False, True])
-@pytest.mark.parametrize("d", [64, 128])
+@pytest.mark.parametrize("d", [64, 80, 128])
 @pytest.mark.parametrize("s", [1, 63, 64, 65, 257, 512, 1024])
 def test_fused_mha_wgmma_forward_at_tile_edges(cuda, s, d, causal, rate):
     b, h = 2, 3
@@ -306,13 +307,14 @@ def test_fused_mha_wgmma_forward_at_tile_edges(cuda, s, d, causal, rate):
 
 
 # The recompute backward at the wgmma kernels' tiles' edges
-# (csrc/attn_bwd_sm90.cuh: 128-row blocks; 128-key tiles at D = 64 and 64 at D = 128 in part 1, 64-query tiles in
-# part 2), both masks, rate 0 and 0.1, on the plain forward's statistics,
-# bf16 gradients row by row; the [B, S, *] view of S-major storage must
-# give the contiguous run's bits
+# (csrc/attn_bwd_sm90.cuh: 128-row blocks; 128-key tiles at D = 64 and 80
+# and 64 at D = 128 in part 1, 64-query tiles in part 2; at D = 80 a
+# 64-column and a 16-column panel), both masks, rate 0 and 0.1, on the
+# plain forward's statistics, bf16 gradients row by row; the [B, S, *] view
+# of S-major storage must give the contiguous run's bits
 @pytest.mark.parametrize("rate", [0.0, 0.1])
 @pytest.mark.parametrize("causal", [False, True])
-@pytest.mark.parametrize("d", [64, 128])
+@pytest.mark.parametrize("d", [64, 80, 128])
 @pytest.mark.parametrize("s", [129, 192, 257, 320, 512, 1024])
 def test_fused_mha_wgmma_recompute_backward_at_tile_edges(cuda, s, d, causal,
                                                           rate):

@@ -4,13 +4,15 @@
 demangled names; PERF.md's per-step table reads those sums. Each port
 kernel's name, as the CUDA toolkit's cu++filt prints it, must land in its
 source's forward or backward column, so that a redesigned kernel's time is
-compared with its predecessor's. And the step A/B tool's legs, which it
-hands to profile_train's step builders.
+compared with its predecessor's; its per-kernel list keeps each kernel's
+template arguments (which head dim ran). And the step A/B tool's legs,
+which profile_train's `_clip_step` and `_gpt_step` take.
 """
 import pytest
 
 from megatron_clip_tpu_torch.tools.ab_step import LEGS, leg_args
-from megatron_clip_tpu_torch.tools.profile_train import _category
+from megatron_clip_tpu_torch.tools.profile_train import (_category,
+                                                         _kernel_label)
 
 _D = "mct::Dropout"
 _FLASH_VIEW = "(anonymous namespace)::View<__nv_bfloat16 const>"
@@ -26,6 +28,11 @@ _FLASH_VIEW = "(anonymous namespace)::View<__nv_bfloat16 const>"
      f"mct::attn_fwd::Args, {_D})", "attention fwd (flash_attention.cu)"),
     (f"void mct::attn_fwd::fwd<128, false, true>(mct::attn_fwd::Maps, "
      f"mct::attn_fwd::Args, {_D})", "attention fwd (flash_attention.cu)"),
+    # ViT-H/14's head of 80: the fused forward only
+    (f"void mct::attn_fwd::fwd<80, true, false>(mct::attn_fwd::Maps, "
+     f"mct::attn_fwd::Args, {_D})", "attention fwd (fused_mha.cu)"),
+    (f"void mct::attn_fwd::fwd<80, true, true>(mct::attn_fwd::Maps, "
+     f"mct::attn_fwd::Args, {_D})", "attention fwd (fused_mha.cu)"),
     # the mma.sync and CUDA-core kernels they stand beside
     ("void (anonymous namespace)::tc::fwd<80, false>(__nv_bfloat16 const*, "
      "(anonymous namespace)::Pitch, __nv_bfloat16*, (anonymous "
@@ -51,6 +58,14 @@ _FLASH_VIEW = "(anonymous namespace)::View<__nv_bfloat16 const>"
      f"mct::attn_bwd::Args, {_D})", "attention bwd (fused_mha.cu)"),
     (f"void mct::attn_bwd::bwd_dkdv<64, false>(mct::attn_bwd::Maps, "
      f"mct::attn_bwd::Args, {_D})", "attention bwd (fused_mha.cu)"),
+    (f"void mct::attn_bwd::bwd_dq<80, false>(mct::attn_bwd::Maps, "
+     f"mct::attn_bwd::Args, {_D})", "attention bwd (fused_mha.cu)"),
+    (f"void mct::attn_bwd::bwd_dq<80, true>(mct::attn_bwd::Maps, "
+     f"mct::attn_bwd::Args, {_D})", "attention bwd (fused_mha.cu)"),
+    (f"void mct::attn_bwd::bwd_dkdv<80, false>(mct::attn_bwd::Maps, "
+     f"mct::attn_bwd::Args, {_D})", "attention bwd (fused_mha.cu)"),
+    (f"void mct::attn_bwd::bwd_dkdv<80, true>(mct::attn_bwd::Maps, "
+     f"mct::attn_bwd::Args, {_D})", "attention bwd (fused_mha.cu)"),
     # the fused CE forward on wgmma, its CUDA-core twin and the combine
     ("void (anonymous namespace)::hop::fused_ce_fwd_gemm((anonymous "
      "namespace)::hop::Maps, (anonymous namespace)::hop::Args)",
@@ -68,10 +83,29 @@ def test_every_port_kernel_lands_in_its_column(name, category):
     assert _category(name) == category
 
 
+@pytest.mark.parametrize("name,label", [
+    (f"void mct::attn_fwd::fwd<80, true, false>(mct::attn_fwd::Maps, "
+     f"mct::attn_fwd::Args, {_D})",
+     "void mct::attn_fwd::fwd<80, true, false>"),
+    (f"void mct::attn_bwd::bwd_dkdv<80, false>(mct::attn_bwd::Maps, "
+     f"mct::attn_bwd::Args, {_D})",
+     "void mct::attn_bwd::bwd_dkdv<80, false>"),
+    ("void (anonymous namespace)::tc::fwd<64, false>(__nv_bfloat16 const*, "
+     "(anonymous namespace)::Pitch, float*, int)",
+     "void (anonymous namespace)::tc::fwd<64, false>"),
+    ("(anonymous namespace)::fused_ce_combine(float const*, int)",
+     "(anonymous namespace)::fused_ce_combine"),
+])
+def test_profile_labels_keep_the_template_arguments(name, label):
+    assert _kernel_label(name) == label
+
+
 @pytest.mark.parametrize("leg,want", [
     (LEGS[0], {"model": "gpt-pipeline", "seq": 512, "batch": None,
                "fused_ce": False, "recompute": False}),
     (LEGS[1], {"model": "ViT-L-14", "seq": 2048, "batch": 64,
+               "fused_ce": False, "recompute": True}),
+    (LEGS[2], {"model": "ViT-H-14", "seq": 2048, "batch": 24,
                "fused_ce": False, "recompute": True}),
     ("--model gpt-345m --seq 8192 --batch 1 --fused-ce",
      {"model": "gpt-345m", "seq": 8192, "batch": 1, "fused_ce": True,
