@@ -30,8 +30,10 @@ imports nothing of JAX or of the JAX package. Phases, each of which raises
      bf16 flash forward at D = 64 and 128) built to leave out the last key
      of every 128-key tile, in the whole sequence or its late half, each
      failing its bound; the bf16 recompute backward's gradients also row by
-     row, and its wgmma kernels (csrc/attn_bwd_sm90.cuh) built to leave out
-     the last key or query of every tile, failing the row bound;
+     row, and its wgmma kernels (csrc/attn_bwd_sm90.cuh) and the wgmma
+     split flash pair (B=1 S=8192 H=16, D=64 and D=128 with dropout) built
+     to leave out the last key or query of every tile, failing the row
+     bound;
   4. goldens: full-width ViT-B-32-quickgelu in fp32, weights rebuilt from
      tests/goldens/full/vitb32.npz's manifest, against open_CLIP's features
      (atol 1e-4);
@@ -236,10 +238,11 @@ DROPOUT_FAULTS = ("MCT_DROPOUT_FAULT=1", "MCT_DROPOUT_FAULT=2")
 # the wgmma attention kernels made wrong on purpose, one build for each
 # pair of defines: the forwards (csrc/attn_fwd_sm90.cuh) leave out the last
 # key of every 128-key tile, the recompute backward (csrc/attn_bwd_sm90.cuh)
-# the last key of every key tile from dQ and delta and the last query of
+# and the split flash pair (csrc/flash_attention.cu hop::bwd_dq, bwd_dkv)
+# the last key of every key tile from dQ (and delta) and the last query of
 # every query tile from dK and dV; in the whole sequence (1) and in the
 # tiles of its late half (2). fwd_teeth runs only the forwards of such a
-# build, bwd_teeth only the backward, each on the plain version's inputs.
+# build, bwd_teeth only the backwards, each on the plain version's inputs.
 TILE_FAULTS = (("MCT_FWD_TILE_FAULT=1", "MCT_BWD_TILE_FAULT=1"),
                ("MCT_FWD_TILE_FAULT=2", "MCT_BWD_TILE_FAULT=2"))
 
@@ -1392,19 +1395,27 @@ def fwd_teeth(kernels_build, gen, mha) -> None:
 BWD_TEETH = ((2, 512, 16, 128, True, DROPOUT_RATE),
              (4, 257, 16, 64, False, 0.0),
              (24, 257, 16, 80, False, 0.0))
+# the split flash pair's: GPT-345m's heads at S = 8192 (rate 0) and the
+# pipeline GPT's (D = 128, rate 0.1), causal on the packed projection's head
+# views; each (B, S, H, D, rate)
+FLASH_SPLIT_TEETH = ((1, 8192, 16, 64, 0.0), (1, 8192, 16, 128, DROPOUT_RATE))
 
 
 def bwd_teeth(kernels_build, gen, mha) -> None:
-    """The wgmma recompute backward built wrong on purpose
-    (TILE_FAULTS), as an off-by-one at a tile's bound would: part 1
-    leaves the last key of every key tile out of dQ and delta, part 2 the
-    last query of every 64-query tile out of dK and dV, in the whole
-    sequence or in the tiles of its late half. Run through the same
-    wrappers on the plain forward's statistics and held against the plain
-    backward, each of dQ, dK and dV must fail the row bound that phase 3
-    holds the right kernels to; beside it is logged what the bound scaled
-    by the largest |value| (TOLERANCES' bf16 bound) reads."""
+    """The wgmma recompute backward and the wgmma split flash pair built
+    wrong on purpose (TILE_FAULTS), as an off-by-one at a tile's bound
+    would: part 1 and the dQ kernel leave the last key of every key tile
+    out of dQ (part 1 also of delta), part 2 and the dKV kernel the last
+    query of every 64-query tile out of dK and dV, in the whole sequence or
+    in the tiles of its late half. Run through the same wrappers on the
+    plain forward's statistics (flash: lse and delta) and held against the
+    plain backward, each of dQ, dK and dV must fail the row bound that
+    phase 3 holds the right kernels to; beside it is logged what a bound
+    scaled by the largest |value| reads (the recompute backward's bf16
+    bound of TOLERANCES; for flash, as flash_bwd_teeth, 2^-7 of it plus
+    rtol 1.6e-2)."""
     from megatron_clip_tpu_torch.ops.dropout import AttentionDropout
+    from megatron_clip_tpu_torch.ops.kernels import flash_attention as fa
     dt = torch.bfloat16
     cases = []
     for b, s, h, d, causal, rate in BWD_TEETH:
@@ -1430,18 +1441,57 @@ def bwd_teeth(kernels_build, gen, mha) -> None:
                    drop=drop: mha.fused_mha_dropout_bwd(
                        qkv, g, stats, h, drop, causal=causal))
         cases.append((f"B={b} S={s} H={h} D={d} causal={causal} "
-                      f"rate={rate}", name, run, want, h))
+                      f"rate={rate}", dict.fromkeys(("dq", "dk", "dv"), name),
+                      lambda run=run, h=h: mha_parts(run(), h),
+                      mha_parts(want, h)))
+    for b, s, h, d, rate in FLASH_SPLIT_TEETH:
+        qkv = torch.randn(b, s, 3 * h * d, device="cuda", generator=gen,
+                          dtype=dt)
+        q, k, v = qkv.unflatten(-1, (3, h, d)).permute(2, 0, 3, 1, 4).unbind(0)
+        do = torch.randn(b, s, h, d, device="cuda", generator=gen,
+                         dtype=dt).transpose(1, 2)
+        drop = (AttentionDropout(rate, DROPOUT_CHECK_SEED, 3) if rate
+                else None)
+        keep = None if drop is None else drop.multipliers(
+            b, h, s, s, fa.dropout_mult(rate), "cuda")
+        out, lse = fa.flash_fwd_plain(q, k, v, d ** -0.5, True, keep)
+        delta = fa.flash_delta(do, out)
+        want = (fa.flash_bwd_dq_plain(q, k, v, do, lse, delta, d ** -0.5,
+                                      True, keep),
+                *fa.flash_bwd_dkv_plain(q, k, v, do, lse, delta, d ** -0.5,
+                                        True, keep))
+        del keep, out
+        torch.cuda.empty_cache()
+        tag = "" if drop is None else "_dropout"
+
+        def run(q=q, k=k, v=v, do=do, lse=lse, delta=delta, drop=drop):
+            kw = dict(causal=True)
+            if drop is None:
+                return (fa.flash_bwd_dq(q, k, v, do, lse, delta, **kw),
+                        *fa.flash_bwd_dkv(q, k, v, do, lse, delta, **kw))
+            return (fa.flash_bwd_dq_dropout(q, k, v, do, lse, delta, drop,
+                                            **kw),
+                    *fa.flash_bwd_dkv_dropout(q, k, v, do, lse, delta, drop,
+                                              **kw))
+        cases.append((f"B={b} S={s} H={h} D={d} causal=True rate={rate}",
+                      {"dq": f"flash_bwd_dq{tag}",
+                       "dk": f"flash_bwd_dkv{tag}",
+                       "dv": f"flash_bwd_dkv{tag}"}, run, want))
     for faults in TILE_FAULTS:
         fault = faults[1]
         with kernels_build.variant(*faults):
-            for label, name, run, want, h in cases:
-                got = run()
-                for part, gp, wp in zip(("dq", "dk", "dv"),
-                                        mha_parts(got, h),
-                                        mha_parts(want, h)):
-                    row = rows_used(gp, wp,
-                                    *TOLERANCES[f"{name} rows"]["bf16"])
-                    old = bf16_share(gp, wp, name)
+            for label, names, run, want in cases:
+                for part, gp, wp in zip(("dq", "dk", "dv"), run(), want):
+                    name = names[part]
+                    if name.startswith("flash"):
+                        row = rows_used(gp, wp, *TOLERANCES[name]["bf16"])
+                        w = wp.float()
+                        old = float(((gp.float() - w).abs() / (
+                            2 ** -7 * w.abs().max() + 1.6e-2 * w.abs())).max())
+                    else:
+                        row = rows_used(gp, wp,
+                                        *TOLERANCES[f"{name} rows"]["bf16"])
+                        old = bf16_share(gp, wp, name)
                     log(f"  {name} {label} built with {fault}, {part}: "
                         f"{row:.3f} of the row bound, {old:.3f} of the "
                         "largest-|value| bound")
@@ -1919,7 +1969,9 @@ def dropout_rows(gen, mha) -> list:
     the rate-0 function's (Philox is not counted), so a dropout row's ratio
     to it shows what dropout costs. Library: SDPA with dropout_p = 0.1
     (its forward, and its backward by autograd.grad on a kept graph) and
-    without dropout beside the rate-0 rows; none for dQ or dKV alone."""
+    without dropout beside the rate-0 rows; none for dQ or dKV alone, so
+    at S = 8192 the fused backward is timed too, beside SDPA's whole
+    backward, the yardstick of the split pair's sum."""
     from megatron_clip_tpu_torch.ops.dropout import AttentionDropout
     from megatron_clip_tpu_torch.ops.kernels import flash_attention as fa
     dt, h, d = torch.bfloat16, PIPELINE_HEADS, PIPELINE_HEAD_DIM
@@ -1986,6 +2038,8 @@ def dropout_rows(gen, mha) -> list:
                            zero_bwd, flash_bwd_cost("fused", b, h, s, s, d,
                                                     True, 2), dt, reps=10)]
         else:
+            drop_fwd, drop_bwd = sdpa_pair(q, k, v, do, DROPOUT_RATE)
+            zero_fwd, zero_bwd = sdpa_pair(q, k, v, do, 0.0)
             rows += [
                 timing_row("flash_bwd_dq_dropout", shape,
                            lambda: fa.flash_bwd_dq_dropout(
@@ -2014,7 +2068,24 @@ def dropout_rows(gen, mha) -> list:
                            lambda: fa.flash_bwd_dkv_plain(
                                q, k, v, do, lse, delta, scale, True),
                            None, flash_bwd_cost("dkv", b, h, s, s, d, True,
-                                                2), dt, reps=5)]
+                                                2), dt, reps=5),
+                # the fused backward at the split pair's shape, for
+                # comparison, beside SDPA's whole backward
+                timing_row("flash_bwd_fused_dropout", shape,
+                           lambda: fa.flash_bwd_fused_dropout(
+                               q, k, v, out, lse, do, drop, causal=True),
+                           lambda: fa.flash_bwd_fused_plain(
+                               q, k, v, out, lse, do, scale, True, keep),
+                           drop_bwd, flash_bwd_cost("fused", b, h, s, s, d,
+                                                    True, 2), dt, reps=5),
+                timing_row("flash_bwd_fused", zero,
+                           lambda: fa.flash_bwd_fused(q, k, v, out, lse, do,
+                                                      causal=True),
+                           lambda: fa.flash_bwd_fused_plain(
+                               q, k, v, out, lse, do, scale, True),
+                           zero_bwd, flash_bwd_cost("fused", b, h, s, s, d,
+                                                    True, 2), dt, reps=5)]
+            del drop_fwd, drop_bwd, zero_fwd, zero_bwd
         del qkv, do, q, k, v, keep, out, lse, delta
         torch.cuda.empty_cache()
     b, s = 32, 512

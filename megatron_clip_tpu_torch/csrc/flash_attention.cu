@@ -97,10 +97,48 @@
 //   is left is mostly the serial order within a tile (products, then the
 //   CUDA cores' work, then products), which the two warpgroups do not
 //   overlap.
+// - hop::bwd_dq and hop::bwd_dkv, the split backward in bf16 at D = 64 and
+//   D = 128 on wgmma, each with its dropout twin; deterministic (each
+//   output element has one owner: no atomics, no reduce-adds). Both are
+//   warp-specialised blocks of 384 threads on attn_bwd_sm90.cuh's plan: a
+//   producer warpgroup whose first thread issues every TMA load (setmaxnreg
+//   hands its registers to the consumers, 24 / 240 a thread) and two
+//   consumer warpgroups of 64 rows; 3-stage rings under full / empty
+//   mbarriers; the maps (sm90.cuh view_maps) read the packed projection's
+//   head views in place; masks tested only in the tiles that cross the
+//   diagonal or the sequences' ends, tiles wholly past a warpgroup's
+//   diagonal not computed; P = exp2(s scale log2(e) - lse log2(e)), one
+//   FMA and the MUFU.
+//   - bwd_dq: one block per (128 queries, head, batch), the last query
+//     tiles (the heaviest under the causal mask) launched first. Q and dO
+//     are loaded once as 128-byte swizzled panels, each thread's lse and
+//     delta rows read once; K and V tiles stream through the ring (128 keys
+//     at D = 64, 64 at D = 128, which keeps dQ, S and dP in registers).
+//     Per tile: S = Q K^T and dP = dO V^T (both operands K-major), the keep
+//     bits drawn while they run (Dropout::quad, the forward's layout), dS =
+//     P (dP M - delta) scale rounded as it is formed into the A fragments
+//     of dQ += dS K (K MN-major). 3 products a kept pair. dQ is written once
+//     from the registers into the caller's view (the packed gradient
+//     buffer's dq).
+//   - bwd_dkv: one block per (128 keys, head, batch), the first keys (the
+//     heaviest) launched first. K and V are loaded once; 64-query tiles of
+//     Q and dO stream through the ring with their lse and delta (1-D boxes
+//     from a 16-byte aligned start). Per tile: S^T = K Q^T and dP^T =
+//     V dO^T (m64n64), the keep bits drawn while they run (lanes l and l ^ 4
+//     share their Philox calls, bits_t2_pair), P^T M^T and dS^T rounded into
+//     the A operands of dV += bf16(P^T M^T) dO and dK += bf16(dS^T) Q (dO and
+//     Q MN-major): register fragments at D = 64, each warpgroup's two
+//     swizzled panels at D = 128, where fragments beside dK, dV, S^T and
+//     dP^T would spill. 4 products a kept pair.
+//   MCT_BWD_TILE_FAULT (0 unless set) builds them wrong for the checks that
+//   must catch it: bwd_dq leaves the last key of every key tile out, bwd_dkv
+//   the last query of every query tile, in the whole sequence (1) or in the
+//   tiles of its late half (2).
 // - tc:: (bf16 with D a multiple of 8 and 16-byte aligned rows), 4 warps
-//   per block, 16 rows each, on mma.sync m16n8k16:
-//   - fwd (D other than 64 and 128): one block per (64 queries, head,
-//     batch). Q is staged once; each
+//   per block, 16 rows each, on mma.sync m16n8k16 (every D but 64 and 128;
+//   at those D operands TMA cannot read, a base not 16-byte aligned or a
+//   stride not a multiple of 8, take simt::):
+//   - fwd: one block per (64 queries, head, batch). Q is staged once; each
 //     64-key tile of K and V is staged, S = Q K^T runs from shared memory,
 //     the online softmax updates in the accumulators, whose values become
 //     P's A fragments (rounded to bf16) for O += P V.
@@ -108,9 +146,9 @@
 //     memory as A operands. It sweeps the 64-query tiles (from its first
 //     key on, when causal) in halves of 32: S^T = K Q^T, P^T in the
 //     accumulators, dV += bf16(P^T) dO, dP^T = V dO^T, dK += bf16(dS^T) Q.
-//     With kDQ (the fused backward at every D but 64 and 128) it also
-//     stages bf16(dS^T) for the whole query tile and adds dQ += dS K
-//     (ldmatrix.trans of the staged tile) into the fp32 buffer.
+//     With kDQ (the fused backward) it also stages bf16(dS^T) for the whole
+//     query tile and adds dQ += dS K (ldmatrix.trans of the staged tile)
+//     into the fp32 buffer.
 //   - bwd_dq: one block per (64 queries, head, batch), q and dO staged
 //     once, 64-key tiles walked in halves of 32: S = Q K^T, P, dP = dO V^T,
 //     dQ += bf16(dS) K.
@@ -118,8 +156,9 @@
 // cores, 16 rows (or keys) per block, 32-key (or query) tiles, one key (or
 // query) per lane, which keeps fp32 inputs at full fp32 precision (no TF32).
 //
-// Later work: the split backward on wgmma; overlapping one warpgroup's
-// softmax with the other's products, in the forward and the backward.
+// Later work: overlapping one warpgroup's softmax with the other's
+// products, in the forward and the backward; the split pair's next tile's
+// S and dP before this tile's dS.
 #include <math_constants.h>
 #include <stdint.h>
 
@@ -128,6 +167,10 @@
 #include "attn_fwd_sm90.cuh"
 #include "philox.cuh"
 #include "sm90.cuh"
+
+#ifndef MCT_BWD_TILE_FAULT
+#define MCT_BWD_TILE_FAULT 0
+#endif
 
 namespace {
 
@@ -1026,6 +1069,7 @@ bwd_dq(View<const bf16> q, View<const bf16> k, View<const bf16> v,
 namespace hop {
 
 using namespace mct::sm90;
+using mct::attn_fwd::Ring;
 constexpr int kKeys = 128;  // keys of a block: two consumer warpgroups of 64
 constexpr int kThreads = 256;
 constexpr int kPanel = kKeys * kRowBytes;  // a [128][64] bf16 panel
@@ -1371,6 +1415,535 @@ cudaError_t launch(View<const bf16> q, View<const bf16> k, View<const bf16> v,
               : launch_as<D, false>(maps, a, B, Dropout{}, st);
 }
 
+// ---------------------------------------------------------------------------
+// The split backward in bf16 at D = 64 and D = 128: bwd_dq and bwd_dkv,
+// each a warp-specialised block of 384 threads (see the file's note)
+
+constexpr int kSplitThreads = 384;  // the producer warpgroup, two consumers
+constexpr int kSplitStages = 3;     // both rings' depth
+constexpr int kConsumers = 256;     // arrivals that free a ring slot
+
+// sm90.cuh's tile of R rows of D columns and its view maps
+template <int D, int R>
+using Rows = mct::sm90::Tile<D, R>;
+using RowsView = mct::sm90::View;
+
+// The tile fault of MCT_BWD_TILE_FAULT: whether the tile at t0 leaves out
+// its last row (a key in bwd_dq, a query in bwd_dkv).
+__device__ __forceinline__ bool split_fault(int t0, int S) {
+#if MCT_BWD_TILE_FAULT == 1
+  return true;
+#elif MCT_BWD_TILE_FAULT == 2
+  return t0 >= S / 2;
+#else
+  return false;
+#endif
+}
+
+struct SplitMaps {
+  RowsView q, k, v, g;
+  CUtensorMap lse, delta;  // [B H Sq] fp32, 1-D boxes (bwd_dkv)
+};
+
+struct SplitArgs {
+  View<bf16> dq, dk, dv;
+  const float* lse;  // [B, H, Sq] (bwd_dq reads its rows' own)
+  const float* delta;
+  int H, Sq, Sk, causal;
+  // the map dimensions (1..3) of the sequence, head and batch axes of q, k,
+  // v and dO (view_map)
+  int perm_q, perm_k, perm_v, perm_g;
+  float scale;
+};
+
+// bwd_dq: Q and dO of 128 queries, K and V tiles of kN keys in the ring
+template <int D>
+struct DqPlan {
+  static constexpr int kRows = 128;
+  static constexpr int kN = D == 128 ? 64 : 128;
+  static constexpr int kQTile = Rows<D, kRows>::kBytes;
+  static constexpr int kKTile = Rows<D, kN>::kBytes;
+  static constexpr int kQ = 0;
+  static constexpr int kDO = kQTile;
+  static constexpr int kK = 2 * kQTile;
+  static constexpr int kV = kK + kSplitStages * kKTile;
+  static constexpr int kBars = kV + kSplitStages * kKTile;
+  static constexpr int kSmem = 1024 + kBars + (1 + 2 * kSplitStages) * 8;
+};
+
+// dQ of 128 queries (see the file's note).
+template <int D, bool kDrop>
+__global__ void __launch_bounds__(kSplitThreads, 1)
+bwd_dq(const __grid_constant__ SplitMaps maps, const SplitArgs g,
+       Dropout drop) {
+  using L = DqPlan<D>;
+  constexpr int kN = L::kN, kRows = L::kRows;
+  extern __shared__ __align__(1024) unsigned char dq_smem[];
+  unsigned char* base = align_1024(dq_smem);
+  uint64_t* q_full = reinterpret_cast<uint64_t*>(base + L::kBars);
+  uint64_t* full = q_full + 1;
+  uint64_t* empty = full + kSplitStages;
+  const int tid = threadIdx.x;
+  const int h = blockIdx.x, b = blockIdx.y;
+  // causal: the last query tiles, which see the most keys, launch first
+  const int qt = g.causal ? gridDim.z - 1 - blockIdx.z : blockIdx.z;
+  const int q0 = qt * kRows;
+  const int nk = g.causal ? min(g.Sk, q0 + kRows) : g.Sk;
+  const int nt = (nk + kN - 1) / kN;
+
+  if (tid == 0) {
+    mbar_init(q_full, 1);
+    for (int i = 0; i < kSplitStages; ++i) {
+      mbar_init(full + i, 1);
+      mbar_init(empty + i, kConsumers);
+    }
+    mbar_init_fence();
+  }
+  __syncthreads();
+
+  if (tid < 128) {  // the producer warpgroup
+    setmaxnreg_dec<24>();
+    if (tid == 0) {
+      mbar_expect_tx(q_full, 2 * L::kQTile);
+      load_tile<D, kRows>(base + L::kQ, maps.q, q_full, g.perm_q, q0, h, b);
+      load_tile<D, kRows>(base + L::kDO, maps.g, q_full, g.perm_g, q0, h, b);
+      Ring r;
+      for (int t = 0; t < nt; ++t) {
+        if (t >= kSplitStages) mbar_wait(empty + r.slot, r.phase ^ 1);
+        mbar_expect_tx(full + r.slot, 2 * L::kKTile);
+        load_tile<D, kN>(base + L::kK + r.slot * L::kKTile, maps.k,
+                         full + r.slot, g.perm_k, t * kN, h, b);
+        load_tile<D, kN>(base + L::kV + r.slot * L::kKTile, maps.v,
+                         full + r.slot, g.perm_v, t * kN, h, b);
+        r.next(kSplitStages);
+      }
+    }
+    return;
+  }
+  setmaxnreg_inc<240>();
+
+  // consumer warpgroup c owns rows row0 .. row0 + 63; each thread rows
+  // row_lo and row_lo + 8
+  const int c = (tid >> 7) - 1, ct = tid & 127, lane = tid & 31;
+  const int row0 = q0 + 64 * c;
+  const int row_lo = row0 + 16 * (ct >> 5) + (lane >> 2);
+  const long bh = (long)b * g.H + h;
+  const float sl2 = g.scale * kLog2e;
+  // -lse log2(e) and delta of the thread's rows; rows past Sq are not
+  // written
+  float nl[2], dl[2];
+#pragma unroll
+  for (int r = 0; r < 2; ++r) {
+    const int row = row_lo + 8 * r;
+    const bool ok = row < g.Sq;
+    nl[r] = ok ? -g.lse[bh * g.Sq + row] * kLog2e : 0.f;
+    dl[r] = ok ? g.delta[bh * g.Sq + row] : 0.f;
+  }
+  const bool idle = row0 >= g.Sq;  // warpgroup-uniform
+  // warpgroup-uniform: the tile at k0 holds no key of the warpgroup's rows
+  auto skip = [&](int k0) { return idle || (g.causal && k0 > row0 + 63); };
+  // warpgroup-uniform: the tile crosses the keys' end or the diagonal
+  auto masked = [&](int k0) {
+    return k0 + kN > g.Sk || (g.causal && k0 + kN - 1 > row0) ||
+           split_fault(k0, g.Sk);
+  };
+  float s[kN / 2], dp[kN / 2], dq[D / 2];
+#pragma unroll
+  for (int i = 0; i < D / 2; ++i) dq[i] = 0.f;
+  Ring r;
+  mbar_wait(q_full, 0);
+  for (int t = 0; t < nt; ++t) {
+    const int k0 = t * kN;
+    mbar_wait(full + r.slot, r.phase);
+    if (!skip(k0)) {
+      const unsigned char* k_t = base + L::kK + r.slot * L::kKTile;
+      const unsigned char* v_t = base + L::kV + r.slot * L::kKTile;
+      // S = Q K^T and dP = dO V^T
+      fence_regs(s);
+      fence_regs(dp);
+      wgmma_fence();
+      wgmma_kd<D, kRows, kN>(s, base + L::kQ, 64 * c, k_t);
+      wgmma_kd<D, kRows, kN>(dp, base + L::kDO, 64 * c, v_t);
+      wgmma_commit();
+      // the keep bits, drawn while the products run: bit 4 j + e of
+      // kb[j / 8] for element 4 j + e
+      uint32_t kb[kN / 64] = {};
+      if constexpr (kDrop) {
+#pragma unroll
+        for (int j = 0; j < kN / 8; ++j) {
+          float keep[4];
+          drop.quad(keep, bh, row_lo, k0 + 8 * j + 2 * (lane & 3));
+#pragma unroll
+          for (int e = 0; e < 4; ++e)
+            kb[j >> 3] |= (uint32_t)(keep[e] != 0.f) << (4 * (j & 7) + e);
+        }
+      }
+      wgmma_wait<0>();
+      fence_regs(s);
+      fence_regs(dp);
+
+      // element i = 4 j + e: row row_lo + 8 (e >> 1), key k0 + 8 j +
+      // 2 (lane % 4) + (e & 1). P = exp2(s scale log2(e) - lse log2(e)),
+      // masked pairs 0; dS = P (dP M - delta) scale, rounded into the A
+      // fragments of k-step kk (keys 16 kk ..: elements of chunks 2 kk and
+      // 2 kk + 1)
+      const bool msk = masked(k0), fault = split_fault(k0, g.Sk);
+      auto ds = [&](int i) {
+        const int rr = (i >> 1) & 1;
+        float p = exp2_approx(fmaf(s[i], sl2, nl[rr]));
+        if (msk) {
+          const int key = k0 + 8 * (i >> 2) + 2 * (lane & 3) + (i & 1);
+          const bool ok = key < g.Sk &&
+                          (!g.causal || key <= row_lo + 8 * rr) &&
+                          !(fault && key == k0 + kN - 1);
+          if (!ok) p = 0.f;
+        }
+        const float keep =
+            !kDrop ? 1.f : (kb[i >> 5] >> (i & 31)) & 1 ? drop.mult : 0.f;
+        return p * (dp[i] * keep - dl[rr]) * g.scale;
+      };
+      uint32_t dsa[kN / 16][4];
+#pragma unroll
+      for (int kk = 0; kk < kN / 16; ++kk)
+#pragma unroll
+        for (int q = 0; q < 4; ++q) {
+          const int i = 4 * (2 * kk + (q >> 1)) + 2 * (q & 1);
+          dsa[kk][q] = pack_bf16(ds(i), ds(i + 1));
+        }
+      // dQ += bf16(dS) K: A from registers, B the tile's MN-major K
+      fence_regs(dq);
+      wgmma_fence();
+#pragma unroll
+      for (int kk = 0; kk < kN / 16; ++kk)
+        wgmma_rs_nd<D, kN>(dq, dsa[kk], k_t, kk);
+      wgmma_commit();
+      wgmma_wait<0>();
+      fence_regs(dq);
+      fence_regs(dsa);
+    }
+    mbar_arrive(empty + r.slot);
+    r.next(kSplitStages);
+  }
+  if (idle) return;
+
+#pragma unroll
+  for (int rr = 0; rr < 2; ++rr) {
+    const int row = row_lo + 8 * rr;
+    if (row >= g.Sq) continue;
+    bf16* dst = g.dq.head(b, h) + (long)row * g.dq.s;
+#pragma unroll
+    for (int j = 0; j < D / 8; ++j)
+      *reinterpret_cast<uint32_t*>(dst + 8 * j + 2 * (lane & 3)) =
+          pack_bf16(dq[4 * j + 2 * rr], dq[4 * j + 2 * rr + 1]);
+  }
+}
+
+// bwd_dkv: K and V of 128 keys, Q and dO tiles of 64 queries with their lse
+// and delta in the ring
+template <int D>
+struct DkvPlan {
+  static constexpr int kKeys = 128;
+  static constexpr int kQ = 64;
+  static constexpr int kKTile = Rows<D, kKeys>::kBytes;
+  static constexpr int kQTile = Rows<D, kQ>::kBytes;
+  // lse and delta of a tile: kQ + 4 floats each (the box starts 16-byte
+  // aligned, up to 3 floats before the tile), 384 bytes apart
+  static constexpr int kRowBox = kQ + 4;
+  static constexpr int kRowArea = 384;
+  // At D = 128 the A operands of dK and dV, dS^T and P^T of each
+  // warpgroup's [64 keys][64 queries], go through two swizzled panels of
+  // shared memory, as in attn_bwd_sm90.cuh's part 2 (as register fragments
+  // beside dK, dV, S^T and dP^T they spill); at D = 64 they stay in
+  // registers.
+  static constexpr bool kSmemA = D == 128;
+  static constexpr int kK = 0;
+  static constexpr int kV = kKTile;
+  static constexpr int kRing = 2 * kKTile;  // stage s: Q, then dO
+  static constexpr int kA = kRing + kSplitStages * 2 * kQTile;
+  static constexpr int kRowsAt = kA + (kSmemA ? 2 * 2 * 64 * kRowBytes : 0);
+  static constexpr int kBars = kRowsAt + kSplitStages * 2 * kRowArea;
+  static constexpr int kSmem = 1024 + kBars + (1 + 2 * kSplitStages) * 8;
+  static constexpr int kTx = 2 * kQTile + 2 * kRowBox * 4;
+};
+
+// dK and dV of 128 keys (see the file's note).
+template <int D, bool kDrop>
+__global__ void __launch_bounds__(kSplitThreads, 1)
+bwd_dkv(const __grid_constant__ SplitMaps maps, const SplitArgs g,
+        Dropout drop) {
+  using L = DkvPlan<D>;
+  constexpr int kQ = L::kQ, kKeys = L::kKeys;
+  extern __shared__ __align__(1024) unsigned char dkv_smem[];
+  unsigned char* base = align_1024(dkv_smem);
+  uint64_t* kv_full = reinterpret_cast<uint64_t*>(base + L::kBars);
+  uint64_t* full = kv_full + 1;
+  uint64_t* empty = full + kSplitStages;
+  const int tid = threadIdx.x;
+  // the first keys, which see the most queries under the causal mask,
+  // launch first
+  const int h = blockIdx.x, b = blockIdx.y, k0 = blockIdx.z * kKeys;
+  const long bh = (long)b * g.H + h;
+  // causal: no query before the block's first key attends to its keys
+  const int jt0 = g.causal ? k0 / kQ : 0;
+  const int ntiles = (g.Sq + kQ - 1) / kQ - jt0;
+
+  if (tid == 0) {
+    mbar_init(kv_full, 1);
+    for (int i = 0; i < kSplitStages; ++i) {
+      mbar_init(full + i, 1);
+      mbar_init(empty + i, kConsumers);
+    }
+    mbar_init_fence();
+  }
+  __syncthreads();
+
+  if (tid < 128) {  // the producer warpgroup
+    setmaxnreg_dec<24>();
+    if (tid == 0) {
+      mbar_expect_tx(kv_full, 2 * L::kKTile);
+      load_tile<D, kKeys>(base + L::kK, maps.k, kv_full, g.perm_k, k0, h, b);
+      load_tile<D, kKeys>(base + L::kV, maps.v, kv_full, g.perm_v, k0, h, b);
+      Ring r;
+      for (int i = 0; i < ntiles; ++i) {
+        const int q0 = (jt0 + i) * kQ;
+        uint64_t* bar = full + r.slot;
+        if (i >= kSplitStages) mbar_wait(empty + r.slot, r.phase ^ 1);
+        mbar_expect_tx(bar, L::kTx);
+        unsigned char* q_t = base + L::kRing + r.slot * 2 * L::kQTile;
+        load_tile<D, kQ>(q_t, maps.q, bar, g.perm_q, q0, h, b);
+        load_tile<D, kQ>(q_t + L::kQTile, maps.g, bar, g.perm_g, q0, h, b);
+        unsigned char* rows = base + L::kRowsAt + r.slot * 2 * L::kRowArea;
+        const int at = (int)(bh * g.Sq + q0) & ~3;
+        tma_load_1d(rows, &maps.lse, bar, at);
+        tma_load_1d(rows + L::kRowArea, &maps.delta, bar, at);
+        r.next(kSplitStages);
+      }
+    }
+    return;
+  }
+  setmaxnreg_inc<240>();
+
+  // consumer warpgroup c owns keys kb .. kb + 63; each thread keys key_lo
+  // and key_lo + 8
+  const int c = (tid >> 7) - 1, ct = tid & 127, lane = tid & 31;
+  const int kb = k0 + 64 * c;
+  const int key_lo = kb + 16 * (ct >> 5) + (lane >> 2);
+  const bool idle = kb >= g.Sk;  // warpgroup-uniform
+  const float sl2 = g.scale * kLog2e;
+  unsigned char* ds_w = base + L::kA + c * 2 * 64 * kRowBytes;
+  unsigned char* pt_w = ds_w + 64 * kRowBytes;
+  float dk[D / 2], dv[D / 2], s[kQ / 2], dp[kQ / 2];
+#pragma unroll
+  for (int i = 0; i < D / 2; ++i) dk[i] = dv[i] = 0.f;
+  mbar_wait(kv_full, 0);
+  Ring r;
+  for (int i = 0; i < ntiles; ++i) {
+    const int q0 = (jt0 + i) * kQ;
+    mbar_wait(full + r.slot, r.phase);
+    // warpgroup-uniform: no key of the warpgroup, or (causal) every key
+    // after every query of the tile
+    if (idle || (g.causal && kb > q0 + kQ - 1)) {
+      mbar_arrive(empty + r.slot);
+      r.next(kSplitStages);
+      continue;
+    }
+    const unsigned char* q_t = base + L::kRing + r.slot * 2 * L::kQTile;
+    const unsigned char* g_t = q_t + L::kQTile;
+    // the tile's lse and delta, from the box's 16-byte aligned start
+    const float* ls = reinterpret_cast<const float*>(
+                          base + L::kRowsAt + r.slot * 2 * L::kRowArea) +
+                      ((int)(bh * g.Sq + q0) & 3);
+    const float* dl = ls + L::kRowArea / 4;
+
+    // S^T = K Q^T and dP^T = V dO^T
+    fence_regs(s);
+    fence_regs(dp);
+    wgmma_fence();
+    wgmma_kd<D, kKeys, kQ>(s, base + L::kK, 64 * c, q_t);
+    wgmma_kd<D, kKeys, kQ>(dp, base + L::kV, 64 * c, g_t);
+    wgmma_commit();
+    // the keep bits of k-step m (queries 16 m ..), drawn while the products
+    // run; lanes l and l ^ 4 hold keys key_lo and key_lo ^ 1 and share
+    // their Philox calls
+    uint32_t kept[kQ / 16];
+#pragma unroll
+    for (int m = 0; m < kQ / 16; ++m)
+      kept[m] = kDrop ? drop.bits_t2_pair(bh, q0 + 16 * m + 2 * (lane & 3),
+                                          key_lo, 4)
+                      : 0xffu;
+    wgmma_wait<0>();
+    fence_regs(s);
+    fence_regs(dp);
+
+    // P^T (times M^T) and dS^T rounded into the A fragments of k-step m
+    // (queries 16 m ..: chunks 2 m and 2 m + 1), at D = 128 into the
+    // warpgroup's swizzled panels at the fragments' places (key row
+    // 16 warp + lane / 4 + 8 (i & 1), query 16 m + 8 (i >> 1) +
+    // 2 (lane % 4)). Element 4 j + e of an accumulator: key key_lo +
+    // 8 (e >> 1), query q0 + 8 j + 2 (lane % 4) + (e & 1). Keys past Sk give
+    // rows that are not written; queries past Sq and the causal mask are
+    // tested in the tiles that cross them.
+    const bool fault = split_fault(q0, g.Sq);
+    const bool edge = (g.causal && kb + 63 > q0) || q0 + kQ > g.Sq || fault;
+    uint32_t pa[kQ / 16][4], dsa[kQ / 16][4];
+#pragma unroll
+    for (int m = 0; m < kQ / 16; ++m) {
+      float pv[8], dsv[8];
+#pragma unroll
+      for (int cc = 0; cc < 2; ++cc)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) {
+          const int idx = 4 * (2 * m + cc) + e;
+          const int ql = 16 * m + 8 * cc + 2 * (lane & 3) + (e & 1);
+          float p = exp2_approx(fmaf(s[idx], sl2, -ls[ql] * kLog2e));
+          if (edge) {
+            const bool ok =
+                q0 + ql < g.Sq &&
+                (!g.causal || key_lo + 8 * (e >> 1) <= q0 + ql) &&
+                !(fault && ql == kQ - 1);
+            if (!ok) p = 0.f;
+          }
+          const float keep =
+              !kDrop ? 1.f : (kept[m] >> (4 * cc + e)) & 1 ? drop.mult : 0.f;
+          pv[4 * cc + e] = p * keep;
+          dsv[4 * cc + e] = p * (dp[idx] * keep - dl[ql]) * g.scale;
+        }
+#pragma unroll
+      for (int q = 0; q < 4; ++q) {
+        const int at = 4 * (q >> 1) + 2 * (q & 1);
+        const uint32_t pp = pack_bf16(pv[at], pv[at + 1]);
+        const uint32_t dd = pack_bf16(dsv[at], dsv[at + 1]);
+        if constexpr (L::kSmemA) {
+          const int o = swz(16 * (ct >> 5) + (lane >> 2) + 8 * (q & 1),
+                            16 * m + 8 * (q >> 1) + 2 * (lane & 3));
+          *reinterpret_cast<uint32_t*>(pt_w + o) = pp;
+          *reinterpret_cast<uint32_t*>(ds_w + o) = dd;
+        } else {
+          pa[m][q] = pp;
+          dsa[m][q] = dd;
+        }
+      }
+    }
+    if constexpr (L::kSmemA) {
+      fence_async_smem();
+      named_sync(1 + c, 128);  // the warpgroup's two panels are whole
+    }
+
+    // dV += bf16(P^T M^T) dO and dK += bf16(dS^T) Q: A from registers (at
+    // D = 128 from its K-major panel), B the stage's MN-major dO and Q
+    fence_regs(dv);
+    fence_regs(dk);
+    wgmma_fence();
+#pragma unroll
+    for (int m = 0; m < kQ / 16; ++m) {
+      if constexpr (L::kSmemA) {
+        wgmma_ss_nd<D, kQ>(dv, desc_k(pt_w, m), g_t, m);
+        wgmma_ss_nd<D, kQ>(dk, desc_k(ds_w, m), q_t, m);
+      } else {
+        wgmma_rs_nd<D, kQ>(dv, pa[m], g_t, m);
+        wgmma_rs_nd<D, kQ>(dk, dsa[m], q_t, m);
+      }
+    }
+    wgmma_commit();
+    wgmma_wait<0>();
+    fence_regs(dv);
+    fence_regs(dk);
+    if constexpr (!L::kSmemA) {
+      fence_regs(pa);
+      fence_regs(dsa);
+    }
+    mbar_arrive(empty + r.slot);
+    r.next(kSplitStages);
+  }
+  if (idle) return;
+
+#pragma unroll
+  for (int half = 0; half < 2; ++half) {
+    const int key = key_lo + 8 * half;
+    if (key >= g.Sk) continue;
+    bf16* dk_row = g.dk.head(b, h) + (long)key * g.dk.s;
+    bf16* dv_row = g.dv.head(b, h) + (long)key * g.dv.s;
+#pragma unroll
+    for (int j = 0; j < D / 8; ++j) {
+      const int d = 8 * j + 2 * (lane & 3);
+      *reinterpret_cast<uint32_t*>(dk_row + d) =
+          pack_bf16(dk[4 * j + 2 * half], dk[4 * j + 2 * half + 1]);
+      *reinterpret_cast<uint32_t*>(dv_row + d) =
+          pack_bf16(dv[4 * j + 2 * half], dv[4 * j + 2 * half + 1]);
+    }
+  }
+}
+
+// The split pair's maps: q and dO as [B, H, Sq, D] views, k and v as
+// [B, H, Sk, D], boxes of each kernel's rows; lse and delta as 1-D maps of
+// kRowBox-float boxes. False if an encoding is refused.
+template <int D>
+bool split_maps(SplitMaps* m, SplitArgs* a, View<const bf16> q,
+                View<const bf16> k, View<const bf16> v, View<const bf16> g,
+                int B, int q_rows, int kv_rows) {
+  const int H = a->H;
+  const uint64_t rows[1] = {(uint64_t)B * H * a->Sq};
+  const uint32_t box[1] = {DkvPlan<D>::kRowBox};
+  return view_maps(&m->q, a->perm_q, q.p, q.b, q.h, q.s, B, H, a->Sq, D,
+                   q_rows) &&
+         view_maps(&m->g, a->perm_g, g.p, g.b, g.h, g.s, B, H, a->Sq, D,
+                   q_rows) &&
+         view_maps(&m->k, a->perm_k, k.p, k.b, k.h, k.s, B, H, a->Sk, D,
+                   kv_rows) &&
+         view_maps(&m->v, a->perm_v, v.p, v.b, v.h, v.s, B, H, a->Sk, D,
+                   kv_rows) &&
+         make_map(&m->lse, false, 0, 1, a->lse, rows, nullptr, box) &&
+         make_map(&m->delta, false, 0, 1, a->delta, rows, nullptr, box);
+}
+
+// One launch of a split kernel with its shared memory allowed.
+template <typename K>
+cudaError_t launch_split(K* kernel, dim3 grid, int smem, const SplitMaps& maps,
+                         const SplitArgs& a, const Dropout& drop,
+                         cudaStream_t st) {
+  const cudaError_t e = allow_smem(kernel, smem);
+  if (e != cudaSuccess) return e;
+  kernel<<<grid, kSplitThreads, smem, st>>>(maps, a, drop);
+  return cudaGetLastError();
+}
+
+template <int D>
+cudaError_t launch_dq(View<const bf16> q, View<const bf16> k,
+                      View<const bf16> v, View<const bf16> g,
+                      const float* lse, const float* delta, View<bf16> dq,
+                      int B, int H, int Sq, int Sk, float scale, int causal,
+                      const Dropout* drop, cudaStream_t st) {
+  using L = DqPlan<D>;
+  SplitMaps maps;
+  SplitArgs a{dq, {}, {}, lse, delta, H, Sq, Sk, causal, 0, 0, 0, 0, scale};
+  if (!split_maps<D>(&maps, &a, q, k, v, g, B, L::kRows, L::kN))
+    return cudaErrorInvalidValue;
+  const dim3 grid(H, B, (Sq + L::kRows - 1) / L::kRows);
+  return drop ? launch_split(bwd_dq<D, true>, grid, L::kSmem, maps, a, *drop,
+                             st)
+              : launch_split(bwd_dq<D, false>, grid, L::kSmem, maps, a,
+                             Dropout{}, st);
+}
+
+template <int D>
+cudaError_t launch_dkv(View<const bf16> q, View<const bf16> k,
+                       View<const bf16> v, View<const bf16> g,
+                       const float* lse, const float* delta, View<bf16> dk,
+                       View<bf16> dv, int B, int H, int Sq, int Sk,
+                       float scale, int causal, const Dropout* drop,
+                       cudaStream_t st) {
+  using L = DkvPlan<D>;
+  SplitMaps maps;
+  SplitArgs a{{}, dk, dv, lse, delta, H, Sq, Sk, causal, 0, 0, 0, 0, scale};
+  if (!split_maps<D>(&maps, &a, q, k, v, g, B, L::kQ, L::kKeys))
+    return cudaErrorInvalidValue;
+  const dim3 grid(H, B, (Sk + L::kKeys - 1) / L::kKeys);
+  return drop ? launch_split(bwd_dkv<D, true>, grid, L::kSmem, maps, a, *drop,
+                             st)
+              : launch_split(bwd_dkv<D, false>, grid, L::kSmem, maps, a,
+                             Dropout{}, st);
+}
+
 }  // namespace hop
 
 namespace tc {
@@ -1460,6 +2033,10 @@ cudaError_t launch_dkv(View<const bf16> q, View<const bf16> k,
                        View<bf16> dv, float* dq_acc, int B, int H, int Sq,
                        int Sk, int D, float scale, int causal,
                        const Dropout* drop, cudaStream_t st) {
+  if constexpr (DP == 64 || DP == 128)
+    if (D == DP)
+      return hop::launch_dkv<DP>(q, k, v, g, lse, delta, dk, dv, B, H, Sq, Sk,
+                                 scale, causal, drop, st);
   return launch_kv<DP, false>(q, k, v, g, lse, delta, dk, dv, dq_acc, B, H,
                               Sq, Sk, D, scale, causal, drop, st);
 }
@@ -1484,6 +2061,10 @@ cudaError_t launch_dq(View<const bf16> q, View<const bf16> k,
                       const float* lse, const float* delta, View<bf16> dq,
                       int B, int H, int Sq, int Sk, int D, float scale,
                       int causal, const Dropout* drop, cudaStream_t st) {
+  if constexpr (DP == 64 || DP == 128)
+    if (D == DP)
+      return hop::launch_dq<DP>(q, k, v, g, lse, delta, dq, B, H, Sq, Sk,
+                                scale, causal, drop, st);
   return drop ? launch_dq_as<DP, true>(q, k, v, g, lse, delta, dq, B, H, Sq,
                                        Sk, D, scale, causal, *drop, st)
               : launch_dq_as<DP, false>(q, k, v, g, lse, delta, dq, B, H, Sq,

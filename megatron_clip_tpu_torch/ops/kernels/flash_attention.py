@@ -27,7 +27,7 @@ here (ROADMAP Queue C).
 Which backward runs is the JAX package's choice, made from the key length
 alone (`uses_fused_bwd`): the fused kernel while the keys, padded to 128,
 span at most 4 blocks of 1024 (S <= 4096), the split kernels above. The
-kernels' own 64-row tiles do not change it.
+kernels' own tiles (64 or 128 rows) do not change it.
 
 Layout. The public function takes q [B, H, Sq, D], k and v [B, H, Sk, D]
 (the JAX layout) as views with contiguous rows of D and any other strides,
@@ -56,9 +56,9 @@ from megatron_clip_tpu_torch.ops.dropout import (
 from megatron_clip_tpu_torch.ops.kernels import _build
 
 MAX_HEAD_DIM = 128
-# head dims whose bf16 fused backward runs on wgmma (csrc/flash_attention.cu
-# hop::); every other one on the mma.sync kernel it shares with the split
-# dKV backward
+# head dims whose bf16 backward runs on wgmma (csrc/flash_attention.cu
+# hop::bwd_fused, and the split pair hop::bwd_dq, hop::bwd_dkv); every other
+# one on the mma.sync kernel the fused backward shares with the split dKV
 WGMMA_FUSED_HEAD_DIMS = (64, 128)
 NEG_INF = -1e30
 # the JAX package's blocks: S padded to 128, then blocks of up to 1024; the

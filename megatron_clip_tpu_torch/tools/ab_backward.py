@@ -1,5 +1,6 @@
-"""Time the fused CE forward and backward, the fused flash backward and the
-fused-MHA recompute backward of two checkouts of this repo on one card.
+"""Time the fused CE forward and backward, the fused and the split flash
+backward and the fused-MHA recompute backward of two checkouts of this repo
+on one card.
 
     python megatron_clip_tpu_torch/tools/ab_backward.py --other DIR
 
@@ -8,10 +9,11 @@ with `git archive` into a gitignored directory. Both checkouts' kernels are
 built first, at once; then one process per run, in the order other, this,
 this, other. Each process imports the port from its checkout and times
 through the wrappers both checkouts share (`fused_ce_fwd`, `fused_ce_bwd`,
-`flash_bwd_fused`, `flash_bwd_fused_dropout`, `fused_mha_bwd_recompute`,
-`fused_mha_dropout_bwd`), mean of CUDA events after warm-up, warm L2,
-and each port call's host time (`host_ms`: the wall time of issuing the
-calls, the device left to lag; map encoding, launch set-up and launches):
+`flash_bwd_fused`, `flash_bwd_dq`, `flash_bwd_dkv` and their dropout
+twins, `fused_mha_bwd_recompute`, `fused_mha_dropout_bwd`), mean of CUDA
+events after warm-up, warm L2, and each port call's host time (`host_ms`:
+the wall time of issuing the calls, the device left to lag; map encoding,
+launch set-up and launches):
 - the fused CE forward and backward, bf16, tied head, T = 16384, V =
   50304, at the example GPT's W = 1024 and the pipeline GPT's W = 2048,
   beside the library's `F.cross_entropy(x @ w)` and its `autograd.grad`;
@@ -23,6 +25,15 @@ calls, the device left to lag; map encoding, launch set-up and launches):
   views: GPT-345m's B = 6, S = 2048, H = 16, D = 64 (rate 0) and the
   pipeline GPT's B = 8, S = 2048, H = 16, D = 128 at rate 0 and 0.1,
   beside SDPA's backward (`dropout_p` alike);
+- the split flash backward (`flash_bwd_dq` and `flash_bwd_dkv`, or their
+  dropout twins; `ms` their sum), bf16, causal, on the packed projection's
+  head views at S = 8192: GPT-345m's B = 1, H = 16, D = 64 (rate 0) and the
+  pipeline GPT's B = 1, H = 16, D = 128 at rate 0 and 0.1, beside the fused
+  flash backward at the same shape and SDPA's backward (`dropout_p`
+  alike); and, where the checkout's dKV runs on `hop::bwd_dkv`, the same
+  wrapper on a timing-only build that runs `hop::bwd_fused` less its dQ
+  product and reduce-adds instead (`fused_dkv_ms`: the other plan for
+  dKV; its dK and dV must equal the fused backward's);
 - the fused-MHA recompute backward, bf16, on the packed projection and the
   forward's row statistics: the pipeline GPT's B = 32, S = 512, H = 16,
   D = 128, causal, at rate 0 and 0.1, ViT-L/14's vision tower, B = 64,
@@ -46,6 +57,10 @@ CE_ROWS = ((16384, 1024, 50304), (16384, 2048, 50304))
 FLASH_ROWS = (("GPT-345m", 6, 2048, 16, 64, 0.0),
               ("pipeline GPT", 8, 2048, 16, 128, 0.0),
               ("pipeline GPT", 8, 2048, 16, 128, 0.1))
+# the split pair's: (label, B, S, H, D, rate)
+SPLIT_ROWS = (("GPT-345m", 1, 8192, 16, 64, 0.0),
+              ("pipeline GPT", 1, 8192, 16, 128, 0.0),
+              ("pipeline GPT", 1, 8192, 16, 128, 0.1))
 # (label, B, S, H, D, causal, rate)
 RECOMPUTE_ROWS = (("pipeline GPT", 32, 512, 16, 128, True, 0.0),
                   ("pipeline GPT", 32, 512, 16, 128, True, 0.1),
@@ -53,6 +68,16 @@ RECOMPUTE_ROWS = (("pipeline GPT", 32, 512, 16, 128, True, 0.0),
                   ("ViT-H/14 vision", 24, 257, 16, 80, False, 0.0))
 LIBRARIES = ["fused_ce", "flash_attention", "fused_mha"]
 REPS, WARMUP = 10, 2
+# hop::bwd_fused as a dKV kernel: its dS K product, its dQ boxes and their
+# reduce-adds, and the split dKV wrapper's call of hop::launch_dkv
+_FUSED_DQ_PRODUCT = re.compile(
+    r"for \(int kk = 0; kk < kKeys / 16; \+\+kk\)\n(\s*wgmma_ss<1, 1>\(dq,)")
+_FUSED_DQ_REDUCE = re.compile(
+    r"\n    // the fp32 partial of dQ staged.*?bulk_commit\(\);\n    \}\n",
+    re.S)
+_SPLIT_DKV_CALL = re.compile(
+    r"return hop::launch_dkv<DP>\(q, k, v, g, lse, delta, dk, dv, B, H, Sq,"
+    r"\s*Sk,")
 # the float2 atomics of the pre-Hopper backward's add_tile
 _ATOMIC = re.compile(r"atomicAdd\(reinterpret_cast<float2\*>\(([^;]*?)\),"
                      r"\s*(make_float2\([^;]*?\))\);")
@@ -61,27 +86,58 @@ _ATOMIC = re.compile(r"atomicAdd\(reinterpret_cast<float2\*>\(([^;]*?)\),"
 def no_atomics_library(build, ce):
     """The checkout's fused_ce.cu with add_tile's atomics made plain stores,
     built beside its other libraries; None if it has no such atomics."""
-    import ctypes
     src = (build.CSRC / "fused_ce.cu").read_text()
     patched, n = _ATOMIC.subn(r"*reinterpret_cast<float2*>(\1) = \2;", src)
     if n == 0:
         return None
     if n != 2:
         raise RuntimeError(f"expected add_tile's 2 float2 atomics, found {n}")
-    work = build.BUILD_DIR / "no_atomics"
+    return _patched_library(build, ce._SIGNATURES, "fused_ce", patched,
+                            "no_atomics")
+
+
+def _patched_library(build, sigs, name: str, src: str, tag: str):
+    """`src` as csrc/<name>.cu built beside the checkout's headers into a
+    library of its own, loaded with the wrapper's signatures `sigs`."""
+    import ctypes
+    work = build.BUILD_DIR / tag
     work.mkdir(parents=True, exist_ok=True)
     for header in build.CSRC.glob("*.cuh"):
         (work / header.name).write_bytes(header.read_bytes())
-    (work / "fused_ce.cu").write_text(patched)
-    out = work / "libfused_ce_no_atomics.so"
+    (work / f"{name}.cu").write_text(src)
+    out = work / f"lib{name}_{tag}.so"
     subprocess.run([build._nvcc(), *build.NVCC_FLAGS, "-o", str(out),
-                    str(work / "fused_ce.cu")], check=True,
+                    str(work / f"{name}.cu")], check=True,
                    capture_output=True, timeout=600)
     lib = ctypes.CDLL(str(out))
-    for fn, (argtypes, restype) in ce._SIGNATURES.items():
+    for fn, (argtypes, restype) in sigs.items():
         getattr(lib, fn).argtypes = argtypes
         getattr(lib, fn).restype = restype
     return lib
+
+
+def fused_dkv_library(build, fa):
+    """The checkout's flash_attention.cu with the split dKV wrapper sending
+    bf16 D = 64 and 128 to hop::bwd_fused less its dS K product, dQ boxes
+    and reduce-adds (the fused kernel as a dKV kernel; its dK and dV are
+    the fused kernel's, its dq map is encoded on dk and never touched), the
+    other plan for the split dKV: a timing-only build. None where the
+    checkout has no hop::launch_dkv (the kernel before the Hopper split)."""
+    src = (build.CSRC / "flash_attention.cu").read_text()
+    src, n_call = _SPLIT_DKV_CALL.subn(
+        "return hop::launch<DP>(q, k, v, g, lse, delta, dk, dv, "
+        "reinterpret_cast<float*>(dk.p), B, H, Sq, Sk,", src)
+    if n_call == 0:
+        return None
+    src, n_product = _FUSED_DQ_PRODUCT.subn(
+        r"for (int kk = 0; kk < 0; ++kk)\n\1", src)
+    src, n_reduce = _FUSED_DQ_REDUCE.subn("\n", src)
+    if (n_call, n_product, n_reduce) != (1, 1, 1):
+        raise RuntimeError("fused dKV build: expected one split dKV call, one "
+                           "dS K product and one reduce-add block, found "
+                           f"{n_call}, {n_product}, {n_reduce}")
+    return _patched_library(build, fa._SIGNATURES, "flash_attention", src,
+                            "fused_dkv")
 
 
 def time_checkout(repo: str) -> dict:
@@ -122,6 +178,7 @@ def time_checkout(repo: str) -> dict:
     dt = torch.bfloat16
     rows = []
     no_atomics = no_atomics_library(_build, ce)
+    fused_dkv = fused_dkv_library(_build, fa)
     for t, w, v in CE_ROWS:
         gen = torch.Generator(device="cuda").manual_seed(t + w + v)
         x = torch.randn(t, w, device="cuda", generator=gen).to(dt)
@@ -182,6 +239,58 @@ def time_checkout(repo: str) -> dict:
             "library_ms": ms(lambda: torch.autograd.grad(
                 lo, (lq, lk, lv), ldo, retain_graph=True))})
         del qkv, do, q, k, vv, out, lse, lq, lk, lv, lo, ldo
+        torch.cuda.empty_cache()
+    for label, b, s, h, d, rate in SPLIT_ROWS:
+        gen = torch.Generator(device="cuda").manual_seed(b * s * h * d + 1)
+        qkv = torch.randn(b, s, 3 * h * d, device="cuda", generator=gen,
+                          dtype=dt)
+        do = torch.randn(b, s, h, d, device="cuda", generator=gen,
+                         dtype=dt).transpose(1, 2)
+        q, k, vv = qkv.unflatten(-1, (3, h, d)).permute(2, 0, 3, 1,
+                                                        4).unbind(0)
+        drop = AttentionDropout(rate, 1234, 1) if rate else None
+        args = () if drop is None else (drop,)
+        out, lse = (fa.flash_fwd(q, k, vv, causal=True) if drop is None else
+                    fa.flash_fwd_dropout(q, k, vv, drop, causal=True))
+        delta = fa.flash_delta(do, out)
+        if drop is None:
+            dq_fn, dkv_fn, fused_fn = (fa.flash_bwd_dq, fa.flash_bwd_dkv,
+                                       fa.flash_bwd_fused)
+        else:
+            dq_fn, dkv_fn, fused_fn = (fa.flash_bwd_dq_dropout,
+                                       fa.flash_bwd_dkv_dropout,
+                                       fa.flash_bwd_fused_dropout)
+        lq, lk, lv = (a.contiguous().requires_grad_(True) for a in (q, k, vv))
+        lo = F.scaled_dot_product_attention(lq, lk, lv, is_causal=True,
+                                            dropout_p=rate)
+        ldo = do.contiguous()
+        row = {"row": f"flash_bwd_dq + flash_bwd_dkv {label} B={b} S={s} "
+                      f"H={h} D={d} causal rate={rate} bf16",
+               "dq_ms": ms(lambda: dq_fn(q, k, vv, do, lse, delta, *args,
+                                         causal=True)),
+               "dkv_ms": ms(lambda: dkv_fn(q, k, vv, do, lse, delta, *args,
+                                           causal=True)),
+               "fused_ms": ms(lambda: fused_fn(q, k, vv, out, lse, do, *args,
+                                               causal=True)),
+               "library_ms": ms(lambda: torch.autograd.grad(
+                   lo, (lq, lk, lv), ldo, retain_graph=True))}
+        row["ms"] = row["dq_ms"] + row["dkv_ms"]
+        if fused_dkv is not None:
+            key = ("flash_attention", ())
+            kept = _build._libs.get(key)
+            _build._libs[key] = fused_dkv
+            try:
+                got = dkv_fn(q, k, vv, do, lse, delta, *args, causal=True)
+                row["fused_dkv_ms"] = ms(lambda: dkv_fn(
+                    q, k, vv, do, lse, delta, *args, causal=True))
+            finally:
+                _build._libs[key] = kept
+            want = fused_fn(q, k, vv, out, lse, do, *args, causal=True)[1:]
+            if not all(torch.equal(a, b) for a, b in zip(got, want)):
+                raise RuntimeError("the fused dKV build's dK, dV differ from "
+                                   "the fused backward's")
+        rows.append(row)
+        del qkv, do, q, k, vv, out, lse, delta, lq, lk, lv, lo, ldo
         torch.cuda.empty_cache()
     for label, b, s, h, d, causal, rate in RECOMPUTE_ROWS:
         gen = torch.Generator(device="cuda").manual_seed(b * s * h * d)
@@ -261,7 +370,8 @@ def main() -> int:
     for i, first in enumerate(runs[0]["rows"]):
         rows = [run["rows"][i] for run in runs]
         line = {"row": first["row"]}
-        for key in ("ms", "host_ms", "library_ms", "no_atomics_ms"):
+        for key in ("ms", "dq_ms", "dkv_ms", "fused_dkv_ms", "fused_ms",
+                    "host_ms", "library_ms", "no_atomics_ms"):
             got = [r.get(key) for r in rows]
             if any(g is not None for g in got):
                 line[f"{key} other/this/this/other"] = got

@@ -72,7 +72,9 @@ def _category(name: str) -> str:
         # fused_ce_fwd_gemm, simt::fused_ce_fwd, fused_ce_combine: the forward
         return ("fused CE bwd (fused_ce.cu)" if "fused_ce_bwd" in n
                 else "fused CE fwd (fused_ce.cu)")
-    if "hop::bwd_fused" in n:  # the fused flash backward on wgmma
+    if "hop::bwd_" in n:  # the flash backward on wgmma: bwd_fused, and the
+        # split pair bwd_dq / bwd_dkv, which "bwd_dq" below would send to
+        # fused_mha.cu
         return "attention bwd (flash_attention.cu)"
     if "attn_bwd::" in n:  # the fused-MHA recompute backward on wgmma
         return "attention bwd (fused_mha.cu)"

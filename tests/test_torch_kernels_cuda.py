@@ -543,6 +543,58 @@ def test_flash_wgmma_fused_backward_at_tile_edges(cuda, sq, sk, d, causal,
         _close_rows(g, w)
 
 
+# The wgmma split backward (dQ: 128-query blocks, 128- or 64-key tiles; dKV:
+# 128-key blocks, 64-query tiles) at its tiles' edges: lengths that are no
+# multiple of them, Sq != Sk, one length past the fused backward's reach,
+# both head dims it takes, both masks, rate 0 and 0.1, on the packed
+# projection's views when Sq == Sk (bf16 gradients row by row). Each output
+# element has one owner, so a second run gives the same bits.
+@pytest.mark.parametrize("rate", [0.0, 0.1])
+@pytest.mark.parametrize("causal", [False, True])
+@pytest.mark.parametrize("d", [64, 128])
+@pytest.mark.parametrize("sq,sk", [(333, 333), (300, 200), (200, 300),
+                                   (4200, 4200)])
+def test_flash_wgmma_split_backward_at_tile_edges(cuda, sq, sk, d, causal,
+                                                  rate):
+    b, h = (1, 2) if sq > 1024 else (2, 3)
+    gen = torch.Generator().manual_seed(sq + sk + d + 1)
+    if sq == sk:
+        qkv = torch.randn(b, sq, 3 * h * d, generator=gen).to(
+            cuda, torch.bfloat16)
+        q, k, v = qkv.unflatten(-1, (3, h, d)).permute(2, 0, 3, 1,
+                                                       4).unbind(0)
+        do = torch.randn(b, sq, h, d, generator=gen).to(
+            cuda, torch.bfloat16).transpose(1, 2)
+    else:
+        q, k, v, do = _flash_inputs(cuda, torch.bfloat16, b, h, sq, sk, d)
+    drop = AttentionDropout(rate, 0x0123456789ABCDEF, 5) if rate else None
+    keep = None if drop is None else drop.multipliers(
+        b, h, sq, sk, fa.dropout_mult(rate), cuda)
+    scale = d ** -0.5
+    out, lse = fa.flash_fwd_plain(q, k, v, scale, causal, keep)
+    delta = fa.flash_delta(do, out)
+
+    def run():
+        if drop is None:
+            return (fa.flash_bwd_dq(q, k, v, do, lse, delta, causal=causal),
+                    *fa.flash_bwd_dkv(q, k, v, do, lse, delta,
+                                      causal=causal))
+        return (fa.flash_bwd_dq_dropout(q, k, v, do, lse, delta, drop,
+                                        causal=causal),
+                *fa.flash_bwd_dkv_dropout(q, k, v, do, lse, delta, drop,
+                                          causal=causal))
+    got = run()
+    want = (fa.flash_bwd_dq_plain(q, k, v, do, lse, delta, scale, causal,
+                                  keep),
+            *fa.flash_bwd_dkv_plain(q, k, v, do, lse, delta, scale, causal,
+                                    keep))
+    for g, w in zip(got, want):
+        assert g.shape == w.shape and g.dtype == torch.bfloat16
+        _close_rows(g, w)
+    for g, again in zip(got, run()):
+        assert torch.equal(g, again)
+
+
 # The wgmma flash forward (csrc/attn_fwd_sm90.cuh, online softmax) at its
 # tiles' edges (128-row blocks, 128-key tiles), Sq != Sk, both head dims,
 # both masks, rate 0 and 0.1; the packed projection's head views where

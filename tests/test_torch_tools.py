@@ -16,6 +16,8 @@ from megatron_clip_tpu_torch.tools.profile_train import (_category,
 
 _D = "mct::Dropout"
 _FLASH_VIEW = "(anonymous namespace)::View<__nv_bfloat16 const>"
+_SPLIT = ("(anonymous namespace)::hop::SplitMaps, (anonymous namespace)::"
+          "hop::SplitArgs")
 
 
 @pytest.mark.parametrize("name,category", [
@@ -46,6 +48,15 @@ _FLASH_VIEW = "(anonymous namespace)::View<__nv_bfloat16 const>"
      f"{_FLASH_VIEW}, {_FLASH_VIEW})", "attention bwd (flash_attention.cu)"),
     (f"void (anonymous namespace)::hop::bwd_fused<128, true>((anonymous "
      f"namespace)::hop::Maps, (anonymous namespace)::hop::Args, {_D})",
+     "attention bwd (flash_attention.cu)"),
+    # the split flash backward on wgmma: bwd_dq / bwd_dkv<D, drop>
+    (f"void (anonymous namespace)::hop::bwd_dq<64, false>({_SPLIT}, {_D})",
+     "attention bwd (flash_attention.cu)"),
+    (f"void (anonymous namespace)::hop::bwd_dq<128, true>({_SPLIT}, {_D})",
+     "attention bwd (flash_attention.cu)"),
+    (f"void (anonymous namespace)::hop::bwd_dkv<64, false>({_SPLIT}, {_D})",
+     "attention bwd (flash_attention.cu)"),
+    (f"void (anonymous namespace)::hop::bwd_dkv<128, true>({_SPLIT}, {_D})",
      "attention bwd (flash_attention.cu)"),
     ("void (anonymous namespace)::tc::bwd_dq_rc<64, true>(__nv_bfloat16 "
      "const*)", "attention bwd (fused_mha.cu)"),
@@ -95,6 +106,10 @@ def test_every_port_kernel_lands_in_its_column(name, category):
      "void (anonymous namespace)::tc::fwd<64, false>"),
     ("(anonymous namespace)::fused_ce_combine(float const*, int)",
      "(anonymous namespace)::fused_ce_combine"),
+    (f"void (anonymous namespace)::hop::bwd_dq<64, false>({_SPLIT}, {_D})",
+     "void (anonymous namespace)::hop::bwd_dq<64, false>"),
+    (f"void (anonymous namespace)::hop::bwd_dkv<128, true>({_SPLIT}, {_D})",
+     "void (anonymous namespace)::hop::bwd_dkv<128, true>"),
 ])
 def test_profile_labels_keep_the_template_arguments(name, label):
     assert _kernel_label(name) == label
