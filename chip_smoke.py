@@ -23,13 +23,18 @@ imports nothing of JAX or of the JAX package. Phases, each of which raises
      statistics, the attention backward from P and the recompute backward,
      the LayerNorm forward and backward, on the same inputs in fp32 and in
      bf16, and the bf16 kernel against the plain version run in fp32 on the
-     same bf16 inputs (tolerances in TOLERANCES, with their reasons); then
+     same bf16 inputs (tolerances in TOLERANCES, with their reasons), the
+     bf16 fused forward and its dropout twin also row by row (one bf16 ulp
+     of P on every term of a row plus an output ulp); the one-pass forward
+     at S <= 128, D = 64 (csrc/attn_short_sm90.cuh) at S = 1 to 128, both
+     masks, and at the S = 77 paths' batches; then
      every attention kernel on the [B, S, *] view of S-major storage, which
      must give exactly what the contiguous tensor gives; and the wgmma
      forwards (csrc/attn_fwd_sm90.cuh: the fused forward past S = 128, the
      bf16 flash forward at D = 64 and 128) built to leave out the last key
-     of every 128-key tile, in the whole sequence or its late half, each
-     failing its bound; the bf16 recompute backward's gradients also row by
+     of every 128-key tile, in the whole sequence or its late half, and the
+     one-pass forward built to leave out each row's last unmasked key, each
+     failing its bounds; the bf16 recompute backward's gradients also row by
      row, and its wgmma kernels (csrc/attn_bwd_sm90.cuh) and the wgmma
      split flash pair (B=1 S=8192 H=16, D=64 and D=128 with dropout) built
      to leave out the last key or query of every tile, failing the row
@@ -52,7 +57,8 @@ imports nothing of JAX or of the JAX package. Phases, each of which raises
      batch-384 training shapes (the recompute backward there too, beside
      the saved-P one) and at the attention shapes of the ViT-L/14
      (batch 64) and ViT-H/14 (batch 24) legs, S-major view included, with
-     the bound from bytes and operations;
+     the bound from bytes and operations; at S <= 128 also the forward on
+     tc::fwd beside the one-pass kernel, in the same call;
   7. train: the ViT-B-32 contrastive train step of bench.py's primary leg
      (pure_bf16, batch 384, AdamW b=(0.9, 0.98) eps 1e-6 wd 0.2 with bf16
      first moments, cosine_lr(1e-3, 100, 10000), clip 1.0), 3 warm-up and
@@ -324,13 +330,23 @@ def compare_rows(label: str, got: torch.Tensor, want: torch.Tensor,
     return worst
 
 
+# cycles of the device-side wait that cuda_ms queues before its window
+# (about 2 ms on an H100): the host enqueues the window's calls meanwhile
+QUEUE_CYCLES = 4_000_000
+
+
 def cuda_ms(fn, reps: int = 20, warmup: int = 3) -> float:
-    """Mean device time of one call, from CUDA events around `reps` calls."""
+    """Mean device time of one call, from CUDA events around `reps` calls.
+    The window starts behind a device-side wait long enough for the host to
+    enqueue every call, so that the calls run back to back: a call whose
+    host side (wrapper, allocations, launch) takes longer than its kernels
+    is timed by its kernels, not by the host."""
     for _ in range(warmup):
         fn()
     torch.cuda.synchronize()
     start = torch.cuda.Event(enable_timing=True)
     end = torch.cuda.Event(enable_timing=True)
+    torch.cuda._sleep(QUEUE_CYCLES)
     start.record()
     for _ in range(reps):
         fn()
@@ -534,6 +550,14 @@ def phase_build(kernels_build):
 #   sums of up to 1,024 exponentials in another order than the plain
 #   version's, rescaled once per key tile (128 keys on wgmma, 64 on
 #   mma.sync), the wgmma kernel's on exp2: 1e-4 relative plus 1e-5.
+# - fused_mha_fwd rows, the bf16 forward's output (and its dropout twin's)
+#   row by row: each element within fused_mha_row_bound (ops/kernels/
+#   fused_mha.py), one bf16 ulp of P on every term of its row, sum_j
+#   ulp(P_ij) |v_jc|, plus one output ulp, since kernel and plain version
+#   round P to bf16 from fp32 values that differ in their last bits and a P
+#   that rounds the other way moves its term by an ulp of it (at p ~ 1/2
+#   against |v| > 2 past the elementwise bound's 4e-3 + 8e-3 |out|, which
+#   is kept beside it). The value here is the share of that bound allowed.
 # - fused_mha_fwd P, the saved probabilities: relative, as P's typical
 #   value is 1/S. fp32: 1e-5 (the scores' fp32 rounding, carried by exp)
 #   plus 1e-7. bf16: both sides round the same fp32 softmax to bf16, so
@@ -599,6 +623,7 @@ TOLERANCES = {
                         "bf16_vs_fp32_plain": (1e-6, 8e-3)},
     "fused_mha_fwd stats": {"fp32": (1e-5, 1e-4), "bf16": (1e-5, 1e-4),
                             "bf16_vs_fp32_plain": (1e-5, 1e-4)},
+    "fused_mha_fwd rows": {"bf16": 1.0},
     "fused_mha_bwd": {"fp32": (2e-4, 2e-4), "bf16": (0.0, 1.6e-2, 2 ** -7),
                       "bf16_vs_fp32_plain": (0.0, 2e-2, 2 ** -5)},
     "fused_mha_bwd_recompute": {
@@ -646,6 +671,7 @@ TOLERANCES.update({
        for name in ("flash_bwd_fused", "flash_bwd_dq", "flash_bwd_dkv")},
     "fused_mha_dropout_fwd": TOLERANCES["fused_mha_fwd"],
     "fused_mha_dropout_fwd stats": TOLERANCES["fused_mha_fwd stats"],
+    "fused_mha_dropout_fwd rows": TOLERANCES["fused_mha_fwd rows"],
     "fused_mha_dropout_bwd": TOLERANCES["fused_mha_bwd_recompute"],
     "fused_mha_dropout_bwd rows": TOLERANCES["fused_mha_bwd_recompute rows"],
 })
@@ -706,6 +732,76 @@ def check_mha_rows(errs: dict, name: str, label: str, got: torch.Tensor,
             errs[key][kind] = max(errs[key].get(kind, 0.0), e)
 
 
+def fwd_rows_used(got: torch.Tensor, want: torch.Tensor,
+                  bound: torch.Tensor) -> float:
+    """The share of the forward's row bound (fused_mha_row_bound) that the
+    worst element of `got` uses."""
+    err = (got.float() - want.float()).abs()
+    return float((err / bound).nan_to_num(nan=0.0, posinf=1e9).max())
+
+
+def check_fwd_rows(errs: dict, name: str, label: str, got: torch.Tensor,
+                   want: torch.Tensor, bound: torch.Tensor) -> None:
+    """A bf16 forward's output against the plain version's `want` row by
+    row: every element within `bound` (fused_mha_row_bound of the same
+    inputs) times TOLERANCES[name + " rows"]."""
+    torch.cuda.synchronize()
+    if not torch.isfinite(got).all():
+        raise AssertionError(f"{name} {label}: non-finite values")
+    key = f"{name} rows"
+    used = fwd_rows_used(got, want, bound) / TOLERANCES[key]["bf16"]
+    worst = float((got.float() - want.float()).abs().max())
+    log(f"  {name} {label} bf16 rows: max_abs_err={worst:.3e} ({used:.3f} "
+        "of the row bound)")
+    if used > 1:
+        raise AssertionError(f"{name} {label}: an output exceeds its row "
+                             "bound")
+    errs[key]["bf16"] = max(errs[key].get("bf16", 0.0), worst)
+
+
+# the one-pass forward's edges (csrc/attn_short_sm90.cuh: S <= 128, D = 64,
+# a whole head per block): (B, H) and the lengths around its key counts of
+# 64, 80 and 128, both masks; and the S = 77 paths' batches and heads
+# (ViT-B/32's 384 and 256, ViT-L/14's 64, ViT-H/14's 24)
+ONE_PASS_LENGTHS = (1, 7, 50, 64, 65, 77, 127, 128)
+ONE_PASS_PATHS = ((TRAIN_BATCH, 8), (SERVE_BATCH, 8), (64, 12), (24, 16))
+
+
+def one_pass_checks(errs, gen, mha) -> None:
+    """The one-pass forward (wgmma at S <= 64, mma.sync past it) asked for
+    by its route, in each mode, against the plain version as phase 3 holds
+    the routed kernels: the output elementwise and row by row, P, the
+    statistics, and the three modes' outputs equal."""
+    dt, d = torch.bfloat16, 64
+    cases = [(2, 3, s, c) for s in ONE_PASS_LENGTHS for c in (False, True)]
+    cases += [(b, h, 77, True) for b, h in ONE_PASS_PATHS]
+    for b, h, s, causal in cases:
+        x = torch.randn(b, s, 3 * h * d, device="cuda", generator=gen,
+                        dtype=dt)
+
+        def plain(dt, probs=False, stats=False):
+            return mha.fused_mha_plain(x.to(dt), h, d ** -0.5, causal,
+                                       with_probs=probs, with_stats=stats)
+        label = f"B={b} S={s} H={h} D={d} causal={causal} one_pass"
+        kw = dict(causal=causal, route="one_pass")
+        out = mha.fused_mha_fwd(x, h, **kw)
+        out_p, p = mha.fused_mha_fwd(x, h, with_probs=True, **kw)
+        out_s, stats = mha.fused_mha_fwd(x, h, with_stats=True, **kw)
+        torch.cuda.synchronize()
+        if not (torch.equal(out_p, out) and torch.equal(out_s, out)):
+            raise AssertionError(f"fused_mha_fwd {label}: the modes' "
+                                 "outputs differ")
+        check_kernel(errs, "fused_mha_fwd", label, out, plain)
+        check_fwd_rows(errs, "fused_mha_fwd", label, out, plain(dt),
+                       mha.fused_mha_row_bound(x, h, causal))
+        check_kernel(errs, "fused_mha_fwd P", label, p,
+                     lambda dt: plain(dt, True)[1])
+        check_kernel(errs, "fused_mha_fwd stats", label, stats,
+                     lambda dt: plain(dt, stats=True)[1], dt)
+        del x, out, out_p, out_s, p, stats
+    torch.cuda.empty_cache()
+
+
 # the attention shapes of phase 8's legs: (leg, tower, B, S, H, D, causal)
 LEG_ATTENTION = (("ViT-L/14", "vision", 64, 257, 16, 64, False),
                  ("ViT-L/14", "text", 64, 77, 12, 64, True),
@@ -719,9 +815,11 @@ def smajor_views(mha, gen) -> None:
     contiguous tensor: the arithmetic is the same, so the results must be
     equal, and the outputs come back S-major. The bf16 forwards and
     recompute backwards at S = 257, D = 64 and 80 and S = 512, D = 128 run
-    on wgmma (csrc/attn_fwd_sm90.cuh, csrc/attn_bwd_sm90.cuh), the others on
-    mma.sync."""
+    on wgmma (csrc/attn_fwd_sm90.cuh, csrc/attn_bwd_sm90.cuh), the bf16
+    forwards at S = 50 and 77, D = 64 on the one-pass kernel
+    (csrc/attn_short_sm90.cuh), the others on mma.sync."""
     for b, s, h, d, causal in [(8, 257, 16, 80, False), (8, 77, 16, 64, True),
+                               (8, 50, 12, 64, False),
                                (3, 33, 2, 40, True), (8, 257, 16, 64, False),
                                (4, 512, 16, 128, True)]:
         for dtype in (torch.float32, torch.bfloat16):
@@ -1135,6 +1233,10 @@ def fused_dropout_checks(errs, gen, mha) -> None:
                                                        causal=causal)
                 check_kernel(errs, "fused_mha_dropout_fwd", label, out,
                              plain)
+                if dtype == torch.bfloat16:
+                    check_fwd_rows(errs, "fused_mha_dropout_fwd", label, out,
+                                   plain(dtype), mha.fused_mha_row_bound(
+                                       x, h, causal, keep(dtype)))
                 check_kernel(errs, "fused_mha_dropout_fwd stats", label,
                              stats, lambda dt: plain(dt, True)[1], dtype)
                 d_plain = functools.lru_cache(None)(
@@ -1295,6 +1397,7 @@ def dropout_teeth(kernels_build, gen, mha) -> None:
     f_out, f_stats = mha.fused_mha_plain(qkv, h, scale, True,
                                          with_stats=True, keep=fkeep)
     f_grad = mha.fused_mha_bwd_recompute_plain(qkv, g, h, scale, True, fkeep)
+    f_bound = mha.fused_mha_row_bound(qkv, h, True, fkeep)
     truth = philox_keep(drop.seed, drop.offset, 0, range(256), range(256),
                         drop.rate, "cuda")
     for fault in DROPOUT_FAULTS:
@@ -1317,6 +1420,8 @@ def dropout_teeth(kernels_build, gen, mha) -> None:
             f_got, _ = mha.fused_mha_dropout_fwd(qkv, h, drop, causal=True)
             used["fused_mha_dropout_fwd"] = bf16_share(
                 f_got, f_out, "fused_mha_dropout_fwd")
+            used["fused_mha_dropout_fwd rows"] = fwd_rows_used(
+                f_got, f_out, f_bound)
             bg = mha.fused_mha_dropout_bwd(qkv, g, f_stats, h, drop,
                                            causal=True)
             used["fused_mha_dropout_bwd"] = bf16_share(
@@ -1339,6 +1444,12 @@ def dropout_teeth(kernels_build, gen, mha) -> None:
 # (S = 2048, D = 64 and 128, causal); each (B, S, H, D, causal)
 FWD_TEETH_FUSED = ((2, 512, 16, 128, True), (4, 257, 16, 64, False),
                    (24, 257, 16, 80, False))
+# the one-pass forward's (csrc/attn_short_sm90.cuh, S <= 128): ViT-L/14's
+# text tower with row statistics (B = 64, S = 77, H = 12, causal) and
+# ViT-B/32's vision tower with P (S = 50, H = 12), on the route fused_mha.cu
+# takes; each (B, S, H, D, causal, mode)
+FWD_TEETH_ONE_PASS = ((64, 77, 12, 64, True, "with_stats"),
+                      (64, 50, 12, 64, False, "with_probs"))
 FWD_TEETH_FLASH = ((2, 2048, 16, 64, True), (2, 2048, 16, 128, True))
 
 
@@ -1347,22 +1458,32 @@ def fwd_teeth(kernels_build, gen, mha) -> None:
     off-by-one at a key tile's bound would: the last key of every 128-key
     tile left out (masked, so its p is 0: its V row adds nothing and its
     exponential leaves the sum), in the whole sequence or in the tiles of
-    its late half. Run through the same wrappers and held against the plain
-    version on the true inputs, each forward's output must fail the bf16
-    bound that phase 3 holds the right kernels to (TOLERANCES["fused_mha_fwd"]
-    and ["flash_fwd"]); the share of the statistics' or lse's bound is
-    logged beside it."""
+    its late half; and the one-pass forward at S <= 128, whose one key tile
+    holds every key, built to leave out each row's last unmasked key (the
+    diagonal when causal), in every row or in the rows of the late half.
+    Run through the same wrappers and held against the plain version on the
+    true inputs, each forward's output must fail the bf16 bounds that phase
+    3 holds the right kernels to: TOLERANCES["fused_mha_fwd"] and the row
+    bound (fused_mha_row_bound) for the fused forward, TOLERANCES
+    ["flash_fwd"] for flash; the share of each and of the statistics' or
+    lse's bound is logged."""
     from megatron_clip_tpu_torch.ops.kernels import flash_attention as fa
     dt = torch.bfloat16
     cases = []
-    for b, s, h, d, causal in FWD_TEETH_FUSED:
+    fused = [(*shape, "with_stats") for shape in FWD_TEETH_FUSED]
+    for b, s, h, d, causal, mode in fused + list(FWD_TEETH_ONE_PASS):
         qkv = torch.randn(b, s, 3 * h * d, device="cuda", generator=gen,
                           dtype=dt)
-        want = mha.fused_mha_plain(qkv, h, d ** -0.5, causal, with_stats=True)
-        cases.append((f"B={b} S={s} H={h} D={d} causal={causal}",
-                      "fused_mha_fwd", "fused_mha_fwd stats",
-                      lambda qkv=qkv, h=h, causal=causal: mha.fused_mha_fwd(
-                          qkv, h, causal=causal, with_stats=True), want))
+        out, res = mha.fused_mha_plain(qkv, h, d ** -0.5, causal,
+                                       **{mode: True})
+        cases.append((f"B={b} S={s} H={h} D={d} causal={causal} {mode}",
+                      "fused_mha_fwd",
+                      "fused_mha_fwd " + ("P" if mode == "with_probs"
+                                          else "stats"),
+                      lambda qkv=qkv, h=h, causal=causal, mode=mode:
+                      mha.fused_mha_fwd(qkv, h, causal=causal,
+                                        **{mode: True}),
+                      (out, res), mha.fused_mha_row_bound(qkv, h, causal)))
     for b, s, h, d, causal in FWD_TEETH_FLASH:
         q, k, v = (torch.randn(b, h, s, d, device="cuda", generator=gen,
                                dtype=dt) for _ in range(3))
@@ -1370,18 +1491,22 @@ def fwd_teeth(kernels_build, gen, mha) -> None:
         cases.append((f"B={b} S={s} H={h} D={d} causal={causal}",
                       "flash_fwd", "flash_fwd lse",
                       lambda q=q, k=k, v=v, causal=causal: fa.flash_fwd(
-                          q, k, v, causal=causal), want))
+                          q, k, v, causal=causal), want, None))
     for faults in TILE_FAULTS:
         fault = faults[0]
         with kernels_build.variant(*faults):
-            for label, name, residual, run, (want, want_res) in cases:
+            for label, name, residual, run, (want, want_res), bound in cases:
                 got, got_res = run()
                 out_used = bf16_share(got, want, name)
                 res_used = bf16_share(got_res, want_res, residual)
-                log(f"  {name} {label} built with {fault}: {out_used:.3f} of "
-                    f"the output's bound, {res_used:.3f} of the "
-                    f"{residual.split()[-1]} bound")
-                if out_used <= 1:
+                rows = ("" if bound is None else
+                        f"{fwd_rows_used(got, want, bound):.3f} of the row "
+                        "bound, ")
+                log(f"  {name} {label} built with {fault}: {rows}"
+                    f"{out_used:.3f} of the output's bound, {res_used:.3f} "
+                    f"of the {residual.split()[-1]} bound")
+                if out_used <= 1 or (bound is not None and
+                                     fwd_rows_used(got, want, bound) <= 1):
                     raise AssertionError(
                         f"{name} {label}: the bound passes a forward built "
                         f"with {fault}")
@@ -1559,17 +1684,26 @@ def phase_kernels(mha, ln):
             def plain(dt, probs=False, stats=False):
                 return mha.fused_mha_plain(x.to(dt), h, scale, causal,
                                            with_probs=probs, with_stats=stats)
-            check_kernel(errs, "fused_mha_fwd", label,
-                         mha.fused_mha_fwd(x, h, causal=causal), plain)
+
+            def rows(what, out):
+                if dtype == torch.bfloat16:
+                    check_fwd_rows(errs, "fused_mha_fwd", label + what, out,
+                                   plain(dtype), mha.fused_mha_row_bound(
+                                       x, h, causal))
+            out = mha.fused_mha_fwd(x, h, causal=causal)
+            check_kernel(errs, "fused_mha_fwd", label, out, plain)
+            rows("", out)
             out, p = mha.fused_mha_fwd(x, h, causal=causal, with_probs=True)
             check_kernel(errs, "fused_mha_fwd", label + " with P: out", out,
                          plain)
+            rows(" with P: out", out)
             check_kernel(errs, "fused_mha_fwd P", label, p,
                          lambda dt: plain(dt, True)[1])
             out, stats = mha.fused_mha_fwd(x, h, causal=causal,
                                            with_stats=True)
             check_kernel(errs, "fused_mha_fwd", label + " with stats: out",
                          out, plain)
+            rows(" with stats: out", out)
             check_kernel(errs, "fused_mha_fwd stats", label, stats,
                          lambda dt: plain(dt, stats=True)[1], dtype)
             # the backward from the plain version's P, so that it alone is
@@ -1589,6 +1723,7 @@ def phase_kernels(mha, ln):
                 check_mha_rows(errs, "fused_mha_bwd_recompute", label, got,
                                rc_plain, h)
             del got, rc_plain
+    one_pass_checks(errs, gen, mha)
     smajor_views(mha, gen)
     flash_checks(errs, gen)
     flash_views(gen)
@@ -1772,6 +1907,21 @@ def timing_row(kernel: str, shape: str, fn, plain, library, cost,
     return row
 
 
+def add_route_times(row: dict, mha, x, h: int, causal: bool,
+                    **mode) -> None:
+    """At S <= 128, D = 64 (the one-pass kernel's shapes): the forward's
+    time on each kernel that can take the shape, in this call beside the
+    row's own (the route fused_mha.cu picks): tc::fwd and the one-pass
+    kernel. Kept in row["routes_ms"]."""
+    s, d = x.shape[1], x.shape[2] // (3 * h)
+    if s > 128 or d != 64:
+        return
+    row["routes_ms"] = {r: cuda_ms(lambda r=r: mha.fused_mha_fwd(
+        x, h, causal=causal, route=r, **mode)) for r in ("tc", "one_pass")}
+    log("    on each kernel: " + ", ".join(
+        f"{r} {ms:.4f} ms" for r, ms in row["routes_ms"].items()))
+
+
 def leg_attention_rows(mha, gen, leg, tower, b, s, h, d, causal) -> list:
     """bf16 rows of one leg's attention: the forward with row statistics
     and the recompute backward (at ViT-L/14 vision also the saved-P
@@ -1805,6 +1955,7 @@ def leg_attention_rows(mha, gen, leg, tower, b, s, h, d, causal) -> list:
             lambda: mha.fused_mha_plain(x, h, d ** -0.5, causal,
                                         with_stats=True),
             sdpa_fwd, mha_cost(b, s, h, d, causal, 2, with_stats=True), dt))
+        add_route_times(rows[-1], mha, x, h, causal, with_stats=True)
         rows.append(timing_row(
             "fused_mha_bwd_recompute", shape + tag,
             lambda: mha.fused_mha_bwd_recompute(x, g, stats, h,
@@ -2165,6 +2316,7 @@ def phase_timings(mha, ln):
                 lambda: F.scaled_dot_product_attention(q, k, v,
                                                        is_causal=causal),
                 mha_cost(b, s, h, d, causal, 2, with_probs=train), dt))
+            add_route_times(rows[-1], mha, qkv, h, causal, with_probs=train)
             if not train:
                 continue
             do = torch.randn(b, s, h * d, device="cuda", generator=gen,
@@ -2273,6 +2425,24 @@ KERNEL_META = {
 }
 
 
+# the device kernels behind a wrapper, by the shapes each takes (the
+# routes of csrc/fused_mha.cu's mct_fused_mha_fwd and csrc/layernorm.cu's
+# launch)
+ROUTES = {
+    "fused_mha_fwd": {
+        "bf16, S <= 128, D = 64, no dropout": "attn_short::fwd, one pass, a "
+        "head per persistent block (csrc/attn_short_sm90.cuh)",
+        "bf16, S > 128, D = 64, 80, 128": "attn_fwd::fwd, two-pass wgmma "
+        "(csrc/attn_fwd_sm90.cuh)",
+        "other bf16": "tc::fwd (mma.sync)", "fp32": "simt::fwd"},
+    **{name: {"rows of 16-byte multiples up to 2048 bf16 / 1024 fp32":
+              "ln_fwd, persistent, double-buffered registers (exact chunk "
+              "counts at W = 512, 768, 1024, 1280, 2048 in bf16)",
+              "other rows": "ln_fwd_any"}
+       for name in ("layer_norm_fwd", "rms_norm_fwd")},
+}
+
+
 def kernels_line(rows, launches_by_path, errs) -> list:
     """One entry per kernel: its launches on the main paths (the serving
     run, the ViT-B/32 train run, the ViT-L/14 and ViT-H/14 recompute runs
@@ -2306,7 +2476,9 @@ def kernels_line(rows, launches_by_path, errs) -> list:
             "library_ms": main["library_ms"], "shape": main["shape"],
             "shapes": [{k: r[k] for k in ("shape", "ms", "plain_ms",
                                           "bound_ms", "bound_by",
-                                          "library_ms")} for r in mine],
+                                          "library_ms", "routes_ms")
+                        if k in r} for r in mine],
+            **({"routes": ROUTES[name]} if name in ROUTES else {}),
         })
     return kernels
 

@@ -72,8 +72,9 @@
 //
 // Design. The TPU kernels hold whole S x S tiles of all heads in many MB of
 // VMEM. A block here has at most 227 KB of shared memory, so the kernels
-// are tiled over keys (forward, dQ) or queries (dK, dV). The forward makes
-// two passes over the key tiles: pass 1 finds each row's max and softmax
+// are tiled over keys (forward, dQ) or queries (dK, dV). Past one key tile
+// (and at S <= 128 where the one-pass kernel below does not run) the
+// forward makes two passes over the key tiles: pass 1 finds each row's max and softmax
 // denominator (online rescaling), pass 2 recomputes the scores, forms the
 // normalised probabilities, rounds them exactly where the TPU kernel does,
 // and accumulates P.V. A causal block stops at the key tile of its last row.
@@ -83,6 +84,30 @@
 // to a [B*H*S] fp32 scratch; part 2 owns keys and accumulates dK and dV over
 // the query tiles (from its first key on, when causal), reading delta.
 //
+// - The forward in bf16 at S <= 128, D = 64 (every mode; the serving
+//   forward, ViT-B/32's saved-P training, the text towers with row
+//   statistics), replacing tc::fwd there: attn_short_sm90.cuh's one-pass
+//   kernel. What bounds it is bytes (157 MB, 0.0470 ms at ViT-B/32's text
+//   tower with P, B = 384: q, k, v and O once, P once); tc::fwd took 3.5x
+//   that (0.1648 ms) with two passes over the keys (Q K^T and expf twice a
+//   score, a divide a probability), two 64-row blocks a head at S = 77
+//   (both reading K and V; the second loading K twice), P written as
+//   unaligned 2-byte stores from the mma fragments and O as 4-byte ones.
+//   The new kernel gives a whole head to one block: one TMA box each of q,
+//   k and v (rows past S zero), scores once in registers, the exact row max
+//   and sum by quad shuffles, one exp2 a score and a reciprocal a row; O
+//   and P staged in shared memory and written in 16-byte stores; blocks
+//   persistent over (batch, head) with a 2-stage ring, so the next head's
+//   loads fly while this one computes. The two-pass wgmma mainloop below
+//   lost at S = 77 (0.0803 ms against tc::'s 0.046-0.056 at ViT-L/14's text
+//   tower, separate runs) because it kept the two passes and one 128-row
+//   block of 384 threads per head with nothing to overlap its loads; this
+//   one differs in the pass count, the block per head, the persistence
+//   and the stores. Its products run on wgmma at S <= 64 and on mma.sync
+//   past it (rows padded to 80 at S = 77; wgmma's 128 lost the A/B there,
+//   PERF.md §6). The S-major views take it too (TMA reads strided rows;
+//   bit-equal to the contiguous run). Dropout, fp32, other D and operands
+//   TMA cannot read stay on tc:: / simt:: below.
 // - The forward in bf16 at D = 64, 80 and 128 past S = 128 (ViT-L/14's
 //   and ViT-H/14's vision towers, the pipeline GPT's S = 512 with dropout;
 //   with row statistics on the recompute paths, with P or with neither
@@ -93,22 +118,18 @@
 //   64-column and a 16-column panel), the normalised P rounded to bf16 in
 //   registers before P.V (that header's note has the design). One kernel
 //   takes every mode there, so the saved-P and recompute modes give the
-//   same output (phase 8 holds ViT-L/14's first loss equal in both). At
-//   S <= 128 one key tile holds every key and tc::fwd's 64-row blocks of
-//   128 threads, many to an SM, finish first: ViT-L/14's text tower with
-//   stats (B = 64, S = 77, H = 12, causal) took 0.0803 ms on the wgmma
-//   kernel's first version, 0.0460 to 0.0564 on tc::fwd (separate runs).
+//   same output (phase 8 holds ViT-L/14's first loss equal in both).
 //   Phase 6 of chip_smoke.py on the H100 (NVIDIA H100 80GB HBM3, 700 W),
 //   with stats: 0.2162 ms at ViT-L/14's
 //   B = 64, S = 257, D = 64 (tc::fwd 0.3462 before; SDPA 0.1175), 0.1963
 //   and 0.2699 ms at the pipeline GPT's B = 32, S = 512, D = 128, causal,
 //   rate 0 and 0.1 (tc::fwd 0.5637 and 0.6163; SDPA 0.1040 and 0.1859),
 //   0.0992 ms at ViT-H/14's B = 24, S = 257, H = 16, D = 80 (tc::fwd
-//   0.1646 before; SDPA 0.0646). S <= 128 (the serving forward, ViT-B/32's
-//   saved-P training, the text towers), other D and operands TMA cannot
-//   read stay on tc:: below.
-// - tc:: (bf16, D a multiple of 8, 16-byte aligned rows; the serving and
-//   training paths): one block per (64 rows, head, batch), 4 warps of 16
+//   0.1646 before; SDPA 0.0646). Other D and operands TMA cannot read stay
+//   on tc:: below.
+// - tc:: (bf16, D a multiple of 8, 16-byte aligned rows; the backwards at
+//   S <= 128, and the forward where the kernels above do not run: dropout
+//   at S <= 128, D other than 64 there, operands TMA cannot read): one block per (64 rows, head, batch), 4 warps of 16
 //   rows. Tiles of 64 rows are staged in shared memory with 16-byte loads
 //   (rows padded by 16 bytes so ldmatrix is conflict-free), and every
 //   product runs on the tensor cores as mma.sync m16n8k16 bf16 with fp32
@@ -159,13 +180,14 @@
 //   D = 128 for both parts. On the CUDA cores the saved-P kernels take the
 //   recompute as a template switch.
 //
-// Keeping several heads per block and one backward kernel for S <= 64 are
-// later work.
+// One backward kernel for S <= 64 (a whole head per block, as the forward
+// at S <= 128) is later work.
 #include <math_constants.h>
 #include <stdint.h>
 
 #include "attn_bwd_sm90.cuh"
 #include "attn_fwd_sm90.cuh"
+#include "attn_short_sm90.cuh"
 #include "common.cuh"
 #include "mma_tiles.cuh"
 #include "philox.cuh"
@@ -1748,23 +1770,54 @@ bool valid_shape(int B, int S, int H, int D) {
 // input dtype, the probabilities exactly as P.V used them (masked pairs 0);
 // stats [2, B*H*S] fp32 each row's max of the scaled scores, then its
 // softmax denominator, for the recompute backward. Dropout takes no probs.
+// route 0 takes the kernel the file's note gives the shape; 1 asks for the
+// one-pass kernel at S <= 128 and 2 for tc::fwd (the A/Bs of chip_smoke.py
+// and tools/ab_attention.py): an error where the kernel asked for cannot
+// take the shape.
 extern "C" int mct_fused_mha_fwd(const void* qkv, long long qkv_b,
                                  long long qkv_s, void* out, long long out_b,
                                  long long out_s, void* probs, void* stats,
                                  int B, int S, int H, int D, float scale,
                                  int causal, int dtype, MCT_DROP_ARGS,
-                                 void* stream) {
-  if (!valid_shape(B, S, H, D) || (drop && probs != nullptr))
+                                 int route, void* stream) {
+  if (!valid_shape(B, S, H, D) || (drop && probs != nullptr) || route < 0 ||
+      route > 2)
     return (int)cudaErrorInvalidValue;
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   const Pitch pq{qkv_b, qkv_s}, po{out_b, out_s};
   float* m = static_cast<float*>(stats);
   float* l = m == nullptr ? nullptr : m + (long)B * H * S;
   MCT_DROP;
-  if (dtype == mct::kFloat32)
+  if (dtype == mct::kFloat32 && route == 0)
     return (int)simt::launch<float>(qkv, pq, out, po, probs, m, l, B, S, H, D,
                                     scale, causal, dr, st);
   if (dtype != mct::kBFloat16) return (int)cudaErrorInvalidValue;
+  const bool one_pass =
+      S <= mct::attn_short::kMaxS && D == mct::attn_short::kD && !dr &&
+      mct::attn_fwd::aligned({qkv, out}, {qkv_b, qkv_s, out_b, out_s});
+  if (route == 1 || (route == 0 && one_pass)) {
+    if (!one_pass) return (int)cudaErrorInvalidValue;
+    mct::attn_short::Args a{};
+    a.o = static_cast<__nv_bfloat16*>(out);
+    a.ob = out_b;
+    a.os = out_s;
+    a.probs = static_cast<__nv_bfloat16*>(probs);
+    a.row_max = m;
+    a.row_sum = l;
+    a.B = B;
+    a.H = H;
+    a.S = S;
+    a.causal = causal;
+    a.scale = scale;
+    return (int)mct::attn_short::launch(
+        static_cast<const __nv_bfloat16*>(qkv), qkv_b, qkv_s, a, st);
+  }
+  const bool tc_ok = tc::eligible(D, {qkv, out}, {qkv_b, qkv_s, out_b, out_s});
+  if (route == 2) {
+    if (!tc_ok) return (int)cudaErrorInvalidValue;
+    return (int)tc::dispatch(qkv, pq, out, po, probs, m, l, B, S, H, D, scale,
+                             causal, dr, st);
+  }
   if (S > mct::attn_fwd::kN && mct::attn_fwd::fused_d(D) &&
       mct::attn_fwd::aligned({qkv, out, probs},
                              {qkv_b, qkv_s, out_b, out_s})) {
@@ -1788,7 +1841,7 @@ extern "C" int mct_fused_mha_fwd(const void* qkv, long long qkv_b,
         D, {x, qkv_b, D, qkv_s}, {x + hd, qkv_b, D, qkv_s},
         {x + 2 * hd, qkv_b, D, qkv_s}, a, B, dr, st);
   }
-  if (tc::eligible(D, {qkv, out}, {qkv_b, qkv_s, out_b, out_s}))
+  if (tc_ok)
     return (int)tc::dispatch(qkv, pq, out, po, probs, m, l, B, S, H, D, scale,
                              causal, dr, st);
   return (int)simt::launch<__nv_bfloat16>(qkv, pq, out, po, probs, m, l, B, S,

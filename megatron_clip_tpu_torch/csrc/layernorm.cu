@@ -34,83 +34,161 @@
 // What bounds them. The forward does about 8 FLOP per element against 4
 // bytes moved per element in bf16 (read once, write once), the backward
 // about 12 against 6 (x and dy read, dx written): device-memory bytes bound
-// both on an H100 by two orders of magnitude. Design for that: one warp per
-// row; the row is read once with 16-byte loads into registers (up to 2048
-// bf16 or 1024 fp32 columns per row), the reductions are warp shuffles, and
-// the output is written once with 16-byte stores. Rows too wide for
-// registers, or not a multiple of 16 bytes, take plain per-element kernels
-// that read the row several times (the re-reads hit L1/L2). The backward's
-// column partials stay in shared memory, one [2][W] slice per warp (each
-// lane owns its columns, so no two threads add to one sum), which caps W at
-// kMaxBwdW; its blocks loop over rows, so the scratch holds at most
-// kMaxBwdBlocks partial rows however many rows there are.
+// both on an H100 by two orders of magnitude (the forward's bound 0.0176 /
+// 0.0181 ms at ViT-B/32's 19200 x 768 and 29568 x 512 rows). Rows are read
+// once with 16-byte loads into registers (up to 2048 bf16 or 1024 fp32
+// columns per row), the reductions are shuffles, and the output is written
+// once with 16-byte stores. Rows too wide for registers, or not a multiple
+// of 16 bytes, take plain per-element kernels that read the row several
+// times (the re-reads hit L1/L2).
+//
+// The forward (ln_fwd). The first kernel gave each warp one row and let it
+// exit: nothing overlapped a row's loads with its two reductions, each
+// element's scale and bias were scalar loads per row, and the chunks a lane
+// rounded up to a power of two (768 compiled for 4, 1280 for 8). Now the
+// grid is persistent (as many 128-thread blocks as the SMs hold) and each
+// warp, or half-warp at W = 512 in bf16 (16 lanes of 4 chunks), walks rows
+// with the grid's stride; a lane loads its columns' scale and bias once,
+// as 16-byte vectors, into registers; the next row's 16-byte loads go
+// into a second set of registers before this row's reductions
+// (double-buffered registers rather than a cp.async.bulk ring in shared
+// memory: a row is at most 32 chunks a warp, the loads need no barrier
+// between warps, and the registers hold it at every path width); the chunk
+// count is exact at the paths' bf16 widths 512, 768, 1024, 1280 and 2048.
+// The arithmetic is the first kernel's: the fp32 mean, then the mean square of the
+// centred row (RMS: of the uncentred row), one rounding of the output.
+//
+// The backward. Its column partials stay in shared memory, one [2][W]
+// slice per warp (each lane owns its columns, so no two threads add to one
+// sum), which caps W at kMaxBwdW; its blocks loop over rows, so the scratch
+// holds at most kMaxBwdBlocks partial rows however many rows there are.
 //
 // Why CUDA C++ and not Triton: a row reduction and an elementwise pass are
 // short in either; keeping every kernel of the port in CUDA C++ keeps one
 // build route (nvcc + ctypes) and no dependency on the triton package.
 #include <stdint.h>
 
+#include <algorithm>
+
 #include "common.cuh"
 
 namespace {
 
-constexpr int kWarps = 4;  // rows per block
+constexpr int kWarps = 4;  // warps per block
 constexpr int kThreads = kWarps * 32;
 
-// Row kept in registers: C chunks of 16 bytes per lane.
-template <typename T, int C, bool RMS>
+// 16 bytes of T from floats, each rounded once (in registers: a local
+// array whose address is taken would live in local memory)
+template <typename T>
+__device__ __forceinline__ uint4 pack16(const float (&o)[16 / sizeof(T)]) {
+  if constexpr (sizeof(T) == 4) {
+    return make_uint4(__float_as_uint(o[0]), __float_as_uint(o[1]),
+                      __float_as_uint(o[2]), __float_as_uint(o[3]));
+  } else {
+    uint32_t w[4];
+#pragma unroll
+    for (int i = 0; i < 4; ++i) {
+      const __nv_bfloat162 v = __floats2bfloat162_rn(o[2 * i], o[2 * i + 1]);
+      w[i] = *reinterpret_cast<const uint32_t*>(&v);
+    }
+    return make_uint4(w[0], w[1], w[2], w[3]);
+  }
+}
+
+// Rows kept in registers, G lanes a row (32, or 16 at W = 512 in bf16):
+// C chunks of 16 bytes a lane, every chunk in the row when kExact (W = G C
+// V), else those below W. Persistent: the block's row groups walk the rows
+// with the grid's stride; each lane holds its columns' scale and bias in
+// registers from the start, and the next row's chunks are loaded before
+// this row's reductions. RMS last, so that a profile can tell the variants
+// by the last template argument.
+template <typename T, int G, int C, bool kExact, bool RMS>
 __global__ void __launch_bounds__(kThreads)
-ln_fwd_reg(const T* __restrict__ x, const float* __restrict__ scale,
-           const float* __restrict__ bias, T* __restrict__ y, long rows, int W,
-           float eps) {
+ln_fwd(const T* __restrict__ x, const float* __restrict__ scale,
+       const float* __restrict__ bias, T* __restrict__ y, long rows, int W,
+       float eps) {
   constexpr int V = 16 / sizeof(T);
-  const long row = (long)blockIdx.x * kWarps + (threadIdx.x >> 5);
-  const int lane = threadIdx.x & 31;
-  if (row >= rows) return;
-  const int nchunk = W / V;
-  const uint4* xr = reinterpret_cast<const uint4*>(x + row * W);
-  float v[C][V];
-  float sum = 0.f;
+  constexpr int kPerWarp = 32 / G;  // rows a warp takes at once
+  const int lane = threadIdx.x % G;
+  const int nchunk = kExact ? G * C : W / V;
+  auto ok = [&](int c) { return kExact || lane + G * c < nchunk; };
+  float sc[C][V], bi[C][V];
 #pragma unroll
-  for (int c = 0; c < C; ++c) {
-    const int ci = lane + 32 * c;
-    if (ci < nchunk) {
-      const uint4 raw = xr[ci];
-      const T* e = reinterpret_cast<const T*>(&raw);
+  for (int c = 0; c < C; ++c)
+#pragma unroll
+    for (int k = 0; k < V; k += 4) {
+      const int i = (lane + G * c) * V + k;
+      const float4 s4 = ok(c) ? *reinterpret_cast<const float4*>(scale + i)
+                              : make_float4(0.f, 0.f, 0.f, 0.f);
+      const float4 b4 = !RMS && ok(c)
+                            ? *reinterpret_cast<const float4*>(bias + i)
+                            : make_float4(0.f, 0.f, 0.f, 0.f);
+      sc[c][k] = s4.x, sc[c][k + 1] = s4.y, sc[c][k + 2] = s4.z;
+      sc[c][k + 3] = s4.w;
+      bi[c][k] = b4.x, bi[c][k + 1] = b4.y, bi[c][k + 2] = b4.z;
+      bi[c][k + 3] = b4.w;
+    }
+  // a warp's rows advance together, so that a half-warp whose row is past
+  // the end still takes part in the shuffles (on zeros, storing nothing)
+  const long first = ((long)blockIdx.x * kWarps + (threadIdx.x >> 5)) *
+                         kPerWarp +
+                     (threadIdx.x & 31) / G;
+  const long stride = (long)gridDim.x * kWarps * kPerWarp;
+  const long warp_first = first - (threadIdx.x & 31) / G;
+  uint4 cur[C], nxt[C];
+  auto load = [&](uint4 (&r)[C], long row) {
+    const uint4* xr = reinterpret_cast<const uint4*>(x + row * W);
+#pragma unroll
+    for (int c = 0; c < C; ++c)
+      r[c] = row < rows && ok(c) ? xr[lane + G * c] : make_uint4(0, 0, 0, 0);
+  };
+  auto group_sum = [](float v) {
+#pragma unroll
+    for (int o = G / 2; o > 0; o >>= 1)
+      v += __shfl_xor_sync(0xffffffffu, v, o);
+    return v;
+  };
+  load(cur, first);
+  for (long row = first, w0 = warp_first; w0 < rows;
+       row += stride, w0 += stride) {
+    load(nxt, row + stride);
+    float sum = 0.f;
+#pragma unroll
+    for (int c = 0; c < C; ++c) {
+      const T* e = reinterpret_cast<const T*>(&cur[c]);
+#pragma unroll
+      for (int k = 0; k < V; ++k) sum += mct::to_float(e[k]);
+    }
+    const float mean = RMS ? 0.f : group_sum(sum) / W;
+    float sq = 0.f;
+#pragma unroll
+    for (int c = 0; c < C; ++c) {
+      if (!ok(c)) continue;
+      const T* e = reinterpret_cast<const T*>(&cur[c]);
 #pragma unroll
       for (int k = 0; k < V; ++k) {
-        v[c][k] = mct::to_float(e[k]);
-        sum += v[c][k];
+        const float d = mct::to_float(e[k]) - mean;
+        sq += d * d;
       }
     }
-  }
-  const float mean = RMS ? 0.f : mct::warp_sum(sum) / W;
-  float sq = 0.f;
+    const float rstd = rsqrtf(group_sum(sq) / W + eps);
+    if (row < rows) {
+      uint4* yr = reinterpret_cast<uint4*>(y + row * W);
 #pragma unroll
-  for (int c = 0; c < C; ++c) {
-    if (lane + 32 * c < nchunk) {
+      for (int c = 0; c < C; ++c) {
+        if (!ok(c)) continue;
+        const T* e = reinterpret_cast<const T*>(&cur[c]);
+        float o[V];
 #pragma unroll
-      for (int k = 0; k < V; ++k) {
-        v[c][k] -= mean;
-        sq += v[c][k] * v[c][k];
+        for (int k = 0; k < V; ++k) {
+          const float n = (mct::to_float(e[k]) - mean) * rstd * sc[c][k];
+          o[k] = RMS ? n : n + bi[c][k];
+        }
+        yr[lane + G * c] = pack16<T>(o);
       }
     }
-  }
-  const float rstd = rsqrtf(mct::warp_sum(sq) / W + eps);
-  uint4* yr = reinterpret_cast<uint4*>(y + row * W);
 #pragma unroll
-  for (int c = 0; c < C; ++c) {
-    const int ci = lane + 32 * c;
-    if (ci < nchunk) {
-      alignas(16) T o[V];
-#pragma unroll
-      for (int k = 0; k < V; ++k) {
-        const int i = ci * V + k;
-        const float n = v[c][k] * rstd * scale[i];
-        o[k] = mct::from_float<T>(RMS ? n : n + bias[i]);
-      }
-      yr[ci] = *reinterpret_cast<const uint4*>(o);
-    }
+    for (int c = 0; c < C; ++c) cur[c] = nxt[c];
   }
 }
 
@@ -140,32 +218,66 @@ ln_fwd_any(const T* __restrict__ x, const float* __restrict__ scale,
   }
 }
 
+// The blocks of `kernel` the SMs hold at once (at least 1).
+template <typename K>
+int resident_blocks(K* kernel) {
+  int dev = 0, sms = 0, per_sm = 0;
+  cudaGetDevice(&dev);
+  cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
+  cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, kernel, kThreads, 0);
+  return sms * per_sm > 0 ? sms * per_sm : 1;
+}
+
+// A persistent grid: as many blocks as the SMs hold, no more than the rows
+// need (kThreads / G rows a block at once).
+template <typename T, int G, int C, bool kExact, bool RMS>
+void launch_fwd(const T* x, const float* s, const float* b, T* y, long rows,
+                int W, float eps, cudaStream_t st) {
+  auto* kernel = ln_fwd<T, G, C, kExact, RMS>;
+  static const int cap = resident_blocks(kernel);
+  const long need = (rows + kThreads / G - 1) / (kThreads / G);
+  kernel<<<(unsigned)std::min<long>(cap, need), kThreads, 0, st>>>(
+      x, s, b, y, rows, W, eps);
+}
+
 template <typename T, bool RMS>
 void launch(const void* x, const void* scale, const void* bias, void* y,
             long rows, int W, float eps, cudaStream_t st) {
   constexpr int V = 16 / sizeof(T);
-  const dim3 grid((unsigned)((rows + kWarps - 1) / kWarps));
+  constexpr bool kBf16 = sizeof(T) == 2;
   const bool aligned = W % V == 0 && (uintptr_t)x % 16 == 0 &&
-                       (uintptr_t)y % 16 == 0;
+                       (uintptr_t)y % 16 == 0 && (uintptr_t)scale % 16 == 0 &&
+                       (RMS || (uintptr_t)bias % 16 == 0);
   const int per_lane = (W / V + 31) / 32;
   const T* xt = static_cast<const T*>(x);
   const float* s = static_cast<const float*>(scale);
   const float* b = static_cast<const float*>(bias);
   T* yt = static_cast<T*>(y);
-  if (aligned && per_lane <= 1)
-    ln_fwd_reg<T, 1, RMS><<<grid, kThreads, 0, st>>>(xt, s, b, yt, rows, W,
-                                                     eps);
-  else if (aligned && per_lane <= 2)
-    ln_fwd_reg<T, 2, RMS><<<grid, kThreads, 0, st>>>(xt, s, b, yt, rows, W,
-                                                     eps);
-  else if (aligned && per_lane <= 4)
-    ln_fwd_reg<T, 4, RMS><<<grid, kThreads, 0, st>>>(xt, s, b, yt, rows, W,
-                                                     eps);
-  else if (aligned && per_lane <= 8)
-    ln_fwd_reg<T, 8, RMS><<<grid, kThreads, 0, st>>>(xt, s, b, yt, rows, W,
-                                                     eps);
-  else
-    ln_fwd_any<T, RMS><<<grid, kThreads, 0, st>>>(xt, s, b, yt, rows, W, eps);
+  if (!aligned || per_lane > 8) {
+    ln_fwd_any<T, RMS>
+        <<<(unsigned)((rows + kWarps - 1) / kWarps), kThreads, 0, st>>>(
+            xt, s, b, yt, rows, W, eps);
+    return;
+  }
+  if constexpr (kBf16) {  // the paths' widths, each chunk count exactly
+    if (W == 512)
+      return launch_fwd<T, 16, 4, true, RMS>(xt, s, b, yt, rows, W, eps, st);
+    if (W == 768)
+      return launch_fwd<T, 32, 3, true, RMS>(xt, s, b, yt, rows, W, eps, st);
+    if (W == 1024)
+      return launch_fwd<T, 32, 4, true, RMS>(xt, s, b, yt, rows, W, eps, st);
+    if (W == 1280)
+      return launch_fwd<T, 32, 5, true, RMS>(xt, s, b, yt, rows, W, eps, st);
+    if (W == 2048)
+      return launch_fwd<T, 32, 8, true, RMS>(xt, s, b, yt, rows, W, eps, st);
+  }
+  if (per_lane <= 1)
+    return launch_fwd<T, 32, 1, false, RMS>(xt, s, b, yt, rows, W, eps, st);
+  if (per_lane <= 2)
+    return launch_fwd<T, 32, 2, false, RMS>(xt, s, b, yt, rows, W, eps, st);
+  if (per_lane <= 4)
+    return launch_fwd<T, 32, 4, false, RMS>(xt, s, b, yt, rows, W, eps, st);
+  launch_fwd<T, 32, 8, false, RMS>(xt, s, b, yt, rows, W, eps, st);
 }
 
 // ---- backward --------------------------------------------------------------

@@ -60,7 +60,7 @@ _P, _I, _L = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
 _SHAPE = [_I, _I, _I, _I, ctypes.c_float, _I, _I]
 _SIGNATURES = {
     "mct_fused_mha_fwd": ([_P, _L, _L, _P, _L, _L, _P, _P] + _SHAPE
-                          + C_ARGTYPES + [_P], _I),
+                          + C_ARGTYPES + [_I, _P], _I),
     "mct_fused_mha_bwd": ([_P, _L, _L, _P, _L, _L, _P, _P, _L, _L, _P]
                           + _SHAPE + [_P], _I),
     "mct_fused_mha_bwd_recompute": ([_P, _L, _L, _P, _L, _L, _P, _P, _L, _L,
@@ -68,6 +68,11 @@ _SIGNATURES = {
     "mct_dropout_mask": MASK_SIGNATURE,
 }
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
+# the forward's kernels by name (`mct_fused_mha_fwd`'s route): "auto" the
+# one `csrc/fused_mha.cu` gives the shape; the one-pass kernel (bf16,
+# S <= 128, D = 64) and tc::fwd, for the A/Bs that time one against the
+# other
+FWD_ROUTES = {"auto": 0, "one_pass": 1, "tc": 2}
 
 
 def _split_heads(t: torch.Tensor, heads: int, parts: int):
@@ -137,6 +142,37 @@ def fused_mha_plain(qkv: torch.Tensor, heads: int, scale: float,
         m = scores.amax(-1)
         extra.append(torch.stack([m, (scores - m[..., None]).exp().sum(-1)]))
     return (out, *extra) if extra else out
+
+
+def bf16_ulp(x: torch.Tensor) -> torch.Tensor:
+    """One bf16 ulp of each element of x (its binade's spacing, 2^-7 of
+    the binade's floor), 0 where x is 0; fp32."""
+    _, e = torch.frexp(x.float())
+    ulp = torch.ldexp(torch.ones_like(e, dtype=torch.float32), e - 8)
+    return torch.where(x != 0, ulp, torch.zeros_like(ulp))
+
+
+def fused_mha_row_bound(qkv: torch.Tensor, heads: int, causal: bool = False,
+                        keep: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """The bound a bf16 forward's output is held to, row by row: at row i,
+    column c of head h, T_ic + ulp(|out_ic| + T_ic) with T_ic = sum_j
+    ulp(P_ij) |v_jc|, P the plain version's probabilities as P.V takes them
+    (times `keep`, rounded to qkv's dtype) and out its output. A kernel
+    whose fp32 probabilities differ from the plain version's in their last
+    bits rounds some P to the neighbouring bf16 value, one ulp of that P on
+    one term of the row (T), and each side rounds its output once, by half
+    an ulp at a magnitude of at most |out| + T: this bound allows exactly
+    that (fp32 [B, S, H*D])."""
+    q, k, v = _split_heads(qkv, heads, 3)
+    p = torch.softmax(_scores(q, k, q.shape[-1] ** -0.5, causal), dim=-1)
+    if keep is not None:
+        p = p * keep
+    p = p.to(qkv.dtype)
+    out = torch.matmul(p.float(), v).to(qkv.dtype)
+    terms = torch.matmul(bf16_ulp(p), v.abs())
+    bound = terms + bf16_ulp(out.float().abs() + terms)
+    b, s = qkv.shape[:2]
+    return bound.permute(0, 2, 1, 3).reshape(b, s, -1)
 
 
 def _bwd_head(q, k, v, g, p, scale, dtype, keep=None):
@@ -278,7 +314,8 @@ def _launch(name: str, device: torch.device, args, shape,
 
 
 def fused_mha_fwd(qkv: torch.Tensor, heads: int, *, causal: bool = False,
-                  with_probs: bool = False, with_stats: bool = False):
+                  with_probs: bool = False, with_stats: bool = False,
+                  route: str = "auto"):
     """Attention straight off the packed QKV projection output, scores
     scaled by D**-0.5.
 
@@ -286,13 +323,18 @@ def fused_mha_fwd(qkv: torch.Tensor, heads: int, *, causal: bool = False,
     Returns [B, S, H*D] in qkv's dtype and layout and, with `with_probs`,
     also the probabilities P [B, H, S, S] in qkv's dtype for
     `fused_mha_bwd`, or with `with_stats` the row statistics [2, B, H, S]
-    fp32 for `fused_mha_bwd_recompute`."""
+    fp32 for `fused_mha_bwd_recompute`. `route` (a key of FWD_ROUTES) asks
+    a CUDA tensor for one kernel; the launch fails where that kernel cannot
+    take the shape."""
     _no_graph("fused_mha_fwd", qkv)
     if with_probs and with_stats:
         raise ValueError("fused_mha_fwd: with_probs and with_stats are the "
                          "two backward modes; ask for one")
+    if route not in FWD_ROUTES:
+        raise ValueError(f"fused_mha_fwd: route {route!r} is not one of "
+                         f"{sorted(FWD_ROUTES)}")
     res = _fwd("fused_mha_fwd", qkv, heads, causal, with_probs, with_stats,
-               None)
+               None, FWD_ROUTES[route])
     if qkv.device.type == "cuda":
         fused_mha_fwd.launches += 1
     return res
@@ -302,7 +344,7 @@ fused_mha_fwd.launches = 0
 
 
 def _fwd(name, qkv, heads, causal, with_probs, with_stats,
-         drop: Optional[AttentionDropout]):
+         drop: Optional[AttentionDropout], route: int = 0):
     d = _head_dim(name, qkv, heads)
     scale = d ** -0.5
     if qkv.device.type == "cpu":
@@ -322,8 +364,8 @@ def _fwd(name, qkv, heads, causal, with_probs, with_stats,
              None if p is None else p.data_ptr(),
              None if stats is None else stats.data_ptr()],
             (b, s, heads, d, float(scale), int(causal), _DTYPES[qkv.dtype]),
-            NO_DROPOUT_C_ARGS if drop is None else drop.c_args(
-                dropout_mult(drop.rate, qkv.dtype)))
+            [*(NO_DROPOUT_C_ARGS if drop is None else drop.c_args(
+                dropout_mult(drop.rate, qkv.dtype))), route])
     if with_probs:
         return out, p
     return (out, stats) if with_stats else out

@@ -6,9 +6,10 @@ DIR is another checkout of the repo, for example the parent commit unpacked
 with `git archive` into a gitignored directory. One process per run, in the
 order other, this, this, other, so that a drift of the card over the call
 shows as a difference between the two runs of one checkout. Each process
-imports the port from its checkout, builds that checkout's `fused_mha.cu`
-and `flash_attention.cu` and, with the API both checkouts share, times
-(mean of 20 launches after 3 by CUDA events, warm L2):
+imports the port from its checkout, builds that checkout's `fused_mha.cu`,
+`flash_attention.cu` and `layernorm.cu` and, with the API both checkouts
+share, times (mean of 20 launches after 3 by CUDA events, warm L2, the launches queued
+behind a device-side wait so that they run back to back):
 - the forward with P and the saved-P backward (`fused_mha_fwd(...,
   with_probs=True)`, `fused_mha_bwd`) at the ViT-B/32 train shapes (batch
   384) and the ViT-L/14 and ViT-H/14 vision shapes (batch 64 and 24);
@@ -21,7 +22,11 @@ and `flash_attention.cu` and, with the API both checkouts share, times
   and at ViT-H/14's vision tower (B = 24, S = 257, H = 16, D = 80); the
   flash forward (`flash_fwd`, `flash_fwd_dropout`) on the packed
   projection's head views at the pipeline GPT's B = 8, S = 2048, D = 128,
-  rate 0 and 0.1, and GPT-345m's B = 6, D = 64.
+  rate 0 and 0.1, and GPT-345m's B = 6, D = 64; the fused forward alone
+  (no P, no statistics) at the ViT-B/32 serving shapes (batch 256), and
+  with statistics at ViT-H/14's text tower (B = 24, S = 77, H = 16);
+- the LayerNorm and RMSNorm forwards (`layer_norm_fwd`, `rms_norm_fwd`)
+  at the paths' rows and widths, beside `F.layer_norm` / `F.rms_norm`.
 Inputs come from a seeded generator, so the two checkouts get the same
 ones; a hash of each output's bytes says whether they give the same bits.
 Prints the card, each run's register report (ptxas) for the saved-P
@@ -54,10 +59,28 @@ FORWARDS = (("fused_mha_fwd with stats", "pipeline GPT", 32, 512, 16, 128,
              True, 0.0),
             ("fused_mha_fwd with stats", "ViT-H/14 vision", 24, 257, 16, 80,
              False, 0.0),
+            ("fused_mha_fwd with stats", "ViT-H/14 text", 24, 77, 16, 64,
+             True, 0.0),
+            ("fused_mha_fwd", "ViT-B/32 serving vision", 256, 50, 12, 64,
+             False, 0.0),
+            ("fused_mha_fwd", "ViT-B/32 serving text", 256, 77, 8, 64, True,
+             0.0),
             ("flash_fwd", "pipeline GPT", 8, 2048, 16, 128, True, 0.0),
             ("flash_fwd", "pipeline GPT", 8, 2048, 16, 128, True, 0.1),
             ("flash_fwd", "GPT-345m", 6, 2048, 16, 64, True, 0.0))
+# the norms' forwards: (kernel, label, rows, width); rows B S of each
+# tower or GPT at its batch
+NORMS = (("layer_norm_fwd", "ViT-B/32 vision", 384 * 50, 768),
+         ("layer_norm_fwd", "ViT-B/32 text", 384 * 77, 512),
+         ("layer_norm_fwd", "ViT-B/32 serving vision", 256 * 50, 768),
+         ("layer_norm_fwd", "ViT-B/32 serving text", 256 * 77, 512),
+         ("layer_norm_fwd", "ViT-L/14 vision", 64 * 257, 1024),
+         ("layer_norm_fwd", "ViT-H/14 vision", 24 * 257, 1280),
+         ("layer_norm_fwd", "GPT-345m", 6 * 2048, 1024),
+         ("layer_norm_fwd", "pipeline GPT", 8 * 2048, 2048),
+         ("rms_norm_fwd", "example GPT", 8 * 2048, 1024))
 REPS, WARMUP = 20, 3
+QUEUE_CYCLES = 4_000_000
 
 
 def time_checkout(repo: str) -> dict:
@@ -68,7 +91,7 @@ def time_checkout(repo: str) -> dict:
     from megatron_clip_tpu_torch.ops.kernels import fused_mha as mha
     if not Path(mha.__file__).resolve().is_relative_to(Path(repo).resolve()):
         raise RuntimeError(f"imported {mha.__file__}, not from {repo}")
-    _build.build(["fused_mha", "flash_attention"])
+    _build.build(["fused_mha", "flash_attention", "layernorm"])
     regs = [line.strip() for line in
             _build.build_log("fused_mha").splitlines()
             if "registers" in line or "Compiling entry" in line]
@@ -78,6 +101,9 @@ def time_checkout(repo: str) -> dict:
             fn()
         torch.cuda.synchronize()
         start, end = (torch.cuda.Event(enable_timing=True) for _ in range(2))
+        # the window behind a device-side wait (~2 ms) while the host
+        # enqueues its calls: they run back to back, timed by the device
+        torch.cuda._sleep(QUEUE_CYCLES)
         start.record()
         for _ in range(REPS):
             fn()
@@ -108,7 +134,40 @@ def time_checkout(repo: str) -> dict:
                      "dqkv": digest(dqkv)}})
         del qkv, do, out, p, dqkv
     return {"repo": repo, "registers": regs, "rows": rows,
-            "forwards": time_forwards(ms, digest)}
+            "forwards": time_forwards(ms, digest),
+            "norms": time_norms(ms, digest)}
+
+
+def time_norms(ms, digest) -> list:
+    """The NORMS rows of the checkout imported: kernel and library ms."""
+    import torch
+    import torch.nn.functional as F
+    from megatron_clip_tpu_torch.ops.kernels import layernorm as ln
+    rows = []
+    for kernel, label, n, w in NORMS:
+        gen = torch.Generator(device="cuda").manual_seed(n + w)
+        x = torch.randn(n, w, device="cuda", generator=gen,
+                        dtype=torch.bfloat16)
+        scale, bias = (torch.randn(w, device="cuda", generator=gen)
+                       for _ in range(2))
+        sb, bb = scale.bfloat16(), bias.bfloat16()
+        if kernel == "rms_norm_fwd":
+            def fn():
+                return ln.rms_norm_fwd(x, scale)
+
+            def lib():
+                return F.rms_norm(x, (w,), sb, 1e-6)
+        else:
+            def fn():
+                return ln.layer_norm_fwd(x, scale, bias)
+
+            def lib():
+                return F.layer_norm(x, (w,), sb, bb, 1e-5)
+        rows.append({"row": f"{kernel} {label} rows={n} W={w} bf16",
+                     "ms": ms(fn), "library_ms": ms(lib),
+                     "bits": {"out": digest(fn())}})
+        del x
+    return rows
 
 
 def time_forwards(ms, digest) -> list:
@@ -141,6 +200,9 @@ def time_forwards(ms, digest) -> list:
                   if drop is None else
                   (lambda: fa.flash_fwd_dropout(q, k, v, drop,
                                                 causal=causal)))
+        elif kernel == "fused_mha_fwd":
+            def fn():
+                return mha.fused_mha_fwd(qkv, h, causal=causal), None
         else:
             fn = ((lambda: mha.fused_mha_fwd(qkv, h, causal=causal,
                                              with_stats=True))
@@ -156,7 +218,8 @@ def time_forwards(ms, digest) -> list:
             "library_ms": ms(lambda: F.scaled_dot_product_attention(
                 lq, lk, lv, is_causal=causal, dropout_p=rate)),
             "bits": {"out": digest(out),
-                     "residual": digest(res.view(torch.bfloat16))}})
+                     "residual": "" if res is None
+                     else digest(res.view(torch.bfloat16))}})
         del qkv, q, k, v, lq, lk, lv, out, res
         torch.cuda.empty_cache()
     return rows
@@ -221,6 +284,14 @@ def main() -> int:
                 [r["library_ms"] for r in rows],
             "same_bits": {k: len({r["bits"][k] for r in rows}) == 1
                           for k in ("out", "residual")}}))
+    for i, first in enumerate(runs[0]["norms"]):
+        rows = [run["norms"][i] for run in runs]
+        print(json.dumps({
+            "row": first["row"],
+            "ms other/this/this/other": [r["ms"] for r in rows],
+            "library_ms other/this/this/other":
+                [r["library_ms"] for r in rows],
+            "same_bits": len({r["bits"]["out"] for r in rows}) == 1}))
     print(json.dumps({"runs": runs}))
     return 0
 

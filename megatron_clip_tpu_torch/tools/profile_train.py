@@ -78,6 +78,8 @@ def _category(name: str) -> str:
         return "attention bwd (flash_attention.cu)"
     if "attn_bwd::" in n:  # the fused-MHA recompute backward on wgmma
         return "attention bwd (fused_mha.cu)"
+    if "attn_short::fwd<" in n:  # the one-pass forward: fwd<keys, mode>
+        return "attention fwd (fused_mha.cu)"
     if "attn_fwd::fwd<" in n:  # the wgmma forward: fwd<D, two-pass, drop>
         return ("attention fwd (fused_mha.cu)"
                 if re.search(r"attn_fwd::fwd<\d+, true", n)
@@ -89,7 +91,9 @@ def _category(name: str) -> str:
         return "attention bwd (fused_mha.cu)"
     if "tc::fwd" in n or "simt::fwd" in n:
         return "attention fwd (fused_mha.cu)"
-    if "ln_" in n and ", true>" in n:  # the RMS variants
+    norm = re.search(r"ln_\w+<([^<>()]*)>", n)
+    if norm and norm.group(1).split(", ")[-1] == "true":
+        # the RMS variants: RMS is every norm kernel's last template argument
         return ("rmsnorm bwd (layernorm.cu)" if "ln_bwd" in n
                 else "rmsnorm fwd (layernorm.cu)")
     if "ln_bwd" in n:

@@ -44,9 +44,9 @@ from megatron_clip_tpu.ops.pallas.fused_mha import (fused_attention_from_qkv,
                                                    fused_mha_packed_sm)
 from megatron_clip_tpu_torch.ops.attention import multi_head_attention, sdpa
 from megatron_clip_tpu_torch.ops.kernels.fused_mha import (
-    dropout_mult, fused_mha, fused_mha_bwd_plain,
+    FWD_ROUTES, bf16_ulp, dropout_mult, fused_mha, fused_mha_bwd_plain,
     fused_mha_bwd_recompute_plain, fused_mha_dropout, fused_mha_fwd,
-    fused_mha_plain)
+    fused_mha_plain, fused_mha_row_bound)
 
 SHAPES = [(4, 50, 4, 64), (2, 77, 8, 64), (2, 33, 2, 32)]
 # ViT-H/14's vision head: D = 80, S = 257 (five 64-row tiles, the last of
@@ -79,6 +79,65 @@ def test_plain_matches_jax_fused_kernel_bf16(causal, b, s, h, d):
     np.testing.assert_allclose(got.float().numpy(),
                                np.asarray(want.astype(jnp.float32)),
                                rtol=8e-3, atol=4e-3)
+
+
+# The row bound the card holds bf16 forwards to (fused_mha_row_bound: one
+# bf16 ulp of P on every term of a row, plus one output ulp): the Pallas
+# kernel in interpret mode, which rounds P from its own fp32 softmax, lies
+# within it at the paths' S = 50 and 77; so does a P with one element of
+# every row moved by an ulp; a forward that leaves out each row's last
+# unmasked key (the fault build of the one-pass kernel) does not.
+@pytest.mark.parametrize("causal", [False, True])
+@pytest.mark.parametrize("b,s,h,d", SHAPES[:2])
+def test_row_bound_holds_rounding_flips_and_refuses_a_left_out_key(
+        causal, b, s, h, d):
+    qkv = np.random.default_rng(3).standard_normal(
+        (b, s, 3 * h * d)).astype(np.float32)
+    x = torch.from_numpy(qkv).bfloat16()
+    bound = fused_mha_row_bound(x, h, causal)
+    want, p = fused_mha_plain(x, h, d ** -0.5, causal, with_probs=True)
+    jax_out = fused_attention_from_qkv(jnp.asarray(qkv, jnp.bfloat16), h,
+                                       causal=causal, interpret=True)
+    got = torch.from_numpy(np.array(jax_out.astype(jnp.float32)))
+    assert bool(((got - want.float()).abs() <= bound).all())
+    # one P a row moved by one ulp, the output rounded once from fp32
+    _, _, v = x.float().reshape(b, s, 3, h, d).permute(2, 0, 3, 1, 4)
+    flipped = p.float().clone()
+    cols = torch.randint(0, s, (b, h, s, 1), generator=torch.Generator()
+                         .manual_seed(4))
+    if causal:
+        cols = torch.minimum(cols, torch.arange(s).view(1, 1, s, 1))
+    moved = flipped.gather(-1, cols)
+    flipped.scatter_(-1, cols, moved + bf16_ulp(moved))
+    out = torch.matmul(flipped, v).to(torch.bfloat16).float()
+    out = out.permute(0, 2, 1, 3).reshape(b, s, h * d)
+    assert bool(((out - want.float()).abs() <= bound).all())
+    # the last unmasked key of every row left out
+    scores = torch.matmul(*(t for t in (x.float().reshape(b, s, 3, h, d)
+                                        .permute(2, 0, 3, 1, 4)[0],
+                                        x.float().reshape(b, s, 3, h, d)
+                                        .permute(2, 0, 3, 4, 1)[1]))) \
+        * d ** -0.5
+    last = torch.arange(s) if causal else torch.full((s,), s - 1)
+    keep = torch.ones(s, s, dtype=torch.bool)
+    if causal:
+        keep = keep.tril()
+    keep[torch.arange(s), last] = s == 1
+    wrong = torch.softmax(scores.masked_fill(~keep, -1e30), -1)
+    wrong = torch.matmul(wrong.to(torch.bfloat16).float(), v)
+    wrong = wrong.to(torch.bfloat16).float().permute(0, 2, 1, 3).reshape(
+        b, s, h * d)
+    assert float(((wrong - want.float()).abs() / bound).max()) > 1
+
+
+def test_forward_routes_take_the_plain_version_on_the_cpu():
+    qkv = torch.randn(2, 9, 3 * 2 * 64)
+    want = fused_mha_plain(qkv, 2, 0.125, True)
+    for route in FWD_ROUTES:
+        assert torch.equal(fused_mha_fwd(qkv, 2, causal=True, route=route),
+                           want)
+    with pytest.raises(ValueError, match="route"):
+        fused_mha_fwd(qkv, 2, route="sdpa")
 
 
 @pytest.mark.parametrize("causal", [False, True])

@@ -24,6 +24,14 @@ dS to bf16 can flip, which moves one term of dQ or dK by 2^-8 |dS K|, far
 below that floor; against the plain version in fp32, 2e-2 relative plus
 2^-5 of the largest |value| (the roundings of P, dS and the outputs).
 
+The bf16 forwards at the wgmma kernels' tile edges and the one-pass
+forward at S <= 128 (csrc/attn_short_sm90.cuh, both product variants) are
+held row by row (fused_mha_row_bound): one bf16 ulp of P on every term of a
+row plus one output ulp, as kernel and plain version round P from fp32
+values that differ in their last bits. The LayerNorm and RMSNorm forwards
+at every path width (512 to 2048) and at row counts no block multiple,
+under the LayerNorm bounds above.
+
 The recompute backward is held to the same bounds against its plain
 version (which recomputes the row statistics itself); the forward's row
 statistics to 1e-4 relative (fp32 sums of up to 1,024 exponentials in
@@ -264,18 +272,17 @@ def test_fused_mha_stats_and_recompute_backward_match_plain(
         _close_mha_rows(got, want32, h, rel=2e-2)
 
 
-# The forward with row statistics at the wgmma kernel's tiles' edges
-# (csrc/attn_fwd_sm90.cuh, two-pass: 128-row blocks, 128-key tiles, K
-# resident up to S = 1024 at D = 64, S = 896 at D = 80 (ViT-H/14's head:
-# a 64-column and a 16-column panel) and S = 512 at D = 128, through the
-# ring above; S <= 128 runs the mma.sync kernel), both masks, rate 0 and
+# The forward with row statistics at the wgmma kernels' tiles' edges
+# (csrc/attn_fwd_sm90.cuh past S = 128, two-pass: 128-row blocks, 128-key
+# tiles, K resident up to S = 1024 at D = 64, S = 896 at D = 80 (ViT-H/14's
+# head: a 64-column and a 16-column panel) and S = 512 at D = 128, through
+# the ring above; at S <= 128 and D = 64 the one-pass kernel of
+# csrc/attn_short_sm90.cuh, at other D tc::fwd), both masks, rate 0 and
 # 0.1, on the packed projection and on the [B, S, *] view of S-major
-# storage, which must give the same bits. The output's bound is the flash
-# forward's, 2^-8 of the largest |out| plus rtol 8e-3: both sides round P
-# to bf16 from fp32 values that differ in their last bits (S summed in
-# another order), so one P may round the other way, and at p ~ 1/2 (a
-# causal row's first keys) that moves the output by 2^-9 |v|, past 4e-3
-# where |v| > 2 (the mma.sync kernel did so at S = 64, D = 128, causal).
+# storage, which must give the same bits. The output is held row by row
+# (fused_mha_row_bound): both sides round P to bf16 from fp32 values that
+# differ in their last bits, so a term of a row may move by one ulp of its
+# P, and the output may round the other way.
 @pytest.mark.parametrize("rate", [0.0, 0.1])
 @pytest.mark.parametrize("causal", [False, True])
 @pytest.mark.parametrize("d", [64, 80, 128])
@@ -297,13 +304,73 @@ def test_fused_mha_wgmma_forward_at_tile_edges(cuda, s, d, causal, rate):
     want, want_stats = fused_mha_plain(qkv, h, d ** -0.5, causal,
                                        with_stats=True, keep=keep)
     assert out.shape == (b, s, h * d) and out.dtype == torch.bfloat16
-    torch.testing.assert_close(out.float(), want.float(), rtol=8e-3,
-                               atol=2 ** -8 * float(want.float().abs().max()))
+    _within_row_bound(out, want, mha_mod.fused_mha_row_bound(qkv, h, causal,
+                                                             keep))
     torch.testing.assert_close(stats, want_stats, rtol=1e-4, atol=1e-5)
     out_v, stats_v = run(qkv.transpose(0, 1).contiguous().transpose(0, 1))
     if s > 1:  # at S = 1 both layouts are one order
         assert out_v.stride(0) < out_v.stride(1)
     assert torch.equal(out_v, out) and torch.equal(stats_v, stats)
+
+
+def _within_row_bound(got, want, bound):
+    err = (got.float() - want.float()).abs()
+    used = float((err / bound).nan_to_num(nan=0.0, posinf=1e9).max())
+    assert used <= 1, f"{used:.3f} of the row bound"
+
+
+# The one-pass forward (csrc/attn_short_sm90.cuh: bf16, S <= 128, D = 64, a
+# whole head per block; wgmma at S <= 64, mma.sync past it), asked for and
+# as the route fused_mha.cu picks, at its key counts' edges and the paths'
+# batches (ViT-B/32's 384 and 256, ViT-L/14's 64, ViT-H/14's 24) and heads,
+# in each mode:
+# the output within the row bound, P within one bf16 ulp, the statistics
+# within 1e-4 relative (fp32 sums in another order), the three modes' outputs
+# equal, and the same bits on a second run and on the S-major view.
+@pytest.mark.parametrize("b,h", [(2, 3), (384, 8), (256, 12), (64, 12),
+                                 (24, 16)])
+@pytest.mark.parametrize("causal", [False, True])
+@pytest.mark.parametrize("s", [1, 7, 50, 64, 65, 77, 127, 128])
+def test_fused_mha_one_pass_forward_matches_plain(cuda, s, causal, b, h):
+    d = 64
+    gen = torch.Generator().manual_seed(s + 3 * b + int(causal))
+    qkv = torch.randn(b, s, 3 * h * d, generator=gen).to(cuda,
+                                                         torch.bfloat16)
+    view = qkv.transpose(0, 1).contiguous().transpose(0, 1)
+    want, p_want = fused_mha_plain(qkv, h, d ** -0.5, causal,
+                                   with_probs=True)
+    _, stats_want = fused_mha_plain(qkv, h, d ** -0.5, causal,
+                                    with_stats=True)
+    bound = mha_mod.fused_mha_row_bound(qkv, h, causal)
+    for route in ("auto", "one_pass"):
+        kw = dict(causal=causal, route=route)
+        out = fused_mha_fwd(qkv, h, **kw)
+        out_p, p = fused_mha_fwd(qkv, h, with_probs=True, **kw)
+        out_s, stats = fused_mha_fwd(qkv, h, with_stats=True, **kw)
+        assert torch.equal(out_p, out) and torch.equal(out_s, out)
+        _within_row_bound(out, want, bound)
+        torch.testing.assert_close(p.float(), p_want.float(), rtol=8e-3,
+                                   atol=1e-6)
+        torch.testing.assert_close(stats, stats_want, rtol=1e-4, atol=1e-5)
+        again, p_again = fused_mha_fwd(qkv, h, with_probs=True, **kw)
+        out_v, p_v = fused_mha_fwd(view, h, with_probs=True, **kw)
+        assert torch.equal(again, out) and torch.equal(p_again, p)
+        assert torch.equal(out_v, out) and torch.equal(p_v, p)
+        if s > 1:  # at S = 1 both layouts are one order
+            assert out_v.stride(0) < out_v.stride(1)
+
+
+def test_fused_mha_routes_refuse_what_they_do_not_take(cuda):
+    qkv = torch.zeros(2, 65, 3 * 2 * 64, device=cuda, dtype=torch.bfloat16)
+    for bad in (torch.zeros(2, 129, 3 * 2 * 64, device=cuda,
+                            dtype=torch.bfloat16),     # S past one tile
+                qkv.float(),                           # fp32
+                torch.zeros(2, 65, 3 * 2 * 80, device=cuda,
+                            dtype=torch.bfloat16)):    # D = 80
+        with pytest.raises(RuntimeError, match="launch failed"):
+            fused_mha_fwd(bad, 2, route="one_pass")
+    with pytest.raises(ValueError, match="route"):
+        fused_mha_fwd(qkv, 2, route="sdpa")
 
 
 # The recompute backward at the wgmma kernels' tiles' edges
@@ -723,6 +790,35 @@ def test_rms_norm_kernels_match_plain(cuda, dtype, rows, w):
                                atol=tol[1])
     torch.testing.assert_close(dx, want_dx, rtol=tol[0], atol=tol[1])
     torch.testing.assert_close(dscale, want_dscale, rtol=1e-5, atol=1e-4)
+
+
+# The LayerNorm and RMSNorm forwards (csrc/layernorm.cu ln_fwd: persistent
+# grid, a row a warp or, at W = 512 in bf16, a half-warp; chunk counts
+# exact at the paths' widths) at one row, a row count no block multiple
+# and the ViT-B/32 vision tower's 19200, at every path width, against the
+# plain version under the bounds of test_layer_norm_kernel_matches_plain.
+@pytest.mark.parametrize("rms", [False, True], ids=["layernorm", "rmsnorm"])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("w", [512, 768, 1024, 1280, 2048])
+@pytest.mark.parametrize("rows", [1, 3, 4099, 19200])
+def test_norm_forward_at_path_widths(cuda, rows, w, dtype, rms):
+    rng = np.random.default_rng(rows + w)
+    x, scale, bias = (torch.from_numpy(a.astype(np.float32)).to(cuda) for a in
+                      (rng.standard_normal((rows, w)) * 3 + 1,
+                       rng.standard_normal(w), rng.standard_normal(w)))
+    xd = x.to(dtype)
+    if rms:
+        got, want = ln.rms_norm_fwd(xd, scale), ln.rms_norm_plain(xd, scale)
+        want32 = ln.rms_norm_plain(xd.float(), scale)
+    else:
+        got = layer_norm_fwd(xd, scale, bias)
+        want = layer_norm_plain(xd, scale, bias)
+        want32 = layer_norm_plain(xd.float(), scale, bias)
+    assert got.dtype == dtype and got.shape == (rows, w)
+    tol = (1e-5, 1e-5) if dtype == torch.float32 else (8e-3, 4e-3)
+    torch.testing.assert_close(got, want, rtol=tol[0], atol=tol[1])
+    if dtype == torch.bfloat16:
+        torch.testing.assert_close(got.float(), want32, rtol=2e-2, atol=2e-2)
 
 
 def test_rms_norm_autograd_runs_both_kernels(cuda):

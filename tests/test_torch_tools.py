@@ -16,6 +16,9 @@ from megatron_clip_tpu_torch.tools.profile_train import (_category,
 
 _D = "mct::Dropout"
 _FLASH_VIEW = "(anonymous namespace)::View<__nv_bfloat16 const>"
+_SHORT = "mct::attn_short::Maps, mct::attn_short::Args"
+_LN = ("__nv_bfloat16 const*, float const*, float const*, __nv_bfloat16*, "
+       "long, int, float")
 _SPLIT = ("(anonymous namespace)::hop::SplitMaps, (anonymous namespace)::"
           "hop::SplitArgs")
 
@@ -85,6 +88,31 @@ _SPLIT = ("(anonymous namespace)::hop::SplitMaps, (anonymous namespace)::"
      "fused CE fwd (fused_ce.cu)"),
     ("(anonymous namespace)::fused_ce_combine(float const*, float const*, "
      "float const*, int, int, float*, float*)", "fused CE fwd (fused_ce.cu)"),
+    # the one-pass forward at S <= 128: fwd<keys, mode>
+    (f"void mct::attn_short::fwd<64, 0>({_SHORT})",
+     "attention fwd (fused_mha.cu)"),
+    (f"void mct::attn_short::fwd<80, 1>({_SHORT})",
+     "attention fwd (fused_mha.cu)"),
+    (f"void mct::attn_short::fwd<80, 2>({_SHORT})",
+     "attention fwd (fused_mha.cu)"),
+    (f"void mct::attn_short::fwd<128, 1>({_SHORT})",
+     "attention fwd (fused_mha.cu)"),
+    # the persistent norm forward: ln_fwd<T, lanes, chunks, exact, RMS>, a
+    # LayerNorm whose exact chunk count puts `true` before its last argument
+    (f"void (anonymous namespace)::ln_fwd<__nv_bfloat16, 32, 3, true, "
+     f"false>({_LN})", "layernorm fwd (layernorm.cu)"),
+    (f"void (anonymous namespace)::ln_fwd<__nv_bfloat16, 16, 4, true, "
+     f"false>({_LN})", "layernorm fwd (layernorm.cu)"),
+    (f"void (anonymous namespace)::ln_fwd<float, 32, 8, false, false>("
+     f"{_LN})", "layernorm fwd (layernorm.cu)"),
+    (f"void (anonymous namespace)::ln_fwd<__nv_bfloat16, 32, 4, true, "
+     f"true>({_LN})", "rmsnorm fwd (layernorm.cu)"),
+    (f"void (anonymous namespace)::ln_fwd<float, 32, 2, false, true>("
+     f"{_LN})", "rmsnorm fwd (layernorm.cu)"),
+    ("void (anonymous namespace)::ln_fwd_any<__nv_bfloat16, false>("
+     "float)", "layernorm fwd (layernorm.cu)"),
+    ("void (anonymous namespace)::ln_fwd_any<float, true>(float)",
+     "rmsnorm fwd (layernorm.cu)"),
     ("void (anonymous namespace)::ln_fwd<__nv_bfloat16, true>(float)",
      "rmsnorm fwd (layernorm.cu)"),
     ("void (anonymous namespace)::ln_bwd<__nv_bfloat16, false>(float)",
@@ -110,6 +138,11 @@ def test_every_port_kernel_lands_in_its_column(name, category):
      "void (anonymous namespace)::hop::bwd_dq<64, false>"),
     (f"void (anonymous namespace)::hop::bwd_dkv<128, true>({_SPLIT}, {_D})",
      "void (anonymous namespace)::hop::bwd_dkv<128, true>"),
+    (f"void mct::attn_short::fwd<80, 1>({_SHORT})",
+     "void mct::attn_short::fwd<80, 1>"),
+    (f"void (anonymous namespace)::ln_fwd<__nv_bfloat16, 16, 4, true, "
+     f"false>({_LN})",
+     "void (anonymous namespace)::ln_fwd<__nv_bfloat16, 16, 4, true, false>"),
 ])
 def test_profile_labels_keep_the_template_arguments(name, label):
     assert _kernel_label(name) == label
