@@ -27,18 +27,22 @@ imports nothing of JAX or of the JAX package. Phases, each of which raises
      bf16 fused forward and its dropout twin also row by row (one bf16 ulp
      of P on every term of a row plus an output ulp); the one-pass forward
      at S <= 128, D = 64 (csrc/attn_short_sm90.cuh) at S = 1 to 128, both
-     masks, and at the S = 77 paths' batches; then
+     masks, and at the S = 77 paths' batches; the one-pass backward in both
+     modes (csrc/attn_short_bwd_sm90.cuh) at S = 1 to 128, both masks, and
+     at the S <= 128 paths' shapes, beside tc::'s pair on the same inputs;
+     then
      every attention kernel on the [B, S, *] view of S-major storage, which
      must give exactly what the contiguous tensor gives; and the wgmma
      forwards (csrc/attn_fwd_sm90.cuh: the fused forward past S = 128, the
      bf16 flash forward at D = 64 and 128) built to leave out the last key
      of every 128-key tile, in the whole sequence or its late half, and the
      one-pass forward built to leave out each row's last unmasked key, each
-     failing its bounds; the bf16 recompute backward's gradients also row by
-     row, and its wgmma kernels (csrc/attn_bwd_sm90.cuh) and the wgmma
-     split flash pair (B=1 S=8192 H=16, D=64 and D=128 with dropout) built
-     to leave out the last key or query of every tile, failing the row
-     bound;
+     failing its bounds; the bf16 gradients of both fused backwards also
+     row by row, and the recompute backward's wgmma kernels
+     (csrc/attn_bwd_sm90.cuh), the one-pass backward (each row's last key,
+     each key's last query) and the wgmma split flash pair (B=1 S=8192
+     H=16, D=64 and D=128 with dropout) built to leave out the last key or
+     query of every tile, failing the row bound;
   4. goldens: full-width ViT-B-32-quickgelu in fp32, weights rebuilt from
      tests/goldens/full/vitb32.npz's manifest, against open_CLIP's features
      (atol 1e-4);
@@ -57,8 +61,8 @@ imports nothing of JAX or of the JAX package. Phases, each of which raises
      batch-384 training shapes (the recompute backward there too, beside
      the saved-P one) and at the attention shapes of the ViT-L/14
      (batch 64) and ViT-H/14 (batch 24) legs, S-major view included, with
-     the bound from bytes and operations; at S <= 128 also the forward on
-     tc::fwd beside the one-pass kernel, in the same call;
+     the bound from bytes and operations; at S <= 128 also the forward and
+     both backwards on tc:: beside the one-pass kernels, in the same call;
   7. train: the ViT-B-32 contrastive train step of bench.py's primary leg
      (pure_bf16, batch 384, AdamW b=(0.9, 0.98) eps 1e-6 wd 0.2 with bf16
      first moments, cosine_lr(1e-3, 100, 10000), clip 1.0), 3 warm-up and
@@ -314,8 +318,9 @@ def compare_rows(label: str, got: torch.Tensor, want: torch.Tensor,
                  rel: float, floor: float) -> float:
     """Raise unless every row of `got` is within `rel` of its own norm plus
     `floor` of the rms row norm of `want` (rows_used <= 1); returns the
-    largest absolute difference."""
-    torch.cuda.synchronize()
+    largest absolute difference. CPU tensors are held by the same rule."""
+    if got.is_cuda:
+        torch.cuda.synchronize()
     if got.shape != want.shape:
         raise AssertionError(f"{label}: shape {tuple(got.shape)} != "
                              f"{tuple(want.shape)}")
@@ -539,13 +544,19 @@ def phase_build(kernels_build):
 #   plain version, so a dS near a rounding boundary can round the other way,
 #   which moves one term of dQ or dK by 2^-8 |dS K|: two bf16 ulps (rtol
 #   1.6e-2) plus 2^-7 of the largest |gradient|; against fp32 the roundings
-#   of P, dS and the outputs, 2e-2 relative plus 2^-5 of the largest.
+#   of P, dS and the outputs, 2e-2 relative plus 2^-5 of the largest. In
+#   bf16 also row by row ("rows": one query's dQ, one key's dK or dV of one
+#   head; compare_rows), as the flash gradients and for their reasons: under
+#   the causal mask the first keys' gradients are 100x the typical one's,
+#   so the largest-value floor alone would let a fault through in most
+#   rows; a dS rounded the other way moves one term of a row by an ulp of
+#   it, under 1e-2 of the row: 1e-2 of the row's norm plus 1e-4 of the rms
+#   row norm, 2e-2 against the fp32 plain version (the roundings of dS
+#   themselves). The same (rel, floor) as the recompute rows below.
 # - fused_mha_bwd_recompute: the same bounds and reasons; its P is fp32 on
 #   both sides, rounded only for dV, where a flip moves one term by an ulp.
-#   In bf16 also row by row ("rows": one query's dQ, one key's dK or dV of
-#   one head; compare_rows), as the flash gradients and for their reasons:
-#   1e-2 of the row's norm plus 1e-4 of the rms row norm, 2e-2 against the
-#   fp32 plain version. bwd_teeth shows what a wrong kernel reads.
+#   In bf16 also row by row, as the saved-P rows. bwd_teeth shows what a
+#   wrong kernel reads.
 # - fused_mha_fwd stats, each row's max scaled score and softmax sum: fp32
 #   sums of up to 1,024 exponentials in another order than the plain
 #   version's, rescaled once per key tile (128 keys on wgmma, 64 on
@@ -626,6 +637,9 @@ TOLERANCES = {
     "fused_mha_fwd rows": {"bf16": 1.0},
     "fused_mha_bwd": {"fp32": (2e-4, 2e-4), "bf16": (0.0, 1.6e-2, 2 ** -7),
                       "bf16_vs_fp32_plain": (0.0, 2e-2, 2 ** -5)},
+    # bf16 saved-P gradients: (rel, floor) of compare_rows
+    "fused_mha_bwd rows": {"bf16": (1e-2, 1e-4),
+                           "bf16_vs_fp32_plain": (2e-2, 1e-4)},
     "fused_mha_bwd_recompute": {
         "fp32": (2e-4, 2e-4), "bf16": (0.0, 1.6e-2, 2 ** -7),
         "bf16_vs_fp32_plain": (0.0, 2e-2, 2 ** -5)},
@@ -720,7 +734,7 @@ def mha_parts(dqkv: torch.Tensor, heads: int):
 
 def check_mha_rows(errs: dict, name: str, label: str, got: torch.Tensor,
                    plain, heads: int) -> None:
-    """A bf16 packed recompute gradient against plain(dtype) row by row
+    """A bf16 packed gradient against plain(dtype) row by row
     (compare_rows, TOLERANCES[name + " rows"]), dq, dk and dv each."""
     key = f"{name} rows"
     for kind, dt in (("bf16", torch.bfloat16),
@@ -802,6 +816,74 @@ def one_pass_checks(errs, gen, mha) -> None:
     torch.cuda.empty_cache()
 
 
+# the one-pass backward's edges (csrc/attn_short_bwd_sm90.cuh: S <= 128,
+# D = 64, a whole head per block) at B = 2, H = 3, both masks; and the
+# S <= 128 paths' own shapes, (B, S, H, causal): ViT-B/32's towers (saved P
+# on its path) and the ViT-L/14 and ViT-H/14 text towers (recompute)
+ONE_PASS_BWD_LENGTHS = (1, 7, 50, 64, 65, 77, 128)
+ONE_PASS_BWD_PATHS = ((TRAIN_BATCH, 50, 12, False), (TRAIN_BATCH, 77, 8, True),
+                      (64, 77, 12, True), (24, 77, 16, True))
+
+
+def one_pass_bwd_checks(errs, gen, mha) -> None:
+    """Both backwards asked for by route, the one-pass kernel and tc::'s
+    pair, on the same inputs: the saved-P backward from the plain forward's
+    P, the recompute backward from the kernel forward's statistics, each
+    held against its plain version as phase 3 holds the routed kernels
+    (elementwise, row by row, and against the fp32 plain version); the
+    one-pass kernel's second run, its run on the S-major view and (saved P)
+    its run on a P whose first and last bytes lie off 16-byte boundaries
+    must give its first run's bits."""
+    dt, d = torch.bfloat16, 64
+    scale = d ** -0.5
+    cases = [(2, s, 3, c) for s in ONE_PASS_BWD_LENGTHS for c in (False, True)]
+    for b, s, h, causal in cases + list(ONE_PASS_BWD_PATHS):
+        x = torch.randn(b, s, 3 * h * d, device="cuda", generator=gen,
+                        dtype=dt)
+        g = torch.randn(b, s, h * d, device="cuda", generator=gen, dtype=dt)
+        views = [t.transpose(0, 1).contiguous().transpose(0, 1)
+                 for t in (x, g)]
+        _, p = mha.fused_mha_plain(x, h, scale, causal, with_probs=True)
+        # the same P an element into a larger buffer
+        p_off = torch.empty(p.numel() + 8, device="cuda", dtype=dt)[
+            1:1 + p.numel()].view_as(p).copy_(p)
+        _, stats = mha.fused_mha_fwd(x, h, causal=causal, with_stats=True)
+        modes = {
+            "fused_mha_bwd": (
+                lambda xx, gg, route: mha.fused_mha_bwd(
+                    xx, gg, p, h, causal=causal, route=route),
+                lambda dt: mha.fused_mha_bwd_plain(x.to(dt), g.to(dt),
+                                                   p.to(dt), h, scale)),
+            "fused_mha_bwd_recompute": (
+                lambda xx, gg, route: mha.fused_mha_bwd_recompute(
+                    xx, gg, stats, h, causal=causal, route=route),
+                lambda dt: mha.fused_mha_bwd_recompute_plain(
+                    x.to(dt), g.to(dt), h, scale, causal))}
+        for name, (run, plain) in modes.items():
+            plain = functools.lru_cache(None)(plain)
+            for route in ("one_pass", "tc"):
+                label = f"B={b} S={s} H={h} D={d} causal={causal} {route}"
+                got = run(x, g, route)
+                check_kernel(errs, name, label, got, plain)
+                check_mha_rows(errs, name, label, got, plain, h)
+                if route == "one_pass":
+                    again, view = run(x, g, route), run(*views, route)
+                    shifted = again if name != "fused_mha_bwd" else (
+                        mha.fused_mha_bwd(x, g, p_off, h, causal=causal,
+                                          route=route))
+                    torch.cuda.synchronize()
+                    if not (torch.equal(again, got) and
+                            torch.equal(view, got) and
+                            torch.equal(shifted, got)):
+                        raise AssertionError(
+                            f"{name} {label}: a second run, the S-major "
+                            "view or P off its alignment differs from the "
+                            "first run")
+                del got
+        del x, g, views, p, p_off, stats
+    torch.cuda.empty_cache()
+
+
 # the attention shapes of phase 8's legs: (leg, tower, B, S, H, D, causal)
 LEG_ATTENTION = (("ViT-L/14", "vision", 64, 257, 16, 64, False),
                  ("ViT-L/14", "text", 64, 77, 12, 64, True),
@@ -816,8 +898,9 @@ def smajor_views(mha, gen) -> None:
     equal, and the outputs come back S-major. The bf16 forwards and
     recompute backwards at S = 257, D = 64 and 80 and S = 512, D = 128 run
     on wgmma (csrc/attn_fwd_sm90.cuh, csrc/attn_bwd_sm90.cuh), the bf16
-    forwards at S = 50 and 77, D = 64 on the one-pass kernel
-    (csrc/attn_short_sm90.cuh), the others on mma.sync."""
+    forwards and backwards at S = 50 and 77, D = 64 on the one-pass kernels
+    (csrc/attn_short_sm90.cuh, csrc/attn_short_bwd_sm90.cuh), the others on
+    mma.sync."""
     for b, s, h, d, causal in [(8, 257, 16, 80, False), (8, 77, 16, 64, True),
                                (8, 50, 12, 64, False),
                                (3, 33, 2, 40, True), (8, 257, 16, 64, False),
@@ -1520,6 +1603,13 @@ def fwd_teeth(kernels_build, gen, mha) -> None:
 BWD_TEETH = ((2, 512, 16, 128, True, DROPOUT_RATE),
              (4, 257, 16, 64, False, 0.0),
              (24, 257, 16, 80, False, 0.0))
+# the one-pass backward's (csrc/attn_short_bwd_sm90.cuh, S <= 128):
+# ViT-B/32's vision tower (S = 50, H = 12) and text tower (S = 77, H = 8,
+# causal) from saved P, ViT-L/14's text tower (S = 77, H = 12, causal)
+# recomputing P; each (B, S, H, D, causal, saved P)
+BWD_TEETH_ONE_PASS = ((64, 50, 12, 64, False, True),
+                      (64, 77, 8, 64, True, True),
+                      (64, 77, 12, 64, True, False))
 # the split flash pair's: GPT-345m's heads at S = 8192 (rate 0) and the
 # pipeline GPT's (D = 128, rate 0.1), causal on the packed projection's head
 # views; each (B, S, H, D, rate)
@@ -1527,18 +1617,21 @@ FLASH_SPLIT_TEETH = ((1, 8192, 16, 64, 0.0), (1, 8192, 16, 128, DROPOUT_RATE))
 
 
 def bwd_teeth(kernels_build, gen, mha) -> None:
-    """The wgmma recompute backward and the wgmma split flash pair built
-    wrong on purpose (TILE_FAULTS), as an off-by-one at a tile's bound
-    would: part 1 and the dQ kernel leave the last key of every key tile
-    out of dQ (part 1 also of delta), part 2 and the dKV kernel the last
-    query of every 64-query tile out of dK and dV, in the whole sequence or
-    in the tiles of its late half. Run through the same wrappers on the
-    plain forward's statistics (flash: lse and delta) and held against the
+    """The wgmma recompute backward, the one-pass backward at S <= 128 and
+    the wgmma split flash pair built wrong on purpose (TILE_FAULTS), as an
+    off-by-one at a tile's bound would: part 1 and the dQ kernel leave the
+    last key of every key tile out of dQ (part 1 also of delta), part 2 and
+    the dKV kernel the last query of every 64-query tile out of dK and dV,
+    in the whole sequence or in the tiles of its late half; the one-pass
+    kernel leaves each query row's last unmasked key out of its delta and
+    dS and each key's last query out of its dK and dV, in every row or in
+    the rows of the late half. Run through the same wrappers on the plain
+    forward's statistics or P (flash: lse and delta) and held against the
     plain backward, each of dQ, dK and dV must fail the row bound that
     phase 3 holds the right kernels to; beside it is logged what a bound
-    scaled by the largest |value| reads (the recompute backward's bf16
-    bound of TOLERANCES; for flash, as flash_bwd_teeth, 2^-7 of it plus
-    rtol 1.6e-2)."""
+    scaled by the largest |value| reads (the fused backwards' bf16 bounds
+    of TOLERANCES; for flash, as flash_bwd_teeth, 2^-7 of it plus rtol
+    1.6e-2)."""
     from megatron_clip_tpu_torch.ops.dropout import AttentionDropout
     from megatron_clip_tpu_torch.ops.kernels import flash_attention as fa
     dt = torch.bfloat16
@@ -1567,6 +1660,30 @@ def bwd_teeth(kernels_build, gen, mha) -> None:
                        qkv, g, stats, h, drop, causal=causal))
         cases.append((f"B={b} S={s} H={h} D={d} causal={causal} "
                       f"rate={rate}", dict.fromkeys(("dq", "dk", "dv"), name),
+                      lambda run=run, h=h: mha_parts(run(), h),
+                      mha_parts(want, h)))
+    for b, s, h, d, causal, saved in BWD_TEETH_ONE_PASS:
+        qkv = torch.randn(b, s, 3 * h * d, device="cuda", generator=gen,
+                          dtype=dt)
+        g = torch.randn(b, s, h * d, device="cuda", generator=gen, dtype=dt)
+        if saved:
+            _, p = mha.fused_mha_plain(qkv, h, d ** -0.5, causal,
+                                       with_probs=True)
+            name, want = "fused_mha_bwd", mha.fused_mha_bwd_plain(
+                qkv, g, p, h, d ** -0.5)
+            run = (lambda qkv=qkv, g=g, p=p, h=h, causal=causal:
+                   mha.fused_mha_bwd(qkv, g, p, h, causal=causal))
+        else:
+            _, stats = mha.fused_mha_plain(qkv, h, d ** -0.5, causal,
+                                           with_stats=True)
+            name, want = ("fused_mha_bwd_recompute",
+                          mha.fused_mha_bwd_recompute_plain(
+                              qkv, g, h, d ** -0.5, causal))
+            run = (lambda qkv=qkv, g=g, stats=stats, h=h, causal=causal:
+                   mha.fused_mha_bwd_recompute(qkv, g, stats, h,
+                                               causal=causal))
+        cases.append((f"B={b} S={s} H={h} D={d} causal={causal} one pass",
+                      dict.fromkeys(("dq", "dk", "dv"), name),
                       lambda run=run, h=h: mha_parts(run(), h),
                       mha_parts(want, h)))
     for b, s, h, d, rate in FLASH_SPLIT_TEETH:
@@ -1709,10 +1826,15 @@ def phase_kernels(mha, ln):
             # the backward from the plain version's P, so that it alone is
             # compared; the recompute from the kernel's own statistics
             p = plain(dtype, True)[1]
-            check_kernel(errs, "fused_mha_bwd", label,
-                         mha.fused_mha_bwd(x, g, p, h, causal=causal),
-                         lambda dt: mha.fused_mha_bwd_plain(
-                             x.to(dt), g.to(dt), p.to(dt), h, scale))
+            bwd_plain = functools.lru_cache(None)(
+                lambda dt: mha.fused_mha_bwd_plain(x.to(dt), g.to(dt),
+                                                   p.to(dt), h, scale))
+            got = mha.fused_mha_bwd(x, g, p, h, causal=causal)
+            check_kernel(errs, "fused_mha_bwd", label, got, bwd_plain)
+            if dtype == torch.bfloat16:
+                check_mha_rows(errs, "fused_mha_bwd", label, got, bwd_plain,
+                               h)
+            del got, bwd_plain
             rc_plain = functools.lru_cache(None)(
                 lambda dt: mha.fused_mha_bwd_recompute_plain(
                     x.to(dt), g.to(dt), h, scale, causal))
@@ -1724,6 +1846,7 @@ def phase_kernels(mha, ln):
                                rc_plain, h)
             del got, rc_plain
     one_pass_checks(errs, gen, mha)
+    one_pass_bwd_checks(errs, gen, mha)
     smajor_views(mha, gen)
     flash_checks(errs, gen)
     flash_views(gen)
@@ -1907,17 +2030,16 @@ def timing_row(kernel: str, shape: str, fn, plain, library, cost,
     return row
 
 
-def add_route_times(row: dict, mha, x, h: int, causal: bool,
-                    **mode) -> None:
-    """At S <= 128, D = 64 (the one-pass kernel's shapes): the forward's
-    time on each kernel that can take the shape, in this call beside the
-    row's own (the route fused_mha.cu picks): tc::fwd and the one-pass
-    kernel. Kept in row["routes_ms"]."""
+def add_route_times(row: dict, fn, x, h: int) -> None:
+    """At S <= 128, D = 64 (the one-pass kernels' shapes): the time of
+    fn(route), a forward or a backward, on each kernel that can take the
+    shape, in this call beside the row's own (the route fused_mha.cu
+    picks): tc:: and the one-pass kernel. Kept in row["routes_ms"]."""
     s, d = x.shape[1], x.shape[2] // (3 * h)
     if s > 128 or d != 64:
         return
-    row["routes_ms"] = {r: cuda_ms(lambda r=r: mha.fused_mha_fwd(
-        x, h, causal=causal, route=r, **mode)) for r in ("tc", "one_pass")}
+    row["routes_ms"] = {r: cuda_ms(lambda r=r: fn(r))
+                        for r in ("tc", "one_pass")}
     log("    on each kernel: " + ", ".join(
         f"{r} {ms:.4f} ms" for r, ms in row["routes_ms"].items()))
 
@@ -1955,7 +2077,8 @@ def leg_attention_rows(mha, gen, leg, tower, b, s, h, d, causal) -> list:
             lambda: mha.fused_mha_plain(x, h, d ** -0.5, causal,
                                         with_stats=True),
             sdpa_fwd, mha_cost(b, s, h, d, causal, 2, with_stats=True), dt))
-        add_route_times(rows[-1], mha, x, h, causal, with_stats=True)
+        add_route_times(rows[-1], lambda r: mha.fused_mha_fwd(
+            x, h, causal=causal, with_stats=True, route=r), x, h)
         rows.append(timing_row(
             "fused_mha_bwd_recompute", shape + tag,
             lambda: mha.fused_mha_bwd_recompute(x, g, stats, h,
@@ -1964,6 +2087,8 @@ def leg_attention_rows(mha, gen, leg, tower, b, s, h, d, causal) -> list:
                                                       causal),
             sdpa_bwd, mha_bwd_cost(b, s, h, d, causal, 2, recompute=True),
             dt))
+        add_route_times(rows[-1], lambda r: mha.fused_mha_bwd_recompute(
+            x, g, stats, h, causal=causal, route=r), x, h)
         if len(views) == 2 and not tag:
             _, p = mha.fused_mha_fwd(x, h, causal=causal, with_probs=True)
             rows.append(timing_row(
@@ -2316,7 +2441,8 @@ def phase_timings(mha, ln):
                 lambda: F.scaled_dot_product_attention(q, k, v,
                                                        is_causal=causal),
                 mha_cost(b, s, h, d, causal, 2, with_probs=train), dt))
-            add_route_times(rows[-1], mha, qkv, h, causal, with_probs=train)
+            add_route_times(rows[-1], lambda r: mha.fused_mha_fwd(
+                qkv, h, causal=causal, with_probs=train, route=r), qkv, h)
             if not train:
                 continue
             do = torch.randn(b, s, h * d, device="cuda", generator=gen,
@@ -2332,6 +2458,8 @@ def phase_timings(mha, ln):
                 lambda: mha.fused_mha_bwd(qkv, do, p, h, causal=causal),
                 lambda: mha.fused_mha_bwd_plain(qkv, do, p, h, d ** -0.5),
                 sdpa_bwd, mha_bwd_cost(b, s, h, d, causal, 2), dt))
+            add_route_times(rows[-1], lambda r: mha.fused_mha_bwd(
+                qkv, do, p, h, causal=causal, route=r), qkv, h)
             # the recompute backward at the same shape, for comparison
             _, stats = mha.fused_mha_fwd(qkv, h, causal=causal,
                                          with_stats=True)
@@ -2343,6 +2471,8 @@ def phase_timings(mha, ln):
                     qkv, do, h, d ** -0.5, causal),
                 sdpa_bwd, mha_bwd_cost(b, s, h, d, causal, 2,
                                        recompute=True), dt))
+            add_route_times(rows[-1], lambda r: mha.fused_mha_bwd_recompute(
+                qkv, do, stats, h, causal=causal, route=r), qkv, h)
     for leg, tower, b, s, h, d, causal in LEG_ATTENTION:
         rows.extend(leg_attention_rows(mha, gen, leg, tower, b, s, h, d,
                                        causal))
@@ -2426,8 +2556,8 @@ KERNEL_META = {
 
 
 # the device kernels behind a wrapper, by the shapes each takes (the
-# routes of csrc/fused_mha.cu's mct_fused_mha_fwd and csrc/layernorm.cu's
-# launch)
+# routes of csrc/fused_mha.cu's mct_fused_mha_fwd, mct_fused_mha_bwd and
+# mct_fused_mha_bwd_recompute and csrc/layernorm.cu's launch)
 ROUTES = {
     "fused_mha_fwd": {
         "bf16, S <= 128, D = 64, no dropout": "attn_short::fwd, one pass, a "
@@ -2435,6 +2565,18 @@ ROUTES = {
         "bf16, S > 128, D = 64, 80, 128": "attn_fwd::fwd, two-pass wgmma "
         "(csrc/attn_fwd_sm90.cuh)",
         "other bf16": "tc::fwd (mma.sync)", "fp32": "simt::fwd"},
+    "fused_mha_bwd": {
+        "bf16, S <= 128, D = 64": "attn_short_bwd::bwd, one pass, a head "
+        "per persistent block (csrc/attn_short_bwd_sm90.cuh)",
+        "other bf16": "tc::bwd_dq + tc::bwd_dkdv (mma.sync)",
+        "fp32": "simt::"},
+    "fused_mha_bwd_recompute": {
+        "bf16, S <= 128, D = 64": "attn_short_bwd::bwd, one pass, a head "
+        "per persistent block (csrc/attn_short_bwd_sm90.cuh)",
+        "bf16, S > 128, D = 64, 80, 128": "attn_bwd::bwd_dq + "
+        "attn_bwd::bwd_dkdv, wgmma (csrc/attn_bwd_sm90.cuh)",
+        "other bf16": "tc::bwd_dq_rc + tc::bwd_dkdv_rc (mma.sync)",
+        "fp32": "simt::"},
     **{name: {"rows of 16-byte multiples up to 2048 bf16 / 1024 fp32":
               "ln_fwd, persistent, double-buffered registers (exact chunk "
               "counts at W = 512, 768, 1024, 1280, 2048 in bf16)",

@@ -78,11 +78,13 @@
 // denominator (online rescaling), pass 2 recomputes the scores, forms the
 // normalised probabilities, rounds them exactly where the TPU kernel does,
 // and accumulates P.V. A causal block stops at the key tile of its last row.
-// The backward is two kernels, so that no sum crosses blocks and no float
-// atomics make dqkv differ from run to run: part 1 owns query rows, sums
-// delta over all their key tiles and then accumulates dQ, and writes delta
-// to a [B*H*S] fp32 scratch; part 2 owns keys and accumulates dK and dV over
-// the query tiles (from its first key on, when causal), reading delta.
+// Past S = 128 (and at S <= 128 where the one-pass backward below does not
+// run) the backward is two kernels, so that no sum crosses blocks and no
+// float atomics make dqkv differ from run to run: part 1 owns query rows,
+// sums delta over all their key tiles and then accumulates dQ, and writes
+// delta to a [B*H*S] fp32 scratch; part 2 owns keys and accumulates dK and
+// dV over the query tiles (from its first key on, when causal), reading
+// delta.
 //
 // - The forward in bf16 at S <= 128, D = 64 (every mode; the serving
 //   forward, ViT-B/32's saved-P training, the text towers with row
@@ -108,6 +110,27 @@
 //   PERF.md §6). The S-major views take it too (TMA reads strided rows;
 //   bit-equal to the contiguous run). Dropout, fp32, other D and operands
 //   TMA cannot read stay on tc:: / simt:: below.
+// - Both backwards in bf16 at S <= 128, D = 64, without dropout (ViT-B/32's
+//   training from saved P, the ViT-L/14 and ViT-H/14 text towers
+//   recomputing P), replacing tc::'s pairs there: attn_short_bwd_sm90.cuh's
+//   one-pass kernel, one template for both modes (they differ only in
+//   where P comes from). What bounds it is bytes (248 MB, 0.0741 ms at
+//   ViT-B/32's text tower, B = 384); tc::'s pairs took 4.2x-7.1x that
+//   (0.2897 / 0.4351 ms at B/32's towers, PERF.md §6): two launches, K and
+//   V read by both kernels, delta through a device-memory scratch, 4-byte
+//   stores from the fragments. The one-pass kernel gives a head to one
+//   persistent block: one launch, q, k, v and dO as TMA boxes and the saved
+//   P as one bulk copy of its span's aligned bytes, delta a quad-shuffle sum
+//   in registers, bf16(P) and dS staged in shared memory for dV = P^T dO
+//   and dK = dS^T Q, dq, dk and dv out in 16-byte stores; no atomics.
+//   Products on wgmma at S <= 64, mma.sync past it (that header's note has
+//   the design and the A/B). route 1 asks for it, route 2 for tc::, and
+//   mct_fused_mha_bwd_needs_delta tells the wrappers whether a call's
+//   kernel keeps the delta scratch, so the choice lives here alone. Phase 6
+//   of chip_smoke.py (NVIDIA H100 80GB HBM3, 700 W): 0.0958 / 0.1020 ms at
+//   ViT-B/32's towers from saved P (tc:: 0.2907 / 0.4379 in the same call,
+//   SDPA's backward 0.2585 / 0.2602), 0.0325 / 0.0160 ms at the ViT-L/14 /
+//   ViT-H/14 text towers recomputing P (tc:: 0.1006 / 0.0564).
 // - The forward in bf16 at D = 64, 80 and 128 past S = 128 (ViT-L/14's
 //   and ViT-H/14's vision towers, the pipeline GPT's S = 512 with dropout;
 //   with row statistics on the recompute paths, with P or with neither
@@ -127,11 +150,14 @@
 //   0.0992 ms at ViT-H/14's B = 24, S = 257, H = 16, D = 80 (tc::fwd
 //   0.1646 before; SDPA 0.0646). Other D and operands TMA cannot read stay
 //   on tc:: below.
-// - tc:: (bf16, D a multiple of 8, 16-byte aligned rows; the backwards at
-//   S <= 128, and the forward where the kernels above do not run: dropout
-//   at S <= 128, D other than 64 there, operands TMA cannot read): one block per (64 rows, head, batch), 4 warps of 16
-//   rows. Tiles of 64 rows are staged in shared memory with 16-byte loads
-//   (rows padded by 16 bytes so ldmatrix is conflict-free), and every
+// - tc:: (bf16, D a multiple of 8, 16-byte aligned rows): the saved-P
+//   backward past S = 128 (ViT-L/14's vision tower, a comparison leg off
+//   the main paths), and wherever the kernels above do not run: dropout at
+//   S <= 128 (the forward and the recompute backward), D other than 64
+//   there, operands TMA cannot read, and the A/Bs' route 2. One block per
+//   (64 rows, head, batch), 4 warps of 16 rows. Tiles of 64 rows are
+//   staged in shared memory with 16-byte loads (rows padded by 16 bytes so
+//   ldmatrix is conflict-free), and every
 //   product runs on the tensor cores as mma.sync m16n8k16 bf16 with fp32
 //   accumulation. In the forward the score accumulators become P's
 //   A-operand fragments in registers (rounded to bf16 there); pass 2 walks
@@ -164,10 +190,9 @@
 //   pipeline GPT's B = 32, S = 512, D = 128, causal, rate 0 and 0.1
 //   (tc:: 1.4166 and 1.7338; SDPA 0.5225 and 0.5234), 0.2332 ms at
 //   ViT-H/14's B = 24, S = 257, D = 80 (tc:: 0.4674 before; SDPA's
-//   backward 0.19 to 0.31 between runs). S <= 128 (the text towers: ViT-L/14's
-//   B = 64, S = 77 in 0.1048 ms on tc::, SDPA 0.3895), other D and
-//   operands TMA cannot read stay on tc:: below; fp32 and any other bf16
-//   case on simt::.
+//   backward 0.19 to 0.31 between runs). S <= 128 (the text towers) runs
+//   the one-pass kernel above; other D and operands TMA cannot read stay
+//   on tc:: below; fp32 and any other bf16 case on simt::.
 // - tc::'s recompute backward keeps the saved-P backward's shape: part 1
 //   stages q, dO, k and v tiles, takes every operand from shared memory
 //   (one ldmatrix per k-chunk) and runs S = Q K^T and dP = dO V^T in both
@@ -179,14 +204,12 @@
 //   dV, P^T and dP^T fit the registers at D = 128. Shared memory 70 KB at
 //   D = 128 for both parts. On the CUDA cores the saved-P kernels take the
 //   recompute as a template switch.
-//
-// One backward kernel for S <= 64 (a whole head per block, as the forward
-// at S <= 128) is later work.
 #include <math_constants.h>
 #include <stdint.h>
 
 #include "attn_bwd_sm90.cuh"
 #include "attn_fwd_sm90.cuh"
+#include "attn_short_bwd_sm90.cuh"
 #include "attn_short_sm90.cuh"
 #include "common.cuh"
 #include "mma_tiles.cuh"
@@ -1749,6 +1772,32 @@ bool valid_shape(int B, int S, int H, int D) {
          D <= kMaxD;
 }
 
+// Whether the one-pass backward (attn_short_bwd_sm90.cuh) takes a call:
+// bf16 operands TMA can read, S <= 128, D = 64, no dropout.
+bool one_pass_bwd(int dtype, int S, int D, const Dropout* drop,
+                  std::initializer_list<const void*> ptrs,
+                  std::initializer_list<long long> strides) {
+  return dtype == mct::kBFloat16 && S <= mct::attn_short::kMaxS &&
+         D == mct::attn_short::kD && drop == nullptr &&
+         mct::attn_fwd::aligned(ptrs, strides);
+}
+
+// Its arguments but the mode's (probs, or row_max and row_sum).
+mct::attn_short_bwd::Args one_pass_args(void* dqkv, long long dq_b,
+                                        long long dq_s, int B, int S, int H,
+                                        float scale, int causal) {
+  mct::attn_short_bwd::Args a{};
+  a.dqkv = static_cast<__nv_bfloat16*>(dqkv);
+  a.db = dq_b;
+  a.ds = dq_s;
+  a.B = B;
+  a.H = H;
+  a.S = S;
+  a.causal = causal;
+  a.scale = scale;
+  return a;
+}
+
 }  // namespace
 
 // Pointers and (batch, sequence) element strides of the [B, S, *] operands;
@@ -1848,42 +1897,82 @@ extern "C" int mct_fused_mha_fwd(const void* qkv, long long qkv_b,
                                           H, D, scale, causal, dr, st);
 }
 
+
+// Whether the backward below (either mode) keeps delta in a [B*H*S] fp32
+// scratch on `route` for these operands: every kernel but the one-pass one,
+// which the caller's delta may then be null for. The wrappers ask before
+// they allocate one, so the kernel choice stays in this file.
+extern "C" int mct_fused_mha_bwd_needs_delta(
+    const void* qkv, long long qkv_b, long long qkv_s, const void* dout,
+    long long do_b, long long do_s, const void* dqkv, long long dq_b,
+    long long dq_s, int S, int D, int dtype, int drop, int route) {
+  const Dropout any{};
+  return !(route == 1 ||
+           (route == 0 &&
+            one_pass_bwd(dtype, S, D, drop ? &any : nullptr,
+                         {qkv, dout, dqkv},
+                         {qkv_b, qkv_s, do_b, do_s, dq_b, dq_s})));
+}
+
 // Backward from the forward's P: dqkv [B, S, 3*H*D] (every element
-// written), delta [B*H*S] fp32 scratch. Two launches.
+// written). route as the forward's: 0 the shape's kernel, 1 the one-pass
+// kernel (bf16, S <= 128, D = 64: one launch, delta in registers, so delta
+// may be null), 2 tc::'s pair; an error where the kernel asked for cannot
+// take the shape. The other kernels keep delta in a [B*H*S] fp32 scratch
+// (two launches).
 extern "C" int mct_fused_mha_bwd(const void* qkv, long long qkv_b,
                                  long long qkv_s, const void* dout,
                                  long long do_b, long long do_s,
                                  const void* probs, void* dqkv,
                                  long long dq_b, long long dq_s, void* delta,
                                  int B, int S, int H, int D, float scale,
-                                 int causal, int dtype, void* stream) {
-  if (!valid_shape(B, S, H, D)) return (int)cudaErrorInvalidValue;
+                                 int causal, int dtype, int route,
+                                 void* stream) {
+  if (!valid_shape(B, S, H, D) || probs == nullptr || route < 0 || route > 2)
+    return (int)cudaErrorInvalidValue;
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   const Pitch pq{qkv_b, qkv_s}, pdo{do_b, do_s}, pdq{dq_b, dq_s};
   float* dl = static_cast<float*>(delta);
-  if (dtype == mct::kFloat32)
+  const bool one_pass =
+      one_pass_bwd(dtype, S, D, nullptr, {qkv, dout, dqkv},
+                   {qkv_b, qkv_s, do_b, do_s, dq_b, dq_s});
+  if (route == 1 || (route == 0 && one_pass)) {
+    if (!one_pass) return (int)cudaErrorInvalidValue;
+    mct::attn_short_bwd::Args a =
+        one_pass_args(dqkv, dq_b, dq_s, B, S, H, scale, causal);
+    a.probs = static_cast<const __nv_bfloat16*>(probs);
+    return (int)mct::attn_short_bwd::launch(
+        static_cast<const __nv_bfloat16*>(qkv), qkv_b, qkv_s,
+        static_cast<const __nv_bfloat16*>(dout), do_b, do_s, a, st);
+  }
+  if (dl == nullptr) return (int)cudaErrorInvalidValue;
+  if (dtype == mct::kFloat32 && route == 0)
     return (int)simt::launch_bwd<float, false>(qkv, pq, dout, pdo, probs,
                                                nullptr, nullptr, dqkv, pdq,
                                                dl, B, S, H, D, scale, causal,
                                                nullptr, st);
   if (dtype != mct::kBFloat16) return (int)cudaErrorInvalidValue;
-  if (tc::eligible(D, {qkv, dout, dqkv},
-                   {qkv_b, qkv_s, do_b, do_s, dq_b, dq_s}))
+  const bool tc_ok = tc::eligible(D, {qkv, dout, dqkv},
+                                  {qkv_b, qkv_s, do_b, do_s, dq_b, dq_s});
+  if (tc_ok)
     return (int)tc::dispatch_bwd(qkv, pq, dout, pdo, probs, dqkv, pdq, dl, B,
                                  S, H, D, scale, causal, st);
+  if (route == 2) return (int)cudaErrorInvalidValue;
   return (int)simt::launch_bwd<__nv_bfloat16, false>(
       qkv, pq, dout, pdo, probs, nullptr, nullptr, dqkv, pdq, dl, B, S, H, D,
       scale, causal, nullptr, st);
 }
 
 // Backward recomputing P from qkv and the forward's stats [2, B*H*S]:
-// dqkv and delta as above. Two launches.
+// dqkv, delta and route as above (the one-pass kernel takes no dropout).
 extern "C" int mct_fused_mha_bwd_recompute(
     const void* qkv, long long qkv_b, long long qkv_s, const void* dout,
     long long do_b, long long do_s, const void* stats, void* dqkv,
     long long dq_b, long long dq_s, void* delta, int B, int S, int H, int D,
-    float scale, int causal, int dtype, MCT_DROP_ARGS, void* stream) {
-  if (!valid_shape(B, S, H, D) || stats == nullptr)
+    float scale, int causal, int dtype, MCT_DROP_ARGS, int route,
+    void* stream) {
+  if (!valid_shape(B, S, H, D) || stats == nullptr || route < 0 ||
+      route > 2)
     return (int)cudaErrorInvalidValue;
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   const Pitch pq{qkv_b, qkv_s}, pdo{do_b, do_s}, pdq{dq_b, dq_s};
@@ -1891,12 +1980,25 @@ extern "C" int mct_fused_mha_bwd_recompute(
   const float* l = m + (long)B * H * S;
   float* dl = static_cast<float*>(delta);
   MCT_DROP;
-  if (dtype == mct::kFloat32)
+  const bool one_pass = one_pass_bwd(dtype, S, D, dr, {qkv, dout, dqkv},
+                                     {qkv_b, qkv_s, do_b, do_s, dq_b, dq_s});
+  if (route == 1 || (route == 0 && one_pass)) {
+    if (!one_pass) return (int)cudaErrorInvalidValue;
+    mct::attn_short_bwd::Args a =
+        one_pass_args(dqkv, dq_b, dq_s, B, S, H, scale, causal);
+    a.row_max = m;
+    a.row_sum = l;
+    return (int)mct::attn_short_bwd::launch(
+        static_cast<const __nv_bfloat16*>(qkv), qkv_b, qkv_s,
+        static_cast<const __nv_bfloat16*>(dout), do_b, do_s, a, st);
+  }
+  if (dl == nullptr) return (int)cudaErrorInvalidValue;
+  if (dtype == mct::kFloat32 && route == 0)
     return (int)simt::launch_bwd<float, true>(qkv, pq, dout, pdo, nullptr, m,
                                               l, dqkv, pdq, dl, B, S, H, D,
                                               scale, causal, dr, st);
   if (dtype != mct::kBFloat16) return (int)cudaErrorInvalidValue;
-  if (S > mct::attn_fwd::kN && mct::attn_fwd::fused_d(D) &&
+  if (route == 0 && S > mct::attn_fwd::kN && mct::attn_fwd::fused_d(D) &&
       mct::attn_fwd::aligned({qkv, dout, dqkv, stats, delta},
                              {qkv_b, qkv_s, do_b, do_s, dq_b, dq_s})) {
     // past one key tile (the file's note): q, k, v and dO as [B, H, S, D]
@@ -1921,10 +2023,12 @@ extern "C" int mct_fused_mha_bwd_recompute(
         {x + hd, qkv_b, D, qkv_s}, {x + 2 * hd, qkv_b, D, qkv_s},
         {g, do_b, D, do_s}, m, a, B, dr, st);
   }
-  if (tc::eligible(D, {qkv, dout, dqkv},
-                   {qkv_b, qkv_s, do_b, do_s, dq_b, dq_s}))
+  const bool tc_ok = tc::eligible(D, {qkv, dout, dqkv},
+                                  {qkv_b, qkv_s, do_b, do_s, dq_b, dq_s});
+  if (tc_ok)
     return (int)tc::dispatch_bwd_rc(qkv, pq, dout, pdo, m, l, dqkv, pdq, dl, B,
                                     S, H, D, scale, causal, dr, st);
+  if (route == 2) return (int)cudaErrorInvalidValue;
   return (int)simt::launch_bwd<__nv_bfloat16, true>(
       qkv, pq, dout, pdo, nullptr, m, l, dqkv, pdq, dl, B, S, H, D, scale,
       causal, dr, st);

@@ -10,11 +10,11 @@ rounded to qkv's dtype and the backward (`_bwd_kernel`) reads them. Without
 (`_bwd_kernel_recompute`) forms P again from qkv; the forward writes each
 row's softmax max and denominator for it, 8 bytes a row. The kernels are in
 `csrc/fused_mha.cu`. `fused_mha_fwd`, `fused_mha_bwd` and
-`fused_mha_bwd_recompute` take the plain version for a CPU tensor; for a
-CUDA tensor they launch the kernel or raise. `fused_mha` is what the model
-calls: under autograd it runs the forward with P or with the row statistics
-and saves them with qkv for the matching backward kernel, otherwise the
-forward alone.
+`fused_mha_bwd_recompute` take the plain version for a CPU tensor, whatever
+their `route`; for a CUDA tensor they launch the kernel or raise.
+`fused_mha` is what the model calls: under autograd it runs the forward
+with P or with the row statistics and saves them with qkv for the matching
+backward kernel, otherwise the forward alone.
 
 Every function takes a [B, S, *] view with contiguous rows and any batch and
 sequence strides, and returns its outputs strided as qkv is. An S-major
@@ -62,9 +62,12 @@ _SIGNATURES = {
     "mct_fused_mha_fwd": ([_P, _L, _L, _P, _L, _L, _P, _P] + _SHAPE
                           + C_ARGTYPES + [_I, _P], _I),
     "mct_fused_mha_bwd": ([_P, _L, _L, _P, _L, _L, _P, _P, _L, _L, _P]
-                          + _SHAPE + [_P], _I),
+                          + _SHAPE + [_I, _P], _I),
     "mct_fused_mha_bwd_recompute": ([_P, _L, _L, _P, _L, _L, _P, _P, _L, _L,
-                                     _P] + _SHAPE + C_ARGTYPES + [_P], _I),
+                                     _P] + _SHAPE + C_ARGTYPES + [_I, _P],
+                                    _I),
+    "mct_fused_mha_bwd_needs_delta": ([_P, _L, _L, _P, _L, _L, _P, _L, _L,
+                                       _I, _I, _I, _I, _I], _I),
     "mct_dropout_mask": MASK_SIGNATURE,
 }
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
@@ -73,6 +76,11 @@ _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 # S <= 128, D = 64) and tc::fwd, for the A/Bs that time one against the
 # other
 FWD_ROUTES = {"auto": 0, "one_pass": 1, "tc": 2}
+# the backwards' kernels by name (`mct_fused_mha_bwd`'s and
+# `mct_fused_mha_bwd_recompute`'s route), as the forward's: the one-pass
+# kernel (bf16, S <= 128, D = 64, no dropout) keeps delta in registers, the
+# others in a [B*H*S] fp32 scratch
+BWD_ROUTES = {"auto": 0, "one_pass": 1, "tc": 2}
 
 
 def _split_heads(t: torch.Tensor, heads: int, parts: int):
@@ -297,13 +305,15 @@ def _no_graph(name: str, *tensors: torch.Tensor) -> None:
                            "backward kernel")
 
 
-def _launch(name: str, device: torch.device, args, shape,
-            dargs=()) -> None:
-    """Call the library's `mct_<name>` with `args` (pointers and strides),
-    then B, S, H, D, scale, causal, dtype, `dargs` (the dropout arguments of
+def _launch(name: str, device: torch.device, args, shape, dargs=(),
+            lib=None) -> None:
+    """Call the library's `mct_<name>` (`lib`: the loaded library, where
+    the caller has it) with `args` (pointers and strides), then B, S, H, D,
+    scale, causal, dtype, `dargs` (the dropout arguments and the route, of
     the functions that take them) and the current stream; raise if the
     launch failed."""
-    lib = _build.load("fused_mha", _SIGNATURES)
+    if lib is None:
+        lib = _build.load("fused_mha", _SIGNATURES)
     with torch.cuda.device(device):
         stream = torch.cuda.current_stream(device).cuda_stream
         rc = getattr(lib, f"mct_{name}")(*args, *shape, *dargs, stream)
@@ -407,26 +417,53 @@ def _check_bwd(name: str, qkv: torch.Tensor, do: torch.Tensor, heads: int,
     return d
 
 
+def _route(name: str, route: str) -> int:
+    if route not in BWD_ROUTES:
+        raise ValueError(f"{name}: route {route!r} is not one of "
+                         f"{sorted(BWD_ROUTES)}")
+    return BWD_ROUTES[route]
+
+
+def _delta(lib, qkv: torch.Tensor, do: torch.Tensor, dqkv: torch.Tensor,
+           heads: int, d: int, drop: Optional[AttentionDropout], route: int):
+    """The [B*H*S] fp32 delta scratch of the backward's kernel on `route`,
+    or None where that kernel keeps delta in registers (the library `lib`
+    says which kernel takes the call)."""
+    b, s, _ = qkv.shape
+    if not lib.mct_fused_mha_bwd_needs_delta(
+            qkv.data_ptr(), *_pitch(qkv), do.data_ptr(), *_pitch(do),
+            dqkv.data_ptr(), *_pitch(dqkv), s, d, _DTYPES[qkv.dtype],
+            int(drop is not None), route):
+        return None
+    return torch.empty(b * heads * s, dtype=torch.float32, device=qkv.device)
+
+
 def fused_mha_bwd(qkv: torch.Tensor, do: torch.Tensor, p: torch.Tensor,
-                  heads: int, *, causal: bool = False) -> torch.Tensor:
+                  heads: int, *, causal: bool = False,
+                  route: str = "auto") -> torch.Tensor:
     """Gradient of `fused_mha_fwd` with respect to qkv, from its saved P.
 
     qkv [B, S, 3*H*D] and do [B, S, H*D] with contiguous rows, p
     [B, H, S, S] contiguous, all in one dtype (fp32/bf16). Returns packed
-    dqkv [B, S, 3*H*D] in that dtype, strided as qkv."""
+    dqkv [B, S, 3*H*D] in that dtype, strided as qkv. `route` (a key of
+    BWD_ROUTES) asks a CUDA tensor for one kernel; the launch fails where
+    that kernel cannot take the shape."""
     _no_graph("fused_mha_bwd", qkv, do, p)
+    r = _route("fused_mha_bwd", route)
     b, s, _ = qkv.shape
     d = _check_bwd("fused_mha_bwd", qkv, do, heads, p,
                    (b, heads, s, s), qkv.dtype)
     if qkv.device.type == "cpu":
         return fused_mha_bwd_plain(qkv, do, p, heads, d ** -0.5)
     dqkv = _empty_like_layout(qkv, qkv.shape[-1])
-    delta = torch.empty(b * heads * s, dtype=torch.float32, device=qkv.device)
+    lib = _build.load("fused_mha", _SIGNATURES)
+    delta = _delta(lib, qkv, do, dqkv, heads, d, None, r)
     _launch("fused_mha_bwd", qkv.device,
             [qkv.data_ptr(), *_pitch(qkv), do.data_ptr(), *_pitch(do),
-             p.data_ptr(), dqkv.data_ptr(), *_pitch(dqkv), delta.data_ptr()],
+             p.data_ptr(), dqkv.data_ptr(), *_pitch(dqkv),
+             None if delta is None else delta.data_ptr()],
             (b, s, heads, d, float(d ** -0.5), int(causal),
-             _DTYPES[qkv.dtype]))
+             _DTYPES[qkv.dtype]), [r], lib)
     fused_mha_bwd.launches += 1
     return dqkv
 
@@ -436,17 +473,19 @@ fused_mha_bwd.launches = 0
 
 def fused_mha_bwd_recompute(qkv: torch.Tensor, do: torch.Tensor,
                             stats: torch.Tensor, heads: int, *,
-                            causal: bool = False) -> torch.Tensor:
+                            causal: bool = False,
+                            route: str = "auto") -> torch.Tensor:
     """Gradient of `fused_mha_fwd` with respect to qkv, recomputing P from
     qkv and the forward's row statistics (`with_stats=True`).
 
     qkv [B, S, 3*H*D] and do [B, S, H*D] in one dtype (fp32/bf16) with
     contiguous rows, stats [2, B, H, S] fp32. Returns packed dqkv
     [B, S, 3*H*D] in qkv's dtype, strided as qkv. The plain version (CPU)
-    recomputes the statistics too."""
+    recomputes the statistics too. `route` as `fused_mha_bwd`'s."""
     _no_graph("fused_mha_bwd_recompute", qkv, do, stats)
     dqkv = _bwd_recompute("fused_mha_bwd_recompute", qkv, do, stats, heads,
-                          causal, None)
+                          causal, None,
+                          _route("fused_mha_bwd_recompute", route))
     if qkv.device.type == "cuda":
         fused_mha_bwd_recompute.launches += 1
     return dqkv
@@ -456,7 +495,7 @@ fused_mha_bwd_recompute.launches = 0
 
 
 def _bwd_recompute(name, qkv, do, stats, heads, causal,
-                   drop: Optional[AttentionDropout]):
+                   drop: Optional[AttentionDropout], route: int = 0):
     b, s, _ = qkv.shape
     d = _check_bwd(name, qkv, do, heads, stats, (2, b, heads, s),
                    torch.float32)
@@ -465,15 +504,16 @@ def _bwd_recompute(name, qkv, do, stats, heads, causal,
             qkv, do, heads, d ** -0.5, causal,
             None if drop is None else _keep(drop, qkv, heads))
     dqkv = _empty_like_layout(qkv, qkv.shape[-1])
-    delta = torch.empty(b * heads * s, dtype=torch.float32, device=qkv.device)
+    lib = _build.load("fused_mha", _SIGNATURES)
+    delta = _delta(lib, qkv, do, dqkv, heads, d, drop, route)
     _launch("fused_mha_bwd_recompute", qkv.device,
             [qkv.data_ptr(), *_pitch(qkv), do.data_ptr(), *_pitch(do),
              stats.data_ptr(), dqkv.data_ptr(), *_pitch(dqkv),
-             delta.data_ptr()],
+             None if delta is None else delta.data_ptr()],
             (b, s, heads, d, float(d ** -0.5), int(causal),
              _DTYPES[qkv.dtype]),
-            NO_DROPOUT_C_ARGS if drop is None else drop.c_args(
-                dropout_mult(drop.rate, qkv.dtype)))
+            [*(NO_DROPOUT_C_ARGS if drop is None else drop.c_args(
+                dropout_mult(drop.rate, qkv.dtype))), route], lib)
     return dqkv
 
 

@@ -10,8 +10,10 @@ built first, at once; then one process per run, in the order other, this,
 this, other. Each process imports the port from its checkout and times
 through the wrappers both checkouts share (`fused_ce_fwd`, `fused_ce_bwd`,
 `flash_bwd_fused`, `flash_bwd_dq`, `flash_bwd_dkv` and their dropout
-twins, `fused_mha_bwd_recompute`, `fused_mha_dropout_bwd`), mean of CUDA
-events after warm-up, warm L2, and each port call's host time (`host_ms`:
+twins, `fused_mha_bwd`, `fused_mha_bwd_recompute`, `fused_mha_dropout_bwd`),
+mean of CUDA events after warm-up, warm L2, the calls queued behind a
+device-side wait so that the device's time is read and not the host's,
+and each port call's host time (`host_ms`:
 the wall time of issuing the calls, the device left to lag; map encoding,
 launch set-up and launches):
 - the fused CE forward and backward, bf16, tied head, T = 16384, V =
@@ -38,7 +40,11 @@ launch set-up and launches):
   forward's row statistics: the pipeline GPT's B = 32, S = 512, H = 16,
   D = 128, causal, at rate 0 and 0.1, ViT-L/14's vision tower, B = 64,
   S = 257, H = 16, D = 64, and ViT-H/14's, B = 24, S = 257, H = 16,
-  D = 80, beside SDPA's backward.
+  D = 80, and both text towers (ViT-L/14's B = 64, H = 12 and ViT-H/14's
+  B = 24, H = 16, S = 77, D = 64, causal), beside SDPA's backward;
+- the fused-MHA saved-P backward, bf16, from the forward's P, at
+  ViT-B/32's training shapes (B = 384: vision S = 50, H = 12; text S = 77,
+  H = 8, causal), beside SDPA's backward.
 Inputs come from a seeded generator, so both checkouts get the same ones.
 Prints the card, one JSON line per row with the four runs' times, and
 last one JSON object with every run. Needs a CUDA device and nvcc.
@@ -65,9 +71,16 @@ SPLIT_ROWS = (("GPT-345m", 1, 8192, 16, 64, 0.0),
 RECOMPUTE_ROWS = (("pipeline GPT", 32, 512, 16, 128, True, 0.0),
                   ("pipeline GPT", 32, 512, 16, 128, True, 0.1),
                   ("ViT-L/14 vision", 64, 257, 16, 64, False, 0.0),
-                  ("ViT-H/14 vision", 24, 257, 16, 80, False, 0.0))
+                  ("ViT-H/14 vision", 24, 257, 16, 80, False, 0.0),
+                  ("ViT-L/14 text", 64, 77, 12, 64, True, 0.0),
+                  ("ViT-H/14 text", 24, 77, 16, 64, True, 0.0))
+# the saved-P backward's: (label, B, S, H, D, causal)
+SAVED_ROWS = (("ViT-B/32 vision", 384, 50, 12, 64, False),
+              ("ViT-B/32 text", 384, 77, 8, 64, True))
 LIBRARIES = ["fused_ce", "flash_attention", "fused_mha"]
 REPS, WARMUP = 10, 2
+# cycles of the device-side wait before a timing window (~2 ms on an H100)
+QUEUE_CYCLES = 4_000_000
 # hop::bwd_fused as a dKV kernel: its dS K product, its dQ boxes and their
 # reduce-adds, and the split dKV wrapper's call of hop::launch_dkv
 _FUSED_DQ_PRODUCT = re.compile(
@@ -159,6 +172,10 @@ def time_checkout(repo: str) -> dict:
             fn()
         torch.cuda.synchronize()
         start, end = (torch.cuda.Event(enable_timing=True) for _ in range(2))
+        # the window starts behind a device-side wait long enough for the
+        # host to enqueue every call: a call whose host side takes longer
+        # than its kernels is timed by its kernels
+        torch.cuda._sleep(QUEUE_CYCLES)
         start.record()
         for _ in range(REPS):
             fn()
@@ -320,6 +337,25 @@ def time_checkout(repo: str) -> dict:
             "library_ms": ms(lambda: torch.autograd.grad(
                 lo, (lq, lk, lv), ldo, retain_graph=True))})
         del qkv, g, stats, lq, lk, lv, lo, ldo
+        torch.cuda.empty_cache()
+    for label, b, s, h, d, causal in SAVED_ROWS:
+        gen = torch.Generator(device="cuda").manual_seed(b * s * h * d + 2)
+        qkv = torch.randn(b, s, 3 * h * d, device="cuda", generator=gen,
+                          dtype=dt)
+        g = torch.randn(b, s, h * d, device="cuda", generator=gen, dtype=dt)
+        _, p = mha.fused_mha_fwd(qkv, h, causal=causal, with_probs=True)
+        fn = (lambda: mha.fused_mha_bwd(qkv, g, p, h, causal=causal))
+        lq, lk, lv = (t.contiguous().requires_grad_(True) for t in qkv.reshape(
+            b, s, 3, h, d).permute(2, 0, 3, 1, 4).unbind(0))
+        lo = F.scaled_dot_product_attention(lq, lk, lv, is_causal=causal)
+        ldo = g.reshape(b, s, h, d).transpose(1, 2).contiguous()
+        rows.append({
+            "row": f"fused_mha saved-P bwd {label} B={b} S={s} H={h} D={d} "
+                   f"causal={causal} bf16", "ms": ms(fn),
+            "host_ms": host_ms(fn),
+            "library_ms": ms(lambda: torch.autograd.grad(
+                lo, (lq, lk, lv), ldo, retain_graph=True))})
+        del qkv, g, p, lq, lk, lv, lo, ldo
         torch.cuda.empty_cache()
     return {"repo": repo, "rows": rows}
 

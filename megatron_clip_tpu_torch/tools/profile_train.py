@@ -78,6 +78,8 @@ def _category(name: str) -> str:
         return "attention bwd (flash_attention.cu)"
     if "attn_bwd::" in n:  # the fused-MHA recompute backward on wgmma
         return "attention bwd (fused_mha.cu)"
+    if "attn_short_bwd::" in n:  # the one-pass backward: bwd<keys, saved>
+        return "attention bwd (fused_mha.cu)"
     if "attn_short::fwd<" in n:  # the one-pass forward: fwd<keys, mode>
         return "attention fwd (fused_mha.cu)"
     if "attn_fwd::fwd<" in n:  # the wgmma forward: fwd<D, two-pass, drop>

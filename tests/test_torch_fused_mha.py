@@ -43,12 +43,18 @@ from megatron_clip_tpu.ops.attention import \
 from megatron_clip_tpu.ops.pallas.fused_mha import (fused_attention_from_qkv,
                                                    fused_mha_packed_sm)
 from megatron_clip_tpu_torch.ops.attention import multi_head_attention, sdpa
+from chip_smoke import TOLERANCES, compare_rows, mha_parts
 from megatron_clip_tpu_torch.ops.kernels.fused_mha import (
-    FWD_ROUTES, bf16_ulp, dropout_mult, fused_mha, fused_mha_bwd_plain,
+    BWD_ROUTES, FWD_ROUTES, bf16_ulp, dropout_mult, fused_mha,
+    fused_mha_bwd, fused_mha_bwd_plain, fused_mha_bwd_recompute,
     fused_mha_bwd_recompute_plain, fused_mha_dropout, fused_mha_fwd,
     fused_mha_plain, fused_mha_row_bound)
 
 SHAPES = [(4, 50, 4, 64), (2, 77, 8, 64), (2, 33, 2, 32)]
+# the one-pass backward's edges on the card (csrc/attn_short_bwd_sm90.cuh:
+# S <= 128, D = 64, key counts of 64, 80 and 128)
+ONE_PASS_EDGES = [(2, 1, 2, 64), (2, 64, 2, 64), (2, 65, 2, 64),
+                  (2, 128, 2, 64)]
 # ViT-H/14's vision head: D = 80, S = 257 (five 64-row tiles, the last of
 # one row on the card)
 RECOMPUTE_SHAPES = SHAPES + [(2, 257, 2, 80)]
@@ -140,6 +146,81 @@ def test_forward_routes_take_the_plain_version_on_the_cpu():
         fused_mha_fwd(qkv, 2, route="sdpa")
 
 
+def test_backward_routes_take_the_plain_version_on_the_cpu():
+    qkv, do = (torch.from_numpy(a) for a in _inputs(2, 9, 2, 64, seed=8))
+    _, p = fused_mha_plain(qkv, 2, 0.125, True, with_probs=True)
+    _, stats = fused_mha_plain(qkv, 2, 0.125, True, with_stats=True)
+    want = fused_mha_bwd_plain(qkv, do, p, 2, 0.125)
+    want_rc = fused_mha_bwd_recompute_plain(qkv, do, 2, 0.125, True)
+    for route in BWD_ROUTES:
+        assert torch.equal(fused_mha_bwd(qkv, do, p, 2, causal=True,
+                                         route=route), want)
+        assert torch.equal(fused_mha_bwd_recompute(
+            qkv, do, stats, 2, causal=True, route=route), want_rc)
+    with pytest.raises(ValueError, match="route"):
+        fused_mha_bwd(qkv, do, p, 2, route="sdpa")
+    with pytest.raises(ValueError, match="route"):
+        fused_mha_bwd_recompute(qkv, do, stats, 2, route="sdpa")
+
+
+def _saved_p_grads(x, g, p, h, causal, edit_ds=None, last_key_out=False):
+    """The saved-P backward of `_bwd_head` written out on bf16 x, g and P,
+    with dS (rounded to bf16) edited by `edit_ds`, or with each query row's
+    last unmasked key left out of its delta and dS (the one-pass kernel's
+    fault build): packed dqkv in bf16."""
+    b, s, w = x.shape
+    d = w // (3 * h)
+    q, k, v = x.float().reshape(b, s, 3, h, d).permute(2, 0, 3, 1, 4)
+    gg = g.float().reshape(b, s, h, d).transpose(1, 2)
+    pc = p.float()
+    dp = gg @ v.transpose(-1, -2)
+    pd = pc.clone()
+    if last_key_out:
+        last = torch.arange(s) if causal else torch.full((s,), s - 1)
+        pd[..., torch.arange(s), last] = 0
+    ds = (pd * (dp - (dp * pd).sum(-1, keepdim=True)) * d ** -0.5)
+    ds = ds.to(torch.bfloat16).float()
+    if edit_ds is not None:
+        ds = edit_ds(ds)
+    grads = torch.stack([ds @ k, ds.transpose(-1, -2) @ q,
+                         pc.transpose(-1, -2) @ gg])
+    return grads.permute(1, 3, 0, 2, 4).reshape(b, s, w).to(torch.bfloat16)
+
+
+# The row bound the card holds the bf16 saved-P backward to
+# (TOLERANCES["fused_mha_bwd rows"], chip_smoke.compare_rows: each row of
+# dQ, dK and dV within 1e-2 of its norm plus 1e-4 of the rms row norm): it
+# passes a backward whose dS has one element moved by one bf16 ulp (the
+# largest of each head: the rounding flip a kernel's other summation order
+# can cause), and refuses one that leaves each query row's last unmasked
+# key out of its delta and dS, as the fault build of the one-pass kernel
+# does.
+@pytest.mark.parametrize("causal", [False, True])
+@pytest.mark.parametrize("b,s,h,d", SHAPES[:2])
+def test_saved_p_row_bound_holds_a_flip_and_refuses_a_left_out_key(
+        causal, b, s, h, d):
+    x, g = (torch.from_numpy(a).bfloat16() for a in _inputs(b, s, h, d,
+                                                            seed=9))
+    _, p = fused_mha_plain(x, h, d ** -0.5, causal, with_probs=True)
+    want = fused_mha_bwd_plain(x, g, p, h, d ** -0.5)
+    rel, floor = TOLERANCES["fused_mha_bwd rows"]["bf16"]
+    assert torch.equal(_saved_p_grads(x, g, p, h, causal), want)
+
+    def flip(ds):
+        flat = ds.flatten(-2)
+        at = flat.abs().argmax(-1, keepdim=True)
+        moved = flat.gather(-1, at)
+        return flat.scatter(-1, at, moved + bf16_ulp(moved)).view_as(ds)
+    flipped = _saved_p_grads(x, g, p, h, causal, edit_ds=flip)
+    assert not torch.equal(flipped, want)
+    for part, got, w in zip("qkv", mha_parts(flipped, h), mha_parts(want, h)):
+        compare_rows(f"d{part} one dS ulp", got, w, rel, floor)
+    wrong = _saved_p_grads(x, g, p, h, causal, last_key_out=True)
+    for part, got, w in zip("qk", mha_parts(wrong, h), mha_parts(want, h)):
+        with pytest.raises(AssertionError, match="row exceeds"):
+            compare_rows(f"d{part} last key out", got, w, rel, floor)
+
+
 @pytest.mark.parametrize("causal", [False, True])
 def test_plain_matches_sdpa_oracle(causal):
     b, s, h, d = 2, 40, 3, 16
@@ -154,7 +235,7 @@ def test_plain_matches_sdpa_oracle(causal):
 
 @pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
 @pytest.mark.parametrize("causal", [False, True])
-@pytest.mark.parametrize("b,s,h,d", SHAPES)
+@pytest.mark.parametrize("b,s,h,d", SHAPES + ONE_PASS_EDGES)
 def test_backward_matches_jax_saved_probs(monkeypatch, dtype, causal, b, s,
                                           h, d):
     monkeypatch.setenv("MCT_MHA_SAVE_PROBS", "1")
@@ -197,7 +278,7 @@ def _rel_l2(got, want):
 
 @pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
 @pytest.mark.parametrize("causal", [False, True])
-@pytest.mark.parametrize("b,s,h,d", RECOMPUTE_SHAPES)
+@pytest.mark.parametrize("b,s,h,d", RECOMPUTE_SHAPES + ONE_PASS_EDGES)
 def test_recompute_backward_matches_jax(monkeypatch, dtype, causal, b, s, h,
                                         d):
     qkv, do = _inputs(b, s, h, d)

@@ -33,7 +33,9 @@ at every path width (512 to 2048) and at row counts no block multiple,
 under the LayerNorm bounds above.
 
 The recompute backward is held to the same bounds against its plain
-version (which recomputes the row statistics itself); the forward's row
+version (which recomputes the row statistics itself), and the one-pass
+backward at S <= 128 (csrc/attn_short_bwd_sm90.cuh), both modes, also row
+by row as the flash gradients below; the forward's row
 statistics to 1e-4 relative (fp32 sums of up to 1,024 exponentials in
 another order, rescaled per key tile). An S-major view gives every kernel
 the same arithmetic as the contiguous tensor: equal results.
@@ -371,6 +373,111 @@ def test_fused_mha_routes_refuse_what_they_do_not_take(cuda):
             fused_mha_fwd(bad, 2, route="one_pass")
     with pytest.raises(ValueError, match="route"):
         fused_mha_fwd(qkv, 2, route="sdpa")
+
+
+# The one-pass backward (csrc/attn_short_bwd_sm90.cuh: bf16, S <= 128,
+# D = 64, a whole head per block; wgmma at S <= 64, mma.sync past it) in
+# both modes, asked for and as the route fused_mha.cu picks, at its key
+# counts' edges and the paths' shapes: the saved-P backward from the plain
+# forward's P, the recompute backward from the kernel forward's statistics,
+# against the plain versions elementwise and row by row (and against the
+# fp32 plain version); one launch counted a call; the same bits on a second
+# run, on the route "auto" and on the S-major view.
+@pytest.mark.parametrize("saved", [True, False], ids=["saved", "recompute"])
+@pytest.mark.parametrize("b,s,h,causal", [
+    *((2, s, 3, c) for s in (1, 7, 50, 64, 65, 77, 128) for c in (False,
+                                                                    True)),
+    (384, 50, 12, False), (384, 77, 8, True), (64, 77, 12, True),
+    (24, 77, 16, True)])
+def test_fused_mha_one_pass_backward_matches_plain(cuda, b, s, h, causal,
+                                                   saved):
+    d, scale = 64, 64 ** -0.5
+    gen = torch.Generator().manual_seed(s + 5 * b + int(causal))
+    qkv = torch.randn(b, s, 3 * h * d, generator=gen).to(cuda,
+                                                         torch.bfloat16)
+    do = torch.randn(b, s, h * d, generator=gen).to(cuda, torch.bfloat16)
+    views = [t.transpose(0, 1).contiguous().transpose(0, 1)
+             for t in (qkv, do)]
+    if saved:
+        _, p = fused_mha_plain(qkv, h, scale, causal, with_probs=True)
+        fn = fused_mha_bwd
+
+        def run(x, g, route="one_pass"):
+            return fused_mha_bwd(x, g, p, h, causal=causal, route=route)
+
+        def plain(dt):
+            return fused_mha_bwd_plain(qkv.to(dt), do.to(dt), p.to(dt), h,
+                                       scale)
+    else:  # the kernel forward's statistics, as the train step's
+        _, stats = fused_mha_fwd(qkv, h, causal=causal, with_stats=True)
+        fn = fused_mha_bwd_recompute
+
+        def run(x, g, route="one_pass"):
+            return fused_mha_bwd_recompute(x, g, stats, h, causal=causal,
+                                           route=route)
+
+        def plain(dt):
+            return fused_mha_bwd_recompute_plain(qkv.to(dt), do.to(dt), h,
+                                                 scale, causal)
+    before = fn.launches
+    got = run(qkv, do)
+    assert fn.launches == before + 1
+    assert got.shape == qkv.shape and got.dtype == torch.bfloat16
+    want = plain(torch.bfloat16)
+    _close_grads(got, want, torch.bfloat16)
+    _close_mha_rows(got, want, h)
+    _close_mha_rows(got, plain(torch.float32), h, rel=2e-2)
+    view = run(*views)
+    assert torch.equal(run(qkv, do), got)
+    assert torch.equal(run(qkv, do, "auto"), got)
+    assert torch.equal(view, got)
+    if s > 1:  # at S = 1 both layouts are one order
+        assert view.stride(0) < view.stride(1)
+
+
+# The saved-P one-pass backward on a P an element into a larger buffer, so
+# that P's first and last bytes lie off 16-byte boundaries (its edge heads'
+# bytes in those granules are plain loads): the bits of the same P in an
+# allocation of its own, down to P's total of 2 bytes (B = H = S = 1).
+@pytest.mark.parametrize("b,s,h", [(1, 1, 1), (1, 7, 1), (2, 7, 3),
+                                   (2, 50, 3), (2, 77, 3)])
+def test_fused_mha_one_pass_backward_reads_p_off_its_alignment(cuda, b, s,
+                                                               h):
+    d = 64
+    gen = torch.Generator().manual_seed(s + 7 * b)
+    qkv = torch.randn(b, s, 3 * h * d, generator=gen).to(cuda,
+                                                         torch.bfloat16)
+    do = torch.randn(b, s, h * d, generator=gen).to(cuda, torch.bfloat16)
+    _, p = fused_mha_plain(qkv, h, d ** -0.5, True, with_probs=True)
+    buf = torch.full((p.numel() + 16,), float("nan"), device=cuda,
+                     dtype=torch.bfloat16)
+    shifted = buf[1:1 + p.numel()].view_as(p).copy_(p)
+    assert shifted.data_ptr() % 16 != 0
+    want = fused_mha_bwd(qkv, do, p, h, causal=True, route="one_pass")
+    got = fused_mha_bwd(qkv, do, shifted, h, causal=True, route="one_pass")
+    assert torch.equal(got, want)
+
+
+def test_fused_mha_backward_routes_refuse_what_they_do_not_take(cuda):
+    def args(s, d, dtype=torch.bfloat16):
+        qkv = torch.zeros(2, s, 3 * 2 * d, device=cuda, dtype=dtype)
+        do = torch.zeros(2, s, 2 * d, device=cuda, dtype=dtype)
+        p = torch.zeros(2, 2, s, s, device=cuda, dtype=dtype)
+        stats = torch.ones(2, 2, 2, s, device=cuda)
+        return qkv, do, p, stats
+    for s, d, dtype in ((129, 64, torch.bfloat16),   # S past one tile
+                        (65, 80, torch.bfloat16),    # D = 80
+                        (65, 64, torch.float32)):    # fp32
+        qkv, do, p, stats = args(s, d, dtype)
+        with pytest.raises(RuntimeError, match="launch failed"):
+            fused_mha_bwd(qkv, do, p, 2, route="one_pass")
+        with pytest.raises(RuntimeError, match="launch failed"):
+            fused_mha_bwd_recompute(qkv, do, stats, 2, route="one_pass")
+    qkv, do, p, stats = args(65, 64)
+    with pytest.raises(ValueError, match="route"):
+        fused_mha_bwd(qkv, do, p, 2, route="sdpa")
+    with pytest.raises(ValueError, match="route"):
+        fused_mha_bwd_recompute(qkv, do, stats, 2, route="sdpa")
 
 
 # The recompute backward at the wgmma kernels' tiles' edges

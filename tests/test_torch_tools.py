@@ -17,6 +17,7 @@ from megatron_clip_tpu_torch.tools.profile_train import (_category,
 _D = "mct::Dropout"
 _FLASH_VIEW = "(anonymous namespace)::View<__nv_bfloat16 const>"
 _SHORT = "mct::attn_short::Maps, mct::attn_short::Args"
+_SHORT_BWD = "mct::attn_short_bwd::Maps, mct::attn_short_bwd::Args"
 _LN = ("__nv_bfloat16 const*, float const*, float const*, __nv_bfloat16*, "
        "long, int, float")
 _SPLIT = ("(anonymous namespace)::hop::SplitMaps, (anonymous namespace)::"
@@ -97,6 +98,13 @@ _SPLIT = ("(anonymous namespace)::hop::SplitMaps, (anonymous namespace)::"
      "attention fwd (fused_mha.cu)"),
     (f"void mct::attn_short::fwd<128, 1>({_SHORT})",
      "attention fwd (fused_mha.cu)"),
+    # the one-pass backward at S <= 128: bwd<keys, saved P>
+    (f"void mct::attn_short_bwd::bwd<64, true>({_SHORT_BWD})",
+     "attention bwd (fused_mha.cu)"),
+    (f"void mct::attn_short_bwd::bwd<80, true>({_SHORT_BWD})",
+     "attention bwd (fused_mha.cu)"),
+    (f"void mct::attn_short_bwd::bwd<80, false>({_SHORT_BWD})",
+     "attention bwd (fused_mha.cu)"),
     # the persistent norm forward: ln_fwd<T, lanes, chunks, exact, RMS>, a
     # LayerNorm whose exact chunk count puts `true` before its last argument
     (f"void (anonymous namespace)::ln_fwd<__nv_bfloat16, 32, 3, true, "
