@@ -42,7 +42,12 @@ imports nothing of JAX or of the JAX package. Phases, each of which raises
      (csrc/attn_bwd_sm90.cuh), the one-pass backward (each row's last key,
      each key's last query) and the wgmma split flash pair (B=1 S=8192
      H=16, D=64 and D=128 with dropout) built to leave out the last key or
-     query of every tile, failing the row bound;
+     query of every tile, failing the row bound; the LayerNorm and RMSNorm
+     kernels with a bf16 scale (and bias) bit-equal to the call on its
+     fp32 values, the backward's sums rounded once, two runs the same
+     bits; and the norm backward built to leave each row group's last row
+     out of the column sums, or to give each row's last register chunk the
+     previous row's mean(g xhat), failing the sums' or dx's bound 10x;
   4. goldens: full-width ViT-B-32-quickgelu in fp32, weights rebuilt from
      tests/goldens/full/vitb32.npz's manifest, against open_CLIP's features
      (atol 1e-4);
@@ -63,6 +68,8 @@ imports nothing of JAX or of the JAX package. Phases, each of which raises
      (batch 64) and ViT-H/14 (batch 24) legs, S-major view included, with
      the bound from bytes and operations; at S <= 128 also the forward and
      both backwards on tc:: beside the one-pass kernels, in the same call;
+     the LayerNorm and RMSNorm backwards at every path's rows, the scale in
+     the path's dtype;
   7. train: the ViT-B-32 contrastive train step of bench.py's primary leg
      (pure_bf16, batch 384, AdamW b=(0.9, 0.98) eps 1e-6 wd 0.2 with bf16
      first moments, cosine_lr(1e-3, 100, 10000), clip 1.0), 3 warm-up and
@@ -255,6 +262,12 @@ DROPOUT_FAULTS = ("MCT_DROPOUT_FAULT=1", "MCT_DROPOUT_FAULT=2")
 # build, bwd_teeth only the backwards, each on the plain version's inputs.
 TILE_FAULTS = (("MCT_FWD_TILE_FAULT=1", "MCT_BWD_TILE_FAULT=1"),
                ("MCT_FWD_TILE_FAULT=2", "MCT_BWD_TILE_FAULT=2"))
+# the norm backward made wrong on purpose (csrc/layernorm.cu): each row
+# group's last row left out of the column sums, and the last register chunk
+# of each row given the previous row's mean(g xhat); ln_bwd_teeth holds
+# each to LN_TEETH_FACTOR times the bound it must fail
+LN_BWD_FAULTS = ("MCT_LN_BWD_FAULT=1", "MCT_LN_BWD_FAULT=2")
+LN_TEETH_FACTOR = 10.0
 
 
 _T0 = time.perf_counter()
@@ -427,11 +440,12 @@ def ln_cost(rows: int, w: int, itemsize: int):
     return 2 * rows * w * itemsize + 2 * w * 4, 8 * rows * w
 
 
-def ln_bwd_cost(rows: int, w: int, itemsize: int):
-    """Bytes: x and dy read and dx written once, fp32 scale read and dscale,
-    dbias written once. Operations: ~16 fp32 operations per element (the
-    statistics, xhat, the two row sums and two column sums, dx)."""
-    return 3 * rows * w * itemsize + 3 * w * 4, 16 * rows * w
+def ln_bwd_cost(rows: int, w: int, itemsize: int, param_itemsize: int = 4):
+    """Bytes: x and dy read and dx written once, scale read and dscale,
+    dbias written once in the parameters' dtype. Operations: ~16 fp32
+    operations per element (the statistics, xhat, the two row sums and two
+    column sums, dx)."""
+    return 3 * rows * w * itemsize + 3 * w * param_itemsize, 16 * rows * w
 
 
 def rms_cost(rows: int, w: int, itemsize: int):
@@ -441,11 +455,11 @@ def rms_cost(rows: int, w: int, itemsize: int):
     return 2 * rows * w * itemsize + w * 4, 4 * rows * w
 
 
-def rms_bwd_cost(rows: int, w: int, itemsize: int):
-    """Bytes: x and dy read and dx written once, the fp32 scale read and
-    dscale written once. Operations: ~10 fp32 operations per element (the
-    statistic, xhat, the row sum, the column sum, dx)."""
-    return 3 * rows * w * itemsize + 2 * w * 4, 10 * rows * w
+def rms_bwd_cost(rows: int, w: int, itemsize: int, param_itemsize: int = 4):
+    """Bytes: x and dy read and dx written once, the scale read and dscale
+    written once in its dtype. Operations: ~10 fp32 operations per element
+    (the statistic, xhat, the row sum, the column sum, dx)."""
+    return 3 * rows * w * itemsize + 2 * w * param_itemsize, 10 * rows * w
 
 
 def ce_cost(t: int, w: int, v: int, itemsize: int, backward: bool = False):
@@ -501,6 +515,7 @@ def phase_build(kernels_build):
     t0 = time.perf_counter()
     faults = [(name, fault) for name in ("flash_attention", "fused_mha")
               for fault in tuple((f,) for f in DROPOUT_FAULTS) + TILE_FAULTS]
+    faults += [("layernorm", (fault,)) for fault in LN_BWD_FAULTS]
     took = kernels_build.build(list(kernels_build.SOURCES) + faults)
     log(f"  built {sorted(took)} in {time.perf_counter() - t0:.1f} s "
         f"(per source: {json.dumps({k: round(v, 1) for k, v in took.items()})})")
@@ -1217,9 +1232,40 @@ def fused_ce_teeth(ce, label, x, head, labels, dloss) -> None:
                                  "a kernel that leaves out the last tile")
 
 
+def norm_param_checks(ln, kind: str, label: str, x: torch.Tensor,
+                      dy: torch.Tensor, scale: torch.Tensor,
+                      bias: torch.Tensor = None) -> None:
+    """A bf16 scale (and bias), as the pure_bf16 paths pass them, read as it
+    is: the forward and dx equal, bit for bit, the call on the same values
+    in fp32 (bf16 -> fp32 is exact); dscale (and dbias) come back in bf16,
+    that call's fp32 sums rounded once; two runs of the backward give the
+    same bits (no atomics)."""
+    fwd, bwd = getattr(ln, f"{kind}_fwd"), getattr(ln, f"{kind}_bwd")
+    params = tuple(p.to(torch.bfloat16)
+                   for p in ((scale,) if bias is None else (scale, bias)))
+    wide = tuple(p.float() for p in params)
+    got, again = bwd(x, params[0], dy), bwd(x, params[0], dy)
+    ref = bwd(x, wide[0], dy)
+    checks = {
+        "forward": torch.equal(fwd(x, *params), fwd(x, *wide)),
+        "dx": torch.equal(got[0], ref[0]),
+        "sums rounded once": all(
+            g.dtype == torch.bfloat16 and torch.equal(g, r.to(g.dtype))
+            for g, r in zip(got[1:], ref[1:])),
+        "two runs": all(torch.equal(a, b) for a, b in zip(got, again))}
+    failed = [what for what, ok in checks.items() if not ok]
+    log(f"  {kind} {label} {x.dtype} bf16 parameters: "
+        f"{'failed ' + str(failed) if failed else 'bit-equal'} (forward, dx "
+        "and the rounded sums against fp32 parameters; two runs)")
+    if failed:
+        raise AssertionError(f"{kind} {label} {x.dtype} with bf16 "
+                             f"parameters: {failed}")
+
+
 def rms_checks(errs, gen, ln) -> None:
     """The RMSNorm kernels against their plain versions at the example
-    GPT's rows (batch 8 x 2048 at width 1024), GPT-345m's and odd shapes."""
+    GPT's rows (batch 8 x 2048 at width 1024), GPT-345m's and odd shapes,
+    and with a bf16 scale (norm_param_checks)."""
     for rows, w in [(8 * 2048, 1024), (6 * 2048, 1024), (1000, 768),
                     (5, 100), (3, 4100)]:
         x = torch.randn(rows, w, device="cuda", generator=gen) * 3 + 1
@@ -1240,6 +1286,7 @@ def rms_checks(errs, gen, ln) -> None:
                         *TOLERANCES["rms_norm_bwd"]["sums"])
             errs["rms_norm_bwd"]["sums"] = max(
                 errs["rms_norm_bwd"].get("sums", 0.0), e)
+            norm_param_checks(ln, "rms_norm", label, xd, gd, scale)
 
 
 # the dropout kernels' checks: the fused route at the pipeline GPT's S =
@@ -1442,14 +1489,19 @@ def packed_grads(errs, fa, label, q, k, v, out, lse, do, scale, causal,
                     lambda dt: want(dt)[1:])
 
 
+def bound_share(got: torch.Tensor, want: torch.Tensor, atol: float,
+                rtol: float, atol_of_max: float = 0.0) -> float:
+    """The share of the bound atol + atol_of_max*max|want| + rtol*|want|
+    (compare's) that the worst element of `got` uses."""
+    got, want = got.float(), want.float()
+    tol = atol + atol_of_max * want.abs().max() + rtol * want.abs()
+    return float(((got - want).abs() / tol).max())
+
+
 def bf16_share(got: torch.Tensor, want: torch.Tensor, name: str) -> float:
     """The share of `name`'s bf16 bound (TOLERANCES: atol, rtol[, atol as a
     share of max|want|]) that the worst element of `got` uses."""
-    atol, rtol, *of_max = TOLERANCES[name]["bf16"]
-    got, want = got.float(), want.float()
-    tol = atol + (of_max[0] if of_max else 0.0) * want.abs().max() \
-        + rtol * want.abs()
-    return float(((got - want).abs() / tol).max())
+    return bound_share(got, want, *TOLERANCES[name]["bf16"])
 
 
 def dropout_teeth(kernels_build, gen, mha) -> None:
@@ -1745,6 +1797,48 @@ def bwd_teeth(kernels_build, gen, mha) -> None:
     torch.cuda.empty_cache()
 
 
+# the norm backward's teeth: bf16 rows with an fp32 scale (fp32 column
+# sums) at ViT-B/32's vision rows (a row a warp) and text rows (a
+# half-warp), the pipeline GPT's (two-warp rows) and the example GPT's
+# RMSNorm rows; each (kernel, rows, W)
+LN_TEETH = (("layer_norm", TRAIN_BATCH * 50, 768),
+            ("layer_norm", TRAIN_BATCH * 77, 512),
+            ("layer_norm", 8 * 2048, 2048),
+            ("rms_norm", 8 * 2048, 1024))
+
+
+def ln_bwd_teeth(kernels_build, gen, ln) -> None:
+    """The norm backward built wrong on purpose (LN_BWD_FAULTS), run through
+    the same wrappers and held against the plain version on the same
+    inputs: with each row group's last row left out of the column sums,
+    dscale (and dbias) must fail TOLERANCES[name]["sums"]; with the previous
+    row's mean(g xhat) in each row's last register chunk, dx must fail the
+    bf16 bound TOLERANCES[name]["bf16"]; each by LN_TEETH_FACTOR or more.
+    Both shares are logged for both builds."""
+    for kind, rows, w in LN_TEETH:
+        name = f"{kind}_bwd"
+        x = (torch.randn(rows, w, device="cuda", generator=gen) * 3
+             + 1).to(torch.bfloat16)
+        dy = torch.randn(rows, w, device="cuda",
+                         generator=gen).to(torch.bfloat16)
+        scale = torch.randn(w, device="cuda", generator=gen)
+        want = getattr(ln, f"{name}_plain")(x, scale, dy)
+        for fault, must in zip(LN_BWD_FAULTS, ("sums", "dx")):
+            with kernels_build.variant(fault):
+                got = getattr(ln, name)(x, scale, dy)
+            used = {"dx": bf16_share(got[0], want[0], name),
+                    "sums": max(bound_share(g, wg, *TOLERANCES[name]["sums"])
+                                for g, wg in zip(got[1:], want[1:]))}
+            log(f"  {name} rows={rows} W={w} built with {fault}: "
+                f"{used['dx']:.3f} of the dx bound, {used['sums']:.3f} of "
+                "the column sums' bound")
+            if used[must] < LN_TEETH_FACTOR:
+                raise AssertionError(
+                    f"{name} rows={rows} W={w} built with {fault}: its "
+                    f"{must} use {used[must]:.3f} of their bound, under "
+                    f"{LN_TEETH_FACTOR}x")
+
+
 def sm90_tile_checks(gen) -> None:
     """Each Hopper library's wgmma tile product (csrc/sm90.cuh) in every
     operand layout and (N, K) its kernels use, the tiles staged by TMA and by
@@ -1890,7 +1984,9 @@ def phase_kernels(mha, ln):
                             want, *TOLERANCES["layer_norm_bwd"]["sums"])
                 errs["layer_norm_bwd"]["sums"] = max(
                     errs["layer_norm_bwd"].get("sums", 0.0), e)
+            norm_param_checks(ln, "layer_norm", label, xd, gd, scale, bias)
     rms_checks(errs, gen, ln)
+    ln_bwd_teeth(_build, gen, ln)
     return errs
 
 
@@ -2203,35 +2299,54 @@ def fused_ce_rows(gen) -> list:
     return rows
 
 
-def rms_rows(gen, ln) -> list:
-    """bf16 rows of the RMSNorm kernels at the example GPT's rows (8 x 2048
-    at width 1024). Library: F.rms_norm and its autograd.grad, where this
-    PyTorch has it."""
+def rms_fwd_row(gen, ln) -> dict:
+    """The bf16 row of the RMSNorm forward at the example GPT's rows (8 x
+    2048 at width 1024, its fp32 scale). Library: F.rms_norm."""
     dt = torch.bfloat16
     n, w = 8 * 2048, 1024
     x = torch.randn(n, w, device="cuda", generator=gen, dtype=dt)
-    dy = torch.randn(n, w, device="cuda", generator=gen, dtype=dt)
     scale = torch.randn(w, device="cuda", generator=gen)
-    lib_fwd = lib_bwd = None
-    if hasattr(F, "rms_norm"):
-        scale_bf = scale.to(dt)
-        lx, ls = (a.detach().requires_grad_(True) for a in (x, scale_bf))
-        ly = F.rms_norm(lx, (w,), ls, 1e-6)
+    scale_bf = scale.to(dt)
+    return timing_row("rms_norm_fwd", f"example GPT rows={n} W={w} bf16",
+                      lambda: ln.rms_norm_fwd(x, scale),
+                      lambda: ln.rms_norm_plain(x, scale),
+                      lambda: F.rms_norm(x, (w,), scale_bf, 1e-6),
+                      rms_cost(n, w, 2), torch.float32)
 
-        def lib_fwd():
-            return F.rms_norm(x, (w,), scale_bf, 1e-6)
 
-        def lib_bwd():
-            return torch.autograd.grad(ly, (lx, ls), dy, retain_graph=True)
-    shape = f"example GPT rows={n} W={w} bf16"
-    return [timing_row("rms_norm_fwd", shape,
-                       lambda: ln.rms_norm_fwd(x, scale),
-                       lambda: ln.rms_norm_plain(x, scale), lib_fwd,
-                       rms_cost(n, w, 2), torch.float32),
-            timing_row("rms_norm_bwd", shape,
-                       lambda: ln.rms_norm_bwd(x, scale, dy),
-                       lambda: ln.rms_norm_bwd_plain(x, scale, dy), lib_bwd,
-                       rms_bwd_cost(n, w, 2), torch.float32)]
+def norm_bwd_rows(gen, ln) -> list:
+    """bf16 rows of the LayerNorm and RMSNorm backwards at every path's rows
+    (tools/ab_backward.py's NORM_ROWS), the scale in the path's dtype (bf16
+    on the pure_bf16 legs, fp32 for the GPTs on fp32 weights). Library:
+    autograd.grad of F.layer_norm / F.rms_norm, on bf16 parameters."""
+    from megatron_clip_tpu_torch.tools.ab_backward import NORM_ROWS
+    dt = torch.bfloat16
+    rows = []
+    for path, kind, n, w, pdt in NORM_ROWS:
+        x = torch.randn(n, w, device="cuda", generator=gen, dtype=dt)
+        dy = torch.randn(n, w, device="cuda", generator=gen, dtype=dt)
+        scale, bias = (torch.randn(w, device="cuda", generator=gen)
+                       for _ in range(2))
+        pdtype = dt if pdt == "bf16" else torch.float32
+        scale = scale.to(pdtype)
+        lx, ls, lb = (a.detach().to(dt).requires_grad_(True)
+                      for a in (x, scale, bias))
+        if kind == "layer_norm":
+            ly, lib_in = F.layer_norm(lx, (w,), ls, lb, 1e-5), (lx, ls, lb)
+            cost = ln_bwd_cost(n, w, 2, pdtype.itemsize)
+        else:
+            ly, lib_in = F.rms_norm(lx, (w,), ls, 1e-6), (lx, ls)
+            cost = rms_bwd_cost(n, w, 2, pdtype.itemsize)
+        fn = getattr(ln, f"{kind}_bwd")
+        plain = getattr(ln, f"{kind}_bwd_plain")
+        rows.append(timing_row(
+            f"{kind}_bwd", f"{path} rows={n} W={w} bf16, scale {pdt}",
+            lambda: fn(x, scale, dy), lambda: plain(x, scale, dy),
+            lambda: torch.autograd.grad(ly, lib_in, dy, retain_graph=True),
+            cost, torch.float32))
+        del x, dy, lx, ly, lib_in
+        torch.cuda.empty_cache()
+    return rows
 
 
 def dropout_rows(gen, mha) -> list:
@@ -2492,20 +2607,8 @@ def phase_timings(mha, ln):
                 lambda: ln.layer_norm_plain(x, scale, bias),
                 lambda: F.layer_norm(x, (w,), scale_bf, bias_bf, 1e-5),
                 ln_cost(n, w, 2), torch.float32))
-            if b != TRAIN_BATCH:
-                continue
-            dy = torch.randn(n, w, device="cuda", generator=gen, dtype=dt)
-            lx, ls, lb = (t.detach().requires_grad_(True)
-                          for t in (x, scale_bf, bias_bf))
-            ly = F.layer_norm(lx, (w,), ls, lb, 1e-5)
-            rows.append(timing_row(
-                "layer_norm_bwd", shape,
-                lambda: ln.layer_norm_bwd(x, scale, dy),
-                lambda: ln.layer_norm_bwd_plain(x, scale, dy),
-                lambda: torch.autograd.grad(ly, (lx, ls, lb), dy,
-                                            retain_graph=True),
-                ln_bwd_cost(n, w, 2), torch.float32))
-    rows.extend(rms_rows(gen, ln))
+    rows.extend(norm_bwd_rows(gen, ln))
+    rows.append(rms_fwd_row(gen, ln))
     rows.extend(fused_ce_rows(gen))
     rows.extend(dropout_rows(gen, mha))
     return rows
@@ -2578,10 +2681,23 @@ ROUTES = {
         "other bf16": "tc::bwd_dq_rc + tc::bwd_dkdv_rc (mma.sync)",
         "fp32": "simt::"},
     **{name: {"rows of 16-byte multiples up to 2048 bf16 / 1024 fp32":
-              "ln_fwd, persistent, double-buffered registers (exact chunk "
-              "counts at W = 512, 768, 1024, 1280, 2048 in bf16)",
+              "ln_fwd, persistent, double-buffered registers, scale and "
+              "bias read in their dtype (exact chunk counts at W = 512, "
+              "768, 1024, 1280, 2048 in bf16)",
               "other rows": "ln_fwd_any"}
        for name in ("layer_norm_fwd", "rms_norm_fwd")},
+    **{name: {"bf16 rows at W = 512, 768, 1024, 1280": "ln_bwd, "
+              "persistent, the column sums in registers, scale read in its "
+              "dtype, double-buffered registers (a half-warp a row at 512, "
+              "a warp otherwise; exact chunk counts)",
+              "bf16 rows at W = 2048": "ln_bwd on two-warp rows (their row "
+              "sums added through shared memory)",
+              "other rows of 16-byte multiples up to 2048 bf16 / 1024 fp32":
+              "ln_bwd with guarded chunks",
+              "other rows": "ln_bwd_any (column sums in shared memory)",
+              "then, every row": "ln_bwd_sum: the blocks' partial rows "
+              "added in a fixed order, written in scale's dtype"}
+       for name in ("layer_norm_bwd", "rms_norm_bwd")},
 }
 
 

@@ -8,7 +8,9 @@ JAX package and kernels here. The kernels are in `csrc/layernorm.cu`, the
 RMS ones as variants of the LayerNorm ones. `layer_norm_fwd`,
 `layer_norm_bwd`, `rms_norm_fwd` and `rms_norm_bwd` take the plain version
 for a CPU tensor; for a CUDA tensor they launch the kernel or raise.
-`layer_norm` and `rms_norm` are what the model calls.
+`layer_norm` and `rms_norm` are what the model calls. The kernels read
+scale and bias in their own dtype (fp32 or bf16) and the backward writes
+dscale and dbias in scale's dtype: a call launches no cast kernel.
 """
 import ctypes
 
@@ -16,31 +18,28 @@ import torch
 
 from megatron_clip_tpu_torch.ops.kernels import _build
 
+_BWD_ARGS = [ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,
+             ctypes.c_void_p, ctypes.c_void_p, ctypes.c_int, ctypes.c_void_p,
+             ctypes.c_longlong, ctypes.c_int, ctypes.c_float, ctypes.c_int,
+             ctypes.c_int, ctypes.c_void_p]
 _SIGNATURES = {
     "mct_layer_norm_fwd": (
         [ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,
          ctypes.c_longlong, ctypes.c_int, ctypes.c_float, ctypes.c_int,
-         ctypes.c_void_p],
+         ctypes.c_int, ctypes.c_void_p],
         ctypes.c_int),
-    "mct_layer_norm_bwd": (
-        [ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,
-         ctypes.c_void_p, ctypes.c_int, ctypes.c_void_p, ctypes.c_longlong,
-         ctypes.c_int, ctypes.c_float, ctypes.c_int, ctypes.c_void_p],
-        ctypes.c_int),
+    "mct_layer_norm_bwd": (_BWD_ARGS, ctypes.c_int),
     "mct_rms_norm_fwd": (
         [ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p, ctypes.c_longlong,
-         ctypes.c_int, ctypes.c_float, ctypes.c_int, ctypes.c_void_p],
+         ctypes.c_int, ctypes.c_float, ctypes.c_int, ctypes.c_int,
+         ctypes.c_void_p],
         ctypes.c_int),
-    "mct_rms_norm_bwd": (
-        [ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,
-         ctypes.c_void_p, ctypes.c_int, ctypes.c_void_p, ctypes.c_longlong,
-         ctypes.c_int, ctypes.c_float, ctypes.c_int, ctypes.c_void_p],
-        ctypes.c_int),
+    "mct_rms_norm_bwd": (_BWD_ARGS, ctypes.c_int),
 }
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
-# csrc/layernorm.cu: the backward keeps 4 warps x [2][W] fp32 column sums in
-# shared memory (RMS: [1][W]), and its blocks (4 rows each, looping) write at
-# most MAX_BWD_BLOCKS partial rows
+# csrc/layernorm.cu: rows too wide for registers take a kernel that keeps 4
+# warps x [2][W] fp32 column sums in shared memory (RMS: [1][W]); the
+# partial rows of the scratch are at most one per 4 rows and MAX_BWD_BLOCKS
 MAX_BWD_WIDTH = 6144
 MAX_BWD_BLOCKS = 1024
 
@@ -89,14 +88,18 @@ def _check_rows(name: str, x: torch.Tensor) -> None:
                          f"[rows, W] tensor, got shape {tuple(x.shape)}")
 
 
-def _fp32_vector(name: str, what: str, t: torch.Tensor,
-                 x: torch.Tensor) -> torch.Tensor:
+def _param(name: str, what: str, t: torch.Tensor,
+           x: torch.Tensor) -> torch.Tensor:
+    """A [W] parameter on x's device in fp32 or bf16, as it is (contiguous:
+    a copy only for a strided view)."""
     w = x.shape[1]
-    t = t.to(torch.float32).contiguous()
     if t.shape != (w,) or t.device != x.device:
         raise ValueError(f"{name}: {what} must be [{w}] on {x.device}, got "
                          f"{tuple(t.shape)} on {t.device}")
-    return t
+    if t.dtype not in _DTYPES:
+        raise TypeError(f"{name}: {what} dtype {t.dtype} not supported "
+                        "(float32 or bfloat16)")
+    return t.contiguous()
 
 
 def rms_norm_plain(x: torch.Tensor, scale: torch.Tensor,
@@ -154,12 +157,14 @@ def layer_norm_fwd(x: torch.Tensor, scale: torch.Tensor, bias: torch.Tensor,
     if x.device.type == "cpu":
         return layer_norm_plain(x, scale, bias, eps)
     _check_rows("layer_norm_fwd", x)
-    scale = _fp32_vector("layer_norm_fwd", "scale", scale, x)
-    bias = _fp32_vector("layer_norm_fwd", "bias", bias, x)
+    scale = _param("layer_norm_fwd", "scale", scale, x)
+    bias = _param("layer_norm_fwd", "bias", bias, x)
+    if scale.dtype != bias.dtype:  # the kernel reads both in one dtype
+        scale, bias = scale.float(), bias.float()
     y = torch.empty_like(x)
     _launch("mct_layer_norm_fwd", x,
             [x.data_ptr(), scale.data_ptr(), bias.data_ptr(), y.data_ptr(),
-             *x.shape, eps, _DTYPES[x.dtype]])
+             *x.shape, eps, _DTYPES[x.dtype], _DTYPES[scale.dtype]])
     layer_norm_fwd.launches += 1
     return y
 
@@ -169,8 +174,8 @@ layer_norm_fwd.launches = 0
 
 def _bwd(name: str, fn: str, nsums: int, x: torch.Tensor,
          scale: torch.Tensor, dy: torch.Tensor, eps: float):
-    """Launch the backward kernel `fn` with `nsums` column sums per column;
-    returns (dx, sums [nsums, W] fp32)."""
+    """Launch the backward kernels `fn` with `nsums` column sums per column;
+    returns (dx, sums [nsums, W] in scale's dtype)."""
     _check_rows(name, x)
     if dy.shape != x.shape or dy.dtype != x.dtype or dy.device != x.device \
             or not dy.is_contiguous():
@@ -181,15 +186,16 @@ def _bwd(name: str, fn: str, nsums: int, x: torch.Tensor,
     if w > MAX_BWD_WIDTH:
         raise ValueError(f"{name}: width {w} above the kernel's "
                          f"{MAX_BWD_WIDTH}")
-    scale32 = _fp32_vector(name, "scale", scale, x)
-    nparts = min(-(-rows // 4), MAX_BWD_BLOCKS)
+    scale = _param(name, "scale", scale, x)
+    max_parts = min(-(-rows // 4), MAX_BWD_BLOCKS)
     dx = torch.empty_like(x)
-    part = torch.empty((nparts, nsums, w), dtype=torch.float32,
+    part = torch.empty((max_parts, nsums, w), dtype=torch.float32,
                        device=x.device)
-    sums = torch.empty((nsums, w), dtype=torch.float32, device=x.device)
-    _launch(fn, x, [x.data_ptr(), scale32.data_ptr(), dy.data_ptr(),
-                    dx.data_ptr(), part.data_ptr(), nparts, sums.data_ptr(),
-                    rows, w, eps, _DTYPES[x.dtype]])
+    sums = torch.empty((nsums, w), dtype=scale.dtype, device=x.device)
+    _launch(fn, x, [x.data_ptr(), scale.data_ptr(), dy.data_ptr(),
+                    dx.data_ptr(), part.data_ptr(), max_parts,
+                    sums.data_ptr(), rows, w, eps, _DTYPES[x.dtype],
+                    _DTYPES[scale.dtype]])
     return dx, sums
 
 
@@ -204,7 +210,7 @@ def layer_norm_bwd(x: torch.Tensor, scale: torch.Tensor, dy: torch.Tensor,
     dx, sums = _bwd("layer_norm_bwd", "mct_layer_norm_bwd", 2, x, scale, dy,
                     eps)
     layer_norm_bwd.launches += 1
-    return dx, sums[0].to(scale.dtype), sums[1].to(scale.dtype)
+    return dx, sums[0], sums[1]
 
 
 layer_norm_bwd.launches = 0
@@ -212,7 +218,8 @@ layer_norm_bwd.launches = 0
 
 class LayerNorm(torch.autograd.Function):
     """Saves (x, scale) as the JAX rule `_fln_fwd` does; the backward runs
-    `layer_norm_bwd`."""
+    `layer_norm_bwd`, and casts dbias only where bias's dtype is not
+    scale's."""
 
     @staticmethod
     def forward(ctx, x: torch.Tensor, scale: torch.Tensor, bias: torch.Tensor,
@@ -245,11 +252,11 @@ def rms_norm_fwd(x: torch.Tensor, scale: torch.Tensor,
     if x.device.type == "cpu":
         return rms_norm_plain(x, scale, eps)
     _check_rows("rms_norm_fwd", x)
-    scale = _fp32_vector("rms_norm_fwd", "scale", scale, x)
+    scale = _param("rms_norm_fwd", "scale", scale, x)
     y = torch.empty_like(x)
     _launch("mct_rms_norm_fwd", x, [x.data_ptr(), scale.data_ptr(),
                                     y.data_ptr(), *x.shape, eps,
-                                    _DTYPES[x.dtype]])
+                                    _DTYPES[x.dtype], _DTYPES[scale.dtype]])
     rms_norm_fwd.launches += 1
     return y
 
@@ -267,7 +274,7 @@ def rms_norm_bwd(x: torch.Tensor, scale: torch.Tensor, dy: torch.Tensor,
         return rms_norm_bwd_plain(x, scale, dy, eps)
     dx, sums = _bwd("rms_norm_bwd", "mct_rms_norm_bwd", 1, x, scale, dy, eps)
     rms_norm_bwd.launches += 1
-    return dx, sums[0].to(scale.dtype)
+    return dx, sums[0]
 
 
 rms_norm_bwd.launches = 0

@@ -1,8 +1,9 @@
 """Time the fused CE forward and backward, the fused and the split flash
-backward and the fused-MHA recompute backward of two checkouts of this repo
-on one card.
+backward, the fused-MHA recompute backward and the LayerNorm and RMSNorm
+backwards of two checkouts of this repo on one card.
 
-    python megatron_clip_tpu_torch/tools/ab_backward.py --other DIR
+    python megatron_clip_tpu_torch/tools/ab_backward.py --other DIR \
+        [--rows all|norm]
 
 DIR is another checkout of the repo, for example the parent commit unpacked
 with `git archive` into a gitignored directory. Both checkouts' kernels are
@@ -10,7 +11,8 @@ built first, at once; then one process per run, in the order other, this,
 this, other. Each process imports the port from its checkout and times
 through the wrappers both checkouts share (`fused_ce_fwd`, `fused_ce_bwd`,
 `flash_bwd_fused`, `flash_bwd_dq`, `flash_bwd_dkv` and their dropout
-twins, `fused_mha_bwd`, `fused_mha_bwd_recompute`, `fused_mha_dropout_bwd`),
+twins, `fused_mha_bwd`, `fused_mha_bwd_recompute`, `fused_mha_dropout_bwd`,
+`layer_norm_bwd`, `rms_norm_bwd`),
 mean of CUDA events after warm-up, warm L2, the calls queued behind a
 device-side wait so that the device's time is read and not the host's,
 and each port call's host time (`host_ms`:
@@ -44,7 +46,13 @@ launch set-up and launches):
   B = 24, H = 16, S = 77, D = 64, causal), beside SDPA's backward;
 - the fused-MHA saved-P backward, bf16, from the forward's P, at
   ViT-B/32's training shapes (B = 384: vision S = 50, H = 12; text S = 77,
-  H = 8, causal), beside SDPA's backward.
+  H = 8, causal), beside SDPA's backward;
+- the LayerNorm and RMSNorm backwards at every path's rows (NORM_ROWS),
+  bf16 rows, the scale in the path's dtype, beside `autograd.grad` of
+  `F.layer_norm` / `F.rms_norm` (on bf16 parameters), with each call's
+  kernels and their device us from torch.profiler (`kernels_us`: the rows'
+  kernel, the sum over blocks and any cast kernel, by name).
+`--rows norm` times the norm rows alone (~1 min of command time).
 Inputs come from a seeded generator, so both checkouts get the same ones.
 Prints the card, one JSON line per row with the four runs' times, and
 last one JSON object with every run. Needs a CUDA device and nvcc.
@@ -77,7 +85,20 @@ RECOMPUTE_ROWS = (("pipeline GPT", 32, 512, 16, 128, True, 0.0),
 # the saved-P backward's: (label, B, S, H, D, causal)
 SAVED_ROWS = (("ViT-B/32 vision", 384, 50, 12, 64, False),
               ("ViT-B/32 text", 384, 77, 8, 64, True))
-LIBRARIES = ["fused_ce", "flash_attention", "fused_mha"]
+# the norm backwards': (path, kernel, rows, W, scale dtype), the rows of a
+# step's batch at the tower's or model's width; the scale bf16 on the
+# pure_bf16 legs (CLIP, GPT-345m), fp32 for the GPTs on fp32 weights
+NORM_ROWS = (("ViT-B/32 b384 vision", "layer_norm", 384 * 50, 768, "bf16"),
+             ("ViT-B/32 b384 text", "layer_norm", 384 * 77, 512, "bf16"),
+             ("ViT-L/14 b64 vision", "layer_norm", 64 * 257, 1024, "bf16"),
+             ("ViT-L/14 b64 text", "layer_norm", 64 * 77, 768, "bf16"),
+             ("ViT-H/14 b24 vision", "layer_norm", 24 * 257, 1280, "bf16"),
+             ("ViT-H/14 b24 text", "layer_norm", 24 * 77, 1024, "bf16"),
+             ("GPT-345m b6", "layer_norm", 6 * 2048, 1024, "bf16"),
+             ("pipeline GPT b8", "layer_norm", 8 * 2048, 2048, "fp32"),
+             ("example GPT b8", "rms_norm", 8 * 2048, 1024, "fp32"))
+LIBRARIES = ["fused_ce", "flash_attention", "fused_mha", "layernorm"]
+NORM_REPS = 20
 REPS, WARMUP = 10, 2
 # cycles of the device-side wait before a timing window (~2 ms on an H100)
 QUEUE_CYCLES = 4_000_000
@@ -153,8 +174,68 @@ def fused_dkv_library(build, fa):
                             "fused_dkv")
 
 
-def time_checkout(repo: str) -> dict:
-    """This process's run: the kernels of the checkout at `repo`."""
+def kernel_split(fn, calls: int = 10) -> dict:
+    """The device kernels of one call of `fn` from torch.profiler: each
+    kernel's device us a call by name (template arguments kept), and the
+    kernels a call launches."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        for _ in range(calls):
+            fn()
+        torch.cuda.synchronize()
+    by, n = {}, 0
+    for e in prof.events():
+        if e.device_type == torch.autograd.DeviceType.CUDA:
+            key = re.sub(r"\((?!anonymous namespace\)).*$", "", e.name)
+            by[key] = by.get(key, 0.0) + (e.time_range.end
+                                          - e.time_range.start) / calls
+            n += 1
+    return {"kernels_us": by, "kernels_a_call": n / calls}
+
+
+def time_norms(ms, host_ms) -> list:
+    """The NORM_ROWS of the checkout imported: kernel, host and library ms,
+    and the call's kernels."""
+    import torch
+    import torch.nn.functional as F
+    from megatron_clip_tpu_torch.ops.kernels import layernorm as ln
+    dt = torch.bfloat16
+    rows = []
+    for path, kind, n, w, pdt in NORM_ROWS:
+        gen = torch.Generator(device="cuda").manual_seed(n + w)
+        x = (torch.randn(n, w, device="cuda", generator=gen) * 3 + 1).to(dt)
+        dy = torch.randn(n, w, device="cuda", generator=gen).to(dt)
+        scale, bias = (torch.randn(w, device="cuda", generator=gen)
+                       for _ in range(2))
+        scale = scale.to(dt) if pdt == "bf16" else scale
+        lx, ls, lb = (a.detach().to(dt).requires_grad_(True)
+                      for a in (x, scale, bias))
+        if kind == "layer_norm":
+            def fn():
+                return ln.layer_norm_bwd(x, scale, dy)
+            ly, lib_in = F.layer_norm(lx, (w,), ls, lb, 1e-5), (lx, ls, lb)
+        else:
+            def fn():
+                return ln.rms_norm_bwd(x, scale, dy)
+            ly, lib_in = F.rms_norm(lx, (w,), ls, 1e-6), (lx, ls)
+        rows.append({
+            "row": f"{kind}_bwd {path} rows={n} W={w} bf16, scale {pdt}",
+            "ms": ms(fn, NORM_REPS), "host_ms": host_ms(fn),
+            "library_ms": ms(lambda: torch.autograd.grad(
+                ly, lib_in, dy, retain_graph=True), NORM_REPS),
+            **kernel_split(fn)})
+        del x, dy, lx, ly, lib_in
+        torch.cuda.empty_cache()
+    return rows
+
+
+def time_checkout(repo: str, only: str = "all") -> dict:
+    """This process's run: the kernels of the checkout at `repo` (`only`
+    "norm": the norm rows alone)."""
     sys.path.insert(0, repo)
     import torch
     import torch.nn.functional as F
@@ -165,9 +246,9 @@ def time_checkout(repo: str) -> dict:
     from megatron_clip_tpu_torch.ops.kernels import fused_mha as mha
     if not Path(ce.__file__).resolve().is_relative_to(Path(repo).resolve()):
         raise RuntimeError(f"imported {ce.__file__}, not from {repo}")
-    _build.build(LIBRARIES)
+    _build.build(["layernorm"] if only == "norm" else LIBRARIES)
 
-    def ms(fn) -> float:
+    def ms(fn, reps: int = REPS) -> float:
         for _ in range(WARMUP):
             fn()
         torch.cuda.synchronize()
@@ -177,11 +258,11 @@ def time_checkout(repo: str) -> dict:
         # than its kernels is timed by its kernels
         torch.cuda._sleep(QUEUE_CYCLES)
         start.record()
-        for _ in range(REPS):
+        for _ in range(reps):
             fn()
         end.record()
         end.synchronize()
-        return start.elapsed_time(end) / REPS
+        return start.elapsed_time(end) / reps
 
     def host_ms(fn) -> float:
         torch.cuda.synchronize()
@@ -193,7 +274,9 @@ def time_checkout(repo: str) -> dict:
         return took * 1e3 / REPS
 
     dt = torch.bfloat16
-    rows = []
+    rows = time_norms(ms, host_ms)
+    if only == "norm":
+        return {"repo": repo, "rows": rows}
     no_atomics = no_atomics_library(_build, ce)
     fused_dkv = fused_dkv_library(_build, fa)
     for t, w, v in CE_ROWS:
@@ -360,29 +443,32 @@ def time_checkout(repo: str) -> dict:
     return {"repo": repo, "rows": rows}
 
 
-def build_checkout(repo: str) -> None:
+def build_checkout(repo: str, only: str = "all") -> None:
     """This process's build: the checkout's libraries, all nvcc processes
     at once."""
     sys.path.insert(0, repo)
     from megatron_clip_tpu_torch.ops.kernels import _build
-    _build.build(LIBRARIES)
+    _build.build(["layernorm"] if only == "norm" else LIBRARIES)
 
 
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--other", help="the other checkout's root")
+    ap.add_argument("--rows", choices=("all", "norm"), default="all",
+                    help="every row, or the norm backwards' alone")
     ap.add_argument("--time", help=argparse.SUPPRESS)
     ap.add_argument("--build", help=argparse.SUPPRESS)
     args = ap.parse_args()
     if args.time:
-        print(json.dumps(time_checkout(args.time)))
+        print(json.dumps(time_checkout(args.time, args.rows)))
         return 0
     if args.build:
-        build_checkout(args.build)
+        build_checkout(args.build, args.rows)
         return 0
     if not args.other:
         ap.error("--other is required")
-    builds = [subprocess.Popen([sys.executable, __file__, "--build", repo],
+    builds = [subprocess.Popen([sys.executable, __file__, "--build", repo,
+                                "--rows", args.rows],
                                stdout=subprocess.PIPE,
                                stderr=subprocess.STDOUT, text=True)
               for repo in (args.other, str(HERE))]
@@ -397,7 +483,8 @@ def main() -> int:
     print(card)
     runs = []
     for repo in (args.other, str(HERE), str(HERE), args.other):
-        res = subprocess.run([sys.executable, __file__, "--time", repo],
+        res = subprocess.run([sys.executable, __file__, "--time", repo,
+                              "--rows", args.rows],
                              capture_output=True, text=True, timeout=1200)
         if res.returncode != 0:
             print(res.stdout + res.stderr, file=sys.stderr)
@@ -407,7 +494,8 @@ def main() -> int:
         rows = [run["rows"][i] for run in runs]
         line = {"row": first["row"]}
         for key in ("ms", "dq_ms", "dkv_ms", "fused_dkv_ms", "fused_ms",
-                    "host_ms", "library_ms", "no_atomics_ms"):
+                    "host_ms", "library_ms", "no_atomics_ms", "kernels_us",
+                    "kernels_a_call"):
             got = [r.get(key) for r in rows]
             if any(g is not None for g in got):
                 line[f"{key} other/this/this/other"] = got

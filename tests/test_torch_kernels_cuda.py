@@ -63,7 +63,10 @@ each Hopper library (csrc/sm90.cuh) against the fp32 product of the same
 bf16 tiles: 1e-5 relative plus 1e-4 (fp32 sums of 64 or 128 exact products).
 
 The RMSNorm kernels (LayerNorm's without the mean and the bias) under the
-LayerNorm bounds. The fused lm-head cross entropy: loss and lse within
+LayerNorm bounds. The norm backwards at every path width with a scale of
+either dtype: a bf16 scale gives dx bit-equal to the call on its fp32
+values and dscale (dbias) that call's fp32 sums rounded once to bf16; a
+second call gives the same bits. The fused lm-head cross entropy: loss and lse within
 1e-5 absolute plus 2e-5 relative (fp32 logits summed in another order, the
 softmax sum folded per 64-column partial), fp32 gradients within 1e-5
 relative plus 5e-5 of the largest |value| (sums of T or V terms added with
@@ -926,6 +929,112 @@ def test_norm_forward_at_path_widths(cuda, rows, w, dtype, rms):
     torch.testing.assert_close(got, want, rtol=tol[0], atol=tol[1])
     if dtype == torch.bfloat16:
         torch.testing.assert_close(got.float(), want32, rtol=2e-2, atol=2e-2)
+
+
+NORM_WIDTHS = [512, 768, 1024, 1280, 2048]
+
+
+def _norm_fns(kind):
+    if kind == "layernorm":
+        return ln.layer_norm_bwd, ln.layer_norm_bwd_plain
+    return ln.rms_norm_bwd, ln.rms_norm_bwd_plain
+
+
+# The norm backwards (csrc/layernorm.cu ln_bwd: persistent, a row a warp, a
+# half-warp at W = 512 or two warps at W = 2048 in bf16, the column sums in
+# registers; ln_bwd_sum adds the blocks' partial rows) at every path width,
+# in fp32 and bf16, with a scale of either dtype, at one row, 5 rows, fewer
+# rows than a full grid has warps, and 4099 rows. dx under the bounds of
+# test_layer_norm_backward_matches_plain, the fp32 column sums within 1e-5
+# relative plus 1e-4 of the plain version's; a bf16 scale is read as it is,
+# so dx equals the call on its values in fp32 bit for bit and dscale (and
+# dbias) come back in bf16, the fp32 call's sums rounded once; a second
+# call gives the same bits (no atomics).
+@pytest.mark.parametrize("kind", ["layernorm", "rmsnorm"])
+@pytest.mark.parametrize("pdtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("w", NORM_WIDTHS)
+@pytest.mark.parametrize("rows", [1, 5, 100, 4099])
+def test_norm_backward_at_path_widths(cuda, rows, w, dtype, pdtype, kind):
+    bwd, plain = _norm_fns(kind)
+    rng = np.random.default_rng(rows * 7 + w)
+    x, dy = (torch.from_numpy(a.astype(np.float32)).to(cuda, dtype) for a in
+             (rng.standard_normal((rows, w)) * 3 + 1,
+              rng.standard_normal((rows, w))))
+    scale = torch.from_numpy(rng.standard_normal(w).astype(np.float32)).to(
+        cuda, pdtype)
+    got = bwd(x, scale, dy)
+    again = bwd(x, scale, dy)
+    assert all(torch.equal(a, b) for a, b in zip(got, again))
+    assert got[0].dtype == dtype and got[0].shape == (rows, w)
+    assert all(g.dtype == pdtype and g.shape == (w,) for g in got[1:])
+    fp32 = bwd(x, scale.float(), dy)
+    if pdtype == torch.bfloat16:
+        assert torch.equal(got[0], fp32[0])
+        assert all(torch.equal(g, f.to(pdtype))
+                   for g, f in zip(got[1:], fp32[1:]))
+    want = plain(x, scale.float(), dy)
+    tol = (1e-5, 1e-5) if dtype == torch.float32 else (8e-3, 4e-3)
+    torch.testing.assert_close(fp32[0], want[0], rtol=tol[0], atol=tol[1])
+    for g, wg in zip(fp32[1:], want[1:]):
+        torch.testing.assert_close(g, wg, rtol=1e-5, atol=1e-4)
+
+
+# The forwards read a bf16 scale and bias as they are: the output equals the
+# call on their values in fp32 bit for bit (bf16 -> fp32 is exact).
+@pytest.mark.parametrize("kind", ["layernorm", "rmsnorm"])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("w", NORM_WIDTHS)
+def test_norm_forward_reads_bf16_parameters(cuda, w, dtype, kind):
+    rng = np.random.default_rng(w + 3)
+    x, scale, bias = (torch.from_numpy(a.astype(np.float32)).to(cuda) for a in
+                      (rng.standard_normal((300, w)) * 3 + 1,
+                       rng.standard_normal(w), rng.standard_normal(w)))
+    x, scale, bias = x.to(dtype), scale.bfloat16(), bias.bfloat16()
+    if kind == "layernorm":
+        got = layer_norm_fwd(x, scale, bias)
+        want = layer_norm_fwd(x, scale.float(), bias.float())
+    else:
+        got, want = ln.rms_norm_fwd(x, scale), ln.rms_norm_fwd(x, scale.float())
+    assert got.dtype == dtype and torch.equal(got, want)
+
+
+# One call with bf16 parameters: the forward one kernel, the backward its
+# rows' kernel and the sum over the blocks, and no cast kernel (counted by
+# torch.profiler); under autograd, dscale and dbias come back in bf16.
+@pytest.mark.parametrize("kind", ["layernorm", "rmsnorm"])
+def test_norm_calls_launch_no_cast_kernel(cuda, kind):
+    from torch.profiler import ProfilerActivity, profile
+    x, dy = (torch.randn(4099, 768, device=cuda).bfloat16() for _ in range(2))
+    scale, bias = (torch.randn(768, device=cuda).bfloat16() for _ in range(2))
+    if kind == "layernorm":
+        def fwd():
+            return layer_norm_fwd(x, scale, bias)
+
+        def bwd():
+            return layer_norm_bwd(x, scale, dy)
+    else:
+        def fwd():
+            return ln.rms_norm_fwd(x, scale)
+
+        def bwd():
+            return ln.rms_norm_bwd(x, scale, dy)
+    for fn, stem, most in ((fwd, "ln_fwd", 1), (bwd, "ln_bwd", 2)):
+        fn()  # the build
+        torch.cuda.synchronize()
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            fn()
+            torch.cuda.synchronize()
+        names = [e.name for e in prof.events()
+                 if e.device_type == torch.autograd.DeviceType.CUDA]
+        assert 1 <= len(names) <= most and all(stem in n for n in names), \
+            names
+    params = [t.detach().requires_grad_(True)
+              for t in ((scale, bias) if kind == "layernorm" else (scale,))]
+    y = (layer_norm(x, *params) if kind == "layernorm"
+         else ln.rms_norm(x, *params))
+    grads = torch.autograd.grad(y, params, dy)
+    assert all(g.dtype == torch.bfloat16 for g in grads)
 
 
 def test_rms_norm_autograd_runs_both_kernels(cuda):

@@ -16,6 +16,16 @@ RMSNorm: the port's `rms_norm` against `fused_rms_norm` (the Pallas kernel
 with rms=True) and the jnp `rms_norm` the JAX package's models call, forward
 1e-5; its backward against `jax.vjp` of `fused_rms_norm` (rule `_frms_bwd`),
 dx 1e-5 and dscale as dscale above.
+
+bf16 scale and bias, as the pure_bf16 paths pass them: the gradients come
+back in the parameters' dtype, as `_fln_bwd` / `_frms_bwd` return them
+(`astype(scale.dtype)`), which is the contract the CUDA kernel writes
+directly. Each side rounds its fp32 sums once to bf16; the sums agree within
+the fp32 bounds above, so where they straddle a rounding boundary the two
+differ by one bf16 ulp: at most 2^-7 relative (just above a power of two),
+plus the 1e-4 above. The forward and
+dx as above in fp32; a bf16 x's forward and dx within one bf16 ulp (4e-3 +
+8e-3 relative), each side rounding fp32 values once.
 """
 import jax
 import jax.numpy as jnp
@@ -116,3 +126,38 @@ def test_rms_norm_bf16_keeps_dtype_and_eps():
     tiny = torch.full((1, 4), 1e-3)
     np.testing.assert_allclose(rms_norm(tiny, torch.ones(4)).numpy(),
                                1e-3 / np.sqrt(1e-6 + 1e-6), rtol=1e-5)
+
+
+@pytest.mark.parametrize("x_dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("rms", [False, True], ids=["layernorm", "rmsnorm"])
+@pytest.mark.parametrize("shape", [(2, 77, 512), (6, 96)])
+def test_bf16_parameters_match_jax_vjp(shape, rms, x_dtype):
+    x, scale, bias = _inputs(shape, seed=9)
+    dy = np.random.default_rng(10).standard_normal(shape).astype(np.float32)
+    jdt, tdt = jnp.dtype(x_dtype), getattr(torch, x_dtype)
+    params = (scale,) if rms else (scale, bias)
+    jfn = fused_rms_norm if rms else fused_layer_norm
+    jx, jdy = jnp.asarray(x).astype(jdt), jnp.asarray(dy).astype(jdt)
+    jparams = [jnp.asarray(p).astype(jnp.bfloat16) for p in params]
+    want_y, vjp = jax.vjp(jfn, jx, *jparams)
+    want = vjp(jdy)
+    tx = torch.from_numpy(x).to(tdt).requires_grad_(True)
+    tparams = [torch.from_numpy(p).to(torch.bfloat16).requires_grad_(True)
+               for p in params]
+    y = (rms_norm if rms else layer_norm)(tx, *tparams)
+    got = torch.autograd.grad(y, [tx, *tparams],
+                              torch.from_numpy(dy).to(tdt))
+    tol = (1e-5, 1e-5) if x_dtype == "float32" else (8e-3, 4e-3)
+    assert y.dtype == tdt and want_y.dtype == jdt
+    np.testing.assert_allclose(y.detach().float().numpy(),
+                               np.asarray(want_y.astype(jnp.float32)),
+                               rtol=tol[0], atol=tol[1])
+    assert got[0].dtype == tdt and want[0].dtype == jdt
+    np.testing.assert_allclose(got[0].float().numpy(),
+                               np.asarray(want[0].astype(jnp.float32)),
+                               rtol=tol[0], atol=tol[1])
+    for g, w in zip(got[1:], want[1:]):
+        assert g.dtype == torch.bfloat16 and w.dtype == jnp.bfloat16
+        np.testing.assert_allclose(g.float().numpy(),
+                                   np.asarray(w.astype(jnp.float32)),
+                                   rtol=2 ** -7, atol=1e-4)

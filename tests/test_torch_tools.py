@@ -6,10 +6,12 @@ kernel's name, as the CUDA toolkit's cu++filt prints it, must land in its
 source's forward or backward column, so that a redesigned kernel's time is
 compared with its predecessor's; its per-kernel list keeps each kernel's
 template arguments (which head dim ran). And the step A/B tool's legs,
-which profile_train's `_clip_step` and `_gpt_step` take.
+which profile_train's `_clip_step` and `_gpt_step` take, and the backward
+A/B tool's norm rows, which must cover every path's width.
 """
 import pytest
 
+from megatron_clip_tpu_torch.tools.ab_backward import NORM_ROWS
 from megatron_clip_tpu_torch.tools.ab_step import LEGS, leg_args
 from megatron_clip_tpu_torch.tools.profile_train import (_category,
                                                          _kernel_label)
@@ -20,6 +22,8 @@ _SHORT = "mct::attn_short::Maps, mct::attn_short::Args"
 _SHORT_BWD = "mct::attn_short_bwd::Maps, mct::attn_short_bwd::Args"
 _LN = ("__nv_bfloat16 const*, float const*, float const*, __nv_bfloat16*, "
        "long, int, float")
+_LN_BWD = ("__nv_bfloat16 const*, __nv_bfloat16 const*, __nv_bfloat16 "
+           "const*, __nv_bfloat16*, float*, long, int, float")
 _SPLIT = ("(anonymous namespace)::hop::SplitMaps, (anonymous namespace)::"
           "hop::SplitArgs")
 
@@ -125,6 +129,29 @@ _SPLIT = ("(anonymous namespace)::hop::SplitMaps, (anonymous namespace)::"
      "rmsnorm fwd (layernorm.cu)"),
     ("void (anonymous namespace)::ln_bwd<__nv_bfloat16, false>(float)",
      "layernorm bwd (layernorm.cu)"),
+    # the persistent norm backward: ln_bwd<T, P, lanes, chunks, exact, RMS>
+    # and the sum over its blocks, ln_bwd_sum<P, RMS>; the forward with the
+    # parameters' dtype P
+    (f"void (anonymous namespace)::ln_bwd<__nv_bfloat16, __nv_bfloat16, "
+     f"32, 3, true, false>({_LN_BWD})", "layernorm bwd (layernorm.cu)"),
+    (f"void (anonymous namespace)::ln_bwd<__nv_bfloat16, __nv_bfloat16, "
+     f"16, 4, true, false>({_LN_BWD})", "layernorm bwd (layernorm.cu)"),
+    (f"void (anonymous namespace)::ln_bwd<__nv_bfloat16, float, 64, 4, "
+     f"true, false>({_LN_BWD})", "layernorm bwd (layernorm.cu)"),
+    (f"void (anonymous namespace)::ln_bwd<__nv_bfloat16, float, 32, 4, "
+     f"true, true>({_LN_BWD})", "rmsnorm bwd (layernorm.cu)"),
+    (f"void (anonymous namespace)::ln_bwd<float, float, 64, 4, false, "
+     f"true>({_LN_BWD})", "rmsnorm bwd (layernorm.cu)"),
+    ("void (anonymous namespace)::ln_bwd_sum<__nv_bfloat16, false>(float "
+     "const*, int, int, __nv_bfloat16*)", "layernorm bwd (layernorm.cu)"),
+    ("void (anonymous namespace)::ln_bwd_sum<float, true>(float const*, "
+     "int, int, float*)", "rmsnorm bwd (layernorm.cu)"),
+    ("void (anonymous namespace)::ln_bwd_any<float, __nv_bfloat16, true>("
+     "float)", "rmsnorm bwd (layernorm.cu)"),
+    (f"void (anonymous namespace)::ln_fwd<__nv_bfloat16, __nv_bfloat16, 32, "
+     f"3, true, false>({_LN})", "layernorm fwd (layernorm.cu)"),
+    (f"void (anonymous namespace)::ln_fwd<__nv_bfloat16, float, 32, 4, "
+     f"true, true>({_LN})", "rmsnorm fwd (layernorm.cu)"),
 ])
 def test_every_port_kernel_lands_in_its_column(name, category):
     assert _category(name) == category
@@ -169,3 +196,13 @@ def test_profile_labels_keep_the_template_arguments(name, label):
 ])
 def test_ab_step_legs_give_profile_train_options(leg, want):
     assert vars(leg_args(leg)) == want
+
+
+def test_ab_backward_norm_rows_cover_every_path_width():
+    """LayerNorm at each CLIP tower's and GPT's width (512 to 2048), the
+    RMSNorm of the example GPT at 1024; scales in the path's dtype."""
+    widths = {kind: {w for _, k, _, w, _ in NORM_ROWS if k == kind}
+              for kind in ("layer_norm", "rms_norm")}
+    assert widths == {"layer_norm": {512, 768, 1024, 1280, 2048},
+                      "rms_norm": {1024}}
+    assert {pdt for *_, pdt in NORM_ROWS} == {"bf16", "fp32"}
