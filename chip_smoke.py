@@ -128,7 +128,27 @@ imports nothing of JAX or of the JAX package. Phases, each of which raises
      the recompute replays) and a falling loss; then fp32 steps at full
      width (2 layers, batch 1, attention dropout 0.1, hidden dropout 0) at
      S = 512 (fused route) and S = 1280 (flash route), card against CPU on
-     the same Philox masks.
+     the same Philox masks;
+ 12. trainer: the port's CLIP trainer through the entry point a user calls,
+     `megatron_clip_tpu_torch.pretrain_clip.main`, in this process: (a)
+     ViT-B-32 on synthetic data in phase 7's model, batch and recipe, 3
+     warm-up and 20 timed steps at --log-interval 1, each step launching
+     exactly phase 7's kernels; the loop's samples/s beside phase 7's
+     images/s, a step's host ms in the runner and between steps, and the
+     prefetch thread's copy to pinned memory; (b) webdataset shards the
+     phase writes (2 tars of 256 RGB PNGs of 256 x 256, rows in all five
+     PNG filters, written by its own zlib encoder, with captions) at bf16,
+     batch 128, 2 decode workers: 4 steps with --save-interval 2, then the
+     run as if cut before step 4's save committed (the tracker back at step
+     2) resumed with --resume latest, whose steps 3-4 must give the first
+     run's losses bit for bit; one process's decode images/s and the saves'
+     host ms; (c) a CSV of 64 such PNG files (224 x 224) with --val-data: 2
+     steps, then clip_val_loss and recall@1/5/10. The phase must end within
+     60 s, and then stops the decode workers' forkserver and resource
+     tracker.
+
+Before its last lines the script fails if a process it started (a build,
+a decode worker, the forkserver, the resource tracker) is still alive.
 
 Phases 3 and 6 also hold and time the fused lm-head cross entropy (forward;
 the backward's dX and dW, on wgmma in bf16, in chunks of 4096 tokens) at
@@ -167,7 +187,9 @@ limit, the {"kernels": [...]} line and {"ok": true, "device": {...}}.
 import functools
 import json
 import math
+import os
 import re
+import shutil
 import subprocess
 import sys
 import time
@@ -268,6 +290,24 @@ TILE_FAULTS = (("MCT_FWD_TILE_FAULT=1", "MCT_BWD_TILE_FAULT=1"),
 # each to LN_TEETH_FACTOR times the bound it must fail
 LN_BWD_FAULTS = ("MCT_LN_BWD_FAULT=1", "MCT_LN_BWD_FAULT=2")
 LN_TEETH_FACTOR = 10.0
+# phase 12: the trainer (`python -m megatron_clip_tpu_torch.pretrain_clip`),
+# run in-process: (a) phase 7's model, batch and recipe on synthetic data,
+# warm-up + timed steps; (b) WDS_SHARDS tars of WDS_PER_SHARD PNG samples
+# (WDS_IMAGE px) at batch WDS_BATCH with WDS_WORKERS decode workers; (c) a
+# CSV of CSV_IMAGES PNGs at batch CSV_BATCH with --val-data. Scratch files
+# under SMOKE_DIR (gitignored), removed at the phase's end, which must come
+# within TRAINER_PHASE_LIMIT_S.
+TRAINER_WARMUP, TRAINER_STEPS = 3, 20
+TRAINER_SYNTHETIC = [
+    "--model", "ViT-B-32", "--precision", "pure_bf16", "--batch-size",
+    str(TRAIN_BATCH), "--dataset-type", "synthetic", "--train-num-samples",
+    str(TRAIN_BATCH * (TRAINER_WARMUP + TRAINER_STEPS)), "--lr", "1e-3",
+    "--warmup", "100", "--grad-clip-norm", "1.0", "--log-interval", "1"]
+WDS_SHARDS, WDS_PER_SHARD, WDS_IMAGE = 2, 256, 256
+WDS_BATCH, WDS_WORKERS = 128, 2
+CSV_IMAGES, CSV_IMAGE, CSV_BATCH = 64, 224, 32
+SMOKE_DIR = REPO / "_smoke"
+TRAINER_PHASE_LIMIT_S = 60.0
 
 
 _T0 = time.perf_counter()
@@ -3442,6 +3482,338 @@ def phase_pipeline(mha, ln, card: str) -> dict:
     return result
 
 
+class TrainerProbe:
+    """Wraps the trainer's runner (`training/loop.py`) while one run lasts:
+    each step's kernel launches, which must equal `per_step` (phase 7's
+    step), its loss and the host clock at its start and end; the host ms of
+    each batch's staging copy on the prefetch thread (`_Prefetch.stage`)
+    and of each save (the host copy only, when the save writes in the
+    background). The counters are zeroed on entry and read on exit into
+    `launches`."""
+
+    def __init__(self, loop, mha, ln, per_step: dict):
+        self.loop, self.mha, self.ln = loop, mha, ln
+        self.per_step = per_step
+        self.losses, self.host, self.stage_ms, self.save_ms = [], [], [], []
+
+    def __enter__(self):
+        runner, staging = self.loop._JointRunner, self.loop._Prefetch
+        self._saved = (runner.step, runner.save, staging.stage)
+        step, save, stage = self._saved
+        probe = self
+
+        def probed_step(run, images, texts):
+            before = read_counts(probe.mha, probe.ln)
+            t0 = time.perf_counter()
+            metrics = step(run, images, texts)
+            probe.host.append((t0, time.perf_counter()))
+            got = {k: v - before[k]
+                   for k, v in read_counts(probe.mha, probe.ln).items()}
+            if got != probe.per_step:
+                raise AssertionError(f"trainer step {len(probe.host)}: "
+                                     f"launches {got}, expected "
+                                     f"{probe.per_step}")
+            probe.losses.append(metrics["loss"])
+            return metrics
+
+        def probed_save(run, root, at, consumed, block=True, on_commit=None):
+            t0 = time.perf_counter()
+            save(run, root, at, consumed, block=block, on_commit=on_commit)
+            probe.save_ms.append({"step": at, "background": not block,
+                                  "ms": (time.perf_counter() - t0) * 1e3})
+
+        def probed_stage(stg, i, arrays):
+            t0 = time.perf_counter()
+            out = stage(stg, i, arrays)
+            probe.stage_ms.append((time.perf_counter() - t0) * 1e3)
+            return out
+        runner.step, runner.save = probed_step, probed_save
+        staging.stage = probed_stage
+        zero_counts(self.mha, self.ln)
+        self.entered = time.perf_counter()
+        return self
+
+    def __exit__(self, *exc):
+        runner, staging = self.loop._JointRunner, self.loop._Prefetch
+        runner.step, runner.save, staging.stage = self._saved
+        self.launches = read_counts(self.mha, self.ln)
+        return False
+
+    def loss_values(self) -> list:
+        return torch.stack(self.losses).float().tolist()
+
+
+def png_bytes(pix: np.ndarray) -> bytes:
+    """uint8 [H, W, 3] as an 8-bit RGB PNG whose row r is filtered with
+    filter r % 5 (None, Sub, Up, Average, Paeth), deflated by zlib at
+    level 1."""
+    import zlib
+    h, w, _ = pix.shape
+    x = pix.reshape(h, w * 3).astype(np.int16)
+    up = np.vstack([np.zeros((1, w * 3), np.int16), x[:-1]])
+    left = np.hstack([np.zeros((h, 3), np.int16), x[:, :-3]])
+    ul = np.hstack([np.zeros((h, 3), np.int16), up[:, :-3]])
+    resid = x.copy()  # filter 0: the bytes as they are
+    for f in range(1, 5):
+        rows = slice(f, None, 5)
+        a, b, c = left[rows], up[rows], ul[rows]
+        if f == 4:
+            pa, pb, pc = np.abs(b - c), np.abs(a - c), np.abs(a + b - 2 * c)
+            pred = np.where((pa <= pb) & (pa <= pc), a,
+                            np.where(pb <= pc, b, c))
+        else:
+            pred = (a, b, (a + b) >> 1)[f - 1]
+        resid[rows] -= pred
+    filt = (np.arange(h) % 5).astype(np.uint8)[:, None]
+    raw = np.hstack([filt, (resid & 255).astype(np.uint8)]).tobytes()
+
+    def chunk(kind: bytes, body: bytes) -> bytes:
+        return (len(body).to_bytes(4, "big") + kind + body
+                + zlib.crc32(kind + body).to_bytes(4, "big"))
+    header = (w.to_bytes(4, "big") + h.to_bytes(4, "big")
+              + bytes([8, 2, 0, 0, 0]))
+    return (b"\x89PNG\r\n\x1a\n" + chunk(b"IHDR", header)
+            + chunk(b"IDAT", zlib.compress(raw, 1)) + chunk(b"IEND", b""))
+
+
+def trainer_images(n: int, size: int, seed: int):
+    """n seeded RGB images (8 x 8 blocks of colour plus noise) as PNGs,
+    with a caption each."""
+    rng = np.random.default_rng(seed)
+    words = ("red", "green", "blue", "striped", "dotted", "bright", "dark",
+             "small", "large", "round")
+    out = []
+    for i in range(n):
+        base = rng.integers(0, 256, (8, 8, 3), dtype=np.int16)
+        pix = np.repeat(np.repeat(base, size // 8, 0), size // 8, 1)
+        pix = np.clip(pix + rng.integers(-2, 3, pix.shape, dtype=np.int16),
+                      0, 255)
+        caption = (f"a {words[i % 10]} {words[(i // 10) % 10]} pattern "
+                   f"number {i}")
+        out.append((png_bytes(pix.astype(np.uint8)), caption))
+    return out
+
+
+def write_shards(root: Path, samples, shards: int) -> str:
+    """`samples` split over `shards` tars of {key}.png and {key}.txt;
+    returns the brace spec of their paths."""
+    import io
+    import tarfile
+    per = len(samples) // shards
+    for s in range(shards):
+        with tarfile.open(root / f"shard-{s}.tar", "w") as tf:
+            for i, (png, caption) in enumerate(samples[s * per:(s + 1) * per]):
+                for ext, data in (("png", png), ("txt", caption.encode())):
+                    info = tarfile.TarInfo(f"{s:02d}{i:05d}.{ext}")
+                    info.size = len(data)
+                    tf.addfile(info, io.BytesIO(data))
+    return str(root / f"shard-{{0..{shards - 1}}}.tar")
+
+
+def decode_rates(samples, image_size: int) -> dict:
+    """One process's (a decode worker's) images per second on `samples`'
+    PNGs: the decode alone, and the decode with the train transform."""
+    from megatron_clip_tpu_torch.data.decode import decode_image
+    from megatron_clip_tpu_torch.data.transforms import image_transform
+    pngs = [png for png, _ in samples]
+    decode_image(pngs[0])  # builds the PNG predictor table, once a process
+    t0 = time.perf_counter()
+    images = [decode_image(png) for png in pngs]
+    decode_s = time.perf_counter() - t0
+    transform = image_transform(image_size, is_train=True)
+    t0 = time.perf_counter()
+    for i, img in enumerate(images):
+        transform(img, i)
+    transform_s = time.perf_counter() - t0
+    return {"images": len(pngs),
+            "decode_images_per_s": len(pngs) / decode_s,
+            "decode_and_transform_images_per_s":
+                len(pngs) / (decode_s + transform_s)}
+
+
+def trainer_synthetic(main, loop, mha, ln, per_step, phase7) -> dict:
+    """(a): phase 7's model, batch and optimizer recipe through
+    `pretrain_clip.main` on synthetic data; the loop's samples/s over the
+    timed steps (the host clock between the first and the last timed
+    step's starts; the loop waits for each step's loss at --log-interval 1)
+    beside phase 7's images/s, and where a step's host time goes: in the
+    runner's step, between steps (the log line, the wait for the loss and
+    for the next batch), and on the prefetch thread."""
+    with TrainerProbe(loop, mha, ln, per_step) as probe:
+        final = main(TRAINER_SYNTHETIC)
+    losses = probe.loss_values()
+    if len(losses) != TRAINER_WARMUP + TRAINER_STEPS or \
+            not all(math.isfinite(v) for v in losses):
+        raise AssertionError(f"trainer synthetic: losses {losses}")
+    starts = [a for a, _ in probe.host]
+    timed = list(range(TRAINER_WARMUP, len(starts) - 1))
+    sps = TRAIN_BATCH * len(timed) / (starts[timed[-1] + 1] - starts[timed[0]])
+    in_step = [(probe.host[i][1] - probe.host[i][0]) * 1e3 for i in timed]
+    between = [(starts[i + 1] - probe.host[i][1]) * 1e3 for i in timed]
+    staging = probe.stage_ms[TRAINER_WARMUP:]
+    result = {
+        "samples_per_s": sps, "phase7_images_per_s": phase7["images_per_s"],
+        "ratio": sps / phase7["images_per_s"],
+        "step_interval_ms_median": float(np.median(
+            [(starts[i + 1] - starts[i]) * 1e3 for i in timed])),
+        "phase7_step_ms_median": phase7["step_ms_median"],
+        "host_ms_in_step_median": float(np.median(in_step)),
+        "host_ms_prefetch_copy_median": float(np.median(staging)),
+        "host_ms_between_steps_median": float(np.median(between)),
+        "losses": losses, "final": final, "launches": probe.launches}
+    log(f"  trainer synthetic: {sps:.1f} samples/s against phase 7's "
+        f"{phase7['images_per_s']:.1f} images/s (ratio "
+        f"{result['ratio']:.4f}); step interval median "
+        f"{result['step_interval_ms_median']:.2f} ms, of it in the runner's "
+        f"step {result['host_ms_in_step_median']:.2f} and between steps "
+        f"{result['host_ms_between_steps_median']:.2f}; the prefetch "
+        f"thread's copy of a batch to pinned memory "
+        f"{result['host_ms_prefetch_copy_median']:.2f}")
+    return result
+
+
+def trainer_webdataset(main, loop, mha, ln, per_step, work: Path) -> dict:
+    """(b): 2 x 256 PNG samples in tars, 4 steps with --save-interval 2;
+    then the run as if cut after step 3, before step 4's save committed
+    (the tracker back at step 2, iter_0000004 gone), resumed with --resume
+    latest: steps 3-4 must give the first run's losses, bit for bit."""
+    t0 = time.perf_counter()
+    samples = trainer_images(WDS_SHARDS * WDS_PER_SHARD, WDS_IMAGE, seed=1)
+    spec = write_shards(work, samples, WDS_SHARDS)
+    seconds = {"write_shards": time.perf_counter() - t0}
+    rates = decode_rates(samples[:16], 224)
+    argv = ["--model", "ViT-B-32", "--precision", "bf16", "--batch-size",
+            str(WDS_BATCH), "--workers", str(WDS_WORKERS), "--train-data",
+            spec, "--save", str(work / "ck"), "--name", "wds",
+            "--save-interval", "2", "--log-interval", "1"]
+    t0 = time.perf_counter()
+    with TrainerProbe(loop, mha, ln, per_step) as first:
+        main(argv)
+    seconds["first_run"] = time.perf_counter() - t0
+    run_dir = work / "ck" / "wds"
+    (run_dir / "latest_checkpointed_iteration.txt").write_text("2")
+    shutil.rmtree(run_dir / "iter_0000004")
+    t0 = time.perf_counter()
+    with TrainerProbe(loop, mha, ln, per_step) as second:
+        main(argv + ["--resume", "latest"])
+    seconds["resumed_run"] = time.perf_counter() - t0
+    l1, l2 = first.loss_values(), second.loss_values()
+    bit_equal = l2 == l1[2:]
+    log(f"  trainer webdataset: losses {l1}; resumed at step 2: {l2}; "
+        f"bit-equal: {bit_equal}; decode {rates['decode_images_per_s']:.1f} "
+        f"images/s per worker ({rates['decode_and_transform_images_per_s']:.1f}"
+        f" with the train transform); saves {first.save_ms + second.save_ms}")
+    if len(l1) != 4 or not bit_equal or \
+            not all(math.isfinite(v) for v in l1):
+        raise AssertionError("trainer webdataset: the resumed steps 3-4 do "
+                             "not reproduce the first run's")
+    launches = {k: first.launches[k] + second.launches[k]
+                for k in first.launches}
+    return {"losses": l1, "resumed_losses": l2, "bit_equal": bit_equal,
+            "decode": rates, "saves": first.save_ms + second.save_ms,
+            "first_step_s": [run.host[0][0] - t for run, t in (
+                (first, first.entered), (second, second.entered))],
+            "parts_s": seconds, "launches": launches}
+
+
+def trainer_csv(main, loop, mha, ln, per_step, work: Path) -> dict:
+    """(c): a CSV of 64 PNG files, 2 steps and the val metrics on the same
+    file at the epoch's end."""
+    lines = ["filepath\ttitle"]
+    for i, (png, caption) in enumerate(trainer_images(CSV_IMAGES, CSV_IMAGE,
+                                                      seed=2)):
+        (work / f"{i}.png").write_bytes(png)
+        lines.append(f"{i}.png\t{caption}")
+    csv = work / "data.csv"
+    csv.write_text("\n".join(lines) + "\n")
+    with TrainerProbe(loop, mha, ln, per_step) as probe:
+        final = main(["--model", "ViT-B-32", "--precision", "bf16",
+                      "--batch-size", str(CSV_BATCH), "--train-data",
+                      str(csv), "--val-data", str(csv), "--log-interval",
+                      "1"])
+    val = {k: final[f"val_{k}"] for k in (
+        "clip_val_loss", "num_samples", *(f"{d}_R@{k}" for d in
+                                          ("image_to_text", "text_to_image")
+                                          for k in (1, 5, 10)))}
+    log(f"  trainer csv: losses {probe.loss_values()}; val {val}")
+    if val["num_samples"] != CSV_IMAGES or \
+            not math.isfinite(val["clip_val_loss"]):
+        raise AssertionError(f"trainer csv: val metrics {val}")
+    return {"losses": probe.loss_values(), "val": val,
+            "launches": probe.launches}
+
+
+def descendants() -> list:
+    """(pid, command) of every live process below this one, from /proc."""
+    parent, command = {}, {}
+    for entry in Path("/proc").iterdir():
+        if not entry.name.isdigit():
+            continue
+        try:
+            stat = (entry / "stat").read_text()
+            command[int(entry.name)] = (entry / "cmdline").read_bytes() \
+                .replace(b"\0", b" ").decode(errors="replace").strip()
+        except OSError:  # exited while we read
+            continue
+        # the fields after the command's closing bracket: state, ppid, ...
+        parent[int(entry.name)] = int(stat.rsplit(")", 1)[1].split()[1])
+    found, frontier = [], [os.getpid()]
+    while frontier:
+        pid = frontier.pop()
+        kids = [c for c, pp in parent.items() if pp == pid]
+        found += kids
+        frontier += kids
+    return [(pid, command.get(pid, "")) for pid in sorted(found)]
+
+
+def check_no_processes_left() -> None:
+    """Fails if a process this script started (a build, a decode worker,
+    multiprocessing's forkserver or resource tracker) is still alive."""
+    left = descendants()
+    if left:
+        raise AssertionError(f"processes still running: {left}")
+
+
+def phase_trainer(mha, ln, card: str, phase7: dict) -> dict:
+    log(f"[12] trainer: pretrain_clip.main on the card: ViT-B-32 synthetic "
+        f"(pure_bf16, batch {TRAIN_BATCH}, {TRAINER_WARMUP} + "
+        f"{TRAINER_STEPS} steps), webdataset with a resume, csv with val")
+    t0 = time.perf_counter()
+    from megatron_clip_tpu_torch.factory import (get_model_config,
+                                                 parse_model_cfg)
+    from megatron_clip_tpu_torch.data.webdataset import (stop_workers,
+                                                         worker_context)
+    from megatron_clip_tpu_torch.pretrain_clip import main
+    from megatron_clip_tpu_torch.training import loop
+    worker_context()  # the decode workers' server imports while (a) runs
+    per_step = per_step_launches(parse_model_cfg(get_model_config(
+        "ViT-B-32")), save_probs=True)
+    shutil.rmtree(SMOKE_DIR, ignore_errors=True)
+    (SMOKE_DIR / "wds").mkdir(parents=True)
+    (SMOKE_DIR / "csv").mkdir()
+    parts = {"synthetic": lambda: trainer_synthetic(
+                 main, loop, mha, ln, per_step, phase7),
+             "webdataset": lambda: trainer_webdataset(
+                 main, loop, mha, ln, per_step, SMOKE_DIR / "wds"),
+             "csv": lambda: trainer_csv(main, loop, mha, ln, per_step,
+                                        SMOKE_DIR / "csv")}
+    result = {"card": card}
+    try:
+        for name, part in parts.items():
+            t_part = time.perf_counter()
+            result[name] = part()
+            result[name]["seconds"] = time.perf_counter() - t_part
+    finally:
+        shutil.rmtree(SMOKE_DIR, ignore_errors=True)
+        stop_workers()
+    result["seconds"] = time.perf_counter() - t0
+    log(f"  trainer: {json.dumps(result)}")
+    if result["seconds"] > TRAINER_PHASE_LIMIT_S:
+        raise AssertionError(f"phase 12 took {result['seconds']:.1f} s, "
+                             f"over {TRAINER_PHASE_LIMIT_S} s")
+    return result
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; this script runs only on the GPU",
@@ -3468,6 +3840,7 @@ def main() -> int:
     gpt = phase_gpt(mha, ln, card)
     example = phase_example(mha, ln, card, gpt)
     pipeline = phase_pipeline(mha, ln, card)
+    trainer = phase_trainer(mha, ln, card, train)
     paths = {"serving ViT-B-32": serving["launches"],
              "train ViT-B-32": train["launches"],
              **{f"train {name} recompute": run["launches"]
@@ -3478,11 +3851,14 @@ def main() -> int:
              "train GPT-345m S=2048 fused_ce":
                  example["gpt345m_fused_ce"]["launches"],
              **{f"train pipeline GPT {key}": run["launches"]
-                for key, run in pipeline.items() if key != "parity"}}
+                for key, run in pipeline.items() if key != "parity"},
+             **{f"trainer ViT-B-32 {key}": trainer[key]["launches"]
+                for key in ("synthetic", "webdataset", "csv")}}
     kernels = kernels_line(rows, paths, errs)
     idle = [k["name"] for k in kernels if k["launches"] == 0]
     if idle:
         raise AssertionError(f"kernels no main path launched: {idle}")
+    check_no_processes_left()
     log(f"total {time.perf_counter() - t_start:.1f} s")
     print(card)
     print(json.dumps({"kernels": kernels}))

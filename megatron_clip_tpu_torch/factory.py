@@ -1,9 +1,10 @@
 """Model factory and config registry for the port.
 
 Counterpart of `megatron_clip_tpu/factory.py` for ViT CLIP models: the
-built-in open_CLIP ViT ladder (plus its -quickgelu variants),
-`parse_model_cfg` for ViT configs and `create_model`, which builds a
-`models.clip.CLIPModel`. Configs use the open_CLIP JSON schema
+built-in open_CLIP ViT ladder (plus its -quickgelu variants, `test-tiny`
+and the JAX registry's other plain-ViT configs), `parse_model_cfg` for ViT
+configs, `create_model`, which builds a `models.clip.CLIPModel`, and
+`create_loss`'s ClipLoss branch. Configs use the open_CLIP JSON schema
 ({embed_dim, vision_cfg, text_cfg[, quick_gelu]}); overrides replace
 top-level keys, as in the JAX factory.
 """
@@ -15,6 +16,7 @@ import torch
 
 from megatron_clip_tpu_torch.config import (BF16, FP32, PURE_BF16, CLIPCfg,
                                             Precision, TextCfg, VisionCfg)
+from megatron_clip_tpu_torch.losses import ClipLoss
 from megatron_clip_tpu_torch.models.clip import CLIPModel
 
 
@@ -59,6 +61,29 @@ _BUILTIN: Dict[str, dict] = {
 # quickgelu variants (OpenAI-trained checkpoints use QuickGELU)
 for _name in ("ViT-B-32", "ViT-B-16", "ViT-L-14"):
     _BUILTIN[_name + "-quickgelu"] = dict(_BUILTIN[_name], quick_gelu=True)
+
+# tiny config for tests and smoke runs (real vocab for tokenizer ids)
+_BUILTIN["test-tiny"] = {
+    "embed_dim": 64,
+    "vision_cfg": {"image_size": 32, "layers": 2, "width": 64,
+                   "head_width": 32, "patch_size": 8},
+    "text_cfg": {"context_length": 32, "vocab_size": 49408, "width": 64,
+                 "heads": 2, "layers": 2},
+}
+
+# the JAX package's other plain-ViT configs (open_CLIP model_configs/*.json
+# shapes); ViT-M-16-alt's layer scale is not ported (ROADMAP Queue A item 3)
+_BUILTIN["ViT-B-16-plus"] = _vit(640, 12, 896, 16, 640, 10, 12)
+_BUILTIN["ViT-L-14-280"] = _vit(768, 24, 1024, 14, 768, 12, 12,
+                                image_size=280)
+_BUILTIN["ViT-L-16-320"] = _vit(768, 24, 1024, 16, 768, 12, 12,
+                                image_size=320)
+_BUILTIN["ViT-L-16-bigT"] = _vit(768, 24, 1408, 16, 1024, 16, 24)
+_BUILTIN["ViT-L-16-bigT-backup"] = _vit(768, 24, 1024, 16, 768, 12, 24)
+_BUILTIN["ViT-L-16-tiny"] = _vit(768, 2, 1024, 16, 1536, 12, 2)
+_BUILTIN["ViT-M-32-alt"] = _vit(384, 12, 512, 32, 384, 6, 12)
+_BUILTIN["ViT-S-16-alt"] = _vit(256, 12, 384, 16, 256, 4, 10)
+_BUILTIN["ViT-S-32-alt"] = _vit(256, 12, 384, 32, 256, 4, 10)
 
 
 def list_models():
@@ -141,3 +166,22 @@ def create_model(model_name: str, precision: str = "bf16",
         if name != "logit_scale":
             p.data = p.data.to(prec.param_torch)
     return model.to(device).eval()
+
+
+def create_loss(args) -> ClipLoss:
+    """open_CLIP create_loss (factory.py:250-283) as the JAX factory
+    dispatches it: `args` is an argparse Namespace or any object with the
+    same fields. The port has the ClipLoss branch; on one process
+    `--local-loss` and `--gather-with-grad` change nothing, as on one JAX
+    device. CoCa, SigLIP and distillation raise."""
+    get = lambda k, d=None: getattr(args, k, d)  # noqa: E731
+    if get("model", "").startswith("coca"):
+        raise NotImplementedError("CoCaLoss is not ported yet (ROADMAP "
+                                  "Queue A item 2)")
+    if get("siglip"):
+        raise NotImplementedError("SigLipLoss is not ported yet (ROADMAP "
+                                  "Queue A item 2)")
+    if get("distill_model") or get("distill"):
+        raise NotImplementedError("DistillClipLoss is not ported yet "
+                                  "(ROADMAP Queue A item 2)")
+    return ClipLoss()

@@ -14,7 +14,7 @@ import numpy as np
 import torch
 from torch import nn
 
-from megatron_clip_tpu_torch.config import BF16, CLIPCfg, Precision
+from megatron_clip_tpu_torch.config import BF16, CLIPCfg, Precision, check_remat
 from megatron_clip_tpu_torch.models.text import TextTransformer
 from megatron_clip_tpu_torch.models.vit import VisionTransformer
 
@@ -48,15 +48,20 @@ class CLIPModel(nn.Module):
     JAX package's default, `MCT_MHA_SAVE_PROBS=1`) saves each attention's
     probabilities for it, [B, H, S, S] per layer; False
     (`MCT_MHA_SAVE_PROBS=0`, bench.py's ViT-L/14 and ViT-H/14 legs) saves
-    8 bytes of softmax statistics per row and recomputes them."""
+    8 bytes of softmax statistics per row and recomputes them.
+
+    `remat` is the activation recompute of both towers' blocks in `forward`
+    (none, selective, full; see `nn/transformer.py`), the JAX model's
+    `remat` field, which the trainer sets from `--recompute-granularity`."""
 
     def __init__(self, cfg: CLIPCfg, precision: Precision = BF16,
                  generator: Optional[torch.Generator] = None,
-                 attn_save_probs: bool = True):
+                 attn_save_probs: bool = True, remat: str = "none"):
         super().__init__()
         self.cfg = cfg
         self.precision = precision
         self.attn_save_probs = attn_save_probs
+        self.remat = check_remat(remat)
         self.visual = VisionTransformer(cfg.vision, cfg.embed_dim, cfg.act,
                                         generator)
         self.text = TextTransformer(cfg.text, cfg.embed_dim, cfg.act,
@@ -91,13 +96,15 @@ class CLIPModel(nn.Module):
         CLIP.forward): fp32 normalised features and exp(min(logit_scale,
         ln 100)), differentiable in every parameter."""
         dt, keep = self.precision.compute_torch, self.attn_save_probs
+        remat = check_remat(self.remat)
         out = {}
         if images is not None:
-            out["image_features"] = _l2_normalize(
-                self.visual(_as_tensor(images, self.device), dt, keep))
+            out["image_features"] = _l2_normalize(self.visual(
+                _as_tensor(images, self.device), dt, keep, remat))
         if text_ids is not None:
             out["text_features"] = _l2_normalize(self.text(
-                _as_tensor(text_ids, self.device, torch.long), dt, keep))
+                _as_tensor(text_ids, self.device, torch.long), dt, keep,
+                remat))
         out["logit_scale"] = torch.exp(
             self.logit_scale.clamp(max=LOGIT_SCALE_MAX))
         return out

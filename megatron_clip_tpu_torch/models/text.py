@@ -43,14 +43,16 @@ class TextTransformer(nn.Module):
 
     def forward(self, text_ids: torch.Tensor,
                 compute_dtype: torch.dtype = torch.bfloat16,
-                save_probs: bool = True) -> torch.Tensor:
+                save_probs: bool = True,
+                remat: str = "none") -> torch.Tensor:
         """text_ids: [B, S] integer ids. Returns pooled features
         [B, embed_dim] in the compute dtype. `save_probs`: the attention's
-        backward mode."""
+        backward mode; `remat`: the blocks' activation recompute."""
         dt = compute_dtype
         s = text_ids.shape[1]
         x = F.embedding(text_ids, self.tok_embed).to(dt)
         x = x + self.pos_embed[:s].to(dt)
-        x = self.blocks(x, causal=True, save_probs=save_probs)
+        x = self.blocks(x, causal=True, save_probs=save_probs,
+                        remat=remat)
         pooled = apply_norm(self.ln_final, text_pool(x, text_ids))
         return dense(pooled, self.proj["w"])

@@ -51,16 +51,18 @@ class VisionTransformer(nn.Module):
 
     def forward(self, images: torch.Tensor,
                 compute_dtype: torch.dtype = torch.bfloat16,
-                save_probs: bool = True) -> torch.Tensor:
+                save_probs: bool = True,
+                remat: str = "none") -> torch.Tensor:
         """images: [B, H, W, C] float. Returns pooled features
         [B, embed_dim] in the compute dtype. `save_probs`: the attention's
-        backward mode."""
+        backward mode; `remat`: the blocks' activation recompute."""
         dt = compute_dtype
         x = patchify(images.to(dt), self.cfg.patch_size)
         x = torch.matmul(x, self.patch_embed["w"].to(dt))
         cls = self.cls.to(dt).expand(x.shape[0], 1, -1)
         x = torch.cat([cls, x], dim=1) + self.pos_embed.to(dt)
         x = apply_norm(self.ln_pre, x)
-        x = self.blocks(x, causal=False, save_probs=save_probs)
+        x = self.blocks(x, causal=False, save_probs=save_probs,
+                        remat=remat)
         pooled = apply_norm(self.ln_post, x[:, 0])
         return torch.matmul(pooled, self.proj.to(dt))

@@ -72,7 +72,7 @@ _selective = functools.partial(
 
 
 def normal_param(shape, std: float, gen: Optional[torch.Generator]) -> nn.Parameter:
-    return nn.Parameter(torch.randn(*shape, generator=gen) * std)
+    return nn.Parameter(torch.randn(*shape, generator=gen).mul_(std))
 
 
 def layer_norm_params(width: int, norm: str = "layernorm") -> nn.ParameterDict:

@@ -1,4 +1,4 @@
-"""AdamW with global-norm clipping and open_CLIP's cosine schedule.
+"""AdamW with global-norm clipping and open_CLIP's learning-rate schedules.
 
 Counterpart of the AdamW branch of `megatron_clip_tpu/training/optim.py::
 make_optimizer`, `cosine_lr` and `_no_decay_mask`, written in optax's
@@ -26,8 +26,10 @@ same, and the chain's temporaries (a dozen per element) stay at a chunk's
 size rather than the model's (1.7 billion parameters would need some 70 GB
 of them at once).
 
-Not ported yet (ROADMAP Queue A): SGD, bf16 nu (`adamw_lowbits`), lock
-masks, scheduled weight decay and the megatron schedules.
+The schedules: open_CLIP's `cosine_lr`, `const_lr` and `const_lr_cooldown`,
+and `constant_lr`. Not ported yet (ROADMAP Queue A item 2): SGD, bf16 nu
+(`adamw_lowbits`), lock masks, scheduled weight decay and the megatron
+schedules.
 """
 import dataclasses
 from typing import Callable, Dict, Mapping, Optional
@@ -57,8 +59,46 @@ def cosine_lr(base_lr: float, warmup: int, total_steps: int,
 
 
 def constant_lr(lr: float) -> Callable[[int], float]:
-    """A fixed learning rate, as optax takes a float."""
+    """A fixed learning rate, as optax takes a float (and the CLIP
+    trainer's `--skip-scheduler`: the raw lr, no warmup or decay)."""
     return lambda step: lr
+
+
+def const_lr(base_lr: float, warmup: int) -> Callable[[int], float]:
+    """open_CLIP scheduler.py const_lr: the cosine schedule's linear warmup,
+    then base_lr; in fp32 as the JAX schedule computes it."""
+    f32 = np.float32
+
+    def schedule(step: int) -> float:
+        t = f32(step)
+        if t < warmup:
+            return float(f32(base_lr) * (t + f32(1)) / f32(max(warmup, 1)))
+        return float(f32(base_lr))
+    return schedule
+
+
+def const_lr_cooldown(base_lr: float, warmup: int, total_steps: int,
+                      cooldown_steps: int, cooldown_power: float = 1.0,
+                      cooldown_end_lr: float = 0.0) -> Callable[[int], float]:
+    """open_CLIP scheduler.py const_lr_cooldown: const_lr, then over the last
+    `cooldown_steps` a polynomial decay to cooldown_end_lr; in fp32 as the
+    JAX schedule computes it (the difference of the two rates in Python's
+    float, as the JAX package forms it)."""
+    f32 = np.float32
+    start = total_steps - cooldown_steps
+
+    def schedule(step: int) -> float:
+        t = f32(step)
+        if t >= start:
+            prog = (t - f32(start)) / f32(max(cooldown_steps, 1))
+            prog = min(max(prog, f32(0)), f32(1))
+            return float(f32(cooldown_end_lr)
+                         + f32(base_lr - cooldown_end_lr)
+                         * (f32(1) - prog) ** f32(cooldown_power))
+        if t < warmup:
+            return float(f32(base_lr) * (t + f32(1)) / f32(max(warmup, 1)))
+        return float(f32(base_lr))
+    return schedule
 
 
 def _no_decay_mask(params: Mapping[str, torch.Tensor]) -> Dict[str, bool]:
