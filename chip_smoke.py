@@ -30,7 +30,12 @@ imports nothing of JAX or of the JAX package. Phases, each of which raises
      masks, and at the S = 77 paths' batches; the one-pass backward in both
      modes (csrc/attn_short_bwd_sm90.cuh) at S = 1 to 128, both masks, and
      at the S <= 128 paths' shapes, beside tc::'s pair on the same inputs;
-     then
+     the saved-P backward past S = 128 (the wgmma kernels of
+     csrc/attn_bwd_sm90.cuh, P in the forward's padded layout read by TMA)
+     row by row at every such shape (the legs' vision towers, a causal
+     D = 128 shape among them), its second run the same bits, tc:: on the
+     same P within the same bound, and the same P off its 16-byte
+     alignment refused, which only the wgmma route does; then
      every attention kernel on the [B, S, *] view of S-major storage, which
      must give exactly what the contiguous tensor gives; and the wgmma
      forwards (csrc/attn_fwd_sm90.cuh: the fused forward past S = 128, the
@@ -38,8 +43,9 @@ imports nothing of JAX or of the JAX package. Phases, each of which raises
      of every 128-key tile, in the whole sequence or its late half, and the
      one-pass forward built to leave out each row's last unmasked key, each
      failing its bounds; the bf16 gradients of both fused backwards also
-     row by row, and the recompute backward's wgmma kernels
-     (csrc/attn_bwd_sm90.cuh), the one-pass backward (each row's last key,
+     row by row, and both backwards' wgmma kernels
+     (csrc/attn_bwd_sm90.cuh, recomputing P and from saved P), the one-pass
+     backward (each row's last key,
      each key's last query) and the wgmma split flash pair (B=1 S=8192
      H=16, D=64 and D=128 with dropout) built to leave out the last key or
      query of every tile, failing the row bound; the LayerNorm and RMSNorm
@@ -68,6 +74,9 @@ imports nothing of JAX or of the JAX package. Phases, each of which raises
      (batch 64) and ViT-H/14 (batch 24) legs, S-major view included, with
      the bound from bytes and operations; at S <= 128 also the forward and
      both backwards on tc:: beside the one-pass kernels, in the same call;
+     at the legs' vision towers also the forward with P beside the forward
+     with statistics and SDPA's forward, and the saved-P backward beside
+     tc:: (route 2) and three readings of SDPA's backward;
      the LayerNorm and RMSNorm backwards at every path's rows, the scale in
      the path's dtype;
   7. train: the ViT-B-32 contrastive train step of bench.py's primary leg
@@ -85,13 +94,15 @@ imports nothing of JAX or of the JAX package. Phases, each of which raises
      attention backward of MCT_MHA_SAVE_PROBS=0), 2 warm-up and 10 timed
      steps on one seeded batch each, the counters checked on every step
      (attention forward and recompute backward once per layer, no saved-P
-     backward, LayerNorm 75 / 115 times); then ViT-L/14 with saved
-     probabilities for 2 + 5 steps from the same weights and batch, whose
-     first loss must equal the recompute run's and whose peak memory must
-     lie above it by the bytes of every layer's P less the row statistics
-     (within 2%); one more ViT-L/14 step in each mode takes the peak memory
-     per stage (forward, backward, update); then one fp32 recompute step at
-     full ViT-H/14 width (2 layers per tower, batch 4), card against CPU;
+     backward, LayerNorm 75 / 115 times); then each leg with saved
+     probabilities for 2 + 5 steps from the same weights and batch, the
+     saved-P backward once per layer, whose first loss must equal the
+     recompute run's and whose peak memory must lie above it by the bytes
+     of every layer's P, at the row pitch the forward writes, less the row
+     statistics (within 2%); one more ViT-L/14 step in each mode takes the
+     peak memory per stage (forward, backward, update); then one fp32
+     recompute step at full ViT-H/14 width (2 layers per tower, batch 4),
+     card against CPU;
   9. GPT: bench.py's GPT-345m train step (24 x 1024, 16 heads of 64,
      vocab 50304, pure_bf16, clip 1.0 then AdamW(1e-4, b=(0.9, 0.95)) with
      bf16 first moments, loss chunks of 1024; bench.py:134-181) at batch 6
@@ -826,6 +837,52 @@ def check_fwd_rows(errs: dict, name: str, label: str, got: torch.Tensor,
         raise AssertionError(f"{name} {label}: an output exceeds its row "
                              "bound")
     errs[key]["bf16"] = max(errs[key].get("bf16", 0.0), worst)
+
+
+# where phase 3 also checks that the saved-P backward took the wgmma route,
+# its bits on a second run and tc:: on the same P (saved_bwd_checks): the legs'
+# vision towers and a causal D = 128 shape; (B, S, H, D, causal)
+SAVED_BWD_SHAPES = ((64, 257, 16, 64, False), (24, 257, 16, 80, False),
+                    (2, 1024, 2, 128, True))
+
+
+def saved_bwd_checks(errs, mha, label, x, g, p, h, causal, got,
+                     bwd_plain) -> None:
+    """The bf16 saved-P backward past S = 128 (bf16, D = 64, 80 or 128:
+    csrc/attn_bwd_sm90.cuh's wgmma kernels, P read by TMA): route 0
+    takes the wgmma route, the one route that refuses the same P an
+    element off its 16-byte alignment (the MCT_BWD_TILE_FAULT builds show
+    which kernels that route runs); a second run's bits equal to the
+    first's (no float atomics); and tc::'s pair (route 2) on the same P
+    within the same row bound (logged: how many of its elements differ
+    from the wgmma pair's)."""
+    run = (lambda route="auto", pp=p: mha.fused_mha_bwd(
+        x, g, pp, h, causal=causal, route=route))
+    b, _, s, pitch = p.shape[0], p.shape[1], p.shape[2], p.stride(2)
+    n = b * h * s * pitch
+    p_off = torch.empty(n + 8, device="cuda", dtype=p.dtype)[1:1 + n].view(
+        b, h, s, pitch)[..., :s].copy_(p)
+    try:
+        run(pp=p_off)
+    except RuntimeError as e:
+        if "launch failed" not in str(e):
+            raise
+    else:
+        raise AssertionError(f"fused_mha_bwd {label}: route 0 took a P off "
+                             "its 16-byte alignment, so it did not reach the "
+                             "wgmma saved-P kernels")
+    del p_off
+    again = run()
+    torch.cuda.synchronize()
+    if not torch.equal(again, got):
+        raise AssertionError(f"fused_mha_bwd {label}: a second run gives "
+                             "other bits")
+    tc = run("tc")
+    check_mha_rows(errs, "fused_mha_bwd", label + " tc", tc, bwd_plain, h)
+    differ = int((tc.view(torch.int16) != got.view(torch.int16)).sum())
+    log(f"  fused_mha_bwd {label}: the wgmma route (a misaligned P "
+        f"refused), a second run the same bits; tc:: on the same P (pitch "
+        f"{pitch}): {differ} of {got.numel()} elements differ")
 
 
 # the one-pass forward's edges (csrc/attn_short_sm90.cuh: S <= 128, D = 64,
@@ -1695,6 +1752,11 @@ def fwd_teeth(kernels_build, gen, mha) -> None:
 BWD_TEETH = ((2, 512, 16, 128, True, DROPOUT_RATE),
              (4, 257, 16, 64, False, 0.0),
              (24, 257, 16, 80, False, 0.0))
+# the saved-P backward's wgmma kernels (csrc/attn_bwd_sm90.cuh from saved
+# P): ViT-L/14's and ViT-H/14's vision heads (batch 4 and 24) and a causal
+# D = 128 shape; each (B, S, H, D, causal)
+BWD_TEETH_SAVED = ((4, 257, 16, 64, False), (24, 257, 16, 80, False),
+                   (2, 512, 16, 128, True))
 # the one-pass backward's (csrc/attn_short_bwd_sm90.cuh, S <= 128):
 # ViT-B/32's vision tower (S = 50, H = 12) and text tower (S = 77, H = 8,
 # causal) from saved P, ViT-L/14's text tower (S = 77, H = 12, causal)
@@ -1709,7 +1771,8 @@ FLASH_SPLIT_TEETH = ((1, 8192, 16, 64, 0.0), (1, 8192, 16, 128, DROPOUT_RATE))
 
 
 def bwd_teeth(kernels_build, gen, mha) -> None:
-    """The wgmma recompute backward, the one-pass backward at S <= 128 and
+    """The wgmma backwards past S = 128 (recomputing P, and from saved P in
+    the forward's padded layout), the one-pass backward at S <= 128 and
     the wgmma split flash pair built wrong on purpose (TILE_FAULTS), as an
     off-by-one at a tile's bound would: part 1 and the dQ kernel leave the
     last key of every key tile out of dQ (part 1 also of delta), part 2 and
@@ -1753,6 +1816,19 @@ def bwd_teeth(kernels_build, gen, mha) -> None:
         cases.append((f"B={b} S={s} H={h} D={d} causal={causal} "
                       f"rate={rate}", dict.fromkeys(("dq", "dk", "dv"), name),
                       lambda run=run, h=h: mha_parts(run(), h),
+                      mha_parts(want, h)))
+    for b, s, h, d, causal in BWD_TEETH_SAVED:
+        qkv = torch.randn(b, s, 3 * h * d, device="cuda", generator=gen,
+                          dtype=dt)
+        g = torch.randn(b, s, h * d, device="cuda", generator=gen, dtype=dt)
+        p = mha.probs_buffer(b, h, s, d, dt, "cuda").copy_(
+            mha.fused_mha_plain(qkv, h, d ** -0.5, causal,
+                                with_probs=True)[1])
+        want = mha.fused_mha_bwd_plain(qkv, g, p, h, d ** -0.5)
+        cases.append((f"B={b} S={s} H={h} D={d} causal={causal} saved P",
+                      dict.fromkeys(("dq", "dk", "dv"), "fused_mha_bwd"),
+                      lambda qkv=qkv, g=g, p=p, h=h, causal=causal: mha_parts(
+                          mha.fused_mha_bwd(qkv, g, p, h, causal=causal), h),
                       mha_parts(want, h)))
     for b, s, h, d, causal, saved in BWD_TEETH_ONE_PASS:
         qkv = torch.randn(b, s, 3 * h * d, device="cuda", generator=gen,
@@ -1957,9 +2033,11 @@ def phase_kernels(mha, ln):
             rows(" with stats: out", out)
             check_kernel(errs, "fused_mha_fwd stats", label, stats,
                          lambda dt: plain(dt, stats=True)[1], dtype)
-            # the backward from the plain version's P, so that it alone is
-            # compared; the recompute from the kernel's own statistics
-            p = plain(dtype, True)[1]
+            # the backward from the plain version's P in the forward's
+            # layout, so that it alone is compared; the recompute from the
+            # kernel's own statistics
+            p = mha.probs_buffer(b, h, s, d, dtype, "cuda").copy_(
+                plain(dtype, True)[1])
             bwd_plain = functools.lru_cache(None)(
                 lambda dt: mha.fused_mha_bwd_plain(x.to(dt), g.to(dt),
                                                    p.to(dt), h, scale))
@@ -1968,6 +2046,9 @@ def phase_kernels(mha, ln):
             if dtype == torch.bfloat16:
                 check_mha_rows(errs, "fused_mha_bwd", label, got, bwd_plain,
                                h)
+                if (b, s, h, d, causal) in SAVED_BWD_SHAPES:
+                    saved_bwd_checks(errs, mha, label, x, g, p, h, causal,
+                                     got, bwd_plain)
             del got, bwd_plain
             rc_plain = functools.lru_cache(None)(
                 lambda dt: mha.fused_mha_bwd_recompute_plain(
@@ -2182,9 +2263,12 @@ def add_route_times(row: dict, fn, x, h: int) -> None:
 
 def leg_attention_rows(mha, gen, leg, tower, b, s, h, d, causal) -> list:
     """bf16 rows of one leg's attention: the forward with row statistics
-    and the recompute backward (at ViT-L/14 vision also the saved-P
-    backward, and both on the S-major view), each beside SDPA's forward or
-    backward on pre-split q, k, v."""
+    and the recompute backward (at ViT-L/14 vision also on the S-major
+    view), each beside SDPA's forward or backward on pre-split q, k, v; at
+    the vision towers also the saved-P mode, the forward writing P and the
+    backward reading it, the backward beside tc::'s pair on the same P
+    (routes_ms) and three readings of SDPA's backward, which spread between
+    readings (library_readings_ms)."""
     dt = torch.bfloat16
     qkv = torch.randn(b, s, 3 * h * d, device="cuda", generator=gen, dtype=dt)
     do = torch.randn(b, s, h * d, device="cuda", generator=gen, dtype=dt)
@@ -2225,13 +2309,29 @@ def leg_attention_rows(mha, gen, leg, tower, b, s, h, d, causal) -> list:
             dt))
         add_route_times(rows[-1], lambda r: mha.fused_mha_bwd_recompute(
             x, g, stats, h, causal=causal, route=r), x, h)
-        if len(views) == 2 and not tag:
-            _, p = mha.fused_mha_fwd(x, h, causal=causal, with_probs=True)
+        if tower == "vision" and not tag:
             rows.append(timing_row(
+                "fused_mha_fwd", shape + " with P",
+                lambda: mha.fused_mha_fwd(x, h, causal=causal,
+                                          with_probs=True),
+                lambda: mha.fused_mha_plain(x, h, d ** -0.5, causal,
+                                            with_probs=True),
+                sdpa_fwd, mha_cost(b, s, h, d, causal, 2, with_probs=True),
+                dt))
+            _, p = mha.fused_mha_fwd(x, h, causal=causal, with_probs=True)
+            row = timing_row(
                 "fused_mha_bwd", shape,
                 lambda: mha.fused_mha_bwd(x, g, p, h, causal=causal),
                 lambda: mha.fused_mha_bwd_plain(x, g, p, h, d ** -0.5),
-                sdpa_bwd, mha_bwd_cost(b, s, h, d, causal, 2), dt))
+                sdpa_bwd, mha_bwd_cost(b, s, h, d, causal, 2), dt)
+            row["routes_ms"] = {"tc": cuda_ms(lambda: mha.fused_mha_bwd(
+                x, g, p, h, causal=causal, route="tc"))}
+            row["library_readings_ms"] = [row["library_ms"]] + [
+                cuda_ms(sdpa_bwd) for _ in range(2)]
+            log(f"    on tc:: {row['routes_ms']['tc']:.4f} ms; SDPA's "
+                "backward " + " / ".join(
+                    f"{ms:.4f}" for ms in row["library_readings_ms"]) + " ms")
+            rows.append(row)
             del p
     return rows
 
@@ -2706,11 +2806,14 @@ ROUTES = {
         "bf16, S <= 128, D = 64, no dropout": "attn_short::fwd, one pass, a "
         "head per persistent block (csrc/attn_short_sm90.cuh)",
         "bf16, S > 128, D = 64, 80, 128": "attn_fwd::fwd, two-pass wgmma "
-        "(csrc/attn_fwd_sm90.cuh)",
+        "(csrc/attn_fwd_sm90.cuh; P staged, in 16-byte stores)",
         "other bf16": "tc::fwd (mma.sync)", "fp32": "simt::fwd"},
     "fused_mha_bwd": {
         "bf16, S <= 128, D = 64": "attn_short_bwd::bwd, one pass, a head "
         "per persistent block (csrc/attn_short_bwd_sm90.cuh)",
+        "bf16, S > 128, D = 64, 80, 128, P in 16-byte rows":
+        "attn_bwd::bwd_dq + attn_bwd::bwd_dkdv from saved P, wgmma, P by "
+        "TMA (csrc/attn_bwd_sm90.cuh)",
         "other bf16": "tc::bwd_dq + tc::bwd_dkdv (mma.sync)",
         "fp32": "simt::"},
     "fused_mha_bwd_recompute": {
@@ -2774,7 +2877,8 @@ def kernels_line(rows, launches_by_path, errs) -> list:
             "library_ms": main["library_ms"], "shape": main["shape"],
             "shapes": [{k: r[k] for k in ("shape", "ms", "plain_ms",
                                           "bound_ms", "bound_by",
-                                          "library_ms", "routes_ms")
+                                          "library_ms", "routes_ms",
+                                          "library_readings_ms")
                         if k in r} for r in mine],
             **({"routes": ROUTES[name]} if name in ROUTES else {}),
         })
@@ -2854,7 +2958,7 @@ def stage_memory(model, opt, step, state, images, texts) -> dict:
 
 def train_run(port, mha, ln, card: str, name: str, batch: int, warmup: int,
               steps: int, save_probs: bool = True,
-              with_stage_memory: bool = False) -> dict:
+              with_stage_memory: bool = False, model=None) -> dict:
     """`warmup` + `steps` pure_bf16 steps of `name` in bench.py's recipe
     (AdamW b=(0.9, 0.98) eps 1e-6 wd 0.2, bf16 first moments,
     cosine_lr(1e-3, 100, 10000), clip 1.0) on one batch from numpy seed 0,
@@ -2864,12 +2968,15 @@ def train_run(port, mha, ln, card: str, name: str, batch: int, warmup: int,
     CUDA-event intervals between step starts; images/s is the timed steps'
     images over the window's wall time; peak memory is taken over the
     steps, the weights included, and over each step on its own.
-    with_stage_memory: then stage_memory."""
+    with_stage_memory: then stage_memory. model: the model to train (its
+    weights as given), in place of a new one from seed 0."""
     from megatron_clip_tpu_torch.training import (TrainState, cosine_lr,
                                                   make_optimizer,
                                                   make_train_step)
-    model = port.create_model(name, precision="pure_bf16", seed=0,
-                              attn_save_probs=save_probs).train()
+    if model is None:
+        model = port.create_model(name, precision="pure_bf16", seed=0)
+    model.attn_save_probs = save_probs
+    model.train()
     opt = make_optimizer(model, cosine_lr(1e-3, 100, 10000),
                          grad_clip_norm=1.0, moment_dtype=torch.bfloat16)
     state = TrainState.create(model, opt)
@@ -2948,45 +3055,60 @@ def phase_train(port, mha, ln, card: str):
 def phase_legs(port, mha, ln, card: str) -> dict:
     log(f"[8] legs: {', '.join(f'{n} batch {b}' for n, b in LEGS)}, "
         f"pure_bf16, recompute attention backward, {LEG_WARMUP} warm-up + "
-        f"{LEG_STEPS} timed steps")
-    name, batch = LEGS[0]
-    runs = {leg: train_run(port, mha, ln, card, leg, b, LEG_WARMUP,
-                           LEG_STEPS, save_probs=False,
-                           with_stage_memory=leg == name)
-            for leg, b in LEGS}
-    log(f"  {name} with saved probabilities, {SAVED_P_WARMUP} + "
-        f"{SAVED_P_STEPS} steps")
-    saved = train_run(port, mha, ln, card, name, batch, SAVED_P_WARMUP,
-                      SAVED_P_STEPS, save_probs=True, with_stage_memory=True)
-    rec = runs[name]
-    spared = saved["peak_memory_gib"] - rec["peak_memory_gib"]
-    log(f"  {name} first loss: recompute {rec['losses'][0]!r}, saved P "
-        f"{saved['losses'][0]!r}; peak memory recompute "
-        f"{rec['peak_memory_gib']:.3f} GiB, saved P "
-        f"{saved['peak_memory_gib']:.3f} GiB ({spared:.3f} GiB apart)")
-    if saved["losses"][0] != rec["losses"][0]:
-        raise AssertionError("the first loss depends on the attention's "
-                             "backward mode")
-    # Both runs peak early in the backward, when every tensor saved for it
-    # is held (stage_memory), so their peaks must lie apart by what the
-    # saved-P run saves beyond the recompute run: every layer's P [B, H, S,
-    # S] in bf16, less the fp32 row statistics [2, B, H, S] that the
-    # recompute run saves instead (3.07 GiB at ViT-L/14 batch 64). Within
-    # 2%: the caching allocator counts a whole cached block when what would
-    # be left of it is under 1 MiB, so equal requests can count a little
-    # more in one run than in the other.
+        f"{LEG_STEPS} timed steps; then each with saved probabilities, "
+        f"{SAVED_P_WARMUP} + {SAVED_P_STEPS} steps")
     from megatron_clip_tpu_torch.factory import get_model_config
-    cfg = get_model_config(name)
-    p_bytes = sum(cfg[f"{tower}_cfg"]["layers"] * b * h * s * (2 * s - 8)
-                  for leg, tower, b, s, h, _, _ in LEG_ATTENTION
-                  if leg.replace("/", "-") == name)
-    log(f"  {name} memory by stage, recompute {rec['stage_memory_gib']}, "
-        f"saved P {saved['stage_memory_gib']}; P less the statistics "
-        f"{p_bytes / 2 ** 30:.4f} GiB")
-    if abs(spared * 2 ** 30 - p_bytes) > 0.02 * p_bytes:
-        raise AssertionError(f"the peaks lie {spared:.3f} GiB apart, not "
-                             f"P's {p_bytes / 2 ** 30:.3f} GiB less the "
-                             "statistics")
+    runs, saved, spared = {}, {}, {}
+    for name, batch in LEGS:
+        # one model from seed 0 a leg: its weights kept on the host for the
+        # saved-P run, which starts from them
+        model = port.create_model(name, precision="pure_bf16", seed=0)
+        first = {k: v.to("cpu", copy=True)
+                 for k, v in model.state_dict().items()}
+        stages = name == LEGS[0][0]
+        runs[name] = train_run(port, mha, ln, card, name, batch, LEG_WARMUP,
+                               LEG_STEPS, save_probs=False,
+                               with_stage_memory=stages, model=model)
+        model.load_state_dict(first)
+        del first
+        saved[name] = train_run(port, mha, ln, card, name, batch,
+                                SAVED_P_WARMUP, SAVED_P_STEPS,
+                                save_probs=True, with_stage_memory=stages,
+                                model=model)
+        del model
+        rec, sav = runs[name], saved[name]
+        spared[name] = sav["peak_memory_gib"] - rec["peak_memory_gib"]
+        log(f"  {name} first loss: recompute {rec['losses'][0]!r}, saved P "
+            f"{sav['losses'][0]!r}; peak memory recompute "
+            f"{rec['peak_memory_gib']:.3f} GiB, saved P "
+            f"{sav['peak_memory_gib']:.3f} GiB ({spared[name]:.3f} GiB "
+            "apart)")
+        if sav["losses"][0] != rec["losses"][0]:
+            raise AssertionError(f"{name}: the first loss depends on the "
+                                 "attention's backward mode")
+        # Both runs peak early in the backward, when every tensor saved for
+        # it is held (stage_memory), so their peaks must lie apart by what
+        # the saved-P run saves beyond the recompute run: every layer's P
+        # [B, H, S, S] in bf16 at the row pitch the forward writes
+        # (fused_mha.probs_pitch, which csrc/fused_mha.cu decides: 264 at
+        # the vision towers' S = 257, 77 at the text towers'), less the fp32 row statistics [2, B, H, S] that the
+        # recompute run saves instead (3.15 GiB at ViT-L/14 batch 64). Within
+        # 2%: the caching allocator counts a whole cached block when what
+        # would be left of it is under 1 MiB, so equal requests can count a
+        # little more in one run than in the other.
+        cfg = get_model_config(name)
+        p_bytes = sum(cfg[f"{tower}_cfg"]["layers"] * b * h * s
+                      * (2 * mha.probs_pitch(s, d, torch.bfloat16) - 8)
+                      for leg, tower, b, s, h, d, _ in LEG_ATTENTION
+                      if leg.replace("/", "-") == name)
+        log(f"  {name} memory by stage, recompute "
+            f"{rec.get('stage_memory_gib')}, saved P "
+            f"{sav.get('stage_memory_gib')}; P less the statistics "
+            f"{p_bytes / 2 ** 30:.4f} GiB")
+        if abs(spared[name] * 2 ** 30 - p_bytes) > 0.02 * p_bytes:
+            raise AssertionError(
+                f"{name}: the peaks lie {spared[name]:.3f} GiB apart, not "
+                f"P's {p_bytes / 2 ** 30:.3f} GiB less the statistics")
     h = get_model_config("ViT-H-14")
     overrides = {tower: dict(h[tower], layers=H_PARITY_LAYERS)
                  for tower in ("vision_cfg", "text_cfg")}
@@ -3845,6 +3967,8 @@ def main() -> int:
              "train ViT-B-32": train["launches"],
              **{f"train {name} recompute": run["launches"]
                 for name, run in legs["runs"].items()},
+             **{f"train {name} saved P": run["launches"]
+                for name, run in legs["saved_p"].items()},
              **{f"train GPT-345m {key}": run["launches"]
                 for key, run in gpt.items() if key != "parity"},
              "train example GPT": example["run"]["launches"],

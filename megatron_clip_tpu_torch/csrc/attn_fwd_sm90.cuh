@@ -66,9 +66,14 @@
 //   512, H = 16, D = 128, causal, rate 0.1, on the H100); this arithmetic
 //   stayed at 0.72 or less over four seeds there, as expf and a division
 //   did, in 0.29 ms where those took 0.34. With a probs buffer the
-//   kernel also writes P [B, H, S, S] as P V took it (masked pairs 0),
-//   element by element: a row of S = 257 keys starts on any 2-byte
-//   boundary.
+//   kernel also writes P [B, H, S, S] as P V took it (masked pairs 0), its
+//   rows a multiple of 8 elements apart (264 at S = 257: whole 16-byte
+//   rows, which the saved-P backward reads by TMA): each tile's P goes
+//   from the A fragments into a stage of the warpgroup's ([64 rows][128
+//   keys], the 128-byte swizzle, so that the quads' 4-byte writes and the
+//   16-byte reads are free of bank conflicts) and leaves it in 16-byte
+//   stores along the rows, 16 threads a row. The stage costs 32 KB beside
+//   the rings, so K stays resident only where both fit.
 //
 // The dropout mask: wgmma's m64nN accumulator gives each warp the m16n8
 // pattern per 8 columns (rows r, r + 8; columns c, c + 1), so
@@ -109,6 +114,11 @@ constexpr int kMaxKSlots = 8;
 constexpr int kBarBytes = 512;
 constexpr int kMaxSmem = 232448;  // a block's shared memory on the H100
 
+// The two-pass forward's P stage: each consumer warpgroup's 64 rows of a
+// key tile, as a Tile<kN, 64> (two swizzled panels of [64][64]).
+using PStage = Tile<kN, 64>;
+constexpr int kPStage = 2 * PStage::kBytes;
+
 template <int D>
 struct Layout {
   using T = Tile<D, 128>;  // Q, or a K or V tile
@@ -116,8 +126,10 @@ struct Layout {
   static constexpr int kStages = D == 128 ? 2 : 3;  // V's ring, and K's
   // the most key tiles the fused forward keeps resident beside the V ring
   static constexpr int kMaxResident = D == 64 ? 8 : D == 80 ? 7 : 4;
-  static constexpr int smem(int k_slots) {
-    return 1024 + kTile + (k_slots + kStages) * kTile + kBarBytes;
+  // the rings (K's k_slots) and, where P is written, the P stage
+  static constexpr int smem(int k_slots, bool probs = false) {
+    return 1024 + kTile + (k_slots + kStages) * kTile + kBarBytes +
+           (probs ? kPStage : 0);
   }
   static_assert(smem(kMaxResident) <= kMaxSmem, "resident K fits");
   static_assert(kMaxResident <= kMaxKSlots, "one barrier pair a slot");
@@ -134,6 +146,7 @@ struct Args {
   float* row_max;  // two-pass: [B, H, S] each, or null (not written)
   float* row_sum;
   bf16* probs;  // two-pass: P [B, H, S, S] as P V took it, or null
+  long pp;      // P's row pitch in elements, a multiple of 8
   int H, Sq, Sk, causal;
   int k_slots, k_resident;  // K's ring, or (two-pass) every key tile
   // the map dimensions (1..3) of the sequence, head and batch axes of q, k,
@@ -249,6 +262,8 @@ fwd(const __grid_constant__ Maps maps, const Args g, Dropout drop) {
   uint64_t* k_empty = k_full + kMaxKSlots;
   uint64_t* v_full = k_empty + kMaxKSlots;
   uint64_t* v_empty = v_full + L::kStages;
+  unsigned char* p_stage = reinterpret_cast<unsigned char*>(q_full) +
+                           kBarBytes;  // where P is written
 
   const int tid = threadIdx.x;
   const int b = blockIdx.z, h = blockIdx.y;
@@ -439,26 +454,35 @@ fwd(const __grid_constant__ Maps maps, const Args g, Dropout drop) {
   for (int i = 0; i < D / 2; ++i) o[i] = 0.f;
   // P, where the two-pass forward without dropout is asked for it
   constexpr bool kProbs = kTwoPass && !kDrop;
-  bf16* p_bh = kProbs && g.probs != nullptr ? g.probs + bh * g.Sq * g.Sk
+  bf16* p_bh = kProbs && g.probs != nullptr ? g.probs + bh * g.Sq * g.pp
                                             : nullptr;
+  unsigned char* p_w = p_stage + c * PStage::kBytes;  // the warpgroup's
   // P of the tile at k0 (times the dropout multipliers) into pa; with
-  // probs, also its bf16 values there, element by element (rows of S
-  // keys need not start 4-byte aligned)
+  // probs, also its bf16 values there: through the warpgroup's stage into
+  // 16-byte stores (a chunk of 8 keys from k0 + 8 ch; a chunk at the keys'
+  // end holds masked keys, 0, in the row's padding)
   auto frags = [&](int k0) {
     to_frags<kDrop>(pa, s, drop, bh, row_lo, k0, lane);
     if (!kProbs || p_bh == nullptr) return;
+    named_sync(1 + c, 128);  // the last tile's stores have read the stage
 #pragma unroll
     for (int kk = 0; kk < kN / 16; ++kk)
 #pragma unroll
-      for (int i = 0; i < 4; ++i) {
-        const int row = row_lo + 8 * (i & 1);
-        const int key = k0 + 16 * kk + 8 * (i >> 1) + 2 * (lane & 3);
-        if (row >= g.Sq) continue;
-        const bf16* v = reinterpret_cast<const bf16*>(&pa[kk][i]);
-        bf16* dst = p_bh + (long)row * g.Sk + key;
-        if (key < g.Sk) dst[0] = v[0];
-        if (key + 1 < g.Sk) dst[1] = v[1];
-      }
+      for (int i = 0; i < 4; ++i)
+        *reinterpret_cast<uint32_t*>(
+            p_w + PStage::at(row_lo - row0 + 8 * (i & 1),
+                             16 * kk + 8 * (i >> 1) + 2 * (lane & 3))) =
+            pa[kk][i];
+    named_sync(1 + c, 128);
+    constexpr int kChunks = kN / 8;
+#pragma unroll 4
+    for (int i = ct; i < 64 * kChunks; i += 128) {
+      const int r = i / kChunks, ch = i % kChunks;
+      const int key = k0 + 8 * ch;
+      if (row0 + r < g.Sq && key < g.Sk)
+        *reinterpret_cast<uint4*>(p_bh + (long)(row0 + r) * g.pp + key) =
+            *reinterpret_cast<const uint4*>(p_w + PStage::chunk(r, ch));
+    }
   };
   {
     const unsigned char* k_t = k_tile(0, kw);
@@ -531,12 +555,16 @@ fwd(const __grid_constant__ Maps maps, const Args g, Dropout drop) {
                                          : m[r] * g.scale + logf(ls);
     }
   }
-  if (kProbs && p_bh != nullptr)  // keys past the block's last row: 0
-    for (int i = ct; i < 64 * (g.Sk - nk); i += 128) {
-      const int row = row0 + i / (g.Sk - nk);
+  if (kProbs && p_bh != nullptr) {  // keys past the block's last row: 0
+    // (nk = q0 + kM there, a whole chunk)
+    const int zc = (g.Sk - nk + 7) / 8;
+    for (int i = ct; i < 64 * zc; i += 128) {
+      const int row = row0 + i / zc;
       if (row < g.Sq)
-        p_bh[(long)row * g.Sk + nk + i % (g.Sk - nk)] = __float2bfloat16(0.f);
+        *reinterpret_cast<uint4*>(p_bh + (long)row * g.pp + nk +
+                                  8 * (i % zc)) = make_uint4(0, 0, 0, 0);
     }
+  }
   named_sync(1 + c, 128);  // every product of the warpgroup has read Q
   using T = typename L::T;
 #pragma unroll
@@ -589,7 +617,7 @@ struct Operand {
 template <int D, bool kTwoPass, bool kDrop>
 cudaError_t launch_as(const Maps& maps, const Args& a, int B,
                       const Dropout& drop, cudaStream_t st) {
-  const int smem = Layout<D>::smem(a.k_slots);
+  const int smem = Layout<D>::smem(a.k_slots, a.probs != nullptr);
   const cudaError_t e = cudaFuncSetAttribute(
       fwd<D, kTwoPass, kDrop>, cudaFuncAttributeMaxDynamicSharedMemorySize,
       smem);
@@ -604,7 +632,8 @@ template <bool kTwoPass, int D>
 cudaError_t launch_d(Operand q, Operand k, Operand v, Args a, int B,
                      const Dropout* drop, cudaStream_t st) {
   const int tiles = (a.Sk + kN - 1) / kN;
-  a.k_resident = kTwoPass && tiles <= Layout<D>::kMaxResident;
+  a.k_resident = kTwoPass && tiles <= Layout<D>::kMaxResident &&
+                 Layout<D>::smem(tiles, a.probs != nullptr) <= kMaxSmem;
   a.k_slots = a.k_resident ? tiles : Layout<D>::kStages;
   Maps maps;
   if (!view_maps(&maps.q, a.perm_q, q.p, q.b, q.h, q.s, B, a.H, a.Sq, D, kM) ||

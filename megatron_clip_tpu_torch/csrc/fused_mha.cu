@@ -25,7 +25,10 @@
 // P.V, fp32 accumulation, output rounded to the input dtype. With a probs
 // buffer the forward also writes those rounded probabilities, P [B, H, S, S]
 // (the TPU kernel's `pc`, in a [B, S, H*S] layout there; a residual, so the
-// layout is this port's own), masked pairs as 0.
+// layout is this port's own), masked pairs as 0, its rows p_pitch elements
+// apart as mct_fused_mha_probs_pitch decides: S, except in bf16 past
+// S = 128 at D = 64, 80 and 128, where the wgmma kernels write and read it
+// as whole 16-byte rows, S rounded up to 8.
 //
 // The backward takes (qkv, dO [B, S, H*D], P) and writes dqkv [B, S, 3*H*D]
 // with dq, dk and dv at q's, k's and v's columns, so the QKV GEMM's
@@ -150,11 +153,12 @@
 //   0.0992 ms at ViT-H/14's B = 24, S = 257, H = 16, D = 80 (tc::fwd
 //   0.1646 before; SDPA 0.0646). Other D and operands TMA cannot read stay
 //   on tc:: below.
-// - tc:: (bf16, D a multiple of 8, 16-byte aligned rows): the saved-P
-//   backward past S = 128 (ViT-L/14's vision tower, a comparison leg off
-//   the main paths), and wherever the kernels above do not run: dropout at
-//   S <= 128 (the forward and the recompute backward), D other than 64
-//   there, operands TMA cannot read, and the A/Bs' route 2. One block per
+// - tc:: (bf16, D a multiple of 8, 16-byte aligned rows): wherever the
+//   kernels above and below do not run: dropout at S <= 128 (the forward
+//   and the recompute backward), D other than 64 there and other than 64,
+//   80 and 128 past it, operands TMA cannot read, and the A/Bs' route
+//   2 (in the saved-P backward only the last two: a saved P TMA cannot
+//   read is refused there). One block per
 //   (64 rows, head, batch), 4 warps of 16 rows. Tiles of 64 rows are
 //   staged in shared memory with 16-byte loads (rows padded by 16 bytes so
 //   ldmatrix is conflict-free), and every
@@ -193,6 +197,20 @@
 //   backward 0.19 to 0.31 between runs). S <= 128 (the text towers) runs
 //   the one-pass kernel above; other D and operands TMA cannot read stay
 //   on tc:: below; fp32 and any other bf16 case on simt::.
+// - The backward from saved P in bf16 at D = 64, 80 and 128 past S = 128
+//   (ViT-L/14's and ViT-H/14's vision towers: the JAX default's backward
+//   and the trainer's), on P as the forward writes it (rows
+//   mct_fused_mha_probs_pitch apart, whole 16-byte rows): attn_bwd_sm90.cuh's
+//   kernels in their saved-P mode,
+//   P by TMA, 6 products a pair and no exponentials (that header's note
+//   has the design). tools/ab_backward.py --rows saved on the H100 (NVIDIA
+//   H100 80GB HBM3, 700 W): 0.4021 / 0.4029 ms at ViT-L/14's B = 64,
+//   S = 257, H = 16, D = 64 (tc:: 1.1780 / 1.1775 in the same call, on the
+//   same P; SDPA's backward 0.3482 / 0.3512), 0.2088 / 0.2081 ms at
+//   ViT-H/14's B = 24, D = 80 (tc:: 0.8260 / 0.8194; SDPA 0.1868 /
+//   0.1860). The forward writes that P through a stage of shared memory in
+//   16-byte stores: 0.2661 ms at ViT-L/14 beside 0.2171 with statistics
+//   (before, P element by element from the fragments: 0.4407).
 // - tc::'s recompute backward keeps the saved-P backward's shape: part 1
 //   stages q, dO, k and v tiles, takes every operand from shared memory
 //   (one ldmatrix per k-chunk) and runs S = Q K^T and dP = dO V^T in both
@@ -288,7 +306,7 @@ __device__ __forceinline__ void score_rows(const float* q_w, const float* k_s,
 template <typename T, bool kDrop>
 __global__ void __launch_bounds__(kThreads)
 fwd(const T* __restrict__ qkv, Pitch pq, T* __restrict__ out, Pitch po,
-    T* __restrict__ probs, float* __restrict__ row_max,
+    T* __restrict__ probs, long pp, float* __restrict__ row_max,
     float* __restrict__ row_sum, int S, int H, int D, float scale,
     int causal, Dropout drop) {
   extern __shared__ __align__(16) float smem[];
@@ -362,7 +380,7 @@ fwd(const T* __restrict__ qkv, Pitch pq, T* __restrict__ out, Pitch po,
   // every p of the warp's rows is also written there (masked keys as 0)
   T* p_rows = probs == nullptr
                   ? nullptr
-                  : probs + (((long)b * H + h) * S + q0 + r0) * S;
+                  : probs + (((long)b * H + h) * S + q0 + r0) * pp;
   float acc[kRows][kDPerLane];
 #pragma unroll
   for (int r = 0; r < kRows; ++r)
@@ -388,7 +406,7 @@ fwd(const T* __restrict__ qkv, Pitch pq, T* __restrict__ out, Pitch po,
           ok ? mct::round_to<T>(expf(s[r] * scale - m[r]) / l[r] * keep)
              : 0.f;
       if (p_rows != nullptr && r0 + r < nq && lane < nt)
-        p_rows[(long)r * S + kj] = mct::from_float<T>(p_w[r * kKTile + lane]);
+        p_rows[(long)r * pp + kj] = mct::from_float<T>(p_w[r * kKTile + lane]);
     }
     __syncwarp();
     for (int j = 0; j < jn; ++j) {
@@ -408,7 +426,7 @@ fwd(const T* __restrict__ qkv, Pitch pq, T* __restrict__ out, Pitch po,
     const int written = min(nk, (warp_nk + kKTile - 1) / kKTile * kKTile);
     for (int r = 0; r < kRows && r0 + r < nq; ++r)
       for (int kj = written + lane; kj < S; kj += 32)
-        p_rows[(long)r * S + kj] = mct::from_float<T>(0.f);
+        p_rows[(long)r * pp + kj] = mct::from_float<T>(0.f);
   }
 
 #pragma unroll
@@ -425,19 +443,19 @@ fwd(const T* __restrict__ qkv, Pitch pq, T* __restrict__ out, Pitch po,
 
 template <typename T>
 cudaError_t launch(const void* qkv, Pitch pq, void* out, Pitch po,
-                   void* probs, float* row_max, float* row_sum, int B, int S,
-                   int H, int D, float scale, int causal, const Dropout* drop,
-                   cudaStream_t st) {
+                   void* probs, long pp, float* row_max, float* row_sum,
+                   int B, int S, int H, int D, float scale, int causal,
+                   const Dropout* drop, cudaStream_t st) {
   const dim3 grid((S + kQTile - 1) / kQTile, H, B);
   if (drop)
     fwd<T, true><<<grid, kThreads, smem_bytes(D), st>>>(
         static_cast<const T*>(qkv), pq, static_cast<T*>(out), po,
-        static_cast<T*>(probs), row_max, row_sum, S, H, D, scale, causal,
+        static_cast<T*>(probs), pp, row_max, row_sum, S, H, D, scale, causal,
         *drop);
   else
     fwd<T, false><<<grid, kThreads, smem_bytes(D), st>>>(
         static_cast<const T*>(qkv), pq, static_cast<T*>(out), po,
-        static_cast<T*>(probs), row_max, row_sum, S, H, D, scale, causal,
+        static_cast<T*>(probs), pp, row_max, row_sum, S, H, D, scale, causal,
         Dropout{});
   return cudaGetLastError();
 }
@@ -470,7 +488,7 @@ __host__ __device__ inline int bwd_dq_smem_bytes(int d, bool recompute) {
 template <typename T, bool kRecompute, bool kDrop>
 __global__ void __launch_bounds__(kThreads)
 bwd_dq(const T* __restrict__ qkv, Pitch pq, const T* __restrict__ dout,
-       Pitch pdo, const T* __restrict__ probs,
+       Pitch pdo, const T* __restrict__ probs, long pp,
        const float* __restrict__ row_max, const float* __restrict__ row_sum,
        T* __restrict__ dqkv, Pitch pdq, float* __restrict__ delta, int S,
        int H, int D, float scale, int causal, Dropout drop) {
@@ -489,7 +507,7 @@ bwd_dq(const T* __restrict__ qkv, Pitch pq, const T* __restrict__ dout,
   const int r0 = warp * kRows;
   const long bh = (long)b * H + h;
   const T* __restrict__ src = qkv + (long)b * pq.b;
-  const T* __restrict__ p_bh = kRecompute ? nullptr : probs + bh * S * S;
+  const T* __restrict__ p_bh = kRecompute ? nullptr : probs + bh * S * pp;
   const int kcol = (H + h) * D, vcol = (2 * H + h) * D;
 
   // rows that score_rows takes as its queries have pitch dp
@@ -518,7 +536,7 @@ bwd_dq(const T* __restrict__ qkv, Pitch pq, const T* __restrict__ dout,
       return ok ? expf(sc[r] * scale - m[r]) / l[r] : 0.f;
     }
     const bool ok = r0 + r < nq && lane < nt;
-    return ok ? mct::to_float(p_bh[(long)qi * S + kj]) : 0.f;
+    return ok ? mct::to_float(p_bh[(long)qi * pp + kj]) : 0.f;
   };
   // dropout: dP M in delta and dS
   auto drop_dp = [&](float (&s)[kRows], int t0) {
@@ -614,7 +632,7 @@ __host__ __device__ inline int bwd_dkdv_smem_bytes(int d, bool recompute) {
 template <typename T, bool kRecompute, bool kDrop>
 __global__ void __launch_bounds__(kThreads)
 bwd_dkdv(const T* __restrict__ qkv, Pitch pq, const T* __restrict__ dout,
-         Pitch pdo, const T* __restrict__ probs,
+         Pitch pdo, const T* __restrict__ probs, long pp,
          const float* __restrict__ row_max,
          const float* __restrict__ row_sum, const float* __restrict__ delta,
          T* __restrict__ dqkv, Pitch pdq, int S, int H, int D, float scale,
@@ -636,7 +654,7 @@ bwd_dkdv(const T* __restrict__ qkv, Pitch pq, const T* __restrict__ dout,
   const long bh = (long)b * H + h;
   const T* __restrict__ src = qkv + (long)b * pq.b;
   const T* __restrict__ dsrc = dout + (long)b * pdo.b;
-  const T* __restrict__ p_bh = kRecompute ? nullptr : probs + bh * S * S;
+  const T* __restrict__ p_bh = kRecompute ? nullptr : probs + bh * S * pp;
   const float* __restrict__ d_bh = delta + bh * S;
 
   load_rows<T, kKeys>(v_s, src, pq.s, (2 * H + h) * D, k0, nkeys, D, dp, dp);
@@ -677,7 +695,7 @@ bwd_dkdv(const T* __restrict__ qkv, Pitch pq, const T* __restrict__ dout,
         p = ok ? expf(sc[r] * scale - m_lane) / l_lane : 0.f;
       } else {
         const bool ok = r0 + r < nkeys && lane < nt;
-        p = ok ? mct::to_float(p_bh[(long)qi * S + kj]) : 0.f;
+        p = ok ? mct::to_float(p_bh[(long)qi * pp + kj]) : 0.f;
       }
       // dropout: dV from P M, dS from dP M
       const float keep = kDrop ? drop.at(bh, qi, kj) : 1.f;
@@ -721,7 +739,8 @@ bwd_dkdv(const T* __restrict__ qkv, Pitch pq, const T* __restrict__ dout,
 // forward's row statistics.
 template <typename T, bool kRecompute, bool kDrop>
 cudaError_t launch_bwd_as(const void* qkv, Pitch pq, const void* dout,
-                          Pitch pdo, const void* probs, const float* row_max,
+                          Pitch pdo, const void* probs, long pp,
+                          const float* row_max,
                           const float* row_sum, void* dqkv, Pitch pdq,
                           float* delta, int B, int S, int H, int D,
                           float scale, int causal, Dropout drop,
@@ -738,14 +757,14 @@ cudaError_t launch_bwd_as(const void* qkv, Pitch pq, const void* dout,
   T* dq = static_cast<T*>(dqkv);
   bwd_dq<T, kRecompute, kDrop>
       <<<dim3((S + kQTile - 1) / kQTile, H, B), kThreads, smem_q, st>>>(
-          q, pq, g, pdo, p, row_max, row_sum, dq, pdq, delta, S, H, D, scale,
-          causal, drop);
+          q, pq, g, pdo, p, pp, row_max, row_sum, dq, pdq, delta, S, H, D,
+          scale, causal, drop);
   e = cudaGetLastError();
   if (e != cudaSuccess) return e;
   bwd_dkdv<T, kRecompute, kDrop>
       <<<dim3((S + kKeys - 1) / kKeys, H, B), kThreads, smem_k, st>>>(
-          q, pq, g, pdo, p, row_max, row_sum, delta, dq, pdq, S, H, D, scale,
-          causal, drop);
+          q, pq, g, pdo, p, pp, row_max, row_sum, delta, dq, pdq, S, H, D,
+          scale, causal, drop);
   return cudaGetLastError();
 }
 
@@ -753,21 +772,22 @@ cudaError_t launch_bwd_as(const void* qkv, Pitch pq, const void* dout,
 // P that would hold the mask already).
 template <typename T, bool kRecompute>
 cudaError_t launch_bwd(const void* qkv, Pitch pq, const void* dout, Pitch pdo,
-                       const void* probs, const float* row_max,
+                       const void* probs, long pp, const float* row_max,
                        const float* row_sum, void* dqkv, Pitch pdq,
                        float* delta, int B, int S, int H, int D, float scale,
                        int causal, const Dropout* drop, cudaStream_t st) {
   if constexpr (kRecompute) {
     if (drop)
-      return launch_bwd_as<T, true, true>(qkv, pq, dout, pdo, probs, row_max,
-                                          row_sum, dqkv, pdq, delta, B, S, H,
-                                          D, scale, causal, *drop, st);
+      return launch_bwd_as<T, true, true>(qkv, pq, dout, pdo, probs, pp,
+                                          row_max, row_sum, dqkv, pdq, delta,
+                                          B, S, H, D, scale, causal, *drop,
+                                          st);
   } else if (drop) {
     return cudaErrorInvalidValue;
   }
   return launch_bwd_as<T, kRecompute, false>(
-      qkv, pq, dout, pdo, probs, row_max, row_sum, dqkv, pdq, delta, B, S, H,
-      D, scale, causal, Dropout{}, st);
+      qkv, pq, dout, pdo, probs, pp, row_max, row_sum, dqkv, pdq, delta, B,
+      S, H, D, scale, causal, Dropout{}, st);
 }
 
 }  // namespace simt
@@ -835,7 +855,7 @@ __device__ __forceinline__ void scale_mask(float (&s)[NT][4], int t0,
 template <int DP, bool kDrop>
 __global__ void __launch_bounds__(kThreads)
 fwd(const bf16* __restrict__ qkv, Pitch pq, bf16* __restrict__ out,
-    Pitch po, bf16* __restrict__ probs, float* __restrict__ row_max,
+    Pitch po, bf16* __restrict__ probs, long pp, float* __restrict__ row_max,
     float* __restrict__ row_sum, int S, int H, int D, float scale,
     int causal, Dropout drop) {
   constexpr int kPitch = DP + 8, NT = kK / 8, kSub = 32, NS = kSub / 8;
@@ -910,7 +930,7 @@ fwd(const bf16* __restrict__ qkv, Pitch pq, bf16* __restrict__ out,
   // each key tile in halves of 32 keys (fewer live registers); with probs,
   // P is also written there (masked keys as 0)
   bf16* p_bh = probs == nullptr ? nullptr
-                                : probs + ((long)b * H + h) * S * S;
+                                : probs + ((long)b * H + h) * S * pp;
   float o[DP / 8][4];
 #pragma unroll
   for (int n = 0; n < DP / 8; ++n)
@@ -933,7 +953,7 @@ fwd(const bf16* __restrict__ qkv, Pitch pq, bf16* __restrict__ out,
         if (p_bh != nullptr)
           for (int r = 0; r < 16 && q0 + warp * 16 + r < S; ++r)
             for (int key = t + lane; key < min(t + kSub, nk); key += 32)
-              p_bh[(long)(q0 + warp * 16 + r) * S + key] =
+              p_bh[(long)(q0 + warp * 16 + r) * pp + key] =
                   __float2bfloat16(0.f);
         continue;
       }
@@ -968,8 +988,8 @@ fwd(const bf16* __restrict__ qkv, Pitch pq, bf16* __restrict__ out,
           const int key = t + 16 * kc + 8 * (i >> 1) + 2 * (lane & 3);
           if (p_bh != nullptr && row < S) {
             const bf16* pv = reinterpret_cast<const bf16*>(&pa[i]);
-            if (key < S) p_bh[(long)row * S + key] = pv[0];
-            if (key + 1 < S) p_bh[(long)row * S + key + 1] = pv[1];
+            if (key < S) p_bh[(long)row * pp + key] = pv[0];
+            if (key + 1 < S) p_bh[(long)row * pp + key + 1] = pv[1];
           }
         }
 #pragma unroll
@@ -988,7 +1008,7 @@ fwd(const bf16* __restrict__ qkv, Pitch pq, bf16* __restrict__ out,
   if (p_bh != nullptr && !warp_idle)
     for (int r = 0; r < 16 && q0 + warp * 16 + r < S; ++r)
       for (int key = nk + lane; key < S; key += 32)
-        p_bh[(long)(q0 + warp * 16 + r) * S + key] = __float2bfloat16(0.f);
+        p_bh[(long)(q0 + warp * 16 + r) * pp + key] = __float2bfloat16(0.f);
 
 #pragma unroll
   for (int half = 0; half < 2; ++half) {
@@ -1007,8 +1027,8 @@ fwd(const bf16* __restrict__ qkv, Pitch pq, bf16* __restrict__ out,
 
 template <int DP, bool kDrop>
 cudaError_t launch_as(const void* qkv, Pitch pq, void* out, Pitch po,
-                      void* probs, float* row_max, float* row_sum, int B,
-                      int S, int H, int D, float scale, int causal,
+                      void* probs, long pp, float* row_max, float* row_sum,
+                      int B, int S, int H, int D, float scale, int causal,
                       Dropout drop, cudaStream_t st) {
   constexpr int kSmem = smem_bytes(DP);
   const cudaError_t e = allow_smem(fwd<DP, kDrop>, kSmem);
@@ -1016,19 +1036,20 @@ cudaError_t launch_as(const void* qkv, Pitch pq, void* out, Pitch po,
   const dim3 grid((S + kQ - 1) / kQ, H, B);
   fwd<DP, kDrop><<<grid, kThreads, kSmem, st>>>(
       static_cast<const bf16*>(qkv), pq, static_cast<bf16*>(out), po,
-      static_cast<bf16*>(probs), row_max, row_sum, S, H, D, scale, causal,
-      drop);
+      static_cast<bf16*>(probs), pp, row_max, row_sum, S, H, D, scale,
+      causal, drop);
   return cudaGetLastError();
 }
 
 template <int DP>
 cudaError_t launch(const void* qkv, Pitch pq, void* out, Pitch po,
-                   void* probs, float* row_max, float* row_sum, int B, int S,
-                   int H, int D, float scale, int causal, const Dropout* drop,
-                   cudaStream_t st) {
-  return drop ? launch_as<DP, true>(qkv, pq, out, po, probs, row_max, row_sum,
-                                    B, S, H, D, scale, causal, *drop, st)
-              : launch_as<DP, false>(qkv, pq, out, po, probs, row_max,
+                   void* probs, long pp, float* row_max, float* row_sum,
+                   int B, int S, int H, int D, float scale, int causal,
+                   const Dropout* drop, cudaStream_t st) {
+  return drop ? launch_as<DP, true>(qkv, pq, out, po, probs, pp, row_max,
+                                    row_sum, B, S, H, D, scale, causal, *drop,
+                                    st)
+              : launch_as<DP, false>(qkv, pq, out, po, probs, pp, row_max,
                                      row_sum, B, S, H, D, scale, causal,
                                      Dropout{}, st);
 }
@@ -1056,17 +1077,18 @@ __host__ __device__ __forceinline__ void packed_pitches(Pitch& pq, Pitch& pdo,
   pdq = pq;
 }
 
-// Stage the saved probabilities P[q0 + r][t0 + c] of one (batch, head) in a
-// [kQ][kPP] tile, zero past nq rows and nt keys.
+// Stage the saved probabilities P[q0 + r][t0 + c] of one (batch, head),
+// rows pp elements apart, in a [kQ][kPP] tile, zero past nq rows and nt
+// keys.
 __device__ __forceinline__ void load_p_tile(bf16* p_s,
                                             const bf16* __restrict__ P,
-                                            int S, int q0, int nq, int t0,
+                                            long pp, int q0, int nq, int t0,
                                             int nt) {
   const bf16 zero = __float2bfloat16(0.f);
   for (int i = threadIdx.x; i < kQ * kK; i += kThreads) {
     const int r = i / kK, c = i - r * kK;
     p_s[r * kPP + c] =
-        (r < nq && c < nt) ? P[(long)(q0 + r) * S + t0 + c] : zero;
+        (r < nq && c < nt) ? P[(long)(q0 + r) * pp + t0 + c] : zero;
   }
 }
 
@@ -1085,7 +1107,8 @@ __device__ __forceinline__ uint32_t pack_raw(bf16 lo, bf16 hi) {
 template <int DP, bool kPacked>
 __global__ void __launch_bounds__(kThreads)
 bwd_dq(const bf16* __restrict__ qkv, Pitch pq, const bf16* __restrict__ dout,
-       Pitch pdo, const bf16* __restrict__ probs, bf16* __restrict__ dqkv,
+       Pitch pdo, const bf16* __restrict__ probs, long pp,
+       bf16* __restrict__ dqkv,
        Pitch pdq, float* __restrict__ delta, int S, int H, int D,
        float scale, int causal) {
   constexpr int kPitch = DP + 8, NT = kK / 8;
@@ -1100,7 +1123,7 @@ bwd_dq(const bf16* __restrict__ qkv, Pitch pq, const bf16* __restrict__ dout,
   const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
   const long row_pitch = pq.s;
   const bf16* src = qkv + (long)b * pq.b;
-  const bf16* P = probs + ((long)b * H + h) * S * S;
+  const bf16* P = probs + ((long)b * H + h) * S * pp;
   const int nq = min(kQ, S - q0);
   // P is 0 on every masked pair, so the mask only bounds the key tiles
   const int nk = causal ? min(S, q0 + kQ) : S;
@@ -1114,7 +1137,7 @@ bwd_dq(const bf16* __restrict__ qkv, Pitch pq, const bf16* __restrict__ dout,
   if (one_tile) {
     load_tile<DP, kK>(k_s, src, row_pitch, (H + h) * D, 0, nk, D);
     load_tile<DP, kK>(v_s, src, row_pitch, (2 * H + h) * D, 0, nk, D);
-    load_p_tile(p_s, P, S, q0, nq, 0, nk);
+    load_p_tile(p_s, P, pp, q0, nq, 0, nk);
   }
   __syncthreads();
   uint32_t da[DP / 16][4];
@@ -1130,7 +1153,7 @@ bwd_dq(const bf16* __restrict__ qkv, Pitch pq, const bf16* __restrict__ dout,
       const int nt = min(kK, nk - t0);
       __syncthreads();
       load_tile<DP, kK>(v_s, src, row_pitch, (2 * H + h) * D, t0, nt, D);
-      load_p_tile(p_s, P, S, q0, nq, t0, nt);
+      load_p_tile(p_s, P, pp, q0, nq, t0, nt);
       __syncthreads();
     }
     if (skip(t0)) continue;
@@ -1161,7 +1184,7 @@ bwd_dq(const bf16* __restrict__ qkv, Pitch pq, const bf16* __restrict__ dout,
       __syncthreads();
       load_tile<DP, kK>(k_s, src, row_pitch, (H + h) * D, t0, nt, D);
       load_tile<DP, kK>(v_s, src, row_pitch, (2 * H + h) * D, t0, nt, D);
-      load_p_tile(p_s, P, S, q0, nq, t0, nt);
+      load_p_tile(p_s, P, pp, q0, nq, t0, nt);
       __syncthreads();
     }
     if (skip(t0)) continue;
@@ -1215,9 +1238,9 @@ template <int DP, bool kPacked>
 __global__ void __launch_bounds__(kThreads)
 bwd_dkdv(const bf16* __restrict__ qkv, Pitch pq,
          const bf16* __restrict__ dout, Pitch pdo,
-         const bf16* __restrict__ probs, const float* __restrict__ delta,
-         bf16* __restrict__ dqkv, Pitch pdq, int S, int H, int D,
-         float scale, int causal) {
+         const bf16* __restrict__ probs, long pp,
+         const float* __restrict__ delta, bf16* __restrict__ dqkv, Pitch pdq,
+         int S, int H, int D, float scale, int causal) {
   constexpr int kPitch = DP + 8, NT = kQ / 8;
   if (kPacked) packed_pitches(pq, pdo, pdq, S, H, D);
   extern __shared__ __align__(16) unsigned char smem_raw[];
@@ -1232,7 +1255,7 @@ bwd_dkdv(const bf16* __restrict__ qkv, Pitch pq,
   const long row_pitch = pq.s, o_pitch = pdo.s;
   const bf16* src = qkv + (long)b * pq.b;
   const bf16* dsrc = dout + (long)b * pdo.b;
-  const bf16* P = probs + ((long)b * H + h) * S * S;
+  const bf16* P = probs + ((long)b * H + h) * S * pp;
   const float* d_bh = delta + ((long)b * H + h) * S;
   const int nkeys = min(kK, S - k0);
   const int key_lo = warp * 16 + (lane >> 2);  // block keys key_lo, +8
@@ -1257,7 +1280,7 @@ bwd_dkdv(const bf16* __restrict__ qkv, Pitch pq,
     __syncthreads();
     load_tile<DP, kQ>(q_s, src, row_pitch, h * D, q0, nq, D);
     load_tile<DP, kQ>(do_s, dsrc, o_pitch, h * D, q0, nq, D);
-    load_p_tile(p_s, P, S, q0, nq, k0, nkeys);
+    load_p_tile(p_s, P, pp, q0, nq, k0, nkeys);
     for (int i = threadIdx.x; i < kQ; i += kThreads)
       d_s[i] = i < nq ? d_bh[q0 + i] : 0.f;
     __syncthreads();
@@ -1330,8 +1353,8 @@ bwd_dkdv(const bf16* __restrict__ qkv, Pitch pq,
 
 template <int DP, bool kPacked>
 cudaError_t launch_bwd_as(const void* qkv, Pitch pq, const void* dout,
-                          Pitch pdo, const void* probs, void* dqkv, Pitch pdq,
-                          float* delta, int B, int S, int H, int D,
+                          Pitch pdo, const void* probs, long pp, void* dqkv,
+                          Pitch pdq, float* delta, int B, int S, int H, int D,
                           float scale, int causal, cudaStream_t st) {
   constexpr int kSmem = bwd_smem_bytes(DP);
   cudaError_t e = allow_smem(bwd_dq<DP, kPacked>, kSmem);
@@ -1343,12 +1366,12 @@ cudaError_t launch_bwd_as(const void* qkv, Pitch pq, const void* dout,
   bf16* dq = static_cast<bf16*>(dqkv);
   bwd_dq<DP, kPacked>
       <<<dim3((S + kQ - 1) / kQ, H, B), kThreads, kSmem, st>>>(
-          q, pq, g, pdo, p, dq, pdq, delta, S, H, D, scale, causal);
+          q, pq, g, pdo, p, pp, dq, pdq, delta, S, H, D, scale, causal);
   e = cudaGetLastError();
   if (e != cudaSuccess) return e;
   bwd_dkdv<DP, kPacked>
       <<<dim3((S + kK - 1) / kK, H, B), kThreads, kSmem, st>>>(
-          q, pq, g, pdo, p, delta, dq, pdq, S, H, D, scale, causal);
+          q, pq, g, pdo, p, pp, delta, dq, pdq, S, H, D, scale, causal);
   return cudaGetLastError();
 }
 
@@ -1356,19 +1379,19 @@ cudaError_t launch_bwd_as(const void* qkv, Pitch pq, const void* dout,
 // own instantiation, whose pitches packed_pitches derives from S, H and D.
 template <int DP>
 cudaError_t launch_bwd(const void* qkv, Pitch pq, const void* dout, Pitch pdo,
-                       const void* probs, void* dqkv, Pitch pdq, float* delta,
-                       int B, int S, int H, int D, float scale, int causal,
-                       cudaStream_t st) {
+                       const void* probs, long pp, void* dqkv, Pitch pdq,
+                       float* delta, int B, int S, int H, int D, float scale,
+                       int causal, cudaStream_t st) {
   Pitch q = pq, o = pdo, g = pdq;
   packed_pitches(q, o, g, S, H, D);
   const bool packed = pq.b == q.b && pq.s == q.s && pdo.b == o.b &&
                       pdo.s == o.s && pdq.b == g.b && pdq.s == g.s;
-  return packed ? launch_bwd_as<DP, true>(qkv, pq, dout, pdo, probs, dqkv,
+  return packed ? launch_bwd_as<DP, true>(qkv, pq, dout, pdo, probs, pp, dqkv,
                                           pdq, delta, B, S, H, D, scale,
                                           causal, st)
-                : launch_bwd_as<DP, false>(qkv, pq, dout, pdo, probs, dqkv,
-                                           pdq, delta, B, S, H, D, scale,
-                                           causal, st);
+                : launch_bwd_as<DP, false>(qkv, pq, dout, pdo, probs, pp,
+                                           dqkv, pdq, delta, B, S, H, D,
+                                           scale, causal, st);
 }
 
 // ---- recompute backward --------------------------------------------------
@@ -1740,19 +1763,19 @@ cudaError_t launch_bwd_rc(const void* qkv, Pitch pq, const void* dout,
 }
 
 cudaError_t dispatch(const void* qkv, Pitch pq, void* out, Pitch po,
-                     void* probs, float* row_max, float* row_sum, int B,
-                     int S, int H, int D, float scale, int causal,
+                     void* probs, long pp, float* row_max, float* row_sum,
+                     int B, int S, int H, int D, float scale, int causal,
                      const Dropout* drop, cudaStream_t st) {
-  MCT_TC_DISPATCH(launch, D, qkv, pq, out, po, probs, row_max, row_sum, B, S,
-                  H, D, scale, causal, drop, st)
+  MCT_TC_DISPATCH(launch, D, qkv, pq, out, po, probs, pp, row_max, row_sum,
+                  B, S, H, D, scale, causal, drop, st)
 }
 
 cudaError_t dispatch_bwd(const void* qkv, Pitch pq, const void* dout,
-                         Pitch pdo, const void* probs, void* dqkv, Pitch pdq,
-                         float* delta, int B, int S, int H, int D,
+                         Pitch pdo, const void* probs, long pp, void* dqkv,
+                         Pitch pdq, float* delta, int B, int S, int H, int D,
                          float scale, int causal, cudaStream_t st) {
-  MCT_TC_DISPATCH(launch_bwd, D, qkv, pq, dout, pdo, probs, dqkv, pdq, delta,
-                  B, S, H, D, scale, causal, st)
+  MCT_TC_DISPATCH(launch_bwd, D, qkv, pq, dout, pdo, probs, pp, dqkv, pdq,
+                  delta, B, S, H, D, scale, causal, st)
 }
 
 cudaError_t dispatch_bwd_rc(const void* qkv, Pitch pq, const void* dout,
@@ -1770,6 +1793,17 @@ cudaError_t dispatch_bwd_rc(const void* qkv, Pitch pq, const void* dout,
 bool valid_shape(int B, int S, int H, int D) {
   return B >= 1 && B <= 65535 && S >= 1 && H >= 1 && H <= 65535 && D >= 1 &&
          D <= kMaxD;
+}
+
+// The one-pass kernels end where the wgmma kernels past one key tile begin.
+static_assert(mct::attn_short::kMaxS == mct::attn_fwd::kN,
+              "the one-pass and the wgmma kernels meet at one key tile");
+
+long long probs_pitch(int S, int D, int dtype) {
+  return dtype == mct::kBFloat16 && S > mct::attn_short::kMaxS &&
+                 mct::attn_fwd::fused_d(D)
+             ? (S + 7) / 8 * 8
+             : S;
 }
 
 // Whether the one-pass backward (attn_short_bwd_sm90.cuh) takes a call:
@@ -1800,6 +1834,16 @@ mct::attn_short_bwd::Args one_pass_args(void* dqkv, long long dq_b,
 
 }  // namespace
 
+// The row pitch, in elements, of the P [B, H, S, S] that the forward writes
+// and the saved-P backward reads: S where the one-pass kernels (S <= 128,
+// a head's P as one span), tc:: and simt:: take it; S rounded up to 8 for
+// the wgmma kernels past S = 128 (bf16, D = 64, 80 and 128), so that every
+// row is a whole number of 16-byte units for their 16-byte stores and TMA
+// (264 at S = 257: P 2.7% larger). The wrappers allocate P by it.
+extern "C" long long mct_fused_mha_probs_pitch(int S, int D, int dtype) {
+  return probs_pitch(S, D, dtype);
+}
+
 // Pointers and (batch, sequence) element strides of the [B, S, *] operands;
 // their rows are contiguous. Each function returns the launch's
 // cudaError_t (0 on success) and launches on `stream`. With `drop` the
@@ -1816,21 +1860,23 @@ mct::attn_short_bwd::Args one_pass_args(void* dqkv, long long dq_b,
   const Dropout* dr = drop ? &drop_args : nullptr
 
 // Forward. probs and stats may be null. probs receives P [B, H, S, S] in the
-// input dtype, the probabilities exactly as P.V used them (masked pairs 0);
-// stats [2, B*H*S] fp32 each row's max of the scaled scores, then its
-// softmax denominator, for the recompute backward. Dropout takes no probs.
-// route 0 takes the kernel the file's note gives the shape; 1 asks for the
-// one-pass kernel at S <= 128 and 2 for tc::fwd (the A/Bs of chip_smoke.py
-// and tools/ab_attention.py): an error where the kernel asked for cannot
-// take the shape.
+// input dtype, its rows p_pitch = mct_fused_mha_probs_pitch(S, D, dtype)
+// elements apart (any other pitch is an error), the probabilities exactly as P.V used them
+// (masked pairs 0); stats [2, B*H*S] fp32 each row's max of the scaled
+// scores, then its softmax denominator, for the recompute backward.
+// Dropout takes no probs. route 0 takes the kernel the file's note gives
+// the shape; 1 asks for the one-pass kernel at S <= 128 and 2 for tc::fwd
+// (the A/Bs of chip_smoke.py and tools/ab_attention.py): an error where
+// the kernel asked for cannot take the shape.
 extern "C" int mct_fused_mha_fwd(const void* qkv, long long qkv_b,
                                  long long qkv_s, void* out, long long out_b,
-                                 long long out_s, void* probs, void* stats,
-                                 int B, int S, int H, int D, float scale,
-                                 int causal, int dtype, MCT_DROP_ARGS,
-                                 int route, void* stream) {
+                                 long long out_s, void* probs,
+                                 long long p_pitch, void* stats, int B, int S,
+                                 int H, int D, float scale, int causal,
+                                 int dtype, MCT_DROP_ARGS, int route,
+                                 void* stream) {
   if (!valid_shape(B, S, H, D) || (drop && probs != nullptr) || route < 0 ||
-      route > 2)
+      route > 2 || (probs != nullptr && p_pitch != probs_pitch(S, D, dtype)))
     return (int)cudaErrorInvalidValue;
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   const Pitch pq{qkv_b, qkv_s}, po{out_b, out_s};
@@ -1838,8 +1884,8 @@ extern "C" int mct_fused_mha_fwd(const void* qkv, long long qkv_b,
   float* l = m == nullptr ? nullptr : m + (long)B * H * S;
   MCT_DROP;
   if (dtype == mct::kFloat32 && route == 0)
-    return (int)simt::launch<float>(qkv, pq, out, po, probs, m, l, B, S, H, D,
-                                    scale, causal, dr, st);
+    return (int)simt::launch<float>(qkv, pq, out, po, probs, p_pitch, m, l,
+                                    B, S, H, D, scale, causal, dr, st);
   if (dtype != mct::kBFloat16) return (int)cudaErrorInvalidValue;
   const bool one_pass =
       S <= mct::attn_short::kMaxS && D == mct::attn_short::kD && !dr &&
@@ -1864,12 +1910,13 @@ extern "C" int mct_fused_mha_fwd(const void* qkv, long long qkv_b,
   const bool tc_ok = tc::eligible(D, {qkv, out}, {qkv_b, qkv_s, out_b, out_s});
   if (route == 2) {
     if (!tc_ok) return (int)cudaErrorInvalidValue;
-    return (int)tc::dispatch(qkv, pq, out, po, probs, m, l, B, S, H, D, scale,
-                             causal, dr, st);
+    return (int)tc::dispatch(qkv, pq, out, po, probs, p_pitch, m, l, B, S, H,
+                             D, scale, causal, dr, st);
   }
   if (S > mct::attn_fwd::kN && mct::attn_fwd::fused_d(D) &&
       mct::attn_fwd::aligned({qkv, out, probs},
-                             {qkv_b, qkv_s, out_b, out_s})) {
+                             {qkv_b, qkv_s, out_b, out_s,
+                              probs == nullptr ? 0 : p_pitch})) {
     // past one key tile (the file's note): q, k and v as the [B, H, S, D]
     // views of qkv's columns
     const __nv_bfloat16* x = static_cast<const __nv_bfloat16*>(qkv);
@@ -1882,6 +1929,7 @@ extern "C" int mct_fused_mha_fwd(const void* qkv, long long qkv_b,
     a.row_max = m;
     a.row_sum = l;
     a.probs = static_cast<__nv_bfloat16*>(probs);
+    a.pp = p_pitch;
     a.H = H;
     a.Sq = a.Sk = S;
     a.causal = causal;
@@ -1891,17 +1939,18 @@ extern "C" int mct_fused_mha_fwd(const void* qkv, long long qkv_b,
         {x + 2 * hd, qkv_b, D, qkv_s}, a, B, dr, st);
   }
   if (tc_ok)
-    return (int)tc::dispatch(qkv, pq, out, po, probs, m, l, B, S, H, D, scale,
-                             causal, dr, st);
-  return (int)simt::launch<__nv_bfloat16>(qkv, pq, out, po, probs, m, l, B, S,
-                                          H, D, scale, causal, dr, st);
+    return (int)tc::dispatch(qkv, pq, out, po, probs, p_pitch, m, l, B, S, H,
+                             D, scale, causal, dr, st);
+  return (int)simt::launch<__nv_bfloat16>(qkv, pq, out, po, probs, p_pitch, m,
+                                          l, B, S, H, D, scale, causal, dr,
+                                          st);
 }
 
 
 // Whether the backward below (either mode) keeps delta in a [B*H*S] fp32
-// scratch on `route` for these operands: every kernel but the one-pass one,
-// which the caller's delta may then be null for. The wrappers ask before
-// they allocate one, so the kernel choice stays in this file.
+// scratch on `route` for these operands: every kernel but the one-pass one, which the
+// caller's delta may then be null for. The wrappers ask before they
+// allocate one, so the kernel choice stays in this file.
 extern "C" int mct_fused_mha_bwd_needs_delta(
     const void* qkv, long long qkv_b, long long qkv_s, const void* dout,
     long long do_b, long long do_s, const void* dqkv, long long dq_b,
@@ -1914,21 +1963,26 @@ extern "C" int mct_fused_mha_bwd_needs_delta(
                          {qkv_b, qkv_s, do_b, do_s, dq_b, dq_s})));
 }
 
-// Backward from the forward's P: dqkv [B, S, 3*H*D] (every element
-// written). route as the forward's: 0 the shape's kernel, 1 the one-pass
-// kernel (bf16, S <= 128, D = 64: one launch, delta in registers, so delta
-// may be null), 2 tc::'s pair; an error where the kernel asked for cannot
-// take the shape. The other kernels keep delta in a [B*H*S] fp32 scratch
-// (two launches).
+// Backward from the forward's P, rows p_pitch = mct_fused_mha_probs_pitch
+// elements apart as the forward writes them (any other pitch is an error):
+// dqkv [B, S, 3*H*D] (every element written). route as the forward's: 0 the
+// shape's kernel, 1 the one-pass kernel (bf16, S <= 128, D = 64: one
+// launch, delta in registers, so delta may be null), 2 tc::'s pair; an
+// error where the kernel asked for cannot take the shape. The other kernels
+// keep delta in a [B*H*S] fp32 scratch (two launches). Past S = 128, bf16
+// at D = 64, 80 and 128 where TMA can read every operand takes the wgmma
+// kernels of attn_bwd_sm90.cuh, and refuses a P off its 16-byte alignment
+// (cudaErrorMisalignedAddress) rather than hand it to tc::.
 extern "C" int mct_fused_mha_bwd(const void* qkv, long long qkv_b,
                                  long long qkv_s, const void* dout,
                                  long long do_b, long long do_s,
-                                 const void* probs, void* dqkv,
-                                 long long dq_b, long long dq_s, void* delta,
-                                 int B, int S, int H, int D, float scale,
-                                 int causal, int dtype, int route,
-                                 void* stream) {
-  if (!valid_shape(B, S, H, D) || probs == nullptr || route < 0 || route > 2)
+                                 const void* probs, long long p_pitch,
+                                 void* dqkv, long long dq_b, long long dq_s,
+                                 void* delta, int B, int S, int H, int D,
+                                 float scale, int causal, int dtype,
+                                 int route, void* stream) {
+  if (!valid_shape(B, S, H, D) || probs == nullptr ||
+      p_pitch != probs_pitch(S, D, dtype) || route < 0 || route > 2)
     return (int)cudaErrorInvalidValue;
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   const Pitch pq{qkv_b, qkv_s}, pdo{do_b, do_s}, pdq{dq_b, dq_s};
@@ -1948,19 +2002,44 @@ extern "C" int mct_fused_mha_bwd(const void* qkv, long long qkv_b,
   if (dl == nullptr) return (int)cudaErrorInvalidValue;
   if (dtype == mct::kFloat32 && route == 0)
     return (int)simt::launch_bwd<float, false>(qkv, pq, dout, pdo, probs,
-                                               nullptr, nullptr, dqkv, pdq,
-                                               dl, B, S, H, D, scale, causal,
-                                               nullptr, st);
+                                               p_pitch, nullptr, nullptr,
+                                               dqkv, pdq, dl, B, S, H, D,
+                                               scale, causal, nullptr, st);
   if (dtype != mct::kBFloat16) return (int)cudaErrorInvalidValue;
+  if (route == 0 && S > mct::attn_fwd::kN && mct::attn_fwd::fused_d(D) &&
+      mct::attn_fwd::aligned({qkv, dout, dqkv, delta},
+                             {qkv_b, qkv_s, do_b, do_s, dq_b, dq_s})) {
+    // past one key tile (the file's note): q, k, v and dO as [B, H, S, D]
+    // views, P by TMA (its pitch a multiple of 8 by probs_pitch)
+    if (!mct::attn_fwd::aligned({probs}, {}))
+      return (int)cudaErrorMisalignedAddress;
+    const __nv_bfloat16* x = static_cast<const __nv_bfloat16*>(qkv);
+    const __nv_bfloat16* g = static_cast<const __nv_bfloat16*>(dout);
+    const long long hd = (long long)H * D;
+    mct::attn_bwd::Args a{};
+    a.dqkv = static_cast<__nv_bfloat16*>(dqkv);
+    a.db = dq_b;
+    a.ds = dq_s;
+    a.delta = dl;
+    a.bhs = (long)B * H * S;
+    a.H = H;
+    a.S = S;
+    a.causal = causal;
+    a.scale = scale;
+    return (int)mct::attn_bwd::launch_saved(
+        D, {x, qkv_b, D, qkv_s}, {x + hd, qkv_b, D, qkv_s},
+        {x + 2 * hd, qkv_b, D, qkv_s}, {g, do_b, D, do_s},
+        static_cast<const __nv_bfloat16*>(probs), p_pitch, a, B, st);
+  }
   const bool tc_ok = tc::eligible(D, {qkv, dout, dqkv},
                                   {qkv_b, qkv_s, do_b, do_s, dq_b, dq_s});
   if (tc_ok)
-    return (int)tc::dispatch_bwd(qkv, pq, dout, pdo, probs, dqkv, pdq, dl, B,
-                                 S, H, D, scale, causal, st);
+    return (int)tc::dispatch_bwd(qkv, pq, dout, pdo, probs, p_pitch, dqkv,
+                                 pdq, dl, B, S, H, D, scale, causal, st);
   if (route == 2) return (int)cudaErrorInvalidValue;
   return (int)simt::launch_bwd<__nv_bfloat16, false>(
-      qkv, pq, dout, pdo, probs, nullptr, nullptr, dqkv, pdq, dl, B, S, H, D,
-      scale, causal, nullptr, st);
+      qkv, pq, dout, pdo, probs, p_pitch, nullptr, nullptr, dqkv, pdq, dl, B,
+      S, H, D, scale, causal, nullptr, st);
 }
 
 // Backward recomputing P from qkv and the forward's stats [2, B*H*S]:
@@ -1994,8 +2073,8 @@ extern "C" int mct_fused_mha_bwd_recompute(
   }
   if (dl == nullptr) return (int)cudaErrorInvalidValue;
   if (dtype == mct::kFloat32 && route == 0)
-    return (int)simt::launch_bwd<float, true>(qkv, pq, dout, pdo, nullptr, m,
-                                              l, dqkv, pdq, dl, B, S, H, D,
+    return (int)simt::launch_bwd<float, true>(qkv, pq, dout, pdo, nullptr, S,
+                                              m, l, dqkv, pdq, dl, B, S, H, D,
                                               scale, causal, dr, st);
   if (dtype != mct::kBFloat16) return (int)cudaErrorInvalidValue;
   if (route == 0 && S > mct::attn_fwd::kN && mct::attn_fwd::fused_d(D) &&
@@ -2030,7 +2109,7 @@ extern "C" int mct_fused_mha_bwd_recompute(
                                     S, H, D, scale, causal, dr, st);
   if (route == 2) return (int)cudaErrorInvalidValue;
   return (int)simt::launch_bwd<__nv_bfloat16, true>(
-      qkv, pq, dout, pdo, nullptr, m, l, dqkv, pdq, dl, B, S, H, D, scale,
+      qkv, pq, dout, pdo, nullptr, S, m, l, dqkv, pdq, dl, B, S, H, D, scale,
       causal, dr, st);
 }
 

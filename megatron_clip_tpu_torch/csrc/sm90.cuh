@@ -1,8 +1,9 @@
 // Hopper (sm_90a) building blocks shared by the kernels that run on wgmma:
 // the fused CE forward and backward (fused_ce.cu), the fused flash backward
 // (flash_attention.cu), the attention forwards (attn_fwd_sm90.cuh, in
-// flash_attention.cu and fused_mha.cu) and the fused-MHA recompute backward
-// (attn_bwd_sm90.cuh, in fused_mha.cu).
+// flash_attention.cu and fused_mha.cu) and the fused-MHA backwards past
+// S = 128, recomputing P or from saved P (attn_bwd_sm90.cuh, in
+// fused_mha.cu).
 //
 // - wgmma: the warpgroup's 64-row product D[64 x N] += A[64 x 16] B[16 x N]
 //   in bf16 with fp32 accumulation (N = 64, 128, 256), A and B read from
@@ -27,7 +28,9 @@
 //   (64, 80 or 128) columns: D / 64 wide panels, then at D = 80 the tail.
 // - TMA: tensor maps encoded on the host (make_map), tiles loaded by one
 //   thread into a panel, completion counted on an mbarrier; TMA fills rows
-//   and columns past the tensor's extent with zeros.
+//   and columns past the tensor's extent with zeros. probs_map: the saved
+//   P of the fused MHA as a 3-D map, its rows a multiple of 8 elements
+//   apart (TMA's 16-byte strides).
 // - The TMA reduce-add: an fp32 box of shared memory added into device
 //   memory by the copy engine (cp.reduce.async.bulk.tensor), with the bulk
 //   group's commit and waits.
@@ -374,15 +377,16 @@ __device__ __forceinline__ void wgmma_rs_nd(float (&d)[D / 2],
     wgmma_rs<1>(d, a, desc_mn(b, kk, T::kPanel), 1);
   }
 }
-template <int D, int K>
+// TA: A K-major (0) or MN-major (1), as da describes it.
+template <int D, int K, int TA = 0>
 __device__ __forceinline__ void wgmma_ss_nd(float (&d)[D / 2], uint64_t da,
                                             const unsigned char* b, int kk) {
   using T = Tile<D, K>;
   if constexpr (T::kTail) {
-    wgmma_ss_at<0, 1, 64, 0>(d, da, desc_mn(b, kk, T::kPanel), 1);
-    wgmma_ss_at<0, 1, 16, 32>(d, da, desc_mn32(b + T::kTailAt, kk), 1);
+    wgmma_ss_at<TA, 1, 64, 0>(d, da, desc_mn(b, kk, T::kPanel), 1);
+    wgmma_ss_at<TA, 1, 16, 32>(d, da, desc_mn32(b + T::kTailAt, kk), 1);
   } else {
-    wgmma_ss<0, 1>(d, da, desc_mn(b, kk, T::kPanel), 1);
+    wgmma_ss<TA, 1>(d, da, desc_mn(b, kk, T::kPanel), 1);
   }
 }
 
@@ -459,6 +463,15 @@ __device__ __forceinline__ void tma_load_2d(void* dst, const CUtensorMap* m,
       "cp.async.bulk.tensor.2d.shared::cluster.global.mbarrier::complete_tx"
       "::bytes [%0], [%1, {%3, %4}], [%2];\n" ::"r"(smem_u32(dst)),
       "l"(map_addr(m)), "r"(smem_u32(bar)), "r"(c0), "r"(c1)
+      : "memory");
+}
+__device__ __forceinline__ void tma_load_3d(void* dst, const CUtensorMap* m,
+                                            uint64_t* bar, int c0, int c1,
+                                            int c2) {
+  asm volatile(
+      "cp.async.bulk.tensor.3d.shared::cluster.global.mbarrier::complete_tx"
+      "::bytes [%0], [%1, {%3, %4, %5}], [%2];\n" ::"r"(smem_u32(dst)),
+      "l"(map_addr(m)), "r"(smem_u32(bar)), "r"(c0), "r"(c1), "r"(c2)
       : "memory");
 }
 __device__ __forceinline__ void tma_load_4d(void* dst, const CUtensorMap* m,
@@ -627,6 +640,18 @@ __device__ __forceinline__ void load_tile(unsigned char* dst, const View& v,
   if constexpr (T::kTail)
     load_view_rows(dst + T::kTailAt, &v.tail, bar, perm, 64 * T::kWide, s, h,
                    b);
+}
+
+// The saved probabilities P of the fused MHA, [BH, S, S] rows `pitch`
+// elements apart (a multiple of 8), as a 3-D map of boxes of 64 keys x
+// `rows` query rows of one head (128-byte swizzle: a [rows][64] panel).
+inline bool probs_map(CUtensorMap* m, const void* p, long bh, int S,
+                      long pitch, int rows) {
+  const uint64_t dims[3] = {(uint64_t)S, (uint64_t)S, (uint64_t)bh};
+  const uint64_t strides[2] = {(uint64_t)pitch * 2,
+                               (uint64_t)S * pitch * 2};
+  const uint32_t box[3] = {kPanelCols, (uint32_t)rows, 1};
+  return make_map(m, true, 128, 3, p, dims, strides, box);
 }
 
 // A row-major bf16 [rows, cols] matrix as a 2-D map of (64 x box_rows)

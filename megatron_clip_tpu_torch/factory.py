@@ -102,7 +102,7 @@ def _fields(d: dict, cls, where: str) -> dict:
     if unknown:
         raise NotImplementedError(
             f"{where} keys {unknown} are not ported yet: this slice builds "
-            "ViT CLIP towers only (ROADMAP Queue A: other models)")
+            "ViT CLIP towers only (ROADMAP Queue A item 7)")
     return d
 
 
@@ -113,10 +113,10 @@ def parse_model_cfg(cfg_dict: dict) -> CLIPCfg:
     vision = dict(cfg_dict.get("vision_cfg", {}))
     if isinstance(vision.get("layers"), (list, tuple)):
         raise NotImplementedError("ResNet vision towers are not ported yet "
-                                  "(ROADMAP Queue A: other models)")
+                                  "(ROADMAP Queue A item 7)")
     if cfg_dict.get("multimodal_cfg"):
         raise NotImplementedError("CoCa is not ported yet "
-                                  "(ROADMAP Queue A: other models)")
+                                  "(ROADMAP Queue A item 7)")
     return CLIPCfg(
         embed_dim=cfg_dict["embed_dim"],
         vision=VisionCfg(**_fields(vision, VisionCfg, "vision_cfg")),
@@ -127,13 +127,17 @@ def parse_model_cfg(cfg_dict: dict) -> CLIPCfg:
 
 
 def _precision_from_str(precision: str) -> Precision:
-    # open_CLIP --precision values; fp16 is not ported (ROADMAP Queue A)
+    # open_CLIP --precision values; fp16 is not ported (ROADMAP Queue A
+    # item 2)
     if precision == "pure_bf16":
         return PURE_BF16
     if precision in ("amp_bf16", "bf16", "amp_bfloat16", "amp"):
         return BF16
     if precision in ("fp32", "float32"):
         return FP32
+    if precision in ("fp16", "float16"):
+        raise NotImplementedError(f"precision {precision!r} is not ported "
+                                  "yet (ROADMAP Queue A item 2)")
     raise ValueError(f"unknown or unsupported precision {precision!r} "
                      "(fp32, bf16, amp, amp_bf16, pure_bf16)")
 

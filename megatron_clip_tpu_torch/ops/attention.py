@@ -90,7 +90,7 @@ def attention_route(s: int, heads: int, kv_heads: Optional[int],
         _not_in_slice(f"the unfused sdpa path (S={s}, head_dim={head_dim}, "
                       f"use_flash={use_flash}, rope={rope is not None}, "
                       f"kv_heads={hkv}, dropout={wants_dropout})",
-                      "Queue A: sdpa_bshd")
+                      "Queue A item 1: sdpa_bshd")
     return fused
 
 
@@ -159,11 +159,12 @@ def multi_head_attention(x: torch.Tensor, params, heads: int, *,
     a checkpoint can wrap each while the attention kernels run between
     them, outside it (selective recompute, `nn/transformer.py`)."""
     if kv is not None:
-        _not_in_slice("kv= cross-attention", "Queue A: other models (CoCa)")
+        _not_in_slice("kv= cross-attention (CoCa)", "Queue A item 7")
     if bias is not None:
-        _not_in_slice("an additive attention bias", "Queue A: other models")
+        _not_in_slice("an additive attention bias",
+                      "Queue A item 1: sdpa_bshd")
     if context_parallel:
-        _not_in_slice("context parallelism", "Queue A: parallelism")
+        _not_in_slice("context parallelism", "Queue A item 5")
     hkv = kv_heads or heads
     head_dim = params["wqkv"].shape[1] // (heads + 2 * hkv)
     fused = attention_route(x.shape[1], heads, kv_heads, head_dim, rope=rope,

@@ -36,11 +36,14 @@ The plain versions take M as an explicit [B, H, S, S] fp32 tensor (`keep`).
 launches.
 
 The residuals are this port's own and never compared with the JAX package's:
-P's layout is [B, H, S, S] (the JAX kernel's [B, S, H*S]), and the recompute
+P is [B, H, S, S] (the JAX kernel's [B, S, H*S]), on the card the
+[..., :S] view of a [B, H, S, probs_pitch(S, D, dtype)] buffer whose rows
+the wgmma kernels past S = 128 pad to whole 16-byte rows, and the recompute
 mode keeps (qkv, row statistics) where the JAX kernel keeps qkv alone and
 recomputes the statistics inside its whole-row tile.
 """
 import ctypes
+import functools
 from typing import Optional
 
 import torch
@@ -59,15 +62,16 @@ _P, _I, _L = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
 # B, S, H, D, scale, causal, dtype[, the dropout arguments], stream
 _SHAPE = [_I, _I, _I, _I, ctypes.c_float, _I, _I]
 _SIGNATURES = {
-    "mct_fused_mha_fwd": ([_P, _L, _L, _P, _L, _L, _P, _P] + _SHAPE
+    "mct_fused_mha_fwd": ([_P, _L, _L, _P, _L, _L, _P, _L, _P] + _SHAPE
                           + C_ARGTYPES + [_I, _P], _I),
-    "mct_fused_mha_bwd": ([_P, _L, _L, _P, _L, _L, _P, _P, _L, _L, _P]
+    "mct_fused_mha_bwd": ([_P, _L, _L, _P, _L, _L, _P, _L, _P, _L, _L, _P]
                           + _SHAPE + [_I, _P], _I),
     "mct_fused_mha_bwd_recompute": ([_P, _L, _L, _P, _L, _L, _P, _P, _L, _L,
                                      _P] + _SHAPE + C_ARGTYPES + [_I, _P],
                                     _I),
     "mct_fused_mha_bwd_needs_delta": ([_P, _L, _L, _P, _L, _L, _P, _L, _L,
                                        _I, _I, _I, _I, _I], _I),
+    "mct_fused_mha_probs_pitch": ([_I, _I, _I], _L),
     "mct_dropout_mask": MASK_SIGNATURE,
 }
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
@@ -81,6 +85,38 @@ FWD_ROUTES = {"auto": 0, "one_pass": 1, "tc": 2}
 # kernel (bf16, S <= 128, D = 64, no dropout) keeps delta in registers, the
 # others in a [B*H*S] fp32 scratch
 BWD_ROUTES = {"auto": 0, "one_pass": 1, "tc": 2}
+
+
+@functools.lru_cache(maxsize=None)
+def probs_pitch(s: int, d: int, dtype: torch.dtype) -> int:
+    """The row pitch, in elements, of the probabilities P [B, H, S, S] that
+    the card's forward writes and its saved-P backward reads, as
+    csrc/fused_mha.cu decides it (`mct_fused_mha_probs_pitch`: S, or S
+    rounded up to 8 where the wgmma kernels past S = 128 read P by TMA).
+    Builds the kernels' library: on the card only. Kept per shape, so that
+    a call asks the library once."""
+    return _build.load("fused_mha", _SIGNATURES).mct_fused_mha_probs_pitch(
+        s, d, _DTYPES[dtype])
+
+
+def probs_buffer(b: int, heads: int, s: int, d: int, dtype: torch.dtype,
+                 device) -> torch.Tensor:
+    """An empty P [B, H, S, S] in the card's layout: the [..., :S] view of
+    a [B, H, S, probs_pitch(S, D, dtype)] tensor."""
+    return torch.empty((b, heads, s, probs_pitch(s, d, dtype)), dtype=dtype,
+                       device=device)[..., :s]
+
+
+def _check_probs_layout(name: str, p: torch.Tensor, d: int) -> int:
+    """The card's P must be laid out as the forward writes it
+    (`probs_buffer`); returns its row pitch."""
+    b, h, s, _ = p.shape
+    pitch = probs_pitch(s, d, p.dtype)
+    if p.stride() != (h * s * pitch, s * pitch, pitch, 1):
+        raise ValueError(f"{name}: p (strides {tuple(p.stride())}) is not "
+                         f"the forward's P: the [..., :S] view of a "
+                         f"contiguous [B, H, S, {pitch}] tensor")
+    return pitch
 
 
 def _split_heads(t: torch.Tensor, heads: int, parts: int):
@@ -332,10 +368,11 @@ def fused_mha_fwd(qkv: torch.Tensor, heads: int, *, causal: bool = False,
     qkv: [B, S, 3*H*D] (q|k|v each H*D wide), fp32/bf16, rows contiguous.
     Returns [B, S, H*D] in qkv's dtype and layout and, with `with_probs`,
     also the probabilities P [B, H, S, S] in qkv's dtype for
-    `fused_mha_bwd`, or with `with_stats` the row statistics [2, B, H, S]
-    fp32 for `fused_mha_bwd_recompute`. `route` (a key of FWD_ROUTES) asks
-    a CUDA tensor for one kernel; the launch fails where that kernel cannot
-    take the shape."""
+    `fused_mha_bwd` (on the card in `probs_buffer`'s layout), or with
+    `with_stats` the row statistics [2, B, H, S] fp32 for
+    `fused_mha_bwd_recompute`. `route` (a key of FWD_ROUTES) asks a CUDA
+    tensor for one kernel; the launch fails where that kernel cannot take
+    the shape."""
     _no_graph("fused_mha_fwd", qkv)
     if with_probs and with_stats:
         raise ValueError("fused_mha_fwd: with_probs and with_stats are the "
@@ -365,13 +402,14 @@ def _fwd(name, qkv, heads, causal, with_probs, with_stats,
     _check_cuda(name, qkv)
     b, s, _ = qkv.shape
     out = _empty_like_layout(qkv, heads * d)
-    p = (torch.empty((b, heads, s, s), dtype=qkv.dtype, device=qkv.device)
-         if with_probs else None)
+    p = (probs_buffer(b, heads, s, d, qkv.dtype, qkv.device) if with_probs
+         else None)
     stats = (torch.empty((2, b, heads, s), dtype=torch.float32,
                          device=qkv.device) if with_stats else None)
     _launch("fused_mha_fwd", qkv.device,
             [qkv.data_ptr(), *_pitch(qkv), out.data_ptr(), *_pitch(out),
              None if p is None else p.data_ptr(),
+             0 if p is None else p.stride(2),
              None if stats is None else stats.data_ptr()],
             (b, s, heads, d, float(scale), int(causal), _DTYPES[qkv.dtype]),
             [*(NO_DROPOUT_C_ARGS if drop is None else drop.c_args(
@@ -410,10 +448,9 @@ def _check_bwd(name: str, qkv: torch.Tensor, do: torch.Tensor, heads: int,
         _check_cuda(name, t)
         if t.dtype != qkv.dtype or t.device != qkv.device:
             raise TypeError(f"{name}: qkv and do must share dtype and device")
-    if residual.device != qkv.device or residual.dtype != residual_dtype \
-            or not residual.is_contiguous():
-        raise TypeError(f"{name}: the residual must be contiguous "
-                        f"{residual_dtype} on {qkv.device}")
+    if residual.device != qkv.device or residual.dtype != residual_dtype:
+        raise TypeError(f"{name}: the residual must be {residual_dtype} on "
+                        f"{qkv.device}")
     return d
 
 
@@ -444,10 +481,12 @@ def fused_mha_bwd(qkv: torch.Tensor, do: torch.Tensor, p: torch.Tensor,
     """Gradient of `fused_mha_fwd` with respect to qkv, from its saved P.
 
     qkv [B, S, 3*H*D] and do [B, S, H*D] with contiguous rows, p
-    [B, H, S, S] contiguous, all in one dtype (fp32/bf16). Returns packed
-    dqkv [B, S, 3*H*D] in that dtype, strided as qkv. `route` (a key of
-    BWD_ROUTES) asks a CUDA tensor for one kernel; the launch fails where
-    that kernel cannot take the shape."""
+    [B, H, S, S], all in one dtype (fp32/bf16); on the card P must be laid
+    out as the forward writes it (`probs_buffer`), else ValueError. Returns
+    packed dqkv [B, S, 3*H*D] in that dtype, strided as qkv. `route` (a key
+    of BWD_ROUTES) asks a CUDA tensor for one kernel; the launch fails where
+    that kernel cannot take the shape, and where the wgmma kernels past
+    S = 128 take the call but P lies off its 16-byte alignment."""
     _no_graph("fused_mha_bwd", qkv, do, p)
     r = _route("fused_mha_bwd", route)
     b, s, _ = qkv.shape
@@ -455,12 +494,13 @@ def fused_mha_bwd(qkv: torch.Tensor, do: torch.Tensor, p: torch.Tensor,
                    (b, heads, s, s), qkv.dtype)
     if qkv.device.type == "cpu":
         return fused_mha_bwd_plain(qkv, do, p, heads, d ** -0.5)
+    pitch = _check_probs_layout("fused_mha_bwd", p, d)
     dqkv = _empty_like_layout(qkv, qkv.shape[-1])
     lib = _build.load("fused_mha", _SIGNATURES)
     delta = _delta(lib, qkv, do, dqkv, heads, d, None, r)
     _launch("fused_mha_bwd", qkv.device,
             [qkv.data_ptr(), *_pitch(qkv), do.data_ptr(), *_pitch(do),
-             p.data_ptr(), dqkv.data_ptr(), *_pitch(dqkv),
+             p.data_ptr(), pitch, dqkv.data_ptr(), *_pitch(dqkv),
              None if delta is None else delta.data_ptr()],
             (b, s, heads, d, float(d ** -0.5), int(causal),
              _DTYPES[qkv.dtype]), [r], lib)
@@ -499,6 +539,8 @@ def _bwd_recompute(name, qkv, do, stats, heads, causal,
     b, s, _ = qkv.shape
     d = _check_bwd(name, qkv, do, heads, stats, (2, b, heads, s),
                    torch.float32)
+    if qkv.device.type == "cuda" and not stats.is_contiguous():
+        raise TypeError(f"{name}: the statistics must be contiguous")
     if qkv.device.type == "cpu":
         return fused_mha_bwd_recompute_plain(
             qkv, do, heads, d ** -0.5, causal,

@@ -2,8 +2,8 @@
 fused CE forward and backward (`csrc/fused_ce.cu`), the fused flash
 backward (`csrc/flash_attention.cu`), the attention forwards
 (`csrc/attn_fwd_sm90.cuh`, in `flash_attention.cu` and `fused_mha.cu`) and
-the fused-MHA recompute backward (`csrc/attn_bwd_sm90.cuh`, in
-`fused_mha.cu`).
+the fused-MHA backwards past S = 128, recomputing P or from saved P
+(`csrc/attn_bwd_sm90.cuh`, in `fused_mha.cu`).
 
 Each library that includes the header exports `mct_sm90_tile_check`: one
 warpgroup's C[64, N] = A[64, K] B[K, N] in bf16 with fp32 accumulation,
@@ -46,13 +46,16 @@ LIBRARIES = ("fused_ce", "flash_attention", "fused_mha")
 # over 128-key tiles (N = 128, K = 80; K, K), part 2's S^T, dP^T (N = 64,
 # K = 80; K, K), the forward's O += P V and part 1's dQ += dS K (N = 80,
 # K = 128; registers, MN), part 2's dV, dK (N = 80, K = 64; registers, MN)
-# and the same with A from shared memory (K, MN).
+# and the same with A from shared memory (K, MN). The saved-P backward's
+# part 2 dV += P^T dO, A the P tile read MN-major (N = D = 64, 80, 128,
+# K = 64; MN, MN).
 LAYOUTS = tuple((ta, tb, regs, 128, 64) for regs in (0, 1) for ta in (0, 1)
                 for tb in (0, 1) if not (regs and ta)) + (
     (0, 1, 1, 64, 64), (0, 0, 0, 64, 64), (0, 1, 1, 64, 128),
     (0, 0, 0, 256, 64), (0, 1, 0, 256, 64), (1, 1, 0, 256, 64),
     (0, 0, 0, 128, 80), (0, 0, 0, 64, 80), (0, 1, 1, 80, 128),
-    (0, 1, 1, 80, 64), (0, 1, 0, 80, 64))
+    (0, 1, 1, 80, 64), (0, 1, 0, 80, 64), (1, 1, 0, 64, 64),
+    (1, 1, 0, 80, 64))
 SHAPES = ((64, 64), (128, 64), (256, 64), (64, 128), (128, 128), (128, 80),
           (64, 80), (80, 128), (80, 64))
 

@@ -3,7 +3,7 @@ backward, the fused-MHA recompute backward and the LayerNorm and RMSNorm
 backwards of two checkouts of this repo on one card.
 
     python megatron_clip_tpu_torch/tools/ab_backward.py --other DIR \
-        [--rows all|norm]
+        [--rows all|norm|saved]
 
 DIR is another checkout of the repo, for example the parent commit unpacked
 with `git archive` into a gitignored directory. Both checkouts' kernels are
@@ -44,15 +44,22 @@ launch set-up and launches):
   S = 257, H = 16, D = 64, and ViT-H/14's, B = 24, S = 257, H = 16,
   D = 80, and both text towers (ViT-L/14's B = 64, H = 12 and ViT-H/14's
   B = 24, H = 16, S = 77, D = 64, causal), beside SDPA's backward;
-- the fused-MHA saved-P backward, bf16, from the forward's P, at
-  ViT-B/32's training shapes (B = 384: vision S = 50, H = 12; text S = 77,
-  H = 8, causal), beside SDPA's backward;
+- the fused-MHA saved-P backward, bf16, from the forward's P (in the
+  checkout's layout), at ViT-B/32's training shapes (B = 384: vision
+  S = 50, H = 12; text S = 77, H = 8, causal) and the ViT-L/14 and
+  ViT-H/14 vision towers (B = 64 and 24, S = 257, H = 16, D = 64 and 80),
+  beside SDPA's backward, with the same call on tc::'s mma.sync pair
+  (`tc_ms`, route 2), the forward that writes that P (`fwd_p_ms`) beside
+  the forward with row statistics (`fwd_stats_ms`), and the backward's
+  kernels by name from torch.profiler (`kernels_us`); then the same
+  backward at B = 64, H = 16 over S (SAVED_SWEEP: `ms` and `kernels_us`);
 - the LayerNorm and RMSNorm backwards at every path's rows (NORM_ROWS),
   bf16 rows, the scale in the path's dtype, beside `autograd.grad` of
   `F.layer_norm` / `F.rms_norm` (on bf16 parameters), with each call's
   kernels and their device us from torch.profiler (`kernels_us`: the rows'
   kernel, the sum over blocks and any cast kernel, by name).
-`--rows norm` times the norm rows alone (~1 min of command time).
+`--rows norm` times the norm rows alone (~1 min of command time),
+`--rows saved` the saved-P rows alone.
 Inputs come from a seeded generator, so both checkouts get the same ones.
 Prints the card, one JSON line per row with the four runs' times, and
 last one JSON object with every run. Needs a CUDA device and nvcc.
@@ -84,7 +91,14 @@ RECOMPUTE_ROWS = (("pipeline GPT", 32, 512, 16, 128, True, 0.0),
                   ("ViT-H/14 text", 24, 77, 16, 64, True, 0.0))
 # the saved-P backward's: (label, B, S, H, D, causal)
 SAVED_ROWS = (("ViT-B/32 vision", 384, 50, 12, 64, False),
-              ("ViT-B/32 text", 384, 77, 8, 64, True))
+              ("ViT-B/32 text", 384, 77, 8, 64, True),
+              ("ViT-L/14 vision", 64, 257, 16, 64, False),
+              ("ViT-H/14 vision", 24, 257, 16, 80, False))
+# the saved-P backward past S = 128 over S, B = 64, H = 16: how its time
+# follows the tiles (128-row blocks, 128-key tiles) rather than the rows;
+# (S, D)
+SAVED_SWEEP = tuple((s, d) for d in (64, 80)
+                    for s in (129, 192, 256, 257, 320, 384, 512))
 # the norm backwards': (path, kernel, rows, W, scale dtype), the rows of a
 # step's batch at the tower's or model's width; the scale bf16 on the
 # pure_bf16 legs (CLIP, GPT-345m), fp32 for the GPTs on fp32 weights
@@ -98,6 +112,8 @@ NORM_ROWS = (("ViT-B/32 b384 vision", "layer_norm", 384 * 50, 768, "bf16"),
              ("pipeline GPT b8", "layer_norm", 8 * 2048, 2048, "fp32"),
              ("example GPT b8", "rms_norm", 8 * 2048, 1024, "fp32"))
 LIBRARIES = ["fused_ce", "flash_attention", "fused_mha", "layernorm"]
+# the libraries `--rows norm` and `--rows saved` build
+ONLY_LIBRARIES = {"norm": ["layernorm"], "saved": ["fused_mha"]}
 NORM_REPS = 20
 REPS, WARMUP = 10, 2
 # cycles of the device-side wait before a timing window (~2 ms on an H100)
@@ -233,6 +249,55 @@ def time_norms(ms, host_ms) -> list:
     return rows
 
 
+def time_saved(mha, ms, host_ms) -> list:
+    """The saved-P rows (SAVED_ROWS) of the checkout whose `mha` module is
+    imported."""
+    import torch
+    import torch.nn.functional as F
+    dt = torch.bfloat16
+    rows = []
+    for label, b, s, h, d, causal in SAVED_ROWS:
+        gen = torch.Generator(device="cuda").manual_seed(b * s * h * d + 2)
+        qkv = torch.randn(b, s, 3 * h * d, device="cuda", generator=gen,
+                          dtype=dt)
+        g = torch.randn(b, s, h * d, device="cuda", generator=gen, dtype=dt)
+        _, p = mha.fused_mha_fwd(qkv, h, causal=causal, with_probs=True)
+        fn = (lambda: mha.fused_mha_bwd(qkv, g, p, h, causal=causal))
+        lq, lk, lv = (t.contiguous().requires_grad_(True) for t in qkv.reshape(
+            b, s, 3, h, d).permute(2, 0, 3, 1, 4).unbind(0))
+        lo = F.scaled_dot_product_attention(lq, lk, lv, is_causal=causal)
+        ldo = g.reshape(b, s, h, d).transpose(1, 2).contiguous()
+        rows.append({
+            "row": f"fused_mha saved-P bwd {label} B={b} S={s} H={h} D={d} "
+                   f"causal={causal} bf16", "ms": ms(fn),
+            "host_ms": host_ms(fn),
+            "tc_ms": ms(lambda: mha.fused_mha_bwd(qkv, g, p, h,
+                                                  causal=causal,
+                                                  route="tc")),
+            "fwd_p_ms": ms(lambda: mha.fused_mha_fwd(
+                qkv, h, causal=causal, with_probs=True)),
+            "fwd_stats_ms": ms(lambda: mha.fused_mha_fwd(
+                qkv, h, causal=causal, with_stats=True)),
+            "library_ms": ms(lambda: torch.autograd.grad(
+                lo, (lq, lk, lv), ldo, retain_graph=True)),
+            **kernel_split(fn)})
+        del qkv, g, p, lq, lk, lv, lo, ldo
+        torch.cuda.empty_cache()
+    for s, d in SAVED_SWEEP:
+        b, h = 64, 16
+        gen = torch.Generator(device="cuda").manual_seed(s * d)
+        qkv = torch.randn(b, s, 3 * h * d, device="cuda", generator=gen,
+                          dtype=dt)
+        g = torch.randn(b, s, h * d, device="cuda", generator=gen, dtype=dt)
+        _, p = mha.fused_mha_fwd(qkv, h, with_probs=True)
+        fn = (lambda: mha.fused_mha_bwd(qkv, g, p, h))
+        rows.append({"row": f"fused_mha saved-P bwd sweep B={b} S={s} H={h} "
+                            f"D={d} bf16", "ms": ms(fn), **kernel_split(fn)})
+        del qkv, g, p
+        torch.cuda.empty_cache()
+    return rows
+
+
 def time_checkout(repo: str, only: str = "all") -> dict:
     """This process's run: the kernels of the checkout at `repo` (`only`
     "norm": the norm rows alone)."""
@@ -246,7 +311,7 @@ def time_checkout(repo: str, only: str = "all") -> dict:
     from megatron_clip_tpu_torch.ops.kernels import fused_mha as mha
     if not Path(ce.__file__).resolve().is_relative_to(Path(repo).resolve()):
         raise RuntimeError(f"imported {ce.__file__}, not from {repo}")
-    _build.build(["layernorm"] if only == "norm" else LIBRARIES)
+    _build.build(ONLY_LIBRARIES.get(only, LIBRARIES))
 
     def ms(fn, reps: int = REPS) -> float:
         for _ in range(WARMUP):
@@ -274,6 +339,8 @@ def time_checkout(repo: str, only: str = "all") -> dict:
         return took * 1e3 / REPS
 
     dt = torch.bfloat16
+    if only == "saved":
+        return {"repo": repo, "rows": time_saved(mha, ms, host_ms)}
     rows = time_norms(ms, host_ms)
     if only == "norm":
         return {"repo": repo, "rows": rows}
@@ -421,25 +488,7 @@ def time_checkout(repo: str, only: str = "all") -> dict:
                 lo, (lq, lk, lv), ldo, retain_graph=True))})
         del qkv, g, stats, lq, lk, lv, lo, ldo
         torch.cuda.empty_cache()
-    for label, b, s, h, d, causal in SAVED_ROWS:
-        gen = torch.Generator(device="cuda").manual_seed(b * s * h * d + 2)
-        qkv = torch.randn(b, s, 3 * h * d, device="cuda", generator=gen,
-                          dtype=dt)
-        g = torch.randn(b, s, h * d, device="cuda", generator=gen, dtype=dt)
-        _, p = mha.fused_mha_fwd(qkv, h, causal=causal, with_probs=True)
-        fn = (lambda: mha.fused_mha_bwd(qkv, g, p, h, causal=causal))
-        lq, lk, lv = (t.contiguous().requires_grad_(True) for t in qkv.reshape(
-            b, s, 3, h, d).permute(2, 0, 3, 1, 4).unbind(0))
-        lo = F.scaled_dot_product_attention(lq, lk, lv, is_causal=causal)
-        ldo = g.reshape(b, s, h, d).transpose(1, 2).contiguous()
-        rows.append({
-            "row": f"fused_mha saved-P bwd {label} B={b} S={s} H={h} D={d} "
-                   f"causal={causal} bf16", "ms": ms(fn),
-            "host_ms": host_ms(fn),
-            "library_ms": ms(lambda: torch.autograd.grad(
-                lo, (lq, lk, lv), ldo, retain_graph=True))})
-        del qkv, g, p, lq, lk, lv, lo, ldo
-        torch.cuda.empty_cache()
+    rows.extend(time_saved(mha, ms, host_ms))
     return {"repo": repo, "rows": rows}
 
 
@@ -448,14 +497,15 @@ def build_checkout(repo: str, only: str = "all") -> None:
     at once."""
     sys.path.insert(0, repo)
     from megatron_clip_tpu_torch.ops.kernels import _build
-    _build.build(["layernorm"] if only == "norm" else LIBRARIES)
+    _build.build(ONLY_LIBRARIES.get(only, LIBRARIES))
 
 
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--other", help="the other checkout's root")
-    ap.add_argument("--rows", choices=("all", "norm"), default="all",
-                    help="every row, or the norm backwards' alone")
+    ap.add_argument("--rows", choices=("all", "norm", "saved"),
+                    default="all", help="every row, or the norm backwards' "
+                    "or the saved-P rows alone")
     ap.add_argument("--time", help=argparse.SUPPRESS)
     ap.add_argument("--build", help=argparse.SUPPRESS)
     args = ap.parse_args()
@@ -494,7 +544,8 @@ def main() -> int:
         rows = [run["rows"][i] for run in runs]
         line = {"row": first["row"]}
         for key in ("ms", "dq_ms", "dkv_ms", "fused_dkv_ms", "fused_ms",
-                    "host_ms", "library_ms", "no_atomics_ms", "kernels_us",
+                    "tc_ms", "fwd_p_ms", "fwd_stats_ms", "host_ms",
+                    "library_ms", "no_atomics_ms", "kernels_us",
                     "kernels_a_call"):
             got = [r.get(key) for r in rows]
             if any(g is not None for g in got):

@@ -137,3 +137,25 @@ def test_options_outside_the_slice_are_refused(overrides):
     with pytest.raises(NotImplementedError, match="ROADMAP"):
         port.create_model("ViT-B-32", precision="fp32", device="cpu",
                           **overrides)
+
+
+# Each refusal of the factory names its ROADMAP Queue A item by number:
+# fp16 (the JAX factory builds it) is item 2, the towers and models outside
+# the ViT CLIP slice item 7; a name that is no precision stays a ValueError.
+@pytest.mark.parametrize("kw,item", [
+    ({"precision": "fp16"}, 2),
+    ({"precision": "float16"}, 2),
+    ({"vision_cfg": {"layers": [3, 4, 6, 3], "width": 64}}, 7),
+    ({"multimodal_cfg": {"width": 128}}, 7),
+    ({"vision_cfg": {"timm_model_name": "vit_base_patch16_224"}}, 7),
+])
+def test_refusals_name_their_queue_a_item(kw, item):
+    kw = {"precision": "fp32", **kw}
+    with pytest.raises(NotImplementedError,
+                       match=rf"ROADMAP Queue A item {item}\)"):
+        port.create_model("ViT-B-32", device="cpu", **kw)
+
+
+def test_a_name_that_is_no_precision_is_a_value_error():
+    with pytest.raises(ValueError, match="unknown or unsupported precision"):
+        port.create_model("ViT-B-32", precision="fp8", device="cpu")

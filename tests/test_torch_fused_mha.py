@@ -44,6 +44,7 @@ from megatron_clip_tpu.ops.pallas.fused_mha import (fused_attention_from_qkv,
                                                    fused_mha_packed_sm)
 from megatron_clip_tpu_torch.ops.attention import multi_head_attention, sdpa
 from chip_smoke import TOLERANCES, compare_rows, mha_parts
+from megatron_clip_tpu_torch.ops.kernels import fused_mha as mha_mod
 from megatron_clip_tpu_torch.ops.kernels.fused_mha import (
     BWD_ROUTES, FWD_ROUTES, bf16_ulp, dropout_mult, fused_mha,
     fused_mha_bwd, fused_mha_bwd_plain, fused_mha_bwd_recompute,
@@ -58,6 +59,10 @@ ONE_PASS_EDGES = [(2, 1, 2, 64), (2, 64, 2, 64), (2, 65, 2, 64),
 # ViT-H/14's vision head: D = 80, S = 257 (five 64-row tiles, the last of
 # one row on the card)
 RECOMPUTE_SHAPES = SHAPES + [(2, 257, 2, 80)]
+# past S = 128 the card's forward writes P with rows padded to 8 elements
+# (fused_mha.probs_pitch): 136 at S = 129, 264 at ViT-L/14's and ViT-H/14's
+# S = 257
+PADDED_P_SHAPES = [(2, 129, 2, 64), (2, 257, 2, 80)]
 RECOMPUTE_BF16_REL_L2 = 5e-4
 
 
@@ -235,7 +240,7 @@ def test_plain_matches_sdpa_oracle(causal):
 
 @pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
 @pytest.mark.parametrize("causal", [False, True])
-@pytest.mark.parametrize("b,s,h,d", SHAPES + ONE_PASS_EDGES)
+@pytest.mark.parametrize("b,s,h,d", SHAPES + ONE_PASS_EDGES + PADDED_P_SHAPES)
 def test_backward_matches_jax_saved_probs(monkeypatch, dtype, causal, b, s,
                                           h, d):
     monkeypatch.setenv("MCT_MHA_SAVE_PROBS", "1")
@@ -256,6 +261,68 @@ def test_backward_matches_jax_saved_probs(monkeypatch, dtype, causal, b, s,
     else:
         np.testing.assert_allclose(got.float().numpy(), want, rtol=1.6e-2,
                                    atol=2 ** -7 * np.abs(want).max())
+
+
+def _padded(p: torch.Tensor, pitch: int) -> torch.Tensor:
+    """p [B, H, S, S] copied into the [..., :S] view of a [B, H, S, pitch]
+    tensor of NaN, as the card's forward lays P out at pitch > S."""
+    buf = torch.full((*p.shape[:3], pitch), float("nan"), dtype=p.dtype)
+    return buf[..., :p.shape[-1]].copy_(p)
+
+
+# The saved-P backward's plain version reads P at any row pitch: the same
+# dqkv from a P whose rows lie `pitch` elements apart (the padding NaN) as
+# from the contiguous P, at lengths on both sides of the one-pass kernels'
+# S = 128
+@pytest.mark.parametrize("s", [50, 77, 128, 129, 257, 1024])
+def test_plain_saved_p_backward_reads_any_row_pitch(s):
+    h, d = 1, 16
+    qkv, do = (torch.from_numpy(t) for t in _inputs(1, s, h, d, seed=s))
+    _, p = fused_mha_fwd(qkv, h, with_probs=True)
+    padded = _padded(p, -(-s // 8) * 8 + 8)
+    assert padded.stride(2) > s
+    assert torch.equal(fused_mha_bwd(qkv, do, padded, h),
+                       fused_mha_bwd(qkv, do, p, h))
+
+
+# The saved-P backward on P in the card's padded layout (rows 16-byte units
+# apart past S = 128): the same dqkv as from the same P contiguous, and the
+# forward's output and the gradient within the JAX kernels' bounds of
+# tests/test_fused_mha.py (2e-5 and 2e-4, fp32) of `_fwd_kernel` and
+# `_bwd_kernel` in interpret mode; the autograd Function's gradient, with
+# its forward handing the padded P to its backward as the card's does, the
+# same bits.
+@pytest.mark.parametrize("causal", [False, True])
+@pytest.mark.parametrize("b,s,h,d", PADDED_P_SHAPES)
+def test_saved_p_backward_reads_the_padded_layout(monkeypatch, causal, b, s,
+                                                  h, d):
+    monkeypatch.setenv("MCT_MHA_SAVE_PROBS", "1")
+    qkv, do = _inputs(b, s, h, d, seed=11)
+    x, g = torch.from_numpy(qkv), torch.from_numpy(do)
+    out, dense = fused_mha_fwd(x, h, causal=causal, with_probs=True)
+    p = _padded(dense, -(-s // 8) * 8)
+    assert p.stride(2) > s and torch.equal(p, dense)
+    got = fused_mha_bwd(x, g, p, h, causal=causal)
+    assert torch.equal(got, fused_mha_bwd(x, g, dense, h, causal=causal))
+    want_out, vjp = jax.vjp(lambda t: fused_attention_from_qkv(
+        t, h, causal=causal, interpret=True), jnp.asarray(qkv))
+    (want,) = vjp(jnp.asarray(do))
+    np.testing.assert_allclose(out.numpy(), np.asarray(want_out), rtol=2e-5,
+                               atol=2e-5)
+    np.testing.assert_allclose(got.numpy(), np.asarray(want), rtol=2e-4,
+                               atol=2e-4)
+    saved = []
+
+    def fwd_padded(*args, **kw):
+        out, p = fwd(*args, **kw)
+        saved.append(_padded(p, p.shape[-1] // 8 * 8 + 8))
+        return out, saved[-1]
+    fwd = mha_mod.fused_mha_fwd
+    monkeypatch.setattr(mha_mod, "fused_mha_fwd", fwd_padded)
+    xg = x.clone().requires_grad_(True)
+    (auto,) = torch.autograd.grad(fused_mha(xg, h, causal=causal), xg, g)
+    assert len(saved) == 1 and saved[0].stride(2) > s
+    assert torch.equal(auto, got)
 
 
 def _inputs(b, s, h, d, seed=3):
@@ -420,6 +487,22 @@ def test_outside_the_gate_raises(kw):
     x = torch.zeros(1, 8, 32)
     params = {"wqkv": torch.zeros(32, 96), "wo": torch.zeros(32, 32)}
     with pytest.raises(NotImplementedError, match="ROADMAP"):
+        multi_head_attention(x, params, 4, **kw)
+
+
+# ... each refusal naming its ROADMAP Queue A item by number: item 1 the
+# unfused sdpa path and an additive bias, item 5 context parallelism, item 7
+# CoCa's cross-attention
+@pytest.mark.parametrize("kw,item", [
+    ({"bias": torch.zeros(1)}, 1), ({"rope": object()}, 1),
+    ({"kv_heads": 2}, 1), ({"dropout_rate": 0.1, "seed": 1}, 1),
+    ({"use_flash": False}, 1), ({"context_parallel": True}, 5),
+    ({"kv": torch.zeros(1, 8, 32)}, 7)])
+def test_refusals_name_their_queue_a_item(kw, item):
+    x = torch.zeros(1, 8, 32)
+    params = {"wqkv": torch.zeros(32, 96), "wo": torch.zeros(32, 32)}
+    with pytest.raises(NotImplementedError,
+                       match=rf"ROADMAP Queue A item {item}\b"):
         multi_head_attention(x, params, 4, **kw)
 
 

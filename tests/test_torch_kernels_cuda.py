@@ -32,6 +32,12 @@ values that differ in their last bits. The LayerNorm and RMSNorm forwards
 at every path width (512 to 2048) and at row counts no block multiple,
 under the LayerNorm bounds above.
 
+The saved-P backward past S = 128 (csrc/attn_bwd_sm90.cuh's saved-P mode,
+P in the forward's layout of rows padded to 16 bytes) is held row by row
+at its tiles' edges, its bits equal on a second run and on the S-major
+view; a P TMA cannot read goes to tc:: (route 2's bits). The
+forward's padded P equals the plain P within one bf16 ulp.
+
 The recompute backward is held to the same bounds against its plain
 version (which recomputes the row statistics itself), and the one-pass
 backward at S <= 128 (csrc/attn_short_bwd_sm90.cuh), both modes, also row
@@ -465,7 +471,7 @@ def test_fused_mha_backward_routes_refuse_what_they_do_not_take(cuda):
     def args(s, d, dtype=torch.bfloat16):
         qkv = torch.zeros(2, s, 3 * 2 * d, device=cuda, dtype=dtype)
         do = torch.zeros(2, s, 2 * d, device=cuda, dtype=dtype)
-        p = torch.zeros(2, 2, s, s, device=cuda, dtype=dtype)
+        p = mha_mod.probs_buffer(2, 2, s, d, dtype, cuda).zero_()
         stats = torch.ones(2, 2, 2, s, device=cuda)
         return qkv, do, p, stats
     for s, d, dtype in ((129, 64, torch.bfloat16),   # S past one tile
@@ -519,6 +525,120 @@ def test_fused_mha_wgmma_recompute_backward_at_tile_edges(cuda, s, d, causal,
                   for t in (qkv, do)))
     assert got_v.stride(0) < got_v.stride(1)
     assert torch.equal(got_v, got)
+
+
+# The saved-P backward past S = 128 at the wgmma kernels' tiles' edges
+# (csrc/attn_bwd_sm90.cuh's saved-P mode: 128-row blocks, 128-key tiles at
+# D = 64 and 80 and 64 at D = 128 in part 1, 64-query tiles in part 2, P
+# read by TMA), both masks, on the plain forward's P in the forward's padded
+# layout: bf16 gradients row by row (TOLERANCES["fused_mha_bwd rows"]),
+# the same bits on a second run and on the S-major view, and tc:: (route
+# 2) on the same P within the same bound
+@pytest.mark.parametrize("causal", [False, True])
+@pytest.mark.parametrize("d", [64, 80, 128])
+@pytest.mark.parametrize("s", [129, 192, 257, 320, 513, 1024])
+def test_fused_mha_wgmma_saved_backward_at_tile_edges(cuda, s, d, causal):
+    b, h = 2, 3
+    gen = torch.Generator().manual_seed(s + d + int(causal) + 11)
+    qkv = torch.randn(b, s, 3 * h * d, generator=gen).to(cuda,
+                                                         torch.bfloat16)
+    do = torch.randn(b, s, h * d, generator=gen).to(cuda, torch.bfloat16)
+    _, p_plain = fused_mha_plain(qkv, h, d ** -0.5, causal, with_probs=True)
+    p = mha_mod.probs_buffer(b, h, s, d, torch.bfloat16, cuda).copy_(p_plain)
+    assert p.stride(2) == mha_mod.probs_pitch(s, d, torch.bfloat16)
+    got = fused_mha_bwd(qkv, do, p, h, causal=causal)
+    assert got.shape == qkv.shape and got.dtype == torch.bfloat16
+    want = fused_mha_bwd_plain(qkv, do, p, h, d ** -0.5)
+    _close_mha_rows(got, want, h)
+    assert torch.equal(fused_mha_bwd(qkv, do, p, h, causal=causal), got)
+    got_v = fused_mha_bwd(*(t.transpose(0, 1).contiguous().transpose(0, 1)
+                            for t in (qkv, do)), p, h, causal=causal)
+    assert torch.equal(got_v, got)
+    _close_mha_rows(fused_mha_bwd(qkv, do, p, h, causal=causal, route="tc"),
+                    want, h)
+
+
+# The saved-P backward's gate past S = 128: route 0 takes the forward's P
+# to the wgmma pair, the same bits every run. The same P an element off its
+# 16-byte alignment, which TMA cannot read, is refused there (so route 0 ran
+# the wgmma pair's branch) while tc:: (route 2) takes it with the aligned
+# P's bits; a P in any other layout (contiguous at S = 257, transposed) is
+# refused by the wrapper. chip_smoke.py phase 3 holds the same refusal at
+# the legs' shapes, and its MCT_BWD_TILE_FAULT builds show which kernels
+# that route runs.
+@pytest.mark.parametrize("d", [64, 80])
+def test_fused_mha_saved_backward_gate(cuda, d):
+    b, s, h = 2, 257, 3
+    gen = torch.Generator().manual_seed(d)
+    qkv = torch.randn(b, s, 3 * h * d, generator=gen).to(cuda,
+                                                         torch.bfloat16)
+    do = torch.randn(b, s, h * d, generator=gen).to(cuda, torch.bfloat16)
+    _, p = fused_mha_fwd(qkv, h, with_probs=True)
+    pitch = mha_mod.probs_pitch(s, d, torch.bfloat16)
+    buf = torch.zeros(b * h * s * pitch + 8, device=cuda,
+                      dtype=torch.bfloat16)
+    p_off = buf[1:1 + b * h * s * pitch].view(b, h, s, pitch)[..., :s]
+    p_off.copy_(p)
+    assert p_off.data_ptr() % 16 != 0
+    got = fused_mha_bwd(qkv, do, p, h)
+    assert torch.equal(fused_mha_bwd(qkv, do, p, h), got)
+    with pytest.raises(RuntimeError, match="launch failed"):
+        fused_mha_bwd(qkv, do, p_off, h)
+    assert torch.equal(fused_mha_bwd(qkv, do, p_off, h, route="tc"),
+                       fused_mha_bwd(qkv, do, p, h, route="tc"))
+    for other in (p.contiguous(), p.transpose(-1, -2)):
+        for route in ("auto", "tc"):
+            with pytest.raises(ValueError, match="the forward's P"):
+                fused_mha_bwd(qkv, do, other, h, route=route)
+
+
+# P's row pitch as csrc/fused_mha.cu decides it (mct_fused_mha_probs_pitch):
+# S where the one-pass kernels (S <= 128), tc:: or simt:: read P, S rounded
+# up to 8 (16 bytes) for the bf16 wgmma kernels past S = 128 at D = 64, 80
+# and 128; the forward writes P at it
+@pytest.mark.parametrize("s,d,dtype,pitch", [
+    (50, 64, torch.bfloat16, 50), (77, 64, torch.bfloat16, 77),
+    (128, 64, torch.bfloat16, 128), (129, 64, torch.bfloat16, 136),
+    (257, 64, torch.bfloat16, 264), (1024, 64, torch.bfloat16, 1024),
+    (257, 80, torch.bfloat16, 264), (513, 128, torch.bfloat16, 520),
+    (257, 40, torch.bfloat16, 257), (257, 64, torch.float32, 257)])
+def test_probs_pitch_rounds_rows_past_the_one_pass_kernels(cuda, s, d, dtype,
+                                                           pitch):
+    assert mha_mod.probs_pitch(s, d, dtype) == pitch
+    p = mha_mod.probs_buffer(2, 3, s, d, dtype, cuda)
+    assert p.shape == (2, 3, s, s)
+    assert p.stride() == (3 * s * pitch, s * pitch, pitch, 1)
+    qkv = torch.zeros(1, s, 3 * d, device=cuda, dtype=dtype)
+    _, p = fused_mha_fwd(qkv, 1, with_probs=True)
+    assert p.stride(2) == pitch
+
+
+# The forward's P past S = 128 in its padded layout (rows probs_pitch(S)
+# apart, 16-byte stores from the wgmma forward's stage, element stores from
+# tc::fwd on route 2): equal to the plain version's P within one bf16 ulp
+# (TOLERANCES["fused_mha_fwd P"]), masked pairs 0, and the output the same
+# bits as the forward's without P
+@pytest.mark.parametrize("route", ["auto", "tc"])
+@pytest.mark.parametrize("causal", [False, True])
+@pytest.mark.parametrize("d", [64, 80, 128])
+@pytest.mark.parametrize("s", [129, 257, 320, 1024])
+def test_fused_mha_forward_writes_p_in_the_padded_layout(cuda, s, d, causal,
+                                                         route):
+    b, h = 2, 3
+    gen = torch.Generator().manual_seed(s + d)
+    qkv = torch.randn(b, s, 3 * h * d, generator=gen).to(cuda,
+                                                         torch.bfloat16)
+    out, p = fused_mha_fwd(qkv, h, causal=causal, with_probs=True,
+                           route=route)
+    assert p.shape == (b, h, s, s)
+    assert p.stride() == (h * s * p.stride(2), s * p.stride(2),
+                          mha_mod.probs_pitch(s, d, torch.bfloat16), 1)
+    _, want = fused_mha_plain(qkv, h, d ** -0.5, causal, with_probs=True)
+    torch.testing.assert_close(p, want, rtol=8e-3, atol=1e-6)
+    if causal:
+        assert not p.float().triu(1).any()
+    assert torch.equal(out, fused_mha_fwd(qkv, h, causal=causal,
+                                          route=route))
 
 
 def test_fused_mha_autograd_recompute_runs_its_kernels(cuda):
