@@ -9,7 +9,9 @@ imports nothing of JAX or of the JAX package. Phases, each of which raises
 
   1. device: the card's name and power limit, as nvidia-smi reports them;
   2. build: every CUDA kernel of the port from csrc/, one nvcc per source,
-     all at once, and each kernel's registers and spills;
+     all at once, with the host JPEG decoder (csrc/jpeg_decode.c, the
+     host's C compiler) beside them, and each kernel's registers and
+     spills;
   3. kernels: first the wgmma tile product of each Hopper library
      (csrc/sm90.cuh) in every operand layout its kernels use, through TMA
      and through swizzled stores, against the fp32 product; then each
@@ -147,16 +149,25 @@ imports nothing of JAX or of the JAX package. Phases, each of which raises
      exactly phase 7's kernels; the loop's samples/s beside phase 7's
      images/s, a step's host ms in the runner and between steps, and the
      prefetch thread's copy to pinned memory; (b) webdataset shards the
-     phase writes (2 tars of 256 RGB PNGs of 256 x 256, rows in all five
+     phase writes (2 tars of 128 RGB PNGs of 256 x 256, rows in all five
      PNG filters, written by its own zlib encoder, with captions) at bf16,
-     batch 128, 2 decode workers: 4 steps with --save-interval 2, then the
+     batch 64, 2 decode workers: 4 steps with --save-interval 2, then the
      run as if cut before step 4's save committed (the tracker back at step
      2) resumed with --resume latest, whose steps 3-4 must give the first
      run's losses bit for bit; one process's decode images/s and the saves'
      host ms; (c) a CSV of 64 such PNG files (224 x 224) with --val-data: 2
-     steps, then clip_val_loss and recall@1/5/10. The phase must end within
-     60 s, and then stops the decode workers' forkserver and resource
-     tracker.
+     steps, then clip_val_loss and recall@1/5/10; (d) 2 tars of 128 JPEG
+     samples made from the committed 640 x 480 fixtures (4:2:0, 4:2:2,
+     4:4:4, progressive, grey) at bf16, batch 64, 2 decode workers, draft
+     decode at 224 (scale 2), 2 epochs with a falling loss. Before (a) it
+     holds the JPEG decoder (csrc/jpeg_decode.c, built by the host's C
+     compiler in phase 2) to the digests of Pillow's decode of every
+     committed fixture (tests/torch_goldens/jpeg/), whole and at each draft
+     size, and times one process's JPEG decode, whole and in draft, alone
+     and with the train transform (each rate over windows of at least
+     JPEG_RATE_WINDOW_S), beside the host's CPU and CPU count.
+     The phase must end within 60 s, and then stops the decode workers'
+     forkserver and resource tracker.
 
 Before its last lines the script fails if a process it started (a build,
 a decode worker, the forkserver, the resource tracker) is still alive.
@@ -302,11 +313,12 @@ TILE_FAULTS = (("MCT_FWD_TILE_FAULT=1", "MCT_BWD_TILE_FAULT=1"),
 LN_BWD_FAULTS = ("MCT_LN_BWD_FAULT=1", "MCT_LN_BWD_FAULT=2")
 LN_TEETH_FACTOR = 10.0
 # phase 12: the trainer (`python -m megatron_clip_tpu_torch.pretrain_clip`),
-# run in-process: (a) phase 7's model, batch and recipe on synthetic data,
-# warm-up + timed steps; (b) WDS_SHARDS tars of WDS_PER_SHARD PNG samples
-# (WDS_IMAGE px) at batch WDS_BATCH with WDS_WORKERS decode workers; (c) a
-# CSV of CSV_IMAGES PNGs at batch CSV_BATCH with --val-data. Scratch files
-# under SMOKE_DIR (gitignored), removed at the phase's end, which must come
+# run in-process, after the JPEG decoder's fixture digests: (a) phase 7's
+# model, batch and recipe on synthetic data, warm-up + timed steps; (b)
+# WDS_SHARDS tars of WDS_PER_SHARD PNG samples (WDS_IMAGE px) at batch
+# WDS_BATCH with WDS_WORKERS decode workers; (c) a CSV of CSV_IMAGES PNGs at
+# batch CSV_BATCH with --val-data; (d) JPEG shards. Scratch files under
+# SMOKE_DIR (gitignored), removed at the phase's end, which must come
 # within TRAINER_PHASE_LIMIT_S.
 TRAINER_WARMUP, TRAINER_STEPS = 3, 20
 TRAINER_SYNTHETIC = [
@@ -314,9 +326,22 @@ TRAINER_SYNTHETIC = [
     str(TRAIN_BATCH), "--dataset-type", "synthetic", "--train-num-samples",
     str(TRAIN_BATCH * (TRAINER_WARMUP + TRAINER_STEPS)), "--lr", "1e-3",
     "--warmup", "100", "--grad-clip-norm", "1.0", "--log-interval", "1"]
-WDS_SHARDS, WDS_PER_SHARD, WDS_IMAGE = 2, 256, 256
-WDS_BATCH, WDS_WORKERS = 128, 2
+# (b) was 2 x 256 samples at batch 128 until (d) came: 34.6 s of the 60 on
+# a host that decoded 51 PNGs/s a worker
+WDS_SHARDS, WDS_PER_SHARD, WDS_IMAGE = 2, 128, 256
+WDS_BATCH, WDS_WORKERS = 64, 2
 CSV_IMAGES, CSV_IMAGE, CSV_BATCH = 64, 224, 32
+# the committed JPEG fixtures and Pillow's digests of them
+JPEG_GOLDENS = REPO / "tests" / "torch_goldens" / "jpeg"
+# (d): JPEG_SHARDS tars of JPEG_PER_SHARD samples made from the committed
+# 640 x 480 JPEG fixtures (JPEG_GOLDENS), at batch JPEG_BATCH,
+# JPEG_EPOCHS epochs, draft decode on (224: scale 2), with a falling loss
+JPEG_SHARDS, JPEG_PER_SHARD, JPEG_BATCH, JPEG_EPOCHS = 2, 128, 64, 2
+JPEG_RECIPE = ["--lr", "1e-4", "--warmup", "2"]
+# the JPEG decode rates: each mode's decode timed in JPEG_RATE_WINDOWS
+# windows, its transform in one, each cycling through the fixtures until
+# JPEG_RATE_WINDOW_S seconds have passed
+JPEG_RATE_WINDOWS, JPEG_RATE_WINDOW_S = 2, 0.5
 SMOKE_DIR = REPO / "_smoke"
 TRAINER_PHASE_LIMIT_S = 60.0
 
@@ -567,7 +592,8 @@ def phase_build(kernels_build):
     faults = [(name, fault) for name in ("flash_attention", "fused_mha")
               for fault in tuple((f,) for f in DROPOUT_FAULTS) + TILE_FAULTS]
     faults += [("layernorm", (fault,)) for fault in LN_BWD_FAULTS]
-    took = kernels_build.build(list(kernels_build.SOURCES) + faults)
+    took = kernels_build.build(list(kernels_build.SOURCES) + faults
+                               + list(kernels_build.HOST_SOURCES))
     log(f"  built {sorted(took)} in {time.perf_counter() - t0:.1f} s "
         f"(per source: {json.dumps({k: round(v, 1) for k, v in took.items()})})")
     demangle = Path(kernels_build._nvcc()).with_name("cu++filt")
@@ -3716,17 +3742,17 @@ def trainer_images(n: int, size: int, seed: int):
     return out
 
 
-def write_shards(root: Path, samples, shards: int) -> str:
-    """`samples` split over `shards` tars of {key}.png and {key}.txt;
-    returns the brace spec of their paths."""
+def write_shards(root: Path, samples, shards: int, ext: str = "png") -> str:
+    """`samples` (image bytes, caption) split over `shards` tars of
+    {key}.{ext} and {key}.txt; returns the brace spec of their paths."""
     import io
     import tarfile
     per = len(samples) // shards
     for s in range(shards):
         with tarfile.open(root / f"shard-{s}.tar", "w") as tf:
-            for i, (png, caption) in enumerate(samples[s * per:(s + 1) * per]):
-                for ext, data in (("png", png), ("txt", caption.encode())):
-                    info = tarfile.TarInfo(f"{s:02d}{i:05d}.{ext}")
+            for i, (img, caption) in enumerate(samples[s * per:(s + 1) * per]):
+                for ext_, data in ((ext, img), ("txt", caption.encode())):
+                    info = tarfile.TarInfo(f"{s:02d}{i:05d}.{ext_}")
                     info.size = len(data)
                     tf.addfile(info, io.BytesIO(data))
     return str(root / f"shard-{{0..{shards - 1}}}.tar")
@@ -3795,7 +3821,7 @@ def trainer_synthetic(main, loop, mha, ln, per_step, phase7) -> dict:
 
 
 def trainer_webdataset(main, loop, mha, ln, per_step, work: Path) -> dict:
-    """(b): 2 x 256 PNG samples in tars, 4 steps with --save-interval 2;
+    """(b): 2 x 128 PNG samples in tars, 4 steps with --save-interval 2;
     then the run as if cut after step 3, before step 4's save committed
     (the tracker back at step 2, iter_0000004 gone), resumed with --resume
     latest: steps 3-4 must give the first run's losses, bit for bit."""
@@ -3865,6 +3891,147 @@ def trainer_csv(main, loop, mha, ln, per_step, work: Path) -> dict:
             "launches": probe.launches}
 
 
+def host_cpu() -> dict:
+    """The host's CPU as the first processor of /proc/cpuinfo gives it:
+    its "model name", else (where that is missing or "unknown", as in the
+    hosts that hide it) its vendor, family and model numbers and clock,
+    else "unknown"; its machine type and os.cpu_count(). Decode is paced
+    by the host, so its rates stand beside these."""
+    import platform
+    fields = {}
+    try:
+        for line in Path("/proc/cpuinfo").read_text().splitlines():
+            if not line.strip() and fields:
+                break
+            key, _, value = line.partition(":")
+            fields.setdefault(key.strip(), value.strip())
+    except OSError:
+        pass
+    cpu = fields.get("model name", "unknown")
+    if cpu == "unknown":
+        cpu = " ".join(f"{k} {fields[k]}" for k in (
+            "vendor_id", "cpu family", "model", "cpu MHz") if fields.get(k))
+    return {"cpu": cpu or "unknown", "machine": platform.machine(),
+            "cpu_count": os.cpu_count()}
+
+
+def jpeg_fixture_check() -> dict:
+    """Every committed JPEG fixture, full and at each recorded draft size,
+    through `decode_image` (the host library phase 2 built from
+    csrc/jpeg_decode.c), against the digests of Pillow's decode that
+    tests/torch_goldens/jpeg/digests.json holds."""
+    from megatron_clip_tpu_torch.data.decode import decode_image
+    from megatron_clip_tpu_torch.tools import jpeg_goldens
+    t0 = time.perf_counter()
+    result = jpeg_goldens.check(decode_image, JPEG_GOLDENS)
+    result["seconds"] = time.perf_counter() - t0
+    log(f"  jpeg fixtures: {result['checked']} decodes of "
+        f"{len(jpeg_goldens.manifest(JPEG_GOLDENS)['fixtures'])} files against Pillow's "
+        f"digests, {len(result['wrong'])} wrong, in "
+        f"{result['seconds']:.2f} s")
+    if result["wrong"]:
+        raise AssertionError(f"JPEG decodes unlike Pillow's: "
+                             f"{result['wrong']}")
+    return result
+
+
+def timed_window(fn, items: list) -> dict:
+    """Calls `fn` on `items` in turn, from the first again when they run
+    out, until JPEG_RATE_WINDOW_S seconds have passed and each was called
+    once: the calls made and the seconds they took."""
+    n, t0 = 0, time.perf_counter()
+    while True:
+        fn(items[n % len(items)])
+        n += 1
+        seconds = time.perf_counter() - t0
+        if seconds >= JPEG_RATE_WINDOW_S and n >= len(items):
+            return {"images": n, "seconds": seconds}
+
+
+def jpeg_decode_rates(image_size: int) -> dict:
+    """One process's (a decode worker's) JPEG images per second on the
+    640 x 480 fixtures, whole and in draft at `image_size` (scale 2),
+    alone and with the train transform: the three 4:2:0 q90 files, and all
+    seven (4:2:0, 4:2:2, 4:4:4, progressive, grey). Each mode's decode is
+    timed in JPEG_RATE_WINDOWS windows (their spread is the noise), the
+    transform of its images in one; "with the transform" adds the two
+    times an image."""
+    from megatron_clip_tpu_torch.data.decode import decode_image
+    from megatron_clip_tpu_torch.data.transforms import image_transform
+    from megatron_clip_tpu_torch.tools import jpeg_goldens
+    transform = image_transform(image_size, is_train=True)
+    names = list(jpeg_goldens.PHOTOS)
+    sets = {"420_q90": [n for n in names if n.startswith("photo_420_q90")],
+            "mixed": names}
+    rates = {}
+    for label, chosen in sets.items():
+        blobs = [jpeg_goldens.fixture_bytes(JPEG_GOLDENS, n) for n in chosen]
+        for mode, draft in (("full", None), ("draft", image_size)):
+            images = [decode_image(b, draft) for b in blobs]  # loads the lib
+            windows = [timed_window(lambda b: decode_image(b, draft), blobs)
+                       for _ in range(JPEG_RATE_WINDOWS)]
+            seeds = iter(range(1 << 30))
+            moved = timed_window(lambda img: transform(img, next(seeds)),
+                                 images)
+            decode_s = sum(w["seconds"] for w in windows) \
+                / sum(w["images"] for w in windows)
+            rates[f"{label}_{mode}"] = {
+                "shape": list(images[0].shape), "decode_windows": windows,
+                "transform_window": moved,
+                "decode_images_per_s": 1 / decode_s,
+                "decode_images_per_s_windows": [
+                    w["images"] / w["seconds"] for w in windows],
+                "decode_and_transform_images_per_s": 1 / (
+                    decode_s + moved["seconds"] / moved["images"])}
+    return rates
+
+
+def trainer_jpeg(main, loop, mha, ln, per_step, work: Path) -> dict:
+    """(d): 2 tars of 128 JPEG samples, each one of the seven 640 x 480
+    fixtures (4:2:0 q90, 4:2:2, 4:4:4, progressive, grey) with a caption of
+    its own that names its scene; ViT-B-32 at bf16, batch 64, 2 decode
+    workers, draft decode on (the JAX loader's default: 224 -> scale 2),
+    two epochs: the loss must fall."""
+    from megatron_clip_tpu_torch.tools import jpeg_goldens
+    words = ("red", "green", "blue", "striped", "dotted", "bright", "dark")
+    names = list(jpeg_goldens.PHOTOS)
+    samples = [(jpeg_goldens.fixture_bytes(JPEG_GOLDENS,
+                                           names[i % len(names)]),
+                f"a {words[i % len(names)]} scene, picture number {i}")
+               for i in range(JPEG_SHARDS * JPEG_PER_SHARD)]
+    t0 = time.perf_counter()
+    spec = write_shards(work, samples, JPEG_SHARDS, ext="jpg")
+    seconds = {"write_shards": time.perf_counter() - t0}
+    if os.environ.get("MCT_JPEG_DRAFT", "1") == "0":
+        raise AssertionError("trainer jpeg: MCT_JPEG_DRAFT=0 turns the draft "
+                             "decode this part runs off")
+    t0 = time.perf_counter()
+    with TrainerProbe(loop, mha, ln, per_step) as probe:
+        main(["--model", "ViT-B-32", "--precision", "bf16", "--batch-size",
+              str(JPEG_BATCH), "--workers", str(WDS_WORKERS), "--train-data",
+              spec, "--epochs", str(JPEG_EPOCHS), "--log-interval", "1",
+              *JPEG_RECIPE])
+    seconds["run"] = time.perf_counter() - t0
+    losses = probe.loss_values()
+    starts = [a for a, _ in probe.host]
+    # the loop's samples/s from the first step's start to the last one's
+    sps = JPEG_BATCH * (len(starts) - 1) / (starts[-1] - starts[0])
+    steps = JPEG_EPOCHS * JPEG_SHARDS * JPEG_PER_SHARD // JPEG_BATCH
+    falling = bool(len(losses) == steps
+                   and all(math.isfinite(v) for v in losses)
+                   and max(losses[-2:]) < losses[0])
+    log(f"  trainer jpeg: losses {losses}; falling: {falling}; "
+        f"{sps:.1f} samples/s after the first step, which began "
+        f"{probe.host[0][0] - probe.entered:.2f} s in")
+    if not falling:
+        raise AssertionError(f"trainer jpeg: {len(losses)} steps (expected "
+                             f"{steps}), the loss did not fall: {losses}")
+    return {"losses": losses, "falling": falling, "samples_per_s": sps,
+            "parts_s": seconds,
+            "first_step_s": probe.host[0][0] - probe.entered,
+            "launches": probe.launches}
+
+
 def descendants() -> list:
     """(pid, command) of every live process below this one, from /proc."""
     parent, command = {}, {}
@@ -3899,7 +4066,8 @@ def check_no_processes_left() -> None:
 def phase_trainer(mha, ln, card: str, phase7: dict) -> dict:
     log(f"[12] trainer: pretrain_clip.main on the card: ViT-B-32 synthetic "
         f"(pure_bf16, batch {TRAIN_BATCH}, {TRAINER_WARMUP} + "
-        f"{TRAINER_STEPS} steps), webdataset with a resume, csv with val")
+        f"{TRAINER_STEPS} steps), webdataset with a resume, csv with val, "
+        f"JPEG webdataset in draft mode")
     t0 = time.perf_counter()
     from megatron_clip_tpu_torch.factory import (get_model_config,
                                                  parse_model_cfg)
@@ -3908,19 +4076,25 @@ def phase_trainer(mha, ln, card: str, phase7: dict) -> dict:
     from megatron_clip_tpu_torch.pretrain_clip import main
     from megatron_clip_tpu_torch.training import loop
     worker_context()  # the decode workers' server imports while (a) runs
+    fixtures = jpeg_fixture_check()
     per_step = per_step_launches(parse_model_cfg(get_model_config(
         "ViT-B-32")), save_probs=True)
     shutil.rmtree(SMOKE_DIR, ignore_errors=True)
-    (SMOKE_DIR / "wds").mkdir(parents=True)
-    (SMOKE_DIR / "csv").mkdir()
+    for part in ("wds", "csv", "jpeg"):
+        (SMOKE_DIR / part).mkdir(parents=True)
     parts = {"synthetic": lambda: trainer_synthetic(
                  main, loop, mha, ln, per_step, phase7),
              "webdataset": lambda: trainer_webdataset(
                  main, loop, mha, ln, per_step, SMOKE_DIR / "wds"),
              "csv": lambda: trainer_csv(main, loop, mha, ln, per_step,
-                                        SMOKE_DIR / "csv")}
-    result = {"card": card}
+                                        SMOKE_DIR / "csv"),
+             "jpeg": lambda: trainer_jpeg(main, loop, mha, ln, per_step,
+                                          SMOKE_DIR / "jpeg")}
+    result = {"card": card, "host": host_cpu(),
+              "jpeg_fixtures": {k: v for k, v in fixtures.items()
+                                if k != "wrong"}}
     try:
+        result["jpeg_decode"] = jpeg_decode_rates(CSV_IMAGE)
         for name, part in parts.items():
             t_part = time.perf_counter()
             result[name] = part()
@@ -3929,6 +4103,20 @@ def phase_trainer(mha, ln, card: str, phase7: dict) -> dict:
         shutil.rmtree(SMOKE_DIR, ignore_errors=True)
         stop_workers()
     result["seconds"] = time.perf_counter() - t0
+    png = result["webdataset"]["decode"]
+    log(f"  decode images/s a process on {result['host']['cpu']} "
+        f"({result['host']['machine']}, {result['host']['cpu_count']} "
+        f"CPUs), {card}: PNG 256 x 256 "
+        f"{png['decode_images_per_s']:.1f} "
+        f"({png['decode_and_transform_images_per_s']:.1f} with the train "
+        f"transform); JPEG 640 x 480 " + "; ".join(
+            f"{k} {v['decode_images_per_s']:.1f} (windows " + ", ".join(
+                f"{w['images']} in {w['seconds']:.3f} s"
+                for w in v["decode_windows"])
+            + f"; {v['decode_and_transform_images_per_s']:.1f} with the "
+            f"transform, {v['transform_window']['images']} in "
+            f"{v['transform_window']['seconds']:.3f} s)"
+            for k, v in result["jpeg_decode"].items()))
     log(f"  trainer: {json.dumps(result)}")
     if result["seconds"] > TRAINER_PHASE_LIMIT_S:
         raise AssertionError(f"phase 12 took {result['seconds']:.1f} s, "
@@ -3977,7 +4165,7 @@ def main() -> int:
              **{f"train pipeline GPT {key}": run["launches"]
                 for key, run in pipeline.items() if key != "parity"},
              **{f"trainer ViT-B-32 {key}": trainer[key]["launches"]
-                for key in ("synthetic", "webdataset", "csv")}}
+                for key in ("synthetic", "webdataset", "csv", "jpeg")}}
     kernels = kernels_line(rows, paths, errs)
     idle = [k["name"] for k in kernels if k["launches"] == 0]
     if idle:

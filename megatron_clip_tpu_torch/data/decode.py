@@ -1,11 +1,19 @@
-"""Image decoding in numpy and the standard library.
+"""Image decoding without PIL.
 
 Stands for PIL's `Image.open(b).convert("RGB")` in the port's data pipeline
-(`data/webdataset.py::decode_sample`, `data/loaders.py::CsvData`,
+(`data/webdataset.py::_worker_loop`, `data/loaders.py::read_image`,
 `data/image_folder.py`): the card's machine has no PIL. `decode_image`
 turns an encoded image into uint8 [H, W, 3], equal to
 `np.asarray(PIL.Image.open(b).convert("RGB"))` for
 
+- JPEG: baseline, extended and progressive Huffman-coded, 8-bit, grey,
+  YCbCr (every sampling factor), RGB, CMYK and YCCK, decoded by the host C
+  library `csrc/jpeg_decode.c` (built with the host's C compiler on first
+  use, `ops/kernels/_build.py`) as Pillow's libjpeg-turbo decodes it, to the
+  bit; with `draft_size`, Pillow's `draft("RGB", (d, d))` before the load:
+  libjpeg's DCT-domain downscale by the largest of 8, 4, 2 and 1 that keeps
+  both sides at least `draft_size` (the JAX webdataset's decode,
+  `megatron_clip_tpu/data/webdataset.py:135-136`);
 - PNG: 8-bit grey, grey+alpha, RGB, RGBA and palette, with any of the five
   row filters, not interlaced;
 - PPM (P6) and PGM (P5), binary, maxval 255;
@@ -18,12 +26,21 @@ past the palette's end reads black.
 
 Bad input has two outcomes:
 - corrupt bytes (truncated, an inconsistent header, a broken zlib stream,
-  an unknown filter or signature) give None: the JAX pipeline drops a
+  an unknown filter or signature, a JPEG whose data ends before libjpeg has
+  every row) and images of more pixels than PIL's DecompressionBombError
+  limit (2 * `Image.MAX_IMAGE_PIXELS`) give None: the JAX pipeline drops a
   sample PIL cannot open (`megatron_clip_tpu/data/webdataset.py:133-137`);
-- a format this module does not decode yet (JPEG, WebP, GIF, TIFF, 16-bit
-  or low-bit-depth PNG, Adam7 interlacing, ASCII PNM, RLE or palette BMP)
-  raises NotImplementedError naming ROADMAP Queue A item 3, so that a
-  shard of such images fails loudly instead of training on nothing.
+- a format this module does not decode yet (WebP, GIF, TIFF, arithmetic-
+  coded, lossless or 12-bit JPEG, 16-bit or low-bit-depth PNG, Adam7
+  interlacing, ASCII PNM, RLE or palette BMP) raises NotImplementedError
+  naming ROADMAP Queue A item 3, so that a shard of such images fails
+  loudly instead of training on nothing.
+
+Where a JPEG may differ from Pillow: only in data Pillow reads with
+warnings. libjpeg smooths the blocks of a progressive file whose scans are
+missing (never in a file with all its scans), and its SIMD IDCT saturates
+where the C IDCT this decoder follows wraps, on coefficients only corrupt
+data produces.
 
 PNG rows are unfiltered along the anti-diagonals of the pixel grid: a
 pixel's filter reads its left, upper and upper-left neighbours only, so
@@ -31,6 +48,7 @@ every pixel of a diagonal depends on earlier diagonals alone and each of
 the H + W - 1 diagonals is one vectorised numpy step, whatever filter each
 row uses (Average and Paeth run left to right within a row).
 """
+import ctypes
 import functools
 import struct
 import zlib
@@ -38,10 +56,14 @@ from typing import Optional
 
 import numpy as np
 
+from megatron_clip_tpu_torch.ops.kernels import _build
+
 _PNG_SIG = b"\x89PNG\r\n\x1a\n"
 # colour type -> channels (8-bit samples)
 _PNG_CHANNELS = {0: 1, 2: 3, 3: 1, 4: 2, 6: 4}
 _QUEUE = "(ROADMAP Queue A item 3)"
+# PIL's DecompressionBombError: more than 2 * Image.MAX_IMAGE_PIXELS
+MAX_PIXELS = 2 * (1024 * 1024 * 1024 // 4 // 3)
 
 
 class _Corrupt(Exception):
@@ -52,8 +74,11 @@ def _unsupported(what: str) -> NotImplementedError:
     return NotImplementedError(f"decoding {what} is not ported yet {_QUEUE}")
 
 
-def decode_image(data: bytes) -> Optional[np.ndarray]:
+def decode_image(data: bytes,
+                 draft_size: Optional[int] = None) -> Optional[np.ndarray]:
     """Encoded image bytes -> uint8 [H, W, 3], or None for corrupt bytes.
+    `draft_size` (JPEG only, as in PIL): decode at the smallest of libjpeg's
+    1/1, 1/2, 1/4 and 1/8 scales whose sides stay at least `draft_size`.
     Raises NotImplementedError for a format not ported yet."""
     data = bytes(data)
     try:
@@ -66,7 +91,7 @@ def decode_image(data: bytes) -> Optional[np.ndarray]:
     except (_Corrupt, zlib.error, struct.error, ValueError):
         return None
     if data[:3] == b"\xff\xd8\xff":
-        raise _unsupported("JPEG")
+        return _decode_jpeg(data, draft_size)
     if data[:4] == b"RIFF" and data[8:12] == b"WEBP":
         raise _unsupported("WebP")
     if data[:6] in (b"GIF87a", b"GIF89a"):
@@ -75,6 +100,40 @@ def decode_image(data: bytes) -> Optional[np.ndarray]:
         raise _unsupported("TIFF")
     if data[:2] in (b"P1", b"P2", b"P3", b"P4", b"P7"):
         raise _unsupported(f"PNM {data[:2].decode()} (only binary P5 / P6)")
+    return None
+
+
+def _check_size(w: int, h: int) -> None:
+    if w * h > MAX_PIXELS:
+        raise _Corrupt(f"{w} x {h} is past PIL's decompression-bomb limit")
+
+
+# --- JPEG (csrc/jpeg_decode.c) ----------------------------------------------
+
+_JD_OK, _JD_CORRUPT, _JD_UNSUPPORTED, _JD_TOO_LARGE, _JD_NO_MEMORY = range(5)
+_JD_WHY = {1: "arithmetic-coded JPEG", 2: "lossless JPEG",
+           3: "JPEG of other than 8-bit samples"}
+_JPEG_SIGNATURES = {
+    "jpeg_header": ([ctypes.c_char_p, ctypes.c_size_t, ctypes.c_int,
+                     ctypes.POINTER(ctypes.c_int)], ctypes.c_int),
+    "jpeg_decode": ([ctypes.c_char_p, ctypes.c_size_t, ctypes.c_int,
+                     ctypes.c_void_p], ctypes.c_int)}
+
+
+def _decode_jpeg(data: bytes, draft_size: Optional[int]) -> Optional[np.ndarray]:
+    lib = _build.load("jpeg_decode", _JPEG_SIGNATURES)
+    draft = int(draft_size or 0)
+    out = (ctypes.c_int * 3)()
+    status = lib.jpeg_header(data, len(data), draft, out)
+    if status == _JD_OK:
+        img = np.empty((out[1], out[0], 3), np.uint8)
+        status = lib.jpeg_decode(data, len(data), draft, img.ctypes.data)
+        if status == _JD_OK:
+            return img
+    if status == _JD_UNSUPPORTED:
+        raise _unsupported(_JD_WHY.get(out[2], "this JPEG"))
+    if status == _JD_NO_MEMORY:
+        raise MemoryError("out of memory decoding a JPEG")
     return None
 
 
@@ -117,6 +176,7 @@ def _decode_png(data: bytes) -> np.ndarray:
     w, h, depth, ctype, method, filt, interlace = header
     if ctype not in _PNG_CHANNELS or method or filt or w == 0 or h == 0:
         raise _Corrupt("bad IHDR")
+    _check_size(w, h)
     if depth != 8:
         raise _unsupported(f"{depth}-bit PNG")
     if interlace:
@@ -215,6 +275,7 @@ def _decode_pnm(data: bytes) -> np.ndarray:
     if not data[pos:pos + 1].isspace():
         raise _Corrupt("bad PNM header")
     w, h, maxval = fields
+    _check_size(w, h)
     if maxval != 255:
         raise _unsupported(f"PNM with maxval {maxval}")
     channels = 3 if data[:2] == b"P6" else 1
@@ -233,6 +294,7 @@ def _decode_bmp(data: bytes) -> np.ndarray:
     if dib < 40:
         raise _unsupported("OS/2 BMP")
     w, h, _, bits, compression = struct.unpack_from("<iiHHI", data, 18)
+    _check_size(abs(w), abs(h))
     if bits not in (24, 32) or compression not in (0, 3):
         raise _unsupported(f"{bits}-bit BMP with compression {compression}")
     if bits == 24 and compression == 3:

@@ -4,8 +4,9 @@ megatron/data/image_folder.py + vit_dataset.py ClassificationTransform):
 
 Counterpart of `megatron_clip_tpu/data/image_folder.py`, for the trainer's
 zero-shot eval (`--imagenet-val`, `--imagenet-v2`). Images are decoded by
-`data/decode.py` (PNG, PPM, BMP; JPEG and WebP raise, ROADMAP Queue A item
-3) and train crops take a seed of the sample's own (`data/loaders.py`)."""
+`data/decode.py` (JPEG, PNG, PPM, BMP; WebP raises, ROADMAP Queue A item 3),
+whole, with no JPEG draft, as the JAX loader's PIL `Image.open` does, and
+train crops take a seed of the sample's own (`data/loaders.py`)."""
 import os
 import random
 from typing import Iterator, List, Tuple

@@ -48,8 +48,9 @@ def sample_seed(seed: int, epoch: int, index: int) -> int:
 
 
 def read_image(path: str) -> np.ndarray:
-    """A file's image as uint8 [H, W, 3]; corrupt bytes raise, as PIL's
-    `Image.open` does in the JAX loaders."""
+    """A file's image as uint8 [H, W, 3], decoded whole (a JPEG with no
+    draft, as the JAX loaders' `Image.open(path)`); corrupt bytes raise, as
+    PIL's `Image.open` does in the JAX loaders."""
     with open(path, "rb") as f:
         img = decode_image(f.read())
     if img is None:

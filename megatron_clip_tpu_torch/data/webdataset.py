@@ -7,8 +7,11 @@ pipeline, open_CLIP/src/training/data.py:327-431):
     and resampling with per-source upsampling factors (ResampledShards2);
   - per-host and per-worker shard splitting (split_by_node/split_by_worker);
   - sample grouping by key inside each tar (basename before first dot),
-    image (png/ppm/pgm/bmp through `data/decode.py`; jpg and webp raise,
+    image (jpg/png/ppm/pgm/bmp through `data/decode.py`; webp raises,
     ROADMAP Queue A item 3) + caption (txt/json);
+  - JPEGs decoded in PIL's draft mode at the transform's image size, the
+    JAX loader's default (`WdsData.draft_size`; MCT_JPEG_DRAFT=0 decodes
+    them whole, as it does there);
   - a sample shuffle buffer with the JAX worker's seeds and draws;
   - `with_epoch`-style num_batches/num_samples bookkeeping for resume;
   - decode worker processes, each owning a shard slice and shipping ready
@@ -243,14 +246,15 @@ def _qput(out_q, item, stop):
 
 def _worker_loop(shards, seed, shuffle, shuffle_buffer, preprocess,
                  tokenizer, context_length, batch_size, out_q,
-                 skip_samples: int = 0, stop=None):
+                 skip_samples: int = 0, stop=None, draft_size=None):
     """Decode worker: stream its shard slice through the shuffle buffer
     (raw samples), skip its first `skip_samples` emitted samples undecoded,
-    decode and preprocess the rest (sample n with the transform seed
-    (seed << 32) + n) and emit ready (images, texts) batches. Runs in a
-    separate process or inline in a thread. `stop` (inline thread workers
-    only): event the consumer sets when it exits early; every queue put
-    watches it. Ends with None, after a `_WorkerError` if it failed."""
+    decode (JPEGs at `draft_size`, see `decode_image`) and preprocess the
+    rest (sample n with the transform seed (seed << 32) + n) and emit ready
+    (images, texts) batches. Runs in a separate process or inline in a
+    thread. `stop` (inline thread workers only): event the consumer sets
+    when it exits early; every queue put watches it. Ends with None, after
+    a `_WorkerError` if it failed."""
     rng = random.Random(seed)
     imgs, caps = [], []
     emitted = 0
@@ -260,7 +264,7 @@ def _worker_loop(shards, seed, shuffle, shuffle_buffer, preprocess,
         n, emitted = emitted, emitted + 1
         if n < skip_samples:
             return
-        img = decode_image(parts[0])
+        img = decode_image(parts[0], draft_size)
         if img is None:
             return
         imgs.append(preprocess(img, (seed << 32) + n))
@@ -361,6 +365,10 @@ class WdsData:
         self.shuffle_buffer = shuffle_buffer
         self.workers = max(1, workers)
         self.resampled = resampled
+        # the JAX loader's JPEG draft decode (webdataset.py:317-320): the
+        # smallest libjpeg scale still covering the training resolution
+        self.draft_size = (None if os.environ.get("MCT_JPEG_DRAFT", "1") == "0"
+                           else getattr(preprocess, "image_size", None))
         self._skip_batches = 0
 
     def skip_batches(self, n: int) -> None:
@@ -420,7 +428,7 @@ class WdsData:
             threading.Thread(
                 target=_worker_loop,
                 args=(shards, base_seed, self.shuffle, self.shuffle_buffer,
-                      *common, q, skips[0], stop_evt),
+                      *common, q, skips[0], stop_evt, self.draft_size),
                 daemon=True).start()
             queues = [q]
         else:
@@ -433,7 +441,7 @@ class WdsData:
                     args=(split_by_worker(shards, w, n_workers),
                           base_seed + w, self.shuffle,
                           max(1, self.shuffle_buffer // n_workers),
-                          *common, wq, skips[w]),
+                          *common, wq, skips[w], None, self.draft_size),
                     daemon=True)
                 p.start()
                 _workers.add(p)

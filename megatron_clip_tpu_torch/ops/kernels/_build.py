@@ -1,11 +1,17 @@
-"""Build and load the hand-written CUDA kernels.
+"""Build and load the hand-written CUDA kernels and the host C libraries.
 
 Each `csrc/<name>.cu` compiles with nvcc into its own shared library with a
-plain `extern "C"` interface, loaded with ctypes. Libraries land in
+plain `extern "C"` interface, loaded with ctypes; each `csrc/<name>.c` of
+HOST_SOURCES (code for the host's CPU, no CUDA) compiles the same way with
+the host's C compiler (`cc`, else `gcc`, from PATH), on the CPU too: the
+JPEG decoder of `data/decode.py` is one. Libraries land in
 `megatron_clip_tpu_torch/_build/` under a name that carries a hash of the
 sources and flags, so a library is rebuilt only when a source changes. Nothing
-is compiled at import: the first call that needs a kernel builds it, and
-`build()` builds several at once, one nvcc process per source.
+is compiled at import: the first call that needs a library builds it, and
+`build()` builds several at once, one compiler process per source. A build
+writes a file of its own process and thread and renames it into place, so
+processes that build the same library at once (test workers, decode
+workers) each load a whole one.
 
 A variant is a source built with preprocessor defines (the checks build
 kernels made wrong on purpose, `csrc/philox.cuh`'s MCT_DROPOUT_FAULT);
@@ -18,6 +24,7 @@ import hashlib
 import os
 import shutil
 import subprocess
+import threading
 import time
 from pathlib import Path
 from typing import Dict, Iterable, Optional, Tuple, Union
@@ -28,8 +35,12 @@ BUILD_DIR = _PKG / "_build"
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC", "--ptxas-options=-v")
 SOURCES = ("fused_mha", "layernorm", "flash_attention", "fused_ce")
+# host C sources; the flags change no integer result
+HOST_SOURCES = ("jpeg_decode",)
+HOST_FLAGS = ("-O2", "-fPIC", "-shared", "-std=c11")
 
 _libs: Dict[Tuple[str, Tuple[str, ...]], ctypes.CDLL] = {}
+_lock = threading.Lock()
 # the defines `load` builds with (see `variant`)
 _defines: Tuple[str, ...] = ()
 Spec = Union[str, Tuple[str, Tuple[str, ...]]]
@@ -47,15 +58,30 @@ def _nvcc() -> str:
     return found
 
 
-def _flags(defines: Tuple[str, ...]) -> Tuple[str, ...]:
-    return NVCC_FLAGS + tuple(f"-D{d}" for d in defines)
+def _cc() -> str:
+    for name in ("cc", "gcc"):
+        found = shutil.which(name)
+        if found is not None:
+            return found
+    raise RuntimeError("no C compiler (cc or gcc) on PATH: the host "
+                       "libraries (csrc/*.c) cannot be built")
+
+
+def _source(name: str) -> Path:
+    return CSRC / (f"{name}.c" if name in HOST_SOURCES else f"{name}.cu")
+
+
+def _flags(name: str, defines: Tuple[str, ...]) -> Tuple[str, ...]:
+    base = HOST_FLAGS if name in HOST_SOURCES else NVCC_FLAGS
+    return base + tuple(f"-D{d}" for d in defines)
 
 
 def _target(name: str, defines: Tuple[str, ...] = ()) -> Path:
-    h = hashlib.sha256(" ".join(_flags(defines)).encode())
-    h.update((CSRC / f"{name}.cu").read_bytes())
-    for header in sorted(CSRC.glob("*.cuh")):
-        h.update(header.read_bytes())
+    h = hashlib.sha256(" ".join(_flags(name, defines)).encode())
+    h.update(_source(name).read_bytes())
+    if name not in HOST_SOURCES:
+        for header in sorted(CSRC.glob("*.cuh")):
+            h.update(header.read_bytes())
     tag = "".join("-" + d.replace("=", "") for d in defines)
     return BUILD_DIR / f"lib{name}{tag}-{h.hexdigest()[:16]}.so"
 
@@ -73,9 +99,9 @@ def label(spec: Spec) -> str:
 
 def build(names: Iterable[Spec] = SOURCES) -> Dict[str, float]:
     """Compile every library in `names` (source names, or (name, defines)
-    pairs for variants) that is not built yet, all nvcc processes at once.
-    Returns the seconds each build took (0 if it was already built), by
-    `label`; raises with nvcc's output if one fails."""
+    pairs for variants) that is not built yet, all compiler processes at
+    once. Returns the seconds each build took (0 if it was already built),
+    by `label`; raises with the compiler's output if one fails."""
     pending = {}
     took = {}
     for spec in names:
@@ -85,25 +111,28 @@ def build(names: Iterable[Spec] = SOURCES) -> Dict[str, float]:
             took[label(spec)] = 0.0
             continue
         BUILD_DIR.mkdir(parents=True, exist_ok=True)
-        tmp = out.with_suffix(f".{os.getpid()}.tmp")
-        log = open(out.with_suffix(".log"), "w")
-        cmd = [_nvcc(), *_flags(defines), "-o", str(tmp),
-               str(CSRC / f"{name}.cu")]
-        pending[label(spec)] = (subprocess.Popen(cmd, stdout=log,
-                                                 stderr=subprocess.STDOUT),
-                                log, tmp, out, time.perf_counter())
+        own = f".{os.getpid()}-{threading.get_ident()}"
+        tmp = out.with_suffix(own + ".tmp")
+        log = out.with_suffix(own + ".log")
+        compiler = _cc() if name in HOST_SOURCES else _nvcc()
+        cmd = [compiler, *_flags(name, defines), "-o", str(tmp),
+               str(_source(name))]
+        with open(log, "w") as f:
+            proc = subprocess.Popen(cmd, stdout=f, stderr=subprocess.STDOUT)
+        pending[label(spec)] = (proc, log, tmp, out, time.perf_counter())
     failed = []
     while pending:  # each build's own seconds, whatever order they end in
         for name in [n for n, job in pending.items()
                      if job[0].poll() is not None]:
             proc, log, tmp, out, t0 = pending.pop(name)
             took[name] = time.perf_counter() - t0
-            log.close()
             if proc.returncode == 0:
+                os.replace(log, out.with_suffix(".log"))
                 os.replace(tmp, out)  # atomic: a loader sees all or nothing
             else:
-                failed.append(f"{name}: nvcc exit {proc.returncode}\n"
-                              + out.with_suffix(".log").read_text())
+                failed.append(f"{name}: {Path(proc.args[0]).name} exit "
+                              f"{proc.returncode}\n" + log.read_text())
+                log.unlink()
         time.sleep(0.05)
     if failed:
         raise RuntimeError("kernel build failed\n" + "\n".join(failed))
@@ -111,22 +140,26 @@ def build(names: Iterable[Spec] = SOURCES) -> Dict[str, float]:
 
 
 def build_log(name: str) -> str:
-    """nvcc's output (ptxas register and shared-memory report) of the last
-    build of `name`, or '' if none is on disk."""
+    """The compiler's output (for a CUDA source, ptxas's register and
+    shared-memory report) of the last build of `name`, or '' if none is on
+    disk."""
     log = _target(name).with_suffix(".log")
     return log.read_text() if log.is_file() else ""
 
 
 def load(name: str, signatures: Optional[dict] = None) -> ctypes.CDLL:
-    """The loaded library for `csrc/<name>.cu` (of the `variant` in force),
-    built on first use. `signatures` maps function name -> (argtypes,
-    restype)."""
-    key = (name, _defines)
+    """The loaded library for `csrc/<name>.cu` (of the `variant` in force)
+    or for the host source `csrc/<name>.c`, built on first use.
+    `signatures` maps function name -> (argtypes, restype)."""
+    key = (name, () if name in HOST_SOURCES else _defines)
     lib = _libs.get(key)
     if lib is None:
-        build([key])
-        lib = ctypes.CDLL(str(_target(*key)))
-        _libs[key] = lib
+        with _lock:  # one build and one load per process
+            lib = _libs.get(key)
+            if lib is None:
+                build([key])
+                lib = ctypes.CDLL(str(_target(*key)))
+                _libs[key] = lib
     # each caller's signatures, also on a library another caller loaded
     for fn, (argtypes, restype) in (signatures or {}).items():
         getattr(lib, fn).argtypes = argtypes

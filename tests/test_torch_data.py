@@ -3,9 +3,9 @@
 - Decode (`data/decode.py`): bit-equal to
   `np.asarray(PIL.Image.open(b).convert("RGB"))` on PNGs the test writes in
   every colour type with every row filter, and on PNG, PPM, PGM and BMP
-  files PIL writes (BMP also top-down); JPEG, GIF, 16-bit and interlaced
+  files PIL writes (BMP also top-down); WebP, GIF, 16-bit and interlaced
   PNGs raise NotImplementedError naming ROADMAP Queue A item 3; corrupt
-  bytes give None.
+  bytes give None. (JPEG: `tests/test_torch_jpeg.py`.)
 - Transforms (`data/transforms.py`): `resize_bicubic` bit-equal to PIL's
   bicubic `resize` with and without a box; the eval and train transforms
   with the same `random.Random` seed equal to the JAX `image_transform`'s
@@ -14,9 +14,11 @@
 - Loaders: the port's `WdsData` (one worker, a thread; two workers,
   processes) and `CsvData` give the JAX loaders' batches on shards and
   files the test writes: texts exactly, images within the transform
-  tolerance (the eval transform, which draws nothing); the URL expansion
+  tolerance (the eval transform, which draws nothing); JPEG shards in the
+  JAX loader's draft decode, and whole with MCT_JPEG_DRAFT=0, and a JPEG
+  ImageFolder whole, as the JAX loaders decode them; the URL expansion
   equal; a resumed webdataset epoch equal to the uninterrupted one's tail;
-  a worker's NotImplementedError raised in the consumer.
+  a worker's NotImplementedError (a WebP image) raised in the consumer.
 """
 import io
 import random
@@ -37,6 +39,7 @@ from megatron_clip_tpu_torch.data import image_folder, loaders, transforms
 from megatron_clip_tpu_torch.data import webdataset as wds
 from megatron_clip_tpu_torch.data.decode import decode_image
 from megatron_clip_tpu_torch.tokenizer import get_tokenizer
+from megatron_clip_tpu_torch.tools.jpeg_goldens import photo
 
 # colour type -> channels
 CHANNELS = {0: 1, 2: 3, 3: 1, 4: 2, 6: 4}
@@ -127,10 +130,10 @@ def test_top_down_bmp_decodes_as_pil():
                                   pil_rgb(bytes(data)))
 
 
-@pytest.mark.parametrize("fmt", ["JPEG", "GIF", "16-bit", "interlaced"])
+@pytest.mark.parametrize("fmt", ["WEBP", "GIF", "16-bit", "interlaced"])
 def test_unported_formats_raise_naming_the_queue_item(fmt):
     pix = np.zeros((8, 8, 3), np.uint8)
-    if fmt in ("JPEG", "GIF"):
+    if fmt in ("WEBP", "GIF"):
         buf = io.BytesIO()
         Image.fromarray(pix).save(buf, fmt)
         data = buf.getvalue()
@@ -218,16 +221,30 @@ def test_url_expansion_matches_jax():
         jax_wds.split_by_worker(list("abcdefg"), 1, 2)
 
 
-def _shards(tmp_path, n_shards=3, per_shard=14, image=None):
-    """Tars of PNG (some PPM) samples with txt or json captions."""
+# JPEG shard samples: (PIL mode, save options), by sample index
+JPEG_KINDS = [("RGB", {"quality": 90}), ("RGB", {"subsampling": 1}),
+              ("RGB", {"subsampling": 0, "quality": 60}),
+              ("RGB", {"progressive": True}), ("L", {}), ("CMYK", {})]
+
+
+def _shards(tmp_path, n_shards=3, per_shard=14, image=None, jpeg=False):
+    """Tars of PNG (some PPM) samples with txt or json captions; with
+    `jpeg`, JPEGs of 40 to 200 pixels a side in the modes of JPEG_KINDS."""
     rng = np.random.RandomState(0)
     for s in range(n_shards):
         with tarfile.open(tmp_path / f"shard-{s:02d}.tar", "w") as tf:
             for i in range(per_shard):
-                pix = rng.randint(0, 255, (30 + i, 41 - i, 3), np.uint8)
                 buf = io.BytesIO()
-                fmt = "PPM" if i % 5 == 4 else "PNG"
-                Image.fromarray(pix).save(buf, fmt)
+                if jpeg:
+                    fmt = "JPG"
+                    mode, options = JPEG_KINDS[(s + i) % len(JPEG_KINDS)]
+                    h, w = rng.randint(40, 200, 2)
+                    Image.fromarray(photo(h, w, seed=s * 100 + i)).convert(
+                        mode).save(buf, "JPEG", **options)
+                else:
+                    pix = rng.randint(0, 255, (30 + i, 41 - i, 3), np.uint8)
+                    fmt = "PPM" if i % 5 == 4 else "PNG"
+                    Image.fromarray(pix).save(buf, fmt)
                 img = image or buf.getvalue()
                 cap = f"a photo of item {s} {i}"
                 parts = [(fmt.lower(), img)]
@@ -240,15 +257,28 @@ def _shards(tmp_path, n_shards=3, per_shard=14, image=None):
     return str(tmp_path / ("shard-{00..%02d}.tar" % (n_shards - 1)))
 
 
-@pytest.mark.parametrize("workers", [1, 2])
-def test_webdataset_batches_match_jax(tmp_path, workers):
-    urls = _shards(tmp_path)
+@pytest.mark.parametrize("workers,images", [
+    (1, "png"), (2, "png"), (1, "jpeg"), (2, "jpeg"), (1, "jpeg-whole")],
+    ids=["1", "2", "jpeg-1", "jpeg-2", "jpeg-whole-1"])
+def test_webdataset_batches_match_jax(tmp_path, monkeypatch, workers,
+                                      images):
+    """PNG shards, and JPEG shards decoded in draft mode at the transform's
+    size (64: scales 1 and 2 among the images), and whole with
+    MCT_JPEG_DRAFT=0, in both packages."""
+    urls = _shards(tmp_path, jpeg=images != "png")
+    if images == "jpeg-whole":
+        monkeypatch.setenv("MCT_JPEG_DRAFT", "0")
+    size = 32 if images == "png" else 64
     kw = dict(num_samples=40, seed=5, context_length=16, workers=workers,
               shuffle_buffer=10)
-    want = list(jax_wds.WdsData(urls, 4, jax_tf.image_transform(32, False),
-                                jax_tokenizer(), **kw))
-    got = list(wds.WdsData(urls, 4, transforms.image_transform(32, False),
-                           get_tokenizer(), **kw))
+    jax_data = jax_wds.WdsData(urls, 4, jax_tf.image_transform(size, False),
+                               jax_tokenizer(), **kw)
+    data = wds.WdsData(urls, 4, transforms.image_transform(size, False),
+                       get_tokenizer(), **kw)
+    assert data.draft_size == jax_data.draft_size == (
+        size if images == "jpeg" else None if images == "jpeg-whole"
+        else 32)
+    want, got = list(jax_data), list(data)
     assert len(got) == len(want) == 10
     for (gi, gt), (wi, wt) in zip(got, want):
         np.testing.assert_array_equal(gt, wt)
@@ -322,7 +352,7 @@ def test_stop_workers_leaves_no_process(tmp_path):
 @pytest.mark.parametrize("workers", [1, 2])
 def test_worker_errors_reach_the_consumer(tmp_path, workers):
     buf = io.BytesIO()
-    Image.fromarray(np.zeros((8, 8, 3), np.uint8)).save(buf, "JPEG")
+    Image.fromarray(np.zeros((8, 8, 3), np.uint8)).save(buf, "WEBP")
     urls = _shards(tmp_path, n_shards=2, per_shard=4, image=buf.getvalue())
     ds = wds.WdsData(urls, 2, transforms.image_transform(32, False),
                      get_tokenizer(), num_samples=8, workers=workers)
@@ -338,6 +368,15 @@ def test_sample_decode_matches_jax(tmp_path):
         assert cap == want_cap
         np.testing.assert_array_equal(decode_image(image),
                                       np.asarray(want_img.convert("RGB")))
+    (tmp_path / "jpeg").mkdir()
+    urls = _shards(tmp_path / "jpeg", n_shards=1, per_shard=12, jpeg=True)
+    for raw in wds.iterate_tar_samples(wds.expand_urls(urls)[0]):
+        image, _ = wds.sample_parts(raw)
+        for draft in (None, 24, 50, 90):
+            want_img, _ = jax_wds.decode_sample(raw, draft)
+            np.testing.assert_array_equal(
+                decode_image(image, draft),
+                np.asarray(want_img.convert("RGB")))
     assert wds.sample_parts({"__key__": "x", "txt": b"no image"}) is None
     assert wds.sample_parts({"__key__": "x", "png": b"", "json": b"[1]"}) \
         is None
@@ -384,17 +423,25 @@ def test_synthetic_batches_match_jax():
 
 
 def test_image_folder_batches_match_jax(tmp_path):
+    """PNG files, then JPEG files (decoded whole, as the JAX loader's
+    `Image.open` decodes them, though they are 3 to 5 times the crop)."""
     rng = np.random.RandomState(6)
-    for c in ("cat", "dog"):
-        (tmp_path / c).mkdir()
-        for i in range(3):
-            Image.fromarray(rng.randint(0, 255, (40, 26, 3), np.uint8)).save(
-                tmp_path / c / f"{i}.png")
-    got = list(image_folder.image_folder_batches(str(tmp_path), 2, 32,
-                                                 is_train=False, epochs=1))
-    want = list(jax_folder.image_folder_batches(str(tmp_path), 2, 32,
-                                                is_train=False, epochs=1))
-    assert len(got) == len(want) == 3
-    for (gi, gl), (wi, wl) in zip(got, want):
-        np.testing.assert_array_equal(gl, wl)
-        np.testing.assert_array_equal(gi, wi)
+    for root, ext in ((tmp_path / "png", "png"), (tmp_path / "jpg", "jpg")):
+        for c in ("cat", "dog"):
+            (root / c).mkdir(parents=True)
+            for i in range(3):
+                if ext == "png":
+                    pix = rng.randint(0, 255, (40, 26, 3), np.uint8)
+                else:
+                    pix = photo(100 + 10 * i, 160 - 20 * i, seed=i)
+                Image.fromarray(pix).save(root / c / f"{i}.{ext}")
+        got = list(image_folder.image_folder_batches(str(root), 2, 32,
+                                                     is_train=False,
+                                                     epochs=1))
+        want = list(jax_folder.image_folder_batches(str(root), 2, 32,
+                                                    is_train=False,
+                                                    epochs=1))
+        assert len(got) == len(want) == 3
+        for (gi, gl), (wi, wl) in zip(got, want):
+            np.testing.assert_array_equal(gl, wl)
+            np.testing.assert_array_equal(gi, wi)

@@ -44,6 +44,27 @@ def test_port_imports_no_jax_and_nothing_of_the_jax_package():
     assert bad == []
 
 
+def test_port_imports_no_pil_outside_the_fixture_writer():
+    """The card's machine has no PIL: no port module (nor chip_smoke.py)
+    imports it at module level, and only the JPEG fixture writer
+    (`tools/jpeg_goldens.py`, run where Pillow is installed) imports it,
+    inside the functions that encode and decode with Pillow."""
+    writer = os.path.join(PKG, "tools", "jpeg_goldens.py")
+    bad = []
+    for path in _port_sources():
+        tree = ast.parse(open(path, encoding="utf-8").read(), path)
+        top = {id(n) for n in tree.body}
+        for node in ast.walk(tree):
+            names = ([a.name for a in node.names]
+                     if isinstance(node, ast.Import) else
+                     [node.module or ""] if isinstance(node, ast.ImportFrom)
+                     else [])
+            if any(n.split(".")[0] == "PIL" for n in names) and (
+                    path != writer or id(node) in top):
+                bad.append((os.path.relpath(path, ROOT), node.lineno))
+    assert bad == []
+
+
 def test_create_model_without_device_needs_cuda():
     if torch.cuda.is_available():
         pytest.skip("a CUDA device is present")
