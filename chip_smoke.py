@@ -167,7 +167,28 @@ imports nothing of JAX or of the JAX package. Phases, each of which raises
      and with the train transform (each rate over windows of at least
      JPEG_RATE_WINDOW_S), beside the host's CPU and CPU count.
      The phase must end within 60 s, and then stops the decode workers'
-     forkserver and resource tracker.
+     forkserver and resource tracker. The fixtures include corrupt files
+     (saturating IDCT, smoothed progressive scans) whose digests are
+     Pillow's decode of them too;
+ 13. recipes: the CLIP trainer's recipe flags through
+     `pretrain_clip.main`, in this process, on ViT-B-16-SigLIP (12 x 768
+     both towers, 224 px, context 64, a bidirectional text tower pooled at
+     its last token, a learned logit bias): (a) pure_bf16, synthetic data,
+     --siglip --accum-freq 2 --force-patch-dropout 0.5 at batch 256 (two
+     blocks of 128; vision S = 99, text S = 64, both on the one-pass
+     fused-MHA kernels), 2 warm-up and 5 timed steps, each launching
+     exactly the cache pass's forwards without P, the blocks' forwards with
+     P and their backwards, finite losses, the last below the first, the
+     step median and samples/s; (b) LiT: --lock-image
+     --lock-image-unlocked-groups 2 --siglip at bf16 (fp32 master
+     weights), batch 128, no patch dropout (vision S = 197 on the wgmma
+     kernels), 3 steps, then --lock-text for 2: every locked parameter
+     bit-equal before and after, every unlocked one moved, logit_bias
+     still -10 (the JAX step never gives the loss the bias); (c) one fp32 --siglip --accum-freq 2
+     --force-patch-dropout 0.5 step at two layers a tower, card against
+     CPU, and on the card the summed block gradients of --accum-freq 2
+     against the --accum-freq 1 gradient of the same batch without patch
+     dropout, within 1e-4 of each gradient's norm. Within 60 s.
 
 Before its last lines the script fails if a process it started (a build,
 a decode worker, the forkserver, the resource tracker) is still alive.
@@ -344,6 +365,38 @@ JPEG_RECIPE = ["--lr", "1e-4", "--warmup", "2"]
 JPEG_RATE_WINDOWS, JPEG_RATE_WINDOW_S = 2, 0.5
 SMOKE_DIR = REPO / "_smoke"
 TRAINER_PHASE_LIMIT_S = 60.0
+
+# phase 13: the recipe flags on ViT-B-16-SigLIP through the trainer. (a)
+# the SigLIP recipe with accumulation and patch dropout, RECIPE_WARMUP +
+# RECIPE_STEPS steps at RECIPE_BATCH in RECIPE_ACCUM blocks; (b) LiT at
+# LIT_BATCH, each of LIT_RUNS; (c) fp32 parity at RECIPE_PARITY_LAYERS a
+# tower and batch RECIPE_PARITY_BATCH. Within RECIPE_PHASE_LIMIT_S.
+RECIPE_MODEL = "ViT-B-16-SigLIP"
+RECIPE_BATCH, RECIPE_ACCUM, RECIPE_PATCH_DROPOUT = 256, 2, 0.5
+RECIPE_WARMUP, RECIPE_STEPS = 2, 5
+RECIPE_SIGLIP = [
+    "--model", RECIPE_MODEL, "--precision", "pure_bf16", "--batch-size",
+    str(RECIPE_BATCH), "--dataset-type", "synthetic", "--train-num-samples",
+    str(RECIPE_BATCH * (RECIPE_WARMUP + RECIPE_STEPS)), "--siglip",
+    "--accum-freq", str(RECIPE_ACCUM), "--force-patch-dropout",
+    str(RECIPE_PATCH_DROPOUT), "--lr", "1e-4", "--warmup", "2",
+    "--grad-clip-norm", "1.0", "--log-interval", "1"]
+LIT_BATCH, LIT_UNLOCKED = 128, 2
+# (b)'s runs: the tower locked, its unlocked groups or layers, the steps
+LIT_RUNS = (("image", LIT_UNLOCKED, 3), ("text", 0, 2))
+
+
+def recipe_lit_argv(tower: str, unlocked: int, steps: int) -> list:
+    unlocked_flag = ("--lock-image-unlocked-groups" if tower == "image"
+                     else "--lock-text-unlocked-layers")
+    return ["--model", RECIPE_MODEL, "--precision", "bf16", "--batch-size",
+            str(LIT_BATCH), "--dataset-type", "synthetic",
+            "--train-num-samples", str(LIT_BATCH * steps), "--siglip",
+            f"--lock-{tower}", unlocked_flag, str(unlocked), "--lr", "1e-3",
+            "--warmup", "2", "--grad-clip-norm", "1.0", "--log-interval",
+            "1"]
+RECIPE_PARITY_LAYERS, RECIPE_PARITY_BATCH = 2, 8
+RECIPE_PHASE_LIMIT_S = 60.0
 
 
 _T0 = time.perf_counter()
@@ -919,6 +972,38 @@ ONE_PASS_LENGTHS = (1, 7, 50, 64, 65, 77, 127, 128)
 ONE_PASS_PATHS = ((TRAIN_BATCH, 8), (SERVE_BATCH, 8), (64, 12), (24, 16))
 
 
+def recipe_shapes() -> tuple:
+    """Phase 13's shapes, from RECIPE_MODEL's config: the attention's
+    (tower, B, S, H, D, causal) in (a)'s blocks of RECIPE_BATCH /
+    RECIPE_ACCUM rows (the vision tower under patch dropout; the cache
+    pass runs the same shapes) and in (b)'s LIT_BATCH rows (the whole
+    vision sequence); and the LayerNorms' (rows, width): each tower's
+    B * S rows, and its B pooled rows (ln_post, ln_final at pool_type
+    "last")."""
+    from megatron_clip_tpu_torch.factory import (get_model_config,
+                                                 parse_model_cfg)
+    cfg = parse_model_cfg(get_model_config(RECIPE_MODEL))
+    v, t = cfg.vision, cfg.text
+    kept = 1 + max(1, int(v.grid ** 2 * (1 - RECIPE_PATCH_DROPOUT)))
+    attention, norms = set(), set()
+    for b, vision_seq in ((RECIPE_BATCH // RECIPE_ACCUM, kept),
+                          (LIT_BATCH, v.seq_len)):
+        for tower, s, h, w, causal in (
+                ("vision", vision_seq, v.heads, v.width, False),
+                ("text", t.context_length, t.heads, t.width,
+                 not t.no_causal_mask)):
+            attention.add((tower, b, s, h, w // h, causal))
+            norms |= {(b * s, w), (b, w)}
+    return sorted(attention), sorted(norms)
+
+
+def recipe_one_pass() -> list:
+    """Phase 13's attention shapes the one-pass kernels take (S <= 128,
+    D = 64), as (B, S, H, causal)."""
+    return [(b, s, h, causal) for _, b, s, h, d, causal in recipe_shapes()[0]
+            if s <= 128 and d == 64]
+
+
 def one_pass_checks(errs, gen, mha) -> None:
     """The one-pass forward (wgmma at S <= 64, mma.sync past it) asked for
     by its route, in each mode, against the plain version as phase 3 holds
@@ -927,6 +1012,7 @@ def one_pass_checks(errs, gen, mha) -> None:
     dt, d = torch.bfloat16, 64
     cases = [(2, 3, s, c) for s in ONE_PASS_LENGTHS for c in (False, True)]
     cases += [(b, h, 77, True) for b, h in ONE_PASS_PATHS]
+    cases += [(b, h, s, c) for b, s, h, c in recipe_one_pass()]
     for b, h, s, causal in cases:
         x = torch.randn(b, s, 3 * h * d, device="cuda", generator=gen,
                         dtype=dt)
@@ -975,7 +1061,8 @@ def one_pass_bwd_checks(errs, gen, mha) -> None:
     dt, d = torch.bfloat16, 64
     scale = d ** -0.5
     cases = [(2, s, 3, c) for s in ONE_PASS_BWD_LENGTHS for c in (False, True)]
-    for b, s, h, causal in cases + list(ONE_PASS_BWD_PATHS):
+    for b, s, h, causal in cases + list(ONE_PASS_BWD_PATHS) + \
+            recipe_one_pass():
         x = torch.randn(b, s, 3 * h * d, device="cuda", generator=gen,
                         dtype=dt)
         g = torch.randn(b, s, h * d, device="cuda", generator=gen, dtype=dt)
@@ -2005,28 +2092,15 @@ def sm90_tile_checks(gen) -> None:
                         want, 1e-4, 1e-5)
 
 
-def phase_kernels(mha, ln):
-    """Kernel vs plain version; returns the worst errors per kernel and
-    kind of comparison."""
-    log("[3] kernels vs plain versions")
-    gen = torch.Generator(device="cuda").manual_seed(0)
-    errs = {name: {} for name in KERNELS}
-    sm90_tile_checks(gen)
-    for b, s, h, d, causal in [(TRAIN_BATCH, 50, 12, 64, False),
-                               (TRAIN_BATCH, 77, 8, 64, True),
-                               (SERVE_BATCH, 50, 12, 64, False),
-                               (SERVE_BATCH, 77, 8, 64, True),
-                               (4, 257, 16, 64, False),   # ViT-L vision
-                               (4, 257, 16, 80, False),   # ViT-H vision
-                               (4, 77, 16, 64, True),     # L/H text
-                               *(leg[2:] for leg in LEG_ATTENTION),
-                               (2, 1024, 2, 128, False),
-                               (2, 1024, 2, 128, True),
-                               (4, 197, 12, 64, False),
-                               (2, 300, 4, 64, True),
-                               (2, 257, 16, 80, False),
-                               (3, 33, 2, 40, True),
-                               (2, 45, 3, 36, True)]:
+def routed_mha_checks(errs, gen, mha, shapes) -> None:
+    """The fused-MHA forwards and both backwards on the route fused_mha.cu
+    picks, fp32 and bf16, at each (B, S, H, D, causal) of `shapes`, against
+    their plain versions (bf16 row by row too); the saved-P backward's
+    wgmma checks (`saved_bwd_checks`) where its shape is in
+    SAVED_BWD_SHAPES or is phase 13's past S = 128."""
+    saved = set(SAVED_BWD_SHAPES) | {
+        shape[1:] for shape in recipe_shapes()[0] if shape[2] > 128}
+    for b, s, h, d, causal in shapes:
         qkv = torch.randn(b, s, 3 * h * d, device="cuda", generator=gen)
         do = torch.randn(b, s, h * d, device="cuda", generator=gen)
         scale = d ** -0.5
@@ -2072,7 +2146,7 @@ def phase_kernels(mha, ln):
             if dtype == torch.bfloat16:
                 check_mha_rows(errs, "fused_mha_bwd", label, got, bwd_plain,
                                h)
-                if (b, s, h, d, causal) in SAVED_BWD_SHAPES:
+                if (b, s, h, d, causal) in saved:
                     saved_bwd_checks(errs, mha, label, x, g, p, h, causal,
                                      got, bwd_plain)
             del got, bwd_plain
@@ -2086,28 +2160,13 @@ def phase_kernels(mha, ln):
                 check_mha_rows(errs, "fused_mha_bwd_recompute", label, got,
                                rc_plain, h)
             del got, rc_plain
-    one_pass_checks(errs, gen, mha)
-    one_pass_bwd_checks(errs, gen, mha)
-    smajor_views(mha, gen)
-    flash_checks(errs, gen)
-    flash_views(gen)
-    fused_ce_checks(errs, gen)
-    fused_dropout_checks(errs, gen, mha)
-    flash_dropout_checks(errs, gen)
-    from megatron_clip_tpu_torch.ops.kernels import _build
-    dropout_teeth(_build, gen, mha)
-    fwd_teeth(_build, gen, mha)
-    bwd_teeth(_build, gen, mha)
-    # the legs' LayerNorms: rows B*S at the tower's width H*D; GPT-345m's
-    # and the pipeline GPT's: rows B*S at their widths
-    legs_ln = [(b * s, h * d) for _, _, b, s, h, d, _ in LEG_ATTENTION]
-    pipeline_rows = sorted({b * s for b, s, *_ in PIPELINE_RUNS
-                            + (PIPELINE_LONG,)})
-    gpt_ln = [(b * s, GPT_345M["hidden_size"]) for b, s in GPT_SHAPES] + [
-        (rows, PIPELINE_GPT["hidden_size"]) for rows in pipeline_rows]
-    for rows, w in [(TRAIN_BATCH * 50, 768), (TRAIN_BATCH * 77, 512),
-                    (SERVE_BATCH * 50, 768), (SERVE_BATCH * 77, 512),
-                    *legs_ln, *gpt_ln, (1000, 768), (5, 100), (3, 4100)]:
+
+
+def layer_norm_checks(errs, gen, ln, shapes) -> None:
+    """LayerNorm forward and backward, fp32 and bf16, at each (rows, width)
+    of `shapes`, against their plain versions; a bf16 scale and bias too
+    (`norm_param_checks`)."""
+    for rows, w in shapes:
         x = torch.randn(rows, w, device="cuda", generator=gen) * 3 + 1
         dy = torch.randn(rows, w, device="cuda", generator=gen)
         scale = torch.randn(w, device="cuda", generator=gen)
@@ -2132,6 +2191,50 @@ def phase_kernels(mha, ln):
                 errs["layer_norm_bwd"]["sums"] = max(
                     errs["layer_norm_bwd"].get("sums", 0.0), e)
             norm_param_checks(ln, "layer_norm", label, xd, gd, scale, bias)
+
+
+def phase_kernels(mha, ln):
+    """Kernel vs plain version; returns the worst errors per kernel and
+    kind of comparison."""
+    log("[3] kernels vs plain versions")
+    gen = torch.Generator(device="cuda").manual_seed(0)
+    errs = {name: {} for name in KERNELS}
+    sm90_tile_checks(gen)
+    recipe = recipe_shapes()
+    routed_mha_checks(errs, gen, mha, [
+        (TRAIN_BATCH, 50, 12, 64, False), (TRAIN_BATCH, 77, 8, 64, True),
+        (SERVE_BATCH, 50, 12, 64, False), (SERVE_BATCH, 77, 8, 64, True),
+        (4, 257, 16, 64, False),   # ViT-L vision
+        (4, 257, 16, 80, False),   # ViT-H vision
+        (4, 77, 16, 64, True),     # L/H text
+        *(leg[2:] for leg in LEG_ATTENTION),
+        (2, 1024, 2, 128, False), (2, 1024, 2, 128, True),
+        (4, 197, 12, 64, False), (2, 300, 4, 64, True),
+        (2, 257, 16, 80, False), (3, 33, 2, 40, True), (2, 45, 3, 36, True),
+        *(shape[1:] for shape in recipe[0])])
+    one_pass_checks(errs, gen, mha)
+    one_pass_bwd_checks(errs, gen, mha)
+    smajor_views(mha, gen)
+    flash_checks(errs, gen)
+    flash_views(gen)
+    fused_ce_checks(errs, gen)
+    fused_dropout_checks(errs, gen, mha)
+    flash_dropout_checks(errs, gen)
+    from megatron_clip_tpu_torch.ops.kernels import _build
+    dropout_teeth(_build, gen, mha)
+    fwd_teeth(_build, gen, mha)
+    bwd_teeth(_build, gen, mha)
+    # the legs' LayerNorms: rows B*S at the tower's width H*D; GPT-345m's
+    # and the pipeline GPT's: rows B*S at their widths; phase 13's
+    legs_ln = [(b * s, h * d) for _, _, b, s, h, d, _ in LEG_ATTENTION]
+    pipeline_rows = sorted({b * s for b, s, *_ in PIPELINE_RUNS
+                            + (PIPELINE_LONG,)})
+    gpt_ln = [(b * s, GPT_345M["hidden_size"]) for b, s in GPT_SHAPES] + [
+        (rows, PIPELINE_GPT["hidden_size"]) for rows in pipeline_rows]
+    layer_norm_checks(errs, gen, ln, [
+        (TRAIN_BATCH * 50, 768), (TRAIN_BATCH * 77, 512),
+        (SERVE_BATCH * 50, 768), (SERVE_BATCH * 77, 512), *legs_ln, *gpt_ln,
+        *recipe[1], (1000, 768), (5, 100), (3, 4100)])
     rms_checks(errs, gen, ln)
     ln_bwd_teeth(_build, gen, ln)
     return errs
@@ -2359,6 +2462,55 @@ def leg_attention_rows(mha, gen, leg, tower, b, s, h, d, causal) -> list:
                     f"{ms:.4f}" for ms in row["library_readings_ms"]) + " ms")
             rows.append(row)
             del p
+    return rows
+
+
+def siglip_attention_rows(mha, gen) -> list:
+    """bf16 rows of phase 13's attention (`recipe_shapes`): the forward
+    without P (the accumulation's cache pass), the forward with P and the
+    saved-P backward (its blocks, and LiT's steps), each beside SDPA's
+    forward or backward on pre-split q, k, v and, at the one-pass kernels'
+    shapes, on tc:: and the one-pass kernel, in the same call."""
+    dt = torch.bfloat16
+    rows = []
+    for tower, b, s, h, d, causal in recipe_shapes()[0]:
+        qkv = torch.randn(b, s, 3 * h * d, device="cuda", generator=gen,
+                          dtype=dt)
+        do = torch.randn(b, s, h * d, device="cuda", generator=gen, dtype=dt)
+        q, k, v = (t.contiguous() for t in qkv.reshape(
+            b, s, 3, h, d).permute(2, 0, 3, 1, 4).unbind(0))
+        lq, lk, lv = (t.detach().requires_grad_(True) for t in (q, k, v))
+        lo = F.scaled_dot_product_attention(lq, lk, lv, is_causal=causal)
+        ldo = do.reshape(b, s, h, d).transpose(1, 2).contiguous()
+
+        def sdpa_fwd():
+            return F.scaled_dot_product_attention(q, k, v, is_causal=causal)
+
+        def sdpa_bwd():
+            return torch.autograd.grad(lo, (lq, lk, lv), ldo,
+                                       retain_graph=True)
+        shape = (f"SigLIP {tower} B={b} S={s} H={h} D={d} causal={causal} "
+                 "bf16")
+        for probs in (False, True):
+            rows.append(timing_row(
+                "fused_mha_fwd", shape + (" with P" if probs else ""),
+                lambda: mha.fused_mha_fwd(qkv, h, causal=causal,
+                                          with_probs=probs),
+                lambda: mha.fused_mha_plain(qkv, h, d ** -0.5, causal,
+                                            with_probs=probs),
+                sdpa_fwd, mha_cost(b, s, h, d, causal, 2, with_probs=probs),
+                dt))
+            add_route_times(rows[-1], lambda r: mha.fused_mha_fwd(
+                qkv, h, causal=causal, with_probs=probs, route=r), qkv, h)
+        _, p = mha.fused_mha_fwd(qkv, h, causal=causal, with_probs=True)
+        rows.append(timing_row(
+            "fused_mha_bwd", shape,
+            lambda: mha.fused_mha_bwd(qkv, do, p, h, causal=causal),
+            lambda: mha.fused_mha_bwd_plain(qkv, do, p, h, d ** -0.5),
+            sdpa_bwd, mha_bwd_cost(b, s, h, d, causal, 2), dt))
+        add_route_times(rows[-1], lambda r: mha.fused_mha_bwd(
+            qkv, do, p, h, causal=causal, route=r), qkv, h)
+        del qkv, do, q, k, v, lq, lk, lv, lo, ldo, p
     return rows
 
 
@@ -2757,6 +2909,7 @@ def phase_timings(mha, ln):
     for leg, tower, b, s, h, d, causal in LEG_ATTENTION:
         rows.extend(leg_attention_rows(mha, gen, leg, tower, b, s, h, d,
                                        causal))
+    rows.extend(siglip_attention_rows(mha, gen))
     for b, s in GPT_SHAPES:
         rows.extend(flash_rows(gen, b, s))
     for tower, s, w in (("vision", 50, 768), ("text", 77, 512)):
@@ -4124,6 +4277,216 @@ def phase_trainer(mha, ln, card: str, phase7: dict) -> dict:
     return result
 
 
+def recipe_per_step(cfg, microbatches: int) -> dict:
+    """Kernel launches of one accumulated step (saved P): the cache pass's
+    forwards without P and the blocks' forwards with P, M each, and the
+    blocks' M backwards; one block's are `per_step_launches`'."""
+    one = per_step_launches(cfg, save_probs=True)
+    return {k: v * (2 * microbatches if k.endswith("_fwd") else microbatches)
+            for k, v in one.items()}
+
+
+def recipe_siglip(main, loop, mha, ln, cfg) -> dict:
+    """(a): ViT-B-16-SigLIP, --siglip --accum-freq 2 --force-patch-dropout
+    0.5, pure_bf16, synthetic data; the step's exact launches, finite
+    losses falling from the first to the last, the step interval's median
+    (host clock between step starts, the loop waiting for each loss) and
+    samples/s over the timed steps."""
+    per_step = recipe_per_step(cfg, RECIPE_ACCUM)
+    with TrainerProbe(loop, mha, ln, per_step) as probe:
+        final = main(RECIPE_SIGLIP)
+    losses = probe.loss_values()
+    if len(losses) != RECIPE_WARMUP + RECIPE_STEPS or \
+            not all(math.isfinite(v) for v in losses) or \
+            not losses[-1] < losses[0]:
+        raise AssertionError(f"recipe (a): losses {losses}")
+    starts = [a for a, _ in probe.host]
+    timed = list(range(RECIPE_WARMUP, len(starts) - 1))
+    intervals = [(starts[i + 1] - starts[i]) * 1e3 for i in timed]
+    result = {"batch": RECIPE_BATCH, "microbatches": RECIPE_ACCUM,
+              "patch_dropout": RECIPE_PATCH_DROPOUT,
+              "vision_seq": 1 + max(1, int(cfg.vision.grid ** 2
+                                           * (1 - RECIPE_PATCH_DROPOUT))),
+              "step_interval_ms_median": float(np.median(intervals)),
+              "samples_per_s": RECIPE_BATCH * len(timed)
+              / (starts[timed[-1] + 1] - starts[timed[0]]),
+              "host_ms_in_step_median": float(np.median(
+                  [(probe.host[i][1] - probe.host[i][0]) * 1e3
+                   for i in timed])),
+              "per_step_launches": per_step, "losses": losses,
+              "final": final, "launches": probe.launches}
+    log(f"  (a) SigLIP, accum {RECIPE_ACCUM}, patch dropout "
+        f"{RECIPE_PATCH_DROPOUT}, batch {RECIPE_BATCH}: step interval "
+        f"median {result['step_interval_ms_median']:.2f} ms, "
+        f"{result['samples_per_s']:.1f} samples/s, losses "
+        f"{losses[0]:.4f} -> {losses[-1]:.4f}")
+    return result
+
+
+class ModelProbe:
+    """Keeps the model `pretrain_clip.main` builds (the loop's
+    factory.create_model wrapped while the run lasts) and a copy of its
+    parameters as built."""
+
+    def __init__(self, loop):
+        self.factory = loop.factory
+
+    def __enter__(self):
+        self._create = create = self.factory.create_model
+        probe = self
+
+        def created(*args, **kw):
+            probe.model = create(*args, **kw)
+            probe.start = {n: p.detach().clone()
+                           for n, p in probe.model.named_parameters()}
+            return probe.model
+        self.factory.create_model = created
+        return self
+
+    def __exit__(self, *exc):
+        self.factory.create_model = self._create
+        return False
+
+
+def recipe_lit(main, loop, mha, ln, cfg, tower: str, unlocked: int,
+               steps: int) -> dict:
+    """(b): LiT on ViT-B-16-SigLIP (--lock-image --lock-image-unlocked-groups
+    2, then --lock-text, bf16 on fp32 weights): the step's exact
+    launches, finite losses, every locked parameter bit-equal to its
+    start, every unlocked one moved but logit_bias, which stays at -10:
+    the JAX step calls the loss without it, so its gradient is zero."""
+    from megatron_clip_tpu_torch.training.optim import tower_lock_mask
+    per_step = per_step_launches(cfg, save_probs=True)
+    with ModelProbe(loop) as built, \
+            TrainerProbe(loop, mha, ln, per_step) as probe:
+        final = main(recipe_lit_argv(tower, unlocked, steps))
+    losses = probe.loss_values()
+    if len(losses) != steps or not all(math.isfinite(v) for v in losses):
+        raise AssertionError(f"recipe (b) {tower}: losses {losses}")
+    model = built.model
+    mask = tower_lock_mask(
+        dict(model.named_parameters()), lock_image=tower == "image",
+        image_unlocked_groups=unlocked, lock_text=tower == "text",
+        text_unlocked_layers=unlocked)
+    locked = sorted(n for n, m in mask.items() if m == 0.0)
+    moved, still = [], []
+    for n, p in model.named_parameters():
+        (still if torch.equal(p.detach(), built.start[n]) else moved).append(n)
+    wrong = sorted(set(locked) ^ (set(still) - {"logit_bias"}))
+    bias = float(model.logit_bias.detach())
+    result = {"tower": tower, "batch": LIT_BATCH, "unlocked": unlocked,
+              "locked_parameters": len(locked),
+              "locked_elements": sum(model.get_parameter(n).numel()
+                                     for n in locked),
+              "moved_parameters": len(moved), "logit_bias": bias,
+              "losses": losses, "final": final, "launches": probe.launches}
+    log(f"  (b) LiT, --lock-{tower} ({unlocked} unlocked): {len(locked)} "
+        f"locked parameters ({result['locked_elements']} elements) "
+        f"bit-equal, {len(moved)} moved, logit_bias {bias}, losses "
+        f"{losses}")
+    if wrong or bias != -10.0 or not locked:
+        raise AssertionError(f"recipe (b) {tower}: locked but moved or "
+                             f"unlocked but still: {wrong[:8]}; logit_bias "
+                             f"{bias}")
+    del model, built.model, built.start
+    return result
+
+
+def recipe_parity(port) -> dict:
+    """(c): one fp32 --siglip --accum-freq 2 --force-patch-dropout 0.5
+    step at RECIPE_PARITY_LAYERS a tower, card against CPU
+    (`card_vs_cpu`); then on the card the summed block gradients of
+    --accum-freq 2 against the --accum-freq 1 gradient of the same batch
+    without patch dropout, each gradient within GRAD_REL_TOL of its norm
+    (logit_bias's: 0 in both)."""
+    from megatron_clip_tpu_torch.factory import get_model_config
+    from megatron_clip_tpu_torch.losses import SigLipLoss
+    from megatron_clip_tpu_torch.training import (TrainState, cosine_lr,
+                                                  make_optimizer,
+                                                  make_train_step)
+    base = get_model_config(RECIPE_MODEL)
+    over = {"vision_cfg": dict(base["vision_cfg"],
+                               layers=RECIPE_PARITY_LAYERS),
+            "text_cfg": dict(base["text_cfg"], layers=RECIPE_PARITY_LAYERS)}
+    data = []
+
+    def step(device, microbatches, rate):
+        model = port.create_model(
+            RECIPE_MODEL, precision="fp32", seed=0, device=device,
+            **dict(over, vision_cfg=dict(over["vision_cfg"],
+                                         patch_dropout=rate))).train()
+        if not data:
+            data.extend(train_batch(model.cfg, RECIPE_PARITY_BATCH, seed=1))
+        opt = make_optimizer(model, cosine_lr(1e-3, 100, 10000),
+                             grad_clip_norm=1.0)
+        grads = keep_grads(opt)
+        t0 = time.perf_counter()
+        _, m = make_train_step(model, opt, loss_obj=SigLipLoss(),
+                               microbatches=microbatches, seed=0)(
+            TrainState.create(model, opt), *(t.to(device) for t in data))
+        took = time.perf_counter() - t0
+        del opt.update
+        return (float(m["loss"]), float(m["grad_norm"]), grads,
+                {n: p.detach().cpu() for n, p in model.named_parameters()},
+                took)
+    res = {"card_vs_cpu": card_vs_cpu(
+        f"{RECIPE_MODEL} at {RECIPE_PARITY_LAYERS} layers a tower, siglip, "
+        f"accum {RECIPE_ACCUM}, patch dropout {RECIPE_PATCH_DROPOUT}",
+        lambda device: step(device, RECIPE_ACCUM, RECIPE_PATCH_DROPOUT),
+        param_tol=1e-6)}
+    whole = step("cuda", 1, 0.0)[2]
+    acc = step("cuda", RECIPE_ACCUM, 0.0)[2]
+    errs = {n: float((acc[n] - g).norm() / g.norm())
+            for n, g in whole.items() if n != "logit_bias"}
+    worst = max(errs, key=errs.get)
+    res["accum_vs_whole"] = {"worst_leaf": worst,
+                             "worst_rel_err": errs[worst],
+                             "logit_bias_grads": [
+                                 float(whole["logit_bias"]),
+                                 float(acc["logit_bias"])]}
+    log(f"  (c) accum {RECIPE_ACCUM} against the whole batch on the card: "
+        f"{json.dumps(res['accum_vs_whole'])}")
+    if errs[worst] > GRAD_REL_TOL or \
+            res["accum_vs_whole"]["logit_bias_grads"] != [0.0, 0.0]:
+        raise AssertionError("the accumulated gradient differs from the "
+                             "whole batch's")
+    torch.cuda.empty_cache()
+    return res
+
+
+def phase_recipes(mha, ln, card: str) -> dict:
+    log(f"[13] recipes: pretrain_clip.main on the card, {RECIPE_MODEL}: (a) "
+        f"--siglip --accum-freq {RECIPE_ACCUM} --force-patch-dropout "
+        f"{RECIPE_PATCH_DROPOUT}, pure_bf16, batch {RECIPE_BATCH}, "
+        f"{RECIPE_WARMUP} + {RECIPE_STEPS} steps; (b) --lock-image "
+        f"--lock-image-unlocked-groups {LIT_UNLOCKED}, then --lock-text, "
+        f"batch {LIT_BATCH}; (c) fp32 parity")
+    t0 = time.perf_counter()
+    import megatron_clip_tpu_torch as port
+    from megatron_clip_tpu_torch.factory import (get_model_config,
+                                                 parse_model_cfg)
+    from megatron_clip_tpu_torch.pretrain_clip import main
+    from megatron_clip_tpu_torch.training import loop
+    cfg = parse_model_cfg(get_model_config(RECIPE_MODEL))
+    result = {"card": card}
+    parts = {"siglip": lambda: recipe_siglip(main, loop, mha, ln, cfg),
+             **{f"lit_{tower}": functools.partial(
+                 recipe_lit, main, loop, mha, ln, cfg, tower, unlocked, steps)
+                for tower, unlocked, steps in LIT_RUNS},
+             "parity": lambda: recipe_parity(port)}
+    for name, part in parts.items():
+        t_part = time.perf_counter()
+        result[name] = part()
+        result[name]["seconds"] = time.perf_counter() - t_part
+        torch.cuda.empty_cache()
+    result["seconds"] = time.perf_counter() - t0
+    log(f"  recipes: {json.dumps(result)}")
+    if result["seconds"] > RECIPE_PHASE_LIMIT_S:
+        raise AssertionError(f"phase 13 took {result['seconds']:.1f} s, "
+                             f"over {RECIPE_PHASE_LIMIT_S} s")
+    return result
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; this script runs only on the GPU",
@@ -4151,6 +4514,7 @@ def main() -> int:
     example = phase_example(mha, ln, card, gpt)
     pipeline = phase_pipeline(mha, ln, card)
     trainer = phase_trainer(mha, ln, card, train)
+    recipes = phase_recipes(mha, ln, card)
     paths = {"serving ViT-B-32": serving["launches"],
              "train ViT-B-32": train["launches"],
              **{f"train {name} recompute": run["launches"]
@@ -4165,7 +4529,12 @@ def main() -> int:
              **{f"train pipeline GPT {key}": run["launches"]
                 for key, run in pipeline.items() if key != "parity"},
              **{f"trainer ViT-B-32 {key}": trainer[key]["launches"]
-                for key in ("synthetic", "webdataset", "csv", "jpeg")}}
+                for key in ("synthetic", "webdataset", "csv", "jpeg")},
+             f"trainer {RECIPE_MODEL} siglip accum patch dropout":
+                 recipes["siglip"]["launches"],
+             **{f"trainer {RECIPE_MODEL} LiT {tower}":
+                recipes[f"lit_{tower}"]["launches"]
+                for tower, _, _ in LIT_RUNS}}
     kernels = kernels_line(rows, paths, errs)
     idle = [k["name"] for k in kernels if k["launches"] == 0]
     if idle:

@@ -16,6 +16,7 @@ unstacked into `blocks.{i}`:
   text/tok_embed, pos_embed               text.tok_embed, text.pos_embed
   text/ln_final/{scale,bias}, proj/w      text.ln_final.scale, text.proj.w
   logit_scale  []                         logit_scale
+  logit_bias  [] (SigLIP models)          logit_bias
 
 The same flattening carries an optax state's moments (`opt_state_from_jax`)
 and maps a JAX gradient tree onto the port's names. A GPT tree

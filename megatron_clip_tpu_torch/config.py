@@ -2,9 +2,11 @@
 
 Mirrors `megatron_clip_tpu/config.py` (Precision, TransformerCfg, VisionCfg,
 TextCfg, CLIPCfg) with torch dtypes in place of jnp ones. Only the fields the
-ported paths read are kept: the ViT CLIP towers (no layer scale, no pooling
-choice, no ln_pre or causal-mask switch, no text-projection bias:
-`create_model` rejects those keys until the slice that needs them) and what
+ported paths read are kept: the ViT CLIP towers with the text tower's
+causal-mask switch and pooling, the vision tower's patch dropout and the
+learned logit bias (SigLIP), but no layer scale, no vision pooling choice, no
+ln_pre switch and no text-projection bias (`create_model` rejects those keys
+until the slice that needs them), and what
 `GPTCfg.transformer()` sets on the GPT paths (megatron's init, the bias
 switch, gelu_tanh or swiglu, LayerNorm or RMSNorm, rotary embeddings,
 grouped-query attention, the dropout rates and activation recompute; not
@@ -123,6 +125,9 @@ class VisionCfg:
     mlp_ratio: float = 4.0
     patch_size: int = 16
     image_size: int = 224
+    # open_CLIP PatchDropout (FLIP): the share of patches dropped in the
+    # train step, never in eval forwards
+    patch_dropout: float = 0.0
 
     @property
     def heads(self) -> int:
@@ -155,11 +160,21 @@ class TextCfg:
     heads: int = 8
     layers: int = 12
     mlp_ratio: float = 4.0
+    no_causal_mask: bool = False  # SigLIP text towers attend both ways
+    pool_type: str = "argmax"  # argmax (EOT) | first | last | none
+
+    def __post_init__(self):
+        if self.pool_type not in TEXT_POOL_TYPES:
+            raise ValueError(f"text pool_type={self.pool_type!r}: one of "
+                             f"{TEXT_POOL_TYPES}")
 
     def transformer(self, act: str) -> TransformerCfg:
         return TransformerCfg(layers=self.layers, width=self.width,
                               heads=self.heads, mlp_ratio=self.mlp_ratio,
                               act=act)
+
+
+TEXT_POOL_TYPES = ("argmax", "first", "last", "none")
 
 
 @dataclass(frozen=True)
@@ -171,6 +186,8 @@ class CLIPCfg:
     text: TextCfg = field(default_factory=TextCfg)
     quick_gelu: bool = False  # OpenAI checkpoints use x*sigmoid(1.702x)
     init_logit_scale: float = 2.659260036932778  # ln(1/0.07)
+    # a learned logit bias (SigLIP's, -10 in ViT-B-16-SigLIP); None: none
+    init_logit_bias: Optional[float] = None
 
     @property
     def act(self) -> str:

@@ -15,13 +15,22 @@
  *               while 512 bytes a block remain), so that data that ends
  *               early is refused exactly where libjpeg suspends and Pillow
  *               raises, and zero bits are read past a marker met inside
- *               entropy data where libjpeg reads them; tables 0 and 1 not
- *               defined by the first SOS are the standard ones (jstdhuff.c,
- *               for Motion-JPEG frames);
- *   IDCT        jidctint.c jpeg_idct_islow and jidctred.c jpeg_idct_4x4,
- *               _2x2 and _1x1 (libjpeg-turbo's SIMD versions are bit-exact
- *               with these), each component's scaled size chosen as
- *               jdmaster.c does;
+ *               entropy data where libjpeg reads them; in a sequential
+ *               file, tables 0 and 1 not defined by the first SOS are the
+ *               standard ones (jstdhuff.c, for Motion-JPEG frames);
+ *   smoothing   jdcoefct.c decompress_smooth_data: a progressive file
+ *               whose first nine AC coefficients are not all known when
+ *               the output starts (an EOI before the last scans, scans
+ *               never sent, a scan cut by a marker) is smoothed as
+ *               libjpeg-turbo smooths it;
+ *   IDCT        libjpeg-turbo's x86-64 SIMD IDCTs as Pillow runs them
+ *               (jidctint-avx2.asm for 8x8, jidctred-sse2.asm for 4x4 and
+ *               2x2; jidctred.c's 1x1), which equal jidctint.c and
+ *               jidctred.c on every valid file and saturate where those
+ *               wrap on coefficients only corrupt data reaches (the C
+ *               8x8 and 4x4 run first, a block whose values leave their
+ *               common range again on the SIMD path); each component's
+ *               scaled size chosen as jdmaster.c does;
  *   upsampling  jdsample.c: fancy h2v1, h2v2 and h1v2, and the box
  *               upsampler for the other integral factors (h1v2 and the
  *               factors past 2 are not written by Pillow and are untested
@@ -31,11 +40,8 @@
  *               YCCK->CMYK; CMYK read as Pillow's "CMYK;I" (inverted) and
  *               converted by Pillow's Convert.c cmyk2rgb.
  *
- * Not emulated: libjpeg's block smoothing of progressive files whose AC
- * coefficients are not all refined (a file with missing scans may then
- * differ; every complete progression decodes equal), and the SIMD IDCT's
- * 16-bit saturation of coefficients that only corrupt data reaches.
- * Arithmetic coding, lossless JPEG and sample precisions other than 8 bits
+ * Corrupt data that Pillow reads with warnings decodes as Pillow decodes
+ * it. Arithmetic coding, lossless JPEG and sample precisions other than 8 bits
  * are reported as not supported.
  *
  * Interface (plain C, loaded with ctypes):
@@ -144,8 +150,14 @@ typedef struct {
   int bw, bh;            /* width_in_blocks, height_in_blocks */
   int bwp, bhp;          /* blocks allocated: whole MCUs */
   int16_t *coef;         /* bhp x bwp blocks of 64, natural order */
-  int16_t quant[64];     /* latched at the component's first scan */
+  int16_t quant[64];     /* latched at the component's first scan, as
+                            libjpeg's ISLOW_MULT_TYPE (short) holds it */
+  uint16_t qval[64];     /* the same table unwrapped (block smoothing) */
   int latched;
+  int coef_bits[10];     /* jdphuff.c's coef_bits of zigzag 0..9: the
+                            current point transform Al, -1 before any
+                            scan */
+  int prev_bits[10];     /* the same before the component's last scan */
   int ss;                /* DCT scaled size: 8, 4, 2 or 1 */
   int dw, dh;            /* downsampled_width, downsampled_height */
   uint8_t *plane;        /* bh*ss rows of bw*ss samples */
@@ -178,6 +190,10 @@ typedef struct {
   int comps_in_scan;
   comp_t *scan[4];
   int Ss, Se, Ah, Al;
+  int scan_number;       /* jdinput.c's input_scan_number */
+  int last_good_imcu;    /* the last iMCU row of the last scan in which an
+                            MCU began with data left (jdcoefct.c's
+                            last_good_iMCU_row) */
   int next_restart_num, restarts_to_go, eobrun;
   int last_dc[4];
   int mcus_per_row, mcu_rows, blocks_in_mcu;
@@ -816,12 +832,16 @@ static void decode_block(dec_t *d, int ci, comp_t *c, int16_t *blk) {
 
 static void start_scan(dec_t *d) {
   int i;
+  d->scan_number++;
   for (i = 0; i < d->comps_in_scan; i++) { /* jdinput.c latch_quant_tables */
     comp_t *c = d->scan[i];
     int k;
     if (c->latched) continue;
     if (c->tq >= 4 || !d->qt_defined[c->tq]) fail(d, JD_CORRUPT);
-    for (k = 0; k < 64; k++) c->quant[k] = (int16_t)d->qt[c->tq][k];
+    for (k = 0; k < 64; k++) {
+      c->qval[k] = d->qt[c->tq][k];
+      c->quant[k] = (int16_t)c->qval[k];
+    }
     c->latched = 1;
   }
   if (d->comps_in_scan == 1) { /* jdinput.c per_scan_setup */
@@ -855,6 +875,10 @@ static void start_scan(dec_t *d) {
     if (bad) fail(d, JD_CORRUPT);
     for (i = 0; i < d->comps_in_scan; i++) {
       comp_t *c = d->scan[i];
+      int k;
+      for (k = d->Ss < 1 ? d->Ss : 1; k < 10; k++)
+        c->prev_bits[k] = d->scan_number > 1 ? c->coef_bits[k] : 0;
+      for (k = d->Ss; k <= d->Se && k < 10; k++) c->coef_bits[k] = d->Al;
       if (dc_band) {
         if (d->Ah == 0) make_dtbl(d, 1, c->dc_tbl, &d->dcd[c->dc_tbl]);
       } else {
@@ -916,8 +940,12 @@ static void decode_scan(dec_t *d) {
   int mrow, mcol;
   start_scan(d);
   for (mrow = 0; mrow < d->mcu_rows; mrow++) {
+    /* an iMCU row is v block rows of a one-component scan */
+    int v = d->comps_in_scan == 1 ? d->scan[0]->v : 1;
     for (mcol = 0; mcol < d->mcus_per_row; mcol++) {
       int i;
+      /* consume_data's test, before the MCU's restart marker is read */
+      if (!d->insufficient) d->last_good_imcu = mrow / v;
       if (d->restart_interval) {
         if (d->restarts_to_go == 0) process_restart(d);
         d->restarts_to_go--;
@@ -1036,19 +1064,55 @@ static void setup_frame(dec_t *d) {
     if (d->maxh % hin || d->maxv % vin) fail(d, JD_CORRUPT);
     alloc_or_fail(d, (void **)&c->coef,
                   (size_t)c->bwp * c->bhp * 64 * sizeof(int16_t));
+    memset(c->coef_bits, -1, sizeof c->coef_bits);
   }
   d->multiple_scans = d->comps_in_scan < d->ncomp || d->progressive;
-  ensure_std_tables(d);
+  /* jdhuff.c's jinit_huff_decoder installs them; jdphuff.c's does not, so
+     a progressive scan naming an undefined table fails */
+  if (!d->progressive) ensure_std_tables(d);
 }
 
-/* --- inverse DCTs (jidctint.c, jidctred.c) ------------------------------- */
+/* --- inverse DCTs (libjpeg-turbo's x86-64 SIMD IDCTs) --------------------
+ *
+ * Pillow's libjpeg-turbo runs jidctint-avx2.asm (8x8) and jidctred-sse2.asm
+ * (4x4, 2x2); jidctred.c's 1x1 stays in C. On every coefficient a valid
+ * file yields they give jidctint.c's and jidctred.c's results; past that
+ * they keep the SIMD registers' arithmetic, followed here:
+ * - dequantisation keeps the low 16 bits of coef * quant (pmullw);
+ * - the sums the SIMD forms in words wrap at 16 bits (in0 +- in4 and the
+ *   odd part's z3, z4 of the islow), other sums and products wrap at 32;
+ * - pass 1's outputs saturate to 16 bits (packssdw), but the 2x2's
+ *   column 0, which pass 2 takes in 32 bits and shifts by 15 there;
+ * - pass 2's outputs saturate to 16 bits, then to [-128, 127]
+ *   (packsswb), and +128 centres them, where the C table wraps;
+ * - the islow and 4x4 take pass 1's DC-only shortcut when a whole block's
+ *   coefficient rows other than 0 (and, at 4x4, 4) are zero, as a 16-bit
+ *   shift (psllw), where the C code tests column by column;
+ * - the islow's even and odd parts are the SIMD's rotations of
+ *   jidctint.c's: the same integers wherever no word wraps.
+ * Held bit for bit against Pillow by tests/test_torch_jpeg_corrupt.py,
+ * whose writer codes chosen coefficients. */
 
 #define CONST_BITS 13
 #define PASS1_BITS 2
 #define DESCALE(x, n) (((x) + ((int64_t)1 << ((n) - 1))) >> (n))
-#define LSHIFT(x, n) ((int64_t)((uint64_t)(int64_t)(x) << (n)))
 
-static inline uint8_t range_limit(int64_t x) { /* the post-IDCT table */
+static inline int32_t w16(int32_t x) { return (int16_t)(uint16_t)(uint32_t)x; }
+static inline int32_t w32(int64_t x) { return (int32_t)(uint32_t)(uint64_t)x; }
+static inline int32_t sat16(int32_t x) {
+  return x < -32768 ? -32768 : x > 32767 ? 32767 : x;
+}
+/* a 32-bit descale: paddd of the rounding term, psrad */
+static inline int32_t descale32(int32_t x, int n) {
+  return w32((int64_t)x + ((int64_t)1 << (n - 1))) >> n;
+}
+/* packssdw, packsswb, paddb 128 */
+static inline uint8_t out_sample(int32_t x) {
+  x = sat16(x);
+  return (uint8_t)((x < -128 ? -128 : x > 127 ? 127 : x) + 128);
+}
+
+static inline uint8_t range_limit(int64_t x) { /* jidctred.c's table */
   int i = (int)x & 1023;
   if (i < 128) return (uint8_t)(i + 128);
   if (i < 512) return 255;
@@ -1056,17 +1120,133 @@ static inline uint8_t range_limit(int64_t x) { /* the post-IDCT table */
   return (uint8_t)(i - 896);
 }
 
-static void idct_islow(const int16_t *in, const int16_t *q, uint8_t *out,
-                       int stride) {
+/* jidctint-avx2.asm's 8-point pass on 16-bit inputs: out = the 8 outputs
+   descaled by `shift`, before any saturation */
+static void islow_pass(const int32_t *x, int step, int shift, int32_t *out) {
+  int32_t x0 = x[0], x1 = x[step], x2 = x[2 * step], x3 = x[3 * step];
+  int32_t x4 = x[4 * step], x5 = x[5 * step], x6 = x[6 * step];
+  int32_t x7 = x[7 * step];
+  int32_t tmp3 = w32((int64_t)x2 * 10703 + (int64_t)x6 * 4433);
+  int32_t tmp2 = w32((int64_t)x2 * 4433 + (int64_t)x6 * -10704);
+  int32_t tmp0 = w16(x0 + x4) * (1 << CONST_BITS);
+  int32_t tmp1 = w16(x0 - x4) * (1 << CONST_BITS);
+  int32_t tmp10 = w32((int64_t)tmp0 + tmp3), tmp13 = w32((int64_t)tmp0 - tmp3);
+  int32_t tmp11 = w32((int64_t)tmp1 + tmp2), tmp12 = w32((int64_t)tmp1 - tmp2);
+  int32_t z3 = w16(x7 + x3), z4 = w16(x5 + x1);
+  int32_t r3 = w32((int64_t)z3 * -6436 + (int64_t)z4 * 9633);
+  int32_t r4 = w32((int64_t)z3 * 9633 + (int64_t)z4 * 6437);
+  int32_t o0 = w32(w32((int64_t)x7 * -4927 + (int64_t)x1 * -7373) + (int64_t)r3);
+  int32_t o3 = w32(w32((int64_t)x7 * -7373 + (int64_t)x1 * 4926) + (int64_t)r4);
+  int32_t o1 = w32(w32((int64_t)x5 * -4176 + (int64_t)x3 * -20995) + (int64_t)r4);
+  int32_t o2 = w32(w32((int64_t)x5 * -20995 + (int64_t)x3 * 4177) + (int64_t)r3);
+  out[0] = descale32(w32((int64_t)tmp10 + o3), shift);
+  out[7] = descale32(w32((int64_t)tmp10 - o3), shift);
+  out[1] = descale32(w32((int64_t)tmp11 + o2), shift);
+  out[6] = descale32(w32((int64_t)tmp11 - o2), shift);
+  out[2] = descale32(w32((int64_t)tmp12 + o1), shift);
+  out[5] = descale32(w32((int64_t)tmp12 - o1), shift);
+  out[3] = descale32(w32((int64_t)tmp13 + o0), shift);
+  out[4] = descale32(w32((int64_t)tmp13 - o0), shift);
+}
+
+/* the block's coefficient rows other than 0 (and `skip`) all zero: the
+   SIMD pass 1's DC-only test */
+static int rows_zero(const int16_t *in, int skip) {
+  int k;
+  for (k = 8; k < 64; k++)
+    if (in[k] != 0 && k / 8 != skip) return 0;
+  return 1;
+}
+
+static void idct_islow_simd(const int16_t *in, const int16_t *q,
+                            uint8_t *out, int stride) {
+  int32_t c[64], ws[64], o[8];
+  int r, col;
+  for (r = 0; r < 64; r++) c[r] = w16((int32_t)in[r] * q[r]);
+  if (rows_zero(in, 0)) {
+    for (col = 0; col < 8; col++)
+      for (r = 0; r < 8; r++) ws[r * 8 + col] = w16(c[col] * (1 << PASS1_BITS));
+  } else {
+    for (col = 0; col < 8; col++) {
+      islow_pass(c + col, 8, CONST_BITS - PASS1_BITS, o);
+      for (r = 0; r < 8; r++) ws[r * 8 + col] = sat16(o[r]);
+    }
+  }
+  for (r = 0; r < 8; r++) {
+    uint8_t *op = out + (size_t)r * stride;
+    islow_pass(ws + 8 * r, 1, CONST_BITS + PASS1_BITS + 3, o);
+    for (col = 0; col < 8; col++) op[col] = out_sample(o[col]);
+  }
+}
+
+/* jidctred-sse2.asm's 4-point pass (inputs 0, 1, 2, 3, 5, 6, 7) */
+static void red4_pass(const int32_t *x, int step, int shift, int32_t *out) {
+  int32_t tmp0 = x[0] * (1 << (CONST_BITS + 1));
+  int32_t tmp2 = w32((int64_t)x[2 * step] * 15137 + (int64_t)x[6 * step] * -6270);
+  int32_t tmp10 = w32((int64_t)tmp0 + tmp2), tmp12 = w32((int64_t)tmp0 - tmp2);
+  int32_t z1 = x[7 * step], z2 = x[5 * step], z3 = x[3 * step], z4 = x[step];
+  int32_t o0 = w32((int64_t)w32((int64_t)z1 * -1730 + (int64_t)z2 * 11893)
+                   + w32((int64_t)z3 * -17799 + (int64_t)z4 * 8697));
+  int32_t o2 = w32((int64_t)w32((int64_t)z1 * -4176 + (int64_t)z2 * -4926)
+                   + w32((int64_t)z3 * 7373 + (int64_t)z4 * 20995));
+  out[0] = descale32(w32((int64_t)tmp10 + o2), shift);
+  out[3] = descale32(w32((int64_t)tmp10 - o2), shift);
+  out[1] = descale32(w32((int64_t)tmp12 + o0), shift);
+  out[2] = descale32(w32((int64_t)tmp12 - o0), shift);
+}
+
+static void idct_4x4_simd(const int16_t *in, const int16_t *q,
+                          uint8_t *out, int stride) {
+  int32_t c[64], ws[32], o[4];
+  int r, col, dc_only = rows_zero(in, 4);
+  for (r = 0; r < 64; r++) c[r] = w16((int32_t)in[r] * q[r]);
+  for (col = 0; col < 8; col++) {
+    if (dc_only) {
+      for (r = 0; r < 4; r++) ws[r * 8 + col] = w16(c[col] * (1 << PASS1_BITS));
+      continue;
+    }
+    red4_pass(c + col, 8, CONST_BITS - PASS1_BITS + 1, o);
+    for (r = 0; r < 4; r++) ws[r * 8 + col] = sat16(o[r]);
+  }
+  for (r = 0; r < 4; r++) {
+    uint8_t *op = out + (size_t)r * stride;
+    red4_pass(ws + 8 * r, 1, CONST_BITS + PASS1_BITS + 3 + 1, o);
+    for (col = 0; col < 4; col++) op[col] = out_sample(o[col]);
+  }
+}
+
+/* --- the C IDCTs (jidctint.c jpeg_idct_islow, jidctred.c jpeg_idct_4x4) ---
+ *
+ * The SIMD IDCTs give jidctint.c's and jidctred.c's integers wherever no
+ * word wraps or saturates. The C code skips zero columns and rows at less
+ * cost, so it runs first and flags a block in which a pass-1 output leaves
+ * [-16384, 16383] (then a word sum could wrap or a pack saturate; a
+ * column's largest output is at least 4 times its largest dequantised
+ * coefficient, so the 16-bit dequantisation cannot wrap either) or an
+ * output before the +128 leaves [-512, 511] (where the C table wraps and
+ * the SIMD clamps); a flagged block is done again on the SIMD path.
+ * Photos' blocks stay inside: corrupt data and extreme coefficients
+ * leave. */
+
+#define LSHIFT(x, n) ((int64_t)((uint64_t)(int64_t)(x) << (n)))
+/* OR-ed over a pass's values, x + lim has a bit at or above 2 lim (a power
+   of two) set when some x left [-lim, lim - 1] */
+#define SPREAD(x, lim) ((uint32_t)((int32_t)(x) + (lim)))
+
+/* jpeg_idct_islow; returns nonzero when the block needs the SIMD path */
+static int idct_islow_c(const int16_t *in, const int16_t *q, uint8_t *out,
+                        int stride) {
   int64_t tmp0, tmp1, tmp2, tmp3, tmp10, tmp11, tmp12, tmp13;
   int64_t z1, z2, z3, z4, z5;
   int ws[64], ctr;
+  uint32_t spread = 0;
   for (ctr = 0; ctr < 8; ctr++) {
     const int16_t *ip = in + ctr, *qp = q + ctr;
-    int *wp = ws + ctr;
+    int *wp = ws + ctr, k;
     if (ip[8] == 0 && ip[16] == 0 && ip[24] == 0 && ip[32] == 0
         && ip[40] == 0 && ip[48] == 0 && ip[56] == 0) {
-      int dc = (int)LSHIFT(ip[0] * qp[0], PASS1_BITS), k;
+      int dc = (int)LSHIFT(ip[0] * qp[0], PASS1_BITS);
+      spread |= SPREAD(dc, 16384);
       for (k = 0; k < 8; k++) wp[8 * k] = dc;
       continue;
     }
@@ -1114,14 +1294,18 @@ static void idct_islow(const int16_t *in, const int16_t *q, uint8_t *out,
     wp[40] = (int)DESCALE(tmp12 - tmp1, CONST_BITS - PASS1_BITS);
     wp[24] = (int)DESCALE(tmp13 + tmp0, CONST_BITS - PASS1_BITS);
     wp[32] = (int)DESCALE(tmp13 - tmp0, CONST_BITS - PASS1_BITS);
+    for (k = 0; k < 64; k += 8) spread |= SPREAD(wp[k], 16384);
   }
+  if (spread >= 32768) return 1;
+  spread = 0;
   for (ctr = 0; ctr < 8; ctr++) {
     const int *wp = ws + 8 * ctr;
     uint8_t *op = out + (size_t)ctr * stride;
     if (wp[1] == 0 && wp[2] == 0 && wp[3] == 0 && wp[4] == 0 && wp[5] == 0
         && wp[6] == 0 && wp[7] == 0) {
-      uint8_t dc = range_limit(DESCALE((int64_t)wp[0], PASS1_BITS + 3));
-      memset(op, dc, 8);
+      int64_t dc = DESCALE((int64_t)wp[0], PASS1_BITS + 3);
+      spread |= SPREAD(dc, 512);
+      memset(op, range_limit(dc), 8);
       continue;
     }
     z2 = wp[2];
@@ -1158,30 +1342,40 @@ static void idct_islow(const int16_t *in, const int16_t *q, uint8_t *out,
     tmp1 += z2 + z4;
     tmp2 += z2 + z3;
     tmp3 += z1 + z4;
-#define OUT8(x) range_limit(DESCALE(x, CONST_BITS + PASS1_BITS + 3))
-    op[0] = OUT8(tmp10 + tmp3);
-    op[7] = OUT8(tmp10 - tmp3);
-    op[1] = OUT8(tmp11 + tmp2);
-    op[6] = OUT8(tmp11 - tmp2);
-    op[2] = OUT8(tmp12 + tmp1);
-    op[5] = OUT8(tmp12 - tmp1);
-    op[3] = OUT8(tmp13 + tmp0);
-    op[4] = OUT8(tmp13 - tmp0);
+#define OUT8(k, x)                                                          \
+  do {                                                                        \
+    int64_t v_ = DESCALE(x, CONST_BITS + PASS1_BITS + 3);                     \
+    spread |= SPREAD(v_, 512);                                                \
+    op[k] = range_limit(v_);                                                  \
+  } while (0)
+    OUT8(0, tmp10 + tmp3);
+    OUT8(7, tmp10 - tmp3);
+    OUT8(1, tmp11 + tmp2);
+    OUT8(6, tmp11 - tmp2);
+    OUT8(2, tmp12 + tmp1);
+    OUT8(5, tmp12 - tmp1);
+    OUT8(3, tmp13 + tmp0);
+    OUT8(4, tmp13 - tmp0);
 #undef OUT8
   }
+  return spread >= 1024;
 }
 
-static void idct_4x4(const int16_t *in, const int16_t *q, uint8_t *out,
-                     int stride) {
+/* jpeg_idct_4x4 (pass 2 reads no column 4, pass 1 no row 4); returns
+   nonzero when the block needs the SIMD path */
+static int idct_4x4_c(const int16_t *in, const int16_t *q, uint8_t *out,
+                      int stride) {
   int64_t tmp0, tmp2, tmp10, tmp12, z1, z2, z3, z4;
   int ws[8 * 4], ctr;
+  uint32_t spread = 0;
   for (ctr = 0; ctr < 8; ctr++) {
     const int16_t *ip = in + ctr, *qp = q + ctr;
-    int *wp = ws + ctr;
-    if (ctr == 4) continue; /* the second pass does not use column 4 */
+    int *wp = ws + ctr, k;
+    if (ctr == 4) continue;
     if (ip[8] == 0 && ip[16] == 0 && ip[24] == 0 && ip[40] == 0
         && ip[48] == 0 && ip[56] == 0) {
       int dc = (int)LSHIFT(ip[0] * qp[0], PASS1_BITS);
+      spread |= SPREAD(dc, 16384);
       wp[0] = wp[8] = wp[16] = wp[24] = dc;
       continue;
     }
@@ -1201,14 +1395,18 @@ static void idct_4x4(const int16_t *in, const int16_t *q, uint8_t *out,
     wp[24] = (int)DESCALE(tmp10 - tmp2, CONST_BITS - PASS1_BITS + 1);
     wp[8] = (int)DESCALE(tmp12 + tmp0, CONST_BITS - PASS1_BITS + 1);
     wp[16] = (int)DESCALE(tmp12 - tmp0, CONST_BITS - PASS1_BITS + 1);
+    for (k = 0; k < 32; k += 8) spread |= SPREAD(wp[k], 16384);
   }
+  if (spread >= 32768) return 1;
+  spread = 0;
   for (ctr = 0; ctr < 4; ctr++) {
     const int *wp = ws + 8 * ctr;
     uint8_t *op = out + (size_t)ctr * stride;
     if (wp[1] == 0 && wp[2] == 0 && wp[3] == 0 && wp[5] == 0 && wp[6] == 0
         && wp[7] == 0) {
-      uint8_t dc = range_limit(DESCALE((int64_t)wp[0], PASS1_BITS + 3));
-      op[0] = op[1] = op[2] = op[3] = dc;
+      int64_t dc = DESCALE((int64_t)wp[0], PASS1_BITS + 3);
+      spread |= SPREAD(dc, 512);
+      op[0] = op[1] = op[2] = op[3] = range_limit(dc);
       continue;
     }
     tmp0 = LSHIFT(wp[0], CONST_BITS + 1);
@@ -1221,48 +1419,64 @@ static void idct_4x4(const int16_t *in, const int16_t *q, uint8_t *out,
     z4 = wp[1];
     tmp0 = z1 * -1730 + z2 * 11893 + z3 * -17799 + z4 * 8697;
     tmp2 = z1 * -4176 + z2 * -4926 + z3 * 7373 + z4 * 20995;
-#define OUT4(x) range_limit(DESCALE(x, CONST_BITS + PASS1_BITS + 3 + 1))
-    op[0] = OUT4(tmp10 + tmp2);
-    op[3] = OUT4(tmp10 - tmp2);
-    op[1] = OUT4(tmp12 + tmp0);
-    op[2] = OUT4(tmp12 - tmp0);
+#define OUT4(k, x)                                                          \
+  do {                                                                        \
+    int64_t v_ = DESCALE(x, CONST_BITS + PASS1_BITS + 3 + 1);                 \
+    spread |= SPREAD(v_, 512);                                                \
+    op[k] = range_limit(v_);                                                  \
+  } while (0)
+    OUT4(0, tmp10 + tmp2);
+    OUT4(3, tmp10 - tmp2);
+    OUT4(1, tmp12 + tmp0);
+    OUT4(2, tmp12 - tmp0);
 #undef OUT4
   }
+  return spread >= 1024;
+}
+
+static void idct_islow(const int16_t *in, const int16_t *q, uint8_t *out,
+                       int stride) {
+  if (idct_islow_c(in, q, out, stride)) idct_islow_simd(in, q, out, stride);
+}
+
+static void idct_4x4(const int16_t *in, const int16_t *q, uint8_t *out,
+                     int stride) {
+  if (idct_4x4_c(in, q, out, stride)) idct_4x4_simd(in, q, out, stride);
+}
+
+/* jidctred-sse2.asm's 2-point odd part (inputs 1, 3, 5, 7) */
+static inline int32_t red2_odd(const int32_t *x, int step) {
+  return w32((int64_t)w32((int64_t)x[step] * 29692
+                          + (int64_t)x[3 * step] * -10426)
+             + w32((int64_t)x[5 * step] * 6967 + (int64_t)x[7 * step] * -5906));
 }
 
 static void idct_2x2(const int16_t *in, const int16_t *q, uint8_t *out,
                      int stride) {
-  int64_t tmp0, tmp10;
-  int ws[8 * 2], ctr;
-  for (ctr = 0; ctr < 8; ctr++) {
-    const int16_t *ip = in + ctr, *qp = q + ctr;
-    int *wp = ws + ctr;
-    if (ctr == 2 || ctr == 4 || ctr == 6) continue;
-    if (ip[8] == 0 && ip[24] == 0 && ip[40] == 0 && ip[56] == 0) {
-      int dc = (int)LSHIFT(ip[0] * qp[0], PASS1_BITS);
-      wp[0] = wp[8] = dc;
-      continue;
+  int32_t c[64], ws[16];
+  int r, col;
+  for (r = 0; r < 64; r++) c[r] = w16((int32_t)in[r] * q[r]);
+  for (col = 0; col < 8; col++) {
+    int32_t tmp10 = c[col] * (1 << (CONST_BITS + 2)), tmp0;
+    if (col == 2 || col == 4 || col == 6) continue;
+    tmp0 = red2_odd(c + col, 8);
+    ws[col] = descale32(w32((int64_t)tmp10 + tmp0), CONST_BITS - PASS1_BITS + 2);
+    ws[8 + col] = descale32(w32((int64_t)tmp10 - tmp0),
+                            CONST_BITS - PASS1_BITS + 2);
+    if (col) { /* column 0 goes on in 32 bits */
+      ws[col] = sat16(ws[col]);
+      ws[8 + col] = sat16(ws[8 + col]);
     }
-    tmp10 = LSHIFT(ip[0] * qp[0], CONST_BITS + 2);
-    tmp0 = (int64_t)(ip[56] * qp[56]) * -5906;
-    tmp0 += (int64_t)(ip[40] * qp[40]) * 6967;
-    tmp0 += (int64_t)(ip[24] * qp[24]) * -10426;
-    tmp0 += (int64_t)(ip[8] * qp[8]) * 29692;
-    wp[0] = (int)DESCALE(tmp10 + tmp0, CONST_BITS - PASS1_BITS + 2);
-    wp[8] = (int)DESCALE(tmp10 - tmp0, CONST_BITS - PASS1_BITS + 2);
   }
-  for (ctr = 0; ctr < 2; ctr++) {
-    const int *wp = ws + 8 * ctr;
-    uint8_t *op = out + (size_t)ctr * stride;
-    if (wp[1] == 0 && wp[3] == 0 && wp[5] == 0 && wp[7] == 0) {
-      op[0] = op[1] = range_limit(DESCALE((int64_t)wp[0], PASS1_BITS + 3));
-      continue;
-    }
-    tmp10 = LSHIFT(wp[0], CONST_BITS + 2);
-    tmp0 = (int64_t)wp[7] * -5906 + (int64_t)wp[5] * 6967
-           + (int64_t)wp[3] * -10426 + (int64_t)wp[1] * 29692;
-    op[0] = range_limit(DESCALE(tmp10 + tmp0, CONST_BITS + PASS1_BITS + 3 + 2));
-    op[1] = range_limit(DESCALE(tmp10 - tmp0, CONST_BITS + PASS1_BITS + 3 + 2));
+  for (r = 0; r < 2; r++) {
+    const int32_t *wp = ws + 8 * r;
+    uint8_t *op = out + (size_t)r * stride;
+    int32_t tmp10 = w32((int64_t)(uint32_t)wp[0] << (CONST_BITS + 2));
+    int32_t tmp0 = red2_odd(wp, 1);
+    op[0] = out_sample(descale32(w32((int64_t)tmp10 + tmp0),
+                                 CONST_BITS + PASS1_BITS + 3 + 2));
+    op[1] = out_sample(descale32(w32((int64_t)tmp10 - tmp0),
+                                 CONST_BITS + PASS1_BITS + 3 + 2));
   }
 }
 
@@ -1272,14 +1486,171 @@ static void idct_1x1(const int16_t *in, const int16_t *q, uint8_t *out,
   out[0] = range_limit(DESCALE((int64_t)(in[0] * q[0]), 3));
 }
 
-static void component_plane(dec_t *d, comp_t *c) {
-  void (*idct)(const int16_t *, const int16_t *, uint8_t *, int) =
-      c->ss == 8 ? idct_islow : c->ss == 4 ? idct_4x4
-                                : c->ss == 2 ? idct_2x2 : idct_1x1;
+/* --- block smoothing (jdcoefct.c decompress_smooth_data) ---------------
+ *
+ * libjpeg-turbo smooths a progressive file whose first nine AC
+ * coefficients (zigzag 1..9) are not all known to full precision when the
+ * output starts: an EOI before the last scans, or scans never sent. Each
+ * such coefficient that is still zero gets an estimate from the DC values
+ * of the block's 5x5 neighbourhood, bounded by what its missing bits could
+ * hold; when no AC data came at all, the DC itself is re-estimated by a
+ * Gaussian-like kernel and four more coefficients are estimated. The
+ * neighbours come from libjpeg's row and column walk, edges replicated,
+ * with its own count of a component's last iMCU row. */
+
+static const int smooth_pos[10] = {0, 1, 8, 16, 9, 2, 3, 10, 17, 24};
+
+/* jdcoefct.c smoothing_ok, after every scan has been read */
+static int smoothing_ok(const dec_t *d) {
+  int i, k, useful = 0;
+  if (!d->progressive) return 0;
+  for (i = 0; i < d->ncomp; i++) {
+    const comp_t *c = &d->comp[i];
+    if (!c->latched) return 0;
+    for (k = 0; k < 10; k++)
+      if (c->qval[smooth_pos[k]] == 0) return 0;
+    if (c->coef_bits[0] < 0) return 0;
+    for (k = 1; k < 10; k++)
+      if (c->coef_bits[k] != 0) useful = 1;
+  }
+  return useful;
+}
+
+/* an estimate of num / (q << 8), rounded, capped below 2^Al where Al > 0 */
+static int16_t estimate(int64_t num, int64_t q, int al) {
+  int64_t pred = ((q << 7) + (num >= 0 ? num : -num)) / (q << 8);
+  if (al > 0 && pred >= (1 << al)) pred = (1 << al) - 1;
+  return (int16_t)(num >= 0 ? pred : -pred);
+}
+
+static void smooth_block(const comp_t *c, const int *cb, const int dc[25],
+                         int16_t *ws, int change_dc) {
+  int64_t q00 = c->qval[0];
+#define DC(n) ((int64_t)dc[(n) - 1])
+  if (cb[1] != 0 && ws[1] == 0)
+    ws[1] = estimate(q00 * (change_dc
+      ? -DC(1) - DC(2) + DC(4) + DC(5) - 3 * DC(6) + 13 * DC(7)
+        - 13 * DC(9) + 3 * DC(10) - 3 * DC(11) + 38 * DC(12) - 38 * DC(14)
+        + 3 * DC(15) - 3 * DC(16) + 13 * DC(17) - 13 * DC(19) + 3 * DC(20)
+        - DC(21) - DC(22) + DC(24) + DC(25)
+      : -7 * DC(11) + 50 * DC(12) - 50 * DC(14) + 7 * DC(15)),
+      c->qval[1], cb[1]);
+  if (cb[2] != 0 && ws[8] == 0)
+    ws[8] = estimate(q00 * (change_dc
+      ? -DC(1) - 3 * DC(2) - 3 * DC(3) - 3 * DC(4) - DC(5) - DC(6)
+        + 13 * DC(7) + 38 * DC(8) + 13 * DC(9) - DC(10) + DC(16)
+        - 13 * DC(17) - 38 * DC(18) - 13 * DC(19) + DC(20) + DC(21)
+        + 3 * DC(22) + 3 * DC(23) + 3 * DC(24) + DC(25)
+      : -7 * DC(3) + 50 * DC(8) - 50 * DC(18) + 7 * DC(23)),
+      c->qval[8], cb[2]);
+  if (cb[3] != 0 && ws[16] == 0)
+    ws[16] = estimate(q00 * (change_dc
+      ? DC(3) + 2 * DC(7) + 7 * DC(8) + 2 * DC(9) - 5 * DC(12) - 14 * DC(13)
+        - 5 * DC(14) + 2 * DC(17) + 7 * DC(18) + 2 * DC(19) + DC(23)
+      : -DC(3) + 13 * DC(8) - 24 * DC(13) + 13 * DC(18) - DC(23)),
+      c->qval[16], cb[3]);
+  if (cb[4] != 0 && ws[9] == 0)
+    ws[9] = estimate(q00 * (change_dc
+      ? -DC(1) + DC(5) + 9 * DC(7) - 9 * DC(9) - 9 * DC(17) + 9 * DC(19)
+        + DC(21) - DC(25)
+      : DC(10) + DC(16) - 10 * DC(17) + 10 * DC(19) - DC(2) - DC(20)
+        + DC(22) - DC(24) + DC(4) - DC(6) + 10 * DC(7) - 10 * DC(9)),
+      c->qval[9], cb[4]);
+  if (cb[5] != 0 && ws[2] == 0)
+    ws[2] = estimate(q00 * (change_dc
+      ? 2 * DC(7) - 5 * DC(8) + 2 * DC(9) + DC(11) + 7 * DC(12)
+        - 14 * DC(13) + 7 * DC(14) + DC(15) + 2 * DC(17) - 5 * DC(18)
+        + 2 * DC(19)
+      : -DC(11) + 13 * DC(12) - 24 * DC(13) + 13 * DC(14) - DC(15)),
+      c->qval[2], cb[5]);
+  if (!change_dc) return;
+  if (cb[6] != 0 && ws[3] == 0)
+    ws[3] = estimate(q00 * (DC(7) - DC(9) + 2 * DC(12) - 2 * DC(14) + DC(17)
+                            - DC(19)), c->qval[3], cb[6]);
+  if (cb[7] != 0 && ws[10] == 0)
+    ws[10] = estimate(q00 * (DC(7) - 3 * DC(8) + DC(9) - DC(17) + 3 * DC(18)
+                             - DC(19)), c->qval[10], cb[7]);
+  if (cb[8] != 0 && ws[17] == 0)
+    ws[17] = estimate(q00 * (DC(7) - DC(9) - 3 * DC(12) + 3 * DC(14)
+                             + DC(17) - DC(19)), c->qval[17], cb[8]);
+  if (cb[9] != 0 && ws[24] == 0)
+    ws[24] = estimate(q00 * (DC(7) + 2 * DC(8) + DC(9) - DC(17) - 2 * DC(18)
+                             - DC(19)), c->qval[24], cb[9]);
+  ws[0] = estimate(q00 * (-2 * DC(1) - 6 * DC(2) - 8 * DC(3) - 6 * DC(4)
+                          - 2 * DC(5) - 6 * DC(6) + 6 * DC(7) + 42 * DC(8)
+                          + 6 * DC(9) - 6 * DC(10) - 8 * DC(11) + 42 * DC(12)
+                          + 152 * DC(13) + 42 * DC(14) - 8 * DC(15)
+                          - 6 * DC(16) + 6 * DC(17) + 42 * DC(18)
+                          + 6 * DC(19) - 6 * DC(20) - 2 * DC(21) - 6 * DC(22)
+                          - 8 * DC(23) - 6 * DC(24) - 2 * DC(25)),
+                   q00, -1);
+#undef DC
+}
+
+typedef void (*idct_fn)(const int16_t *, const int16_t *, uint8_t *, int);
+
+/* decompress_smooth_data's walk over one component: rows in iMCU rows of
+   v block rows, the neighbour rows chosen from libjpeg's row counts (which
+   take the last iMCU row's block rows for every iMCU row there), the DC
+   window slid along each row */
+static void smooth_plane(const dec_t *d, comp_t *c, idct_fn idct) {
+  int total = (d->height + d->maxv * 8 - 1) / (d->maxv * 8), imcu;
+  int last = c->bw - 1, bits[2][10], k;
+  /* the latches: the coefficient bits now, and before the component's last
+     scan, which rows past the last scan's last good row take */
+  for (k = 0; k < 10; k++) {
+    bits[0][k] = c->coef_bits[k];
+    bits[1][k] = d->scan_number > 1 ? c->prev_bits[k] : -1;
+  }
+  for (imcu = 0; imcu < total; imcu++) {
+    const int *cb = bits[imcu > d->last_good_imcu];
+    int rows = imcu < total - 1 ? c->v : (c->bh % c->v ? c->bh % c->v : c->v);
+    int image_rows = rows * total, change_dc = 1, br;
+    for (k = 1; k < 10; k++) /* no AC data at all: the DC is estimated too */
+      if (cb[k] != -1) change_dc = 0;
+    for (br = 0; br < rows; br++) {
+      int ibr = imcu * rows + br, row = imcu * c->v + br;
+      int nrow[5], dc[25], x, j, col;
+      nrow[2] = row;
+      nrow[1] = ibr > 0 ? row - 1 : row;
+      nrow[0] = ibr > 1 ? row - 2 : nrow[1];
+      nrow[3] = ibr < image_rows - 1 ? row + 1 : row;
+      nrow[4] = ibr < image_rows - 2 ? row + 2 : nrow[3];
+      /* dc[j * 5 + x]: libjpeg's DC01..DC25, rows nrow[j], columns col - 2
+         .. col + 2 (edges replicated), slid left after each block */
+      for (j = 0; j < 5; j++)
+        for (x = 0; x < 5; x++) dc[j * 5 + x] = block_at(c, nrow[j], 0)[0];
+      for (col = 0; col <= last; col++) {
+        int16_t ws[64];
+        memcpy(ws, block_at(c, row, col), sizeof ws);
+        if (col == 0 && col < last) /* the next column, in both places */
+          for (j = 0; j < 5; j++)
+            dc[j * 5 + 3] = dc[j * 5 + 4] = block_at(c, nrow[j], 1)[0];
+        if (col + 1 < last)
+          for (j = 0; j < 5; j++)
+            dc[j * 5 + 4] = block_at(c, nrow[j], col + 2)[0];
+        smooth_block(c, cb, dc, ws, change_dc);
+        idct(ws, c->quant,
+             c->plane + (size_t)row * c->ss * c->pw + (size_t)col * c->ss,
+             c->pw);
+        for (j = 0; j < 5; j++)
+          for (x = 0; x < 4; x++) dc[j * 5 + x] = dc[j * 5 + x + 1];
+      }
+    }
+  }
+}
+
+static void component_plane(dec_t *d, comp_t *c, int smooth) {
+  idct_fn idct = c->ss == 8 ? idct_islow : c->ss == 4 ? idct_4x4
+                                         : c->ss == 2 ? idct_2x2 : idct_1x1;
   int r, col;
   /* a component no scan held: libjpeg's quantisation table is all zeros */
   if (!c->latched) memset(c->quant, 0, sizeof c->quant);
   alloc_or_fail(d, (void **)&c->plane, (size_t)c->pw * c->bh * c->ss);
+  if (smooth) {
+    smooth_plane(d, c, idct);
+    return;
+  }
   for (r = 0; r < c->bh; r++)
     for (col = 0; col < c->bw; col++)
       idct(block_at(c, r, col), c->quant,
@@ -1492,9 +1863,9 @@ static int run_scans(dec_t *d) {
 }
 
 static int run_output(dec_t *d, uint8_t *rgb) {
-  int i;
+  int i, smooth = smoothing_ok(d);
   if (setjmp(d->jb)) return d->code;
-  for (i = 0; i < d->ncomp; i++) component_plane(d, &d->comp[i]);
+  for (i = 0; i < d->ncomp; i++) component_plane(d, &d->comp[i], smooth);
   emit_rgb(d, rgb);
   return JD_OK;
 }

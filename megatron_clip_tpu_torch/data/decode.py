@@ -36,11 +36,13 @@ Bad input has two outcomes:
   naming ROADMAP Queue A item 3, so that a shard of such images fails
   loudly instead of training on nothing.
 
-Where a JPEG may differ from Pillow: only in data Pillow reads with
-warnings. libjpeg smooths the blocks of a progressive file whose scans are
-missing (never in a file with all its scans), and its SIMD IDCT saturates
-where the C IDCT this decoder follows wraps, on coefficients only corrupt
-data produces.
+Corrupt JPEG data that Pillow still reads, with warnings, decodes as
+Pillow decodes it: the host library follows libjpeg-turbo's x86-64 SIMD
+IDCTs, which saturate where the C IDCTs wrap on coefficients only corrupt
+data reaches, and its block smoothing of a progressive file whose first
+AC coefficients are not all known (an EOI before the last scans, scans
+never sent, a scan cut by a marker). `tests/test_torch_jpeg_corrupt.py`
+holds both against Pillow.
 
 PNG rows are unfiltered along the anti-diagonals of the pixel grid: a
 pixel's filter reads its left, upper and upper-left neighbours only, so

@@ -1,12 +1,13 @@
 """Model factory and config registry for the port.
 
 Counterpart of `megatron_clip_tpu/factory.py` for ViT CLIP models: the
-built-in open_CLIP ViT ladder (plus its -quickgelu variants, `test-tiny`
-and the JAX registry's other plain-ViT configs), `parse_model_cfg` for ViT
-configs, `create_model`, which builds a `models.clip.CLIPModel`, and
-`create_loss`'s ClipLoss branch. Configs use the open_CLIP JSON schema
-({embed_dim, vision_cfg, text_cfg[, quick_gelu]}); overrides replace
-top-level keys, as in the JAX factory.
+built-in open_CLIP ViT ladder (plus its -quickgelu variants, `test-tiny`,
+the JAX registry's other plain-ViT configs and `ViT-B-16-SigLIP`),
+`parse_model_cfg` for ViT configs, `create_model`, which builds a
+`models.clip.CLIPModel`, and `create_loss`'s ClipLoss and SigLipLoss
+branches. Configs use the open_CLIP JSON schema ({embed_dim, vision_cfg,
+text_cfg[, quick_gelu, init_logit_bias]}); overrides replace top-level
+keys, as in the JAX factory.
 """
 import dataclasses
 import json
@@ -16,7 +17,7 @@ import torch
 
 from megatron_clip_tpu_torch.config import (BF16, FP32, PURE_BF16, CLIPCfg,
                                             Precision, TextCfg, VisionCfg)
-from megatron_clip_tpu_torch.losses import ClipLoss
+from megatron_clip_tpu_torch.losses import ClipLoss, SigLipLoss
 from megatron_clip_tpu_torch.models.clip import CLIPModel
 
 
@@ -85,6 +86,19 @@ _BUILTIN["ViT-M-32-alt"] = _vit(384, 12, 512, 32, 384, 6, 12)
 _BUILTIN["ViT-S-16-alt"] = _vit(256, 12, 384, 16, 256, 4, 10)
 _BUILTIN["ViT-S-32-alt"] = _vit(256, 12, 384, 32, 256, 4, 10)
 
+# the JAX registry's SigLIP model (model_configs/ViT-B-16-SigLIP.json): a
+# bidirectional text tower pooled at its last token, and a learned logit
+# bias
+_BUILTIN["ViT-B-16-SigLIP"] = {
+    "embed_dim": 768,
+    "init_logit_bias": -10,
+    "vision_cfg": {"image_size": 224, "layers": 12, "width": 768,
+                   "patch_size": 16},
+    "text_cfg": {"context_length": 64, "vocab_size": 49408, "width": 768,
+                 "heads": 12, "layers": 12, "no_causal_mask": True,
+                 "pool_type": "last"},
+}
+
 
 def list_models():
     return sorted(_BUILTIN)
@@ -114,15 +128,19 @@ def parse_model_cfg(cfg_dict: dict) -> CLIPCfg:
     if isinstance(vision.get("layers"), (list, tuple)):
         raise NotImplementedError("ResNet vision towers are not ported yet "
                                   "(ROADMAP Queue A item 7)")
+    # of the top-level keys the JAX factory reads, the one the port does
+    # not take yet; every key the JAX factory ignores, the port ignores
     if cfg_dict.get("multimodal_cfg"):
-        raise NotImplementedError("CoCa is not ported yet "
+        raise NotImplementedError("CoCa (multimodal_cfg) is not ported yet "
                                   "(ROADMAP Queue A item 7)")
+    bias = cfg_dict.get("init_logit_bias")
     return CLIPCfg(
         embed_dim=cfg_dict["embed_dim"],
         vision=VisionCfg(**_fields(vision, VisionCfg, "vision_cfg")),
         text=TextCfg(**_fields(dict(cfg_dict.get("text_cfg", {})), TextCfg,
                                "text_cfg")),
         quick_gelu=bool(cfg_dict.get("quick_gelu", False)),
+        init_logit_bias=None if bias is None else float(bias),
     )
 
 
@@ -147,8 +165,9 @@ def create_model(model_name: str, precision: str = "bf16",
                  attn_save_probs: bool = True, **overrides) -> CLIPModel:
     """Build a CLIP model with random weights drawn in fp32 from `seed` (on
     the CPU generator, so every device gets the same weights) on `device`.
-    Under `pure_bf16` every weight but `logit_scale` is then stored in bf16,
-    as the JAX factory's Precision("bfloat16", "bfloat16") does.
+    Under `pure_bf16` every weight but `logit_scale` and `logit_bias` is
+    then stored in bf16, as the JAX factory's Precision("bfloat16",
+    "bfloat16") does.
     `device=None` means the CUDA device; without one this raises, it does
     not fall back to the CPU: pass device="cpu" to run there.
     `attn_save_probs=False` trains with the recompute attention backward
@@ -167,25 +186,24 @@ def create_model(model_name: str, precision: str = "bf16",
     gen = torch.Generator().manual_seed(seed)
     model = CLIPModel(parse_model_cfg(cfg_dict), prec, gen, attn_save_probs)
     for name, p in model.named_parameters():
-        if name != "logit_scale":
+        if name not in ("logit_scale", "logit_bias"):
             p.data = p.data.to(prec.param_torch)
     return model.to(device).eval()
 
 
-def create_loss(args) -> ClipLoss:
+def create_loss(args):
     """open_CLIP create_loss (factory.py:250-283) as the JAX factory
     dispatches it: `args` is an argparse Namespace or any object with the
-    same fields. The port has the ClipLoss branch; on one process
-    `--local-loss` and `--gather-with-grad` change nothing, as on one JAX
-    device. CoCa, SigLIP and distillation raise."""
+    same fields. The port has the ClipLoss and SigLipLoss branches, for one
+    process: there `--local-loss` and `--gather-with-grad` change nothing,
+    as on one JAX device. CoCa and distillation raise."""
     get = lambda k, d=None: getattr(args, k, d)  # noqa: E731
     if get("model", "").startswith("coca"):
         raise NotImplementedError("CoCaLoss is not ported yet (ROADMAP "
                                   "Queue A item 2)")
     if get("siglip"):
-        raise NotImplementedError("SigLipLoss is not ported yet (ROADMAP "
-                                  "Queue A item 2)")
+        return SigLipLoss()
     if get("distill_model") or get("distill"):
         raise NotImplementedError("DistillClipLoss is not ported yet "
-                                  "(ROADMAP Queue A item 2)")
+                                  "(ROADMAP Queue A item 3)")
     return ClipLoss()

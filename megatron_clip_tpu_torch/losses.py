@@ -1,12 +1,15 @@
-"""Contrastive loss for one process.
+"""Contrastive losses for one process.
 
-Counterpart of `megatron_clip_tpu/losses.py::clip_loss` and `ClipLoss`
-without an `axis_name`: the global-batch InfoNCE of open_CLIP's ClipLoss on
-features that one process holds whole. Logits are formed in fp32 with labels
-arange(B). The gathered and sharded forms (`gather_features`, `local_loss`)
-come with the parallelism slice; SigLIP, CoCa and distillation losses with
-theirs.
+Counterpart of `megatron_clip_tpu/losses.py::clip_loss`, `ClipLoss` and
+`SigLipLoss` without an `axis_name`: the global-batch InfoNCE of open_CLIP's
+ClipLoss on features that one process holds whole, logits formed in fp32
+with labels arange(B); and SigLIP's sigmoid pairwise loss over the same
+batch. The gathered and sharded forms (`gather_features`, `local_loss`,
+SigLIP's ring exchange) come with the parallelism slice; CoCa and
+distillation losses with theirs.
 """
+from typing import Optional
+
 import torch
 import torch.nn.functional as F
 
@@ -31,3 +34,30 @@ class ClipLoss:
                  text_features: torch.Tensor,
                  logit_scale: torch.Tensor) -> torch.Tensor:
         return clip_loss(image_features, text_features, logit_scale)
+
+
+def siglip_loss(image_features: torch.Tensor, text_features: torch.Tensor,
+                logit_scale: torch.Tensor,
+                logit_bias: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """SigLIP's sigmoid loss over one batch of N pairs: logits = scale *
+    img @ txt^T (+ bias), label +1 on the diagonal and -1 elsewhere,
+    -sum(log sigmoid(label * logits)) / N, in fp32."""
+    logits = logit_scale * image_features.float() @ text_features.float().T
+    if logit_bias is not None:
+        logits = logits + logit_bias
+    n = image_features.shape[0]
+    sign = 2.0 * torch.eye(n, device=logits.device) - 1.0
+    return -F.logsigmoid(sign * logits).sum() / n
+
+
+class SigLipLoss:
+    """SigLIP's loss contract for one process: called with (image features,
+    text features, logit_scale[, logit_bias]), returns `siglip_loss` of
+    them. The JAX train step calls it without the bias, and so does the
+    port's (see `training/train_step.py`)."""
+
+    def __call__(self, image_features: torch.Tensor,
+                 text_features: torch.Tensor, logit_scale: torch.Tensor,
+                 logit_bias: Optional[torch.Tensor] = None) -> torch.Tensor:
+        return siglip_loss(image_features, text_features, logit_scale,
+                           logit_bias)

@@ -2,9 +2,10 @@
 
 Counterpart of `megatron_clip_tpu/models/clip.py` (`init_clip`,
 `encode_image`, `encode_text`, `apply_clip`, `clamp_logit_scale`) for ViT
-towers: the ViT vision tower, the text transformer and a learned temperature
+towers: the ViT vision tower, the text transformer, a learned temperature
 `logit_scale`, initialised to ln(1/0.07), kept in fp32 under every precision
-and clamped to ln(100) at use. Features are L2-normalised in fp32. The
+and clamped to ln(100) at use, and, where the config sets
+`init_logit_bias` (SigLIP), a learned `logit_bias`, fp32 as well. Features are L2-normalised in fp32. The
 ResNet, ConvNeXt, Swin, HF-text and CoCa branches come with later slices.
 """
 import math
@@ -68,6 +69,9 @@ class CLIPModel(nn.Module):
                                     generator)
         self.logit_scale = nn.Parameter(
             torch.tensor(cfg.init_logit_scale, dtype=torch.float32))
+        if cfg.init_logit_bias is not None:
+            self.logit_bias = nn.Parameter(
+                torch.tensor(cfg.init_logit_bias, dtype=torch.float32))
 
     @property
     def device(self) -> torch.device:
@@ -91,22 +95,28 @@ class CLIPModel(nn.Module):
                       self.precision.compute_torch)
         return _l2_normalize(f) if normalize else f.float()
 
-    def forward(self, images, text_ids) -> dict:
+    def forward(self, images, text_ids,
+                patch_keep: Optional[torch.Tensor] = None) -> dict:
         """Either tower may be None. What `apply_clip` returns (and open_CLIP's
-        CLIP.forward): fp32 normalised features and exp(min(logit_scale,
-        ln 100)), differentiable in every parameter."""
+        CLIP.forward): fp32 normalised features, exp(min(logit_scale,
+        ln 100)) and, in a model with one, `logit_bias`, differentiable in
+        every parameter. `patch_keep`: the vision tower's kept patch
+        indices (patch dropout, see `models/vit.py`); None keeps all."""
         dt, keep = self.precision.compute_torch, self.attn_save_probs
         remat = check_remat(self.remat)
         out = {}
         if images is not None:
             out["image_features"] = _l2_normalize(self.visual(
-                _as_tensor(images, self.device), dt, keep, remat))
+                _as_tensor(images, self.device), dt, keep, remat,
+                patch_keep))
         if text_ids is not None:
             out["text_features"] = _l2_normalize(self.text(
                 _as_tensor(text_ids, self.device, torch.long), dt, keep,
                 remat))
         out["logit_scale"] = torch.exp(
             self.logit_scale.clamp(max=LOGIT_SCALE_MAX))
+        if self.cfg.init_logit_bias is not None:
+            out["logit_bias"] = self.logit_bias
         return out
 
 

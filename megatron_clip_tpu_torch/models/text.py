@@ -1,13 +1,14 @@
 """Text transformer tower (CLIP-style).
 
 Counterpart of `megatron_clip_tpu/models/text.py` without the CoCa
-`embed_cls` branch: token embed + learned pos embed -> causal pre-LN blocks
--> ln_final -> argmax-EOT pooling -> proj. Init: token embed std 0.02, pos
-embed std 0.01, proj std width**-0.5.
+`embed_cls` branch: token embed + learned pos embed -> pre-LN blocks, causal
+unless `no_causal_mask` -> ln_final -> pooling (`pool_type`: the argmax-EOT
+token, the first, the last, or every token) -> proj. Init: token embed std
+0.02, pos embed std 0.01, proj std width**-0.5.
 
-ln_final runs on the pooled token only. LayerNorm is per token, so this
-equals the JAX order (ln_final over the sequence, then pool) with S times
-fewer rows; a forward launches the LayerNorm kernel 2*layers + 1 times.
+ln_final runs on the pooled tokens only. LayerNorm is per token, so this
+equals the JAX order (ln_final over the sequence, then pool) with fewer
+rows; a forward launches the LayerNorm kernel 2*layers + 1 times.
 """
 from typing import Optional
 
@@ -21,11 +22,21 @@ from megatron_clip_tpu_torch.nn.transformer import (
     Transformer, normal_param, apply_norm, layer_norm_params)
 
 
-def text_pool(x: torch.Tensor, text_ids: torch.Tensor) -> torch.Tensor:
-    """The EOT position's features: EOT (49407) is the largest id, so argmax
-    over the ids finds it (open_CLIP's `text.argmax(dim=-1)`)."""
-    idx = text_ids.argmax(dim=-1)
-    return x[torch.arange(x.shape[0], device=x.device), idx]
+def text_pool(x: torch.Tensor, text_ids: torch.Tensor,
+              pool_type: str = "argmax") -> torch.Tensor:
+    """Pooling over the token features x [B, S, W], as the JAX `text_pool`:
+    "argmax" takes the EOT position's features (EOT, 49407, is the largest
+    id, so argmax over the ids finds it: open_CLIP's
+    `text.argmax(dim=-1)`), "first" and "last" the first and last
+    position's, "none" every position's."""
+    if pool_type == "argmax":
+        idx = text_ids.argmax(dim=-1)
+        return x[torch.arange(x.shape[0], device=x.device), idx]
+    if pool_type == "first":
+        return x[:, 0]
+    if pool_type == "last":
+        return x[:, -1]
+    return x
 
 
 class TextTransformer(nn.Module):
@@ -52,7 +63,8 @@ class TextTransformer(nn.Module):
         s = text_ids.shape[1]
         x = F.embedding(text_ids, self.tok_embed).to(dt)
         x = x + self.pos_embed[:s].to(dt)
-        x = self.blocks(x, causal=True, save_probs=save_probs,
-                        remat=remat)
-        pooled = apply_norm(self.ln_final, text_pool(x, text_ids))
+        x = self.blocks(x, causal=not self.cfg.no_causal_mask,
+                        save_probs=save_probs, remat=remat)
+        pooled = apply_norm(self.ln_final,
+                            text_pool(x, text_ids, self.cfg.pool_type))
         return dense(pooled, self.proj["w"])

@@ -4,8 +4,9 @@ where there is no Pillow.
     python -m megatron_clip_tpu_torch.tools.jpeg_goldens tests/torch_goldens/jpeg
 
 writes every fixture of FIXTURES into the given directory with Pillow's
-encoder, from seeded photo-like images (`photo`), and `digests.json` beside
-them: for each file and each draft size (0 for the full decode) the
+encoder, from seeded photo-like images (`photo`), then the corrupt fixtures
+of CORRUPT, each one of those files with a recipe applied, and
+`digests.json` beside them: for each file and each draft size (0 for the full decode) the
 shape and the SHA-256 of Pillow's `np.asarray(img.convert("RGB"))` after
 `Image.open`, `draft("RGB", (d, d))` and `load()`. Run it where Pillow is
 installed (it imports PIL inside `main` only); the files it wrote are the
@@ -66,6 +67,73 @@ FIXTURES = {
     "qtables16_227x141": (227, 141, "RGB",
                           {"qtables": [list(range(300, 364))] * 2}),
 }
+
+
+# corrupt data Pillow decodes with warnings: name -> (the fixture it is
+# made from, recipe): ("flip", offset, xor mask) flips bits of one byte,
+# ("marker", offset, code) inserts the marker 0xFF code before that byte,
+# ("eoi_after_scan", k) keeps k scans and ends the file with EOI. The
+# first two reach coefficients the SIMD IDCT saturates; the rest leave a
+# progressive file's AC coefficients partly unknown, so libjpeg smooths
+# its blocks (with the DC re-estimated where no AC scan came, and, where a
+# scan stops at a marker, the rows past it on the previous scan's bits).
+CORRUPT = {
+    "corrupt_qtables16_flip": ("qtables16_227x141", ("flip", 1068, 69)),
+    "corrupt_restart_marker": ("restart_blocks_227x141",
+                               ("marker", 2885, 0xD3)),
+    "corrupt_progressive_dc_only": ("progressive_227x141_444",
+                                    ("eoi_after_scan", 1)),
+    "corrupt_progressive_4_scans": ("progressive_227x141_444",
+                                    ("eoi_after_scan", 4)),
+    "corrupt_progressive_eoi_in_scan": ("restart_rows_227x141_progressive",
+                                        ("marker", 1794, 0xD9)),
+}
+
+
+def scan_ends(data: bytes) -> list:
+    """The offset where each scan's entropy data ends: the first marker
+    after it that is neither a stuffed byte nor a restart marker."""
+    i, ends = 2, []
+    while i < len(data) - 1:
+        if data[i] != 0xFF:
+            i += 1
+            continue
+        m = data[i + 1]
+        if m == 0xD9:
+            break
+        if m == 0xFF:
+            i += 1
+            continue
+        if m == 0x01 or 0xD0 <= m <= 0xD7:
+            i += 2
+            continue
+        length = int.from_bytes(data[i + 2:i + 4], "big")
+        if m != 0xDA:
+            i += 2 + length
+            continue
+        j = i + 2 + length
+        while j < len(data) - 1 and not (
+                data[j] == 0xFF and data[j + 1] != 0
+                and not 0xD0 <= data[j + 1] <= 0xD7):
+            j += 1
+        ends.append(j)
+        i = j
+    return ends
+
+
+def corrupt(data: bytes, recipe: tuple) -> bytes:
+    """`data` with a CORRUPT recipe applied."""
+    kind, *args = recipe
+    out = bytearray(data)
+    if kind == "flip":
+        out[args[0]] ^= args[1]
+    elif kind == "marker":
+        out[args[0]:args[0]] = bytes([0xFF, args[1]])
+    elif kind == "eoi_after_scan":
+        out = out[:scan_ends(data)[args[0] - 1]] + b"\xff\xd9"
+    else:
+        raise ValueError(f"unknown corruption {kind!r}")
+    return bytes(out)
 
 
 def photo(h: int, w: int, seed: int) -> np.ndarray:
@@ -147,7 +215,7 @@ def main(argv=None) -> None:
                         help="where to write the fixtures and digests.json")
     out = parser.parse_args(argv).directory
     out.mkdir(parents=True, exist_ok=True)
-    entries = {}
+    entries, written = {}, {}
     for i, (name, (w, h, mode, options)) in enumerate(FIXTURES.items()):
         options = dict(options)
         if name == "segments_227x141":
@@ -158,7 +226,11 @@ def main(argv=None) -> None:
         buf = io.BytesIO()
         Image.fromarray(photo(h, w, seed=1000 + i)).convert(mode).save(
             buf, "JPEG", **options)
-        data = buf.getvalue()
+        written[name] = (buf.getvalue(), w, h, mode)
+    for name, (base, recipe) in CORRUPT.items():
+        data, w, h, mode = written[base]
+        written[name] = (corrupt(data, recipe), w, h, mode)
+    for name, (data, w, h, mode) in written.items():
         (out / f"{name}.jpg").write_bytes(data)
         decodes = {"0": digest(pil_decode(data))}
         for d in draft_sizes(w, h):

@@ -40,7 +40,7 @@ from megatron_clip_tpu_torch.data.loaders import get_data
 from megatron_clip_tpu_torch.data.transforms import image_transform
 from megatron_clip_tpu_torch.training.optim import (
     OptState, const_lr, const_lr_cooldown, constant_lr, cosine_lr,
-    make_optimizer)
+    make_optimizer, tower_lock_mask)
 from megatron_clip_tpu_torch.training.signals import sigterm_latch
 from megatron_clip_tpu_torch.training.train_step import (
     TrainState, make_train_step)
@@ -59,16 +59,12 @@ def _aug_keys(args) -> set:
 _REFUSED = (
     (1, "--recompute-granularity mlp",
      lambda a: a.recompute_granularity == "mlp"),
-    (2, "--accum-freq > 1", lambda a: a.accum_freq > 1),
-    (2, "--distill-model", lambda a: bool(a.distill_model)),
-    (2, "--lock-image", lambda a: a.lock_image),
-    (2, "--lock-text", lambda a: a.lock_text),
-    (2, "--siglip", lambda a: a.siglip),
     (2, "a CoCa model", lambda a: a.model.startswith("coca")),
     (2, "--precision fp16", lambda a: a.precision == "fp16"),
-    (2, "--force-patch-dropout > 0",
-     lambda a: bool(a.force_patch_dropout)),
     (3, "--pretrained", lambda a: bool(a.pretrained)),
+    # the teacher needs --distill-pretrained, which needs --pretrained's
+    # checkpoint reader
+    (3, "--distill-model", lambda a: bool(a.distill_model)),
     (3, "--pretrained-image", lambda a: bool(a.pretrained_image)),
     (3, "--aug-cfg color_jitter", lambda a: "color_jitter" in _aug_keys(a)),
     (3, "--aug-cfg auto_augment",
@@ -112,8 +108,9 @@ def _make_schedule(args, total_steps: int):
 
 
 def _model_overrides(args) -> dict:
-    """The `--v-*` tower flags, `--force-image-size` and
-    `--force-quick-gelu` as `create_model` overrides."""
+    """The `--v-*` tower flags, `--force-image-size`,
+    `--force-patch-dropout` and `--force-quick-gelu` as `create_model`
+    overrides."""
     ov = {}
     vision = {}
     if args.v_num_layers:
@@ -129,6 +126,9 @@ def _model_overrides(args) -> dict:
         # open_CLIP --force-image-size; square towers: take the first dim
         vision["image_size"] = int(fis[0] if isinstance(fis, (list, tuple))
                                    else fis)
+    if getattr(args, "force_patch_dropout", None) is not None:
+        # open_CLIP --force-patch-dropout: override the config's rate
+        vision["patch_dropout"] = args.force_patch_dropout
     if vision:
         base = factory.get_model_config(args.model.replace("/", "-"))
         base_v = dict(base["vision_cfg"]) if base else {}
@@ -207,11 +207,22 @@ def _run_training(args, term, device: torch.device) -> dict:
     total_steps = steps_per_epoch * args.epochs
 
     schedule = _make_schedule(args, total_steps)
+    lock_mask = None
+    if args.lock_image or args.lock_text:
+        # LiT (open_CLIP --lock-image / --lock-text): the JAX loop's
+        # tower_lock_mask, last in the optimizer's chain
+        lock_mask = tower_lock_mask(
+            dict(model.named_parameters()), lock_image=args.lock_image,
+            image_unlocked_groups=args.lock_image_unlocked_groups,
+            lock_text=args.lock_text,
+            text_unlocked_layers=args.lock_text_unlocked_layers)
     optimizer = make_optimizer(
         model, schedule, beta1=args.beta1, beta2=args.beta2, eps=args.eps,
-        weight_decay=args.wd, grad_clip_norm=args.grad_clip_norm)
+        weight_decay=args.wd, grad_clip_norm=args.grad_clip_norm,
+        lock_mask=lock_mask)
     runner = _JointRunner(model, optimizer, factory.create_loss(args),
-                          device)
+                          device, microbatches=max(1, args.accum_freq),
+                          seed=args.seed)
 
     start_step, consumed = 0, 0
     if args.resume:
@@ -560,10 +571,12 @@ class _JointRunner:
     one tree: {"params": state dict, "opt_state": {count, mu, nu,
     schedule_count}, "step": int}."""
 
-    def __init__(self, model, optimizer, loss_obj, device: torch.device):
+    def __init__(self, model, optimizer, loss_obj, device: torch.device,
+                 microbatches: int = 1, seed: int = 0):
         self.model = model
         self.state = TrainState.create(model, optimizer)
-        self.step_fn = make_train_step(model, optimizer, loss_obj=loss_obj)
+        self.step_fn = make_train_step(model, optimizer, loss_obj=loss_obj,
+                                       microbatches=microbatches, seed=seed)
         self.device = device
 
     def batches(self, loader):

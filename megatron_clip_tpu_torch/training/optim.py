@@ -26,10 +26,18 @@ same, and the chain's temporaries (a dozen per element) stay at a chunk's
 size rather than the model's (1.7 billion parameters would need some 70 GB
 of them at once).
 
+The tower lock (open_CLIP --lock-image / --lock-text, LiT): the JAX
+package's `tower_lock_mask` multiplies the final updates by 0 or 1
+(`apply_update_mask`, chained last), so a locked parameter's gradient is
+still computed, still counts in the global norm that clips, and its Adam
+moments still move; only its update is zeroed. The port's blocks are
+unstacked, so the JAX per-layer multiplier is one number per parameter
+(`tower_lock_mask`), applied as the last step of the chain.
+
 The schedules: open_CLIP's `cosine_lr`, `const_lr` and `const_lr_cooldown`,
-and `constant_lr`. Not ported yet (ROADMAP Queue A item 2): SGD, bf16 nu
-(`adamw_lowbits`), lock masks, scheduled weight decay and the megatron
-schedules.
+and `constant_lr`. Not ported yet: SGD, bf16 nu (`adamw_lowbits`),
+scheduled weight decay and the megatron schedules, which only the GPT
+runtime calls (ROADMAP Queue A item 4).
 """
 import dataclasses
 from typing import Callable, Dict, Mapping, Optional
@@ -119,6 +127,49 @@ def _no_decay_mask(params: Mapping[str, torch.Tensor]) -> Dict[str, bool]:
             for name, p in params.items()}
 
 
+def tower_lock_mask(params: Mapping[str, torch.Tensor], *,
+                    lock_image: bool = False, image_unlocked_groups: int = 0,
+                    lock_text: bool = False,
+                    text_unlocked_layers: int = 0) -> Dict[str, float]:
+    """The JAX `tower_lock_mask` by parameter name: 1.0 trains, 0.0 is
+    frozen. A locked tower of L blocks has L + 2 groups, as open_CLIP's
+    VisionTransformer.lock lays them out: group 0 the embeddings, class
+    token, position table and ln_pre; group 1 + i block i, the last block
+    with ln_post / ln_final; group L + 1 the projection. `unlocked` keeps
+    the last `unlocked` groups trainable (the text tower's count takes the
+    same groups, as in the JAX package)."""
+    def tower_mask(tower: str, unlocked: int) -> Dict[str, float]:
+        names = {n[len(tower) + 1:]: n for n in params
+                 if n.startswith(tower + ".")}
+        layers = len({rel.split(".")[1] for rel in names
+                      if rel.startswith("blocks.")})
+        if unlocked > 0 and layers == 0:
+            raise ValueError("unlocked groups/layers need a block-stacked "
+                             "tower (ViT/TextTransformer); this tower has no "
+                             "'blocks'")
+        first_unlocked = layers + 2 - unlocked
+        out = {}
+        for rel, name in names.items():
+            parts = rel.split(".")
+            if "blocks" in parts:
+                group = int(parts[parts.index("blocks") + 1]) + 1
+            elif "proj" in rel:
+                group = layers + 1
+            elif "ln_post" in rel or "ln_final" in rel:
+                group = layers
+            else:
+                group = 0
+            out[name] = 1.0 if group >= first_unlocked else 0.0
+        return out
+
+    mask = dict.fromkeys(params, 1.0)
+    if lock_image:
+        mask.update(tower_mask("visual", image_unlocked_groups))
+    if lock_text:
+        mask.update(tower_mask("text", text_unlocked_layers))
+    return mask
+
+
 def _jax_leaf(name: str) -> str:
     """The JAX tree leaf that holds a port parameter: the JAX package
     stacks the layers under `blocks`, so the layer index goes."""
@@ -151,7 +202,8 @@ class AdamW:
                  beta1: float, beta2: float, eps: float, weight_decay: float,
                  grad_clip_norm: Optional[float],
                  moment_dtype: Optional[torch.dtype],
-                 decay_mask: bool = True):
+                 decay_mask: bool = True,
+                 lock_mask: Optional[Mapping[str, float]] = None):
         self.params = dict(model.named_parameters())
         self.lr = lr
         self.b1, self.b2, self.eps = beta1, beta2, eps
@@ -160,9 +212,11 @@ class AdamW:
         self.moment_dtype = moment_dtype
         decay = (_no_decay_mask(self.params) if decay_mask
                  else dict.fromkeys(self.params, True))
+        lock = lock_mask or dict.fromkeys(self.params, 1.0)
         groups: Dict[tuple, list] = {}
         for name, p in self.params.items():
-            groups.setdefault((p.dtype, decay[name]), []).append(name)
+            groups.setdefault((p.dtype, decay[name], lock[name]),
+                              []).append(name)
         self.groups = list(groups.items())
         # global_norm: each parameter's JAX leaf in the JAX tree's order
         # (dict keys sorted at every level), which leaves round their sum
@@ -254,18 +308,19 @@ class AdamW:
         bc2 = float(f32(1) - f32(self.b2) ** f32(count))
         lr = self.lr(state.schedule_count)
         mu_out, nu_out = {}, {}
-        for (dtype, decays), group in self.groups:
+        for (dtype, decays, lock), group in self.groups:
             for names in self._chunks(group):
-                self._update_chunk(names, dtype, decays, grads, norm, state,
-                                   bc1, bc2, lr, mu_out, nu_out)
+                self._update_chunk(names, dtype, decays, lock, grads, norm,
+                                   state, bc1, bc2, lr, mu_out, nu_out)
         return OptState(count=count, mu=mu_out, nu=nu_out,
                         schedule_count=state.schedule_count + 1), norm
 
-    def _update_chunk(self, names, dtype, decays, grads, norm, state, bc1,
-                      bc2, lr, mu_out, nu_out) -> None:
-        """The chain on the parameters `names` (one dtype and decay): the
-        clip, scale_by_adam, the decay, the learning rate, the update in
-        place; the new moments into mu_out and nu_out."""
+    def _update_chunk(self, names, dtype, decays, lock, grads, norm, state,
+                      bc1, bc2, lr, mu_out, nu_out) -> None:
+        """The chain on the parameters `names` (one dtype, decay and lock
+        multiplier): the clip, scale_by_adam, the decay, the learning rate,
+        the lock mask, the update in place; the new moments into mu_out
+        and nu_out."""
         g = [grads[n] for n in names]
         if self.grad_clip_norm:
             g = self._clip(g, dtype, norm)
@@ -295,6 +350,8 @@ class AdamW:
             u = torch._foreach_add(u, [t.to(udt) for t in wp])
         # scale_by_learning_rate, then apply_updates: p <- p + u
         torch._foreach_mul_(u, _c(-lr, udt))
+        if lock != 1.0:  # apply_update_mask: u * mask, last in the chain
+            torch._foreach_mul_(u, lock)
         with torch.no_grad():
             torch._foreach_add_([self.params[n] for n in names], u)
         mu_out.update(zip(names, (t.to(mdt) for t in mu)))
@@ -306,15 +363,18 @@ def make_optimizer(model: nn.Module, lr: Callable[[int], float], *,
                    weight_decay: float = 0.2,
                    grad_clip_norm: Optional[float] = None,
                    moment_dtype: Optional[torch.dtype] = None,
-                   decay_mask: bool = True) -> AdamW:
+                   decay_mask: bool = True,
+                   lock_mask: Optional[Mapping[str, float]] = None) -> AdamW:
     """AdamW with the CLIP recipe's defaults (open_CLIP: beta2 0.98, eps
     1e-6, weight decay 0.2), weight decay masked by `_no_decay_mask` (with
     `decay_mask=False` every parameter decays), optional
     global-norm clipping first. `moment_dtype` stores the first moment
-    (optax's mu_dtype); None keeps each parameter's dtype."""
+    (optax's mu_dtype); None keeps each parameter's dtype. `lock_mask`
+    (`tower_lock_mask`'s) multiplies each parameter's final update."""
     return AdamW(model, lr, beta1=beta1, beta2=beta2, eps=eps,
                  weight_decay=weight_decay, grad_clip_norm=grad_clip_norm,
-                 moment_dtype=moment_dtype, decay_mask=decay_mask)
+                 moment_dtype=moment_dtype, decay_mask=decay_mask,
+                 lock_mask=lock_mask)
 
 
 def make_gpt_optimizer(model: nn.Module, lr: float = 1e-4, *,

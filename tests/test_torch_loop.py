@@ -300,16 +300,11 @@ def test_resume_from_an_explicit_root_and_a_bogus_one(tmp_path):
 
 @pytest.mark.parametrize("flag,item", [
     (["--recompute-granularity", "mlp"], 1),
-    (["--accum-freq", "2"], 2),
-    (["--distill-model", "test-tiny"], 2),
-    (["--lock-image"], 2),
-    (["--lock-text"], 2),
-    (["--siglip"], 2),
     (["--model", "coca_test-tiny"], 2),
     (["--precision", "fp16"], 2),
-    (["--force-patch-dropout", "0.5"], 2),
     (["--pretrained", "openai"], 3),
     (["--pretrained-image", "openai"], 3),
+    (["--distill-model", "test-tiny"], 3),
     (["--aug-cfg", "color_jitter=0.4"], 3),
     (["--aug-cfg", "auto_augment=rand-m9-mstd0.5"], 3),
     (["--extra-world-size", "4"], 5),
