@@ -188,7 +188,25 @@ imports nothing of JAX or of the JAX package. Phases, each of which raises
      --force-patch-dropout 0.5 step at two layers a tower, card against
      CPU, and on the card the summed block gradients of --accum-freq 2
      against the --accum-freq 1 gradient of the same batch without patch
-     dropout, within 1e-4 of each gradient's norm. Within 60 s.
+     dropout, within 1e-4 of each gradient's norm. Within 60 s;
+ 14. data parallel: `pretrain_clip` launched by `python -m
+     torch.distributed.run`, each rank a process running this script with
+     --dp-worker (it wraps the run's steps and model as phases 12 and 13
+     do, and writes what it saw for this process to read): (a) one rank
+     over NCCL, phase 12's ViT-B-32 synthetic run (pure_bf16, batch 384),
+     3 warm-up and 10 timed steps, each launching exactly phase 7's
+     kernels, its samples/s and step interval beside phase 12's (the cost
+     of the gathers, the gradient all-reduce and the rank logic at W = 1);
+     (b) two ranks on the one card over gloo (NCCL refuses two ranks on one
+     device), fp32, global batch 32, 3 steps, ViT-B-32 with ClipLoss and
+     ViT-B-16-SigLIP with --siglip --accum-freq 2 --force-patch-dropout
+     0.5, both launched at once while this process runs each in one
+     process on the card on the same global batches: every loss within
+     1e-5 relative, every parameter within 1e-4 of its norm, and the two
+     ranks' parameters bit-equal. The launches are made before phase 2,
+     their processes starting beside the build and waiting for the phase;
+     (a) holds its first step until (b) has ended, so that its model is
+     built beside (b) and its steps run alone. Within 60 s.
 
 Before its last lines the script fails if a process it started (a build,
 a decode worker, the forkserver, the resource tracker) is still alive.
@@ -227,6 +245,7 @@ SDPA with dropout_p = 0.1.
 The last three lines of standard output are the card's name and power
 limit, the {"kernels": [...]} line and {"ok": true, "device": {...}}.
 """
+import atexit
 import functools
 import json
 import math
@@ -397,6 +416,25 @@ def recipe_lit_argv(tower: str, unlocked: int, steps: int) -> list:
             "1"]
 RECIPE_PARITY_LAYERS, RECIPE_PARITY_BATCH = 2, 8
 RECIPE_PHASE_LIMIT_S = 60.0
+
+# phase 14: data parallel through torchrun. (a) one rank over NCCL, phase
+# 12's synthetic run for DP_WARMUP + DP_STEPS steps; (b) DP_RANKS ranks on
+# the one card over gloo, fp32, global batch DP_PARITY_BATCH,
+# DP_PARITY_STEPS steps, each run of DP_PARITY_RUNS against one process on
+# the card: losses within DP_LOSS_RTOL, parameters within DP_PARAM_RTOL of
+# their norms. Scratch under DP_DIR; within DP_PHASE_LIMIT_S.
+DP_WARMUP, DP_STEPS = 3, 10
+DP_RANKS, DP_PARITY_BATCH, DP_PARITY_STEPS = 2, 32, 3
+DP_PARITY_RUNS = {
+    "ViT-B-32 clip": ["--model", "ViT-B-32"],
+    f"{RECIPE_MODEL} siglip accum patch dropout": [
+        "--model", RECIPE_MODEL, "--siglip", "--accum-freq", "2",
+        "--force-patch-dropout", "0.5"]}
+DP_LOSS_RTOL, DP_PARAM_RTOL = 1e-5, 1e-4
+DP_DIR = REPO / "_smoke_dp"
+# how long a launch waits for its go or gate file: the script's own limit
+DP_GO_TIMEOUT_S = 1200.0
+DP_PHASE_LIMIT_S = 60.0
 
 
 _T0 = time.perf_counter()
@@ -3790,7 +3828,7 @@ class TrainerProbe:
     each batch's staging copy on the prefetch thread (`_Prefetch.stage`)
     and of each save (the host copy only, when the save writes in the
     background). The counters are zeroed on entry and read on exit into
-    `launches`."""
+    `launches`. `per_step` None checks no step's launches."""
 
     def __init__(self, loop, mha, ln, per_step: dict):
         self.loop, self.mha, self.ln = loop, mha, ln
@@ -3810,7 +3848,7 @@ class TrainerProbe:
             probe.host.append((t0, time.perf_counter()))
             got = {k: v - before[k]
                    for k, v in read_counts(probe.mha, probe.ln).items()}
-            if got != probe.per_step:
+            if probe.per_step is not None and got != probe.per_step:
                 raise AssertionError(f"trainer step {len(probe.host)}: "
                                      f"launches {got}, expected "
                                      f"{probe.per_step}")
@@ -4487,11 +4525,287 @@ def phase_recipes(mha, ln, card: str) -> dict:
     return result
 
 
+def dp_worker(spec_path: str) -> int:
+    """One rank of a phase 14 run (`chip_smoke.py --dp-worker SPEC` under
+    torchrun). It waits for the file spec["go"] (the launch is made before
+    phase 2, so that its processes start beside the build), then runs
+    `pretrain_clip.main(spec["argv"])` with the model and the steps probed
+    as phases 12 and 13 probe them (each step's launches held to phase 7's
+    when spec["launches"]); with spec["gate"] its first step waits until
+    that file exists too, so that its steps run alone on the card. It
+    writes this rank's losses, step clock, launches and a digest of its
+    parameters to OUT/rank{r}.json, and rank 0's parameters to
+    OUT/params.pt when spec["params"]."""
+    import hashlib
+    from megatron_clip_tpu_torch.factory import (get_model_config,
+                                                 parse_model_cfg)
+    from megatron_clip_tpu_torch.ops.kernels import fused_mha as mha
+    from megatron_clip_tpu_torch.ops.kernels import layernorm as ln
+    from megatron_clip_tpu_torch.pretrain_clip import main as train_main
+    from megatron_clip_tpu_torch.training import loop
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    spec = json.loads(Path(spec_path).read_text())
+    out, rank = Path(spec["out"]), int(os.environ.get("RANK", "0"))
+    wait_for(Path(spec["go"]), DP_GO_TIMEOUT_S)
+    wall = time.time() - time.perf_counter()  # the host clock as wall time
+    went = time.perf_counter()
+    per_step = None
+    if spec["launches"]:
+        model = spec["argv"][spec["argv"].index("--model") + 1]
+        per_step = per_step_launches(parse_model_cfg(get_model_config(
+            model)), save_probs=True)
+    step, gated = loop._JointRunner.step, {}
+
+    def gated_step(run, images, texts):
+        gated.setdefault("at", time.perf_counter())
+        wait_for(Path(spec["gate"]), DP_GO_TIMEOUT_S)
+        gated.setdefault("opened", time.perf_counter())
+        return step(run, images, texts)
+    if spec["gate"]:
+        loop._JointRunner.step = gated_step
+    try:
+        with ModelProbe(loop) as built, \
+                TrainerProbe(loop, mha, ln, per_step) as probe:
+            final = train_main(spec["argv"])
+    finally:
+        loop._JointRunner.step = step
+    params = {n: p.detach().cpu() for n, p in
+              built.model.named_parameters()}
+    digest = hashlib.sha256()
+    for n, p in params.items():
+        digest.update(n.encode())
+        digest.update(p.reshape(-1).view(torch.uint8).numpy().tobytes())
+    if spec["params"] and rank == 0:
+        torch.save(params, out / "params.pt")
+    waited = gated.get("opened", 0.0) - gated.get("at", 0.0)
+    (out / f"rank{rank}.json").write_text(json.dumps({
+        "rank": rank, "world": int(os.environ.get("WORLD_SIZE", "1")),
+        "losses": probe.loss_values(), "host": probe.host,
+        "launches": probe.launches, "digest": digest.hexdigest(),
+        "final": final, "wall": {
+            "go": wall + went, "gate_wait": waited,
+            "first_step": wall + probe.host[0][0] + waited,
+            "last_step_end": wall + probe.host[-1][1],
+            "returned": wall + time.perf_counter()}}))
+    return 0
+
+
+def wait_for(path: Path, timeout: float) -> None:
+    """Return once `path` exists; raise after `timeout` seconds. The
+    launches wait so through phases 2 to 13: a poll every 50 ms keeps their
+    wake-ups out of the timed phases."""
+    t0 = time.perf_counter()
+    while not path.exists():
+        if time.perf_counter() - t0 > timeout:
+            raise TimeoutError(f"{path} did not appear in {timeout} s")
+        time.sleep(0.05)
+
+
+class DataParallelLaunches:
+    """Phase 14's torchrun launches, made before phase 2: (a) one rank over
+    NCCL on phase 12's synthetic run, and (b) each run of DP_PARITY_RUNS on
+    DP_RANKS ranks over gloo on the one card. Each `python -m
+    torch.distributed.run --standalone` runs this script's --dp-worker in a
+    session of its own, its output in its directory's log.txt, and waits
+    for `go`; (a) also for `gate` at its first step. `stop` ends any still
+    running; it runs at exit too."""
+
+    def __init__(self):
+        shutil.rmtree(DP_DIR, ignore_errors=True)
+        DP_DIR.mkdir(parents=True)
+        self.go, self.gate = DP_DIR / "go", DP_DIR / "gate"
+        at = TRAINER_SYNTHETIC.index("--train-num-samples")
+        one_rank = TRAINER_SYNTHETIC[:at] + [
+            "--train-num-samples", str(TRAIN_BATCH * (DP_WARMUP + DP_STEPS)),
+            *TRAINER_SYNTHETIC[at + 2:], "--dist-backend", "nccl"]
+        self.procs = {}
+        self.dirs = {"one rank": DP_DIR / "a"}
+        self.launch("one rank", one_rank, 1, launches=True, params=False,
+                    gate=self.gate)
+        common = ["--precision", "fp32", "--batch-size",
+                  str(DP_PARITY_BATCH), "--dataset-type", "synthetic",
+                  "--train-num-samples",
+                  str(DP_PARITY_BATCH * DP_PARITY_STEPS), "--lr", "1e-4",
+                  "--warmup", "2", "--grad-clip-norm", "1.0",
+                  "--log-interval", "1"]
+        self.parity = {name: common + flags
+                       for name, flags in DP_PARITY_RUNS.items()}
+        for i, (name, argv) in enumerate(self.parity.items()):
+            self.dirs[name] = DP_DIR / f"b{i}"
+            self.launch(name, argv + ["--device", "cuda:0", "--dist-backend",
+                                      "gloo"], DP_RANKS, launches=False,
+                        params=True, gate=None)
+        atexit.register(self.stop)
+
+    def launch(self, name: str, argv: list, ranks: int, launches: bool,
+               params: bool, gate) -> None:
+        work = self.dirs[name]
+        work.mkdir()
+        spec = work / "spec.json"
+        spec.write_text(json.dumps({
+            "argv": argv, "out": str(work), "launches": launches,
+            "params": params, "go": str(self.go), "gate": gate and str(gate)}))
+        with open(work / "log.txt", "w") as log_file:
+            self.procs[name] = subprocess.Popen(
+                [sys.executable, "-m", "torch.distributed.run",
+                 "--standalone", "--nproc-per-node", str(ranks),
+                 str(Path(__file__).resolve()), "--dp-worker", str(spec)],
+                cwd=REPO, stdout=log_file, stderr=subprocess.STDOUT,
+                start_new_session=True)
+
+    def wait(self, name: str, ranks: int, timeout: float) -> list:
+        """Each rank's JSON once launch `name` has exited 0; a launch that
+        fails or outlasts `timeout` (its session killed) raises with its
+        log's end. Rank 0's gets `wall_s`: where its run's wall time went,
+        from `go` to its first step (less a gate's wait), the steps, the
+        run after them, and from its return to torchrun's exit."""
+        proc, work = self.procs[name], self.dirs[name]
+        try:
+            rc = proc.wait(timeout=timeout)
+        except subprocess.TimeoutExpired:
+            os.killpg(proc.pid, 9)
+            proc.wait()
+            rc = "timeout"
+        exited = time.time()
+        if rc != 0:
+            tail = (work / "log.txt").read_text()[-4000:]
+            raise AssertionError(f"torchrun of {name} ended with {rc}:\n"
+                                 f"{tail}")
+        got = [json.loads((work / f"rank{r}.json").read_text())
+               for r in range(ranks)]
+        w = got[0]["wall"]
+        got[0]["wall_s"] = {
+            "to_first_step": w["first_step"] - w["go"] - w["gate_wait"],
+            "gate_wait": w["gate_wait"],
+            "steps": w["last_step_end"] - w["first_step"],
+            "after_steps": w["returned"] - w["last_step_end"],
+            "to_exit": exited - w["returned"]}
+        return got
+
+    def stop(self) -> None:
+        for proc in self.procs.values():
+            if proc.poll() is None:
+                os.killpg(proc.pid, 9)
+                proc.wait()
+        shutil.rmtree(DP_DIR, ignore_errors=True)
+
+
+def dp_one_rank(launches: DataParallelLaunches, phase12: dict) -> dict:
+    """(a), its gate opened: the step's exact launches (held in the rank),
+    the loop's samples/s over the timed steps (host clock between the first
+    and the last timed step's starts) and the step interval's median beside
+    phase 12's."""
+    launches.gate.touch()
+    got = launches.wait("one rank", 1, timeout=120)[0]
+    losses = got["losses"]
+    if len(losses) != DP_WARMUP + DP_STEPS or \
+            not all(math.isfinite(v) for v in losses):
+        raise AssertionError(f"data parallel (a): losses {losses}")
+    starts = [a for a, _ in got["host"]]
+    timed = list(range(DP_WARMUP, len(starts) - 1))
+    sps = TRAIN_BATCH * len(timed) / (starts[timed[-1] + 1]
+                                      - starts[timed[0]])
+    interval = float(np.median([(starts[i + 1] - starts[i]) * 1e3
+                                for i in timed]))
+    result = {"world": got["world"], "samples_per_s": sps,
+              "phase12_samples_per_s": phase12["samples_per_s"],
+              "ratio": sps / phase12["samples_per_s"],
+              "step_interval_ms_median": interval,
+              "phase12_step_interval_ms_median":
+                  phase12["step_interval_ms_median"],
+              "host_ms_in_step_median": float(np.median(
+                  [(got["host"][i][1] - got["host"][i][0]) * 1e3
+                   for i in timed])),
+              "wall_s": got["wall_s"], "losses": losses,
+              "launches": got["launches"]}
+    log(f"  (a) one rank over NCCL: {sps:.1f} samples/s against phase 12's "
+        f"{phase12['samples_per_s']:.1f} (ratio {result['ratio']:.4f}); "
+        f"step interval median {interval:.2f} ms against "
+        f"{phase12['step_interval_ms_median']:.2f}; wall s "
+        f"{json.dumps(got['wall_s'])}")
+    return result
+
+
+def dp_parity(launches: DataParallelLaunches, mha, ln) -> dict:
+    """(b): while the launches run, this process takes the same steps of
+    each in one process on the card: the losses within DP_LOSS_RTOL
+    relative, each parameter within DP_PARAM_RTOL of its norm, the ranks'
+    parameters bit-equal (their digests)."""
+    from megatron_clip_tpu_torch.pretrain_clip import main
+    from megatron_clip_tpu_torch.training import loop
+    result = {}
+    for name, argv in launches.parity.items():
+        t0 = time.perf_counter()
+        with ModelProbe(loop) as built, \
+                TrainerProbe(loop, mha, ln, None) as probe:
+            main(argv)
+        one = {n: p.detach().cpu() for n, p in
+               built.model.named_parameters()}
+        want = probe.loss_values()
+        del built.model, built.start
+        torch.cuda.empty_cache()
+        one_s = time.perf_counter() - t0
+        ranks = launches.wait(name, DP_RANKS, timeout=120)
+        got = torch.load(launches.dirs[name] / "params.pt")
+        rel = {n: float((got[n] - p).norm() / p.norm().clamp_min(1e-30))
+               for n, p in one.items()}
+        worst = max(rel, key=rel.get)
+        loss_err = max(abs(g - w) / abs(w) for r in ranks
+                       for g, w in zip(r["losses"], want))
+        res = {"wall_s": ranks[0]["wall_s"], "losses_one_process": want,
+               "losses_ranks": [r["losses"] for r in ranks],
+               "loss_max_rel_err": loss_err, "param_worst_leaf": worst,
+               "param_worst_rel_err": rel[worst],
+               "ranks_bit_equal": len({r["digest"] for r in ranks}) == 1,
+               "one_process_s": one_s}
+        log(f"  (b) {name}, {DP_RANKS} ranks over gloo against one process: "
+            f"{json.dumps(res)}")
+        if len(want) != DP_PARITY_STEPS or \
+                any(len(r["losses"]) != DP_PARITY_STEPS for r in ranks) \
+                or loss_err > DP_LOSS_RTOL or rel[worst] > DP_PARAM_RTOL \
+                or not res["ranks_bit_equal"]:
+            raise AssertionError(f"data parallel (b) {name}: the ranks "
+                                 "disagree with one process or with each "
+                                 "other")
+        result[name] = res
+    return result
+
+
+def phase_data_parallel(launches: DataParallelLaunches, mha, ln, card: str,
+                        trainer: dict) -> dict:
+    log(f"[14] data parallel: pretrain_clip under torch.distributed.run: (a) "
+        f"one rank over NCCL, ViT-B-32 pure_bf16 batch {TRAIN_BATCH}, "
+        f"{DP_WARMUP} + {DP_STEPS} steps; (b) {DP_RANKS} ranks on the card "
+        f"over gloo, fp32, global batch {DP_PARITY_BATCH}, "
+        f"{DP_PARITY_STEPS} steps, against one process: "
+        f"{', '.join(DP_PARITY_RUNS)}")
+    t0 = time.perf_counter()
+    result = {"card": card}
+    # every launch builds its model at once; (a) holds its first step
+    # until (b) has ended, and then takes its steps alone on the card
+    launches.go.touch()
+    try:
+        result["gloo_two_ranks"] = dp_parity(launches, mha, ln)
+        result["gloo_two_ranks_seconds"] = time.perf_counter() - t0
+        result["nccl_one_rank"] = dp_one_rank(launches, trainer["synthetic"])
+    finally:
+        launches.stop()
+    result["seconds"] = time.perf_counter() - t0
+    log(f"  data parallel ({card}): {json.dumps(result)}")
+    if result["seconds"] > DP_PHASE_LIMIT_S:
+        raise AssertionError(f"phase 14 took {result['seconds']:.1f} s, "
+                             f"over {DP_PHASE_LIMIT_S} s")
+    return result
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; this script runs only on the GPU",
               file=sys.stderr)
         return 1
+    if sys.argv[1:2] == ["--dp-worker"]:
+        return dp_worker(sys.argv[2])
     import megatron_clip_tpu_torch as port
     from megatron_clip_tpu_torch.ops.kernels import _build
     from megatron_clip_tpu_torch.ops.kernels import fused_mha as mha
@@ -4503,6 +4817,7 @@ def main() -> int:
     card = gpu_name_and_power_limit()
     log(f"[1] device: {torch.cuda.get_device_name(0)} | {card} | torch "
         f"{torch.__version__} CUDA {torch.version.cuda}")
+    launches = DataParallelLaunches()
     phase_build(_build)
     errs = phase_kernels(mha, ln)
     phase_goldens(port)
@@ -4515,6 +4830,7 @@ def main() -> int:
     pipeline = phase_pipeline(mha, ln, card)
     trainer = phase_trainer(mha, ln, card, train)
     recipes = phase_recipes(mha, ln, card)
+    dp = phase_data_parallel(launches, mha, ln, card, trainer)
     paths = {"serving ViT-B-32": serving["launches"],
              "train ViT-B-32": train["launches"],
              **{f"train {name} recompute": run["launches"]
@@ -4534,7 +4850,9 @@ def main() -> int:
                  recipes["siglip"]["launches"],
              **{f"trainer {RECIPE_MODEL} LiT {tower}":
                 recipes[f"lit_{tower}"]["launches"]
-                for tower, _, _ in LIT_RUNS}}
+                for tower, _, _ in LIT_RUNS},
+             "trainer ViT-B-32 torchrun 1 rank nccl":
+                 dp["nccl_one_rank"]["launches"]}
     kernels = kernels_line(rows, paths, errs)
     idle = [k["name"] for k in kernels if k["launches"] == 0]
     if idle:

@@ -4,7 +4,12 @@ Counterpart of `megatron_clip_tpu/data/loaders.py` (open_CLIP's get_data
 dispatch, open_CLIP/src/training/data.py:434-545) with numpy-producing
 iterators; the webdataset tar pipeline lives in `data/webdataset.py`.
 Loaders yield (images [B, H, W, 3] float32, texts [B, ctx] int32) numpy
-batches; the trainer moves them to the card.
+batches; the trainer moves them to the card. `--batch-size` is the global
+batch: on rank r of W a synthetic or CSV loader yields only its rows of
+each global batch (`rows`, `parallel.mesh.rank_rows`), and builds or
+decodes no other; a webdataset loader reads its own shards (`WdsData`'s
+`rank` and `world_size`, the JAX loader's multi-host semantics) in batches
+of B/W.
 
 Images are decoded by `data/decode.py` (no PIL). A loader calls its
 preprocess as `preprocess(image, seed)`, with a seed of the sample's own
@@ -20,6 +25,7 @@ from typing import Callable, Iterator, Optional
 import numpy as np
 
 from megatron_clip_tpu_torch.data.decode import decode_image
+from megatron_clip_tpu_torch.parallel.mesh import rank_rows
 
 
 @dataclass
@@ -61,7 +67,8 @@ def read_image(path: str) -> np.ndarray:
 class SyntheticData:
     """open_CLIP --dataset-type synthetic (data.py:487-505): fixed random
     images + cycled captions, the JAX loader's RandomState draws, so the
-    same seed gives the same batches."""
+    same seed gives the same batches. `rows` (of each batch of
+    `batch_size`): the only rows yielded, in their order."""
 
     CAPTIONS = [
         "a photo of a cat", "a photo of a dog", "a drawing of a car",
@@ -72,13 +79,16 @@ class SyntheticData:
 
     def __init__(self, batch_size: int, num_samples: int, image_size: int,
                  context_length: int = 77, seed: int = 0,
-                 tokenizer: Optional[Callable] = None):
+                 tokenizer: Optional[Callable] = None,
+                 rows: Optional[np.ndarray] = None):
         self.batch_size = batch_size
+        self.rows = np.arange(batch_size) if rows is None else rows
         self.num_samples = num_samples
         self.num_batches = max(1, num_samples // batch_size)
         rng = np.random.RandomState(seed)
-        self._img = rng.randn(batch_size, image_size, image_size,
-                              3).astype(np.float32)
+        img = rng.randn(batch_size, image_size, image_size,
+                        3).astype(np.float32)
+        self._img = img if rows is None else img[rows]
         if tokenizer is None:
             texts = rng.randint(1, 49000, size=(len(self.CAPTIONS),
                                                 context_length))
@@ -96,20 +106,22 @@ class SyntheticData:
     def __iter__(self):
         start, self._skip = self._skip, 0
         for i in range(start, self.num_batches):
-            idx = (np.arange(self.batch_size) + i) % len(self._txt_bank)
+            idx = (self.rows + i) % len(self._txt_bank)
             yield self._img, self._txt_bank[idx]
 
 
 class CsvData:
     """open_CLIP CsvDataset (data.py:80-106): a separator-delimited file with
     an image-path column and a caption column; the epoch's order shuffled
-    from seed + epoch as in the JAX loader."""
+    from seed + epoch as in the JAX loader. `rows` (of each batch of
+    `batch_size`): the only rows decoded and yielded, in their order."""
 
     def __init__(self, path: str, batch_size: int, preprocess: Callable,
                  tokenizer: Callable, *, sep: str = "\t",
                  img_key: str = "filepath", caption_key: str = "title",
                  shuffle: bool = True, seed: int = 0,
-                 context_length: int = 77):
+                 context_length: int = 77,
+                 rows: Optional[np.ndarray] = None):
         import csv as _csv
         self.rows = []
         base = os.path.dirname(os.path.abspath(path))
@@ -120,6 +132,7 @@ class CsvData:
                     img = os.path.join(base, img)
                 self.rows.append((img, row[caption_key]))
         self.batch_size = batch_size
+        self.batch_rows = np.arange(batch_size) if rows is None else rows
         self.num_samples = len(self.rows)
         self.num_batches = max(1, self.num_samples // batch_size)
         self.preprocess = preprocess
@@ -150,7 +163,7 @@ class CsvData:
             if len(batch) < self.batch_size:
                 break
             imgs, caps = [], []
-            for i in batch:
+            for i in (batch[j] for j in self.batch_rows):
                 path, cap = self.rows[i]
                 imgs.append(self.preprocess(read_image(path),
                                             sample_seed(self.seed, epoch, i)))
@@ -161,23 +174,33 @@ class CsvData:
 
 
 def get_data(args, preprocess_train, preprocess_val, tokenizer,
-             context_length: int = 77, image_size: int = 224) -> dict:
+             context_length: int = 77, image_size: int = 224,
+             rank: int = 0, world_size: int = 1,
+             microbatches: int = 1) -> dict:
     """open_CLIP get_data analogue (data.py:527-545): returns
     {'train': DataInfo, 'val': DataInfo?} per args.dataset_type. A None
     `tokenizer` (no BPE vocabulary) gives synthetic data random token
-    ids."""
+    ids. The train loader of rank `rank` of `world_size` yields that
+    rank's part of each global batch of `args.batch_size` split into
+    `microbatches` blocks (see the module's note); the val loader is the
+    whole set's. Webdataset shards on more than one rank with more than one
+    block raise NotImplementedError: the JAX layout would move rows
+    between ranks."""
     out = {}
+    rows = rank_rows(args.batch_size, microbatches, rank, world_size) \
+        if world_size > 1 else None
     if args.dataset_type == "synthetic":
         n = args.train_num_samples or args.batch_size * 8
         ds = SyntheticData(args.batch_size, n, image_size,
                            context_length=context_length,
-                           seed=args.seed, tokenizer=tokenizer)
+                           seed=args.seed, tokenizer=tokenizer, rows=rows)
         out["train"] = DataInfo(ds, ds.num_batches, n)
     elif args.dataset_type == "csv":
         ds = CsvData(args.train_data, args.batch_size, preprocess_train,
                      tokenizer, sep=args.csv_separator,
                      img_key=args.csv_img_key, caption_key=args.csv_caption_key,
-                     seed=args.seed, context_length=context_length)
+                     seed=args.seed, context_length=context_length,
+                     rows=rows)
         out["train"] = DataInfo(ds, ds.num_batches, ds.num_samples)
         if args.val_data:
             vs = CsvData(args.val_data, args.batch_size, preprocess_val,
@@ -188,13 +211,17 @@ def get_data(args, preprocess_train, preprocess_val, tokenizer,
             out["val"] = DataInfo(vs, vs.num_batches, vs.num_samples)
     elif args.dataset_type == "webdataset":
         from megatron_clip_tpu_torch.data.webdataset import WdsData
-        ds = WdsData(args.train_data, args.batch_size, preprocess_train,
-                     tokenizer, num_samples=args.train_num_samples,
+        if world_size > 1 and microbatches > 1:
+            raise NotImplementedError(
+                "webdataset shards with --accum-freq > 1 on more than one "
+                "rank are not ported yet (ROADMAP Queue A item 5)")
+        ds = WdsData(args.train_data, args.batch_size // world_size,
+                     preprocess_train, tokenizer,
+                     num_samples=args.train_num_samples,
                      seed=args.seed, context_length=context_length,
                      workers=args.workers,
                      resampled=getattr(args, "dataset_resampled", False),
-                     rank=getattr(args, "rank", 0),
-                     world_size=getattr(args, "world_size", 1),
+                     rank=rank, world_size=world_size,
                      upsampling_factors=getattr(
                          args, "train_data_upsampling_factors", None))
         out["train"] = DataInfo(ds, ds.num_batches, ds.num_samples)

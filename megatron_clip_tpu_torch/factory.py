@@ -194,9 +194,12 @@ def create_model(model_name: str, precision: str = "bf16",
 def create_loss(args):
     """open_CLIP create_loss (factory.py:250-283) as the JAX factory
     dispatches it: `args` is an argparse Namespace or any object with the
-    same fields. The port has the ClipLoss and SigLipLoss branches, for one
-    process: there `--local-loss` and `--gather-with-grad` change nothing,
-    as on one JAX device. CoCa and distillation raise."""
+    same fields; `--local-loss` and `--gather-with-grad` pass through to
+    ClipLoss. The loss has no group, as the JAX trainer's has no axis
+    (`loss_axis_name = None`): the data-parallel train step gathers the
+    features and gives the loss the whole batch, so there the two flags
+    change nothing (`training/train_step.py`). CoCa and distillation
+    raise."""
     get = lambda k, d=None: getattr(args, k, d)  # noqa: E731
     if get("model", "").startswith("coca"):
         raise NotImplementedError("CoCaLoss is not ported yet (ROADMAP "
@@ -206,4 +209,5 @@ def create_loss(args):
     if get("distill_model") or get("distill"):
         raise NotImplementedError("DistillClipLoss is not ported yet "
                                   "(ROADMAP Queue A item 3)")
-    return ClipLoss()
+    return ClipLoss(local_loss=get("local_loss", True),
+                    gather_with_grad=get("gather_with_grad", True))

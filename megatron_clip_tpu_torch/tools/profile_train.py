@@ -8,6 +8,8 @@
         --model gpt-rope-swiglu --fused-ce [--batch 8]
     python -m megatron_clip_tpu_torch.tools.profile_train \
         --model gpt-pipeline [--seq 512]
+    python -m torch.distributed.run --standalone --nproc-per-node 1 \
+        -m megatron_clip_tpu_torch.tools.profile_train [--model ViT-B-32]
 
 Builds the model (pure_bf16, random weights from seed 0) with the recipe of
 bench.py's CLIP legs (AdamW b=(0.9, 0.98), eps 1e-6, weight decay 0.2, bf16
@@ -35,7 +37,10 @@ forward and backward, the optimizer's multi-tensor kernels, copies, other)
 with the top kernels, each of the port's kernels by name and template
 arguments (`port_kernels_ms`: which instantiation ran, e.g. the attention
 kernels' head dim), and the PyTorch ops whose own kernels took the most
-device time. Needs a CUDA device; exits non-zero without one.
+device time. Needs a CUDA device; exits non-zero without one. Under
+torchrun the CLIP step is the data-parallel one over torchrun's group
+(`parallel/mesh.py`; `--batch` rows a rank, NCCL), its feature gathers and
+gradient all-reduce under the category "collective (nccl)"; rank 0 prints.
 """
 import argparse
 import json
@@ -102,6 +107,8 @@ def _category(name: str) -> str:
         return "layernorm bwd (layernorm.cu)"
     if "ln_fwd" in n:
         return "layernorm fwd (layernorm.cu)"
+    if "nccl" in n:
+        return "collective (nccl)"
     if "multi_tensor_apply" in n:
         return "optimizer (multi-tensor)"
     if "memcpy" in n or "memset" in n:
@@ -143,16 +150,20 @@ def _top_ops(prof, n: int = 16) -> list:
 def _clip_step(args):
     """(step on the seeded batch, what the JSON line says of the run)."""
     import megatron_clip_tpu_torch as port
+    from megatron_clip_tpu_torch.parallel import mesh
     from megatron_clip_tpu_torch.training import (TrainState, cosine_lr,
                                                   make_optimizer,
                                                   make_train_step)
     batch = args.batch or 384
+    device = mesh.init_distributed(args, torch.device("cuda"))
     model = port.create_model(args.model, precision="pure_bf16", seed=SEED,
-                              attn_save_probs=not args.recompute).train()
+                              attn_save_probs=not args.recompute,
+                              device=device).train()
+    mesh.broadcast_module(model)
     opt = make_optimizer(model, cosine_lr(1e-3, 100, 10000),
                          grad_clip_norm=1.0, moment_dtype=torch.bfloat16)
     state = TrainState.create(model, opt)
-    step = make_train_step(model, opt)
+    step = make_train_step(model, opt, group=mesh.group())
     cfg = model.cfg
     rng = np.random.default_rng(SEED)
     images = torch.from_numpy(rng.standard_normal(
@@ -167,7 +178,8 @@ def _clip_step(args):
         return metrics
     return run, {"batch": batch, "precision": "pure_bf16",
                  "attention_backward": "recompute" if args.recompute
-                 else "saved P"}
+                 else "saved P", "ranks": mesh.world_size(),
+                 "group": mesh.group() is not None}
 
 
 def _gpt_step(args):
@@ -252,11 +264,14 @@ def main() -> int:
         torch.cuda.synchronize()
         wall = (time.perf_counter() - t0) * 1e3
     window = _window(prof, wall, _category)
-    print(json.dumps({"card": card, "model": args.model, **about,
-                      "window": f"{REPS} train steps, batch on the card",
-                      "loss": float(metrics["loss"]), **window,
-                      "port_kernels_ms": _port_kernels(prof),
-                      "top_ops_device_ms": _top_ops(prof)}))
+    from megatron_clip_tpu_torch.parallel import mesh
+    if mesh.is_main():
+        print(json.dumps({"card": card, "model": args.model, **about,
+                          "window": f"{REPS} train steps, batch on the card",
+                          "loss": float(metrics["loss"]), **window,
+                          "port_kernels_ms": _port_kernels(prof),
+                          "top_ops_device_ms": _top_ops(prof)}))
+    mesh.destroy()
     return 0
 
 

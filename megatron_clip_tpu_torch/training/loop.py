@@ -2,12 +2,13 @@
 
 Counterpart of `megatron_clip_tpu/training/loop.py` (megatron's
 pretrain()/train(), megatron/training.py:60-860, and open_CLIP's
-main()/train_one_epoch, training/main.py:73-524, train.py:338-525) for one
-device: the model, optimizer and data, then the epoch/step loop with the
-log line, NaN surveillance, saves at `--save-interval` (in the background,
-older checkpoints pruned once the new one has committed), the SIGTERM,
-`--exit-interval` and `--exit-duration-in-mins` exits, and at each epoch's
-end the save, the val metrics and the zero-shot eval. Resume reads
+main()/train_one_epoch, training/main.py:73-524, train.py:338-525) on one
+device or data-parallel over torchrun's ranks: the model, optimizer and
+data, then the epoch/step loop with the log line, NaN surveillance, saves
+at `--save-interval` (in the background, older checkpoints pruned once the
+new one has committed), the SIGTERM, `--exit-interval` and
+`--exit-duration-in-mins` exits, and at each epoch's end the save, the val
+metrics and the zero-shot eval. Resume reads
 `--resume latest` (the run dir under `--save`) or an explicit checkpoint
 root, and fast-forwards the data to the consumed samples.
 
@@ -17,6 +18,20 @@ JAX default, from saved probabilities unless MCT_MHA_SAVE_PROBS=0, read
 once a run. Host batches reach the card one batch ahead, through pinned
 buffers and a copy stream on a thread (`_Prefetch`, where the JAX
 package's unused `device_prefetch` stood).
+
+Launched by `torch.distributed.run` with more than one process, the run is
+the JAX trainer's on a `dp = W` mesh (`parallel/mesh.py`): `--batch-size`
+stays the global batch, each rank loads and steps on its rows of it
+(`parallel.mesh.rank_rows`; `--workers` decode workers a rank), the step
+gathers the features and all-reduces the gradients
+(`training/train_step.py`), and the weights start as rank 0 draws them.
+Rank 0 alone logs, writes checkpoints, copies the codebase, prunes and
+evaluates, while the others wait at a barrier; every rank loads on resume.
+Once a step the ranks agree on the host (`mesh.agree`) on SIGTERM (any
+rank's) and on the `--exit-duration-in-mins` budget (rank 0's clock), so
+that they stop, save and exit at the same step, and at each batch on
+whether every rank still has one, so that a loader that ends early ends
+the epoch on every rank.
 
 Flags of modules the port does not carry yet raise NotImplementedError
 before anything is built, each naming its ROADMAP Queue A item
@@ -38,6 +53,7 @@ from megatron_clip_tpu_torch.checkpoints import (
 from megatron_clip_tpu_torch.config import check_remat
 from megatron_clip_tpu_torch.data.loaders import get_data
 from megatron_clip_tpu_torch.data.transforms import image_transform
+from megatron_clip_tpu_torch.parallel import mesh
 from megatron_clip_tpu_torch.training.optim import (
     OptState, const_lr, const_lr_cooldown, constant_lr, cosine_lr,
     make_optimizer, tower_lock_mask)
@@ -47,7 +63,8 @@ from megatron_clip_tpu_torch.training.train_step import (
 
 
 def _log(msg: str):
-    print(msg, flush=True)
+    if mesh.is_main():
+        print(msg, flush=True)
 
 
 def _aug_keys(args) -> set:
@@ -168,24 +185,34 @@ def resolve_device(args, device=None) -> torch.device:
 def run_training(args, device=None) -> dict:
     """Train as `args` (from `training/params.parse_args`) say, on `device`
     (default `args.device`); returns the last logged metrics, with the val
-    and zero-shot metrics of the last eval."""
+    and zero-shot metrics of the last eval (rank 0's). Under torchrun the
+    run joins its group first (`mesh.init_distributed`) and leaves it on
+    every exit path."""
     check_supported(args)
-    device = resolve_device(args, device)
-    # SIGTERM latch around the whole run: the context manager restores the
-    # previous handler on every exit path, exceptions included
-    with sigterm_latch() as term:
-        return _run_training(args, term, device)
+    device = mesh.init_distributed(args, resolve_device(args, device))
+    try:
+        # SIGTERM latch around the whole run: the context manager restores
+        # the previous handler on every exit path, exceptions included
+        with sigterm_latch() as term:
+            return _run_training(args, term, device)
+    finally:
+        mesh.destroy()
 
 
 def _run_training(args, term, device: torch.device) -> dict:
+    world, rank = mesh.world_size(), mesh.rank()
+    microbatches = max(1, args.accum_freq)
+    mesh.rank_rows(args.batch_size, microbatches, rank, world)  # B % (M W)
     model = factory.create_model(
         args.model, precision=args.precision, device=device, seed=args.seed,
         attn_save_probs=_save_probs_default(), **_model_overrides(args))
+    mesh.broadcast_module(model)  # every rank starts from rank 0's weights
     model.remat = check_remat(args.recompute_granularity)
     model.train()
     n_params = sum(p.numel() for p in model.parameters())
     _log(f"model {args.model}: {n_params/1e6:.1f}M params | device={device} "
-         f"dp=1 fsdp=1 tp=1 pp=1 extra=0")
+         f"dp={mesh.data_parallel_size(args, world)} fsdp=1 tp=1 pp=1 "
+         f"extra=0")
 
     try:
         from megatron_clip_tpu_torch.tokenizer import get_tokenizer
@@ -202,7 +229,8 @@ def _run_training(args, term, device: torch.device) -> dict:
     pp_val = image_transform(image_size, is_train=False, mean=mean, std=std)
     data = get_data(args, pp_train, pp_val, tokenizer,
                     context_length=model.context_length,
-                    image_size=image_size)
+                    image_size=image_size, rank=rank, world_size=world,
+                    microbatches=microbatches)
     steps_per_epoch = args.steps_per_epoch or data["train"].num_batches
     total_steps = steps_per_epoch * args.epochs
 
@@ -221,8 +249,8 @@ def _run_training(args, term, device: torch.device) -> dict:
         weight_decay=args.wd, grad_clip_norm=args.grad_clip_norm,
         lock_mask=lock_mask)
     runner = _JointRunner(model, optimizer, factory.create_loss(args),
-                          device, microbatches=max(1, args.accum_freq),
-                          seed=args.seed)
+                          device, microbatches=microbatches, seed=args.seed,
+                          group=mesh.group())
 
     start_step, consumed = 0, 0
     if args.resume:
@@ -251,10 +279,11 @@ def _run_training(args, term, device: torch.device) -> dict:
 
     save_root = (os.path.join(args.save, args.name or "default")
                  if args.save else None)
-    if getattr(args, "copy_codebase", False) and save_root:
+    main = mesh.is_main()
+    if getattr(args, "copy_codebase", False) and save_root and main:
         _copy_codebase(args.save, save_root)
     writer = None
-    if "tensorboard" in (args.report_to or "") and save_root:
+    if "tensorboard" in (args.report_to or "") and save_root and main:
         try:
             from tensorboardX import SummaryWriter
             writer = SummaryWriter(os.path.join(save_root, "tensorboard"))
@@ -263,7 +292,7 @@ def _run_training(args, term, device: torch.device) -> dict:
     # wandb mirror (open_CLIP --report-to wandb); a clean no-op when the
     # package is absent from the image
     wandb_run = None
-    if "wandb" in (args.report_to or ""):
+    if "wandb" in (args.report_to or "") and main:
         try:
             import wandb
             wandb_run = wandb.init(project=args.wandb_project_name,
@@ -277,6 +306,7 @@ def _run_training(args, term, device: torch.device) -> dict:
         global_saver().wait()  # barrier on any in-flight async save
         if wandb_run is not None:
             wandb_run.finish()
+        mesh.barrier()  # no rank reads a `latest` rank 0 has yet to write
 
     step = start_step
     interval_saved = None  # the step the interval save last wrote
@@ -301,7 +331,8 @@ def _run_training(args, term, device: torch.device) -> dict:
                 hasattr(loader, "skip_batches"):
             loader.skip_batches(skip_batches)
             pre_skipped = skip_batches
-        for batch_i, (images, texts) in enumerate(runner.batches(loader)):
+        for batch_i, (images, texts) in enumerate(
+                _together(runner.batches(loader))):
             if epoch == start_epoch and \
                     batch_i < skip_batches - pre_skipped:
                 continue
@@ -354,7 +385,13 @@ def _run_training(args, term, device: torch.device) -> dict:
                 runner.save(save_root, step, consumed, block=False,
                             on_commit=prune)
                 interval_saved = step
-            if term["flag"]:
+            # one host collective a step: SIGTERM on any rank, rank 0's
+            # clock against --exit-duration-in-mins
+            stop, out_of_time = mesh.agree([
+                term["flag"], main and args.exit_duration_in_mins is not None
+                and time.perf_counter() - run_t0
+                > args.exit_duration_in_mins * 60])
+            if stop:
                 if save_root:
                     # skip the save when the interval branch above just
                     # wrote this very step
@@ -366,9 +403,7 @@ def _run_training(args, term, device: torch.device) -> dict:
                     _log(f"SIGTERM: exiting @ step {step} (no --save)")
                 _finish()
                 return final_metrics
-            if args.exit_duration_in_mins is not None and \
-                    time.perf_counter() - run_t0 > \
-                    args.exit_duration_in_mins * 60:
+            if out_of_time:
                 # megatron --exit-duration-in-mins: save-then-exit on a
                 # wall-clock budget (training.py:829-851)
                 if save_root:
@@ -392,20 +427,37 @@ def _run_training(args, term, device: torch.device) -> dict:
             else:
                 runner.save(save_root, step, consumed)
             _log(f"saved checkpoint @ step {step}")
-            if args.delete_previous_checkpoint:
+            if args.delete_previous_checkpoint and main:
                 _prune_older_checkpoints(save_root, step)
         # validation + zero-shot eval at epoch boundaries (open_CLIP
         # evaluate/zero_shot_eval cadence, train.py:530, main.py epoch loop)
         if (epoch + 1) % max(args.val_frequency, 1) == 0:
-            final_metrics.update(_epoch_eval(args, runner.model, data,
-                                             tokenizer, epoch, step,
-                                             save_root, wandb_run))
+            if main:
+                final_metrics.update(_epoch_eval(args, runner.model, data,
+                                                 tokenizer, epoch, step,
+                                                 save_root, wandb_run))
+            mesh.barrier()
         if run_done:
             break
     if nan_iters:
         _log(f"total non-finite loss iterations: {nan_iters}")
     _finish()
     return final_metrics
+
+
+def _together(batches):
+    """`batches` while every rank still has one: over more than one rank,
+    the ranks agree at each batch, so that a loader that ends early (a
+    rank's shards run out) ends the epoch on every rank, not in a
+    collective the others never join."""
+    if mesh.world_size() == 1:
+        yield from batches
+        return
+    for item in batches:
+        if mesh.agree([0])[0]:
+            return
+        yield item
+    mesh.agree([1])
 
 
 def _copy_codebase(save: str, save_root: str) -> None:
@@ -566,17 +618,19 @@ class _Prefetch:
 
 
 class _JointRunner:
-    """The train step on one device: the model (its parameters updated in
-    place), the optimizer state and the step count, saved and loaded as
-    one tree: {"params": state dict, "opt_state": {count, mu, nu,
-    schedule_count}, "step": int}."""
+    """The train step on one device, or on this rank's over `group`: the
+    model (its parameters updated in place), the optimizer state and the
+    step count, saved (by rank 0 alone: every rank holds the same) and
+    loaded as one tree: {"params": state dict, "opt_state": {count, mu,
+    nu, schedule_count}, "step": int}."""
 
     def __init__(self, model, optimizer, loss_obj, device: torch.device,
-                 microbatches: int = 1, seed: int = 0):
+                 microbatches: int = 1, seed: int = 0, group=None):
         self.model = model
         self.state = TrainState.create(model, optimizer)
         self.step_fn = make_train_step(model, optimizer, loss_obj=loss_obj,
-                                       microbatches=microbatches, seed=seed)
+                                       microbatches=microbatches, seed=seed,
+                                       group=group)
         self.device = device
 
     def batches(self, loader):
@@ -597,6 +651,8 @@ class _JointRunner:
                 "step": self.state.step}
 
     def save(self, root, step, consumed, block=True, on_commit=None):
+        if not mesh.is_main():
+            return
         save_checkpoint(root, step, self.state_tree(),
                         {"consumed_samples": consumed}, block=block,
                         on_commit=on_commit)

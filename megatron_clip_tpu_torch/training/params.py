@@ -111,8 +111,9 @@ def parse_args(args=None):
     p.add_argument("--distill-pretrained", type=str, default=None,
                    help="teacher checkpoint (zoo tag or path)")
     # open_CLIP defaults these to False; the JAX package defaults them to
-    # True. On one process neither changes the loss.
-    # (per-shard logits + grad-flowing all-gather). --no-* turns them off.
+    # True (per-shard logits + grad-flowing all-gather). --no-* turns them
+    # off. They shape `losses.ClipLoss` with a group; the trainer's step
+    # computes the global loss whatever they say, as the JAX trainer does.
     p.add_argument("--local-loss", action=argparse.BooleanOptionalAction,
                    default=True)
     p.add_argument("--gather-with-grad", action=argparse.BooleanOptionalAction,
@@ -212,17 +213,22 @@ def parse_args(args=None):
 
     # --- torch/NCCL-only open_CLIP flags: accepted so reference launch
     # commands run unmodified; each is a no-op here, as in the JAX package
-    # (DDP graph capture, process-group wiring, torchscript export, synced
-    # BatchNorm) -----------------------------------------------------------
+    # (DDP graph capture, device pinning, torchscript export, synced
+    # BatchNorm), but for --dist-backend and --dist-url, which set up the
+    # process group of a torchrun launch (parallel/mesh.py) -------------
     for noop in ("--torchscript", "--ddp-static-graph", "--horovod",
                  "--use-bn-sync", "--no-set-device-rank", "--debug",
                  "--log-local", "--enable-deepspeed", "--enable-flexpipe"):
         p.add_argument(noop, action="store_true",
                        help="accepted for open_CLIP CLI parity; no-op")
     p.add_argument("--dist-backend", type=str, default=None,
-                   help="accepted for CLI parity; no-op")
+                   help="torch.distributed backend of a torchrun launch "
+                        "(open_CLIP's flag); default nccl on the card, "
+                        "gloo on the CPU")
     p.add_argument("--dist-url", type=str, default=None,
-                   help="accepted for CLI parity; no-op")
+                   help="init method of a torchrun launch's process group "
+                        "(open_CLIP's flag); default env:// (MASTER_ADDR, "
+                        "MASTER_PORT)")
     p.add_argument("--remote-sync-protocol", choices=["s3", "fsspec"],
                    default="s3",
                    help="accepted for CLI parity; --remote-sync here shells "
@@ -259,5 +265,8 @@ def parse_args(args=None):
             ns.dataset_type = "csv"
         else:
             ns.dataset_type = "webdataset"
-    ns.loss_axis_name = None  # one process: no gather axis
+    # no gather axis in the loss: the data-parallel step gathers the
+    # features itself (training/train_step.py), as XLA does for the JAX
+    # trainer
+    ns.loss_axis_name = None
     return ns

@@ -1,15 +1,20 @@
-"""The CLIP and GPT train steps for one process.
+"""The CLIP and GPT train steps.
 
 Counterpart of `megatron_clip_tpu/training/train_step.py` (`TrainState`,
-`make_train_step`) without the mesh, teacher and CoCa, which come with their
-slices. One CLIP step: the training forward of both towers (with patch
-dropout where the vision config sets a rate), the contrastive loss, backward
-through the attention and LayerNorm kernels, the optimizer update in place,
-and the post-step clamp of logit_scale to [0, ln 100]. With `microbatches`
-> 1, open_CLIP's --accum-freq as the JAX step does it: a pass without
-gradients caches every block's features, then each block recomputes its
-own with gradients inside the whole batch's loss, the other blocks' cached
-features standing in, and the gradients are summed. One GPT step (`make_gpt_train_step`) is
+`make_train_step`) with the mesh's `data` axis as a `torch.distributed`
+group (the CLIP step's `group`), without the other axes, the teacher and
+CoCa, which come with their slices. One CLIP step: the training forward of
+both towers (with patch dropout where the vision config sets a rate), the
+contrastive loss, backward through the attention and LayerNorm kernels, the
+optimizer update in place, and the post-step clamp of logit_scale to
+[0, ln 100]. With `microbatches` > 1, open_CLIP's --accum-freq as the JAX
+step does it: a pass without gradients caches every block's features, then
+each block recomputes its own with gradients inside the whole batch's
+loss, the other blocks' cached features standing in, and the gradients are
+summed. Over a group of W ranks each rank runs the forwards and backwards
+of its own rows, gathers the features (with their gradient) so that the
+loss is the global batch's, as the JAX trainer's is, and all-reduces the
+gradients once a step. One GPT step (`make_gpt_train_step`) is
 bench.py's `bench_gpt_345m` step: `gpt_loss` (chunked, or through the fused
 lm-head cross entropy of `pretrain_gpt.py --fused-ce`), its backward, the
 clipped AdamW update in place; with a seed, dropout at the config's rates,
@@ -19,16 +24,18 @@ runtime (`training/workload.py`: its schedules and decay masks) is not
 ported yet (ROADMAP Queue A item 4); the GPT step takes bench.py's chain
 (`make_gpt_optimizer`).
 
-The metrics stay device tensors: the step itself never waits for the card.
+The metrics stay device tensors: the step itself never waits for the card
+(but for gloo's collectives, which stage CUDA tensors through the host).
 """
 import dataclasses
 from typing import Callable, Optional
 
 import torch
+import torch.distributed as dist
 from torch import nn
 
 from megatron_clip_tpu_torch.config import check_remat
-from megatron_clip_tpu_torch.losses import ClipLoss
+from megatron_clip_tpu_torch.losses import ClipLoss, gather_features
 from megatron_clip_tpu_torch.models.clip import CLIPModel, clamp_logit_scale
 from megatron_clip_tpu_torch.models.gpt import GPTModel, gpt_loss
 from megatron_clip_tpu_torch.models.vit import patch_keep_ids
@@ -49,9 +56,48 @@ class TrainState:
         return cls(model=model, opt_state=optimizer.init(), step=0)
 
 
+class GradBuckets:
+    """One flat gradient buffer a dtype, allocated once, each parameter's
+    `.grad` a view of it (DDP's gradient-as-bucket-view): the backward
+    accumulates into the buffers in place, and `all_reduce_mean` reduces
+    each buffer in one collective: no copy of the gradients into a flat
+    buffer and back, and no buffer allocated a step (NCCL holds a tensor
+    it reduced until its stream is done, so the allocator could not reuse
+    a buffer made anew each step at once)."""
+
+    def __init__(self, params: dict):
+        by_dtype = {}
+        for n, p in params.items():
+            by_dtype.setdefault(p.dtype, []).append((n, p))
+        self.flats, self.views = [], {}
+        for dtype, named in by_dtype.items():
+            flat = torch.zeros(sum(p.numel() for _, p in named), dtype=dtype,
+                               device=named[0][1].device)
+            self.flats.append(flat)
+            for (n, p), part in zip(named, flat.split(
+                    [p.numel() for _, p in named])):
+                self.views[n] = part.view_as(p)
+
+    def attach(self, params: dict) -> None:
+        """Zero the buffers and make them the parameters' gradients."""
+        for flat in self.flats:
+            flat.zero_()
+        for n, p in params.items():
+            p.grad = self.views[n]
+
+    def all_reduce_mean(self, group) -> None:
+        """Each gradient replaced, in place, by its mean over `group`: each
+        buffer all-reduced (summed) in its dtype, then divided by W."""
+        world = dist.get_world_size(group)
+        for flat in self.flats:
+            dist.all_reduce(flat, group=group)
+            flat /= world
+
+
 def make_train_step(model: CLIPModel, optimizer: AdamW, *,
                     loss_obj: Optional[Callable] = None,
-                    microbatches: int = 1, seed: int = 0) -> Callable:
+                    microbatches: int = 1, seed: int = 0,
+                    group=None) -> Callable:
     """Build `step(state, images, texts) -> (state, metrics)` for `model`,
     whose parameters `optimizer` was made for. images: [B, H, W, 3] float,
     texts: [B, S] token ids, numpy arrays or tensors. metrics: `loss`,
@@ -70,17 +116,43 @@ def make_train_step(model: CLIPModel, optimizer: AdamW, *,
     The loss is called with (image features, text features, logit_scale),
     as the JAX step calls it: a SigLIP model's `logit_bias` never reaches
     the loss, so its gradient is zero and it stays at its init (a
-    reference defect kept for parity)."""
+    reference defect kept for parity).
+
+    `group`: a `torch.distributed` group of W ranks, each given its rows
+    of the global batch (B/W; with M blocks, its share of each block in
+    turn, `parallel.mesh.rank_rows`). Every forward's features are
+    gathered over the group with their gradient (`losses.gather_features`)
+    and `loss_obj` is called, without a group, on the whole block: every
+    rank computes the global batch's loss, which is the metric, as the JAX
+    trainer computes it on a `dp` mesh (`loss_axis_name = None`), so
+    `--local-loss` and `--gather-with-grad` change nothing here, as there.
+    Each rank's backward then holds W times its rows' share of the
+    gradient (the gather's backward sums the W ranks' cotangents); after
+    the last backward the gradients are all-reduced and divided by W
+    (`GradBuckets`), before logit_scale's division by M and the
+    update, so the clipping norm is the global batch's and every rank
+    updates the same weights. Patch dropout draws the indices of the
+    block's global rows and each rank keeps its own rows' of them."""
     loss_obj = loss_obj or ClipLoss()
     params = dict(model.named_parameters())
     vision = model.cfg.vision
     rate = vision.patch_dropout
     patches = vision.grid * vision.grid
+    world = 1 if group is None else dist.get_world_size(group)
+    rank = 0 if group is None else dist.get_rank(group)
+    buckets = None if group is None else GradBuckets(params)
 
     def keep(step: int, i: Optional[int], rows: int):
         if rate <= 0.0:
             return None
-        return patch_keep_ids(seed, step, i, rows, patches, rate)
+        ids = patch_keep_ids(seed, step, i, rows * world, patches, rate)
+        return ids[rank * rows:(rank + 1) * rows]
+
+    def features(out: dict) -> tuple:
+        fi, ft = out["image_features"], out["text_features"]
+        if group is None:
+            return fi, ft
+        return gather_features(fi, ft, group)
 
     def grads_of() -> dict:
         # a parameter the loss never saw (logit_bias) has a zero gradient
@@ -101,27 +173,31 @@ def make_train_step(model: CLIPModel, optimizer: AdamW, *,
                         texts.chunk(microbatches), range(microbatches)))
 
     def step(state: TrainState, images, texts):
-        for p in params.values():
-            p.grad = None
+        if buckets is None:
+            for p in params.values():
+                p.grad = None
+        else:
+            buckets.attach(params)
         todo = [(im, tx, keep(state.step, i, len(im)))
                 for im, tx, i in blocks(images, texts)]
         cached = []  # the cache pass: every block's features, no gradients
         if microbatches > 1:
             with torch.no_grad():
-                cached = [model(*block) for block in todo]
+                cached = [features(model(*block)) for block in todo]
         for j, block in enumerate(todo):
             out = model(*block)
-            fi, ft = out["image_features"], out["text_features"]
+            fi, ft = features(out)
             if cached:
                 fi, ft = (torch.cat([c[k] for c in cached[:j]] + [own]
                                     + [c[k] for c in cached[j + 1:]])
-                          for k, own in (("image_features", fi),
-                                         ("text_features", ft)))
+                          for k, own in ((0, fi), (1, ft)))
             loss = loss_obj(fi, ft, out["logit_scale"])
             loss.backward()
-        scale = params["logit_scale"]
-        scale.grad = scale.grad / microbatches
-        opt_state, grad_norm = optimizer.update(state.opt_state, grads_of())
+        if buckets is not None:
+            buckets.all_reduce_mean(group)
+        grads = grads_of()
+        grads["logit_scale"] /= microbatches
+        opt_state, grad_norm = optimizer.update(state.opt_state, grads)
         for p in params.values():
             p.grad = None
         clamp_logit_scale(model)

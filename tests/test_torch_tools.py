@@ -152,6 +152,11 @@ _SPLIT = ("(anonymous namespace)::hop::SplitMaps, (anonymous namespace)::"
      f"3, true, false>({_LN})", "layernorm fwd (layernorm.cu)"),
     (f"void (anonymous namespace)::ln_fwd<__nv_bfloat16, float, 32, 4, "
      f"true, true>({_LN})", "rmsnorm fwd (layernorm.cu)"),
+    # the data-parallel step's feature gathers and gradient all-reduce
+    ("ncclDevKernel_AllReduce_Sum_bf16_RING_LL(ncclDevKernelArgsStorage"
+     "<4096ul>)", "collective (nccl)"),
+    ("ncclDevKernel_AllGather_RING_LL(ncclDevKernelArgsStorage<4096ul>)",
+     "collective (nccl)"),
 ])
 def test_every_port_kernel_lands_in_its_column(name, category):
     assert _category(name) == category

@@ -1,0 +1,211 @@
+"""Rank processes of the port's data-parallel tests (`test_torch_dp_*.py`).
+
+The tests spawn W ranks with `torch.multiprocessing` over gloo on the CPU,
+each joining its group through a `file://` init method in the test's own
+`tmp_path`, so that concurrent test workers never share a port. This
+module imports no JAX: the parent computes the JAX references and hands the
+ranks numpy inputs through files; each rank writes what it computed to
+`out/rank{r}.pt` for the parent to read.
+"""
+import os
+import signal
+
+import numpy as np
+import torch
+import torch.distributed as dist
+import torch.multiprocessing as mp
+
+
+def spawn(fn, world: int, tmp_path, *args) -> list:
+    """Run `fn(rank, world, tmp_path, *args)` in `world` processes; returns
+    what each rank saved with `save_result`, rank order. A rank that fails
+    fails the call (the others are stopped)."""
+    out = os.path.join(str(tmp_path), "out")
+    os.makedirs(out, exist_ok=True)
+    mp.spawn(_entry, args=(fn, world, str(tmp_path), args), nprocs=world,
+             join=True)
+    return [torch.load(os.path.join(out, f"rank{r}.pt"), weights_only=False)
+            for r in range(world)]
+
+
+def _entry(rank, fn, world, tmp_path, args):
+    torch.set_num_threads(1)
+    os.environ.update(RANK=str(rank), LOCAL_RANK=str(rank),
+                      WORLD_SIZE=str(world))
+    fn(rank, world, tmp_path, *args)
+
+
+def save_result(tmp_path: str, rank: int, result) -> None:
+    torch.save(result, os.path.join(tmp_path, "out", f"rank{rank}.pt"))
+
+
+def init_url(tmp_path: str, tag: str) -> str:
+    """A fresh `file://` init method for one process group."""
+    return "file://" + os.path.join(tmp_path, f"init-{tag}")
+
+
+# ----------------------------------------------------------------------
+# losses
+
+
+def loss_rank(rank, world, tmp_path, cases):
+    """Each case (name, kind, flags) on this rank's rows of the global
+    features in `inputs.npz`: the loss and the gradients of the rank's
+    features and of logit_scale (and logit_bias) after every rank's
+    backward."""
+    from megatron_clip_tpu_torch import losses
+    dist.init_process_group("gloo", init_method=init_url(tmp_path, "loss"),
+                            rank=rank, world_size=world)
+    data = np.load(os.path.join(tmp_path, "inputs.npz"))
+    n = data["img"].shape[0] // world
+    rows = slice(rank * n, (rank + 1) * n)
+    group = dist.group.WORLD
+    result = {}
+    for name, kind, flags in cases:
+        img = torch.tensor(data["img"][rows], requires_grad=True)
+        txt = torch.tensor(data["txt"][rows], requires_grad=True)
+        scale = torch.tensor(data["scale"], requires_grad=True)
+        bias = torch.tensor(data["bias"], requires_grad=True)
+        if kind == "gather":
+            gi, gt = losses.gather_features(img, txt, group, **flags)
+            loss = (gi * torch.tensor(data["w_img"])).sum() \
+                + (gt * torch.tensor(data["w_txt"])).sum()
+            gathered = (gi.detach().numpy(), gt.detach().numpy())
+        elif kind == "clip":
+            loss = losses.ClipLoss(group=group, **flags)(img, txt, scale)
+            gathered = None
+        else:
+            loss = losses.SigLipLoss(group=group)(img, txt, scale, bias)
+            gathered = None
+        loss.backward()
+        result[name] = {
+            "loss": float(loss.detach()), "gathered": gathered,
+            **{k: None if t.grad is None else t.grad.numpy()
+               for k, t in (("img", img), ("txt", txt), ("scale", scale),
+                            ("bias", bias))}}
+    dist.destroy_process_group()
+    save_result(tmp_path, rank, result)
+
+
+# ----------------------------------------------------------------------
+# the trainer
+
+
+def _patch_trainer(start, patch_ids, record):
+    """The trainer's model built from `start` (a state dict of numpy
+    arrays), its patch indices from `patch_ids` ({(step, block): ids of
+    the block's global rows}), and each step's metrics appended to
+    `record`."""
+    from megatron_clip_tpu_torch.training import loop, train_step
+    create = loop.factory.create_model
+
+    def created(*args, **kw):
+        model = create(*args, **kw)
+        if start is not None:
+            model.load_state_dict({k: torch.from_numpy(v)
+                                   for k, v in start.items()})
+        return model
+    loop.factory.create_model = created
+    if patch_ids is not None:
+        def ids(seed, step, microbatch, rows, patches, rate):
+            got = patch_ids[(step, microbatch)]
+            assert got.shape[0] == rows, (got.shape, rows)
+            return torch.from_numpy(got)
+        train_step.patch_keep_ids = ids
+    step = loop._JointRunner.step
+
+    def recorded(self, images, texts):
+        m = step(self, images, texts)
+        record.append({k: float(v) for k, v in m.items()})
+        return m
+    loop._JointRunner.step = recorded
+    built = []
+    init = loop._JointRunner.__init__
+
+    def keep(self, *args, **kw):
+        init(self, *args, **kw)
+        built.append(self)
+    loop._JointRunner.__init__ = keep
+    return built
+
+
+def _params(runner) -> dict:
+    return {n: p.detach().clone() for n, p in
+            runner.model.named_parameters()}
+
+
+def trainer_rank(rank, world, tmp_path, jobs):
+    """`run_training(argv)` on this rank of the CPU group for each job
+    (argv, start, patch_ids) of `jobs`, a group each: each step's metrics,
+    the final parameters, the final metrics."""
+    from megatron_clip_tpu_torch.training import loop, train_step
+    from megatron_clip_tpu_torch.training.params import parse_args
+    record, out = [], []
+    saved = (loop.factory.create_model, train_step.patch_keep_ids,
+             loop._JointRunner.step, loop._JointRunner.__init__)
+    for i, (argv, start, patch_ids) in enumerate(jobs):
+        record.clear()
+        built = _patch_trainer(start, patch_ids, record)
+        final = loop.run_training(parse_args(
+            argv + ["--dist-url", init_url(tmp_path, f"train{i}")]),
+            device="cpu")
+        out.append({"steps": list(record), "final": final,
+                    "params": _params(built[-1])})
+        (loop.factory.create_model, train_step.patch_keep_ids,
+         loop._JointRunner.step, loop._JointRunner.__init__) = saved
+    save_result(tmp_path, rank, out)
+
+
+def resume_rank(rank, world, tmp_path, argv, term_rank, term_after):
+    """The run of `argv` whole; then cut by SIGTERM on rank `term_rank`
+    after its step `term_after`, with --save; then resumed with --resume
+    latest. Each run's step metrics and final parameters, and the step
+    every rank stopped at."""
+    import megatron_clip_tpu_torch.training.loop as loop
+    from megatron_clip_tpu_torch.training.params import parse_args
+    record = []
+    built = _patch_trainer(None, None, record)
+    save = os.path.join(tmp_path, "ck")
+
+    def run(tag, extra):
+        record.clear()
+        final = loop.run_training(parse_args(
+            argv + extra + ["--dist-url", init_url(tmp_path, tag)]),
+            device="cpu")
+        return {"steps": list(record), "final": final,
+                "params": _params(built[-1])}
+    whole = run("whole", [])
+    step = loop._JointRunner.step
+
+    def step_then_term(self, images, texts):
+        m = step(self, images, texts)
+        if rank == term_rank and len(record) == term_after:
+            os.kill(os.getpid(), signal.SIGTERM)
+        return m
+    loop._JointRunner.step = step_then_term
+    cut = run("cut", ["--save", save, "--name", "t"])
+    loop._JointRunner.step = step
+    resumed = run("resumed", ["--save", save, "--name", "t", "--resume",
+                              "latest"])
+    save_result(tmp_path, rank, {"whole": whole, "cut": cut,
+                                 "resumed": resumed})
+
+
+def refusal_rank(rank, world, tmp_path, argvs):
+    """`run_training(argv)` on this rank for each of `argvs`; the exception
+    each raised, as (type name, message), or None."""
+    from megatron_clip_tpu_torch.parallel import mesh
+    from megatron_clip_tpu_torch.training.loop import run_training
+    from megatron_clip_tpu_torch.training.params import parse_args
+    got = []
+    for i, argv in enumerate(argvs):
+        try:
+            run_training(parse_args(argv + [
+                "--dist-url", init_url(tmp_path, f"refuse{i}")]),
+                device="cpu")
+            got.append(None)
+        except Exception as e:  # noqa: BLE001 — handed to the parent
+            got.append((type(e).__name__, str(e)))
+        got[-1] = (got[-1], mesh.group() is None)
+    save_result(tmp_path, rank, got)
+
