@@ -4,14 +4,18 @@
     python3 chip_smoke.py
 
 Needs one CUDA device and nvcc ($CUDA_HOME/bin or /usr/local/cuda/bin). It
-imports nothing of JAX or of the JAX package. Phases, each of which raises
-(and so exits non-zero) on failure:
+imports nothing of JAX or of the JAX package. The whole run, the kernels'
+build included, must end within 1200 s (run it under `timeout 1200`); on an
+NVIDIA H100 80GB HBM3 at 700 W it took 578-604 s before phase 15 came and
+559 s with it (the build 174 s). Phases, each
+of which raises (and so exits non-zero) on failure:
 
   1. device: the card's name and power limit, as nvidia-smi reports them;
   2. build: every CUDA kernel of the port from csrc/, one nvcc per source,
-     all at once, with the host JPEG decoder (csrc/jpeg_decode.c, the
-     host's C compiler) beside them, and each kernel's registers and
-     spills;
+     all at once, with the host libraries (the JPEG decoder
+     csrc/jpeg_decode.c and the GPT dataset's index helpers
+     csrc/dataset_helpers.c, by the host's C compiler) beside them, and
+     each kernel's registers and spills;
   3. kernels: first the wgmma tile product of each Hopper library
      (csrc/sm90.cuh) in every operand layout its kernels use, through TMA
      and through swizzled stores, against the fp32 product; then each
@@ -145,20 +149,20 @@ imports nothing of JAX or of the JAX package. Phases, each of which raises
  12. trainer: the port's CLIP trainer through the entry point a user calls,
      `megatron_clip_tpu_torch.pretrain_clip.main`, in this process: (a)
      ViT-B-32 on synthetic data in phase 7's model, batch and recipe, 3
-     warm-up and 20 timed steps at --log-interval 1, each step launching
+     warm-up and 10 timed steps at --log-interval 1, each step launching
      exactly phase 7's kernels; the loop's samples/s beside phase 7's
      images/s, a step's host ms in the runner and between steps, and the
      prefetch thread's copy to pinned memory; (b) webdataset shards the
-     phase writes (2 tars of 128 RGB PNGs of 256 x 256, rows in all five
+     phase writes (2 tars of 32 RGB PNGs of 256 x 256, rows in all five
      PNG filters, written by its own zlib encoder, with captions) at bf16,
-     batch 64, 2 decode workers: 4 steps with --save-interval 2, then the
+     batch 16, 2 decode workers: 4 steps with --save-interval 2, then the
      run as if cut before step 4's save committed (the tracker back at step
      2) resumed with --resume latest, whose steps 3-4 must give the first
      run's losses bit for bit; one process's decode images/s and the saves'
-     host ms; (c) a CSV of 64 such PNG files (224 x 224) with --val-data: 2
-     steps, then clip_val_loss and recall@1/5/10; (d) 2 tars of 128 JPEG
+     host ms; (c) a CSV of 32 such PNG files (224 x 224) with --val-data: 2
+     steps, then clip_val_loss and recall@1/5/10; (d) 2 tars of 64 JPEG
      samples made from the committed 640 x 480 fixtures (4:2:0, 4:2:2,
-     4:4:4, progressive, grey) at bf16, batch 64, 2 decode workers, draft
+     4:4:4, progressive, grey) at bf16, batch 32, 2 decode workers, draft
      decode at 224 (scale 2), 2 epochs with a falling loss. Before (a) it
      holds the JPEG decoder (csrc/jpeg_decode.c, built by the host's C
      compiler in phase 2) to the digests of Pillow's decode of every
@@ -206,7 +210,35 @@ imports nothing of JAX or of the JAX package. Phases, each of which raises
      ranks' parameters bit-equal. The launches are made before phase 2,
      their processes starting beside the build and waiting for the phase;
      (a) holds its first step until (b) has ended, so that its model is
-     built beside (b) and its steps run alone. Within 60 s.
+     built beside (b) and its steps run alone. Within 60 s;
+ 15. GPT trainer: `megatron_clip_tpu_torch.pretrain_gpt.main` in this
+     process: (a) the model and recipe of examples/pretrain_gpt_dist.sh at
+     full width and depth (24 x 1024, 16 heads, S = 2048, vocab 50304,
+     rope, swiglu, rmsnorm, --fused-ce, selective recompute, bf16 compute
+     on fp32 weights, lr 3e-4, weight decay 0.1), less the flags that need
+     4 cards (--tensor-model-parallel-size 2 --fsdp-parallel-size 2
+     --sequence-parallel) and with --warmup 1 (its 2000 warm-up steps would
+     leave 3 steps' loss where it starts), its global batch of 64 in
+     microbatches of 8, on
+     an indexed corpus the phase writes (a seeded jsonl through `python -m
+     megatron_clip_tpu_torch.tools.preprocess_data --tokenizer clip-bpe`,
+     its tokens/s printed): 3 steps with a background save at step 2 and
+     the eval at the end on the valid split, then the tracker put back at
+     step 2 and a run loaded from it for step 3, whose loss must be the
+     first run's bit for bit (its grad norm and val loss within 1e-3: the
+     flash backward's unordered adds into dQ); every step and eval with
+     exact launches, the losses falling from about ln 50304, the step's
+     device ms beside 8 x phase 10's step; (b) the 1.3b rung of
+     examples/pretrain_gpt_ladder.sh (24 x 2048, batch 4 x 2048, bf16
+     weights and moments, remat mlp, loss chunks of 512) on synthetic
+     data (losses about ln 50304: each step a fresh uniform batch), 2 + 3
+     steps, then one step of the same run with selective
+     recompute, whose peak memory must lie above the mlp steps'; (c) an
+     fp32 run at 2 layers of full width on the corpus with
+     --micro-batch-size, card against CPU (losses and grad norms within
+     1e-5 relative, gradients within 1e-4 of their norms, parameters after
+     the steps within 1e-4 of their norms). tokens/s, samples/s, peaks and
+     the saves' host ms printed. Within 90 s.
 
 Before its last lines the script fails if a process it started (a build,
 a decode worker, the forkserver, the resource tracker) is still alive.
@@ -246,12 +278,14 @@ The last three lines of standard output are the card's name and power
 limit, the {"kernels": [...]} line and {"ok": true, "device": {...}}.
 """
 import atexit
+import dataclasses
 import functools
 import json
 import math
 import os
 import re
 import shutil
+import signal
 import subprocess
 import sys
 import time
@@ -360,28 +394,33 @@ LN_TEETH_FACTOR = 10.0
 # batch CSV_BATCH with --val-data; (d) JPEG shards. Scratch files under
 # SMOKE_DIR (gitignored), removed at the phase's end, which must come
 # within TRAINER_PHASE_LIMIT_S.
-TRAINER_WARMUP, TRAINER_STEPS = 3, 20
+TRAINER_WARMUP, TRAINER_STEPS = 3, 10
 TRAINER_SYNTHETIC = [
     "--model", "ViT-B-32", "--precision", "pure_bf16", "--batch-size",
     str(TRAIN_BATCH), "--dataset-type", "synthetic", "--train-num-samples",
     str(TRAIN_BATCH * (TRAINER_WARMUP + TRAINER_STEPS)), "--lr", "1e-3",
     "--warmup", "100", "--grad-clip-norm", "1.0", "--log-interval", "1"]
 # (b) was 2 x 256 samples at batch 128 until (d) came: 34.6 s of the 60 on
-# a host that decoded 51 PNGs/s a worker
-WDS_SHARDS, WDS_PER_SHARD, WDS_IMAGE = 2, 128, 256
-WDS_BATCH, WDS_WORKERS = 64, 2
-CSV_IMAGES, CSV_IMAGE, CSV_BATCH = 64, 224, 32
+# a host that decoded 51 PNGs/s a worker. The phase is paced by the host
+# (decode, PNG encoding, five model inits drawn on the CPU): with 3 + 20
+# steps in (a), 2 x 128 PNGs at batch 64 in (b), 64 at 32 in (c), 2 x 128
+# JPEGs at 64 in (d) and 0.5 s rate windows it took 40.9-51.2 s on the
+# card's hosts and 67.5 s on a slower one; these sizes keep every check and
+# about half the host's work
+WDS_SHARDS, WDS_PER_SHARD, WDS_IMAGE = 2, 32, 256
+WDS_BATCH, WDS_WORKERS = 16, 2
+CSV_IMAGES, CSV_IMAGE, CSV_BATCH = 32, 224, 16
 # the committed JPEG fixtures and Pillow's digests of them
 JPEG_GOLDENS = REPO / "tests" / "torch_goldens" / "jpeg"
 # (d): JPEG_SHARDS tars of JPEG_PER_SHARD samples made from the committed
 # 640 x 480 JPEG fixtures (JPEG_GOLDENS), at batch JPEG_BATCH,
 # JPEG_EPOCHS epochs, draft decode on (224: scale 2), with a falling loss
-JPEG_SHARDS, JPEG_PER_SHARD, JPEG_BATCH, JPEG_EPOCHS = 2, 128, 64, 2
+JPEG_SHARDS, JPEG_PER_SHARD, JPEG_BATCH, JPEG_EPOCHS = 2, 64, 32, 2
 JPEG_RECIPE = ["--lr", "1e-4", "--warmup", "2"]
 # the JPEG decode rates: each mode's decode timed in JPEG_RATE_WINDOWS
 # windows, its transform in one, each cycling through the fixtures until
 # JPEG_RATE_WINDOW_S seconds have passed
-JPEG_RATE_WINDOWS, JPEG_RATE_WINDOW_S = 2, 0.5
+JPEG_RATE_WINDOWS, JPEG_RATE_WINDOW_S = 2, 0.15
 SMOKE_DIR = REPO / "_smoke"
 TRAINER_PHASE_LIMIT_S = 60.0
 
@@ -435,6 +474,55 @@ DP_DIR = REPO / "_smoke_dp"
 # how long a launch waits for its go or gate file: the script's own limit
 DP_GO_TIMEOUT_S = 1200.0
 DP_PHASE_LIMIT_S = 60.0
+
+# phase 15: the GPT trainer (`python -m megatron_clip_tpu_torch.pretrain_gpt`)
+# in this process. (a) examples/pretrain_gpt_dist.sh's model and recipe at
+# full width and depth (GPT_DIST, less GPT_DIST_DROPPED, which need more
+# cards), its global batch of 64 in microbatches of GPT_DIST_MICRO, on an
+# indexed corpus the phase writes (GPT_CORPUS_DOCS seeded jsonl documents
+# of GPT_CORPUS_WORDS words from a seeded vocabulary, through the port's
+# tools/preprocess_data.py with GPT_CORPUS_WORKERS workers): GPT_DIST_STEPS
+# steps, a save at GPT_DIST_SAVE_AT, the eval at the end, then a run loaded
+# from the save for the last step; (b) examples/pretrain_gpt_ladder.sh's
+# 1.3b rung (GPT_RUNG) on synthetic data, GPT_RUNG_WARMUP +
+# GPT_RUNG_STEPS steps, then one step of the same run with selective
+# recompute; (c) GPT_TRAINER_PARITY (fp32, 2 layers at full width, the
+# corpus, --micro-batch-size), card against CPU. Scratch under
+# GPT_SMOKE_DIR; within GPT_TRAINER_LIMIT_S.
+GPT_DIST = [
+    "--num-layers", "24", "--hidden-size", "1024", "--num-heads", "16",
+    "--seq-length", "2048", "--vocab-size", "50304",
+    "--position-embedding", "rope", "--swiglu", "--normalization",
+    "rmsnorm", "--batch-size", "64", "--warmup", "2000", "--lr", "3e-4",
+    "--weight-decay", "0.1", "--precision", "bf16",
+    "--recompute-granularity", "selective", "--fused-ce"]
+# the phase's 3 steps take the full rate: the script's 2000 warm-up steps
+# would leave the loss where it starts
+GPT_DIST_WARMUP = ["--warmup", "1"]
+GPT_DIST_DROPPED = ["--tensor-model-parallel-size", "2",
+                    "--fsdp-parallel-size", "2", "--sequence-parallel"]
+GPT_DIST_MICRO, GPT_DIST_STEPS, GPT_DIST_SAVE_AT = 8, 3, 2
+GPT_DIST_EVAL_ITERS = 1
+GPT_CORPUS_DOCS, GPT_CORPUS_WORDS, GPT_CORPUS_WORKERS = 1200, (60, 400), 4
+GPT_RUNG = [
+    "--num-layers", "24", "--hidden-size", "2048", "--num-heads", "16",
+    "--seq-length", "2048", "--batch-size", "4", "--recompute-granularity",
+    "mlp", "--params-dtype", "bf16", "--nu-dtype", "bf16",
+    "--loss-seq-chunk", "512"]
+GPT_RUNG_WARMUP, GPT_RUNG_STEPS = 2, 3
+GPT_TRAINER_PARITY = [
+    "--num-layers", "2", "--hidden-size", "1024", "--num-heads", "16",
+    "--seq-length", "256", "--vocab-size", "50304",
+    "--position-embedding", "rope", "--swiglu", "--normalization",
+    "rmsnorm", "--fused-ce", "--precision", "fp32", "--batch-size", "2",
+    "--micro-batch-size", "1", "--train-steps", "2", "--warmup", "1",
+    "--lr", "1e-4", "--log-interval", "1"]
+# the resumed step's grad norm and the val loss after it, against the
+# whole run's: the flash backward adds into dQ in no fixed order (fp32
+# ulps of a gradient), which the update carries into the parameters
+GPT_RESUME_DRIFT = 1e-3
+GPT_SMOKE_DIR = REPO / "_smoke_gpt"
+GPT_TRAINER_LIMIT_S = 90.0
 
 
 _T0 = time.perf_counter()
@@ -1218,6 +1306,7 @@ FLASH_SHAPES = ((6, 16, 2048, 2048, 64, True), (6, 16, 2048, 2048, 64, False),
                 (2, 4, 1100, 1100, 64, True), (1, 4, 4200, 4200, 64, True),
                 (2, 4, 1100, 700, 64, True), (2, 4, 700, 1100, 64, False),
                 (2, 16, 2048, 2048, 128, True), (2, 4, 1100, 700, 128, False),
+                (4, 16, 2048, 2048, 128, True),  # the ladder's 1.3b rung
                 (1, 3, 333, 333, 40, True), (1, 2, 300, 300, 36, False))
 
 
@@ -2231,6 +2320,44 @@ def layer_norm_checks(errs, gen, ln, shapes) -> None:
             norm_param_checks(ln, "layer_norm", label, xd, gd, scale, bias)
 
 
+def gpt_eval_checks(errs, gen, ln) -> None:
+    """Phase 15's eval forwards at its shapes, bf16: the whole global batch
+    of examples/pretrain_gpt_dist.sh in one forward (64 x 2048 tokens at
+    width 1024, 16 heads of 64, causal): the flash forward (the plain
+    version run a slice of 8 sequences at a time, its scores being per
+    sequence), the RMSNorm forward on its rows and the fused CE forward on
+    its tokens, each against its plain version."""
+    from megatron_clip_tpu_torch.ops.kernels import flash_attention as fa
+    from megatron_clip_tpu_torch.ops.kernels import fused_ce as ce
+    b, h, s, d = 64, 16, 2048, 64
+    q, k, v = (torch.randn(b, h, s, d, device="cuda", generator=gen)
+               .bfloat16() for _ in range(3))
+    label = f"eval B={b} H={h} S={s} D={d} causal"
+
+    def sliced(dt):
+        return torch.cat([fa.flash_fwd_plain(
+            q[i:i + 8].to(dt), k[i:i + 8].to(dt), v[i:i + 8].to(dt),
+            d ** -0.5, True)[0] for i in range(0, b, 8)])
+    check_kernel(errs, "flash_fwd", label, fa.flash_fwd(q, k, v,
+                                                        causal=True)[0],
+                 sliced)
+    del q, k, v
+    rows, w, vocab = b * s, 1024, 50304
+    x = (torch.randn(rows, w, device="cuda", generator=gen) * 3 + 1).bfloat16()
+    scale = torch.randn(w, device="cuda", generator=gen)
+    check_kernel(errs, "rms_norm_fwd", f"eval rows={rows} W={w}",
+                 ln.rms_norm_fwd(x, scale),
+                 lambda dt: ln.rms_norm_plain(x.to(dt), scale))
+    del x
+    x, head, labels, _ = ce_inputs(gen, rows, w, vocab, True, torch.bfloat16)
+    loss, _ = ce.fused_ce_fwd(x, head, labels)
+    check_kernel(errs, "fused_ce_fwd", f"eval T={rows} W={w} V={vocab} tied "
+                 "head", loss, lambda dt: ce.fused_ce_fwd_plain(
+                     x.to(dt), head.to(dt), labels)[0], torch.bfloat16)
+    del x, head, labels, loss
+    torch.cuda.empty_cache()
+
+
 def phase_kernels(mha, ln):
     """Kernel vs plain version; returns the worst errors per kernel and
     kind of comparison."""
@@ -2274,6 +2401,7 @@ def phase_kernels(mha, ln):
         (SERVE_BATCH * 50, 768), (SERVE_BATCH * 77, 512), *legs_ln, *gpt_ln,
         *recipe[1], (1000, 768), (5, 100), (3, 4100)])
     rms_checks(errs, gen, ln)
+    gpt_eval_checks(errs, gen, ln)
     ln_bwd_teeth(_build, gen, ln)
     return errs
 
@@ -4012,7 +4140,7 @@ def trainer_synthetic(main, loop, mha, ln, per_step, phase7) -> dict:
 
 
 def trainer_webdataset(main, loop, mha, ln, per_step, work: Path) -> dict:
-    """(b): 2 x 128 PNG samples in tars, 4 steps with --save-interval 2;
+    """(b): 2 x 32 PNG samples in tars, 4 steps with --save-interval 2;
     then the run as if cut after step 3, before step 4's save committed
     (the tracker back at step 2, iter_0000004 gone), resumed with --resume
     latest: steps 3-4 must give the first run's losses, bit for bit."""
@@ -4056,7 +4184,7 @@ def trainer_webdataset(main, loop, mha, ln, per_step, work: Path) -> dict:
 
 
 def trainer_csv(main, loop, mha, ln, per_step, work: Path) -> dict:
-    """(c): a CSV of 64 PNG files, 2 steps and the val metrics on the same
+    """(c): a CSV of 32 PNG files, 2 steps and the val metrics on the same
     file at the epoch's end."""
     lines = ["filepath\ttitle"]
     for i, (png, caption) in enumerate(trainer_images(CSV_IMAGES, CSV_IMAGE,
@@ -4178,9 +4306,9 @@ def jpeg_decode_rates(image_size: int) -> dict:
 
 
 def trainer_jpeg(main, loop, mha, ln, per_step, work: Path) -> dict:
-    """(d): 2 tars of 128 JPEG samples, each one of the seven 640 x 480
+    """(d): 2 tars of 64 JPEG samples, each one of the seven 640 x 480
     fixtures (4:2:0 q90, 4:2:2, 4:4:4, progressive, grey) with a caption of
-    its own that names its scene; ViT-B-32 at bf16, batch 64, 2 decode
+    its own that names its scene; ViT-B-32 at bf16, batch 32, 2 decode
     workers, draft decode on (the JAX loader's default: 224 -> scale 2),
     two epochs: the loss must fall."""
     from megatron_clip_tpu_torch.tools import jpeg_goldens
@@ -4223,8 +4351,9 @@ def trainer_jpeg(main, loop, mha, ln, per_step, work: Path) -> dict:
             "launches": probe.launches}
 
 
-def descendants() -> list:
-    """(pid, command) of every live process below this one, from /proc."""
+def descendants(root: int = None) -> list:
+    """(pid, command) of every live process below `root` (this process by
+    default), from /proc."""
     parent, command = {}, {}
     for entry in Path("/proc").iterdir():
         if not entry.name.isdigit():
@@ -4237,7 +4366,7 @@ def descendants() -> list:
             continue
         # the fields after the command's closing bracket: state, ppid, ...
         parent[int(entry.name)] = int(stat.rsplit(")", 1)[1].split()[1])
-    found, frontier = [], [os.getpid()]
+    found, frontier = [], [os.getpid() if root is None else root]
     while frontier:
         pid = frontier.pop()
         kids = [c for c, pp in parent.items() if pp == pid]
@@ -4246,12 +4375,40 @@ def descendants() -> list:
     return [(pid, command.get(pid, "")) for pid in sorted(found)]
 
 
+def kill_tree(root: int = None) -> None:
+    """SIGKILL every process below `root` (this process by default), and
+    `root` itself when it is given, then reap this process's children. The
+    tree is read before the first signal: torchrun starts each worker in a
+    session of its own, and a worker whose torchrun is killed first would
+    pass to init, out of reach of a later walk."""
+    tree = [pid for pid, _ in descendants(root)]
+    for pid in tree + ([root] if root is not None else []):
+        try:
+            os.kill(pid, signal.SIGKILL)
+        except ProcessLookupError:
+            pass
+    for pid in tree + ([root] if root is not None else []):
+        try:
+            os.waitpid(pid, 0)
+        except ChildProcessError:  # not this process's child
+            pass
+
+
 def check_no_processes_left() -> None:
     """Fails if a process this script started (a build, a decode worker,
     multiprocessing's forkserver or resource tracker) is still alive."""
     left = descendants()
     if left:
         raise AssertionError(f"processes still running: {left}")
+
+
+def phase_parts(result: dict) -> str:
+    """Where a phase's seconds went, its parts' as they recorded them, for
+    the message of a phase over its limit."""
+    return json.dumps({k: {n: v for n, v in part.items()
+                           if n.endswith("seconds") or n.endswith("_s")}
+                       for k, part in result.items()
+                       if isinstance(part, dict)})
 
 
 def phase_trainer(mha, ln, card: str, phase7: dict) -> dict:
@@ -4310,8 +4467,9 @@ def phase_trainer(mha, ln, card: str, phase7: dict) -> dict:
             for k, v in result["jpeg_decode"].items()))
     log(f"  trainer: {json.dumps(result)}")
     if result["seconds"] > TRAINER_PHASE_LIMIT_S:
-        raise AssertionError(f"phase 12 took {result['seconds']:.1f} s, "
-                             f"over {TRAINER_PHASE_LIMIT_S} s")
+        raise AssertionError(
+            f"phase 12 took {result['seconds']:.1f} s, over "
+            f"{TRAINER_PHASE_LIMIT_S} s: " + phase_parts(result))
     return result
 
 
@@ -4520,8 +4678,9 @@ def phase_recipes(mha, ln, card: str) -> dict:
     result["seconds"] = time.perf_counter() - t0
     log(f"  recipes: {json.dumps(result)}")
     if result["seconds"] > RECIPE_PHASE_LIMIT_S:
-        raise AssertionError(f"phase 13 took {result['seconds']:.1f} s, "
-                             f"over {RECIPE_PHASE_LIMIT_S} s")
+        raise AssertionError(
+            f"phase 13 took {result['seconds']:.1f} s, over "
+            f"{RECIPE_PHASE_LIMIT_S} s: " + phase_parts(result))
     return result
 
 
@@ -4547,7 +4706,7 @@ def dp_worker(spec_path: str) -> int:
     torch.backends.cudnn.allow_tf32 = False
     spec = json.loads(Path(spec_path).read_text())
     out, rank = Path(spec["out"]), int(os.environ.get("RANK", "0"))
-    wait_for(Path(spec["go"]), DP_GO_TIMEOUT_S)
+    wait_for(Path(spec["go"]), DP_GO_TIMEOUT_S, spec["owner"])
     wall = time.time() - time.perf_counter()  # the host clock as wall time
     went = time.perf_counter()
     per_step = None
@@ -4559,7 +4718,7 @@ def dp_worker(spec_path: str) -> int:
 
     def gated_step(run, images, texts):
         gated.setdefault("at", time.perf_counter())
-        wait_for(Path(spec["gate"]), DP_GO_TIMEOUT_S)
+        wait_for(Path(spec["gate"]), DP_GO_TIMEOUT_S, spec["owner"])
         gated.setdefault("opened", time.perf_counter())
         return step(run, images, texts)
     if spec["gate"]:
@@ -4591,14 +4750,26 @@ def dp_worker(spec_path: str) -> int:
     return 0
 
 
-def wait_for(path: Path, timeout: float) -> None:
-    """Return once `path` exists; raise after `timeout` seconds. The
+def process_alive(pid: int) -> bool:
+    """Whether `pid` runs: it exists in /proc and is no zombie."""
+    try:
+        stat = Path(f"/proc/{pid}/stat").read_text()
+    except OSError:
+        return False
+    return stat.rsplit(")", 1)[1].split()[0] != "Z"
+
+
+def wait_for(path: Path, timeout: float, owner: int = None) -> None:
+    """Return once `path` exists; raise after `timeout` seconds, or as soon
+    as the process `owner` (the script that made the launch) has gone. The
     launches wait so through phases 2 to 13: a poll every 50 ms keeps their
     wake-ups out of the timed phases."""
     t0 = time.perf_counter()
     while not path.exists():
         if time.perf_counter() - t0 > timeout:
             raise TimeoutError(f"{path} did not appear in {timeout} s")
+        if owner is not None and not process_alive(owner):
+            raise RuntimeError(f"the launching process {owner} has gone")
         time.sleep(0.05)
 
 
@@ -4645,7 +4816,8 @@ class DataParallelLaunches:
         spec = work / "spec.json"
         spec.write_text(json.dumps({
             "argv": argv, "out": str(work), "launches": launches,
-            "params": params, "go": str(self.go), "gate": gate and str(gate)}))
+            "params": params, "go": str(self.go), "gate": gate and str(gate),
+            "owner": os.getpid()}))
         with open(work / "log.txt", "w") as log_file:
             self.procs[name] = subprocess.Popen(
                 [sys.executable, "-m", "torch.distributed.run",
@@ -4664,7 +4836,7 @@ class DataParallelLaunches:
         try:
             rc = proc.wait(timeout=timeout)
         except subprocess.TimeoutExpired:
-            os.killpg(proc.pid, 9)
+            kill_tree(proc.pid)
             proc.wait()
             rc = "timeout"
         exited = time.time()
@@ -4686,7 +4858,7 @@ class DataParallelLaunches:
     def stop(self) -> None:
         for proc in self.procs.values():
             if proc.poll() is None:
-                os.killpg(proc.pid, 9)
+                kill_tree(proc.pid)  # torchrun and its ranks
                 proc.wait()
         shutil.rmtree(DP_DIR, ignore_errors=True)
 
@@ -4794,8 +4966,433 @@ def phase_data_parallel(launches: DataParallelLaunches, mha, ln, card: str,
     result["seconds"] = time.perf_counter() - t0
     log(f"  data parallel ({card}): {json.dumps(result)}")
     if result["seconds"] > DP_PHASE_LIMIT_S:
-        raise AssertionError(f"phase 14 took {result['seconds']:.1f} s, "
-                             f"over {DP_PHASE_LIMIT_S} s")
+        raise AssertionError(
+            f"phase 14 took {result['seconds']:.1f} s, over "
+            f"{DP_PHASE_LIMIT_S} s: " + phase_parts(result))
+    return result
+
+
+class WorkloadProbe:
+    """Wraps the GPT runtime's runner (`training/workload.py`) while one
+    run lasts: each step's kernel launches (which must equal `per_step`),
+    loss, grad norm, device ms (CUDA events around the runner's step), host
+    clock at its start and end and peak memory (reset before the step);
+    each eval's launches (which must equal `per_eval`); each save's host
+    ms (the host copy alone, for a save in the background); the last
+    runner, and with `keep_grads` each step's gradients on the host. The
+    counters are zeroed on entry and read on exit into `launches`."""
+
+    def __init__(self, workload, mha, ln, per_step: dict,
+                 per_eval: dict = None, keep_grads: bool = False):
+        self.workload, self.mha, self.ln = workload, mha, ln
+        self.per_step, self.per_eval = per_step, per_eval
+        self.keep_grads = keep_grads
+        self.steps, self.evals, self.save_ms, self.grads = [], [], [], []
+        self.runner = None
+
+    def __enter__(self):
+        wl = self.workload
+        self._saved = (wl._Runner.step, wl._Runner.evaluate,
+                       wl.save_checkpoint)
+        step, evaluate, save = self._saved
+        probe = self
+
+        def probed_step(run, batch, i):
+            probe.runner = run
+            if probe.keep_grads and not hasattr(run.optimizer, "_kept"):
+                update = run.optimizer.update
+
+                def keep(state, g):
+                    probe.grads.append({n: t.detach().float().cpu()
+                                        for n, t in g.items()})
+                    return update(state, g)
+                run.optimizer.update = run.optimizer._kept = keep
+            before = read_counts(probe.mha, probe.ln)
+            torch.cuda.reset_peak_memory_stats()
+            ev = [torch.cuda.Event(enable_timing=True) for _ in range(2)]
+            t0 = time.perf_counter()
+            ev[0].record()
+            metrics = step(run, batch, i)
+            ev[1].record()
+            t1 = time.perf_counter()
+            got = {k: v - before[k]
+                   for k, v in read_counts(probe.mha, probe.ln).items()}
+            if got != probe.per_step:
+                raise AssertionError(f"GPT trainer step {i}: launches {got}, "
+                                     f"expected {probe.per_step}")
+            ev[1].synchronize()
+            probe.steps.append({
+                "step": i, "loss": float(metrics["loss"]),
+                "grad_norm": float(metrics["grad_norm"]),
+                "device_ms": ev[0].elapsed_time(ev[1]), "host": (t0, t1),
+                "peak_gib": torch.cuda.max_memory_allocated() / 2 ** 30})
+            return metrics
+
+        def probed_evaluate(run, val_iter, iters):
+            before = read_counts(probe.mha, probe.ln)
+            v = evaluate(run, val_iter, iters)
+            got = {k: v2 - before[k]
+                   for k, v2 in read_counts(probe.mha, probe.ln).items()}
+            want = {k: n * iters for k, n in probe.per_eval.items()}
+            if got != want:
+                raise AssertionError(f"GPT trainer eval: launches {got}, "
+                                     f"expected {want}")
+            probe.evals.append(v)
+            return v
+
+        def probed_save(root, at, state, metadata=None, block=True, **kw):
+            t0 = time.perf_counter()
+            out = save(root, at, state, metadata, block=block, **kw)
+            probe.save_ms.append({"step": at, "background": not block,
+                                  "ms": (time.perf_counter() - t0) * 1e3})
+            return out
+        wl._Runner.step, wl._Runner.evaluate = probed_step, probed_evaluate
+        wl.save_checkpoint = probed_save
+        zero_counts(self.mha, self.ln)
+        return self
+
+    def __exit__(self, *exc):
+        wl = self.workload
+        wl._Runner.step, wl._Runner.evaluate, wl.save_checkpoint = \
+            self._saved
+        self.launches = read_counts(self.mha, self.ln)
+        return False
+
+    def losses(self) -> list:
+        return [s["loss"] for s in self.steps]
+
+
+def gpt_trainer_per_step(cfg, seq: int, fused_ce: bool, remat: str,
+                         microbatches: int = 1) -> dict:
+    """Kernel launches of one GPT trainer step of `microbatches`
+    microbatches: each microbatch's `gpt_per_step`, plus the norm's forward
+    once more per block norm that the recompute replays (selective and mlp
+    recompute ln_1 and ln_2)."""
+    one = gpt_per_step(cfg.num_layers, seq, cfg.normalization, fused_ce)
+    if remat in ("selective", "mlp"):
+        kind = "rms_norm" if cfg.normalization == "rmsnorm" else "layer_norm"
+        one[f"{kind}_fwd"] += 2 * cfg.num_layers
+    return {k: v * microbatches for k, v in one.items()}
+
+
+def gpt_trainer_per_eval(cfg, fused_ce: bool) -> dict:
+    """Kernel launches of one eval batch: the forwards of a step's."""
+    one = gpt_per_step(cfg.num_layers, cfg.seq_length, cfg.normalization,
+                       fused_ce)
+    return {k: (v if k.endswith("_fwd") else 0) for k, v in one.items()}
+
+
+def gpt_corpus(root: Path) -> dict:
+    """(a)'s corpus: GPT_CORPUS_DOCS jsonl documents of seeded words (a
+    vocabulary of 4000 pseudo-words of 2-4 syllables, numbers and
+    punctuation), preprocessed by `python -m
+    megatron_clip_tpu_torch.tools.preprocess_data --tokenizer clip-bpe
+    --append-eod` with GPT_CORPUS_WORKERS workers; returns its prefix and
+    the tool's docs, tokens and rate."""
+    rng = np.random.default_rng(0)
+    syll = ["ka", "ro", "mi", "te", "sun", "ar", "lo", "ve", "qui", "da",
+            "ne", "po", "li", "sa", "tor", "en", "gu", "fi", "ba", "ze"]
+    vocab = ["".join(rng.choice(syll, int(rng.integers(2, 5))))
+             for _ in range(4000)]
+    vocab += [str(n) for n in range(100)] + [",", ".", "?", "!", ";"]
+    jsonl = root / "corpus.jsonl"
+    with open(jsonl, "w") as f:
+        for _ in range(GPT_CORPUS_DOCS):
+            n = int(rng.integers(*GPT_CORPUS_WORDS))
+            words = rng.choice(vocab, n, p=None)
+            f.write(json.dumps({"text": " ".join(words)}) + "\n")
+    prefix = str(root / "corpus")
+    t0 = time.perf_counter()
+    out = subprocess.run(
+        [sys.executable, "-m", "megatron_clip_tpu_torch.tools.preprocess_data",
+         "--input", str(jsonl), "--output-prefix", prefix, "--tokenizer",
+         "clip-bpe", "--append-eod", "--workers", str(GPT_CORPUS_WORKERS)],
+        cwd=REPO, capture_output=True, text=True, timeout=120, check=True)
+    took = time.perf_counter() - t0
+    m = re.search(r"done: (\d+) docs, (\d+) tokens .* in ([\d.]+) s "
+                  r"\((\d+) tokens/s from", out.stdout)
+    if m is None:
+        raise AssertionError(f"preprocess_data printed {out.stdout!r}")
+    docs, tokens = int(m.group(1)), int(m.group(2))
+    res = {"prefix": prefix, "docs": docs, "tokens": tokens,
+           "tool_seconds": float(m.group(3)),
+           "tokens_per_s": int(m.group(4)),
+           "process_seconds": took}
+    log(f"  corpus: {docs} documents, {tokens} tokens (clip-bpe, "
+        f"{GPT_CORPUS_WORKERS} workers): {res['tokens_per_s']} tokens/s from "
+        f"the first document on; the tool's {res['tool_seconds']:.2f} s, "
+        f"{took:.2f} s with the process's start")
+    return res
+
+
+def step_rates(steps: list, batch: int, seq: int, timed: list) -> dict:
+    """Samples/s and tokens/s over the `timed` steps (host clock from the
+    first's start to the last's end, the loop waiting for each loss, saves
+    included), each timed step's device ms (CUDA events around the
+    runner's step) and the tokens a second of their median."""
+    span = steps[timed[-1]]["host"][1] - steps[timed[0]]["host"][0]
+    device = [steps[i]["device_ms"] for i in timed]
+    return {"samples_per_s": batch * len(timed) / span,
+            "tokens_per_s": batch * seq * len(timed) / span,
+            "step_device_ms": device,
+            "step_device_ms_median": float(np.median(device)),
+            "tokens_per_s_device": batch * seq * 1e3 / float(np.median(
+                device))}
+
+
+def gpt_trainer_dist(main, workload, mha, ln, work: Path,
+                     example_step_ms: float) -> dict:
+    """(a): examples/pretrain_gpt_dist.sh on one card on the corpus:
+    GPT_DIST_STEPS steps in microbatches of GPT_DIST_MICRO, a background
+    save at GPT_DIST_SAVE_AT (the final save at the end), the eval; then
+    the tracker put back at the save's step (as if the run had been cut
+    before its last save committed) and a run loaded from it (--load)
+    for the last step, whose loss must be the first run's bit for bit, its
+    grad norm and val loss within GPT_RESUME_DRIFT. Exact launches every step and eval; the losses
+    falling from about ln(50304); the step's device ms beside
+    GPT_DIST_MICRO times phase 10's step median."""
+    from megatron_clip_tpu_torch.checkpoints import io as ckpt_io
+    from megatron_clip_tpu_torch.pretrain_gpt import (gpt_cfg_from_args,
+                                                      parse_args)
+    corpus = gpt_corpus(work)
+    root = str(work / "ckpt")
+    argv = GPT_DIST + GPT_DIST_WARMUP + [
+        "--micro-batch-size", str(GPT_DIST_MICRO), "--data-path",
+        corpus["prefix"], "--train-steps", str(GPT_DIST_STEPS),
+        "--eval-interval", str(GPT_DIST_STEPS), "--eval-iters",
+        str(GPT_DIST_EVAL_ITERS), "--log-interval", "1"]
+    cfg = gpt_cfg_from_args(parse_args(argv))
+    batch = int(argv[argv.index("--batch-size") + 1])
+    per_step = gpt_trainer_per_step(cfg, cfg.seq_length, True, "selective",
+                                    batch // GPT_DIST_MICRO)
+    per_eval = gpt_trainer_per_eval(cfg, True)
+    with WorkloadProbe(workload, mha, ln, per_step, per_eval) as first:
+        out = main(argv + ["--save", root, "--save-interval",
+                           str(GPT_DIST_SAVE_AT)])
+    first.runner = None
+    torch.cuda.empty_cache()
+    ckpt_io._write_tracker(root, GPT_DIST_SAVE_AT)
+    with WorkloadProbe(workload, mha, ln, per_step, per_eval) as resumed:
+        again = main(argv + ["--load", root])
+    resumed.runner = None
+    torch.cuda.empty_cache()
+    losses = first.losses()
+    tail = [(s["loss"], s["grad_norm"]) for s in resumed.steps]
+    want = [(s["loss"], s["grad_norm"]) for s in first.steps][
+        GPT_DIST_SAVE_AT:]
+    if not all(math.isfinite(v) for v in losses) or \
+            not losses[-1] < losses[0] or abs(losses[0] - math.log(
+                cfg.vocab_size)) > 1.0:
+        raise AssertionError(f"(a): losses {losses}, from ln(vocab) "
+                             f"{math.log(cfg.vocab_size):.3f}")
+    # the resumed step's forward is the whole run's bit for bit; its
+    # gradients (and so the val loss after its update) move by the flash
+    # backward's unordered fp32 reduce-adds into dQ
+    drift = max([abs(a[1] - b[1]) / abs(b[1]) for a, b in zip(tail, want)]
+                + [abs(a - b) / abs(b) for a, b in zip(resumed.evals,
+                                                       first.evals)])
+    if [t[0] for t in tail] != [w[0] for w in want] or \
+            len(resumed.evals) != len(first.evals) or \
+            drift > GPT_RESUME_DRIFT:
+        raise AssertionError(f"(a): the resumed step {tail} and eval "
+                             f"{resumed.evals} differ from the whole run's "
+                             f"{want} and {first.evals}")
+    rates = step_rates(first.steps, batch, cfg.seq_length,
+                       list(range(1, GPT_DIST_STEPS)))
+    starts = [s["host"][0] for s in first.steps]
+    result = {
+        "dropped_flags": GPT_DIST_DROPPED, "corpus": corpus,
+        "microbatches": batch // GPT_DIST_MICRO, "batch": batch,
+        "seq": cfg.seq_length, **rates,
+        "step_interval_ms": [(b - a) * 1e3 for a, b in zip(starts,
+                                                           starts[1:])],
+        "step_interval_ms_median": float(np.median(
+            [(b - a) * 1e3 for a, b in zip(starts, starts[1:])])),
+        "example_step_ms_x_microbatches": example_step_ms
+        * (batch // GPT_DIST_MICRO),
+        "losses": losses, "resumed_losses": resumed.losses(),
+        "val_loss": first.evals, "resumed_val_loss": resumed.evals,
+        "saves": first.save_ms, "peak_memory_gib": max(
+            s["peak_gib"] for s in first.steps),
+        "per_step_launches": per_step, "per_eval_launches": per_eval,
+        "final": {k: out[k] for k in ("loss", "last_step", "val_loss")},
+        "resumed_final": {k: again[k] for k in ("loss", "last_step",
+                                                "val_loss")},
+        "launches": {k: first.launches[k] + resumed.launches[k]
+                     for k in first.launches}}
+    result["resume_grad_norm_and_val_rel_drift"] = drift
+    result["device_ms_vs_example_x_micro"] = (
+        result["step_device_ms_median"]
+        / result["example_step_ms_x_microbatches"])
+    log(f"  (a) examples/pretrain_gpt_dist.sh on one card (dropped "
+        f"{' '.join(GPT_DIST_DROPPED)}: they need 4 cards; --sequence-"
+        f"parallel changes nothing at tp 1), batch {batch} in "
+        f"{batch // GPT_DIST_MICRO} microbatches of {GPT_DIST_MICRO}: "
+        f"{rates['tokens_per_s']:.0f} tokens/s, {rates['samples_per_s']:.2f}"
+        f" samples/s over steps 2-{GPT_DIST_STEPS} (the save at "
+        f"{GPT_DIST_SAVE_AT} included); step device ms median "
+        f"{rates['step_device_ms_median']:.1f} against {batch // GPT_DIST_MICRO}"
+        f" x phase 10's {example_step_ms:.2f} = "
+        f"{result['example_step_ms_x_microbatches']:.1f} (ratio "
+        f"{result['device_ms_vs_example_x_micro']:.4f}); losses {losses}; "
+        f"val {first.evals}; the resumed loss bit-equal (grad norm and val "
+        f"loss {drift:.3g} apart); saves "
+        f"{first.save_ms}")
+    return result
+
+
+def gpt_trainer_rung(main, workload, mha, ln) -> dict:
+    """(b): examples/pretrain_gpt_ladder.sh's 1.3b rung (bf16 weights, bf16
+    moments, remat mlp, loss chunks of 512) on synthetic data,
+    GPT_RUNG_WARMUP + GPT_RUNG_STEPS steps with exact launches and finite
+    losses about ln(vocab) (each step draws a fresh uniform batch, as the
+    JAX entry's synthetic stream does); then one step of the same run (its model, optimizer state
+    and the next batch) with selective recompute, whose peak memory must
+    lie above the mlp steps'."""
+    from megatron_clip_tpu_torch.pretrain_gpt import (gpt_cfg_from_args,
+                                                      parse_args)
+    steps = GPT_RUNG_WARMUP + GPT_RUNG_STEPS
+    argv = GPT_RUNG + ["--train-steps", str(steps), "--log-interval", "1"]
+    cfg = gpt_cfg_from_args(parse_args(argv))
+    batch = int(argv[argv.index("--batch-size") + 1])
+    per_step = gpt_trainer_per_step(cfg, cfg.seq_length, False, "mlp")
+    with WorkloadProbe(workload, mha, ln, per_step) as probe:
+        out = main(argv)
+    losses = probe.losses()
+    # a fresh uniform batch each step: the loss stays about ln(vocab)
+    if not all(math.isfinite(v) and abs(v - math.log(cfg.vocab_size)) < 1.0
+               for v in losses):
+        raise AssertionError(f"(b): losses {losses}, ln(vocab) "
+                             f"{math.log(cfg.vocab_size):.3f}")
+    run = probe.runner
+    probe.runner = None
+    n_params = sum(p.numel() for p in run.model.parameters())
+    run.model.cfg = dataclasses.replace(run.model.cfg, remat="selective")
+    tokens = np.random.RandomState(1).randint(
+        0, cfg.vocab_size, (batch, cfg.seq_length + 1)).astype(np.int32)
+    with WorkloadProbe(workload, mha, ln, per_step) as selective:
+        workload._Runner.step(run, tokens, steps + 1)
+    selective.runner = None
+    del run
+    torch.cuda.empty_cache()
+    timed = list(range(GPT_RUNG_WARMUP, steps))
+    rates = step_rates(probe.steps, batch, cfg.seq_length, timed)
+    peak = max(s["peak_gib"] for s in probe.steps)
+    sel_peak = selective.steps[0]["peak_gib"]
+    result = {"params": n_params, "batch": batch, "seq": cfg.seq_length,
+              **rates, "losses": losses,
+              "step_interval_ms_median": float(np.median(
+                  [(probe.steps[i + 1]["host"][0] - probe.steps[i]["host"][0])
+                   * 1e3 for i in timed[:-1]])),
+              "peak_memory_gib_mlp": peak,
+              "step_peak_memory_gib_mlp": [s["peak_gib"]
+                                           for s in probe.steps],
+              "peak_memory_gib_selective_step": sel_peak,
+              "selective_step_device_ms": selective.steps[0]["device_ms"],
+              "per_step_launches": per_step,
+              "final": {k: out[k] for k in ("loss", "last_step")},
+              "launches": probe.launches}
+    log(f"  (b) the ladder's 1.3b rung ({n_params} parameters, bf16 weights "
+        f"and moments, remat mlp, batch {batch} x {cfg.seq_length}): "
+        f"{rates['tokens_per_s']:.0f} tokens/s, {rates['samples_per_s']:.2f}"
+        f" samples/s, step device ms median "
+        f"{rates['step_device_ms_median']:.1f}; losses {losses}; peak "
+        f"{peak:.2f} GiB against {sel_peak:.2f} GiB for a selective step "
+        f"({selective.steps[0]['device_ms']:.1f} ms)")
+    if not peak < sel_peak:
+        raise AssertionError(f"(b): remat mlp's peak {peak:.2f} GiB is not "
+                             f"below selective's {sel_peak:.2f} GiB")
+    return result
+
+
+def gpt_trainer_parity(main, workload, mha, ln, corpus: str) -> dict:
+    """(c): GPT_TRAINER_PARITY on the corpus, on the card and on the CPU
+    (the plain versions) from the same weights (`--seed`): each step's
+    loss and grad norm within 1e-5 relative, each step's gradients within
+    GRAD_REL_TOL of their norms, and every parameter after the steps within
+    DP_PARAM_RTOL (1e-4) of its norm."""
+    from megatron_clip_tpu_torch.pretrain_gpt import (gpt_cfg_from_args,
+                                                      parse_args)
+    argv = GPT_TRAINER_PARITY + ["--data-path", corpus]
+    cfg = gpt_cfg_from_args(parse_args(argv))
+    b = int(argv[argv.index("--batch-size") + 1])
+    micro = int(argv[argv.index("--micro-batch-size") + 1])
+    runs = {}
+    for device in ("cuda", "cpu"):
+        per_step = (gpt_trainer_per_step(cfg, cfg.seq_length, True, "none",
+                                         b // micro) if device == "cuda"
+                    else dict.fromkeys(KERNEL_META, 0))
+        t0 = time.perf_counter()
+        with WorkloadProbe(workload, mha, ln, per_step,
+                           keep_grads=True) as probe:
+            main(argv + ["--device", device])
+        params = {n: p.detach().cpu() for n, p in
+                  probe.runner.model.named_parameters()}
+        probe.runner = None
+        runs[device] = (probe, params, time.perf_counter() - t0)
+    (pc, parc, tc), (pp, parp, tp) = runs["cuda"], runs["cpu"]
+    loss_err = max(abs(a["loss"] - c["loss"]) / abs(c["loss"])
+                   for a, c in zip(pc.steps, pp.steps))
+    norm_err = max(abs(a["grad_norm"] - c["grad_norm"]) / abs(c["grad_norm"])
+                   for a, c in zip(pc.steps, pp.steps))
+    grad_errs = {(i, n): float((gc[n] - gp[n]).norm() / gp[n].norm())
+                 for i, (gc, gp) in enumerate(zip(pc.grads, pp.grads))
+                 for n in gp}
+    param_errs = {n: float((parc[n] - parp[n]).norm() / parp[n].norm())
+                  for n in parp}
+    worst_g = max(grad_errs, key=grad_errs.get)
+    worst_p = max(param_errs, key=param_errs.get)
+    res = {"steps": len(pc.steps), "losses_cuda": pc.losses(),
+           "losses_cpu": pp.losses(), "loss_rel_err": loss_err,
+           "grad_norm_rel_err": norm_err,
+           "grad_worst": [worst_g[0] + 1, worst_g[1], grad_errs[worst_g]],
+           "param_worst": [worst_p, param_errs[worst_p]],
+           "seconds_cuda": tc, "seconds_cpu": tp}
+    log(f"  (c) fp32, 2 layers at full width, S={cfg.seq_length}, batch {b} "
+        f"in microbatches of {micro}, the corpus, card vs CPU: "
+        f"{json.dumps(res)}")
+    if loss_err > 1e-5 or norm_err > 1e-5 or \
+            grad_errs[worst_g] > GRAD_REL_TOL or \
+            param_errs[worst_p] > DP_PARAM_RTOL:
+        raise AssertionError("(c): the GPT trainer on the card disagrees "
+                             "with the CPU")
+    return res
+
+
+def phase_gpt_trainer(mha, ln, card: str, example: dict) -> dict:
+    log(f"[15] GPT trainer: pretrain_gpt.main on the card: (a) "
+        f"examples/pretrain_gpt_dist.sh (24 x 1024, S=2048, batch 64 in "
+        f"microbatches of {GPT_DIST_MICRO}) on an indexed corpus, "
+        f"{GPT_DIST_STEPS} steps, a save and a resume; (b) the ladder's "
+        f"1.3b rung, {GPT_RUNG_WARMUP} + {GPT_RUNG_STEPS} steps; (c) fp32 "
+        f"card vs CPU")
+    t0 = time.perf_counter()
+    from megatron_clip_tpu_torch.pretrain_gpt import main
+    from megatron_clip_tpu_torch.training import workload
+    shutil.rmtree(GPT_SMOKE_DIR, ignore_errors=True)
+    GPT_SMOKE_DIR.mkdir(parents=True)
+    result = {"card": card}
+    try:
+        parts = {
+            "dist": lambda: gpt_trainer_dist(
+                main, workload, mha, ln, GPT_SMOKE_DIR,
+                example["run"]["step_ms_median"]),
+            "rung": lambda: gpt_trainer_rung(main, workload, mha, ln),
+            "parity": lambda: gpt_trainer_parity(
+                main, workload, mha, ln, result["dist"]["corpus"]["prefix"])}
+        for name, part in parts.items():
+            t_part = time.perf_counter()
+            result[name] = part()
+            result[name]["seconds"] = time.perf_counter() - t_part
+            torch.cuda.empty_cache()
+    finally:
+        shutil.rmtree(GPT_SMOKE_DIR, ignore_errors=True)
+    result["seconds"] = time.perf_counter() - t0
+    log(f"  GPT trainer: {json.dumps(result)}")
+    if result["seconds"] > GPT_TRAINER_LIMIT_S:
+        raise AssertionError(
+            f"phase 15 took {result['seconds']:.1f} s, over "
+            f"{GPT_TRAINER_LIMIT_S} s: " + phase_parts(result))
     return result
 
 
@@ -4813,6 +5410,11 @@ def main() -> int:
 
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
+    # on every way out, a failed phase's exception and SIGTERM included:
+    # the cleanups registered later (the launches', the decode workers')
+    # run first, then this kills whatever is still below the script
+    atexit.register(kill_tree)
+    signal.signal(signal.SIGTERM, lambda *_: sys.exit(143))
     t_start = time.perf_counter()
     card = gpu_name_and_power_limit()
     log(f"[1] device: {torch.cuda.get_device_name(0)} | {card} | torch "
@@ -4831,6 +5433,7 @@ def main() -> int:
     trainer = phase_trainer(mha, ln, card, train)
     recipes = phase_recipes(mha, ln, card)
     dp = phase_data_parallel(launches, mha, ln, card, trainer)
+    gpt_trainer = phase_gpt_trainer(mha, ln, card, example)
     paths = {"serving ViT-B-32": serving["launches"],
              "train ViT-B-32": train["launches"],
              **{f"train {name} recompute": run["launches"]
@@ -4852,7 +5455,10 @@ def main() -> int:
                 recipes[f"lit_{tower}"]["launches"]
                 for tower, _, _ in LIT_RUNS},
              "trainer ViT-B-32 torchrun 1 rank nccl":
-                 dp["nccl_one_rank"]["launches"]}
+                 dp["nccl_one_rank"]["launches"],
+             "GPT trainer pretrain_gpt_dist.sh 1 card":
+                 gpt_trainer["dist"]["launches"],
+             "GPT trainer ladder 1.3b rung": gpt_trainer["rung"]["launches"]}
     kernels = kernels_line(rows, paths, errs)
     idle = [k["name"] for k in kernels if k["launches"] == 0]
     if idle:

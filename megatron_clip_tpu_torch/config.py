@@ -47,15 +47,12 @@ BF16 = Precision(param_dtype="float32", compute_dtype="bfloat16")
 PURE_BF16 = Precision(param_dtype="bfloat16", compute_dtype="bfloat16")
 
 
-REMAT_MODES = ("none", "selective", "full")
+REMAT_MODES = ("none", "selective", "mlp", "full")
 
 
 def check_remat(remat: str) -> str:
-    """`remat` if the port has it: none, selective or full; the JAX
-    package's "mlp" is not ported yet."""
-    if remat == "mlp":
-        raise NotImplementedError("remat='mlp' is not ported yet (ROADMAP "
-                                  "Queue A item 1)")
+    """`remat` if it is one of the JAX package's modes: none, selective,
+    mlp or full."""
     if remat not in REMAT_MODES:
         raise ValueError(f"remat={remat!r}: one of {REMAT_MODES}")
     return remat
@@ -90,7 +87,7 @@ class TransformerCfg:
     attention_dropout: float = 0.0
     hidden_dropout: float = 0.0
     # activation recompute (megatron --recompute-granularity)
-    remat: str = "none"  # none | selective | full
+    remat: str = "none"  # none | selective | mlp | full
 
     def __post_init__(self):
         check_remat(self.remat)

@@ -52,7 +52,7 @@ class CLIPModel(nn.Module):
     8 bytes of softmax statistics per row and recomputes them.
 
     `remat` is the activation recompute of both towers' blocks in `forward`
-    (none, selective, full; see `nn/transformer.py`), the JAX model's
+    (none, selective, mlp, full; see `nn/transformer.py`), the JAX model's
     `remat` field, which the trainer sets from `--recompute-granularity`."""
 
     def __init__(self, cfg: CLIPCfg, precision: Precision = BF16,

@@ -18,7 +18,7 @@ Dropout (megatron --attention-dropout / --hidden-dropout, on `GPTCfg` here
 where the JAX package sets them on its TransformerCfg): with a `seed`
 (the step's; the JAX package's `rng`) the embedding output, the attention
 probabilities and the blocks' hidden states are dropped; `seed=None` is
-eval. Activation recompute: `remat` (none, selective, full; megatron
+eval. Activation recompute: `remat` (none, selective, mlp, full; megatron
 --recompute-granularity), which `make_gpt_train_step` takes, by default
 `GPTCfg.remat`, and passes to the loss.
 
@@ -191,8 +191,9 @@ def gpt_loss(model: GPTModel, tokens: torch.Tensor, *,
     loss-mask averaging (`loss_mask` [B, S+1] aligned to the inputs, 0
     where the input token is EOD). A 0-d fp32 tensor. `seed` turns on
     dropout at the config's rates (the JAX package's `rng`); `remat` is
-    the activation recompute, none, selective or full (`make_gpt_train_step`
-    resolves it from its argument or `GPTCfg.remat`).
+    the activation recompute, none, selective, mlp or full
+    (`make_gpt_train_step` resolves it from its argument or
+    `GPTCfg.remat`).
 
     `fused_ce` runs the lm head and cross entropy as one fused kernel on
     the hidden states [B*S, W] and the head cast to their dtype (bf16 under

@@ -43,6 +43,14 @@ the place of the JAX package's `jax.checkpoint` policies:
   qkv projection, and output projection -> ... -> residual add, each
   under `create_selective_checkpoint_contexts` saving aten.mm /
   aten.addmm (`multi_head_attention`'s `segment`).
+- "mlp": selective without the MLP up-projection: its output ([*, 4W],
+  [*, 2 ffn] with swiglu) is recomputed in the backward from ln_2's
+  output, every other product's output is saved (the JAX package's
+  `_dots_except_mlp_up_policy` with flash's residuals). The JAX package
+  tells the up-projection by its weight's shape [W, mlp_in], as a nested
+  checkpoint did not work there; here the segments' policy tells it the
+  same way (`_recompute_up_projection`), one product of
+  [W, mlp_in] a block, so the two agree on what is saved.
 - "none": autograd keeps what it keeps.
 Dropout replays the same bits in a recompute, as its seeds are inputs.
 """
@@ -51,7 +59,7 @@ from typing import Optional
 
 import torch
 from torch import nn
-from torch.utils.checkpoint import (checkpoint,
+from torch.utils.checkpoint import (CheckpointPolicy, checkpoint,
                                     create_selective_checkpoint_contexts)
 
 from megatron_clip_tpu_torch.config import TransformerCfg
@@ -62,13 +70,34 @@ from megatron_clip_tpu_torch.ops.dense import dense
 from megatron_clip_tpu_torch.ops.dropout import dropout, site_offset
 from megatron_clip_tpu_torch.ops.rope import rope_cos_sin
 
+_PRODUCTS = (torch.ops.aten.mm.default, torch.ops.aten.addmm.default)
 # selective recompute: a segment that keeps the outputs of the
 # projections' products
 _selective = functools.partial(
     checkpoint, use_reentrant=False,
-    context_fn=functools.partial(
-        create_selective_checkpoint_contexts,
-        [torch.ops.aten.mm.default, torch.ops.aten.addmm.default]))
+    context_fn=functools.partial(create_selective_checkpoint_contexts,
+                                 list(_PRODUCTS)))
+
+
+def _recompute_up_projection(up_shape):
+    """A selective-checkpoint policy that saves the output of every matrix
+    product but those whose weight (the last operand) is `up_shape`."""
+    def policy(ctx, op, *args, **kwargs):
+        if op in _PRODUCTS:
+            if tuple(args[-1].shape) == up_shape:
+                return CheckpointPolicy.PREFER_RECOMPUTE
+            return CheckpointPolicy.MUST_SAVE
+        return CheckpointPolicy.PREFER_RECOMPUTE
+    return policy
+
+
+@functools.lru_cache()
+def _mlp_segment(up_shape):
+    """remat="mlp"'s segment: `_selective` without the up-projection."""
+    return functools.partial(
+        checkpoint, use_reentrant=False,
+        context_fn=functools.partial(create_selective_checkpoint_contexts,
+                                     _recompute_up_projection(up_shape)))
 
 
 def normal_param(shape, std: float, gen: Optional[torch.Generator]) -> nn.Parameter:
@@ -129,8 +158,8 @@ class ResidualBlock(nn.Module):
         backward mode (see `ops.attention.multi_head_attention`); `rope`:
         the (cos, sin) tables when `cfg.rope`; `seed`: the step's dropout
         seed (None: no dropout) and `layer` this block's index, which picks
-        its sites' offsets; `remat`: none, selective or full (see the
-        module's note)."""
+        its sites' offsets; `remat`: none, selective, mlp or full (see
+        the module's note)."""
         cfg = self.cfg
 
         def block(x, segment=None):
@@ -146,6 +175,8 @@ class ResidualBlock(nn.Module):
             return checkpoint(block, x, use_reentrant=False)
         if remat == "selective":
             return block(x, _selective)
+        if remat == "mlp":
+            return block(x, _mlp_segment(tuple(self.mlp["w1"].shape)))
         return block(x)
 
     def _rest(self, x: torch.Tensor, h: torch.Tensor, seed: Optional[int],
@@ -174,7 +205,7 @@ class Transformer(nn.ModuleList):
                 save_probs: bool = True, seed: Optional[int] = None,
                 remat: str = "none") -> torch.Tensor:
         """`seed`: the step's dropout seed (None: no dropout); `remat`: none,
-        selective or full (see the module's note)."""
+        selective, mlp or full (see the module's note)."""
         cfg = self[0].cfg
         rope = None
         if cfg.rope:

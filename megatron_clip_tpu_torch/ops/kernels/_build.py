@@ -4,7 +4,8 @@ Each `csrc/<name>.cu` compiles with nvcc into its own shared library with a
 plain `extern "C"` interface, loaded with ctypes; each `csrc/<name>.c` of
 HOST_SOURCES (code for the host's CPU, no CUDA) compiles the same way with
 the host's C compiler (`cc`, else `gcc`, from PATH), on the CPU too: the
-JPEG decoder of `data/decode.py` is one. Libraries land in
+JPEG decoder of `data/decode.py` and the GPT dataset's index helpers of
+`data/helpers.py`. Libraries land in
 `megatron_clip_tpu_torch/_build/` under a name that carries a hash of the
 sources and flags, so a library is rebuilt only when a source changes. Nothing
 is compiled at import: the first call that needs a library builds it, and
@@ -36,7 +37,7 @@ NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC", "--ptxas-options=-v")
 SOURCES = ("fused_mha", "layernorm", "flash_attention", "fused_ce")
 # host C sources; the flags change no integer result
-HOST_SOURCES = ("jpeg_decode",)
+HOST_SOURCES = ("jpeg_decode", "dataset_helpers")
 HOST_FLAGS = ("-O2", "-fPIC", "-shared", "-std=c11")
 
 _libs: Dict[Tuple[str, Tuple[str, ...]], ctypes.CDLL] = {}

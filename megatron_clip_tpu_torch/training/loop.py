@@ -74,8 +74,6 @@ def _aug_keys(args) -> set:
 
 # (Queue A item, flag, whether args ask for it)
 _REFUSED = (
-    (1, "--recompute-granularity mlp",
-     lambda a: a.recompute_granularity == "mlp"),
     (2, "a CoCa model", lambda a: a.model.startswith("coca")),
     (2, "--precision fp16", lambda a: a.precision == "fp16"),
     (3, "--pretrained", lambda a: bool(a.pretrained)),

@@ -18,8 +18,11 @@ weakly typed scalars do: with bf16 moments b1 acts as 0.8984375. The
 product b1 mu is not rounded to bf16 before it meets the fp32 gradient term,
 as the JAX package's jitted step computes it (XLA keeps that intermediate in
 fp32; optax run eagerly would round it). mu is rounded to `moment_dtype`
-after each update; nu stays in the parameter's dtype. Parameters are
-updated in place, and the moments are replaced, one tensor per parameter.
+after each update; nu stays in the parameter's dtype. Parameters and
+moments are updated in place (each chunk's new moments copied, rounded to
+their dtype, into the state's tensors), so an update holds one chunk's
+temporaries beside the state and never a second copy of the moments: the
+state passed to `update` is the one it returns.
 The update runs over chunks of at most `CHUNK_ELEMENTS` elements, each
 through the whole chain: every step is elementwise, so the result is the
 same, and the chain's temporaries (a dozen per element) stay at a chunk's
@@ -35,12 +38,28 @@ unstacked, so the JAX per-layer multiplier is one number per parameter
 (`tower_lock_mask`), applied as the last step of the chain.
 
 The schedules: open_CLIP's `cosine_lr`, `const_lr` and `const_lr_cooldown`,
-and `constant_lr`. Not ported yet: SGD, bf16 nu (`adamw_lowbits`),
-scheduled weight decay and the megatron schedules, which only the GPT
-runtime calls (ROADMAP Queue A item 4).
+`constant_lr`, and megatron's `megatron_lr` (linear, cosine, constant and
+inverse-square-root decay after a linear warmup) and `megatron_wd` (weight
+decay ramped over the run), each in fp32 as the JAX schedule computes it.
+
+The GPT runtime's other chains (`make_optimizer(optimizer=..., nu_dtype=...,
+weight_decay=callable)`, the JAX `make_optimizer`'s branches):
+- scheduled weight decay: the decay is `weight_decay(count)` each step, as
+  `optax.inject_hyperparams(optax.adamw)` evaluates it; there every
+  hyperparameter is an array of the first gradient leaf's dtype, so
+  1 - b1 and the bias corrections are formed from the rounded b1 and b2
+  and rounded again (`AdamW._injected`);
+- bf16 nu (`adamw_lowbits`, `scale_by_adam_lowbits`): both moments stored in
+  bf16 (mu in `moment_dtype`, default bf16), the whole moment update and
+  bias correction in fp32 from the stored moments and the fp32 gradient,
+  the step rounded to the gradient's dtype, then the masked decay and the
+  learning rate in the parameter's dtype;
+- `SGD`: megatron --optimizer sgd, `optax.add_decayed_weights` (masked)
+  before `optax.sgd`'s momentum trace (t <- g + m t, stored in the
+  parameter's dtype) and the learning rate.
 """
 import dataclasses
-from typing import Callable, Dict, Mapping, Optional
+from typing import Callable, Dict, Mapping, Optional, Union
 
 import numpy as np
 import torch
@@ -106,6 +125,60 @@ def const_lr_cooldown(base_lr: float, warmup: int, total_steps: int,
         if t < warmup:
             return float(f32(base_lr) * (t + f32(1)) / f32(max(warmup, 1)))
         return float(f32(base_lr))
+    return schedule
+
+
+def megatron_lr(base_lr: float, warmup: int, total_steps: int, *,
+                decay_style: str = "cosine", min_lr: float = 0.0,
+                decay_steps: Optional[int] = None) -> Callable[[int], float]:
+    """megatron OptimizerParamScheduler.get_lr as the JAX `megatron_lr`
+    computes it, in fp32: linear warmup from base_lr/warmup, then constant,
+    linear, cosine or inverse-square-root decay to min_lr over
+    `decay_steps` (--lr-decay-iters; default the whole run)."""
+    if decay_style not in ("constant", "linear", "cosine",
+                           "inverse-square-root"):
+        raise ValueError(f"unknown lr decay style {decay_style!r}")
+    f32 = np.float32
+    decay_steps = decay_steps or total_steps
+    span = max(decay_steps - warmup, 1)
+
+    def schedule(step: int) -> float:
+        t = f32(step)
+        if t < warmup:
+            return float(f32(base_lr) * (t + f32(1)) / f32(max(warmup, 1)))
+        prog = min(max((t - f32(warmup)) / f32(span), f32(0)), f32(1))
+        if decay_style == "constant":
+            return float(f32(base_lr))
+        if decay_style == "linear":
+            return float(f32(min_lr) + f32(base_lr - min_lr)
+                         * (f32(1) - prog))
+        if decay_style == "cosine":
+            return float(f32(min_lr) + f32(0.5 * (base_lr - min_lr))
+                         * (f32(1) + np.cos(f32(np.pi) * prog)))
+        dec = f32(base_lr) * np.sqrt(f32(max(warmup, 1))) \
+            / np.sqrt(max(t, f32(1)))
+        return float(min(max(f32(min_lr), dec), f32(base_lr)))
+    return schedule
+
+
+def megatron_wd(start_wd: float, end_wd: float, total_steps: int,
+                incr_style: str = "constant") -> Callable[[int], float]:
+    """megatron OptimizerParamScheduler.get_wd as the JAX `megatron_wd`
+    computes it, in fp32: weight decay from start_wd to end_wd over the run
+    (--weight-decay-incr-style constant, linear or cosine)."""
+    if incr_style not in ("constant", "linear", "cosine"):
+        raise ValueError(f"unknown wd incr style {incr_style!r}")
+    f32 = np.float32
+
+    def schedule(step: int) -> float:
+        if incr_style == "constant":
+            return float(f32(start_wd))
+        p = min(max(f32(step) / f32(max(total_steps, 1)), f32(0)), f32(1))
+        if incr_style == "linear":
+            coeff = p
+        else:
+            coeff = f32(0.5) * (np.cos(f32(np.pi) * (f32(1) - p)) + f32(1))
+        return float(f32(start_wd) + coeff * f32(end_wd - start_wd))
     return schedule
 
 
@@ -179,6 +252,15 @@ def _jax_leaf(name: str) -> str:
     return ".".join(parts)
 
 
+def _store(out: dict, names: list, new: list, moments: dict) -> None:
+    """The new moments of `names` copied into the state's tensors
+    (`moments`, rounded to their dtype as `.to` rounds), and those tensors
+    into `out`."""
+    into = [moments[n] for n in names]
+    torch._foreach_copy_(into, new)
+    out.update(zip(names, into))
+
+
 def _c(x: float, dtype: torch.dtype) -> float:
     """The Python constant x as a JAX weak scalar meets a `dtype` tensor:
     rounded to that dtype."""
@@ -199,17 +281,20 @@ class AdamW:
     """The optimizer `make_optimizer` builds for one model's parameters."""
 
     def __init__(self, model: nn.Module, lr: Callable[[int], float], *,
-                 beta1: float, beta2: float, eps: float, weight_decay: float,
+                 beta1: float, beta2: float, eps: float,
+                 weight_decay: Union[float, Callable[[int], float]],
                  grad_clip_norm: Optional[float],
                  moment_dtype: Optional[torch.dtype],
                  decay_mask: bool = True,
-                 lock_mask: Optional[Mapping[str, float]] = None):
+                 lock_mask: Optional[Mapping[str, float]] = None,
+                 nu_dtype: Optional[torch.dtype] = None):
         self.params = dict(model.named_parameters())
         self.lr = lr
         self.b1, self.b2, self.eps = beta1, beta2, eps
         self.weight_decay = weight_decay
         self.grad_clip_norm = grad_clip_norm
         self.moment_dtype = moment_dtype
+        self.nu_dtype = nu_dtype
         decay = (_no_decay_mask(self.params) if decay_mask
                  else dict.fromkeys(self.params, True))
         lock = lock_mask or dict.fromkeys(self.params, 1.0)
@@ -229,6 +314,7 @@ class AdamW:
         self._leaf_index = torch.tensor([order.index(leaves[n])
                                          for n in self.params], device=device)
         bf16 = [dtypes[k] == torch.bfloat16 for k in order]
+        self._inject_dtype = dtypes[order[0]]
         self._leaf_bf16 = torch.tensor(bf16, device=device)
         self._all_bf16 = all(bf16)
 
@@ -237,7 +323,8 @@ class AdamW:
             count=0,
             mu={n: torch.zeros_like(p, dtype=self.moment_dtype or p.dtype)
                 for n, p in self.params.items()},
-            nu={n: torch.zeros_like(p) for n, p in self.params.items()},
+            nu={n: torch.zeros_like(p, dtype=self.nu_dtype or p.dtype)
+                for n, p in self.params.items()},
             schedule_count=0)
 
     def global_norm(self, grads: Mapping[str, torch.Tensor]) -> torch.Tensor:
@@ -307,16 +394,18 @@ class AdamW:
         bc1 = float(f32(1) - f32(self.b1) ** f32(count))
         bc2 = float(f32(1) - f32(self.b2) ** f32(count))
         lr = self.lr(state.schedule_count)
+        wd = (self.weight_decay(state.schedule_count)
+              if callable(self.weight_decay) else self.weight_decay)
         mu_out, nu_out = {}, {}
         for (dtype, decays, lock), group in self.groups:
             for names in self._chunks(group):
                 self._update_chunk(names, dtype, decays, lock, grads, norm,
-                                   state, bc1, bc2, lr, mu_out, nu_out)
+                                   state, bc1, bc2, lr, wd, mu_out, nu_out)
         return OptState(count=count, mu=mu_out, nu=nu_out,
                         schedule_count=state.schedule_count + 1), norm
 
     def _update_chunk(self, names, dtype, decays, lock, grads, norm, state,
-                      bc1, bc2, lr, mu_out, nu_out) -> None:
+                      bc1, bc2, lr, wd, mu_out, nu_out) -> None:
         """The chain on the parameters `names` (one dtype, decay and lock
         multiplier): the clip, scale_by_adam, the decay, the learning rate,
         the lock mask, the update in place; the new moments into mu_out
@@ -324,29 +413,86 @@ class AdamW:
         g = [grads[n] for n in names]
         if self.grad_clip_norm:
             g = self._clip(g, dtype, norm)
+        if self.nu_dtype is not None:
+            u = self._lowbits(names, g, dtype, state, mu_out, nu_out)
+            self._finish(names, u, dtype, decays, lock, lr, wd)
+            return
         mdt = self.moment_dtype or dtype
         udt = torch.promote_types(dtype, mdt)
+        k = (self._injected(state.count + 1) if callable(self.weight_decay)
+             else dict(omb1=_c(1 - self.b1, dtype), b1=_c(self.b1, mdt),
+                       omb2=_c(1 - self.b2, dtype), b2=_c(self.b2, dtype),
+                       bc1=_c(bc1, udt), bc2=_c(bc2, dtype),
+                       eps=_c(self.eps, dtype)))
         # scale_by_adam: mu = (1 - b1) g + b1 mu, nu = (1 - b2) g^2 + b2 nu
-        a = torch._foreach_mul(g, _c(1 - self.b1, dtype))
+        a = torch._foreach_mul(g, k["omb1"])
         b = torch._foreach_mul([state.mu[n].to(udt) for n in names],
-                               _c(self.b1, mdt))
+                               k["b1"])
         mu = torch._foreach_add([t.to(udt) for t in a],
                                 [t.to(udt) for t in b])
         g2 = torch._foreach_mul(g, g)
-        torch._foreach_mul_(g2, _c(1 - self.b2, dtype))
+        torch._foreach_mul_(g2, k["omb2"])
         nu = torch._foreach_add(
-            g2, torch._foreach_mul([state.nu[n] for n in names],
-                                   _c(self.b2, dtype)))
+            g2, torch._foreach_mul([state.nu[n] for n in names], k["b2"]))
         # bias correction, then mu_hat / (sqrt(nu_hat) + eps)
-        u = torch._foreach_div(mu, _c(bc1, udt))
-        den = torch._foreach_div(nu, _c(bc2, dtype))
+        u = torch._foreach_div(mu, k["bc1"])
+        den = torch._foreach_div(nu, k["bc2"])
         torch._foreach_sqrt_(den)
-        torch._foreach_add_(den, _c(self.eps, dtype))
+        torch._foreach_add_(den, k["eps"])
         u = torch._foreach_div(u, [t.to(udt) for t in den])
+        _store(mu_out, names, mu, state.mu)
+        _store(nu_out, names, nu, state.nu)
+        self._finish(names, u, udt, decays, lock, lr, wd)
+
+    def _injected(self, count: int) -> dict:
+        """scale_by_adam's constants as `optax.inject_hyperparams(
+        optax.adamw)` forms them (a scheduled weight decay): b1, b2 and eps
+        arrays of the first gradient leaf's dtype, so 1 - b1 and the bias
+        corrections 1 - b1^count are computed from the rounded b1 and
+        rounded to that dtype."""
+        dt = self._inject_dtype
+        b1, b2 = _c(self.b1, dt), _c(self.b2, dt)
+        f32 = np.float32
+        return dict(omb1=_c(1 - b1, dt), b1=b1, omb2=_c(1 - b2, dt), b2=b2,
+                    bc1=_c(1 - _c(float(f32(b1) ** f32(count)), dt), dt),
+                    bc2=_c(1 - _c(float(f32(b2) ** f32(count)), dt), dt),
+                    eps=_c(self.eps, dt))
+
+    def _lowbits(self, names, g, dtype, state, mu_out, nu_out) -> list:
+        """scale_by_adam_lowbits on one chunk: the moments' update and the
+        bias-corrected step in fp32, the step rounded to the gradient's
+        dtype; the new moments, rounded to their storage dtypes, into
+        mu_out and nu_out."""
+        f32 = np.float32
+        c = f32(state.count + 1)
+        bc1 = float(f32(1) - f32(self.b1) ** c)
+        bc2 = float(f32(1) - f32(self.b2) ** c)
+        g32 = [t.float() for t in g]
+        mu = torch._foreach_mul([state.mu[n].float() for n in names],
+                                _c(self.b1, torch.float32))
+        torch._foreach_add_(mu, torch._foreach_mul(
+            g32, _c(1 - self.b1, torch.float32)))
+        nu = torch._foreach_mul([state.nu[n].float() for n in names],
+                                _c(self.b2, torch.float32))
+        g2 = torch._foreach_mul(g32, _c(1 - self.b2, torch.float32))
+        torch._foreach_mul_(g2, g32)
+        torch._foreach_add_(nu, g2)
+        step = torch._foreach_div(mu, bc1)
+        den = torch._foreach_div(nu, bc2)
+        torch._foreach_sqrt_(den)
+        torch._foreach_add_(den, _c(self.eps, torch.float32))
+        torch._foreach_div_(step, den)
+        _store(mu_out, names, mu, state.mu)
+        _store(nu_out, names, nu, state.nu)
+        return [t.to(dtype) for t in step]
+
+    def _finish(self, names, u, udt, decays, lock, lr, wd) -> None:
+        """The chain's tail on the updates `u` (in `udt`): the masked weight
+        decay, the learning rate, the lock mask, the update in place."""
+        dtype = self.params[names[0]].dtype
         if decays:  # add_decayed_weights: u + wd p
             wp = torch._foreach_mul([self.params[n].detach()
-                                     for n in names],
-                                    _c(self.weight_decay, dtype))
+                                     for n in names], _c(wd, dtype))
             u = torch._foreach_add(u, [t.to(udt) for t in wp])
         # scale_by_learning_rate, then apply_updates: p <- p + u
         torch._foreach_mul_(u, _c(-lr, udt))
@@ -354,27 +500,84 @@ class AdamW:
             torch._foreach_mul_(u, lock)
         with torch.no_grad():
             torch._foreach_add_([self.params[n] for n in names], u)
-        mu_out.update(zip(names, (t.to(mdt) for t in mu)))
-        nu_out.update(zip(names, nu))
+
+
+class SGD(AdamW):
+    """megatron --optimizer sgd as the JAX `make_optimizer` chains it: the
+    clip, `optax.add_decayed_weights` (masked, scheduled or not), then
+    `optax.sgd`: the momentum trace t <- g + m t (stored in the parameter's
+    dtype; the update is the new trace) and the learning rate. The state's
+    `mu` holds the trace; `nu` is empty."""
+
+    def __init__(self, model: nn.Module, lr: Callable[[int], float], *,
+                 momentum: float,
+                 weight_decay: Union[float, Callable[[int], float]],
+                 grad_clip_norm: Optional[float]):
+        super().__init__(model, lr, beta1=0.0, beta2=0.0, eps=0.0,
+                         weight_decay=weight_decay,
+                         grad_clip_norm=grad_clip_norm, moment_dtype=None)
+        self.momentum = momentum
+
+    def init(self) -> OptState:
+        return OptState(count=0, mu={n: torch.zeros_like(p) for n, p
+                                     in self.params.items()},
+                        nu={}, schedule_count=0)
+
+    def _update_chunk(self, names, dtype, decays, lock, grads, norm, state,
+                      bc1, bc2, lr, wd, mu_out, nu_out) -> None:
+        g = [grads[n] for n in names]
+        if self.grad_clip_norm:
+            g = self._clip(g, dtype, norm)
+        if decays:  # add_decayed_weights: g + wd p
+            g = torch._foreach_add(g, torch._foreach_mul(
+                [self.params[n].detach() for n in names], _c(wd, dtype)))
+        trace = torch._foreach_mul([state.mu[n] for n in names],
+                                   _c(self.momentum, dtype))
+        trace = torch._foreach_add(g, trace)
+        _store(mu_out, names, trace, state.mu)
+        u = torch._foreach_mul(trace, _c(-lr, dtype))
+        with torch.no_grad():
+            torch._foreach_add_([self.params[n] for n in names], u)
 
 
 def make_optimizer(model: nn.Module, lr: Callable[[int], float], *,
                    beta1: float = 0.9, beta2: float = 0.98, eps: float = 1e-6,
-                   weight_decay: float = 0.2,
+                   weight_decay: Union[float, Callable[[int], float]] = 0.2,
                    grad_clip_norm: Optional[float] = None,
                    moment_dtype: Optional[torch.dtype] = None,
                    decay_mask: bool = True,
-                   lock_mask: Optional[Mapping[str, float]] = None) -> AdamW:
+                   lock_mask: Optional[Mapping[str, float]] = None,
+                   optimizer: str = "adam", sgd_momentum: float = 0.9,
+                   nu_dtype: Optional[torch.dtype] = None) -> AdamW:
     """AdamW with the CLIP recipe's defaults (open_CLIP: beta2 0.98, eps
     1e-6, weight decay 0.2), weight decay masked by `_no_decay_mask` (with
     `decay_mask=False` every parameter decays), optional
     global-norm clipping first. `moment_dtype` stores the first moment
     (optax's mu_dtype); None keeps each parameter's dtype. `lock_mask`
-    (`tower_lock_mask`'s) multiplies each parameter's final update."""
+    (`tower_lock_mask`'s) multiplies each parameter's final update.
+
+    The JAX `make_optimizer`'s other branches: `weight_decay` a schedule
+    (`megatron_wd`; megatron --weight-decay-incr-style), `optimizer="sgd"`
+    (`SGD`, momentum `sgd_momentum`) and `nu_dtype` (bf16 second moments,
+    `adamw_lowbits`; the first moment then defaults to bf16 too). A
+    scheduled decay with `nu_dtype` raises ValueError, as there."""
+    if callable(weight_decay) and nu_dtype is not None:
+        raise ValueError("--weight-decay-incr-style does not compose with "
+                         "--nu-dtype bf16 (adamw_lowbits has no injected "
+                         "hyperparameters)")
+    if optimizer == "sgd":
+        if not decay_mask or lock_mask is not None:
+            raise ValueError("SGD takes the decay mask and no lock mask")
+        return SGD(model, lr, momentum=sgd_momentum,
+                   weight_decay=weight_decay, grad_clip_norm=grad_clip_norm)
+    if optimizer != "adam":
+        raise ValueError(f"optimizer={optimizer!r}: adam or sgd")
+    if nu_dtype is not None and moment_dtype is None:
+        moment_dtype = torch.bfloat16
     return AdamW(model, lr, beta1=beta1, beta2=beta2, eps=eps,
                  weight_decay=weight_decay, grad_clip_norm=grad_clip_norm,
                  moment_dtype=moment_dtype, decay_mask=decay_mask,
-                 lock_mask=lock_mask)
+                 lock_mask=lock_mask, nu_dtype=nu_dtype)
 
 
 def make_gpt_optimizer(model: nn.Module, lr: float = 1e-4, *,

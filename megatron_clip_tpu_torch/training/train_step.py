@@ -19,10 +19,10 @@ bench.py's `bench_gpt_345m` step: `gpt_loss` (chunked, or through the fused
 lm-head cross entropy of `pretrain_gpt.py --fused-ce`), its backward, the
 clipped AdamW update in place; with a seed, dropout at the config's rates,
 and activation recompute as `remat` says (the step of
-examples/pretrain_gpt_pipeline.sh). The optimizer of `pretrain_gpt.py`'s own
-runtime (`training/workload.py`: its schedules and decay masks) is not
-ported yet (ROADMAP Queue A item 4); the GPT step takes bench.py's chain
-(`make_gpt_optimizer`).
+examples/pretrain_gpt_pipeline.sh), with bench.py's chain
+(`make_gpt_optimizer`); `pretrain_gpt.py`'s runtime runs its own step
+(`training/workload.py`: the microbatch accumulation, megatron's
+optimizer branches).
 
 The metrics stay device tensors: the step itself never waits for the card
 (but for gloo's collectives, which stage CUDA tensors through the host).
@@ -219,7 +219,7 @@ def make_gpt_train_step(model: GPTModel, optimizer: AdamW, *,
     model's device, inputs tokens[:, :-1] predicting tokens[:, 1:]. The
     loss is `gpt_loss` with `loss_seq_chunk` or `fused_ce` (which wins when
     both are given, as in the JAX package), under activation recompute
-    `remat` (none, selective, full; default the model's `cfg.remat`),
+    `remat` (none, selective, mlp, full; default the model's `cfg.remat`),
     resolved here once.
     `seed` turns dropout on at the config's rates: step i draws from
     `fold_in(seed, i)`, formed on the host from plain ints, as the JAX

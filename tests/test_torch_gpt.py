@@ -425,14 +425,14 @@ def test_three_dropout_steps_lower_the_loss():
 
 
 def test_remat_mlp_is_refused_and_others_checked():
-    with pytest.raises(NotImplementedError, match="Queue A item 1"):
-        GPTCfg(**PIPELINE, remat="mlp").transformer()
+    """remat="mlp" is taken since it was ported (its parity is in
+    test_torch_remat_mlp.py); a mode the JAX package does not have raises."""
+    assert GPTCfg(**PIPELINE, remat="mlp").transformer().remat == "mlp"
     with pytest.raises(ValueError, match="remat"):
         GPTCfg(**PIPELINE, remat="dots").transformer()
     *_, model, _ = _pipeline(seq=64)
     opt = make_gpt_optimizer(model)
-    with pytest.raises(NotImplementedError, match="Queue A item 1"):
-        make_gpt_train_step(model, opt, remat="mlp")
+    make_gpt_train_step(model, opt, remat="mlp")
     with pytest.raises(ValueError, match="remat"):
         make_gpt_train_step(model, opt, remat="dots")
 

@@ -299,7 +299,6 @@ def test_resume_from_an_explicit_root_and_a_bogus_one(tmp_path):
 
 
 @pytest.mark.parametrize("flag,item", [
-    (["--recompute-granularity", "mlp"], 1),
     (["--model", "coca_test-tiny"], 2),
     (["--precision", "fp16"], 2),
     (["--pretrained", "openai"], 3),
