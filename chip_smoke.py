@@ -238,7 +238,35 @@ of which raises (and so exits non-zero) on failure:
      --micro-batch-size, card against CPU (losses and grad norms within
      1e-5 relative, gradients within 1e-4 of their norms, parameters after
      the steps within 1e-4 of their norms). tokens/s, samples/s, peaks and
-     the saves' host ms printed. Within 90 s.
+     the saves' host ms printed. It writes its corpus where phase 16
+     reads it, and prints this host's Unicode version beside the GPT-2
+     pre-tokenizer's committed class table's source. Within 90 s;
+ 16. GPT trainer over torchrun ranks and the document flags: (a) one
+     NCCL rank of `pretrain_gpt` (torchrun, `chip_smoke.py
+     --gpt-dp-worker`) on phase 15 (a)'s model, global batch of 64 in
+     microbatches of 8 and corpus, 3 steps with exact launches, its
+     tokens/s and step device ms beside phase 15 (a)'s, and the device
+     ms of its gradient all-reduce and division (what one rank adds); (b)
+     two gloo ranks on the one card (NCCL takes one rank a device), fp32,
+     2 layers at full width, S = 256, batch 4 in microbatches of 2, 2
+     steps, plain and with --eod-mask-loss --reset-position-ids
+     --reset-attention-mask, each against one process on the card (losses within 1e-5 relative,
+     parameters within 1e-4 of their norms, the ranks bit-equal), then the
+     flagged run cut by SIGTERM on rank 1 after step 1 with --save (both
+     ranks stop there, rank 0 saves) and resumed over two ranks, bit-equal
+     to the run left whole; (c) the three document flags on phase 15 (a)'s
+     model at full width and depth, one microbatch of 8 a step, 2
+     steps: exact launches (the document mask takes the unfused
+     `sdpa_bshd`, so no flash kernel), the loss falling, the peak memory,
+     a layer's unfused attention forward and backward in ms beside
+     flash's at the same shape, and an fp32 run at 2 layers with the
+     flags, batch 1, card against CPU while (b)'s ranks step (phase 15 (c)'s
+     bounds, the parameters after two Adam steps within 1e-3 of their
+     norms). The launches are
+     made before phase 2, warm up on the CPU and wait for the phase; (a)
+     takes its first step beside (b) and holds its timed steps until (b)
+     has ended; the phase reads the ranks' results as they are written
+     and checks at its end that every launch exited 0. Within 60 s.
 
 Before its last lines the script fails if a process it started (a build,
 a decode worker, the forkserver, the resource tracker) is still alive.
@@ -523,6 +551,48 @@ GPT_TRAINER_PARITY = [
 GPT_RESUME_DRIFT = 1e-3
 GPT_SMOKE_DIR = REPO / "_smoke_gpt"
 GPT_TRAINER_LIMIT_S = 90.0
+GPT_DIST_BATCH = int(GPT_DIST[GPT_DIST.index("--batch-size") + 1])
+
+# phase 16: the GPT trainer over torchrun ranks and the document flags.
+# (a) one NCCL rank of `pretrain_gpt` (torchrun, launched before phase 2,
+# its timed steps gated) on phase 15 (a)'s model, batch and corpus,
+# GPT_DP_STEPS steps, beside phase 15 (a); (b) DP_RANKS gloo ranks on the
+# card (NCCL takes one rank a device), GPT_DP_PARITY (fp32, 2 layers at
+# full width, S = 256, --micro-batch-size below the batch, the chunked
+# loss: the fp32 fused CE adds with atomics) plain and with the document
+# flags against one process (DP_LOSS_RTOL, DP_PARAM_RTOL, the ranks
+# bit-equal), then the flagged run cut by SIGTERM on rank 1 after step
+# GPT_DP_TERM_AFTER with --save and resumed, bit-equal to it left whole;
+# (c) the document flags (GPT_DOC_FLAGS; the corpus's EOD is CLIP's
+# <|endoftext|>) on pretrain_gpt_dist.sh's model at full width and depth,
+# GPT_DOC_BATCH in microbatches of GPT_DOC_MICRO, GPT_DOC_STEPS steps, the
+# unfused attention's ms a layer, and fp32 card against CPU. Scratch under
+# GPT_DP_DIR (phase 15's corpus too); within GPT_DP_LIMIT_S.
+CLIP_EOD = 49407
+GPT_DOC_FLAGS = ["--eod-token", str(CLIP_EOD), "--eod-mask-loss",
+                 "--reset-position-ids", "--reset-attention-mask"]
+GPT_DP_STEPS, GPT_DP_PARITY_STEPS, GPT_DP_TERM_AFTER = 3, 2, 1
+GPT_DP_PARITY = [a for a in GPT_TRAINER_PARITY if a != "--fused-ce"]
+for _flag, _value in (("--batch-size", "4"), ("--micro-batch-size", "2"),
+                      ("--train-steps", str(GPT_DP_PARITY_STEPS))):
+    GPT_DP_PARITY[GPT_DP_PARITY.index(_flag) + 1] = _value
+GPT_DOC_BATCH, GPT_DOC_MICRO, GPT_DOC_STEPS = 8, 8, 2
+# (c)'s fp32 card-against-CPU run: phase 15 (c)'s, with the flags, at a
+# batch of one row (the accumulation is (b)'s to check; the CPU's plain
+# fused CE over 50304 entries is most of the phase's host time)
+GPT_DOC_PARITY = GPT_DOC_FLAGS + ["--batch-size", "1", "--micro-batch-size",
+                                  "1"]
+# (c)'s fp32 card-against-CPU run with the flags: losses, grad norms and
+# gradients under phase 15 (c)'s bounds; its parameters after two Adam
+# steps within GPT_DOC_PARAM_RTOL of their norms, the CPU tests' bound on
+# Adam steps (tests/test_torch_gpt.py): an element whose gradient sits at
+# rounding level moves by up to lr either way, and the loss mask leaves
+# more of them in the zero-initialised biases (on an H100, 700 W: 1.01e-4
+# and 1.07e-4 of blocks.0.mlp.b1's norm, its gradients within 4.3e-6 of
+# theirs)
+GPT_DOC_PARAM_RTOL = 1e-3
+GPT_DP_DIR = REPO / "_smoke_gpt_dp"
+GPT_DP_LIMIT_S = 60.0
 
 
 _T0 = time.perf_counter()
@@ -4782,10 +4852,12 @@ class DataParallelLaunches:
     for `go`; (a) also for `gate` at its first step. `stop` ends any still
     running; it runs at exit too."""
 
+    root, worker_flag = DP_DIR, "--dp-worker"
+
     def __init__(self):
-        shutil.rmtree(DP_DIR, ignore_errors=True)
-        DP_DIR.mkdir(parents=True)
-        self.go, self.gate = DP_DIR / "go", DP_DIR / "gate"
+        shutil.rmtree(self.root, ignore_errors=True)
+        self.root.mkdir(parents=True)
+        self.go, self.gate = self.root / "go", self.root / "gate"
         at = TRAINER_SYNTHETIC.index("--train-num-samples")
         one_rank = TRAINER_SYNTHETIC[:at] + [
             "--train-num-samples", str(TRAIN_BATCH * (DP_WARMUP + DP_STEPS)),
@@ -4818,11 +4890,17 @@ class DataParallelLaunches:
             "argv": argv, "out": str(work), "launches": launches,
             "params": params, "go": str(self.go), "gate": gate and str(gate),
             "owner": os.getpid()}))
-        with open(work / "log.txt", "w") as log_file:
+        self.start(name, ranks, spec)
+
+    def start(self, name: str, ranks: int, spec: Path) -> None:
+        """torchrun of `ranks` workers (this script with `worker_flag`) on
+        `spec`, in a session of its own, its output in log.txt beside."""
+        with open(spec.parent / "log.txt", "w") as log_file:
             self.procs[name] = subprocess.Popen(
                 [sys.executable, "-m", "torch.distributed.run",
                  "--standalone", "--nproc-per-node", str(ranks),
-                 str(Path(__file__).resolve()), "--dp-worker", str(spec)],
+                 str(Path(__file__).resolve()), self.worker_flag,
+                 str(spec)],
                 cwd=REPO, stdout=log_file, stderr=subprocess.STDOUT,
                 start_new_session=True)
 
@@ -4846,6 +4924,8 @@ class DataParallelLaunches:
                                  f"{tail}")
         got = [json.loads((work / f"rank{r}.json").read_text())
                for r in range(ranks)]
+        if not got or "wall" not in got[0]:
+            return got
         w = got[0]["wall"]
         got[0]["wall_s"] = {
             "to_first_step": w["first_step"] - w["go"] - w["gate_wait"],
@@ -4860,7 +4940,7 @@ class DataParallelLaunches:
             if proc.poll() is None:
                 kill_tree(proc.pid)  # torchrun and its ranks
                 proc.wait()
-        shutil.rmtree(DP_DIR, ignore_errors=True)
+        shutil.rmtree(self.root, ignore_errors=True)
 
 
 def dp_one_rank(launches: DataParallelLaunches, phase12: dict) -> dict:
@@ -4977,7 +5057,8 @@ class WorkloadProbe:
     run lasts: each step's kernel launches (which must equal `per_step`),
     loss, grad norm, device ms (CUDA events around the runner's step), host
     clock at its start and end and peak memory (reset before the step);
-    each eval's launches (which must equal `per_eval`); each save's host
+    each eval's launches (which must equal `per_eval`; None: either is not
+    held); each save's host
     ms (the host copy alone, for a save in the background); the last
     runner, and with `keep_grads` each step's gradients on the host. The
     counters are zeroed on entry and read on exit into `launches`."""
@@ -5003,8 +5084,11 @@ class WorkloadProbe:
                 update = run.optimizer.update
 
                 def keep(state, g):
-                    probe.grads.append({n: t.detach().float().cpu()
-                                        for n, t in g.items()})
+                    # a copy: on the CPU `.cpu()` would keep the gradient
+                    # buckets' views, which the next step overwrites
+                    probe.grads.append({n: t.detach().to(
+                        "cpu", torch.float32, copy=True)
+                        for n, t in g.items()})
                     return update(state, g)
                 run.optimizer.update = run.optimizer._kept = keep
             before = read_counts(probe.mha, probe.ln)
@@ -5017,7 +5101,7 @@ class WorkloadProbe:
             t1 = time.perf_counter()
             got = {k: v - before[k]
                    for k, v in read_counts(probe.mha, probe.ln).items()}
-            if got != probe.per_step:
+            if probe.per_step is not None and got != probe.per_step:
                 raise AssertionError(f"GPT trainer step {i}: launches {got}, "
                                      f"expected {probe.per_step}")
             ev[1].synchronize()
@@ -5033,7 +5117,8 @@ class WorkloadProbe:
             v = evaluate(run, val_iter, iters)
             got = {k: v2 - before[k]
                    for k, v2 in read_counts(probe.mha, probe.ln).items()}
-            want = {k: n * iters for k, n in probe.per_eval.items()}
+            want = got if probe.per_eval is None else {
+                k: n * iters for k, n in probe.per_eval.items()}
             if got != want:
                 raise AssertionError(f"GPT trainer eval: launches {got}, "
                                      f"expected {want}")
@@ -5141,7 +5226,7 @@ def step_rates(steps: list, batch: int, seq: int, timed: list) -> dict:
 
 
 def gpt_trainer_dist(main, workload, mha, ln, work: Path,
-                     example_step_ms: float) -> dict:
+                     example_step_ms: float, corpus_dir: Path) -> dict:
     """(a): examples/pretrain_gpt_dist.sh on one card on the corpus:
     GPT_DIST_STEPS steps in microbatches of GPT_DIST_MICRO, a background
     save at GPT_DIST_SAVE_AT (the final save at the end), the eval; then
@@ -5154,7 +5239,7 @@ def gpt_trainer_dist(main, workload, mha, ln, work: Path,
     from megatron_clip_tpu_torch.checkpoints import io as ckpt_io
     from megatron_clip_tpu_torch.pretrain_gpt import (gpt_cfg_from_args,
                                                       parse_args)
-    corpus = gpt_corpus(work)
+    corpus = gpt_corpus(corpus_dir)
     root = str(work / "ckpt")
     argv = GPT_DIST + GPT_DIST_WARMUP + [
         "--micro-batch-size", str(GPT_DIST_MICRO), "--data-path",
@@ -5305,22 +5390,26 @@ def gpt_trainer_rung(main, workload, mha, ln) -> dict:
     return result
 
 
-def gpt_trainer_parity(main, workload, mha, ln, corpus: str) -> dict:
+def gpt_trainer_parity(main, workload, mha, ln, corpus: str,
+                       extra=(), param_rtol: float = DP_PARAM_RTOL) -> dict:
     """(c): GPT_TRAINER_PARITY on the corpus, on the card and on the CPU
     (the plain versions) from the same weights (`--seed`): each step's
     loss and grad norm within 1e-5 relative, each step's gradients within
     GRAD_REL_TOL of their norms, and every parameter after the steps within
-    DP_PARAM_RTOL (1e-4) of its norm."""
+    `param_rtol` (DP_PARAM_RTOL, 1e-4) of its norm. `extra`: flags added
+    to the run's (phase 16's document flags)."""
     from megatron_clip_tpu_torch.pretrain_gpt import (gpt_cfg_from_args,
                                                       parse_args)
-    argv = GPT_TRAINER_PARITY + ["--data-path", corpus]
-    cfg = gpt_cfg_from_args(parse_args(argv))
-    b = int(argv[argv.index("--batch-size") + 1])
-    micro = int(argv[argv.index("--micro-batch-size") + 1])
+    argv = GPT_TRAINER_PARITY + list(extra) + ["--data-path", corpus]
+    args = parse_args(argv)
+    cfg = gpt_cfg_from_args(args)
+    b, micro = args.batch_size, args.micro_batch_size
     runs = {}
     for device in ("cuda", "cpu"):
-        per_step = (gpt_trainer_per_step(cfg, cfg.seq_length, True, "none",
-                                         b // micro) if device == "cuda"
+        count = (doc_per_step if "--reset-attention-mask" in extra
+                 else functools.partial(gpt_trainer_per_step, seq=cfg.seq_length))
+        per_step = (count(cfg, fused_ce=True, remat="none",
+                          microbatches=b // micro) if device == "cuda"
                     else dict.fromkeys(KERNEL_META, 0))
         t0 = time.perf_counter()
         with WorkloadProbe(workload, mha, ln, per_step,
@@ -5349,17 +5438,19 @@ def gpt_trainer_parity(main, workload, mha, ln, corpus: str) -> dict:
            "param_worst": [worst_p, param_errs[worst_p]],
            "seconds_cuda": tc, "seconds_cpu": tp}
     log(f"  (c) fp32, 2 layers at full width, S={cfg.seq_length}, batch {b} "
-        f"in microbatches of {micro}, the corpus, card vs CPU: "
+        f"in microbatches of {micro}, the corpus{' '.join([''] + list(extra))}"
+        f", card vs CPU: "
         f"{json.dumps(res)}")
     if loss_err > 1e-5 or norm_err > 1e-5 or \
             grad_errs[worst_g] > GRAD_REL_TOL or \
-            param_errs[worst_p] > DP_PARAM_RTOL:
+            param_errs[worst_p] > param_rtol:
         raise AssertionError("(c): the GPT trainer on the card disagrees "
                              "with the CPU")
     return res
 
 
-def phase_gpt_trainer(mha, ln, card: str, example: dict) -> dict:
+def phase_gpt_trainer(mha, ln, card: str, example: dict,
+                      corpus_dir: Path) -> dict:
     log(f"[15] GPT trainer: pretrain_gpt.main on the card: (a) "
         f"examples/pretrain_gpt_dist.sh (24 x 1024, S=2048, batch 64 in "
         f"microbatches of {GPT_DIST_MICRO}) on an indexed corpus, "
@@ -5367,8 +5458,14 @@ def phase_gpt_trainer(mha, ln, card: str, example: dict) -> dict:
         f"1.3b rung, {GPT_RUNG_WARMUP} + {GPT_RUNG_STEPS} steps; (c) fp32 "
         f"card vs CPU")
     t0 = time.perf_counter()
+    import unicodedata
     from megatron_clip_tpu_torch.pretrain_gpt import main
+    from megatron_clip_tpu_torch.tokenizer import gpt2_classes
     from megatron_clip_tpu_torch.training import workload
+    # the GPT-2 pre-tokenizer's \\p{L} and \\p{N} come from the committed
+    # table, whatever Unicode this host's Python carries
+    log(f"  GPT-2 pre-tokenizer classes: the table of {gpt2_classes.SOURCE}; "
+        f"this host's unicodedata {unicodedata.unidata_version}")
     shutil.rmtree(GPT_SMOKE_DIR, ignore_errors=True)
     GPT_SMOKE_DIR.mkdir(parents=True)
     result = {"card": card}
@@ -5376,7 +5473,7 @@ def phase_gpt_trainer(mha, ln, card: str, example: dict) -> dict:
         parts = {
             "dist": lambda: gpt_trainer_dist(
                 main, workload, mha, ln, GPT_SMOKE_DIR,
-                example["run"]["step_ms_median"]),
+                example["run"]["step_ms_median"], corpus_dir),
             "rung": lambda: gpt_trainer_rung(main, workload, mha, ln),
             "parity": lambda: gpt_trainer_parity(
                 main, workload, mha, ln, result["dist"]["corpus"]["prefix"])}
@@ -5396,6 +5493,476 @@ def phase_gpt_trainer(mha, ln, card: str, example: dict) -> dict:
     return result
 
 
+def gpt_dp_worker(spec_path: str) -> int:
+    """One rank of a phase 16 launch (`chip_smoke.py --gpt-dp-worker SPEC`
+    under torchrun). It warms up on the CPU (`gpt_warm_up`) and waits for
+    spec["go"], then runs each job of
+    spec["jobs"] in turn, `pretrain_gpt.run` on the job's argv with a group
+    of its own (a `file://` store under OUT; the job's "backend", else nccl
+    on the card), its steps probed by
+    `WorkloadProbe` (exact launches where the job gives them); with
+    "time_reduce" each step's `GradBuckets.all_reduce_mean` in device ms
+    (CUDA events around it: the gradient all-reduce and its division by
+    W); with "gate_at" the job's step of that number first waits for spec["gate"],
+    and with "term_after" rank 1 sends itself SIGTERM after that step. It
+    writes each job's losses, grad norms, step device ms and host clocks,
+    peak memory, launches, the step it stopped at, its wall clock and,
+    with "digest", a digest of its final parameters to OUT/rank{r}.json,
+    and with "params" rank 0's parameters to OUT/{job}.pt."""
+    import hashlib
+    from megatron_clip_tpu_torch import pretrain_gpt
+    from megatron_clip_tpu_torch.ops.kernels import fused_mha as mha
+    from megatron_clip_tpu_torch.ops.kernels import layernorm as ln
+    from megatron_clip_tpu_torch.training import train_step, workload
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    spec = json.loads(Path(spec_path).read_text())
+    out, rank = Path(spec["out"]), int(os.environ.get("RANK", "0"))
+    gpt_warm_up()
+    wait_for(Path(spec["go"]), DP_GO_TIMEOUT_S, spec["owner"])
+    wall = time.time() - time.perf_counter()  # the host clock as wall time
+    went = time.perf_counter()
+    results = {}
+    for job in spec["jobs"]:
+        gated, started = {}, time.perf_counter()
+        args = pretrain_gpt.parse_args(job["argv"])
+        args.dist_url = "file://" + str(out / f"init-{job['name']}")
+        args.dist_backend = job.get("backend")  # else nccl on the card
+        with WorkloadProbe(workload, mha, ln, job.get("per_step"),
+                           job.get("per_eval")) as probe:
+            # around the probe's step, so that its clocks leave the gate
+            # out
+            probed = workload._Runner.step
+
+            def job_step(run, batch, i, job=job, gated=gated):
+                if i == job.get("gate_at"):
+                    gated["at"] = time.perf_counter()
+                    wait_for(Path(spec["gate"]), DP_GO_TIMEOUT_S,
+                             spec["owner"])
+                    gated["opened"] = time.perf_counter()
+                m = probed(run, batch, i)
+                if rank == 1 and i == job.get("term_after"):
+                    os.kill(os.getpid(), signal.SIGTERM)
+                return m
+            workload._Runner.step = job_step
+            reduce, reduce_ev = train_step.GradBuckets.all_reduce_mean, []
+
+            def timed_reduce(buckets, group, reduce=reduce, evs=reduce_ev):
+                ev = [torch.cuda.Event(enable_timing=True) for _ in range(2)]
+                ev[0].record()
+                reduce(buckets, group)
+                ev[1].record()
+                evs.append(ev)
+            if job.get("time_reduce"):
+                train_step.GradBuckets.all_reduce_mean = timed_reduce
+            try:
+                final = pretrain_gpt.run(args)
+            finally:
+                workload._Runner.step = probed
+                train_step.GradBuckets.all_reduce_mean = reduce
+        torch.cuda.synchronize()
+        reduce_ms = [a.elapsed_time(b) for a, b in reduce_ev]
+        digest = None
+        if job.get("digest"):
+            params = {n: p.detach().cpu() for n, p in
+                      probe.runner.model.named_parameters()}
+            digest = hashlib.sha256()
+            for n, p in params.items():
+                digest.update(n.encode())
+                digest.update(
+                    p.reshape(-1).view(torch.uint8).numpy().tobytes())
+            digest = digest.hexdigest()
+            if job.get("params") and rank == 0:
+                torch.save(params, out / f"{job['name']}.pt")
+        probe.runner = None
+        torch.cuda.empty_cache()
+        results[job["name"]] = {
+            "wall": {"go": wall + went, "started": wall + started,
+                     "first_step": wall + (probe.steps[0]["host"][0]
+                                           if probe.steps else started),
+                     "last_step_end": wall + (probe.steps[-1]["host"][1]
+                                              if probe.steps else started),
+                     "returned": wall + time.perf_counter()},
+            "losses": probe.losses(),
+            "grad_norms": [s["grad_norm"] for s in probe.steps],
+            "device_ms": [s["device_ms"] for s in probe.steps],
+            "host": [s["host"] for s in probe.steps],
+            "peak_gib": max([s["peak_gib"] for s in probe.steps] or [0.0]),
+            "launches": probe.launches, "last_step": final["last_step"],
+            "digest": digest, "reduce_ms": reduce_ms,
+            "gate_wait": gated.get("opened", 0.0) - gated.get("at", 0.0)}
+    tmp = out / f"rank{rank}.json.tmp"
+    tmp.write_text(json.dumps({
+        "rank": rank, "world": int(os.environ.get("WORLD_SIZE", "1")),
+        "jobs": results}))
+    os.replace(tmp, out / f"rank{rank}.json")  # whole, for `results`
+    return 0
+
+
+def gpt_warm_up() -> None:
+    """One step of a tiny GPT on the CPU with selective recompute and the
+    fused CE: the process's first selective-recompute backward spends
+    seconds of host time setting itself up (about 3 s on a CPU host),
+    which a rank then pays while it waits for `go`, not in its first
+    step on the card."""
+    from megatron_clip_tpu_torch.models.gpt import GPTCfg, GPTModel, gpt_loss
+    threads = torch.get_num_threads()
+    torch.set_num_threads(1)
+    try:
+        model = GPTModel(GPTCfg(num_layers=1, hidden_size=64, num_heads=4,
+                                vocab_size=128, seq_length=16,
+                                position_embedding="rope", swiglu=True,
+                                normalization="rmsnorm"))
+        gpt_loss(model, torch.zeros(1, 17, dtype=torch.long),
+                 remat="selective", fused_ce=True).backward()
+    finally:
+        torch.set_num_threads(threads)
+
+
+def doc_per_step(cfg, fused_ce: bool, remat: str, microbatches: int) -> dict:
+    """Kernel launches of a GPT trainer step with --reset-attention-mask:
+    a step's (`gpt_trainer_per_step`) without the flash kernels, as the
+    document mask sends every layer's attention to `sdpa_bshd` (plain
+    PyTorch, the JAX package's jnp)."""
+    one = gpt_trainer_per_step(cfg, cfg.seq_length, fused_ce, remat,
+                               microbatches)
+    return {k: 0 if k.startswith("flash_") else v for k, v in one.items()}
+
+
+class GptDataParallelLaunches(DataParallelLaunches):
+    """Phase 16's torchrun launches, made before phase 2 and waiting for
+    `go`: (a) one NCCL rank of `pretrain_gpt` on GPT_DIST with phase 15's
+    corpus (gated: its second step waits for `gate`); (b) DP_RANKS gloo
+    ranks on the one card running GPT_DP_PARITY_JOBS in turn (plain, the
+    document flags, the same cut by SIGTERM on rank 1 with --save, and
+    resumed)."""
+
+    root, worker_flag = GPT_DP_DIR, "--gpt-dp-worker"
+
+    def __init__(self):
+        shutil.rmtree(self.root, ignore_errors=True)
+        self.corpus_dir = self.root / "corpus"
+        self.corpus_dir.mkdir(parents=True)
+        self.go, self.gate = self.root / "go", self.root / "gate"
+        self.procs, self.dirs = {}, {"one rank": self.root / "a",
+                                     "parity": self.root / "b"}
+        from megatron_clip_tpu_torch.pretrain_gpt import (gpt_cfg_from_args,
+                                                          parse_args)
+        corpus = str(self.corpus_dir / "corpus")
+        one = GPT_DIST + GPT_DIST_WARMUP + [
+            "--micro-batch-size", str(GPT_DIST_MICRO), "--data-path", corpus,
+            "--train-steps", str(GPT_DP_STEPS), "--log-interval", "1"]
+        cfg = gpt_cfg_from_args(parse_args(one))
+        self.one_rank_per_step = gpt_trainer_per_step(
+            cfg, cfg.seq_length, True, "selective",
+            GPT_DIST_BATCH // GPT_DIST_MICRO)
+        # its first step (the process's cold one) runs beside (b); the
+        # timed steps wait for the gate
+        self.launch_jobs("one rank", 1, [{
+            "name": "a", "argv": one, "gate_at": 2, "time_reduce": True,
+            "per_step": self.one_rank_per_step}])
+        save = ["--save", str(self.root / "ckpt")]
+        self.parity = {
+            "plain": GPT_DP_PARITY + ["--data-path", corpus],
+            "doc": GPT_DP_PARITY + GPT_DOC_FLAGS + ["--data-path", corpus]}
+        # NCCL takes one rank a card: two ranks on the one card over gloo
+        on_card = ["--device", "cuda:0"]
+        self.launch_jobs("parity", DP_RANKS, [
+            {"name": "plain", "argv": self.parity["plain"] + on_card,
+             "params": True, "digest": True, "backend": "gloo"},
+            {"name": "doc", "argv": self.parity["doc"] + on_card,
+             "params": True, "digest": True, "backend": "gloo"},
+            {"name": "cut", "argv": self.parity["doc"] + on_card + save,
+             "term_after": GPT_DP_TERM_AFTER, "backend": "gloo"},
+            {"name": "resumed", "digest": True, "backend": "gloo",
+             "argv": self.parity["doc"] + on_card + save + ["--resume"]}])
+        atexit.register(self.stop)
+
+    def results(self, name: str, ranks: int, timeout: float) -> list:
+        """Each rank's JSON as soon as every rank has written it, without
+        waiting for torchrun to exit (`finish` checks that it exited 0);
+        a launch that ends first, or outlasts `timeout`, raises as `wait`
+        does."""
+        proc, work = self.procs[name], self.dirs[name]
+        paths = [work / f"rank{r}.json" for r in range(ranks)]
+        t0 = time.perf_counter()
+        while not all(p.exists() for p in paths):
+            if proc.poll() is not None or \
+                    time.perf_counter() - t0 > timeout:
+                return self.wait(name, ranks, timeout=1)
+            time.sleep(0.05)
+        return [json.loads(p.read_text()) for p in paths]
+
+    def finish(self, timeout: float) -> None:
+        """Every launch exited 0 (killed and raising past `timeout`)."""
+        for name, proc in self.procs.items():
+            self.wait(name, 0, timeout=timeout)
+
+    def launch_jobs(self, name: str, ranks: int, jobs: list) -> None:
+        work = self.dirs[name]
+        work.mkdir()
+        spec = work / "spec.json"
+        spec.write_text(json.dumps({
+            "jobs": jobs, "out": str(work), "go": str(self.go),
+            "gate": str(self.gate), "owner": os.getpid()}))
+        self.start(name, ranks, spec)
+
+
+def gpt_dp_one_rank(launches: GptDataParallelLaunches, dist: dict) -> dict:
+    """(a), its gate opened: one NCCL rank's tokens/s over steps 2 on (host
+    clock from the first timed step's start to the last's end) and its step
+    device ms, beside phase 15 (a)'s in this call, and the device ms of
+    the step's gradient all-reduce and division in the rank (what W = 1
+    adds to phase 15's step on the device, but a scalar all-reduce of the
+    loss); the step's launches exact (held in the rank)."""
+    launches.gate.touch()
+    opened = time.time()
+    got = launches.results("one rank", 1, timeout=120)[0]["jobs"]["a"]
+    w = got["wall"]
+    # from `go` to the first step (the model built, the data placed), the
+    # gate's wait (after the first step), from the gate to the last step's
+    # end, and the run after it (torchrun's exit is waited for at the
+    # phase's end)
+    wall_s = {"to_first_step": w["first_step"] - w["go"],
+              "gate_wait": got["gate_wait"],
+              "gate_to_last_step_end": w["last_step_end"] - opened,
+              "after_steps": w["returned"] - w["last_step_end"]}
+    losses = got["losses"]
+    if len(losses) != GPT_DP_STEPS or \
+            not all(math.isfinite(v) for v in losses):
+        raise AssertionError(f"GPT data parallel (a): losses {losses}")
+    timed = list(range(1, GPT_DP_STEPS))
+    span = got["host"][timed[-1]][1] - got["host"][timed[0]][0]
+    tokens = GPT_DIST_BATCH * 2048 * len(timed)
+    device = [got["device_ms"][i] for i in timed]
+    if len(got["reduce_ms"]) != GPT_DP_STEPS:
+        raise AssertionError("GPT data parallel (a): all-reduces timed "
+                             f"{got['reduce_ms']}, one a step expected")
+    reduce = [got["reduce_ms"][i] for i in timed]
+    res = {"tokens_per_s": tokens / span,
+           "phase15_tokens_per_s": dist["tokens_per_s"],
+           "step_device_ms": device,
+           "step_device_ms_median": float(np.median(device)),
+           "phase15_step_device_ms_median": dist["step_device_ms_median"],
+           "device_ms_ratio": float(np.median(device))
+           / dist["step_device_ms_median"],
+           "all_reduce_mean_ms": reduce,
+           "all_reduce_mean_ms_median": float(np.median(reduce)),
+           "losses": losses, "phase15_losses": dist["losses"],
+           "peak_memory_gib": got["peak_gib"], "wall_s": wall_s,
+           "per_step_launches": launches.one_rank_per_step,
+           "launches": got["launches"]}
+    log(f"  (a) one NCCL rank of pretrain_gpt_dist.sh's model, batch "
+        f"{GPT_DIST_BATCH} in microbatches of {GPT_DIST_MICRO}: "
+        f"{res['tokens_per_s']:.0f} tokens/s against phase 15's "
+        f"{dist['tokens_per_s']:.0f}; step device ms median "
+        f"{res['step_device_ms_median']:.1f} against "
+        f"{dist['step_device_ms_median']:.1f} (ratio "
+        f"{res['device_ms_ratio']:.4f}), of which the gradient "
+        f"all-reduce and division {res['all_reduce_mean_ms_median']:.3f} "
+        f"ms (CUDA events, steps 2 on: {reduce}); losses {losses} (phase 15: "
+        f"{dist['losses']}); wall s {json.dumps(wall_s)}")
+    return res
+
+
+def gpt_dp_references(launches: GptDataParallelLaunches, main, workload,
+                      mha, ln) -> dict:
+    """(b)'s one-process runs on the card while the ranks run: each
+    name's (parameters, losses) and seconds."""
+    one = {}
+    for name in ("plain", "doc"):
+        t0 = time.perf_counter()
+        with WorkloadProbe(workload, mha, ln, None) as probe:
+            main(launches.parity[name] + ["--device", "cuda"])
+        one[name] = ({n: p.detach().cpu() for n, p in
+                      probe.runner.model.named_parameters()}, probe.losses(),
+                     time.perf_counter() - t0)
+        probe.runner = None
+        torch.cuda.empty_cache()
+    return one
+
+
+def gpt_dp_parity(launches: GptDataParallelLaunches, one: dict) -> dict:
+    """(b): while the ranks run, this process takes the plain and the
+    document-flag runs in one process on the card: each step's loss
+    within DP_LOSS_RTOL relative, each parameter within DP_PARAM_RTOL of
+    its norm, the ranks' parameters bit-equal. Then the run cut by SIGTERM
+    on rank 1: both ranks stopped at GPT_DP_TERM_AFTER, and the resumed
+    run's losses and final parameters those of the run left whole, bit for
+    bit (the document mask's attention is plain PyTorch; RMSNorm's kernels
+    and the chunked loss add in a fixed order). `one`:
+    `gpt_dp_references`'."""
+    result = {f"{name}_one_process_s": s for name, (_, _, s) in one.items()}
+    ranks = launches.results("parity", DP_RANKS, timeout=120)
+    jobs = [r["jobs"] for r in ranks]
+    bad = []
+    for name in ("plain", "doc"):
+        params, want, _ = one[name]
+        got = torch.load(launches.dirs["parity"] / f"{name}.pt")
+        rel = {n: float((got[n] - p).norm() / p.norm().clamp_min(1e-30))
+               for n, p in params.items()}
+        worst = max(rel, key=rel.get)
+        loss_err = max(abs(g - w) / abs(w) for j in jobs
+                       for g, w in zip(j[name]["losses"], want))
+        res = {"losses_one_process": want,
+               "losses_ranks": [j[name]["losses"] for j in jobs],
+               "loss_max_rel_err": loss_err, "param_worst_leaf": worst,
+               "param_worst_rel_err": rel[worst],
+               "ranks_bit_equal": len({j[name]["digest"]
+                                       for j in jobs}) == 1}
+        result[name] = res
+        if any(len(j[name]["losses"]) != GPT_DP_PARITY_STEPS for j in jobs) \
+                or loss_err > DP_LOSS_RTOL or rel[worst] > DP_PARAM_RTOL \
+                or not res["ranks_bit_equal"]:
+            bad.append(name)
+    whole, cut, resumed = (jobs[0][k] for k in ("doc", "cut", "resumed"))
+    res = {"cut_last_steps": [j["cut"]["last_step"] for j in jobs],
+           "resumed_last_steps": [j["resumed"]["last_step"] for j in jobs],
+           "cut_losses": cut["losses"], "resumed_losses": resumed["losses"],
+           "whole_losses": whole["losses"],
+           "resumed_bit_equal": resumed["losses"]
+           == whole["losses"][GPT_DP_TERM_AFTER:] and all(
+               j["resumed"]["digest"] == j["doc"]["digest"] for j in jobs)}
+    result["sigterm_resume"] = res
+    if res["cut_last_steps"] != [GPT_DP_TERM_AFTER] * DP_RANKS or \
+            res["resumed_last_steps"] != [GPT_DP_PARITY_STEPS] * DP_RANKS \
+            or not res["resumed_bit_equal"]:
+        bad.append("sigterm_resume")
+    log(f"  (b) {DP_RANKS} ranks over gloo on the card against one process: "
+        f"{json.dumps(result)}")
+    if bad:
+        raise AssertionError(f"GPT data parallel (b): {bad} disagree")
+    return result
+
+
+def gpt_doc_attention_ms(qkv_shape, bias) -> dict:
+    """The unfused route's device ms a layer (forward and backward of
+    `attention_heads(route="sdpa")` with the document bias) beside the
+    flash route's at the same shape, bf16, CUDA events, the median of
+    three after one warm-up."""
+    from megatron_clip_tpu_torch.ops.attention import attention_heads
+    g = torch.Generator(device="cuda").manual_seed(0)
+    qkv = torch.randn(qkv_shape, generator=g, device="cuda",
+                      dtype=torch.bfloat16, requires_grad=True)
+    do = torch.randn(qkv_shape[:2] + (qkv_shape[2] // 3,), generator=g,
+                     device="cuda", dtype=torch.bfloat16)
+    out = {}
+    for route, b in (("sdpa", bias), ("flash", None)):
+        times = []
+        for _ in range(4):
+            ev = [torch.cuda.Event(enable_timing=True) for _ in range(2)]
+            ev[0].record()
+            y = attention_heads(qkv, 16, route, causal=True, bias=b)
+            torch.autograd.grad(y, qkv, do)
+            ev[1].record()
+            ev[1].synchronize()
+            times.append(ev[0].elapsed_time(ev[1]))
+        out[f"{route}_fwd_bwd_ms"] = float(np.median(times[1:]))
+    torch.cuda.empty_cache()
+    return out
+
+
+def gpt_doc_flags(main, workload, mha, ln, corpus: str) -> dict:
+    """(c): the document flags on pretrain_gpt_dist.sh's model at full
+    width and depth on one card, GPT_DOC_BATCH in microbatches of
+    GPT_DOC_MICRO, GPT_DOC_STEPS steps: exact launches (no flash kernel:
+    the document mask takes sdpa_bshd), the loss falling, the peak memory;
+    the unfused route's device ms a layer. (Its fp32 run card against CPU
+    runs while (b)'s ranks do, `phase_gpt_data_parallel`.)"""
+    from megatron_clip_tpu_torch.models.gpt import (
+        get_ltor_masks_and_position_ids)
+    from megatron_clip_tpu_torch.pretrain_gpt import (gpt_cfg_from_args,
+                                                      parse_args)
+    argv = GPT_DIST + GPT_DIST_WARMUP + GPT_DOC_FLAGS + [
+        "--batch-size", str(GPT_DOC_BATCH), "--micro-batch-size",
+        str(GPT_DOC_MICRO), "--data-path", corpus, "--train-steps",
+        str(GPT_DOC_STEPS), "--log-interval", "1"]
+    cfg = gpt_cfg_from_args(parse_args(argv))
+    per_step = doc_per_step(cfg, True, "selective",
+                            GPT_DOC_BATCH // GPT_DOC_MICRO)
+    with WorkloadProbe(workload, mha, ln, per_step) as probe:
+        main(argv)
+    probe.runner = None
+    torch.cuda.empty_cache()
+    losses = probe.losses()
+    if not all(math.isfinite(v) for v in losses) or \
+            not losses[-1] < losses[0]:
+        raise AssertionError(f"GPT document flags (c): losses {losses}")
+    from megatron_clip_tpu_torch.data.gpt_dataset import gpt_batch_iterator
+    tokens = torch.from_numpy(next(gpt_batch_iterator(
+        corpus, GPT_DOC_MICRO, cfg.seq_length, split="969,30,1"))[:, :-1])
+    bias, _, _ = get_ltor_masks_and_position_ids(
+        tokens.cuda().long(), CLIP_EOD, reset_attention_mask=True)
+    docs = float((tokens == CLIP_EOD).sum(1).float().mean())
+    attn_ms = gpt_doc_attention_ms(
+        (GPT_DOC_MICRO, cfg.seq_length, 3 * cfg.hidden_size), bias)
+    del bias
+    res = {"batch": GPT_DOC_BATCH, "micro": GPT_DOC_MICRO,
+           "losses": losses, "step_device_ms": [s["device_ms"]
+                                                for s in probe.steps],
+           "peak_memory_gib": max(s["peak_gib"] for s in probe.steps),
+           "eods_per_row": docs, **attn_ms,
+           "per_step_launches": per_step, "launches": probe.launches}
+    log(f"  (c) the document flags on pretrain_gpt_dist.sh's model, batch "
+        f"{GPT_DOC_BATCH} in microbatches of {GPT_DOC_MICRO}: losses "
+        f"{losses}, step device ms {res['step_device_ms']}, peak "
+        f"{res['peak_memory_gib']:.2f} GiB; a layer's attention forward and "
+        f"backward {attn_ms['sdpa_fwd_bwd_ms']:.2f} ms unfused with the "
+        f"document mask against {attn_ms['flash_fwd_bwd_ms']:.2f} ms flash "
+        f"({docs:.1f} EODs a row)")
+    return res
+
+
+def phase_gpt_data_parallel(launches: GptDataParallelLaunches, mha, ln,
+                            card: str, gpt_trainer: dict) -> dict:
+    log(f"[16] GPT trainer data parallel and document flags: (a) one NCCL "
+        f"rank of pretrain_gpt_dist.sh's model, {GPT_DP_STEPS} steps; (b) "
+        f"{DP_RANKS} ranks on the card over gloo, fp32, 2 layers at full "
+        f"width, plain and with the document flags, against one process, "
+        f"and a SIGTERM on rank 1 with a resume; (c) the document flags at "
+        f"full width, and fp32 card vs CPU")
+    t0 = time.perf_counter()
+    from megatron_clip_tpu_torch.pretrain_gpt import main
+    from megatron_clip_tpu_torch.training import workload
+    result = {"card": card}
+    corpus = str(launches.corpus_dir / "corpus")
+    launches.go.touch()
+
+    def timed(name: str, part):
+        t_part = time.perf_counter()
+        result[name] = part()
+        result[name]["seconds"] = time.perf_counter() - t_part
+        log(f"  {name}: {result[name]['seconds']:.1f} s")
+    try:
+        # (b)'s ranks start at `go`; this process takes (b)'s references
+        # and (c)'s card-against-CPU run while they step
+        one = gpt_dp_references(launches, main, workload, mha, ln)
+        # half the host's cores: the ranks beside it need the others
+        threads = torch.get_num_threads()
+        torch.set_num_threads(max(1, threads // 2))
+        try:
+            timed("doc_flags_card_vs_cpu", lambda: gpt_trainer_parity(
+                main, workload, mha, ln, corpus, extra=GPT_DOC_PARITY,
+                param_rtol=GPT_DOC_PARAM_RTOL))
+        finally:
+            torch.set_num_threads(threads)
+        timed("gloo_two_ranks", lambda: gpt_dp_parity(launches, one))
+        timed("nccl_one_rank", lambda: gpt_dp_one_rank(
+            launches, gpt_trainer["dist"]))
+        timed("doc_flags", lambda: gpt_doc_flags(main, workload, mha, ln,
+                                                 corpus))
+        launches.finish(timeout=60)
+    finally:
+        launches.stop()
+    result["seconds"] = time.perf_counter() - t0
+    log(f"  GPT data parallel ({card}): {json.dumps(result)}")
+    if result["seconds"] > GPT_DP_LIMIT_S:
+        raise AssertionError(
+            f"phase 16 took {result['seconds']:.1f} s, over "
+            f"{GPT_DP_LIMIT_S} s: " + phase_parts(result))
+    return result
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; this script runs only on the GPU",
@@ -5403,6 +5970,8 @@ def main() -> int:
         return 1
     if sys.argv[1:2] == ["--dp-worker"]:
         return dp_worker(sys.argv[2])
+    if sys.argv[1:2] == ["--gpt-dp-worker"]:
+        return gpt_dp_worker(sys.argv[2])
     import megatron_clip_tpu_torch as port
     from megatron_clip_tpu_torch.ops.kernels import _build
     from megatron_clip_tpu_torch.ops.kernels import fused_mha as mha
@@ -5420,6 +5989,7 @@ def main() -> int:
     log(f"[1] device: {torch.cuda.get_device_name(0)} | {card} | torch "
         f"{torch.__version__} CUDA {torch.version.cuda}")
     launches = DataParallelLaunches()
+    gpt_launches = GptDataParallelLaunches()
     phase_build(_build)
     errs = phase_kernels(mha, ln)
     phase_goldens(port)
@@ -5433,7 +6003,10 @@ def main() -> int:
     trainer = phase_trainer(mha, ln, card, train)
     recipes = phase_recipes(mha, ln, card)
     dp = phase_data_parallel(launches, mha, ln, card, trainer)
-    gpt_trainer = phase_gpt_trainer(mha, ln, card, example)
+    gpt_trainer = phase_gpt_trainer(mha, ln, card, example,
+                                    gpt_launches.corpus_dir)
+    gpt_dp = phase_gpt_data_parallel(gpt_launches, mha, ln, card,
+                                     gpt_trainer)
     paths = {"serving ViT-B-32": serving["launches"],
              "train ViT-B-32": train["launches"],
              **{f"train {name} recompute": run["launches"]
@@ -5458,7 +6031,11 @@ def main() -> int:
                  dp["nccl_one_rank"]["launches"],
              "GPT trainer pretrain_gpt_dist.sh 1 card":
                  gpt_trainer["dist"]["launches"],
-             "GPT trainer ladder 1.3b rung": gpt_trainer["rung"]["launches"]}
+             "GPT trainer ladder 1.3b rung": gpt_trainer["rung"]["launches"],
+             "GPT trainer torchrun 1 rank nccl":
+                 gpt_dp["nccl_one_rank"]["launches"],
+             "GPT trainer document flags 1 card":
+                 gpt_dp["doc_flags"]["launches"]}
     kernels = kernels_line(rows, paths, errs)
     idle = [k["name"] for k in kernels if k["launches"] == 0]
     if idle:

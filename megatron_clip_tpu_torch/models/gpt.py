@@ -22,14 +22,22 @@ eval. Activation recompute: `remat` (none, selective, mlp, full; megatron
 --recompute-granularity), which `make_gpt_train_step` takes, by default
 `GPTCfg.remat`, and passes to the loss.
 
+The document masks of megatron's --eod-mask-loss, --reset-position-ids
+and --reset-attention-mask: `get_ltor_masks_and_position_ids` gives the
+loss mask, the per-row positions and the additive attention mask of the
+input tokens, which `gpt_loss` takes with pre-shifted `targets`; the
+attention mask sends every layer's attention to `sdpa_bshd`, as in the JAX
+package. Over a data-parallel group (`gpt_loss(group=...)`) the masked
+mean's denominator is the whole batch's count.
+
 Not ported yet, refused with NotImplementedError (ROADMAP Queue A item 4):
-squared_relu MLPs, `kv_channels`, MoE, per-row `position_ids`, `attn_bias`
-document masks and pre-shifted `targets`.
+squared_relu MLPs, `kv_channels` and MoE.
 """
 from dataclasses import dataclass
 from typing import Optional, Union
 
 import torch
+import torch.distributed as dist
 import torch.nn.functional as F
 from torch import nn
 from torch.utils.checkpoint import checkpoint
@@ -125,17 +133,24 @@ class GPTModel(nn.Module):
             self.lm_head = normal_param((w, cfg.vocab_size), std, generator)
 
     def hidden(self, tokens: torch.Tensor, seed: Optional[int] = None,
-               remat: str = "none") -> torch.Tensor:
+               remat: str = "none",
+               position_ids: Optional[torch.Tensor] = None,
+               attn_bias: Optional[torch.Tensor] = None) -> torch.Tensor:
         """tokens [B, S] -> the final norm's output [B, S, W] in the compute
         dtype (`apply_gpt(..., return_hidden=True)`). `seed`: the step's
-        dropout seed (None: no dropout); `remat`: the blocks' recompute."""
+        dropout seed (None: no dropout); `remat`: the blocks' recompute;
+        `position_ids` ([S] or per-row [B, S]): the positions the learned
+        table or the rotary tables are read at; `attn_bias` [B, 1, S, S]:
+        an additive attention mask composed with the causal one."""
         dt = self.precision.compute_torch
         s = tokens.shape[1]
         x = F.embedding(tokens, self.tok_embed).to(dt)
         if hasattr(self, "pos_embed"):
-            x = x + self.pos_embed[:s].to(dt)
+            x = x + (self.pos_embed[:s] if position_ids is None
+                     else self.pos_embed[position_ids]).to(dt)
         x = dropout(x, self.cfg.hidden_dropout, seed, EMBED_OFFSET)
-        x = self.blocks(x, causal=True, seed=seed, remat=remat)
+        x = self.blocks(x, causal=True, seed=seed, remat=remat,
+                        position_ids=position_ids, bias=attn_bias)
         return apply_norm(self.ln_f, x, self.cfg.normalization)
 
     def head(self, dtype: torch.dtype) -> torch.Tensor:
@@ -176,17 +191,68 @@ def create_gpt(cfg: GPTCfg, precision: Union[str, Precision] = "bf16",
     return model.to(device=device, dtype=prec.param_torch)
 
 
+def get_ltor_masks_and_position_ids(tokens: torch.Tensor, eod_token: int, *,
+                                    reset_position_ids: bool = False,
+                                    reset_attention_mask: bool = False,
+                                    eod_mask_loss: bool = False):
+    """megatron's get_ltor_masks_and_position_ids (utils.py) over packed
+    token streams, as the JAX package vectorises it. tokens: [B, S], the
+    model's INPUTS. Returns (attn_bias, loss_mask, position_ids), each None
+    when its flag is off:
+      - attn_bias [B, 1, S, S] fp32: 0 where query and key fall in the same
+        document, -1e30 across (composed with the causal mask):
+        --reset-attention-mask. The token after an EOD starts a document;
+        the EOD closes its own.
+      - loss_mask [B, S] fp32 over the input positions: 0 where the input
+        is EOD: --eod-mask-loss.
+      - position_ids [B, S] int64, restarting at 0 after each EOD:
+        --reset-position-ids."""
+    b, s = tokens.shape
+    e = tokens == eod_token
+    loss_mask = (torch.where(e, 0.0, 1.0).to(torch.float32)
+                 if eod_mask_loss else None)
+    attn_bias = None
+    if reset_attention_mask:
+        ei = e.to(torch.int64)
+        doc = torch.cumsum(ei, dim=1) - ei
+        same = doc[:, :, None] == doc[:, None, :]
+        attn_bias = torch.where(same, 0.0, -1e30).to(torch.float32)[:, None]
+    position_ids = None
+    if reset_position_ids:
+        idx = torch.arange(s, device=tokens.device)
+        boundary = torch.where(e, idx[None] + 1, 0)
+        last = torch.cummax(boundary, dim=1).values
+        last = F.pad(last[:, :-1], (1, 0))          # exclusive
+        position_ids = idx[None] - last
+    return attn_bias, loss_mask, position_ids
+
+
 def _chunk_loss(model: GPTModel, h, targets, mask):
     per = cross_entropy(model.logits(h), targets)
     return (per * mask).sum(), mask.sum()
+
+
+def _masked_mean(total: torch.Tensor, count: torch.Tensor, group
+                 ) -> torch.Tensor:
+    """total / max(count, 1), or over a group of W ranks W total /
+    max(count summed over the ranks, 1): W times this rank's share of the
+    whole batch's masked mean, so that the mean over the ranks (the
+    gradient all-reduce's) is that mean."""
+    if group is None:
+        return total / torch.clamp(count, min=1.0)
+    count = count.detach().clone()
+    dist.all_reduce(count, group=group)
+    return total * dist.get_world_size(group) / torch.clamp(count, min=1.0)
 
 
 def gpt_loss(model: GPTModel, tokens: torch.Tensor, *,
              loss_mask: Optional[torch.Tensor] = None,
              loss_seq_chunk: int = 0, fused_ce: bool = False,
              seed: Optional[int] = None, remat: str = "none",
-             position_ids=None, attn_bias=None,
-             targets=None) -> torch.Tensor:
+             position_ids: Optional[torch.Tensor] = None,
+             attn_bias: Optional[torch.Tensor] = None,
+             targets: Optional[torch.Tensor] = None,
+             group=None) -> torch.Tensor:
     """Next-token LM loss: predict tokens[:, 1:] from tokens[:, :-1], with
     loss-mask averaging (`loss_mask` [B, S+1] aligned to the inputs, 0
     where the input token is EOD). A 0-d fp32 tensor. `seed` turns on
@@ -194,6 +260,18 @@ def gpt_loss(model: GPTModel, tokens: torch.Tensor, *,
     the activation recompute, none, selective, mlp or full
     (`make_gpt_train_step` resolves it from its argument or
     `GPTCfg.remat`).
+
+    `targets` [B, S]: pre-shifted targets; `tokens` are then the inputs
+    [B, S] and `loss_mask` [B, S] is aligned to them (the JAX entry's
+    document-flag path). `position_ids` ([S] or [B, S]) and `attn_bias`
+    ([B, 1, S, S]) reach the model (`GPTModel.hidden`).
+
+    `group`: the data-parallel group whose ranks hold the batch's other
+    rows. With a loss mask, the denominator of the masked mean is then
+    the count over every rank, as the JAX loss over the sharded batch
+    counts it, and the loss is W times this rank's share (`_masked_mean`),
+    whose mean over the ranks is the whole batch's loss. Without a mask
+    every rank counts the same tokens and the loss is the rank's mean.
 
     `fused_ce` runs the lm head and cross entropy as one fused kernel on
     the hidden states [B*S, W] and the head cast to their dtype (bf16 under
@@ -207,22 +285,29 @@ def gpt_loss(model: GPTModel, tokens: torch.Tensor, *,
     the JAX package's `jax.checkpoint` scan. The chunk sums add in order, in
     fp32; a short last chunk stands for the JAX package's zero padding,
     whose terms are 0."""
-    if position_ids is not None or attn_bias is not None \
-            or targets is not None:
-        _refuse("position_ids, attn_bias and pre-shifted targets")
-    inputs, targets = tokens[:, :-1], tokens[:, 1:]
-    mask = None if loss_mask is None else loss_mask[:, :-1].float()
+    if targets is None:
+        inputs, targets = tokens[:, :-1], tokens[:, 1:]
+        mask = None if loss_mask is None else loss_mask[:, :-1].float()
+    else:
+        inputs = tokens
+        mask = None if loss_mask is None else loss_mask.float()
+    if mask is None:
+        group = None  # every rank counts the same tokens
+
+    def hidden():
+        return model.hidden(inputs, seed, remat, position_ids=position_ids,
+                            attn_bias=attn_bias)
     if fused_ce:
-        h = model.hidden(inputs, seed, remat)
+        h = hidden()
         b, s, w = h.shape
         per = fused_linear_cross_entropy(h.reshape(b * s, w),
                                          model.head(h.dtype),
                                          targets.reshape(-1))
         m = (torch.ones(b * s, device=h.device) if mask is None
              else mask.reshape(-1))
-        return (per * m).sum() / torch.clamp(m.sum(), min=1.0)
+        return _masked_mean((per * m).sum(), m.sum(), group)
     if loss_seq_chunk:
-        h = model.hidden(inputs, seed, remat)
+        h = hidden()
         b, s, _ = h.shape
         c = min(loss_seq_chunk, s)
         m = torch.ones(b, s, device=h.device) if mask is None else mask
@@ -232,9 +317,8 @@ def gpt_loss(model: GPTModel, tokens: torch.Tensor, *,
                               targets[:, i:i + c], m[:, i:i + c],
                               use_reentrant=False)
             tot, cnt = tot + t, cnt + n
-        return tot / torch.clamp(cnt, min=1.0)
-    per = cross_entropy(model.logits(model.hidden(inputs, seed, remat)),
-                        targets)
+        return _masked_mean(tot, cnt, group)
+    per = cross_entropy(model.logits(hidden()), targets)
     if mask is None:
         return per.mean()
-    return (per * mask).sum() / torch.clamp(mask.sum(), min=1.0)
+    return _masked_mean((per * mask).sum(), mask.sum(), group)

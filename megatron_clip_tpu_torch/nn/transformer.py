@@ -11,7 +11,8 @@ Options of megatron's GPT (`cfg.norm`, `cfg.act`, `cfg.rope`,
 `cfg.kv_heads`): RMSNorm blocks carry `scale` only; the swiglu `w1` is
 [W, 2 * mlp_hidden] (value, then gate) and `b1` [2 * mlp_hidden]; the
 packed `wqkv` is [W, (heads + 2 kv_heads) D]; the rotary tables are built
-once per forward of the stack and passed to every block.
+once per forward of the stack (at per-row positions when `position_ids`
+are given) and passed to every block, as is an additive attention `bias`.
 
 Initialisation follows open_CLIP's scheme: attn_std = width**-0.5,
 proj_std = width**-0.5 * (2*layers)**-0.5, fc_std = (2*width)**-0.5, zero
@@ -153,18 +154,20 @@ class ResidualBlock(nn.Module):
     def forward(self, x: torch.Tensor, causal: bool = False,
                 save_probs: bool = True, rope=None,
                 seed: Optional[int] = None, layer: int = 0,
-                remat: str = "none") -> torch.Tensor:
+                remat: str = "none",
+                bias: Optional[torch.Tensor] = None) -> torch.Tensor:
         """x: [B, S, W] in the compute dtype. `save_probs`: the attention's
         backward mode (see `ops.attention.multi_head_attention`); `rope`:
         the (cos, sin) tables when `cfg.rope`; `seed`: the step's dropout
         seed (None: no dropout) and `layer` this block's index, which picks
         its sites' offsets; `remat`: none, selective, mlp or full (see
-        the module's note)."""
+        the module's note); `bias`: an additive attention mask (the
+        attention then runs `sdpa_bshd`)."""
         cfg = self.cfg
 
-        def block(x, segment=None):
+        def block(x, bias, segment=None):
             return multi_head_attention(
-                x, self.attn, cfg.heads, causal=causal, rope=rope,
+                x, self.attn, cfg.heads, causal=causal, rope=rope, bias=bias,
                 kv_heads=cfg.kv_heads, dropout_rate=cfg.attention_dropout,
                 seed=seed, offset=site_offset(layer, 0),
                 save_probs=save_probs,
@@ -172,12 +175,12 @@ class ResidualBlock(nn.Module):
                 after=lambda h: self._rest(x, h, seed, layer),
                 segment=segment)
         if remat == "full":
-            return checkpoint(block, x, use_reentrant=False)
+            return checkpoint(block, x, bias, use_reentrant=False)
         if remat == "selective":
-            return block(x, _selective)
+            return block(x, bias, _selective)
         if remat == "mlp":
-            return block(x, _mlp_segment(tuple(self.mlp["w1"].shape)))
-        return block(x)
+            return block(x, bias, _mlp_segment(tuple(self.mlp["w1"].shape)))
+        return block(x, bias)
 
     def _rest(self, x: torch.Tensor, h: torch.Tensor, seed: Optional[int],
               layer: int) -> torch.Tensor:
@@ -203,9 +206,15 @@ class Transformer(nn.ModuleList):
 
     def forward(self, x: torch.Tensor, causal: bool = False,
                 save_probs: bool = True, seed: Optional[int] = None,
-                remat: str = "none") -> torch.Tensor:
+                remat: str = "none",
+                position_ids: Optional[torch.Tensor] = None,
+                bias: Optional[torch.Tensor] = None) -> torch.Tensor:
         """`seed`: the step's dropout seed (None: no dropout); `remat`: none,
-        selective, mlp or full (see the module's note)."""
+        selective, mlp or full (see the module's note); `position_ids`
+        ([S] or per-row [B, S]): the positions the rotary tables are read
+        at (megatron --reset-position-ids), else 0..S-1; `bias`: an
+        additive attention mask for every block (megatron
+        --reset-attention-mask)."""
         cfg = self[0].cfg
         rope = None
         if cfg.rope:
@@ -214,7 +223,9 @@ class Transformer(nn.ModuleList):
                                 seq_len_interpolation_factor=(
                                     cfg.rope_interpolation),
                                 device=x.device)
+            if position_ids is not None:
+                rope = tuple(t[position_ids] for t in rope)
         for i, block in enumerate(self):
             x = block(x, causal=causal, save_probs=save_probs, rope=rope,
-                      seed=seed, layer=i, remat=remat)
+                      seed=seed, layer=i, remat=remat, bias=bias)
         return x

@@ -7,7 +7,9 @@ PyTorch as they are jnp there. The tables are built in fp32 and cast to the
 activations' dtype before the products, as `apply_rope` casts them.
 
 `apply_rope_qkv` is what the attention calls: it rotates the q and k heads
-of a packed [B, S, (H + 2 Hkv) D] projection and passes v through.
+of a packed [B, S, (H + 2 Hkv) D] projection and passes v through. The
+tables are [S, R], shared by the rows, or [B, S, R], gathered at per-row
+positions (`rope_cos_sin(...)[0][position_ids]`).
 """
 from typing import Optional, Tuple
 
@@ -53,15 +55,21 @@ def _rotate(x: torch.Tensor, cos: torch.Tensor, sin: torch.Tensor):
 
 def apply_rope(x: torch.Tensor, cos: torch.Tensor,
                sin: torch.Tensor) -> torch.Tensor:
-    """x [B, H, S, D]; cos/sin [S, R], R <= D (channels R: untouched)."""
-    return _rotate(x, cos.to(x.dtype)[None, None], sin.to(x.dtype)[None, None])
+    """x [B, H, S, D]; cos/sin [S, R] shared or [B, S, R] per row, R <= D
+    (channels R: untouched)."""
+    if cos.dim() == 2:
+        cos, sin = cos[None], sin[None]
+    return _rotate(x, cos.to(x.dtype)[:, None], sin.to(x.dtype)[:, None])
 
 
 def apply_rope_bshd(x: torch.Tensor, cos: torch.Tensor,
                     sin: torch.Tensor) -> torch.Tensor:
-    """x [B, S, H, D]; cos/sin [S, R], R <= D."""
-    return _rotate(x, cos.to(x.dtype)[None, :, None],
-                   sin.to(x.dtype)[None, :, None])
+    """x [B, S, H, D]; cos/sin [S, R] shared or [B, S, R] per row
+    (megatron --reset-position-ids' restarts), R <= D."""
+    if cos.dim() == 2:
+        cos, sin = cos[None], sin[None]
+    return _rotate(x, cos.to(x.dtype)[:, :, None],
+                   sin.to(x.dtype)[:, :, None])
 
 
 def apply_rope_qkv(qkv: torch.Tensor, cos: torch.Tensor, sin: torch.Tensor,

@@ -24,6 +24,7 @@ the loop's host decisions (`agree`: the SIGTERM latch, the wall-clock
 budget, the end of a rank's data) and its barriers, so that they never wait
 for the card; over a gloo default group it is that group.
 """
+import datetime
 import os
 from typing import Optional, Sequence
 
@@ -64,15 +65,21 @@ def data_parallel_size(args, world: int) -> int:
     return max(1, world // other)
 
 
-def init_distributed(args, device: torch.device) -> torch.device:
+def init_distributed(args, device: torch.device,
+                     timeout: Optional[datetime.timedelta] = None
+                     ) -> torch.device:
     """Join torchrun's group when its environment (RANK and WORLD_SIZE)
     is set; returns the device of this rank.
 
     Rank r runs on `device`: a CUDA device with an index stays as given
     (two ranks on one card, over gloo), plain "cuda" becomes
     cuda:LOCAL_RANK; the CPU stays the CPU. The backend is `--dist-backend`
-    (open_CLIP's flag), else nccl on the card and gloo on the CPU; the
-    init method is `--dist-url`, else `env://` (MASTER_ADDR, MASTER_PORT)."""
+    (open_CLIP's flag; `args.dist_backend` set by a caller on the GPT
+    entry), else nccl on the card and gloo on the CPU; the init method is
+    `--dist-url`, else `env://` (MASTER_ADDR, MASTER_PORT).
+    `timeout`: how long a collective of either group waits for a missing
+    rank before it fails (default torch's, 30 minutes on gloo); tests pass
+    one well under their own deadline."""
     if "RANK" not in os.environ or "WORLD_SIZE" not in os.environ:
         return device
     rank_, world = int(os.environ["RANK"]), int(os.environ["WORLD_SIZE"])
@@ -83,12 +90,18 @@ def init_distributed(args, device: torch.device) -> torch.device:
         torch.cuda.set_device(device)
     backend = getattr(args, "dist_backend", None) or (
         "nccl" if device.type == "cuda" else "gloo")
+    wait = {} if timeout is None else {"timeout": timeout}
     dist.init_process_group(
         backend, init_method=getattr(args, "dist_url", None) or "env://",
-        rank=rank_, world_size=world)
+        rank=rank_, world_size=world, **wait)
     _state["group"] = dist.group.WORLD
     _state["control"] = (dist.group.WORLD if backend == "gloo"
-                         else dist.new_group(backend="gloo"))
+                         else dist.new_group(backend="gloo", **wait))
+    # every rank has finished connecting before any may leave: a rank that
+    # refuses its flags at once and closes its sockets would otherwise cut
+    # a peer's connection mid-handshake, which then fails with gloo's error
+    # in place of the refusal
+    dist.barrier(group=_state["control"])
     return device
 
 

@@ -1,7 +1,8 @@
 """GPT pretraining entry point of the port.
 
 The counterpart of the root `pretrain_gpt.py` (megatron's pretrain_gpt.py
-through megatron/training.py:60 pretrain()) on one device, through
+through megatron/training.py:60 pretrain()) on one device, or
+data-parallel over the ranks of a torchrun launch, through
 `training/workload.py::run_workload`:
 
   # an indexed corpus, written from a jsonl by tools/preprocess_data.py
@@ -27,9 +28,25 @@ through megatron/training.py:60 pretrain()) on one device, through
   python -m megatron_clip_tpu_torch.pretrain_gpt --device cpu \\
       --num-layers 2 --hidden-size 64 --num-heads 4 --seq-length 64 \\
       --vocab-size 512 --batch-size 8 --precision fp32 --train-steps 4
+  # the same over two gloo ranks on the CPU, with the document flags
+  python -m torch.distributed.run --nproc-per-node 2 \\
+      -m megatron_clip_tpu_torch.pretrain_gpt --device cpu \\
+      --num-layers 2 --hidden-size 64 --num-heads 4 --seq-length 64 \\
+      --vocab-size 512 --batch-size 8 --micro-batch-size 4 \\
+      --precision fp32 --train-steps 4 --data-path corpus \\
+      --eod-token 0 --eod-mask-loss --reset-position-ids \\
+      --reset-attention-mask
 
 Its flags are the JAX parser's, plus `--device` (cuda, the default, or
-cpu: without a CUDA device and without `--device cpu` it raises). Data:
+cpu: without a CUDA device and without `--device cpu` it raises); as in
+the JAX entry, megatron's `--distributed-backend` is a no-op. Under
+torchrun the data-parallel group's backend is nccl on the card and gloo on
+the CPU (a caller may set `args.dist_backend`, e.g. gloo for two ranks on
+one card), its init method env:// (or an `args.dist_url` set by a caller).
+Under torchrun every rank trains its rows
+of the global batch (`--batch-size` and `--micro-batch-size` count global
+rows, as the JAX runtime counts them; see `training/workload.py`), on
+cuda:LOCAL_RANK. Data:
 `--data-path` (an indexed corpus prefix; `--split`'s train range, its
 valid range for `--eval-interval`; `--dataloader-type`, `--data-cache-path`)
 or, without it, the JAX entry's synthetic stream (per-step seeded
@@ -41,11 +58,19 @@ flags' rates. `--precision` bf16 (or amp_bf16) computes in bf16, anything
 else in fp32 (as the JAX entry decides; --bf16 / --fp16 map to bf16);
 `--params-dtype bf16` stores the weights in bf16.
 
+The document-boundary flags (--eod-mask-loss, --reset-position-ids,
+--reset-attention-mask, which need --eod-token) run megatron's
+get_ltor_masks_and_position_ids on each batch's inputs
+(`models/gpt.py`) and the loss on pre-shifted targets, as the JAX entry
+does: the loss mask's mean counts the whole global batch's tokens, per-row
+positions index the learned or rotary tables, and the document mask sends
+every layer's attention to the unfused `sdpa_bshd` ([B, H, S, S] fp32
+logits a layer, as in the JAX package).
+
 Options not taken raise NotImplementedError naming their ROADMAP Queue A
-item: the document-boundary flags (--eod-mask-loss, --reset-position-ids,
---reset-attention-mask), --quantize-matmuls int8, --kv-channels,
---squared-relu and --num-experts (item 4); --context-parallel-size and the
-other parallel sizes above 1 (item 5). --sequence-parallel at
+item: --quantize-matmuls int8, --kv-channels, --squared-relu and
+--num-experts (item 4); --context-parallel-size and the parallel sizes
+above 1 but data parallelism's (item 5). --sequence-parallel at
 --tensor-model-parallel-size 1 changes nothing, as in the JAX package
 (its sequence sharding is over the tensor axis, of size 1).
 """
@@ -55,7 +80,9 @@ import numpy as np
 import torch
 
 from megatron_clip_tpu_torch.config import Precision
-from megatron_clip_tpu_torch.models.gpt import GPTCfg, create_gpt, gpt_loss
+from megatron_clip_tpu_torch.models.gpt import (
+    GPTCfg, create_gpt, get_ltor_masks_and_position_ids, gpt_loss)
+from megatron_clip_tpu_torch.parallel import mesh
 from megatron_clip_tpu_torch.training.workload import (
     add_runtime_args, build_workload_mesh, maybe_apply_checkpoint_args,
     run_workload,
@@ -202,22 +229,28 @@ def gpt_cfg_from_args(args) -> GPTCfg:
 
 # (Queue A item, flag, whether args ask for it): the GPT entry's own
 _REFUSED = (
-    (4, "--eod-mask-loss", lambda a: a.eod_mask_loss),
-    (4, "--reset-position-ids", lambda a: a.reset_position_ids),
-    (4, "--reset-attention-mask", lambda a: a.reset_attention_mask),
     (4, "--quantize-matmuls int8", lambda a: a.quantize_matmuls != "none"),
     (5, "--context-parallel-size > 1", lambda a: a.context_parallel_size > 1),
 )
 
 
+def doc_flags(args) -> bool:
+    return bool(args.eod_mask_loss or args.reset_position_ids
+                or args.reset_attention_mask)
+
+
 def check_supported(args) -> None:
     """Raise NotImplementedError for the first flag of the GPT entry the port
     does not carry yet, naming its ROADMAP Queue A item (the runtime's own
-    are `training/workload.py::_REFUSED`; the model's, `GPTCfg`'s)."""
+    are `training/workload.py::_REFUSED`; the model's, `GPTCfg`'s). The
+    document flags without --eod-token exit, as in the JAX entry."""
     for item, flag, asked in _REFUSED:
         if asked(args):
             raise NotImplementedError(f"{flag} is not ported yet (ROADMAP "
                                       f"Queue A item {item})")
+    if doc_flags(args) and args.eod_token is None:
+        raise SystemExit("--eod-mask-loss/--reset-position-ids/"
+                         "--reset-attention-mask need --eod-token")
 
 
 def precision_from_args(args) -> Precision:
@@ -229,28 +262,42 @@ def precision_from_args(args) -> Precision:
     return Precision(param_dtype=param, compute_dtype=compute)
 
 
-def run(args, device=None) -> dict:
+def run(args, device=None, timeout=None) -> dict:
     """Train as `args` say, on `device` (default `args.device`, else the
     card); returns {"loss", "history", "last_step", "val_history",
-    "val_loss"} (val_loss: the last eval's, or --skip-train's)."""
+    "val_loss"} (val_loss: the last eval's, or --skip-train's), the global
+    batch's on every rank. Under torchrun the process joins its ranks'
+    group first (`build_workload_mesh`; `timeout`, a timedelta, bounds its
+    collectives) and leaves it on every way out."""
     args = maybe_apply_checkpoint_args(args)
     check_supported(args)
     rc = runtime_cfg_from_args(args, "gpt")  # --bf16/--fp16 remapped here
-    build_workload_mesh(rc)  # the runtime's refusals
     device = torch.device(device or args.device or "cuda")
     if device.type == "cuda" and not torch.cuda.is_available():
         raise RuntimeError("pretrain_gpt: no CUDA device is available; pass "
                            "--device cpu to train on the CPU")
     cfg = gpt_cfg_from_args(args)
     cfg.transformer()  # the model's refusals, before anything is built
+    device = build_workload_mesh(rc, device, args, timeout)
+    try:
+        return _run(args, rc, cfg, device)
+    finally:
+        mesh.destroy()
+
+
+def _run(args, rc, cfg: GPTCfg, device: torch.device) -> dict:
     if args.adam_beta2 is None:
         rc.beta2 = 0.95  # the megatron GPT recipe default
     rc.tokens_per_sample = args.seq_length
     model = create_gpt(cfg, precision=precision_from_args(args),
                        device=device, seed=args.seed).train()
+    mesh.broadcast_module(model)  # every rank starts from rank 0's weights
     n = sum(p.numel() for p in model.parameters())
-    print(f"GPT {n/1e6:.1f}M params, seq {cfg.seq_length}", flush=True)
+    if mesh.is_main():
+        print(f"GPT {n/1e6:.1f}M params, seq {cfg.seq_length}, "
+              f"dp={mesh.world_size()}", flush=True)
     use_dropout = args.attention_dropout > 0 or args.hidden_dropout > 0
+    group = mesh.group()
 
     def batches(start_step=0):
         if args.data_path:
@@ -297,18 +344,29 @@ def run(args, device=None) -> dict:
                                   ).astype(np.int32)
         return synth()
 
-    def loss_fn(model, tokens, seed):
-        return gpt_loss(model, tokens.long(), fused_ce=args.fused_ce,
-                        loss_seq_chunk=args.loss_seq_chunk, seed=seed,
-                        remat=model.cfg.remat)
-
-    def eval_loss_fn(model, tokens):
-        return gpt_loss(model, tokens.long(), fused_ce=args.fused_ce,
-                        loss_seq_chunk=args.loss_seq_chunk)
+    def loss_fn(model, tokens, seed, remat=None):
+        tokens = tokens.long()
+        remat = model.cfg.remat if remat is None else remat
+        kw = dict(fused_ce=args.fused_ce, loss_seq_chunk=args.loss_seq_chunk,
+                  seed=seed, remat=remat, group=group)
+        if not doc_flags(args):
+            return gpt_loss(model, tokens, **kw)
+        # megatron get_ltor_masks_and_position_ids over the INPUT tokens:
+        # the loss mask, the positions and the attention follow the
+        # documents of the packed stream
+        inputs, targets = tokens[:, :-1], tokens[:, 1:]
+        bias, mask, pos = get_ltor_masks_and_position_ids(
+            inputs, args.eod_token,
+            reset_position_ids=args.reset_position_ids,
+            reset_attention_mask=args.reset_attention_mask,
+            eod_mask_loss=args.eod_mask_loss)
+        return gpt_loss(model, inputs, targets=targets, loss_mask=mask,
+                        attn_bias=bias, position_ids=pos, **kw)
 
     out = run_workload(model, loss_fn, batches, rc, use_rng=use_dropout,
                        val_iter_factory=val_batches,
-                       eval_loss_fn=eval_loss_fn, args_ns=args)
+                       eval_loss_fn=lambda m, b: loss_fn(m, b, None, "none"),
+                       args_ns=args)
     return {k: out[k] for k in ("loss", "history", "last_step",
                                 "val_history", "val_loss")}
 

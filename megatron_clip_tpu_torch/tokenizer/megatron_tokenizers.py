@@ -8,10 +8,13 @@ byte-level BPE over a `vocab.json` / `merges.txt` pair, where the JAX class
 wraps the `tokenizers` package's ByteLevelBPETokenizer: the machine with
 the card has neither `tokenizers` nor `regex`, so GPT-2's pre-tokenizer
 pattern runs on the standard library's `re`, its \\p{L} (letters) and
-\\p{N} (numbers) written out as classes of code-point ranges from
-`unicodedata`'s general categories, and \\s as Unicode's White_Space set
-(Oniguruma's \\s, which `tokenizers` uses; Python's \\s also takes
-U+001C-U+001F). Marks (Mn, Mc, Me) fall in neither class, as there. The
+\\p{N} (numbers) written out as classes of code-point ranges from the
+committed table `gpt2_classes.py`, which `tools/gpt2_classes.py` reads off
+`tokenizers`' own regex engine (so the split does not depend on the Unicode
+version of the running Python's `unicodedata`), and \\s as Unicode's
+White_Space set (Oniguruma's \\s, which `tokenizers` uses; Python's \\s
+also takes U+001C-U+001F). Marks (Mn, Mc, Me) fall in neither class, as
+there. The
 ids and the decoded text equal ByteLevelBPETokenizer's with its defaults (no
 prefix space, no lowercasing, no added tokens).
 
@@ -21,8 +24,6 @@ naming their ROADMAP Queue A items (7 and 4).
 import functools
 import json
 import re
-import sys
-import unicodedata
 from typing import Dict, List, Optional, Tuple
 
 from megatron_clip_tpu_torch.tokenizer.clip_bpe import bytes_to_unicode
@@ -64,16 +65,13 @@ _WHITE_SPACE = ([0x09, 0x0A, 0x0B, 0x0C, 0x0D, 0x20, 0x85, 0xA0, 0x1680]
                 + [0x2028, 0x2029, 0x202F, 0x205F, 0x3000])
 
 
-def _ranges(chars: List[int]) -> str:
-    """Code points (sorted) as the body of a character class."""
-    out, i = [], 0
-    while i < len(chars):
-        j = i
-        while j + 1 < len(chars) and chars[j + 1] == chars[j] + 1:
-            j += 1
-        lo, hi = re.escape(chr(chars[i])), re.escape(chr(chars[j]))
-        out.append(lo if i == j else f"{lo}-{hi}")
-        i = j + 1
+def _class_body(runs) -> str:
+    """Inclusive (first, last) code-point runs as the body of a character
+    class."""
+    out = []
+    for lo, hi in runs:
+        a, b = re.escape(chr(lo)), re.escape(chr(hi))
+        out.append(a if lo == hi else f"{a}-{b}")
     return "".join(out)
 
 
@@ -81,15 +79,10 @@ def _ranges(chars: List[int]) -> str:
 def gpt2_pattern() -> "re.Pattern":
     """GPT-2's pre-tokenizer, `'s|'t|'re|'ve|'m|'ll|'d| ?\\p{L}+| ?\\p{N}+|
     ?[^\\s\\p{L}\\p{N}]+|\\s+(?!\\S)|\\s+`, on the standard library's `re`."""
-    letters, numbers = [], []
-    for c in range(sys.maxunicode + 1):
-        cat = unicodedata.category(chr(c))
-        if cat[0] == "L":
-            letters.append(c)
-        elif cat[0] == "N":
-            numbers.append(c)
-    L, N = _ranges(letters), _ranges(numbers)
-    S = _ranges(_WHITE_SPACE)
+    from megatron_clip_tpu_torch.tokenizer.gpt2_classes import (
+        LETTERS, NUMBERS)
+    L, N = _class_body(LETTERS), _class_body(NUMBERS)
+    S = _class_body((c, c) for c in _WHITE_SPACE)
     return re.compile(
         rf"'s|'t|'re|'ve|'m|'ll|'d| ?[{L}]+| ?[{N}]+| ?[^{S}{L}{N}]+"
         rf"|[{S}]+(?![^{S}])|[{S}]+")

@@ -57,7 +57,8 @@ from megatron_clip_tpu_torch.parallel import mesh
 from megatron_clip_tpu_torch.training.optim import (
     OptState, const_lr, const_lr_cooldown, constant_lr, cosine_lr,
     make_optimizer, tower_lock_mask)
-from megatron_clip_tpu_torch.training.signals import sigterm_latch
+from megatron_clip_tpu_torch.training.signals import (agreed_stop,
+                                                      sigterm_latch)
 from megatron_clip_tpu_torch.training.train_step import (
     TrainState, make_train_step)
 
@@ -180,14 +181,16 @@ def resolve_device(args, device=None) -> torch.device:
     return device
 
 
-def run_training(args, device=None) -> dict:
+def run_training(args, device=None, timeout=None) -> dict:
     """Train as `args` (from `training/params.parse_args`) say, on `device`
     (default `args.device`); returns the last logged metrics, with the val
     and zero-shot metrics of the last eval (rank 0's). Under torchrun the
-    run joins its group first (`mesh.init_distributed`) and leaves it on
-    every exit path."""
+    run joins its group first (`mesh.init_distributed`, whose collectives
+    give up after `timeout`, a timedelta; default torch's) and leaves it
+    on every exit path."""
     check_supported(args)
-    device = mesh.init_distributed(args, resolve_device(args, device))
+    device = mesh.init_distributed(args, resolve_device(args, device),
+                                   timeout=timeout)
     try:
         # SIGTERM latch around the whole run: the context manager restores
         # the previous handler on every exit path, exceptions included
@@ -385,10 +388,8 @@ def _run_training(args, term, device: torch.device) -> dict:
                 interval_saved = step
             # one host collective a step: SIGTERM on any rank, rank 0's
             # clock against --exit-duration-in-mins
-            stop, out_of_time = mesh.agree([
-                term["flag"], main and args.exit_duration_in_mins is not None
-                and time.perf_counter() - run_t0
-                > args.exit_duration_in_mins * 60])
+            stop, out_of_time = agreed_stop(term, run_t0,
+                                            args.exit_duration_in_mins)
             if stop:
                 if save_root:
                     # skip the save when the interval branch above just

@@ -78,16 +78,22 @@ class GradBuckets:
                     [p.numel() for _, p in named])):
                 self.views[n] = part.view_as(p)
 
-    def attach(self, params: dict) -> None:
-        """Zero the buffers and make them the parameters' gradients."""
+    def zero_(self) -> None:
         for flat in self.flats:
             flat.zero_()
+
+    def attach(self, params: dict) -> None:
+        """Zero the buffers and make them the parameters' gradients."""
+        self.zero_()
         for n, p in params.items():
             p.grad = self.views[n]
 
     def all_reduce_mean(self, group) -> None:
         """Each gradient replaced, in place, by its mean over `group`: each
-        buffer all-reduced (summed) in its dtype, then divided by W."""
+        buffer all-reduced (summed) in its dtype, then divided by W; a
+        no-op without a group (one process)."""
+        if group is None:
+            return
         world = dist.get_world_size(group)
         for flat in self.flats:
             dist.all_reduce(flat, group=group)

@@ -3,7 +3,8 @@
 Counterpart of `megatron_clip_tpu/training/workload.py` (the runtime of
 pretrain_gpt, pretrain_bert, pretrain_t5, pretrain_ict, pretrain_retro and
 the pretrain_vision_* entries; megatron/training.py:60-860's pretrain()) on
-one device: the runtime's flags (`add_runtime_args`, megatron's spellings
+one device, or data-parallel over the ranks of a torchrun launch: the
+runtime's flags (`add_runtime_args`, megatron's spellings
 and no-op flags, `runtime_cfg_from_args`, `--use-checkpoint-args`), then
 `run_workload(model, loss_fn, batch_iter, rc)`, which trains a model's
 `loss_fn(model, batch, seed) -> 0-d loss` for rc.train_steps:
@@ -12,8 +13,8 @@ and no-op flags, `runtime_cfg_from_args`, `--use-checkpoint-args`), then
     AdamW, SGD or bf16-nu AdamW, decay mask, megatron's lr schedule and
     scheduled weight decay);
   - --micro-batch-size accumulation: the global batch in microbatches of
-    that size, one after the other, each gradient divided by their number
-    and added into fp32 accumulators (the JAX package's
+    that many global rows, one after the other, each gradient divided by
+    their number and added into fp32 accumulators (the JAX package's
     `_accum_loss_and_grads`), cast to the parameters' dtype once;
   - --rampup-batch-size: exactly the ramped global batch each step, the
     unused rows of a source batch carried into the next
@@ -29,29 +30,52 @@ and no-op flags, `runtime_cfg_from_args`, `--use-checkpoint-args`), then
     --log-num-zeros-in-grad, samples/s and tokens/s).
 
 It runs where the model is. The JAX runtime's mesh (`build_workload_mesh`)
-is reduced to one device: every parallel size above 1, and a torchrun
-launch of more than one process, raise NotImplementedError naming ROADMAP
+is its `data` axis: under torchrun the process joins the group of W ranks
+(`parallel.mesh.init_distributed`, nccl on the card, gloo on the CPU), and
+the run is the JAX run's on a mesh of W data-parallel devices:
+  - every rank starts from rank 0's weights (`mesh.broadcast_module`, by
+    the entry);
+  - every rank draws the global batch's sample ids as the JAX runtime
+    draws them and keeps its rows of it (`mesh.rank_rows`): its share of
+    each microbatch of --micro-batch-size global rows, as the mesh shards
+    each JAX microbatch, so that each microbatch's loss covers the rows the
+    JAX one covers; the rampup's sizes are rounded to W as the JAX
+    runtime rounds them to its data axis;
+  - the entry's loss is the rank's share of the global batch's (the
+    masked mean's count is summed over the ranks, `models.gpt.gpt_loss(
+    group=...)`); the parameters' gradients are one flat buffer a dtype
+    (`train_step.GradBuckets`), all-reduced once a step after the last
+    microbatch's backward, so the clip norm and the update are the global
+    batch's and every rank holds the same weights;
+  - the logged loss, grad norm and eval loss are the global batch's;
+  - rank 0 alone saves, writes the tracker and logs; every rank loads on
+    resume; once a step the ranks agree (`signals.agreed_stop`) on SIGTERM
+    on any rank and on rank 0's clock against --exit-duration-in-mins, and
+    they leave together, after a barrier.
+Every other parallel size above 1 raises NotImplementedError naming ROADMAP
 Queue A item 5; --tensorboard-dir and --profile name item 7. What only
 other entry points use (the non-gradient `aux_state` of DINO, custom
 evals, the pipeline's checkpoint transforms) comes with them.
 """
 import argparse
 import math
-import os
 import time
 from dataclasses import dataclass
 from typing import Callable, Iterator, Optional, Tuple
 
 import numpy as np
 import torch
+import torch.distributed as dist
 
 from megatron_clip_tpu_torch.checkpoints import (
     global_saver, latest_checkpoint_step, load_checkpoint,
     load_checkpoint_metadata, save_checkpoint)
 from megatron_clip_tpu_torch.ops.dropout import fold_in
+from megatron_clip_tpu_torch.parallel import mesh
 from megatron_clip_tpu_torch.training.optim import (
     OptState, make_optimizer, megatron_lr, megatron_wd)
-from megatron_clip_tpu_torch.training.signals import sigterm_latch
+from megatron_clip_tpu_torch.training.signals import agreed_stop, sigterm_latch
+from megatron_clip_tpu_torch.training.train_step import GradBuckets
 
 
 @dataclass
@@ -160,10 +184,12 @@ def add_runtime_args(p, *, lr: float = 1e-4, weight_decay: float = 0.01,
                         "--batch-size by INCREMENT as samples are consumed "
                         "(megatron --rampup-batch-size, microbatches.py)")
     p.add_argument("--micro-batch-size", type=int, default=None,
-                   help="megatron per-rank microbatch: gradient "
-                        "accumulation over batch_size // micro "
-                        "microbatches (schedules.py:286 no-pipelining "
-                        "loop)")
+                   help="rows of the GLOBAL batch in each microbatch, as "
+                        "the JAX runtime counts them: gradient accumulation "
+                        "over batch_size // micro microbatches "
+                        "(schedules.py:286 no-pipelining loop), each split "
+                        "over the W data-parallel ranks (micro / W rows a "
+                        "rank; megatron's flag counts a rank's rows)")
     p.add_argument("--train-steps", "--train-iters", type=int, default=20)
     p.add_argument("--train-samples", type=int, default=None,
                    help="run length in samples instead of steps (megatron "
@@ -619,23 +645,32 @@ _REFUSED = (
     (5, "--virtual-pipeline-parallel-size > 1", lambda rc: rc.vpp > 1),
     (5, "--context-parallel-size > 1", lambda rc: rc.cp > 1),
     (5, "--dcn-data-parallel-size > 1", lambda rc: rc.dcn_dp > 1),
-    (5, "data parallelism over a torchrun launch of more than one process",
-     lambda rc: int(os.environ.get("WORLD_SIZE", "1")) > 1),
     (7, "--tensorboard-dir", lambda rc: bool(rc.tensorboard_dir)),
     (7, "--profile", lambda rc: rc.profile),
 )
 
 
-def build_workload_mesh(rc: RuntimeCfg) -> None:
-    """The JAX runtime's mesh, on one device: there is none. Every parallel
-    size above 1, a torchrun launch of more than one process,
-    --tensorboard-dir and --profile raise NotImplementedError naming their
-    ROADMAP Queue A item."""
+def refuse_unported(rc: RuntimeCfg) -> None:
+    """Every parallel size above 1 (but data parallelism's, which is the
+    launch's), --tensorboard-dir and --profile raise NotImplementedError
+    naming their ROADMAP Queue A item."""
     for item, what, asked in _REFUSED:
         if asked(rc):
             raise NotImplementedError(f"{what} is not ported yet (ROADMAP "
                                       f"Queue A item {item})")
-    return None
+
+
+def build_workload_mesh(rc: RuntimeCfg, device: torch.device, args=None,
+                        timeout=None) -> torch.device:
+    """The JAX runtime's mesh: its `data` axis. The refusals
+    (`refuse_unported`) first; then, under torchrun (RANK and WORLD_SIZE
+    set), this process joins the data-parallel group of its ranks
+    (`parallel.mesh.init_distributed` with the `dist_backend` and
+    `dist_url` a caller set on `args`, and `timeout`), even at one rank.
+    Returns this rank's device (plain "cuda" becomes cuda:LOCAL_RANK). The caller leaves the
+    group with `mesh.destroy()`."""
+    refuse_unported(rc)
+    return mesh.init_distributed(args, device, timeout=timeout)
 
 
 def _tree_map(fn, tree, *rest):
@@ -702,7 +737,10 @@ class _BatchDrawer:
 class _Runner:
     """The model (its parameters updated in place), the optimizer and its
     state: one step (`step`), the eval loss (`evaluate`), the checkpoint
-    tree and its loads."""
+    tree and its loads. Over a data-parallel group of W ranks it takes
+    the global batch and runs this rank's rows of it (`rank_batch`), its
+    gradients all-reduced in `GradBuckets` and its metrics the global
+    batch's."""
 
     def __init__(self, model: torch.nn.Module, loss_fn: Callable,
                  optimizer, rc: RuntimeCfg, use_rng: bool,
@@ -715,10 +753,35 @@ class _Runner:
         self.eval_loss_fn = eval_loss_fn or (
             lambda m, b: loss_fn(m, b, None))
         self.device = next(iter(self.params.values())).device
+        self.group, self.world, self.rank = (
+            mesh.group(), mesh.world_size(), mesh.rank())
+        # made on first need (`_reduced_grads`): they hold the gradients
+        # through the whole step, which a one-process step of one batch
+        # leaves to autograd, made in the backward as the activations go
+        # (2.45 GiB off the peak of the ladder's 1.3b rung on an H100)
+        self.buckets = None
 
     def _to_device(self, batch):
         return _tree_map(lambda x: torch.as_tensor(np.asarray(x)).to(
             self.device, non_blocking=True), batch)
+
+    def rank_batch(self, batch, rows: int, microbatches: int):
+        """This rank's rows of a global batch of `rows` (host arrays) in
+        `microbatches` blocks (`mesh.rank_rows`); the batch itself in a
+        one-process run."""
+        if self.group is None:
+            return batch
+        keep = mesh.rank_rows(rows, microbatches, self.rank, self.world)
+        return _tree_map(lambda x: np.asarray(x)[keep]
+                         if getattr(x, "ndim", 0) and x.shape[0] == rows
+                         else x, batch)
+
+    def _mean_over_ranks(self, t: torch.Tensor) -> torch.Tensor:
+        if self.group is None:
+            return t
+        t = t.detach().float().clone()
+        dist.all_reduce(t, group=self.group)
+        return t / self.world
 
     def _grads(self, batch, seed) -> Tuple[torch.Tensor, dict]:
         for p in self.params.values():
@@ -731,14 +794,9 @@ class _Runner:
             p.grad = None
         return loss.detach(), grads
 
-    def _accumulated(self, batch, seed, micro: int):
-        """The JAX package's `_accum_loss_and_grads`: n = rows // micro
-        microbatches in order, each loss and gradient divided by n and added
-        into fp32 accumulators, the gradients cast to the parameters'
-        dtypes once; microbatch i's dropout seed is fold_in(seed, i)."""
-        leads = set()
-        _tree_map(lambda x: leads.add(x.shape[0]) if x.dim() else None,
-                  batch)
+    def _microbatches(self, batch, micro: int) -> int:
+        """How many microbatches of `micro` rows `batch` holds."""
+        leads = self._leads(batch)
         if len(leads) != 1:
             raise ValueError(
                 "--micro-batch-size accumulation requires every batch leaf "
@@ -747,12 +805,20 @@ class _Runner:
         if gbs % micro:
             raise ValueError(f"global batch {gbs} not divisible by "
                              f"--micro-batch-size {micro}")
-        n = gbs // micro
-        if n <= 1:
-            return self._grads(batch, seed)
+        return gbs // micro
+
+    def _accumulated(self, batch, seed, micro: int, n: int) -> torch.Tensor:
+        """The JAX package's `_accum_loss_and_grads`: the n microbatches of
+        `micro` rows in order, each loss and gradient divided by n and added
+        into fp32 accumulators, the gradients cast to the parameters'
+        dtypes once, into the gradient buckets; microbatch i's dropout seed
+        is fold_in(seed, i). Returns the loss."""
+        views = self.buckets.views
+        self.buckets.zero_()
         names = list(self.params)
-        acc = [torch.zeros_like(p, dtype=torch.float32)
-               for p in self.params.values()]
+        acc = [views[k] if p.dtype == torch.float32
+               else torch.zeros_like(p, dtype=torch.float32)
+               for k, p in self.params.items()]
         acc_loss = torch.zeros((), dtype=torch.float32, device=self.device)
         for i in range(n):
             mb = _tree_map(lambda x: x[i * micro:(i + 1) * micro]
@@ -762,20 +828,52 @@ class _Runner:
             acc_loss = acc_loss + loss.float() / n
             g32 = torch._foreach_div([g[k].float() for k in names], n)
             torch._foreach_add_(acc, g32)
-        grads = {k: a.to(self.params[k].dtype) for k, a in zip(names, acc)}
-        return acc_loss, grads
+        for k, a in zip(names, acc):
+            if a is not views[k]:
+                views[k].copy_(a)
+        return acc_loss
+
+    def _backward(self, batch, seed) -> torch.Tensor:
+        """The loss of one batch; its backward straight into the gradient
+        buckets' views, as the parameters' `.grad`."""
+        self.buckets.attach(self.params)
+        loss = self.loss_fn(self.model, batch, seed)
+        loss.backward()
+        for p in self.params.values():
+            p.grad = None
+        return loss.detach()
+
+    def _reduced_grads(self, batch, seed, micro: Optional[int]):
+        """(loss, grads) of this rank's rows: in the buckets, over a group
+        the mean over the ranks, all-reduced once; in one process, of one
+        batch, autograd's own."""
+        n = self._microbatches(batch, micro) if micro else 1
+        if self.group is None and n <= 1:
+            return self._grads(batch, seed)
+        if self.buckets is None:
+            self.buckets = GradBuckets(self.params)
+        loss = (self._accumulated(batch, seed, micro, n) if n > 1
+                else self._backward(batch, seed))
+        self.buckets.all_reduce_mean(self.group)
+        return loss, dict(self.buckets.views)
+
+    @staticmethod
+    def _leads(batch) -> set:
+        """The leading dims of a batch's leaves (but 0-d ones)."""
+        leads = set()
+        _tree_map(lambda x: leads.add(x.shape[0])
+                  if getattr(x, "ndim", 0) else None, batch)
+        return leads
 
     def step(self, batch, i: int) -> dict:
-        """Step i (from 1) on `batch` (host arrays): the loss and gradients,
-        the metrics, the optimizer's update in place."""
+        """Step i (from 1) on `batch` (host arrays, this rank's rows): the
+        loss and gradients, the metrics, the optimizer's update in place."""
         rc = self.rc
         batch = self._to_device(batch)
         seed = fold_in(rc.seed + 1, i) if self.use_rng else None
-        if rc.micro_batch_size:
-            loss, grads = self._accumulated(batch, seed, rc.micro_batch_size)
-        else:
-            loss, grads = self._grads(batch, seed)
-        metrics = {"loss": loss}
+        micro = rc.micro_batch_size and rc.micro_batch_size // self.world
+        loss, grads = self._reduced_grads(batch, seed, micro)
+        metrics = {"loss": self._mean_over_ranks(loss)}
         if rc.log_params_norm:
             metrics["params_norm"] = self.optimizer.global_norm(
                 {n: p.detach() for n, p in self.params.items()})
@@ -788,11 +886,16 @@ class _Runner:
 
     @torch.no_grad()
     def evaluate(self, val_iter, iters: int) -> float:
-        """The mean of `iters` eval losses on `val_iter`'s batches."""
-        vals = [float(self.eval_loss_fn(self.model,
-                                        self._to_device(next(val_iter))))
-                for _ in range(iters)]
-        return float(np.mean(vals))
+        """The mean of `iters` eval losses on `val_iter`'s batches (global
+        batches: each rank scores its rows, the mean over the ranks is the
+        global batch's loss)."""
+        vals = []
+        for _ in range(iters):
+            batch = next(val_iter)
+            vals.append(self.eval_loss_fn(self.model, self._to_device(
+                self.rank_batch(batch, max(self._leads(batch)), 1))).float())
+        return float(np.mean(self._mean_over_ranks(
+            torch.stack(vals)).cpu().numpy()))
 
     def state_tree(self, with_optim: bool = True) -> dict:
         tree = {"params": dict(self.model.state_dict())}
@@ -849,10 +952,28 @@ def run_workload(model: torch.nn.Module, loss_fn: Callable, batch_iter,
     without dropout) under no_grad. `args_ns` is recorded in each
     checkpoint's metadata for --use-checkpoint-args.
 
+    Over a data-parallel group (the entry joined it, `build_workload_mesh`)
+    the batches are global ones, every rank's the same, and each rank
+    trains its rows (see the module's note); `loss_fn` and `eval_loss_fn`
+    return the rank's share, whose mean over the ranks is the global
+    batch's loss.
+
     Returns {"loss", "history" [(step, loss) at the log interval], "last_step",
     "val_history" [(step, val loss)], "val_loss" (the last eval's or
-    --skip-train's), "model"}."""
-    build_workload_mesh(rc)
+    --skip-train's), "model"}: every rank the same."""
+    refuse_unported(rc)
+    world = mesh.world_size()
+    main = mesh.is_main()
+
+    def log(msg: str) -> None:
+        if main:
+            print(f"[{rc.name}] {msg}", flush=True)
+    if rc.batch_size % world or (rc.micro_batch_size
+                                 and rc.micro_batch_size % world):
+        raise SystemExit(
+            f"--batch-size {rc.batch_size} and --micro-batch-size "
+            f"{rc.micro_batch_size} count global rows: each must be a "
+            f"multiple of the {world} data-parallel ranks")
     # the JAX run_workload's optimizer: megatron's lr schedule, the
     # scheduled or constant (decay-masked) weight decay, the clip, and
     # AdamW, SGD or the bf16-nu AdamW
@@ -873,9 +994,8 @@ def run_workload(model: torch.nn.Module, loss_fn: Callable, batch_iter,
     runner = _Runner(model, loss_fn, optimizer, rc, use_rng, eval_loss_fn)
     eval_ok = val_iter_factory is not None
     if rc.eval_interval and not eval_ok:
-        print(f"[{rc.name}] WARNING: --eval-interval set but this entry "
-              "provides no validation data source; skipping eval",
-              flush=True)
+        log("WARNING: --eval-interval set but this entry provides no "
+            "validation data source; skipping eval")
 
     consumed = 0
 
@@ -888,35 +1008,34 @@ def run_workload(model: torch.nn.Module, loss_fn: Callable, batch_iter,
         return m
 
     def _save(i: int, block: bool = True):
-        save_checkpoint(rc.save, i, runner.state_tree(not rc.no_save_optim),
-                        _meta(), block=block)
+        if main:  # every rank holds the same state
+            save_checkpoint(rc.save, i,
+                            runner.state_tree(not rc.no_save_optim),
+                            _meta(), block=block)
 
     start_step = 0
+    mesh.barrier()  # every rank loads what rank 0 has committed
     if rc.resume and rc.save and latest_checkpoint_step(rc.save) is not None:
         meta, start_step = runner.load(rc.save, not rc.no_load_optim)
         if rc.no_load_optim:
-            print(f"[{rc.name}] resumed params-only from {rc.save} @ step "
-                  f"{start_step} (--no-load-optim: fresh optimizer)",
-                  flush=True)
+            log(f"resumed params-only from {rc.save} @ step {start_step} "
+                "(--no-load-optim: fresh optimizer)")
         else:
-            print(f"[{rc.name}] resumed from {rc.save} @ step {start_step} "
-                  f"(consumed_samples={meta.get('consumed_samples', 0)})",
-                  flush=True)
+            log(f"resumed from {rc.save} @ step {start_step} "
+                f"(consumed_samples={meta.get('consumed_samples', 0)})")
     elif rc.load:
         if rc.finetune:
             _, from_step = runner.load(rc.load, with_optim=False)
-            print(f"[{rc.name}] finetune init: params from {rc.load} "
-                  f"@ step {from_step} (optimizer/iteration reset)",
-                  flush=True)
+            log(f"finetune init: params from {rc.load} @ step {from_step} "
+                "(optimizer/iteration reset)")
         elif rc.no_load_optim:
             _, start_step = runner.load(rc.load, with_optim=False)
-            print(f"[{rc.name}] loaded params-only {rc.load} @ step "
-                  f"{start_step} (--no-load-optim: fresh optimizer)",
-                  flush=True)
+            log(f"loaded params-only {rc.load} @ step {start_step} "
+                "(--no-load-optim: fresh optimizer)")
         else:
             _, start_step = runner.load(rc.load)
-            print(f"[{rc.name}] loaded {rc.load} @ step {start_step} "
-                  f"(continuing; saving to {rc.save})", flush=True)
+            log(f"loaded {rc.load} @ step {start_step} (continuing; saving "
+                f"to {rc.save})")
 
     if rc.skip_train:
         # megatron --skip-train (training.py): validation only
@@ -924,8 +1043,7 @@ def run_workload(model: torch.nn.Module, loss_fn: Callable, batch_iter,
             raise SystemExit("--skip-train needs a validation source "
                              "(this entry provides none)")
         v = runner.evaluate(val_iter_factory(), rc.eval_iters)
-        print(f"[{rc.name}] --skip-train: val loss {v:.4f} over "
-              f"{rc.eval_iters} batches", flush=True)
+        log(f"--skip-train: val loss {v:.4f} over {rc.eval_iters} batches")
         return {"loss": v, "history": [], "val_loss": v,
                 "val_history": [], "last_step": start_step, "model": model}
 
@@ -939,15 +1057,17 @@ def run_workload(model: torch.nn.Module, loss_fn: Callable, batch_iter,
     if rc.rampup_batch_size is not None:
         from megatron_clip_tpu_torch.training.microbatches import (
             build_num_microbatches_calculator)
-        # every ramped size must split into whole microbatches
-        gran = math.lcm(1, rc.micro_batch_size or 1)
+        # every ramped size must split over the ranks (the JAX runtime's
+        # data axis) and into whole microbatches
+        gran = math.lcm(world, rc.micro_batch_size or 1)
         try:
             rampup = build_num_microbatches_calculator(
                 rc.batch_size, 1, gran, rc.rampup_batch_size)
         except (ValueError, ZeroDivisionError) as e:
             raise SystemExit(
                 f"--rampup-batch-size {rc.rampup_batch_size}: {e} (the "
-                f"microbatch split requires multiples of {gran})") from e
+                f"{world} data-parallel ranks and the microbatch split "
+                f"require multiples of {gran})") from e
         if start_step and (rc.save or rc.load):
             # a resumed rampup run restores the RAMPED consumed count
             try:
@@ -957,8 +1077,7 @@ def run_workload(model: torch.nn.Module, loss_fn: Callable, batch_iter,
             except (FileNotFoundError, KeyError, ValueError):
                 pass
         start, inc, _ = rc.rampup_batch_size
-        print(f"[{rc.name}] batch rampup {start} -> {rc.batch_size} "
-              f"(+{inc})", flush=True)
+        log(f"batch rampup {start} -> {rc.batch_size} (+{inc})")
 
     # place the data: start_step source batches without rampup; with it,
     # `consumed` samples (whole source batches, then the rows of the next)
@@ -994,7 +1113,9 @@ def run_workload(model: torch.nn.Module, loss_fn: Callable, batch_iter,
                 batch = drawer.draw(gbs)  # exactly gbs samples, tail kept
             else:
                 batch = next(batch_iter)
-            metrics = runner.step(batch, i)
+            metrics = runner.step(runner.rank_batch(
+                batch, gbs, gbs // rc.micro_batch_size
+                if rc.micro_batch_size else 1), i)
             loss = metrics["loss"]
             last_step = i
             consumed += gbs
@@ -1012,9 +1133,8 @@ def run_workload(model: torch.nn.Module, loss_fn: Callable, batch_iter,
                       if "params_norm" in metrics else "")
                 if "num_zeros" in metrics:
                     pn += f" | num zeros {int(metrics['num_zeros'])}"
-                print(f"[{rc.name}] step {i}/{rc.train_steps} | "
-                      f"loss {l:.4f} | grad norm {gn:.3f}{pn} | "
-                      f"{ips:.1f} samples/s{extra}", flush=True)
+                log(f"step {i}/{rc.train_steps} | loss {l:.4f} | grad norm "
+                    f"{gn:.3f}{pn} | {ips:.1f} samples/s{extra}")
                 t0 = time.perf_counter()
             if rc.save and rc.save_interval and i % rc.save_interval == 0:
                 # in the background: the host copy is taken here, the write
@@ -1023,29 +1143,29 @@ def run_workload(model: torch.nn.Module, loss_fn: Callable, batch_iter,
             if rc.eval_interval and eval_ok and i % rc.eval_interval == 0:
                 v = runner.evaluate(val_iter_factory(), rc.eval_iters)
                 val_history.append((i, v))
-                print(f"[{rc.name}] eval @ {i}: val loss {v:.4f}",
-                      flush=True)
-            if term["flag"]:
+                log(f"eval @ {i}: val loss {v:.4f}")
+            # one host collective a step: SIGTERM on any rank, rank 0's
+            # clock against --exit-duration-in-mins
+            stop, out_of_time = agreed_stop(term, run_t0,
+                                            rc.exit_duration_mins)
+            if stop:
                 if rc.save and (not rc.save_interval
                                 or i % rc.save_interval != 0):
                     _save(i)
                 if rc.save:
-                    print(f"[{rc.name}] SIGTERM: saved checkpoint @ step "
-                          f"{i}, exiting", flush=True)
+                    log(f"SIGTERM: saved checkpoint @ step {i}, exiting")
                 else:
-                    print(f"[{rc.name}] SIGTERM: exiting @ step {i} "
-                          "(no --save configured)", flush=True)
+                    log(f"SIGTERM: exiting @ step {i} (no --save "
+                        "configured)")
                 exited_early = True
                 break
-            if rc.exit_duration_mins is not None and \
-                    time.perf_counter() - run_t0 > rc.exit_duration_mins * 60:
+            if out_of_time:
                 # megatron --exit-duration-in-mins (training.py:829-851)
                 if rc.save and (not rc.save_interval
                                 or i % rc.save_interval != 0):
                     _save(i)
-                print(f"[{rc.name}] exiting at step {i}: "
-                      f"--exit-duration-in-mins {rc.exit_duration_mins} "
-                      "budget reached", flush=True)
+                log(f"exiting at step {i}: --exit-duration-in-mins "
+                    f"{rc.exit_duration_mins} budget reached")
                 exited_early = True
                 break
         if rc.save and not exited_early \
@@ -1054,6 +1174,7 @@ def run_workload(model: torch.nn.Module, loss_fn: Callable, batch_iter,
                 and last_step > start_step:
             _save(last_step)
     global_saver().wait()  # the contract: checkpoints durable on return
+    mesh.barrier()  # no rank reads a checkpoint rank 0 has yet to commit
     return {"loss": float(loss) if loss is not None else None,
             "history": history, "last_step": last_step,
             "val_history": val_history,

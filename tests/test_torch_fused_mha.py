@@ -42,7 +42,8 @@ from megatron_clip_tpu.ops.attention import \
     multi_head_attention as jax_multi_head_attention
 from megatron_clip_tpu.ops.pallas.fused_mha import (fused_attention_from_qkv,
                                                    fused_mha_packed_sm)
-from megatron_clip_tpu_torch.ops.attention import multi_head_attention, sdpa
+from megatron_clip_tpu_torch.ops.attention import (
+    attention_route, multi_head_attention, sdpa)
 from chip_smoke import TOLERANCES, compare_rows, mha_parts
 from megatron_clip_tpu_torch.ops.kernels import fused_mha as mha_mod
 from megatron_clip_tpu_torch.ops.kernels.fused_mha import (
@@ -483,11 +484,48 @@ def test_multi_head_attention_matches_jax_bf16(causal):
                                 {"dropout_rate": 0.1, "seed": 1},
                                 {"context_parallel": True},
                                 {"use_flash": False}])
-def test_outside_the_gate_raises(kw):
+def test_outside_the_gate_raises(kw, monkeypatch):
+    """Outside both kernels' gates the attention takes `sdpa_bshd`, as the
+    JAX package does (its numerics: tests/test_torch_sdpa.py): the route is
+    "sdpa" and the output the JAX `multi_head_attention`'s (which runs
+    `sdpa_bshd` on the CPU) within 1e-5. Context parallelism still raises,
+    naming its ROADMAP item."""
     x = torch.zeros(1, 8, 32)
     params = {"wqkv": torch.zeros(32, 96), "wo": torch.zeros(32, 32)}
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        multi_head_attention(x, params, 4, **kw)
+    if kw.get("context_parallel"):
+        with pytest.raises(NotImplementedError, match="ROADMAP"):
+            multi_head_attention(x, params, 4, **kw)
+        return
+    rng = np.random.default_rng(len(kw))
+    hkv = kw.get("kv_heads", 4)
+    x = rng.standard_normal((1, 8, 32)).astype(np.float32)
+    params = {"wqkv": rng.standard_normal((32, (4 + 2 * hkv) * 8)) / 6,
+              "wo": rng.standard_normal((32, 32)) / 6}
+    params = {k: v.astype(np.float32) for k, v in params.items()}
+    kw = dict(kw)
+    jkw = {k: v for k, v in kw.items() if k not in ("seed", "bias", "rope")}
+    if "bias" in kw:
+        kw["bias"] = torch.zeros(1)
+        jkw["bias"] = jnp.zeros(1)
+    if "rope" in kw:
+        from megatron_clip_tpu.ops.rope import rope_cos_sin as jax_tables
+        from megatron_clip_tpu_torch.ops.rope import rope_cos_sin
+        kw["rope"], jkw["rope"] = rope_cos_sin(8, 8), jax_tables(8, 8)
+    if "seed" in kw:
+        from megatron_clip_tpu_torch.ops.dropout import hidden_keep
+        keep = hidden_keep((1, 4, 8, 8), kw["dropout_rate"], kw["seed"], 0,
+                           "cpu")
+        jkw["dropout_rng"] = jax.random.PRNGKey(0)
+        monkeypatch.setattr(jax.random, "bernoulli",
+                            lambda key, p, shape: jnp.asarray(keep.numpy()))
+    want = jax_multi_head_attention(
+        jnp.asarray(x), {k: jnp.asarray(v) for k, v in params.items()}, 4,
+        **jkw)
+    got = multi_head_attention(torch.from_numpy(x),
+                               {k: torch.from_numpy(v)
+                                for k, v in params.items()}, 4, **kw)
+    np.testing.assert_allclose(got.numpy(), np.asarray(want), rtol=1e-5,
+                               atol=1e-5)
 
 
 # ... each refusal naming its ROADMAP Queue A item by number: item 1 the
@@ -499,8 +537,19 @@ def test_outside_the_gate_raises(kw):
     ({"use_flash": False}, 1), ({"context_parallel": True}, 5),
     ({"kv": torch.zeros(1, 8, 32)}, 7)])
 def test_refusals_name_their_queue_a_item(kw, item):
+    """Item 1's cases (the unfused `sdpa_bshd` route) are ported: they
+    route to "sdpa" and no longer raise; items 5 and 7 still raise naming
+    their item."""
     x = torch.zeros(1, 8, 32)
     params = {"wqkv": torch.zeros(32, 96), "wo": torch.zeros(32, 32)}
+    if item == 1:
+        hkv = kw.get("kv_heads", 4)
+        assert attention_route(
+            8, 4, hkv, 96 // (4 + 2 * hkv), rope=kw.get("rope"),
+            use_flash=kw.get("use_flash", True),
+            dropout_rate=kw.get("dropout_rate", 0.0), seed=kw.get("seed"),
+            bias="bias" in kw) == "sdpa"
+        return
     with pytest.raises(NotImplementedError,
                        match=rf"ROADMAP Queue A item {item}\b"):
         multi_head_attention(x, params, 4, **kw)

@@ -149,10 +149,13 @@ def test_fused_ce_loss_equals_the_chunked_one_with_a_loss_mask():
 
 def test_rope_attention_below_the_flash_gate_raises():
     """With rope the fused-MHA kernels are never taken, and below
-    MIN_FLASH_SEQ = 256 the JAX package runs sdpa_bshd, not ported yet."""
-    model = GPTModel(GPTCfg(**dict(EXAMPLE, seq_length=128)))
-    with pytest.raises(NotImplementedError, match="sdpa_bshd"):
-        gpt_loss(model, torch.zeros(1, 129, dtype=torch.long))
+    MIN_FLASH_SEQ = 256 the JAX package runs sdpa_bshd: so does the port
+    now, and the fp32 loss is the JAX one within 1e-5 relative."""
+    jcfg, params, model, tokens = _setup(base=EXAMPLE, seq_length=128)
+    want = jax_gpt.gpt_loss(params, jnp.asarray(tokens), jcfg,
+                            compute_dtype=jnp.float32)
+    got = gpt_loss(model, torch.from_numpy(tokens))
+    np.testing.assert_allclose(float(got), float(want), rtol=1e-5)
 
 
 def _jax_steps(jcfg, params, tokens, dtype, n, fused_ce=False):
@@ -299,9 +302,16 @@ def test_unported_options_raise(over):
 @pytest.mark.parametrize("kw", [dict(position_ids=np.arange(8)),
                                 dict(attn_bias=np.zeros(1))])
 def test_unported_loss_options_raise(kw):
+    """`position_ids` and `attn_bias` are ported (the document flags,
+    tests/test_torch_ltor_masks.py): the positions 0..S-1 and a zero bias
+    give the loss without them, within 1e-6 (the bias takes sdpa_bshd,
+    the plain call the fused route)."""
     model = GPTModel(GPTCfg(**dict(SMALL, seq_length=8)))
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        gpt_loss(model, torch.zeros(1, 9, dtype=torch.long), **kw)
+    tokens = torch.from_numpy(np.random.default_rng(0).integers(
+        0, 512, (2, 9)))
+    kw = {k: torch.as_tensor(v) for k, v in kw.items()}
+    np.testing.assert_allclose(float(gpt_loss(model, tokens, **kw)),
+                               float(gpt_loss(model, tokens)), rtol=1e-6)
 
 
 @pytest.mark.parametrize("smoothing", [0.0, 0.1])

@@ -6,7 +6,9 @@ CPU.
   package's class, on a vocab.json / merges.txt this file trains with
   `tokenizers` from text it writes (accents, CJK, digits beyond ASCII,
   marks, whitespace runs and kinds, contractions, emoji): the same ids, and
-  the same decoded text.
+  the same decoded text; every code point split as `tokenizers`'
+  ByteLevel pre-tokenizer splits it, in four contexts and alone (where
+  `tokenizers` is installed), from the committed class table.
 - `NullTokenizer`, vocabulary padding and the tokenizers the port refuses.
 - The port's `preprocess_data` output byte-equal to the JAX tool's on one
   jsonl, for clip-bpe, NullTokenizer and GPT2BPETokenizer, with --workers 1
@@ -15,6 +17,7 @@ CPU.
 import importlib.util
 import json
 import os
+import sys
 from pathlib import Path
 
 import numpy as np
@@ -57,12 +60,54 @@ def tokenizers_pair(bpe_files):
 
 
 @pytest.mark.parametrize("text", TEXTS + [
-    "", " ", "x", "unseen wörds ünd çhars 龍", "a  b   c    d\n \n"])
+    "", " ", "x", "unseen wörds ünd çhars 龍", "a  b   c    d\n \n",
+    # letters newer than Unicode 15.0 (the tables of this Python 3.12)
+    "x\u1c89y \ua7cb\ua7cc\ua7cd! 9\U000105c0\U000105c1 "
+    "\U000105c2a.\u1c89"])
 def test_gpt2_bpe_equals_tokenizers(tokenizers_pair, text):
     mine, ref = tokenizers_pair
     ids = mine.tokenize(text)
     assert ids == ref.encode(text).ids
     assert mine.detokenize(ids) == ref.decode(ids) == text
+
+
+# Every code point but the surrogates, in the four contexts of the probe
+# that found the Unicode fault (ROADMAP Queue C), and with no separator:
+# the split of each chunk's string by the port's pattern is
+# `tokenizers`' ByteLevel pre-tokenizer's, span for span.
+@pytest.mark.parametrize("sep", ["", "a", "1", "!", " "])
+def test_every_code_point_splits_as_tokenizers(sep):
+    pre = pytest.importorskip("tokenizers.pre_tokenizers")
+    ref = pre.ByteLevel(add_prefix_space=False)
+    pat = mt.gpt2_pattern()
+    for lo in range(0, sys.maxunicode + 1, 4096):
+        chars = [chr(c) for c in range(lo, lo + 4096)
+                 if not 0xD800 <= c < 0xE000]
+        if not chars:
+            continue
+        text = sep + sep.join(chars) + sep
+        want = [span for _, span in ref.pre_tokenize_str(text)]
+        got = [m.span() for m in pat.finditer(text)]
+        assert got == want, f"chunk U+{lo:04X}, separator {sep!r}"
+
+
+def test_gpt2_pattern_reads_no_unicodedata(monkeypatch):
+    """The classes come from the committed table, not from the running
+    Python's Unicode version."""
+    import unicodedata
+
+    def refuse(*a):
+        raise AssertionError("gpt2_pattern read unicodedata")
+    for name in ("category", "lookup", "name", "numeric", "decimal"):
+        monkeypatch.setattr(unicodedata, name, refuse)
+    mt.gpt2_pattern.cache_clear()
+    try:
+        pat = mt.gpt2_pattern()
+    finally:
+        mt.gpt2_pattern.cache_clear()
+    from megatron_clip_tpu_torch.tokenizer import gpt2_classes
+    assert pat.fullmatch("\u1c89\ua7cd\U000105c0")
+    assert gpt2_classes.SOURCE.startswith("tokenizers ")
 
 
 def test_gpt2_bpe_properties_equal_the_jax_class(bpe_files):

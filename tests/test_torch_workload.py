@@ -486,9 +486,6 @@ def test_params_norm_and_zeros_in_grad_are_logged(capsys):
     (["--dcn-data-parallel-size", "2"], 5),
     (["--tensorboard-dir", "tb"], 7),
     (["--profile"], 7),
-    (["--eod-mask-loss", "--eod-token", "0"], 4),
-    (["--reset-position-ids", "--eod-token", "0"], 4),
-    (["--reset-attention-mask", "--eod-token", "0"], 4),
     (["--quantize-matmuls", "int8"], 4),
     (["--kv-channels", "8"], 4),
     (["--squared-relu"], 4),
@@ -506,10 +503,63 @@ def test_refused_flags_name_their_queue_item(flag, item, monkeypatch):
 
 
 def test_a_torchrun_launch_of_two_processes_is_refused(monkeypatch):
+    """A torchrun launch of two processes trains data-parallel
+    (tests/test_torch_gpt_dp.py); with a parallel size that is not data
+    parallelism's it is refused, naming item 5, before a group is joined
+    or a model built."""
     monkeypatch.setenv("WORLD_SIZE", "2")
+    monkeypatch.setenv("RANK", "1")
     monkeypatch.setattr(pretrain_gpt, "create_gpt", None)
-    with pytest.raises(NotImplementedError, match="Queue A item 5\\)"):
-        port_run(BASE + ["--train-steps", "1"])
+    for flag in (["--tensor-model-parallel-size", "2"],
+                 ["--fsdp-parallel-size", "2"]):
+        with pytest.raises(NotImplementedError, match="Queue A item 5\\)"):
+            port_run(BASE + ["--train-steps", "1"] + flag)
+    assert pretrain_gpt.mesh.group() is None
+
+
+@pytest.mark.parametrize("backend", ["nccl", "gloo"])
+def test_distributed_backend_is_a_no_op_under_torchrun(backend, tmp_path,
+                                                       monkeypatch):
+    """megatron's --distributed-backend is accepted and warned as a no-op,
+    as in the JAX entry: a one-rank torchrun launch on the CPU joins a gloo
+    group whatever it names, trains bit-equal to one process (the
+    gradients' all-reduce at W = 1) and leaves the group."""
+    argv = BASE + ["--train-steps", "2", "--device", "cpu"]
+    alone = pretrain_gpt.run(pretrain_gpt.parse_args(argv))
+    for k, v in {"RANK": "0", "WORLD_SIZE": "1", "LOCAL_RANK": "0"}.items():
+        monkeypatch.setenv(k, v)
+    args = pretrain_gpt.parse_args(argv + ["--distributed-backend", backend])
+    args.dist_url = "file://" + str(tmp_path / "init")
+    with pytest.warns(UserWarning, match="no-ops here: --distributed-backend"):
+        ranked = pretrain_gpt.run(args)
+    assert _losses(ranked) == _losses(alone)
+    assert pretrain_gpt.mesh.group() is None
+
+
+def test_gradient_buckets_reduce_nothing_without_a_group():
+    """One process steps through the same `GradBuckets` as a rank; its
+    `all_reduce_mean` without a group leaves the gradients as they are."""
+    from megatron_clip_tpu_torch.training.train_step import GradBuckets
+    torch.manual_seed(0)
+    params = {"w": torch.nn.Parameter(torch.randn(3, 4)),
+              "h": torch.nn.Parameter(torch.randn(5, dtype=torch.bfloat16))}
+    buckets = GradBuckets(params)
+    buckets.attach(params)
+    (params["w"].square().sum() + params["h"].float().sum()).backward()
+    want = {n: p.grad.clone() for n, p in params.items()}
+    buckets.all_reduce_mean(None)
+    for n, view in buckets.views.items():
+        assert view.data_ptr() == params[n].grad.data_ptr()
+        assert torch.equal(view, want[n])
+
+
+@pytest.mark.parametrize("flag", ["--eod-mask-loss", "--reset-position-ids",
+                                  "--reset-attention-mask"])
+def test_the_document_flags_are_taken_with_an_eod_token(flag):
+    pretrain_gpt.check_supported(pretrain_gpt.parse_args(
+        BASE + [flag, "--eod-token", "0"]))
+    with pytest.raises(SystemExit, match="need --eod-token"):
+        pretrain_gpt.check_supported(pretrain_gpt.parse_args(BASE + [flag]))
 
 
 def test_the_card_is_the_default_and_its_absence_raises(capsys):

@@ -2,13 +2,17 @@
 
 The tests spawn W ranks with `torch.multiprocessing` over gloo on the CPU,
 each joining its group through a `file://` init method in the test's own
-`tmp_path`, so that concurrent test workers never share a port. This
-module imports no JAX: the parent computes the JAX references and hands the
-ranks numpy inputs through files; each rank writes what it computed to
-`out/rank{r}.pt` for the parent to read.
+`tmp_path`, so that concurrent test workers never share a port. `spawn`
+kills ranks that outlive its deadline, and every group's collectives give
+up after `GROUP_TIMEOUT`, well before it. This module imports no JAX: the
+parent computes the JAX references and hands the ranks numpy inputs
+through files; each rank writes what it computed to `out/rank{r}.pt` for
+the parent to read.
 """
+import datetime
 import os
 import signal
+import time
 
 import numpy as np
 import torch
@@ -16,14 +20,35 @@ import torch.distributed as dist
 import torch.multiprocessing as mp
 
 
-def spawn(fn, world: int, tmp_path, *args) -> list:
+# how long a spawned group may run before its ranks are killed, and how
+# long a collective of a rank's group waits for a missing rank (well under
+# the deadline, so that a hang fails the collective first, with its error)
+DEADLINE_S = 120.0
+GROUP_TIMEOUT = datetime.timedelta(seconds=60)
+
+
+def spawn(fn, world: int, tmp_path, *args, deadline: float = DEADLINE_S
+          ) -> list:
     """Run `fn(rank, world, tmp_path, *args)` in `world` processes; returns
     what each rank saved with `save_result`, rank order. A rank that fails
-    fails the call (the others are stopped)."""
+    fails the call (the others are stopped); ranks still running after
+    `deadline` seconds are killed and the call fails, so that a hang costs
+    one test its deadline, not the suite its limit."""
     out = os.path.join(str(tmp_path), "out")
     os.makedirs(out, exist_ok=True)
-    mp.spawn(_entry, args=(fn, world, str(tmp_path), args), nprocs=world,
-             join=True)
+    ctx = mp.spawn(_entry, args=(fn, world, str(tmp_path), args),
+                   nprocs=world, join=False)
+    end = time.monotonic() + deadline
+    try:
+        while not ctx.join(timeout=max(0.0, min(1.0, end - time.monotonic()))):
+            if time.monotonic() >= end:
+                raise TimeoutError(f"{world} ranks of {fn.__name__} still "
+                                   f"running after {deadline:.0f} s")
+    finally:
+        for p in ctx.processes:
+            if p.is_alive():
+                p.kill()
+                p.join()
     return [torch.load(os.path.join(out, f"rank{r}.pt"), weights_only=False)
             for r in range(world)]
 
@@ -55,7 +80,8 @@ def loss_rank(rank, world, tmp_path, cases):
     backward."""
     from megatron_clip_tpu_torch import losses
     dist.init_process_group("gloo", init_method=init_url(tmp_path, "loss"),
-                            rank=rank, world_size=world)
+                            rank=rank, world_size=world,
+                            timeout=GROUP_TIMEOUT)
     data = np.load(os.path.join(tmp_path, "inputs.npz"))
     n = data["img"].shape[0] // world
     rows = slice(rank * n, (rank + 1) * n)
@@ -148,7 +174,7 @@ def trainer_rank(rank, world, tmp_path, jobs):
         built = _patch_trainer(start, patch_ids, record)
         final = loop.run_training(parse_args(
             argv + ["--dist-url", init_url(tmp_path, f"train{i}")]),
-            device="cpu")
+            device="cpu", timeout=GROUP_TIMEOUT)
         out.append({"steps": list(record), "final": final,
                     "params": _params(built[-1])})
         (loop.factory.create_model, train_step.patch_keep_ids,
@@ -171,7 +197,7 @@ def resume_rank(rank, world, tmp_path, argv, term_rank, term_after):
         record.clear()
         final = loop.run_training(parse_args(
             argv + extra + ["--dist-url", init_url(tmp_path, tag)]),
-            device="cpu")
+            device="cpu", timeout=GROUP_TIMEOUT)
         return {"steps": list(record), "final": final,
                 "params": _params(built[-1])}
     whole = run("whole", [])
@@ -202,10 +228,66 @@ def refusal_rank(rank, world, tmp_path, argvs):
         try:
             run_training(parse_args(argv + [
                 "--dist-url", init_url(tmp_path, f"refuse{i}")]),
-                device="cpu")
+                device="cpu", timeout=GROUP_TIMEOUT)
             got.append(None)
         except Exception as e:  # noqa: BLE001 — handed to the parent
             got.append((type(e).__name__, str(e)))
         got[-1] = (got[-1], mesh.group() is None)
     save_result(tmp_path, rank, got)
 
+
+
+# ----------------------------------------------------------------------
+# the GPT trainer
+
+
+def gpt_rank(rank, world, tmp_path, jobs):
+    """`pretrain_gpt.run(argv)` on this rank of the CPU group for each job
+    (tag, argv, start, term_after) of `jobs`, a group each: the model built
+    from `start` (a state dict of numpy arrays) on rank 0 only (the others
+    keep their own draw, so that rank 0's broadcast is what they train
+    from), and with `term_after` a SIGTERM sent to rank 1 after its step
+    `term_after`. Each job's result (its `run` output with the final
+    parameters, or the exception it raised as (type name, message)), and
+    whether the group was left."""
+    from megatron_clip_tpu_torch import pretrain_gpt
+    from megatron_clip_tpu_torch.training import workload
+    create, run_wl, step = (pretrain_gpt.create_gpt,
+                            pretrain_gpt.run_workload, workload._Runner.step)
+    out = []
+    for tag, argv, start, term_after in jobs:
+        cap = {}
+
+        def created(cfg, **kw):
+            model = create(cfg, **kw)
+            if start is not None and rank == 0:
+                model.load_state_dict({k: torch.from_numpy(v)
+                                       for k, v in start.items()})
+            return model
+
+        def ran(model, *a, **kw):
+            res = run_wl(model, *a, **kw)
+            cap["params"] = {n: p.detach().clone()
+                             for n, p in model.named_parameters()}
+            return res
+
+        def stepped(self, batch, i):
+            m = step(self, batch, i)
+            if rank == 1 and i == term_after:
+                os.kill(os.getpid(), signal.SIGTERM)
+            return m
+        pretrain_gpt.create_gpt, pretrain_gpt.run_workload = created, ran
+        workload._Runner.step = stepped
+        args = pretrain_gpt.parse_args(argv + ["--device", "cpu"])
+        args.dist_url = init_url(tmp_path, f"gpt-{tag}")
+        try:
+            res = pretrain_gpt.run(args, timeout=GROUP_TIMEOUT)
+            res["params"] = cap["params"]
+        except (Exception, SystemExit) as e:  # noqa: BLE001 — to the parent
+            res = {"error": (type(e).__name__, str(e))}
+        finally:
+            pretrain_gpt.create_gpt, pretrain_gpt.run_workload = create, run_wl
+            workload._Runner.step = step
+        res["left"] = pretrain_gpt.mesh.group() is None
+        out.append(res)
+    save_result(tmp_path, rank, out)

@@ -36,8 +36,8 @@ def write_corpus(prefix, n_docs: int = 120, seed: int = 0,
 
 
 def jax_run(argv: list) -> dict:
-    """The JAX entry's `run` on argv: its result, its initial parameters
-    (numpy) and, when the run evaluates, the val loss of its final
+    """The JAX entry's `run` on argv: its result, its initial and final
+    parameters (numpy) and, when the run evaluates, the val loss of its final
     parameters over --eval-iters batches of a fresh validation stream (the
     JAX log prints it to 4 decimals only)."""
     cap = {}
@@ -46,6 +46,7 @@ def jax_run(argv: list) -> dict:
     def wrapped(params, loss_fn, batches, rc, **kw):
         cap["init"] = jax.tree.map(np.asarray, params)
         out = orig(params, loss_fn, batches, rc, **kw)
+        cap["final"] = jax.tree.map(np.asarray, out["params"])
         if rc.eval_interval:
             vit, ev = kw["val_iter_factory"](), kw["eval_loss_fn"]
             cap["val_loss"] = float(np.mean([
