@@ -266,7 +266,30 @@ of which raises (and so exits non-zero) on failure:
      made before phase 2, warm up on the CPU and wait for the phase; (a)
      takes its first step beside (b) and holds its timed steps until (b)
      has ended; the phase reads the ranks' results as they are written
-     and checks at its end that every launch exited 0. Within 60 s.
+     and checks at its end that every launch exited 0. Within 60 s;
+ 17. tensor parallelism with sequence parallelism, and FSDP: (a) four
+     gloo ranks of `pretrain_gpt` on the one card (torchrun,
+     `chip_smoke.py --gpt-dp-worker`) at examples/pretrain_gpt_dist.sh's
+     layout, --tensor-model-parallel-size 2 --fsdp-parallel-size 2
+     --sequence-parallel, on its model at full width (1024, 16 heads,
+     S = 2048, vocab 50304, rope, swiglu, rmsnorm, --fused-ce, selective
+     recompute, bf16 compute on fp32 weights), 2 layers, batch 4 in one
+     microbatch, 2 steps, plain (each rank's launches exactly one
+     process's step's: the flash kernels at 8 heads, the RMSNorm kernels
+     on S/2 rows, the fused CE on its rows) and, one step, with
+     --attention-dropout 0.1, each against one process of the same run
+     on the card (losses within TP_LOSS_RTOL, grad norms within
+     TP_NORM_RTOL, the share of the parameters' elements a learning rate
+     apart); each rank's parameter and moment bytes at most 0.26 of one
+     process's, its peak memory; (b) two gloo ranks of `pretrain_clip` at
+     --fsdp-parallel-size 2 on ViT-B-16, fp32, batch 8, 2 steps, held
+     until (a) ends, against one process (losses within 1e-5, each rank's
+     shards within 1e-4 of their norms, its bytes at most 0.51 of one
+     process's). The launches are made before phase 2 and wait for the
+     phase. Within 60 s. `python3 chip_smoke.py --tp-faults` runs the
+     dropout kernels' checks of phase 3 and then (a) with planted faults
+     beside its jobs (TP_FAULTS), printing each one's readings and the
+     bounds it breaks: the readings the bounds were set from.
 
 Before its last lines the script fails if a process it started (a build,
 a decode worker, the forkserver, the resource tracker) is still alive.
@@ -297,7 +320,9 @@ fp32 and bf16 (the fused route at the pipeline GPT's S = 512 heads, at
 its batch 32 there, at H = 12, D = 64 and at S = 333; flash at B = 2,
 S = 2048, at S = 1100, and at the path's B = 8, S = 2048 and B = 1,
 S = 8192 on the packed projection's head views, the backward also into
-the packed gradient buffer), kernels built to draw per tile or a column off
+the packed gradient buffer; both routes also placed as a tensor-parallel
+rank of phase 17 launches them, 8 of 16 heads a row from row 2 of the
+step, drawing the step's bits), kernels built to draw per tile or a column off
 failing the mask check and the output bounds, and each kernel's time at
 the pipeline GPT's shapes beside its rate-0 kernel, its plain version and
 SDPA with dropout_p = 0.1.
@@ -306,6 +331,7 @@ The last three lines of standard output are the card's name and power
 limit, the {"kernels": [...]} line and {"ok": true, "device": {...}}.
 """
 import atexit
+import contextlib
 import dataclasses
 import functools
 import json
@@ -593,6 +619,77 @@ GPT_DOC_PARITY = GPT_DOC_FLAGS + ["--batch-size", "1", "--micro-batch-size",
 GPT_DOC_PARAM_RTOL = 1e-3
 GPT_DP_DIR = REPO / "_smoke_gpt_dp"
 GPT_DP_LIMIT_S = 60.0
+
+# phase 17: tensor parallelism with sequence parallelism and FSDP, over
+# torchrun ranks on the one card over gloo (NCCL takes one rank a device),
+# launched before phase 2 and waiting for `go`. (a) TP_RANKS ranks at
+# pretrain_gpt_dist.sh's layout (GPT_DIST_DROPPED: tp2 x fsdp2, sequence
+# parallelism) on its model at full width (GPT_DIST: bf16 compute on fp32
+# weights, the fused CE, selective recompute), TP_LAYERS layers, TP_BATCH
+# rows in microbatches of TP_MICRO, TP_STEPS steps on the synthetic stream,
+# plain and (one step) with --attention-dropout 0.1, each against one
+# process of the same run on the card: losses within TP_LOSS_RTOL, grad
+# norms within TP_NORM_RTOL, at most TP_FAR_SHARE of the parameters'
+# elements more than the learning rate apart from the one process's (bf16
+# products reduced in another order flip the sign of gradients at rounding
+# level, and Adam's first steps move such an element by about lr either
+# way: the distance between the runs' parameters was 5.4e-2 of the distance
+# the steps moved them on an H100 at 700 W, over the 5e-2 first set for
+# it). The bounds are set from readings on an H100 at 700 W (PERF.md §6,
+# `--tp-faults`): sound runs read losses within 1.1e-5, grad norms within
+# 1.6e-4 and 0.13-0.17% of the elements lr apart; of the planted faults
+# (TP_FAULTS), attention dropout at tensor rank 0's heads
+# read 5.7e-5, 7.3e-4 and 5.0%, the partial gradients left unsummed over
+# the tensor ranks 2.3e-5, 3.7e-2 (and ranks no longer bit-equal), the
+# embedding's gradient doubled 1.8e-6, 0.24 and 0.16%; the norm gains
+# counted once a replica in the norm (3.5e-4) pass, and the CPU tests'
+# grad norms (within 1e-5) hold them. Each rank's launches those of one
+# process's step (the same kernels at the rank's shapes: 8 heads, S/2 norm
+# rows, the fused CE on its rows), its parameter and moment bytes at most
+# TP_STATE_SHARE of one process's, its peak memory. (The fp32 layout
+# against one process is the CPU tests', tests/test_torch_tp_fsdp.py: on
+# the card it read losses within 8.7e-8 and the parameters 5.9e-5 of their
+# displacement apart, and took a fifth of the phase.) (b) CLIP_FSDP_RANKS ranks at --fsdp-parallel-size 2 on
+# ViT-B-16, fp32, CLIP_FSDP_BATCH rows, CLIP_FSDP_STEPS steps, gated until
+# (a) ends, against one process: losses within DP_LOSS_RTOL, each rank's
+# shards within DP_PARAM_RTOL of the one process's, its bytes at most
+# CLIP_FSDP_SHARE. Scratch under TP_DIR; within TP_LIMIT_S.
+# (one microbatch a step, and one step with dropout: the phase read 29-45 s
+# of its 60 over hosts with two microbatches and two steps each, its ranks'
+# collectives staged through the host)
+TP_RANKS, TP_LAYERS, TP_BATCH, TP_MICRO, TP_STEPS = 4, 2, 4, 4, 2
+TP_LOSS_RTOL, TP_NORM_RTOL, TP_FAR_SHARE = 5e-5, 1e-3, 1e-2
+TP_STATE_SHARE, CLIP_FSDP_SHARE = 0.26, 0.51
+TP_GPT = [a for a in GPT_DIST] + GPT_DIST_WARMUP + GPT_DIST_DROPPED + [
+    "--log-interval", "1"]
+for _flag, _value in (("--num-layers", str(TP_LAYERS)),
+                      ("--batch-size", str(TP_BATCH))):
+    TP_GPT[TP_GPT.index(_flag) + 1] = _value
+TP_GPT += ["--micro-batch-size", str(TP_MICRO), "--train-steps",
+           str(TP_STEPS)]
+CLIP_FSDP_RANKS, CLIP_FSDP_BATCH, CLIP_FSDP_STEPS = 2, 8, 2
+CLIP_FSDP = ["--model", "ViT-B-16", "--precision", "fp32", "--batch-size",
+             str(CLIP_FSDP_BATCH), "--dataset-type", "synthetic",
+             "--train-num-samples", str(CLIP_FSDP_BATCH * CLIP_FSDP_STEPS),
+             "--lr", "1e-4", "--warmup", "1", "--grad-clip-norm", "1.0",
+             "--log-interval", "1"]
+TP_DIR = REPO / "_smoke_tp"
+TP_LIMIT_S = 60.0
+# (a)'s planted faults, run by `python3 chip_smoke.py --tp-faults` (not in
+# the script's run): each a job of the ranks beside the job it spoils, read
+# against that job's one process as the job itself is; the readings that
+# set TP_LOSS_RTOL and TP_NORM_RTOL (PERF.md). name: (the job it spoils,
+# what goes wrong)
+TP_FAULTS = {
+    "fault_placement": ("bf16 dropout", "each rank's attention dropout "
+                        "draws the heads of tensor rank 0"),
+    "fault_partial_sum": ("bf16", "the leaves a tensor rank holds a "
+                          "partial gradient of (the norm gains, the "
+                          "row-parallel biases) not summed over the "
+                          "tensor ranks"),
+    "fault_norm_weight": ("bf16", "each replica of a norm gain counted in "
+                          "the global norm"),
+    "fault_embed_twice": ("bf16", "the embedding's gradient summed twice")}
 
 
 _T0 = time.perf_counter()
@@ -1702,30 +1799,46 @@ def rms_checks(errs, gen, ln) -> None:
 # S = 333; flash at the pipeline GPT's heads at S = 2048, at a ragged S =
 # 1100, and at the path's batch 8 x 2048 and 1 x 8192 (the split pair) on
 # the head views of the packed projection, the gradients written into one
-# packed buffer, as the train step runs them; each (B, S, H, D, masks,
-# packed)
-FUSED_DROPOUT_SHAPES = ((2, 512, 16, 128, (True, False)),
-                        (32, 512, 16, 128, (True,)),
-                        (2, 512, 12, 64, (True, False)),
-                        (2, 333, 16, 128, (True, False)))
-FLASH_DROPOUT_SHAPES = ((2, 2048, 16, 128, (True, False), False),
-                        (2, 1100, 4, 128, (True, False), False),
-                        (8, 2048, 16, 128, (True,), True),
-                        (1, 8192, 16, 128, (True,), True))
+# packed buffer, as the train step runs them; and both routes placed as a
+# rank of phase 17 launches them (`check_dropout`: 8 of 16 heads, rows
+# from row 2 of the step); each (B, S, H, D, masks[, packed], placed)
+FUSED_DROPOUT_SHAPES = ((2, 512, 16, 128, (True, False), False),
+                        (32, 512, 16, 128, (True,), False),
+                        (2, 512, 12, 64, (True, False), False),
+                        (2, 333, 16, 128, (True, False), False),
+                        (2, 512, 8, 128, (True,), True))
+FLASH_DROPOUT_SHAPES = ((2, 2048, 16, 128, (True, False), False, False),
+                        (2, 1100, 4, 128, (True, False), False, False),
+                        (8, 2048, 16, 128, (True,), True, False),
+                        (1, 8192, 16, 128, (True,), True, False),
+                        (2, 2048, 8, 128, (True,), True, True))
 DROPOUT_RATE, DROPOUT_CHECK_SEED = 0.1, 0x5EED0F1A55C0FFEE
+
+
+def check_dropout(s: int, h: int, placed: bool):
+    """The dropout of a check's launch of `h` heads a row: of the whole
+    step, or `placed` as the tensor rank 1 of 2 (the launch's h heads the
+    second half of each row's 2h) of a data rank whose rows start at row 2
+    of the step, its heads drawing the step's bits (`Dropout::step_head`
+    with the division a tensor rank's launch takes)."""
+    from megatron_clip_tpu_torch.ops.dropout import RankSeed, attention_dropout
+    seed = DROPOUT_CHECK_SEED
+    if placed:
+        seed = RankSeed(seed, row_base=2, tp=2, tp_rank=1, batch_rank=1)
+    return attention_dropout(DROPOUT_RATE, seed, s + h, heads=h)
 
 
 def mask_check(lib, label: str, bh: int, s: int, drop) -> float:
     """The bits `lib.dropout_mask` exports against `philox_keep`, a head
-    at a time, bit for bit; returns the keep share, which must lie within
-    5 sigma of 1 - rate."""
+    at a time (the step's head of each, `drop.head`), bit for bit; returns
+    the keep share, which must lie within 5 sigma of 1 - rate."""
     from megatron_clip_tpu_torch.ops.dropout import philox_keep
     kept = 0
     exported = lib.dropout_mask(bh, s, s, drop.rate, drop.seed, drop.offset,
-                                "cuda")
+                                "cuda", placement=drop[3:])
     for i in range(bh):
-        want = philox_keep(drop.seed, drop.offset, i, range(s), range(s),
-                           drop.rate, "cuda")
+        want = philox_keep(drop.seed, drop.offset, drop.head(i), range(s),
+                           range(s), drop.rate, "cuda")
         if not torch.equal(exported[i], want):
             raise AssertionError(f"{label}: head {i} of the exported mask "
                                  "differs from the plain Philox")
@@ -1744,16 +1857,16 @@ def fused_dropout_checks(errs, gen, mha) -> None:
     """The fused-MHA dropout forward (out, row statistics) and backward
     against their plain versions fed the Philox multipliers, fp32 and
     bf16, both masks; the exported mask bit for bit."""
-    from megatron_clip_tpu_torch.ops.dropout import AttentionDropout
-    for b, s, h, d, masks in FUSED_DROPOUT_SHAPES:
-        drop = AttentionDropout(DROPOUT_RATE, DROPOUT_CHECK_SEED, s + h)
-        mask_check(mha, f"fused_mha dropout mask B={b} H={h} S={s}", b * h,
-                   s, drop)
+    for b, s, h, d, masks, placed in FUSED_DROPOUT_SHAPES:
+        drop = check_dropout(s, h, placed)
+        where = " placed" if placed else ""
+        mask_check(mha, f"fused_mha dropout mask B={b} H={h} S={s}{where}",
+                   b * h, s, drop)
         qkv = torch.randn(b, s, 3 * h * d, device="cuda", generator=gen)
         do = torch.randn(b, s, h * d, device="cuda", generator=gen)
         scale = d ** -0.5
         for causal in masks:
-            label = f"B={b} S={s} H={h} D={d} causal={causal} rate=0.1"
+            label = f"B={b} S={s} H={h} D={d} causal={causal} rate=0.1{where}"
             for dtype in (torch.float32, torch.bfloat16):
                 x, g = qkv.to(dtype), do.to(dtype)
 
@@ -1799,12 +1912,12 @@ def flash_dropout_checks(errs, gen) -> None:
     runs on the head views of a [B, S, 3*H*D] projection with dO a view
     of [B, S, H, D], and also through `flash_bwd`, which writes the
     gradients into one packed buffer (the train step's calls)."""
-    from megatron_clip_tpu_torch.ops.dropout import AttentionDropout
     from megatron_clip_tpu_torch.ops.kernels import flash_attention as fa
-    for b, s, h, d, masks, packed in FLASH_DROPOUT_SHAPES:
-        drop = AttentionDropout(DROPOUT_RATE, DROPOUT_CHECK_SEED, s + h)
-        mask_check(fa, f"flash dropout mask B={b} H={h} S={s}", b * h, s,
-                   drop)
+    for b, s, h, d, masks, packed, placed in FLASH_DROPOUT_SHAPES:
+        drop = check_dropout(s, h, placed)
+        where = " placed" if placed else ""
+        mask_check(fa, f"flash dropout mask B={b} H={h} S={s}{where}", b * h,
+                   s, drop)
         keep = drop.multipliers(b, h, s, s, fa.dropout_mult(drop.rate),
                                 "cuda")
         if packed:
@@ -1817,7 +1930,7 @@ def flash_dropout_checks(errs, gen) -> None:
         scale = d ** -0.5
         for causal in masks:
             label = (f"B={b} H={h} S={s} D={d} causal={causal} rate=0.1"
-                     + (" packed views" if packed else ""))
+                     + (" packed views" if packed else "") + where)
             for dtype in (torch.float32, torch.bfloat16):
                 if packed:
                     q, k, v = base[0].to(dtype).unflatten(-1, (3, h, d)) \
@@ -4784,15 +4897,16 @@ def dp_worker(spec_path: str) -> int:
         model = spec["argv"][spec["argv"].index("--model") + 1]
         per_step = per_step_launches(parse_model_cfg(get_model_config(
             model)), save_probs=True)
-    step, gated = loop._JointRunner.step, {}
+    step, gated, runners = loop._JointRunner.step, {}, []
 
     def gated_step(run, images, texts):
-        gated.setdefault("at", time.perf_counter())
-        wait_for(Path(spec["gate"]), DP_GO_TIMEOUT_S, spec["owner"])
-        gated.setdefault("opened", time.perf_counter())
+        runners[:] = [run]
+        if spec["gate"]:
+            gated.setdefault("at", time.perf_counter())
+            wait_for(Path(spec["gate"]), DP_GO_TIMEOUT_S, spec["owner"])
+            gated.setdefault("opened", time.perf_counter())
         return step(run, images, texts)
-    if spec["gate"]:
-        loop._JointRunner.step = gated_step
+    loop._JointRunner.step = gated_step
     try:
         with ModelProbe(loop) as built, \
                 TrainerProbe(loop, mha, ln, per_step) as probe:
@@ -4805,11 +4919,16 @@ def dp_worker(spec_path: str) -> int:
     for n, p in params.items():
         digest.update(n.encode())
         digest.update(p.reshape(-1).view(torch.uint8).numpy().tobytes())
-    if spec["params"] and rank == 0:
+    if spec["params"] == "all":  # each rank's own (a sharded model's shards)
+        torch.save(params, out / f"params{rank}.pt")
+    elif spec["params"] and rank == 0:
         torch.save(params, out / "params.pt")
     waited = gated.get("opened", 0.0) - gated.get("at", 0.0)
     (out / f"rank{rank}.json").write_text(json.dumps({
         "rank": rank, "world": int(os.environ.get("WORLD_SIZE", "1")),
+        "state_bytes": state_bytes(built.model,
+                                   runners[0].state.opt_state),
+        "peak_gib": torch.cuda.max_memory_allocated() / 2 ** 30,
         "losses": probe.loss_values(), "host": probe.host,
         "launches": probe.launches, "digest": digest.hexdigest(),
         "final": final, "wall": {
@@ -4818,6 +4937,16 @@ def dp_worker(spec_path: str) -> int:
             "last_step_end": wall + probe.host[-1][1],
             "returned": wall + time.perf_counter()}}))
     return 0
+
+
+def state_bytes(model, opt_state) -> dict:
+    """The bytes of a rank's parameters (a sharded model's shards) and of
+    its optimizer's moments."""
+    return {"params": sum(p.numel() * p.element_size()
+                          for p in model.parameters()),
+            "moments": sum(t.numel() * t.element_size()
+                           for t in (*opt_state.mu.values(),
+                                     *opt_state.nu.values()))}
 
 
 def process_alive(pid: int) -> bool:
@@ -5493,6 +5622,60 @@ def phase_gpt_trainer(mha, ln, card: str, example: dict,
     return result
 
 
+@contextlib.contextmanager
+def planted(fault):
+    """The TP_FAULTS fault `fault` planted in this rank's port while the
+    block runs (nothing for None)."""
+    from megatron_clip_tpu_torch.ops.dropout import RankSeed
+    from megatron_clip_tpu_torch.ops.kernels import flash_attention as fa
+    from megatron_clip_tpu_torch.ops.kernels import fused_mha as mha
+    from megatron_clip_tpu_torch.training import optim, workload
+    saved = [(m, n, getattr(m, n)) for m, n in (
+        (fa, "attention_dropout"), (mha, "attention_dropout"),
+        (workload, "reduction_plan"), (optim, "norm_weights"),
+        (workload._Runner, "_reduced_grads"))]
+    if fault == "fault_placement":
+        draw = fa.attention_dropout
+
+        def placed(rate, seed, offset, heads=0):
+            drop = draw(rate, seed, offset, heads)
+            if drop is not None and isinstance(seed, RankSeed):
+                drop = drop._replace(bh_base=seed.row_base * drop.bh_stride)
+            return drop
+        fa.attention_dropout = mha.attention_dropout = placed
+    elif fault == "fault_partial_sum":
+        plan = workload.reduction_plan
+
+        def unsummed(model):
+            tensor = model.layout.tensor
+            return {n: tuple(g for g in gs if g is not tensor)
+                    for n, gs in plan(model).items()}
+        workload.reduction_plan = unsummed
+    elif fault == "fault_norm_weight":
+        weights = optim.norm_weights
+
+        def counted(model):
+            w = weights(model)
+            return w and {n: 1.0 if n.endswith("scale") else v
+                          for n, v in w.items()}
+        optim.norm_weights = counted
+    elif fault == "fault_embed_twice":
+        reduced = workload._Runner._reduced_grads
+
+        def twice(run, *a):
+            loss, grads = reduced(run, *a)
+            grads["tok_embed"].mul_(2)
+            return loss, grads
+        workload._Runner._reduced_grads = twice
+    elif fault is not None:
+        raise ValueError(f"no planted fault {fault}")
+    try:
+        yield
+    finally:
+        for m, n, v in saved:
+            setattr(m, n, v)
+
+
 def gpt_dp_worker(spec_path: str) -> int:
     """One rank of a phase 16 launch (`chip_smoke.py --gpt-dp-worker SPEC`
     under torchrun). It warms up on the CPU (`gpt_warm_up`) and waits for
@@ -5503,14 +5686,18 @@ def gpt_dp_worker(spec_path: str) -> int:
     `WorkloadProbe` (exact launches where the job gives them); with
     "time_reduce" each step's `GradBuckets.all_reduce_mean` in device ms
     (CUDA events around it: the gradient all-reduce and its division by
-    W); with "gate_at" the job's step of that number first waits for spec["gate"],
+    W); with "fault" that TP_FAULTS fault planted (`planted`); with
+    "gate_at" the job's step of that number first waits for spec["gate"],
     and with "term_after" rank 1 sends itself SIGTERM after that step. It
     writes each job's losses, grad norms, step device ms and host clocks,
     peak memory, launches, the step it stopped at, its wall clock and,
     with "digest", a digest of its final parameters to OUT/rank{r}.json,
-    and with "params" rank 0's parameters to OUT/{job}.pt."""
+    and with "params" rank 0's parameters to OUT/{job}.pt (a sharded
+    model's gathered whole at the run's end); each job's state bytes (the
+    rank's parameters and optimizer moments)."""
     import hashlib
     from megatron_clip_tpu_torch import pretrain_gpt
+    from megatron_clip_tpu_torch.parallel import mesh, sharding
     from megatron_clip_tpu_torch.ops.kernels import fused_mha as mha
     from megatron_clip_tpu_torch.ops.kernels import layernorm as ln
     from megatron_clip_tpu_torch.training import train_step, workload
@@ -5555,17 +5742,31 @@ def gpt_dp_worker(spec_path: str) -> int:
                 evs.append(ev)
             if job.get("time_reduce"):
                 train_step.GradBuckets.all_reduce_mean = timed_reduce
+            run_wl, whole = pretrain_gpt.run_workload, {}
+
+            def gathered(model, *a, run_wl=run_wl, whole=whole, **kw):
+                res = run_wl(model, *a, **kw)
+                if getattr(model, "placements", None) is not None:
+                    whole.update(sharding.gather_state(
+                        {n: p.detach() for n, p in model.named_parameters()},
+                        model.placements, mesh.layout()))
+                return res
+            pretrain_gpt.run_workload = gathered
             try:
-                final = pretrain_gpt.run(args)
+                with planted(job.get("fault")):
+                    final = pretrain_gpt.run(args)
             finally:
                 workload._Runner.step = probed
                 train_step.GradBuckets.all_reduce_mean = reduce
+                pretrain_gpt.run_workload = run_wl
         torch.cuda.synchronize()
         reduce_ms = [a.elapsed_time(b) for a, b in reduce_ev]
         digest = None
+        held = state_bytes(probe.runner.model, probe.runner.opt_state)
         if job.get("digest"):
-            params = {n: p.detach().cpu() for n, p in
-                      probe.runner.model.named_parameters()}
+            params = ({n: p.cpu() for n, p in whole.items()} or {
+                n: p.detach().cpu() for n, p in
+                probe.runner.model.named_parameters()})
             digest = hashlib.sha256()
             for n, p in params.items():
                 digest.update(n.encode())
@@ -5589,6 +5790,7 @@ def gpt_dp_worker(spec_path: str) -> int:
             "host": [s["host"] for s in probe.steps],
             "peak_gib": max([s["peak_gib"] for s in probe.steps] or [0.0]),
             "launches": probe.launches, "last_step": final["last_step"],
+            "state_bytes": held,
             "digest": digest, "reduce_ms": reduce_ms,
             "gate_wait": gated.get("opened", 0.0) - gated.get("at", 0.0)}
     tmp = out / f"rank{rank}.json.tmp"
@@ -5963,6 +6165,359 @@ def phase_gpt_data_parallel(launches: GptDataParallelLaunches, mha, ln,
     return result
 
 
+class ShardedLaunches(GptDataParallelLaunches):
+    """Phase 17's torchrun launches, made before phase 2 and waiting for
+    `go`: (a) TP_RANKS gloo ranks on the card running the GPT jobs
+    (`gpt_dp_worker`: TP_GPT, and with attention dropout), (b)
+    CLIP_FSDP_RANKS gloo ranks of `pretrain_clip` at fsdp 2 (`dp_worker`),
+    its first step gated until (a) has ended. With `faults`, (a) also runs
+    TP_FAULTS's jobs and (b) is not launched."""
+
+    root = TP_DIR
+
+    def __init__(self, faults: bool = False):
+        shutil.rmtree(self.root, ignore_errors=True)
+        self.root.mkdir(parents=True)
+        self.go, self.gate = self.root / "go", self.root / "gate"
+        self.procs = {}
+        self.dirs = {"gpt": self.root / "a", "clip": self.root / "b"}
+        on_card = ["--device", "cuda:0"]
+        self.gpt = {"bf16": TP_GPT, "bf16 dropout": TP_GPT + [
+            "--attention-dropout", "0.1", "--train-steps", "1"]}
+        from megatron_clip_tpu_torch.pretrain_gpt import (gpt_cfg_from_args,
+                                                          parse_args)
+        cfg = gpt_cfg_from_args(parse_args(TP_GPT))
+        # a rank runs one process's kernels, each at its shapes
+        self.per_step = gpt_trainer_per_step(cfg, cfg.seq_length, True,
+                                             "selective",
+                                             TP_BATCH // TP_MICRO)
+        self.worker_flag = "--gpt-dp-worker"
+        self.faults = TP_FAULTS if faults else {}
+        self.launch_jobs("gpt", TP_RANKS, [
+            {"name": name, "argv": argv + on_card, "params": True,
+             "digest": True, "backend": "gloo",
+             "per_step": self.per_step if name == "bf16" else None}
+            for name, argv in self.gpt.items()] + [
+            {"name": name, "argv": self.gpt[job] + on_card, "params": True,
+             "digest": True, "backend": "gloo", "fault": name}
+            for name, (job, _) in self.faults.items()])
+        atexit.register(self.stop)
+        if faults:
+            return
+        self.worker_flag = "--dp-worker"
+        self.launch("clip", CLIP_FSDP + ["--fsdp-parallel-size", "2",
+                                         "--device", "cuda:0",
+                                         "--dist-backend", "gloo"],
+                    CLIP_FSDP_RANKS, launches=False, params="all",
+                    gate=self.gate)
+
+
+def one_process_argv(argv: list) -> list:
+    """`argv` without the layout's flags (GPT_DIST_DROPPED)."""
+    out, i = [], 0
+    while i < len(argv):
+        if argv[i] in ("--tensor-model-parallel-size",
+                       "--fsdp-parallel-size"):
+            i += 2
+            continue
+        if argv[i] != "--sequence-parallel":
+            out.append(argv[i])
+        i += 1
+    return out
+
+
+def tp_references(launches: ShardedLaunches, main, workload, mha,
+                  ln) -> dict:
+    """(a)'s one-process runs on the card, while the ranks run: each job's
+    initial and final parameters (on the host), losses, grad norms,
+    launches, state bytes and peak memory."""
+    from megatron_clip_tpu_torch.models.gpt import create_gpt
+    from megatron_clip_tpu_torch.pretrain_gpt import (
+        gpt_cfg_from_args, parse_args, precision_from_args)
+    one = {}
+    for name, argv in launches.gpt.items():
+        argv = one_process_argv(argv)
+        args = parse_args(argv)
+        start = create_gpt(gpt_cfg_from_args(args), device="cpu",
+                           precision=precision_from_args(args),
+                           seed=args.seed)
+        with WorkloadProbe(workload, mha, ln, None) as probe:
+            main(argv + ["--device", "cuda"])
+        one[name] = {
+            "start": {n: p.detach().float() for n, p in
+                      start.named_parameters()},
+            "params": {n: p.detach().float().cpu() for n, p in
+                       probe.runner.model.named_parameters()},
+            "losses": probe.losses(),
+            "grad_norms": [s["grad_norm"] for s in probe.steps],
+            "launches": probe.launches,
+            "peak_gib": max(s["peak_gib"] for s in probe.steps),
+            "state_bytes": state_bytes(probe.runner.model,
+                                       probe.runner.opt_state)}
+        probe.runner = None
+        torch.cuda.empty_cache()
+    return one
+
+
+def tp_readings(launches: ShardedLaunches, jobs: list, name: str,
+                want: dict) -> dict:
+    """Job `name` of (a)'s ranks (`jobs`, each rank's) against one
+    process's run `want`."""
+    got = torch.load(launches.dirs["gpt"] / f"{name}.pt")
+    start, params = want["start"], want["params"]
+    moved = sum(float((params[n] - start[n]).norm()) ** 2
+                for n in params) ** 0.5
+    off = sum(float((got[n].float() - params[n]).norm()) ** 2
+              for n in params) ** 0.5
+    worst = max(params, key=lambda n: float(
+        (got[n].float() - params[n]).norm() / params[n].norm()))
+    # elements the steps moved another way: more than the learning rate
+    # apart (at Adam's first steps every element moves by about lr whatever
+    # its gradient's size, so one whose gradient sits at bf16 rounding level
+    # may move either way)
+    argv = launches.gpt["bf16"]
+    lr = float(argv[argv.index("--lr") + 1])
+    far = sum(int(((got[n].float() - p).abs() > lr).sum())
+              for n, p in params.items()) / sum(
+        p.numel() for p in params.values())
+    loss_err = max(abs(g - w) / abs(w) for j in jobs
+                   for g, w in zip(j[name]["losses"], want["losses"]))
+    norm_err = max(abs(g - w) / abs(w) for j in jobs
+                   for g, w in zip(j[name]["grad_norms"],
+                                   want["grad_norms"]))
+    held = [j[name]["state_bytes"] for j in jobs]
+    one_bytes = want["state_bytes"]
+    share = max(max(h["params"] / one_bytes["params"],
+                    h["moments"] / one_bytes["moments"]) for h in held)
+    return {"losses_one_process": want["losses"],
+            "losses_ranks": [j[name]["losses"] for j in jobs],
+            "loss_max_rel_err": loss_err,
+            "grad_norms_one_process": want["grad_norms"],
+            "grad_norms_ranks": [j[name]["grad_norms"] for j in jobs],
+            "grad_norm_max_rel_err": norm_err,
+            "param_err_over_moved": off / moved,
+            "param_worst_leaf": worst, "param_share_lr_apart": far,
+            "ranks_bit_equal": len({j[name]["digest"] for j in jobs}) == 1,
+            "steps_as_one_process": all(
+                len(j[name]["losses"]) == len(want["losses"])
+                for j in jobs),
+            "state_bytes_one_process": one_bytes,
+            "state_bytes_ranks": held, "state_share": share,
+            "peak_gib_one_process": want["peak_gib"],
+            "peak_gib_ranks": [j[name]["peak_gib"] for j in jobs],
+            "step_device_ms_ranks": [j[name]["device_ms"] for j in jobs],
+            "launches_one_process": want["launches"],
+            "launches_ranks": [j[name]["launches"] for j in jobs]}
+
+
+def tp_broken(res: dict) -> list:
+    """The bounds of (a) that the readings `res` break."""
+    return [bound for bound, broken in (
+        ("steps", not res["steps_as_one_process"]),
+        ("TP_LOSS_RTOL", res["loss_max_rel_err"] > TP_LOSS_RTOL),
+        ("TP_NORM_RTOL", res["grad_norm_max_rel_err"] > TP_NORM_RTOL),
+        ("TP_FAR_SHARE", res["param_share_lr_apart"] > TP_FAR_SHARE),
+        ("ranks bit-equal", not res["ranks_bit_equal"]),
+        ("TP_STATE_SHARE", res["state_share"] > TP_STATE_SHARE)) if broken]
+
+
+def tp_parity(launches: ShardedLaunches, one: dict) -> dict:
+    """(a): each job's ranks against its one process (see TP_RANKS's
+    note); each planted fault's (`launches.faults`) against the one
+    process of the job it spoils, with the bounds it breaks."""
+    ranks = launches.results("gpt", TP_RANKS, timeout=120)
+    jobs = [r["jobs"] for r in ranks]
+    result, bad = {}, []
+    for name, want in one.items():
+        result[name] = tp_readings(launches, jobs, name, want)
+        if tp_broken(result[name]):
+            bad.append(name)
+    for name, (job, what) in launches.faults.items():
+        res = tp_readings(launches, jobs, name, one[job])
+        result[name] = dict(res, fault=what, breaks=tp_broken(res))
+    # every kernel of the path launched in the ranks, as in one process
+    kernels = ("flash_fwd", "flash_bwd_fused", "rms_norm_fwd",
+               "rms_norm_bwd", "fused_ce_fwd", "fused_ce_bwd")
+    idle = [k for k in kernels for j in jobs
+            if j["bf16"]["launches"][k] == 0]
+    if idle:
+        bad.append(f"idle kernels {sorted(set(idle))}")
+    log(f"  (a) {TP_RANKS} ranks at tp2 x fsdp2 with sequence parallelism "
+        f"on the card over gloo against one process: "
+        f"{json.dumps(result)}")
+    if bad:
+        raise AssertionError(f"tensor parallel (a): {bad} disagree")
+    return result
+
+
+def clip_fsdp_reference(launches: ShardedLaunches, mha, ln) -> dict:
+    """(b)'s one-process run on the card: its losses, final parameters
+    (host), state bytes and peak memory."""
+    from megatron_clip_tpu_torch.pretrain_clip import main as train_main
+    from megatron_clip_tpu_torch.training import loop
+    runners = []
+    step = loop._JointRunner.step
+
+    def kept(run, images, texts):
+        runners[:] = [run]
+        return step(run, images, texts)
+    loop._JointRunner.step = kept
+    torch.cuda.reset_peak_memory_stats()
+    try:
+        with ModelProbe(loop) as built, \
+                TrainerProbe(loop, mha, ln, None) as probe:
+            train_main(CLIP_FSDP + ["--device", "cuda"])
+    finally:
+        loop._JointRunner.step = step
+    out = {"losses": probe.loss_values(),
+           "params": {n: p.detach().cpu() for n, p in
+                      built.model.named_parameters()},
+           "state_bytes": state_bytes(built.model,
+                                      runners[0].state.opt_state),
+           "peak_gib": torch.cuda.max_memory_allocated() / 2 ** 30,
+           "launches": probe.launches}
+    runners.clear()
+    built.model = None
+    torch.cuda.empty_cache()
+    return out
+
+
+def clip_fsdp_parity(launches: ShardedLaunches, one: dict) -> dict:
+    """(b): the two ranks against one process: losses within DP_LOSS_RTOL,
+    each rank's shards within DP_PARAM_RTOL of the one process's split
+    (relative to the leaf's norm), each rank's bytes at most
+    CLIP_FSDP_SHARE of one process's."""
+    from megatron_clip_tpu_torch import factory
+    from megatron_clip_tpu_torch.parallel import sharding
+    from megatron_clip_tpu_torch.parallel.mesh import Layout
+    ranks = launches.wait("clip", CLIP_FSDP_RANKS, timeout=120)
+    model = factory.create_model("ViT-B-16", precision="fp32", device="cpu")
+    pls = sharding.placements(model, sharding.clip_param_specs(
+        dict(model.named_parameters())), Layout(fsdp=2))
+    del model
+    worst, loss_err = 0.0, 0.0
+    for r, got in enumerate(ranks):
+        shards = torch.load(launches.dirs["clip"] / f"params{r}.pt")
+        for n, p in one["params"].items():
+            want = sharding.split_tensor(p, pls[n], Layout(fsdp=2, f=r))
+            worst = max(worst, float((shards[n] - want).norm()
+                                     / want.norm().clamp_min(1e-30)))
+        loss_err = max([loss_err] + [abs(g - w) / abs(w) for g, w in
+                                     zip(got["losses"], one["losses"])])
+    share = max(max(r["state_bytes"]["params"]
+                    / one["state_bytes"]["params"],
+                    r["state_bytes"]["moments"]
+                    / one["state_bytes"]["moments"]) for r in ranks)
+    res = {"losses_one_process": one["losses"],
+           "losses_ranks": [r["losses"] for r in ranks],
+           "loss_max_rel_err": loss_err, "param_max_rel_err": worst,
+           "state_bytes_one_process": one["state_bytes"],
+           "state_bytes_ranks": [r["state_bytes"] for r in ranks],
+           "state_share": share, "peak_gib_one_process": one["peak_gib"],
+           "peak_gib_ranks": [r["peak_gib"] for r in ranks],
+           "launches_one_process": one["launches"],
+           "launches_ranks": [r["launches"] for r in ranks]}
+    log(f"  (b) {CLIP_FSDP_RANKS} ranks of pretrain_clip at "
+        f"--fsdp-parallel-size 2 on ViT-B-16 against one process: "
+        f"{json.dumps(res)}")
+    if any(len(r["losses"]) != CLIP_FSDP_STEPS for r in ranks) \
+            or loss_err > DP_LOSS_RTOL or worst > DP_PARAM_RTOL \
+            or share > CLIP_FSDP_SHARE:
+        raise AssertionError("FSDP CLIP (b) disagrees")
+    return res
+
+
+def phase_sharded(launches: ShardedLaunches, mha, ln, card: str) -> dict:
+    log(f"[17] tensor parallelism and FSDP: (a) {TP_RANKS} ranks on the "
+        f"card over gloo at tp2 x fsdp2 with sequence parallelism, "
+        f"pretrain_gpt_dist.sh's model at full width, {TP_LAYERS} layers, "
+        f"plain and with attention dropout, against one process; "
+        f"(b) {CLIP_FSDP_RANKS} ranks of pretrain_clip at fsdp 2 on "
+        f"ViT-B-16 against one process")
+    t0 = time.perf_counter()
+    from megatron_clip_tpu_torch.pretrain_gpt import main
+    from megatron_clip_tpu_torch.training import workload
+    result = {"card": card}
+    launches.go.touch()
+
+    def timed(name: str, part):
+        t_part = time.perf_counter()
+        result[name] = part()
+        result[name]["seconds"] = time.perf_counter() - t_part
+        log(f"  {name}: {result[name]['seconds']:.1f} s")
+    try:
+        threads = torch.get_num_threads()
+        torch.set_num_threads(max(1, threads // 2))
+        try:
+            one = tp_references(launches, main, workload, mha, ln)
+        finally:
+            torch.set_num_threads(threads)
+        timed("gpt_tp2_fsdp2_sp", lambda: tp_parity(launches, one))
+        launches.gate.touch()
+        clip_one = clip_fsdp_reference(launches, mha, ln)
+        timed("clip_fsdp2", lambda: clip_fsdp_parity(launches, clip_one))
+        launches.finish(timeout=60)
+    finally:
+        launches.stop()
+    result["seconds"] = time.perf_counter() - t0
+    log(f"  tensor parallelism and FSDP ({card}): {json.dumps(result)}")
+    if result["seconds"] > TP_LIMIT_S:
+        raise AssertionError(
+            f"phase 17 took {result['seconds']:.1f} s, over "
+            f"{TP_LIMIT_S} s: " + phase_parts(result))
+    return result
+
+
+def tp_fault_readings() -> int:
+    """`python3 chip_smoke.py --tp-faults`: the dropout kernels against
+    their plain versions as phase 3 holds them (every shape of
+    FUSED_DROPOUT_SHAPES and FLASH_DROPOUT_SHAPES, the placed launches
+    among them), then phase 17 (a) with TP_FAULTS's jobs beside its own:
+    each job's readings against its one process, and of each fault the
+    bounds it breaks, the readings that set TP_LOSS_RTOL and TP_NORM_RTOL.
+    Its last two lines: the card's name and power limit, and the readings
+    as one JSON object."""
+    from megatron_clip_tpu_torch.ops.kernels import _build
+    from megatron_clip_tpu_torch.ops.kernels import fused_mha as mha
+    from megatron_clip_tpu_torch.ops.kernels import layernorm as ln
+    from megatron_clip_tpu_torch.pretrain_gpt import main as gpt_main
+    from megatron_clip_tpu_torch.training import workload
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    atexit.register(kill_tree)
+    signal.signal(signal.SIGTERM, lambda *_: sys.exit(143))
+    card = gpu_name_and_power_limit()
+    log(f"[1] device: {torch.cuda.get_device_name(0)} | {card} | torch "
+        f"{torch.__version__} CUDA {torch.version.cuda}")
+    launches = ShardedLaunches(faults=True)
+    log("[2] build")
+    took = _build.build(list(_build.SOURCES) + list(_build.HOST_SOURCES))
+    log(f"  {json.dumps({k: round(v, 1) for k, v in took.items()})}")
+    log("[3] the dropout kernels vs their plain versions")
+    gen = torch.Generator(device="cuda").manual_seed(0)
+    errs = {name: {} for name in KERNELS}
+    fused_dropout_checks(errs, gen, mha)
+    flash_dropout_checks(errs, gen)
+    log(f"  worst errors: {json.dumps({k: v for k, v in errs.items() if v})}")
+    log("[17] (a) with the planted faults")
+    t0 = time.perf_counter()
+    launches.go.touch()
+    try:
+        one = tp_references(launches, gpt_main, workload, mha, ln)
+        result = tp_parity(launches, one)
+        launches.finish(timeout=60)
+    finally:
+        launches.stop()
+    log(f"  {time.perf_counter() - t0:.1f} s")
+    keys = ("loss_max_rel_err", "grad_norm_max_rel_err",
+            "param_err_over_moved", "param_share_lr_apart", "breaks")
+    check_no_processes_left()
+    print(card)
+    print(json.dumps({name: {k: res[k] for k in keys if k in res}
+                      for name, res in result.items()}))
+    return 0
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; this script runs only on the GPU",
@@ -5972,6 +6527,8 @@ def main() -> int:
         return dp_worker(sys.argv[2])
     if sys.argv[1:2] == ["--gpt-dp-worker"]:
         return gpt_dp_worker(sys.argv[2])
+    if sys.argv[1:2] == ["--tp-faults"]:
+        return tp_fault_readings()
     import megatron_clip_tpu_torch as port
     from megatron_clip_tpu_torch.ops.kernels import _build
     from megatron_clip_tpu_torch.ops.kernels import fused_mha as mha
@@ -5990,6 +6547,7 @@ def main() -> int:
         f"{torch.__version__} CUDA {torch.version.cuda}")
     launches = DataParallelLaunches()
     gpt_launches = GptDataParallelLaunches()
+    tp_launches = ShardedLaunches()
     phase_build(_build)
     errs = phase_kernels(mha, ln)
     phase_goldens(port)
@@ -6007,6 +6565,7 @@ def main() -> int:
                                     gpt_launches.corpus_dir)
     gpt_dp = phase_gpt_data_parallel(gpt_launches, mha, ln, card,
                                      gpt_trainer)
+    sharded = phase_sharded(tp_launches, mha, ln, card)
     paths = {"serving ViT-B-32": serving["launches"],
              "train ViT-B-32": train["launches"],
              **{f"train {name} recompute": run["launches"]
@@ -6035,7 +6594,13 @@ def main() -> int:
              "GPT trainer torchrun 1 rank nccl":
                  gpt_dp["nccl_one_rank"]["launches"],
              "GPT trainer document flags 1 card":
-                 gpt_dp["doc_flags"]["launches"]}
+                 gpt_dp["doc_flags"]["launches"],
+             **{f"GPT trainer tp2 x fsdp2 sp rank {r}": got
+                for r, got in enumerate(
+                    sharded["gpt_tp2_fsdp2_sp"]["bf16"]["launches_ranks"])},
+             **{f"GPT trainer tp2 x fsdp2 sp dropout rank {r}": got
+                for r, got in enumerate(sharded["gpt_tp2_fsdp2_sp"][
+                    "bf16 dropout"]["launches_ranks"])}}
     kernels = kernels_line(rows, paths, errs)
     idle = [k["name"] for k in kernels if k["launches"] == 0]
     if idle:

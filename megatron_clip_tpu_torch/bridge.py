@@ -25,14 +25,18 @@ and maps a JAX gradient tree onto the port's names. A GPT tree
 scale only), lm_head (untied) and blocks/* -> blocks.{i}.*, whatever the
 leaves' widths: the swiglu w1 [W, 2 * ffn] and b1, the grouped-query wqkv
 [W, (H + 2 Hkv) D].
+
+Given a model sharded over tensor and fsdp ranks (`parallel/sharding.
+shard_model`, `model=`), the state is that rank's shards of it.
 """
-from typing import Any, Dict, Union
+from typing import Any, Dict, Optional, Union
 
 import numpy as np
 import torch
 
 from megatron_clip_tpu_torch.config import CLIPCfg
 from megatron_clip_tpu_torch.models.gpt import GPTCfg
+from megatron_clip_tpu_torch.parallel.sharding import rank_state
 from megatron_clip_tpu_torch.training.optim import OptState
 
 
@@ -76,23 +80,28 @@ def _unstacked(tree: Dict[str, Any], towers, device, dtype
 
 def params_from_jax(tree: Dict[str, Any], cfg: CLIPCfg,
                     device: Union[str, torch.device, None] = "cpu",
-                    dtype: torch.dtype = torch.float32
+                    dtype: torch.dtype = torch.float32,
+                    model: Optional[torch.nn.Module] = None
                     ) -> Dict[str, torch.Tensor]:
     """JAX CLIP param pytree (nested dicts of numpy or jax arrays) -> the
     port's state dict, ready for `model.load_state_dict`. `cfg` checks the
-    layer counts."""
-    return _unstacked(tree, {"visual": cfg.vision.layers,
-                             "text": cfg.text.layers}, device, dtype)
+    layer counts. With a sharded `model`, this rank's shards of it."""
+    state = _unstacked(tree, {"visual": cfg.vision.layers,
+                              "text": cfg.text.layers}, device, dtype)
+    return state if model is None else rank_state(model, state)
 
 
 def gpt_params_from_jax(tree: Dict[str, Any], cfg: GPTCfg,
                         device: Union[str, torch.device, None] = "cpu",
-                        dtype: torch.dtype = torch.float32
+                        dtype: torch.dtype = torch.float32,
+                        model: Optional[torch.nn.Module] = None
                         ) -> Dict[str, torch.Tensor]:
     """JAX GPT param pytree (`init_gpt`'s, nested dicts of numpy or jax
     arrays) -> a `GPTModel`'s state dict, the `blocks` layer axis
-    unstacked. `cfg` checks the layer count."""
-    return _unstacked(tree, {"": cfg.num_layers}, device, dtype)
+    unstacked. `cfg` checks the layer count. With a sharded `model`, this
+    rank's shards of it (`parallel/sharding.rank_state`)."""
+    state = _unstacked(tree, {"": cfg.num_layers}, device, dtype)
+    return state if model is None else rank_state(model, state)
 
 
 def _nodes(tree):

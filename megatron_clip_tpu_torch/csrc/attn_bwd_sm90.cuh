@@ -352,6 +352,7 @@ bwd_dq(const __grid_constant__ Maps maps, const Args g, Dropout drop) {
     const int row0 = q0 + 64 * c;
     const int row_lo = row0 + 16 * (ct >> 5) + (lane >> 2);
     const long bh = (long)b * g.H + h;
+    const mct::StepHead dh = drop.step_head(bh);
     // (recompute) m log2(e) and 1 / l of the thread's rows; rows past S
     // take P = 0
     float mb[2], il[2];
@@ -390,7 +391,7 @@ bwd_dq(const __grid_constant__ Maps maps, const Args g, Dropout drop) {
 #pragma unroll
         for (int j = 0; j < kN / 8; ++j) {
           float keep[4];
-          drop.quad(keep, bh, row_lo, t * kN + 8 * j + 2 * (lane & 3));
+          drop.quad(keep, dh, row_lo, t * kN + 8 * j + 2 * (lane & 3));
 #pragma unroll
           for (int e = 0; e < 4; ++e)
             kb[j >> 3] |= (uint32_t)(keep[e] != 0.f) << (4 * (j & 7) + e);
@@ -580,6 +581,7 @@ bwd_dkdv(const __grid_constant__ Maps maps, const Args g, Dropout drop) {
   const int tid = threadIdx.x;
   const int h = blockIdx.x, b = blockIdx.y, k0 = blockIdx.z * L::kKeys;
   const long bh = (long)b * g.H + h;
+  const mct::StepHead dh = drop.step_head(bh);
   // causal: no query before the block's first key attends to its keys
   const int jt0 = g.causal ? k0 / kQ : 0;
   const int ntiles = (g.S + kQ - 1) / kQ - jt0;
@@ -708,7 +710,7 @@ bwd_dkdv(const __grid_constant__ Maps maps, const Args g, Dropout drop) {
     uint32_t kept[kQ / 16];
 #pragma unroll
     for (int m = 0; m < kQ / 16; ++m)
-      kept[m] = kDrop ? drop.bits_t2_pair(bh, q0 + 16 * m + 2 * (lane & 3),
+      kept[m] = kDrop ? drop.bits_t2_pair(dh, q0 + 16 * m + 2 * (lane & 3),
                                           key_lo, 4)
                       : 0xffu;
     wgmma_wait<0>();

@@ -227,7 +227,7 @@ __device__ __forceinline__ void row_max(const float (&s)[kN / 2],
 template <bool kDrop>
 __device__ __forceinline__ void to_frags(uint32_t (&pa)[kN / 16][4],
                                          float (&p)[kN / 2],
-                                         const Dropout& drop, long bh,
+                                         const Dropout& drop, StepHead bh,
                                          int row_lo, int k0, int lane) {
 #pragma unroll
   for (int kk = 0; kk < kN / 16; ++kk) {
@@ -332,6 +332,7 @@ fwd(const __grid_constant__ Maps maps, const Args g, Dropout drop) {
   const bool idle = row0 >= g.Sq;  // warpgroup-uniform
   const int row_lo = row0 + 16 * (ct >> 5) + (lane >> 2);
   const long bh = (long)b * g.H + h;
+  const StepHead dh = drop.step_head(bh);  // once, not a Philox call
   const float sl2 = g.scale * kLog2e;
   // warpgroup-uniform: the tile at k0 crosses the keys' end or the
   // warpgroup's diagonal
@@ -462,7 +463,7 @@ fwd(const __grid_constant__ Maps maps, const Args g, Dropout drop) {
   // 16-byte stores (a chunk of 8 keys from k0 + 8 ch; a chunk at the keys'
   // end holds masked keys, 0, in the row's padding)
   auto frags = [&](int k0) {
-    to_frags<kDrop>(pa, s, drop, bh, row_lo, k0, lane);
+    to_frags<kDrop>(pa, s, drop, dh, row_lo, k0, lane);
     if (!kProbs || p_bh == nullptr) return;
     named_sync(1 + c, 128);  // the last tile's stores have read the stage
 #pragma unroll

@@ -261,6 +261,7 @@ fwd(View<const T> q, View<const T> k, View<const T> v, View<T> o,
 
   const int b = blockIdx.z, h = blockIdx.y, q0 = blockIdx.x * kQTile;
   const int nq = min(kQTile, Sq - q0);
+  const mct::StepHead dh = drop.step_head((long)b * H + h);
   const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
   const int r0 = warp * kRows;
   const T* kb = k.head(b, h);
@@ -301,7 +302,7 @@ fwd(View<const T> q, View<const T> k, View<const T> v, View<T> o,
       m[r] = mn;
       // dropout scales the unnormalised p of P.V; l keeps the undropped sum
       const float keep =
-          kDrop && ok ? drop.at(b * H + h, q0 + r0 + r, kj) : 1.f;
+          kDrop && ok ? drop.at(dh, q0 + r0 + r, kj) : 1.f;
       p_w[r * kKTile + lane] = mct::round_to<T>(p * keep);
 #pragma unroll
       for (int c = 0; c < kDPerLane; ++c) acc[r][c] *= corr;
@@ -361,6 +362,7 @@ bwd_dq(View<const T> q, View<const T> k, View<const T> v, View<const T> g,
   const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
   const int r0 = warp * kRows;
   const long bh = (long)b * H + h;
+  const mct::StepHead dh = drop.step_head(bh);
   const T* kb = k.head(b, h);
   const T* vb = v.head(b, h);
   load_rows(q_s, q.head(b, h), q.s, q0, nq, kQTile, D, dp, dp);
@@ -396,7 +398,7 @@ bwd_dq(View<const T> q, View<const T> k, View<const T> v, View<const T> g,
       const bool ok = lane < nt && (!causal || kj <= q0 + r0 + r);
       const float p = ok ? expf(s[r] * scale - lse_r[r]) : 0.f;
       // dP of the dropped P is dP M
-      const float keep = kDrop && ok ? drop.at(bh, q0 + r0 + r, kj) : 1.f;
+      const float keep = kDrop && ok ? drop.at(dh, q0 + r0 + r, kj) : 1.f;
       ds_w[r * kKTile + lane] =
           mct::round_to<T>(p * (dpv[r] * keep - dl[r]) * scale);
     }
@@ -452,6 +454,7 @@ bwd_kv(View<const T> q, View<const T> k, View<const T> v, View<const T> g,
   const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
   const int r0 = warp * kRows;
   const long bh = (long)b * H + h;
+  const mct::StepHead dh = drop.step_head(bh);
   const T* qb = q.head(b, h);
   const T* gb = g.head(b, h);
   load_rows(k_s, k.head(b, h), k.s, k0, nkeys, kQTile, D, dp, dp);
@@ -487,7 +490,7 @@ bwd_kv(View<const T> q, View<const T> k, View<const T> v, View<const T> g,
         const bool ok = r0 + r < nkeys && lane < nt && (!causal || kj <= qi);
         const float p = ok ? expf(s[r] * scale - lse_q) : 0.f;
         // dV from P M, dS from dP M
-        const float keep = kDrop && ok ? drop.at(bh, qi, kj) : 1.f;
+        const float keep = kDrop && ok ? drop.at(dh, qi, kj) : 1.f;
         p_w[r * kKTile + lane] = mct::round_to<T>(p * keep);
         ds_w[r * kKTile + lane] =
             mct::round_to<T>(p * (dpv[r] * keep - dl_q) * scale);
@@ -701,6 +704,7 @@ fwd(View<const bf16> q, View<const bf16> k, View<const bf16> v, View<bf16> o,
 
   const int b = blockIdx.z, h = blockIdx.y, q0 = blockIdx.x * kQ;
   const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  const mct::StepHead dh = drop.step_head((long)b * H + h);
   const bf16* kb = k.head(b, h);
   const bf16* vb = v.head(b, h);
   const int nk = causal ? min(Sk, q0 + kQ) : Sk;
@@ -765,7 +769,7 @@ fwd(View<const bf16> q, View<const bf16> k, View<const bf16> v, View<bf16> o,
 #pragma unroll
       for (int n = 0; n < NT; ++n) {
         float keep[4];
-        drop.quad(keep, (long)b * H + h, row_lo, t0 + 8 * n + 2 * (lane & 3));
+        drop.quad(keep, dh, row_lo, t0 + 8 * n + 2 * (lane & 3));
 #pragma unroll
         for (int j = 0; j < 4; ++j) s[n][j] *= keep[j];
       }
@@ -814,6 +818,7 @@ bwd_kv(View<const bf16> q, View<const bf16> k, View<const bf16> v,
   const int b = blockIdx.z, h = blockIdx.y, k0 = blockIdx.x * kK;
   const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
   const long bh = (long)b * H + h;
+  const mct::StepHead dh = drop.step_head(bh);
   const bf16* qb = q.head(b, h);
   const bf16* gb = g.head(b, h);
   const int nkeys = min(kK, Sk - k0);
@@ -876,7 +881,7 @@ bwd_kv(View<const bf16> q, View<const bf16> k, View<const bf16> v,
       if (kDrop)
 #pragma unroll
         for (int n = 0; n < NT; n += 2)
-          drop.quad_t2(keep[n], keep[n + 1], bh,
+          drop.quad_t2(keep[n], keep[n + 1], dh,
                        q0 + qs + 8 * n + 2 * (lane & 3), key_lo);
       // dV += bf16(P^T M^T) dO
       uint32_t a[NT / 2][4];
@@ -989,6 +994,7 @@ bwd_dq(View<const bf16> q, View<const bf16> k, View<const bf16> v,
   const int b = blockIdx.z, h = blockIdx.y, q0 = blockIdx.x * kQ;
   const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
   const long bh = (long)b * H + h;
+  const mct::StepHead dh = drop.step_head(bh);
   const bf16* kb = k.head(b, h);
   const bf16* vb = v.head(b, h);
   const int nq = min(kQ, Sq - q0);
@@ -1031,7 +1037,7 @@ bwd_dq(View<const bf16> q, View<const bf16> k, View<const bf16> v,
       for (int n = 0; n < NT; ++n) {
         float keep[4] = {1.f, 1.f, 1.f, 1.f};
         if (kDrop)  // dS from dP M
-          drop.quad(keep, bh, row_lo, t + 8 * n + 2 * (lane & 3));
+          drop.quad(keep, dh, row_lo, t + 8 * n + 2 * (lane & 3));
 #pragma unroll
         for (int j = 0; j < 4; ++j) {
           const int key = t + 8 * n + 2 * (lane & 3) + (j & 1);
@@ -1136,6 +1142,7 @@ bwd_fused(const __grid_constant__ Maps maps, const Args g, Dropout drop) {
             lane = tid & 31;
   const int b = blockIdx.z, h = blockIdx.y, k0 = blockIdx.x * kKeys;
   const long bh = (long)b * g.H + h;
+  const mct::StepHead dh = drop.step_head(bh);  // once, not a Philox call
   // causal: no query before the block's first key attends to its keys
   const int jt0 = g.causal ? k0 / kQ : 0;
   const int ntiles = (g.Sq + kQ - 1) / kQ - jt0;
@@ -1244,8 +1251,8 @@ bwd_fused(const __grid_constant__ Maps maps, const Args g, Dropout drop) {
       const int qm = q0 + 16 * m + 2 * (lane & 3);
       const uint32_t kept =
           !kDrop      ? 0xffu
-          : D == 128  ? drop.bits_t2_pair(bh, qm, key_lo, 4)
-                      : drop.bits_t2(bh, qm, key_lo);
+          : D == 128  ? drop.bits_t2_pair(dh, qm, key_lo, 4)
+                      : drop.bits_t2(dh, qm, key_lo);
       float pv[8], dsv[8];
 #pragma unroll
       for (int c = 0; c < 2; ++c)
@@ -1528,6 +1535,7 @@ bwd_dq(const __grid_constant__ SplitMaps maps, const SplitArgs g,
   const int row0 = q0 + 64 * c;
   const int row_lo = row0 + 16 * (ct >> 5) + (lane >> 2);
   const long bh = (long)b * g.H + h;
+  const mct::StepHead dh = drop.step_head(bh);
   const float sl2 = g.scale * kLog2e;
   // -lse log2(e) and delta of the thread's rows; rows past Sq are not
   // written
@@ -1572,7 +1580,7 @@ bwd_dq(const __grid_constant__ SplitMaps maps, const SplitArgs g,
 #pragma unroll
         for (int j = 0; j < kN / 8; ++j) {
           float keep[4];
-          drop.quad(keep, bh, row_lo, k0 + 8 * j + 2 * (lane & 3));
+          drop.quad(keep, dh, row_lo, k0 + 8 * j + 2 * (lane & 3));
 #pragma unroll
           for (int e = 0; e < 4; ++e)
             kb[j >> 3] |= (uint32_t)(keep[e] != 0.f) << (4 * (j & 7) + e);
@@ -1683,6 +1691,7 @@ bwd_dkv(const __grid_constant__ SplitMaps maps, const SplitArgs g,
   // launch first
   const int h = blockIdx.x, b = blockIdx.y, k0 = blockIdx.z * kKeys;
   const long bh = (long)b * g.H + h;
+  const mct::StepHead dh = drop.step_head(bh);
   // causal: no query before the block's first key attends to its keys
   const int jt0 = g.causal ? k0 / kQ : 0;
   const int ntiles = (g.Sq + kQ - 1) / kQ - jt0;
@@ -1768,7 +1777,7 @@ bwd_dkv(const __grid_constant__ SplitMaps maps, const SplitArgs g,
     uint32_t kept[kQ / 16];
 #pragma unroll
     for (int m = 0; m < kQ / 16; ++m)
-      kept[m] = kDrop ? drop.bits_t2_pair(bh, q0 + 16 * m + 2 * (lane & 3),
+      kept[m] = kDrop ? drop.bits_t2_pair(dh, q0 + 16 * m + 2 * (lane & 3),
                                           key_lo, 4)
                       : 0xffu;
     wgmma_wait<0>();
@@ -2137,19 +2146,21 @@ using bf16 = __nv_bfloat16;
 // Each operand is a pointer and the element strides of its batch, head and
 // sequence axes (D contiguous); lse, delta [B, H, Sq] fp32 contiguous. With
 // `drop` the kernels drop attention probabilities as philox.cuh draws them
-// (seed, offset, threshold; a kept probability times `mult`); without it
-// they are the rate-0 kernels. Each function launches on `stream` and
-// returns the launch's cudaError_t (0 on success).
+// (seed, offset, threshold, the heads' place in the step: Dropout::step_head;
+// a kept probability times `mult`); without it they are the rate-0
+// kernels. Each function launches on `stream` and returns the launch's
+// cudaError_t (0 on success).
 #define MCT_VIEW_ARGS(x) \
   const void *x, long long x##_b, long long x##_h, long long x##_s
 #define MCT_VIEW(T, x) view<T>(x, x##_b, x##_h, x##_s)
 #define MCT_STRIDES(x) x##_b, x##_h, x##_s
 #define MCT_DROP_ARGS                                                  \
   int drop, unsigned long long seed, unsigned int offset,              \
-      unsigned int threshold, float mult
+      unsigned int threshold, float mult, unsigned int bh_base,        \
+      unsigned int bh_heads, unsigned int bh_stride
 #define MCT_DROP                                                        \
   const Dropout drop_args{(uint32_t)seed, (uint32_t)(seed >> 32), offset, \
-                          threshold, mult};                              \
+                          threshold, mult, bh_base, bh_heads, bh_stride}; \
   const Dropout* dr = drop ? &drop_args : nullptr
 
 // Forward: out and lse.

@@ -318,6 +318,7 @@ fwd(const T* __restrict__ qkv, Pitch pq, T* __restrict__ out, Pitch po,
 
   const int b = blockIdx.z, h = blockIdx.y;
   const int q0 = blockIdx.x * kQTile;
+  const mct::StepHead dh = drop.step_head((long)b * H + h);
   const int nq = min(kQTile, S - q0);
   const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
   const int r0 = warp * kRows;          // the warp's first row in the tile
@@ -401,7 +402,7 @@ fwd(const T* __restrict__ qkv, Pitch pq, T* __restrict__ out, Pitch po,
       const bool ok = r0 + r < nq && lane < nt && (!causal || kj <= qi);
       // dropout: P M, M the keep multiplier in T's precision
       const float keep =
-          kDrop && ok ? drop.at((long)b * H + h, qi, kj) : 1.f;
+          kDrop && ok ? drop.at(dh, qi, kj) : 1.f;
       p_w[r * kKTile + lane] =
           ok ? mct::round_to<T>(expf(s[r] * scale - m[r]) / l[r] * keep)
              : 0.f;
@@ -506,6 +507,7 @@ bwd_dq(const T* __restrict__ qkv, Pitch pq, const T* __restrict__ dout,
   const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
   const int r0 = warp * kRows;
   const long bh = (long)b * H + h;
+  const mct::StepHead dh = drop.step_head(bh);
   const T* __restrict__ src = qkv + (long)b * pq.b;
   const T* __restrict__ p_bh = kRecompute ? nullptr : probs + bh * S * pp;
   const int kcol = (H + h) * D, vcol = (2 * H + h) * D;
@@ -542,7 +544,7 @@ bwd_dq(const T* __restrict__ qkv, Pitch pq, const T* __restrict__ dout,
   auto drop_dp = [&](float (&s)[kRows], int t0) {
     if (kDrop)
 #pragma unroll
-      for (int r = 0; r < kRows; ++r) s[r] *= drop.at(bh, q0 + r0 + r, t0 + lane);
+      for (int r = 0; r < kRows; ++r) s[r] *= drop.at(dh, q0 + r0 + r, t0 + lane);
   };
 
   float dl[kRows];
@@ -652,6 +654,7 @@ bwd_dkdv(const T* __restrict__ qkv, Pitch pq, const T* __restrict__ dout,
   const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
   const int r0 = warp * kRows;
   const long bh = (long)b * H + h;
+  const mct::StepHead dh = drop.step_head(bh);
   const T* __restrict__ src = qkv + (long)b * pq.b;
   const T* __restrict__ dsrc = dout + (long)b * pdo.b;
   const T* __restrict__ p_bh = kRecompute ? nullptr : probs + bh * S * pp;
@@ -698,7 +701,7 @@ bwd_dkdv(const T* __restrict__ qkv, Pitch pq, const T* __restrict__ dout,
         p = ok ? mct::to_float(p_bh[(long)qi * pp + kj]) : 0.f;
       }
       // dropout: dV from P M, dS from dP M
-      const float keep = kDrop ? drop.at(bh, qi, kj) : 1.f;
+      const float keep = kDrop ? drop.at(dh, qi, kj) : 1.f;
       p_w[r * kKTile + lane] = mct::round_to<T>(p * keep);
       ds_w[r * kKTile + lane] =
           mct::round_to<T>(p * (s[r] * keep - dq_lane) * scale);
@@ -865,6 +868,7 @@ fwd(const bf16* __restrict__ qkv, Pitch pq, bf16* __restrict__ out,
   bf16* v_s = k_s + kK * kPitch;                    // [kK][kPitch]
 
   const int b = blockIdx.z, h = blockIdx.y, q0 = blockIdx.x * kQ;
+  const mct::StepHead dh = drop.step_head((long)b * H + h);
   const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
   const long row_pitch = pq.s;
   const bf16* src = qkv + (long)b * pq.b;
@@ -965,8 +969,7 @@ fwd(const bf16* __restrict__ qkv, Pitch pq, bf16* __restrict__ out,
 #pragma unroll
       for (int n = 0; n < NS; ++n) {
         if (kDrop)
-          drop.quad(keep[n], (long)b * H + h, row_lo,
-                    t + 8 * n + 2 * (lane & 3));
+          drop.quad(keep[n], dh, row_lo, t + 8 * n + 2 * (lane & 3));
         else
           keep[n][0] = keep[n][1] = keep[n][2] = keep[n][3] = 1.f;
       }
@@ -1431,6 +1434,7 @@ bwd_dq_rc(const bf16* __restrict__ qkv, Pitch pq,
   const int b = blockIdx.z, h = blockIdx.y, q0 = blockIdx.x * kQ;
   const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
   const long bh = (long)b * H + h;
+  const mct::StepHead dh = drop.step_head(bh);
   const bf16* src = qkv + (long)b * pq.b;
   const int nq = min(kQ, S - q0);
   const int nk = causal ? min(S, q0 + kQ) : S;
@@ -1477,7 +1481,7 @@ bwd_dq_rc(const bf16* __restrict__ qkv, Pitch pq,
 #pragma unroll
       for (int n = 0; n < NT; ++n) {
         float keep[4];
-        drop.quad(keep, bh, row_lo, t + 8 * n + 2 * (lane & 3));
+        drop.quad(keep, dh, row_lo, t + 8 * n + 2 * (lane & 3));
 #pragma unroll
         for (int j = 0; j < 4; ++j) dp[n][j] *= keep[j];
       }
@@ -1591,6 +1595,7 @@ bwd_dkdv_rc(const bf16* __restrict__ qkv, Pitch pq,
   const int b = blockIdx.z, h = blockIdx.y, k0 = blockIdx.x * kK;
   const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
   const long bh = (long)b * H + h;
+  const mct::StepHead dh = drop.step_head(bh);
   const bf16* src = qkv + (long)b * pq.b;
   const bf16* dsrc = dout + (long)b * pdo.b;
   const int nkeys = min(kK, S - k0);
@@ -1647,7 +1652,7 @@ bwd_dkdv_rc(const bf16* __restrict__ qkv, Pitch pq,
 #pragma unroll
       for (int n = 0; n < NT; n += 2) {
         if (kDrop)
-          drop.quad_t2(keep[n], keep[n + 1], bh,
+          drop.quad_t2(keep[n], keep[n + 1], dh,
                        q0 + qs + 8 * n + 2 * (lane & 3), key_lo);
         else
 #pragma unroll
@@ -1848,15 +1853,16 @@ extern "C" long long mct_fused_mha_probs_pitch(int S, int D, int dtype) {
 // their rows are contiguous. Each function returns the launch's
 // cudaError_t (0 on success) and launches on `stream`. With `drop` the
 // forward and the recompute backward drop attention probabilities as
-// philox.cuh draws them (seed, offset, threshold; a kept probability times
-// `mult`, the multiplier rounded to the input dtype); without it they are
-// the rate-0 kernels.
+// philox.cuh draws them (seed, offset, threshold, the heads' place in the
+// step: Dropout::step_head; a kept probability times `mult`, the multiplier
+// rounded to the input dtype); without it they are the rate-0 kernels.
 #define MCT_DROP_ARGS                                                  \
   int drop, unsigned long long seed, unsigned int offset,              \
-      unsigned int threshold, float mult
+      unsigned int threshold, float mult, unsigned int bh_base,        \
+      unsigned int bh_heads, unsigned int bh_stride
 #define MCT_DROP                                                        \
   const Dropout drop_args{(uint32_t)seed, (uint32_t)(seed >> 32), offset, \
-                          threshold, mult};                              \
+                          threshold, mult, bh_base, bh_heads, bh_stride}; \
   const Dropout* dr = drop ? &drop_args : nullptr
 
 // Forward. probs and stats may be null. probs receives P [B, H, S, S] in the

@@ -53,15 +53,40 @@ __device__ __forceinline__ uint4 philox4x32_10(uint4 c, uint32_t k0,
   return c;
 }
 
+// A head placed in the step (`Dropout::step_head`). Every draw takes one: a
+// kernel places its head once, not once a Philox call (where the
+// placement's division and its select were not hoisted out of the loops,
+// the forwards slowed by a tenth).
+struct StepHead {
+  uint32_t v;
+};
+
 // One launch's dropout: the seed's two words, the offset of the site, the
-// keep threshold and the multiplier a kept probability takes.
+// keep threshold and the multiplier a kept probability takes; and where the
+// launch's heads lie in the step's batch (`step_head`).
 struct Dropout {
   uint32_t seed_lo, seed_hi, offset, threshold;
   float mult;
+  // A launch that holds a piece of the step (a data-parallel rank's rows, a
+  // tensor-parallel rank's heads) draws the bits of the one-process heads:
+  // its head bh (flattened over its batch rows and its bh_heads heads a
+  // row) is head bh_base + (bh / bh_heads) bh_stride + bh % bh_heads of the
+  // step, bh_stride being the heads of a row in one process and bh_base
+  // the first row's offset times bh_stride plus the rank's first head.
+  // Zero (a launch of the whole step) leaves bh as it is.
+  uint32_t bh_base, bh_heads, bh_stride;
 
-  // The four words of the call that holds (row, col): rows {row & ~8,
-  // row | 8} x columns {col & ~1, col | 1}, word (col & 1) | (row & 8) >> 2.
-  __device__ __forceinline__ uint4 words(long bh, int row, int col) const {
+  __device__ __forceinline__ StepHead step_head(long bh) const {
+    const uint32_t b = (uint32_t)bh;
+    return StepHead{bh_heads == bh_stride
+                        ? bh_base + b
+                        : bh_base + b / bh_heads * bh_stride + b % bh_heads};
+  }
+
+  // The four words of the call that holds (row, col) of head hd: rows
+  // {row & ~8, row | 8} x columns {col & ~1, col | 1}, word
+  // (col & 1) | (row & 8) >> 2.
+  __device__ __forceinline__ uint4 words(StepHead hd, int row, int col) const {
     uint32_t off = offset;
 #if MCT_DROPOUT_FAULT == 1
     off ^= ((uint32_t)(row >> 6) << 16) ^ (uint32_t)(col >> 6);
@@ -71,7 +96,7 @@ struct Dropout {
     col += 1;
 #endif
     return philox4x32_10(
-        make_uint4((uint32_t)col >> 1, (uint32_t)(row & ~8), (uint32_t)bh, off),
+        make_uint4((uint32_t)col >> 1, (uint32_t)(row & ~8), hd.v, off),
         seed_lo, seed_hi);
   }
 
@@ -85,7 +110,7 @@ struct Dropout {
   }
 
   // The multiplier of one score (row, col), one call each.
-  __device__ __forceinline__ float at(long bh, int row, int col) const {
+  __device__ __forceinline__ float at(StepHead bh, int row, int col) const {
 #if MCT_DROPOUT_FAULT == 2
     const int c = col + 1;
 #else
@@ -98,7 +123,7 @@ struct Dropout {
   // row + 8} (row with bit 3 clear) x columns {col, col + 1} (col even), in
   // the m16n8 order (row, col), (row, col + 1), (row + 8, col),
   // (row + 8, col + 1). One call.
-  __device__ __forceinline__ void quad(float (&m)[4], long bh, int row,
+  __device__ __forceinline__ void quad(float (&m)[4], StepHead bh, int row,
                                        int col) const {
 #if MCT_DROPOUT_FAULT == 0
     const uint4 w = words(bh, row, col);
@@ -120,7 +145,7 @@ struct Dropout {
   // clear), element j of each being (key + 8 (j >> 1), query + (j & 1)).
   // Four calls for the eight values.
   __device__ __forceinline__ void quad_t2(float (&m0)[4], float (&m1)[4],
-                                          long bh, int q, int key) const {
+                                          StepHead bh, int q, int key) const {
 #pragma unroll
     for (int j = 0; j < 4; ++j) {
       const int kj = key + 8 * (j >> 1), qj = q + (j & 1);
@@ -137,7 +162,8 @@ struct Dropout {
 
   // quad_t2's eight multipliers as keep bits: bit j (m0[j]) and bit 4 + j
   // (m1[j]), 1 where the probability is kept (times mult).
-  __device__ __forceinline__ uint32_t bits_t2(long bh, int q, int key) const {
+  __device__ __forceinline__ uint32_t bits_t2(StepHead bh, int q,
+                                              int key) const {
     float m0[4], m1[4];
     quad_t2(m0, m1, bh, q, key);
     uint32_t r = 0;
@@ -153,7 +179,7 @@ struct Dropout {
   // pair of adjacent keys), so each lane draws two of them, the lane with
   // the even key the pair at key, the other the pair at key + 8, and they
   // trade the bits of each other's keys. Every lane of the warp calls it.
-  __device__ __forceinline__ uint32_t bits_t2_pair(long bh, int q, int key,
+  __device__ __forceinline__ uint32_t bits_t2_pair(StepHead bh, int q, int key,
                                                    int mask) const {
 #if MCT_DROPOUT_FAULT == 0
     const bool even = (key & 1) == 0;
@@ -185,7 +211,8 @@ struct Dropout {
 };
 
 // The keep bits (1 keep, 0 drop) of rows [0, R) x columns [0, C) of heads
-// [0, BH) into keep [BH, R, C], as the kernels draw them.
+// [0, BH) (placed in the step by drop.step_head) into keep [BH, R, C], as
+// the kernels draw them.
 __global__ void dropout_mask_kernel(Dropout drop, uint8_t* keep, int BH, int R,
                                     int C) {
   const long n = (long)BH * R * C;
@@ -194,7 +221,7 @@ __global__ void dropout_mask_kernel(Dropout drop, uint8_t* keep, int BH, int R,
     const int col = (int)(i % C);
     const long rest = i / C;
     const int row = (int)(rest % R), bh = (int)(rest / R);
-    keep[i] = drop.at(bh, row, col) != 0.f;
+    keep[i] = drop.at(drop.step_head(bh), row, col) != 0.f;
   }
 }
 
@@ -205,10 +232,13 @@ __global__ void dropout_mask_kernel(Dropout drop, uint8_t* keep, int BH, int R,
   extern "C" int mct_dropout_mask(void* keep, int BH, int R, int C,          \
                                   unsigned long long seed,                   \
                                   unsigned int offset,                       \
-                                  unsigned int threshold, void* stream) {    \
+                                  unsigned int threshold,                    \
+                                  unsigned int bh_base,                      \
+                                  unsigned int bh_heads,                     \
+                                  unsigned int bh_stride, void* stream) {    \
     if (BH < 1 || R < 1 || C < 1) return (int)cudaErrorInvalidValue;        \
     const mct::Dropout drop{(uint32_t)seed, (uint32_t)(seed >> 32), offset,  \
-                            threshold, 1.f};                                 \
+                            threshold, 1.f, bh_base, bh_heads, bh_stride};   \
     mct::dropout_mask_kernel<<<1024, 256, 0,                                 \
                                static_cast<cudaStream_t>(stream)>>>(         \
         drop, static_cast<uint8_t*>(keep), BH, R, C);                        \

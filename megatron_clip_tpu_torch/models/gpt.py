@@ -30,6 +30,18 @@ attention mask sends every layer's attention to `sdpa_bshd`, as in the JAX
 package. Over a data-parallel group (`gpt_loss(group=...)`) the masked
 mean's denominator is the whole batch's count.
 
+Tensor parallelism, sequence parallelism and FSDP (a model sharded by
+`parallel/sharding.shard_model`; the JAX `gpt_param_specs` rules): the
+tied embedding is held as P(tensor, fsdp) shards and gathered whole for
+the lookup and the head (`embedding`); each tensor rank looks up its
+S/tp slice of the inputs and drops it (its own mask), which is the
+sequence-parallel stream, or, without sequence parallelism, gathered
+whole for the blocks and sliced again after the final norm. So every rank
+computes the loss of its own rows and S/tp slice, none twice: `gpt_loss`
+returns the rank's share over the tensor ranks too (divided by tp, the
+masked mean's count summed over every rank), and the gradients are sums
+over the ranks (`training/train_step.GradBuckets`).
+
 Not ported yet, refused with NotImplementedError (ROADMAP Queue A item 4):
 squared_relu MLPs, `kv_channels` and MoE.
 """
@@ -49,6 +61,10 @@ from megatron_clip_tpu_torch.ops.cross_entropy import cross_entropy
 from megatron_clip_tpu_torch.ops.dropout import EMBED_OFFSET, dropout
 from megatron_clip_tpu_torch.ops.kernels.fused_ce import (
     fused_linear_cross_entropy)
+from megatron_clip_tpu_torch.parallel.collectives import (gather_seq,
+                                                          own_slice,
+                                                          scatter_seq)
+from megatron_clip_tpu_torch.parallel.sharding import full
 
 _ITEM = "ROADMAP Queue A item 4"
 
@@ -131,39 +147,71 @@ class GPTModel(nn.Module):
         self.ln_f = layer_norm_params(w, cfg.normalization)
         if not cfg.tie_embeddings:
             self.lm_head = normal_param((w, cfg.vocab_size), std, generator)
+        self.layout = None  # a sharded model's (`shard_model`)
+
+    @property
+    def tp(self) -> int:
+        return 1 if self.layout is None else self.layout.tp
+
+    def own_rows(self, x: torch.Tensor) -> torch.Tensor:
+        """This tensor rank's S/tp slice of x [B, S, ...] (x itself without
+        tensor parallelism): the rows whose loss it computes."""
+        return x if self.tp == 1 else own_slice(x, self.layout.tensor, 1)
+
+    def embedding(self) -> torch.Tensor:
+        """The token embedding [V, W] whole (a sharded model's shards
+        gathered; the gradient reduce-scattered back)."""
+        return full(self, "tok_embed")
 
     def hidden(self, tokens: torch.Tensor, seed: Optional[int] = None,
                remat: str = "none",
                position_ids: Optional[torch.Tensor] = None,
-               attn_bias: Optional[torch.Tensor] = None) -> torch.Tensor:
+               attn_bias: Optional[torch.Tensor] = None,
+               embed: Optional[torch.Tensor] = None) -> torch.Tensor:
         """tokens [B, S] -> the final norm's output [B, S, W] in the compute
-        dtype (`apply_gpt(..., return_hidden=True)`). `seed`: the step's
-        dropout seed (None: no dropout); `remat`: the blocks' recompute;
-        `position_ids` ([S] or per-row [B, S]): the positions the learned
-        table or the rotary tables are read at; `attn_bias` [B, 1, S, S]:
-        an additive attention mask composed with the causal one."""
+        dtype (`apply_gpt(..., return_hidden=True)`); under tensor
+        parallelism this rank's rows of it, [B, S/tp, W] (`own_rows`).
+        `seed`: the step's dropout seed (None: no dropout); `remat`: the
+        blocks' recompute; `position_ids` ([S] or per-row [B, S]): the
+        positions the learned table or the rotary tables are read at;
+        `attn_bias` [B, 1, S, S]: an additive attention mask composed with
+        the causal one; `embed`: `embedding()`, when the caller has it."""
         dt = self.precision.compute_torch
         s = tokens.shape[1]
-        x = F.embedding(tokens, self.tok_embed).to(dt)
+        embed = self.embedding() if embed is None else embed
+        x = F.embedding(self.own_rows(tokens), embed).to(dt)
         if hasattr(self, "pos_embed"):
-            x = x + (self.pos_embed[:s] if position_ids is None
-                     else self.pos_embed[position_ids]).to(dt)
+            pos = (self.pos_embed[:s] if position_ids is None
+                   else self.pos_embed[position_ids])
+            if pos.dim() == 2:  # [S, W]: the rows' positions are shared
+                pos = pos[None]
+            x = x + self.own_rows(pos).to(dt)
         x = dropout(x, self.cfg.hidden_dropout, seed, EMBED_OFFSET)
+        lay = self.layout
+        whole = self.tp > 1 and not lay.sequence_parallel
+        if whole:  # the blocks hold the stream whole on every tensor rank
+            x = gather_seq(x, lay.tensor, whole_grad=True)
         x = self.blocks(x, causal=True, seed=seed, remat=remat,
                         position_ids=position_ids, bias=attn_bias)
-        return apply_norm(self.ln_f, x, self.cfg.normalization)
+        x = apply_norm(self.ln_f, x, self.cfg.normalization)
+        return scatter_seq(x, lay.tensor) if whole else x
 
-    def head(self, dtype: torch.dtype) -> torch.Tensor:
+    def head(self, dtype: torch.dtype,
+             embed: Optional[torch.Tensor] = None) -> torch.Tensor:
         """The lm head as [W, V] in `dtype`: the tied embedding's transposed
-        view (its storage stays [V, W]) or the untied `lm_head`."""
+        view (its storage stays [V, W]; `embed` where the caller has it)
+        or the untied `lm_head`, whole."""
         if self.cfg.tie_embeddings:
-            return self.tok_embed.t().to(dtype)
-        return self.lm_head.to(dtype)
+            embed = self.embedding() if embed is None else embed
+            return embed.t().to(dtype)
+        return full(self, "lm_head").to(dtype)
 
-    def logits(self, h: torch.Tensor) -> torch.Tensor:
+    def logits(self, h: torch.Tensor,
+               head: Optional[torch.Tensor] = None) -> torch.Tensor:
         """The lm head: h [..., W] -> fp32 logits [..., V], the product
         rounded to h's dtype first, as the JAX einsum does."""
-        return torch.matmul(h, self.head(h.dtype)).float()
+        head = self.head(h.dtype) if head is None else head
+        return torch.matmul(h, head).float()
 
     def forward(self, tokens: torch.Tensor,
                 seed: Optional[int] = None) -> torch.Tensor:
@@ -227,8 +275,8 @@ def get_ltor_masks_and_position_ids(tokens: torch.Tensor, eod_token: int, *,
     return attn_bias, loss_mask, position_ids
 
 
-def _chunk_loss(model: GPTModel, h, targets, mask):
-    per = cross_entropy(model.logits(h), targets)
+def _chunk_loss(model: GPTModel, head, h, targets, mask):
+    per = cross_entropy(model.logits(h, head), targets)
     return (per * mask).sum(), mask.sum()
 
 
@@ -266,12 +314,16 @@ def gpt_loss(model: GPTModel, tokens: torch.Tensor, *,
     document-flag path). `position_ids` ([S] or [B, S]) and `attn_bias`
     ([B, 1, S, S]) reach the model (`GPTModel.hidden`).
 
-    `group`: the data-parallel group whose ranks hold the batch's other
-    rows. With a loss mask, the denominator of the masked mean is then
+    `group`: the group whose ranks hold the batch's other rows (and under
+    tensor parallelism the rows' other slices: every rank of the
+    layout). With a loss mask, the denominator of the masked mean is then
     the count over every rank, as the JAX loss over the sharded batch
     counts it, and the loss is W times this rank's share (`_masked_mean`),
     whose mean over the ranks is the whole batch's loss. Without a mask
     every rank counts the same tokens and the loss is the rank's mean.
+    Under tensor parallelism (a sharded model) each rank takes the loss of
+    its rows' S/tp slice and returns it divided by tp: the sum over the
+    tensor ranks is their rows' loss.
 
     `fused_ce` runs the lm head and cross entropy as one fused kernel on
     the hidden states [B*S, W] and the head cast to their dtype (bf16 under
@@ -293,32 +345,38 @@ def gpt_loss(model: GPTModel, tokens: torch.Tensor, *,
         mask = None if loss_mask is None else loss_mask.float()
     if mask is None:
         group = None  # every rank counts the same tokens
+    tp = model.tp
+    targets = model.own_rows(targets)
+    mask = None if mask is None else model.own_rows(mask)
+    embed = model.embedding() if model.cfg.tie_embeddings else None
 
     def hidden():
         return model.hidden(inputs, seed, remat, position_ids=position_ids,
-                            attn_bias=attn_bias)
+                            attn_bias=attn_bias, embed=embed)
     if fused_ce:
         h = hidden()
         b, s, w = h.shape
         per = fused_linear_cross_entropy(h.reshape(b * s, w),
-                                         model.head(h.dtype),
+                                         model.head(h.dtype, embed),
                                          targets.reshape(-1))
         m = (torch.ones(b * s, device=h.device) if mask is None
              else mask.reshape(-1))
-        return _masked_mean((per * m).sum(), m.sum(), group)
+        return _masked_mean((per * m).sum(), m.sum(), group) / tp
     if loss_seq_chunk:
         h = hidden()
+        head = model.head(h.dtype, embed)
         b, s, _ = h.shape
         c = min(loss_seq_chunk, s)
         m = torch.ones(b, s, device=h.device) if mask is None else mask
         tot = cnt = torch.zeros((), device=h.device)
         for i in range(0, s, c):
-            t, n = checkpoint(_chunk_loss, model, h[:, i:i + c],
+            t, n = checkpoint(_chunk_loss, model, head, h[:, i:i + c],
                               targets[:, i:i + c], m[:, i:i + c],
                               use_reentrant=False)
             tot, cnt = tot + t, cnt + n
-        return _masked_mean(tot, cnt, group)
-    per = cross_entropy(model.logits(hidden()), targets)
+        return _masked_mean(tot, cnt, group) / tp
+    h = hidden()
+    per = cross_entropy(model.logits(h, model.head(h.dtype, embed)), targets)
     if mask is None:
-        return per.mean()
-    return _masked_mean((per * mask).sum(), mask.sum(), group)
+        return per.mean() / tp
+    return _masked_mean((per * mask).sum(), mask.sum(), group) / tp

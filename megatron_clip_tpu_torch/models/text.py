@@ -20,6 +20,7 @@ from megatron_clip_tpu_torch.config import TextCfg
 from megatron_clip_tpu_torch.ops.dense import dense
 from megatron_clip_tpu_torch.nn.transformer import (
     Transformer, normal_param, apply_norm, layer_norm_params)
+from megatron_clip_tpu_torch.parallel.sharding import full
 
 
 def text_pool(x: torch.Tensor, text_ids: torch.Tensor,
@@ -61,10 +62,10 @@ class TextTransformer(nn.Module):
         backward mode; `remat`: the blocks' activation recompute."""
         dt = compute_dtype
         s = text_ids.shape[1]
-        x = F.embedding(text_ids, self.tok_embed).to(dt)
+        x = F.embedding(text_ids, full(self, "tok_embed")).to(dt)
         x = x + self.pos_embed[:s].to(dt)
         x = self.blocks(x, causal=not self.cfg.no_causal_mask,
                         save_probs=save_probs, remat=remat)
         pooled = apply_norm(self.ln_final,
                             text_pool(x, text_ids, self.cfg.pool_type))
-        return dense(pooled, self.proj["w"])
+        return dense(pooled, full(self.proj, "w", pooled.dtype))

@@ -29,6 +29,7 @@ from megatron_clip_tpu_torch.config import VisionCfg
 from megatron_clip_tpu_torch.ops.dropout import fold_in
 from megatron_clip_tpu_torch.nn.transformer import (
     Transformer, normal_param, apply_norm, layer_norm_params)
+from megatron_clip_tpu_torch.parallel.sharding import full
 
 
 def patchify(images: torch.Tensor, patch_size: int) -> torch.Tensor:
@@ -92,7 +93,7 @@ class VisionTransformer(nn.Module):
         position embedding (patch dropout; None keeps every patch)."""
         dt = compute_dtype
         x = patchify(images.to(dt), self.cfg.patch_size)
-        x = torch.matmul(x, self.patch_embed["w"].to(dt))
+        x = torch.matmul(x, full(self.patch_embed, "w", dt).to(dt))
         cls = self.cls.to(dt).expand(x.shape[0], 1, -1)
         x = torch.cat([cls, x], dim=1) + self.pos_embed.to(dt)
         if patch_keep is not None:
@@ -103,4 +104,4 @@ class VisionTransformer(nn.Module):
         x = self.blocks(x, causal=False, save_probs=save_probs,
                         remat=remat)
         pooled = apply_norm(self.ln_post, x[:, 0])
-        return torch.matmul(pooled, self.proj.to(dt))
+        return torch.matmul(pooled, full(self, "proj", dt).to(dt))

@@ -54,6 +54,18 @@ the place of the JAX package's `jax.checkpoint` policies:
   [W, mlp_in] a block, so the two agree on what is saved.
 - "none": autograd keeps what it keeps.
 Dropout replays the same bits in a recompute, as its seeds are inputs.
+
+Tensor and sequence parallelism and FSDP (a block of a sharded model,
+`parallel/sharding.shard_model`, whose `layout` has tp or fsdp above 1):
+the block first gathers its fsdp-sharded weights (`weights`), in the
+compute dtype for the matrices, then runs its products on the tensor
+rank's columns of wqkv and w1 (its heads, its halves of the swiglu) and
+rows of wo and w2, inside a `TensorRegion` (`parallel/collectives.py`):
+the row-parallel partial sums are reduced, then bo and b2 added once.
+Without sequence parallelism the residual stream is whole on every tensor
+rank and its hidden dropout draws the same mask there; with it each rank
+holds S/tp of its rows, the norms, residual adds and dropout run on those,
+and the stack's rotary tables are built for the whole sequence.
 """
 import functools
 from typing import Optional
@@ -70,6 +82,8 @@ from megatron_clip_tpu_torch.ops import (get_act, layer_norm,
 from megatron_clip_tpu_torch.ops.dense import dense
 from megatron_clip_tpu_torch.ops.dropout import dropout, site_offset
 from megatron_clip_tpu_torch.ops.rope import rope_cos_sin
+from megatron_clip_tpu_torch.parallel.collectives import TensorRegion
+from megatron_clip_tpu_torch.parallel.sharding import full
 
 _PRODUCTS = (torch.ops.aten.mm.default, torch.ops.aten.addmm.default)
 # selective recompute: a segment that keeps the outputs of the
@@ -150,6 +164,24 @@ class ResidualBlock(nn.Module):
         self.attn = nn.ParameterDict(attn)
         self.ln_2 = layer_norm_params(w, cfg.norm)
         self.mlp = nn.ParameterDict(mlp)
+        self.layout = None  # a sharded model's (`shard_model`)
+
+    def weights(self, dtype: torch.dtype) -> dict:
+        """The block's parameters as its forward takes them, by group:
+        the parameters themselves, or a sharded block's fsdp shards
+        gathered (the matrices in `dtype`, the compute dtype, as `dense`
+        casts them)."""
+        return {group: {k: full(mod, k, dtype if mod[k].dim() == 2
+                                else None) for k in mod}
+                for group, mod in (("attn", self.attn), ("mlp", self.mlp),
+                                   ("ln_1", self.ln_1), ("ln_2", self.ln_2))}
+
+    def region(self) -> Optional[TensorRegion]:
+        """The collectives around the tensor-parallel products, or None."""
+        lay = self.layout
+        if lay is None or lay.tp == 1:
+            return None
+        return TensorRegion(lay.tensor, lay.sequence_parallel)
 
     def forward(self, x: torch.Tensor, causal: bool = False,
                 save_probs: bool = True, rope=None,
@@ -164,36 +196,51 @@ class ResidualBlock(nn.Module):
         the module's note); `bias`: an additive attention mask (the
         attention then runs `sdpa_bshd`)."""
         cfg = self.cfg
+        w, region = self.weights(x.dtype), self.region()
 
         def block(x, bias, segment=None):
             return multi_head_attention(
-                x, self.attn, cfg.heads, causal=causal, rope=rope, bias=bias,
+                x, w["attn"], cfg.heads, causal=causal, rope=rope, bias=bias,
                 kv_heads=cfg.kv_heads, dropout_rate=cfg.attention_dropout,
                 seed=seed, offset=site_offset(layer, 0),
                 save_probs=save_probs,
-                norm=lambda x: apply_norm(self.ln_1, x, cfg.norm),
-                after=lambda h: self._rest(x, h, seed, layer),
-                segment=segment)
+                norm=lambda x: apply_norm(w["ln_1"], x, cfg.norm),
+                after=lambda h: self._rest(x, h, w, region, seed, layer),
+                segment=segment, region=region)
         if remat == "full":
             return checkpoint(block, x, bias, use_reentrant=False)
         if remat == "selective":
             return block(x, bias, _selective)
         if remat == "mlp":
-            return block(x, bias, _mlp_segment(tuple(self.mlp["w1"].shape)))
+            return block(x, bias, _mlp_segment(tuple(w["mlp"]["w1"].shape)))
         return block(x, bias)
 
-    def _rest(self, x: torch.Tensor, h: torch.Tensor, seed: Optional[int],
+    def _rest(self, x: torch.Tensor, h: torch.Tensor, w: dict,
+              region: Optional[TensorRegion], seed: Optional[int],
               layer: int) -> torch.Tensor:
         """From the attention's projected output h [B, S, W] to the block's:
         hidden dropout, the residual add, ln_2, the MLP, hidden dropout, the
-        residual add."""
+        residual add (inside `region` under tensor parallelism)."""
         cfg = self.cfg
-        x = x + dropout(h, cfg.hidden_dropout, seed, site_offset(layer, 1))
-        h = apply_norm(self.ln_2, x, cfg.norm)
-        h = dense(h, self.mlp["w1"], self.mlp.get("b1"))
+        # under tensor parallelism without sequence parallelism every
+        # tensor rank holds the residual stream whole
+        sharded = region is None or region.sequence_parallel
+        x = x + dropout(h, cfg.hidden_dropout, seed, site_offset(layer, 1),
+                        sharded=sharded)
+        h = apply_norm(w["ln_2"], x, cfg.norm)
+        mlp = w["mlp"]
+        if region is not None:
+            h = region.enter(h)
+        h = dense(h, mlp["w1"], mlp.get("b1"))
         h = swiglu(h) if cfg.act == "swiglu" else get_act(cfg.act)(h)
-        h = dense(h, self.mlp["w2"], self.mlp.get("b2"))
-        return x + dropout(h, cfg.hidden_dropout, seed, site_offset(layer, 2))
+        if region is None:
+            h = dense(h, mlp["w2"], mlp.get("b2"))
+        else:
+            h = region.leave(dense(h, mlp["w2"]))
+            if "b2" in mlp:
+                h = h + mlp["b2"].to(h.dtype)
+        return x + dropout(h, cfg.hidden_dropout, seed, site_offset(layer, 2),
+                           sharded=sharded)
 
 
 class Transformer(nn.ModuleList):
@@ -218,7 +265,10 @@ class Transformer(nn.ModuleList):
         cfg = self[0].cfg
         rope = None
         if cfg.rope:
-            rope = rope_cos_sin(x.shape[1], cfg.head_dim, cfg.rope_theta,
+            lay = self[0].layout
+            s = x.shape[1] * (lay.tp if lay is not None
+                              and lay.sequence_parallel else 1)
+            rope = rope_cos_sin(s, cfg.head_dim, cfg.rope_theta,
                                 rotary_percent=cfg.rotary_percent,
                                 seq_len_interpolation_factor=(
                                     cfg.rope_interpolation),

@@ -38,6 +38,15 @@ on the CPU takes `sdpa_bshd` for flash dropout too, as
 `flash_dropout_supported()` is False in interpret mode. A rate of 0, or no
 seed, runs the rate-0 routes.
 
+Under tensor parallelism (`region`, a `parallel/collectives.TensorRegion`)
+a rank holds heads / tp query heads and kv_heads / tp k and v heads of
+the packed projection (`parallel/sharding.py` splits wqkv on its
+segments); the route is picked from the global head counts and the whole
+sequence, so that every rank takes the route one process takes; the
+column-parallel projection's input enters the region and the row-parallel
+output's partial sums leave it before bo is added, once. The dropout of a
+rank's heads draws their one-process bits (`ops/dropout.RankSeed`).
+
 Under selective and mlp recompute the `sdpa_bshd` route runs under a
 checkpoint of its own: only its inputs are kept, and the logits, the
 softmax and the dropout are recomputed in the backward, as the JAX
@@ -57,7 +66,8 @@ import torch
 from torch.utils.checkpoint import checkpoint
 
 from megatron_clip_tpu_torch.ops.dense import dense
-from megatron_clip_tpu_torch.ops.dropout import dropout_keep_with, hidden_keep
+from megatron_clip_tpu_torch.ops.dropout import (
+    dropout_keep_with, hidden_keep, hidden_seed)
 from megatron_clip_tpu_torch.ops.kernels.flash_attention import (
     flash_attention, flash_attention_qkv)
 from megatron_clip_tpu_torch.ops.kernels.fused_mha import (
@@ -116,8 +126,8 @@ def sdpa_bshd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
         logits = logits.masked_fill(row + (sk - sq) < col, -1e30)
     probs = torch.softmax(logits, dim=-1)
     if keep is None and dropout_rate > 0.0 and seed is not None:
-        keep = hidden_keep(probs.shape, dropout_rate, seed, offset,
-                           probs.device)
+        keep = hidden_keep(probs.shape, dropout_rate, hidden_seed(seed),
+                           offset, probs.device)
     if keep is not None:
         probs = dropout_keep_with(probs, keep, dropout_rate)
     out = torch.einsum("bhqk,bkhd->bqhd", probs.to(dtype).float(), v.float())
@@ -228,7 +238,7 @@ def multi_head_attention(x: torch.Tensor, params, heads: int, *,
                          seed: Optional[int] = None, offset: int = 0,
                          context_parallel: bool = False,
                          save_probs: bool = True, norm=None, after=None,
-                         segment=None) -> torch.Tensor:
+                         segment=None, region=None) -> torch.Tensor:
     """Fused qkv projection -> attention -> output projection.
 
     x: [B, S, W]. params: mapping with 'wqkv' [W, (H + 2 Hkv) D] (q, k, v
@@ -254,14 +264,24 @@ def multi_head_attention(x: torch.Tensor, params, heads: int, *,
     qkv projection; output projection -> after; None: calls them), so that
     a checkpoint can wrap each while the attention kernels run between
     them, outside it (selective recompute, `nn/transformer.py`); on the
-    "sdpa" route the attention then runs under a checkpoint of its own."""
+    "sdpa" route the attention then runs under a checkpoint of its own.
+
+    `region`: the tensor-parallel collectives (see the module's note);
+    `heads` and `kv_heads` stay the global counts, `params` hold the
+    rank's split of wqkv, bqkv and wo (bo whole)."""
     if kv is not None:
         _not_in_slice("kv= cross-attention (CoCa)", "Queue A item 7")
     if context_parallel:
         _not_in_slice("context parallelism", "Queue A item 5")
     hkv = kv_heads or heads
-    head_dim = params["wqkv"].shape[1] // (heads + 2 * hkv)
-    route = attention_route(x.shape[1], heads, kv_heads, head_dim,
+    tp = 1 if region is None else region.size
+    if heads % tp or hkv % tp:
+        raise ValueError(f"{heads} heads and {hkv} kv heads must each split "
+                         f"over {tp} tensor-parallel ranks")
+    head_dim = params["wqkv"].shape[1] // ((heads + 2 * hkv) // tp)
+    s = x.shape[1] * (tp if region is not None
+                      and region.sequence_parallel else 1)
+    route = attention_route(s, heads, kv_heads, head_dim,
                             rope=rope, use_flash=use_flash,
                             dropout_rate=dropout_rate, seed=seed,
                             bias=bias is not None)
@@ -270,13 +290,22 @@ def multi_head_attention(x: torch.Tensor, params, heads: int, *,
     def project_qkv(x):
         if norm is not None:
             x = norm(x)
+        if region is not None:
+            x = region.enter(x)
         return dense(x, params["wqkv"], params.get("bqkv"))
 
     def project_out(a):
-        h = dense(a, params["wo"], params.get("bo"))
+        if region is None:
+            h = dense(a, params["wo"], params.get("bo"))
+        else:
+            h = region.leave(dense(a, params["wo"]))
+            if "bo" in params:
+                h = h + params["bo"].to(h.dtype)
         return h if after is None else after(h)
-    out = attention_heads(run(project_qkv, x), heads, route,
-                          causal=causal, rope=rope, kv_heads=kv_heads,
+    out = attention_heads(run(project_qkv, x), heads // tp, route,
+                          causal=causal, rope=rope,
+                          kv_heads=None if kv_heads is None
+                          else kv_heads // tp,
                           dropout_rate=dropout_rate, seed=seed, offset=offset,
                           save_probs=save_probs, bias=bias,
                           recompute=segment is not None)

@@ -1,9 +1,12 @@
 """Cross entropy over full vocabulary logits.
 
 Counterpart of `megatron_clip_tpu/ops/cross_entropy.py::cross_entropy`, plain
-PyTorch (not a kernel there either). The vocab-parallel form comes with the
-parallelism slice; the fused lm-head + cross-entropy kernel (`fused_ce`) with
-its own (ROADMAP Queue B).
+PyTorch (not a kernel there either). Under tensor parallelism the loss
+runs on each rank's own rows with the head gathered whole
+(`models/gpt.py::gpt_loss`), as XLA feeds its custom calls whole; the
+vocab-parallel form (`vocab_parallel_cross_entropy`) stays in ROADMAP
+Queue A item 4. The fused lm-head + cross-entropy kernel is `fused_ce`
+(ROADMAP Queue B).
 """
 import torch
 

@@ -28,6 +28,15 @@ accumulator, so a forward kernel spends one call on four scores. `seed`
 separates the steps (`fold_in`), `offset` the layers and sites
 (`site_offset`).
 
+Over the ranks of a parallel layout every rank draws the bits the one
+process draws for its piece of the step: a data-parallel rank holds rows
+of the batch, a tensor-parallel rank heads of each row, and its kernels
+number their heads bh from 0. `RankSeed` carries the rank's place (its
+first row, its first head); the launch's `AttentionDropout` then maps its
+bh to the step's, bh_base + (bh / bh_heads) bh_stride + bh % bh_heads
+(`Dropout::step_head` in `csrc/philox.cuh`), so that every score keeps the bit
+it keeps in one process at the same microbatches.
+
 Hidden and embedding dropout (`dropout`) stay plain PyTorch, as the JAX
 package's are jnp ops: a keep mask from `torch.rand` on a generator of the
 tensor's device seeded from (seed, offset), then x / (1 - rate) in x's
@@ -39,7 +48,15 @@ devices (the card-against-CPU checks run at hidden_dropout 0). Drawing it
 with the Philox stream above in plain PyTorch would cost some 40 passes
 over a [B, S, W] int64 tensor per site, which is fine for tests and too
 slow for a train step; a kernel for it is not part of the port (the JAX
-package has none).
+package has none). Over a parallel layout (`RankSeed`) the generator's
+seed is folded with the rank's data index (its rows), and where the
+activation is a rank's own piece (sequence parallelism's rows, the
+embedding's slice, the heads of the unfused attention) with its
+tensor-parallel index too: masks differ between ranks that hold different
+elements and agree where the tensor-parallel ranks hold the same
+activation whole. They are not the one process's mask, which a rank could
+only cut from a draw of the whole [B, S, W] (ROADMAP, deviations kept on
+purpose).
 """
 import ctypes
 from typing import NamedTuple, Optional, Union
@@ -109,12 +126,26 @@ def philox_keep(seed: int, offset: int, bh, rows, cols, rate: float,
     return bits < keep_threshold(rate)
 
 
+def step_heads(bh, bh_base: int, bh_heads: int, bh_stride: int):
+    """The step's head of a launch's head `bh` (an int or an index
+    tensor): bh_base + (bh / bh_heads) bh_stride + bh % bh_heads, or
+    bh_base + bh where bh_heads == bh_stride (a whole row's heads, or 0:
+    the launch is the whole step). `Dropout::step_head` of csrc/philox.cuh."""
+    if bh_heads == bh_stride:
+        return bh_base + bh
+    return bh_base + bh // bh_heads * bh_stride + bh % bh_heads
+
+
 class AttentionDropout(NamedTuple):
-    """The dropout of one attention call: its rate, the step's seed and the
-    site's offset (see the module's note)."""
+    """The dropout of one attention call: its rate, the step's seed, the
+    site's offset and where the launch's heads lie in the step (see the
+    module's note; 0, 0, 0 for a launch of the whole step)."""
     rate: float
     seed: int
     offset: int
+    bh_base: int = 0
+    bh_heads: int = 0
+    bh_stride: int = 0
 
     def multipliers(self, b: int, h: int, sq: int, sk: int, mult: float,
                     device=None) -> torch.Tensor:
@@ -124,55 +155,105 @@ class AttentionDropout(NamedTuple):
         [Sq, Sk] plane."""
         out = torch.empty(b * h, sq, sk, dtype=torch.float32, device=device)
         for i in range(b * h):
-            out[i] = philox_keep(self.seed, self.offset, i, range(sq),
-                                 range(sk), self.rate, device).float() * mult
+            out[i] = philox_keep(self.seed, self.offset, self.head(i),
+                                 range(sq), range(sk), self.rate,
+                                 device).float() * mult
         return out.reshape(b, h, sq, sk)
 
+    def head(self, bh):
+        """The step's head of the launch's head `bh` (`step_heads`)."""
+        return step_heads(bh, self.bh_base, self.bh_heads, self.bh_stride)
+
     def c_args(self, mult: float) -> list:
-        """(drop, seed, offset, threshold, mult), the kernels' C arguments."""
+        """(drop, seed, offset, threshold, mult, bh_base, bh_heads,
+        bh_stride), the kernels' C arguments."""
         return [1, self.seed & _MASK64, self.offset & _MASK32,
-                keep_threshold(self.rate), float(mult)]
+                keep_threshold(self.rate), float(mult), self.bh_base,
+                self.bh_heads, self.bh_stride]
 
 
 # the C arguments of a launch without dropout
-NO_DROPOUT_C_ARGS = [0, 0, 0, 0, 0.0]
-# their ctypes: drop, seed, offset, threshold, mult
+NO_DROPOUT_C_ARGS = [0, 0, 0, 0, 0.0, 0, 0, 0]
+# their ctypes: drop, seed, offset, threshold, mult, bh_base, bh_heads,
+# bh_stride
 C_ARGTYPES = [ctypes.c_int, ctypes.c_ulonglong, ctypes.c_uint, ctypes.c_uint,
-              ctypes.c_float]
+              ctypes.c_float, ctypes.c_uint, ctypes.c_uint, ctypes.c_uint]
 
 
 # mct_dropout_mask's ctypes signature (each kernel library exports it)
 MASK_SIGNATURE = ([ctypes.c_void_p, ctypes.c_int, ctypes.c_int, ctypes.c_int,
                    ctypes.c_ulonglong, ctypes.c_uint, ctypes.c_uint,
+                   ctypes.c_uint, ctypes.c_uint, ctypes.c_uint,
                    ctypes.c_void_p], ctypes.c_int)
 
 
 def exported_mask(lib, bh: int, rows: int, cols: int, rate: float,
-                  seed: int, offset: int, device) -> torch.Tensor:
+                  seed: int, offset: int, device,
+                  placement=(0, 0, 0)) -> torch.Tensor:
     """The keep bits a kernel library draws, bool [bh, rows, cols], written
     by its `mct_dropout_mask` on `device` (a CUDA device): the card's side
-    of the check against `philox_keep`."""
+    of the check against `philox_keep`. `placement`: (bh_base, bh_heads,
+    bh_stride), where the heads lie in the step (`step_heads`)."""
     keep = torch.empty((bh, rows, cols), dtype=torch.uint8, device=device)
     with torch.cuda.device(keep.device):
         stream = torch.cuda.current_stream(keep.device).cuda_stream
         rc = lib.mct_dropout_mask(keep.data_ptr(), bh, rows, cols,
                                   seed & _MASK64, offset & _MASK32,
-                                  keep_threshold(rate), stream)
+                                  keep_threshold(rate), *placement, stream)
     if rc != 0:
         raise RuntimeError(f"mct_dropout_mask: launch failed (cudaError {rc})")
     return keep.bool()
 
 
-def attention_dropout(rate: float, seed: Optional[int],
-                      offset: int) -> Optional[AttentionDropout]:
-    """The dropout of an attention call, or None when it drops nothing
-    (rate 0, or no seed: eval). A rate above 0 with no seed is eval, as
-    the JAX package's `rng=None`."""
+class RankSeed(int):
+    """A step's (or microbatch's) dropout seed on one rank of a parallel
+    layout: the int is the seed every rank shares, the attention mask's
+    Philox key; the attributes place the rank in the step.
+    - `row_base`: the first of the rank's rows in the step's batch (a
+      microbatch's, under accumulation; the rows are consecutive);
+    - `tp`, `tp_rank`: the tensor-parallel ranks and this rank's, which
+      holds heads [tp_rank H/tp, (tp_rank + 1) H/tp) of each row;
+    - `replicated`: the hidden-dropout seed of an activation the
+      tensor-parallel ranks hold whole, folded with the rank's data index
+      `batch_rank` (the same on its tensor-parallel ranks);
+    - `sharded`: that of an activation each rank holds a piece of (rows
+      of the sequence, heads), folded with `tp_rank` too."""
+
+    def __new__(cls, seed: int, *, row_base: int, tp: int, tp_rank: int,
+                batch_rank: int):
+        self = super().__new__(cls, seed)
+        self.row_base, self.tp, self.tp_rank = row_base, tp, tp_rank
+        self.replicated = fold_in(seed, batch_rank)
+        self.sharded = (self.replicated if tp == 1
+                        else fold_in(self.replicated, tp_rank))
+        return self
+
+
+def hidden_seed(seed, sharded: bool = True) -> int:
+    """The generator seed of a hidden-dropout site of `seed`: the seed
+    itself in one process, a `RankSeed`'s `sharded` or `replicated` fold
+    over a layout."""
+    if isinstance(seed, RankSeed):
+        return seed.sharded if sharded else seed.replicated
+    return seed
+
+
+def attention_dropout(rate: float, seed: Optional[int], offset: int,
+                      heads: int = 0) -> Optional[AttentionDropout]:
+    """The dropout of an attention call over `heads` heads a row, or None
+    when it drops nothing (rate 0, or no seed: eval). A rate above 0 with
+    no seed is eval, as the JAX package's `rng=None`. A `RankSeed` places
+    the launch's heads in the step."""
     if rate < 0.0 or rate >= 1.0:
         raise ValueError(f"attention dropout rate {rate} outside [0, 1)")
     if rate == 0.0 or seed is None:
         return None
-    return AttentionDropout(float(rate), int(seed), int(offset))
+    if not isinstance(seed, RankSeed):
+        return AttentionDropout(float(rate), int(seed), int(offset))
+    stride = heads * seed.tp
+    return AttentionDropout(float(rate), int(seed), int(offset),
+                            seed.row_base * stride + seed.tp_rank * heads,
+                            heads, stride)
 
 
 def _mix64(x: int) -> int:
@@ -224,12 +305,14 @@ def hidden_keep(shape, rate: float, seed: int, offset: int,
     return torch.rand(shape, generator=gen, device=device) >= rate
 
 
-def dropout(x: torch.Tensor, rate: float, seed, offset: int = 0
-            ) -> torch.Tensor:
+def dropout(x: torch.Tensor, rate: float, seed, offset: int = 0, *,
+            sharded: bool = True) -> torch.Tensor:
     """Inverted dropout of hidden states (`nn/transformer.py::dropout`):
     x unchanged when rate is 0 or seed is None, else `dropout_keep_with`
-    the mask of `hidden_keep`."""
+    the mask of `hidden_keep`. `sharded`: whether x is this rank's own
+    piece of the activation, or one the tensor-parallel ranks hold whole
+    (`hidden_seed`)."""
     if rate == 0.0 or seed is None:
         return x
-    return dropout_keep_with(x, hidden_keep(x.shape, rate, seed, offset,
-                                            x.device), rate)
+    return dropout_keep_with(x, hidden_keep(
+        x.shape, rate, hidden_seed(seed, sharded), offset, x.device), rate)

@@ -253,11 +253,12 @@ def _launch(fn: str, q, k, args, causal: bool, scale: float,
 
 
 def dropout_mask(bh: int, rows: int, cols: int, rate: float, seed: int,
-                 offset: int, device) -> torch.Tensor:
+                 offset: int, device, placement=(0, 0, 0)) -> torch.Tensor:
     """The keep bits the flash kernels draw, bool [bh, rows, cols] on
-    `device` (a CUDA device): `ops.dropout.exported_mask` of this library."""
+    `device` (a CUDA device), its heads placed in the step by `placement`:
+    `ops.dropout.exported_mask` of this library."""
     return exported_mask(_build.load("flash_attention", _SIGNATURES), bh,
-                         rows, cols, rate, seed, offset, device)
+                         rows, cols, rate, seed, offset, device, placement)
 
 
 def _bshd_empty(b: int, s: int, h: int, d: int, like: torch.Tensor,
@@ -560,7 +561,7 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     kernels (mask of (seed, offset), see `ops/dropout.py`); rate 0 or no
     seed runs the kernels without dropout."""
     scale = q.shape[-1] ** -0.5 if scale is None else float(scale)
-    drop = attention_dropout(dropout_rate, seed, offset)
+    drop = attention_dropout(dropout_rate, seed, offset, q.shape[1])
     if torch.is_grad_enabled() and any(t.requires_grad for t in (q, k, v)):
         return FlashAttention.apply(q, k, v, causal, scale, drop)
     return _fwd_any(q, k, v, causal, scale, drop)[0]
@@ -573,7 +574,7 @@ def flash_attention_qkv(qkv: torch.Tensor, heads: int, *,
     """[B, S, 3*H*D] packed projection -> [B, S, H*D], scores scaled by
     D**-0.5; differentiable, its gradient the packed dqkv. Dropout as
     `flash_attention`."""
-    drop = attention_dropout(dropout_rate, seed, offset)
+    drop = attention_dropout(dropout_rate, seed, offset, heads)
     if torch.is_grad_enabled() and qkv.requires_grad:
         return FlashAttentionQKV.apply(qkv, heads, causal, drop)
     q, k, v = _qkv_heads(qkv, heads)

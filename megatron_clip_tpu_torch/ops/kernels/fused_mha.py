@@ -579,11 +579,12 @@ fused_mha_dropout_bwd.launches = 0
 
 
 def dropout_mask(bh: int, rows: int, cols: int, rate: float, seed: int,
-                 offset: int, device) -> torch.Tensor:
+                 offset: int, device, placement=(0, 0, 0)) -> torch.Tensor:
     """The keep bits the fused kernels draw, bool [bh, rows, cols] on
-    `device` (a CUDA device): `ops.dropout.exported_mask` of this library."""
+    `device` (a CUDA device), its heads placed in the step by `placement`:
+    `ops.dropout.exported_mask` of this library."""
     return exported_mask(_build.load("fused_mha", _SIGNATURES), bh, rows,
-                         cols, rate, seed, offset, device)
+                         cols, rate, seed, offset, device, placement)
 
 
 class FusedMHA(torch.autograd.Function):
@@ -638,7 +639,7 @@ def fused_mha_dropout(qkv: torch.Tensor, heads: int, *, causal: bool = False,
     """[B, S, 3*H*D] -> [B, S, H*D] with attention-probability dropout at
     `rate` (mask of (seed, offset), see `ops/dropout.py`); differentiable.
     Rate 0 or no seed runs `fused_mha` (the rate-0 kernels, P saved)."""
-    drop = attention_dropout(rate, seed, offset)
+    drop = attention_dropout(rate, seed, offset, heads)
     if drop is None:
         return fused_mha(qkv, heads, causal=causal)
     if torch.is_grad_enabled() and qkv.requires_grad:

@@ -1,10 +1,18 @@
-"""The data-parallel process group of the trainer.
+"""The process groups of the trainers: data, fsdp and tensor parallelism.
 
-Counterpart of `megatron_clip_tpu/parallel/mesh.py`'s `data` axis
-(`ParallelCfg`, `build_mesh`): where the JAX trainer shards the global
-batch over every device it sees (`dp = devices // (tp pp fsdp dcn)`), the
-port runs one process a card, launched by torchrun, in one flat default
-group:
+Counterpart of `megatron_clip_tpu/parallel/mesh.py` (`ParallelCfg`,
+`build_mesh`) for its `data`, `fsdp` and `tensor` axes: where the JAX
+trainer lays every device it sees on a mesh (`dp = devices // (tp pp fsdp
+dcn)`), the port runs one process a card, launched by torchrun, and
+numbers the ranks in the JAX mesh's order (data, fsdp, stage, context,
+tensor), tensor fastest: rank = (d fsdp + f) tp + t (`Layout`). Each rank
+joins the groups of its axes: `tensor` (the tp ranks of one (d, f), which
+hold the same rows and split the weights), `fsdp` (the fsdp ranks of one
+(d, t)), `batch` (the dp fsdp ranks of one t: data x fsdp, over which the
+JAX `batch_spec` shards the batch; each holds rows of its own), `data`
+(one (f, t)) and `model` (the fsdp tp ranks of one d, which hold one copy
+of the weights between them). A one-process run, or tp = fsdp = 1, is the
+data-parallel layout of one flat group:
 
   # one node, 8 cards
   python -m torch.distributed.run --nproc-per-node 8 \\
@@ -17,22 +25,128 @@ data-parallel step. Without torchrun's environment there is no group:
 `world_size()` is 1, `group()` None, and every collective below returns at
 once, so a one-process run is the one-process trainer as it was.
 
-Two groups. The default group (`--dist-backend`: nccl for the card, gloo
-for the CPU) carries the tensors of the step: the feature gathers, the
-gradient all-reduce, the weight broadcast. A gloo group on the CPU carries
-the loop's host decisions (`agree`: the SIGTERM latch, the wall-clock
-budget, the end of a rank's data) and its barriers, so that they never wait
-for the card; over a gloo default group it is that group.
+The default group (`--dist-backend`: nccl for the card, gloo for the CPU)
+and the layout's groups, of its backend, carry the tensors of the step: the
+feature gathers, the gradient reductions, the weight broadcast, the tensor
+and sequence parallelism's collectives (`parallel/collectives.py`). A gloo
+group on the CPU carries the loop's host decisions (`agree`: the SIGTERM
+latch, the wall-clock budget, the end of a rank's data) and its barriers,
+so that they never wait for the card; over a gloo default group it is that
+group.
 """
 import datetime
 import os
+from dataclasses import dataclass
 from typing import Optional, Sequence
 
 import numpy as np
 import torch
 import torch.distributed as dist
 
-_state = {"group": None, "control": None}
+from megatron_clip_tpu_torch.ops.dropout import RankSeed
+
+@dataclass(frozen=True)
+class Layout:
+    """dp x fsdp x tp ranks, this rank at (d, f, t), and its groups (None
+    for an axis of one rank, `dist.group.WORLD` for one of every rank).
+    `sequence_parallel`: megatron --sequence-parallel, the activations
+    between the tensor-parallel products sharded on the sequence over the
+    tensor group."""
+    dp: int = 1
+    fsdp: int = 1
+    tp: int = 1
+    d: int = 0
+    f: int = 0
+    t: int = 0
+    sequence_parallel: bool = False
+    tensor: Optional[dist.ProcessGroup] = None
+    fsdp_group: Optional[dist.ProcessGroup] = None
+    batch: Optional[dist.ProcessGroup] = None
+    data: Optional[dist.ProcessGroup] = None
+    model: Optional[dist.ProcessGroup] = None
+
+    @property
+    def batch_rank(self) -> int:
+        """This rank's index on the batch axis (data x fsdp)."""
+        return self.d * self.fsdp + self.f
+
+    @property
+    def batch_ranks(self) -> int:
+        """Ranks that hold rows of their own: dp fsdp."""
+        return self.dp * self.fsdp
+
+    @property
+    def sharded(self) -> bool:
+        """Whether the weights are split (tp or fsdp above 1)."""
+        return self.tp * self.fsdp > 1
+
+
+ONE = Layout()
+
+_state = {"group": None, "control": None, "layout": ONE}
+
+
+def layout() -> Layout:
+    """This process's layout (`ONE` without a group)."""
+    return _state["layout"]
+
+
+def rank_of(d: int, f: int, t: int, fsdp: int, tp: int) -> int:
+    """The rank at mesh coordinates (d, f, t): the JAX mesh's device order,
+    tensor fastest (`megatron_clip_tpu/parallel/mesh.py::build_mesh`)."""
+    return (d * fsdp + f) * tp + t
+
+
+def layout_sizes(args, world: int) -> tuple:
+    """(dp, fsdp, tp) of `world` ranks under the flags'
+    --fsdp-parallel-size and --tensor-model-parallel-size; dp = world /
+    (tp fsdp), as `megatron_clip_tpu/training/workload.py::
+    build_workload_mesh` divides its devices. A world they do not divide
+    exits."""
+    tp = getattr(args, "tensor_model_parallel_size", 1) or 1
+    fsdp = getattr(args, "fsdp_parallel_size", 1) or 1
+    if world % (tp * fsdp):
+        raise SystemExit(
+            f"--tensor-model-parallel-size {tp} x --fsdp-parallel-size "
+            f"{fsdp} needs a multiple of {tp * fsdp} ranks (a torchrun "
+            f"launch of that many processes); this launch has {world}")
+    return world // (tp * fsdp), fsdp, tp
+
+
+def axis_ranks(dp: int, fsdp: int, tp: int) -> dict:
+    """The ranks of every group of each axis (`Layout`'s group fields), in
+    the order the groups are made."""
+    return {
+        "tensor": [[rank_of(d, f, t, fsdp, tp) for t in range(tp)]
+                   for d in range(dp) for f in range(fsdp)],
+        "fsdp_group": [[rank_of(d, f, t, fsdp, tp) for f in range(fsdp)]
+                       for d in range(dp) for t in range(tp)],
+        "batch": [[rank_of(d, f, t, fsdp, tp) for d in range(dp)
+                   for f in range(fsdp)] for t in range(tp)],
+        "data": [[rank_of(d, f, t, fsdp, tp) for d in range(dp)]
+                 for f in range(fsdp) for t in range(tp)],
+        "model": [[rank_of(d, f, t, fsdp, tp) for f in range(fsdp)
+                   for t in range(tp)] for d in range(dp)]}
+
+
+def _groups(dp: int, fsdp: int, tp: int, rank_: int, wait: dict) -> dict:
+    """Every rank makes every group of every axis, in one order (as
+    `dist.new_group` requires), once for ranks two axes share, and keeps
+    those it belongs to; only a group's members wait for its creation."""
+    world = dp * fsdp * tp
+    made, mine = {}, {}
+    for axis, groups in axis_ranks(dp, fsdp, tp).items():
+        for ranks in groups:
+            key = tuple(ranks)
+            if key not in made:
+                made[key] = (dist.group.WORLD if len(ranks) == world
+                             else None if len(ranks) == 1
+                             else dist.new_group(
+                                 ranks, use_local_synchronization=True,
+                                 **wait))
+            if rank_ in ranks:
+                mine[axis] = made[key]
+    return mine
 
 
 def world_size() -> int:
@@ -54,17 +168,6 @@ def group() -> Optional[dist.ProcessGroup]:
     return _state["group"]
 
 
-def data_parallel_size(args, world: int) -> int:
-    """dp = world // (tp pp fsdp dcn), as the JAX trainer divides its
-    devices (`megatron_clip_tpu/training/loop.py:139-144`). The other
-    factors are 1 while their flags stay refused (`training/loop.py`
-    `_REFUSED`, ROADMAP Queue A item 5)."""
-    other = (args.tensor_model_parallel_size
-             * args.pipeline_model_parallel_size * args.fsdp_parallel_size
-             * args.dcn_data_parallel_size)
-    return max(1, world // other)
-
-
 def init_distributed(args, device: torch.device,
                      timeout: Optional[datetime.timedelta] = None
                      ) -> torch.device:
@@ -79,10 +182,17 @@ def init_distributed(args, device: torch.device,
     `--dist-url`, else `env://` (MASTER_ADDR, MASTER_PORT).
     `timeout`: how long a collective of either group waits for a missing
     rank before it fails (default torch's, 30 minutes on gloo); tests pass
-    one well under their own deadline."""
+    one well under their own deadline.
+
+    The layout (`layout()`) follows the flags on `args`
+    (--tensor-model-parallel-size, --fsdp-parallel-size,
+    --sequence-parallel); tp or fsdp above 1 without torchrun's
+    environment, or a world they do not divide, exits."""
     if "RANK" not in os.environ or "WORLD_SIZE" not in os.environ:
+        layout_sizes(args, 1)
         return device
     rank_, world = int(os.environ["RANK"]), int(os.environ["WORLD_SIZE"])
+    dp, fsdp, tp = layout_sizes(args, world)
     if device.type == "cuda" and device.index is None:
         device = torch.device("cuda", int(os.environ.get("LOCAL_RANK",
                                                          rank_)))
@@ -97,6 +207,11 @@ def init_distributed(args, device: torch.device,
     _state["group"] = dist.group.WORLD
     _state["control"] = (dist.group.WORLD if backend == "gloo"
                          else dist.new_group(backend="gloo", **wait))
+    _state["layout"] = Layout(
+        dp=dp, fsdp=fsdp, tp=tp, d=rank_ // (fsdp * tp),
+        f=rank_ // tp % fsdp, t=rank_ % tp,
+        sequence_parallel=bool(getattr(args, "sequence_parallel", False))
+        and tp > 1, **_groups(dp, fsdp, tp, rank_, wait))
     # every rank has finished connecting before any may leave: a rank that
     # refuses its flags at once and closes its sockets would otherwise cut
     # a peer's connection mid-handshake, which then fails with gloo's error
@@ -110,8 +225,13 @@ def destroy() -> None:
     no-op without them."""
     if _state["group"] is None:
         return
-    _state.update(group=None, control=None)
+    _state.update(group=None, control=None, layout=ONE)
     dist.destroy_process_group()
+
+
+def control() -> Optional[dist.ProcessGroup]:
+    """The gloo group of every rank on the host (None without a group)."""
+    return _state["control"]
 
 
 def barrier() -> None:
@@ -132,14 +252,42 @@ def agree(flags: Sequence[int]) -> list:
     return t.tolist()
 
 
+def batch_rank() -> int:
+    """This rank's index among the ranks that hold rows of their own."""
+    return _state["layout"].batch_rank
+
+
+def batch_ranks() -> int:
+    """How many ranks hold rows of their own (1 without a group)."""
+    return _state["layout"].batch_ranks
+
+
+def rank_seed(seed: Optional[int], rows: int):
+    """The dropout seed `seed` of a step (or microbatch) placed on this
+    rank, which holds `rows` consecutive rows of it from its batch index
+    on (`ops/dropout.RankSeed`); `seed` itself with one rank, or None."""
+    lay = _state["layout"]
+    if seed is None or lay.batch_ranks * lay.tp == 1:
+        return seed
+    return RankSeed(seed, row_base=lay.batch_rank * rows, tp=lay.tp,
+                    tp_rank=lay.t, batch_rank=lay.batch_rank)
+
+
 def broadcast_module(module: torch.nn.Module) -> None:
     """Every parameter and buffer of `module` as rank 0 holds it, in
-    place, on the tensors' own device."""
+    place, on the tensors' own device: one broadcast of a flat copy a dtype
+    and device."""
     if _state["group"] is None:
         return
+    by_kind = {}
+    for t in list(module.parameters()) + list(module.buffers()):
+        by_kind.setdefault((t.dtype, t.device), []).append(t)
     with torch.no_grad():
-        for t in list(module.parameters()) + list(module.buffers()):
-            dist.broadcast(t.data, src=0)
+        for ts in by_kind.values():
+            flat = torch.cat([t.reshape(-1) for t in ts])
+            dist.broadcast(flat, src=0)
+            torch._foreach_copy_(ts, [part.view_as(t) for part, t in zip(
+                flat.split([t.numel() for t in ts]), ts)])
 
 
 def rank_rows(batch: int, microbatches: int, rank_: int,
@@ -150,7 +298,9 @@ def rank_rows(batch: int, microbatches: int, rank_: int,
     mesh shards each block over `data`, so in block i the rank holds global
     rows [i B/M + r B/(M W), i B/M + (r+1) B/(M W)); the local batch is
     those shares, block after block, and its own M chunks are the blocks'
-    shares. With M = 1 it is the slice [r B/W, (r+1) B/W)."""
+    shares. With M = 1 it is the slice [r B/W, (r+1) B/W). Over a layout,
+    r and W are the batch axis's (`batch_rank`, `batch_ranks`): the
+    tensor-parallel ranks of one (d, f) hold the same rows."""
     if batch % (microbatches * world):
         raise ValueError(
             f"--batch-size {batch} does not split into {microbatches} "

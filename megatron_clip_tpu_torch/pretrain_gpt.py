@@ -36,6 +36,15 @@ data-parallel over the ranks of a torchrun launch, through
       --precision fp32 --train-steps 4 --data-path corpus \\
       --eod-token 0 --eod-mask-loss --reset-position-ids \\
       --reset-attention-mask
+  # examples/pretrain_gpt_dist.sh's layout on four cards: tensor
+  # parallelism 2 with sequence parallelism, FSDP 2
+  python -m torch.distributed.run --nproc-per-node 4 \\
+      -m megatron_clip_tpu_torch.pretrain_gpt --num-layers 24 \\
+      --hidden-size 1024 --num-heads 16 --seq-length 2048 \\
+      --vocab-size 50304 --position-embedding rope --swiglu \\
+      --normalization rmsnorm --fused-ce --recompute-granularity selective \\
+      --precision bf16 --batch-size 64 --tensor-model-parallel-size 2 \\
+      --fsdp-parallel-size 2 --sequence-parallel
 
 Its flags are the JAX parser's, plus `--device` (cuda, the default, or
 cpu: without a CUDA device and without `--device cpu` it raises); as in
@@ -46,7 +55,13 @@ one card), its init method env:// (or an `args.dist_url` set by a caller).
 Under torchrun every rank trains its rows
 of the global batch (`--batch-size` and `--micro-batch-size` count global
 rows, as the JAX runtime counts them; see `training/workload.py`), on
-cuda:LOCAL_RANK. Data:
+cuda:LOCAL_RANK. With --tensor-model-parallel-size and
+--fsdp-parallel-size the W ranks lay out as dp x fsdp x tp (dp = W / (tp
+fsdp)): the model is drawn whole, then each rank keeps its shards of it
+(`parallel/sharding.py`, the JAX `gpt_param_specs`), the blocks run
+tensor-parallel, with --sequence-parallel on S/tp rows between the
+products, and the checkpoints hold whole tensors, so that a run resumes
+at any layout. Data:
 `--data-path` (an indexed corpus prefix; `--split`'s train range, its
 valid range for `--eval-interval`; `--dataloader-type`, `--data-cache-path`)
 or, without it, the JAX entry's synthetic stream (per-step seeded
@@ -69,10 +84,10 @@ logits a layer, as in the JAX package).
 
 Options not taken raise NotImplementedError naming their ROADMAP Queue A
 item: --quantize-matmuls int8, --kv-channels, --squared-relu and
---num-experts (item 4); --context-parallel-size and the parallel sizes
-above 1 but data parallelism's (item 5). --sequence-parallel at
---tensor-model-parallel-size 1 changes nothing, as in the JAX package
-(its sequence sharding is over the tensor axis, of size 1).
+--num-experts (item 4); --context-parallel-size and the pipeline and
+cross-slice parallel sizes above 1 (item 5). --sequence-parallel at
+--tensor-model-parallel-size 1 changes nothing, as in the JAX entry (its
+sequence sharding is over the tensor axis, of size 1).
 """
 import argparse
 
@@ -83,6 +98,8 @@ from megatron_clip_tpu_torch.config import Precision
 from megatron_clip_tpu_torch.models.gpt import (
     GPTCfg, create_gpt, get_ltor_masks_and_position_ids, gpt_loss)
 from megatron_clip_tpu_torch.parallel import mesh
+from megatron_clip_tpu_torch.parallel.sharding import (gpt_param_specs,
+                                                       shard_model)
 from megatron_clip_tpu_torch.training.workload import (
     add_runtime_args, build_workload_mesh, maybe_apply_checkpoint_args,
     run_workload,
@@ -293,9 +310,14 @@ def _run(args, rc, cfg: GPTCfg, device: torch.device) -> dict:
                        device=device, seed=args.seed).train()
     mesh.broadcast_module(model)  # every rank starts from rank 0's weights
     n = sum(p.numel() for p in model.parameters())
+    lay = mesh.layout()
+    if lay.sharded:  # this rank keeps its shards
+        shard_model(model, gpt_param_specs(dict(model.named_parameters())),
+                    lay)
     if mesh.is_main():
         print(f"GPT {n/1e6:.1f}M params, seq {cfg.seq_length}, "
-              f"dp={mesh.world_size()}", flush=True)
+              f"dp={lay.dp} fsdp={lay.fsdp} tp={lay.tp}"
+              + (" sp" if lay.sequence_parallel else ""), flush=True)
     use_dropout = args.attention_dropout > 0 or args.hidden_dropout > 0
     group = mesh.group()
 

@@ -27,6 +27,14 @@ gathers the features and all-reduces the gradients
 (`training/train_step.py`), and the weights start as rank 0 draws them.
 Rank 0 alone logs, writes checkpoints, copies the codebase, prunes and
 evaluates, while the others wait at a barrier; every rank loads on resume.
+With --fsdp-parallel-size the W ranks lay out as dp x fsdp (dp = W /
+fsdp; the batch and the feature gather span both, the JAX `batch_spec`):
+each rank keeps its shards of the weights and of the optimizer's moments
+(`parallel/sharding.py`, the JAX `clip_param_specs`), gathers a block's
+before using them, and the gradients come back reduce-scattered; a save
+gathers the whole state for rank 0 to write, a load keeps each rank's
+shards, and every rank runs the epoch's evals, whose forwards gather the
+weights too (rank 0 logs and writes their results).
 Once a step the ranks agree on the host (`mesh.agree`) on SIGTERM (any
 rank's) and on the `--exit-duration-in-mins` budget (rank 0's clock), so
 that they stop, save and exit at the same step, and at each batch on
@@ -37,6 +45,7 @@ Flags of modules the port does not carry yet raise NotImplementedError
 before anything is built, each naming its ROADMAP Queue A item
 (`_REFUSED`): there is no silent no-op.
 """
+import functools
 import glob
 import os
 import queue
@@ -54,6 +63,8 @@ from megatron_clip_tpu_torch.config import check_remat
 from megatron_clip_tpu_torch.data.loaders import get_data
 from megatron_clip_tpu_torch.data.transforms import image_transform
 from megatron_clip_tpu_torch.parallel import mesh
+from megatron_clip_tpu_torch.parallel.sharding import (
+    clip_param_specs, rank_state, shard_model, whole_state)
 from megatron_clip_tpu_torch.training.optim import (
     OptState, const_lr, const_lr_cooldown, constant_lr, cosine_lr,
     make_optimizer, tower_lock_mask)
@@ -92,7 +103,6 @@ _REFUSED = (
      lambda a: a.pipeline_model_parallel_size > 1),
     (5, "--virtual-pipeline-parallel-size > 1",
      lambda a: a.virtual_pipeline_parallel_size > 1),
-    (5, "--fsdp-parallel-size > 1", lambda a: a.fsdp_parallel_size > 1),
     (5, "--dcn-data-parallel-size > 1",
      lambda a: a.dcn_data_parallel_size > 1),
     (5, "--sequence-parallel", lambda a: a.sequence_parallel),
@@ -201,7 +211,8 @@ def run_training(args, device=None, timeout=None) -> dict:
 
 
 def _run_training(args, term, device: torch.device) -> dict:
-    world, rank = mesh.world_size(), mesh.rank()
+    # the ranks with rows of their own: the batch axis, data x fsdp
+    world, rank = mesh.batch_ranks(), mesh.batch_rank()
     microbatches = max(1, args.accum_freq)
     mesh.rank_rows(args.batch_size, microbatches, rank, world)  # B % (M W)
     model = factory.create_model(
@@ -211,9 +222,12 @@ def _run_training(args, term, device: torch.device) -> dict:
     model.remat = check_remat(args.recompute_granularity)
     model.train()
     n_params = sum(p.numel() for p in model.parameters())
+    lay = mesh.layout()
+    if lay.sharded:  # this rank keeps its shards
+        shard_model(model, clip_param_specs(dict(model.named_parameters())),
+                    lay)
     _log(f"model {args.model}: {n_params/1e6:.1f}M params | device={device} "
-         f"dp={mesh.data_parallel_size(args, world)} fsdp=1 tp=1 pp=1 "
-         f"extra=0")
+         f"dp={lay.dp} fsdp={lay.fsdp} tp=1 pp=1 extra=0")
 
     try:
         from megatron_clip_tpu_torch.tokenizer import get_tokenizer
@@ -431,10 +445,13 @@ def _run_training(args, term, device: torch.device) -> dict:
         # validation + zero-shot eval at epoch boundaries (open_CLIP
         # evaluate/zero_shot_eval cadence, train.py:530, main.py epoch loop)
         if (epoch + 1) % max(args.val_frequency, 1) == 0:
-            if main:
-                final_metrics.update(_epoch_eval(args, runner.model, data,
-                                                 tokenizer, epoch, step,
-                                                 save_root, wandb_run))
+            # a sharded model's forwards gather its weights: every rank
+            # runs them
+            if main or lay.sharded:
+                metrics = _epoch_eval(args, runner.model, data, tokenizer,
+                                      epoch, step, save_root, wandb_run)
+                if main:
+                    final_metrics.update(metrics)
             mesh.barrier()
         if run_done:
             break
@@ -496,7 +513,7 @@ def _epoch_eval(args, model, data, tokenizer, epoch, step, save_root,
         _log("val: " + " ".join(f"{k}={v:.4f}" for k, v in em.items()
                                 if isinstance(v, float)))
         out.update({f"val_{k}": v for k, v in em.items()})
-        if save_root:
+        if save_root and mesh.is_main():
             import json
             with open(os.path.join(save_root, "results.jsonl"), "a") as rf:
                 rf.write(json.dumps({"epoch": epoch, **{
@@ -619,8 +636,9 @@ class _Prefetch:
 class _JointRunner:
     """The train step on one device, or on this rank's over `group`: the
     model (its parameters updated in place), the optimizer state and the
-    step count, saved (by rank 0 alone: every rank holds the same) and
-    loaded as one tree: {"params": state dict, "opt_state": {count, mu,
+    step count, saved (by rank 0 alone: every rank holds the same, or its
+    shards of it, which every rank gathers whole first) and loaded as one
+    tree of whole tensors: {"params": state dict, "opt_state": {count, mu,
     nu, schedule_count}, "step": int}."""
 
     def __init__(self, model, optimizer, loss_obj, device: torch.device,
@@ -644,31 +662,37 @@ class _JointRunner:
 
     def state_tree(self) -> dict:
         opt = self.state.opt_state
-        return {"params": dict(self.model.state_dict()),
-                "opt_state": {"count": opt.count, "mu": opt.mu, "nu": opt.nu,
+        whole = functools.partial(whole_state, self.model)
+        return {"params": whole(dict(self.model.state_dict())),
+                "opt_state": {"count": opt.count, "mu": whole(opt.mu),
+                              "nu": whole(opt.nu),
                               "schedule_count": opt.schedule_count},
                 "step": self.state.step}
 
     def save(self, root, step, consumed, block=True, on_commit=None):
-        if not mesh.is_main():
+        if getattr(self.model, "placements", None) is None \
+                and not mesh.is_main():
             return
-        save_checkpoint(root, step, self.state_tree(),
-                        {"consumed_samples": consumed}, block=block,
-                        on_commit=on_commit)
+        # every rank takes part in gathering a sharded state, onto rank 0
+        tree = self.state_tree()
+        if mesh.is_main():
+            save_checkpoint(root, step, tree, {"consumed_samples": consumed},
+                            block=block, on_commit=on_commit)
 
     def load(self, root):
         """Load the newest checkpoint under `root` into the model and the
         optimizer state; returns (metadata, step)."""
         tree, meta, step = load_checkpoint(root)
-        self.model.load_state_dict(tree["params"])
+        mine = functools.partial(rank_state, self.model)
+        self.model.load_state_dict(mine(tree["params"]))
         like = self.state.opt_state
         opt = tree["opt_state"]
         self.state = TrainState(
             model=self.model,
             opt_state=OptState(
                 count=opt["count"],
-                mu={n: t.to(like.mu[n]) for n, t in opt["mu"].items()},
-                nu={n: t.to(like.nu[n]) for n, t in opt["nu"].items()},
+                mu={n: t.to(like.mu[n]) for n, t in mine(opt["mu"]).items()},
+                nu={n: t.to(like.nu[n]) for n, t in mine(opt["nu"]).items()},
                 schedule_count=opt["schedule_count"]),
             step=tree["step"])
         return meta, step

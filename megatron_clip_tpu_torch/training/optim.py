@@ -63,7 +63,10 @@ from typing import Callable, Dict, Mapping, Optional, Union
 
 import numpy as np
 import torch
+import torch.distributed as dist
 from torch import nn
+
+from megatron_clip_tpu_torch.parallel.sharding import norm_weights
 
 # the update's chunk: 2^27 elements, 512 MB of fp32
 CHUNK_ELEMENTS = 1 << 27
@@ -317,6 +320,16 @@ class AdamW:
         self._inject_dtype = dtypes[order[0]]
         self._leaf_bf16 = torch.tensor(bf16, device=device)
         self._all_bf16 = all(bf16)
+        # a sharded model's parameters are its shards (`parallel/
+        # sharding.py`): `global_norm` sums each parameter's squares over
+        # the ranks that hold one copy of the model between them, each
+        # rank's weighted by 1 / the ranks holding the same elements, so
+        # that a replicated parameter counts once
+        weights = norm_weights(model)
+        self._shard_weight = None if weights is None else torch.tensor(
+            [weights[n] for n in self.params], dtype=torch.float64,
+            device=device)
+        self._shard_group = None if weights is None else model.layout.model
 
     def init(self) -> OptState:
         return OptState(
@@ -343,12 +356,19 @@ class AdamW:
         correctly rounded fp32 sum, which XLA's fp32 order approaches within
         its summation error: PyTorch's fp32 norm of a leaf of millions of
         elements loses digits on the CPU, which would make the CPU and the
-        card disagree on the clip."""
+        card disagree on the clip. Over a sharded model's shards each
+        leaf's squares are summed over its shards first, in fp64, then
+        rounded as the whole leaf's."""
         norms = torch._foreach_norm([grads[n] for n in self.params], 2,
                                     dtype=torch.float64)
+        squares = torch.stack(norms).square()
+        if self._shard_weight is not None:
+            squares = squares * self._shard_weight
+            if self._shard_group is not None:
+                dist.all_reduce(squares, group=self._shard_group)
         leaf = torch.zeros(len(self._leaf_bf16), dtype=torch.float64,
                            device=self._leaf_bf16.device).index_add_(
-            0, self._leaf_index, torch.stack(norms).square()).float()
+            0, self._leaf_index, squares).float()
         if not self._all_bf16:
             leaf = torch.where(self._leaf_bf16, leaf.bfloat16().float(), leaf)
             return leaf.sum().sqrt()

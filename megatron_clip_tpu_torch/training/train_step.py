@@ -40,6 +40,7 @@ from megatron_clip_tpu_torch.models.clip import CLIPModel, clamp_logit_scale
 from megatron_clip_tpu_torch.models.gpt import GPTModel, gpt_loss
 from megatron_clip_tpu_torch.models.vit import patch_keep_ids
 from megatron_clip_tpu_torch.ops.dropout import fold_in
+from megatron_clip_tpu_torch.parallel.sharding import reduction_plan
 from megatron_clip_tpu_torch.training.optim import AdamW, OptState
 
 
@@ -57,23 +58,34 @@ class TrainState:
 
 
 class GradBuckets:
-    """One flat gradient buffer a dtype, allocated once, each parameter's
-    `.grad` a view of it (DDP's gradient-as-bucket-view): the backward
-    accumulates into the buffers in place, and `all_reduce_mean` reduces
-    each buffer in one collective: no copy of the gradients into a flat
-    buffer and back, and no buffer allocated a step (NCCL holds a tensor
-    it reduced until its stream is done, so the allocator could not reuse
-    a buffer made anew each step at once)."""
+    """One flat gradient buffer a dtype (and reduction), allocated once,
+    each parameter's `.grad` a view of it (DDP's gradient-as-bucket-view):
+    the backward accumulates into the buffers in place, and
+    `all_reduce_mean` reduces each buffer in one collective a group: no
+    copy of the gradients into a flat buffer and back, and no buffer
+    allocated a step (NCCL holds a tensor it reduced until its stream is
+    done, so the allocator could not reuse a buffer made anew each step at
+    once).
 
-    def __init__(self, params: dict):
-        by_dtype = {}
+    A sharded model's gradients (`parallel/sharding.reduction_plan`, given
+    as `plan`: each parameter's groups) are summed over each of their
+    groups, in turn, then divided by the ranks that hold rows of their own
+    (`ranks`); without a plan every buffer is reduced over the group
+    `all_reduce_mean` is given and divided by its size."""
+
+    def __init__(self, params: dict, plan: Optional[dict] = None,
+                 ranks: Optional[int] = None):
+        by_key = {}
         for n, p in params.items():
-            by_dtype.setdefault(p.dtype, []).append((n, p))
-        self.flats, self.views = [], {}
-        for dtype, named in by_dtype.items():
+            key = (p.dtype, None if plan is None else plan[n])
+            by_key.setdefault(key, []).append((n, p))
+        self.flats, self.groups, self.views = [], [], {}
+        self.ranks = ranks
+        for (dtype, groups), named in by_key.items():
             flat = torch.zeros(sum(p.numel() for _, p in named), dtype=dtype,
                                device=named[0][1].device)
             self.flats.append(flat)
+            self.groups.append(groups)
             for (n, p), part in zip(named, flat.split(
                     [p.numel() for _, p in named])):
                 self.views[n] = part.view_as(p)
@@ -91,12 +103,14 @@ class GradBuckets:
     def all_reduce_mean(self, group) -> None:
         """Each gradient replaced, in place, by its mean over `group`: each
         buffer all-reduced (summed) in its dtype, then divided by W; a
-        no-op without a group (one process)."""
+        no-op without a group (one process). With a plan, each buffer is
+        summed over its own groups and divided by `ranks`."""
         if group is None:
             return
-        world = dist.get_world_size(group)
-        for flat in self.flats:
-            dist.all_reduce(flat, group=group)
+        world = self.ranks or dist.get_world_size(group)
+        for flat, groups in zip(self.flats, self.groups):
+            for g in ((group,) if groups is None else groups):
+                dist.all_reduce(flat, group=g)
             flat /= world
 
 
@@ -146,7 +160,8 @@ def make_train_step(model: CLIPModel, optimizer: AdamW, *,
     patches = vision.grid * vision.grid
     world = 1 if group is None else dist.get_world_size(group)
     rank = 0 if group is None else dist.get_rank(group)
-    buckets = None if group is None else GradBuckets(params)
+    buckets = (None if group is None
+               else GradBuckets(params, reduction_plan(model), world))
 
     def keep(step: int, i: Optional[int], rows: int):
         if rate <= 0.0:

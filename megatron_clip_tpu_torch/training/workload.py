@@ -30,34 +30,47 @@ and no-op flags, `runtime_cfg_from_args`, `--use-checkpoint-args`), then
     --log-num-zeros-in-grad, samples/s and tokens/s).
 
 It runs where the model is. The JAX runtime's mesh (`build_workload_mesh`)
-is its `data` axis: under torchrun the process joins the group of W ranks
-(`parallel.mesh.init_distributed`, nccl on the card, gloo on the CPU), and
-the run is the JAX run's on a mesh of W data-parallel devices:
+is its `data`, `fsdp` and `tensor` axes: under torchrun the process joins
+the groups of its W ranks (`parallel.mesh.init_distributed`, nccl on the
+card, gloo on the CPU; dp = W / (tp fsdp), the ranks in the JAX mesh's
+order), and the run is the JAX run's on that mesh:
   - every rank starts from rank 0's weights (`mesh.broadcast_module`, by
-    the entry);
+    the entry), and a sharded model (tp or fsdp above 1,
+    `parallel/sharding.shard_model`, by the entry) keeps this rank's
+    shards of them, and the optimizer's moments are the shards';
   - every rank draws the global batch's sample ids as the JAX runtime
-    draws them and keeps its rows of it (`mesh.rank_rows`): its share of
-    each microbatch of --micro-batch-size global rows, as the mesh shards
-    each JAX microbatch, so that each microbatch's loss covers the rows the
-    JAX one covers; the rampup's sizes are rounded to W as the JAX
-    runtime rounds them to its data axis;
+    draws them and keeps its rows of it (`mesh.rank_rows` on the batch
+    axis, data x fsdp; the tensor ranks of one (d, f) hold the same
+    rows): its share of each microbatch of --micro-batch-size global
+    rows, as the mesh shards each JAX microbatch, so that each
+    microbatch's loss covers the rows the JAX one covers; the rampup's
+    sizes are rounded to the batch axis as the JAX runtime rounds them;
   - the entry's loss is the rank's share of the global batch's (the
     masked mean's count is summed over the ranks, `models.gpt.gpt_loss(
     group=...)`); the parameters' gradients are one flat buffer a dtype
-    (`train_step.GradBuckets`), all-reduced once a step after the last
-    microbatch's backward, so the clip norm and the update are the global
-    batch's and every rank holds the same weights;
+    and reduction (`train_step.GradBuckets`), reduced once a step after
+    the last microbatch's backward (a sharded model's over the groups
+    `sharding.reduction_plan` gives), so the clip norm (summed over the
+    shards, `AdamW.shard_norms`) and the update are the global batch's
+    and every rank holds the same weights (its shards of them);
+  - dropout draws over the global batch: each rank's attention masks are
+    the one process's bits of its rows and heads, its hidden masks folded
+    with its place (`mesh.rank_seed`);
   - the logged loss, grad norm and eval loss are the global batch's;
-  - rank 0 alone saves, writes the tracker and logs; every rank loads on
-    resume; once a step the ranks agree (`signals.agreed_stop`) on SIGTERM
-    on any rank and on rank 0's clock against --exit-duration-in-mins, and
-    they leave together, after a barrier.
-Every other parallel size above 1 raises NotImplementedError naming ROADMAP
-Queue A item 5; --tensorboard-dir and --profile name item 7. What only
+  - every rank gathers the whole state and rank 0 alone saves it (whole
+    tensors, layout-independent), writes the tracker and logs; every rank
+    loads on resume and keeps its shards; once a step the ranks agree
+    (`signals.agreed_stop`) on SIGTERM on any rank and on rank 0's clock
+    against --exit-duration-in-mins, and they leave together, after a
+    barrier.
+The pipeline, context and cross-slice parallel sizes above 1 raise
+NotImplementedError naming ROADMAP Queue A item 5; --tensorboard-dir and
+--profile name item 7. What only
 other entry points use (the non-gradient `aux_state` of DINO, custom
 evals, the pipeline's checkpoint transforms) comes with them.
 """
 import argparse
+import functools
 import math
 import time
 from dataclasses import dataclass
@@ -72,6 +85,8 @@ from megatron_clip_tpu_torch.checkpoints import (
     load_checkpoint_metadata, save_checkpoint)
 from megatron_clip_tpu_torch.ops.dropout import fold_in
 from megatron_clip_tpu_torch.parallel import mesh
+from megatron_clip_tpu_torch.parallel.sharding import (
+    norm_weights, rank_state, reduction_plan, whole_state)
 from megatron_clip_tpu_torch.training.optim import (
     OptState, make_optimizer, megatron_lr, megatron_wd)
 from megatron_clip_tpu_torch.training.signals import agreed_stop, sigterm_latch
@@ -639,8 +654,6 @@ def _json_safe_args(args) -> dict:
 
 # (Queue A item, what, whether the runtime config asks for it)
 _REFUSED = (
-    (5, "--tensor-model-parallel-size > 1", lambda rc: rc.tp > 1),
-    (5, "--fsdp-parallel-size > 1", lambda rc: rc.fsdp > 1),
     (5, "--pipeline-model-parallel-size > 1", lambda rc: rc.pp > 1),
     (5, "--virtual-pipeline-parallel-size > 1", lambda rc: rc.vpp > 1),
     (5, "--context-parallel-size > 1", lambda rc: rc.cp > 1),
@@ -651,9 +664,9 @@ _REFUSED = (
 
 
 def refuse_unported(rc: RuntimeCfg) -> None:
-    """Every parallel size above 1 (but data parallelism's, which is the
-    launch's), --tensorboard-dir and --profile raise NotImplementedError
-    naming their ROADMAP Queue A item."""
+    """The pipeline, context and cross-slice parallel sizes above 1,
+    --tensorboard-dir and --profile raise NotImplementedError naming their
+    ROADMAP Queue A item."""
     for item, what, asked in _REFUSED:
         if asked(rc):
             raise NotImplementedError(f"{what} is not ported yet (ROADMAP "
@@ -662,9 +675,9 @@ def refuse_unported(rc: RuntimeCfg) -> None:
 
 def build_workload_mesh(rc: RuntimeCfg, device: torch.device, args=None,
                         timeout=None) -> torch.device:
-    """The JAX runtime's mesh: its `data` axis. The refusals
-    (`refuse_unported`) first; then, under torchrun (RANK and WORLD_SIZE
-    set), this process joins the data-parallel group of its ranks
+    """The JAX runtime's mesh: its `data`, `fsdp` and `tensor` axes. The
+    refusals (`refuse_unported`) first; then, under torchrun (RANK and
+    WORLD_SIZE set), this process joins the groups of its ranks' layout
     (`parallel.mesh.init_distributed` with the `dist_backend` and
     `dist_url` a caller set on `args`, and `timeout`), even at one rank.
     Returns this rank's device (plain "cuda" becomes cuda:LOCAL_RANK). The caller leaves the
@@ -753,8 +766,9 @@ class _Runner:
         self.eval_loss_fn = eval_loss_fn or (
             lambda m, b: loss_fn(m, b, None))
         self.device = next(iter(self.params.values())).device
-        self.group, self.world, self.rank = (
-            mesh.group(), mesh.world_size(), mesh.rank())
+        self.group, self.layout = mesh.group(), mesh.layout()
+        self.world = self.layout.batch_ranks  # ranks with rows of their own
+        self.rank = self.layout.batch_rank
         # made on first need (`_reduced_grads`): they hold the gradients
         # through the whole step, which a one-process step of one batch
         # leaves to autograd, made in the backward as the activations go
@@ -777,16 +791,25 @@ class _Runner:
                          else x, batch)
 
     def _mean_over_ranks(self, t: torch.Tensor) -> torch.Tensor:
+        """The global batch's value of the ranks' shares `t`: their sum over
+        every rank (the tensor ranks' slices add up to their rows') over
+        the ranks that hold rows of their own."""
         if self.group is None:
             return t
         t = t.detach().float().clone()
         dist.all_reduce(t, group=self.group)
         return t / self.world
 
+    def _loss(self, batch, seed) -> torch.Tensor:
+        """The entry's loss of `batch` (this rank's rows), its dropout seed
+        placed on this rank (`mesh.rank_seed`)."""
+        (rows,) = self._leads(batch) or {0}
+        return self.loss_fn(self.model, batch, mesh.rank_seed(seed, rows))
+
     def _grads(self, batch, seed) -> Tuple[torch.Tensor, dict]:
         for p in self.params.values():
             p.grad = None
-        loss = self.loss_fn(self.model, batch, seed)
+        loss = self._loss(batch, seed)
         loss.backward()
         grads = {n: p.grad if p.grad is not None else torch.zeros_like(p)
                  for n, p in self.params.items()}
@@ -837,7 +860,7 @@ class _Runner:
         """The loss of one batch; its backward straight into the gradient
         buckets' views, as the parameters' `.grad`."""
         self.buckets.attach(self.params)
-        loss = self.loss_fn(self.model, batch, seed)
+        loss = self._loss(batch, seed)
         loss.backward()
         for p in self.params.values():
             p.grad = None
@@ -851,7 +874,8 @@ class _Runner:
         if self.group is None and n <= 1:
             return self._grads(batch, seed)
         if self.buckets is None:
-            self.buckets = GradBuckets(self.params)
+            self.buckets = GradBuckets(self.params,
+                                       reduction_plan(self.model), self.world)
         loss = (self._accumulated(batch, seed, micro, n) if n > 1
                 else self._backward(batch, seed))
         self.buckets.all_reduce_mean(self.group)
@@ -878,11 +902,21 @@ class _Runner:
             metrics["params_norm"] = self.optimizer.global_norm(
                 {n: p.detach() for n, p in self.params.items()})
         if rc.log_num_zeros_in_grad:
-            metrics["num_zeros"] = sum((g == 0).sum().float()
-                                       for g in grads.values())
+            metrics["num_zeros"] = self._zeros(grads)
         self.opt_state, metrics["grad_norm"] = self.optimizer.update(
             self.opt_state, grads)
         return metrics
+
+    def _zeros(self, grads: dict) -> torch.Tensor:
+        """The exact zeros of the gradients, of a sharded model's shards
+        each counted once over the ranks of one copy of the model."""
+        w = norm_weights(self.model)
+        if w is None:
+            return sum((g == 0).sum().float() for g in grads.values())
+        zeros = sum((g == 0).sum().double() * w[n] for n, g in grads.items())
+        if self.layout.model is not None:
+            dist.all_reduce(zeros, group=self.layout.model)
+        return zeros.round().float()
 
     @torch.no_grad()
     def evaluate(self, val_iter, iters: int) -> float:
@@ -898,11 +932,15 @@ class _Runner:
             torch.stack(vals)).cpu().numpy()))
 
     def state_tree(self, with_optim: bool = True) -> dict:
-        tree = {"params": dict(self.model.state_dict())}
+        """The checkpoint's tree: whole tensors, whatever the layout (a
+        sharded model's gathered onto rank 0's host: every rank calls it,
+        the others' tree holds None in their place)."""
+        whole = functools.partial(whole_state, self.model)
+        tree = {"params": whole(dict(self.model.state_dict()))}
         if with_optim:
             opt = self.opt_state
-            tree["opt_state"] = {"count": opt.count, "mu": opt.mu,
-                                 "nu": opt.nu,
+            tree["opt_state"] = {"count": opt.count, "mu": whole(opt.mu),
+                                 "nu": whole(opt.nu),
                                  "schedule_count": opt.schedule_count}
         return tree
 
@@ -911,7 +949,8 @@ class _Runner:
         `with_optim` into the optimizer state (else a fresh one); returns
         (metadata, step)."""
         tree, meta, step = load_checkpoint(root)
-        params = tree["params"]
+        mine = functools.partial(rank_state, self.model)
+        params = mine(tree["params"])
         own = self.model.state_dict()
         if params.keys() != own.keys() or any(
                 params[k].shape != own[k].shape for k in own):
@@ -928,8 +967,8 @@ class _Runner:
             like, opt = self.opt_state, tree["opt_state"]
             self.opt_state = OptState(
                 count=opt["count"],
-                mu={n: t.to(like.mu[n]) for n, t in opt["mu"].items()},
-                nu={n: t.to(like.nu[n]) for n, t in opt["nu"].items()},
+                mu={n: t.to(like.mu[n]) for n, t in mine(opt["mu"]).items()},
+                nu={n: t.to(like.nu[n]) for n, t in mine(opt["nu"]).items()},
                 schedule_count=opt["schedule_count"])
         return meta, step
 
@@ -962,7 +1001,7 @@ def run_workload(model: torch.nn.Module, loss_fn: Callable, batch_iter,
     "val_history" [(step, val loss)], "val_loss" (the last eval's or
     --skip-train's), "model"}: every rank the same."""
     refuse_unported(rc)
-    world = mesh.world_size()
+    world = mesh.batch_ranks()  # the ranks that hold rows of their own
     main = mesh.is_main()
 
     def log(msg: str) -> None:
@@ -1008,10 +1047,10 @@ def run_workload(model: torch.nn.Module, loss_fn: Callable, batch_iter,
         return m
 
     def _save(i: int, block: bool = True):
-        if main:  # every rank holds the same state
-            save_checkpoint(rc.save, i,
-                            runner.state_tree(not rc.no_save_optim),
-                            _meta(), block=block)
+        # every rank takes part in gathering a sharded state; rank 0 writes
+        tree = runner.state_tree(not rc.no_save_optim)
+        if main:
+            save_checkpoint(rc.save, i, tree, _meta(), block=block)
 
     start_step = 0
     mesh.barrier()  # every rank loads what rank 0 has committed

@@ -28,8 +28,8 @@ saves, both stop at step 2) and resumed over two ranks continues
 bit-equal to the run left whole (rampup, micro-batches and the document
 mask on, so the resume is at the ramped consumed samples); only rank 0
 writes the checkpoint; global batches and micro-batches the world size
-does not divide are refused (SystemExit, rank by rank), as are
---tensor-model-parallel-size and --fsdp-parallel-size above 1
+does not divide are refused (SystemExit, rank by rank), as are the
+pipeline and context sizes above 1 beside tensor and fsdp parallelism
 (NotImplementedError naming ROADMAP Queue A item 5), before any group is
 joined; every rank leaves its group on every way out.
 """
@@ -183,9 +183,11 @@ def resumed(data, tmp_path_factory):
                                 "3"], None, None),
             ("rampup-5", TINY + ["--batch-size", "16", "--rampup-batch-size",
                                  "5", "5", "16"], None, None),
-            ("tp-2", TINY + ["--tensor-model-parallel-size", "2"], None,
+            ("tp-2", TINY + ["--tensor-model-parallel-size", "2",
+                             "--pipeline-model-parallel-size", "2"], None,
              None),
-            ("fsdp-2", TINY + ["--fsdp-parallel-size", "2"], None, None)]
+            ("fsdp-2", TINY + ["--fsdp-parallel-size", "2",
+                               "--context-parallel-size", "2"], None, None)]
     return tmp, [dict(zip([j[0] for j in jobs], r))
                  for r in spawn(gpt_rank, WORLD, tmp, jobs)]
 

@@ -1309,6 +1309,64 @@ def test_exported_mask_equals_the_plain_philox(cuda, lib, bh, rows, cols):
     assert torch.equal(got, want)
 
 
+# A launch of a piece of the step (tensor rank 1 of 2, holding 8 of 16
+# heads, of a data rank whose rows start at row 3): head bh draws the bits
+# of the step's head 3 x 16 + 8 + (bh / 8) 16 + bh % 8.
+PLACED = DROP._replace(bh_base=3 * 16 + 8, bh_heads=8, bh_stride=16)
+
+
+@pytest.mark.parametrize("lib", [fa, mha_mod], ids=["flash", "fused_mha"])
+def test_a_placed_launch_draws_the_step_heads_bits(cuda, lib):
+    bh, s = 16, 512
+    got = lib.dropout_mask(bh, s, s, PLACED.rate, PLACED.seed, PLACED.offset,
+                           cuda, placement=PLACED[3:])
+    heads = PLACED.head(torch.arange(bh))
+    assert heads.tolist() == [56 + i // 8 * 16 + i % 8 for i in range(bh)]
+    want = philox_keep(PLACED.seed, PLACED.offset, heads, range(s), range(s),
+                       PLACED.rate, cuda)
+    assert torch.equal(got, want)
+
+
+def test_placed_dropout_kernels_match_plain(cuda):
+    """The forwards and the backwards (flash's fused and split, the fused
+    MHA's recompute) of a placed launch against their plain versions fed
+    the placed multipliers."""
+    b, h, s, d = 2, 8, 512, 128
+    scale = d ** -0.5
+    q, k, v, do = _flash_inputs(cuda, torch.bfloat16, b, h, s, s, d)
+    keep = PLACED.multipliers(b, h, s, s, fa.dropout_mult(PLACED.rate), cuda)
+    out, lse = fa.flash_fwd_dropout(q, k, v, PLACED, causal=True)
+    want, want_lse = fa.flash_fwd_plain(q, k, v, scale, True, keep)
+    torch.testing.assert_close(out.float(), want.float(), rtol=8e-3,
+                               atol=2 ** -8 * float(want.abs().max()))
+    torch.testing.assert_close(lse, want_lse, rtol=1e-5, atol=1e-5)
+    delta = fa.flash_delta(do, want)
+    wants = fa.flash_bwd_fused_plain(q, k, v, want, want_lse, do, scale, True,
+                                     keep)
+    gots = (fa.flash_bwd_fused_dropout(q, k, v, want, want_lse, do, PLACED,
+                                       causal=True),
+            (fa.flash_bwd_dq_dropout(q, k, v, do, want_lse, delta, PLACED,
+                                     causal=True),
+             *fa.flash_bwd_dkv_dropout(q, k, v, do, want_lse, delta, PLACED,
+                                       causal=True)))
+    for got in gots:
+        for g, w in zip(got, wants):
+            _close_rows(g, w)
+    qkv = torch.cat([t.transpose(1, 2).reshape(b, s, h * d)
+                     for t in (q, k, v)], -1).contiguous()
+    dout = do.transpose(1, 2).reshape(b, s, h * d).contiguous()
+    keep = PLACED.multipliers(b, h, s, s, mha_mod.dropout_mult(
+        PLACED.rate, torch.bfloat16), cuda)
+    out, stats = mha_mod.fused_mha_dropout_fwd(qkv, h, PLACED, causal=True)
+    want = fused_mha_plain(qkv, h, scale, True, keep=keep)
+    torch.testing.assert_close(out, want, rtol=8e-3, atol=4e-3)
+    dqkv = mha_mod.fused_mha_dropout_bwd(qkv, dout, stats, h, PLACED,
+                                         causal=True)
+    want_g = fused_mha_bwd_recompute_plain(qkv, dout, h, scale, True, keep)
+    _close_grads(dqkv, want_g, torch.bfloat16)
+    _close_mha_rows(dqkv, want_g, h)
+
+
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 @pytest.mark.parametrize("b,s,h,d,causal", [(2, 512, 16, 128, True),
                                             (2, 512, 12, 64, False),

@@ -310,7 +310,9 @@ def test_resume_from_an_explicit_root_and_a_bogus_one(tmp_path):
     (["--tensor-model-parallel-size", "2"], 5),
     (["--pipeline-model-parallel-size", "2"], 5),
     (["--virtual-pipeline-parallel-size", "2"], 5),
-    (["--fsdp-parallel-size", "2"], 5),
+    # FSDP is ported (test_torch_fsdp_clip.py); CLIP's tensor parallelism
+    # beside it is not
+    (["--fsdp-parallel-size", "2", "--tensor-model-parallel-size", "2"], 5),
     (["--dcn-data-parallel-size", "2"], 5),
     (["--sequence-parallel"], 5),
     (["--remote-sync", "/tmp/elsewhere"], 7),

@@ -478,8 +478,11 @@ def test_params_norm_and_zeros_in_grad_are_logged(capsys):
 
 
 @pytest.mark.parametrize("flag,item", [
-    (["--tensor-model-parallel-size", "2"], 5),
-    (["--fsdp-parallel-size", "2"], 5),
+    # tensor and fsdp parallelism are ported (test_torch_tp_fsdp.py); the
+    # sizes still refused are refused beside them
+    (["--tensor-model-parallel-size", "2",
+      "--pipeline-model-parallel-size", "2"], 5),
+    (["--fsdp-parallel-size", "2", "--context-parallel-size", "2"], 5),
     (["--pipeline-model-parallel-size", "2"], 5),
     (["--virtual-pipeline-parallel-size", "2"], 5),
     (["--context-parallel-size", "2"], 5),
@@ -504,14 +507,15 @@ def test_refused_flags_name_their_queue_item(flag, item, monkeypatch):
 
 def test_a_torchrun_launch_of_two_processes_is_refused(monkeypatch):
     """A torchrun launch of two processes trains data-parallel
-    (tests/test_torch_gpt_dp.py); with a parallel size that is not data
-    parallelism's it is refused, naming item 5, before a group is joined
-    or a model built."""
+    (tests/test_torch_gpt_dp.py), tensor- or fsdp-parallel
+    (tests/test_torch_tp_fsdp.py); with a parallel size the port does not
+    carry (pipeline, context) it is refused, naming item 5, before a
+    group is joined or a model built."""
     monkeypatch.setenv("WORLD_SIZE", "2")
     monkeypatch.setenv("RANK", "1")
     monkeypatch.setattr(pretrain_gpt, "create_gpt", None)
-    for flag in (["--tensor-model-parallel-size", "2"],
-                 ["--fsdp-parallel-size", "2"]):
+    for flag in (["--pipeline-model-parallel-size", "2"],
+                 ["--context-parallel-size", "2"]):
         with pytest.raises(NotImplementedError, match="Queue A item 5\\)"):
             port_run(BASE + ["--train-steps", "1"] + flag)
     assert pretrain_gpt.mesh.group() is None

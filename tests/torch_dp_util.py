@@ -160,6 +160,16 @@ def _params(runner) -> dict:
             runner.model.named_parameters()}
 
 
+def _state_bytes(runner) -> dict:
+    """The bytes of the rank's parameters (a sharded model's shards) and
+    of its optimizer's moments."""
+    opt = runner.state.opt_state
+    return {"params": sum(p.numel() * p.element_size()
+                          for p in runner.model.parameters()),
+            "moments": sum(t.numel() * t.element_size()
+                           for t in (*opt.mu.values(), *opt.nu.values()))}
+
+
 def trainer_rank(rank, world, tmp_path, jobs):
     """`run_training(argv)` on this rank of the CPU group for each job
     (argv, start, patch_ids) of `jobs`, a group each: each step's metrics,
@@ -176,7 +186,8 @@ def trainer_rank(rank, world, tmp_path, jobs):
             argv + ["--dist-url", init_url(tmp_path, f"train{i}")]),
             device="cpu", timeout=GROUP_TIMEOUT)
         out.append({"steps": list(record), "final": final,
-                    "params": _params(built[-1])})
+                    "params": _params(built[-1]),
+                    "state_bytes": _state_bytes(built[-1])})
         (loop.factory.create_model, train_step.patch_keep_ids,
          loop._JointRunner.step, loop._JointRunner.__init__) = saved
     save_result(tmp_path, rank, out)
@@ -248,12 +259,20 @@ def gpt_rank(rank, world, tmp_path, jobs):
     keep their own draw, so that rank 0's broadcast is what they train
     from), and with `term_after` a SIGTERM sent to rank 1 after its step
     `term_after`. Each job's result (its `run` output with the final
-    parameters, or the exception it raised as (type name, message)), and
-    whether the group was left."""
+    parameters, a sharded model's this rank's shards; the bytes of the
+    rank's parameters and optimizer moments, `state_bytes`; each step's
+    grad norm, `grad_norms`; the gradients the run's first step gave the
+    optimizer, a sharded model's this rank's shards, `grads1`; the bytes
+    of the tensors a save's state tree left on this rank, `save_bytes`),
+    or
+    the exception it raised as (type name, message), and whether the
+    group was left."""
     from megatron_clip_tpu_torch import pretrain_gpt
     from megatron_clip_tpu_torch.training import workload
     create, run_wl, step = (pretrain_gpt.create_gpt,
                             pretrain_gpt.run_workload, workload._Runner.step)
+    reduced, tree = (workload._Runner._reduced_grads,
+                     workload._Runner.state_tree)
     out = []
     for tag, argv, start, term_after in jobs:
         cap = {}
@@ -272,22 +291,52 @@ def gpt_rank(rank, world, tmp_path, jobs):
             return res
 
         def stepped(self, batch, i):
+            opt = self.opt_state
+            cap["state_bytes"] = {
+                "params": sum(p.numel() * p.element_size()
+                              for p in self.params.values()),
+                "moments": sum(t.numel() * t.element_size()
+                               for t in (*opt.mu.values(),
+                                         *opt.nu.values()))}
             m = step(self, batch, i)
+            cap.setdefault("grad_norms", []).append(float(m["grad_norm"]))
             if rank == 1 and i == term_after:
                 os.kill(os.getpid(), signal.SIGTERM)
             return m
+
+        def reduced_grads(self, *a):
+            loss, grads = reduced(self, *a)
+            if "grads1" not in cap:
+                cap["grads1"] = {n: g.detach().clone()
+                                 for n, g in grads.items()}
+            return loss, grads
+        def state_tree(self, *a):
+            t = tree(self, *a)
+            cap["save_bytes"] = sum(
+                x.numel() * x.element_size()
+                for x in torch.utils._pytree.tree_leaves(t)
+                if torch.is_tensor(x))
+            return t
         pretrain_gpt.create_gpt, pretrain_gpt.run_workload = created, ran
         workload._Runner.step = stepped
+        workload._Runner._reduced_grads = reduced_grads
+        workload._Runner.state_tree = state_tree
         args = pretrain_gpt.parse_args(argv + ["--device", "cpu"])
         args.dist_url = init_url(tmp_path, f"gpt-{tag}")
         try:
             res = pretrain_gpt.run(args, timeout=GROUP_TIMEOUT)
             res["params"] = cap["params"]
+            res["state_bytes"] = cap.get("state_bytes")
+            res["grad_norms"] = cap.get("grad_norms", [])
+            res["grads1"] = cap.get("grads1")
+            res["save_bytes"] = cap.get("save_bytes")
         except (Exception, SystemExit) as e:  # noqa: BLE001 — to the parent
             res = {"error": (type(e).__name__, str(e))}
         finally:
             pretrain_gpt.create_gpt, pretrain_gpt.run_workload = create, run_wl
             workload._Runner.step = step
+            workload._Runner._reduced_grads = reduced
+            workload._Runner.state_tree = tree
         res["left"] = pretrain_gpt.mesh.group() is None
         out.append(res)
     save_result(tmp_path, rank, out)
