@@ -290,6 +290,42 @@ of which raises (and so exits non-zero) on failure:
      dropout kernels' checks of phase 3 and then (a) with planted faults
      beside its jobs (TP_FAULTS), printing each one's readings and the
      bounds it breaks: the readings the bounds were set from.
+ 18. GPT text generation: the server tool
+     (`python -m megatron_clip_tpu_torch.tools.run_text_generation_server
+     --load CKPT --port 0 ...`), each server a process of its own
+     (`chip_smoke.py --gpt-serve-worker`: the tool's `build`, served with
+     the server's handler plus a probe of each generation's outputs,
+     launches, seconds and peak memory), made before phase 2 and loading
+     beside phase 17: (a) GPT-345m at full width and depth (24 x
+     1024, 16 heads, learned positions, LayerNorm, gelu, vocab 50304, bf16
+     compute on fp32 weights from seed 0, the vocabulary's padding rows
+     held to a logit of -20.48), written with `save_checkpoint` in the
+     trainer's tree and served over HTTP: 8 ragged prompts greedy for 128
+     tokens with log-probabilities, 1 prompt greedy, a top-k 40 and a
+     decayed top-p 0.9 sample, beam width 4 and stop_on_eol, each with
+     exact LayerNorm launches ((2L+1) a forward, 1 + N forwards, N for a
+     beam); the greedy request teacher-forced through the port's cached
+     forward against `GPTModel`'s forward over the served tokens
+     (GEN_LOGIT_TOL, which a planted off-by-one position must break),
+     its tokens the forward's argmax wherever its top-2 margin is above
+     the tolerance, its log-probabilities the forward's log_softmax within
+     GEN_LOGPROB_TOL; the top-k sample within the top 40; the time to
+     the first token, the decode step's host ms, its interval on the
+     device clock (CUDA events) and its kernels' busy time (a profile) at
+     B = 8 and 1, tokens/s, each request's HTTP latency, peak memory and
+     the step against its weight-streaming bound; (b)
+     examples/pretrain_gpt_dist.sh's model from phase 15 (a)'s
+     checkpoint (its padding rows set to 0), prompts of its corpus's
+     words, greedy and top-k, the same checks but the planted position
+     (RMSNorm launches); (c) GPT-345m at 2 layers in fp32, card against
+     CPU in this process: the same text, log-probabilities within
+     GEN_CPU_LOGPROB_TOL (with fp32 caches too, printed); (d) two gloo
+     ranks of the server at tp 2 on the one card on (c)'s weights against
+     (c)'s card: the same text, log-probabilities within
+     GEN_TP_LOGPROB_TOL. The LayerNorm and RMSNorm forwards are held
+     against their plain versions and timed at the serving rows (B and
+     B P x 1024). Within 60 s. `python3 chip_smoke.py --gpt-serving` runs
+     phases 1, 2, 15 (a) (for (b)'s checkpoint) and 18 alone.
 
 Before its last lines the script fails if a process it started (a build,
 a decode worker, the forkserver, the resource tracker) is still alive.
@@ -332,6 +368,7 @@ limit, the {"kernels": [...]} line and {"ok": true, "device": {...}}.
 """
 import atexit
 import contextlib
+import copy
 import dataclasses
 import functools
 import json
@@ -690,6 +727,79 @@ TP_FAULTS = {
     "fault_norm_weight": ("bf16", "each replica of a norm gain counted in "
                           "the global norm"),
     "fault_embed_twice": ("bf16", "the embedding's gradient summed twice")}
+
+
+# phase 18: GPT text generation through the server tool
+# (megatron_clip_tpu_torch.tools.run_text_generation_server, each server a
+# `chip_smoke.py --gpt-serve-worker SPEC` process, made before phase 2 and
+# building its service at `go`): (a) GPT-345m (GPT_345M, pretrain_gpt's
+# defaults: learned positions, LayerNorm, gelu, biases, the tied
+# embedding; bf16 compute on fp32 weights from seed 0, `serving_model`)
+# answering GEN_REQUESTS; (b) examples/pretrain_gpt_dist.sh's model
+# (GPT_DIST) from phase 15 (a)'s checkpoint, GEN_EXAMPLE_REQUESTS; (c)
+# GEN_FP32 (GPT-345m at 2 layers, fp32) on the card against the CPU in
+# this process; (d) GEN_TP_RANKS gloo ranks of the server at tp 2 on the
+# one card, on (c)'s weights, against (c)'s card. Scratch under GEN_DIR;
+# within GEN_LIMIT_S.
+GEN_345M = ["--num-layers", str(GPT_345M["num_layers"]), "--hidden-size",
+              str(GPT_345M["hidden_size"]), "--num-heads",
+              str(GPT_345M["num_heads"]), "--seq-length", "2048",
+              "--vocab-size", str(GPT_345M["vocab_size"])]
+GEN_FP32 = [a for a in GEN_345M] + ["--precision", "fp32"]
+GEN_FP32[GEN_FP32.index("--num-layers") + 1] = "2"
+GEN_TP_RANKS = 2
+GEN_TP_PLACE = ["--device", "cuda:0", "--dist-backend", "gloo"]
+# the CLIP BPE's ids; past them, the vocabulary's padding rows
+CLIP_BPE_VOCAB, GEN_PAD_ROW = 49408, -0.02
+# 8 prompts of 1 to 14 CLIP BPE tokens: one prompt bucket of 16
+GEN_PROMPTS = [
+    "a photo of a dog on the beach at sunset with a red ball",
+    "the old map", "an oil painting of a lighthouse in a storm",
+    "two cats", "a diagram of the human heart with labels",
+    "street food in bangkok at night", "hello",
+    "a close up photo of a green leaf with water drops"]
+GEN_NEW = 128
+GEN_REQUESTS = {
+    "greedy8": {"prompts": GEN_PROMPTS, "tokens_to_generate": GEN_NEW,
+                "temperature": 0.0, "logprobs": True},
+    "greedy1": {"prompts": GEN_PROMPTS[:1],
+                "tokens_to_generate": GEN_NEW, "temperature": 0.0},
+    "top_k": {"prompts": GEN_PROMPTS[:4], "tokens_to_generate": 32,
+              "temperature": 1.0, "top_k": 40, "random_seed": 1},
+    "top_p": {"prompts": GEN_PROMPTS[:4], "tokens_to_generate": 32,
+              "temperature": 1.0, "top_p": 0.9, "top_p_decay": 0.98,
+              "top_p_bound": 0.5, "random_seed": 2},
+    "beam": {"prompts": GEN_PROMPTS[2:3], "tokens_to_generate": 16,
+             "beam_width": 4},
+    "stop_on_eol": {"prompts": GEN_PROMPTS[:2], "tokens_to_generate": 16,
+                    "temperature": 0.0, "stop_on_eol": True}}
+# (b) answers prompts of its corpus's words (`corpus_prompts`): on the
+# English prompts above, this model barely trained turns the rounding of
+# one row's bf16 K and V into logits 1.75 apart in fp32 (PERF.md §6)
+GEN_EXAMPLE_REQUESTS = {
+    "greedy8": dict(GEN_REQUESTS["greedy8"], tokens_to_generate=32),
+    "top_k": dict(GEN_REQUESTS["top_k"], tokens_to_generate=16,
+                  random_seed=3)}
+GEN_FP32_REQUEST = {"prompts": GEN_PROMPTS, "tokens_to_generate": 32,
+                      "temperature": 0.0, "logprobs": True}
+# the norms' serving rows at W = 1024: B = 8 and 1 a step, B P at prefill
+GEN_NORM_ROWS = (8, 1, 128, 16)
+GEN_TIMED_STEPS, GEN_PROFILED_STEPS = 10, 3
+# the planted off-by-one position's decode steps
+GEN_TEETH_STEPS = 16
+# the teacher-forced decode's logits against the forward's, and the
+# served log-probabilities against the forward's log_softmax, bf16 (PERF.md
+# phase 18: the readings and the planted off-by-one position)
+GEN_LOGIT_TOL, GEN_LOGPROB_TOL = 0.2, 0.2
+# (c) and (d), fp32: the cache is bf16 on every device, as the JAX
+# package makes it, so an fp32 ulp between the two sides' K or V can
+# round to bf16 an ulp apart (2^-8); readings 7.9e-5 and 1.2e-4 (PERF.md
+# §6), and with fp32 caches the card and the CPU agree closer (printed)
+GEN_CPU_LOGPROB_TOL = GEN_TP_LOGPROB_TOL = 5e-4
+GEN_DIR = REPO / "_smoke_serve"
+GEN_LIMIT_S = 60.0
+GEN_GO_TIMEOUT_S, GEN_READY_TIMEOUT_S, GEN_HTTP_TIMEOUT_S = (
+    1200.0, 45.0, 60.0)
 
 
 _T0 = time.perf_counter()
@@ -5296,6 +5406,33 @@ def gpt_trainer_per_eval(cfg, fused_ce: bool) -> dict:
     return {k: (v if k.endswith("_fwd") else 0) for k, v in one.items()}
 
 
+def corpus_vocab(rng) -> list:
+    """The corpus's words: 4000 pseudo-words of 2-4 syllables drawn from
+    `rng`, numbers and punctuation."""
+    syll = ["ka", "ro", "mi", "te", "sun", "ar", "lo", "ve", "qui", "da",
+            "ne", "po", "li", "sa", "tor", "en", "gu", "fi", "ba", "ze"]
+    vocab = ["".join(rng.choice(syll, int(rng.integers(2, 5))))
+             for _ in range(4000)]
+    return vocab + [str(n) for n in range(100)] + [",", ".", "?", "!", ";"]
+
+
+def corpus_prompts() -> list:
+    """Phase 18 (b)'s prompts: 8 runs of the corpus's words (its
+    vocabulary, drawn as `gpt_corpus` draws it), of 1 to 14 CLIP BPE
+    tokens, text of the kind the served model was trained on."""
+    from megatron_clip_tpu_torch.tokenizer import SimpleTokenizer
+    tok, rng = SimpleTokenizer(), np.random.default_rng(18)
+    vocab = corpus_vocab(np.random.default_rng(0))
+    prompts = []
+    for words in (4, 1, 3, 1, 2, 3, 1, 4):
+        while True:
+            text = " ".join(rng.choice(vocab, words))
+            if len(tok.encode(text)) <= 14:
+                prompts.append(text)
+                break
+    return prompts
+
+
 def gpt_corpus(root: Path) -> dict:
     """(a)'s corpus: GPT_CORPUS_DOCS jsonl documents of seeded words (a
     vocabulary of 4000 pseudo-words of 2-4 syllables, numbers and
@@ -5304,11 +5441,7 @@ def gpt_corpus(root: Path) -> dict:
     --append-eod` with GPT_CORPUS_WORKERS workers; returns its prefix and
     the tool's docs, tokens and rate."""
     rng = np.random.default_rng(0)
-    syll = ["ka", "ro", "mi", "te", "sun", "ar", "lo", "ve", "qui", "da",
-            "ne", "po", "li", "sa", "tor", "en", "gu", "fi", "ba", "ze"]
-    vocab = ["".join(rng.choice(syll, int(rng.integers(2, 5))))
-             for _ in range(4000)]
-    vocab += [str(n) for n in range(100)] + [",", ".", "?", "!", ";"]
+    vocab = corpus_vocab(rng)
     jsonl = root / "corpus.jsonl"
     with open(jsonl, "w") as f:
         for _ in range(GPT_CORPUS_DOCS):
@@ -5579,7 +5712,9 @@ def gpt_trainer_parity(main, workload, mha, ln, corpus: str,
 
 
 def phase_gpt_trainer(mha, ln, card: str, example: dict,
-                      corpus_dir: Path) -> dict:
+                      corpus_dir: Path, keep_ckpt: Path = None) -> dict:
+    """Phase 15; with `keep_ckpt`, (a)'s checkpoint is moved there at the
+    end (phase 18 (b) serves it)."""
     log(f"[15] GPT trainer: pretrain_gpt.main on the card: (a) "
         f"examples/pretrain_gpt_dist.sh (24 x 1024, S=2048, batch 64 in "
         f"microbatches of {GPT_DIST_MICRO}) on an indexed corpus, "
@@ -5612,7 +5747,7 @@ def phase_gpt_trainer(mha, ln, card: str, example: dict,
             result[name]["seconds"] = time.perf_counter() - t_part
             torch.cuda.empty_cache()
     finally:
-        shutil.rmtree(GPT_SMOKE_DIR, ignore_errors=True)
+        keep(keep_ckpt)
     result["seconds"] = time.perf_counter() - t0
     log(f"  GPT trainer: {json.dumps(result)}")
     if result["seconds"] > GPT_TRAINER_LIMIT_S:
@@ -5620,6 +5755,14 @@ def phase_gpt_trainer(mha, ln, card: str, example: dict,
             f"phase 15 took {result['seconds']:.1f} s, over "
             f"{GPT_TRAINER_LIMIT_S} s: " + phase_parts(result))
     return result
+
+
+def keep(ckpt: Path = None) -> None:
+    """Remove phase 15's scratch, its (a) checkpoint moved to `ckpt` first
+    where one is given."""
+    if ckpt is not None and (GPT_SMOKE_DIR / "ckpt").is_dir():
+        shutil.move(str(GPT_SMOKE_DIR / "ckpt"), str(ckpt))
+    shutil.rmtree(GPT_SMOKE_DIR, ignore_errors=True)
 
 
 @contextlib.contextmanager
@@ -6468,6 +6611,797 @@ def phase_sharded(launches: ShardedLaunches, mha, ln, card: str) -> dict:
     return result
 
 
+def serving_model(argv: list):
+    """The GPT of the server flags `argv` on the CPU, weights from seed 0
+    (`create_gpt`, fp32), with the vocabulary's padding rows past the CLIP
+    BPE's 49408 ids held to a low logit: each row at GEN_PAD_ROW and the
+    final LayerNorm's bias at 1 give them (h0 + 1) . row = GEN_PAD_ROW *
+    W under LayerNorm (h0 sums to 0), -20.48 at W = 1024, as a trained
+    model leaves the ids it never saw. The tokenizer has no text for them,
+    and the server answers 400 when one is decoded (as the JAX server
+    does), so random rows would end a sampled request at random."""
+    from megatron_clip_tpu_torch.models.gpt import create_gpt
+    from megatron_clip_tpu_torch.pretrain_gpt import (gpt_cfg_from_args,
+                                                      parse_args)
+    cfg = gpt_cfg_from_args(parse_args(argv))
+    model = create_gpt(cfg, "fp32", device="cpu", seed=0)
+    with torch.no_grad():
+        model.tok_embed[CLIP_BPE_VOCAB:] = GEN_PAD_ROW
+        model.ln_f["bias"].fill_(1.0)
+    return model.eval()
+
+
+def gpt_serve_worker(spec_path: str) -> int:
+    """One server of phase 18 (`chip_smoke.py --gpt-serve-worker SPEC`, a
+    process of its own, or each rank of a torchrun launch). It waits for
+    spec["go"], then builds the service as the server tool does
+    (`run_text_generation_server.build` on spec["argv"]; a launch's group
+    through a `file://` store under OUT) and, on rank 0, serves it on a
+    free port of 127.0.0.1, written to OUT/ready.json with the build's
+    seconds. Its handler is the server's, plus GET /_probe, which returns
+    (and clears) a record of each generation since the last probe: its
+    inputs and options, its outputs, its host seconds (to the outputs on
+    the host), its kernel launches (zeroed just before, read just after)
+    and its peak memory, and GET /_stop, which releases the other ranks
+    and ends the process. The other ranks follow rank 0."""
+    import threading
+    from http.server import ThreadingHTTPServer
+    from megatron_clip_tpu_torch.inference import server as srv
+    from megatron_clip_tpu_torch.ops.kernels import fused_mha as mha
+    from megatron_clip_tpu_torch.ops.kernels import layernorm as ln
+    from megatron_clip_tpu_torch.parallel import mesh
+    from megatron_clip_tpu_torch.tools import run_text_generation_server \
+        as tool
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    spec = json.loads(Path(spec_path).read_text())
+    out = Path(spec["out"])
+    wait_for(Path(spec["go"]), GEN_GO_TIMEOUT_S, spec["owner"])
+    t0 = time.perf_counter()
+    parse = tool.parse_args
+
+    def with_store(argv):
+        args = parse(argv)
+        args.dist_url = "file://" + str(out / "init")
+        return args
+    tool.parse_args = with_store
+    service, _ = tool.build(spec["argv"])
+    ready_s = time.perf_counter() - t0
+    if not service.leader:
+        try:
+            service.follow()
+        finally:
+            mesh.destroy()
+        return 0
+    records, stop = [], threading.Event()
+
+    def probed(fn, kind):
+        def call(model, *args, **kw):
+            zero_counts(mha, ln)
+            torch.cuda.synchronize()
+            torch.cuda.reset_peak_memory_stats()
+            t = time.perf_counter()
+            res = fn(model, *args, **kw)
+            host = [r.cpu() for r in res]
+            seconds = time.perf_counter() - t
+            records.append({
+                "kind": kind, "seconds": seconds,
+                "inputs": [a.tolist() for a in args],
+                "options": {k: v for k, v in kw.items()
+                            if k != "compute_dtype"},
+                "out": [r.tolist() for r in host],
+                "launches": read_counts(mha, ln),
+                "peak_bytes": torch.cuda.max_memory_allocated()})
+            return res
+        return call
+    srv.generate = probed(srv.generate, "generate")
+    srv.beam_search = probed(srv.beam_search, "beam")
+
+    class Probed(srv.make_handler(service)):
+        def do_GET(self):
+            if self.path == "/_probe":
+                body = json.dumps(records).encode()
+                records.clear()
+                self._send(200, body, "application/json")
+            elif self.path == "/_stop":
+                self._send(200, b"{}", "application/json")
+                stop.set()
+            else:
+                super().do_GET()
+    server = ThreadingHTTPServer(("127.0.0.1", 0), Probed)
+    threading.Thread(target=server.serve_forever, daemon=True).start()
+    model = service.model
+    (out / "ready.json").write_text(json.dumps({
+        "port": server.server_address[1], "ready_s": ready_s,
+        "params": sum(p.numel() for p in model.parameters()),
+        "model_bytes": torch.cuda.memory_allocated()}))
+    try:
+        while not stop.wait(1.0):
+            if not process_alive(spec["owner"]):
+                break
+    finally:
+        server.shutdown()
+        service.stop()
+        mesh.destroy()
+    return 0
+
+
+class ServingLaunches:
+    """Phase 18's servers, made before phase 2: the checkpoints of (a)'s
+    GPT-345m and (c)'s 2-layer fp32 model (`serving_model`, in the
+    trainer's tree), and the servers of (a) (one process) and (d)
+    (GEN_TP_RANKS gloo ranks on the one card, torchrun), each
+    `gpt_serve_worker`, waiting for `go`; (b)'s server, on phase 15 (a)'s
+    checkpoint, starts after phase 15 (`start_example`). `stop` ends any
+    still running; it runs at exit too."""
+
+    root = GEN_DIR
+    worker = [str(Path(__file__).resolve()), "--gpt-serve-worker"]
+
+    def __init__(self):
+        from megatron_clip_tpu_torch.checkpoints.io import save_checkpoint
+        shutil.rmtree(self.root, ignore_errors=True)
+        self.root.mkdir(parents=True)
+        self.go = self.root / "go"
+        self.example_ckpt = self.root / "example_ckpt"
+        self.procs, self.dirs, self.released = {}, {}, []
+        self.models = {}
+        for name, argv in (("gpt345m", GEN_345M), ("fp32", GEN_FP32)):
+            self.models[name] = serving_model(argv)
+            save_checkpoint(str(self.root / f"{name}_ckpt"), 0,
+                            {"params": self.models[name].state_dict()})
+        atexit.register(self.stop)
+        self.launch("gpt345m", GEN_345M + ["--load", str(
+            self.root / "gpt345m_ckpt")], 1)
+        self.launch("tp2", GEN_FP32 + [
+            "--load", str(self.root / "fp32_ckpt"),
+            "--tensor-model-parallel-size", str(GEN_TP_RANKS),
+            *GEN_TP_PLACE], GEN_TP_RANKS)
+
+    def launch(self, name: str, argv: list, ranks: int) -> None:
+        work = self.dirs[name] = self.root / name
+        work.mkdir()
+        spec = work / "spec.json"
+        spec.write_text(json.dumps({
+            "argv": argv + ["--port", "0"], "out": str(work),
+            "go": str(self.go), "owner": os.getpid()}))
+        me = self.worker + [str(spec)]
+        cmd = ([sys.executable] + me if ranks == 1 else
+               [sys.executable, "-m", "torch.distributed.run",
+                "--standalone", "--nproc-per-node", str(ranks)] + me)
+        with open(work / "log.txt", "w") as log_file:
+            self.procs[name] = subprocess.Popen(
+                cmd, cwd=REPO, stdout=log_file, stderr=subprocess.STDOUT,
+                start_new_session=True)
+
+    def start_example(self) -> None:
+        """(b)'s server, on the checkpoint phase 15 (a) left: its params,
+        the vocabulary's padding rows past the CLIP BPE's ids set to 0
+        (three steps on a corpus that never holds them leave them among a
+        near-uniform distribution's top 40, and the tokenizer has no text
+        for them: the server answers 400, as the JAX one does), written as
+        a params-only checkpoint of the same step (`example_params` keeps
+        them for the phase)."""
+        from megatron_clip_tpu_torch.checkpoints import io as ckpt_io
+        root = str(self.example_ckpt)
+        step = ckpt_io.latest_checkpoint_step(root)
+        state = torch.load(os.path.join(ckpt_io._iter_dir(root, step),
+                                        ckpt_io.STATE_FILENAME),
+                           map_location="cpu", weights_only=True, mmap=True)
+        params = dict(state["params"])
+        params["tok_embed"] = params["tok_embed"].clone()
+        params["tok_embed"][CLIP_BPE_VOCAB:] = 0.0
+        self.example_params, self.example_step = params, step
+        served = self.root / "example_served_ckpt"
+        ckpt_io.save_checkpoint(str(served), step, {"params": params})
+        self.launch("example", GPT_DIST + ["--load", str(served)], 1)
+
+    def _tail(self, name: str) -> str:
+        return (self.dirs[name] / "log.txt").read_text()[-4000:]
+
+    def url(self, name: str) -> tuple:
+        """(the server's URL, its ready.json) once it serves; raises with
+        its log's end if it exits first or outlasts GEN_READY_TIMEOUT_S."""
+        ready, t0 = self.dirs[name] / "ready.json", time.perf_counter()
+        while not ready.exists():
+            if self.procs[name].poll() is not None:
+                raise AssertionError(f"server {name} exited "
+                                     f"{self.procs[name].returncode}:\n"
+                                     + self._tail(name))
+            if time.perf_counter() - t0 > GEN_READY_TIMEOUT_S:
+                raise AssertionError(f"server {name} not ready after "
+                                     f"{GEN_READY_TIMEOUT_S} s:\n"
+                                     + self._tail(name))
+            time.sleep(0.05)
+        info = json.loads(ready.read_text())
+        return f"http://127.0.0.1:{info['port']}", info
+
+    def release(self, name: str, url: str) -> None:
+        """Tell server `name` to stop (GET /_stop); `finish` waits for it."""
+        http_get(url + "/_stop")
+        self.released.append(name)
+
+    def finish(self, timeout: float = 30.0) -> None:
+        """Hold every released server's exit code to 0."""
+        for name in self.released:
+            self._exited(name, timeout)
+
+    def _exited(self, name: str, timeout: float) -> None:
+        try:
+            rc = self.procs[name].wait(timeout=timeout)
+        except subprocess.TimeoutExpired:
+            kill_tree(self.procs[name].pid)
+            self.procs[name].wait()
+            rc = "timeout"
+        if rc != 0:
+            raise AssertionError(f"server {name} ended with {rc}:\n"
+                                 + self._tail(name))
+
+    def stop(self) -> None:
+        for proc in self.procs.values():
+            if proc.poll() is None:
+                kill_tree(proc.pid)
+                proc.wait()
+        shutil.rmtree(self.root, ignore_errors=True)
+
+
+def http_get(url: str):
+    import urllib.request
+    with urllib.request.urlopen(url, timeout=GEN_HTTP_TIMEOUT_S) as r:
+        return json.loads(r.read())
+
+
+def http_put(url: str, request: dict) -> tuple:
+    """PUT `request` to url/api: (the JSON answer, the seconds it took);
+    a status other than 200 raises with the answer's message."""
+    import urllib.error
+    import urllib.request
+    req = urllib.request.Request(url + "/api", method="PUT",
+                                 data=json.dumps(request).encode(),
+                                 headers={"Content-Type": "application/json"})
+    t = time.perf_counter()
+    try:
+        with urllib.request.urlopen(req, timeout=GEN_HTTP_TIMEOUT_S) as r:
+            body = json.loads(r.read())
+    except urllib.error.HTTPError as e:
+        raise AssertionError(f"PUT {request} -> {e.code}: {e.read()!r}")
+    return body, time.perf_counter() - t
+
+
+def serve_requests(url: str, requests: dict) -> dict:
+    """Each request of `requests` over HTTP, then the server's probe of
+    it: {name: {"answer", "latency_s", "record"}}; each request must have
+    made one generation."""
+    got = {}
+    for name, req in requests.items():
+        answer, latency = http_put(url, req)
+        records = http_get(url + "/_probe")
+        if len(records) != 1:
+            raise AssertionError(f"{name}: {len(records)} generations")
+        got[name] = {"answer": answer, "latency_s": latency,
+                     "record": records[0]}
+    return got
+
+
+def serve_launches(name: str, got: dict, layers: int, norm: str) -> dict:
+    """Each request's launches, held exactly: the norm's forward kernel
+    (2L + 1) times a forward, 1 + N forwards for a generation (the
+    prefill, then N steps: the JAX scan's last step runs the forward too)
+    and N for a beam search (the prefill, N - 1 steps); no other
+    kernel. Returns them by path for the kernels line."""
+    kernel = "rms_norm_fwd" if norm == "rmsnorm" else "layer_norm_fwd"
+    paths = {}
+    for req, res in got.items():
+        rec = res["record"]
+        n = rec["options"]["max_new_tokens"]
+        forwards = 1 + n if rec["kind"] == "generate" else n
+        want = {k: 0 for k in rec["launches"]}
+        want[kernel] = (2 * layers + 1) * forwards
+        if rec["launches"] != want:
+            raise AssertionError(f"{name} {req}: launches {rec['launches']}"
+                                 f", want {want}")
+        paths[f"serve {name} {req}"] = rec["launches"]
+    return paths
+
+
+@torch.no_grad()
+def teacher_forced(model, out: torch.Tensor, lens: torch.Tensor, p: int,
+                   n: int, shift: int = 0) -> torch.Tensor:
+    """The cached decode's logits [B, n, V] at each generated position of
+    out [B, P + n], the port's `_forward_cached` fed the served tokens: the
+    prefill's at lens - 1, then step i's, fed out[:, lens + i] at position
+    lens + i (+ `shift`: a planted off-by-one)."""
+    from megatron_clip_tpu_torch.inference import generation as gen
+    dtype = gen.default_compute_dtype(out.device)
+    params = gen.decode_params(model, dtype)
+    b = out.shape[0]
+    cache = gen.KVCache.create(model.cfg, b, p + n + shift,
+                               device=out.device)
+    rows = torch.arange(b, device=out.device)
+    logits, cache = gen._forward_cached(params, out[:, :p], 0, cache,
+                                        model.cfg, dtype)
+    got = [logits[rows, lens - 1]]
+    for i in range(n - 1):
+        pos = lens + i
+        step, cache = gen._forward_cached(params, out[rows, pos][:, None],
+                                          pos + shift, cache, model.cfg,
+                                          dtype)
+        got.append(step[:, 0])
+    return torch.stack(got, 1)
+
+
+@torch.no_grad()
+def serve_check(name: str, model, res: dict, teeth: bool = True) -> dict:
+    """A greedy generation with log-probabilities, held against the port's
+    `GPTModel` forward over the served tokens on the card: the cached
+    decode's logits at each generated position (`teacher_forced`) within
+    GEN_LOGIT_TOL of the forward's, and with `teeth`, with a planted
+    off-by-one position not (a learned table's next row; with rotary
+    positions only the offsets to the prompt move, and an unwritten cache
+    slot joins, which a barely trained model's near-uniform attention
+    hardly sees: 0.148 on (b)'s, so (b) plants none); each served token
+    the forward's argmax wherever the forward's top-2 margin is above
+    GEN_LOGIT_TOL (through its EOS); the answer's log-probabilities within
+    GEN_LOGPROB_TOL of the forward's log_softmax at the served tokens."""
+    rec, answer = res["record"], res["answer"]
+    dev = model.tok_embed.device
+    prompt, lens = (torch.tensor(x, device=dev) for x in rec["inputs"])
+    out, n_gen = (torch.tensor(x, device=dev) for x in rec["out"][:2])
+    b, p = prompt.shape
+    n = rec["options"]["max_new_tokens"]
+    fw = model(out)                                        # [B, P+n, V]
+    rows = torch.arange(b, device=dev)
+    at = lens[:, None] - 1 + torch.arange(n, device=dev)[None]
+    want = fw[rows[:, None], at]                           # [B, n, V]
+    got = teacher_forced(model, out, lens, p, n)
+    logit_err = float((got - want).abs().max())
+    del got
+    off_err = None
+    if teeth:
+        t = min(GEN_TEETH_STEPS, n)
+        off = teacher_forced(model, out, lens, p, t, shift=1)
+        off_err = float((off[:, 1:] - want[:, 1:t]).abs().max())
+        del off
+    top2 = want.topk(2, dim=-1).values
+    live = torch.arange(n, device=dev)[None] < n_gen[:, None]
+    decided = live & (top2[..., 0] - top2[..., 1] > GEN_LOGIT_TOL)
+    served = out[rows[:, None], at + 1]
+    agree = served == want.argmax(-1)
+    lsm = torch.log_softmax(fw, dim=-1)
+    lp_err = 0.0
+    for r, row in enumerate(answer["logprobs"]):
+        k = len(row)
+        ref = lsm[r, torch.arange(k, device=dev), out[r, 1:k + 1]]
+        lp_err = max(lp_err, float((torch.tensor(row, device=dev)
+                                    - ref).abs().max()))
+    result = {"logit_max_abs_err": logit_err,
+              "off_by_one_logit_max_abs_err": off_err,
+              "logprob_max_abs_err": lp_err,
+              "greedy_positions_decided": int(decided.sum()),
+              "greedy_positions_live": int(live.sum()),
+              "greedy_agree_where_decided": bool(agree[decided].all()),
+              "greedy_agree_share": float(agree[live].float().mean())}
+    log(f"  {name}: teacher-forced decode logits {logit_err:.4g} from the "
+        f"forward's (tolerance {GEN_LOGIT_TOL}); off by one position "
+        f"{'not planted' if off_err is None else f'{off_err:.4g}'}; "
+        f"log-probabilities {lp_err:.4g} (tolerance "
+        f"{GEN_LOGPROB_TOL}); greedy tokens the forward's argmax at "
+        f"{result['greedy_agree_share']:.4f} of {int(live.sum())} "
+        f"positions, at all {int(decided.sum())} whose top-2 margin is "
+        f"above the tolerance")
+    if logit_err > GEN_LOGIT_TOL or (teeth and off_err <= GEN_LOGIT_TOL) \
+            or \
+            lp_err > GEN_LOGPROB_TOL or not result[
+                "greedy_agree_where_decided"]:
+        per = (teacher_forced(model, out, lens, p, n) - want).abs().amax(-1)
+        for r in range(b):
+            bad = (per[r] > GEN_LOGIT_TOL).nonzero()
+            alone = model(out[r:r + 1, :int(lens[r]) + n])[0, at[r]]
+            log(f"  {name} row {r}: prompt {int(lens[r])} tokens, "
+                f"{int(n_gen[r])} generated; decode against the batch's "
+                f"forward {float(per[r].max()):.4g}, first past the "
+                f"tolerance at step {int(bad[0]) if len(bad) else None}; the"
+                f" row's forward alone against the batch's "
+                f"{float((alone - want[r]).abs().max()):.4g}; tokens "
+                f"{out[r, :int(lens[r]) + 12].tolist()}")
+        raise AssertionError(f"{name}: {result}")
+    return result
+
+
+@torch.no_grad()
+def top_k_check(name: str, model, res: dict) -> dict:
+    """A top-k sample: each served token (through its EOS) among the k
+    largest of the cached decode's logits fed the served tokens, within
+    GEN_LOGIT_TOL of the k-th; no token past the CLIP BPE's vocabulary."""
+    rec = res["record"]
+    dev = model.tok_embed.device
+    prompt, lens = (torch.tensor(x, device=dev) for x in rec["inputs"])
+    out, n_gen = (torch.tensor(x, device=dev) for x in rec["out"][:2])
+    b, p = prompt.shape
+    opts = rec["options"]
+    n, k = opts["max_new_tokens"], opts["top_k"]
+    logits = teacher_forced(model, out, lens, p, n)
+    rows = torch.arange(b, device=dev)
+    at = lens[:, None] + torch.arange(n, device=dev)[None]
+    served = out[rows[:, None], at]
+    live = torch.arange(n, device=dev)[None] < n_gen[:, None]
+    kth = logits.topk(k, dim=-1).values[..., -1]
+    mine = logits.gather(-1, served[..., None])[..., 0]
+    slack = float((kth - mine)[live].max())
+    if slack > GEN_LOGIT_TOL or int(served[live].max()) >= CLIP_BPE_VOCAB:
+        raise AssertionError(f"{name}: a sampled token {slack:.4g} below "
+                             f"the {k}-th logit, or past the vocabulary")
+    log(f"  {name}: every sampled token within the top {k} (the lowest "
+        f"{0.0 - slack:.4g} above the {k}-th logit)")
+    return {"top_k_slack": slack}
+
+
+@torch.no_grad()
+def decode_timings(model, prompt: torch.Tensor, lens: torch.Tensor,
+                   reps: int = GEN_TIMED_STEPS) -> dict:
+    """The decode step of `model` in the compute dtype at batch B: the
+    time to the first token (host wall time from the call of `generate` to
+    its first sampled token on the card, the first `_sample` synchronized;
+    the second call's, the first meeting the shapes' first products),
+    then `reps` steps (`_forward_cached` of one token a row at its own
+    position, then the greedy `_sample`): the host's ms a step to enqueue
+    them, each step's interval on the device clock (CUDA events between
+    the steps: the card's launch queue holds about one step's ~900
+    launches, so the host paces it), their median, and the steps' kernels
+    in a profile (`step_profile`: the device's busy time a step)."""
+    from megatron_clip_tpu_torch.inference import generation as gen
+    first, sample = {}, gen._sample
+
+    def timed_sample(*a, **kw):
+        tok = sample(*a, **kw)
+        if "s" not in first:
+            torch.cuda.synchronize()
+            first["s"] = time.perf_counter() - t0
+        return tok
+    gen._sample = timed_sample
+    try:
+        for _ in range(2):
+            first.clear()
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            gen.generate(model, prompt, lens, max_new_tokens=2,
+                         temperature=0.0)
+    finally:
+        gen._sample = sample
+    dtype = gen.default_compute_dtype(prompt.device)
+    params = gen.decode_params(model, dtype)
+    b, p = prompt.shape
+    # positions for the warm-up, the two timed windows and the profile
+    cache = gen.KVCache.create(model.cfg, b,
+                               p + 3 + 2 * reps + GEN_PROFILED_STEPS,
+                               device=prompt.device)
+    logits, cache = gen._forward_cached(params, prompt, 0, cache, model.cfg,
+                                        dtype)
+    tok = logits[torch.arange(b, device=prompt.device), lens - 1].argmax(-1)
+    i = 0
+
+    def step():
+        nonlocal tok, cache, i
+        logits, cache = gen._forward_cached(params, tok[:, None], lens + i,
+                                            cache, model.cfg, dtype)
+        tok = gen._sample(logits[:, 0], 0.0, 0, None)
+        i += 1
+    for _ in range(3):
+        step()
+    torch.cuda.synchronize()
+    t = time.perf_counter()
+    for _ in range(reps):
+        step()
+    host_ms = (time.perf_counter() - t) / reps * 1e3
+    torch.cuda.synchronize()
+    events = [torch.cuda.Event(enable_timing=True) for _ in range(reps + 1)]
+    events[0].record()
+    for e in events[1:]:
+        step()
+        e.record()
+    events[-1].synchronize()
+    per_step = [a.elapsed_time(b) for a, b in zip(events, events[1:])]
+    return {"ttft_ms": first["s"] * 1e3, "step_host_ms": host_ms,
+            "step_interval_ms": per_step,
+            "step_interval_ms_median": float(np.median(per_step)),
+            "profile": step_profile(step)}
+
+
+def step_profile(step, steps: int = GEN_PROFILED_STEPS,
+                 top: int = 12) -> dict:
+    """torch.profiler over `steps` calls of `step`: the device's kernel
+    time and kernel count a step, and the `top` kernels by device time and
+    host ops by their own host time, each a step."""
+    from torch.profiler import ProfilerActivity, profile
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        for _ in range(steps):
+            step()
+        torch.cuda.synchronize()
+
+    def device_us(e):
+        return (getattr(e, "self_device_time_total", None)
+                or getattr(e, "self_cuda_time_total", 0) or 0)
+    rows = prof.key_averages()
+    kernels = sorted(((e.key[:120], e.count / steps, device_us(e) / steps)
+                      for e in rows if device_us(e) > 0 and
+                      e.self_cpu_time_total == 0),
+                     key=lambda r: -r[2])
+    host = sorted(((e.key[:120], e.count / steps,
+                    e.self_cpu_time_total / steps)
+                   for e in rows if e.self_cpu_time_total > 0),
+                  key=lambda r: -r[2])
+    return {"device_us": sum(k[2] for k in kernels),
+            "kernels": sum(k[1] for k in kernels),
+            "host_us": sum(h[2] for h in host),
+            "top_device_us": kernels[:top], "top_host_us": host[:top]}
+
+
+def serving_norm_checks(errs, rows, ln) -> dict:
+    """The LayerNorm and RMSNorm forward kernels at the serving rows of
+    phase 18 (B = 8 and 1 a decode step, B P = 128 and 16 at prefill, W =
+    1024), bf16 (the decode's) and fp32 ((c)'s), against their plain
+    versions; then their timings at B = 8 and B P = 128 in bf16."""
+    gen = torch.Generator(device="cuda").manual_seed(18)
+    w = GPT_345M["hidden_size"]
+    for n in GEN_NORM_ROWS:
+        x = torch.randn(n, w, device="cuda", generator=gen) * 3 + 1
+        scale = torch.randn(w, device="cuda", generator=gen)
+        bias = torch.randn(w, device="cuda", generator=gen)
+        for dtype in (torch.bfloat16, torch.float32):
+            xd = x.to(dtype)
+            check_kernel(errs, "layer_norm_fwd", f"serving rows={n} W={w}",
+                         ln.layer_norm_fwd(xd, scale, bias),
+                         lambda dt: ln.layer_norm_plain(xd.to(dt), scale,
+                                                        bias))
+            check_kernel(errs, "rms_norm_fwd", f"serving rows={n} W={w}",
+                         ln.rms_norm_fwd(xd, scale),
+                         lambda dt: ln.rms_norm_plain(xd.to(dt), scale))
+    dt = torch.bfloat16
+    for n in GEN_NORM_ROWS[::2]:
+        x = torch.randn(n, w, device="cuda", generator=gen, dtype=dt)
+        scale = torch.randn(w, device="cuda", generator=gen)
+        bias = torch.randn(w, device="cuda", generator=gen)
+        scale_bf, bias_bf = scale.to(dt), bias.to(dt)
+        rows.append(timing_row(
+            "layer_norm_fwd", f"serving GPT-345m rows={n} W={w} bf16",
+            lambda: ln.layer_norm_fwd(x, scale, bias),
+            lambda: ln.layer_norm_plain(x, scale, bias),
+            lambda: F.layer_norm(x, (w,), scale_bf, bias_bf, 1e-5),
+            ln_cost(n, w, 2), torch.float32))
+        rows.append(timing_row(
+            "rms_norm_fwd", f"serving example GPT rows={n} W={w} bf16",
+            lambda: ln.rms_norm_fwd(x, scale),
+            lambda: ln.rms_norm_plain(x, scale),
+            lambda: F.rms_norm(x, (w,), scale_bf, 1e-6),
+            rms_cost(n, w, 2), torch.float32))
+    return {"rows": list(GEN_NORM_ROWS), "width": w}
+
+
+def rates(got: dict) -> dict:
+    """Each request's batch, new tokens, HTTP latency, the generation's
+    seconds in the server and tokens/s (B N over them), and its peak."""
+    out = {}
+    for req, res in got.items():
+        rec = res["record"]
+        b = len(rec["inputs"][0])
+        n = rec["options"]["max_new_tokens"]
+        out[req] = {"batch": b, "new_tokens": n,
+                    "http_latency_s": res["latency_s"],
+                    "generate_s": rec["seconds"],
+                    "tokens_per_s": b * n / rec["seconds"],
+                    "peak_memory_gib": rec["peak_bytes"] / 2 ** 30}
+    return out
+
+
+def serve_gpt345m(launches: ServingLaunches) -> tuple:
+    """(a): GPT-345m at full width and depth behind the server tool."""
+    url, info = launches.url("gpt345m")
+    t0 = time.perf_counter()
+    got = serve_requests(url, GEN_REQUESTS)
+    launches.release("gpt345m", url)
+    requests_s = time.perf_counter() - t0
+    paths = serve_launches("GPT-345m", got, GPT_345M["num_layers"],
+                           "layernorm")
+    model = on_card(launches.models.pop("gpt345m"))
+    result = {"server_ready_s": info["ready_s"], "params": info["params"],
+              "server_model_bytes": info["model_bytes"],
+              "requests": rates(got),
+              "greedy": serve_check("(a) GPT-345m greedy", model,
+                                    got["greedy8"]),
+              "top_k": top_k_check("(a) GPT-345m top-k", model,
+                                   got["top_k"])}
+    beam = got["beam"]["record"]
+    result["beam_score"] = got["beam"]["answer"]["scores"][0]
+    result["beam_tokens"] = beam["out"][0][0]
+    result["requests_s"] = requests_s
+    result["checks_s"] = time.perf_counter() - t0 - requests_s
+    rec = got["greedy8"]["record"]
+    prompt, lens = (torch.tensor(x, device=model.tok_embed.device)
+                    for x in rec["inputs"])
+    result["timings_b8"] = decode_timings(model, prompt, lens)
+    result["timings_b1"] = decode_timings(model, prompt[:1], lens[:1])
+    bound = info["params"] * 2 / HBM_BYTES_PER_S * 1e3
+    b8 = result["timings_b8"]
+    busy = b8["profile"]["device_us"] / 1e3
+    result.update(weight_stream_bound_ms=bound,
+                  step_busy_vs_bound=busy / bound,
+                  step_interval_vs_bound=b8["step_interval_ms_median"]
+                  / bound, step_host_vs_busy=b8["step_host_ms"] / busy)
+    del model
+    torch.cuda.empty_cache()
+    for b in ("b8", "b1"):
+        t = result[f"timings_{b}"]
+        prof = t["profile"]
+        log(f"  (a) decode at {b.upper()}: time to first token "
+            f"{t['ttft_ms']:.2f} ms; a step {t['step_host_ms']:.3f} host "
+            f"ms to enqueue, {t['step_interval_ms_median']:.3f} ms apart on "
+            f"the device clock (median of {len(t['step_interval_ms'])}, "
+            f"CUDA events), its kernels busy {prof['device_us'] / 1e3:.3f} "
+            f"ms ({prof['kernels']:.0f} kernels; profiled host ops "
+            f"{prof['host_us'] / 1e3:.3f} ms); top kernels (name, a step, "
+            f"us) {prof['top_device_us']}; top host ops "
+            f"{prof['top_host_us']}")
+    log(f"  (a) the step's kernels busy {result['step_busy_vs_bound']:.2f}x "
+        f"the weight-streaming bound of {bound:.4f} ms ({info['params']} "
+        f"parameters in bf16 at {HBM_BYTES_PER_S / 1e12:.2f} TB/s), its "
+        f"interval {result['step_interval_vs_bound']:.2f}x; the host "
+        f"{result['step_host_vs_busy']:.2f}x the kernels' time; server ready"
+        f" {info['ready_s']:.1f} s after go; requests "
+        f"{json.dumps(result['requests'])}")
+    return result, paths
+
+
+def serve_example(launches: ServingLaunches) -> tuple:
+    """(b): examples/pretrain_gpt_dist.sh's model from phase 15 (a)'s
+    checkpoint behind the server tool."""
+    from megatron_clip_tpu_torch.pretrain_gpt import (gpt_cfg_from_args,
+                                                      parse_args,
+                                                      precision_from_args)
+    from megatron_clip_tpu_torch.tools.run_text_generation_server import \
+        build_model
+    url, info = launches.url("example")
+    prompts = corpus_prompts()
+    got = serve_requests(url, {
+        name: dict(req, prompts=prompts[:len(req["prompts"])])
+        for name, req in GEN_EXAMPLE_REQUESTS.items()})
+    launches.release("example", url)
+    args = parse_args(GPT_DIST)
+    cfg = gpt_cfg_from_args(args)
+    paths = serve_launches("example GPT", got, cfg.num_layers, "rmsnorm")
+    model = on_card(build_model(cfg, precision_from_args(args),
+                                launches.example_params))
+    result = {"server_ready_s": info["ready_s"],
+              "checkpoint_step": launches.example_step,
+              "requests": rates(got),
+              "greedy": serve_check("(b) example GPT greedy", model,
+                                    got["greedy8"], teeth=False),
+              "top_k": top_k_check("(b) example GPT top-k", model,
+                                   got["top_k"])}
+    del model
+    torch.cuda.empty_cache()
+    log(f"  (b) requests {json.dumps(result['requests'])}")
+    return result, paths
+
+
+@contextlib.contextmanager
+def fp32_cache():
+    """`KVCache.create` making fp32 caches while the block runs (the port
+    and the JAX package make bf16 ones on every device)."""
+    from megatron_clip_tpu_torch.inference import generation as gen
+    create = gen.KVCache.__dict__["create"]
+    gen.KVCache.create = classmethod(
+        lambda cls, *a, **kw: create.__func__(cls, *a,
+                                              **dict(kw, dtype=torch.float32)))
+    try:
+        yield
+    finally:
+        gen.KVCache.create = create
+
+
+def serve_fp32_and_tp(launches: ServingLaunches) -> dict:
+    """(c) the 2-layer fp32 model's greedy request on the card against the
+    CPU, in this process (`GenerationService` in fp32): the texts and
+    segments equal, the log-probabilities within GEN_CPU_LOGPROB_TOL, and
+    the same with fp32 caches (how far apart the bf16 cache's roundings put
+    them); (d) the same request to the tensor-parallel server against the
+    card's answer: texts and segments equal, log-probabilities within
+    GEN_TP_LOGPROB_TOL."""
+    from megatron_clip_tpu_torch.inference.server import GenerationService
+    from megatron_clip_tpu_torch.tokenizer import SimpleTokenizer
+    tok = SimpleTokenizer()
+    req = GEN_FP32_REQUEST
+    cpu_model = launches.models.pop("fp32")
+    models = {"cuda": on_card(copy.deepcopy(cpu_model)), "cpu": cpu_model}
+    answers = {}
+    for cache in ("bf16", "fp32"):
+        for where, model in models.items():
+            service = GenerationService(model, tok, eos_id=tok.eot_token_id,
+                                        compute_dtype=torch.float32)
+            t = time.perf_counter()
+            with (fp32_cache() if cache == "fp32"
+                  else contextlib.nullcontext()):
+                texts, segments, lps = service(
+                    req["prompts"], req["tokens_to_generate"],
+                    req["temperature"], return_logprobs=True)
+            answers[where, cache] = {"text": texts, "segments": segments,
+                                     "logprobs": lps,
+                                     "seconds": time.perf_counter() - t}
+    url, info = launches.url("tp2")
+    tp, latency = http_put(url, req)
+    launches.release("tp2", url)
+    card = answers["cuda", "bf16"]
+
+    def lp_err(a, b):
+        return max(max(abs(x - y) for x, y in zip(ra, rb))
+                   for ra, rb in zip(a["logprobs"], b["logprobs"]))
+    result = {"cpu_logprob_max_abs_err": lp_err(card, answers["cpu", "bf16"]),
+              "cpu_logprob_max_abs_err_fp32_cache": lp_err(
+                  answers["cuda", "fp32"], answers["cpu", "fp32"]),
+              "tp_logprob_max_abs_err": lp_err(tp, card),
+              "card_s": card["seconds"],
+              "cpu_s": answers["cpu", "bf16"]["seconds"],
+              "tp_http_latency_s": latency,
+              "tp_server_ready_s": info["ready_s"]}
+    log(f"  (c) fp32 card vs CPU: log-probabilities "
+        f"{result['cpu_logprob_max_abs_err']:.3g} apart (tolerance "
+        f"{GEN_CPU_LOGPROB_TOL}), with fp32 caches "
+        f"{result['cpu_logprob_max_abs_err_fp32_cache']:.3g}; (d) tp "
+        f"{GEN_TP_RANKS} over gloo vs one process: "
+        f"{result['tp_logprob_max_abs_err']:.3g} (tolerance "
+        f"{GEN_TP_LOGPROB_TOL}); {json.dumps(result)}")
+    for name, got, tol, key in (
+            ("(c) card vs CPU", answers["cpu", "bf16"], GEN_CPU_LOGPROB_TOL,
+             "cpu_logprob_max_abs_err"),
+            ("(d) tp vs one process", tp, GEN_TP_LOGPROB_TOL,
+             "tp_logprob_max_abs_err")):
+        if got["text"] != card["text"] or \
+                got["segments"] != card["segments"] or result[key] > tol:
+            raise AssertionError(f"{name}: the answers differ: {result}")
+    return result
+
+
+def on_card(model):
+    """`model` moved to the card (in place)."""
+    return model.to("cuda").eval()
+
+
+def phase_gpt_serving(launches: ServingLaunches, mha, ln, card: str, errs,
+                      rows) -> tuple:
+    log(f"[18] GPT text generation: the server tool over HTTP, (a) "
+        f"GPT-345m at full width and depth, (b) examples/pretrain_gpt_dist"
+        f".sh's model from phase 15's checkpoint, (c) fp32 card vs CPU, (d) "
+        f"{GEN_TP_RANKS} gloo ranks at tp {GEN_TP_RANKS} vs one process")
+    t0 = time.perf_counter()
+    result, paths = {"card": card}, {}
+    launches.go.touch()
+
+    def timed(name: str, part):
+        t_part = time.perf_counter()
+        result[name] = part()
+        if isinstance(result[name], tuple):
+            result[name], more = result[name]
+            paths.update(more)
+        result[name]["seconds"] = time.perf_counter() - t_part
+        log(f"  {name}: {result[name]['seconds']:.1f} s")
+    try:
+        timed("norms", lambda: serving_norm_checks(errs, rows, ln))
+        timed("gpt345m", lambda: serve_gpt345m(launches))
+        timed("example", lambda: serve_example(launches))
+        timed("fp32_tp", lambda: serve_fp32_and_tp(launches))
+        launches.finish()
+    finally:
+        launches.stop()
+    result["seconds"] = time.perf_counter() - t0
+    log(f"  GPT text generation ({card}): {json.dumps(result)}")
+    if result["seconds"] > GEN_LIMIT_S:
+        raise AssertionError(
+            f"phase 18 took {result['seconds']:.1f} s, over "
+            f"{GEN_LIMIT_S} s: " + phase_parts(result))
+    return result, paths
+
+
 def tp_fault_readings() -> int:
     """`python3 chip_smoke.py --tp-faults`: the dropout kernels against
     their plain versions as phase 3 holds them (every shape of
@@ -6518,6 +7452,39 @@ def tp_fault_readings() -> int:
     return 0
 
 
+def gpt_serving_only() -> int:
+    """`python3 chip_smoke.py --gpt-serving`: phase 18 alone, after the
+    phases it needs: 1, 2 (every kernel) and phase 15 (a), which writes
+    (b)'s checkpoint. It prints the phase's lines, not the script's last
+    three."""
+    from megatron_clip_tpu_torch.ops.kernels import _build
+    from megatron_clip_tpu_torch.ops.kernels import fused_mha as mha
+    from megatron_clip_tpu_torch.ops.kernels import layernorm as ln
+    from megatron_clip_tpu_torch.pretrain_gpt import main as gpt_main
+    from megatron_clip_tpu_torch.training import workload
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    atexit.register(kill_tree)
+    signal.signal(signal.SIGTERM, lambda *_: sys.exit(143))
+    card = gpu_name_and_power_limit()
+    log(f"[1] device: {torch.cuda.get_device_name(0)} | {card}")
+    serving = ServingLaunches()
+    phase_build(_build)
+    log("[15] (a) alone: examples/pretrain_gpt_dist.sh's checkpoint")
+    shutil.rmtree(GPT_SMOKE_DIR, ignore_errors=True)
+    (GPT_SMOKE_DIR / "corpus").mkdir(parents=True)
+    try:
+        gpt_trainer_dist(gpt_main, workload, mha, ln, GPT_SMOKE_DIR,
+                         float("nan"), GPT_SMOKE_DIR / "corpus")
+    finally:
+        keep(serving.example_ckpt)
+    serving.start_example()
+    errs, rows = {name: {} for name in KERNELS}, []
+    phase_gpt_serving(serving, mha, ln, card, errs, rows)
+    check_no_processes_left()
+    return 0
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; this script runs only on the GPU",
@@ -6529,6 +7496,10 @@ def main() -> int:
         return gpt_dp_worker(sys.argv[2])
     if sys.argv[1:2] == ["--tp-faults"]:
         return tp_fault_readings()
+    if sys.argv[1:2] == ["--gpt-serve-worker"]:
+        return gpt_serve_worker(sys.argv[2])
+    if sys.argv[1:2] == ["--gpt-serving"]:
+        return gpt_serving_only()
     import megatron_clip_tpu_torch as port
     from megatron_clip_tpu_torch.ops.kernels import _build
     from megatron_clip_tpu_torch.ops.kernels import fused_mha as mha
@@ -6548,6 +7519,7 @@ def main() -> int:
     launches = DataParallelLaunches()
     gpt_launches = GptDataParallelLaunches()
     tp_launches = ShardedLaunches()
+    gpt_serve = ServingLaunches()
     phase_build(_build)
     errs = phase_kernels(mha, ln)
     phase_goldens(port)
@@ -6562,10 +7534,17 @@ def main() -> int:
     recipes = phase_recipes(mha, ln, card)
     dp = phase_data_parallel(launches, mha, ln, card, trainer)
     gpt_trainer = phase_gpt_trainer(mha, ln, card, example,
-                                    gpt_launches.corpus_dir)
+                                    gpt_launches.corpus_dir,
+                                    keep_ckpt=gpt_serve.example_ckpt)
+    gpt_serve.start_example()
     gpt_dp = phase_gpt_data_parallel(gpt_launches, mha, ln, card,
                                      gpt_trainer)
+    # phase 18's servers load their checkpoints and models beside phase
+    # 17, so that the serving phase starts on servers that are ready
+    gpt_serve.go.touch()
     sharded = phase_sharded(tp_launches, mha, ln, card)
+    _, serving_paths = phase_gpt_serving(gpt_serve, mha, ln, card, errs,
+                                         rows)
     paths = {"serving ViT-B-32": serving["launches"],
              "train ViT-B-32": train["launches"],
              **{f"train {name} recompute": run["launches"]
@@ -6600,7 +7579,8 @@ def main() -> int:
                     sharded["gpt_tp2_fsdp2_sp"]["bf16"]["launches_ranks"])},
              **{f"GPT trainer tp2 x fsdp2 sp dropout rank {r}": got
                 for r, got in enumerate(sharded["gpt_tp2_fsdp2_sp"][
-                    "bf16 dropout"]["launches_ranks"])}}
+                    "bf16 dropout"]["launches_ranks"])},
+             **serving_paths}
     kernels = kernels_line(rows, paths, errs)
     idle = [k["name"] for k in kernels if k["launches"] == 0]
     if idle:

@@ -80,12 +80,17 @@ MIN_FLASH_SEQ = 256
 
 
 def sdpa(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
-         causal: bool = False, scale: Optional[float] = None) -> torch.Tensor:
+         causal: bool = False, bias: Optional[torch.Tensor] = None,
+         scale: Optional[float] = None) -> torch.Tensor:
     """Scaled dot-product attention, softmax in fp32.
-    q: [B, H, Sq, D], k/v: [B, H, Sk, D]."""
+    q: [B, H, Sq, D], k/v: [B, H, Sk, D]; `bias` (broadcastable to
+    [B, H, Sq, Sk]) is added to the fp32 logits before the causal mask,
+    as the JAX `sdpa` adds it (the KV-cache decode's mask)."""
     if scale is None:
         scale = q.shape[-1] ** -0.5
     logits = torch.matmul(q.float(), k.float().transpose(-1, -2)) * scale
+    if bias is not None:
+        logits = logits + bias.float()
     if causal:
         sq, sk = logits.shape[-2:]
         row = torch.arange(sq, device=q.device)[:, None]

@@ -340,3 +340,63 @@ def gpt_rank(rank, world, tmp_path, jobs):
         res["left"] = pretrain_gpt.mesh.group() is None
         out.append(res)
     save_result(tmp_path, rank, out)
+
+
+# ----------------------------------------------------------------------
+# the text-generation server
+
+
+def put(url: str, request: dict, timeout: float = 60.0):
+    """PUT `request` to the server's /api: (status, the JSON answer)."""
+    import json
+    import urllib.error
+    import urllib.request
+    req = urllib.request.Request(url + "/api", method="PUT",
+                                 data=json.dumps(request).encode(),
+                                 headers={"Content-Type": "application/json"})
+    try:
+        with urllib.request.urlopen(req, timeout=timeout) as r:
+            return r.status, json.loads(r.read())
+    except urllib.error.HTTPError as e:
+        return e.code, json.loads(e.read())
+
+
+def serve_rank(rank, world, tmp_path, cases):
+    """Each case (name, argv, requests): the server tool's `build` on this
+    rank of a --tensor-model-parallel-size launch (its group through a
+    `file://` store), rank 0 serving on port 0 and putting each request to
+    itself over HTTP while the others follow, then releasing them. Rank 0
+    saves, by case, the answers, its tensor-parallel size and its wqkv
+    shard's shape."""
+    from megatron_clip_tpu_torch.inference.server import run_server
+    from megatron_clip_tpu_torch.parallel import mesh
+    from megatron_clip_tpu_torch.tools import run_text_generation_server \
+        as tool
+    parse, out = tool.parse_args, {}
+    for name, argv, requests in cases:
+        def with_store(a, name=name):
+            args = parse(a)
+            args.dist_url = init_url(tmp_path, f"serve-{name}")
+            return args
+        tool.parse_args = with_store
+        try:
+            service, _ = tool.build(argv, timeout=GROUP_TIMEOUT)
+        finally:
+            tool.parse_args = parse
+        try:
+            if not service.leader:
+                service.follow()
+                continue
+            srv = run_server(service, port=0)
+            url = f"http://127.0.0.1:{srv.server_address[1]}"
+            try:
+                out[name] = {
+                    "answers": [put(url, r) for r in requests],
+                    "tp": service.model.tp,
+                    "wqkv": tuple(service.model.blocks[0].attn["wqkv"].shape)}
+            finally:
+                srv.shutdown()
+                service.stop()
+        finally:
+            mesh.destroy()
+    save_result(tmp_path, rank, out)
